@@ -5,34 +5,59 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. print the card's name and power limit, build every kernel of the STLT eval
-   path from ``stlt_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+1. print the card's name and power limit, build every kernel from
+   ``stlt_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, in bf16
-   and f32, at the shapes the main path gives it (spatial: rows = B*17,
+   and f32, at the shapes the main paths give it (spatial: rows = B*17,
    T = 8, ragged ``rows_live``; temporal: rows = B, T = 17, causal plus
-   padding bias, ragged ``tokens_live``), and time kernel, plain version and
-   a composition of PyTorch library calls (a yardstick only) with CUDA
-   events, at the main-path batch and at B = 1024;
+   padding bias, ragged ``tokens_live``; the eval attention and both train
+   kernels also at T = 33, the 32-frame temporal stage), and time kernel,
+   plain version and a composition of PyTorch library calls (a yardstick
+   only) with CUDA events: the eval kernels at B = 64 and 1024, the train
+   kernels (dropout 0.1 and 0) at B = 64 and, in bf16, 512;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
    ragged lengths): the row count, finite scores and the launch counts are
    asserted, and one batch's logits are held against the plain path on the
    card;
-4. print the kernel table as one JSON line, then the result line.
+4. train a full-width bf16 STLT (dropout 0.1, learning rate 1e-3) with
+   ``python -m stlt_tpu_torch.train``'s entry point: 256 train and 64
+   validation clips, batch 64, 2 epochs, so 8 AdamW steps and 2 validation
+   passes. Finite losses, two epoch records, a best ``.pt`` that loads with
+   ``strict=True``, and the launch counts (each train kernel 12 per step,
+   each eval kernel 12 per validation batch) are asserted. Then one train
+   step from the same weights, batch and seeds, kernels against the plain
+   path on the card: loss and gradients, and the step times at B = 64 and
+   512, with a ``torch.profiler`` breakdown of one kernel-path step by
+   kernel group;
+5. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
-points; the two differ only in the order of their sums):
+points, same keep bits; the two differ only in the order of their sums):
 
 - f32 ops: atol = rtol = 1e-4. Sums run over up to 3072 products, and
   LayerNorm divides by the row's spread, so reordering moves the last bits
-  of an f32 value; 1e-4 holds that with margin and nothing more.
+  of an f32 value; 1e-4 holds that with margin and nothing more. One
+  flipped dropout bit moves an output by a probability times a value
+  (about 1e-2) and fails it.
 - bf16 ops: atol = 6e-2, rtol = 2e-2. A reordered f32 sum can round to the
   neighbouring bf16 value (2**-8 relative), and a flipped intermediate moves
   a LayerNorm output by a few bf16 steps.
+- summed weight gradients (dWo, dbo and the five gradients of the train
+  op): relative Frobenius-norm error 1e-5 in f32, 2e-2 in bf16. Each is a
+  sum over every token, so elementwise bounds would track the sum's size;
+  the relative norm holds the rounding of the summands (2**-8 in bf16).
 - bf16 logits of the whole model: atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
+- one full-width bf16 train step, kernels against plain: loss atol 5e-2
+  (the logits' tolerance); each parameter's gradient within a relative norm
+  of 3e-2, and all of them joined within 5e-2: twelve layers of bf16
+  roundings taken at the same points but by other sums. The worst single
+  tensor measured 8.2e-3 (H100), so 3e-2 leaves room for that rounding and
+  still catches a backward fault confined to a few layers' attention
+  weights, which the joined norm, led by the largest gradients, would hide.
 """
 
 from __future__ import annotations
@@ -55,6 +80,10 @@ SPATIAL_LAYERS, TEMPORAL_LAYERS = 4, 8
 NUM_CLASSES = 174
 BATCH, NUM_BATCHES = 64, 3
 THROUGHPUT_BATCH = 1024
+TRAIN_BATCH = 512  # bench.py::bench_stlt_train's batch
+LONG_FRAMES = 33  # the 32-frame configuration's temporal T
+TRAIN_CLIPS, VAL_CLIPS, TRAIN_EPOCHS, TRAIN_LABELS = 256, 64, 2, 5
+DROPOUT = 0.1
 EPS = 1e-12
 SEED = 0
 
@@ -67,10 +96,22 @@ OP_TOL = {
     torch.bfloat16: dict(atol=6e-2, rtol=2e-2),
 }
 LOGITS_ATOL = 5e-2
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL = 5e-2, 5e-2, 3e-2
 
 REPLACES = {
     "fused_proj_attention": "stlt_tpu/ops/fused_encoder.py:154",
     "fused_layer_tail": "stlt_tpu/ops/fused_encoder.py:456",
+    "fused_proj_attention_train": "stlt_tpu/ops/fused_encoder.py:1011",
+    "fused_proj_attention_train_bwd": "stlt_tpu/ops/fused_encoder.py:737",
+}
+EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
+TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
+SOURCES = {
+    "fused_proj_attention": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
+    "fused_layer_tail": "stlt_tpu_torch/csrc/fused_layer_tail.cu",
+    "fused_proj_attention_train": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
+    "fused_proj_attention_train_bwd": "stlt_tpu_torch/csrc/fused_proj_attention_bwd.cu",
 }
 
 
@@ -104,16 +145,17 @@ def make_weights(gen, device):
     }
 
 
-def make_stage(stage: str, clips: int, dtype, gen, device):
-    """Inputs one encoder layer of ``stage`` sees at ``clips`` clips:
-    (x, attn_out, bias, live kwargs, [rows, T] bool of the tokens the
-    attention computes, [rows, T] bool of the tokens the tail computes)."""
+def make_stage(stage: str, clips: int, dtype, gen, device, frames: int = NUM_FRAMES):
+    """Inputs one encoder layer of ``stage`` sees at ``clips`` clips of
+    ``frames`` frames: (x, attn_out, bias, live kwargs, [rows, T] bool of the
+    tokens the attention computes, [rows, T] bool of the tokens the tail
+    computes)."""
     from stlt_tpu_torch.ops import masks
 
-    lengths = torch.randint(4, NUM_FRAMES + 1, (clips,), generator=gen)
-    frame_live = torch.arange(NUM_FRAMES)[None, :] < lengths[:, None]  # [clips, F]
+    lengths = torch.randint(4, frames + 1, (clips,), generator=gen)
+    frame_live = torch.arange(frames)[None, :] < lengths[:, None]  # [clips, F]
     if stage == "spatial":
-        rows, T = clips * NUM_FRAMES, NUM_BOXES
+        rows, T = clips * frames, NUM_BOXES
         boxes = torch.randint(1, NUM_BOXES + 1, (rows,), generator=gen)
         pad = torch.arange(T)[None, :] >= boxes[:, None]  # slot 0 (CLS) is always live
         bias = masks.key_padding_bias(pad)  # [rows, 1, 1, T]
@@ -121,7 +163,7 @@ def make_stage(stage: str, clips: int, dtype, gen, device):
         live_kw = {"rows_live": rows_live.to(device)}
         proj_live = tail_live = rows_live[:, None].expand(rows, T)
     else:
-        rows, T = clips, NUM_FRAMES
+        rows, T = clips, frames
         bias = masks.causal_bias(T) + masks.key_padding_bias(~frame_live)  # [rows, 1, T, T]
         live_kw = {"tokens_live": frame_live.to(device)}
         proj_live = torch.ones((rows, T), dtype=torch.bool)  # temporal attention skips no row
@@ -218,10 +260,30 @@ def _check_close(name, got, want, live, tol):
     return err.max().item()
 
 
+def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, tol, **extra):
+    """Check ``kernel()`` against ``plain()`` (one output, elementwise) and
+    time kernel, plain version and library yardstick; returns the row."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = _check_close(f"{name} {stage} {dtype} B={clips} T={x.shape[1]}", got, want, live, tol)
+    iters = 20 if clips == BATCH else 5
+    bound_ms, bound_by = bound
+    row = {
+        "name": name, "stage": stage, "dtype": str(dtype).split(".")[1], "clips": clips,
+        "rows": x.shape[0], "T": x.shape[1], **extra,
+        "live_fraction": round(float(live.float().mean()), 4), "max_abs_err": err, "tol": tol,
+        "ms": cuda_ms(kernel, iters), "plain_ms": cuda_ms(plain, iters),
+        "library_ms": cuda_ms(library, iters), "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log("kernel_check " + json.dumps(row))
+    return row
+
+
 def check_kernels(device):
-    """Compare and time both kernels; returns the rows of the kernel table,
-    keyed by kernel name, measured at the main-path batch in bf16 on the
-    spatial stage (the larger one), with every other measurement printed."""
+    """Compare and time both eval kernels; returns the rows of the kernel
+    table, keyed by kernel name, measured at the main-path batch in bf16 on
+    the spatial stage (the larger one), with every other measurement
+    printed."""
     from stlt_tpu_torch.ops import fused_encoder as fe
 
     gen = torch.Generator().manual_seed(SEED)
@@ -230,64 +292,183 @@ def check_kernels(device):
     for dtype in (torch.bfloat16, torch.float32):
         tol = OP_TOL[dtype]
         lib_p, lib_t = library_proj(w, dtype), library_tail(w, dtype)
-        for stage in ("spatial", "temporal"):
-            for clips in (BATCH, THROUGHPUT_BATCH):
-                if clips == THROUGHPUT_BATCH and dtype != torch.bfloat16:
-                    continue
-                x, a, bias, live_kw, proj_live, tail_live = make_stage(stage, clips, dtype, gen, device)
-                rows_live = live_kw.get("rows_live")
-                proj_args = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias)
-                proj_kw = dict(num_heads=HEADS, compute_dtype=dtype, rows_live=rows_live)
-                tail_args = (x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"], w["b2"],
-                             w["n2s"], w["n2b"])
-                tail_kw = dict(eps=EPS, compute_dtype=dtype, activation="gelu",
-                               gelu_approximate=dtype == torch.bfloat16, **live_kw)
-                ops = {
-                    "fused_proj_attention": (
-                        lambda: fe.fused_proj_attention(*proj_args, **proj_kw),
-                        lambda: fe.fused_proj_attention_plain(*proj_args, **proj_kw),
-                        lambda: lib_p(x, bias.to(dtype)),
-                        proj_bound(x, bias, proj_live, dtype),
-                        proj_live,
-                    ),
-                    "fused_layer_tail": (
-                        lambda: fe.fused_layer_tail(*tail_args, **tail_kw),
-                        lambda: fe.fused_layer_tail_plain(*tail_args, **tail_kw),
-                        lambda: lib_t(x, a),
-                        tail_bound(x, tail_live, dtype),
-                        tail_live,
-                    ),
-                }
-                for name, (kernel, plain, library, (bound_ms, bound_by), live) in ops.items():
-                    got, want = kernel(), plain()
-                    torch.cuda.synchronize()
-                    err = _check_close(f"{name} {stage} {dtype} B={clips}", got, want, live, tol)
-                    iters = 20 if clips == BATCH else 5
-                    ms = cuda_ms(kernel, iters)
-                    plain_ms = cuda_ms(plain, iters)
-                    library_ms = cuda_ms(library, iters)
-                    row = {
-                        "name": name, "stage": stage, "dtype": str(dtype).split(".")[1],
-                        "clips": clips, "rows": x.shape[0], "T": x.shape[1],
-                        "live_fraction": round(float(live.float().mean()), 4),
-                        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    }
-                    log("kernel_check " + json.dumps(row))
-                    if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16:
-                        table[name] = row
-                del x, a, bias, live_kw, proj_live, tail_live, ops
-                torch.cuda.empty_cache()
+        for stage, clips, frames in (("spatial", BATCH, NUM_FRAMES),
+                                     ("spatial", THROUGHPUT_BATCH, NUM_FRAMES),
+                                     ("temporal", BATCH, NUM_FRAMES),
+                                     ("temporal", THROUGHPUT_BATCH, NUM_FRAMES),
+                                     ("temporal", BATCH, LONG_FRAMES)):
+            if clips == THROUGHPUT_BATCH and dtype != torch.bfloat16:
+                continue
+            x, a, bias, live_kw, proj_live, tail_live = make_stage(
+                stage, clips, dtype, gen, device, frames)
+            proj_args = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias)
+            proj_kw = dict(num_heads=HEADS, compute_dtype=dtype, rows_live=live_kw.get("rows_live"))
+            row = _measure(
+                "fused_proj_attention", stage, dtype, clips, x,
+                lambda: fe.fused_proj_attention(*proj_args, **proj_kw),
+                lambda: fe.fused_proj_attention_plain(*proj_args, **proj_kw),
+                lambda: lib_p(x, bias.to(dtype)), proj_bound(x, bias, proj_live, dtype),
+                proj_live, tol,
+            )
+            if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16:
+                table["fused_proj_attention"] = row
+            if frames == LONG_FRAMES:
+                continue  # the tail's shapes do not depend on T
+            tail_args = (x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"], w["b2"],
+                         w["n2s"], w["n2b"])
+            tail_kw = dict(eps=EPS, compute_dtype=dtype, activation="gelu",
+                           gelu_approximate=dtype == torch.bfloat16, **live_kw)
+            row = _measure(
+                "fused_layer_tail", stage, dtype, clips, x,
+                lambda: fe.fused_layer_tail(*tail_args, **tail_kw),
+                lambda: fe.fused_layer_tail_plain(*tail_args, **tail_kw),
+                lambda: lib_t(x, a), tail_bound(x, tail_live, dtype), tail_live, tol,
+            )
+            if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16:
+                table["fused_layer_tail"] = row
+            del x, a, bias, live_kw, proj_live, tail_live
+            torch.cuda.empty_cache()
+    return table
+
+
+# --- phase 2, train: the train op's forward and backward kernels --------------
+
+
+def train_bwd_bound(x, bias, live, dtype):
+    """(ms, "bytes" | "operations") for the backward kernel on these inputs:
+    per live row 10*T*H^2 + 12*T^2*H flops (q/k/v and do recompute 6TH^2 +
+    2TH^2, dWo 2TH^2, the attention recompute 4T^2H and its backward 8T^2H)
+    against x and g read (live rows), dqkv written (every row), Wqkv, bqkv and
+    Wo read and dWo, dbo written once. The wrapper's three GEMMs (dx, dWqkv,
+    dbqkv) are not the kernel's and are timed apart."""
+    rows, T, _ = x.shape
+    live_rows = int(live[:, 0].sum())
+    es = x.element_size()
+    flops = live_rows * (10 * T * H * H + 12 * T * T * H)
+    nbytes = 2 * live_rows * T * H * es + rows * T * 3 * H * es
+    nbytes += (4 * H * H + 3 * H) * es + (H * H + H) * 4 + bias.numel() * 4 + rows
+    return _bound(flops, nbytes, dtype)
+
+
+def library_train(w, dtype, rate):
+    """``F.linear`` + ``scaled_dot_product_attention`` (with ``dropout_p``) +
+    ``F.linear`` and its autograd backward: the same work from PyTorch's
+    library calls, a yardstick only."""
+    D = H // HEADS
+    leaves = [w["wqkv"].t().contiguous().to(dtype), w["bqkv"].to(dtype),
+              w["wo"].t().contiguous().to(dtype), w["bo"].to(dtype)]
+    leaves = [t.requires_grad_() for t in leaves]
+
+    def forward(x, bias):
+        rows, T, _ = x.shape
+        q, k, v = F.linear(x, leaves[0], leaves[1]).view(rows, T, 3, HEADS, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=rate)
+        return F.linear(o.transpose(1, 2).reshape(rows, T, H), leaves[2], leaves[3])
+
+    def backward(y, x, g):
+        return torch.autograd.grad(y, [x, *leaves], g, retain_graph=True)
+
+    return forward, backward
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def check_train_kernels(device):
+    """Compare the train forward and backward kernels with their plain
+    versions (dropout 0.1 and 0, the same seed), and the five gradients of
+    the whole autograd op with the plain backward plus the wrapper's GEMMs;
+    time both kernels at B = 64 and, in bf16, 512. Returns the kernel-table
+    rows (spatial, bf16, B = 64, dropout 0.1)."""
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    w = make_weights(gen, device)
+    seed = 0x5EED5EED
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        cases = [(stage, clips, frames, rate)
+                 for stage, frames in (("spatial", NUM_FRAMES), ("temporal", NUM_FRAMES),
+                                       ("temporal", LONG_FRAMES))
+                 for clips in (BATCH, TRAIN_BATCH)
+                 for rate in (DROPOUT, 0.0)
+                 if (clips == BATCH or (dtype == torch.bfloat16 and frames == NUM_FRAMES
+                                        and rate == DROPOUT))]
+        for stage, clips, frames, rate in cases:
+            x, _, bias, live_kw, proj_live, _ = make_stage(stage, clips, dtype, gen, device, frames)
+            g = torch.randn(x.shape, generator=gen).to(device, dtype)
+            rows_live = live_kw.get("rows_live")
+            if rows_live is not None:
+                g[~rows_live] = 0  # as in the model: dead rows get no cotangent
+            kw = dict(num_heads=HEADS, dropout_rate=rate, compute_dtype=dtype, rows_live=rows_live)
+            fwd = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias, seed)
+            bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed)
+            lib_f, lib_b = library_train(w, dtype, rate)
+            label = f"{stage} {dtype} B={clips} T={x.shape[1]} rate={rate}"
+
+            row_f = _measure(
+                "fused_proj_attention_train", stage, dtype, clips, x,
+                lambda: fe.fused_proj_attention_train(*fwd, **kw),
+                lambda: fe.fused_proj_attention_train_plain(*fwd, **kw),
+                lambda: lib_f(x, bias.to(dtype)), proj_bound(x, bias, proj_live, dtype),
+                proj_live, tol, rate=rate,
+            )
+            # The wrapper on leaves that record the graph: its forward, then
+            # its backward through both kernels.
+            leaves = [t.detach().clone().requires_grad_() for t in fwd[:5]]
+            y = fe.fused_proj_attention_train(*leaves, bias, seed, **kw)
+            _check_close(f"fused_proj_attention_train (autograd) {label}", y.detach(),
+                         fe.fused_proj_attention_train_plain(*fwd, **kw), proj_live, tol)
+            y.backward(g)
+            got, want = fe._launch_proj_bwd(*bwd, **kw), fe.fused_proj_attention_train_bwd_plain(*bwd, **kw)
+            again = fe._launch_proj_bwd(*bwd, **kw)
+            torch.cuda.synchronize()
+            err = _check_close(f"fused_proj_attention_train_bwd dqkv {label}", got[0], want[0],
+                               proj_live, tol)
+            rel = {"dwo": _rel(got[1], want[1]), "dbo": _rel(got[2], want[2])}
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"backward {label}: two runs differ")
+            plain = (*fe.proj_input_grads(x, w["wqkv"], want[0], dtype), want[1], want[2])
+            for name, leaf, ref in zip(("dx", "dwqkv", "dbqkv", "dwo_op", "dbo_op"), leaves, plain):
+                rel[name] = _rel(leaf.grad, ref)
+            if max(rel.values()) > GRAD_REL[dtype] or not all(
+                    torch.isfinite(t).all() for t in (*got, *(l.grad for l in leaves))):
+                raise AssertionError(f"backward {label}: gradients disagree with plain: {rel}")
+            dead = ~proj_live
+            if dead.any() and leaves[0].grad[dead].abs().max().item() != 0.0:
+                raise AssertionError(f"backward {label}: dead rows have nonzero dx")
+            iters = 20 if clips == BATCH else 5
+            lib_x = x.detach().requires_grad_()
+            y_lib = lib_f(lib_x, bias.to(dtype))
+            row_b = {
+                "name": "fused_proj_attention_train_bwd", "stage": stage,
+                "dtype": str(dtype).split(".")[1], "clips": clips, "rows": x.shape[0],
+                "T": x.shape[1], "rate": rate, "max_abs_err": err, "rel_err": rel,
+                "ms": cuda_ms(lambda: fe._launch_proj_bwd(*bwd, **kw), iters),
+                "plain_ms": cuda_ms(lambda: fe.fused_proj_attention_train_bwd_plain(*bwd, **kw), iters),
+                "library_ms": cuda_ms(lambda: lib_b(y_lib, lib_x, g), iters),
+                "wrapper_gemms_ms": cuda_ms(lambda: fe.proj_input_grads(x, w["wqkv"], got[0], dtype), iters),
+            }
+            row_b["bound_ms"], row_b["bound_by"] = train_bwd_bound(x, bias, proj_live, dtype)
+            log("kernel_check " + json.dumps(row_b))
+            if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16 and rate == DROPOUT:
+                table["fused_proj_attention_train"] = row_f
+                table["fused_proj_attention_train_bwd"] = row_b
+            del x, g, bias, got, want, again, leaves, y, y_lib, lib_x
+            torch.cuda.empty_cache()
     return table
 
 
 # --- phase 3: the main path through the prediction entry point ----------------
 
 
-def write_something_dataset(root: str, num_videos: int, seed: int):
+def write_something_dataset(root: str, num_videos: int, seed: int, num_used: int = NUM_CLASSES):
     """A synthetic dataset in the Something-Else layout schema (174 labels,
-    hand/object boxes, 3..24 frames a clip, so sampled lengths are ragged).
-    Returns {dataset_path, labels_path, videoid2size_path}."""
+    of which the clips use the first ``num_used``; hand/object boxes, 3..24
+    frames a clip, so sampled lengths are ragged). Returns the paths of
+    {dataset, labels, videoid2size}."""
     rng = np.random.default_rng(seed)
     templates = [f"Doing something {i}" for i in range(NUM_CLASSES)]
     labels = {t: str(i) for i, t in enumerate(templates)}
@@ -309,7 +490,7 @@ def write_something_dataset(root: str, num_videos: int, seed: int):
                     "score": float(rng.uniform(0.3, 1.0)),
                 })
             frames.append({"frame_objects": objs})
-        videos.append({"id": vid, "template": templates[int(rng.integers(NUM_CLASSES))],
+        videos.append({"id": vid, "template": templates[int(rng.integers(num_used))],
                        "frames": frames})
     paths = {name: os.path.join(root, f"{name}.json")
              for name in ("dataset", "labels", "videoid2size")}
@@ -375,7 +556,9 @@ def run_main_path(device):
             if len(scores) != 5 or not all(math.isfinite(s) and 0 <= s <= 1 for s in scores):
                 raise AssertionError(f"bad scores in {row}")
         want = (SPATIAL_LAYERS + TEMPORAL_LAYERS) * NUM_BATCHES
-        for name in REPLACES:
+        if any(launches[name] for name in TRAIN_KERNELS):
+            raise AssertionError(f"predict launched a train kernel: {launches}")
+        for name in EVAL_KERNELS:
             if launches[name] != want:
                 raise AssertionError(f"{name} launched {launches[name]} times on the main "
                                      f"path, expected {want} (one per layer per batch)")
@@ -413,6 +596,239 @@ def run_main_path(device):
         return launches
 
 
+# --- phase 4: the train path through the train entry point -------------------
+
+
+class plain_kernels:
+    """Within the block, the train op's wrappers on the card run their plain
+    versions (forward and backward) instead of launching the kernels."""
+
+    def __enter__(self):
+        from stlt_tpu_torch.ops import fused_encoder as fe
+
+        def plain_fwd(op, x, wqkv, bqkv, wo, bo, bias, *, seed=None, dropout_rate=0.0, **kw):
+            return fe.fused_proj_attention_train_plain(x, wqkv, bqkv, wo, bo, bias, seed,
+                                                       dropout_rate=dropout_rate, **kw)
+
+        self.fe = fe
+        self.saved = fe._launch_proj, fe._launch_proj_bwd
+        fe._launch_proj, fe._launch_proj_bwd = plain_fwd, fe.fused_proj_attention_train_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.fe._launch_proj, self.fe._launch_proj_bwd = self.saved
+        return False
+
+
+def _split_dataset(paths, root):
+    """Train and validation files from one written dataset (shared labels
+    and frame sizes): the first TRAIN_CLIPS clips and the rest."""
+    with open(paths["dataset"]) as f:
+        videos = json.load(f)
+    out = {}
+    for name, part in (("train", videos[:TRAIN_CLIPS]), ("val", videos[TRAIN_CLIPS:])):
+        out[name] = os.path.join(root, f"{name}.json")
+        with open(out[name], "w") as f:
+            json.dump(part, f)
+    return out
+
+
+def _one_step(model, batch, criterion):
+    """Loss and gradients of one train step from the model's weights."""
+    from stlt_tpu_torch.training.loop import step_generator
+
+    model.zero_grad(set_to_none=True)
+    inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+    loss = criterion(model(inputs, step_generator(SEED, 0)), batch["labels"], batch["valid"])
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def _train_step(model, criterion):
+    from stlt_tpu_torch.training.loop import make_train_step
+    from stlt_tpu_torch.training.optimizer import make_optimizer
+
+    optimizer, scheduler = make_optimizer(model, learning_rate=1e-5, weight_decay=1e-3,
+                                          num_warmup_steps=1, num_training_steps=100)
+    return make_train_step(model, optimizer, scheduler, criterion, 5.0)
+
+
+def _step_ms(model, batch, criterion, steps: int = 5) -> float:
+    """Mean wall time of a whole train step (forward, backward, clip, AdamW),
+    synchronised, after two warmup steps."""
+    from stlt_tpu_torch.training.loop import step_generator
+
+    step = _train_step(model, criterion)
+    for i in range(2):
+        step(batch, step_generator(SEED, i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(batch, step_generator(SEED, 2 + i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
+    ("attention forward kernel", ("fused_proj_attn",)),
+    ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+)
+
+
+def _profile_step(model, batch, criterion, clips: int) -> None:
+    """Device time of one train step through the kernels, by kernel group
+    (torch.profiler), beside the step's wall time: the device's idle share
+    is 1 - busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stlt_tpu_torch.training.loop import step_generator
+
+    step = _train_step(model, criterion)
+    step(batch, step_generator(SEED, 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, step_generator(SEED, 1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device events, without the optimizer's annotation range (it spans the
+    # AdamW kernels, which are counted themselves).
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels or busy_ms == 0:
+        log(f"train step profile of {clips} clips: device time not measured (no device events)")
+        return
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other (elementwise, norms, reductions, copies)"] = 0.0
+    for e in kernels:
+        name = next((g for g, keys in KERNEL_GROUPS if any(k in e.key for k in keys)),
+                    "other (elementwise, norms, reductions, copies)")
+        groups[name] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log("train_step_profile " + json.dumps({
+        "clips": clips, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "groups_ms": groups,
+        "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                         "device_ms": e.self_device_time_total / 1e3} for e in top],
+    }))
+
+
+def run_train_path(device):
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.utils.convert import read_state_dict
+
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_train_") as root:
+        # Five labels in use and a learning rate of 1e-3, so that eight steps
+        # lift validation accuracy above 0 and an epoch saves the best
+        # checkpoint (an untrained model's top-5 over 174 classes may hit none
+        # of 64 clips, and then no epoch is the best one).
+        paths = write_something_dataset(root, TRAIN_CLIPS + VAL_CLIPS, SEED + 2, num_used=TRAIN_LABELS)
+        split = _split_dataset(paths, root)
+        best = os.path.join(root, "best.pt")
+        argv = [
+            "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+            "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
+            "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+            "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+            "--num_spatial_layers", str(SPATIAL_LAYERS),
+            "--num_temporal_layers", str(TEMPORAL_LAYERS), "--hidden_dropout_prob", str(DROPOUT),
+            "--batch_size", str(BATCH), "--epochs", str(TRAIN_EPOCHS), "--warmup_epochs", "1",
+            "--learning_rate", "1e-3",
+            "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
+            "--save_model_path", best,
+        ]
+        fe.reset_launches()
+        t0 = time.perf_counter()
+        result = port_train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fe.LAUNCHES)
+        log(f"train: {result.step} steps, {len(result.epochs)} epochs in {seconds:.3f} s "
+            f"(data and model set-up included); launches {launches}")
+        for record in result.epochs:
+            log("train_epoch " + json.dumps(record))
+        records, steps_taken = result.epochs, result.step
+        del result  # the trained model and its optimizer state
+
+        steps_per_epoch = TRAIN_CLIPS // BATCH
+        val_batches = -(-VAL_CLIPS // BATCH)
+        if (len(records) != TRAIN_EPOCHS or steps_taken != TRAIN_EPOCHS * steps_per_epoch
+                or not all(math.isfinite(r["train_loss"]) for r in records)):
+            raise AssertionError(f"train: bad epoch records {records}")
+        if not any(r["is_best"] for r in records):
+            raise AssertionError(f"train: no epoch saved a best checkpoint: {records}")
+        layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
+        want = {name: layers * steps_taken for name in TRAIN_KERNELS}
+        want.update({name: layers * val_batches * TRAIN_EPOCHS for name in EVAL_KERNELS})
+        if launches != want:
+            raise AssertionError(f"train: launches {launches}, expected {want} (12 layers per "
+                                 f"train step for each train kernel, per validation batch for "
+                                 f"each eval kernel)")
+
+        data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
+                              labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                              train=True)
+        model_kw = dict(
+            num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+            num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+            num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16",
+            hidden_dropout_prob=DROPOUT, layout_num_frames=position_table_rows(data_cfg),
+        )
+        model = models_factory["stlt"](make_model_config("stlt", **model_kw))
+        model.load_state_dict(read_state_dict(best), strict=True)
+        model = model.to(device).train()
+        log(f"train: best checkpoint {os.path.getsize(best)} bytes loads with strict=True")
+
+        # One step from the same weights, batch and seeds: kernels against plain.
+        dataset = datasets_factory["layout"](data_cfg)
+        loader = Loader(dataset, BATCH, collaters_factory["layout"](data_cfg), prefetch=0)
+        batch = next(iter(to_device(loader, device)))
+        criterion = make_criterion("something")
+        loss_k, grads_k = _one_step(model, batch, criterion)
+        with plain_kernels():
+            loss_p, grads_p = _one_step(model, batch, criterion)
+        flat_k = torch.cat([grads_k[n].float().flatten() for n in grads_p])
+        flat_p = torch.cat([grads_p[n].float().flatten() for n in grads_p])
+        rel = _rel(flat_k, flat_p)
+        per_tensor = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
+        worst = max(per_tensor, key=per_tensor.get)
+        over = {n: e for n, e in per_tensor.items() if e > STEP_TENSOR_REL}
+        log(f"train step, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+            f"(atol {STEP_LOSS_ATOL}); gradient relative norm error {rel:.3e} "
+            f"(tolerance {STEP_GRAD_REL}) over {len(grads_p)} tensors, worst tensor "
+            f"{worst} {per_tensor[worst]:.3e} (tolerance {STEP_TENSOR_REL} each)")
+        if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > STEP_LOSS_ATOL:
+            raise AssertionError("train step: kernel path disagrees with the plain path (loss)")
+        if not torch.isfinite(flat_k).all() or rel > STEP_GRAD_REL or over:
+            raise AssertionError(f"train step: kernel path disagrees with the plain path "
+                                 f"(grads; joined {rel:.3e}, tensors over {STEP_TENSOR_REL}: {over})")
+        del grads_k, grads_p, flat_k, flat_p
+
+        step_ms = {}
+        for clips in (BATCH, TRAIN_BATCH):
+            big = {k: v.repeat(clips // BATCH, *([1] * (v.dim() - 1))) for k, v in batch.items()}
+            ms = _step_ms(model, big, criterion)
+            with plain_kernels():
+                plain_ms = _step_ms(model, big, criterion)
+            step_ms[clips] = {"ms": ms, "plain_ms": plain_ms}
+            log(f"train step of {clips} clips (full width, bf16, dropout {DROPOUT}): kernels "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            _profile_step(model, big, criterion, clips)
+            del big
+            torch.cuda.empty_cache()
+        return launches, step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -435,12 +851,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     table = check_kernels(device)
-    launches = run_main_path(device)
+    table.update(check_train_kernels(device))
+    launches = run_main_path(device)  # the predict path: eval kernels
+    train_launches, _ = run_train_path(device)  # the train path: train kernels
+    launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
 
     kernels = []
-    for name, row in table.items():
+    for name in REPLACES:
+        row = table[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"stlt_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
+
 namespace stlt {
 
 namespace wmma = nvcuda::wmma;
@@ -22,6 +24,7 @@ namespace wmma = nvcuda::wmma;
 constexpr int kThreads = 256;  // 8 warps; SIMT thread (ty, tx) = (tid / 64, tid % 64)
 constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 32;        // token rows of one block's tile
+constexpr int kTK = 64;        // keys of one attention row at most (T <= 64)
 constexpr int kRM = kTM / (kThreads / 64);  // rows each SIMT thread accumulates
 constexpr int kPad = 8;        // bf16 padding of shared tile rows (spreads banks, keeps 32 B alignment)
 
@@ -45,6 +48,45 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// lowbias32, the full-avalanche 32-bit mix of the counter-hashed dropout
+// (stlt_tpu/ops/flash.py::_lowbias32); unsigned arithmetic wraps mod 2**32.
+__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Attention-probability dropout of the train kernels: the scale 1/(1-rate)
+// for a kept (global row b, head n, query t, key s), else 0. The bit is
+// stlt_tpu/ops/flash.py::_keep_block's: lane lowbias32((b*N + n) ^ seed),
+// counter t*S + s over the unpadded key count S, kept when
+// lowbias32(counter ^ lane) >= thresh.
+struct Dropout {
+  int on;
+  uint32_t seed, thresh;
+  float scale;
+  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads,
+                                              uint32_t t, uint32_t s, uint32_t s_total) const {
+    const uint32_t lane = lowbias32((b * num_heads + n) ^ seed);
+    return lowbias32((t * s_total + s) ^ lane) >= thresh ? scale : 0.f;
+  }
+};
+
+// 1 if any of the block's rows is live (no live flags: all are).
+__device__ __forceinline__ int block_has_live(const uint8_t* live, int row0, int nrows) {
+  __shared__ int any_live;
+  if (threadIdx.x == 0) {
+    int l = 0;
+    for (int r = 0; r < nrows; ++r) l |= live == nullptr || live[row0 + r];
+    any_live = l;
+  }
+  __syncthreads();
+  return any_live;
 }
 
 // flax LayerNorm statistics of one token row held in shared memory, by one

@@ -1,4 +1,4 @@
-"""Post-LN transformer encoder blocks, eval only.
+"""Post-LN transformer encoder blocks, eval and train.
 
 Port of ``stlt_tpu/models/layers.py``: ``apply_layer_norm`` (:106),
 ``MultiHeadAttention`` (:131), ``activation_fn`` (:377),
@@ -9,10 +9,20 @@ Attribute names are the reference's torch names (the keys
 ``linear2``, ``norm1``, ``norm2`` and ``layers.N``. Parameters are f32 and
 are cast to the compute dtype where the JAX code casts.
 
-Every encoder layer is exactly two fused ops (``ops/fused_encoder``):
-projection+attention, then the layer tail. They run the CUDA kernels on a
-CUDA tensor and their plain versions on a CPU tensor. Dropout is not part
-of the eval path; training is a later slice.
+``module.train()``/``module.eval()`` take the place of JAX's
+``deterministic`` flag (``eval`` is ``deterministic=True``):
+
+- eval: every encoder layer is exactly two fused ops (``ops/fused_encoder``),
+  projection+attention, then the layer tail;
+- train: the attention is ``fused_proj_attention_train`` (its forward and
+  backward kernels, with hashed probability dropout), and the tail is the
+  plain chain of ``layers.py:512-561`` with its three hashed dropout sites
+  (``ops/dropout.py``), as the JAX package runs it below 256 frames.
+
+The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
+on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
+(attention, tail), where JAX draws two from its ``dropout`` stream; the
+encoder draws them from a ``torch.Generator`` it is given.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stlt_tpu_torch.ops import fused_encoder as fe
+from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -51,6 +62,25 @@ def activation_fn(name: str, dtype: torch.dtype):
     return lambda x: fe.activation_fn(x, name, approximate)
 
 
+def draw_seeds(generator: Optional[torch.Generator], n: int):
+    """``n`` uint32 dropout seeds from ``generator``, in order."""
+    if generator is None:
+        raise ValueError("train mode with dropout needs a torch.Generator for its seeds")
+    return torch.randint(0, 2 ** 32, (n,), generator=generator, dtype=torch.int64).tolist()
+
+
+def embedding_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: keep with probability 1-rate, kept values divided
+    by 1-rate in x's dtype. The mask is drawn on x's device from a generator
+    seeded by one draw of ``generator``."""
+    if rate <= 0.0:
+        return x
+    (seed,) = draw_seeds(generator, 1)
+    device_gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=device_gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
@@ -70,11 +100,12 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with torch ``nn.MultiheadAttention``'s parameters."""
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_rate: float = 0.0):
         super().__init__()
         assert hidden_size % num_heads == 0
         self.num_heads = num_heads
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
         self.out_proj = nn.Linear(hidden_size, hidden_size)
@@ -82,12 +113,13 @@ class MultiHeadAttention(nn.Module):
         uniform_(self.in_proj_weight, math.sqrt(6.0 / (4.0 * hidden_size)), generator)
         init_linear_(self.out_proj, generator, zero_bias=True)
 
-    def forward(self, x, bias=None, rows_live=None) -> torch.Tensor:
-        return fe.fused_proj_attention(
-            x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
-            self.out_proj.weight.t(), self.out_proj.bias, bias,
-            num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live,
-        )
+    def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None) -> torch.Tensor:
+        args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
+                self.out_proj.weight.t(), self.out_proj.bias, bias)
+        kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
+        if self.training:
+            return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate, **kw)
+        return fe.fused_proj_attention(*args, **kw)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -96,12 +128,13 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_rate: float = 0.0):
         super().__init__()
         self.activation = activation
         self.layer_norm_eps = layer_norm_eps
         self.dtype = dtype
-        self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, generator)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, generator, dropout_rate)
         self.linear1 = nn.Linear(hidden_size, ff_size)
         self.linear2 = nn.Linear(ff_size, hidden_size)
         self.norm1 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
@@ -109,7 +142,15 @@ class TransformerEncoderLayer(nn.Module):
         init_linear_(self.linear1, generator)
         init_linear_(self.linear2, generator)
 
-    def forward(self, x, bias=None, rows_live=None, tokens_live=None) -> torch.Tensor:
+    def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None) -> torch.Tensor:
+        """``seeds``: (attention, tail) uint32 dropout seeds, used in train
+        mode with a nonzero dropout rate."""
+        if self.training:
+            if self.dropout_rate > 0.0 and seeds is None:
+                raise ValueError("train mode with dropout needs the layer's two dropout seeds")
+            attn_seed, tail_seed = seeds if seeds is not None else (None, None)
+            attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed)
+            return self._train_tail(x, attn_out, tail_seed)
         attn_out = self.self_attn(x, bias, rows_live=rows_live)
         return fe.fused_layer_tail(
             x, attn_out, self.norm1.weight, self.norm1.bias,
@@ -122,23 +163,48 @@ class TransformerEncoderLayer(nn.Module):
             rows_live=rows_live, tokens_live=tokens_live,
         )
 
+    def _train_tail(self, x, attn_out, seed: Optional[int]) -> torch.Tensor:
+        """The plain train tail (``layers.py:512-561``): hashed dropout on the
+        attention output, on the activation and on the FFN output, each its
+        own stream of one seed; no dead-token zeroing, as in JAX."""
+        dt, rate = self.dtype, self.dropout_rate
+        drop = rate > 0.0
+        if drop:
+            attn_out = hashed_dropout(attn_out, seed, TAG_ATTN_DROP, rate)
+        u = apply_layer_norm(x + attn_out, self.norm1.weight, self.norm1.bias, self.layer_norm_eps, dt)
+        h = activation_fn(self.activation, dt)(apply_dense(u, self.linear1, dt))
+        if drop:
+            h = hashed_dropout(h, seed, TAG_MID_DROP, rate)
+        h = apply_dense(h, self.linear2, dt)
+        if drop:
+            h = hashed_dropout(h, seed, TAG_OUT_DROP, rate)
+        return apply_layer_norm(u + h, self.norm2.weight, self.norm2.bias, self.layer_norm_eps, dt)
+
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN encoder layers (torch ``nn.TransformerEncoder``)."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(
                 hidden_size, num_heads, ff_size, activation=activation,
                 layer_norm_eps=layer_norm_eps, dtype=dtype, generator=generator,
+                dropout_rate=dropout_rate,
             )
             for _ in range(num_layers)
         )
 
-    def forward(self, x, bias=None, rows_live=None, tokens_live=None) -> torch.Tensor:
+    def forward(self, x, bias=None, rows_live=None, tokens_live=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode with dropout, each layer's (attention, tail) seeds
+        are drawn from ``generator``, layer by layer."""
         for layer in self.layers:
-            x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live)
+            seeds = None
+            if self.training and self.dropout_rate > 0.0:
+                seeds = draw_seeds(generator, 2)
+            x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds)
         return x

@@ -1,4 +1,4 @@
-"""STLT, the Spatial-Temporal Layout Transformer, eval only (batch-first).
+"""STLT, the Spatial-Temporal Layout Transformer, eval and train (batch-first).
 
 Port of ``stlt_tpu/models/stlt.py``: ``CategoryBoxEmbeddings`` (:74),
 ``SpatialTransformer`` (:105), ``FramesEmbeddings`` (:195), ``StltBackbone``
@@ -14,6 +14,15 @@ temporal tail zeroes pad-frame tokens (``tokens_live``). They reach later
 attention only as -1e9-masked keys, so the logits do not depend on them.
 The ragged levers of the JAX package (``apply_frame_capacity``, the
 live-prefix fold) are a later slice.
+
+``model.train()`` is JAX's ``deterministic=False``: the two embedding
+dropouts (``stlt.py:100,232``) apply, and every encoder layer runs its train
+path (``models/layers.py``): the attention through the train kernels, the
+tail through the plain chain with hashed dropout. The random draws come, in
+forward order, from the ``torch.Generator`` passed to :meth:`Stlt.forward`:
+the category-box embedding mask, each spatial layer's two seeds, the frame
+embedding mask, each temporal layer's two seeds. ``model.eval()`` runs the
+eval kernels and draws nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from stlt_tpu_torch.models.layers import (
     activation_fn,
     apply_dense,
     apply_layer_norm,
+    embedding_dropout,
     init_linear_,
 )
 from stlt_tpu_torch.ops import masks
@@ -55,7 +65,7 @@ def _encoder(cfg: StltModelConfig, num_layers: int, generator) -> TransformerEnc
     return TransformerEncoder(
         num_layers, cfg.hidden_size, cfg.num_attention_heads, cfg.hidden_size * 4,
         activation="gelu", layer_norm_eps=cfg.layer_norm_eps, dtype=_dtype(cfg),
-        generator=generator,
+        generator=generator, dropout_rate=cfg.hidden_dropout_prob,
     )
 
 
@@ -64,6 +74,7 @@ class CategoryBoxEmbeddings(nn.Module):
         super().__init__()
         self.dtype = _dtype(cfg)
         self.eps = cfg.layer_norm_eps
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.category_embeddings = _embedding(cfg.unique_categories, cfg.hidden_size, generator, 0)
         self.box_embedding = nn.Linear(4, cfg.hidden_size)
         self.score_embeddings = nn.Linear(1, cfg.hidden_size)
@@ -71,14 +82,15 @@ class CategoryBoxEmbeddings(nn.Module):
         init_linear_(self.box_embedding, generator)
         init_linear_(self.score_embeddings, generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
         dt = self.dtype
         emb = nn.functional.embedding(batch["categories"], self.category_embeddings.weight.to(dt))
         emb = emb + apply_dense(batch["boxes"], self.box_embedding, dt)
         if "scores" in batch:
             # Only Action Genome batches carry detector scores.
             emb = emb + apply_dense(batch["scores"][..., None], self.score_embeddings, dt)
-        return apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
+        emb = apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
+        return embedding_dropout(emb, self.dropout_rate, generator) if self.training else emb
 
 
 class SpatialTransformer(nn.Module):
@@ -94,15 +106,16 @@ class SpatialTransformer(nn.Module):
         )
         self.transformer = _encoder(cfg, cfg.num_spatial_layers, generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        tokens = self.category_box_embeddings(batch)  # [B, F, O, H]
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+        tokens = self.category_box_embeddings(batch, generator)  # [B, F, O, H]
         B, F, O, H = tokens.shape
         pad_bias = masks.key_padding_bias(
             masks.boxes_padding_mask(batch["categories"]).reshape(B * F, O)
         )
         # Pad-frame compaction: rows of pad frames are dead downstream.
         rows_live = (batch["frame_types"] != 0).reshape(B * F)
-        tokens = self.transformer(tokens.reshape(B * F, O, H), pad_bias, rows_live=rows_live)
+        tokens = self.transformer(tokens.reshape(B * F, O, H), pad_bias, rows_live=rows_live,
+                                  generator=generator)
         return tokens[:, 0, :].reshape(B, F, H)  # the frame-CLS token
 
 
@@ -111,6 +124,7 @@ class FramesEmbeddings(nn.Module):
         super().__init__()
         self.dtype = _dtype(cfg)
         self.eps = cfg.layer_norm_eps
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.layout_num_frames = cfg.layout_num_frames
         self.layout_embedding = SpatialTransformer(cfg, generator)
         self.position_embeddings = _embedding(cfg.layout_num_frames, cfg.hidden_size, generator)
@@ -120,9 +134,9 @@ class FramesEmbeddings(nn.Module):
             "position_ids", torch.arange(cfg.layout_num_frames).expand((1, -1))
         )
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
         dt = self.dtype
-        frames = self.layout_embedding(batch)
+        frames = self.layout_embedding(batch, generator)
         num_frames = frames.shape[1]
         if num_frames > self.layout_num_frames:
             raise ValueError(
@@ -133,7 +147,8 @@ class FramesEmbeddings(nn.Module):
         positions = self.position_embeddings.weight[None, :num_frames].to(dt)
         types = nn.functional.embedding(batch["frame_types"], self.frame_type_embedding.weight.to(dt))
         emb = frames + positions + types
-        return apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
+        emb = apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
+        return embedding_dropout(emb, self.dropout_rate, generator) if self.training else emb
 
 
 class StltBackbone(nn.Module):
@@ -142,14 +157,14 @@ class StltBackbone(nn.Module):
         self.frames_embeddings = FramesEmbeddings(cfg, generator)
         self.transformer = _encoder(cfg, cfg.num_temporal_layers, generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        emb = self.frames_embeddings(batch)
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+        emb = self.frames_embeddings(batch, generator)
         num_frames = emb.shape[1]
         bias = masks.causal_bias(num_frames, emb.device) + masks.key_padding_bias(
             masks.frames_padding_mask(batch["frame_types"])
         )
         tokens_live = batch["frame_types"] != 0
-        return self.transformer(emb, bias, tokens_live=tokens_live)  # [B, F, H]
+        return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator)  # [B, F, H]
 
 
 class ClassificationHead(nn.Module):
@@ -193,9 +208,10 @@ class Stlt(nn.Module):
             _dtype(config), generator,
         )
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise RuntimeError("the port serves the eval path only: call model.eval()")
-        hidden = self.backbone(batch)
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Logits {"stlt": [B, C] f32}. In train mode with dropout,
+        ``generator`` (a CPU ``torch.Generator``) supplies every random draw."""
+        hidden = self.backbone(batch, generator)
         pooled = gather_extract_frame(hidden, batch["lengths"])
         return {"stlt": self.prediction_head(pooled).to(torch.float32)}

@@ -28,14 +28,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # C entry point and argument types of each kernel library.
 SIGNATURES = {
     "fused_proj_attention": (
         "stlt_fused_proj_attention",
         # x, wqkv, bqkv, wo, bo, bias, bias_row_stride, bias_q_stride,
-        # rows_live, out, rows, seq, hidden, num_heads, scale, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # rows_live, out, rows, seq, hidden, num_heads, scale,
+        # dropout, seed, thresh, dropout_scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+    ),
+    "fused_proj_attention_bwd": (
+        "stlt_fused_proj_attention_bwd",
+        # x, wqkv, bqkv, wot, bias, bias_row_stride, bias_q_stride, g,
+        # rows_live, dqkv, attn, partial, partial_b, dwo, dbo, rows, seq,
+        # hidden, num_heads, scale, dropout, seed, thresh, dropout_scale,
+        # splits, chunk, dtype, stream
+        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+         _I, _U, _U, _F, _I, _LL, _I, _P],
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",

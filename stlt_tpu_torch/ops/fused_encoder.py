@@ -1,15 +1,21 @@
-"""Fused encoder-layer ops of the eval path: projection+attention and the
-layer tail. Port of the eval halves of ``stlt_tpu/ops/fused_encoder.py``.
+"""Fused encoder-layer ops: projection+attention (eval and train) and the
+eval layer tail. Port of ``stlt_tpu/ops/fused_encoder.py``:
+``fused_proj_attention`` (:327), ``fused_layer_tail`` (:578) and
+``fused_proj_attention_train`` (:946) with its forward (:961) and backward
+(:1028).
 
 Each op has three parts:
 
-- the wrapper (``fused_proj_attention``, ``fused_layer_tail``): a CUDA tensor
-  launches the hand-written kernel (``csrc/<op>.cu``) or raises; a CPU tensor
-  takes the plain version. The device alone decides; there is no fallback;
+- the wrapper (``fused_proj_attention``, ``fused_layer_tail``,
+  ``fused_proj_attention_train``): a CUDA tensor launches the hand-written
+  kernels (``csrc/<op>.cu``; the train op's backward
+  ``csrc/fused_proj_attention_bwd.cu``) or raises; a CPU tensor takes the
+  plain versions. The device alone decides; there is no fallback;
 - the plain PyTorch version (``*_plain``) of the same function, with the same
   rounding points;
 - a launch count in :data:`LAUNCHES`, raised by one where the wrapper
-  launches its kernel and nowhere else.
+  launches its kernel and nowhere else (``fused_proj_attention_train`` for
+  the train forward, ``fused_proj_attention_train_bwd`` for its backward).
 
 Numerics are the kernel contract of the JAX package's ``use_pallas=True``
 path, not its TPU blocking:
@@ -17,14 +23,21 @@ path, not its TPU blocking:
 - ``fused_proj_attention`` rounds ``wqkv``/``bqkv``/``wo``/``bo`` and ``qkv``
   (after the f32 bias add) to the compute dtype; logits and softmax are f32
   with scale ``1/sqrt(D)``; the attention output is rounded to the compute
-  dtype before the out-projection, which accumulates in f32.
+  dtype before the out-projection, which accumulates in f32. T <= 64.
+- ``fused_proj_attention_train`` is the same forward with each probability
+  multiplied by keep * 1/(1-rate), the keep bits hashed from (seed, global
+  row, head, t, s) (``ops/dropout.py``). Its backward recomputes qkv and the
+  probabilities and follows ``_fused_proj_bwd_body`` step for step: dqkv in
+  the compute dtype, dWo and dbo in f32; dx, dWqkv (f32) and dbqkv (f32) are
+  plain GEMMs (:func:`proj_input_grads`).
 - ``fused_layer_tail`` does the residual adds in the compute dtype, adds
   ``b1``, ``b2`` and the LayerNorm parameters in f32, and applies the
   activation to the compute-dtype hidden op for op in that dtype, as JAX
   does (:func:`gelu`).
 - Dead rows (``rows_live``) and dead tokens (``tokens_live``) come out as
-  exact zeros. The JAX kernels zero whole dead row blocks only; either way
-  dead rows reach later attention only as -1e9-masked keys.
+  exact zeros, and dead rows get zero gradients. The JAX kernels zero whole
+  dead row blocks only; either way dead rows reach later attention only as
+  -1e9-masked keys, so their cotangents are exactly zero.
 
 The TPU artefacts (T padded to a multiple of 8, tokens flattened into rows of
 8, row-block pickers, VMEM budgets) do not carry over.
@@ -39,14 +52,20 @@ import torch
 import torch.nn.functional as F
 
 from stlt_tpu_torch.ops import _kernels
+from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 
-LAUNCHES = {"fused_proj_attention": 0, "fused_layer_tail": 0}
+LAUNCHES = {
+    "fused_proj_attention": 0,
+    "fused_layer_tail": 0,
+    "fused_proj_attention_train": 0,
+    "fused_proj_attention_train_bwd": 0,
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Hidden sizes the CUDA kernels are instantiated for (64 x these).
 _KERNEL_WIDTHS = (1, 2, 4, 8, 12, 16)
 _KERNEL_HEAD_DIM = 64
-_KERNEL_MAX_SEQ = 32
+_KERNEL_MAX_SEQ = 64  # FUSED_PROJ_MAX_SEQ of the JAX package
 _KERNEL_FF_CHUNK = 128
 
 
@@ -103,6 +122,50 @@ def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device) -> torch.T
 # --- projection + attention ---------------------------------------------------
 
 
+def _keep_scale(seed: Optional[int], dropout_rate: float, B: int, N: int, T: int, device):
+    """keep * 1/(1-rate) [B, N, T, T] f32 of the probability dropout, or None
+    when it is off (no seed or rate 0), as in ``_fused_proj_train_fwd``."""
+    if seed is None or dropout_rate <= 0.0:
+        return None
+    keep = hash_keep_mask(seed, B, N, T, T, dropout_rate, device).to(torch.float32)
+    return keep * (1.0 / (1.0 - dropout_rate))
+
+
+def _qkv_probs(x, wqkv, bqkv, bias, num_heads: int, cd: torch.dtype):
+    """q, k, v [B, N, T, D] (f32 holding compute-dtype values) and the f32
+    softmax probabilities [B, N, T, T] of the kernels' contract."""
+    B, T, H = x.shape
+    N = num_heads
+    D = H // N
+    f32 = torch.float32
+    qkv = x.to(cd).to(f32) @ wqkv.to(cd).to(f32) + bqkv.to(cd).to(f32)
+    qkv = qkv.to(cd).to(f32).reshape(B, T, 3, N, D).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    logits = (q @ k.transpose(-1, -2)) * (1.0 / D ** 0.5)
+    logits = logits + _bias3(bias, B, T, x.device)[:, None]
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    probs = torch.exp(logits)
+    return q, k, v, probs / probs.sum(dim=-1, keepdim=True)
+
+
+def _zero_dead_rows(t: torch.Tensor, rows_live) -> torch.Tensor:
+    if rows_live is None:
+        return t
+    live = rows_live.reshape(-1, *([1] * (t.dim() - 1))).to(torch.bool)
+    return torch.where(live, t, torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def _proj_attention_plain(x, wqkv, bqkv, wo, bo, bias, keep, num_heads, cd, rows_live):
+    B, T, H = x.shape
+    f32 = torch.float32
+    _, _, v, probs = _qkv_probs(x, wqkv, bqkv, bias, num_heads, cd)
+    if keep is not None:
+        probs = probs * keep
+    attn = (probs @ v).transpose(1, 2).reshape(B, T, H)
+    y = attn.to(cd).to(f32) @ wo.to(cd).to(f32) + bo.to(cd).to(f32)
+    return _zero_dead_rows(y, rows_live)
+
+
 def fused_proj_attention_plain(
     x: torch.Tensor,
     wqkv: torch.Tensor,
@@ -116,24 +179,71 @@ def fused_proj_attention_plain(
     rows_live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_proj_attention`."""
+    return _proj_attention_plain(
+        x, wqkv, bqkv, wo, bo, bias, None, num_heads, compute_dtype, rows_live
+    ).to(x.dtype)
+
+
+def _check_proj_kernel(op: str, x, wqkv, bqkv, wo, num_heads: int, compute_dtype) -> int:
     B, T, H = x.shape
-    N = num_heads
-    D = H // N
+    code = _check_kernel_dtypes(op, compute_dtype, x)
+    _check_kernel_width(op, H)
+    if H // num_heads != _KERNEL_HEAD_DIM or H % num_heads:
+        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got H/N={H / num_heads}")
+    if not 1 <= T <= _KERNEL_MAX_SEQ:
+        raise ValueError(f"{op}: the CUDA kernel takes T <= {_KERNEL_MAX_SEQ}, got T={T}")
+    if wqkv.shape != (H, 3 * H) or bqkv.shape != (3 * H,) or wo.shape != (H, H):
+        raise ValueError(f"{op}: weight shapes do not match H={H}")
+    return code
+
+
+def _bias_operand(bias, B: int, T: int, device):
+    """The bias as f32 [rows or 1, T or 1, T] and its row and query strides;
+    size-1 dims are read with stride 0."""
+    b3 = _bias3(bias, B, T, device).contiguous()
+    row_stride = b3.shape[1] * T if b3.shape[0] > 1 else 0
+    q_stride = T if b3.shape[1] > 1 else 0
+    return b3, row_stride, q_stride
+
+
+def _dropout_args(seed: Optional[int], dropout_rate: float):
+    """(on, seed, thresh, 1/(1-rate)) of the kernels' probability dropout."""
+    if seed is None or dropout_rate <= 0.0:
+        return 0, 0, 0, 0.0
+    return 1, int(seed) & MASK32, dropout_thresh(dropout_rate), 1.0 / (1.0 - dropout_rate)
+
+
+def _live_flags(rows_live, B: int):
+    return None if rows_live is None else rows_live.reshape(B).to(torch.uint8).contiguous()
+
+
+def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, rows_live,
+                 seed=None, dropout_rate=0.0) -> torch.Tensor:
+    """Launch csrc/fused_proj_attention.cu (eval, or train with dropout)."""
+    B, T, H = x.shape
+    code = _check_proj_kernel(op, x, wqkv, bqkv, wo, num_heads, compute_dtype)
+    if bo.shape != (H,):
+        raise ValueError(f"{op}: bo shape does not match H={H}")
     cd = compute_dtype
-    f32 = torch.float32
-    qkv = x.to(cd).to(f32) @ wqkv.to(cd).to(f32) + bqkv.to(cd).to(f32)
-    qkv = qkv.to(cd).to(f32).reshape(B, T, 3, N, D).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]  # [B, N, T, D]
-    logits = (q @ k.transpose(-1, -2)) * (1.0 / D ** 0.5)
-    logits = logits + _bias3(bias, B, T, x.device)[:, None]
-    logits = logits - logits.amax(dim=-1, keepdim=True)
-    probs = torch.exp(logits)
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    attn = (probs @ v).transpose(1, 2).reshape(B, T, H)
-    y = attn.to(cd).to(f32) @ wo.to(cd).to(f32) + bo.to(cd).to(f32)
-    if rows_live is not None:
-        y = torch.where(rows_live.reshape(B, 1, 1).to(torch.bool), y, torch.zeros((), dtype=f32, device=y.device))
-    return y.to(x.dtype)
+    x = x.contiguous()
+    wqkv = wqkv.to(cd).contiguous()
+    bqkv = bqkv.to(cd).contiguous()
+    wo = wo.to(cd).contiguous()
+    bo = bo.to(cd).contiguous()
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
+    live = _live_flags(rows_live, B)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _kernels.launch(
+            "fused_proj_attention", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
+            None if live is None else live.data_ptr(), out.data_ptr(),
+            B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
+            *_dropout_args(seed, dropout_rate), code, stream,
+        )
+    LAUNCHES[op] += 1
+    return out
 
 
 def fused_proj_attention(
@@ -153,43 +263,182 @@ def fused_proj_attention(
     wo: [H, H] (input-major); bo: [H]; bias: head-invariant, broadcastable
     to [B, 1, T, T]; rows_live: optional [B] bool, dead rows -> zeros.
     Returns [B, T, H] in x.dtype."""
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, rows_live=rows_live)
     if _on_cpu(x, "fused_proj_attention"):
-        return fused_proj_attention_plain(
-            x, wqkv, bqkv, wo, bo, bias, num_heads=num_heads,
-            compute_dtype=compute_dtype, rows_live=rows_live,
-        )
-    op = "fused_proj_attention"
+        return fused_proj_attention_plain(x, wqkv, bqkv, wo, bo, bias, **kw)
+    return _launch_proj("fused_proj_attention", x, wqkv, bqkv, wo, bo, bias, **kw)
+
+
+# --- projection + attention, train: hashed dropout and the backward -----------
+
+
+def fused_proj_attention_train_plain(
+    x, wqkv, bqkv, wo, bo, bias, seed: Optional[int], *, num_heads: int,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the train forward: the eval function with
+    each probability multiplied by keep * 1/(1-rate) before the product with
+    v. Returns [B, T, H] in the compute dtype."""
+    B, T, _ = x.shape
+    keep = _keep_scale(seed, dropout_rate, B, num_heads, T, x.device)
+    return _proj_attention_plain(
+        x, wqkv, bqkv, wo, bo, bias, keep, num_heads, compute_dtype, rows_live
+    ).to(compute_dtype)
+
+
+def fused_proj_attention_train_bwd_plain(
+    x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *, num_heads: int,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None,
+):
+    """Plain PyTorch version of the backward kernel, step for step as
+    ``_fused_proj_bwd_body``: (dqkv [B, T, 3H] in the compute dtype, dWo
+    [H, H] f32, dbo [H] f32). Dead rows get zero dqkv and add nothing to
+    dWo and dbo: the forward's dead rows are constant zeros."""
     B, T, H = x.shape
-    code = _check_kernel_dtypes(op, compute_dtype, x)
-    _check_kernel_width(op, H)
-    if H // num_heads != _KERNEL_HEAD_DIM or H % num_heads:
-        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got H/N={H / num_heads}")
-    if not 1 <= T <= _KERNEL_MAX_SEQ:
-        raise ValueError(f"{op}: the CUDA kernel takes T <= {_KERNEL_MAX_SEQ}, got T={T}")
-    if wqkv.shape != (H, 3 * H) or bqkv.shape != (3 * H,) or wo.shape != (H, H) or bo.shape != (H,):
-        raise ValueError(f"{op}: weight shapes do not match H={H}")
+    N = num_heads
+    D = H // N
     cd = compute_dtype
+    f32 = torch.float32
+    q, k, v, p = _qkv_probs(x, wqkv, bqkv, bias, N, cd)
+    g32 = _zero_dead_rows(g.to(cd).to(f32), rows_live)
+    dattn = g32 @ wo.to(cd).to(f32).t()
+    do = dattn.reshape(B, T, N, D).transpose(1, 2)
+    dp = do @ v.transpose(-1, -2)
+    pv = p
+    keep = _keep_scale(seed, dropout_rate, B, N, T, x.device)
+    if keep is not None:
+        pv = p * keep
+        dp = dp * keep
+    attn = (pv @ v).transpose(1, 2).reshape(B * T, H)
+    dz = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    scale = 1.0 / D ** 0.5
+    dq = (dz @ k) * scale
+    dk = (dz.transpose(-1, -2) @ q) * scale
+    dv = pv.transpose(-1, -2) @ do
+    dqkv = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H)
+    g2 = g32.reshape(B * T, H)
+    dwo = attn.to(cd).to(f32).t() @ g2.to(cd).to(f32)
+    dbo = g2.sum(dim=0)
+    return dqkv.to(cd), dwo, dbo
+
+
+def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rate,
+                     compute_dtype, rows_live):
+    """Launch csrc/fused_proj_attention_bwd.cu: the backward kernel, then the
+    split dWo/dbo reduction over the attention scratch it writes."""
+    op = "fused_proj_attention_train_bwd"
+    B, T, H = x.shape
+    code = _check_proj_kernel(op, x, wqkv, bqkv, wo, num_heads, compute_dtype)
+    cd = compute_dtype
+    f32 = torch.float32
     x = x.contiguous()
+    g = g.to(cd).contiguous()
     wqkv = wqkv.to(cd).contiguous()
     bqkv = bqkv.to(cd).contiguous()
-    wo = wo.to(cd).contiguous()
-    bo = bo.to(cd).contiguous()
-    b3 = _bias3(bias, B, T, x.device).contiguous()
-    # Size-1 dims of b3 [rows or 1, T or 1, T] are read with stride 0.
-    row_stride = b3.shape[1] * T if b3.shape[0] > 1 else 0
-    q_stride = T if b3.shape[1] > 1 else 0
-    live = None if rows_live is None else rows_live.reshape(B).to(torch.uint8).contiguous()
-    out = torch.empty_like(x)
+    wot = wo.to(cd).t().contiguous()
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
+    live = _live_flags(rows_live, B)
+    tokens = B * T
+    # Split the dWo reduction over token chunks until about two waves of
+    # 64 x 64 tiles fill the card's 132 SMs, each chunk >= 256 tokens.
+    tiles = (H // 64) ** 2
+    splits = max(1, min(-(-264 // tiles), -(-tokens // 256)))
+    per_split = -(-tokens // splits)
+    chunk = -(-per_split // 32) * 32
+    dqkv = torch.empty((B, T, 3 * H), dtype=cd, device=x.device)
+    attn = torch.empty((tokens, H), dtype=cd, device=x.device)
+    partial = torch.empty((splits, H, H), dtype=f32, device=x.device)
+    partial_b = torch.empty((splits, H), dtype=f32, device=x.device)
+    dwo = torch.empty((H, H), dtype=f32, device=x.device)
+    dbo = torch.empty((H,), dtype=f32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _kernels.launch(
-            op, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-            bo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
-            None if live is None else live.data_ptr(), out.data_ptr(),
-            B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5), code, stream,
+            "fused_proj_attention_bwd", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wot.data_ptr(), b3.data_ptr(), row_stride, q_stride, g.data_ptr(),
+            None if live is None else live.data_ptr(), dqkv.data_ptr(), attn.data_ptr(),
+            partial.data_ptr(), partial_b.data_ptr(), dwo.data_ptr(), dbo.data_ptr(),
+            B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
+            *_dropout_args(seed, dropout_rate), splits, chunk, code, stream,
         )
     LAUNCHES[op] += 1
-    return out
+    return dqkv, dwo, dbo
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 sums and an f32 result, as JAX's
+    ``preferred_element_type=float32`` gives: bf16 operands on the card go
+    to cuBLAS with an f32 output; on the CPU the operands are widened to f32
+    (exact), which computes the same sums."""
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def proj_input_grads(x, wqkv, dqkv, compute_dtype):
+    """The three plain GEMMs after the backward kernel
+    (``_fused_proj_train_bwd`` leaves them to XLA): dx = dqkv Wqkv^T in x's
+    dtype, dWqkv = x^T dqkv and dbqkv = sum dqkv, both f32."""
+    B, T, H = x.shape
+    cd = compute_dtype
+    d2 = dqkv.reshape(B * T, 3 * H)
+    dx = _mm_f32(d2, wqkv.to(cd).t()).reshape(B, T, H).to(x.dtype)
+    dwqkv = _mm_f32(x.reshape(B * T, H).to(cd).t(), d2)
+    return dx, dwqkv, d2.to(torch.float32).sum(dim=0)
+
+
+class _ProjAttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bo, bias, rows_live, seed, num_heads, dropout_rate,
+                compute_dtype):
+        ctx.save_for_backward(x, wqkv, bqkv, wo, bias, rows_live)
+        ctx.config = dict(num_heads=num_heads, dropout_rate=dropout_rate,
+                          compute_dtype=compute_dtype)
+        ctx.seed = seed
+        kw = dict(ctx.config, rows_live=rows_live)
+        if _on_cpu(x, "fused_proj_attention_train"):
+            return fused_proj_attention_train_plain(x, wqkv, bqkv, wo, bo, bias, seed, **kw)
+        return _launch_proj("fused_proj_attention_train", x, wqkv, bqkv, wo, bo, bias,
+                            seed=seed, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, wo, bias, rows_live = ctx.saved_tensors
+        kw = dict(ctx.config, rows_live=rows_live)
+        if _on_cpu(g, "fused_proj_attention_train_bwd"):
+            dqkv, dwo, dbo = fused_proj_attention_train_bwd_plain(
+                x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
+        else:
+            dqkv, dwo, dbo = _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
+        dx, dwqkv, dbqkv = proj_input_grads(x, wqkv, dqkv, ctx.config["compute_dtype"])
+        return dx, dwqkv, dbqkv, dwo, dbo, None, None, None, None, None, None
+
+
+def fused_proj_attention_train(
+    x: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    seed: Optional[int],
+    *,
+    num_heads: int,
+    dropout_rate: float,
+    compute_dtype: torch.dtype,
+    rows_live: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Differentiable train-mode :func:`fused_proj_attention` with hashed
+    probability dropout (``seed``: a uint32 or None for none). x in the
+    compute dtype; returns [B, T, H] in it. Forward and backward launch
+    ``csrc/fused_proj_attention.cu`` (with dropout) and
+    ``csrc/fused_proj_attention_bwd.cu`` on a CUDA tensor and take their
+    plain versions on a CPU tensor; dx/dWqkv/dbqkv come from
+    :func:`proj_input_grads`. The bias gets no gradient."""
+    return _ProjAttentionTrain.apply(
+        x, wqkv, bqkv, wo, bo, bias, rows_live, seed, num_heads, float(dropout_rate),
+        compute_dtype,
+    )
 
 
 # --- layer tail: residual + LN1 -> FFN -> residual + LN2 ----------------------

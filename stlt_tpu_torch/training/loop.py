@@ -1,0 +1,139 @@
+"""The train step and the on-device eval steps.
+
+Own copy of ``stlt_tpu/training/loop.py`` for one device and
+``grad_accum = 1``: ``make_train_step`` (:65), ``make_eval_step`` (:181),
+``make_eval_counts_step`` (:191), ``make_eval_probs_step`` (:226) and the two
+accumulators (:251-288), which keep an epoch's counts or probabilities on the
+device and fetch them once.
+
+A train step is zero_grad -> forward in train mode -> loss -> backward ->
+global-norm clip -> AdamW -> schedule step. Its random draws (every layer's
+dropout seeds, the embedding-dropout masks) come from one explicit
+``torch.Generator`` built from (seed, step) by :func:`step_generator`; the
+global RNG is never used. Flax's ``make_rng`` stream cannot be reproduced,
+so the bits differ from the JAX package's while the distribution is the same.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
+
+
+def _model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step ``step`` of a run seeded ``seed``."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float) -> Callable:
+    """Returns ``train_step(batch, generator) -> (loss, grad_norm)``, both
+    device scalars; ``grad_norm`` is the global norm before the clip."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(_model_inputs(batch), generator)
+        loss = criterion(logits, batch["labels"], batch.get("valid"))
+        loss.backward()
+        grad_norm = clip_by_global_norm_(params, clip_val)
+        optimizer.step()
+        scheduler.step()
+        return loss.detach(), grad_norm
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        return model(_model_inputs(batch))
+
+    return eval_step
+
+
+def make_eval_counts_step(model) -> Callable:
+    """Forward plus on-device top-1/top-5 correct counts of every head
+    (Something metrics): two device ints per head and batch."""
+    eval_step = make_eval_step(model)
+
+    @torch.inference_mode()
+    def eval_counts_step(batch: Dict[str, torch.Tensor]):
+        logits = eval_step(batch)
+        labels = batch["labels"].long()
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+        counts = {}
+        for name, arr in logits.items():
+            k = min(5, arr.shape[-1])
+            top1 = (arr.argmax(dim=-1) == labels) & valid
+            top5 = (arr.topk(k, dim=-1).indices == labels[:, None]).any(dim=-1) & valid
+            counts[name] = (top1.sum(), top5.sum())
+        return counts
+
+    return eval_counts_step
+
+
+def make_eval_probs_step(model) -> Callable:
+    """Forward plus on-device sigmoid of the ``stlt`` head (the only head the
+    Action Genome evaluator reads)."""
+    eval_step = make_eval_step(model)
+
+    @torch.inference_mode()
+    def eval_probs_step(batch: Dict[str, torch.Tensor]):
+        probs = torch.sigmoid(eval_step(batch)["stlt"].to(torch.float32))
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones(probs.shape[0], dtype=torch.bool, device=probs.device)
+        return probs, batch["labels"], valid
+
+    return eval_probs_step
+
+
+class EvalCountAccumulator:
+    """Sums ``eval_counts_step`` outputs on the device; ``flush_into`` fetches
+    them once."""
+
+    def __init__(self):
+        self.totals = None
+
+    def add(self, counts) -> None:
+        if self.totals is None:
+            self.totals = counts
+        else:
+            self.totals = {k: tuple(a + b for a, b in zip(self.totals[k], counts[k]))
+                           for k in counts}
+
+    def flush_into(self, evaluator) -> None:
+        if self.totals is not None:
+            evaluator.process_counts({k: tuple(int(v) for v in pair)
+                                      for k, pair in self.totals.items()})
+        self.totals = None
+
+
+class EvalProbsAccumulator:
+    """Keeps each batch's (probs, labels, valid) on the device; ``flush_into``
+    fetches them once and feeds the evaluator."""
+
+    def __init__(self):
+        self.items = []
+
+    def add(self, triple) -> None:
+        self.items.append(triple)
+
+    def flush_into(self, evaluator) -> None:
+        if self.items:
+            probs, labels, valid = (torch.cat(parts).cpu().numpy() for parts in zip(*self.items))
+            evaluator.process_probs(probs, labels, valid=valid)
+        self.items = []

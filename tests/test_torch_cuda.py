@@ -73,6 +73,8 @@ def _close(got, want, dtype, live=None):
     (768, 17, "causal_padding", True),
     (256, 1, "none", False),
     (512, 32, "causal_padding", True),
+    (768, 33, "causal_padding", True),
+    (128, 64, "key_padding", True),
 ])
 def test_proj_attention_kernel_matches_plain(device, dtype, H, T, bias_kind, ragged):
     gen = torch.Generator().manual_seed(H + T)
@@ -126,12 +128,73 @@ def test_layer_tail_kernel_matches_plain(device, dtype, H, T, live_kind, activat
     _close(got, want, dtype, live)
 
 
+def _rel(got, want):
+    """Relative error in the Frobenius norm."""
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+# Summed weight gradients (dWo, dbo, dWqkv, dbqkv, and dx through the
+# Wqkv^T product) are held in the relative Frobenius norm: each element is a
+# sum over every token, so a reordered f32 sum or a neighbouring bf16 value of
+# one dqkv or attention element moves it by its own rounding, not the sum's.
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,T,bias_kind,ragged,rate", [
+    (768, 8, "key_padding", True, 0.1),
+    (768, 17, "causal_padding", False, 0.1),
+    (768, 33, "causal_padding", False, 0.1),
+    (128, 8, "key_padding", True, 0.0),
+    (64, 64, "causal_padding", True, 0.25),
+    (256, 5, "none", False, 0.1),
+])
+def test_train_kernels_match_plain(device, dtype, H, T, bias_kind, ragged, rate):
+    gen = torch.Generator().manual_seed(H + 3 * T)
+    rows = 29
+    N = H // 64
+    w = _weights(H, gen, device)
+    x = torch.randn(rows, T, H, generator=gen).to(device, dtype)
+    g = torch.randn(rows, T, H, generator=gen).to(device, dtype)
+    bias = _bias(bias_kind, rows, T, gen)
+    bias = None if bias is None else bias.to(device)
+    rows_live = (torch.rand(rows, generator=gen) < 0.6).to(device) if ragged else None
+    live = None if rows_live is None else rows_live[:, None].expand(rows, T)
+    seed = 987654321
+    kw = dict(num_heads=N, dropout_rate=rate, compute_dtype=dtype, rows_live=rows_live)
+
+    fwd = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias, seed)
+    fe.reset_launches()
+    got = fe._ProjAttentionTrain.apply(x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias,
+                                       rows_live, seed, N, rate, dtype)
+    assert fe.LAUNCHES["fused_proj_attention_train"] == 1
+    _close(got, fe.fused_proj_attention_train_plain(*fwd, **kw), dtype, live)
+
+    bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed)
+    dqkv, dwo, dbo = fe._launch_proj_bwd(*bwd, **kw)
+    assert fe.LAUNCHES["fused_proj_attention_train_bwd"] == 1
+    want = fe.fused_proj_attention_train_bwd_plain(*bwd, **kw)
+    torch.cuda.synchronize()
+    _close(dqkv, want[0], dtype, live)
+    assert _rel(dwo, want[1]) < GRAD_REL[dtype] and _rel(dbo, want[2]) < GRAD_REL[dtype]
+    again = fe._launch_proj_bwd(*bwd, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dqkv, dwo, dbo))), "not deterministic"
+
+    leaves = [t.clone().requires_grad_() for t in (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"])]
+    fe.fused_proj_attention_train(*leaves, bias, seed, **kw).backward(g)
+    plain = (*fe.proj_input_grads(x, w["wqkv"], want[0], dtype), want[1], want[2])
+    for name, a, b in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), [t.grad for t in leaves], plain):
+        assert _rel(a, b) < GRAD_REL[dtype], name
+        if live is not None and name == "dx":
+            assert a[~live].abs().max().item() == 0.0
+
+
 def test_kernels_refuse_what_they_do_not_take(device):
     gen = torch.Generator().manual_seed(0)
     w = _weights(64, gen, device)
-    x = torch.randn(2, 33, 64, device=device)
+    x = torch.randn(2, 65, 64, device=device)
     proj = (w["wqkv"], w["bqkv"], w["wo"], w["bo"], None)
-    with pytest.raises(ValueError, match="T <= 32"):
+    with pytest.raises(ValueError, match="T <= 64"):
         fe.fused_proj_attention(x, *proj, num_heads=1, compute_dtype=torch.float32)
     with pytest.raises(TypeError, match="compute dtype"):
         fe.fused_proj_attention(x[:, :8].bfloat16(), *proj, num_heads=1, compute_dtype=torch.float32)
@@ -167,5 +230,57 @@ def test_model_on_the_card_matches_the_plain_model(device):
         want = model(batch)["stlt"]
         fe.reset_launches()
         got = model.to(device)({k: v.to(device) for k, v in batch.items()})["stlt"]
-    assert fe.LAUNCHES == {"fused_proj_attention": 4, "fused_layer_tail": 4}
+    assert fe.LAUNCHES == {"fused_proj_attention": 4, "fused_layer_tail": 4,
+                           "fused_proj_attention_train": 0, "fused_proj_attention_train_bwd": 0}
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_the_card_matches_the_plain_step(device, monkeypatch):
+    """One f32 train step with dropout through the train kernels, against the
+    same step with the op's plain forward and backward on the card (same
+    weights, batch and generator): loss at 1e-5, every gradient within a
+    relative norm of 1e-4 (f32 sums in another order, through two layers)."""
+    from stlt_tpu_torch.configs import StltModelConfig
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import step_generator
+
+    cfg = StltModelConfig(num_classes=7, unique_categories=4, hidden_size=128,
+                          num_attention_heads=2, num_spatial_layers=1, num_temporal_layers=1,
+                          layout_num_frames=32, hidden_dropout_prob=0.1)
+    model = models_factory["stlt"](cfg, torch.Generator().manual_seed(4)).to(device).train()
+    gen = torch.Generator().manual_seed(5)
+    B, F, O = 6, 17, 8
+    lengths = torch.randint(3, F + 1, (B,), generator=gen)
+    pad = torch.arange(F)[None, :] >= lengths[:, None]
+    frame_types = torch.where(pad, 0, 2)
+    frame_types[torch.arange(B), lengths - 1] = 4
+    categories = torch.randint(1, 3, (B, F, O), generator=gen)
+    categories[:, :, 0] = 3
+    categories[pad] = torch.tensor([3] + [0] * (O - 1))
+    batch = {"categories": categories, "boxes": torch.rand(B, F, O, 4, generator=gen),
+             "frame_types": frame_types, "lengths": lengths}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    labels = torch.randint(0, 7, (B,), generator=gen).to(device)
+    criterion = make_criterion("something")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = criterion(model(batch, step_generator(0, 0)), labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    fe.reset_launches()
+    loss, grads = step()
+    assert fe.LAUNCHES["fused_proj_attention_train"] == 2
+    assert fe.LAUNCHES["fused_proj_attention_train_bwd"] == 2
+    monkeypatch.setattr(fe, "_launch_proj", lambda op, x, wqkv, bqkv, wo, bo, bias, *, seed=None,
+                        dropout_rate=0.0, **kw: fe.fused_proj_attention_train_plain(
+                            x, wqkv, bqkv, wo, bo, bias, seed, dropout_rate=dropout_rate, **kw))
+    monkeypatch.setattr(fe, "_launch_proj_bwd", fe.fused_proj_attention_train_bwd_plain)
+    plain_loss, plain_grads = step()
+    assert abs(loss - plain_loss) < 1e-5
+    assert set(grads) == set(plain_grads)
+    for name, g in grads.items():
+        assert _rel(g, plain_grads[name]) < 1e-4, name

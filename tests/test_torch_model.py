@@ -44,6 +44,9 @@ from stlt_tpu_torch.utils.convert import (
 )
 from tests.test_stlt_parity import small_config
 
+# Every kernel wrapper's launch count: none runs on a CPU tensor.
+ALL_KERNELS = ("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
+               "fused_proj_attention_train_bwd")
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 LOGITS_TOL = {
     "float32": dict(atol=2e-5, rtol=1e-5),
@@ -187,7 +190,7 @@ def test_logits_match_jax(dtype, ragged, use_pallas):
     want = np.asarray(jax_models["stlt"](cfg).apply({"params": params}, inputs)["stlt"])
     tfe.reset_launches()
     got = _port_logits(_port_model(cfg, params), inputs)
-    assert tfe.LAUNCHES == {"fused_proj_attention": 0, "fused_layer_tail": 0}
+    assert tfe.LAUNCHES == dict.fromkeys(ALL_KERNELS, 0)
     assert got.shape == (4, MODEL_KW["num_classes"]) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **LOGITS_TOL[dtype])
 
@@ -227,6 +230,9 @@ def test_too_many_frames_for_the_position_table_raises():
 
 
 def test_eval_only():
-    model = _port_model(JaxStltConfig(**MODEL_KW), _jax_params("float32")).train()
-    with pytest.raises(RuntimeError, match="eval path only"):
-        _port_logits(model, _inputs(False))
+    """Only eval mode runs without a generator: train mode draws its dropout
+    from an explicit torch.Generator and raises without one."""
+    model = _port_model(JaxStltConfig(**MODEL_KW), _jax_params("float32"))
+    assert np.isfinite(_port_logits(model, _inputs(False))).all()
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        _port_logits(model.train(), _inputs(False))

@@ -33,6 +33,9 @@ from stlt_tpu.ops import masks as jmasks
 from stlt_tpu_torch.ops import fused_encoder as tfe
 from stlt_tpu_torch.ops import masks as tmasks
 
+# Every kernel wrapper's launch count: none runs on a CPU tensor.
+ALL_KERNELS = ("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
+               "fused_proj_attention_train_bwd")
 TOL = {
     "float32": dict(atol=1e-5, rtol=1e-5),
     "bfloat16": dict(atol=6e-2, rtol=2e-2),
@@ -224,7 +227,7 @@ def test_kernel_choice_is_by_device_alone():
         torch.from_numpy(x), *(torch.from_numpy(w[k]) for k in ("wqkv", "bqkv", "wo", "bo")),
         torch.from_numpy(bias), num_heads=4, compute_dtype=torch.float32,
     )
-    assert tfe.LAUNCHES == {"fused_proj_attention": 0, "fused_layer_tail": 0}
+    assert tfe.LAUNCHES == dict.fromkeys(ALL_KERNELS, 0)
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         tfe.fused_proj_attention(
             torch.empty(2, 8, 64, device="meta"), *(torch.empty(s, device="meta") for s in
