@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero:
    kernels also at T = 33, the 32-frame temporal stage), and time kernel,
    plain version and a composition of PyTorch library calls (a yardstick
    only) with CUDA events: the eval kernels at B = 64 and 1024, the train
-   kernels (dropout 0.1 and 0) at B = 64 and, in bf16, 512;
+   kernels (dropout 0.1 and 0) at B = 64 and, in bf16, 512; and the two
+   long-clip attention kernels: the short one at T = 65, 257 and 512 (causal
+   plus padding bias), the blockwise one at T = 513 and 1025 (ragged
+   kv_lengths with 1 and T among them), timed at B = 64, T = 257 and
+   B = 32, T = 513 against ``scaled_dot_product_attention``;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -31,7 +35,18 @@ Phases, in order; any failure exits non-zero:
    path on the card: loss and gradients, and the step times at B = 64 and
    512, with a ``torch.profiler`` breakdown of one kernel-path step by
    kernel group;
-5. print the kernel table as one JSON line, then the result line.
+5. serve a random full-width bf16 STLT through ``predict`` at
+   ``--layout_num_frames 256`` (2 batches of 64 clips of 256-300 frames, every
+   slot live: the temporal attention on the short flash kernel) and 512 (2
+   batches of 32 clips of 32-256 frames: the blockwise kernel), asserting
+   rows, finite scores, the launch counts (per forward: 4 fused projection
+   attentions, 12 layer tails, 8 of the long-clip kernel, none of the other)
+   and one batch's logits against the plain path; then evaluate the 512-frame
+   set through ``inference`` with and without ``--live_prefix --use_pallas``
+   (finite metrics, the spatial attention on the live capacity's rows, one
+   batch's capped logits against the uncapped ones) and print the forward
+   times, kernels against plain;
+6. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -48,6 +63,11 @@ points, same keep bits; the two differ only in the order of their sums):
   op): relative Frobenius-norm error 1e-5 in f32, 2e-2 in bf16. Each is a
   sum over every token, so elementwise bounds would track the sum's size;
   the relative norm holds the rounding of the summands (2**-8 in bf16).
+- the long-clip attention kernels (out and lse): the same OP_TOL. Their sums
+  run over up to 1025 keys and the kernels take the softmax online over
+  chunks of 64 keys, which moves only the last bits of an f32 value; in
+  bf16 the output is rounded once, so a reordered sum can land on the
+  neighbouring bf16 value.
 - bf16 logits of the whole model: atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
@@ -104,15 +124,26 @@ REPLACES = {
     "fused_layer_tail": "stlt_tpu/ops/fused_encoder.py:456",
     "fused_proj_attention_train": "stlt_tpu/ops/fused_encoder.py:1011",
     "fused_proj_attention_train_bwd": "stlt_tpu/ops/fused_encoder.py:737",
+    "flash_attention": "stlt_tpu/ops/flash.py:119",
+    "blockwise_attention": "stlt_tpu/ops/flash.py:397",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
+LONG_KERNELS = ("flash_attention", "blockwise_attention")
 SOURCES = {
     "fused_proj_attention": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
     "fused_layer_tail": "stlt_tpu_torch/csrc/fused_layer_tail.cu",
     "fused_proj_attention_train": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
     "fused_proj_attention_train_bwd": "stlt_tpu_torch/csrc/fused_proj_attention_bwd.cu",
+    "flash_attention": "stlt_tpu_torch/csrc/flash_attention.cu",
+    "blockwise_attention": "stlt_tpu_torch/csrc/blockwise_attention.cu",
 }
+# Long clips (bench.py:154-266): --layout_num_frames -> (batch, the clips'
+# frame counts). 256 frames: every slot live (long_context); 512 frames:
+# clips of 32-256 frames, ~28 % of the slots live (long_context_512_ragged).
+LONG_CLIPS = {256: (64, (256, 301)), 512: (32, (32, 257))}
+LONG_NUM_BATCHES = 2
+CHECK_CLIPS = 6  # clips of the long-clip kernel checks
 
 
 def log(msg: str) -> None:
@@ -461,14 +492,148 @@ def check_train_kernels(device):
     return table
 
 
+# --- phase 2, long clips: the attention kernels of ops/flash.py ---------------
+
+
+def make_heads(clips: int, T: int, dtype, gen, device):
+    """q, k, v [clips, T, 12, 64]: the q/k/v thirds of one [clips, T, 3H]
+    projection, read through their strides, as the model passes them."""
+    qkv = torch.randn((clips, T, 3 * H), generator=gen).to(device, dtype)
+    return tuple(qkv[..., i * H:(i + 1) * H].unflatten(-1, (HEADS, H // HEADS)) for i in range(3))
+
+
+def ragged_lengths(clips: int, T: int, gen) -> torch.Tensor:
+    """Live frame counts in 1..T, with 1 and T among them."""
+    lengths = torch.randint(1, T + 1, (clips,), generator=gen)
+    lengths[0], lengths[1] = 1, T
+    return lengths
+
+
+def flash_bound(q, bias, dtype):
+    """(ms, "bytes" | "operations") for the short kernel on these inputs:
+    4*D flops per (query, key, head) over every pair, against q, k, v read
+    and out written once, and the bias (as given, f32) read once."""
+    B, T, N, D = q.shape
+    flops = 4 * D * N * B * T * T
+    nbytes = 4 * B * T * N * D * q.element_size() + bias.numel() * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def blockwise_bound(q, lengths, causal, dtype):
+    """(ms, "bytes" | "operations") for the blockwise kernel in lengths mode:
+    the flops of the live (query, key) pairs only (t, s < length; s <= t when
+    causal), q, k, v of the live rows read, out, lse and the lengths written
+    or read once."""
+    B, T, N, D = q.shape
+    L = lengths.to(torch.float64)
+    pairs = float((L * (L + 1) / 2).sum() if causal else (L * L).sum())
+    flops = 4 * D * N * pairs
+    nbytes = 3 * float(L.sum()) * N * D * q.element_size() + B * T * N * D * q.element_size()
+    nbytes += B * N * T * 4 + B * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def library_attention(q, k, v, mask):
+    """``scaled_dot_product_attention`` on the same inputs and mask: a
+    yardstick only, never called by the port."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def _causal_padding_bias(lengths, T, device):
+    """The temporal stage's dense bias [B, 1, T, T]: causal plus key padding."""
+    from stlt_tpu_torch.ops import masks
+
+    pad = torch.arange(T)[None, :] >= lengths[:, None]
+    return (masks.causal_bias(T) + masks.key_padding_bias(pad)).to(device)
+
+
+def check_long_kernels(device):
+    """The two long-clip kernels against their plain versions, bf16 and f32:
+    the short kernel at T = 65, 257 and 512 (causal plus padding bias, ragged
+    lengths), the blockwise kernel at T = 513 and 1025 (ragged kv_lengths with
+    1 and T among them; out on live rows, dead rows exact zeros, lse on live
+    rows). Then each timed against its plain version, the library yardstick
+    and its bound at the main path's shape (full-length clips, as bench.py's
+    long_context and long_context_512): the short kernel at B = 64, T = 257,
+    the blockwise one at B = 32, T = 513. Returns the bf16 rows of the kernel
+    table."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        for T in (65, 257, 512):
+            q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
+            lengths = ragged_lengths(CHECK_CLIPS, T, gen)
+            bias = _causal_padding_bias(lengths, T, device)
+            got, want = flash.fused_attention(q, k, v, bias), flash.fused_attention_plain(q, k, v, bias)
+            torch.cuda.synchronize()
+            err = _check_close(f"flash_attention {dtype} T={T}", got, want,
+                               torch.ones_like(got, dtype=torch.bool), tol)
+            log(f"kernel_check flash_attention {dtype} B={CHECK_CLIPS} T={T} lengths "
+                f"{lengths.tolist()}: max_abs_err {err:.3e}")
+        for T in (513, 1025):
+            q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
+            lengths = ragged_lengths(CHECK_CLIPS, T, gen).to(device)
+            out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+            want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths, causal=True)
+            torch.cuda.synchronize()
+            live = torch.arange(T, device=device)[None, :] < lengths[:, None]  # [B, T]
+            err = _check_close(f"blockwise_attention {dtype} T={T}", out, want,
+                               live[:, :, None, None].expand(out.shape), tol)
+            lse_err = _check_close(f"blockwise_attention lse {dtype} T={T}", lse, want_lse,
+                                   live[:, None, :].expand(lse.shape), tol)
+            log(f"kernel_check blockwise_attention {dtype} B={CHECK_CLIPS} T={T} lengths "
+                f"{lengths.tolist()}: max_abs_err out {err:.3e}, lse {lse_err:.3e}")
+            del q, k, v, out, lse, want, want_lse
+
+        # Timing at the main path's shapes (every clip full length).
+        q, k, v = make_heads(BATCH, 257, dtype, gen, device)
+        full = torch.full((BATCH,), 257)
+        bias = _causal_padding_bias(full, 257, device)
+        row = _measure(
+            "flash_attention", "temporal", dtype, BATCH, q,
+            lambda: flash.fused_attention(q, k, v, bias),
+            lambda: flash.fused_attention_plain(q, k, v, bias),
+            library_attention(q, k, v, bias.to(dtype)), flash_bound(q, bias, dtype),
+            torch.ones((BATCH, 257, HEADS, H // HEADS), dtype=torch.bool, device=device), tol,
+        )
+        if dtype == torch.bfloat16:
+            table["flash_attention"] = row
+        del q, k, v, bias
+        clips = LONG_CLIPS[512][0]
+        for name, lengths in (("full", torch.full((clips,), 513)),
+                              ("ragged 33-257", torch.randint(33, 258, (clips,), generator=gen))):
+            q, k, v = make_heads(clips, 513, dtype, gen, device)
+            lengths = lengths.to(device)
+            allowed = flash._lengths_dense_bias(lengths, 513, 513, True) == 0  # [B, 1, T, S]
+            live = torch.arange(513, device=device)[None, :] < lengths[:, None]
+            row = _measure(
+                "blockwise_attention", "temporal", dtype, clips, q,
+                lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)[0],
+                lambda: flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths, causal=True)[0],
+                library_attention(q, k, v, allowed), blockwise_bound(q, lengths, True, dtype),
+                live[:, :, None, None].expand(q.shape), tol, lengths=name,
+            )
+            if dtype == torch.bfloat16 and name == "full":
+                table["blockwise_attention"] = row
+            del q, k, v, allowed
+        torch.cuda.empty_cache()
+    return table
+
+
 # --- phase 3: the main path through the prediction entry point ----------------
 
 
-def write_something_dataset(root: str, num_videos: int, seed: int, num_used: int = NUM_CLASSES):
+def write_something_dataset(root: str, num_videos: int, seed: int, num_used: int = NUM_CLASSES,
+                            frames_range=(3, 25)):
     """A synthetic dataset in the Something-Else layout schema (174 labels,
-    of which the clips use the first ``num_used``; hand/object boxes, 3..24
-    frames a clip, so sampled lengths are ragged). Returns the paths of
-    {dataset, labels, videoid2size}."""
+    of which the clips use the first ``num_used``; hand/object boxes, a
+    frame count a clip drawn from ``frames_range`` (3..24 by default, so
+    sampled lengths are ragged)). Returns the paths of {dataset, labels,
+    videoid2size}."""
     rng = np.random.default_rng(seed)
     templates = [f"Doing something {i}" for i in range(NUM_CLASSES)]
     labels = {t: str(i) for i, t in enumerate(templates)}
@@ -478,7 +643,7 @@ def write_something_dataset(root: str, num_videos: int, seed: int, num_used: int
         width, height = int(rng.integers(200, 480)), int(rng.integers(150, 360))
         sizes[vid] = [width, height]
         frames = []
-        for _ in range(int(rng.integers(3, 25))):
+        for _ in range(int(rng.integers(*frames_range))):
             objs = []
             for _ in range(int(rng.integers(0, 8))):
                 x1, y1 = rng.uniform(0, width - 2), rng.uniform(0, height - 2)
@@ -505,7 +670,6 @@ def run_main_path(device):
     from stlt_tpu_torch.data import collaters_factory, datasets_factory
     from stlt_tpu_torch.data.loader import Loader, to_device
     from stlt_tpu_torch.models import models_factory
-    from stlt_tpu_torch.ops import fused_encoder as fe
     from stlt_tpu_torch import predict
     from stlt_tpu_torch.utils.convert import load_checkpoint
 
@@ -538,12 +702,12 @@ def run_main_path(device):
             "--output", out, "--top_k", "5",
         ]
 
-        fe.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         rows = predict.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(fe.LAUNCHES)
+        launches = all_launches()
         log(f"predict: {len(rows)} clips in {seconds:.3f} s (checkpoint load included); "
             f"launches {launches}")
 
@@ -556,8 +720,8 @@ def run_main_path(device):
             if len(scores) != 5 or not all(math.isfinite(s) and 0 <= s <= 1 for s in scores):
                 raise AssertionError(f"bad scores in {row}")
         want = (SPATIAL_LAYERS + TEMPORAL_LAYERS) * NUM_BATCHES
-        if any(launches[name] for name in TRAIN_KERNELS):
-            raise AssertionError(f"predict launched a train kernel: {launches}")
+        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS):
+            raise AssertionError(f"predict launched a train or long-clip kernel: {launches}")
         for name in EVAL_KERNELS:
             if launches[name] != want:
                 raise AssertionError(f"{name} launched {launches[name]} times on the main "
@@ -576,14 +740,9 @@ def run_main_path(device):
         with torch.inference_mode():
             got = model(batch)["stlt"]
             forward_ms = cuda_ms(lambda: model(batch), 10)
-            kernels = fe.fused_proj_attention, fe.fused_layer_tail
-            fe.fused_proj_attention, fe.fused_layer_tail = (
-                fe.fused_proj_attention_plain, fe.fused_layer_tail_plain)
-            try:
+            with plain_eval_path():
                 want_logits = model(batch)["stlt"]
                 plain_forward_ms = cuda_ms(lambda: model(batch), 10)
-            finally:
-                fe.fused_proj_attention, fe.fused_layer_tail = kernels
         err = (got - want_logits).abs().max().item()
         log(f"logits: shape {tuple(got.shape)}, max|logit| {want_logits.abs().max().item():.4f}, "
             f"max_abs_err kernels vs plain {err:.3e} (atol {LOGITS_ATOL}); "
@@ -675,23 +834,26 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
+FORWARD_GROUPS = (
+    ("fused projection+attention kernel", ("fused_proj_attn",)),
+    ("layer tail kernel", ("fused_tail",)),
+    ("long-clip attention kernels", ("attention_kernel<",)),
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+)
+OTHER = "other (elementwise, norms, reductions, copies)"
 
 
-def _profile_step(model, batch, criterion, clips: int) -> None:
-    """Device time of one train step through the kernels, by kernel group
-    (torch.profiler), beside the step's wall time: the device's idle share
-    is 1 - busy / wall."""
+def _device_profile(label: str, run, groups, **extra) -> None:
+    """Device time of one ``run()`` by kernel group (torch.profiler), beside
+    its wall time: the device's idle share is 1 - busy / wall. Printed as
+    one JSON line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stlt_tpu_torch.training.loop import step_generator
-
-    step = _train_step(model, criterion)
-    step(batch, step_generator(SEED, 0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, step_generator(SEED, 1))
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device events, without the optimizer's annotation range (it spans the
@@ -700,21 +862,30 @@ def _profile_step(model, batch, criterion, clips: int) -> None:
                if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels or busy_ms == 0:
-        log(f"train step profile of {clips} clips: device time not measured (no device events)")
+        log(f"{label} profile {extra}: device time not measured (no device events)")
         return
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other (elementwise, norms, reductions, copies)"] = 0.0
+    groups_ms = {name: 0.0 for name, _ in groups}
+    groups_ms[OTHER] = 0.0
     for e in kernels:
-        name = next((g for g, keys in KERNEL_GROUPS if any(k in e.key for k in keys)),
-                    "other (elementwise, norms, reductions, copies)")
-        groups[name] += e.self_device_time_total / 1e3
+        name = next((g for g, keys in groups if any(k in e.key for k in keys)), OTHER)
+        groups_ms[name] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log("train_step_profile " + json.dumps({
-        "clips": clips, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "groups_ms": groups,
+    log(f"{label}_profile " + json.dumps({
+        **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "groups_ms": groups_ms,
         "top_kernels": [{"name": e.key[:80], "calls": e.count,
                          "device_ms": e.self_device_time_total / 1e3} for e in top],
     }))
+
+
+def _profile_step(model, batch, criterion, clips: int) -> None:
+    """One kernel-path train step of ``clips`` clips, profiled by kernel group."""
+    from stlt_tpu_torch.training.loop import step_generator
+
+    step = _train_step(model, criterion)
+    step(batch, step_generator(SEED, 0))
+    _device_profile("train_step", lambda: step(batch, step_generator(SEED, 1)), KERNEL_GROUPS,
+                    clips=clips)
 
 
 def run_train_path(device):
@@ -723,7 +894,6 @@ def run_train_path(device):
     from stlt_tpu_torch.data import collaters_factory, datasets_factory
     from stlt_tpu_torch.data.loader import Loader, to_device
     from stlt_tpu_torch.models import models_factory
-    from stlt_tpu_torch.ops import fused_encoder as fe
     from stlt_tpu_torch.training.criterion import make_criterion
     from stlt_tpu_torch.utils.convert import read_state_dict
 
@@ -747,12 +917,12 @@ def run_train_path(device):
             "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
             "--save_model_path", best,
         ]
-        fe.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         result = port_train.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(fe.LAUNCHES)
+        launches = all_launches()
         log(f"train: {result.step} steps, {len(result.epochs)} epochs in {seconds:.3f} s "
             f"(data and model set-up included); launches {launches}")
         for record in result.epochs:
@@ -770,6 +940,7 @@ def run_train_path(device):
         layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
         want = {name: layers * steps_taken for name in TRAIN_KERNELS}
         want.update({name: layers * val_batches * TRAIN_EPOCHS for name in EVAL_KERNELS})
+        want.update(dict.fromkeys(LONG_KERNELS, 0))
         if launches != want:
             raise AssertionError(f"train: launches {launches}, expected {want} (12 layers per "
                                  f"train step for each train kernel, per validation batch for "
@@ -829,6 +1000,213 @@ def run_train_path(device):
         return launches, step_ms
 
 
+# --- phase 5: long clips through the prediction and evaluation entry points ---
+
+
+def reset_all_launches() -> None:
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    fe.reset_launches()
+    flash.reset_launches()
+
+
+def all_launches() -> dict:
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    return {**fe.LAUNCHES, **flash.LAUNCHES}
+
+
+class plain_eval_path:
+    """Within the block, every eval kernel's wrapper runs its plain version
+    on the card (the fused projection+attention and tail, the short and the
+    blockwise attention)."""
+
+    def __enter__(self):
+        from stlt_tpu_torch.ops import flash
+        from stlt_tpu_torch.ops import fused_encoder as fe
+
+        self.swaps = [(fe, "fused_proj_attention", fe.fused_proj_attention_plain),
+                      (fe, "fused_layer_tail", fe.fused_layer_tail_plain),
+                      (flash, "fused_attention", flash.fused_attention_plain),
+                      (flash, "blockwise_attention", flash.blockwise_attention_plain)]
+        self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
+        for mod, name, plain in self.swaps:
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), kernel in zip(self.swaps, self.saved):
+            setattr(mod, name, kernel)
+        return False
+
+
+def _first_batch(data_cfg, batch_size, device):
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+
+    dataset = datasets_factory["layout"](data_cfg)
+    loader = Loader(dataset, batch_size, collaters_factory["layout"](data_cfg), prefetch=0)
+    batch = next(iter(to_device(loader, device)))
+    return dataset, {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+
+
+def _served_model(ckpt, model_kw, layout_num_frames, device, **capacities):
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.utils.convert import load_checkpoint
+
+    cfg = make_model_config("stlt", **dict(model_kw, layout_num_frames=layout_num_frames), **capacities)
+    model = models_factory["stlt"](cfg)
+    load_checkpoint(ckpt, model)
+    return model.to(device).eval()
+
+
+def _check_logits(name, got, want, against):
+    err = (got - want).abs().max().item()
+    log(f"{name}: logits {tuple(got.shape)}, max|logit| {want.abs().max().item():.4f}, "
+        f"max_abs_err {err:.3e} against {against} (atol {LOGITS_ATOL})")
+    if not torch.isfinite(got).all() or err > LOGITS_ATOL:
+        raise AssertionError(f"{name}: logits not finite or off by {err:.3e} against {against}")
+
+
+def _kernels_vs_plain(name, model, batch):
+    """One batch's logits and forward time through the kernels (with a
+    ``torch.profiler`` breakdown by kernel group) and through the plain path
+    on the card; the logits are held against the plain path's at
+    LOGITS_ATOL. Returns the kernels' logits."""
+    with torch.inference_mode():
+        got = model(batch)["stlt"]
+        ms = cuda_ms(lambda: model(batch), 5)
+        _device_profile("forward", lambda: model(batch), FORWARD_GROUPS, name=name)
+        with plain_eval_path():
+            plain = model(batch)["stlt"]
+            plain_ms = cuda_ms(lambda: model(batch), 3)
+    _check_logits(name, got, plain, "the plain path")
+    log(f"{name}: forward kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return got
+
+
+def run_long_clip_path(device):
+    """Serve a random full-width bf16 STLT through ``predict`` at 256 frames
+    (every slot live, 2 batches of 64) and 512 frames (clips of 32-256
+    frames, 2 batches of 32), then evaluate the 512-frame set through
+    ``inference`` with and without ``--live_prefix --use_pallas``. Asserts
+    rows, finite scores and metrics, the launch counts of each run, the
+    spatial rows of the levers, and one batch's logits against the plain path
+    (and, with the levers, against the uncapped model). Returns the long-clip
+    kernels' launches of the predict runs."""
+    from stlt_tpu_torch import inference, predict
+    from stlt_tpu_torch.configs import (DataConfig, frame_capacity_for, make_model_config,
+                                        position_table_rows, spatial_live_capacity_for)
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
+    model_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                    num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                    num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_long_") as root:
+        model = models_factory["stlt"](make_model_config("stlt", **model_kw, layout_num_frames=513),
+                                       torch.Generator().manual_seed(SEED + 4))
+        ckpt = os.path.join(root, "stlt_random_513.pt")
+        torch.save(model.state_dict(), ckpt)
+        del model
+        for frames, (batch_size, frames_range) in LONG_CLIPS.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            paths = write_something_dataset(sub, batch_size * LONG_NUM_BATCHES, SEED + frames,
+                                            frames_range=frames_range)
+            common = [
+                "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+                "--test_dataset_path", paths["dataset"], "--labels_path", paths["labels"],
+                "--videoid2size_path", paths["videoid2size"], "--checkpoint_path", ckpt,
+                "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+                "--num_spatial_layers", str(SPATIAL_LAYERS),
+                "--num_temporal_layers", str(TEMPORAL_LAYERS),
+                "--layout_num_frames", str(frames), "--batch_size", str(batch_size),
+                "--compute_dtype", "bfloat16",
+            ]
+            out = os.path.join(sub, "predictions.jsonl")
+            kernel = "flash_attention" if frames == 256 else "blockwise_attention"
+            reset_all_launches()
+            t0 = time.perf_counter()
+            rows = predict.main(common + ["--use_pallas", "--output", out, "--top_k", "5"])
+            torch.cuda.synchronize()
+            counts = all_launches()
+            log(f"predict {frames} frames: {len(rows)} clips in {time.perf_counter() - t0:.3f} s "
+                f"(data and checkpoint load included); launches {counts}")
+            if len(rows) != batch_size * LONG_NUM_BATCHES or not all(
+                    len(r["top_k"]) == 5 and all(math.isfinite(t["score"]) for t in r["top_k"])
+                    for r in rows):
+                raise AssertionError(f"predict {frames} frames: bad rows")
+            want = dict.fromkeys(counts, 0)
+            want.update({"fused_proj_attention": SPATIAL_LAYERS * LONG_NUM_BATCHES,
+                         "fused_layer_tail": layers * LONG_NUM_BATCHES,
+                         kernel: TEMPORAL_LAYERS * LONG_NUM_BATCHES})
+            if counts != want:
+                raise AssertionError(f"predict {frames} frames: launches {counts}, expected {want}")
+            launches[kernel] = counts[kernel]
+
+            data_cfg = DataConfig(dataset_name="something", dataset_path=paths["dataset"],
+                                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                                  layout_num_frames=frames)
+            dataset, batch = _first_batch(data_cfg, batch_size, device)
+            live_fraction = float((batch["frame_types"] != 0).float().mean())
+            log(f"{frames} frames: batch {batch_size}, frame slots {batch['frame_types'].shape[1]}, "
+                f"live fraction {live_fraction:.4f}")
+            model = _served_model(ckpt, model_kw, position_table_rows(data_cfg), device)
+            uncapped = _kernels_vs_plain(f"forward {frames} frames", model, batch)
+            if frames != 512:
+                continue
+
+            # The ragged levers through the evaluation entry point.
+            frame_cap = frame_capacity_for(dataset, data_cfg)
+            live_cap = spatial_live_capacity_for(dataset, data_cfg, batch_size, frame_axis=frame_cap)
+            total_rows = batch_size * data_cfg.num_total_frames
+            if frame_cap is None or live_cap is None or live_cap >= total_rows:
+                raise AssertionError(f"the ragged set gives no capacities ({frame_cap}, {live_cap})")
+            spatial_rows = []
+            real = fe.fused_proj_attention
+
+            def spy(x, *args, **kwargs):
+                if x.shape[1] == data_cfg.num_total_boxes:
+                    spatial_rows.append(x.shape[0])
+                return real(x, *args, **kwargs)
+
+            for levers in (False, True):
+                spatial_rows.clear()
+                fe.fused_proj_attention = spy
+                reset_all_launches()
+                try:
+                    metrics = inference.main(common + (["--use_pallas", "--live_prefix"] if levers else []))
+                    torch.cuda.synchronize()
+                finally:
+                    fe.fused_proj_attention = real
+                counts = all_launches()
+                log(f"inference 512 frames, levers {levers}: metrics {metrics}; spatial rows per "
+                    f"layer {sorted(set(spatial_rows))} (capacity {live_cap} of {total_rows}); "
+                    f"frame capacity {frame_cap}; launches {counts}")
+                if not metrics or not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics.values()):
+                    raise AssertionError(f"inference: bad metrics {metrics}")
+                rows_want = live_cap if levers else total_rows
+                if len(spatial_rows) != SPATIAL_LAYERS * LONG_NUM_BATCHES or set(spatial_rows) != {rows_want}:
+                    raise AssertionError(f"inference, levers {levers}: spatial rows {spatial_rows}, "
+                                         f"expected {rows_want} in each of {SPATIAL_LAYERS} layers")
+                temporal = "flash_attention" if levers else "blockwise_attention"
+                if counts[temporal] != TEMPORAL_LAYERS * LONG_NUM_BATCHES:
+                    raise AssertionError(f"inference, levers {levers}: launches {counts}")
+            capped = _served_model(ckpt, model_kw, position_table_rows(data_cfg), device,
+                                   spatial_live_capacity=live_cap, temporal_frame_capacity=frame_cap)
+            got = _kernels_vs_plain("forward 512 frames, levers", capped, batch)
+            _check_logits("forward 512 frames, levers", got, uncapped, "the model without levers")
+            del model, capped
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -852,9 +1230,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     table = check_kernels(device)
     table.update(check_train_kernels(device))
+    table.update(check_long_kernels(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
+    launches.update(run_long_clip_path(device))  # long clips: the long-clip kernels
 
     kernels = []
     for name in REPLACES:

@@ -2,8 +2,10 @@
 
 Own copy of ``stlt_tpu/configs.py`` (``DataConfig`` :113,
 ``GeneralModelConfig`` :180, ``StltModelConfig`` :209, the vocabularies
-:26-105, ``position_table_rows`` :298 and ``make_model_config`` :365 for
-``"stlt"``). The port imports nothing from ``stlt_tpu``, so the
+:26-105, ``position_table_rows`` :298, ``spatial_live_capacity_for`` :311,
+``frame_capacity_for`` :341 and ``make_model_config`` :365 for ``"stlt"``).
+The capacity helpers have no environment switches: ``--live_prefix`` alone
+turns them on. The port imports nothing from ``stlt_tpu``, so the
 vocabularies and defaults are repeated here; tests hold the two copies
 equal.
 
@@ -158,6 +160,12 @@ class GeneralModelConfig:
     # Parsed for flag parity; the port dispatches on the tensor's device.
     use_pallas: bool = False
     remat: bool = False
+    # Ragged levers (models/stlt.py): the static row count the spatial
+    # encoder runs at after the live rows are folded to a prefix, and the
+    # frame-axis length the layout branch runs at; None = uncut. The weights
+    # do not depend on them.
+    spatial_live_capacity: Optional[int] = None
+    temporal_frame_capacity: Optional[int] = None
 
     def __post_init__(self):
         assert self.num_classes, "num_classes must not be None!"
@@ -183,6 +191,42 @@ def position_table_rows(data_config: DataConfig) -> int:
     """Frame-position-table rows for a model driven by ``data_config``: the
     reference's 256, grown with the padded frame axis for longer clips."""
     return max(StltModelConfig.layout_num_frames, data_config.num_total_frames)
+
+
+def _max_live_frames(dataset, data_config: DataConfig) -> Optional[int]:
+    """Bound of every clip's live frame slots: the longest clip, capped at
+    ``layout_num_frames``, plus the extract slot; None without a bound."""
+    scan = getattr(dataset, "max_video_frames", None)
+    max_frames = scan() if scan is not None else 0
+    if max_frames <= 0:
+        return None
+    return min(max_frames, data_config.layout_num_frames) + 1
+
+
+def spatial_live_capacity_for(dataset, data_config: DataConfig, batch_size: int,
+                              frame_axis: Optional[int] = None) -> Optional[int]:
+    """Live-prefix capacity that holds for every batch of ``dataset``:
+    ``batch_size`` times the live-slot bound, rounded up to 8, or None when
+    it would not cut the ``batch_size x frame_axis`` rows (``frame_axis``:
+    the frame slots the model runs at, ``num_total_frames`` by default)."""
+    max_live = _max_live_frames(dataset, data_config)
+    if max_live is None:
+        return None
+    total = batch_size * (frame_axis or data_config.num_total_frames)
+    cap = min(total, ((batch_size * max_live + 7) // 8) * 8)
+    return None if cap >= total else cap
+
+
+def frame_capacity_for(dataset, data_config: DataConfig) -> Optional[int]:
+    """Frame capacity that holds for every clip of ``dataset``: the
+    live-slot bound rounded up to 8, or None when it would not cut the
+    frame axis."""
+    max_live = _max_live_frames(dataset, data_config)
+    if max_live is None:
+        return None
+    total = data_config.num_total_frames
+    cap = min(total, ((max_live + 7) // 8) * 8)
+    return None if cap >= total else cap
 
 
 model_configs_factory = {"stlt": StltModelConfig}

@@ -1,0 +1,407 @@
+// The attention core of the long-clip path: for projected q [B, T, N, 64] and
+// k, v [B, S, N, 64] (read through their strides, so the q/k/v thirds of one
+// [B, T, 3H] projection need no transpose copy),
+//
+//   out[b, t, n] = softmax_s(q[b, t, n] . k[b, s, n] * scale + bias[b, n, t, s]) v[b, s, n]
+//
+// with f32 logits, softmax and PV sums and the output rounded once to the
+// storage type. Two modes share the kernel (attention_kernel<E, kLengths>):
+//
+// - bias (flash_attention.cu, the TPU kernel _fused_attn_kernel): an
+//   additive f32 bias read through its (b, n, t) strides, s contiguous;
+//   broadcast dims have stride 0, so the head-invariant [B, 1, T, S] bias is
+//   read per head, never copied;
+// - lengths (blockwise_attention.cu, the TPU kernel _blockwise_attn_kernel in
+//   its lengths mode): key s of clip b is live iff s < lengths[b] (and s <= t
+//   when causal); the mask is generated here and no [B, 1, T, S] array
+//   exists. Key chunks at or past the clip's length, or above the last
+//   query's diagonal, are never loaded; query rows t >= lengths[b] are written
+//   as zeros with lse 0, and a query tile with no live row skips all compute.
+//   lse[b, n, t] = m + log(l) is written for the backward kernels to come.
+//
+// Design. One block of four warps owns 64 queries of one (clip, head); each
+// warp owns 16 of them. The block walks the keys in chunks of 64, K and V
+// double-buffered in shared memory by cp.async (the next chunk lands while
+// this one is computed), and keeps an online softmax: per query the running
+// max m, the running sum l (each lane its own part) and the f32 output
+// accumulator in registers; lane j holds keys j and j + 32 of each chunk and
+// output columns j and j + 32. This equals normalising before PV up to
+// rounding. The TPU kernels' blocking does not carry over: a whole [T, S] f32
+// tile per row (the short TPU kernel) does not fit 227 KB beside K and V at
+// 512 keys.
+//
+// The bf16 instantiation multiplies on the tensor cores (WMMA, f32 sums):
+// q k^T from bf16 operands is exact products summed in f32, as the TPU
+// kernel's f32 dot of bf16 values; for p v, each f32 probability is split
+// into two bf16 parts (hi + lo, 16 significant bits together) and both are
+// multiplied with v, so the PV product keeps f32-grade probabilities. The f32
+// instantiation runs both products on the SIMT pipes in true f32.
+//
+// Bound on this card: at the long-clip shapes (B = 64, T = 257; B = 32,
+// T = 513 causal) the work is ~13 GFLOP against ~100-120 MB of q, k, v, out
+// (and the bias), ~110 flop/byte, below the H100's ~295 flop/byte ridge in
+// bf16: device memory bounds it (~0.03-0.035 ms). This simple kernel is far
+// from that: its softmax runs on the SIMT pipes (an expf per probability and
+// a warp max per row and chunk), T = 257 pads to 5 tiles and 5 chunks, and
+// the bias is read once per head (from L2: the 12 heads of one query tile are
+// neighbouring blocks).
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace stlt {
+namespace attn {
+
+constexpr int kD = 64;        // head dim the kernels take
+constexpr int kBQ = 64;       // queries of one block
+constexpr int kBK = 64;       // keys of one chunk
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = kBQ / kWarps;  // queries of one warp
+constexpr int kLDP = kBK + 8;        // bf16 probability rows (32 B aligned for WMMA)
+
+static_assert(kRows == 16 && kBK == 64, "one WMMA row fragment per warp; lanes own keys j, j + 32");
+
+// Shared-memory row length of q/k/v tiles: 68 floats (16-byte rows, float4
+// reads of 8 lanes on 8 rows hit distinct banks) or 72 bf16 (32-byte rows for
+// WMMA).
+template <typename E>
+struct Tile;
+template <>
+struct Tile<float> {
+  static constexpr int LD = kD + 4;
+};
+template <>
+struct Tile<__nv_bfloat16> {
+  static constexpr int LD = kD + 8;
+};
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  long long qb, qt, qn, kb, kt, kn, vb, vt, vn;  // element strides of b, t (s), n
+  const float* bias;                              // bias mode; nullptr adds 0
+  long long bb, bn, bt;                           // bias strides of b, n, t (0 = broadcast)
+  const int* lengths;                             // lengths mode: [B] live keys
+  int causal;
+  void* out;   // [B, T, N, kD] contiguous, storage type
+  float* lse;  // lengths mode: [B, N, T]
+  int B, T, S, N;
+  float scale;
+};
+
+template <typename E>
+constexpr size_t smem_bytes() {
+  constexpr int LD = Tile<E>::LD;
+  size_t bytes = sizeof(E) * (size_t)(kBQ + 4 * kBK) * LD  // q, two K and two V stages
+                 + sizeof(float) * (size_t)kWarps * kRows * kBK;  // per-warp scratch
+  if (sizeof(E) == 2) bytes += 2 * sizeof(E) * (size_t)kWarps * kRows * kLDP;  // p hi, lo
+  return bytes;
+}
+
+__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// 16-byte cp.async that writes zeros (reading nothing) when !valid.
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(n));
+}
+
+// Rows r0 .. r0 + 63 of one (clip, head) into a [64][LD] tile; rows at or
+// past `limit` are zeros.
+template <typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* base, long long row_stride, int r0,
+                                          int limit) {
+  constexpr int kVec = 16 / sizeof(E), kPerRow = kD / kVec, LD = Tile<E>::LD;
+  for (int c = threadIdx.x; c < kBK * kPerRow; c += kThreads) {
+    const int i = c / kPerRow, col = (c % kPerRow) * kVec;
+    const bool valid = r0 + i < limit;
+    cp_async16_zfill(dst + i * LD + col, base + (valid ? (long long)(r0 + i) * row_stride : 0) + col,
+                     valid);
+  }
+}
+
+// s[r][j] = q[row r of the warp] . k[key lane + 32 j] over the chunk.
+__device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const float* qw, const float* kc,
+                                             float*, int lane) {
+  constexpr int LD = Tile<float>::LD;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; d += 4) {
+    const float4 ka = *reinterpret_cast<const float4*>(kc + lane * LD + d);
+    const float4 kb = *reinterpret_cast<const float4*>(kc + (lane + 32) * LD + d);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 q = *reinterpret_cast<const float4*>(qw + r * LD + d);
+      s[r][0] = fmaf(q.w, ka.w, fmaf(q.z, ka.z, fmaf(q.y, ka.y, fmaf(q.x, ka.x, s[r][0]))));
+      s[r][1] = fmaf(q.w, kb.w, fmaf(q.z, kb.z, fmaf(q.y, kb.y, fmaf(q.x, kb.x, s[r][1]))));
+    }
+  }
+}
+
+__device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const __nv_bfloat16* qw,
+                                             const __nv_bfloat16* kc, float* sc, int lane) {
+  constexpr int LD = Tile<__nv_bfloat16>::LD;
+  using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+  FragA qa[kD / 16];
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) wmma::load_matrix_sync(qa[kk], qw + kk * 16, LD);
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      FragKt kt;  // k^T: element (d, key) at kc[key * LD + d]
+      wmma::load_matrix_sync(kt, kc + j * 16 * LD + kk * 16, LD);
+      wmma::mma_sync(acc, qa[kk], kt, acc);
+    }
+    wmma::store_matrix_sync(sc + j * 16, acc, kBK, wmma::mem_row_major);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    s[r][0] = sc[r * kBK + lane];
+    s[r][1] = sc[r * kBK + lane + 32];
+  }
+  __syncwarp();
+}
+
+// o[r][j] += sum_s p[r][s] v[s][lane + 32 j] over the chunk (p in s).
+__device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[kRows][2],
+                                         const float* vc, float* sc, __nv_bfloat16*, int lane) {
+  constexpr int LD = Tile<float>::LD;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    sc[r * kBK + lane] = p[r][0];
+    sc[r * kBK + lane + 32] = p[r][1];
+  }
+  __syncwarp();
+#pragma unroll 2
+  for (int s4 = 0; s4 < kBK; s4 += 4) {
+    float va[4], vb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      va[i] = vc[(s4 + i) * LD + lane];
+      vb[i] = vc[(s4 + i) * LD + lane + 32];
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 pr = *reinterpret_cast<const float4*>(sc + r * kBK + s4);
+      o[r][0] = fmaf(pr.w, va[3], fmaf(pr.z, va[2], fmaf(pr.y, va[1], fmaf(pr.x, va[0], o[r][0]))));
+      o[r][1] = fmaf(pr.w, vb[3], fmaf(pr.z, vb[2], fmaf(pr.y, vb[1], fmaf(pr.x, vb[0], o[r][1]))));
+    }
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[kRows][2],
+                                         const __nv_bfloat16* vc, float* sc, __nv_bfloat16* ph,
+                                         int lane) {
+  constexpr int LD = Tile<__nv_bfloat16>::LD;
+  __nv_bfloat16* pl = ph + kRows * kLDP;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __nv_bfloat16 hi = __float2bfloat16_rn(p[r][j]);
+      ph[r * kLDP + lane + 32 * j] = hi;
+      pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kD / 16; ++j) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      FragA ah, al;
+      FragB vf;
+      wmma::load_matrix_sync(ah, ph + kk * 16, kLDP);
+      wmma::load_matrix_sync(al, pl + kk * 16, kLDP);
+      wmma::load_matrix_sync(vf, vc + kk * 16 * LD + j * 16, LD);
+      wmma::mma_sync(acc, ah, vf, acc);
+      wmma::mma_sync(acc, al, vf, acc);
+    }
+    wmma::store_matrix_sync(sc + j * 16, acc, kBK, wmma::mem_row_major);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    o[r][0] += sc[r * kBK + lane];
+    o[r][1] += sc[r * kBK + lane + 32];
+  }
+  __syncwarp();
+}
+
+template <typename E, bool kLengths>
+__global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
+  constexpr int LD = Tile<E>::LD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  E* q_s = reinterpret_cast<E*>(smem_raw);  // [kBQ][LD]
+  E* k_s = q_s + kBQ * LD;                  // two stages of [kBK][LD]
+  E* v_s = k_s + 2 * kBK * LD;              // two stages of [kBK][LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sc = reinterpret_cast<float*>(v_s + 2 * kBK * LD) + warp * kRows * kBK;
+  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(
+                          reinterpret_cast<float*>(v_s + 2 * kBK * LD) + kWarps * kRows * kBK) +
+                      warp * 2 * kRows * kLDP;
+
+  // Heads vary fastest over the grid, so the blocks of one query tile that
+  // read the same head-invariant bias tile run side by side.
+  const int n = blockIdx.x, q0 = blockIdx.y * kBQ, b = blockIdx.z;
+  const int T = p.T, S = p.S, N = p.N;
+  E* __restrict__ out = static_cast<E*>(p.out);
+  int len = S, kend = S;  // keys >= kend carry no weight for any query of the tile
+  if (kLengths) {
+    len = p.lengths[b];
+    kend = min(S, len);
+    if (p.causal) kend = min(kend, min(q0 + kBQ, T));
+    if (q0 >= len) {  // no live query in the tile
+      const int rows = min(kBQ, T - q0);
+      for (int i = threadIdx.x; i < rows * kD; i += kThreads) {
+        const int t = q0 + i / kD;
+        out[(((long long)b * T + t) * N + n) * kD + i % kD] = from_float<E>(0.f);
+        if (i % kD == 0) p.lse[((long long)b * N + n) * T + t] = 0.f;
+      }
+      return;
+    }
+  }
+
+  const E* qg = static_cast<const E*>(p.q) + b * p.qb + n * p.qn;
+  const E* kg = static_cast<const E*>(p.k) + b * p.kb + n * p.kn;
+  const E* vg = static_cast<const E*>(p.v) + b * p.vb + n * p.vn;
+  const float* bias = nullptr;
+  if (!kLengths && p.bias != nullptr) bias = p.bias + b * p.bb + n * p.bn;
+  const int nchunks = (kend + kBK - 1) / kBK;
+  load_tile(q_s, qg, p.qt, q0, T);
+  load_tile(k_s, kg, p.kt, 0, kend);
+  load_tile(v_s, vg, p.vt, 0, kend);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * kRows;  // this warp's first query
+  float m[kRows], l[kRows], o[kRows][2], s[kRows][2];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = neg_inf();
+    l[r] = 0.f;
+    o[r][0] = o[r][1] = 0.f;
+  }
+  // Bias mode: this lane's bias values of a chunk, loaded one chunk ahead so
+  // that their latency hides behind the chunk before.
+  float bias_next[kRows][2];
+  auto load_bias = [&](int c) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = row0 + r, key = c * kBK + lane + 32 * j;
+        bias_next[r][j] =
+            bias != nullptr && t < T && key < kend ? __ldg(bias + (long long)t * p.bt + key) : 0.f;
+      }
+    }
+  };
+  if (!kLengths) load_bias(0);
+
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {  // the next chunk lands while this one is computed
+      const int nxt = ((c + 1) & 1) * kBK * LD;
+      load_tile(k_s + nxt, kg, p.kt, (c + 1) * kBK, kend);
+      load_tile(v_s + nxt, vg, p.vt, (c + 1) * kBK, kend);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c (and q) has landed
+    __syncthreads();
+    const E* kc = k_s + (c & 1) * kBK * LD;
+    const E* vc = v_s + (c & 1) * kBK * LD;
+    float bias_c[kRows][2];
+    if (!kLengths) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) bias_c[r][0] = bias_next[r][0], bias_c[r][1] = bias_next[r][1];
+      if (c + 1 < nchunks) load_bias(c + 1);
+    }
+    chunk_logits(s, q_s + warp * kRows * LD, kc, sc, lane);
+
+    const int s0 = c * kBK;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int t = row0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = s0 + lane + 32 * j;
+        float x = s[r][j] * p.scale;
+        if (key >= kend || (kLengths && p.causal && key > t)) {
+          x = neg_inf();  // weight exactly 0, as exp(-1e30 - m) in the TPU kernel
+        } else if (!kLengths) {
+          x += bias_c[r][j];  // 0 without a bias or past the last query
+        }
+        s[r][j] = x;
+      }
+      // Online softmax: chunk 0 holds key 0, live for every query, so m is
+      // finite from the first chunk on.
+      const float mx = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
+      const float corr = expf(m[r] - mx);
+      s[r][0] = expf(s[r][0] - mx);
+      s[r][1] = expf(s[r][1] - mx);
+      l[r] = l[r] * corr + (s[r][0] + s[r][1]);
+      o[r][0] *= corr;
+      o[r][1] *= corr;
+      m[r] = mx;
+    }
+    chunk_pv(o, s, vc, sc, ph, lane);
+    __syncthreads();  // stage c & 1 is free for chunk c + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = row0 + r;
+    if (t >= T) break;  // uniform over the warp
+    const float lt = warp_sum(l[r]);
+    const bool dead = kLengths && t >= len;
+    E* orow = out + (((long long)b * T + t) * N + n) * kD;
+    orow[lane] = from_float<E>(dead ? 0.f : o[r][0] / lt);
+    orow[lane + 32] = from_float<E>(dead ? 0.f : o[r][1] / lt);
+    if (kLengths && lane == 0) p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : m[r] + logf(lt);
+  }
+}
+
+template <typename E, bool kLengths>
+int launch(const AttnArgs& a, cudaStream_t stream) {
+  auto kernel = attention_kernel<E, kLengths>;
+  const size_t smem = smem_bytes<E>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.N, (a.T + kBQ - 1) / kBQ, a.B);
+  if (grid.y > 65535 || grid.z > 65535) return -1;
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
+// take (D != 64, an empty dim, too many query tiles or clips) or -2 for an
+// unknown dtype code (0 = float32, 1 = bfloat16).
+template <bool kLengths>
+int dispatch(const AttnArgs& a, int D, int dtype, void* stream) {
+  if (D != kD || a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, kLengths>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, kLengths>(a, s);
+  return -2;
+}
+
+}  // namespace attn
+}  // namespace stlt

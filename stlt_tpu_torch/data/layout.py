@@ -76,6 +76,11 @@ class LayoutDataset:
     def __len__(self) -> int:
         return len(self.json_file)
 
+    def max_video_frames(self) -> int:
+        """The longest clip's frame count (the ragged levers' capacity scans,
+        ``configs.spatial_live_capacity_for``)."""
+        return max((len(el["frames"]) for el in self.json_file), default=0)
+
     def _blank_frame(self, num_boxes: int):
         categories = np.zeros((num_boxes,), dtype=np.int32)
         categories[0] = self._cls_id

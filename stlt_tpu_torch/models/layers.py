@@ -12,12 +12,21 @@ are cast to the compute dtype where the JAX code casts.
 ``module.train()``/``module.eval()`` take the place of JAX's
 ``deterministic`` flag (``eval`` is ``deterministic=True``):
 
-- eval: every encoder layer is exactly two fused ops (``ops/fused_encoder``),
-  projection+attention, then the layer tail;
+- eval, T <= 64 (``FUSED_PROJ_MAX_SEQ``): every encoder layer is exactly two
+  fused ops (``ops/fused_encoder``), projection+attention, then the layer
+  tail;
+- eval, T > 64 (the temporal stage of long clips, ``layers.py:315-374``):
+  q/k/v come from one plain product, the attention core from
+  ``ops/attention.dot_product_attention`` (the short flash kernel below 513
+  tokens with the dense bias, the blockwise kernel from 513 on with
+  ``kv_lengths`` and ``causal``), then a plain out-projection and the fused
+  layer tail;
 - train: the attention is ``fused_proj_attention_train`` (its forward and
   backward kernels, with hashed probability dropout), and the tail is the
   plain chain of ``layers.py:512-561`` with its three hashed dropout sites
-  (``ops/dropout.py``), as the JAX package runs it below 256 frames.
+  (``ops/dropout.py``), as the JAX package runs it below 256 frames. At
+  T > 64 train mode runs the plain attention on the CPU and raises on the
+  card: its kernels come with the long-context train slice.
 
 The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
@@ -35,7 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from stlt_tpu_torch.ops import fused_encoder as fe
+from stlt_tpu_torch.ops.attention import dot_product_attention
 from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
+from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -97,15 +108,18 @@ def init_linear_(linear: nn.Linear, generator: torch.Generator, *, zero_bias: bo
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with torch ``nn.MultiheadAttention``'s parameters."""
+    """Self-attention with torch ``nn.MultiheadAttention``'s parameters.
+    ``causal`` declares that the bias it gets is causal (the temporal
+    encoders): the lengths mode then masks keys above the diagonal too."""
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
         super().__init__()
         assert hidden_size % num_heads == 0
         self.num_heads = num_heads
         self.dtype = dtype
         self.dropout_rate = dropout_rate
+        self.causal = causal
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
         self.out_proj = nn.Linear(hidden_size, hidden_size)
@@ -113,13 +127,41 @@ class MultiHeadAttention(nn.Module):
         uniform_(self.in_proj_weight, math.sqrt(6.0 / (4.0 * hidden_size)), generator)
         init_linear_(self.out_proj, generator, zero_bias=True)
 
-    def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None,
+                kv_lengths=None) -> torch.Tensor:
+        """``kv_lengths`` [B]: per-row live key counts (pads tail-contiguous),
+        used in place of ``bias`` from ``_BLOCKWISE_MIN_SEQ`` tokens on."""
+        if x.shape[1] > fe._KERNEL_MAX_SEQ:
+            return self._projected_attention(x, bias, seed, kv_lengths)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, bias)
         kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
         if self.training:
             return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate, **kw)
         return fe.fused_proj_attention(*args, **kw)
+
+    def _projected_attention(self, x, bias, seed, kv_lengths) -> torch.Tensor:
+        """T > 64 (``layers.py:315-374``): q/k/v from one plain product,
+        viewed as [B, T, N, D] without a copy, the attention core, then the
+        out-projection. Dead rows are left to the layer tail, as in JAX."""
+        if self.training and x.device.type == "cuda":
+            raise NotImplementedError(
+                f"train mode at T = {x.shape[1]} > {fe._KERNEL_MAX_SEQ} tokens is not ported to "
+                "the card yet: it waits for ROADMAP.md items B4 (rest), B5 (rest) and B6 "
+                "(the long-context train slice)"
+            )
+        B, T, H = x.shape
+        N, dt = self.num_heads, self.dtype
+        qkv = torch.matmul(x.to(dt), self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)
+        q, k, v = (qkv[..., i * H:(i + 1) * H].unflatten(-1, (N, H // N)) for i in range(3))
+        use_lengths = kv_lengths is not None and T >= _BLOCKWISE_MIN_SEQ
+        drop = self.training and self.dropout_rate > 0.0
+        out = dot_product_attention(
+            q, k, v, None if use_lengths else bias, causal=self.causal,
+            kv_lengths=kv_lengths if use_lengths else None,
+            dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
+        )
+        return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -128,13 +170,14 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
         super().__init__()
         self.activation = activation
         self.layer_norm_eps = layer_norm_eps
         self.dtype = dtype
         self.dropout_rate = dropout_rate
-        self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, generator, dropout_rate)
+        self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, generator, dropout_rate,
+                                            causal)
         self.linear1 = nn.Linear(hidden_size, ff_size)
         self.linear2 = nn.Linear(ff_size, hidden_size)
         self.norm1 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
@@ -142,16 +185,19 @@ class TransformerEncoderLayer(nn.Module):
         init_linear_(self.linear1, generator)
         init_linear_(self.linear2, generator)
 
-    def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None) -> torch.Tensor:
+    def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None,
+                kv_lengths=None) -> torch.Tensor:
         """``seeds``: (attention, tail) uint32 dropout seeds, used in train
-        mode with a nonzero dropout rate."""
+        mode with a nonzero dropout rate; ``kv_lengths``: see
+        :meth:`MultiHeadAttention.forward`."""
         if self.training:
             if self.dropout_rate > 0.0 and seeds is None:
                 raise ValueError("train mode with dropout needs the layer's two dropout seeds")
             attn_seed, tail_seed = seeds if seeds is not None else (None, None)
-            attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed)
+            attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed,
+                                      kv_lengths=kv_lengths)
             return self._train_tail(x, attn_out, tail_seed)
-        attn_out = self.self_attn(x, bias, rows_live=rows_live)
+        attn_out = self.self_attn(x, bias, rows_live=rows_live, kv_lengths=kv_lengths)
         return fe.fused_layer_tail(
             x, attn_out, self.norm1.weight, self.norm1.bias,
             self.linear1.weight.t(), self.linear1.bias,
@@ -186,25 +232,26 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(
                 hidden_size, num_heads, ff_size, activation=activation,
                 layer_norm_eps=layer_norm_eps, dtype=dtype, generator=generator,
-                dropout_rate=dropout_rate,
+                dropout_rate=dropout_rate, causal=causal,
             )
             for _ in range(num_layers)
         )
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, kv_lengths=None) -> torch.Tensor:
         """In train mode with dropout, each layer's (attention, tail) seeds
         are drawn from ``generator``, layer by layer."""
         for layer in self.layers:
             seeds = None
             if self.training and self.dropout_rate > 0.0:
                 seeds = draw_seeds(generator, 2)
-            x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds)
+            x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
+                      kv_lengths=kv_lengths)
         return x

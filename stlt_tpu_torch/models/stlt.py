@@ -1,9 +1,9 @@
 """STLT, the Spatial-Temporal Layout Transformer, eval and train (batch-first).
 
-Port of ``stlt_tpu/models/stlt.py``: ``CategoryBoxEmbeddings`` (:74),
-``SpatialTransformer`` (:105), ``FramesEmbeddings`` (:195), ``StltBackbone``
-(:237), ``ClassificationHead`` (:295), ``gather_extract_frame`` (:313) and
-``Stlt`` (:320). The module tree and attribute names are the reference's
+Port of ``stlt_tpu/models/stlt.py``: ``apply_frame_capacity`` (:49),
+``CategoryBoxEmbeddings`` (:74), ``SpatialTransformer`` (:105),
+``FramesEmbeddings`` (:195), ``StltBackbone`` (:237), ``ClassificationHead``
+(:295), ``gather_extract_frame`` (:313) and ``Stlt`` (:320). The module tree and attribute names are the reference's
 torch ones, so a reference-format state_dict loads with ``strict=True``
 (including the dead ``layout_embedding.encoder_layer`` prototype, the
 ``position_ids`` buffer and ``score_embeddings``).
@@ -11,9 +11,20 @@ torch ones, so a reference-format state_dict loads with ``strict=True``
 Padding masks derive in-model from ``categories == 0`` / ``frame_types == 0``.
 Pad frames are dead rows: the spatial stage zeroes them (``rows_live``), the
 temporal tail zeroes pad-frame tokens (``tokens_live``). They reach later
-attention only as -1e9-masked keys, so the logits do not depend on them.
-The ragged levers of the JAX package (``apply_frame_capacity``, the
-live-prefix fold) are a later slice.
+attention only as masked keys, so the logits do not depend on them. The
+temporal encoder is causal and gets each clip's live frame count
+(``kv_lengths``); from 513 frames on its attention generates the mask from
+those lengths and the dense [B, 1, F, F] bias is never built.
+
+The ragged levers (``apply_frame_capacity`` and the live-prefix fold of
+``SpatialTransformer``, ``stlt.py:49-71, 139-192``) take the static
+capacities of the config (``configs.frame_capacity_for`` /
+``spatial_live_capacity_for``, set by ``inference --live_prefix``): the
+frame axis is cut to ``temporal_frame_capacity`` slots and the spatial
+encoder runs on the first ``spatial_live_capacity`` live rows only. Both are
+exact while every clip fits (pads are tail-contiguous, the temporal encoder
+is causal, the spatial stage is row-independent); a batch that does not fit
+raises.
 
 ``model.train()`` is JAX's ``deterministic=False``: the two embedding
 dropouts (``stlt.py:100,232``) apply, and every encoder layer runs its train
@@ -43,8 +54,30 @@ from stlt_tpu_torch.models.layers import (
     init_linear_,
 )
 from stlt_tpu_torch.ops import masks
+from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
+
+# Per-frame streams of a layout batch: the keys apply_frame_capacity cuts.
+_PER_FRAME_KEYS = ("categories", "boxes", "scores", "frame_types")
+
+
+def apply_frame_capacity(cfg: StltModelConfig, batch: Dict[str, torch.Tensor]):
+    """Cut the layout frame axis to ``cfg.temporal_frame_capacity`` slots.
+    Pads are tail-contiguous, so the cut drops only pad slots while every
+    clip's live frames fit; the temporal encoder is causal and pooling reads
+    ``lengths - 1 < cap``, so the logits are those of the whole axis."""
+    cap = cfg.temporal_frame_capacity
+    num_frames = batch["frame_types"].shape[1]
+    if cap is None or cap >= num_frames:
+        return batch
+    if bool((batch["frame_types"][:, cap:] != 0).any()):
+        raise ValueError(f"temporal_frame_capacity {cap} cuts live frames of this batch")
+    out = dict(batch)
+    for key in _PER_FRAME_KEYS:
+        if key in out:
+            out[key] = out[key][:, :cap]
+    return out
 
 
 def _dtype(cfg: StltModelConfig) -> torch.dtype:
@@ -61,11 +94,11 @@ def _embedding(num: int, hidden: int, generator: torch.Generator, padding_idx=No
     return emb
 
 
-def _encoder(cfg: StltModelConfig, num_layers: int, generator) -> TransformerEncoder:
+def _encoder(cfg: StltModelConfig, num_layers: int, generator, causal: bool = False) -> TransformerEncoder:
     return TransformerEncoder(
         num_layers, cfg.hidden_size, cfg.num_attention_heads, cfg.hidden_size * 4,
         activation="gelu", layer_norm_eps=cfg.layer_norm_eps, dtype=_dtype(cfg),
-        generator=generator, dropout_rate=cfg.hidden_dropout_prob,
+        generator=generator, dropout_rate=cfg.hidden_dropout_prob, causal=causal,
     )
 
 
@@ -96,6 +129,7 @@ class CategoryBoxEmbeddings(nn.Module):
 class SpatialTransformer(nn.Module):
     def __init__(self, cfg: StltModelConfig, generator: torch.Generator):
         super().__init__()
+        self.config = cfg
         self.category_box_embeddings = CategoryBoxEmbeddings(cfg, generator)
         # The reference keeps its prototype layer as an attribute; its
         # parameters are in every checkpoint and never run.
@@ -114,8 +148,21 @@ class SpatialTransformer(nn.Module):
         )
         # Pad-frame compaction: rows of pad frames are dead downstream.
         rows_live = (batch["frame_types"] != 0).reshape(B * F)
-        tokens = self.transformer(tokens.reshape(B * F, O, H), pad_bias, rows_live=rows_live,
-                                  generator=generator)
+        tokens = tokens.reshape(B * F, O, H)
+        cap = self.config.spatial_live_capacity
+        if cap is not None and cap < B * F:
+            # Live-prefix fold: live rows first (a stable sort of the dead
+            # flags), the encoder on the first `cap` rows only, the frame-CLS
+            # vectors scattered back into zeros (dead rows are zeros anyway).
+            if int(rows_live.sum()) > cap:
+                raise ValueError(f"spatial_live_capacity {cap} is below this batch's "
+                                 f"{int(rows_live.sum())} live frame rows")
+            idx = torch.argsort((~rows_live).to(torch.int32), stable=True)[:cap]
+            compact = self.transformer(tokens.index_select(0, idx), pad_bias.index_select(0, idx),
+                                       rows_live=rows_live.index_select(0, idx), generator=generator)
+            cls = torch.zeros((B * F, H), dtype=compact.dtype, device=compact.device)
+            return cls.index_copy(0, idx, compact[:, 0, :]).reshape(B, F, H)
+        tokens = self.transformer(tokens, pad_bias, rows_live=rows_live, generator=generator)
         return tokens[:, 0, :].reshape(B, F, H)  # the frame-CLS token
 
 
@@ -154,17 +201,23 @@ class FramesEmbeddings(nn.Module):
 class StltBackbone(nn.Module):
     def __init__(self, cfg: StltModelConfig, generator: torch.Generator):
         super().__init__()
+        self.config = cfg
         self.frames_embeddings = FramesEmbeddings(cfg, generator)
-        self.transformer = _encoder(cfg, cfg.num_temporal_layers, generator)
+        self.transformer = _encoder(cfg, cfg.num_temporal_layers, generator, causal=True)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+        batch = apply_frame_capacity(self.config, batch)
         emb = self.frames_embeddings(batch, generator)
         num_frames = emb.shape[1]
-        bias = masks.causal_bias(num_frames, emb.device) + masks.key_padding_bias(
-            masks.frames_padding_mask(batch["frame_types"])
-        )
         tokens_live = batch["frame_types"] != 0
-        return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator)  # [B, F, H]
+        kv_lengths = tokens_live.sum(dim=1, dtype=torch.int32)
+        bias = None  # from 513 frames on the attention masks from kv_lengths
+        if num_frames < _BLOCKWISE_MIN_SEQ:
+            bias = masks.causal_bias(num_frames, emb.device) + masks.key_padding_bias(
+                masks.frames_padding_mask(batch["frame_types"])
+            )
+        return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator,
+                                kv_lengths=kv_lengths)  # [B, F, H]
 
 
 class ClassificationHead(nn.Module):

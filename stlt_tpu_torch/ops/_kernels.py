@@ -54,6 +54,18 @@ SIGNATURES = {
         # tokens, hidden, ff, eps, act, dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     ),
+    "flash_attention": (
+        "stlt_flash_attention",
+        # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
+        # B, T, S, N, D, scale, dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "blockwise_attention": (
+        "stlt_blockwise_attention",
+        # q, k, v, their (b, t, n) strides, lengths, causal, out, lse,
+        # B, T, S, N, D, scale, dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

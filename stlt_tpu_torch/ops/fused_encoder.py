@@ -1,8 +1,9 @@
 """Fused encoder-layer ops: projection+attention (eval and train) and the
 eval layer tail. Port of ``stlt_tpu/ops/fused_encoder.py``:
-``fused_proj_attention`` (:327), ``fused_layer_tail`` (:578) and
+``fused_proj_attention`` (:327), ``fused_layer_tail`` (:578),
 ``fused_proj_attention_train`` (:946) with its forward (:961) and backward
-(:1028).
+(:1028), and the host helpers ``live_prefix_capacity`` / ``frame_capacity``
+(:75-118) of the ragged levers.
 
 Each op has three parts:
 
@@ -72,6 +73,42 @@ _KERNEL_FF_CHUNK = 128
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# --- host-side capacity buckets of the ragged levers ----------------------------
+
+
+def live_prefix_capacity(live_rows: int, total_rows: int, buckets: int = 8) -> Optional[int]:
+    """Spatial live-prefix capacity (``configs.spatial_live_capacity``) from a
+    batch's live row count: the smallest of ``buckets`` evenly spaced
+    capacities that holds ``live_rows``, rounded up to 8; None when it would
+    not cut ``total_rows``. Own copy of ``stlt_tpu/ops/fused_encoder.py:75``
+    without its environment switch."""
+    live_rows = max(int(live_rows), 1)
+    if live_rows >= total_rows:
+        return None
+    k = -(-live_rows * buckets // total_rows)
+    if k >= buckets:
+        return None
+    cap = -(-total_rows * k // buckets)
+    cap = min(total_rows, ((cap + 7) // 8) * 8)
+    return None if cap >= total_rows else cap
+
+
+def frame_capacity(max_live_frames: int, total_frames: int, buckets: int = 8) -> Optional[int]:
+    """Frame capacity (``configs.temporal_frame_capacity``) from a batch's
+    longest live prefix, in the buckets of :func:`live_prefix_capacity`. Own
+    copy of ``stlt_tpu/ops/fused_encoder.py:97`` without its environment
+    switch."""
+    max_live_frames = max(int(max_live_frames), 1)
+    if max_live_frames >= total_frames:
+        return None
+    k = -(-max_live_frames * buckets // total_frames)
+    if k >= buckets:
+        return None
+    cap = -(-total_frames * k // buckets)
+    cap = min(total_frames, ((cap + 7) // 8) * 8)
+    return None if cap >= total_frames else cap
 
 
 def _on_cpu(x: torch.Tensor, op: str) -> bool:

@@ -6,7 +6,8 @@ Marked ``cuda``: without a GPU every test here skips. On a machine with one
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances, kernel against plain version on the same inputs with the same
-rounding points: f32 atol = rtol = 1e-4 (sums of up to 4H products taken in
+rounding points (the attention kernels of ``ops/flash.py`` take the softmax
+online over key chunks, which moves only the rounding): f32 atol = rtol = 1e-4 (sums of up to 4H products taken in
 another order, then LayerNorm); bf16 atol 6e-2, rtol 2e-2 (a reordered f32
 sum can round to the neighbouring bf16 value, and LayerNorm outputs move a
 few bf16 steps with it). Dead rows are exact zeros in both.
@@ -14,6 +15,7 @@ few bf16 steps with it). Dead rows are exact zeros in both.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -284,3 +286,133 @@ def test_train_step_on_the_card_matches_the_plain_step(device, monkeypatch):
     assert set(grads) == set(plain_grads)
     for name, g in grads.items():
         assert _rel(g, plain_grads[name]) < 1e-4, name
+
+
+# --- the long-clip attention kernels (ops/flash.py) ------------------------------
+
+
+def _heads(B, T, S, dtype, gen, device, strided=False):
+    """q [B, T, 12, 64] and k, v [B, S, 12, 64]; strided: the q/k/v thirds
+    of one [B, T, 3H] projection, as the model passes them."""
+    N, D = 12, 64
+    if strided:
+        assert T == S
+        qkv = torch.randn(B, T, 3 * N * D, generator=gen).to(device, dtype)
+        return tuple(qkv[..., i * N * D:(i + 1) * N * D].unflatten(-1, (N, D)) for i in range(3))
+    return tuple(torch.randn(B, L, N, D, generator=gen).to(device, dtype) for L in (T, S, S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,strided", [(65, False), (257, True), (512, False)])
+def test_flash_kernel_matches_plain(device, dtype, T, strided):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T)
+    B = 5
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided)
+    bias = _bias("causal_padding", B, T, gen).to(device)
+    flash.reset_launches()
+    got = flash.fused_attention(q, k, v, bias)
+    assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0}
+    want = flash.fused_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    assert got.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,causal", [(513, True), (1025, True), (513, False)])
+def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + causal)
+    B = 5
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=True)
+    lengths = torch.tensor([1, T, 64, 65, T // 2 + 3], dtype=torch.int32)
+    flash.reset_launches()
+    out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths.to(device), causal=causal)
+    assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1}
+    want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
+    torch.cuda.synchronize()
+    live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)  # [B, T]
+    _close(out, want, dtype, live[:, :, None, None].expand(out.shape))
+    torch.testing.assert_close(lse.transpose(1, 2)[live], want_lse.transpose(1, 2)[live],
+                               **TOL[torch.float32])
+    assert lse.transpose(1, 2)[~live].abs().max().item() == 0.0
+
+
+def test_long_clip_kernels_refuse_what_they_do_not_take(device):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = _heads(2, 513, 513, torch.bfloat16, gen, device)
+    lengths = torch.tensor([3, 513], device=device)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
+        flash.flash_attention(q, k, v, bias=torch.zeros(2, 1, 513, 513, device=device))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
+        flash.flash_attention(q, k, v, kv_lengths=lengths, causal=True, dropout_rate=0.1,
+                              dropout_seed=7)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item B4"):
+        flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_rate=0.1, dropout_seed=7)
+    q32 = torch.randn(2, 100, 4, 32, device=device)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash.flash_attention(q32, q32, q32)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash.flash_attention(*(torch.randn(2, 600, 4, 32, device=device) for _ in range(3)),
+                              kv_lengths=lengths, causal=True)
+
+
+def test_long_clip_train_mode_raises_on_the_card(device):
+    from stlt_tpu_torch.models.layers import MultiHeadAttention
+
+    mha = MultiHeadAttention(128, 2, torch.float32, torch.Generator().manual_seed(0)).to(device)
+    x = torch.randn(2, 70, 128, device=device)
+    with torch.no_grad():
+        assert mha.eval()(x).shape == (2, 70, 128)
+    with pytest.raises(NotImplementedError, match="long-context train slice"):
+        mha.train()(x, seed=3)
+
+
+def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
+    """A full-width-shaped STLT (H = 768, 12 heads, 1 + 2 layers) served
+    through predict at --layout_num_frames 256: every temporal layer's
+    attention launches the short flash kernel."""
+    import json
+
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(0)
+    labels = {f"Doing thing {i}": str(i) for i in range(4)}
+    frame = {"frame_objects": [{"category": "hand", "x1": 10.0, "y1": 20.0, "x2": 90.0,
+                                "y2": 80.0, "score": 0.9}]}
+    videos = [{"id": str(v), "template": f"Doing thing {v % 4}",
+               "frames": [frame] * int(rng.integers(200, 300))} for v in range(6)]
+    paths = {}
+    for name, obj in (("dataset_path", videos), ("labels_path", labels),
+                      ("videoid2size_path", {str(v): [320, 240] for v in range(6)})):
+        paths[name] = str(tmp_path / f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    data_cfg = DataConfig(dataset_name="something", layout_num_frames=256, **paths)
+    model = models_factory["stlt"](make_model_config(
+        "stlt", num_classes=4, unique_categories=4, hidden_size=768, num_attention_heads=12,
+        num_spatial_layers=1, num_temporal_layers=2, compute_dtype="bfloat16",
+        layout_num_frames=position_table_rows(data_cfg)))
+    checkpoint = str(tmp_path / "random.pt")
+    torch.save(model.state_dict(), checkpoint)
+    out = str(tmp_path / "predictions.jsonl")
+    flash.reset_launches()
+    fe.reset_launches()
+    rows = predict.main([
+        "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+        "--test_dataset_path", paths["dataset_path"], "--labels_path", paths["labels_path"],
+        "--videoid2size_path", paths["videoid2size_path"], "--checkpoint_path", checkpoint,
+        "--layout_num_frames", "256", "--batch_size", "4", "--num_spatial_layers", "1",
+        "--num_temporal_layers", "2", "--compute_dtype", "bfloat16", "--output", out, "--top_k", "3",
+    ])
+    assert len(rows) == 6 and all(len(json.loads(line)["top_k"]) == 3 for line in open(out))
+    assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0}
+    assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
