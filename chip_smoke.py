@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero:
    long-clip attention kernels: the short one at T = 65, 257 and 512 (causal
    plus padding bias), the blockwise one at T = 513 and 1025 (ragged
    kv_lengths with 1 and T among them), timed at B = 64, T = 257 and
-   B = 32, T = 513 against ``scaled_dot_product_attention``;
+   B = 32, T = 513 against ``scaled_dot_product_attention``; then the
+   long-clip train kernels: both forwards' dropout variants (rate 0.1 and
+   0.5, the short one with its lse) and both backwards against
+   ``attention_bwd_plain`` (T = 65, 257, 512 and 513, 1025; full and ragged
+   lengths; dropout 0 and 0.1; dead rows, NaN and determinism checks), timed
+   at B = 32, T = 257 and B = 16, T = 513 against the autograd backward of
+   ``scaled_dot_product_attention``;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -46,7 +52,15 @@ Phases, in order; any failure exits non-zero:
    (finite metrics, the spatial attention on the live capacity's rows, one
    batch's capped logits against the uncapped ones) and print the forward
    times, kernels against plain;
-6. print the kernel table as one JSON line, then the result line.
+6. train a full-width bf16 STLT (dropout 0.1) through ``train`` at
+   ``--layout_num_frames 256`` (B = 32) and 512 (B = 16, clips of 32-256
+   frames, which the train sampler stretches over every slot), two steps
+   and one validation batch each: finite losses and the launch counts (per step
+   4 + 4 of the train op's kernels, 8 + 8 of the long-clip forward and
+   backward) are asserted; then one step from the trained weights, kernels
+   against the plain path (the train step's limits below), the step times and a
+   ``torch.profiler`` breakdown by kernel group;
+7. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -68,6 +82,18 @@ points, same keep bits; the two differ only in the order of their sums):
   chunks of 64 keys, which moves only the last bits of an f32 value; in
   bf16 the output is rounded once, so a reordered sum can land on the
   neighbouring bf16 value.
+- the long-clip forwards with dropout in f32: atol = rtol = 1e-5 (a
+  flipped keep bit moves an output by a probability times a value, far
+  more). Their backwards: dq, dk and dv each within a relative
+  Frobenius-norm error of BWD_REL, 1e-5 in f32 and 1e-3 in bf16; the same
+  OP_TOL elementwise only as a guard on finite values and dead rows, whose
+  dq is exactly zero. Sound kernels read at most 2.2e-4 in bf16 and 1.3e-7
+  in f32 (H100). In bf16 an elementwise bound is about as large as a dk or
+  dv element, so it cannot see a fault confined to the tensor-core
+  products; the norm can: multiplying p or dz on the tensor cores without
+  the hi + lo split (2**-9 relative on each probability) reads 2.5e-3 to
+  2.7e-3, dropping dsum from dz 0.6 (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance``, H100; PERF.md, PR 4).
 - bf16 logits of the whole model: atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
@@ -126,10 +152,15 @@ REPLACES = {
     "fused_proj_attention_train_bwd": "stlt_tpu/ops/fused_encoder.py:737",
     "flash_attention": "stlt_tpu/ops/flash.py:119",
     "blockwise_attention": "stlt_tpu/ops/flash.py:397",
+    "flash_attention_bwd": "stlt_tpu/ops/flash.py:166",
+    # One launch runs both TPU kernels' work: _blockwise_dq_kernel (:655)
+    # and _blockwise_dkdv_kernel (:745).
+    "blockwise_attention_bwd": "stlt_tpu/ops/flash.py:655",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
-LONG_KERNELS = ("flash_attention", "blockwise_attention")
+LONG_KERNELS = ("flash_attention", "blockwise_attention", "flash_attention_bwd",
+                "blockwise_attention_bwd")
 SOURCES = {
     "fused_proj_attention": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
     "fused_layer_tail": "stlt_tpu_torch/csrc/fused_layer_tail.cu",
@@ -137,6 +168,8 @@ SOURCES = {
     "fused_proj_attention_train_bwd": "stlt_tpu_torch/csrc/fused_proj_attention_bwd.cu",
     "flash_attention": "stlt_tpu_torch/csrc/flash_attention.cu",
     "blockwise_attention": "stlt_tpu_torch/csrc/blockwise_attention.cu",
+    "flash_attention_bwd": "stlt_tpu_torch/csrc/flash_attention_bwd.cu",
+    "blockwise_attention_bwd": "stlt_tpu_torch/csrc/blockwise_attention_bwd.cu",
 }
 # Long clips (bench.py:154-266): --layout_num_frames -> (batch, the clips'
 # frame counts). 256 frames: every slot live (long_context); 512 frames:
@@ -144,6 +177,14 @@ SOURCES = {
 LONG_CLIPS = {256: (64, (256, 301)), 512: (32, (32, 257))}
 LONG_NUM_BATCHES = 2
 CHECK_CLIPS = 6  # clips of the long-clip kernel checks
+# Long-clip training (bench.py:355-425, long_context_train, B = 16 at 513
+# frames): --layout_num_frames -> (batch, the clips' frame counts). The
+# train sampler fills every frame slot of every clip, so each train batch is
+# B x (frames + 1) live slots whatever the clips' lengths.
+LONG_TRAIN = {256: (32, (256, 301)), 512: (16, (32, 257))}
+LONG_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
+FWD_DROP_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 forward with dropout: one flipped bit fails it
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # long-clip backwards, relative norm
 
 
 def log(msg: str) -> None:
@@ -533,11 +574,11 @@ def blockwise_bound(q, lengths, causal, dtype):
     return _bound(flops, nbytes, dtype)
 
 
-def library_attention(q, k, v, mask):
-    """``scaled_dot_product_attention`` on the same inputs and mask: a
-    yardstick only, never called by the port."""
+def library_attention(q, k, v, mask, rate: float = 0.0):
+    """``scaled_dot_product_attention`` on the same inputs and mask (and
+    ``dropout_p``): a yardstick only, never called by the port."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate)
 
 
 def _causal_padding_bias(lengths, T, device):
@@ -621,6 +662,188 @@ def check_long_kernels(device):
                 table["blockwise_attention"] = row
             del q, k, v, allowed
         torch.cuda.empty_cache()
+    return table
+
+
+# --- phase 2, long clips in training: dropout variants and the backwards -------
+
+
+def attention_bwd_bound(q, dtype, lengths=None, causal=True, bias=None):
+    """(ms, "bytes" | "operations") for a backward launch on these inputs:
+    10*D flops per (query, key, head) pair, five products (every pair in the
+    bias mode, the live pairs in the lengths mode), against q, k, v, dO (live
+    rows in the lengths mode), lse and dsum read once and dq, dk, dv written
+    once, plus the f32 bias or the lengths."""
+    B, T, N, D = q.shape
+    es = q.element_size()
+    if lengths is None:
+        pairs, rows = float(B * T * T), float(B * T)
+    else:
+        L = lengths.to(torch.float64)
+        pairs, rows = float((L * (L + 1) / 2).sum() if causal else (L * L).sum()), float(L.sum())
+    flops = 10 * D * N * pairs
+    nbytes = 4 * rows * N * D * es + 3 * B * T * N * D * es + 2 * B * N * T * 4
+    nbytes += bias.numel() * 4 if bias is not None else B * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def library_attention_bwd(q, k, v, mask, dout, rate):
+    """The backward of ``scaled_dot_product_attention`` (same mask, the same
+    ``dropout_p``) through autograd: a yardstick only, never called by the
+    port."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate)
+    dot = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def _check_grads(label, got, want, dead, dtype):
+    """dq, dk, dv of a backward kernel against the plain version: each
+    within BWD_REL[dtype] in relative norm, finite and within OP_TOL
+    elementwise, dq of dead query rows exact zeros. Returns the largest
+    elementwise error and the relative norm errors."""
+    errs, rel = [], {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        live = torch.ones_like(a, dtype=torch.bool)
+        if name == "dq" and dead is not None:
+            live = ~dead[:, :, None, None].expand(a.shape)
+        errs.append(_check_close(f"{label} {name}", a, b, live, OP_TOL[dtype]))
+        rel[name] = _rel(a, b)
+    if max(rel.values()) > BWD_REL[dtype]:
+        raise AssertionError(f"{label}: relative norm errors {rel} over {BWD_REL[dtype]}")
+    return max(errs), rel
+
+
+def check_long_train_kernels(device):
+    """The long-clip train path's kernels against their plain versions, bf16
+    and f32: the forwards' dropout variants (rate 0.1 and 0.5; f32 outputs
+    within FWD_DROP_TOL, which needs equal keep bits) with the short
+    kernel's lse; both backwards against ``attention_bwd_plain`` (the short
+    one at T = 65, 257 and 512 with the causal plus padding bias, the
+    blockwise one at T = 513 and 1025 in lengths mode, causal, full and
+    ragged lengths, dropout 0 and 0.1, a cotangent of 1e30 on dead rows:
+    finite, dead rows' dq exact zeros, two launches bit-identical). Then
+    each backward timed at its main-path shape (B = 32, T = 257; B = 16,
+    T = 513, every clip full length as train batches are, and a ragged row),
+    with the dropout forwards beside them. Returns the bf16 rows of the
+    kernel table."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    seed = 0x5EED5EED
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        fwd_tol = FWD_DROP_TOL if dtype == torch.float32 else tol
+        for T in (65, 257, 512, 513, 1025):
+            for rate in (0.1, 0.5):
+                q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
+                lengths = ragged_lengths(CHECK_CLIPS, T, gen).to(device)
+                kw = dict(dropout_rate=rate, dropout_seed=seed)
+                if T < 513:
+                    bias = _causal_padding_bias(lengths.cpu(), T, device)
+                    out, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+                    want, want_lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
+                    live = torch.ones((CHECK_CLIPS, T), dtype=torch.bool, device=device)
+                else:
+                    out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True, **kw)
+                    want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths,
+                                                                     causal=True, **kw)
+                    live = torch.arange(T, device=device)[None, :] < lengths[:, None]
+                torch.cuda.synchronize()
+                name = "flash_attention" if T < 513 else "blockwise_attention"
+                err = _check_close(f"{name} dropout {rate} {dtype} T={T}", out, want,
+                                   live[:, :, None, None].expand(out.shape), fwd_tol)
+                lse_err = _check_close(f"{name} lse dropout {rate} {dtype} T={T}", lse, want_lse,
+                                       live[:, None, :].expand(lse.shape), OP_TOL[torch.float32])
+                log(f"kernel_check {name} dropout {rate} {dtype} B={CHECK_CLIPS} T={T}: "
+                    f"max_abs_err out {err:.3e} (atol {fwd_tol['atol']}), lse {lse_err:.3e}")
+        for T in (65, 257, 512, 513, 1025):
+            for kind in (("ragged",) if T < 513 else ("full", "ragged")):
+                for rate in (0.0, DROPOUT):
+                    q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
+                    lengths = (ragged_lengths(CHECK_CLIPS, T, gen) if kind == "ragged"
+                               else torch.full((CHECK_CLIPS,), T)).to(device)
+                    dout = torch.randn((CHECK_CLIPS, T, HEADS, H // HEADS), generator=gen).to(device, dtype)
+                    kw = dict(dropout_rate=rate, dropout_seed=seed if rate else None)
+                    dead = None
+                    if T < 513:
+                        kw["bias"] = _causal_padding_bias(lengths.cpu(), T, device)
+                        out, lse = flash.fused_attention(q, k, v, with_lse=True, **kw)
+                        dsum = flash._dsum(dout, out, None)
+                        run = lambda: flash.fused_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+                    else:
+                        dead = torch.arange(T, device=device)[None, :] >= lengths[:, None]
+                        dout[dead] = 1e30  # the backward must not read it
+                        kw.update(kv_lengths=lengths, causal=True)
+                        out, lse = flash.blockwise_attention(q, k, v, **kw)
+                        dsum = flash._dsum(dout, out, lengths)
+                        run = lambda: flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+                    got, again = run(), run()
+                    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+                    torch.cuda.synchronize()
+                    name = "flash_attention_bwd" if T < 513 else "blockwise_attention_bwd"
+                    label = f"{name} {dtype} B={CHECK_CLIPS} T={T} {kind} rate={rate}"
+                    err, rel = _check_grads(label, got, want, dead, dtype)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{label}: two launches differ")
+                    log(f"kernel_check {label}: max_abs_err {err:.3e}, relative norm errors "
+                        f"{json.dumps(rel)}, dead rows zero, no NaN, two launches bit-identical")
+                    del q, k, v, dout, out, lse, dsum, got, again, want
+        torch.cuda.empty_cache()
+
+        # Timing at the main path's shapes, dropout on as in training.
+        rows = {}
+        for name, clips, T, kind in (("flash_attention_bwd", LONG_TRAIN[256][0], 257, "full"),
+                                     ("blockwise_attention_bwd", LONG_TRAIN[512][0], 513, "full"),
+                                     ("blockwise_attention_bwd", LONG_TRAIN[512][0], 513, "ragged 33-257")):
+            q, k, v = make_heads(clips, T, dtype, gen, device)
+            lengths = (torch.full((clips,), T) if kind == "full"
+                       else torch.randint(33, 258, (clips,), generator=gen)).to(device)
+            dout = torch.randn((clips, T, HEADS, H // HEADS), generator=gen).to(device, dtype)
+            kw = dict(dropout_rate=DROPOUT, dropout_seed=seed)
+            if T < 513:
+                bias = _causal_padding_bias(lengths.cpu(), T, device)
+                mask = bias == 0
+                fwd = lambda: flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+                fwd_plain = lambda: flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
+                out, lse = fwd()
+                dsum = flash._dsum(dout, out, None)
+                run = lambda: flash.fused_attention_bwd(q, k, v, dout, lse, dsum, bias, **kw)
+                plain = lambda: flash.attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, **kw)
+                bound = attention_bwd_bound(q, dtype, bias=bias)
+                fwd_bound = flash_bound(q, bias, dtype)
+                dead = None
+            else:
+                mask = flash._lengths_dense_bias(lengths, T, T, True) == 0
+                lkw = dict(kv_lengths=lengths, causal=True, **kw)
+                fwd = lambda: flash.blockwise_attention(q, k, v, **lkw)
+                fwd_plain = lambda: flash.blockwise_attention_plain(q, k, v, **lkw)
+                out, lse = fwd()
+                dsum = flash._dsum(dout, out, lengths)
+                run = lambda: flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **lkw)
+                plain = lambda: flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **lkw)
+                bound = attention_bwd_bound(q, dtype, lengths=lengths, causal=True)
+                fwd_bound = blockwise_bound(q, lengths, True, dtype)
+                dead = torch.arange(T, device=device)[None, :] >= lengths[:, None]
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err, rel = _check_grads(f"{name} {dtype} B={clips} T={T} {kind}", got, want, dead, dtype)
+            library = library_attention_bwd(q, k, v, mask, dout, DROPOUT)
+            row = {
+                "name": name, "stage": "temporal", "dtype": str(dtype).split(".")[1], "clips": clips,
+                "T": T, "lengths": kind, "rate": DROPOUT, "max_abs_err": err, "rel_err": rel,
+                "tol": tol, "rel_tol": BWD_REL[dtype], "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
+                "library_ms": cuda_ms(library, 10), "bound_ms": bound[0], "bound_by": bound[1],
+                "forward_dropout_ms": cuda_ms(fwd, 10), "forward_dropout_plain_ms": cuda_ms(fwd_plain, 3),
+                "forward_dropout_library_ms": cuda_ms(library_attention(q, k, v, mask, DROPOUT), 10),
+                "forward_dropout_bound_ms": fwd_bound[0], "forward_dropout_bound_by": fwd_bound[1],
+            }
+            log("kernel_check " + json.dumps(row))
+            if dtype == torch.bfloat16 and kind == "full":
+                table[name] = row
+            del q, k, v, dout, out, lse, dsum, got, want, mask, library
+            torch.cuda.empty_cache()
     return table
 
 
@@ -759,33 +982,48 @@ def run_main_path(device):
 
 
 class plain_kernels:
-    """Within the block, the train op's wrappers on the card run their plain
-    versions (forward and backward) instead of launching the kernels."""
+    """Within the block, the train path's wrappers on the card run their
+    plain versions (forward and backward) instead of launching the kernels:
+    the train op's, and the long-clip attention's forwards and backwards."""
 
     def __enter__(self):
+        from stlt_tpu_torch.ops import flash
         from stlt_tpu_torch.ops import fused_encoder as fe
 
         def plain_fwd(op, x, wqkv, bqkv, wo, bo, bias, *, seed=None, dropout_rate=0.0, **kw):
             return fe.fused_proj_attention_train_plain(x, wqkv, bqkv, wo, bo, bias, seed,
                                                        dropout_rate=dropout_rate, **kw)
 
-        self.fe = fe
-        self.saved = fe._launch_proj, fe._launch_proj_bwd
-        fe._launch_proj, fe._launch_proj_bwd = plain_fwd, fe.fused_proj_attention_train_bwd_plain
+        def plain_short_bwd(q, k, v, dout, lse, dsum, bias=None, **kw):
+            return flash.attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, **kw)
+
+        def plain_blockwise_bwd(q, k, v, dout, lse, dsum, offsets=None, **kw):
+            return flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+
+        self.swaps = [(fe, "_launch_proj", plain_fwd),
+                      (fe, "_launch_proj_bwd", fe.fused_proj_attention_train_bwd_plain),
+                      (flash, "fused_attention", flash.fused_attention_plain),
+                      (flash, "blockwise_attention", flash.blockwise_attention_plain),
+                      (flash, "fused_attention_bwd", plain_short_bwd),
+                      (flash, "blockwise_attention_bwd", plain_blockwise_bwd)]
+        self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
+        for mod, name, plain in self.swaps:
+            setattr(mod, name, plain)
         return self
 
     def __exit__(self, *exc):
-        self.fe._launch_proj, self.fe._launch_proj_bwd = self.saved
+        for (mod, name, _), kernel in zip(self.swaps, self.saved):
+            setattr(mod, name, kernel)
         return False
 
 
-def _split_dataset(paths, root):
+def _split_dataset(paths, root, train_clips: int = TRAIN_CLIPS):
     """Train and validation files from one written dataset (shared labels
-    and frame sizes): the first TRAIN_CLIPS clips and the rest."""
+    and frame sizes): the first ``train_clips`` clips and the rest."""
     with open(paths["dataset"]) as f:
         videos = json.load(f)
     out = {}
-    for name, part in (("train", videos[:TRAIN_CLIPS]), ("val", videos[TRAIN_CLIPS:])):
+    for name, part in (("train", videos[:train_clips]), ("val", videos[train_clips:])):
         out[name] = os.path.join(root, f"{name}.json")
         with open(out[name], "w") as f:
             json.dump(part, f)
@@ -802,6 +1040,31 @@ def _one_step(model, batch, criterion):
     loss.backward()
     return loss.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
                            if p.grad is not None}
+
+
+def _step_kernels_vs_plain(label, model, batch, criterion) -> None:
+    """One step from the same weights, batch and seeds through the kernels
+    and through the plain path on the card: loss within STEP_LOSS_ATOL, each
+    gradient within STEP_TENSOR_REL and all of them joined within
+    STEP_GRAD_REL in relative norm."""
+    loss_k, grads_k = _one_step(model, batch, criterion)
+    with plain_kernels():
+        loss_p, grads_p = _one_step(model, batch, criterion)
+    flat_k = torch.cat([grads_k[n].float().flatten() for n in grads_p])
+    flat_p = torch.cat([grads_p[n].float().flatten() for n in grads_p])
+    rel = _rel(flat_k, flat_p)
+    per_tensor = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(per_tensor, key=per_tensor.get)
+    over = {n: e for n, e in per_tensor.items() if e > STEP_TENSOR_REL}
+    log(f"{label}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+        f"(atol {STEP_LOSS_ATOL}); gradient relative norm error {rel:.3e} "
+        f"(tolerance {STEP_GRAD_REL}) over {len(grads_p)} tensors, worst tensor "
+        f"{worst} {per_tensor[worst]:.3e} (tolerance {STEP_TENSOR_REL} each)")
+    if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > STEP_LOSS_ATOL:
+        raise AssertionError(f"{label}: kernel path disagrees with the plain path (loss)")
+    if not torch.isfinite(flat_k).all() or rel > STEP_GRAD_REL or over:
+        raise AssertionError(f"{label}: kernel path disagrees with the plain path "
+                             f"(grads; joined {rel:.3e}, tensors over {STEP_TENSOR_REL}: {over})")
 
 
 def _train_step(model, criterion):
@@ -832,6 +1095,8 @@ def _step_ms(model, batch, criterion, steps: int = 5) -> float:
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("attention forward kernel", ("fused_proj_attn",)),
     ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
+    ("long-clip attention forward kernel", ("attention_kernel<",)),
+    ("long-clip attention backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
 FORWARD_GROUPS = (
@@ -878,14 +1143,14 @@ def _device_profile(label: str, run, groups, **extra) -> None:
     }))
 
 
-def _profile_step(model, batch, criterion, clips: int) -> None:
+def _profile_step(model, batch, criterion, clips: int, **extra) -> None:
     """One kernel-path train step of ``clips`` clips, profiled by kernel group."""
     from stlt_tpu_torch.training.loop import step_generator
 
     step = _train_step(model, criterion)
     step(batch, step_generator(SEED, 0))
     _device_profile("train_step", lambda: step(batch, step_generator(SEED, 1)), KERNEL_GROUPS,
-                    clips=clips)
+                    clips=clips, **extra)
 
 
 def run_train_path(device):
@@ -965,25 +1230,7 @@ def run_train_path(device):
         loader = Loader(dataset, BATCH, collaters_factory["layout"](data_cfg), prefetch=0)
         batch = next(iter(to_device(loader, device)))
         criterion = make_criterion("something")
-        loss_k, grads_k = _one_step(model, batch, criterion)
-        with plain_kernels():
-            loss_p, grads_p = _one_step(model, batch, criterion)
-        flat_k = torch.cat([grads_k[n].float().flatten() for n in grads_p])
-        flat_p = torch.cat([grads_p[n].float().flatten() for n in grads_p])
-        rel = _rel(flat_k, flat_p)
-        per_tensor = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
-        worst = max(per_tensor, key=per_tensor.get)
-        over = {n: e for n, e in per_tensor.items() if e > STEP_TENSOR_REL}
-        log(f"train step, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
-            f"(atol {STEP_LOSS_ATOL}); gradient relative norm error {rel:.3e} "
-            f"(tolerance {STEP_GRAD_REL}) over {len(grads_p)} tensors, worst tensor "
-            f"{worst} {per_tensor[worst]:.3e} (tolerance {STEP_TENSOR_REL} each)")
-        if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > STEP_LOSS_ATOL:
-            raise AssertionError("train step: kernel path disagrees with the plain path (loss)")
-        if not torch.isfinite(flat_k).all() or rel > STEP_GRAD_REL or over:
-            raise AssertionError(f"train step: kernel path disagrees with the plain path "
-                                 f"(grads; joined {rel:.3e}, tensors over {STEP_TENSOR_REL}: {over})")
-        del grads_k, grads_p, flat_k, flat_p
+        _step_kernels_vs_plain("train step", model, batch, criterion)
 
         step_ms = {}
         for clips in (BATCH, TRAIN_BATCH):
@@ -1207,6 +1454,98 @@ def run_long_clip_path(device):
     return launches
 
 
+# --- phase 6: long clips through the train entry point ----------------------
+
+
+def run_long_train_path(device):
+    """Train a full-width bf16 STLT (dropout 0.1) through ``train`` at
+    ``--layout_num_frames 256`` (B = 32) and 512 (B = 16), one epoch of
+    LONG_TRAIN_STEPS steps and one validation batch each. Asserts finite
+    losses and the launch counts (per step 4 + 4 of the train op's kernels
+    and 8 + 8 of the long-clip forward and backward; per validation batch 4
+    fused projections, 12 tails, 8 long-clip forwards). Then one step from
+    the trained weights, kernels against plain, the step times and a profile
+    of one kernel-path step. Returns the backward kernels' launches and the
+    step times."""
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import DataConfig
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.training.criterion import make_criterion
+
+    launches, step_ms = {}, {}
+    criterion = make_criterion("something")
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_long_train_") as root:
+        for frames, (clips, frames_range) in LONG_TRAIN.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            train_clips = clips * LONG_TRAIN_STEPS
+            paths = write_something_dataset(sub, train_clips + clips, SEED + 10 + frames,
+                                            num_used=TRAIN_LABELS, frames_range=frames_range)
+            split = _split_dataset(paths, sub, train_clips)
+            kernel = "flash_attention" if frames == 256 else "blockwise_attention"
+            argv = [
+                "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+                "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
+                "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+                "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+                "--num_spatial_layers", str(SPATIAL_LAYERS),
+                "--num_temporal_layers", str(TEMPORAL_LAYERS),
+                "--hidden_dropout_prob", str(DROPOUT), "--layout_num_frames", str(frames),
+                "--batch_size", str(clips), "--epochs", "1", "--learning_rate", "1e-4",
+                "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
+                "--save_model_path", os.path.join(sub, "best.pt"),
+            ]
+            reset_all_launches()
+            t0 = time.perf_counter()
+            result = port_train.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = all_launches()
+            label = f"train {frames} frames, B = {clips}"
+            log(f"{label}: {result.step} steps in {seconds:.3f} s (data and model set-up "
+                f"included); launches {counts}")
+            for record in result.epochs:
+                log("train_epoch " + json.dumps(record))
+            if result.step != LONG_TRAIN_STEPS or not all(
+                    math.isfinite(r["train_loss"]) for r in result.epochs):
+                raise AssertionError(f"{label}: bad epoch records {result.epochs}")
+            steps, val = result.step, 1
+            want = dict.fromkeys(counts, 0)
+            want.update({"fused_proj_attention_train": SPATIAL_LAYERS * steps,
+                         "fused_proj_attention_train_bwd": SPATIAL_LAYERS * steps,
+                         kernel: TEMPORAL_LAYERS * (steps + val),
+                         kernel + "_bwd": TEMPORAL_LAYERS * steps,
+                         "fused_proj_attention": SPATIAL_LAYERS * val,
+                         "fused_layer_tail": (SPATIAL_LAYERS + TEMPORAL_LAYERS) * val})
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, expected {want}")
+            launches[kernel + "_bwd"] = counts[kernel + "_bwd"]
+            model = result.model
+            del result
+
+            # One step from the trained weights, kernels against plain; times; profile.
+            data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
+                                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                                  layout_num_frames=frames, train=True)
+            loader = Loader(datasets_factory["layout"](data_cfg), clips,
+                            collaters_factory["layout"](data_cfg), prefetch=0)
+            batch = next(iter(to_device(loader, device)))
+            name = f"train step {frames} frames, B = {clips}"
+            model.train()
+            _step_kernels_vs_plain(name, model, batch, criterion)
+            ms = _step_ms(model, batch, criterion, steps=3)
+            with plain_kernels():
+                plain_ms = _step_ms(model, batch, criterion, steps=3)
+            step_ms[frames] = {"ms": ms, "plain_ms": plain_ms}
+            log(f"{name} (full width, bf16, dropout {DROPOUT}): kernels {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms")
+            _profile_step(model, batch, criterion, clips, frames=frames)
+            del model, batch, loader
+            torch.cuda.empty_cache()
+    return launches, step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -1231,10 +1570,12 @@ def main() -> int:
     table = check_kernels(device)
     table.update(check_train_kernels(device))
     table.update(check_long_kernels(device))
+    table.update(check_long_train_kernels(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     launches.update(run_long_clip_path(device))  # long clips: the long-clip kernels
+    launches.update(run_long_train_path(device)[0])  # long-clip training: their backwards
 
     kernels = []
     for name in REPLACES:

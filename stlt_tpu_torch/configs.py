@@ -3,9 +3,13 @@
 Own copy of ``stlt_tpu/configs.py`` (``DataConfig`` :113,
 ``GeneralModelConfig`` :180, ``StltModelConfig`` :209, the vocabularies
 :26-105, ``position_table_rows`` :298, ``spatial_live_capacity_for`` :311,
-``frame_capacity_for`` :341 and ``make_model_config`` :365 for ``"stlt"``).
-The capacity helpers have no environment switches: ``--live_prefix`` alone
-turns them on. The port imports nothing from ``stlt_tpu``, so the
+``frame_capacity_for`` :341 and ``make_model_config`` :365 for ``"stlt"``),
+and of ``stlt_tpu/train.py::_live_prefix_caps`` (:40-59, here
+``live_prefix_caps``, which ``inference`` calls). The capacity helpers have
+no environment switches: ``--live_prefix`` alone turns them on; unlike JAX's
+they bound a train config by its whole frame axis (``_max_live_frames``), so
+a train set allows no cut and ``train`` computes none.
+The port imports nothing from ``stlt_tpu``, so the
 vocabularies and defaults are repeated here; tests hold the two copies
 equal.
 
@@ -195,7 +199,14 @@ def position_table_rows(data_config: DataConfig) -> int:
 
 def _max_live_frames(dataset, data_config: DataConfig) -> Optional[int]:
     """Bound of every clip's live frame slots: the longest clip, capped at
-    ``layout_num_frames``, plus the extract slot; None without a bound."""
+    ``layout_num_frames``, plus the extract slot; None without a bound. A
+    train config's bound is the whole ``layout_num_frames + 1``: the jittered
+    train sampler (``data/samplers.py``) picks ``layout_num_frames`` indices
+    from every clip with a frame, repeating the frames of shorter clips. (The
+    JAX package bounds train sets by their longest clip too, so its
+    ``train --live_prefix`` cuts sampled frames; ``ROADMAP.md`` section C.)"""
+    if data_config.train:
+        return data_config.layout_num_frames + 1
     scan = getattr(dataset, "max_video_frames", None)
     max_frames = scan() if scan is not None else 0
     if max_frames <= 0:
@@ -227,6 +238,22 @@ def frame_capacity_for(dataset, data_config: DataConfig) -> Optional[int]:
     total = data_config.num_total_frames
     cap = min(total, ((max_live + 7) // 8) * 8)
     return None if cap >= total else cap
+
+
+def live_prefix_caps(args, *dataset_cfgs):
+    """The CLIs' ``--live_prefix --use_pallas``: (spatial_live_capacity,
+    temporal_frame_capacity) that hold for every (dataset, data config) the
+    model sees, each None where a bound is missing or the lever would not
+    cut; both None without the two flags or under context parallelism (the
+    ring shards the frame axis). Own copy of ``stlt_tpu/train.py::
+    _live_prefix_caps`` (:40-59)."""
+    if not (args.live_prefix and args.use_pallas) or args.context_parallel > 1:
+        return None, None
+    fcaps = [frame_capacity_for(ds, cfg) for ds, cfg in dataset_cfgs]
+    frame_cap = None if any(c is None for c in fcaps) else max(fcaps)
+    caps = [spatial_live_capacity_for(ds, cfg, args.batch_size, frame_axis=frame_cap)
+            for ds, cfg in dataset_cfgs]
+    return (None if any(c is None for c in caps) else max(caps)), frame_cap
 
 
 model_configs_factory = {"stlt": StltModelConfig}

@@ -2,10 +2,10 @@
 // k, v [B, S, N, 64] (read through their strides, so the q/k/v thirds of one
 // [B, T, 3H] projection need no transpose copy),
 //
-//   out[b, t, n] = softmax_s(q[b, t, n] . k[b, s, n] * scale + bias[b, n, t, s]) v[b, s, n]
+//   out[b, t, n] = sum_s drop(softmax_s(q[b, t, n] . k[b, s, n] * scale + bias[b, n, t, s])) v[b, s, n]
 //
 // with f32 logits, softmax and PV sums and the output rounded once to the
-// storage type. Two modes share the kernel (attention_kernel<E, kLengths>):
+// storage type. Two modes share the kernel (attention_kernel<E, kLengths, kDrop>):
 //
 // - bias (flash_attention.cu, the TPU kernel _fused_attn_kernel): an
 //   additive f32 bias read through its (b, n, t) strides, s contiguous;
@@ -17,7 +17,17 @@
 //   exists. Key chunks at or past the clip's length, or above the last
 //   query's diagonal, are never loaded; query rows t >= lengths[b] are written
 //   as zeros with lse 0, and a query tile with no live row skips all compute.
-//   lse[b, n, t] = m + log(l) is written for the backward kernels to come.
+//
+// Both modes write lse[b, n, t] = m + log(l) when given an lse pointer (the
+// lengths mode always; the bias mode in training), which the backward
+// kernels (attention_bwd_core.cuh) read.
+//
+// Dropout (kDrop, the TPU kernels' prng branch): PyTorch drops the
+// normalised probabilities and scales survivors by 1/(1 - rate). In the
+// online softmax that is: the running sum l takes the undropped exp, only the
+// PV accumulation takes keep * scale, and lse is dropout-free. The keep bit of
+// (b, n, t, s) is common.cuh's Dropout::keep_scale over the unpadded key
+// count S, the bits of stlt_tpu/ops/flash.py::_keep_block.
 //
 // Design. One block of four warps owns 64 queries of one (clip, head); each
 // warp owns 16 of them. The block walks the keys in chunks of 64, K and V
@@ -88,9 +98,10 @@ struct AttnArgs {
   const int* lengths;                             // lengths mode: [B] live keys
   int causal;
   void* out;   // [B, T, N, kD] contiguous, storage type
-  float* lse;  // lengths mode: [B, N, T]
+  float* lse;  // [B, N, T] or nullptr (bias mode in eval)
   int B, T, S, N;
   float scale;
+  Dropout drop;  // probability dropout (kDrop instantiations)
 };
 
 template <typename E>
@@ -246,7 +257,7 @@ __device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[
   __syncwarp();
 }
 
-template <typename E, bool kLengths>
+template <typename E, bool kLengths, bool kDrop>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   constexpr int LD = Tile<E>::LD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -359,6 +370,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
       o[r][0] *= corr;
       o[r][1] *= corr;
       m[r] = mx;
+      if (kDrop) {  // only PV sees the dropped probabilities
+#pragma unroll
+        for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale(b, n, N, t, s0 + lane + 32 * j, S);
+      }
     }
     chunk_pv(o, s, vc, sc, ph, lane);
     __syncthreads();  // stage c & 1 is free for chunk c + 2
@@ -374,13 +389,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
     E* orow = out + (((long long)b * T + t) * N + n) * kD;
     orow[lane] = from_float<E>(dead ? 0.f : o[r][0] / lt);
     orow[lane + 32] = from_float<E>(dead ? 0.f : o[r][1] / lt);
-    if (kLengths && lane == 0) p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : m[r] + logf(lt);
+    if (p.lse != nullptr && lane == 0) p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : m[r] + logf(lt);
   }
 }
 
-template <typename E, bool kLengths>
+template <typename E, bool kLengths, bool kDrop>
 int launch(const AttnArgs& a, cudaStream_t stream) {
-  auto kernel = attention_kernel<E, kLengths>;
+  auto kernel = attention_kernel<E, kLengths, kDrop>;
   const size_t smem = smem_bytes<E>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -397,9 +412,13 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
 template <bool kLengths>
 int dispatch(const AttnArgs& a, int D, int dtype, void* stream) {
   if (D != kD || a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;
+  if (kLengths && a.lse == nullptr) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, kLengths>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, kLengths>(a, s);
+  if (dtype == 0) return a.drop.on ? launch<float, kLengths, true>(a, s) : launch<float, kLengths, false>(a, s);
+  if (dtype == 1) {
+    return a.drop.on ? launch<__nv_bfloat16, kLengths, true>(a, s)
+                     : launch<__nv_bfloat16, kLengths, false>(a, s);
+  }
   return -2;
 }
 

@@ -3,20 +3,24 @@
 // their strides, an additive f32 bias broadcastable to [B, N, T, S].
 //
 // Replaces the TPU kernel stlt_tpu/ops/flash.py::_fused_attn_kernel as
-// launched by _flash_forward for 65..512 tokens (eval: no dropout; the
-// dropout variant comes with its backward, _fused_bwd_kernel). The TPU kernel
-// holds each row's whole [T, S] f32 tile in VMEM; here the keys stream in
-// chunks of 64 through an online softmax (attention_core.cuh, which also
-// states the design and the bound).
+// launched by _flash_forward for 65..512 tokens, with its prng dropout
+// variant (in-kernel hashed keep bits). In training it also writes
+// lse [B, N, T] (pass nullptr in eval), which the backward
+// (flash_attention_bwd.cu) reads. The TPU kernel holds each row's whole
+// [T, S] f32 tile in VMEM; here the keys stream in chunks of 64 through an
+// online softmax (attention_core.cuh, which also states the design and the
+// bound).
 #include "attention_core.cuh"
 
 extern "C" int stlt_flash_attention(
     const void* q, const void* k, const void* v, long long qb, long long qt, long long qn,
     long long kb, long long kt, long long kn, long long vb, long long vt, long long vn,
-    const void* bias, long long bias_b, long long bias_n, long long bias_t, void* out, int B,
-    int T, int S, int N, int D, float scale, int dtype, void* stream) {
+    const void* bias, long long bias_b, long long bias_n, long long bias_t, void* out, void* lse,
+    int B, int T, int S, int N, int D, float scale, int dropout, unsigned seed, unsigned thresh,
+    float dropout_scale, int dtype, void* stream) {
   stlt::attn::AttnArgs a{q, k, v, qb, qt, qn, kb, kt, kn, vb, vt, vn,
                          static_cast<const float*>(bias), bias_b, bias_n, bias_t,
-                         nullptr, 0, out, nullptr, B, T, S, N, scale};
+                         nullptr, 0, out, static_cast<float*>(lse), B, T, S, N, scale,
+                         stlt::Dropout{dropout, seed, thresh, dropout_scale}};
   return stlt::attn::dispatch<false>(a, D, dtype, stream);
 }

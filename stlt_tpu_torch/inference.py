@@ -25,10 +25,9 @@ from typing import Dict
 
 from stlt_tpu_torch.configs import (
     category2id_for,
-    frame_capacity_for,
+    live_prefix_caps,
     make_model_config,
     position_table_rows,
-    spatial_live_capacity_for,
 )
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
@@ -77,11 +76,7 @@ def inference(args) -> Dict[str, float]:
     num_classes = len(test_dataset.labels)
     # --live_prefix: frame-axis truncation and the spatial live-prefix fold,
     # both bounded by the dataset's longest clip (so every batch fits).
-    live_cap = frame_cap = None
-    if args.live_prefix and args.use_pallas and args.context_parallel <= 1:
-        frame_cap = frame_capacity_for(test_dataset, data_cfg)
-        live_cap = spatial_live_capacity_for(test_dataset, data_cfg, args.batch_size,
-                                             frame_axis=frame_cap)
+    live_cap, frame_cap = live_prefix_caps(args, (test_dataset, data_cfg))
     model_config = make_model_config(
         args.model_name,
         num_classes=num_classes,

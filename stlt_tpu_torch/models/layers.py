@@ -21,12 +21,19 @@ are cast to the compute dtype where the JAX code casts.
   tokens with the dense bias, the blockwise kernel from 513 on with
   ``kv_lengths`` and ``causal``), then a plain out-projection and the fused
   layer tail;
-- train: the attention is ``fused_proj_attention_train`` (its forward and
-  backward kernels, with hashed probability dropout), and the tail is the
-  plain chain of ``layers.py:512-561`` with its three hashed dropout sites
-  (``ops/dropout.py``), as the JAX package runs it below 256 frames. At
-  T > 64 train mode runs the plain attention on the CPU and raises on the
-  card: its kernels come with the long-context train slice.
+- train, T <= 64: the attention is ``fused_proj_attention_train`` (its
+  forward and backward kernels, with hashed probability dropout);
+- train, T > 64 (long clips): q/k/v from one plain product, the attention
+  core through ``ops/flash.py``'s autograd Function (the short flash kernel
+  or the blockwise one in lengths mode, each with in-kernel hashed dropout,
+  and their backward kernels), then a plain out-projection;
+- train, every T: the tail is the plain chain of ``layers.py:512-561`` with
+  its three hashed dropout sites (``ops/dropout.py``). That is the JAX
+  package's train tail with the fused train-tail gate off
+  (``STLT_TAIL_TRAIN_MIN_FRAMES=100000``, ``ops/fused_tail_train.py:715-717``);
+  JAX's default gate sends the tail of models of 256 frames and more to
+  ``fused_layer_tail_train`` (TPU kernels 11-14, the same function), whose
+  port is ``ROADMAP.md`` item B6.
 
 The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
@@ -142,14 +149,10 @@ class MultiHeadAttention(nn.Module):
 
     def _projected_attention(self, x, bias, seed, kv_lengths) -> torch.Tensor:
         """T > 64 (``layers.py:315-374``): q/k/v from one plain product,
-        viewed as [B, T, N, D] without a copy, the attention core, then the
-        out-projection. Dead rows are left to the layer tail, as in JAX."""
-        if self.training and x.device.type == "cuda":
-            raise NotImplementedError(
-                f"train mode at T = {x.shape[1]} > {fe._KERNEL_MAX_SEQ} tokens is not ported to "
-                "the card yet: it waits for ROADMAP.md items B4 (rest), B5 (rest) and B6 "
-                "(the long-context train slice)"
-            )
+        viewed as [B, T, N, D] without a copy, the attention core (in train
+        mode with the layer's dropout seed, its gradients from the backward
+        kernels), then the out-projection. Dead rows are left to the layer
+        tail, as in JAX."""
         B, T, H = x.shape
         N, dt = self.num_heads, self.dtype
         qkv = torch.matmul(x.to(dt), self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)

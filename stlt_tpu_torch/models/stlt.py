@@ -28,8 +28,12 @@ raises.
 
 ``model.train()`` is JAX's ``deterministic=False``: the two embedding
 dropouts (``stlt.py:100,232``) apply, and every encoder layer runs its train
-path (``models/layers.py``): the attention through the train kernels, the
-tail through the plain chain with hashed dropout. The random draws come, in
+path (``models/layers.py``): the attention through the train kernels (at
+long clips the temporal attention through the long-clip kernels and their
+backwards, with the same ``kv_lengths`` and ``causal`` as in eval), the tail
+through the plain chain with hashed dropout. Both levers run under autograd:
+the fold's gather and scatter carry the live rows' gradients, and cut frame
+slots and dead rows get none. The random draws come, in
 forward order, from the ``torch.Generator`` passed to :meth:`Stlt.forward`:
 the category-box embedding mask, each spatial layer's two seeds, the frame
 embedding mask, each temporal layer's two seeds. ``model.eval()`` runs the

@@ -57,14 +57,33 @@ SIGNATURES = {
     "flash_attention": (
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
-        # B, T, S, N, D, scale, dtype, stream
-        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        # lse (or null), B, T, S, N, D, scale, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F,
+         _I, _U, _U, _F, _I, _P],
     ),
     "blockwise_attention": (
         "stlt_blockwise_attention",
         # q, k, v, their (b, t, n) strides, lengths, causal, out, lse,
-        # B, T, S, N, D, scale, dtype, stream
-        [_P, _P, _P, *[_LL] * 9, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        # B, T, S, N, D, scale, dropout, seed, thresh, dropout_scale, dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
+         _I, _U, _U, _F, _I, _P],
+    ),
+    "flash_attention_bwd": (
+        "stlt_flash_attention_bwd",
+        # q, k, v, dO, their (b, t, n) strides, bias, its (b, n, t) strides,
+        # lse, dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
+        [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+    ),
+    "blockwise_attention_bwd": (
+        "stlt_blockwise_attention_bwd",
+        # q, k, v, dO, their (b, t, n) strides, lengths, causal, lse, dsum,
+        # dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
+        [_P, _P, _P, _P, *[_LL] * 12, _P, _I, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
     ),
 }
 
@@ -96,12 +115,12 @@ def _nvcc_command(name: str, target: Path):
     ]
 
 
-def build_all(verbose: bool = False) -> Dict[str, Path]:
-    """Compile every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together. Returns {name: library path}; raises with
-    the compiler's output when a build fails."""
+def build_all(verbose: bool = False, names=None) -> Dict[str, Path]:
+    """Compile every kernel library (or those in ``names``) that is not
+    built yet, one ``nvcc`` per source, all started together. Returns {name:
+    library path}; raises with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _library_path(name) for name in SIGNATURES}
+    targets = {name: _library_path(name) for name in (names or SIGNATURES)}
     procs = {}
     for name, target in targets.items():
         if target.exists():

@@ -13,8 +13,15 @@ checkpoint saved as a reference-format ``.pt`` state_dict, which the port's
 
 It runs on the GPU unless ``--platform cpu`` is given; without a GPU it
 raises and never falls back to the CPU. Flags of later slices raise with the
-``ROADMAP.md`` item they wait for. The ragged levers stay off, as in
-``predict``.
+``ROADMAP.md`` item they wait for. Long clips train as they serve:
+``--layout_num_frames 256`` puts the temporal attention on the short flash
+kernels, ``512`` on the blockwise ones (forward and backward).
+``--live_prefix`` has no effect here and says so in the log: the train
+sampler fills every frame slot of every clip, so no capacity that holds for
+the train set cuts anything (``configs.live_prefix_caps`` returns ``(None,
+None)`` for it), and the model runs uncapped, where JAX's capacities
+(``stlt_tpu/train.py:40-59``) would drop sampled frames (``ROADMAP.md``
+section C).
 
     python -m stlt_tpu_torch.train --dataset_name something --dataset_type layout \
         --model_name stlt --train_dataset_path train.json --val_dataset_path val.json \
@@ -123,6 +130,9 @@ def train(args) -> TrainResult:
     val_loader = Loader(val_dataset, args.batch_size, collaters_factory[args.dataset_type](val_cfg),
                         **loader_kw)
 
+    if args.live_prefix:
+        logging.info("--live_prefix has no effect in training: the train sampler fills every "
+                     "frame slot, so the ragged levers would cut nothing")
     model_config = make_model_config(
         args.model_name,
         num_classes=num_classes,

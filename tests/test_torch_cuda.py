@@ -313,7 +313,8 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
     bias = _bias("causal_padding", B, T, gen).to(device)
     flash.reset_launches()
     got = flash.fused_attention(q, k, v, bias)
-    assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0}
+    assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     want = flash.fused_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype)
@@ -331,7 +332,8 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     lengths = torch.tensor([1, T, 64, 65, T // 2 + 3], dtype=torch.int32)
     flash.reset_launches()
     out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths.to(device), causal=causal)
-    assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1}
+    assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1,
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     torch.cuda.synchronize()
     live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)  # [B, T]
@@ -349,11 +351,15 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
     lengths = torch.tensor([3, 513], device=device)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
         flash.flash_attention(q, k, v, bias=torch.zeros(2, 1, 513, 513, device=device))
+    mask = torch.ones(2, 12, 100, 100, device=device)
+    with pytest.raises(NotImplementedError, match="dropout-mask operand"):
+        flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask, dropout_rate=0.1)
+    lse = dsum = torch.zeros(2, 12, 513, device=device)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
-        flash.flash_attention(q, k, v, kv_lengths=lengths, causal=True, dropout_rate=0.1,
-                              dropout_seed=7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item B4"):
-        flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_rate=0.1, dropout_seed=7)
+        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, bias=torch.zeros(2, 1, 513, 513, device=device))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
+        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True,
+                                      offsets=torch.tensor([0, 0]))
     q32 = torch.randn(2, 100, 4, 32, device=device)
     with pytest.raises(ValueError, match="head dim 64"):
         flash.flash_attention(q32, q32, q32)
@@ -362,15 +368,164 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
                               kv_lengths=lengths, causal=True)
 
 
-def test_long_clip_train_mode_raises_on_the_card(device):
-    from stlt_tpu_torch.models.layers import MultiHeadAttention
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,rate", [(65, 0.1), (257, 0.5), (512, 0.1)])
+def test_flash_kernel_with_dropout_and_lse_matches_plain(device, dtype, T, rate):
+    """The short kernel's dropout variant keeps the plain version's bits (in
+    f32 the outputs agree to 1e-5, which one flipped bit would break) and
+    writes the plain lse."""
+    from stlt_tpu_torch.ops import flash
 
-    mha = MultiHeadAttention(128, 2, torch.float32, torch.Generator().manual_seed(0)).to(device)
-    x = torch.randn(2, 70, 128, device=device)
-    with torch.no_grad():
-        assert mha.eval()(x).shape == (2, 70, 128)
-    with pytest.raises(NotImplementedError, match="long-context train slice"):
-        mha.train()(x, seed=3)
+    gen = torch.Generator().manual_seed(T + 7)
+    B = 5
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=True)
+    bias = _bias("causal_padding", B, T, gen).to(device)
+    kw = dict(dropout_rate=rate, dropout_seed=0xDEADBEEF)
+    got, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+    want, want_lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    assert not torch.allclose(got.float(), flash.fused_attention_plain(q, k, v, bias).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,rate", [(513, 0.1), (1025, 0.5)])
+def test_blockwise_kernel_with_dropout_matches_plain(device, dtype, T, rate):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + 11)
+    B = 5
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=True)
+    lengths = torch.tensor([1, T, 64, 65, T // 2 + 3], dtype=torch.int32, device=device)
+    kw = dict(kv_lengths=lengths, causal=True, dropout_rate=rate, dropout_seed=12345)
+    out, lse = flash.blockwise_attention(q, k, v, **kw)
+    want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    live = (torch.arange(T, device=device)[None, :] < lengths[:, None])
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse.transpose(1, 2)[live], want_lse.transpose(1, 2)[live],
+                               **TOL[torch.float32])
+    assert out[~live].abs().max().item() == 0.0
+
+
+def _bwd_case(B, T, dtype, gen, device, lengths=None, rate=0.0):
+    """q, k, v (strided thirds), a cotangent, and the plain forward's out,
+    lse and dsum; in lengths mode the cotangent is 1e30 on dead rows."""
+    from stlt_tpu_torch.ops import flash
+
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=True)
+    dout = torch.randn(B, T, 12, 64, generator=gen).to(device, dtype)
+    drop = dict(dropout_rate=rate, dropout_seed=0x5EED if rate else None)
+    if lengths is None:
+        bias = _bias("causal_padding", B, T, gen).to(device)
+        out, lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **drop)
+        return q, k, v, dout, lse, flash._dsum(dout, out, None), dict(bias=bias, **drop)
+    live = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    dout[~live] = 1e30
+    kw = dict(kv_lengths=lengths, causal=True, **drop)
+    out, lse = flash.blockwise_attention_plain(q, k, v, **kw)
+    return q, k, v, dout, lse, flash._dsum(dout, out, lengths), kw
+
+
+# The long-clip backwards' dq, dk and dv in the relative norm: sound kernels
+# read at most 2.2e-4 in bf16 (H100); a tensor-core product of p or dz
+# without the hi + lo split reads 2.5e-3 to 2.7e-3
+# (``python -m stlt_tpu_torch.utils.bwd_tolerance``; PERF.md, PR 4), and the
+# elementwise bf16 bound is about as large as a dk or dv element.
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _check_grads(got, want, dtype, dead=None):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.is_contiguous() and torch.isfinite(a).all(), name
+        assert _rel(a, b) < BWD_REL[dtype], (name, _rel(a, b))
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype], msg=name)
+    if dead is not None and dead.any():
+        assert got[0][dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,rate", [(65, 0.0), (257, 0.1), (512, 0.1)])
+def test_flash_bwd_kernel_matches_plain(device, dtype, T, rate):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + 13)
+    q, k, v, dout, lse, dsum, kw = _bwd_case(5, T, dtype, gen, device, rate=rate)
+    flash.reset_launches()
+    got = flash.fused_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    assert flash.LAUNCHES["flash_attention_bwd"] == 1
+    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    again = flash.fused_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    _check_grads(got, want, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,rate", [(513, 0.0), (513, 0.1), (1025, 0.1)])
+def test_blockwise_bwd_kernel_matches_plain(device, dtype, T, rate):
+    """Full and ragged lengths (1 and T among them), causal, a cotangent of
+    1e30 on dead rows: finite gradients, dead rows' dq exact zeros, equal to
+    the plain version and the same bits twice."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + 17)
+    lengths = torch.tensor([1, T, 64, 65, T // 2 + 3], dtype=torch.int32, device=device)
+    q, k, v, dout, lse, dsum, kw = _bwd_case(5, T, dtype, gen, device, lengths, rate)
+    flash.reset_launches()
+    got = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    assert flash.LAUNCHES["blockwise_attention_bwd"] == 1
+    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    again = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    dead = ~(torch.arange(T, device=device)[None, :] < lengths[:, None])
+    _check_grads(got, want, dtype, dead)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+@pytest.mark.parametrize("T", [257, 513])
+def test_flash_attention_gradients_on_the_card_match_the_cpu(device, T):
+    """The autograd Functions end to end, f32 with dropout: forward and
+    gradients on the card against the same Functions on the CPU (plain
+    forward and backward), which the CPU tests hold against JAX."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T)
+    B, N, D = 3, 2, 64
+    q, k, v, g = (torch.randn(B, T, N, D, generator=gen) for _ in range(4))
+    lengths = torch.tensor([T, 40, 200], dtype=torch.int32)
+    kw = dict(causal=True, kv_lengths=lengths, dropout_rate=0.1, dropout_seed=99)
+    results = []
+    for dev in ("cpu", device):
+        leaves = [t.detach().clone().to(dev).requires_grad_() for t in (q, k, v)]
+        flash.reset_launches()
+        out = flash.flash_attention(*leaves, **{**kw, "kv_lengths": lengths.to(dev)})
+        out.backward(g.to(dev))
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    name = "blockwise_attention" if T >= 513 else "flash_attention"
+    assert flash.LAUNCHES[name] == 1 and flash.LAUNCHES[name + "_bwd"] == 1
+    live = torch.arange(T)[None, :] < lengths[:, None]
+    for a, b in zip(results[0], results[1]):
+        torch.testing.assert_close(b[live], a[live], atol=1e-4, rtol=1e-4)
+
+
+def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
+    """Train mode above 64 tokens: the attention's forward and backward
+    launch the long-clip kernels (and nothing else of ops/flash.py)."""
+    from stlt_tpu_torch.models.layers import MultiHeadAttention
+    from stlt_tpu_torch.ops import flash
+
+    mha = MultiHeadAttention(128, 2, torch.float32, torch.Generator().manual_seed(0),
+                             dropout_rate=0.1).to(device)
+    x = torch.randn(2, 70, 128, device=device, requires_grad=True)
+    flash.reset_launches()
+    mha.train()(x, seed=3).sum().backward()
+    assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
+                              "flash_attention_bwd": 1, "blockwise_attention_bwd": 0}
+    assert torch.isfinite(x.grad).all()
 
 
 def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
@@ -414,5 +569,47 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
         "--num_temporal_layers", "2", "--compute_dtype", "bfloat16", "--output", out, "--top_k", "3",
     ])
     assert len(rows) == 6 and all(len(json.loads(line)["top_k"]) == 3 for line in open(out))
-    assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0}
+    assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0,
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
+
+
+def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
+    """train --layout_num_frames 256 on the card (H = 128, 2 heads of 64, 1 + 2
+    layers, dropout 0.1): every temporal layer's attention runs the short
+    flash kernel forward and its backward kernel in each step, finite
+    losses."""
+    import json
+
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(1)
+    labels = {f"Doing thing {i}": str(i) for i in range(4)}
+    frame = {"frame_objects": [{"category": "hand", "x1": 10.0, "y1": 20.0, "x2": 90.0,
+                                "y2": 80.0, "score": 0.9}]}
+    videos = [{"id": str(v), "template": f"Doing thing {v % 4}",
+               "frames": [frame] * int(rng.integers(100, 300))} for v in range(8)]
+    paths = {}
+    for name, obj in (("dataset_path", videos), ("labels_path", labels),
+                      ("videoid2size_path", {str(v): [320, 240] for v in range(8)})):
+        paths[name] = str(tmp_path / f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    flash.reset_launches()
+    fe.reset_launches()
+    result = port_train.main([
+        "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+        "--train_dataset_path", paths["dataset_path"], "--val_dataset_path", paths["dataset_path"],
+        "--labels_path", paths["labels_path"], "--videoid2size_path", paths["videoid2size_path"],
+        "--layout_num_frames", "256", "--batch_size", "4", "--hidden_size", "128",
+        "--num_attention_heads", "2", "--num_spatial_layers", "1", "--num_temporal_layers", "2",
+        "--hidden_dropout_prob", "0.1", "--epochs", "1", "--compute_dtype", "bfloat16",
+        "--use_pallas", "--save_model_path", str(tmp_path / "best.pt"),
+    ])
+    steps, val = 2, 2
+    assert result.step == steps and all(np.isfinite(r["train_loss"]) for r in result.epochs)
+    assert flash.LAUNCHES == {"flash_attention": 2 * (steps + val), "blockwise_attention": 0,
+                              "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0}
+    assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
+                           "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps}

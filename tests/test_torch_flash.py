@@ -48,7 +48,7 @@ def test_short_kernel_with_causal_padding_bias_matches_jax(T, lengths):
     want = np.asarray(jax_flash.flash_attention(q, k, v, bias=bias))
     flash.reset_launches()
     got = flash.flash_attention(*_torch(q, k, v), bias=torch.from_numpy(bias))
-    assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 0}
+    assert not any(flash.LAUNCHES.values())
     assert got.dtype == torch.float32 and got.shape == (B, T, N, D)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
