@@ -24,7 +24,18 @@ Phases, in order; any failure exits non-zero:
    ``attention_bwd_plain`` (T = 65, 257, 512 and 513, 1025; full and ragged
    lengths; dropout 0 and 0.1; dead rows, NaN and determinism checks), timed
    at B = 32, T = 257 and B = 16, T = 513 against the autograd backward of
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; then the fused train tail's forward and
+   three backward kernels against their plain versions at 2,056 tokens (bf16
+   and f32, dropout 0 and 0.1, GELU with full and ragged live tokens, ReLU
+   with ragged ones, a 1e30 cotangent on dead tokens; dead outputs zero, no
+   NaN, two launches bit-identical) and at 8,224 ragged tokens (three
+   splits of the weight products), then checked the same way and timed at
+   the 256-frame step's shapes (65,792 spatial and 8,224 temporal tokens:
+   264 row blocks, 17 and 3 splits) and at the 17-frame B = 512 spatial
+   shape (69,632 tokens) against its plain version, the
+   autograd of ``F.dropout``/``F.layer_norm``/``F.linear``/``F.gelu`` (the
+   backward's once, rows 12-14 jointly) and its bound, with the op-level
+   A/B of the fused op against the layer's plain chain;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -36,7 +47,8 @@ Phases, in order; any failure exits non-zero:
    validation clips, batch 64, 2 epochs, so 8 AdamW steps and 2 validation
    passes. Finite losses, two epoch records, a best ``.pt`` that loads with
    ``strict=True``, and the launch counts (each train kernel 12 per step,
-   each eval kernel 12 per validation batch) are asserted. Then one train
+   each eval kernel 12 per validation batch, no train-tail kernel: below 256
+   frames the tail is the plain chain) are asserted. Then one train
    step from the same weights, batch and seeds, kernels against the plain
    path on the card: loss and gradients, and the step times at B = 64 and
    512, with a ``torch.profiler`` breakdown of one kernel-path step by
@@ -57,9 +69,11 @@ Phases, in order; any failure exits non-zero:
    frames, which the train sampler stretches over every slot), two steps
    and one validation batch each: finite losses and the launch counts (per step
    4 + 4 of the train op's kernels, 8 + 8 of the long-clip forward and
-   backward) are asserted; then one step from the trained weights, kernels
-   against the plain path (the train step's limits below), the step times and a
-   ``torch.profiler`` breakdown by kernel group;
+   backward, 12 of each of the fused train tail's four kernels; the eval tail
+   only in the validation batch) are asserted; then one step from the
+   trained weights, kernels against the plain path (the train step's limits
+   below), the step times and peak memory of both and a ``torch.profiler``
+   breakdown by kernel group;
 7. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
@@ -94,6 +108,18 @@ points, same keep bits; the two differ only in the order of their sums):
   the hi + lo split (2**-9 relative on each probability) reads 2.5e-3 to
   2.7e-3, dropping dsum from dz 0.6 (``python -m
   stlt_tpu_torch.utils.bwd_tolerance``, H100; PERF.md, PR 4).
+- the fused train tail: y, r2, dr2, dx and dattn within the same OP_TOL;
+  dx and dattn each within a relative Frobenius-norm error of TAIL_BWD_REL,
+  1e-5 in f32 and 5e-4 in bf16; dr2 and the summed gradients (dn1s, dn1b,
+  dW1, db1, dW2, db2, dn2s, dn2b) each within TAIL_SUM_REL, 1e-5 in f32 and
+  5e-4 in bf16. In bf16 sound kernels read at most 8.7e-5 for dx and dattn
+  and 9e-5 for the sums; act' taken on the bf16-rounded z1 instead of the
+  f32 one reads 1.1e-3 and the input kernel's dh2 without its keep bits
+  7.0e-2, both over the limit, which the elementwise OP_TOL would not be.
+  Faults in the weight kernel read over the sums' limit in dW1 and dW2:
+  each split's partial rounded to bf16 1.7e-3, the last split left out
+  6.0e-2 to 6.5e-2, at 4,112 and at 65,792 tokens (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance tail``, H100; PERF.md §6).
 - bf16 logits of the whole model: atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
@@ -156,21 +182,17 @@ REPLACES = {
     # One launch runs both TPU kernels' work: _blockwise_dq_kernel (:655)
     # and _blockwise_dkdv_kernel (:745).
     "blockwise_attention_bwd": "stlt_tpu/ops/flash.py:655",
+    "fused_layer_tail_train": "stlt_tpu/ops/fused_tail_train.py:191",
+    "fused_tail_train_bwd_row": "stlt_tpu/ops/fused_tail_train.py:284",
+    "fused_tail_train_bwd_input": "stlt_tpu/ops/fused_tail_train.py:350",
+    "fused_tail_train_bwd_weight": "stlt_tpu/ops/fused_tail_train.py:459",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
 LONG_KERNELS = ("flash_attention", "blockwise_attention", "flash_attention_bwd",
                 "blockwise_attention_bwd")
-SOURCES = {
-    "fused_proj_attention": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
-    "fused_layer_tail": "stlt_tpu_torch/csrc/fused_layer_tail.cu",
-    "fused_proj_attention_train": "stlt_tpu_torch/csrc/fused_proj_attention.cu",
-    "fused_proj_attention_train_bwd": "stlt_tpu_torch/csrc/fused_proj_attention_bwd.cu",
-    "flash_attention": "stlt_tpu_torch/csrc/flash_attention.cu",
-    "blockwise_attention": "stlt_tpu_torch/csrc/blockwise_attention.cu",
-    "flash_attention_bwd": "stlt_tpu_torch/csrc/flash_attention_bwd.cu",
-    "blockwise_attention_bwd": "stlt_tpu_torch/csrc/blockwise_attention_bwd.cu",
-}
+TAIL_KERNELS = ("fused_layer_tail_train", "fused_tail_train_bwd_row", "fused_tail_train_bwd_input",
+                "fused_tail_train_bwd_weight")
 # Long clips (bench.py:154-266): --layout_num_frames -> (batch, the clips'
 # frame counts). 256 frames: every slot live (long_context); 512 frames:
 # clips of 32-256 frames, ~28 % of the slots live (long_context_512_ragged).
@@ -185,6 +207,15 @@ LONG_TRAIN = {256: (32, (256, 301)), 512: (16, (32, 257))}
 LONG_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
 FWD_DROP_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 forward with dropout: one flipped bit fails it
 BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # long-clip backwards, relative norm
+TAIL_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}  # the train tail's dx, dattn, relative norm
+# The train tail's dr2 and its eight summed gradients, relative norm.
+TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# The fused train tail's main-path shapes (tokens): the spatial and the
+# temporal stage of a 256-frame step (B = 32: 32 x 257 x 8 and 32 x 257), and
+# the spatial stage of the 17-frame step at B = 512 (the gate keeps that one
+# on the plain chain; timed for the op-level A/B only).
+TAIL_SHAPES = (("spatial 256 frames", 32 * 257 * NUM_BOXES), ("temporal 256 frames", 32 * 257),
+               ("spatial 17 frames", TRAIN_BATCH * NUM_FRAMES * NUM_BOXES))
 
 
 def log(msg: str) -> None:
@@ -847,6 +878,238 @@ def check_long_train_kernels(device):
     return table
 
 
+# --- phase 2, the fused train tail: its forward and three backward kernels ------
+
+
+TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
+
+
+def _tail_weights(w):
+    return [w[k] for k in ("n1s", "n1b", "w1", "b1", "w2", "b2", "n2s", "n2b")]
+
+
+def tail_train_bounds(tokens, live_tokens, dtype):
+    """{kernel: (ms, "bytes" | "operations")} for the fused train tail's
+    kernels on these shapes: live tokens' flops at the dtype's peak against
+    each input read once and each output written once. Forward: two GEMMs of
+    2*H*FF flops a token; x, attn and the weights in, y and r2 out. Row: its
+    bytes (r2 and g in, dr2 out; its ~20 flops an element run on the f32
+    pipes). Input: three GEMMs (z1, dh2 W2^T, du); x, attn, dr2 and the
+    weights in, dx, dattn and the scratch the weight kernel reads (u, dh2
+    [tokens, H], dh1, h1d [tokens, FF]) out. Weight: two GEMMs (dW1, dW2);
+    that scratch in, dW1, dW2 and db1 out in f32."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    act, hid = tokens * H * es, tokens * FF * es
+    weights, vecs = 2 * H * FF * es, (FF + 6 * H) * 4
+    gemm = 2 * live_tokens * H * FF
+    row_ms, _ = _bound(20 * live_tokens * H, 0, torch.float32)
+    row_bytes_ms = (3 * act + 4 * 3 * H + tokens) / HBM_BYTES_PER_S * 1e3
+    return {
+        "fused_layer_tail_train": _bound(2 * gemm, 4 * act + weights + vecs + tokens, dtype),
+        "fused_tail_train_bwd_row": (max(row_ms, row_bytes_ms),
+                                     "bytes" if row_bytes_ms >= row_ms else "operations"),
+        "fused_tail_train_bwd_input": _bound(3 * gemm, 7 * act + 2 * hid + weights + vecs + tokens,
+                                             dtype),
+        "fused_tail_train_bwd_weight": _bound(2 * gemm, 2 * act + 2 * hid + (2 * H * FF + FF) * 4,
+                                              dtype),
+    }
+
+
+def library_tail_train(w, dtype, rate):
+    """``F.dropout`` / ``F.layer_norm`` / ``F.linear`` / ``F.gelu`` (torch's
+    own dropout bits) and its autograd backward: the same work from
+    PyTorch's library calls, a yardstick only."""
+    leaves = [w[k].to(dtype) for k in ("n1s", "n1b", "b1", "b2", "n2s", "n2b")]
+    leaves += [w["w1"].t().contiguous().to(dtype), w["w2"].t().contiguous().to(dtype)]
+    leaves = [t.requires_grad_() for t in leaves]
+    n1s, n1b, b1, b2, n2s, n2b, w1, w2 = leaves
+    approximate = "tanh" if dtype == torch.bfloat16 else "none"
+
+    def forward(x, a):
+        u = F.layer_norm(x + F.dropout(a, rate), (H,), n1s, n1b, EPS)
+        h = F.dropout(F.gelu(F.linear(u, w1, b1), approximate=approximate), rate)
+        return F.layer_norm(u + F.dropout(F.linear(h, w2, b2), rate), (H,), n2s, n2b, EPS)
+
+    def backward(y, x, a, g):
+        return torch.autograd.grad(y, [x, a, *leaves], g, retain_graph=True)
+
+    return forward, backward
+
+
+def _tail_inputs(tokens, dtype, gen, device, ragged):
+    """x, attn, a cotangent (1e30 on dead tokens, which the backward must not
+    read) and the live flags (None, or ~70 % live with a dead first block)."""
+    x = torch.randn((tokens, H), generator=gen).to(device, dtype)
+    a = (0.5 * torch.randn((tokens, H), generator=gen)).to(device, dtype)
+    g = torch.randn((tokens, H), generator=gen)
+    live = None
+    if ragged:
+        live = torch.rand(tokens, generator=gen) < 0.7
+        live[:40] = False
+        g[~live] = 1e30
+        live = live.to(device)
+    return x, a, g.to(device, dtype), live
+
+
+def _check_tail_case(label, x, a, g, live, weights, cfg, dtype):
+    """One case of the fused train tail's four kernels against their plain
+    versions: y, r2, dr2, dx and dattn within OP_TOL, dead tokens' exact
+    zeros; dx and dattn within TAIL_BWD_REL, dr2 and the eight summed
+    gradients within TAIL_SUM_REL in relative norm; no NaN; two launches of
+    the forward and of the whole backward bit-identical. The row kernel runs
+    on the plain r2, the input kernel on the plain dr2, the weight kernel on
+    the input kernel's scratch. Returns the largest elementwise error of each
+    kernel's first output (y, dr2, dx, dW1)."""
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+
+    tol = OP_TOL[dtype]
+    tokens = x.shape[0]
+    mask = (torch.ones(tokens, dtype=torch.bool, device=x.device) if live is None
+            else live)[:, None].expand(tokens, H)
+    y, r2 = ftt._launch_tail_train(x, a, weights, cfg, live)
+    again = ftt._launch_tail_train(x, a, weights, cfg, live)
+    want_y, want_r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
+    torch.cuda.synchronize()
+    errs = {"y": _check_close(f"fused_layer_tail_train y {label}", y, want_y, mask, tol),
+            "r2": _check_close(f"fused_layer_tail_train r2 {label}", r2, want_r2, mask, tol)}
+    if not (torch.equal(y, again[0]) and torch.equal(r2, again[1])):
+        raise AssertionError(f"fused_layer_tail_train {label}: two launches differ")
+    del y, r2, again, want_y
+
+    row = ftt._launch_bwd_row(want_r2, g, weights[6], cfg, live)
+    want_row = ftt.tail_train_bwd_row_plain(want_r2, g, weights[6], cfg, live)
+    inp = ftt._launch_bwd_input(x, a, want_row[0], weights, cfg, live)
+    want_inp = ftt.tail_train_bwd_input_plain(x, a, want_row[0], weights, cfg, live)
+    wgt = ftt._launch_bwd_weight(inp[4])
+    want_wgt = ftt.tail_train_bwd_weight_plain(x, a, want_row[0], weights, cfg)
+    torch.cuda.synchronize()
+    errs["dr2"] = _check_close(f"fused_tail_train_bwd_row dr2 {label}", row[0], want_row[0], mask, tol)
+    errs["dx"] = _check_close(f"fused_tail_train_bwd_input dx {label}", inp[0], want_inp[0], mask, tol)
+    errs["dattn"] = _check_close(f"fused_tail_train_bwd_input dattn {label}", inp[1], want_inp[1],
+                                 mask, tol)
+    errs["dw1"] = (wgt[0] - want_wgt[0]).abs().max().item()
+    got = (*inp[:4], *wgt, row[3], row[1], row[2])  # TAIL_GRADS' order
+    want = (*want_inp, *want_wgt, want_row[3], want_row[1], want_row[2])
+    rel = {name: _rel(p, q) for name, p, q in zip(TAIL_GRADS, got, want)}
+    rel["dr2"] = _rel(row[0], want_row[0])
+    limits = {name: TAIL_BWD_REL[dtype] if name in ("dx", "dattn") else TAIL_SUM_REL[dtype]
+              for name in rel}
+    over = {name: e for name, e in rel.items() if not e <= limits[name]}
+    if over or not all(torch.isfinite(t).all() for t in (*got, row[0])):
+        raise AssertionError(f"fused train tail backward {label}: relative norm errors "
+                             f"over their limits {over} (all: {rel})")
+    del row, want_row, inp, want_inp, wgt, want_wgt, got, want
+    whole = ftt._launch_tail_train_bwd(x, a, want_r2, g, weights, cfg, live)
+    if not all(torch.equal(p, q) for p, q in
+               zip(whole, ftt._launch_tail_train_bwd(x, a, want_r2, g, weights, cfg, live))):
+        raise AssertionError(f"fused train tail backward {label}: two launches differ")
+    log(f"kernel_check fused_train_tail {label}: max_abs_err {json.dumps(errs)}, relative "
+        f"norm errors {json.dumps(rel)} (dx/dattn limit {TAIL_BWD_REL[dtype]}, others "
+        f"{TAIL_SUM_REL[dtype]}), dead tokens zero, no NaN, two launches bit-identical")
+    return {"fused_layer_tail_train": errs["y"], "fused_tail_train_bwd_row": errs["dr2"],
+            "fused_tail_train_bwd_input": errs["dx"], "fused_tail_train_bwd_weight": errs["dw1"]}
+
+
+def check_tail_train_kernels(device):
+    """The fused train tail's four kernels against their plain versions
+    (``_check_tail_case``), bf16 and f32: at 2,056 tokens (8 clips of 257
+    frames) with dropout 0 and 0.1, GELU (erf in f32, tanh in bf16) with full
+    and ragged live tokens, ReLU with ragged ones; at 8,224 ragged tokens
+    with GELU and dropout 0.1 (the weight products in three splits). Then, in
+    bf16 with dropout 0.1 and every token live, at each of TAIL_SHAPES: the
+    same check (264 row blocks, up to 17 splits), each kernel timed against
+    its plain version, the library yardstick (the backward's once, for rows
+    12-14 jointly) and its bound, and the op-level A/B, the fused op's
+    forward and backward against the layer's plain chain. Returns the
+    kernel-table rows (the 256-frame spatial shape)."""
+    from stlt_tpu_torch.models.layers import TransformerEncoderLayer
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    w = make_weights(gen, device)
+    weights = _tail_weights(w)
+    seed = 0x5EED5EED
+    cases = [("gelu", rate, ragged, 8 * 257) for rate in (0.0, DROPOUT) for ragged in (False, True)]
+    cases += [("relu", DROPOUT, True, 8 * 257), ("gelu", DROPOUT, True, 32 * 257)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for activation, rate, ragged, tokens in cases:
+            x, a, g, live = _tail_inputs(tokens, dtype, gen, device, ragged)
+            cfg = ftt.TailConfig(EPS, activation, activation == "gelu" and dtype == torch.bfloat16,
+                                 rate, seed if rate else None)
+            label = f"{dtype} tokens={tokens} {activation} rate={rate} {'ragged' if ragged else 'full'}"
+            _check_tail_case(label, x, a, g, live, weights, cfg, dtype)
+            del x, a, g, live
+            torch.cuda.empty_cache()
+
+    # At the main path's shapes (bf16, dropout 0.1, every token live): the
+    # check, the timings, and the op-level A/B against the layer's plain chain.
+    dtype = torch.bfloat16
+    layer = TransformerEncoderLayer(H, HEADS, FF, activation="gelu", layer_norm_eps=EPS, dtype=dtype,
+                                    generator=torch.Generator().manual_seed(SEED),
+                                    dropout_rate=DROPOUT).to(device).train()
+    with torch.no_grad():
+        for mod, wk, bk in ((layer.linear1, "w1", "b1"), (layer.linear2, "w2", "b2")):
+            mod.weight.copy_(w[wk].t())
+            mod.bias.copy_(w[bk])
+        for mod, sk, bk in ((layer.norm1, "n1s", "n1b"), (layer.norm2, "n2s", "n2b")):
+            mod.weight.copy_(w[sk])
+            mod.bias.copy_(w[bk])
+    cfg = ftt.TailConfig(EPS, "gelu", True, DROPOUT, seed)
+    lib_f, lib_b = library_tail_train(w, dtype, DROPOUT)
+    table = {}
+    for shape, tokens in TAIL_SHAPES:
+        x, a, g, _ = _tail_inputs(tokens, dtype, gen, device, False)
+        errs = _check_tail_case(f"{dtype} {shape} tokens={tokens} gelu rate={DROPOUT} full",
+                                x, a, g, None, weights, cfg, dtype)
+        torch.cuda.empty_cache()
+        bounds = tail_train_bounds(tokens, tokens, dtype)
+        r2 = ftt._launch_tail_train(x, a, weights, cfg)[1]
+        dr2 = ftt._launch_bwd_row(r2, g, weights[6], cfg)[0]
+        scratch = ftt._launch_bwd_input(x, a, dr2, weights, cfg)[4]
+        xl, al = x.detach().requires_grad_(), a.detach().requires_grad_()
+        y_lib = lib_f(xl, al)
+        runs = {
+            "fused_layer_tail_train": (lambda: ftt._launch_tail_train(x, a, weights, cfg),
+                                       lambda: ftt.fused_layer_tail_train_plain(x, a, weights, cfg),
+                                       lambda: lib_f(x, a)),
+            "fused_tail_train_bwd_row": (lambda: ftt._launch_bwd_row(r2, g, weights[6], cfg),
+                                         lambda: ftt.tail_train_bwd_row_plain(r2, g, weights[6], cfg),
+                                         lambda: lib_b(y_lib, xl, al, g)),
+            "fused_tail_train_bwd_input": (lambda: ftt._launch_bwd_input(x, a, dr2, weights, cfg),
+                                           lambda: ftt.tail_train_bwd_input_plain(x, a, dr2, weights,
+                                                                                  cfg),
+                                           None),
+            "fused_tail_train_bwd_weight": (lambda: ftt._launch_bwd_weight(scratch),
+                                            lambda: ftt.tail_train_bwd_weight_plain(x, a, dr2, weights,
+                                                                                    cfg),
+                                            None),
+        }
+        for name, (kernel, plain, library) in runs.items():
+            row = {
+                "name": name, "shape": shape, "tokens": tokens, "dtype": "bfloat16", "rate": DROPOUT,
+                "max_abs_err": errs[name], "ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 2),
+                # The backward's yardstick is one autograd backward: rows 12-14 jointly.
+                "library_ms": None if library is None else cuda_ms(library, 5),
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            }
+            log("kernel_check " + json.dumps(row))
+            if shape == TAIL_SHAPES[0][0]:
+                table[name] = row
+        del y_lib
+        # The op-level A/B: the fused op (four kernels) against the layer's
+        # plain chain, forward and backward, on the same inputs and seed.
+        x3, a3, g3 = xl[None], al[None], g[None]
+        fused = lambda: layer._fused_train_tail(x3, a3, seed, None, None).backward(g3)
+        chain = lambda: layer._train_tail(x3, a3, seed).backward(g3)
+        ab = {"shape": shape, "tokens": tokens, "fused_ms": cuda_ms(fused, 5),
+              "chain_ms": cuda_ms(chain, 5)}
+        ab["chain_over_fused"] = ab["chain_ms"] / ab["fused_ms"]
+        log("tail_ab " + json.dumps(ab))
+        del x, a, g, r2, dr2, scratch, xl, al, runs, x3, a3, g3
+        torch.cuda.empty_cache()
+    return table
+
+
 # --- phase 3: the main path through the prediction entry point ----------------
 
 
@@ -943,7 +1206,7 @@ def run_main_path(device):
             if len(scores) != 5 or not all(math.isfinite(s) and 0 <= s <= 1 for s in scores):
                 raise AssertionError(f"bad scores in {row}")
         want = (SPATIAL_LAYERS + TEMPORAL_LAYERS) * NUM_BATCHES
-        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS):
+        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS + TAIL_KERNELS):
             raise AssertionError(f"predict launched a train or long-clip kernel: {launches}")
         for name in EVAL_KERNELS:
             if launches[name] != want:
@@ -984,11 +1247,13 @@ def run_main_path(device):
 class plain_kernels:
     """Within the block, the train path's wrappers on the card run their
     plain versions (forward and backward) instead of launching the kernels:
-    the train op's, and the long-clip attention's forwards and backwards."""
+    the train op's, the long-clip attention's forwards and backwards, and
+    the fused train tail's forward and backward."""
 
     def __enter__(self):
         from stlt_tpu_torch.ops import flash
         from stlt_tpu_torch.ops import fused_encoder as fe
+        from stlt_tpu_torch.ops import fused_tail_train as ftt
 
         def plain_fwd(op, x, wqkv, bqkv, wo, bo, bias, *, seed=None, dropout_rate=0.0, **kw):
             return fe.fused_proj_attention_train_plain(x, wqkv, bqkv, wo, bo, bias, seed,
@@ -1005,7 +1270,9 @@ class plain_kernels:
                       (flash, "fused_attention", flash.fused_attention_plain),
                       (flash, "blockwise_attention", flash.blockwise_attention_plain),
                       (flash, "fused_attention_bwd", plain_short_bwd),
-                      (flash, "blockwise_attention_bwd", plain_blockwise_bwd)]
+                      (flash, "blockwise_attention_bwd", plain_blockwise_bwd),
+                      (ftt, "_launch_tail_train", ftt.fused_layer_tail_train_plain),
+                      (ftt, "_launch_tail_train_bwd", ftt.fused_layer_tail_train_bwd_plain)]
         self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
         for mod, name, plain in self.swaps:
             setattr(mod, name, plain)
@@ -1092,7 +1359,11 @@ def _step_ms(model, batch, criterion, steps: int = 5) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
+# (group, substrings of the device kernel's name); the train tail's group
+# comes before any "fused_tail" one, which would catch its names.
+TRAIN_TAIL_GROUP = ("train tail kernels", ("fused_tail_train", "tail_bwd_", "reduce_parts_kernel"))
+KERNEL_GROUPS = (
+    TRAIN_TAIL_GROUP,
     ("attention forward kernel", ("fused_proj_attn",)),
     ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
     ("long-clip attention forward kernel", ("attention_kernel<",)),
@@ -1100,6 +1371,7 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
 FORWARD_GROUPS = (
+    TRAIN_TAIL_GROUP,
     ("fused projection+attention kernel", ("fused_proj_attn",)),
     ("layer tail kernel", ("fused_tail",)),
     ("long-clip attention kernels", ("attention_kernel<",)),
@@ -1205,11 +1477,11 @@ def run_train_path(device):
         layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
         want = {name: layers * steps_taken for name in TRAIN_KERNELS}
         want.update({name: layers * val_batches * TRAIN_EPOCHS for name in EVAL_KERNELS})
-        want.update(dict.fromkeys(LONG_KERNELS, 0))
+        want.update(dict.fromkeys(LONG_KERNELS + TAIL_KERNELS, 0))  # 17 frames: the plain tail
         if launches != want:
             raise AssertionError(f"train: launches {launches}, expected {want} (12 layers per "
                                  f"train step for each train kernel, per validation batch for "
-                                 f"each eval kernel)")
+                                 f"each eval kernel, none of the long-clip or train-tail kernels)")
 
         data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
                               labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
@@ -1253,16 +1525,19 @@ def run_train_path(device):
 def reset_all_launches() -> None:
     from stlt_tpu_torch.ops import flash
     from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
 
     fe.reset_launches()
     flash.reset_launches()
+    ftt.reset_launches()
 
 
 def all_launches() -> dict:
     from stlt_tpu_torch.ops import flash
     from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
 
-    return {**fe.LAUNCHES, **flash.LAUNCHES}
+    return {**fe.LAUNCHES, **flash.LAUNCHES, **ftt.LAUNCHES}
 
 
 class plain_eval_path:
@@ -1461,12 +1736,15 @@ def run_long_train_path(device):
     """Train a full-width bf16 STLT (dropout 0.1) through ``train`` at
     ``--layout_num_frames 256`` (B = 32) and 512 (B = 16), one epoch of
     LONG_TRAIN_STEPS steps and one validation batch each. Asserts finite
-    losses and the launch counts (per step 4 + 4 of the train op's kernels
-    and 8 + 8 of the long-clip forward and backward; per validation batch 4
-    fused projections, 12 tails, 8 long-clip forwards). Then one step from
-    the trained weights, kernels against plain, the step times and a profile
-    of one kernel-path step. Returns the backward kernels' launches and the
-    step times."""
+    losses and the launch counts (per step 4 + 4 of the train op's kernels,
+    8 + 8 of the long-clip forward and backward and 4 + 8 = 12 of each of the
+    fused train tail's four kernels; per validation batch 4 fused
+    projections, 12 eval tails, 8 long-clip forwards; no eval tail in a
+    step). Then one step from the trained weights, kernels against plain
+    (the tail's plain forward and backward swapped in too), the step times
+    and peak memory of both paths and a profile of one kernel-path step.
+    Returns the long-clip and train-tail kernels' launches (of the 256-frame
+    run) and the step times."""
     from stlt_tpu_torch import train as port_train
     from stlt_tpu_torch.configs import DataConfig
     from stlt_tpu_torch.data import collaters_factory, datasets_factory
@@ -1518,9 +1796,12 @@ def run_long_train_path(device):
                          kernel + "_bwd": TEMPORAL_LAYERS * steps,
                          "fused_proj_attention": SPATIAL_LAYERS * val,
                          "fused_layer_tail": (SPATIAL_LAYERS + TEMPORAL_LAYERS) * val})
+            want.update(dict.fromkeys(TAIL_KERNELS, (SPATIAL_LAYERS + TEMPORAL_LAYERS) * steps))
             if counts != want:
                 raise AssertionError(f"{label}: launches {counts}, expected {want}")
             launches[kernel + "_bwd"] = counts[kernel + "_bwd"]
+            if frames == 256:
+                launches.update({name: counts[name] for name in TAIL_KERNELS})
             model = result.model
             del result
 
@@ -1534,12 +1815,18 @@ def run_long_train_path(device):
             name = f"train step {frames} frames, B = {clips}"
             model.train()
             _step_kernels_vs_plain(name, model, batch, criterion)
+            torch.cuda.reset_peak_memory_stats()
             ms = _step_ms(model, batch, criterion, steps=3)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             with plain_kernels():
                 plain_ms = _step_ms(model, batch, criterion, steps=3)
-            step_ms[frames] = {"ms": ms, "plain_ms": plain_ms}
+            plain_peak = torch.cuda.max_memory_allocated()
+            step_ms[frames] = {"ms": ms, "plain_ms": plain_ms, "peak_bytes": peak,
+                               "plain_peak_bytes": plain_peak}
             log(f"{name} (full width, bf16, dropout {DROPOUT}): kernels {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms")
+                f"plain {plain_ms:.3f} ms; peak memory kernels {peak / 2**30:.3f} GiB, "
+                f"plain {plain_peak / 2**30:.3f} GiB")
             _profile_step(model, batch, criterion, clips, frames=frames)
             del model, batch, loader
             torch.cuda.empty_cache()
@@ -1571,17 +1858,20 @@ def main() -> int:
     table.update(check_train_kernels(device))
     table.update(check_long_kernels(device))
     table.update(check_long_train_kernels(device))
+    table.update(check_tail_train_kernels(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     launches.update(run_long_clip_path(device))  # long clips: the long-clip kernels
-    launches.update(run_long_train_path(device)[0])  # long-clip training: their backwards
+    # Long-clip training: the attention backwards and the fused train tail.
+    launches.update(run_long_train_path(device)[0])
 
     kernels = []
     for name in REPLACES:
         row = table[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": name, "route": "cuda",
+            "source": f"stlt_tpu_torch/csrc/{_kernels.source(name)}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

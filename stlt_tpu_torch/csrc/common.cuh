@@ -77,6 +77,29 @@ struct Dropout {
   }
 };
 
+// The train layer tail's three dropout sites (stlt_tpu/ops/fused_tail_train.py
+// TAG_* :90-92 and _keep_rows :97): the stream of a site has the lane
+// lowbias32(seed ^ tag); the element (token, feature) of a stream of `width`
+// features has the counter token * width + feature (mod 2**32, token the
+// global index over the flattened tokens) and is kept when
+// lowbias32(counter ^ lane) >= thresh. keep_scale gives 1/(1-rate) for a kept
+// element, else 0, so v * keep_scale is JAX's v * keep * drop_scale.
+constexpr uint32_t kTagAttnDrop = 0x9E3779B9u;
+constexpr uint32_t kTagMidDrop = 0x85EBCA6Bu;
+constexpr uint32_t kTagOutDrop = 0xC2B2AE35u;
+
+struct TailDropout {
+  int on;
+  uint32_t seed, thresh;
+  float scale;
+  __device__ __forceinline__ uint32_t lane(uint32_t tag) const { return lowbias32(seed ^ tag); }
+  __device__ __forceinline__ float keep_scale(uint32_t lane, long long token, uint32_t width,
+                                              uint32_t feature) const {
+    const uint32_t counter = static_cast<uint32_t>(token) * width + feature;
+    return lowbias32(counter ^ lane) >= thresh ? scale : 0.f;
+  }
+};
+
 // 1 if any of the block's rows is live (no live flags: all are).
 __device__ __forceinline__ int block_has_live(const uint8_t* live, int row0, int nrows) {
   __shared__ int any_live;
@@ -170,29 +193,30 @@ struct BCols {
 
 constexpr int kStages = 3;  // B slices in flight: one computed on, two landing
 
-// Shared-memory elements of a kStages ring of KS-row slices of B.
-template <int KS, int NCOLS>
+// Shared-memory elements of a ring of STAGES KS-row slices of B.
+template <int KS, int NCOLS, int STAGES = kStages>
 __host__ __device__ constexpr int stage_elems() {
-  return kStages * KS * (NCOLS + kPad);
+  return STAGES * KS * (NCOLS + kPad);
 }
 
 // acc[r][j] += A[r * 16 : r * 16 + 16, :K] @ B[:K, (cf0 + j) * 16 : +16]:
 // bf16 operands, f32 sums, for all warps of the block at once. A is a bf16
 // tile in shared memory (row stride lda), offset to this warp's first row
 // fragment. B streams from device memory through `stages` in slices of KS
-// rows: cp.async keeps kStages - 1 slices landing while the warps multiply
+// rows: cp.async keeps STAGES - 1 slices landing while the warps multiply
 // the one that has arrived, so the weights' L2 latency hides behind the
 // tensor cores. Every warp of the block calls it (it synchronises the block).
-template <int RF, int CF, int KS, int NSEG, int SEGW>
+template <int RF, int CF, int KS, int STAGES = kStages, int NSEG, int SEGW>
 __device__ __forceinline__ void gemm_streamed(FragC (&acc)[RF][CF], const __nv_bfloat16* A,
                                               int lda, const BCols<NSEG, SEGW>& b, int K,
                                               __nv_bfloat16* stages, int cf0) {
+  static_assert(STAGES >= 2, "a ring needs a slice landing beside the one computed on");
   constexpr int NB = NSEG * SEGW, LDB = NB + kPad, STAGE = KS * LDB;
   constexpr int kCopies = KS * NB / 8;  // 16-byte copies of one slice
   static_assert(KS % 16 == 0 && SEGW % 8 == 0, "slices are whole fragments and 16-byte copies");
   const int nslices = K / KS;
   auto load = [&](int slice) {
-    __nv_bfloat16* dst = stages + (slice % kStages) * STAGE;
+    __nv_bfloat16* dst = stages + (slice % STAGES) * STAGE;
     for (int c = threadIdx.x; c < kCopies; c += kThreads) {
       const int row = c / (NB / 8), col = (c % (NB / 8)) * 8;
       cp_async16(dst + row * LDB + col,
@@ -200,16 +224,16 @@ __device__ __forceinline__ void gemm_streamed(FragC (&acc)[RF][CF], const __nv_b
     }
   };
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nslices) load(s);
     cp_async_commit();
   }
   for (int i = 0; i < nslices; ++i) {
-    cp_async_wait<kStages - 2>();  // slice i has landed
+    cp_async_wait<STAGES - 2>();  // slice i has landed
     __syncthreads();               // for every thread; slice i - 1 is consumed
-    if (i + kStages - 1 < nslices) load(i + kStages - 1);
+    if (i + STAGES - 1 < nslices) load(i + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* B = stages + (i % kStages) * STAGE;
+    const __nv_bfloat16* B = stages + (i % STAGES) * STAGE;
 #pragma unroll
     for (int kk = 0; kk < KS; kk += 16) {
       FragA a[RF];

@@ -27,13 +27,16 @@ are cast to the compute dtype where the JAX code casts.
   core through ``ops/flash.py``'s autograd Function (the short flash kernel
   or the blockwise one in lengths mode, each with in-kernel hashed dropout,
   and their backward kernels), then a plain out-projection;
-- train, every T: the tail is the plain chain of ``layers.py:512-561`` with
-  its three hashed dropout sites (``ops/dropout.py``). That is the JAX
-  package's train tail with the fused train-tail gate off
-  (``STLT_TAIL_TRAIN_MIN_FRAMES=100000``, ``ops/fused_tail_train.py:715-717``);
-  JAX's default gate sends the tail of models of 256 frames and more to
-  ``fused_layer_tail_train`` (TPU kernels 11-14, the same function), whose
-  port is ``ROADMAP.md`` item B6.
+- train, the tail: JAX's gate (``ops/fused_tail_train.tail_train_wants``)
+  on the model's clip length, which the encoders take as ``clip_frames``
+  (the spatial stage's frame axis, the temporal stage's frame count). From
+  ``TAIL_TRAIN_MIN_FRAMES = 256`` frames on, the tail is
+  ``fused_layer_tail_train`` (the train forward kernel and its three
+  backward kernels, with the three dropout sites hashed in them; dead tokens
+  zeroed); below, the plain chain of ``layers.py:512-561`` with the same
+  hashed dropout sites (``ops/dropout.py``), as JAX runs it there. The two
+  are one function in f32; in bf16 the fused op adds ``b1`` and ``b2`` in
+  f32 before rounding, the chain after.
 
 The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
@@ -51,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stlt_tpu_torch.ops import fused_encoder as fe
+from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.ops.attention import dot_product_attention
 from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
@@ -189,16 +193,19 @@ class TransformerEncoderLayer(nn.Module):
         init_linear_(self.linear2, generator)
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None,
-                kv_lengths=None) -> torch.Tensor:
+                kv_lengths=None, clip_frames: int = 0) -> torch.Tensor:
         """``seeds``: (attention, tail) uint32 dropout seeds, used in train
         mode with a nonzero dropout rate; ``kv_lengths``: see
-        :meth:`MultiHeadAttention.forward`."""
+        :meth:`MultiHeadAttention.forward`; ``clip_frames``: the clip length
+        of the model, which picks the train tail (0: short or unknown)."""
         if self.training:
             if self.dropout_rate > 0.0 and seeds is None:
                 raise ValueError("train mode with dropout needs the layer's two dropout seeds")
             attn_seed, tail_seed = seeds if seeds is not None else (None, None)
             attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed,
                                       kv_lengths=kv_lengths)
+            if ftt.tail_train_wants(clip_frames):
+                return self._fused_train_tail(x, attn_out, tail_seed, rows_live, tokens_live)
             return self._train_tail(x, attn_out, tail_seed)
         attn_out = self.self_attn(x, bias, rows_live=rows_live, kv_lengths=kv_lengths)
         return fe.fused_layer_tail(
@@ -209,6 +216,21 @@ class TransformerEncoderLayer(nn.Module):
             eps=self.layer_norm_eps, compute_dtype=self.dtype,
             activation=self.activation,
             gelu_approximate=self.dtype == torch.bfloat16,
+            rows_live=rows_live, tokens_live=tokens_live,
+        )
+
+    def _fused_train_tail(self, x, attn_out, seed: Optional[int], rows_live,
+                          tokens_live) -> torch.Tensor:
+        """The fused train tail (``layers.py:480-510``): one op, forward and
+        backward, dead tokens zeroed."""
+        return ftt.fused_layer_tail_train(
+            x, attn_out, self.norm1.weight, self.norm1.bias,
+            self.linear1.weight.t(), self.linear1.bias,
+            self.linear2.weight.t(), self.linear2.bias,
+            self.norm2.weight, self.norm2.bias,
+            eps=self.layer_norm_eps, compute_dtype=self.dtype, activation=self.activation,
+            gelu_approximate=self.dtype == torch.bfloat16,
+            dropout_rate=self.dropout_rate, seed=seed if self.dropout_rate > 0.0 else None,
             rows_live=rows_live, tokens_live=tokens_live,
         )
 
@@ -248,13 +270,15 @@ class TransformerEncoder(nn.Module):
         )
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None,
-                generator: Optional[torch.Generator] = None, kv_lengths=None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, kv_lengths=None,
+                clip_frames: int = 0) -> torch.Tensor:
         """In train mode with dropout, each layer's (attention, tail) seeds
-        are drawn from ``generator``, layer by layer."""
+        are drawn from ``generator``, layer by layer; ``clip_frames`` goes to
+        every layer (:meth:`TransformerEncoderLayer.forward`)."""
         for layer in self.layers:
             seeds = None
             if self.training and self.dropout_rate > 0.0:
                 seeds = draw_seeds(generator, 2)
             x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
-                      kv_lengths=kv_lengths)
+                      kv_lengths=kv_lengths, clip_frames=clip_frames)
         return x

@@ -31,7 +31,10 @@ dropouts (``stlt.py:100,232``) apply, and every encoder layer runs its train
 path (``models/layers.py``): the attention through the train kernels (at
 long clips the temporal attention through the long-clip kernels and their
 backwards, with the same ``kv_lengths`` and ``causal`` as in eval), the tail
-through the plain chain with hashed dropout. Both levers run under autograd:
+through the plain chain with hashed dropout or, from 256 frames on (the
+spatial stage's frame axis after any frame capacity and the temporal
+stage's frame count, JAX's ``clip_frames``), through
+``ops/fused_tail_train``'s kernels. Both levers run under autograd:
 the fold's gather and scatter carry the live rows' gradients, and cut frame
 slots and dead rows get none. The random draws come, in
 forward order, from the ``torch.Generator`` passed to :meth:`Stlt.forward`:
@@ -163,10 +166,12 @@ class SpatialTransformer(nn.Module):
                                  f"{int(rows_live.sum())} live frame rows")
             idx = torch.argsort((~rows_live).to(torch.int32), stable=True)[:cap]
             compact = self.transformer(tokens.index_select(0, idx), pad_bias.index_select(0, idx),
-                                       rows_live=rows_live.index_select(0, idx), generator=generator)
+                                       rows_live=rows_live.index_select(0, idx), generator=generator,
+                                       clip_frames=F)
             cls = torch.zeros((B * F, H), dtype=compact.dtype, device=compact.device)
             return cls.index_copy(0, idx, compact[:, 0, :]).reshape(B, F, H)
-        tokens = self.transformer(tokens, pad_bias, rows_live=rows_live, generator=generator)
+        tokens = self.transformer(tokens, pad_bias, rows_live=rows_live, generator=generator,
+                                  clip_frames=F)
         return tokens[:, 0, :].reshape(B, F, H)  # the frame-CLS token
 
 
@@ -221,7 +226,7 @@ class StltBackbone(nn.Module):
                 masks.frames_padding_mask(batch["frame_types"])
             )
         return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator,
-                                kv_lengths=kv_lengths)  # [B, F, H]
+                                kv_lengths=kv_lengths, clip_frames=num_frames)  # [B, F, H]
 
 
 class ClassificationHead(nn.Module):

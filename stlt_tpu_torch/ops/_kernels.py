@@ -1,11 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C entry point. At first use it is compiled
-by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``stlt_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``. The library's file name carries a hash of its sources, so an
-edited source is rebuilt and a built one is reused. :func:`build_all` starts
-one ``nvcc`` per source at once.
+Each kernel has a plain C entry point in a source ``csrc/<source>.cu``
+(``<source>`` is the kernel's name unless :data:`SOURCES` names another; the
+three entry points of the train tail's backward share one). At first use a
+source is compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared`` into ``stlt_tpu_torch/_build/`` (listed in ``.gitignore``) and
+loaded with ``ctypes``. The library's file name carries a hash of its
+sources, so an edited source is rebuilt and a built one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing GPU-specific happens at import: the CPU tests import every module.
 """
@@ -50,9 +52,30 @@ SIGNATURES = {
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
-        # x, a, n1s, n1b, w1, b1, w2, b2, n2s, n2b, live, out,
-        # tokens, hidden, ff, eps, act, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        # x, a, n1s, n1b, w1, b1, w2, b2, n2s, n2b, live, out, r2 (null in
+        # eval), tokens, hidden, ff, eps, act, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+         _I, _U, _U, _F, _I, _P],
+    ),
+    "fused_tail_train_bwd_row": (
+        "stlt_tail_train_bwd_row",
+        # r2, g, n2s, live, dr2, partial, out, tokens, hidden, eps, dropout,
+        # seed, thresh, dropout_scale, blocks, chunk, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _U, _U, _F, _I, _LL, _I, _P],
+    ),
+    "fused_tail_train_bwd_input": (
+        "stlt_tail_train_bwd_input",
+        # x, a, dr2, n1s, n1b, w1, b1, w1t, w2t, live, dx, dattn, u, dh2, dh1,
+        # h1d, partial_ln, partial_b1, out, tokens, hidden, ff, eps, act,
+        # dropout, seed, thresh, dropout_scale, rows_per_block, dtype, stream
+        [*[_P] * 19, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _I, _I, _P],
+    ),
+    "fused_tail_train_bwd_weight": (
+        "stlt_tail_train_bwd_weight",
+        # u, dh1, h1d, dh2, partial_b1, b1_parts, partial, out_w, db1, tokens,
+        # chunk, splits, hidden, ff, dtype, stream
+        [_P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
     ),
     "flash_attention": (
         "stlt_flash_attention",
@@ -87,7 +110,23 @@ SIGNATURES = {
     ),
 }
 
+# Kernels (by their launch-count names) whose entry point lives in another
+# source than csrc/<name>.cu: the train variants share their eval sources.
+SOURCES = {
+    "fused_proj_attention_train": "fused_proj_attention",
+    "fused_proj_attention_train_bwd": "fused_proj_attention_bwd",
+    "fused_layer_tail_train": "fused_layer_tail",
+    "fused_tail_train_bwd_row": "fused_tail_train_bwd",
+    "fused_tail_train_bwd_input": "fused_tail_train_bwd",
+    "fused_tail_train_bwd_weight": "fused_tail_train_bwd",
+}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> str:
+    """The source stem (``csrc/<stem>.cu``) of kernel ``name``."""
+    return SOURCES.get(name, name)
 
 
 def _nvcc() -> str:
@@ -116,11 +155,12 @@ def _nvcc_command(name: str, target: Path):
 
 
 def build_all(verbose: bool = False, names=None) -> Dict[str, Path]:
-    """Compile every kernel library (or those in ``names``) that is not
-    built yet, one ``nvcc`` per source, all started together. Returns {name:
-    library path}; raises with the compiler's output when a build fails."""
+    """Compile the library of every kernel (or of those in ``names``) that is
+    not built yet, one ``nvcc`` per source, all started together. Returns
+    {source: library path}; raises with the compiler's output when a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _library_path(name) for name in (names or SIGNATURES)}
+    targets = {src: _library_path(src) for src in dict.fromkeys(map(source, names or SIGNATURES))}
     procs = {}
     for name, target in targets.items():
         if target.exists():
@@ -148,18 +188,21 @@ def build_all(verbose: bool = False, names=None) -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = _libs.get(name)
+    """The loaded library of kernel ``name``, built on first use, with the
+    argument types of every entry point it holds set."""
+    src = source(name)
+    lib = _libs.get(src)
     if lib is None:
-        path = _library_path(name)
+        path = _library_path(src)
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        for kernel, (symbol, argtypes) in SIGNATURES.items():
+            if source(kernel) == src:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[src] = lib
     return lib
 
 

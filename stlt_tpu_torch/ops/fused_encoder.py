@@ -138,6 +138,27 @@ def _check_kernel_width(op: str, hidden: int) -> None:
         )
 
 
+def _check_tail_kernel(op: str, compute_dtype, H: int, w1, w2, *activations) -> int:
+    """The dtype code of the layer-tail kernels (csrc/fused_layer_tail.cu and
+    its train backward); raises on what they do not take."""
+    code = _check_kernel_dtypes(op, compute_dtype, *activations)
+    _check_kernel_width(op, H)
+    FF = w1.shape[1]
+    if FF % _KERNEL_FF_CHUNK or w1.shape != (H, FF) or w2.shape != (FF, H):
+        raise ValueError(f"{op}: the CUDA kernel takes W1 [H, FF], W2 [FF, H] with FF % {_KERNEL_FF_CHUNK} == 0")
+    return code
+
+
+def _act_code(activation: str, gelu_approximate: bool) -> int:
+    """The layer-tail kernels' activation code: 0 relu, 1 exact-erf GELU,
+    2 tanh GELU."""
+    if activation == "gelu":
+        return 2 if gelu_approximate else 1
+    if activation == "relu":
+        return 0
+    raise ValueError(f"unknown activation {activation}")
+
+
 def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device) -> torch.Tensor:
     """A head-invariant additive bias broadcastable to [rows, 1, T, T], as
     f32 [rows or 1, T or 1, T]. The broadcast dims stay size 1: the spatial
@@ -590,16 +611,8 @@ def fused_layer_tail(
     op = "fused_layer_tail"
     B, T, H = x.shape
     FF = w1.shape[1]
-    code = _check_kernel_dtypes(op, compute_dtype, x, attn_out)
-    _check_kernel_width(op, H)
-    if FF % _KERNEL_FF_CHUNK or w1.shape != (H, FF) or w2.shape != (FF, H):
-        raise ValueError(f"{op}: the CUDA kernel takes W1 [H, FF], W2 [FF, H] with FF % {_KERNEL_FF_CHUNK} == 0")
-    if activation == "gelu":
-        act = 2 if gelu_approximate else 1
-    elif activation == "relu":
-        act = 0
-    else:
-        raise ValueError(f"unknown activation {activation}")
+    code = _check_tail_kernel(op, compute_dtype, H, w1, w2, x, attn_out)
+    act = _act_code(activation, gelu_approximate)
     cd = compute_dtype
     f32 = torch.float32
     x = x.contiguous()
@@ -618,7 +631,7 @@ def fused_layer_tail(
             op, x.data_ptr(), attn_out.data_ptr(), n1s.data_ptr(), n1b.data_ptr(),
             w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(), b2v.data_ptr(),
             n2s.data_ptr(), n2b.data_ptr(), None if live is None else live.data_ptr(),
-            out.data_ptr(), B * T, H, FF, float(eps), act, code, stream,
+            out.data_ptr(), None, B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, code, stream,
         )
     LAUNCHES[op] += 1
     return out

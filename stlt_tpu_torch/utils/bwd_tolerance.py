@@ -1,26 +1,44 @@
-"""Mutation check of the long-clip attention backwards' bf16 tolerance.
+"""Mutation check of the bf16 tolerances of the backward kernels.
 
-``chip_smoke.py`` holds the backward kernels' dq, dk and dv against
-``attention_bwd_plain`` within a relative Frobenius-norm error (``BWD_REL``).
-This script shows which faults that limit catches. It copies the package
-into a temporary directory, edits the kernel sources there (the checkout is
-never touched), builds the four long-clip attention kernels from each copy
-and prints each variant's relative norm errors in bf16:
+``chip_smoke.py`` holds the long-clip attention backwards' dq, dk and dv
+against ``attention_bwd_plain`` (``BWD_REL``), and the fused train tail's dx
+and dattn against its plain backward (``TAIL_BWD_REL``), within a relative
+Frobenius-norm error. This script shows which faults those limits catch. It
+copies the package into a temporary directory, edits the kernel sources
+there (the checkout is never touched), builds the kernels of the family the
+variant belongs to from each copy and prints each variant's relative norm
+errors in bf16:
 
-- ``sound``: the sources as they are;
-- ``no_lo_split``: the tensor-core products of the probabilities and of dz
-  (``attention_core.cuh::chunk_pv``) take only the bf16 hi part, not hi + lo;
-- ``no_dsum``: dz = p o dp, without the ``- dsum`` term.
+- ``sound``: the sources as they are (both families);
+- attention, ``no_lo_split``: the tensor-core products of the probabilities
+  and of dz (``attention_core.cuh::chunk_pv``) take only the bf16 hi part,
+  not hi + lo;
+- attention, ``no_dsum``: dz = p o dp, without the ``- dsum`` term;
+- tail, ``act_grad_of_cd_z1``: act' taken on z1 rounded to bf16 instead of
+  the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``);
+- tail, ``no_keep2_in_input``: the input kernel's dh2 without the out-site
+  keep bits (``stage_dh2``);
+- tail, ``weight_partials_in_bf16``: the weight kernel rounds each split's
+  partial dW1 and dW2 to bf16 before the ordered sum (``weight_tile_tc``);
+- tail, ``weight_split_left_out``: the weight kernel's last token split adds
+  nothing (``weight_tile``).
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
-    python -m stlt_tpu_torch.utils.bwd_tolerance
+    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail]
 
-The last line is one JSON object {variant: [{"T", "rate", "dq", "dk",
-"dv"}, ...]}. The inputs (6 clips, 12 heads of 64, T = 257 on the short
-kernel with a causal padding bias, T = 513 on the blockwise kernel in
-lengths mode, dropout 0 and 0.1) are chip_smoke's check shapes; out and
-lse come from the plain forward, so only the backward differs.
+(one family's variants only when named). The variants' kernels are built
+in parallel, then measured one variant at a time. The last line is one JSON
+object {variant: {family: [rows]}}. Attention rows {"T", "rate", "dq",
+"dk", "dv"}: 6 clips, 12 heads of 64, T = 257 on the short kernel with a
+causal padding bias, T = 513 on the blockwise kernel in lengths mode,
+dropout 0 and 0.1 (chip_smoke's check shapes); out and lse come from the
+plain forward, so only the backward differs. Tail rows {"tokens", "rate",
+"dx", "dattn", "dn1s", ..., "dn2b"}: H = 768, FF = 3072, GELU (tanh), r2
+from the plain forward; 4,112 tokens (16 clips of 257 frames, the temporal
+stage of a 512-frame batch) with ragged live tokens and dropout 0 and 0.1
+(two splits of the weight products), and 65,792 live tokens with dropout
+0.1 (the spatial stage of a 256-frame batch: 17 splits).
 """
 
 from __future__ import annotations
@@ -36,31 +54,102 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-KERNELS = ("flash_attention", "blockwise_attention", "flash_attention_bwd", "blockwise_attention_bwd")
+FAMILIES = {
+    "attention": ("flash_attention", "blockwise_attention", "flash_attention_bwd",
+                  "blockwise_attention_bwd"),
+    "tail": ("fused_tail_train_bwd_row",),
+}
+# variant -> (families it is measured in, source edits)
 MUTATIONS = {
-    "sound": [],
-    "no_lo_split": [(
+    "sound": (("attention", "tail"), []),
+    "no_lo_split": (("attention",), [(
         "attention_core.cuh",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);",
-    )],
-    "no_dsum": [
+    )]),
+    "no_dsum": (("attention",), [
         ("attention_bwd_core.cuh", "expf(x - lse_t) * (d - ds);", "expf(x - lse_t) * d;"),
         ("attention_bwd_core.cuh", "pr * (dp[r][j] * keep - ds_j[j]);", "pr * (dp[r][j] * keep);"),
-    ],
+    ]),
+    "act_grad_of_cd_z1": (("tail",), [(
+        "fused_tail_train_bwd.cu",
+        "return make_float2(dacc * activation_grad(z, p.act), h1);",
+        "return make_float2(dacc * activation_grad(round_to<T>(z), p.act), h1);",
+    )]),
+    "no_keep2_in_input": (("tail",), [(
+        "fused_tail_train_bwd.cu",
+        "if (p.drop.on) v = round_to<T>(v * p.drop.keep_scale(lane2, tok, H, c));",
+        "if (p.drop.on) v = round_to<T>(v);",
+    )]),
+    "weight_partials_in_bf16": (("tail",), [(
+        "fused_tail_train_bwd.cu",
+        "      wmma::store_matrix_sync(t.out + (long long)(wm + r * 16) * ldo + wn + c * 16, acc[r][c], ldo,\n"
+        "                              wmma::mem_row_major);",
+        "      { for (int i = 0; i < acc[r][c].num_elements; ++i) "
+        "acc[r][c].x[i] = __bfloat162float(__float2bfloat16_rn(acc[r][c].x[i]));\n"
+        "        wmma::store_matrix_sync(t.out + (long long)(wm + r * 16) * ldo + wn + c * 16, acc[r][c], "
+        "ldo, wmma::mem_row_major); }",
+    )]),
+    "weight_split_left_out": (("tail",), [(
+        "fused_tail_train_bwd.cu",
+        "  t.k_end = min(p.tokens, t.k_begin + p.chunk);",
+        "  t.k_end = blockIdx.y + 1 < gridDim.y ? min(p.tokens, t.k_begin + p.chunk) : t.k_begin;",
+    )]),
 }
+TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
 
 
 def _rel(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
 
 
-def measure() -> list:
-    """Relative norm errors of both bf16 backward kernels against the plain
-    version, with this interpreter's ``stlt_tpu_torch``."""
-    from stlt_tpu_torch.ops import _kernels, flash
+def build(families) -> None:
+    """Build the kernels of ``families`` with this interpreter's
+    ``stlt_tpu_torch``."""
+    from stlt_tpu_torch.ops import _kernels
 
-    _kernels.build_all(names=KERNELS)
+    _kernels.build_all(names=[name for family in families for name in FAMILIES[family]])
+
+
+def measure(family: str) -> list:
+    """Relative norm errors of the bf16 backward kernels of ``family``
+    against their plain versions, with this interpreter's
+    ``stlt_tpu_torch``."""
+    build([family])
+    return {"attention": _measure_attention, "tail": _measure_tail}[family]()
+
+
+def _measure_tail() -> list:
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    H, FF = 768, 3072
+    u = lambda *shape, b: ((torch.rand(shape, generator=gen) * 2 - 1) * b).to(device)
+    weights = [1 + u(H, b=0.1), u(H, b=0.1), u(H, FF, b=H ** -0.5), u(FF, b=H ** -0.5),
+               u(FF, H, b=FF ** -0.5), u(H, b=FF ** -0.5), 1 + u(H, b=0.1), u(H, b=0.1)]
+    rows = []
+    for tokens, rate, ragged in ((16 * 257, 0.0, True), (16 * 257, 0.1, True),
+                                 (32 * 257 * 8, 0.1, False)):
+        x = torch.randn(tokens, H, generator=gen).to(device, torch.bfloat16)
+        a = (0.5 * torch.randn(tokens, H, generator=gen)).to(device, torch.bfloat16)
+        g = torch.randn(tokens, H, generator=gen).to(device, torch.bfloat16)
+        live = (torch.rand(tokens, generator=gen) < 0.8).to(device) if ragged else None
+        cfg = ftt.TailConfig(1e-12, "gelu", True, rate, 0x5EED if rate else None)
+        _, r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
+        got = ftt._launch_tail_train_bwd(x, a, r2, g, weights, cfg, live)
+        want = ftt.fused_layer_tail_train_bwd_plain(x, a, r2, g, weights, cfg, live)
+        torch.cuda.synchronize()
+        rows.append({"tokens": tokens, "rate": rate,
+                     **{name: _rel(p, q) for name, p, q in zip(TAIL_GRADS, got, want)}})
+        del x, a, g, live, r2, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _measure_attention() -> list:
+    from stlt_tpu_torch.ops import flash
+
     device = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     B, N, D = 6, 12, 64
@@ -87,14 +176,21 @@ def measure() -> list:
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    wanted = set((sys.argv[1:] if argv is None else argv) or FAMILIES)
+    if not wanted <= set(FAMILIES):
+        print(f"families are {sorted(FAMILIES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device: this check runs the kernels on an H100", file=sys.stderr)
         return 1
     results = {}
     with tempfile.TemporaryDirectory(prefix="stlt_bwd_tolerance_") as root:
-        procs = {}
-        for variant, edits in MUTATIONS.items():
+        copies = {}
+        for variant, (families, edits) in MUTATIONS.items():
+            families = tuple(f for f in families if f in wanted)
+            if not families:
+                continue
             top = Path(root) / variant
             shutil.copytree(_PKG, top / _PKG.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
             for source, old, new in edits:
@@ -103,18 +199,36 @@ def main() -> int:
                 if old not in text:
                     raise RuntimeError(f"{variant}: {source} no longer holds {old!r}")
                 path.write_text(text.replace(old, new))
-            env = dict(os.environ, PYTHONPATH=str(top))
-            procs[variant] = subprocess.Popen(
+            copies[variant] = (top, families)
+
+        def run(variant, call):
+            top, families = copies[variant]
+            return subprocess.Popen(
                 [sys.executable, "-c", "import json; from stlt_tpu_torch.utils.bwd_tolerance "
-                 "import measure; print(json.dumps(measure()))"],
-                cwd=top, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for variant, proc in procs.items():
+                 f"import build, measure; {call(families)}"],
+                cwd=top, env=dict(os.environ, PYTHONPATH=str(top)), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+        def wait(variant, proc):
             out, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"{variant} failed:\n{err[-4000:]}")
+            return out
+
+        # Every variant's nvcc at once; then one variant at a time on the card.
+        builds = {variant: run(variant, lambda f: f"build({f!r})") for variant in copies}
+        for variant, proc in builds.items():
+            wait(variant, proc)
+        for variant in copies:
+            out = wait(variant, run(variant, lambda f: "print(json.dumps({f: measure(f) for f in "
+                                                        f"{f!r}}}))"))
             results[variant] = json.loads(out.strip().splitlines()[-1])
-            worst = max(max(r["dq"], r["dk"], r["dv"]) for r in results[variant])
-            print(f"{variant}: worst relative norm error {worst:.3e}", flush=True)
+            for family, rows in results[variant].items():
+                groups = ({"dq/dk/dv": ("dq", "dk", "dv")} if family == "attention" else
+                          {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]})
+                worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
+                                  for label, keys in groups.items())
+                print(f"{variant} ({family}): worst relative norm error of {worst}", flush=True)
     print(json.dumps(results))
     return 0
 

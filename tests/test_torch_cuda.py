@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from stlt_tpu_torch.ops import fused_encoder as fe
+from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.ops import masks
 
 pytestmark = pytest.mark.cuda
@@ -613,3 +614,91 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
                               "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
                            "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps}
+    # Every train tail of the 257-frame model (1 spatial + 2 temporal layers)
+    # runs the fused train tail's four kernels.
+    assert ftt.LAUNCHES == dict.fromkeys(ftt.LAUNCHES, 3 * steps)
+
+
+# --- the fused train tail (ops/fused_tail_train.py) -------------------------------
+
+# dx and dattn of the train tail's backward in bf16, relative Frobenius norm:
+# sound kernels read 8.7e-5, act' taken on the bf16-rounded z1 1.1e-3 and a
+# dropped keep2 in the input kernel 7.0e-2. dr2 and the summed gradients:
+# sound kernels read at most 9e-5; the weight kernel's split partials rounded
+# to bf16 1.7e-3, its last split left out 6.0e-2 (H100; PERF.md, python -m
+# stlt_tpu_torch.utils.bwd_tolerance tail).
+TAIL_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+
+
+def _tail_case(H, tokens, live_kind, gen, device, dtype):
+    w = _weights(H, gen, device)
+    weights = [w[k] for k in ("n1s", "n1b", "w1", "b1", "w2", "b2", "n2s", "n2b")]
+    x = torch.randn(tokens, H, generator=gen).to(device, dtype)
+    a = (0.5 * torch.randn(tokens, H, generator=gen)).to(device, dtype)
+    g = torch.randn(tokens, H, generator=gen)
+    live = None
+    if live_kind == "tokens":
+        live = torch.rand(tokens, generator=gen) < 0.7
+        live[:40] = False  # a whole dead block
+        g[~live] = 1e30  # a dead token's cotangent is never read
+        live = live.to(device)
+    return x, a, g.to(device, dtype), weights, live
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,tokens,rate,activation,live_kind", [
+    (64, 203, 0.1, "gelu", "tokens"),
+    (128, 96, 0.0, "relu", "none"),
+    (768, 1000, 0.1, "gelu", "tokens"),
+    (768, 300, 0.0, "gelu", "none"),
+    (768, 17000, 0.1, "gelu", "tokens"),  # 264 row blocks, 5 splits of the weight products
+])
+def test_tail_train_kernels_match_plain(device, dtype, H, tokens, rate, activation, live_kind):
+    """The four kernels of the fused train tail against their plain versions
+    on the same inputs: y and r2 elementwise (OP tolerance), dr2 and the
+    summed gradients in relative norm (TAIL_SUM_REL), dx and dattn in
+    relative norm (TAIL_BWD_REL); dead tokens exact zeros under a 1e30
+    cotangent, no NaN, and a second launch bit-identical."""
+    gen = torch.Generator().manual_seed(H + tokens)
+    x, a, g, weights, live = _tail_case(H, tokens, live_kind, gen, device, dtype)
+    cfg = ftt.TailConfig(1e-12, activation, dtype == torch.bfloat16, rate, 0x5EED if rate else None)
+    ftt.reset_launches()
+    y, r2 = ftt._launch_tail_train(x, a, weights, cfg, live)
+    want_y, want_r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
+    torch.cuda.synchronize()
+    tok_live = None if live is None else live[:, None].expand(tokens, H)
+    _close(y, want_y, dtype, tok_live)
+    _close(r2, want_r2, dtype, tok_live)
+
+    run = lambda: ftt._launch_tail_train_bwd(x, a, want_r2, g, weights, cfg, live)
+    got, again = run(), run()
+    dr2, *_ = ftt._launch_bwd_row(want_r2, g, weights[6], cfg, live)
+    want_row = ftt.tail_train_bwd_row_plain(want_r2, g, weights[6], cfg, live)
+    dn2s, dn2b, db2 = want_row[1:]
+    want = (*ftt.tail_train_bwd_input_plain(x, a, want_row[0], weights, cfg, live),
+            *ftt.tail_train_bwd_weight_plain(x, a, want_row[0], weights, cfg), db2, dn2s, dn2b)
+    torch.cuda.synchronize()
+    assert ftt.LAUNCHES == {"fused_layer_tail_train": 1, "fused_tail_train_bwd_row": 3,
+                            "fused_tail_train_bwd_input": 2, "fused_tail_train_bwd_weight": 2}
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    assert _rel(dr2, want_row[0]) < TAIL_SUM_REL[dtype]
+    names = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
+    for name, p, q in zip(names, got, want):
+        assert p.shape == q.shape and p.dtype == q.dtype and torch.isfinite(p).all(), name
+        limit = TAIL_BWD_REL[dtype] if name in ("dx", "dattn") else TAIL_SUM_REL[dtype]
+        assert _rel(p, q) < limit, (name, _rel(p, q))
+        if name in ("dx", "dattn") and live is not None:
+            assert p[~live].abs().max().item() == 0.0, name
+
+
+def test_tail_train_kernels_refuse_what_they_do_not_take(device):
+    gen = torch.Generator().manual_seed(0)
+    x, a, g, weights, _ = _tail_case(64, 32, "none", gen, device, torch.float32)
+    cfg = ftt.TailConfig(1e-12)
+    with pytest.raises(TypeError, match="compute dtype"):
+        ftt._launch_tail_train(x, a.bfloat16(), weights, cfg)
+    w96 = _weights(96, gen, device)
+    with pytest.raises(ValueError, match="H in 64"):
+        ftt._launch_bwd_row(torch.randn(8, 96, device=device), torch.randn(8, 96, device=device),
+                            w96["n2s"], cfg)

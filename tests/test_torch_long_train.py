@@ -15,12 +15,13 @@ dropout 0:
 - the train CLI with ``--live_prefix --use_pallas`` against the run
   without: parameters after two AdamW steps at atol = rtol = 1e-5.
 
-The port's train tail is JAX's with the fused train-tail gate off
-(``stlt_tpu.ops.fused_tail_train.TAIL_TRAIN_MIN_FRAMES`` above the frame
-count); one case runs JAX's default gate, which sends every tail of a
-257-frame model to the fused train-tail kernels (TPU kernels 11-14): the
-same gradients show that the configuration the port runs is the same
-function.
+Both packages pick the train tail by JAX's default gate on the model's clip
+length (``TAIL_TRAIN_MIN_FRAMES = 256``): at 257 and 513 frames every tail
+runs the fused train-tail op (in JAX its Pallas kernels, TPU kernels 11-14;
+in the port ``ops/fused_tail_train``'s plain versions), which a spy on each
+side counts. One case turns JAX's gate off (the threshold above the frame
+count), so JAX runs its XLA chain against the port's fused op: the same
+gradients show that the two tails are one function in f32.
 """
 
 import dataclasses
@@ -40,6 +41,7 @@ from stlt_tpu_torch import train as port_train
 from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.ops import fused_encoder as fe
+from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.training.criterion import make_criterion
 from stlt_tpu_torch.utils.convert import jax_params_to_state_dict
 from tests.fixtures import make_something_fixture
@@ -91,30 +93,34 @@ def _port_loss_and_grads(params, inputs, labels):
 
 
 @pytest.mark.parametrize("frames,length_range,gate", [
-    (257, (60, 257), "off"),
-    (513, (200, 513), "off"),
     (257, (60, 257), "default"),
+    (513, (200, 513), "default"),
+    (257, (60, 257), "off"),
 ])
 def test_long_clip_gradients_match_jax(params, frames, length_range, gate, monkeypatch):
-    """Loss and every gradient of one train-mode forward and backward. With
-    the gate off both tails are the XLA chain; with JAX's default gate its
-    tails run the fused train-tail kernels (interpret mode)."""
+    """Loss and every gradient of one train-mode forward and backward. The
+    port runs its fused train tail in both layers; JAX runs its fused train
+    tail (interpret mode) under the default gate, its XLA chain with the
+    gate off."""
     inputs, labels = _inputs(frames, length_range, seed=frames + 1)
     assert (inputs["lengths"] < frames).any()  # ragged
+    calls, port_calls = [], []
     if gate == "off":
         monkeypatch.setattr(jax_ftt, "TAIL_TRAIN_MIN_FRAMES", frames + 1)
     else:
         assert frames >= jax_ftt.TAIL_TRAIN_MIN_FRAMES
-        calls = []
-        real = jax_ftt.fused_layer_tail_train
-        monkeypatch.setattr(jax_ftt, "fused_layer_tail_train",
-                            lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = jax_ftt.fused_layer_tail_train
+    monkeypatch.setattr(jax_ftt, "fused_layer_tail_train",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     want_loss, want = _jax_loss_and_grads(params, inputs, labels)
-    if gate == "default":
-        assert len(calls) == 2  # the spatial and the temporal layer's tails
+    assert len(calls) == (2 if gate == "default" else 0)  # the spatial and the temporal tail
+    port_real = ftt.fused_layer_tail_train
+    monkeypatch.setattr(ftt, "fused_layer_tail_train",
+                        lambda *a, **k: port_calls.append(a[0].shape) or port_real(*a, **k))
     flash.reset_launches()
     loss, got = _port_loss_and_grads(params, inputs, labels)
     assert not any(flash.LAUNCHES.values())
+    assert port_calls == [(2 * frames, 4, 16), (2, frames, 16)], port_calls
     assert abs(loss - want_loss) <= LOSS_ATOL, (loss, want_loss)
     assert set(got) <= set(want) and len(got) > 20
     for name, grad in got.items():
