@@ -35,7 +35,15 @@ Phases, in order; any failure exits non-zero:
    shape (69,632 tokens) against its plain version, the
    autograd of ``F.dropout``/``F.layer_norm``/``F.linear``/``F.gelu`` (the
    backward's once, rows 12-14 jointly) and its bound, with the op-level
-   A/B of the fused op against the layer's plain chain;
+   A/B of the fused op against the layer's plain chain; then the fusion
+   models' kernels: ``fused_cross_attention`` at (T, S) = (17, 33), (33,
+   17), (8, 64) and (64, 8), with and without a key-padding bias, at B = 64
+   and 1024, against ``F.linear`` + ``scaled_dot_product_attention`` +
+   ``F.linear``; the blockwise kernel's dense-bias mode at 513 x 513 (a
+   causal+padding bias, with and without the causal flag), 513 x 33 (no
+   bias) and 33 x 513 (key padding) at B = 16 and 32, out and lse, against
+   ``scaled_dot_product_attention`` with the same mask; and the layer
+   tail's ReLU / eps 1e-5 variant (the appearance encoder) at T = 33;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -74,7 +82,23 @@ Phases, in order; any failure exits non-zero:
    trained weights, kernels against the plain path (the train step's limits
    below), the step times and peak memory of both and a ``torch.profiler``
    breakdown by kernel group;
-7. print the kernel table as one JSON line, then the result line.
+7. serve random full-width bf16 fusion models (``bench.py::bench_cacnf``'s
+   config: the STLT layout branch, R3D-50 and 4 appearance layers over 32
+   frames of 112 px, 4 fusion layers; weights from the port's seeded init,
+   saved as reference-format ``.pt``) through ``predict`` on fabricated JPEG
+   frames (the ``<video_id>/<index>.jpg`` directory that
+   ``tools/frames2hdf5.py`` packs into the HDF5 archive; the card's machine
+   has no h5py, so ``frames_directory_videos`` hands the dataset those
+   frames in the archive's place): CACNF at 16 layout frames (2 batches of 32
+   clips) and once through ``inference``, CAF and LCF (one batch each, from
+   CACNF's weights), and CACNF at 512 layout frames (B = 16, clips of 32-256
+   frames). Rows, finite scores and metrics and the launch counts per
+   forward are asserted (CACNF at 16 frames: 28 fused projection+attention,
+   16 layer tails, 8 fused cross-attentions; at 512 frames 12 dense-bias
+   blockwise launches beside the 8 of the temporal encoder's lengths mode),
+   and one batch's logits of every head are held against the plain path on
+   the card, with the forward times and a ``torch.profiler`` breakdown;
+8. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -120,7 +144,22 @@ points, same keep bits; the two differ only in the order of their sums):
   each split's partial rounded to bf16 1.7e-3, the last split left out
   6.0e-2 to 6.5e-2, at 4,112 and at 65,792 tokens (``python -m
   stlt_tpu_torch.utils.bwd_tolerance tail``, H100; PERF.md §6).
-- bf16 logits of the whole model: atol = 5e-2. The whole bf16 path differs
+- the fused cross-attention (row 5) and the blockwise forward's dense-bias
+  mode (row 8): the same OP_TOL elementwise, and in bf16 the output within
+  a relative Frobenius-norm error of CROSS_REL (1.2e-3) and DENSE_REL
+  (5e-4). A typical cross-attention output is about as large as the bf16
+  atol, so the elementwise bound alone would pass a kernel that drops bo
+  or bkv; the norm can see it. Sound kernels read at most 8.9e-4 (row 5:
+  a neighbouring bf16 value of q, kv or o_h, taken where the two f32 sums
+  straddle a rounding boundary, moves a near-uniform softmax's output, an
+  average of values several times its size) and 1.0e-4 (row 8 dense).
+  Planted faults read: row 5 with q_h not rounded 1.7e-3 to 2.6e-3, bkv
+  left out 2.5e-2 to 0.11, bo left out 4.3e-2 to 0.19, a head left out
+  0.29; row 8 dense without the hi + lo split 1.8e-3 to 2.2e-3, its causal
+  key range one key short 7.1e-3 (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md, PR 6).
+- bf16 logits of the whole model (every head of the fusion models):
+  atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
 - one full-width bf16 train step, kernels against plain: loss atol 5e-2
@@ -186,6 +225,9 @@ REPLACES = {
     "fused_tail_train_bwd_row": "stlt_tpu/ops/fused_tail_train.py:284",
     "fused_tail_train_bwd_input": "stlt_tpu/ops/fused_tail_train.py:350",
     "fused_tail_train_bwd_weight": "stlt_tpu/ops/fused_tail_train.py:459",
+    "fused_cross_attention": "stlt_tpu/ops/fused_encoder.py:1135",
+    # The dense-bias mode of _blockwise_attn_kernel (_block_bias reading bias_arr).
+    "blockwise_attention_dense": "stlt_tpu/ops/flash.py:397",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
@@ -193,6 +235,7 @@ LONG_KERNELS = ("flash_attention", "blockwise_attention", "flash_attention_bwd",
                 "blockwise_attention_bwd")
 TAIL_KERNELS = ("fused_layer_tail_train", "fused_tail_train_bwd_row", "fused_tail_train_bwd_input",
                 "fused_tail_train_bwd_weight")
+FUSION_KERNELS = ("fused_cross_attention", "blockwise_attention_dense")
 # Long clips (bench.py:154-266): --layout_num_frames -> (batch, the clips'
 # frame counts). 256 frames: every slot live (long_context); 512 frames:
 # clips of 32-256 frames, ~28 % of the slots live (long_context_512_ragged).
@@ -210,6 +253,9 @@ BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # long-clip backwards, re
 TAIL_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}  # the train tail's dx, dattn, relative norm
 # The train tail's dr2 and its eight summed gradients, relative norm.
 TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# bf16 outputs of the fused cross-attention and of the blockwise forward's
+# dense-bias mode, relative norm (f32: OP_TOL alone).
+CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
 # The fused train tail's main-path shapes (tokens): the spatial and the
 # temporal stage of a 256-frame step (B = 32: 32 x 257 x 8 and 32 x 257), and
 # the spatial stage of the 17-frame step at B = 512 (the gate keeps that one
@@ -336,17 +382,18 @@ def library_proj(w, dtype):
     return run
 
 
-def library_tail(w, dtype):
-    """``F.layer_norm`` / ``F.linear`` / ``F.gelu``: the same function from
-    PyTorch's library calls, a yardstick only."""
+def library_tail(w, dtype, activation: str = "gelu", eps: float = EPS):
+    """``F.layer_norm`` / ``F.linear`` / ``F.gelu`` (or ``F.relu``): the same
+    function from PyTorch's library calls, a yardstick only."""
     c = {k: w[k].to(dtype) for k in ("n1s", "n1b", "b1", "b2", "n2s", "n2b")}
     w1, w2 = w["w1"].t().contiguous().to(dtype), w["w2"].t().contiguous().to(dtype)
     approximate = "tanh" if dtype == torch.bfloat16 else "none"
+    act = F.relu if activation == "relu" else lambda h: F.gelu(h, approximate=approximate)
 
     def run(x, a):
-        u = F.layer_norm(x + a, (H,), c["n1s"], c["n1b"], EPS)
-        h = F.gelu(F.linear(u, w1, c["b1"]), approximate=approximate)
-        return F.layer_norm(u + F.linear(h, w2, c["b2"]), (H,), c["n2s"], c["n2b"], EPS)
+        u = F.layer_norm(x + a, (H,), c["n1s"], c["n1b"], eps)
+        h = act(F.linear(u, w1, c["b1"]))
+        return F.layer_norm(u + F.linear(h, w2, c["b2"]), (H,), c["n2s"], c["n2b"], eps)
 
     return run
 
@@ -363,12 +410,19 @@ def _check_close(name, got, want, live, tol):
     return err.max().item()
 
 
-def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, tol, **extra):
-    """Check ``kernel()`` against ``plain()`` (one output, elementwise) and
-    time kernel, plain version and library yardstick; returns the row."""
+def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, tol, rel_tol=None,
+             **extra):
+    """Check ``kernel()`` against ``plain()`` (one output, elementwise, and
+    with ``rel_tol`` also in the relative Frobenius norm) and time kernel,
+    plain version and library yardstick; returns the row."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = _check_close(f"{name} {stage} {dtype} B={clips} T={x.shape[1]}", got, want, live, tol)
+    label = f"{name} {stage} {dtype} B={clips} T={x.shape[1]}"
+    err = _check_close(label, got, want, live, tol)
+    if rel_tol is not None:
+        extra.update(rel_err=_rel(got, want), rel_tol=rel_tol)
+        if extra["rel_err"] > rel_tol:
+            raise AssertionError(f"{label}: relative norm error {extra['rel_err']:.3e} over {rel_tol}")
     iters = 20 if clips == BATCH else 5
     bound_ms, bound_by = bound
     row = {
@@ -1110,6 +1164,162 @@ def check_tail_train_kernels(device):
     return table
 
 
+# --- phase 2, the fusion models' kernels: row 5 and row 8's dense-bias mode ---
+
+
+def cross_bound(x, ctx, bias, dtype):
+    """(ms, "bytes" | "operations") for fused_cross_attention on these
+    inputs: the q, kv and out projections (2 * H * H flops a query token for
+    q and for out, 2 * H * 2H a context token) and 4 * T * S * H flops of
+    attention a clip, against x, ctx, the weights and the bias read once and
+    the output written once."""
+    B, T, _ = x.shape
+    S = ctx.shape[1]
+    es = x.element_size()
+    flops = B * (4 * T * H * H + 4 * S * H * H + 4 * T * S * H)
+    nbytes = (2 * B * T * H + B * S * H + 4 * H * H + 4 * H) * es
+    nbytes += 0 if bias is None else bias.numel() * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def library_cross(w, dtype):
+    """``F.linear`` + ``scaled_dot_product_attention`` + ``F.linear`` for
+    the cross-attention sublayer: a yardstick only, never called by the port."""
+    wq, bq = w["wq"].t().contiguous().to(dtype), w["bq"].to(dtype)
+    wkv, bkv = w["wkv"].t().contiguous().to(dtype), w["bkv"].to(dtype)
+    wo, bo = w["wo"].t().contiguous().to(dtype), w["bo"].to(dtype)
+    D = H // HEADS
+
+    def run(x, ctx, bias):
+        B, T, _ = x.shape
+        S = ctx.shape[1]
+        q = F.linear(x, wq, bq).view(B, T, HEADS, D).transpose(1, 2)
+        k, v = F.linear(ctx, wkv, bkv).view(B, S, 2, HEADS, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=None if bias is None else bias.to(dtype))
+        return F.linear(o.transpose(1, 2).reshape(B, T, H), wo, bo)
+
+    return run
+
+
+def dense_bound(q, k, bias, dtype):
+    """(ms, "bytes" | "operations") for the blockwise kernel in dense-bias
+    mode: 4 * D flops per (query, key, head) whose bias lets the key through
+    (what this bias needs; chunks the causal skip drops are all masked),
+    against q, k, v and the bias read once and out and lse written once."""
+    B, T, N, D = q.shape
+    S = k.shape[1]
+    pairs = B * T * S if bias is None else float((bias > -1e8).expand(B, 1, T, S).sum())
+    flops = 4 * D * N * pairs
+    nbytes = (2 * B * T * N * D + 2 * B * S * N * D) * q.element_size() + B * N * T * 4
+    nbytes += 0 if bias is None else bias.numel() * 4
+    return _bound(flops, nbytes, dtype)
+
+
+# (T, S) of the cross-attention checks: the fusion models' two directions at
+# 32 frames (17 layout tokens, 33 appearance tokens) and both ends of the
+# kernel's range.
+CROSS_SHAPES = ((17, 33), (33, 17), (8, 64), (64, 8))
+# The dense-bias blockwise checks at 512 layout frames (513 tokens against
+# the 33 appearance tokens): (T, S, bias, causal flag).
+DENSE_CASES = ((513, 513, "causal_padding", False), (513, 513, "causal_padding", True),
+               (513, 33, "none", False), (33, 513, "key_padding", False))
+FUSION_BATCHES = (BATCH, THROUGHPUT_BATCH)
+DENSE_BATCHES = (16, 32)
+
+
+def check_fusion_kernels(device):
+    """The fusion models' kernels against their plain versions, bf16 and
+    f32, each timed against its plain version, the library yardstick and its
+    bound: ``fused_cross_attention`` at CROSS_SHAPES with and without a
+    key-padding bias at B = 64 and 1024; the blockwise kernel's dense-bias
+    mode at DENSE_CASES and B = 16 and 32 (out and lse); and the layer
+    tail's ReLU / eps 1e-5 variant of the appearance encoder at T = 33.
+    Returns the bf16 rows of the kernel table: the cross-attention at
+    (17, 33), B = 64, and the dense-bias mode at 513 x 513 without the
+    causal flag (the fusion layout self-attention), B = 16."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import masks
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    w = make_weights(gen, device)
+    w.update(wq=w["wqkv"][:, :H], bq=w["bqkv"][:H], wkv=w["wqkv"][:, H:], bkv=w["bqkv"][H:])
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        lib = library_cross(w, dtype)
+        for clips in FUSION_BATCHES:
+            for T, S in CROSS_SHAPES:
+                for padded in (False, True):
+                    x = torch.randn((clips, T, H), generator=gen).to(device, dtype)
+                    ctx = torch.randn((clips, S, H), generator=gen).to(device, dtype)
+                    bias = None
+                    if padded:
+                        lengths = torch.randint(1, S + 1, (clips,), generator=gen)
+                        pad = torch.arange(S)[None, :] >= lengths[:, None]
+                        bias = masks.key_padding_bias(pad).to(device)  # [B, 1, 1, S]
+                    args = (x, ctx, w["wq"], w["bq"], w["wkv"], w["bkv"], w["wo"], w["bo"], bias)
+                    kw = dict(num_heads=HEADS, compute_dtype=dtype)
+                    row = _measure(
+                        "fused_cross_attention", "padded" if padded else "unpadded", dtype, clips, x,
+                        lambda: fe.fused_cross_attention(*args, **kw),
+                        lambda: fe.fused_cross_attention_plain(*args, **kw),
+                        lambda: lib(x, ctx, bias), cross_bound(x, ctx, bias, dtype),
+                        torch.ones(x.shape, dtype=torch.bool, device=device), tol,
+                        rel_tol=CROSS_REL if dtype == torch.bfloat16 else None, S=S,
+                    )
+                    if (dtype, clips, T, S, padded) == (torch.bfloat16, BATCH, 17, 33, False):
+                        table["fused_cross_attention"] = row
+                    del x, ctx, bias
+        for clips in DENSE_BATCHES:
+            for T, S, kind, causal in DENSE_CASES:
+                q, k, v = (torch.randn((clips, L, HEADS, H // HEADS), generator=gen).to(device, dtype)
+                           for L in (T, S, S))
+                lengths = torch.randint(1, S + 1, (clips,), generator=gen)
+                lengths[0] = S
+                if kind == "causal_padding":
+                    bias = _causal_padding_bias(lengths, T, device)  # [B, 1, T, T]
+                elif kind == "key_padding":
+                    bias = masks.key_padding_bias(torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+                else:
+                    bias = None
+                kw = dict(bias=bias, causal=causal)
+                out, lse = flash.blockwise_attention(q, k, v, **kw)
+                want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                everything = torch.ones_like(lse, dtype=torch.bool)
+                lse_err = _check_close(f"blockwise_attention_dense lse {dtype} B={clips} {T}x{S}",
+                                       lse, want_lse, everything, OP_TOL[torch.float32])
+                library = library_attention(q, k, v, None if bias is None else bias.to(dtype))
+                row = _measure(
+                    "blockwise_attention_dense", f"{T}x{S} {kind}{' causal' if causal else ''}",
+                    dtype, clips, q,
+                    lambda: flash.blockwise_attention(q, k, v, **kw)[0],
+                    lambda: flash.blockwise_attention_plain(q, k, v, **kw)[0],
+                    library, dense_bound(q, k, bias, dtype),
+                    torch.ones(q.shape, dtype=torch.bool, device=device), tol,
+                    rel_tol=DENSE_REL if dtype == torch.bfloat16 else None, S=S,
+                    lse_max_abs_err=lse_err,
+                )
+                if (dtype, clips, T, S, kind, causal) == (torch.bfloat16, 16, 513, 513,
+                                                          "causal_padding", False):
+                    table["blockwise_attention_dense"] = row
+                del q, k, v, out, lse, want, want_lse, bias
+        torch.cuda.empty_cache()
+
+        # The appearance encoder's layer tail: ReLU, eps 1e-5, T = 33.
+        x, a = (torch.randn((BATCH, LONG_FRAMES, H), generator=gen).to(device, dtype) for _ in range(2))
+        tail_args = (x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"], w["b2"], w["n2s"], w["n2b"])
+        tail_kw = dict(eps=1e-5, compute_dtype=dtype, activation="relu")
+        _measure("fused_layer_tail", "appearance relu", dtype, BATCH, x,
+                 lambda: fe.fused_layer_tail(*tail_args, **tail_kw),
+                 lambda: fe.fused_layer_tail_plain(*tail_args, **tail_kw),
+                 lambda: library_tail(w, dtype, "relu", 1e-5)(x, a),
+                 tail_bound(x, torch.ones(x.shape[:2], dtype=torch.bool), dtype),
+                 torch.ones(x.shape, dtype=torch.bool, device=device), tol)
+    return table
+
+
 # --- phase 3: the main path through the prediction entry point ----------------
 
 
@@ -1206,7 +1416,7 @@ def run_main_path(device):
             if len(scores) != 5 or not all(math.isfinite(s) and 0 <= s <= 1 for s in scores):
                 raise AssertionError(f"bad scores in {row}")
         want = (SPATIAL_LAYERS + TEMPORAL_LAYERS) * NUM_BATCHES
-        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS + TAIL_KERNELS):
+        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS + TAIL_KERNELS + FUSION_KERNELS):
             raise AssertionError(f"predict launched a train or long-clip kernel: {launches}")
         for name in EVAL_KERNELS:
             if launches[name] != want:
@@ -1374,7 +1584,9 @@ FORWARD_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("fused projection+attention kernel", ("fused_proj_attn",)),
     ("layer tail kernel", ("fused_tail",)),
+    ("fused cross-attention kernels", ("cross_attn", "kv_proj")),
     ("long-clip attention kernels", ("attention_kernel<",)),
+    ("cuDNN convolutions", ("fprop", "cudnn", "convolve", "implicit_gemm", "conv2d", "conv3d")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
 OTHER = "other (elementwise, norms, reductions, copies)"
@@ -1477,7 +1689,7 @@ def run_train_path(device):
         layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
         want = {name: layers * steps_taken for name in TRAIN_KERNELS}
         want.update({name: layers * val_batches * TRAIN_EPOCHS for name in EVAL_KERNELS})
-        want.update(dict.fromkeys(LONG_KERNELS + TAIL_KERNELS, 0))  # 17 frames: the plain tail
+        want.update(dict.fromkeys(LONG_KERNELS + TAIL_KERNELS + FUSION_KERNELS, 0))  # 17 frames: the plain tail
         if launches != want:
             raise AssertionError(f"train: launches {launches}, expected {want} (12 layers per "
                                  f"train step for each train kernel, per validation batch for "
@@ -1542,8 +1754,8 @@ def all_launches() -> dict:
 
 class plain_eval_path:
     """Within the block, every eval kernel's wrapper runs its plain version
-    on the card (the fused projection+attention and tail, the short and the
-    blockwise attention)."""
+    on the card (the fused projection+attention, tail and cross-attention,
+    the short and the blockwise attention in both its modes)."""
 
     def __enter__(self):
         from stlt_tpu_torch.ops import flash
@@ -1551,6 +1763,7 @@ class plain_eval_path:
 
         self.swaps = [(fe, "fused_proj_attention", fe.fused_proj_attention_plain),
                       (fe, "fused_layer_tail", fe.fused_layer_tail_plain),
+                      (fe, "fused_cross_attention", fe.fused_cross_attention_plain),
                       (flash, "fused_attention", flash.fused_attention_plain),
                       (flash, "blockwise_attention", flash.blockwise_attention_plain)]
         self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
@@ -1564,23 +1777,24 @@ class plain_eval_path:
         return False
 
 
-def _first_batch(data_cfg, batch_size, device):
+def _first_batch(data_cfg, batch_size, device, dataset_type="layout"):
     from stlt_tpu_torch.data import collaters_factory, datasets_factory
     from stlt_tpu_torch.data.loader import Loader, to_device
 
-    dataset = datasets_factory["layout"](data_cfg)
-    loader = Loader(dataset, batch_size, collaters_factory["layout"](data_cfg), prefetch=0)
+    dataset = datasets_factory[dataset_type](data_cfg)
+    loader = Loader(dataset, batch_size, collaters_factory[dataset_type](data_cfg), prefetch=0,
+                    workers=8)
     batch = next(iter(to_device(loader, device)))
     return dataset, {k: v for k, v in batch.items() if k not in ("labels", "valid")}
 
 
-def _served_model(ckpt, model_kw, layout_num_frames, device, **capacities):
+def _served_model(ckpt, model_kw, layout_num_frames, device, name="stlt", **capacities):
     from stlt_tpu_torch.configs import make_model_config
     from stlt_tpu_torch.models import models_factory
     from stlt_tpu_torch.utils.convert import load_checkpoint
 
-    cfg = make_model_config("stlt", **dict(model_kw, layout_num_frames=layout_num_frames), **capacities)
-    model = models_factory["stlt"](cfg)
+    cfg = make_model_config(name, **dict(model_kw, layout_num_frames=layout_num_frames), **capacities)
+    model = models_factory[name](cfg)
     load_checkpoint(ckpt, model)
     return model.to(device).eval()
 
@@ -1596,18 +1810,19 @@ def _check_logits(name, got, want, against):
 def _kernels_vs_plain(name, model, batch):
     """One batch's logits and forward time through the kernels (with a
     ``torch.profiler`` breakdown by kernel group) and through the plain path
-    on the card; the logits are held against the plain path's at
-    LOGITS_ATOL. Returns the kernels' logits."""
+    on the card; the logits of every head are held against the plain path's
+    at LOGITS_ATOL. Returns the kernels' logits of the model's last head."""
     with torch.inference_mode():
-        got = model(batch)["stlt"]
+        got = model(batch)
         ms = cuda_ms(lambda: model(batch), 5)
         _device_profile("forward", lambda: model(batch), FORWARD_GROUPS, name=name)
         with plain_eval_path():
-            plain = model(batch)["stlt"]
+            plain = model(batch)
             plain_ms = cuda_ms(lambda: model(batch), 3)
-    _check_logits(name, got, plain, "the plain path")
+    for head in model.logit_names:
+        _check_logits(f"{name} {head}", got[head], plain[head], "the plain path")
     log(f"{name}: forward kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return got
+    return got[model.logit_names[-1]]
 
 
 def run_long_clip_path(device):
@@ -1833,6 +2048,247 @@ def run_long_train_path(device):
     return launches, step_ms
 
 
+# --- phase 7: the fusion models through the prediction and evaluation entry points
+
+
+# bench.py::bench_cacnf's configuration (the reference config of every
+# fusion model): the STLT's layout branch, 4 appearance layers over R3D-50
+# features of 32 frames at 112 px (2 x 4 x 4 = 32 tokens), 4 fusion layers.
+APPEARANCE_LAYERS, FUSION_LAYERS, APPEARANCE_FRAMES = 4, 4, 32
+FUSION_MODEL = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                    num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                    num_temporal_layers=TEMPORAL_LAYERS, num_appearance_layers=APPEARANCE_LAYERS,
+                    num_fusion_layers=FUSION_LAYERS, appearance_num_frames=APPEARANCE_FRAMES,
+                    resnet_depth=50, compute_dtype="bfloat16")
+# --layout_num_frames -> (batch, the clips' frame counts, {model: batches}):
+# 16 frames (17 with the extract frame) as bench_cacnf, two batches of
+# CACNF and one each of CAF and LCF; 512 frames (513 tokens, B = 16) for
+# CACNF, clips of 32-256 frames as long_context_512.
+FUSION_RUNS = {16: (32, (3, 25), {"cacnf": 2, "caf": 1, "lcf": 1}), 512: (16, (32, 257), {"cacnf": 1})}
+VIDEO_FRAMES = 34  # frames a clip holds in the archive; the eval sampler spreads 32 over them
+_BLOCKWISE_FRAMES = 512  # from 512 sampled frames (513 tokens) on, the blockwise kernel
+
+
+def write_video_frames(root, video_ids, seed) -> str:
+    """JPEG frames in the layout ``tools/video2frames.py`` writes and
+    ``tools/frames2hdf5.py`` packs into the HDF5 archive
+    (``<root>/<video_id>/<index>.jpg``): VIDEO_FRAMES frames of 170 x 128 a
+    clip, drawn from 16 smooth random images. ``frames_directory_videos``
+    serves them to the port's appearance dataset in the archive's place."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jpegs = []
+    for _ in range(16):
+        small = Image.fromarray(rng.integers(0, 256, (8, 11, 3), dtype=np.uint8), "RGB")
+        buf = io.BytesIO()
+        small.resize((170, 128), Image.BILINEAR).save(buf, format="JPEG")
+        jpegs.append(buf.getvalue())
+    for vid in video_ids:
+        os.makedirs(os.path.join(root, vid))
+        for i in range(VIDEO_FRAMES):
+            with open(os.path.join(root, vid, f"{i}.jpg"), "wb") as f:
+                f.write(jpegs[int(rng.integers(len(jpegs)))])
+    return root
+
+
+class _FramesRoot:
+    """A frames directory read like the HDF5 archive: ``root[video_id]``
+    is that clip's ``_VideoFrames``."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def __getitem__(self, video_id: str) -> "_VideoFrames":
+        return _VideoFrames(os.path.join(self.root, video_id))
+
+
+class _VideoFrames:
+    """One clip's frames directory read like its HDF5 group: ``len()``
+    frames, each keyed by its file's stem, read as uint8 bytes."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.files = {os.path.splitext(name)[0]: name for name in os.listdir(path)}
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        with open(os.path.join(self.path, self.files[key]), "rb") as f:
+            return np.frombuffer(f.read(), dtype=np.uint8)
+
+
+class frames_directory_videos:
+    """Within the block, the port's appearance dataset reads its
+    ``videos_path`` as a directory of ``<video_id>/<index>.jpg`` frames
+    (``write_video_frames``) instead of opening it as the HDF5 archive
+    packed from such a directory: the same JPEG bytes under the same keys,
+    without h5py, which the card's machine lacks. Everything past the
+    frames' bytes (sampling, decode, resize, crop) is the package's."""
+
+    def __enter__(self):
+        from stlt_tpu_torch.data import appearance
+
+        self.cls = appearance.AppearanceDataset
+        self.saved = self.cls.videos
+        self.cls.videos = property(lambda ds: _FramesRoot(ds.config.videos_path))
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.videos = self.saved
+        return False
+
+
+def fusion_launches(name: str, frames: int) -> dict:
+    """Each kernel's launches in one forward of ``name`` at ``frames``
+    layout frames: the layout branch (4 spatial, 8 temporal layers), the
+    appearance encoder (4 layers at T = 33) and, for CAF and CACNF, per
+    fusion layer the layout self-attention (T = 17, or the blockwise kernel's
+    dense-bias mode at 513), the appearance self-attention and the
+    appearance "ffn" (a self-attention, T = 33) and the shared
+    cross-attention in both directions."""
+    fusion = 0 if name == "lcf" else FUSION_LAYERS
+    counts = dict.fromkeys(("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
+                            "fused_proj_attention_train_bwd") + LONG_KERNELS + TAIL_KERNELS
+                           + FUSION_KERNELS, 0)
+    counts["fused_layer_tail"] = SPATIAL_LAYERS + TEMPORAL_LAYERS + APPEARANCE_LAYERS
+    if frames < _BLOCKWISE_FRAMES:
+        counts["fused_proj_attention"] = SPATIAL_LAYERS + TEMPORAL_LAYERS + APPEARANCE_LAYERS + 3 * fusion
+        counts["fused_cross_attention"] = 2 * fusion
+    else:
+        counts["fused_proj_attention"] = SPATIAL_LAYERS + APPEARANCE_LAYERS + 2 * fusion
+        counts["blockwise_attention"] = TEMPORAL_LAYERS
+        counts["blockwise_attention_dense"] = 3 * fusion
+    return counts
+
+
+def _fusion_checkpoints(root) -> dict:
+    """A random full-width bf16 CACNF from the port's seeded init, saved as a
+    reference-format .pt, and CAF and LCF checkpoints from the same weights
+    (CAF: CACNF's backbone and fusion head; LCF: its two branches and the
+    fusion head)."""
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.models import models_factory
+
+    model = models_factory["cacnf"](make_model_config("cacnf", **FUSION_MODEL, layout_num_frames=256),
+                                    torch.Generator().manual_seed(SEED + 7))
+    state = model.state_dict()
+    del model
+    renames = {
+        "cacnf": {"": ""},
+        "caf": {"backbone.": "caf_backbone.", "fusion_classifier.": "classifier."},
+        "lcf": {"backbone.layout_branch.": "layout_branch.",
+                "backbone.appearance_branch.": "appearance_branch.", "fusion_classifier.": "classifier."},
+    }
+    paths = {}
+    for name, prefixes in renames.items():
+        sub = {new + k[len(old):]: v for k, v in state.items()
+               for old, new in prefixes.items() if k.startswith(old)}
+        paths[name] = os.path.join(root, f"{name}_random.pt")
+        torch.save(sub, paths[name])
+    return paths
+
+
+def run_fusion_path(device):
+    """Serve random full-width bf16 fusion models (bench_cacnf's config)
+    through ``predict`` on fabricated JPEG frames (read through
+    ``frames_directory_videos``): CACNF at 16 layout
+    frames (2 batches of 32 clips of 32 x 112 x 112 frames) and once through
+    ``inference``, CAF and LCF (one batch each), and CACNF at 512 frames
+    (B = 16). Asserts rows, finite scores and metrics, the launch counts per
+    forward (``fusion_launches``) and one batch's logits against the plain
+    path on the card, every head; prints the forward times. Returns the
+    launches of the fusion kernels in the CACNF predict runs."""
+    from stlt_tpu_torch import inference, predict
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+    from stlt_tpu_torch.models import models_factory
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_fusion_") as root, \
+            frames_directory_videos():
+        ckpts = _fusion_checkpoints(root)
+        for frames, (batch_size, frames_range, models) in FUSION_RUNS.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            paths = write_something_dataset(sub, batch_size * max(models.values()), SEED + 7 + frames,
+                                            frames_range=frames_range)
+            with open(paths["dataset"]) as f:
+                clips = json.load(f)
+            videos = write_video_frames(os.path.join(sub, "frames"), [c["id"] for c in clips],
+                                        SEED + frames)
+            # The first `batches` batches of clips, the test set of a model served `batches` times.
+            test_sets = {}
+            for batches in set(models.values()):
+                test_sets[batches] = os.path.join(sub, f"test_{batches}.json")
+                with open(test_sets[batches], "w") as f:
+                    json.dump(clips[:batch_size * batches], f)
+            data_cfg = DataConfig(dataset_name="something", dataset_path=paths["dataset"],
+                                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                                  videos_path=videos, layout_num_frames=frames,
+                                  appearance_num_frames=APPEARANCE_FRAMES)
+            _, batch = _first_batch(data_cfg, batch_size, device, "multimodal")
+            for name, num_batches in models.items():
+                common = [
+                    "--dataset_name", "something", "--dataset_type", "multimodal",
+                    "--model_name", name, "--test_dataset_path", test_sets[num_batches],
+                    "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+                    "--videos_path", videos, "--checkpoint_path", ckpts[name],
+                    "--hidden_size", str(FUSION_MODEL["hidden_size"]),
+                    "--num_attention_heads", str(FUSION_MODEL["num_attention_heads"]),
+                    "--num_spatial_layers", str(SPATIAL_LAYERS),
+                    "--num_temporal_layers", str(TEMPORAL_LAYERS),
+                    "--num_appearance_layers", str(APPEARANCE_LAYERS),
+                    "--num_fusion_layers", str(FUSION_LAYERS),
+                    "--resnet_depth", str(FUSION_MODEL["resnet_depth"]),
+                    "--appearance_num_frames", str(APPEARANCE_FRAMES),
+                    "--layout_num_frames", str(frames), "--batch_size", str(batch_size),
+                    "--compute_dtype", FUSION_MODEL["compute_dtype"], "--use_pallas",
+                    "--num_workers", "8",
+                ]
+                per_forward = fusion_launches(name, frames)
+                want = {k: v * num_batches for k, v in per_forward.items()}
+                label = f"predict {name} {frames} frames"
+                reset_all_launches()
+                t0 = time.perf_counter()
+                rows = predict.main(common + ["--output", os.path.join(sub, f"{name}.jsonl"),
+                                              "--top_k", "5"])
+                torch.cuda.synchronize()
+                counts = all_launches()
+                log(f"{label}: {len(rows)} clips in {time.perf_counter() - t0:.3f} s (data, model "
+                    f"and checkpoint load included); launches {counts}")
+                if len(rows) != batch_size * num_batches or not all(
+                        len(r["top_k"]) == 5 and all(math.isfinite(t["score"]) and 0 <= t["score"] <= 1
+                                                     for t in r["top_k"]) for r in rows):
+                    raise AssertionError(f"{label}: bad rows")
+                if counts != want:
+                    raise AssertionError(f"{label}: launches {counts}, expected {want} "
+                                         f"({per_forward} per forward)")
+                if name == "cacnf":
+                    for kernel in FUSION_KERNELS:
+                        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+                if name == "cacnf" and frames == 16:
+                    reset_all_launches()
+                    metrics = inference.main(common)
+                    torch.cuda.synchronize()
+                    counts = all_launches()
+                    log(f"inference {name} {frames} frames: metrics {metrics}; launches {counts}")
+                    heads = set(models_factory[name].logit_names)
+                    if ({k.rsplit("_", 2)[0] for k in metrics} != heads or not all(
+                            math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics.values())):
+                        raise AssertionError(f"inference {name}: bad metrics {metrics}")
+                    if counts != want:
+                        raise AssertionError(f"inference {name}: launches {counts}, expected {want}")
+                model = _served_model(ckpts[name], FUSION_MODEL, position_table_rows(data_cfg),
+                                      device, name=name)
+                _kernels_vs_plain(f"forward {name} {frames} frames, B = {batch_size}", model, batch)
+                del model
+                torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -1859,12 +2315,14 @@ def main() -> int:
     table.update(check_long_kernels(device))
     table.update(check_long_train_kernels(device))
     table.update(check_tail_train_kernels(device))
+    table.update(check_fusion_kernels(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
     launches.update(run_long_clip_path(device))  # long clips: the long-clip kernels
     # Long-clip training: the attention backwards and the fused train tail.
     launches.update(run_long_train_path(device)[0])
+    launches.update(run_fusion_path(device))  # the fusion models: row 5 and row 8's dense mode
 
     kernels = []
     for name in REPLACES:

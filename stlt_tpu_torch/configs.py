@@ -1,9 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
 Own copy of ``stlt_tpu/configs.py`` (``DataConfig`` :113,
-``GeneralModelConfig`` :180, ``StltModelConfig`` :209, the vocabularies
-:26-105, ``position_table_rows`` :298, ``spatial_live_capacity_for`` :311,
-``frame_capacity_for`` :341 and ``make_model_config`` :365 for ``"stlt"``),
+``GeneralModelConfig`` :180, ``StltModelConfig`` :209,
+``AppearanceModelConfig`` :227, ``MultimodalModelConfig`` :240, the
+vocabularies :26-105, ``position_table_rows`` :298,
+``spatial_live_capacity_for`` :311, ``frame_capacity_for`` :341,
+``make_model_config`` :365 and ``model_configs_factory`` :373),
 and of ``stlt_tpu/train.py::_live_prefix_caps`` (:40-59, here
 ``live_prefix_caps``, which ``inference`` calls). The capacity helpers have
 no environment switches: ``--live_prefix`` alone turns them on; unlike JAX's
@@ -121,8 +123,8 @@ class DataConfig:
     spatial_size: int = 112
     # Round the static frame axis up to a multiple; pad frames are inert.
     frames_multiple: int = 1
-    # Appearance-pipeline options, parsed for flag parity with the JAX
-    # package; the layout path ignores them.
+    # Appearance-pipeline options (data/appearance.py); the layout path
+    # ignores them.
     fast_decode: bool = False
     native_decode: bool = False
     device_normalize: bool = False
@@ -256,7 +258,80 @@ def live_prefix_caps(args, *dataset_cfgs):
     return (None if any(c is None for c in caps) else max(caps)), frame_cap
 
 
-model_configs_factory = {"stlt": StltModelConfig}
+@dataclasses.dataclass
+class AppearanceModelConfig(GeneralModelConfig):
+    appearance_num_frames: int = 0
+    resnet_model_path: Optional[str] = None
+    num_appearance_layers: int = 4
+    # R3D depth (10-200; the reference hardcodes 50).
+    resnet_depth: int = 50
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.appearance_num_frames, "appearance_num_frames must not be None!"
+
+
+@dataclasses.dataclass
+class MultimodalModelConfig(GeneralModelConfig):
+    unique_categories: int = 0
+    num_spatial_layers: int = 4
+    num_temporal_layers: int = 8
+    layout_num_frames: int = 256
+    appearance_num_frames: int = 0
+    resnet_model_path: Optional[str] = None
+    num_appearance_layers: int = 4
+    resnet_depth: int = 50
+    num_fusion_layers: int = 4
+    load_backbone_path: Optional[str] = None
+    freeze_backbone: bool = False
+
+    @property
+    def stlt_config(self) -> StltModelConfig:
+        """The layout branch's config."""
+        return StltModelConfig(
+            num_classes=self.num_classes,
+            hidden_size=self.hidden_size,
+            hidden_dropout_prob=self.hidden_dropout_prob,
+            layer_norm_eps=self.layer_norm_eps,
+            num_attention_heads=self.num_attention_heads,
+            compute_dtype=self.compute_dtype,
+            use_pallas=self.use_pallas,
+            remat=self.remat,
+            unique_categories=self.unique_categories,
+            num_spatial_layers=self.num_spatial_layers,
+            num_temporal_layers=self.num_temporal_layers,
+            layout_num_frames=self.layout_num_frames,
+            spatial_live_capacity=self.spatial_live_capacity,
+            temporal_frame_capacity=self.temporal_frame_capacity,
+        )
+
+    @property
+    def appearance_config(self) -> AppearanceModelConfig:
+        """The appearance branch's config."""
+        return AppearanceModelConfig(
+            num_classes=self.num_classes,
+            hidden_size=self.hidden_size,
+            hidden_dropout_prob=self.hidden_dropout_prob,
+            layer_norm_eps=self.layer_norm_eps,
+            num_attention_heads=self.num_attention_heads,
+            compute_dtype=self.compute_dtype,
+            use_pallas=self.use_pallas,
+            remat=self.remat,
+            appearance_num_frames=self.appearance_num_frames,
+            resnet_model_path=self.resnet_model_path,
+            num_appearance_layers=self.num_appearance_layers,
+            resnet_depth=self.resnet_depth,
+        )
+
+
+model_configs_factory = {
+    "stlt": StltModelConfig,
+    "resnet3d": AppearanceModelConfig,
+    "resnet3d-transformer": AppearanceModelConfig,
+    "lcf": MultimodalModelConfig,
+    "caf": MultimodalModelConfig,
+    "cacnf": MultimodalModelConfig,
+}
 
 
 def make_model_config(model_name: str, **kwargs):

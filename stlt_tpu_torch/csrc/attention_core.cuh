@@ -7,10 +7,14 @@
 // with f32 logits, softmax and PV sums and the output rounded once to the
 // storage type. Two modes share the kernel (attention_kernel<E, kLengths, kDrop>):
 //
-// - bias (flash_attention.cu, the TPU kernel _fused_attn_kernel): an
-//   additive f32 bias read through its (b, n, t) strides, s contiguous;
-//   broadcast dims have stride 0, so the head-invariant [B, 1, T, S] bias is
-//   read per head, never copied;
+// - bias (flash_attention.cu, the TPU kernel _fused_attn_kernel; and
+//   blockwise_attention.cu without lengths, the dense-bias mode of the TPU
+//   kernel _blockwise_attn_kernel): an additive f32 bias read through its
+//   (b, n, t) strides, s contiguous; broadcast dims have stride 0, so the
+//   head-invariant [B, 1, T, S] bias is read per head, never copied. With
+//   `causal` (the blockwise entry point only) the caller declares the bias
+//   causal, and key chunks above the last query's diagonal are never loaded,
+//   as _causal_live skips them; every query row is computed;
 // - lengths (blockwise_attention.cu, the TPU kernel _blockwise_attn_kernel in
 //   its lengths mode): key s of clip b is live iff s < lengths[b] (and s <= t
 //   when causal); the mask is generated here and no [B, 1, T, S] array
@@ -19,8 +23,8 @@
 //   as zeros with lse 0, and a query tile with no live row skips all compute.
 //
 // Both modes write lse[b, n, t] = m + log(l) when given an lse pointer (the
-// lengths mode always; the bias mode in training), which the backward
-// kernels (attention_bwd_core.cuh) read.
+// blockwise entry point always; the short one in training), which the
+// backward kernels (attention_bwd_core.cuh) read.
 //
 // Dropout (kDrop, the TPU kernels' prng branch): PyTorch drops the
 // normalised probabilities and scales survivors by 1/(1 - rate). In the
@@ -276,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   const int T = p.T, S = p.S, N = p.N;
   E* __restrict__ out = static_cast<E*>(p.out);
   int len = S, kend = S;  // keys >= kend carry no weight for any query of the tile
+  if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));
   if (kLengths) {
     len = p.lengths[b];
     kend = min(S, len);

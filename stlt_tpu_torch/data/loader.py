@@ -23,14 +23,15 @@ import torch
 
 def to_device(iterator, device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield each numpy batch as tensors on ``device``, staging batch k+1
-    before yielding batch k. Integer arrays become int64."""
+    before yielding batch k. int16/int32 arrays become int64; uint8 frames
+    (``--device_normalize``) stay uint8."""
     pin = torch.device(device).type == "cuda"
 
     def put(batch):
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if t.dtype in (torch.int32, torch.int16, torch.uint8):
+            if t.dtype in (torch.int32, torch.int16):
                 t = t.long()
             if pin:
                 t = t.pin_memory()

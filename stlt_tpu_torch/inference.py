@@ -1,9 +1,11 @@
 """Evaluation CLI of the port.
 
-Port of ``stlt_tpu/inference.py`` (:48-170) for one process on one device:
-the test dataset and loader, the model config (``position_table_rows``, and
-with ``--live_prefix --use_pallas`` the ragged capacities, as JAX gates
-them), the checkpoint load (``strict=True``, then ``strict=False`` with a
+Port of ``stlt_tpu/inference.py`` (:48-170) for one process on one device,
+for every factory model (the multimodal ones on ``--dataset_type
+multimodal``, evaluated on each of their heads): the test dataset and
+loader, the model config (``position_table_rows``, and with
+``--live_prefix --use_pallas`` the ragged capacities, as JAX gates them),
+the checkpoint load (``strict=True``, then ``strict=False`` with a
 warning), the on-device eval steps with their accumulators (top-1/top-5
 counts for Something, probabilities for Action Genome), and the metrics
 logged x100 to two decimals and returned.
@@ -23,17 +25,17 @@ from __future__ import annotations
 import logging
 from typing import Dict
 
-from stlt_tpu_torch.configs import (
-    category2id_for,
-    live_prefix_caps,
-    make_model_config,
-    position_table_rows,
-)
+from stlt_tpu_torch.configs import live_prefix_caps
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
-from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.parser import build_parser
-from stlt_tpu_torch.predict import build_data_config, resolve_device
+from stlt_tpu_torch.predict import (
+    build_data_config,
+    build_model_config,
+    check_flags,
+    load_served_model,
+    resolve_device,
+)
 from stlt_tpu_torch.training.evaluation import evaluators_factory
 from stlt_tpu_torch.training.loop import (
     EvalCountAccumulator,
@@ -41,22 +43,6 @@ from stlt_tpu_torch.training.loop import (
     make_eval_counts_step,
     make_eval_probs_step,
 )
-from stlt_tpu_torch.utils.convert import load_checkpoint
-
-
-def check_flags(args) -> None:
-    """Flags of later slices raise with the ``ROADMAP.md`` item they wait for."""
-    later = [
-        (args.dataset_type != "layout", "--dataset_type other than layout", "A7/A8"),
-        (args.model_name != "stlt", "--model_name other than stlt", "A7/A8"),
-        (args.model_parallel > 1 or args.context_parallel > 1,
-         "--model_parallel/--context_parallel > 1", "A9"),
-        (args.num_processes > 1 or args.coordinator_address is not None,
-         "--num_processes/--coordinator_address", "A9"),
-    ]
-    for hit, flag, item in later:
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet: it waits for ROADMAP.md item {item}")
 
 
 def inference(args) -> Dict[str, float]:
@@ -77,26 +63,10 @@ def inference(args) -> Dict[str, float]:
     # --live_prefix: frame-axis truncation and the spatial live-prefix fold,
     # both bounded by the dataset's longest clip (so every batch fits).
     live_cap, frame_cap = live_prefix_caps(args, (test_dataset, data_cfg))
-    model_config = make_model_config(
-        args.model_name,
-        num_classes=num_classes,
-        layout_num_frames=position_table_rows(data_cfg),
-        unique_categories=len(category2id_for(args.dataset_name)),
-        num_spatial_layers=args.num_spatial_layers,
-        num_temporal_layers=args.num_temporal_layers,
-        hidden_size=args.hidden_size,
-        hidden_dropout_prob=args.hidden_dropout_prob,
-        num_attention_heads=args.num_attention_heads,
-        compute_dtype=args.compute_dtype,
-        use_pallas=args.use_pallas,
-        remat=args.remat,
-        spatial_live_capacity=live_cap,
-        temporal_frame_capacity=frame_cap,
-    )
+    model_config = build_model_config(args, test_dataset, data_cfg, spatial_live_capacity=live_cap,
+                                      temporal_frame_capacity=frame_cap)
     logging.info("The model's configuration is:\n%s", model_config)
-    model = models_factory[args.model_name](model_config)
-    load_checkpoint(args.checkpoint_path, model)
-    model = model.to(device).eval()
+    model = load_served_model(args, model_config, device)
 
     evaluator = evaluators_factory[args.dataset_name](len(test_dataset), num_classes,
                                                       model.logit_names)
@@ -116,7 +86,7 @@ def inference(args) -> Dict[str, float]:
 
 
 def main(argv=None) -> Dict[str, float]:
-    parser = build_parser("Inference with a model, currently STLT.")
+    parser = build_parser("Inference with a model, currently STLT, LCF, CAF, and CACNF.")
     return inference(parser.parse_args(argv))
 
 

@@ -1,7 +1,7 @@
 """Post-LN transformer encoder blocks, eval and train.
 
 Port of ``stlt_tpu/models/layers.py``: ``apply_layer_norm`` (:106),
-``MultiHeadAttention`` (:131), ``activation_fn`` (:377),
+``MultiHeadAttention`` (:131, self- and cross-attention), ``activation_fn`` (:377),
 ``TransformerEncoderLayer`` (:390) and ``TransformerEncoder`` (:564).
 Attribute names are the reference's torch names (the keys
 ``stlt_tpu.utils.convert.flax_to_torch_state_dict`` emits):
@@ -21,6 +21,11 @@ are cast to the compute dtype where the JAX code casts.
   tokens with the dense bias, the blockwise kernel from 513 on with
   ``kv_lengths`` and ``causal``), then a plain out-projection and the fused
   layer tail;
+- cross-attention (the fusion models, ``MultiHeadAttention(x,
+  context=...)``): in eval with T, S <= 64 one fused op,
+  ``fe.fused_cross_attention``; otherwise plain q and kv products and the
+  attention core of ``ops/attention`` with the dense bias (the blockwise
+  kernel in dense-bias mode from 513 tokens), then the out-projection;
 - train, T <= 64: the attention is ``fused_proj_attention_train`` (its
   forward and backward kernels, with hashed probability dropout);
 - train, T > 64 (long clips): q/k/v from one plain product, the attention
@@ -119,9 +124,10 @@ def init_linear_(linear: nn.Linear, generator: torch.Generator, *, zero_bias: bo
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with torch ``nn.MultiheadAttention``'s parameters.
-    ``causal`` declares that the bias it gets is causal (the temporal
-    encoders): the lengths mode then masks keys above the diagonal too."""
+    """Self- or cross-attention with torch ``nn.MultiheadAttention``'s
+    parameters. ``causal`` declares that the bias it gets is causal (the
+    temporal encoders): the lengths mode then masks keys above the diagonal
+    too."""
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
                  generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
@@ -139,9 +145,13 @@ class MultiHeadAttention(nn.Module):
         init_linear_(self.out_proj, generator, zero_bias=True)
 
     def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None,
-                kv_lengths=None) -> torch.Tensor:
+                kv_lengths=None, context=None) -> torch.Tensor:
         """``kv_lengths`` [B]: per-row live key counts (pads tail-contiguous),
-        used in place of ``bias`` from ``_BLOCKWISE_MIN_SEQ`` tokens on."""
+        used in place of ``bias`` from ``_BLOCKWISE_MIN_SEQ`` tokens on;
+        ``context`` [B, S, H]: the keys and values of a cross-attention
+        (queries from x), see :meth:`_cross_attention`."""
+        if context is not None:
+            return self._cross_attention(x, context, bias, seed)
         if x.shape[1] > fe._KERNEL_MAX_SEQ:
             return self._projected_attention(x, bias, seed, kv_lengths)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
@@ -166,6 +176,33 @@ class MultiHeadAttention(nn.Module):
         out = dot_product_attention(
             q, k, v, None if use_lengths else bias, causal=self.causal,
             kv_lengths=kv_lengths if use_lengths else None,
+            dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
+        )
+        return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
+
+    def _cross_attention(self, x, ctx, bias, seed) -> torch.Tensor:
+        """Cross-attention, JAX's dispatch (``layers.py:263-285, 315-374``):
+        one parameter set, Wq the rows [0, H) of ``in_proj_weight`` and
+        Wk, Wv the rows [H, 3H). In eval with T, S <= 64 it is one fused op
+        (``fe.fused_cross_attention``); otherwise q and kv come from plain
+        products and the attention core from ``dot_product_attention`` with
+        the dense bias (the short flash kernel to 512 tokens, the blockwise
+        kernel in dense-bias mode from 513), then the out-projection."""
+        B, T, H = x.shape
+        S = ctx.shape[1]
+        N, dt = self.num_heads, self.dtype
+        w, b = self.in_proj_weight, self.in_proj_bias
+        if not self.training and max(T, S) <= fe._KERNEL_MAX_SEQ:
+            return fe.fused_cross_attention(
+                x.to(dt), ctx.to(dt), w[:H].t(), b[:H], w[H:].t(), b[H:],
+                self.out_proj.weight.t(), self.out_proj.bias, bias, num_heads=N, compute_dtype=dt,
+            )
+        q = torch.matmul(x.to(dt), w[:H].to(dt).t()) + b[:H].to(dt)
+        kv = torch.matmul(ctx.to(dt), w[H:].to(dt).t()) + b[H:].to(dt)
+        drop = self.training and self.dropout_rate > 0.0
+        out = dot_product_attention(
+            q.unflatten(-1, (N, H // N)), kv[..., :H].unflatten(-1, (N, H // N)),
+            kv[..., H:].unflatten(-1, (N, H // N)), bias, causal=self.causal,
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
         )
         return apply_dense(out.reshape(B, T, H), self.out_proj, dt)

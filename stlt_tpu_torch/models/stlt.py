@@ -230,14 +230,15 @@ class StltBackbone(nn.Module):
 
 
 class ClassificationHead(nn.Module):
-    """fc1 -> GELU -> LayerNorm -> fc2 (reference models.py:155-163)."""
+    """fc1 -> GELU -> LayerNorm -> fc2 (reference models.py:155-163; with
+    ``in_features`` 2H the fusion models' ``FusionHead``, models.py:286-294)."""
 
     def __init__(self, hidden_size: int, num_classes: int, layer_norm_eps: float,
-                 dtype: torch.dtype, generator: torch.Generator):
+                 dtype: torch.dtype, generator: torch.Generator, in_features: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
         self.eps = layer_norm_eps
-        self.fc1 = nn.Linear(hidden_size, hidden_size)
+        self.fc1 = nn.Linear(in_features or hidden_size, hidden_size)
         self.layer_norm = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
         self.fc2 = nn.Linear(hidden_size, num_classes)
         init_linear_(self.fc1, generator)

@@ -77,6 +77,13 @@ SIGNATURES = {
         # chunk, splits, hidden, ff, dtype, stream
         [_P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
     ),
+    "fused_cross_attention": (
+        "stlt_fused_cross_attention",
+        # x, ctx, wq, bq, wkv, bkv, wo, bo, bias, bias_row_stride,
+        # bias_q_stride, kv (scratch), out, rows, T, S, hidden, num_heads,
+        # scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
     "flash_attention": (
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
@@ -87,9 +94,10 @@ SIGNATURES = {
     ),
     "blockwise_attention": (
         "stlt_blockwise_attention",
-        # q, k, v, their (b, t, n) strides, lengths, causal, out, lse,
-        # B, T, S, N, D, scale, dropout, seed, thresh, dropout_scale, dtype, stream
-        [_P, _P, _P, *[_LL] * 9, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
+        # q, k, v, their (b, t, n) strides, bias (or null), its (b, n, t)
+        # strides, lengths (or null), causal, out, lse, B, T, S, N, D, scale,
+        # dropout, seed, thresh, dropout_scale, dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
          _I, _U, _U, _F, _I, _P],
     ),
     "flash_attention_bwd": (
@@ -111,8 +119,10 @@ SIGNATURES = {
 }
 
 # Kernels (by their launch-count names) whose entry point lives in another
-# source than csrc/<name>.cu: the train variants share their eval sources.
+# source than csrc/<name>.cu: the train variants share their eval sources, the
+# blockwise forward's dense-bias mode its lengths mode's.
 SOURCES = {
+    "blockwise_attention_dense": "blockwise_attention",
     "fused_proj_attention_train": "fused_proj_attention",
     "fused_proj_attention_train_bwd": "fused_proj_attention_bwd",
     "fused_layer_tail_train": "fused_layer_tail",

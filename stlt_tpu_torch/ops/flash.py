@@ -5,9 +5,10 @@ Port of ``flash_attention`` (:1030), ``_lengths_dense_bias`` (:1094),
 ``_broadcast_bias`` (:1112), the dispatch of ``_flash_forward`` (:1122-1148)
 and the custom VJP ``_flash_custom`` / ``_flash_fwd`` / ``_flash_bwd``
 (:1105-1110, :1288-1337): ``max(T, S) >= _BLOCKWISE_MIN_SEQ = 513`` takes the
-blockwise kernels (``_blockwise_attn_kernel`` :397 forward, ``_blockwise_dq_kernel``
-:655 and ``_blockwise_dkdv_kernel`` :745 backward, here in their lengths
-mode), anything shorter the short kernels (``_fused_attn_kernel`` :119 and
+blockwise kernels (``_blockwise_attn_kernel`` :397 forward, in its lengths
+and its dense-bias mode; ``_blockwise_dq_kernel`` :655 and
+``_blockwise_dkdv_kernel`` :745 backward, in their lengths mode), anything
+shorter the short kernels (``_fused_attn_kernel`` :119 and
 ``_fused_bwd_kernel`` :166). Layout ``[B, T, N, D]`` as in JAX.
 
 Each kernel has three parts, as in ``ops/fused_encoder.py``:
@@ -22,7 +23,9 @@ Each kernel has three parts, as in ``ops/fused_encoder.py``:
   the same function;
 - a launch count in :data:`LAUNCHES`, raised by one where the wrapper
   launches its kernel (a backward call launches its dq and dk/dv kernels
-  and counts once) and nowhere else.
+  and counts once) and nowhere else; the blockwise forward counts its
+  lengths mode as ``blockwise_attention`` and its dense-bias mode as
+  ``blockwise_attention_dense``.
 
 Gradients. When q, k or v needs a gradient, :func:`flash_attention` runs the
 ``torch.autograd.Function`` ``_Attention`` over the short or the blockwise
@@ -62,12 +65,19 @@ them (JAX's rule that dead rows' cotangents count as zero). Below 513 tokens
 the lengths become the dense bias (``_lengths_dense_bias``) and every row is
 computed, as in JAX.
 
+Dense-bias mode of the blockwise forward (``bias``, no ``kv_lengths``; the
+fusion models at 512 layout frames): an f32 bias broadcastable to [B, N, T,
+S] read through its strides, every query row computed, lse written, T and
+S free (33 against 513 and back); with ``causal`` the caller declares the
+bias causal and key chunks above the diagonal are skipped, as JAX's
+``_causal_live`` skips them.
+
 Not ported yet, and refused on a CUDA tensor with the ``ROADMAP.md`` item
-each waits for: the dense-bias mode of the blockwise kernels (B5 (rest)) and
-the dropout-mask operand (the models hash their bits from a seed; B5
-(rest)). The ring ``offsets`` mode (A9) is refused on every device. The
-plain versions compute the mask operand and the dense-bias blockwise
-function, so the CPU path stays whole.
+each waits for: the dense-bias mode of the blockwise backward (fusion
+training, A8 (train)) and the dropout-mask operand (the models hash their
+bits from a seed; B5 (mask)). The ring ``offsets`` mode (A9) is refused on
+every device. The plain versions compute the mask operand and the
+dense-bias blockwise backward, so the CPU path stays whole.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ import torch
 from stlt_tpu_torch.ops import _kernels
 from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 
-LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0,
+LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
             "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
 
 _BLOCKWISE_MIN_SEQ = 513
@@ -89,10 +99,11 @@ _KERNEL_HEAD_DIM = 64
 
 _LATER = {
     "mask": "the dropout-mask operand is not ported to the CUDA kernels (the models hash "
-            "their keep bits from a seed; it waits for ROADMAP.md item B5 (rest)): pass "
+            "their keep bits from a seed; it waits for ROADMAP.md item B5 (mask)): pass "
             "dropout_seed",
-    "dense": "the dense-bias mode of the blockwise kernel is not ported yet: it waits for "
-             "ROADMAP.md item B5 (rest); pass kv_lengths (+ causal)",
+    "dense_bwd": "the dense-bias mode of the blockwise backward kernel is not ported yet: it "
+                 "waits for ROADMAP.md item B5 (dense) backward, with fusion training (A8); "
+                 "pass kv_lengths (+ causal)",
 }
 
 
@@ -373,11 +384,13 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
                         dropout_mask=None, dropout_rate: float = 0.0, dropout_seed=None,
                         offsets=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blockwise kernel (``_blockwise_forward``): online softmax over key
-    chunks, in lengths mode on the card. q: [B, T, N, D]; k, v: [B, S, N,
-    D]; kv_lengths: [B] int. Key chunks above the diagonal (``causal``) or at
-    and past the clip's length are skipped, dead query rows are zeros with
-    lse 0 and whole dead query tiles skip all compute. Returns (out [B, T,
-    N, D] in v's dtype, lse [B, N, T] f32)."""
+    chunks. q: [B, T, N, D]; k, v: [B, S, N, D]. Lengths mode (kv_lengths:
+    [B] int): key chunks above the diagonal (``causal``) or at and past the
+    clip's length are skipped, dead query rows are zeros with lse 0 and whole
+    dead query tiles skip all compute. Dense-bias mode (``bias`` f32,
+    broadcastable to [B, N, T, S], or None for no bias): every row computed,
+    key chunks above the diagonal skipped with ``causal``. Returns (out [B,
+    T, N, D] in v's dtype, lse [B, N, T] f32)."""
     _refuse_offsets(offsets)
     kw = dict(bias=bias, kv_lengths=kv_lengths, causal=causal, dropout_mask=dropout_mask,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed)
@@ -385,22 +398,24 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
         return blockwise_attention_plain(q, k, v, **kw)
     op = "blockwise_attention"
     drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
-    if kv_lengths is None:
-        raise NotImplementedError(f"{op}: " + _LATER["dense"])
+    _check_bias(bias, kv_lengths)
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
-    lengths = _lengths_arg(op, kv_lengths, B, q.device)
+    lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
+    b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
             op, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *_strides(q), *_strides(k), *_strides(v), lengths.data_ptr(), int(bool(causal)),
+            *_strides(q), *_strides(k), *_strides(v),
+            None if b4 is None else b4.data_ptr(), *strides,
+            None if lengths is None else lengths.data_ptr(), int(bool(causal)),
             out.data_ptr(), lse.data_ptr(), B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code,
             _stream(q.device),
         )
-    LAUNCHES[op] += 1
+    LAUNCHES[op if lengths is not None else "blockwise_attention_dense"] += 1
     return out, lse
 
 
@@ -469,7 +484,7 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
     op = "blockwise_attention_bwd"
     drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     if kv_lengths is None:
-        raise NotImplementedError(f"{op}: " + _LATER["dense"])
+        raise NotImplementedError(f"{op}: " + _LATER["dense_bwd"])
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
@@ -530,7 +545,8 @@ def flash_attention(
     also masks keys above the diagonal. ``dropout_seed`` (a uint32) with
     ``dropout_rate`` drops probabilities with hashed keep bits. Returns [B,
     T, N, D] in v's dtype. From 513 tokens on the blockwise kernel runs (in
-    lengths mode on the card), below it the short kernel; when q, k or v
+    lengths mode with ``kv_lengths``, else in dense-bias mode), below it the
+    short kernel; when q, k or v
     needs a gradient, through ``_Attention`` above. See the module
     docstring for the dead rows of the lengths mode."""
     _check_dropout(dropout_mask, dropout_rate, dropout_seed)

@@ -2,16 +2,17 @@
 eval layer tail. Port of ``stlt_tpu/ops/fused_encoder.py``:
 ``fused_proj_attention`` (:327), ``fused_layer_tail`` (:578),
 ``fused_proj_attention_train`` (:946) with its forward (:961) and backward
-(:1028), and the host helpers ``live_prefix_capacity`` / ``frame_capacity``
+(:1028), ``fused_cross_attention`` (:1186), and the host helpers ``live_prefix_capacity`` / ``frame_capacity``
 (:75-118) of the ragged levers.
 
 Each op has three parts:
 
 - the wrapper (``fused_proj_attention``, ``fused_layer_tail``,
-  ``fused_proj_attention_train``): a CUDA tensor launches the hand-written
-  kernels (``csrc/<op>.cu``; the train op's backward
-  ``csrc/fused_proj_attention_bwd.cu``) or raises; a CPU tensor takes the
-  plain versions. The device alone decides; there is no fallback;
+  ``fused_proj_attention_train``, ``fused_cross_attention``): a CUDA tensor
+  launches the hand-written kernels (``csrc/<op>.cu``; the train op's
+  backward ``csrc/fused_proj_attention_bwd.cu``) or raises; a CPU tensor
+  takes the plain versions. The device alone decides; there is no
+  fallback;
 - the plain PyTorch version (``*_plain``) of the same function, with the same
   rounding points;
 - a launch count in :data:`LAUNCHES`, raised by one where the wrapper
@@ -31,6 +32,10 @@ path, not its TPU blocking:
   probabilities and follows ``_fused_proj_bwd_body`` step for step: dqkv in
   the compute dtype, dWo and dbo in f32; dx, dWqkv (f32) and dbqkv (f32) are
   plain GEMMs (:func:`proj_input_grads`).
+- ``fused_cross_attention`` is the same contract with ``q`` projected from
+  x [B, T, H] and ``kv`` from the context [B, S, H] (``wq``/``bq``,
+  ``wkv``/``bkv`` rounded to the compute dtype, ``q`` and ``kv`` rounded
+  after the f32 bias add). Eval only, T, S <= 64, no ``rows_live``.
 - ``fused_layer_tail`` does the residual adds in the compute dtype, adds
   ``b1``, ``b2`` and the LayerNorm parameters in f32, and applies the
   activation to the compute-dtype hidden op for op in that dtype, as JAX
@@ -60,6 +65,7 @@ LAUNCHES = {
     "fused_layer_tail": 0,
     "fused_proj_attention_train": 0,
     "fused_proj_attention_train_bwd": 0,
+    "fused_cross_attention": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,22 +165,24 @@ def _act_code(activation: str, gelu_approximate: bool) -> int:
     raise ValueError(f"unknown activation {activation}")
 
 
-def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device) -> torch.Tensor:
-    """A head-invariant additive bias broadcastable to [rows, 1, T, T], as
-    f32 [rows or 1, T or 1, T]. The broadcast dims stay size 1: the spatial
-    key-padding bias is read per row as [1, T], never materialised as
-    [rows, 1, T, T]."""
+def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device,
+           keys: Optional[int] = None) -> torch.Tensor:
+    """A head-invariant additive bias broadcastable to [rows, 1, T, S] (S =
+    ``keys``, T by default), as f32 [rows or 1, T or 1, S]. The broadcast
+    dims stay size 1: the spatial key-padding bias is read per row as
+    [1, T], never materialised as [rows, 1, T, T]."""
+    keys = seq if keys is None else keys
     if bias is None:
-        return torch.zeros(1, 1, seq, dtype=torch.float32, device=device)
+        return torch.zeros(1, 1, keys, dtype=torch.float32, device=device)
     b = bias.to(torch.float32)
     while b.dim() < 4:
         b = b[None]
     if b.dim() != 4 or b.shape[1] != 1:
-        raise ValueError(f"head-invariant bias [rows, 1, T, T] expected, got {tuple(bias.shape)}")
+        raise ValueError(f"head-invariant bias [rows, 1, T, S] expected, got {tuple(bias.shape)}")
     b0, tq, s = b.shape[0], b.shape[2], b.shape[3]
-    if b0 not in (1, rows) or tq not in (1, seq) or s not in (1, seq):
-        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast to [{rows}, 1, {seq}, {seq}]")
-    return b.expand(b0, 1, tq, seq).reshape(b0, tq, seq)
+    if b0 not in (1, rows) or tq not in (1, seq) or s not in (1, keys):
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast to [{rows}, 1, {seq}, {keys}]")
+    return b.expand(b0, 1, tq, keys).reshape(b0, tq, keys)
 
 
 # --- projection + attention ---------------------------------------------------
@@ -255,12 +263,13 @@ def _check_proj_kernel(op: str, x, wqkv, bqkv, wo, num_heads: int, compute_dtype
     return code
 
 
-def _bias_operand(bias, B: int, T: int, device):
-    """The bias as f32 [rows or 1, T or 1, T] and its row and query strides;
-    size-1 dims are read with stride 0."""
-    b3 = _bias3(bias, B, T, device).contiguous()
-    row_stride = b3.shape[1] * T if b3.shape[0] > 1 else 0
-    q_stride = T if b3.shape[1] > 1 else 0
+def _bias_operand(bias, B: int, T: int, device, keys: Optional[int] = None):
+    """The bias as f32 [rows or 1, T or 1, S] (S = ``keys``, T by default)
+    and its row and query strides; size-1 dims are read with stride 0."""
+    b3 = _bias3(bias, B, T, device, keys).contiguous()
+    S = b3.shape[2]
+    row_stride = b3.shape[1] * S if b3.shape[0] > 1 else 0
+    q_stride = S if b3.shape[1] > 1 else 0
     return b3, row_stride, q_stride
 
 
@@ -632,6 +641,120 @@ def fused_layer_tail(
             w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(), b2v.data_ptr(),
             n2s.data_ptr(), n2b.data_ptr(), None if live is None else live.data_ptr(),
             out.data_ptr(), None, B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, code, stream,
+        )
+    LAUNCHES[op] += 1
+    return out
+
+
+# --- cross-attention (eval): queries from x, keys and values from a context ---
+
+
+def fused_cross_attention_plain(
+    x: torch.Tensor,
+    ctx: torch.Tensor,
+    wq: torch.Tensor,
+    bq: torch.Tensor,
+    wkv: torch.Tensor,
+    bkv: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_cross_attention`, with the
+    kernel contract's rounding points: the weights and biases rounded to
+    the compute dtype, ``q`` and ``kv`` rounded after the f32 bias add,
+    f32 logits and a normalise-first softmax, the heads' outputs rounded
+    before ``Wo``."""
+    B, T, H = x.shape
+    S = ctx.shape[1]
+    N = num_heads
+    D = H // N
+    cd = compute_dtype
+    f32 = torch.float32
+
+    def project(a, w, b):
+        return (a.to(cd).to(f32) @ w.to(cd).to(f32) + b.to(cd).to(f32)).to(cd).to(f32)
+
+    q = project(x, wq, bq).reshape(B, T, N, D).transpose(1, 2)
+    kv = project(ctx, wkv, bkv)
+    k = kv[..., :H].reshape(B, S, N, D).transpose(1, 2)
+    v = kv[..., H:].reshape(B, S, N, D).transpose(1, 2)
+    logits = (q @ k.transpose(-1, -2)) * (1.0 / D ** 0.5)
+    logits = logits + _bias3(bias, B, T, x.device, S)[:, None]
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    probs = torch.exp(logits)
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    attn = (probs @ v).transpose(1, 2).reshape(B, T, H)
+    y = attn.to(cd).to(f32) @ wo.to(cd).to(f32) + bo.to(cd).to(f32)
+    return y.to(x.dtype)
+
+
+def _check_cross_kernel(op: str, x, ctx, wq, bq, wkv, bkv, wo, bo, num_heads: int,
+                        compute_dtype) -> int:
+    """The dtype code of csrc/fused_cross_attention.cu; raises on what it
+    does not take."""
+    B, T, H = x.shape
+    code = _check_kernel_dtypes(op, compute_dtype, x, ctx)
+    _check_kernel_width(op, H)
+    if H // num_heads != _KERNEL_HEAD_DIM or H % num_heads:
+        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got H/N={H / num_heads}")
+    S = ctx.shape[1]
+    if ctx.dim() != 3 or ctx.shape[0] != B or ctx.shape[2] != H:
+        raise ValueError(f"{op}: ctx [B={B}, S, H={H}] expected, got {tuple(ctx.shape)}")
+    if not (1 <= T <= _KERNEL_MAX_SEQ and 1 <= S <= _KERNEL_MAX_SEQ):
+        raise ValueError(f"{op}: the CUDA kernel takes T, S <= {_KERNEL_MAX_SEQ}, got T={T}, S={S}")
+    if (wq.shape != (H, H) or bq.shape != (H,) or wkv.shape != (H, 2 * H) or bkv.shape != (2 * H,)
+            or wo.shape != (H, H) or bo.shape != (H,)):
+        raise ValueError(f"{op}: weight shapes do not match H={H}")
+    return code
+
+
+def fused_cross_attention(
+    x: torch.Tensor,
+    ctx: torch.Tensor,
+    wq: torch.Tensor,
+    bq: torch.Tensor,
+    wkv: torch.Tensor,
+    bkv: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Cross-attention sublayer ``out_proj(attention(q = x, k = v = ctx))``
+    (eval). x: [B, T, H] queries; ctx: [B, S, H] keys and values, both in the
+    compute dtype; wq: [H, H], wkv: [H, 2H] (k and v concatenated on the
+    output axis), wo: [H, H] (input-major); bq [H], bkv [2H], bo [H]; bias:
+    head-invariant, broadcastable to [B, 1, T, S]. Returns [B, T, H] in
+    x.dtype. A CUDA tensor launches csrc/fused_cross_attention.cu (T, S <=
+    64, head dim 64, H in 64 x ``_KERNEL_WIDTHS``) or raises; a CPU tensor
+    takes :func:`fused_cross_attention_plain`."""
+    args = (x, ctx, wq, bq, wkv, bkv, wo, bo, bias)
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype)
+    op = "fused_cross_attention"
+    if _on_cpu(x, op):
+        return fused_cross_attention_plain(*args, **kw)
+    B, T, H = x.shape
+    S = ctx.shape[1]
+    code = _check_cross_kernel(op, x, ctx, wq, bq, wkv, bkv, wo, bo, num_heads, compute_dtype)
+    cd = compute_dtype
+    x, ctx = x.contiguous(), ctx.contiguous()
+    wq, bq, wkv, bkv, wo, bo = (t.to(cd).contiguous() for t in (wq, bq, wkv, bkv, wo, bo))
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device, S)
+    kv = torch.empty((B * S, 2 * H), dtype=cd, device=x.device)  # the context projection
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _kernels.launch(
+            op, x.data_ptr(), ctx.data_ptr(), wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(),
+            bkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
+            kv.data_ptr(), out.data_ptr(), B, T, S, H, num_heads,
+            float(1.0 / (H // num_heads) ** 0.5), code, stream,
         )
     LAUNCHES[op] += 1
     return out

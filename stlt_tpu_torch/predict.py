@@ -2,13 +2,17 @@
 
 Port of ``stlt_tpu/predict.py``: batch inference over a dataset JSON,
 writing per-clip top-k predictions as JSON lines (``video_id``, ``top_k``
-with ``label_id``, ``label`` and ``score``). It runs on the GPU unless
-``--platform cpu`` is given; without a GPU it raises and never falls back to
-the CPU. Checkpoints are reference-format ``.pt`` state_dicts.
+with ``label_id``, ``label`` and ``score``) from the model's last head
+(``ensemble`` for CACNF). Every factory model serves: ``stlt`` on layout
+data, ``resnet3d`` and ``resnet3d-transformer`` on ``--dataset_type
+appearance``, ``lcf``, ``caf`` and ``cacnf`` on ``--dataset_type
+multimodal`` (HDF5 JPEG frames, ``--videos_path``). It runs on the GPU
+unless ``--platform cpu`` is given; without a GPU it raises and never falls
+back to the CPU. Checkpoints are reference-format ``.pt`` state_dicts.
 
-    python -m stlt_tpu_torch.predict --dataset_name something --dataset_type layout \
-        --model_name stlt --test_dataset_path val.json --labels_path labels.json \
-        --videoid2size_path sizes.json --checkpoint_path best.pt \
+    python -m stlt_tpu_torch.predict --dataset_name something --dataset_type multimodal \
+        --model_name cacnf --test_dataset_path val.json --labels_path labels.json \
+        --videoid2size_path sizes.json --videos_path videos.h5 --checkpoint_path best.pt \
         --compute_dtype bfloat16 --output predictions.jsonl --top_k 5
 """
 
@@ -67,7 +71,75 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
     )
 
 
+def check_flags(args) -> None:
+    """The serving CLIs' flags: an unknown model or dataset type raises with
+    the choices; flags of later slices raise with the ``ROADMAP.md`` item
+    they wait for."""
+    for flag, value, choices in (("--model_name", args.model_name, models_factory),
+                                 ("--dataset_type", args.dataset_type, datasets_factory)):
+        if value not in choices:
+            raise ValueError(f"{flag} {value!r} is not one of {sorted(choices)}")
+    later = [
+        (args.model_parallel > 1 or args.context_parallel > 1,
+         "--model_parallel/--context_parallel > 1", "A9"),
+        (args.num_processes > 1 or args.coordinator_address is not None,
+         "--num_processes/--coordinator_address", "A9"),
+        (getattr(args, "native_decode", False), "--native_decode", "A10"),
+    ]
+    for hit, flag, item in later:
+        if hit:
+            raise NotImplementedError(f"{flag} is not ported yet: it waits for ROADMAP.md item {item}")
+
+
+def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
+    """The model config of ``--model_name`` from the flags and the dataset,
+    as ``stlt_tpu/predict.py:54-70`` builds it; ``capacities`` are the
+    ragged levers' (``inference --live_prefix``)."""
+    return make_model_config(
+        args.model_name,
+        num_classes=len(dataset.labels),
+        layout_num_frames=position_table_rows(data_cfg),
+        unique_categories=len(category2id_for(args.dataset_name)),
+        num_spatial_layers=args.num_spatial_layers,
+        num_temporal_layers=args.num_temporal_layers,
+        appearance_num_frames=args.appearance_num_frames,
+        resnet_model_path=args.resnet_model_path,
+        hidden_size=args.hidden_size,
+        hidden_dropout_prob=args.hidden_dropout_prob,
+        num_attention_heads=args.num_attention_heads,
+        num_appearance_layers=args.num_appearance_layers,
+        num_fusion_layers=args.num_fusion_layers,
+        resnet_depth=args.resnet_depth,
+        compute_dtype=args.compute_dtype,
+        use_pallas=args.use_pallas,
+        remat=args.remat,
+        **capacities,
+    )
+
+
+def clip_ids(dataset):
+    """The clip ids in dataset order (the loader keeps it when not
+    shuffling); a multimodal dataset's come from its layout dataset."""
+    json_file = getattr(dataset, "json_file", None)
+    if json_file is None:
+        json_file = dataset.layout_dataset.json_file
+    return [clip["id"] for clip in json_file]
+
+
+def load_served_model(args, model_config, device: torch.device):
+    """The factory model with the checkpoint loaded, on ``device`` in eval
+    mode. On the card cuDNN picks its convolution algorithms for the
+    appearance branch's shapes and f32 convolutions stay f32 (no TF32)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.allow_tf32 = False
+    model = models_factory[args.model_name](model_config)
+    load_checkpoint(args.checkpoint_path, model)
+    return model.to(device).eval()
+
+
 def predict(args):
+    check_flags(args)
     device = resolve_device(getattr(args, "platform", None))
     logging.basicConfig(level=logging.INFO)
     data_cfg = build_data_config(args, train=False, dataset_path=args.test_dataset_path)
@@ -80,22 +152,8 @@ def predict(args):
         workers=max(args.num_workers, 1),
     )
     id2label = {int(v): k for k, v in dataset.labels.items()}
-    model_config = make_model_config(
-        args.model_name,
-        num_classes=len(dataset.labels),
-        layout_num_frames=position_table_rows(data_cfg),
-        unique_categories=len(category2id_for(args.dataset_name)),
-        num_spatial_layers=args.num_spatial_layers,
-        num_temporal_layers=args.num_temporal_layers,
-        hidden_size=args.hidden_size,
-        num_attention_heads=args.num_attention_heads,
-        compute_dtype=args.compute_dtype,
-        use_pallas=args.use_pallas,
-        remat=args.remat,
-    )
-    model = models_factory[args.model_name](model_config)
-    load_checkpoint(args.checkpoint_path, model)
-    model = model.to(device).eval()
+    ids = clip_ids(dataset)
+    model = load_served_model(args, build_model_config(args, dataset, data_cfg), device)
 
     head = model.logit_names[-1]
     multilabel = args.dataset_name == "action_genome"
@@ -117,7 +175,7 @@ def predict(args):
                 top = np.argsort(-probs)[: args.top_k]
                 rows.append(
                     {
-                        "video_id": dataset.json_file[index + row]["id"],
+                        "video_id": ids[index + row],
                         "top_k": [
                             {
                                 "label_id": int(c),

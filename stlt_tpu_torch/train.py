@@ -73,9 +73,12 @@ class TrainResult:
 # Flags of later slices, with the ROADMAP.md item each waits for.
 def check_flags(args) -> None:
     later = [
-        (args.dataset_type != "layout", "--dataset_type other than layout", "A7/A8"),
-        (args.model_name != "stlt", "--model_name other than stlt", "A7/A8"),
-        (args.resnet_model_path is not None, "--resnet_model_path", "A7"),
+        (args.dataset_type == "multimodal" or args.model_name in ("lcf", "caf", "cacnf"),
+         "fusion training (--dataset_type multimodal, --model_name lcf/caf/cacnf)", "A8 (train)"),
+        (args.dataset_type != "layout" or args.model_name != "stlt",
+         "training the appearance branch (--dataset_type appearance, --model_name "
+         "resnet3d/resnet3d-transformer)", "A7 (train)"),
+        (args.resnet_model_path is not None, "--resnet_model_path", "A7 (train)"),
         (args.grad_accum_steps > 1, "--grad_accum_steps > 1", "A4 (rest) / A6"),
         (args.remat, "--remat", "A4 (rest) / A6"),
         (args.resume_dir is not None, "--resume_dir", "A4 (rest) / A9"),

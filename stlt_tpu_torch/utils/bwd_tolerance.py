@@ -1,18 +1,21 @@
-"""Mutation check of the bf16 tolerances of the backward kernels.
+"""Mutation check of the bf16 tolerances that ``chip_smoke.py`` states as
+relative norms.
 
 ``chip_smoke.py`` holds the long-clip attention backwards' dq, dk and dv
-against ``attention_bwd_plain`` (``BWD_REL``), and the fused train tail's dx
-and dattn against its plain backward (``TAIL_BWD_REL``), within a relative
-Frobenius-norm error. This script shows which faults those limits catch. It
-copies the package into a temporary directory, edits the kernel sources
-there (the checkout is never touched), builds the kernels of the family the
-variant belongs to from each copy and prints each variant's relative norm
-errors in bf16:
+against ``attention_bwd_plain`` (``BWD_REL``), the fused train tail's dx
+and dattn against its plain backward (``TAIL_BWD_REL``), the fused
+cross-attention's output against its plain version (``CROSS_REL``) and the
+blockwise forward's dense-bias output against its plain version
+(``DENSE_REL``), within a relative Frobenius-norm error. This script shows
+which faults those limits catch. It copies the package into a temporary
+directory, edits the kernel sources there (the checkout is never touched),
+builds the kernels of the family the variant belongs to from each copy and
+prints each variant's relative norm errors in bf16:
 
-- ``sound``: the sources as they are (both families);
-- attention, ``no_lo_split``: the tensor-core products of the probabilities
-  and of dz (``attention_core.cuh::chunk_pv``) take only the bf16 hi part,
-  not hi + lo;
+- ``sound``: the sources as they are (every family);
+- attention and dense, ``no_lo_split``: the tensor-core products of the
+  probabilities and of dz (``attention_core.cuh::chunk_pv``) take only the
+  bf16 hi part, not hi + lo;
 - attention, ``no_dsum``: dz = p o dp, without the ``- dsum`` term;
 - tail, ``act_grad_of_cd_z1``: act' taken on z1 rounded to bf16 instead of
   the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``);
@@ -21,13 +24,25 @@ errors in bf16:
 - tail, ``weight_partials_in_bf16``: the weight kernel rounds each split's
   partial dW1 and dW2 to bf16 before the ordered sum (``weight_tile_tc``);
 - tail, ``weight_split_left_out``: the weight kernel's last token split adds
-  nothing (``weight_tile``).
+  nothing (``weight_tile``);
+- cross, ``cross_no_bo``: the output bias bo left out
+  (``fused_cross_attention.cu::cross_attn_tc_kernel``);
+- cross, ``cross_no_bkv``: the context projection's bias bkv left out
+  (``kv_proj_tc_kernel``; its k half moves no softmax, its v half moves
+  the output by bv @ Wo);
+- cross, ``cross_q_unrounded``: q_h kept in f32 after its bias add instead
+  of rounded to bf16 (a rounding point of the contract moved; o_h feeds the
+  tensor cores from a bf16 tile, so it cannot be left unrounded);
+- cross, ``cross_head_left_out``: the last head adds nothing;
+- dense, ``dense_causal_last_key_dropped``: with the causal flag, each
+  query tile's key range stops one key short, so the last query of every
+  tile loses its diagonal key.
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
-    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail]
+    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | dense]
 
-(one family's variants only when named). The variants' kernels are built
+(those families' variants only when named). The variants' kernels are built
 in parallel, then measured one variant at a time. The last line is one JSON
 object {variant: {family: [rows]}}. Attention rows {"T", "rate", "dq",
 "dk", "dv"}: 6 clips, 12 heads of 64, T = 257 on the short kernel with a
@@ -38,7 +53,12 @@ plain forward, so only the backward differs. Tail rows {"tokens", "rate",
 from the plain forward; 4,112 tokens (16 clips of 257 frames, the temporal
 stage of a 512-frame batch) with ragged live tokens and dropout 0 and 0.1
 (two splits of the weight products), and 65,792 live tokens with dropout
-0.1 (the spatial stage of a 256-frame batch: 17 splits).
+0.1 (the spatial stage of a 256-frame batch: 17 splits). Cross rows {"T",
+"S", "padded", "y"}: chip_smoke's row-5 checks at B = 64, H = 768, 12
+heads, (T, S) = (17, 33), (33, 17), (8, 64), (64, 8), with and without a
+key-padding bias, weights drawn as ``chip_smoke.make_weights`` draws them.
+Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
+dense-bias checks at B = 16, 12 heads of 64.
 """
 
 from __future__ import annotations
@@ -58,11 +78,13 @@ FAMILIES = {
     "attention": ("flash_attention", "blockwise_attention", "flash_attention_bwd",
                   "blockwise_attention_bwd"),
     "tail": ("fused_tail_train_bwd_row",),
+    "cross": ("fused_cross_attention",),
+    "dense": ("blockwise_attention",),
 }
 # variant -> (families it is measured in, source edits)
 MUTATIONS = {
-    "sound": (("attention", "tail"), []),
-    "no_lo_split": (("attention",), [(
+    "sound": (tuple(FAMILIES), []),
+    "no_lo_split": (("attention", "dense"), [(
         "attention_core.cuh",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);",
@@ -95,6 +117,32 @@ MUTATIONS = {
         "  t.k_end = min(p.tokens, t.k_begin + p.chunk);",
         "  t.k_end = blockIdx.y + 1 < gridDim.y ? min(p.tokens, t.k_begin + p.chunk) : t.k_begin;",
     )]),
+    "cross_no_bo": (("cross",), [(
+        "fused_cross_attention.cu",
+        "out[(tok0 + row) * H + c] = from_float<bf16>(v + to_float(bo[c]));",
+        "out[(tok0 + row) * H + c] = from_float<bf16>(v);",
+    )]),
+    "cross_no_bkv": (("cross",), [(
+        "fused_cross_attention.cu",
+        "kv[(tok0 + row) * 2 * H + c] = from_float<bf16>(v + to_float(bkv[c]));",
+        "kv[(tok0 + row) * 2 * H + c] = from_float<bf16>(v);",
+    )]),
+    "cross_q_unrounded": (("cross",), [(
+        "fused_cross_attention.cu",
+        "q_s[(qrf * 16 + i) * kD + d] = round_to<bf16>(v + to_float(bq[h * kD + d]));",
+        "q_s[(qrf * 16 + i) * kD + d] = v + to_float(bq[h * kD + d]);",
+    )]),
+    "cross_head_left_out": (("cross",), [(
+        "fused_cross_attention.cu",
+        "for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64\n"
+        "    // gemm_streamed synchronises the block before it reads x_s and after.",
+        "for (int h = 0; h < NC - 1; ++h) {",
+    )]),
+    "dense_causal_last_key_dropped": (("dense",), [(
+        "attention_core.cuh",
+        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
+        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T)) - 1;",
+    )]),
 }
 TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
 
@@ -116,7 +164,8 @@ def measure(family: str) -> list:
     against their plain versions, with this interpreter's
     ``stlt_tpu_torch``."""
     build([family])
-    return {"attention": _measure_attention, "tail": _measure_tail}[family]()
+    return {"attention": _measure_attention, "tail": _measure_tail, "cross": _measure_cross,
+            "dense": _measure_dense}[family]()
 
 
 def _measure_tail() -> list:
@@ -144,6 +193,58 @@ def _measure_tail() -> list:
                      **{name: _rel(p, q) for name, p, q in zip(TAIL_GRADS, got, want)}})
         del x, a, g, live, r2, got, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def _measure_cross() -> list:
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import masks
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    B, H, heads = 64, 768, 12
+    u = lambda *shape, b: ((torch.rand(shape, generator=gen) * 2 - 1) * b).to(device)
+    wq, wkv = u(H, H, b=(6 / (4 * H)) ** 0.5), u(H, 2 * H, b=(6 / (4 * H)) ** 0.5)
+    weights = (wq, u(H, b=0.02), wkv, u(2 * H, b=0.02), u(H, H, b=H ** -0.5), u(H, b=0.02))
+    rows = []
+    for T, S in ((17, 33), (33, 17), (8, 64), (64, 8)):
+        for padded in (False, True):
+            x = torch.randn((B, T, H), generator=gen).to(device, torch.bfloat16)
+            ctx = torch.randn((B, S, H), generator=gen).to(device, torch.bfloat16)
+            bias = None
+            if padded:
+                lengths = torch.randint(1, S + 1, (B,), generator=gen)
+                bias = masks.key_padding_bias(torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+            kw = dict(num_heads=heads, compute_dtype=torch.bfloat16)
+            got = fe.fused_cross_attention(x, ctx, *weights, bias, **kw)
+            want = fe.fused_cross_attention_plain(x, ctx, *weights, bias, **kw)
+            torch.cuda.synchronize()
+            rows.append({"T": T, "S": S, "padded": padded, "y": _rel(got, want)})
+    return rows
+
+
+def _measure_dense() -> list:
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import masks
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    B, N, D = 16, 12, 64
+    rows = []
+    for T, S, kind, causal in ((513, 513, "causal_padding", False), (513, 513, "causal_padding", True),
+                               (513, 33, "none", False), (33, 513, "key_padding", False)):
+        q, k, v = (torch.randn((B, L, N, D), generator=gen).to(device, torch.bfloat16) for L in (T, S, S))
+        lengths = torch.randint(1, S + 1, (B,), generator=gen)
+        lengths[0] = S
+        pad = torch.arange(S)[None, :] >= lengths[:, None]
+        bias = {"causal_padding": lambda: masks.causal_bias(T) + masks.key_padding_bias(pad),
+                "key_padding": lambda: masks.key_padding_bias(pad), "none": lambda: None}[kind]()
+        bias = None if bias is None else bias.to(device)
+        out, lse = flash.blockwise_attention(q, k, v, bias=bias, causal=causal)
+        want, want_lse = flash.blockwise_attention_plain(q, k, v, bias=bias, causal=causal)
+        torch.cuda.synchronize()
+        rows.append({"T": T, "S": S, "bias": kind, "causal": causal, "out": _rel(out, want),
+                     "lse": _rel(lse, want_lse)})
     return rows
 
 
@@ -224,8 +325,10 @@ def main(argv=None) -> int:
                                                         f"{f!r}}}))"))
             results[variant] = json.loads(out.strip().splitlines()[-1])
             for family, rows in results[variant].items():
-                groups = ({"dq/dk/dv": ("dq", "dk", "dv")} if family == "attention" else
-                          {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]})
+                groups = {"attention": {"dq/dk/dv": ("dq", "dk", "dv")},
+                          "tail": {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]},
+                          "cross": {"y": ("y",)},
+                          "dense": {"out": ("out",), "lse": ("lse",)}}[family]
                 worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
                                   for label, keys in groups.items())
                 print(f"{variant} ({family}): worst relative norm error of {worst}", flush=True)

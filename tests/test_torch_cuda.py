@@ -201,6 +201,16 @@ def test_kernels_refuse_what_they_do_not_take(device):
         fe.fused_proj_attention(x, *proj, num_heads=1, compute_dtype=torch.float32)
     with pytest.raises(TypeError, match="compute dtype"):
         fe.fused_proj_attention(x[:, :8].bfloat16(), *proj, num_heads=1, compute_dtype=torch.float32)
+    ctx = torch.randn(2, 17, 32, device=device)
+    cross = (torch.randn(32, 32, device=device), torch.zeros(32, device=device),
+             torch.randn(32, 64, device=device), torch.zeros(64, device=device),
+             torch.randn(32, 32, device=device), torch.zeros(32, device=device), None)
+    with pytest.raises(ValueError, match="H in 64"):
+        fe.fused_cross_attention(ctx[:, :8], ctx, *cross, num_heads=4, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="T, S <= 64"):
+        fe.fused_cross_attention(x, torch.randn(2, 8, 64, device=device), w["wqkv"][:, :64],
+                                 w["bqkv"][:64], w["wqkv"][:, 64:], w["bqkv"][64:], w["wo"],
+                                 w["bo"], None, num_heads=1, compute_dtype=torch.float32)
     w96 = _weights(96, gen, device)
     with pytest.raises(ValueError, match="H in 64"):
         fe.fused_layer_tail(
@@ -234,7 +244,8 @@ def test_model_on_the_card_matches_the_plain_model(device):
         fe.reset_launches()
         got = model.to(device)({k: v.to(device) for k, v in batch.items()})["stlt"]
     assert fe.LAUNCHES == {"fused_proj_attention": 4, "fused_layer_tail": 4,
-                           "fused_proj_attention_train": 0, "fused_proj_attention_train_bwd": 0}
+                           "fused_proj_attention_train": 0, "fused_proj_attention_train_bwd": 0,
+                           "fused_cross_attention": 0}
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
@@ -315,6 +326,7 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
     flash.reset_launches()
     got = flash.fused_attention(q, k, v, bias)
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
+                              "blockwise_attention_dense": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     want = flash.fused_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
@@ -334,6 +346,7 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     flash.reset_launches()
     out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1,
+                              "blockwise_attention_dense": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     torch.cuda.synchronize()
@@ -350,8 +363,12 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
     gen = torch.Generator().manual_seed(0)
     q, k, v = _heads(2, 513, 513, torch.bfloat16, gen, device)
     lengths = torch.tensor([3, 513], device=device)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
-        flash.flash_attention(q, k, v, bias=torch.zeros(2, 1, 513, 513, device=device))
+    # The dense-bias forward runs (its kernel is held against its plain
+    # version in test_blockwise_dense_bias_kernel_matches_plain); its
+    # backward is refused below.
+    flash.reset_launches()
+    out = flash.flash_attention(q, k, v, bias=torch.zeros(2, 1, 513, 513, device=device))
+    assert torch.isfinite(out.float()).all() and flash.LAUNCHES["blockwise_attention_dense"] == 1
     mask = torch.ones(2, 12, 100, 100, device=device)
     with pytest.raises(NotImplementedError, match="dropout-mask operand"):
         flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask, dropout_rate=0.1)
@@ -525,6 +542,7 @@ def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
     flash.reset_launches()
     mha.train()(x, seed=3).sum().backward()
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
+                              "blockwise_attention_dense": 0,
                               "flash_attention_bwd": 1, "blockwise_attention_bwd": 0}
     assert torch.isfinite(x.grad).all()
 
@@ -571,6 +589,7 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
     ])
     assert len(rows) == 6 and all(len(json.loads(line)["top_k"]) == 3 for line in open(out))
     assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0,
+                              "blockwise_attention_dense": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
 
@@ -611,9 +630,11 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
     steps, val = 2, 2
     assert result.step == steps and all(np.isfinite(r["train_loss"]) for r in result.epochs)
     assert flash.LAUNCHES == {"flash_attention": 2 * (steps + val), "blockwise_attention": 0,
+                              "blockwise_attention_dense": 0,
                               "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
-                           "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps}
+                           "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps,
+                           "fused_cross_attention": 0}
     # Every train tail of the 257-frame model (1 spatial + 2 temporal layers)
     # runs the fused train tail's four kernels.
     assert ftt.LAUNCHES == dict.fromkeys(ftt.LAUNCHES, 3 * steps)
@@ -702,3 +723,89 @@ def test_tail_train_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="H in 64"):
         ftt._launch_bwd_row(torch.randn(8, 96, device=device), torch.randn(8, 96, device=device),
                             w96["n2s"], cfg)
+
+
+# --- the fusion models' kernels: row 5 and row 8's dense-bias mode --------------
+
+# Their bf16 outputs in the relative norm, as chip_smoke.py holds them: the
+# elementwise bf16 bound is about as large as a typical cross-attention
+# output, so it cannot see a dropped bias; the limits sit between the sound
+# kernels' readings and planted faults' (``python -m
+# stlt_tpu_torch.utils.bwd_tolerance cross dense``; PERF.md, PR 6).
+CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+
+
+def _cross_weights(H, gen, device):
+    u = lambda *s, b: ((torch.rand(s, generator=gen) * 2 - 1) * b).to(device)
+    return (u(H, H, b=math.sqrt(1.5 / H)), u(H, b=0.05), u(H, 2 * H, b=math.sqrt(1.5 / H)),
+            u(2 * H, b=0.05), u(H, H, b=1 / math.sqrt(H)), u(H, b=0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,T,S,bias_kind", [
+    (768, 17, 33, "none"),
+    (768, 33, 17, "key_padding"),
+    (768, 8, 64, "key_padding"),
+    (768, 64, 8, "none"),
+    (64, 1, 1, "none"),
+    (128, 5, 40, "masked_row"),
+    (1024, 64, 64, "key_padding"),
+])
+def test_cross_attention_kernel_matches_plain(device, dtype, H, T, S, bias_kind):
+    gen = torch.Generator().manual_seed(H + T * S)
+    rows = 37
+    w = _cross_weights(H, gen, device)
+    x = torch.randn(rows, T, H, generator=gen).to(device, dtype)
+    ctx = torch.randn(rows, S, H, generator=gen).to(device, dtype)
+    bias = None
+    if bias_kind != "none":
+        pad = torch.rand(rows, S, generator=gen) < 0.3
+        pad[:, 0] = False
+        if bias_kind == "masked_row":
+            pad[0] = True  # every key of row 0 masked: a finite, uniform softmax
+        bias = masks.key_padding_bias(pad).to(device)  # [rows, 1, 1, S]
+    kw = dict(num_heads=H // 64, compute_dtype=dtype)
+    before = fe.LAUNCHES["fused_cross_attention"]
+    got = fe.fused_cross_attention(x, ctx, *w, bias, **kw)
+    assert fe.LAUNCHES["fused_cross_attention"] == before + 1
+    want = fe.fused_cross_attention_plain(x, ctx, *w, bias, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.bfloat16:
+        assert _rel(got, want) < CROSS_REL, _rel(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,bias_kind,causal", [
+    (513, 513, "causal_padding", True),
+    (513, 513, "causal_padding", False),
+    (513, 33, "none", False),
+    (33, 513, "key_padding", False),
+    (1025, 700, "heads", False),
+])
+def test_blockwise_dense_bias_kernel_matches_plain(device, dtype, T, S, bias_kind, causal):
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + S + causal)
+    B = 3
+    q, k, v = _heads(B, T, S, dtype, gen, device, strided=T == S)
+    if bias_kind == "causal_padding":
+        bias = _bias("causal_padding", B, T, gen).to(device)  # [B, 1, T, T]
+    elif bias_kind == "key_padding":
+        pad = torch.rand(B, S, generator=gen) < 0.3
+        pad[:, 0] = False
+        bias = masks.key_padding_bias(pad).to(device)  # [B, 1, 1, S]
+    elif bias_kind == "heads":
+        bias = torch.randn(1, 12, T, S, generator=gen).to(device)
+    else:
+        bias = None
+    flash.reset_launches()
+    out, lse = flash.blockwise_attention(q, k, v, bias=bias, causal=causal)
+    assert flash.LAUNCHES["blockwise_attention_dense"] == 1 and flash.LAUNCHES["blockwise_attention"] == 0
+    want, want_lse = flash.blockwise_attention_plain(q, k, v, bias=bias, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    if dtype == torch.bfloat16:
+        assert _rel(out, want) < DENSE_REL, _rel(out, want)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])

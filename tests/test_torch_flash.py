@@ -90,8 +90,9 @@ def test_lengths_below_513_take_the_dense_bias_like_jax():
 
 
 def test_dense_bias_blockwise_on_the_cpu_matches_jax():
-    """The dense-bias mode of the blockwise kernel is refused on the card;
-    its plain version computes every row like JAX's."""
+    """The dense-bias mode of the blockwise kernel (the card's kernel is held
+    against this plain version in tests/test_torch_cuda.py): its plain
+    version computes every row like JAX's."""
     T = 513
     q, k, v = _qkv(T, seed=9)
     bias = _causal_padding_bias(T, (513, 77))

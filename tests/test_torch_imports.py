@@ -1,5 +1,6 @@
 """The port stands alone: ``stlt_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``stlt_tpu``."""
+neither JAX nor anything of the JAX package ``stlt_tpu``; h5py and Pillow load
+only where the appearance data modules read frames."""
 
 import ast
 import os
@@ -64,3 +65,27 @@ def test_port_source_imports_no_jax_module(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_port_its_models_and_ops_loads_no_image_library():
+    """h5py and Pillow are imported lazily, where the appearance pipeline
+    reads frames: importing the package, its models (the appearance and
+    fusion models included), its ops, its data factories and its CLIs loads
+    neither."""
+    modules = ["stlt_tpu_torch", "stlt_tpu_torch.data", "stlt_tpu_torch.predict",
+               "stlt_tpu_torch.inference"] + [
+        m for m in _port_modules() if m.startswith(("stlt_tpu_torch.models", "stlt_tpu_torch.ops"))]
+    assert "stlt_tpu_torch.models.fusion" in modules and "stlt_tpu_torch.ops.fused_encoder" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('h5py', 'PIL'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout, proc.stdout

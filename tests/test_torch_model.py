@@ -46,7 +46,7 @@ from tests.test_stlt_parity import small_config
 
 # Every kernel wrapper's launch count: none runs on a CPU tensor.
 ALL_KERNELS = ("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
-               "fused_proj_attention_train_bwd")
+               "fused_proj_attention_train_bwd", "fused_cross_attention")
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 LOGITS_TOL = {
     "float32": dict(atol=2e-5, rtol=1e-5),

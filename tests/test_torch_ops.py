@@ -35,7 +35,7 @@ from stlt_tpu_torch.ops import masks as tmasks
 
 # Every kernel wrapper's launch count: none runs on a CPU tensor.
 ALL_KERNELS = ("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
-               "fused_proj_attention_train_bwd")
+               "fused_proj_attention_train_bwd", "fused_cross_attention")
 TOL = {
     "float32": dict(atol=1e-5, rtol=1e-5),
     "bfloat16": dict(atol=6e-2, rtol=2e-2),
