@@ -43,7 +43,14 @@ Phases, in order; any failure exits non-zero:
    causal+padding bias, with and without the causal flag), 513 x 33 (no
    bias) and 33 x 513 (key padding) at B = 16 and 32, out and lse, against
    ``scaled_dot_product_attention`` with the same mask; and the layer
-   tail's ReLU / eps 1e-5 variant (the appearance encoder) at T = 33;
+   tail's ReLU / eps 1e-5 variant (the appearance encoder) at T = 33; then
+   the fusion models' train-path attention: the short kernel's dropout
+   forward and its backward at the train cross-attention's (T, S) = (17,
+   33) and (33, 17), B = 32, and the blockwise kernels' dense-bias mode at
+   the same four cases as the forward's, B = 16 and 32, dropout 0 and 0.1:
+   the forward with dropout, and the backward against
+   ``attention_bwd_plain`` (two launches bit-identical), timed at B = 16
+   against the autograd backward of ``scaled_dot_product_attention``;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -98,7 +105,22 @@ Phases, in order; any failure exits non-zero:
    blockwise launches beside the 8 of the temporal encoder's lengths mode),
    and one batch's logits of every head are held against the plain path on
    the card, with the forward times and a ``torch.profiler`` breakdown;
-8. print the kernel table as one JSON line, then the result line.
+8. train random full-width bf16 CACNF (``bench.py::bench_cacnf_train_device``'s
+   config: dropout 0.1, AdamW lr 1e-4, wd 1e-3, clip 5.0, uint8 frames
+   normalised on the device) through ``train`` on fabricated JPEG frames at
+   16 layout frames (B = 32) and 512 (B = 16): two steps and one validation
+   batch each, finite losses and the launch counts asserted (per step at 16
+   frames 28 + 28 of the train op's kernels and 8 + 8 of the short kernel
+   and its backward; at 512 frames 16 + 16, 8 + 8 of the blockwise lengths
+   mode, 12 + 12 of its dense-bias mode and 12 of each fused train-tail
+   kernel); then from the trained weights one step kernels against plain
+   (at 512 frames also in f32), step times, peak memory and a profile by
+   kernel group; at 16 frames a
+   fine-tune of the saved backbone with ``--load_backbone_path
+   --freeze_backbone`` (the backbone on the eval kernels, rows 1, 2 and 5,
+   no backward kernel, bit-unchanged) and one train step each of
+   ``resnet3d-transformer``, LCF and CAF with their launch counts;
+9. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -158,6 +180,14 @@ points, same keep bits; the two differ only in the order of their sums):
   0.29; row 8 dense without the hi + lo split 1.8e-3 to 2.2e-3, its causal
   key range one key short 7.1e-3 (``python -m
   stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md, PR 6).
+- the blockwise backward's dense-bias mode (rows 9 and 10): dq, dk and dv
+  each within a relative Frobenius-norm error of DENSE_BWD_REL (1e-3) in
+  bf16 and BWD_REL (1e-5) in f32, the same OP_TOL elementwise as a guard.
+  Sound kernels read at most 1.3e-4 in bf16; without the hi + lo split
+  2.5e-3 to 2.7e-3, dsum left out 0.14 to 0.74, the dq kernel's causal key
+  range one key short 6.1e-3 to 7.2e-3 (flag cases), the dk/dv kernel's
+  bias read with its t and s strides swapped up to 80 (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance dense_bwd``, H100; PERF.md §6).
 - bf16 logits of the whole model (every head of the fusion models):
   atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
@@ -169,10 +199,23 @@ points, same keep bits; the two differ only in the order of their sums):
   tensor measured 8.2e-3 (H100), so 3e-2 leaves room for that rounding and
   still catches a backward fault confined to a few layers' attention
   weights, which the joined norm, led by the largest gradients, would hide.
+- the fusion train step (phase 8): the same limits, but each gradient of
+  the appearance branch (R3D trunk, projector, ReLU encoder) within 6e-2 in
+  bf16. Its gradients pass ReLU gates, and the two paths' bf16 roundings of
+  the encoder's pre-activations flip a few of them, each flip a whole
+  element of dh1: the appearance branch read 3.0e-2 to 3.5e-2 (linear1 of
+  the last encoder layers; the R3D layer1 convolutions below them), the
+  rest at most 1.1e-2 (H100; PERF.md §6). The same step in f32, where
+  rounding flips a gate only now and then, holds every tensor: loss atol
+  1e-5, each gradient within 1e-4 (sound 2.1e-6) and in the appearance
+  branch within 1e-3 (sound 1.0e-5 and 1.4e-4 in two runs: a few flipped
+  gates), joined within 3e-4 (sound 1.3e-6 and 2.7e-5), so a kernel fault
+  confined to a few tensors of any branch still shows.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -209,6 +252,13 @@ OP_TOL = {
 LOGITS_ATOL = 5e-2
 GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL = 5e-2, 5e-2, 3e-2
+# The fusion train step (phase 8), (loss atol, joined, each, each in the
+# appearance branch): in bf16 the appearance branch's gradients (the R3D
+# trunk, its projector, the ReLU encoder) each within
+# APPEARANCE_STEP_TENSOR_REL; the same step in f32 within FUSION_STEP_F32.
+APPEARANCE_STEP_TENSOR_REL = 6e-2
+FUSION_STEP_BF16 = (STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL, APPEARANCE_STEP_TENSOR_REL)
+FUSION_STEP_F32 = (1e-5, 3e-4, 1e-4, 1e-3)
 
 REPLACES = {
     "fused_proj_attention": "stlt_tpu/ops/fused_encoder.py:154",
@@ -228,11 +278,12 @@ REPLACES = {
     "fused_cross_attention": "stlt_tpu/ops/fused_encoder.py:1135",
     # The dense-bias mode of _blockwise_attn_kernel (_block_bias reading bias_arr).
     "blockwise_attention_dense": "stlt_tpu/ops/flash.py:397",
+    # The dense-bias mode of _blockwise_dq_kernel (:655) and
+    # _blockwise_dkdv_kernel (:745), one launch for both.
+    "blockwise_attention_bwd_dense": "stlt_tpu/ops/flash.py:655",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
-LONG_KERNELS = ("flash_attention", "blockwise_attention", "flash_attention_bwd",
-                "blockwise_attention_bwd")
 TAIL_KERNELS = ("fused_layer_tail_train", "fused_tail_train_bwd_row", "fused_tail_train_bwd_input",
                 "fused_tail_train_bwd_weight")
 FUSION_KERNELS = ("fused_cross_attention", "blockwise_attention_dense")
@@ -256,6 +307,9 @@ TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # bf16 outputs of the fused cross-attention and of the blockwise forward's
 # dense-bias mode, relative norm (f32: OP_TOL alone).
 CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+# dq, dk, dv of the blockwise backward's dense-bias mode in bf16, relative
+# norm (f32: BWD_REL): sound 1.3e-4, the smallest planted fault 2.5e-3.
+DENSE_BWD_REL = 1e-3
 # The fused train tail's main-path shapes (tokens): the spatial and the
 # temporal stage of a 256-frame step (B = 32: 32 x 257 x 8 and 32 x 257), and
 # the spatial stage of the 17-frame step at B = 512 (the gate keeps that one
@@ -782,11 +836,12 @@ def library_attention_bwd(q, k, v, mask, dout, rate):
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
 
-def _check_grads(label, got, want, dead, dtype):
+def _check_grads(label, got, want, dead, dtype, rel_tol=None):
     """dq, dk, dv of a backward kernel against the plain version: each
-    within BWD_REL[dtype] in relative norm, finite and within OP_TOL
-    elementwise, dq of dead query rows exact zeros. Returns the largest
-    elementwise error and the relative norm errors."""
+    within ``rel_tol`` (BWD_REL[dtype] by default) in relative norm, finite
+    and within OP_TOL elementwise, dq of dead query rows exact zeros.
+    Returns the largest elementwise error and the relative norm errors."""
+    rel_tol = BWD_REL[dtype] if rel_tol is None else rel_tol
     errs, rel = [], {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         live = torch.ones_like(a, dtype=torch.bool)
@@ -794,8 +849,8 @@ def _check_grads(label, got, want, dead, dtype):
             live = ~dead[:, :, None, None].expand(a.shape)
         errs.append(_check_close(f"{label} {name}", a, b, live, OP_TOL[dtype]))
         rel[name] = _rel(a, b)
-    if max(rel.values()) > BWD_REL[dtype]:
-        raise AssertionError(f"{label}: relative norm errors {rel} over {BWD_REL[dtype]}")
+    if max(rel.values()) > rel_tol:
+        raise AssertionError(f"{label}: relative norm errors {rel} over {rel_tol}")
     return max(errs), rel
 
 
@@ -1320,6 +1375,156 @@ def check_fusion_kernels(device):
     return table
 
 
+def dense_bwd_bound(q, k, bias, dtype):
+    """(ms, "bytes" | "operations") for the blockwise backward in dense-bias
+    mode: 10 * D flops per (query, key, head) whose bias lets the key through
+    (five products; chunks the causal skip drops are all masked), against q,
+    k, v, dO, lse, dsum and the bias read once and dq, dk, dv written once."""
+    B, T, N, D = q.shape
+    S = k.shape[1]
+    pairs = B * T * S if bias is None else float((bias > -1e8).expand(B, 1, T, S).sum())
+    flops = 10 * D * N * pairs
+    nbytes = (3 * B * T + 4 * B * S) * N * D * q.element_size()  # q, dO, dq; k, v, dk, dv
+    nbytes += 2 * B * N * T * 4 + (0 if bias is None else bias.numel() * 4)
+    return _bound(flops, nbytes, dtype)
+
+
+def _dense_bias(kind, lengths, T, S, device):
+    """The fusion layers' dense biases at 512 layout frames: the layout
+    self-attention's causal+padding [B, 1, T, T], the appearance <- layout
+    key padding [B, 1, 1, S], or none (layout <- appearance)."""
+    from stlt_tpu_torch.ops import masks
+
+    if kind == "causal_padding":
+        return _causal_padding_bias(lengths, T, device)
+    if kind == "key_padding":
+        return masks.key_padding_bias(torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+    return None
+
+
+# (T, S) of the train cross-attention on the short kernels: 17 layout tokens
+# against 33 appearance tokens and back.
+SHORT_CROSS_SHAPES = ((17, 33), (33, 17))
+
+
+def check_fusion_train_kernels(device):
+    """The fusion models' train-path attention kernels against their plain
+    versions, bf16 and f32: the short kernel's forward (with dropout and
+    lse) and backward at the train cross-attention's (T, S) = (17, 33) and
+    (33, 17), B = 32; the blockwise kernels' dense-bias mode at DENSE_CASES,
+    B = 16 and 32, dropout 0 and 0.1: the forward with dropout (f32 within
+    FWD_DROP_TOL, which needs equal keep bits) and lse, the backward against
+    ``attention_bwd_plain`` within DENSE_BWD_REL (bf16) or BWD_REL (f32),
+    two launches bit-identical. Then the dense backward timed at each of
+    DENSE_CASES at B = 16 with dropout 0.1 (training's), against its plain
+    version, the autograd backward of ``scaled_dot_product_attention`` with
+    the same mask and its bound. Returns the bf16 row of the kernel table:
+    513 x 513 without the causal flag (the fusion layout self-attention)."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import masks
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    seed = 0xF05EF05E
+    table = {}
+    D = H // HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        fwd_tol = FWD_DROP_TOL if dtype == torch.float32 else OP_TOL[dtype]
+        rel_tol = DENSE_BWD_REL if dtype == torch.bfloat16 else BWD_REL[dtype]
+        clips = FUSION_TRAIN[16][0]
+        for T, S in SHORT_CROSS_SHAPES:
+            for rate in (0.0, DROPOUT):
+                q, k, v, dout = (torch.randn((clips, L, HEADS, D), generator=gen).to(device, dtype)
+                                 for L in (T, S, S, T))
+                lengths = torch.randint(1, S + 1, (clips,), generator=gen)
+                bias = masks.key_padding_bias(torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+                kw = dict(dropout_rate=rate, dropout_seed=seed if rate else None)
+                out, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+                want, want_lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
+                dsum = flash._dsum(dout, out, None)
+                run = lambda: flash.fused_attention_bwd(q, k, v, dout, lse, dsum, bias, **kw)
+                got, again = run(), run()
+                want_grads = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, **kw)
+                torch.cuda.synchronize()
+                label = f"flash_attention cross {dtype} B={clips} {T}<-{S} rate={rate}"
+                everything = torch.ones_like(out, dtype=torch.bool)
+                err = _check_close(label, out, want, everything, fwd_tol)
+                lse_err = _check_close(f"{label} lse", lse, want_lse, torch.ones_like(lse, dtype=torch.bool),
+                                       OP_TOL[torch.float32])
+                gerr, rel = _check_grads(f"flash_attention_bwd cross {dtype} B={clips} {T}<-{S} "
+                                         f"rate={rate}", got, want_grads, None, dtype)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: two backward launches differ")
+                log(f"kernel_check {label}: max_abs_err out {err:.3e}, lse {lse_err:.3e}; backward "
+                    f"max_abs_err {gerr:.3e}, relative norm errors {json.dumps(rel)}, bit-identical")
+                del q, k, v, dout, out, lse, want, want_lse, dsum, got, again, want_grads
+        for clips in DENSE_BATCHES:
+            for T, S, kind, causal in DENSE_CASES:
+                for rate in (0.0, DROPOUT):
+                    q, k, v, dout = (torch.randn((clips, L, HEADS, D), generator=gen).to(device, dtype)
+                                     for L in (T, S, S, T))
+                    lengths = torch.randint(1, S + 1, (clips,), generator=gen)
+                    lengths[0] = S
+                    bias = _dense_bias(kind, lengths, T, S, device)
+                    kw = dict(bias=bias, causal=causal, dropout_rate=rate,
+                              dropout_seed=seed if rate else None)
+                    out, lse = flash.blockwise_attention(q, k, v, **kw)
+                    want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+                    dsum = flash._dsum(dout, out, None)
+                    run = lambda: flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+                    got, again = run(), run()
+                    want_grads = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+                    torch.cuda.synchronize()
+                    label = (f"blockwise_attention_bwd_dense {dtype} B={clips} {T}x{S} {kind}"
+                             f"{' causal' if causal else ''} rate={rate}")
+                    everything = torch.ones_like(out, dtype=torch.bool)
+                    err = _check_close(f"{label} forward", out, want, everything, fwd_tol)
+                    lse_err = _check_close(f"{label} lse", lse, want_lse,
+                                           torch.ones_like(lse, dtype=torch.bool), OP_TOL[torch.float32])
+                    gerr, rel = _check_grads(label, got, want_grads, None, dtype, rel_tol)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{label}: two launches differ")
+                    log(f"kernel_check {label}: forward max_abs_err {err:.3e} (atol {fwd_tol['atol']}), "
+                        f"lse {lse_err:.3e}; backward max_abs_err {gerr:.3e}, relative norm errors "
+                        f"{json.dumps(rel)} (limit {rel_tol}), no NaN, two launches bit-identical")
+                    del q, k, v, dout, out, lse, want, want_lse, dsum, got, again, want_grads, bias
+        torch.cuda.empty_cache()
+
+        # Timing at the fusion train step's shapes (B = 16, dropout 0.1).
+        clips = DENSE_BATCHES[0]
+        for T, S, kind, causal in DENSE_CASES:
+            q, k, v, dout = (torch.randn((clips, L, HEADS, D), generator=gen).to(device, dtype)
+                             for L in (T, S, S, T))
+            lengths = torch.randint(1, S + 1, (clips,), generator=gen)
+            lengths[0] = S
+            bias = _dense_bias(kind, lengths, T, S, device)
+            kw = dict(bias=bias, causal=causal, dropout_rate=DROPOUT, dropout_seed=seed)
+            out, lse = flash.blockwise_attention(q, k, v, **kw)
+            dsum = flash._dsum(dout, out, None)
+            run = lambda: flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+            plain = lambda: flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            label = f"blockwise_attention_bwd_dense {dtype} B={clips} {T}x{S} {kind}"
+            err, rel = _check_grads(label, got, want, None, dtype, rel_tol)
+            mask = None if bias is None else bias.to(dtype)
+            bound = dense_bwd_bound(q, k, bias, dtype)
+            row = {
+                "name": "blockwise_attention_bwd_dense", "stage": "fusion",
+                "dtype": str(dtype).split(".")[1], "clips": clips, "T": T, "S": S, "bias": kind,
+                "causal": causal, "rate": DROPOUT, "max_abs_err": err, "rel_err": rel,
+                "tol": OP_TOL[dtype], "rel_tol": rel_tol, "ms": cuda_ms(run, 10),
+                "plain_ms": cuda_ms(plain, 3),
+                "library_ms": cuda_ms(library_attention_bwd(q, k, v, mask, dout, DROPOUT), 10),
+                "bound_ms": bound[0], "bound_by": bound[1],
+            }
+            log("kernel_check " + json.dumps(row))
+            if (dtype, T, S, kind, causal) == (torch.bfloat16, 513, 513, "causal_padding", False):
+                table["blockwise_attention_bwd_dense"] = row
+            del q, k, v, dout, out, lse, dsum, got, want, bias, mask
+            torch.cuda.empty_cache()
+    return table
+
+
 # --- phase 3: the main path through the prediction entry point ----------------
 
 
@@ -1416,7 +1621,7 @@ def run_main_path(device):
             if len(scores) != 5 or not all(math.isfinite(s) and 0 <= s <= 1 for s in scores):
                 raise AssertionError(f"bad scores in {row}")
         want = (SPATIAL_LAYERS + TEMPORAL_LAYERS) * NUM_BATCHES
-        if any(launches[name] for name in TRAIN_KERNELS + LONG_KERNELS + TAIL_KERNELS + FUSION_KERNELS):
+        if any(count for name, count in launches.items() if name not in EVAL_KERNELS):
             raise AssertionError(f"predict launched a train or long-clip kernel: {launches}")
         for name in EVAL_KERNELS:
             if launches[name] != want:
@@ -1519,29 +1724,45 @@ def _one_step(model, batch, criterion):
                            if p.grad is not None}
 
 
-def _step_kernels_vs_plain(label, model, batch, criterion) -> None:
+def _step_kernels_vs_plain(label, model, batch, criterion, limits=None) -> None:
     """One step from the same weights, batch and seeds through the kernels
     and through the plain path on the card: loss within STEP_LOSS_ATOL, each
     gradient within STEP_TENSOR_REL and all of them joined within
-    STEP_GRAD_REL in relative norm."""
-    loss_k, grads_k = _one_step(model, batch, criterion)
-    with plain_kernels():
-        loss_p, grads_p = _one_step(model, batch, criterion)
+    STEP_GRAD_REL in relative norm. ``limits`` (loss atol, joined, each, each
+    in the appearance branch) replaces them (phase 8)."""
+    loss_atol, joined, each, each_appearance = limits or (
+        STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL, STEP_TENSOR_REL)
+    # The same cuDNN algorithms in both passes (the R3D convolutions), so the
+    # two differ by the kernels alone.
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        loss_k, grads_k = _one_step(model, batch, criterion)
+        with plain_kernels():
+            loss_p, grads_p = _one_step(model, batch, criterion)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
     flat_k = torch.cat([grads_k[n].float().flatten() for n in grads_p])
     flat_p = torch.cat([grads_p[n].float().flatten() for n in grads_p])
     rel = _rel(flat_k, flat_p)
     per_tensor = {n: _rel(grads_k[n], grads_p[n]) for n in grads_p}
-    worst = max(per_tensor, key=per_tensor.get)
-    over = {n: e for n, e in per_tensor.items() if e > STEP_TENSOR_REL}
+    limit = {n: each_appearance if "appearance_branch." in n else each for n in per_tensor}
+    over = {n: e for n, e in per_tensor.items() if e > limit[n]}
+    for group, names in (("appearance branch", [n for n in per_tensor if "appearance_branch." in n]),
+                         ("the rest", [n for n in per_tensor if "appearance_branch." not in n])):
+        worst = sorted(names, key=per_tensor.get, reverse=True)[:4]
+        if worst:
+            log(f"{label}, kernels vs plain, {group}: worst tensors "
+                + ", ".join(f"{n} {per_tensor[n]:.3e}" for n in worst)
+                + f" (tolerance {limit[worst[0]]} each)")
     log(f"{label}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
-        f"(atol {STEP_LOSS_ATOL}); gradient relative norm error {rel:.3e} "
-        f"(tolerance {STEP_GRAD_REL}) over {len(grads_p)} tensors, worst tensor "
-        f"{worst} {per_tensor[worst]:.3e} (tolerance {STEP_TENSOR_REL} each)")
-    if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > STEP_LOSS_ATOL:
+        f"(atol {loss_atol}); gradient relative norm error {rel:.3e} "
+        f"(tolerance {joined}) over {len(grads_p)} tensors")
+    if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > loss_atol:
         raise AssertionError(f"{label}: kernel path disagrees with the plain path (loss)")
-    if not torch.isfinite(flat_k).all() or rel > STEP_GRAD_REL or over:
+    if not torch.isfinite(flat_k).all() or rel > joined or over:
         raise AssertionError(f"{label}: kernel path disagrees with the plain path "
-                             f"(grads; joined {rel:.3e}, tensors over {STEP_TENSOR_REL}: {over})")
+                             f"(grads; joined {rel:.3e}, tensors over their limit: {over})")
 
 
 def _train_step(model, criterion):
@@ -1687,9 +1908,9 @@ def run_train_path(device):
         if not any(r["is_best"] for r in records):
             raise AssertionError(f"train: no epoch saved a best checkpoint: {records}")
         layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
-        want = {name: layers * steps_taken for name in TRAIN_KERNELS}
+        want = dict.fromkeys(launches, 0)  # 17 frames: the plain tail, no long-clip kernel
+        want.update({name: layers * steps_taken for name in TRAIN_KERNELS})
         want.update({name: layers * val_batches * TRAIN_EPOCHS for name in EVAL_KERNELS})
-        want.update(dict.fromkeys(LONG_KERNELS + TAIL_KERNELS + FUSION_KERNELS, 0))  # 17 frames: the plain tail
         if launches != want:
             raise AssertionError(f"train: launches {launches}, expected {want} (12 layers per "
                                  f"train step for each train kernel, per validation batch for "
@@ -2151,9 +2372,7 @@ def fusion_launches(name: str, frames: int) -> dict:
     appearance "ffn" (a self-attention, T = 33) and the shared
     cross-attention in both directions."""
     fusion = 0 if name == "lcf" else FUSION_LAYERS
-    counts = dict.fromkeys(("fused_proj_attention", "fused_layer_tail", "fused_proj_attention_train",
-                            "fused_proj_attention_train_bwd") + LONG_KERNELS + TAIL_KERNELS
-                           + FUSION_KERNELS, 0)
+    counts = dict.fromkeys(all_launches(), 0)
     counts["fused_layer_tail"] = SPATIAL_LAYERS + TEMPORAL_LAYERS + APPEARANCE_LAYERS
     if frames < _BLOCKWISE_FRAMES:
         counts["fused_proj_attention"] = SPATIAL_LAYERS + TEMPORAL_LAYERS + APPEARANCE_LAYERS + 3 * fusion
@@ -2289,6 +2508,244 @@ def run_fusion_path(device):
     return launches
 
 
+# --- phase 8: the fusion models through the train entry point ---------------
+
+
+# --layout_num_frames -> (batch, the clips' frame counts): bench.py::
+# bench_cacnf_train_device's 17 layout tokens at B = 32, and 512 frames (513
+# tokens) at B = 16, clips of 32-256 frames, which the train sampler
+# stretches over every slot.
+FUSION_TRAIN = {16: (32, (3, 25)), 512: (16, (32, 257))}
+FUSION_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
+# (group, substrings of the device kernel's name) of a fusion train step: the
+# cuDNN group (forward, data and weight gradients) comes before the cuBLAS
+# one, whose "xmma" would catch its names.
+FUSION_TRAIN_GROUPS = (
+    TRAIN_TAIL_GROUP,
+    ("attention forward kernel", ("fused_proj_attn",)),
+    ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
+    ("attention core forward kernel (short and blockwise)", ("attention_kernel<",)),
+    ("attention core backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
+    ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "implicit_gemm",
+                            "conv2d", "conv3d")),
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+)
+
+
+def fusion_train_launches(name: str, frames: int) -> dict:
+    """Each kernel's launches in one train step of ``name`` at ``frames``
+    layout frames: the train op's forward and backward in every self-
+    attention of up to 64 tokens (4 spatial, 8 temporal below 512 frames,
+    4 appearance layers, and per fusion layer the layout self-attention below
+    512 frames, the appearance self-attention and "ffn"); the shared cross-
+    attention's two directions on the short kernel and its backward (17 <-
+    33, 33 <- 17) or, at 512 frames, with the layout self-attention on the
+    blockwise kernel's dense-bias mode forward and backward; the temporal
+    encoder at 512 frames on its lengths mode; and from 256 frames the fused
+    train tail's four kernels in the layout branch's 12 layers."""
+    fusion = FUSION_LAYERS if name in ("caf", "cacnf") else 0
+    layout = 0 if name.startswith("resnet3d") else 1
+    counts = dict.fromkeys(fusion_launches("cacnf", frames), 0)
+    if frames < _BLOCKWISE_FRAMES:
+        proj = layout * (SPATIAL_LAYERS + TEMPORAL_LAYERS) + APPEARANCE_LAYERS + 3 * fusion
+        counts.update(flash_attention=2 * fusion, flash_attention_bwd=2 * fusion)
+    else:
+        proj = layout * SPATIAL_LAYERS + APPEARANCE_LAYERS + 2 * fusion
+        counts.update(blockwise_attention=layout * TEMPORAL_LAYERS,
+                      blockwise_attention_bwd=layout * TEMPORAL_LAYERS,
+                      blockwise_attention_dense=3 * fusion, blockwise_attention_bwd_dense=3 * fusion)
+        counts.update(dict.fromkeys(TAIL_KERNELS, layout * (SPATIAL_LAYERS + TEMPORAL_LAYERS)))
+    counts.update(fused_proj_attention_train=proj, fused_proj_attention_train_bwd=proj)
+    return counts
+
+
+def _scaled(counts: dict, factor: int) -> dict:
+    return {k: v * factor for k, v in counts.items()}
+
+
+def _added(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _fusion_train_argv(name, split, paths, videos, frames, clips, root, *extra):
+    return [
+        "--dataset_name", "something", "--dataset_type", "multimodal", "--model_name", name,
+        "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
+        "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+        "--videos_path", videos, "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+        "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+        "--num_appearance_layers", str(APPEARANCE_LAYERS), "--num_fusion_layers", str(FUSION_LAYERS),
+        "--resnet_depth", str(FUSION_MODEL["resnet_depth"]),
+        "--appearance_num_frames", str(APPEARANCE_FRAMES), "--layout_num_frames", str(frames),
+        "--batch_size", str(clips), "--epochs", "1", "--learning_rate", "1e-4",
+        "--weight_decay", "1e-3", "--clip_val", "5.0", "--hidden_dropout_prob", str(DROPOUT),
+        "--compute_dtype", "bfloat16", "--use_pallas", "--device_normalize", "--num_workers", "8",
+        "--seed", str(SEED), "--save_model_path", os.path.join(root, f"{name}_best.pt"), *extra,
+    ]
+
+
+def _run_train_cli(label, argv, want) -> object:
+    """``python -m stlt_tpu_torch.train``'s entry point on ``argv``: finite
+    losses and the launch counts ``want`` asserted. Returns its result."""
+    from stlt_tpu_torch import train as port_train
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    result = port_train.main(argv)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    log(f"{label}: {result.step} steps in {time.perf_counter() - t0:.3f} s (data, model set-up "
+        f"and validation included); launches {counts}")
+    for record in result.epochs:
+        log("train_epoch " + json.dumps(record))
+    if not result.epochs or not all(math.isfinite(r["train_loss"]) for r in result.epochs):
+        raise AssertionError(f"{label}: bad epoch records {result.epochs}")
+    want = {k: want.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return result
+
+
+def run_fusion_train_path(device):
+    """Train random full-width bf16 CACNF (bench_cacnf_train_device's config:
+    dropout 0.1, AdamW lr 1e-4, wd 1e-3, clip 5.0, uint8 frames normalised on
+    the device) through ``train`` on fabricated JPEG frames, at 16 layout
+    frames (B = 32) and at 512 (B = 16): one epoch of FUSION_TRAIN_STEPS
+    steps and one validation batch each, finite losses and the launch counts
+    (``fusion_train_launches`` per step, ``fusion_launches`` per validation
+    forward) asserted. Then, from the trained weights, one step kernels
+    against plain (the train step's limits), the step times and peak memory
+    of both paths and a profile of one kernel-path step. At 16 frames also:
+    a fine-tune of the saved backbone with ``--load_backbone_path
+    --freeze_backbone`` (one step: the backbone takes the eval kernels, rows
+    1, 2 and 5, and no backward kernel runs; it ends bit-unchanged), and one
+    train step each of ``resnet3d-transformer``, LCF and CAF with their
+    launch counts. Returns the dense-bias backward's launches in the
+    512-frame run and the step times."""
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import step_generator
+    from stlt_tpu_torch.utils.convert import read_state_dict
+
+    launches, step_ms = {}, {}
+    criterion = make_criterion("something")
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_fusion_train_") as root, \
+            frames_directory_videos():
+        for frames, (clips, frames_range) in FUSION_TRAIN.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            train_clips = clips * FUSION_TRAIN_STEPS
+            paths = write_something_dataset(sub, train_clips + clips, SEED + 20 + frames,
+                                            num_used=TRAIN_LABELS, frames_range=frames_range)
+            split = _split_dataset(paths, sub, train_clips)
+            with open(paths["dataset"]) as f:
+                videos = write_video_frames(os.path.join(sub, "frames"), [c["id"] for c in json.load(f)],
+                                            SEED + 20 + frames)
+            backbone = os.path.join(sub, "backbone.pt")
+            label = f"train cacnf {frames} frames, B = {clips}"
+            want = _added(_scaled(fusion_train_launches("cacnf", frames), FUSION_TRAIN_STEPS),
+                          fusion_launches("cacnf", frames))
+            argv = _fusion_train_argv("cacnf", split, paths, videos, frames, clips, sub,
+                                      "--save_backbone_path", backbone)
+            result = _run_train_cli(label, argv, want)
+            if result.step != FUSION_TRAIN_STEPS:
+                raise AssertionError(f"{label}: {result.step} steps")
+            if frames == _BLOCKWISE_FRAMES:
+                launches["blockwise_attention_bwd_dense"] = (
+                    FUSION_TRAIN_STEPS * fusion_train_launches("cacnf", frames)["blockwise_attention_bwd_dense"])
+            model = result.model
+            del result
+
+            # One step from the trained weights, kernels against plain; times; profile.
+            data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
+                                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                                  videos_path=videos, layout_num_frames=frames,
+                                  appearance_num_frames=APPEARANCE_FRAMES, device_normalize=True,
+                                  train=True)
+            loader = Loader(datasets_factory["multimodal"](data_cfg), clips,
+                            collaters_factory["multimodal"](data_cfg), prefetch=0, workers=8)
+            batch = next(iter(to_device(loader, device)))
+            name = f"train step cacnf {frames} frames, B = {clips}"
+            model.train()
+            _step_kernels_vs_plain(name, model, batch, criterion, FUSION_STEP_BF16)
+            if frames == _BLOCKWISE_FRAMES:
+                # The same step in f32 from the same weights: every kernel's
+                # f32 variant, where no rounding flips a ReLU gate of the
+                # appearance branch.
+                f32_model = models_factory["cacnf"](
+                    dataclasses.replace(model.config, compute_dtype="float32"))
+                f32_model.load_state_dict(model.state_dict())
+                for p32, p in zip(f32_model.parameters(), model.parameters()):
+                    p32.requires_grad_(p.requires_grad)  # the frozen BN parameters
+                _step_kernels_vs_plain(f"{name}, f32", f32_model.to(device).train(), batch, criterion,
+                                       FUSION_STEP_F32)
+                del f32_model
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _step_ms(model, batch, criterion, steps=3)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with plain_kernels():
+                plain_ms = _step_ms(model, batch, criterion, steps=3)
+            plain_peak = torch.cuda.max_memory_allocated()
+            step_ms[frames] = {"ms": ms, "plain_ms": plain_ms, "peak_bytes": peak,
+                               "plain_peak_bytes": plain_peak}
+            log(f"{name} (full width, bf16, dropout {DROPOUT}): kernels {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms; peak memory kernels {peak / 2**30:.3f} GiB, "
+                f"plain {plain_peak / 2**30:.3f} GiB")
+            step = _train_step(model, criterion)
+            step(batch, step_generator(SEED, 0))
+            _device_profile("fusion_train_step", lambda: step(batch, step_generator(SEED, 1)),
+                            FUSION_TRAIN_GROUPS, model="cacnf", clips=clips, frames=frames)
+            del model, step
+            torch.cuda.empty_cache()
+            if frames == _BLOCKWISE_FRAMES:
+                continue
+
+            # A frozen backbone: the eval kernels in the step, no backward kernel.
+            one_step = dict(split, train=os.path.join(sub, "train_one_batch.json"))
+            with open(split["train"]) as f:
+                first = json.load(f)[:clips]
+            with open(one_step["train"], "w") as f:
+                json.dump(first, f)
+            label = f"train cacnf {frames} frames, B = {clips}, frozen backbone"
+            tuned = _run_train_cli(
+                label, _fusion_train_argv("cacnf", one_step, paths, videos, frames, clips, sub,
+                                          "--load_backbone_path", backbone, "--freeze_backbone"),
+                _scaled(fusion_launches("cacnf", frames), 2))
+            loaded = read_state_dict(backbone)
+            for key, value in tuned.model.backbone.state_dict().items():
+                if not torch.equal(value.cpu(), loaded[key]):
+                    raise AssertionError(f"{label}: backbone parameter {key} moved")
+            log(f"{label}: the backbone ran the eval kernels only (rows 1, 2, 5) and is "
+                "bit-unchanged after the step")
+            del tuned
+
+            # One train step of each other multimodal model, random weights.
+            for other in ("resnet3d-transformer", "lcf", "caf"):
+                cfg = make_model_config(other, **dict(FUSION_MODEL, hidden_dropout_prob=DROPOUT),
+                                        layout_num_frames=position_table_rows(data_cfg))
+                model = models_factory[other](cfg, torch.Generator().manual_seed(SEED + 9))
+                model = model.to(device).train()
+                reset_all_launches()
+                loss, norm = _train_step(model, criterion)(batch, step_generator(SEED, 0))
+                torch.cuda.synchronize()
+                counts = all_launches()
+                want = fusion_train_launches(other, frames)
+                want = {k: want.get(k, 0) for k in counts}
+                log(f"train step {other} {frames} frames, B = {clips}: loss {loss.item():.6f}, "
+                    f"gradient norm {norm.item():.4f}; launches {counts}")
+                if not math.isfinite(loss.item()) or counts != want:
+                    raise AssertionError(f"train step {other}: loss {loss.item()}, launches {counts}, "
+                                         f"expected {want}")
+                del model
+                torch.cuda.empty_cache()
+    return launches, step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -2316,6 +2773,7 @@ def main() -> int:
     table.update(check_long_train_kernels(device))
     table.update(check_tail_train_kernels(device))
     table.update(check_fusion_kernels(device))
+    table.update(check_fusion_train_kernels(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
@@ -2323,7 +2781,12 @@ def main() -> int:
     # Long-clip training: the attention backwards and the fused train tail.
     launches.update(run_long_train_path(device)[0])
     launches.update(run_fusion_path(device))  # the fusion models: row 5 and row 8's dense mode
+    # Fusion training: the dense-bias mode of the blockwise backward (rows 9, 10).
+    launches.update(run_fusion_train_path(device)[0])
 
+    idle = [name for name in REPLACES if not launches[name]]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     kernels = []
     for name in REPLACES:
         row = table[name]

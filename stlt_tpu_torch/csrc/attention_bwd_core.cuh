@@ -23,9 +23,13 @@
 //
 // Both take the two modes of the forward (kLengths): the bias mode (the TPU
 // kernel _fused_bwd_kernel, which recomputes the whole softmax where this one
-// reads lse: the same function) and the lengths mode (the TPU kernels
-// _blockwise_dq_kernel and _blockwise_dkdv_kernel), where key chunks past the
-// clip's length or above the diagonal and dead query tiles are skipped.
+// reads lse: the same function; and, behind the blockwise entry point, the
+// dense-bias mode of _blockwise_dq_kernel and _blockwise_dkdv_kernel, where a
+// bias declared causal skips the key chunks and query tiles wholly above the
+// diagonal, as _causal_live does) and the lengths mode (the same two TPU
+// kernels with lengths_bias), where key chunks past the clip's length or
+// above the diagonal and dead query tiles are skipped. T and S are free in
+// both (33 queries against 513 keys and back in the fusion models).
 //
 // Dead rows. The lengths-mode forward writes query rows t >= lengths[b] as
 // constants (zeros, lse 0). Their p is taken as 0 and their dO as 0 (dO tiles
@@ -127,6 +131,9 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
   const int T = p.T, S = p.S, N = p.N;
   E* __restrict__ dq = static_cast<E*>(p.dq);
   int kend = S, qlim = T;  // keys >= kend and queries >= qlim carry nothing
+  // Dense bias declared causal: keys above the tile's last diagonal are
+  // masked by the bias, so their chunks are never loaded (_causal_live).
+  if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));
   if (kLengths) {
     const int len = p.lengths[b];
     kend = min(S, len);
@@ -224,11 +231,13 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
   E* __restrict__ dk = static_cast<E*>(p.dk);
   E* __restrict__ dv = static_cast<E*>(p.dv);
   int kend = S, qlim = T, tile0 = 0;
+  // With causal (either mode) query tiles before the chunk's first key lie
+  // wholly above the diagonal: masked, so never loaded (_causal_live).
+  if (p.causal) tile0 = k0 / kBQ;
   if (kLengths) {
     const int len = p.lengths[b];
     kend = min(S, len);
     qlim = min(T, len);
-    if (p.causal) tile0 = k0 / kBQ;  // earlier query tiles lie wholly above the diagonal
     if (k0 >= kend) {  // no live key in the chunk: dk and dv are zero
       zero_rows(dk, b, k0, min(kBK, S - k0), S, N, n);
       zero_rows(dv, b, k0, min(kBK, S - k0), S, N, n);

@@ -1,4 +1,5 @@
-"""Appearance branch, eval: frozen-BN R3D features and a transformer head.
+"""Appearance branch, eval and train: frozen-BN R3D features and a
+transformer head.
 
 Port of ``stlt_tpu/models/appearance.py`` (reference
 ``src/modelling/models.py:198-283``):
@@ -21,9 +22,18 @@ hardcoded ``Linear(2048, C)`` and, inside the fusion models,
 checkpoint.
 
 The encoder runs on the card as every encoder of the port does (T = S + 1 =
-33 at 32 frames of 112 px): two fused ops a layer, the layer tail with the
-ReLU activation (code 0). Eval only: training the appearance branch waits for
-``ROADMAP.md`` item A7 (train).
+33 at 32 frames of 112 px): in eval two fused ops a layer, the layer tail
+with the ReLU activation (code 0); in train (``model.train()``, JAX's
+``deterministic=False``) the attention through ``fused_proj_attention_train``
+(its forward and backward kernels, hashed probability dropout) and the plain
+train tail with hashed dropout, since JAX passes this encoder no
+``clip_frames`` (``stlt_tpu/models/appearance.py:115-126``). Each layer's
+two dropout seeds come from the ``torch.Generator`` given to ``forward``,
+in forward order, as the STLT layers draw theirs. The R3D trunk has no
+dropout and its ``FrozenBatchNorm`` stays an affine map of frozen
+statistics in train mode; its convolutions and their backwards run on
+cuDNN, as JAX leaves them to XLA. ``TransformerResnet.no_weight_decay``
+names ``pos_embed`` and ``cls_token`` for the optimizer, as JAX's does.
 """
 
 from __future__ import annotations
@@ -53,14 +63,6 @@ def _dtype(cfg) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
 
 
-def refuse_train(module: nn.Module, item: str) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} runs in eval mode only: training it waits for "
-            f"ROADMAP.md item {item}"
-        )
-
-
 class Resnet3D(nn.Module):
     """R3D feature extractor, plus avgpool and a classifier when called.
     ``classifier_features`` sizes the classifier's input (the trunk's
@@ -88,7 +90,6 @@ class Resnet3D(nn.Module):
         return self.resnet(frames.permute(0, 4, 1, 2, 3).to(self.dtype))
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        refuse_train(self, "A7 (train)")
         pooled = self.forward_features(batch).mean(dim=(2, 3, 4))  # AdaptiveAvgPool3d(1)
         return {"resnet3d": apply_dense(pooled, self.classifier, self.dtype).to(torch.float32)}
 
@@ -118,8 +119,14 @@ class TransformerResnet(nn.Module):
         self.classifier = nn.Linear(H, config.num_classes)
         init_linear_(self.classifier, generator)
 
-    def forward_features(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """[B, S + 1, H]: the encoded CLS and appearance tokens."""
+    @staticmethod
+    def no_weight_decay():
+        return {"pos_embed", "cls_token"}
+
+    def forward_features(self, batch: Dict[str, torch.Tensor],
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, S + 1, H]: the encoded CLS and appearance tokens; in train
+        mode with dropout the encoder's seeds come from ``generator``."""
         cfg, dt = self.config, self.dtype
         feats = self.resnet.forward_features(batch)
         # The 1x1x1 projector, its bias added in the compute dtype as flax's
@@ -136,9 +143,8 @@ class TransformerResnet(nn.Module):
             )
         tokens = torch.cat([self.cls_token.to(dt).expand(B, 1, H), tokens], dim=1)
         tokens = tokens + self.pos_embed[:, 0, :][None].to(dt)
-        return self.transformer(tokens)
+        return self.transformer(tokens, generator=generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        refuse_train(self, "A7 (train)")
-        cls_state = self.forward_features(batch)[:, 0, :]
+        cls_state = self.forward_features(batch, generator)[:, 0, :]
         return {"resnet3d": apply_dense(cls_state, self.classifier, self.dtype).to(torch.float32)}

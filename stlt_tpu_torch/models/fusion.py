@@ -1,4 +1,4 @@
-"""Multimodal fusion models, eval: LCF, CAF and CACNF.
+"""Multimodal fusion models, eval and train: LCF, CAF and CACNF.
 
 Port of ``stlt_tpu/models/fusion.py`` (reference ``src/modelling/models.py:
 286-549``): ``FusionHead`` (:40), ``FeedforwardModule`` (:56),
@@ -10,37 +10,56 @@ the released checkpoints hold them:
 
 - ``CrossModalModule`` runs ONE shared ``cross_attn`` in both directions
   (layout <- appearance, then appearance <- layout), with the layout padding
-  bias only in the second direction;
+  bias only in the second direction; in training each call draws its own
+  seeds and autograd sums the two uses' gradients;
 - ``appearance_ffn`` is a ``SelfAttentionLayer``, not a feed-forward module;
 - the fusion masks come from the layout frame axis after the frame-capacity
   cut (``apply_frame_capacity``), the same axis the layout branch returns;
 - CACNF's ``ensemble`` is the mean of its three f32 logits.
 
-Each attention goes through ``models/layers.MultiHeadAttention``: the self-
-and cross-attentions of up to 64 tokens through the fused kernels
-(``fused_proj_attention``, ``fused_cross_attention``), longer ones through
-the attention core with the dense bias (at 512 layout frames, 513 tokens:
-the blockwise kernel in dense-bias mode, ``causal=False`` as in JAX: the
-causal+padding bias masks). The sublayers' dropout, LayerNorm and FFN are
-plain torch, as JAX runs them in XLA. Module and logit names are the
-reference's. Eval only: fusion training waits for ``ROADMAP.md`` item A8
-(train).
+Each attention goes through ``models/layers.MultiHeadAttention``: in eval
+the self- and cross-attentions of up to 64 tokens through the fused kernels
+(``fused_proj_attention``, ``fused_cross_attention``); in train the
+self-attentions of up to 64 tokens through ``fused_proj_attention_train``
+and the cross-attentions below 513 tokens through the short flash kernel and
+its backward; longer ones (at 512 layout frames, 513 tokens) through the
+attention core with the dense bias: the blockwise kernel in dense-bias mode,
+forward and backward, ``causal=False`` as in JAX (the causal+padding bias
+masks). The sublayers' LayerNorm and FFN are plain torch, as JAX runs them
+in XLA.
+
+Train mode (``model.train()``, JAX's ``deterministic=False``). JAX drops
+each sublayer's output (after each attention and each FFN, ``fusion.py:68,
+95, 123``) with flax ``nn.Dropout``, whose stream the port cannot
+reproduce; the port hashes its own keep bits on the device
+(``ops/dropout.hashed_dropout``) from a seed drawn from the step's
+``torch.Generator``: deterministic for a given (``--seed``, step), the same
+distribution as JAX's. Every random draw comes from that generator in
+forward order: the layout branch's (as ``Stlt`` draws them), the appearance
+encoder's, then per fusion layer and sublayer the attention's seed and the
+output dropout's. A loaded and frozen CACNF backbone (``load_backbone_path``
+with ``freeze_backbone``) runs deterministically, as JAX runs it
+(``fusion.py:286-294``): ``model.train()`` leaves it in eval mode, so it
+takes the eval kernels under ``torch.no_grad`` and only the three heads
+train. Module and logit names are the reference's.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from stlt_tpu_torch.configs import MultimodalModelConfig
-from stlt_tpu_torch.models.appearance import TransformerResnet, refuse_train
+from stlt_tpu_torch.models.appearance import TransformerResnet
 from stlt_tpu_torch.models.layers import (
     MultiHeadAttention,
     activation_fn,
     apply_dense,
     apply_layer_norm,
+    draw_seeds,
     init_linear_,
 )
 from stlt_tpu_torch.models.stlt import (
@@ -48,11 +67,11 @@ from stlt_tpu_torch.models.stlt import (
     StltBackbone,
     _dtype,
     apply_frame_capacity,
+    backbone_frozen,
     gather_extract_frame,
 )
 from stlt_tpu_torch.ops import masks
-
-_TRAIN_ITEM = "A8 (train)"
+from stlt_tpu_torch.ops.dropout import TAG_OUT_DROP, hashed_dropout
 
 
 def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> ClassificationHead:
@@ -61,48 +80,67 @@ def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> Classi
                               generator, in_features=2 * cfg.hidden_size)
 
 
+def _output_dropout(module: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
+    """A sublayer's output dropout in train mode (flax ``nn.Dropout`` in
+    JAX): hashed keep bits from one seed of ``generator``."""
+    rate = module.dropout_rate
+    if not module.training or rate <= 0.0:
+        return h
+    (seed,) = draw_seeds(generator, 1)
+    return hashed_dropout(h, seed, TAG_OUT_DROP, rate)
+
+
 class FeedforwardModule(nn.Module):
-    """Post-LN residual FFN: ``ln(x + linear2(gelu(linear1(x))))``."""
+    """Post-LN residual FFN: ``ln(x + drop(linear2(gelu(linear1(x)))))``."""
 
     def __init__(self, cfg: MultimodalModelConfig, generator: torch.Generator):
         super().__init__()
         self.dtype, self.eps = _dtype(cfg), cfg.layer_norm_eps
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.linear1 = nn.Linear(cfg.hidden_size, 4 * cfg.hidden_size)
         self.linear2 = nn.Linear(4 * cfg.hidden_size, cfg.hidden_size)
         self.ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         init_linear_(self.linear1, generator)
         init_linear_(self.linear2, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         dt = self.dtype
         h = activation_fn("gelu", dt)(apply_dense(x, self.linear1, dt))
-        h = apply_dense(h, self.linear2, dt)
+        h = _output_dropout(self, apply_dense(h, self.linear2, dt), generator)
         return apply_layer_norm(h + x, self.ln.weight, self.ln.bias, self.eps, dt)
 
 
 class _AttentionLayer(nn.Module):
-    """Post-LN residual attention: ``ln(x + attn(x, context))``."""
+    """Post-LN residual attention: ``ln(x + drop(attn(x, context)))``; in
+    train mode with dropout the attention's seed, then the output
+    dropout's, from ``generator``."""
 
     def __init__(self, cfg: MultimodalModelConfig, generator: torch.Generator):
         super().__init__()
         self.dtype, self.eps = _dtype(cfg), cfg.layer_norm_eps
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.attn = MultiHeadAttention(cfg.hidden_size, cfg.num_attention_heads, self.dtype,
                                        generator, cfg.hidden_dropout_prob)
         self.ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def _residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def _attend(self, x, bias, context, generator) -> torch.Tensor:
+        seed = None
+        if self.training and self.dropout_rate > 0.0:
+            (seed,) = draw_seeds(generator, 1)
+        h = _output_dropout(self, self.attn(x, bias, seed=seed, context=context), generator)
         return apply_layer_norm(h + x, self.ln.weight, self.ln.bias, self.eps, self.dtype)
 
 
 class SelfAttentionLayer(_AttentionLayer):
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._residual(x, self.attn(x, bias))
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                generator=None) -> torch.Tensor:
+        return self._attend(x, bias, None, generator)
 
 
 class CrossAttentionLayer(_AttentionLayer):
     def forward(self, inputs: torch.Tensor, context: torch.Tensor,
-                context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._residual(inputs, self.attn(inputs, context_bias, context=context))
+                context_bias: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
+        return self._attend(inputs, context_bias, context, generator)
 
 
 class CrossModalModule(nn.Module):
@@ -116,13 +154,15 @@ class CrossModalModule(nn.Module):
         self.appearance_attn = SelfAttentionLayer(cfg, generator)
         self.appearance_ffn = SelfAttentionLayer(cfg, generator)  # the reference's quirk
 
-    def forward(self, layout_hidden, appearance_hidden, layout_causal_pad_bias, layout_pad_bias):
-        layout_out = self.cross_attn(layout_hidden, appearance_hidden)
-        appearance_out = self.cross_attn(appearance_hidden, layout_hidden, layout_pad_bias)
-        layout_out = self.layout_attn(layout_out, layout_causal_pad_bias)
-        appearance_out = self.appearance_attn(appearance_out)
-        layout_out = self.layout_ffn(layout_out)
-        appearance_out = self.appearance_ffn(appearance_out)
+    def forward(self, layout_hidden, appearance_hidden, layout_causal_pad_bias, layout_pad_bias,
+                generator=None):
+        g = generator
+        layout_out = self.cross_attn(layout_hidden, appearance_hidden, generator=g)
+        appearance_out = self.cross_attn(appearance_hidden, layout_hidden, layout_pad_bias, generator=g)
+        layout_out = self.layout_attn(layout_out, layout_causal_pad_bias, generator=g)
+        appearance_out = self.appearance_attn(appearance_out, generator=g)
+        layout_out = self.layout_ffn(layout_out, generator=g)
+        appearance_out = self.appearance_ffn(appearance_out, generator=g)
         return layout_out, appearance_out
 
 
@@ -144,9 +184,8 @@ class LateConcatenationFusion(nn.Module):
         self.classifier = FusionHead(config, generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        refuse_train(self, _TRAIN_ITEM)
-        layout = gather_extract_frame(self.layout_branch(batch), batch["lengths"])
-        appearance = self.appearance_branch.forward_features(batch)[:, 0, :]
+        layout = gather_extract_frame(self.layout_branch(batch, generator), batch["lengths"])
+        appearance = self.appearance_branch.forward_features(batch, generator)[:, 0, :]
         fused = torch.cat([layout, appearance], dim=-1)
         return {"lcf": self.classifier(fused).to(torch.float32)}
 
@@ -162,7 +201,7 @@ class CrossAttentionFusionBackbone(nn.Module):
         self.mm_fusion = nn.ModuleList(CrossModalModule(config, generator)
                                        for _ in range(config.num_fusion_layers))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
         # The layout branch returns the frame axis after the capacity cut, so
         # the fusion masks come from the same cut axis.
         frame_types = apply_frame_capacity(self.config.stlt_config, batch)["frame_types"]
@@ -170,13 +209,13 @@ class CrossAttentionFusionBackbone(nn.Module):
         layout_causal_pad_bias = (masks.causal_bias(frame_types.shape[1], frame_types.device)
                                   + layout_pad_bias)
 
-        layout_hidden = self.layout_branch(batch)
-        appearance_hidden = self.appearance_branch.forward_features(batch)
+        layout_hidden = self.layout_branch(batch, generator)
+        appearance_hidden = self.appearance_branch.forward_features(batch, generator)
         layout_state = gather_extract_frame(layout_hidden, batch["lengths"])
         appearance_state = appearance_hidden[:, 0, :]
         for layer in self.mm_fusion:
             layout_hidden, appearance_hidden = layer(
-                layout_hidden, appearance_hidden, layout_causal_pad_bias, layout_pad_bias)
+                layout_hidden, appearance_hidden, layout_causal_pad_bias, layout_pad_bias, generator)
         last_fused_state = torch.cat(
             [gather_extract_frame(layout_hidden, batch["lengths"]), appearance_hidden[:, 0, :]],
             dim=-1,
@@ -201,8 +240,7 @@ class CrossAttentionFusion(nn.Module):
         self.classifier = FusionHead(config, generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        refuse_train(self, _TRAIN_ITEM)
-        states = self.caf_backbone(batch)
+        states = self.caf_backbone(batch, generator)
         return {"caf": self.classifier(states["last_fused_state"]).to(torch.float32)}
 
 
@@ -223,9 +261,18 @@ class CrossAttentionCentralNetFusion(nn.Module):
         self.appearance_classifier = head()
         self.fusion_classifier = FusionHead(config, generator)
 
+    def train(self, mode: bool = True):
+        """A loaded and frozen backbone stays in eval mode (see the module
+        docstring)."""
+        super().train(mode)
+        if mode and backbone_frozen(self.config):
+            self.backbone.eval()
+        return self
+
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        refuse_train(self, _TRAIN_ITEM)
-        states = self.backbone(batch)
+        frozen = self.training and backbone_frozen(self.config)
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            states = self.backbone(batch, generator)
         f32 = torch.float32
         stlt = self.layout_classifier(states["layout_hidden_state"]).to(f32)
         resnet = self.appearance_classifier(states["appearance_hidden_state"]).to(f32)

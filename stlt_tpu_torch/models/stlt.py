@@ -45,6 +45,7 @@ eval kernels and draws nothing.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -85,6 +86,14 @@ def apply_frame_capacity(cfg: StltModelConfig, batch: Dict[str, torch.Tensor]):
         if key in out:
             out[key] = out[key][:, :cap]
     return out
+
+
+def backbone_frozen(cfg) -> bool:
+    """Whether a model's ``backbone`` was loaded and frozen
+    (``load_backbone_path`` with ``freeze_backbone``): JAX then runs it
+    deterministically in training (``stlt_tpu/models/stlt.py:329-336``,
+    ``fusion.py:286-294``), and the optimizer leaves it out."""
+    return bool(cfg.load_backbone_path and cfg.freeze_backbone)
 
 
 def _dtype(cfg: StltModelConfig) -> torch.dtype:
@@ -271,10 +280,20 @@ class Stlt(nn.Module):
             _dtype(config), generator,
         )
 
+    def train(self, mode: bool = True):
+        """A loaded and frozen backbone stays in eval mode: it runs the eval
+        kernels under ``torch.no_grad`` and only the head trains."""
+        super().train(mode)
+        if mode and backbone_frozen(self.config):
+            self.backbone.eval()
+        return self
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Logits {"stlt": [B, C] f32}. In train mode with dropout,
         ``generator`` (a CPU ``torch.Generator``) supplies every random draw."""
-        hidden = self.backbone(batch, generator)
+        frozen = self.training and backbone_frozen(self.config)
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            hidden = self.backbone(batch, generator)
         pooled = gather_extract_frame(hidden, batch["lengths"])
         return {"stlt": self.prediction_head(pooled).to(torch.float32)}

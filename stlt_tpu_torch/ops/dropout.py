@@ -17,7 +17,10 @@ A keep bit is ``lowbias32(counter ^ lane) >= thresh`` with
 The CUDA kernels hash the same bits in place (``csrc/common.cuh``). Here the
 arithmetic runs in int64 masked to 32 bits after every multiply and xor
 (torch's uint32 has no shifts on the CPU); a product of two 32-bit values
-may pass 2**63 and wrap, which keeps its low 32 bits. The keep functions take
+may pass 2**63 and wrap, which keeps its low 32 bits. The seed and the
+lanes that depend on it alone stay Python ints, kernel arguments of the
+tensor ops: no host-to-device copy, so a train step hashing its dropout
+bits on the card never waits for it. The keep functions take
 row and feature offsets, so a counter past 2**32 can be reached without a
 tensor of 2**32 elements.
 """
@@ -47,10 +50,6 @@ def dropout_thresh(rate: float) -> int:
     return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
 
 
-def _u32(v, device) -> torch.Tensor:
-    return torch.as_tensor(int(v) & MASK32, dtype=torch.int64, device=device)
-
-
 def keep_block(seed: int, b0: int, n: int, t0: int, s0: int, shape, num_heads: int,
                s_total: int, thresh: int, device=None) -> torch.Tensor:
     """Keep bits [rb, tb, sb] (bool) of head ``n`` for global offsets
@@ -59,7 +58,7 @@ def keep_block(seed: int, b0: int, n: int, t0: int, s0: int, shape, num_heads: i
     b = torch.arange(rb, dtype=torch.int64, device=device)[:, None, None] + b0
     t = torch.arange(tb, dtype=torch.int64, device=device)[None, :, None] + t0
     s = torch.arange(sb, dtype=torch.int64, device=device)[None, None, :] + s0
-    lane = lowbias32((((b & MASK32) * num_heads + n) & MASK32) ^ _u32(seed, device))
+    lane = lowbias32((((b & MASK32) * num_heads + n) & MASK32) ^ (int(seed) & MASK32))
     ctr = (((t & MASK32) * s_total) + s) & MASK32
     return lowbias32(ctr ^ lane) >= thresh
 
@@ -81,7 +80,7 @@ def keep_rows(seed: int, tag: int, r0: int, f0: int, shape, width: int, thresh: 
     rows, fw = shape
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None] + r0
     f = torch.arange(fw, dtype=torch.int64, device=device)[None, :] + f0
-    lane = lowbias32(_u32(seed, device) ^ (tag & MASK32))
+    lane = lowbias32((int(seed) & MASK32) ^ (tag & MASK32))  # a Python int
     ctr = (((r & MASK32) * width) + f) & MASK32
     return lowbias32(ctr ^ lane) >= thresh
 

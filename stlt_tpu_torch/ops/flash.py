@@ -7,7 +7,7 @@ and the custom VJP ``_flash_custom`` / ``_flash_fwd`` / ``_flash_bwd``
 (:1105-1110, :1288-1337): ``max(T, S) >= _BLOCKWISE_MIN_SEQ = 513`` takes the
 blockwise kernels (``_blockwise_attn_kernel`` :397 forward, in its lengths
 and its dense-bias mode; ``_blockwise_dq_kernel`` :655 and
-``_blockwise_dkdv_kernel`` :745 backward, in their lengths mode), anything
+``_blockwise_dkdv_kernel`` :745 backward, in the same two modes), anything
 shorter the short kernels (``_fused_attn_kernel`` :119 and
 ``_fused_bwd_kernel`` :166). Layout ``[B, T, N, D]`` as in JAX.
 
@@ -23,9 +23,10 @@ Each kernel has three parts, as in ``ops/fused_encoder.py``:
   the same function;
 - a launch count in :data:`LAUNCHES`, raised by one where the wrapper
   launches its kernel (a backward call launches its dq and dk/dv kernels
-  and counts once) and nowhere else; the blockwise forward counts its
-  lengths mode as ``blockwise_attention`` and its dense-bias mode as
-  ``blockwise_attention_dense``.
+  and counts once) and nowhere else; the blockwise forward and backward
+  count their lengths modes as ``blockwise_attention`` and
+  ``blockwise_attention_bwd`` and their dense-bias modes as
+  ``blockwise_attention_dense`` and ``blockwise_attention_bwd_dense``.
 
 Gradients. When q, k or v needs a gradient, :func:`flash_attention` runs the
 ``torch.autograd.Function`` ``_Attention`` over the short or the blockwise
@@ -65,19 +66,19 @@ them (JAX's rule that dead rows' cotangents count as zero). Below 513 tokens
 the lengths become the dense bias (``_lengths_dense_bias``) and every row is
 computed, as in JAX.
 
-Dense-bias mode of the blockwise forward (``bias``, no ``kv_lengths``; the
-fusion models at 512 layout frames): an f32 bias broadcastable to [B, N, T,
-S] read through its strides, every query row computed, lse written, T and
-S free (33 against 513 and back); with ``causal`` the caller declares the
-bias causal and key chunks above the diagonal are skipped, as JAX's
-``_causal_live`` skips them.
+Dense-bias mode of the blockwise kernels (``bias``, no ``kv_lengths``; the
+fusion models at 512 layout frames, served and trained): an f32 bias
+broadcastable to [B, N, T, S] read through its strides, every query row
+computed, lse written, T and S free (33 against 513 and back); with
+``causal`` the caller declares the bias causal and key chunks above the
+diagonal are skipped (forward and dq), and query tiles above it (dk, dv),
+as JAX's ``_causal_live`` skips them.
 
 Not ported yet, and refused on a CUDA tensor with the ``ROADMAP.md`` item
-each waits for: the dense-bias mode of the blockwise backward (fusion
-training, A8 (train)) and the dropout-mask operand (the models hash their
-bits from a seed; B5 (mask)). The ring ``offsets`` mode (A9) is refused on
-every device. The plain versions compute the mask operand and the
-dense-bias blockwise backward, so the CPU path stays whole.
+it waits for: the dropout-mask operand (the models hash their bits from a
+seed; B5 (mask)). The ring ``offsets`` mode (A9) is refused on every
+device. The plain versions compute the mask operand, so the CPU path stays
+whole.
 """
 
 from __future__ import annotations
@@ -90,7 +91,8 @@ from stlt_tpu_torch.ops import _kernels
 from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 
 LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
-            "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
+            "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
+            "blockwise_attention_bwd_dense": 0}
 
 _BLOCKWISE_MIN_SEQ = 513
 _NEG_INF = -1e30  # finite: exp(-1e30 - m) == 0 without inf - inf NaNs
@@ -101,9 +103,6 @@ _LATER = {
     "mask": "the dropout-mask operand is not ported to the CUDA kernels (the models hash "
             "their keep bits from a seed; it waits for ROADMAP.md item B5 (mask)): pass "
             "dropout_seed",
-    "dense_bwd": "the dense-bias mode of the blockwise backward kernel is not ported yet: it "
-                 "waits for ROADMAP.md item B5 (dense) backward, with fusion training (A8); "
-                 "pass kv_lengths (+ causal)",
 }
 
 
@@ -471,11 +470,12 @@ def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=Non
 def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
                             causal: bool = False, dropout_mask=None, dropout_rate: float = 0.0,
                             dropout_seed=None, offsets=None):
-    """The blockwise kernels' backward (``_blockwise_backward``, lengths mode
-    on the card): (dq, dk, dv) of :func:`blockwise_attention` for the
-    cotangent ``dout``, from its lse and ``dsum`` (0 on dead rows). Chunks
-    and tiles the forward skipped are skipped; dead query rows get dq = 0
-    and add nothing to dk, dv. Returns contiguous tensors in q's dtype."""
+    """The blockwise kernels' backward (``_blockwise_backward``): (dq, dk,
+    dv) of :func:`blockwise_attention` for the cotangent ``dout``, from its
+    lse and ``dsum`` (0 on dead rows), in the forward's two modes. Chunks
+    and tiles the forward skipped are skipped; in lengths mode dead query
+    rows get dq = 0 and add nothing to dk, dv. Returns contiguous tensors
+    in q's dtype."""
     _refuse_offsets(offsets)
     if _on_cpu(q, "blockwise_attention_bwd"):
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, kv_lengths=kv_lengths,
@@ -483,21 +483,22 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     op = "blockwise_attention_bwd"
     drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
-    if kv_lengths is None:
-        raise NotImplementedError(f"{op}: " + _LATER["dense_bwd"])
+    _check_bias(bias, kv_lengths)
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
-    lengths = _lengths_arg(op, kv_lengths, B, q.device)
+    lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
+    b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
             op, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(dout),
-            lengths.data_ptr(), int(bool(causal)), lse.data_ptr(), dsum.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if b4 is None else b4.data_ptr(), *strides,
+            None if lengths is None else lengths.data_ptr(), int(bool(causal)),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code, _stream(q.device),
         )
-    LAUNCHES[op] += 1
+    LAUNCHES[op if lengths is not None else "blockwise_attention_bwd_dense"] += 1
     return dq, dk, dv
 
 

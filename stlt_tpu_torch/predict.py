@@ -93,8 +93,9 @@ def check_flags(args) -> None:
 
 def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
     """The model config of ``--model_name`` from the flags and the dataset,
-    as ``stlt_tpu/predict.py:54-70`` builds it; ``capacities`` are the
-    ragged levers' (``inference --live_prefix``)."""
+    as ``stlt_tpu/predict.py:54-70`` and ``stlt_tpu/train.py:217-240``
+    build it (the backbone flags act in training only); ``capacities`` are
+    the ragged levers' (``inference --live_prefix``)."""
     return make_model_config(
         args.model_name,
         num_classes=len(dataset.labels),
@@ -104,6 +105,8 @@ def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
         num_temporal_layers=args.num_temporal_layers,
         appearance_num_frames=args.appearance_num_frames,
         resnet_model_path=args.resnet_model_path,
+        load_backbone_path=args.load_backbone_path,
+        freeze_backbone=args.freeze_backbone,
         hidden_size=args.hidden_size,
         hidden_dropout_prob=args.hidden_dropout_prob,
         num_attention_heads=args.num_attention_heads,

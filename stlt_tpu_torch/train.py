@@ -11,6 +11,17 @@ on-device counts (Something) or probabilities (Action Genome), and the best
 checkpoint saved as a reference-format ``.pt`` state_dict, which the port's
 ``predict`` loads with ``strict=True``.
 
+Every factory model trains: ``stlt`` on ``--dataset_type layout``,
+``resnet3d`` and ``resnet3d-transformer`` on ``appearance``, ``lcf``,
+``caf`` and ``cacnf`` on ``multimodal``. As in ``stlt_tpu/train.py:257-273``
+a Kinetics R3D (``--resnet_model_path``) is loaded into every R3D trunk
+first, then a ``.pt`` backbone (``--load_backbone_path``, the models with a
+``backbone``: STLT and CACNF) overrides it; with ``--freeze_backbone`` too,
+the backbone gets no update, stays out of the clip's norm and runs
+deterministically. Every ``FrozenBatchNorm`` parameter is frozen, and the
+model's ``no_weight_decay`` names (``TransformerResnet``'s ``pos_embed``
+and ``cls_token``) take no weight decay.
+
 It runs on the GPU unless ``--platform cpu`` is given; without a GPU it
 raises and never falls back to the CPU. Flags of later slices raise with the
 ``ROADMAP.md`` item they wait for. Long clips train as they serve:
@@ -39,12 +50,12 @@ from typing import Any, Dict, List
 
 import torch
 
-from stlt_tpu_torch.configs import category2id_for, make_model_config, position_table_rows
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
 from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.parser import build_parser
-from stlt_tpu_torch.predict import build_data_config, resolve_device
+from stlt_tpu_torch.predict import build_data_config, build_model_config, resolve_device
+from stlt_tpu_torch.predict import check_flags as check_serving_flags
 from stlt_tpu_torch.training.criterion import make_criterion
 from stlt_tpu_torch.training.evaluation import evaluators_factory
 from stlt_tpu_torch.training.loop import (
@@ -55,7 +66,12 @@ from stlt_tpu_torch.training.loop import (
     make_train_step,
     step_generator,
 )
-from stlt_tpu_torch.training.optimizer import make_optimizer
+from stlt_tpu_torch.training.optimizer import make_optimizer, model_no_decay_names
+from stlt_tpu_torch.utils.convert import load_kinetics_r3d, read_state_dict
+
+# The factory models with a ``backbone`` (the subtree --load_backbone_path,
+# --freeze_backbone and --save_backbone_path act on).
+BACKBONE_MODELS = ("stlt", "cacnf")
 
 
 @dataclasses.dataclass
@@ -70,25 +86,21 @@ class TrainResult:
     epochs: List[Dict[str, Any]]
 
 
-# Flags of later slices, with the ROADMAP.md item each waits for.
 def check_flags(args) -> None:
+    """The serving CLIs' checks (``predict.check_flags``: an unknown model or
+    dataset type, A9's and A10's flags); a backbone flag for a model without
+    a backbone raises naming those that have one; the train flags of later
+    slices raise with the ``ROADMAP.md`` item they wait for."""
+    check_serving_flags(args)
+    for flag in ("load_backbone_path", "save_backbone_path"):
+        if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
+            raise ValueError(f"--{flag} acts on a model's backbone: --model_name is one of "
+                             f"{BACKBONE_MODELS}, got {args.model_name!r}")
     later = [
-        (args.dataset_type == "multimodal" or args.model_name in ("lcf", "caf", "cacnf"),
-         "fusion training (--dataset_type multimodal, --model_name lcf/caf/cacnf)", "A8 (train)"),
-        (args.dataset_type != "layout" or args.model_name != "stlt",
-         "training the appearance branch (--dataset_type appearance, --model_name "
-         "resnet3d/resnet3d-transformer)", "A7 (train)"),
-        (args.resnet_model_path is not None, "--resnet_model_path", "A7 (train)"),
         (args.grad_accum_steps > 1, "--grad_accum_steps > 1", "A4 (rest) / A6"),
         (args.remat, "--remat", "A4 (rest) / A6"),
         (args.resume_dir is not None, "--resume_dir", "A4 (rest) / A9"),
-        (args.load_backbone_path is not None or args.freeze_backbone,
-         "--load_backbone_path/--freeze_backbone", "A4 (rest)"),
         (args.profile_dir is not None, "--profile_dir", "A2"),
-        (args.model_parallel > 1 or args.context_parallel > 1,
-         "--model_parallel/--context_parallel > 1", "A9"),
-        (args.num_processes > 1 or args.coordinator_address is not None,
-         "--num_processes/--coordinator_address", "A9"),
     ]
     for hit, flag, item in later:
         if hit:
@@ -136,22 +148,21 @@ def train(args) -> TrainResult:
     if args.live_prefix:
         logging.info("--live_prefix has no effect in training: the train sampler fills every "
                      "frame slot, so the ragged levers would cut nothing")
-    model_config = make_model_config(
-        args.model_name,
-        num_classes=num_classes,
-        layout_num_frames=position_table_rows(val_cfg),
-        unique_categories=len(category2id_for(args.dataset_name)),
-        num_spatial_layers=args.num_spatial_layers,
-        num_temporal_layers=args.num_temporal_layers,
-        hidden_size=args.hidden_size,
-        hidden_dropout_prob=args.hidden_dropout_prob,
-        num_attention_heads=args.num_attention_heads,
-        compute_dtype=args.compute_dtype,
-        use_pallas=args.use_pallas,
-        remat=args.remat,
-    )
+    model_config = build_model_config(args, val_dataset, val_cfg)
     logging.info("The model's configuration is:\n%s", model_config)
     model = models_factory[args.model_name](model_config, torch.Generator().manual_seed(args.seed))
+    if args.resnet_model_path:
+        # Kinetics first: a loaded backbone overrides it (stlt_tpu/train.py:257-273).
+        load_kinetics_r3d(model, args.resnet_model_path)
+        logging.info("Loaded Kinetics R3D from %s", args.resnet_model_path)
+    if args.load_backbone_path:
+        model.backbone.load_state_dict(read_state_dict(args.load_backbone_path), strict=True)
+        logging.info("Loaded backbone from %s", args.load_backbone_path)
+    if device.type == "cuda":
+        # cuDNN picks its convolution algorithms for the appearance branch's
+        # shapes; f32 convolutions stay f32 (no TF32), as in predict.
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.allow_tf32 = False
     model = model.to(device)
 
     criterion = make_criterion(args.dataset_name)
@@ -162,6 +173,8 @@ def train(args) -> TrainResult:
         weight_decay=args.weight_decay,
         num_warmup_steps=args.warmup_epochs * num_batches,
         num_training_steps=args.epochs * num_batches,
+        no_decay_names=model_no_decay_names(model),
+        freeze_backbone=bool(args.freeze_backbone and args.load_backbone_path),
     )
     train_step = make_train_step(model, optimizer, scheduler, criterion, args.clip_val)
     evaluator = evaluators_factory[args.dataset_name](len(val_dataset), num_classes, model.logit_names)
@@ -219,7 +232,7 @@ def train(args) -> TrainResult:
 
 
 def main(argv=None) -> TrainResult:
-    parser = build_parser("Trains a model, currently STLT.")
+    parser = build_parser("Trains a model, currently STLT, LCF, CAF, and CACNF.")
     return train(parser.parse_args(argv))
 
 

@@ -4,19 +4,22 @@ relative norms.
 ``chip_smoke.py`` holds the long-clip attention backwards' dq, dk and dv
 against ``attention_bwd_plain`` (``BWD_REL``), the fused train tail's dx
 and dattn against its plain backward (``TAIL_BWD_REL``), the fused
-cross-attention's output against its plain version (``CROSS_REL``) and the
+cross-attention's output against its plain version (``CROSS_REL``), the
 blockwise forward's dense-bias output against its plain version
-(``DENSE_REL``), within a relative Frobenius-norm error. This script shows
+(``DENSE_REL``) and the blockwise backward's dense-bias dq, dk and dv
+against ``attention_bwd_plain`` (``DENSE_BWD_REL``), within a relative
+Frobenius-norm error. This script shows
 which faults those limits catch. It copies the package into a temporary
 directory, edits the kernel sources there (the checkout is never touched),
 builds the kernels of the family the variant belongs to from each copy and
 prints each variant's relative norm errors in bf16:
 
 - ``sound``: the sources as they are (every family);
-- attention and dense, ``no_lo_split``: the tensor-core products of the
-  probabilities and of dz (``attention_core.cuh::chunk_pv``) take only the
-  bf16 hi part, not hi + lo;
-- attention, ``no_dsum``: dz = p o dp, without the ``- dsum`` term;
+- attention, dense and dense_bwd, ``no_lo_split``: the tensor-core products
+  of the probabilities and of dz (``attention_core.cuh::chunk_pv``) take
+  only the bf16 hi part, not hi + lo;
+- attention and dense_bwd, ``no_dsum``: dz = p o dp, without the ``- dsum``
+  term;
 - tail, ``act_grad_of_cd_z1``: act' taken on z1 rounded to bf16 instead of
   the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``);
 - tail, ``no_keep2_in_input``: the input kernel's dh2 without the out-site
@@ -36,11 +39,15 @@ prints each variant's relative norm errors in bf16:
 - cross, ``cross_head_left_out``: the last head adds nothing;
 - dense, ``dense_causal_last_key_dropped``: with the causal flag, each
   query tile's key range stops one key short, so the last query of every
-  tile loses its diagonal key.
+  tile loses its diagonal key;
+- dense_bwd, ``dense_bwd_causal_last_key_dropped``: the same in the dq
+  kernel of the backward's dense-bias mode;
+- dense_bwd, ``dense_bwd_bias_transposed``: the dk/dv kernel reads the
+  bias with its t and s strides swapped (``bias[b, n, s, t]``).
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
-    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | dense]
+    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | dense | dense_bwd]
 
 (those families' variants only when named). The variants' kernels are built
 in parallel, then measured one variant at a time. The last line is one JSON
@@ -58,7 +65,9 @@ stage of a 512-frame batch) with ragged live tokens and dropout 0 and 0.1
 heads, (T, S) = (17, 33), (33, 17), (8, 64), (64, 8), with and without a
 key-padding bias, weights drawn as ``chip_smoke.make_weights`` draws them.
 Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
-dense-bias checks at B = 16, 12 heads of 64.
+dense-bias checks at B = 16, 12 heads of 64. Dense_bwd rows {"T", "S",
+"bias", "causal", "rate", "dq", "dk", "dv"}: the same cases with dropout 0
+and 0.1; out and lse from the plain forward, so only the backward differs.
 """
 
 from __future__ import annotations
@@ -80,16 +89,17 @@ FAMILIES = {
     "tail": ("fused_tail_train_bwd_row",),
     "cross": ("fused_cross_attention",),
     "dense": ("blockwise_attention",),
+    "dense_bwd": ("blockwise_attention_bwd",),
 }
 # variant -> (families it is measured in, source edits)
 MUTATIONS = {
     "sound": (tuple(FAMILIES), []),
-    "no_lo_split": (("attention", "dense"), [(
+    "no_lo_split": (("attention", "dense", "dense_bwd"), [(
         "attention_core.cuh",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);",
     )]),
-    "no_dsum": (("attention",), [
+    "no_dsum": (("attention", "dense_bwd"), [
         ("attention_bwd_core.cuh", "expf(x - lse_t) * (d - ds);", "expf(x - lse_t) * d;"),
         ("attention_bwd_core.cuh", "pr * (dp[r][j] * keep - ds_j[j]);", "pr * (dp[r][j] * keep);"),
     ]),
@@ -143,6 +153,16 @@ MUTATIONS = {
         "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
         "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T)) - 1;",
     )]),
+    "dense_bwd_causal_last_key_dropped": (("dense_bwd",), [(
+        "attention_bwd_core.cuh",
+        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
+        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T)) - 1;",
+    )]),
+    "dense_bwd_bias_transposed": (("dense_bwd",), [(
+        "attention_bwd_core.cuh",
+        "x += __ldg(bias + (long long)t * p.bt + key);\n        const float pr =",
+        "x += __ldg(bias + (long long)key * p.bt + t);\n        const float pr =",
+    )]),
 }
 TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
 
@@ -165,7 +185,7 @@ def measure(family: str) -> list:
     ``stlt_tpu_torch``."""
     build([family])
     return {"attention": _measure_attention, "tail": _measure_tail, "cross": _measure_cross,
-            "dense": _measure_dense}[family]()
+            "dense": _measure_dense, "dense_bwd": _measure_dense_bwd}[family]()
 
 
 def _measure_tail() -> list:
@@ -245,6 +265,36 @@ def _measure_dense() -> list:
         torch.cuda.synchronize()
         rows.append({"T": T, "S": S, "bias": kind, "causal": causal, "out": _rel(out, want),
                      "lse": _rel(lse, want_lse)})
+    return rows
+
+
+def _measure_dense_bwd() -> list:
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import masks
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    B, N, D = 16, 12, 64
+    rows = []
+    for T, S, kind, causal in ((513, 513, "causal_padding", False), (513, 513, "causal_padding", True),
+                               (513, 33, "none", False), (33, 513, "key_padding", False)):
+        for rate in (0.0, 0.1):
+            q, k, v, dout = (torch.randn((B, L, N, D), generator=gen).to(device, torch.bfloat16)
+                             for L in (T, S, S, T))
+            lengths = torch.randint(1, S + 1, (B,), generator=gen)
+            lengths[0] = S
+            pad = torch.arange(S)[None, :] >= lengths[:, None]
+            bias = {"causal_padding": lambda: masks.causal_bias(T) + masks.key_padding_bias(pad),
+                    "key_padding": lambda: masks.key_padding_bias(pad), "none": lambda: None}[kind]()
+            bias = None if bias is None else bias.to(device)
+            kw = dict(bias=bias, causal=causal, dropout_rate=rate, dropout_seed=0x5EED if rate else None)
+            out, lse = flash.blockwise_attention_plain(q, k, v, **kw)
+            dsum = flash._dsum(dout, out, None)
+            got = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+            want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+            torch.cuda.synchronize()
+            rows.append({"T": T, "S": S, "bias": kind, "causal": causal, "rate": rate,
+                         **{name: _rel(a, b) for name, a, b in zip(("dq", "dk", "dv"), got, want)}})
     return rows
 
 
@@ -328,7 +378,8 @@ def main(argv=None) -> int:
                 groups = {"attention": {"dq/dk/dv": ("dq", "dk", "dv")},
                           "tail": {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]},
                           "cross": {"y": ("y",)},
-                          "dense": {"out": ("out",), "lse": ("lse",)}}[family]
+                          "dense": {"out": ("out",), "lse": ("lse",)},
+                          "dense_bwd": {"dq/dk/dv": ("dq", "dk", "dv")}}[family]
                 worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
                                   for label, keys in groups.items())
                 print(f"{variant} ({family}): worst relative norm error of {worst}", flush=True)

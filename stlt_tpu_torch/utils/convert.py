@@ -18,6 +18,10 @@
 - :func:`load_checkpoint` loads a reference-format ``.pt`` state_dict into a
   model: ``strict=True``, then ``strict=False`` with a warning, as
   ``stlt_tpu/inference.py:123-131`` does.
+- :func:`load_kinetics_r3d` loads a Kinetics-format R3D state_dict
+  (``conv1``, ``bn1``, ``layer1.0...``; ``fc`` ignored) into every R3D trunk
+  of a model (own copy of ``stlt_tpu/utils/convert.py::load_kinetics_r3d``
+  :157).
 """
 
 from __future__ import annotations
@@ -207,4 +211,42 @@ def load_checkpoint(path: str, model: nn.Module) -> nn.Module:
         )
         logging.warning("%s", e)
         model.load_state_dict(state, strict=False)
+    return model
+
+
+_KINETICS_TRUNK = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6",
+                   "layer4": "7"}
+
+
+def load_kinetics_r3d(model: nn.Module, path: str) -> nn.Module:
+    """Load the Kinetics R3D checkpoint at ``path`` (a ``.pt``/``.pth``
+    state_dict, possibly wrapped in ``{"state_dict": ...}``, keys ``conv1``,
+    ``bn1``, ``layer1.0.conv1`` ...) into every raw R3D trunk of ``model``:
+    each ``resnet`` ``nn.Sequential`` whose children are the reference's
+    0 = conv1 ... 7 = layer4. The checkpoint's ``fc`` (and any key outside
+    the trunk) is ignored, as the reference's ``children[:-2]`` strip drops
+    it; a trunk parameter or statistic it lacks raises. A checkpoint without
+    ``num_batches_tracked`` keeps the trunk's (an unused counter)."""
+    state = read_state_dict(path)
+    trunk_state = {}
+    for key, value in state.items():
+        head, _, rest = key.partition(".")
+        if head in _KINETICS_TRUNK and rest:
+            trunk_state[f"{_KINETICS_TRUNK[head]}.{rest}"] = value
+    trunks = [m for name, m in model.named_modules()
+              if name.split(".")[-1] == "resnet" and isinstance(m, nn.Sequential)]
+    if not trunks:
+        raise ValueError(f"{type(model).__name__} has no R3D trunk to load {path} into")
+    for trunk in trunks:
+        own = trunk.state_dict()
+        missing = [k for k in own if k not in trunk_state and not k.endswith("num_batches_tracked")]
+        if missing:
+            raise KeyError(f"{path}: no Kinetics R3D parameter for {missing[:5]}")
+        with torch.no_grad():
+            for key, value in own.items():
+                if key in trunk_state:
+                    if tuple(trunk_state[key].shape) != tuple(value.shape):
+                        raise ValueError(f"{path}: {key} has shape {tuple(trunk_state[key].shape)}, "
+                                         f"the trunk {tuple(value.shape)}")
+                    value.copy_(trunk_state[key])
     return model

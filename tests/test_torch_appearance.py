@@ -102,13 +102,6 @@ def test_device_normalize_equals_the_host_normalisation():
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
-def test_appearance_models_refuse_training():
-    cfg, _ = jax_model("resnet3d-transformer", 7)
-    model = models_factory["resnet3d-transformer"](port_config("resnet3d-transformer", cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A7"):
-        model.train()({"video_frames": torch.from_numpy(_frames()["video_frames"])})
-
-
 def test_token_count_must_match_the_pos_embed_table():
     cfg, _ = jax_model("resnet3d-transformer", 7)
     model = models_factory["resnet3d-transformer"](

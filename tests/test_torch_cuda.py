@@ -327,7 +327,8 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
     got = flash.fused_attention(q, k, v, bias)
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0,
-                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
+                              "blockwise_attention_bwd_dense": 0}
     want = flash.fused_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype)
@@ -347,7 +348,8 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1,
                               "blockwise_attention_dense": 0,
-                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
+                              "blockwise_attention_bwd_dense": 0}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     torch.cuda.synchronize()
     live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)  # [B, T]
@@ -363,18 +365,24 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
     gen = torch.Generator().manual_seed(0)
     q, k, v = _heads(2, 513, 513, torch.bfloat16, gen, device)
     lengths = torch.tensor([3, 513], device=device)
-    # The dense-bias forward runs (its kernel is held against its plain
-    # version in test_blockwise_dense_bias_kernel_matches_plain); its
-    # backward is refused below.
+    # The dense-bias forward and backward run (their kernels are held
+    # against their plain versions in test_blockwise_dense_bias_kernel_matches_plain
+    # and test_blockwise_dense_bias_bwd_kernel_matches_plain).
     flash.reset_launches()
-    out = flash.flash_attention(q, k, v, bias=torch.zeros(2, 1, 513, 513, device=device))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash.flash_attention(*leaves, bias=torch.zeros(2, 1, 513, 513, device=device))
+    out.float().sum().backward()
     assert torch.isfinite(out.float()).all() and flash.LAUNCHES["blockwise_attention_dense"] == 1
+    assert flash.LAUNCHES["blockwise_attention_bwd_dense"] == 1
+    assert all(torch.isfinite(x.grad.float()).all() for x in leaves)
     mask = torch.ones(2, 12, 100, 100, device=device)
     with pytest.raises(NotImplementedError, match="dropout-mask operand"):
         flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask, dropout_rate=0.1)
     lse = dsum = torch.zeros(2, 12, 513, device=device)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item B5"):
-        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, bias=torch.zeros(2, 1, 513, 513, device=device))
+    with pytest.raises(NotImplementedError, match="dropout-mask operand"):
+        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, bias=torch.zeros(2, 1, 513, 513, device=device),
+                                      dropout_mask=torch.ones(2, 12, 513, 513, device=device),
+                                      dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
         flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True,
                                       offsets=torch.tensor([0, 0]))
@@ -543,7 +551,8 @@ def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
     mha.train()(x, seed=3).sum().backward()
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0,
-                              "flash_attention_bwd": 1, "blockwise_attention_bwd": 0}
+                              "flash_attention_bwd": 1, "blockwise_attention_bwd": 0,
+                              "blockwise_attention_bwd_dense": 0}
     assert torch.isfinite(x.grad).all()
 
 
@@ -590,7 +599,8 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
     assert len(rows) == 6 and all(len(json.loads(line)["top_k"]) == 3 for line in open(out))
     assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0,
-                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0}
+                              "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
+                              "blockwise_attention_bwd_dense": 0}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
 
 
@@ -631,7 +641,8 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
     assert result.step == steps and all(np.isfinite(r["train_loss"]) for r in result.epochs)
     assert flash.LAUNCHES == {"flash_attention": 2 * (steps + val), "blockwise_attention": 0,
                               "blockwise_attention_dense": 0,
-                              "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0}
+                              "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0,
+                              "blockwise_attention_bwd_dense": 0}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
                            "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps,
                            "fused_cross_attention": 0}
@@ -733,6 +744,12 @@ def test_tail_train_kernels_refuse_what_they_do_not_take(device):
 # kernels' readings and planted faults' (``python -m
 # stlt_tpu_torch.utils.bwd_tolerance cross dense``; PERF.md, PR 6).
 CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+# dq, dk, dv of the blockwise backward's dense-bias mode in bf16, relative
+# Frobenius norm: sound kernels read at most 1.3e-4, no hi + lo split
+# 2.5e-3, the causal key range one key short 6.1e-3, dsum left out 0.14
+# (H100; PERF.md §6; python -m stlt_tpu_torch.utils.bwd_tolerance
+# dense_bwd).
+DENSE_BWD_REL = 1e-3
 
 
 def _cross_weights(H, gen, device):
@@ -809,3 +826,122 @@ def test_blockwise_dense_bias_kernel_matches_plain(device, dtype, T, S, bias_kin
     if dtype == torch.bfloat16:
         assert _rel(out, want) < DENSE_REL, _rel(out, want)
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def _dense_bias(kind, B, T, S, gen, device):
+    if kind == "causal_padding":
+        return _bias("causal_padding", B, T, gen).to(device)  # [B, 1, T, T]
+    if kind == "key_padding":
+        pad = torch.rand(B, S, generator=gen) < 0.3
+        pad[:, 0] = False
+        return masks.key_padding_bias(pad).to(device)  # [B, 1, 1, S]
+    if kind == "heads":
+        return torch.randn(1, 12, T, S, generator=gen).to(device)
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,bias_kind,causal,rate", [
+    (513, 513, "causal_padding", True, 0.1),
+    (513, 513, "causal_padding", False, 0.0),
+    (513, 33, "none", False, 0.1),
+    (33, 513, "key_padding", False, 0.1),
+    (1025, 700, "heads", False, 0.0),
+])
+def test_blockwise_dense_bias_bwd_kernel_matches_plain(device, dtype, T, S, bias_kind, causal, rate):
+    """The blockwise backward's dense-bias mode (the fusion models' 513-token
+    attentions in training): dq, dk, dv against ``attention_bwd_plain``
+    within DENSE_BWD_REL (bf16) or BWD_REL (f32), the same bits twice; and
+    its dropout forward against the plain one (f32 at 1e-5: the keep bits
+    are the same)."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + S + causal + 7)
+    B = 3
+    q, k, v = _heads(B, T, S, dtype, gen, device, strided=T == S)
+    bias = _dense_bias(bias_kind, B, T, S, gen, device)
+    dout = torch.randn(B, T, 12, 64, generator=gen).to(device, dtype)
+    kw = dict(bias=bias, causal=causal, dropout_rate=rate, dropout_seed=0xC0FFEE if rate else None)
+    flash.reset_launches()
+    out, lse = flash.blockwise_attention(q, k, v, **kw)
+    want_out, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+    dsum = flash._dsum(dout, out, None)
+    got = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    again = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    assert flash.LAUNCHES["blockwise_attention_dense"] == 1
+    assert flash.LAUNCHES["blockwise_attention_bwd_dense"] == 2
+    assert flash.LAUNCHES["blockwise_attention_bwd"] == 0
+    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.is_contiguous() and torch.isfinite(a).all(), name
+        limit = DENSE_BWD_REL if dtype == torch.bfloat16 else BWD_REL[dtype]
+        assert _rel(a, b) < limit, (name, _rel(a, b))
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype], msg=name)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+def test_cacnf_train_step_on_the_card_matches_the_plain_step(device, monkeypatch):
+    """One f32 CACNF train step at 513 layout frames with dropout 0.1 (H =
+    128, 2 heads of 64, R3D depth 10 over 8 x 32 x 32 frames, one fusion
+    layer) through the kernels, against the same step with every train
+    kernel's plain forward and backward on the card (same weights, batch and
+    generator): loss at 1e-5, every gradient within a relative norm of 1e-4.
+    The step launches the dense-bias backward three times (the layout
+    self-attention and both cross-attentions) and the lengths mode once."""
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import step_generator
+
+    cfg = make_model_config("cacnf", num_classes=5, unique_categories=4, hidden_size=128,
+                            num_attention_heads=2, num_spatial_layers=1, num_temporal_layers=1,
+                            num_appearance_layers=1, num_fusion_layers=1, appearance_num_frames=1,
+                            resnet_depth=10, layout_num_frames=513, hidden_dropout_prob=0.1)
+    model = models_factory["cacnf"](cfg, torch.Generator().manual_seed(8)).to(device).train()
+    gen = torch.Generator().manual_seed(9)
+    B, F, O = 3, 513, 4
+    lengths = torch.tensor([F, 300, 40])
+    pad = torch.arange(F)[None, :] >= lengths[:, None]
+    frame_types = torch.where(pad, 0, 2)
+    frame_types[torch.arange(B), lengths - 1] = 4
+    categories = torch.randint(1, 3, (B, F, O), generator=gen)
+    categories[:, :, 0] = 3
+    categories[pad] = torch.tensor([3] + [0] * (O - 1))
+    batch = {"categories": categories, "boxes": torch.rand(B, F, O, 4, generator=gen),
+             "frame_types": frame_types, "lengths": lengths,
+             "video_frames": torch.randn(B, 8, 32, 32, 3, generator=gen)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    labels = torch.randint(0, 5, (B,), generator=gen).to(device)
+    criterion = make_criterion("something")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = criterion(model(batch, step_generator(0, 0)), labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    flash.reset_launches()
+    loss, grads = step()
+    assert flash.LAUNCHES["blockwise_attention_bwd_dense"] == 3
+    assert flash.LAUNCHES["blockwise_attention_bwd"] == 1
+    assert flash.LAUNCHES["blockwise_attention_dense"] == 3
+    monkeypatch.setattr(fe, "_launch_proj", lambda op, x, wqkv, bqkv, wo, bo, bias, *, seed=None,
+                        dropout_rate=0.0, **kw: fe.fused_proj_attention_train_plain(
+                            x, wqkv, bqkv, wo, bo, bias, seed, dropout_rate=dropout_rate, **kw))
+    monkeypatch.setattr(fe, "_launch_proj_bwd", fe.fused_proj_attention_train_bwd_plain)
+    monkeypatch.setattr(flash, "blockwise_attention", flash.blockwise_attention_plain)
+    monkeypatch.setattr(flash, "blockwise_attention_bwd",
+                        lambda *a, offsets=None, **kw: flash.attention_bwd_plain(*a, **kw))
+    monkeypatch.setattr(ftt, "_launch_tail_train", ftt.fused_layer_tail_train_plain)
+    monkeypatch.setattr(ftt, "_launch_tail_train_bwd", ftt.fused_layer_tail_train_bwd_plain)
+    plain_loss, plain_grads = step()
+    assert abs(loss - plain_loss) < 1e-5
+    assert set(grads) == set(plain_grads)
+    for name, g in grads.items():
+        assert _rel(g, plain_grads[name]) < 1e-4, name

@@ -271,11 +271,3 @@ def test_fusion_masks_follow_the_frame_capacity_cut():
         full, cut = model(inputs), capped(inputs)
     for head in full:
         np.testing.assert_allclose(cut[head].numpy(), full[head].numpy(), atol=1e-5, rtol=1e-5)
-
-
-def test_fusion_models_refuse_training():
-    cfg = configs.MultimodalModelConfig(**dict(MODEL_KW, layout_num_frames=7))
-    model = models_factory["caf"](cfg)
-    inputs = {k: torch.from_numpy(v) for k, v in model_inputs(7, (3, 7), seed=0).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A8"):
-        model.train()(inputs)

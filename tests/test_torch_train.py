@@ -188,8 +188,9 @@ def test_train_cli_writes_a_strict_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--grad_accum_steps", "2"], ["--remat"], ["--resume_dir", "ckpt"], ["--freeze_backbone"],
-    ["--profile_dir", "trace"], ["--context_parallel", "2"], ["--dataset_type", "multimodal"],
+    ["--grad_accum_steps", "2"], ["--remat"], ["--resume_dir", "ckpt"],
+    ["--profile_dir", "trace"], ["--context_parallel", "2"], ["--model_parallel", "2"],
+    ["--num_processes", "2"], ["--native_decode"],
 ])
 def test_train_cli_refuses_later_slices(tmp_path, flag):
     root = str(tmp_path)
