@@ -50,7 +50,17 @@ Phases, in order; any failure exits non-zero:
    the same four cases as the forward's, B = 16 and 32, dropout 0 and 0.1:
    the forward with dropout, and the backward against
    ``attention_bwd_plain`` (two launches bit-identical), timed at B = 16
-   against the autograd backward of ``scaled_dot_product_attention``;
+   against the autograd backward of ``scaled_dot_product_attention``; then
+   every kernel again at other head dims and widths ((H, heads) = (256, 8),
+   (320, 5) and (1024, 8): head dim 32, an odd width, head dim 128 at the
+   widest H), bf16 and f32, with each row's tolerance, each new shape timed
+   once; and the blockwise kernel's ring-offset mode at the per-rank shapes
+   of a 512-frame clip at C = 2 (B = 32, 257 queries against a chunk of 257
+   keys, causal, lengths 33-513) at (row0, col0) = (0, 0), (0, 257),
+   (257, 0), (257, 257), once with dropout: out and lse of live rows, dead
+   rows zeros with lse 0, rows with no live key in the chunk zeros with lse
+   -1e30, timed against its plain version, SDPA with the same mask and its
+   bound;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -120,7 +130,20 @@ Phases, in order; any failure exits non-zero:
    --freeze_backbone`` (the backbone on the eval kernels, rows 1, 2 and 5,
    no backward kernel, bit-unchanged) and one train step each of
    ``resnet3d-transformer``, LCF and CAF with their launch counts;
-9. print the kernel table as one JSON line, then the result line.
+9. serve a random full-width bf16 STLT through ``predict --context_parallel
+   2 --num_processes 2`` with both ranks on this one card (two processes
+   ``chip_smoke.py --ring-rank R PORT WORKDIR``; gloo, the ring's K/V staged
+   through host memory, since NCCL refuses two ranks on one GPU): the
+   17-frame set at B = 64 and a ragged 512-frame set at B = 32 whose clips
+   (32-512 frames) span both ranks; before them ``ring_attention`` itself
+   on a 514-frame input against the unsharded blockwise kernel.
+   Each rank's backend line and device, its rows, its launch counts per
+   forward (the ring-offset mode 8 layers x 2 steps, 4 fused
+   projection+attentions, 12 layer tails, nothing else) and its logits of
+   the first batch against the single process's on the same weights are
+   asserted, with each rank's forward time beside the single process's (two
+   ranks sharing one card: no speed claim);
+10. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -180,6 +203,15 @@ points, same keep bits; the two differ only in the order of their sums):
   0.29; row 8 dense without the hi + lo split 1.8e-3 to 2.2e-3, its causal
   key range one key short 7.1e-3 (``python -m
   stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md, PR 6).
+- the blockwise forward's ring-offset mode (row 8): out and lse within
+  OP_TOL elementwise and, in bf16, within DENSE_REL (row 8's limit) in
+  relative norm; the merge-wiped rows exactly zeros with lse -1e30.
+- ``ring_attention`` on two ranks against the unsharded blockwise kernel
+  (bf16): OP_TOL elementwise and RING_REL (1e-3) in relative norm. The
+  sound ring reads 5.4e-4 (each step's output is rounded to bf16 before the
+  f32 merge, as in JAX's ring); with every step's col0 off by one key 0.47,
+  a fault the script plants and asserts the limit catches on every run
+  (H100, PERF.md §6).
 - the blockwise backward's dense-bias mode (rows 9 and 10): dq, dk and dv
   each within a relative Frobenius-norm error of DENSE_BWD_REL (1e-3) in
   bf16 and BWD_REL (1e-5) in f32, the same OP_TOL elementwise as a guard.
@@ -281,6 +313,8 @@ REPLACES = {
     # The dense-bias mode of _blockwise_dq_kernel (:655) and
     # _blockwise_dkdv_kernel (:745), one launch for both.
     "blockwise_attention_bwd_dense": "stlt_tpu/ops/flash.py:655",
+    # The ring-offset mode of _blockwise_attn_kernel (off_base, valid_cols).
+    "blockwise_attention_offsets": "stlt_tpu/ops/flash.py:397",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
@@ -329,9 +363,10 @@ def _uniform(shape, bound, gen, device):
     return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(device)
 
 
-def make_weights(gen, device):
-    """Full-width layer weights, input-major, f32, drawn like the model's
-    init (plus nonzero attention biases)."""
+def make_weights(gen, device, H=H):
+    """Full-width layer weights (or at width ``H``, FF = 4H), input-major,
+    f32, drawn like the model's init (plus nonzero attention biases)."""
+    FF = 4 * H
     return {
         "wqkv": _uniform((H, 3 * H), math.sqrt(6.0 / (4 * H)), gen, device),
         "bqkv": _uniform((3 * H,), 0.02, gen, device),
@@ -1045,7 +1080,7 @@ def library_tail_train(w, dtype, rate):
     return forward, backward
 
 
-def _tail_inputs(tokens, dtype, gen, device, ragged):
+def _tail_inputs(tokens, dtype, gen, device, ragged, H=H):
     """x, attn, a cotangent (1e30 on dead tokens, which the backward must not
     read) and the live flags (None, or ~70 % live with a dead first block)."""
     x = torch.randn((tokens, H), generator=gen).to(device, dtype)
@@ -1072,9 +1107,9 @@ def _check_tail_case(label, x, a, g, live, weights, cfg, dtype):
     from stlt_tpu_torch.ops import fused_tail_train as ftt
 
     tol = OP_TOL[dtype]
-    tokens = x.shape[0]
+    tokens, width = x.shape
     mask = (torch.ones(tokens, dtype=torch.bool, device=x.device) if live is None
-            else live)[:, None].expand(tokens, H)
+            else live)[:, None].expand(tokens, width)
     y, r2 = ftt._launch_tail_train(x, a, weights, cfg, live)
     again = ftt._launch_tail_train(x, a, weights, cfg, live)
     want_y, want_r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
@@ -1526,6 +1561,299 @@ def check_fusion_train_kernels(device):
 
 
 # --- phase 3: the main path through the prediction entry point ----------------
+
+
+# --- phase 2, widths: every kernel at other head dims and widths ------------
+
+# (H, heads) of the width checks: head dim 32 (H = 256, 8 heads), an odd
+# width (H = 320, 5 heads of 64) and head dim 128 at the widest H (H = 1024,
+# 8 heads). The long-clip attention kernels take the same heads.
+WIDTH_CASES = ((256, 8), (320, 5), (1024, 8))
+
+
+def _width_row(name, label, dtype, kernel, plain, err, rel=None):
+    """Time one new shape once (CUDA events, 3 launches after warmup) and
+    print its row."""
+    row = {"name": name, "shape": label, "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+           "rel_err": rel, "ms": cuda_ms(kernel, 3), "plain_ms": cuda_ms(plain, 3)}
+    log("width_check " + json.dumps(row))
+    return row
+
+
+def _check_pairs(label, pairs, tol, rel_tol=None):
+    """Each (name, got, want, live) within ``tol`` elementwise (dead entries
+    exact zeros) and, with ``rel_tol``, in relative norm; returns (largest
+    elementwise error, the relative norm errors)."""
+    errs, rel = [], {}
+    for name, got, want, live in pairs:
+        live = torch.ones_like(got, dtype=torch.bool) if live is None else live
+        errs.append(_check_close(f"{label} {name}", got, want, live, tol))
+        rel[name] = _rel(got, want)
+    if rel_tol is not None and max(rel.values()) > rel_tol:
+        raise AssertionError(f"{label}: relative norm errors {rel} over {rel_tol}")
+    return max(errs), rel
+
+
+def check_width_kernels(device):
+    """Every kernel against its plain version at WIDTH_CASES, bf16 and f32,
+    with the tolerances its row has at the main path's width: rows 1-4 (the
+    eval and train projection kernels at T = 8, 17 and 33), row 2 and rows
+    11-14 (the layer tail, the fused train tail at 2,056 ragged tokens with
+    dropout 0.1), row 5 (17 queries against 33 keys), rows 6-7 (T = 257,
+    dropout 0.1), rows 8-10 in the lengths mode (T = 513, causal, ragged,
+    dropout 0.1) and the dense-bias mode (513 x 513 causal+padding bias).
+    Each new shape is timed once against its plain version."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+    from stlt_tpu_torch.ops import masks
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    seed = 0x5EED5EED
+    rows = []
+    for width, heads in WIDTH_CASES:
+        D = width // heads
+        w = make_weights(gen, device, width)
+        w.update(wq=w["wqkv"][:, :width], bq=w["bqkv"][:width], wkv=w["wqkv"][:, width:],
+                 bkv=w["bqkv"][width:])
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = OP_TOL[dtype]
+            tag = f"H={width} N={heads} D={D} {dtype}"
+            # Rows 1, 3, 4: the spatial (T = 8), temporal (T = 17) and 32-frame (T = 33) stages.
+            for T, clips in ((8, 16 * NUM_FRAMES), (NUM_FRAMES, 64), (LONG_FRAMES, 32)):
+                x = torch.randn((clips, T, width), generator=gen).to(device, dtype)
+                lengths = torch.randint(1, T + 1, (clips,), generator=gen)
+                bias = _causal_padding_bias(lengths, T, device)
+                live = torch.rand(clips, generator=gen) < 0.8
+                rows_live = live.to(device)
+                kw = dict(num_heads=heads, compute_dtype=dtype, rows_live=rows_live)
+                mask = rows_live[:, None, None].expand(x.shape)
+                args = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias)
+                kernel = lambda: fe.fused_proj_attention(*args, **kw)
+                plain = lambda: fe.fused_proj_attention_plain(*args, **kw)
+                err, _ = _check_pairs(f"fused_proj_attention {tag} T={T}",
+                                      [("out", kernel(), plain(), mask)], tol)
+                rows.append(_width_row("fused_proj_attention", f"{tag} T={T} rows={clips}", dtype,
+                                       kernel, plain, err))
+                tkw = dict(kw, dropout_rate=DROPOUT)
+                fwd = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias, seed)
+                kernel = lambda: fe.fused_proj_attention_train(*fwd, **tkw)
+                plain = lambda: fe.fused_proj_attention_train_plain(*fwd, **tkw)
+                err, _ = _check_pairs(f"fused_proj_attention_train {tag} T={T}",
+                                      [("out", kernel(), plain(), mask)], tol)
+                rows.append(_width_row("fused_proj_attention_train", f"{tag} T={T} rows={clips}",
+                                       dtype, kernel, plain, err))
+                g = torch.randn(x.shape, generator=gen).to(device, dtype)
+                g[~rows_live] = 0
+                bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed)
+                kernel = lambda: fe._launch_proj_bwd(*bwd, **tkw)
+                plain = lambda: fe.fused_proj_attention_train_bwd_plain(*bwd, **tkw)
+                got, want = kernel(), plain()
+                err, _ = _check_pairs(f"fused_proj_attention_train_bwd {tag} T={T}",
+                                      [("dqkv", got[0], want[0], mask.repeat(1, 1, 3))], tol)
+                rel = {"dwo": _rel(got[1], want[1]), "dbo": _rel(got[2], want[2])}
+                if max(rel.values()) > GRAD_REL[dtype]:
+                    raise AssertionError(f"fused_proj_attention_train_bwd {tag} T={T}: {rel}")
+                rows.append(_width_row("fused_proj_attention_train_bwd", f"{tag} T={T} rows={clips}",
+                                       dtype, kernel, plain, err, rel))
+                del x, g, got, want
+            # Row 2: the eval tail over the spatial stage's tokens, ragged.
+            x = torch.randn((16 * NUM_FRAMES, NUM_BOXES, width), generator=gen).to(device, dtype)
+            a = (0.5 * torch.randn(x.shape, generator=gen)).to(device, dtype)
+            tokens_live = (torch.rand(x.shape[:2], generator=gen) < 0.7).to(device)
+            targs = (x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"], w["b2"], w["n2s"], w["n2b"])
+            tkw = dict(eps=EPS, compute_dtype=dtype, activation="gelu",
+                       gelu_approximate=dtype == torch.bfloat16, tokens_live=tokens_live)
+            kernel = lambda: fe.fused_layer_tail(*targs, **tkw)
+            plain = lambda: fe.fused_layer_tail_plain(*targs, **tkw)
+            err, _ = _check_pairs(f"fused_layer_tail {tag}",
+                                  [("out", kernel(), plain(), tokens_live[..., None].expand(x.shape))],
+                                  tol)
+            rows.append(_width_row("fused_layer_tail", f"{tag} tokens={x.shape[0] * NUM_BOXES}",
+                                   dtype, kernel, plain, err))
+            # Rows 11-14: the fused train tail (its own rows' limits).
+            xt, at, gt, lt = _tail_inputs(8 * 257, dtype, gen, device, True, width)
+            cfg = ftt.TailConfig(EPS, "gelu", dtype == torch.bfloat16, DROPOUT, seed)
+            errs = _check_tail_case(f"{tag} tokens={8 * 257} gelu rate={DROPOUT} ragged", xt, at, gt,
+                                    lt, _tail_weights(w), cfg, dtype)
+            r2 = ftt._launch_tail_train(xt, at, _tail_weights(w), cfg, lt)[1]
+            rows.append(_width_row(
+                "fused_tail_train (rows 11-14, forward + backward)", f"{tag} tokens={8 * 257}", dtype,
+                lambda: (ftt._launch_tail_train(xt, at, _tail_weights(w), cfg, lt),
+                         ftt._launch_tail_train_bwd(xt, at, r2, gt, _tail_weights(w), cfg, lt)),
+                lambda: (ftt.fused_layer_tail_train_plain(xt, at, _tail_weights(w), cfg, lt),
+                         ftt.fused_layer_tail_train_bwd_plain(xt, at, r2, gt, _tail_weights(w), cfg, lt)),
+                max(errs.values())))
+            del x, a, xt, at, gt, lt, r2
+            # Row 5: 17 queries against 33 keys, key padding.
+            x = torch.randn((32, 17, width), generator=gen).to(device, dtype)
+            ctx = torch.randn((32, 33, width), generator=gen).to(device, dtype)
+            pad = torch.arange(33)[None, :] >= torch.randint(1, 34, (32,), generator=gen)[:, None]
+            cbias = masks.key_padding_bias(pad).to(device)
+            cargs = (x, ctx, w["wq"], w["bq"], w["wkv"], w["bkv"], w["wo"], w["bo"], cbias)
+            ckw = dict(num_heads=heads, compute_dtype=dtype)
+            kernel = lambda: fe.fused_cross_attention(*cargs, **ckw)
+            plain = lambda: fe.fused_cross_attention_plain(*cargs, **ckw)
+            err, rel = _check_pairs(f"fused_cross_attention {tag}", [("out", kernel(), plain(), None)],
+                                    tol, CROSS_REL if dtype == torch.bfloat16 else None)
+            rows.append(_width_row("fused_cross_attention", f"{tag} T=17 S=33 B=32", dtype, kernel,
+                                   plain, err, rel))
+            del x, ctx
+            # Rows 6-7: the short kernel and its backward, T = 257, dropout 0.1.
+            B, T = 8, 257
+            qkv = torch.randn((B, T, 3, heads, D), generator=gen).to(device, dtype)
+            q, k, v = qkv.unbind(2)
+            lengths = ragged_lengths(B, T, gen)
+            bias = _causal_padding_bias(lengths, T, device)
+            drop = dict(dropout_rate=DROPOUT, dropout_seed=seed)
+            kernel = lambda: flash.fused_attention(q, k, v, bias, with_lse=True, **drop)
+            plain = lambda: flash.fused_attention_plain(q, k, v, bias, with_lse=True, **drop)
+            (out, lse), (want, want_lse) = kernel(), plain()
+            err, _ = _check_pairs(f"flash_attention {tag}", [("out", out, want, None),
+                                                             ("lse", lse, want_lse, None)], tol)
+            rows.append(_width_row("flash_attention", f"{tag} B={B} T={T} rate={DROPOUT}", dtype,
+                                   kernel, plain, err))
+            dout = torch.randn(q.shape, generator=gen).to(device, dtype)
+            dsum = flash._dsum(dout, want, None)
+            bargs = (q, k, v, dout, want_lse, dsum)
+            kernel = lambda: flash.fused_attention_bwd(*bargs, bias, **drop)
+            plain = lambda: flash.attention_bwd_plain(*bargs, bias=bias, **drop)
+            err, rel = _check_grads(f"flash_attention_bwd {tag}", kernel(), plain(), None, dtype)
+            rows.append(_width_row("flash_attention_bwd", f"{tag} B={B} T={T} rate={DROPOUT}", dtype,
+                                   kernel, plain, err, rel))
+            # Rows 8-10, lengths mode: T = 513, causal, ragged, dropout 0.1.
+            B, T = 4, 513
+            qkv = torch.randn((B, T, 3, heads, D), generator=gen).to(device, dtype)
+            q, k, v = qkv.unbind(2)
+            lengths = ragged_lengths(B, T, gen)
+            lkw = dict(kv_lengths=lengths.to(device), causal=True, **drop)
+            kernel = lambda: flash.blockwise_attention(q, k, v, **lkw)
+            plain = lambda: flash.blockwise_attention_plain(q, k, v, **lkw)
+            (out, lse), (want, want_lse) = kernel(), plain()
+            live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)
+            err, _ = _check_pairs(f"blockwise_attention {tag}", [
+                ("out", out, want, live[:, :, None, None].expand(out.shape)),
+                ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], tol)
+            rows.append(_width_row("blockwise_attention", f"{tag} B={B} T={T} causal ragged "
+                                   f"rate={DROPOUT}", dtype, kernel, plain, err))
+            dout = torch.randn(q.shape, generator=gen).to(device, dtype)
+            dsum = flash._dsum(dout, want, lengths.to(device))
+            bargs = (q, k, v, dout, want_lse, dsum)
+            kernel = lambda: flash.blockwise_attention_bwd(*bargs, **lkw)
+            plain = lambda: flash.attention_bwd_plain(*bargs, **lkw)
+            err, rel = _check_grads(f"blockwise_attention_bwd {tag}", kernel(), plain(), ~live, dtype)
+            rows.append(_width_row("blockwise_attention_bwd", f"{tag} B={B} T={T} causal ragged "
+                                   f"rate={DROPOUT}", dtype, kernel, plain, err, rel))
+            # Rows 8-10, dense-bias mode: 513 x 513, causal+padding bias, no flag.
+            dbias = _causal_padding_bias(lengths, T, device)
+            kernel = lambda: flash.blockwise_attention(q, k, v, bias=dbias)
+            plain = lambda: flash.blockwise_attention_plain(q, k, v, bias=dbias)
+            (out, lse), (want, want_lse) = kernel(), plain()
+            err, rel = _check_pairs(f"blockwise_attention_dense {tag}", [
+                ("out", out, want, None), ("lse", lse, want_lse, None)], tol,
+                None if dtype == torch.float32 else DENSE_REL)
+            rows.append(_width_row("blockwise_attention_dense", f"{tag} B={B} {T}x{T}", dtype,
+                                   kernel, plain, err, rel))
+            dsum = flash._dsum(dout, want, None)
+            bargs = (q, k, v, dout, want_lse, dsum)
+            kernel = lambda: flash.blockwise_attention_bwd(*bargs, bias=dbias)
+            plain = lambda: flash.attention_bwd_plain(*bargs, bias=dbias)
+            err, rel = _check_grads(f"blockwise_attention_bwd_dense {tag}", kernel(), plain(), None,
+                                    dtype, None if dtype == torch.float32 else DENSE_BWD_REL)
+            rows.append(_width_row("blockwise_attention_bwd_dense", f"{tag} B={B} {T}x{T}", dtype,
+                                   kernel, plain, err, rel))
+            del q, k, v, qkv, out, lse, want, want_lse, dout, dsum, bargs
+            torch.cuda.empty_cache()
+    log(f"widths: {len(rows)} checks passed at (H, heads) in {WIDTH_CASES}, bf16 and f32")
+    return rows
+
+
+# --- phase 2, ring offsets: the blockwise forward's ring-offset mode ---------
+
+# The per-rank shapes of a 512-frame clip at C = 2 (513 frames padded to
+# 514): 257 local queries against a held chunk of 257 keys, 12 heads of 64.
+RING_CLIPS, RING_T = 32, 257
+RING_OFFSETS = ((0, 0), (0, RING_T), (RING_T, 0), (RING_T, RING_T))
+
+
+def offsets_bound(q, lengths, causal, offsets, dtype):
+    """(ms, "bytes" | "operations") for one ring step of the blockwise
+    kernel, counted at global indices as blockwise_bound counts the lengths
+    mode: the flops of the (query, key) pairs these offsets leave live
+    (global key col0 + s < length, col0 + s <= row0 + t when causal, query
+    row0 + t < length); q read for the live query rows, k and v for the
+    keys that some live query of the clip attends; out and lse written for
+    every row, the lengths read once."""
+    B, T, N, D = q.shape
+    row0, col0 = offsets
+    rows = torch.arange(T)[None, :, None] + row0
+    cols = torch.arange(T)[None, None, :] + col0
+    L = lengths[:, None, None]
+    live = (cols < L) & (rows < L) & ((cols <= rows) if causal else True)
+    pairs = float(live.sum())
+    q_rows = float((rows < L).sum())
+    kv_rows = float(live.any(dim=1).sum())
+    es = q.element_size()
+    nbytes = (q_rows + 2 * kv_rows) * N * D * es + B * T * N * D * es + B * N * T * 4 + B * 4
+    return _bound(4 * D * N * pairs, nbytes, dtype)
+
+
+def check_offsets_kernel(device):
+    """The blockwise forward's ring-offset mode against its plain version
+    (``blockwise_attention_plain`` with the same offsets), bf16 and f32, at
+    RING_OFFSETS with causal ragged lengths 33-513, out and lse on live rows
+    within OP_TOL (DENSE_REL in relative norm in bf16, row 8's limit), dead
+    rows exact zeros with lse 0, the rows with no live key in the chunk
+    (merge-wiped) zeros with lse -1e30, and once with a dropout seed. Timed
+    against its plain version, ``scaled_dot_product_attention`` with the same
+    mask, and its bound. Returns the kernel-table row (bf16, (257, 0): rank
+    1's rows against chunk 0, every key a candidate)."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        q, k, v = make_heads(RING_CLIPS, RING_T, dtype, gen, device)
+        lengths = torch.randint(33, 2 * RING_T, (RING_CLIPS,), generator=gen)
+        lengths[0], lengths[1] = 33, 2 * RING_T - 1
+        for offsets in RING_OFFSETS:
+            for seed in (None, 0x5EED5EED):
+                if seed is not None and offsets != (RING_T, 0):
+                    continue
+                kw = dict(kv_lengths=lengths.to(device), causal=True, offsets=offsets,
+                          dropout_seed=seed, dropout_rate=DROPOUT if seed is not None else 0.0)
+                kernel = lambda: flash.blockwise_attention(q, k, v, **kw)
+                plain = lambda: flash.blockwise_attention_plain(q, k, v, **kw)
+                (out, lse), (want, want_lse) = kernel(), plain()
+                torch.cuda.synchronize()
+                label = f"blockwise_attention offsets={offsets} {dtype} rate={kw['dropout_rate']}"
+                row0, col0 = offsets
+                t = torch.arange(RING_T)[None, :] + row0
+                live = (t < lengths[:, None]).to(device)  # [B, T]
+                none = ((col0 >= lengths[:, None]) | (col0 > t)).to(device) & live
+                err, rel = _check_pairs(label, [
+                    ("out", out, want, live[:, :, None, None].expand(out.shape)),
+                    ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], tol,
+                    DENSE_REL if dtype == torch.bfloat16 else None)
+                wiped = lse.transpose(1, 2)[none]
+                if none.any() and not (bool((wiped == flash._NEG_INF).all()) and
+                                       out[none].abs().max().item() == 0.0):
+                    raise AssertionError(f"{label}: merge-wiped rows are not zeros with lse -1e30")
+                mask = flash._offsets_bias(lengths.to(device), RING_T, RING_T, True, offsets).to(dtype)
+                row = {"name": "blockwise_attention_offsets", "offsets": list(offsets),
+                       "dtype": str(dtype).split(".")[1], "clips": RING_CLIPS, "T": RING_T,
+                       "rate": kw["dropout_rate"], "max_abs_err": err, "rel_err": rel,
+                       "live_rows": int(live.sum()), "wiped_rows": int(none.sum()),
+                       "ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 3),
+                       "library_ms": cuda_ms(library_attention(q, k, v, mask), 10)}
+                row["bound_ms"], row["bound_by"] = offsets_bound(q, lengths, True, offsets, dtype)
+                log("kernel_check " + json.dumps(row))
+                if dtype == torch.bfloat16 and offsets == (RING_T, 0) and seed is None:
+                    table["blockwise_attention_offsets"] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return table
 
 
 def write_something_dataset(root: str, num_videos: int, seed: int, num_used: int = NUM_CLASSES,
@@ -2746,7 +3074,302 @@ def run_fusion_train_path(device):
     return launches, step_ms
 
 
-def main() -> int:
+# --- phase 9: serving under --context_parallel 2, two ranks on one card -------
+
+RING_C = 2
+# --layout_num_frames -> (batch, the clips' frame counts): the 17-frame set
+# (B = 64) and a ragged 512-frame set (B = 32) of clips of 32-512 frames,
+# so that about half of them span both ranks (phase 5's clips, at most 256
+# frames, would leave rank 1 with dead frames only).
+RING_RUNS = {16: (BATCH, (3, 25)), 512: (LONG_CLIPS[512][0], (32, 513))}
+RING_FORWARDS = 3  # timed forwards of each rank and of the single process
+# The op check: ring_attention at C = 2 on a 512-frame clip's heads (514
+# frames, 12 heads of 64, bf16, causal, lengths 33-514) against the single
+# device's blockwise_attention, within OP_TOL elementwise and RING_REL in
+# relative norm. RING_REL is set from two readings on the card (PERF.md §6):
+# the sound ring (each step's output rounded to bf16 before the f32
+# merge, as in JAX's ring, so a row whose keys span both chunks is rounded
+# twice) and the planted fault of ring_steps_on_one_device(col_shift=1).
+RING_OP = (32, 2 * RING_T, HEADS, H // HEADS)
+RING_REL = 1e-3
+
+
+def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0):
+    """ring_attention's steps for every rank of a ring of RING_C, run on one
+    device: the same blockwise calls with offsets and the same f32
+    ``logaddexp`` merge, the chunks taken in place of the transfers.
+    ``col_shift`` plants a fault: every step's col0 off by that many keys."""
+    from stlt_tpu_torch.ops import flash
+
+    B, T, N, D = q.shape
+    t = T // RING_C
+    outs = []
+    for idx in range(RING_C):
+        rows = slice(idx * t, (idx + 1) * t)
+        o = torch.zeros((B, N, t, D), dtype=torch.float32, device=q.device)
+        lse = torch.full((B, N, t), flash._NEG_INF, dtype=torch.float32, device=q.device)
+        for j in range(RING_C):
+            chunk = (idx - j) % RING_C
+            cols = slice(chunk * t, (chunk + 1) * t)
+            o_j, lse_j = flash.blockwise_attention(q[:, rows], k[:, cols], v[:, cols], kv_lengths=lengths,
+                                                   causal=True,
+                                                   offsets=(idx * t, chunk * t + col_shift))
+            lse_new = torch.logaddexp(lse, lse_j)
+            o = o * torch.exp(lse - lse_new)[..., None] + \
+                o_j.transpose(1, 2).float() * torch.exp(lse_j - lse_new)[..., None]
+            lse = lse_new
+        outs.append(o.transpose(1, 2).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def ring_op_inputs(device):
+    """q, k, v [B, 514, 12, 64] bf16 and lengths [B] of the op check, the
+    same on every rank (drawn from one seed on the host)."""
+    B, T, N, D = RING_OP
+    gen = torch.Generator().manual_seed(SEED + 13)
+    q, k, v = (torch.randn((B, T, N, D), generator=gen).to(device, torch.bfloat16) for _ in range(3))
+    lengths = torch.randint(33, T + 1, (B,), generator=gen)
+    lengths[0], lengths[1] = 33, T
+    return q, k, v, lengths.to(device)
+
+
+def _ring_argv(paths, ckpt, frames, batch_size, out):
+    return [
+        "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+        "--test_dataset_path", paths["dataset"], "--labels_path", paths["labels"],
+        "--videoid2size_path", paths["videoid2size"], "--checkpoint_path", ckpt,
+        "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+        "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+        "--layout_num_frames", str(frames), "--batch_size", str(batch_size),
+        "--compute_dtype", "bfloat16", "--use_pallas", "--output", out, "--top_k", "5",
+        "--context_parallel", str(RING_C),
+    ]
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Mean host-clock time of ``fn`` (ending in a synchronize) after one
+    warmup: the ring's forward waits on host-staged transfers."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def ring_rank(rank: int, port: int, workdir: str) -> int:
+    """One rank of phase 9 (``chip_smoke.py --ring-rank R PORT WORKDIR``):
+    ``predict`` over each RING_RUNS set as rank R of a context ring of
+    RING_C processes on this card, with the launch counts of each run; then
+    the first batch's logits and the forward's time under the ring. Writes
+    ``rank_R.json`` and ``rank_R_FRAMES.npy`` (the logits) to WORKDIR."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+    from stlt_tpu_torch.parser import build_parser
+
+    with open(os.path.join(workdir, "runs.json")) as f:
+        runs = json.load(f)
+    report = {"rank": rank, "runs": {}}
+    parser = build_parser("chip_smoke ring rank")
+    parser.add_argument("--top_k", type=int, default=5)
+    parser.add_argument("--output", type=str)
+    first = parser.parse_args(runs[0]["argv"] + ["--num_processes", str(RING_C), "--process_id",
+                                                 str(rank), "--coordinator_address",
+                                                 f"localhost:{port}"])
+    predict.check_flags(first)
+    device = predict.start_processes(first)
+    report["device"] = str(device)
+    try:
+        from stlt_tpu_torch.ops.ring import ring_attention
+        from stlt_tpu_torch.parallel.mesh import active_context_mesh
+
+        q, k, v, lengths = ring_op_inputs(device)
+        t = RING_OP[1] // RING_C
+        rows = slice(rank * t, (rank + 1) * t)
+        with torch.inference_mode():
+            out = ring_attention(q[:, rows], k[:, rows], v[:, rows], None, active_context_mesh(),
+                                 kv_lengths=lengths, causal=True)
+        torch.cuda.synchronize()
+        np.save(os.path.join(workdir, f"rank_{rank}_op.npy"), out.float().cpu().numpy())
+        for run in runs:
+            args = parser.parse_args(run["argv"] + ["--num_processes", str(RING_C)])
+            predict.check_flags(args)
+            reset_all_launches()
+            t0 = time.perf_counter()
+            rows = predict.serve(args, device)
+            torch.cuda.synchronize()
+            entry = {"rows": len(rows), "seconds": time.perf_counter() - t0,
+                     "launches": all_launches()}
+            data_cfg = DataConfig(dataset_name="something", dataset_path=args.test_dataset_path,
+                                  labels_path=args.labels_path,
+                                  videoid2size_path=args.videoid2size_path,
+                                  layout_num_frames=args.layout_num_frames, frames_multiple=RING_C)
+            model_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                            num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                            num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+            model = _served_model(args.checkpoint_path, model_kw, position_table_rows(data_cfg), device)
+            _, batch = _first_batch(data_cfg, args.batch_size, device)
+            with torch.inference_mode():
+                logits = model(batch)["stlt"]
+                entry["forward_ms"] = _host_ms(lambda: model(batch), RING_FORWARDS)
+            np.save(os.path.join(workdir, f"rank_{rank}_{args.layout_num_frames}.npy"),
+                    logits.float().cpu().numpy())
+            report["runs"][str(args.layout_num_frames)] = entry
+            del model, batch
+            torch.cuda.empty_cache()
+    finally:
+        predict.stop_processes()
+    with open(os.path.join(workdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_ring_path(device):
+    """Serve a random full-width bf16 STLT through ``predict --context_parallel
+    2 --num_processes 2``: two rank processes on this one card (gloo, the ring's
+    K/V staged through host memory; NCCL refuses two ranks on one GPU), over
+    the 17-frame set (B = 64) and the ragged 512-frame set (B = 32). Asserts
+    each rank's backend line and device, the rows each run writes, the launch
+    counts per rank per forward (the blockwise kernel's ring-offset mode 8
+    layers x 2 steps, the fused projection+attention 4, the layer tail 12,
+    nothing else), and both ranks' logits of the first batch against the
+    single process's on the same weights and batch (LOGITS_ATOL); prints
+    each rank's forward time beside the single process's. Two ranks that
+    share one card, with host-staged rotation, is no speed claim. Returns
+    the ring-offset mode's launches of rank 0 (both runs)."""
+    import socket
+
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.ops import flash
+
+    layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
+    model_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                    num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                    num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_ring_") as root:
+        runs, cfgs = [], {}
+        for frames, (batch_size, frames_range) in RING_RUNS.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            paths = write_something_dataset(sub, batch_size * LONG_NUM_BATCHES, SEED + 11 + frames,
+                                            frames_range=frames_range)
+            data_cfg = DataConfig(dataset_name="something", dataset_path=paths["dataset"],
+                                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                                  layout_num_frames=frames, frames_multiple=RING_C)
+            rows = position_table_rows(data_cfg)
+            model = models_factory["stlt"](make_model_config("stlt", **model_kw, layout_num_frames=rows),
+                                           torch.Generator().manual_seed(SEED + 12))
+            ckpt = os.path.join(sub, "stlt_random.pt")
+            torch.save(model.state_dict(), ckpt)
+            del model
+            runs.append({"argv": _ring_argv(paths, ckpt, frames, batch_size,
+                                            os.path.join(sub, "predictions.jsonl"))})
+            cfgs[frames] = (data_cfg, ckpt, batch_size, rows)
+        with open(os.path.join(root, "runs.json"), "w") as f:
+            json.dump(runs, f)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ring-rank", str(r),
+                                   str(port), root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(RING_C)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            tail = "\n".join(out.splitlines()[-40:])
+            if proc.returncode != 0:
+                raise AssertionError(f"ring rank {r} exited {proc.returncode}:\n{tail}")
+            want_line = f"distributed: rank {r} of {RING_C} on cuda:0, backend gloo"
+            if want_line not in out:
+                raise AssertionError(f"ring rank {r}: no line '{want_line}' in its log:\n{tail}")
+            log(f"ring rank {r}: " + next(line for line in out.splitlines() if want_line in line))
+        reports = []
+        for r in range(RING_C):
+            with open(os.path.join(root, f"rank_{r}.json")) as f:
+                reports.append(json.load(f))
+            if reports[-1]["device"] != "cuda:0":
+                raise AssertionError(f"ring rank {r} ran on {reports[-1]['device']}")
+        # The op: the ranks' ring_attention against one device running the
+        # same steps (the same kernel calls and f32 merge, no transfers: the
+        # transfers lose nothing), and against the unsharded blockwise kernel
+        # (RING_REL), whose limit must also catch the planted fault. Both
+        # against the f32 plain version of the whole sequence, to show what
+        # the second rounding of the ring costs.
+        q, k, v, lengths = ring_op_inputs(device)
+        with torch.inference_mode():
+            single, _ = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+            steps = ring_steps_on_one_device(q, k, v, lengths)
+            fault = ring_steps_on_one_device(q, k, v, lengths, col_shift=1)
+            exact, _ = flash.blockwise_attention_plain(q.float(), k.float(), v.float(),
+                                                       kv_lengths=lengths, causal=True)
+        got = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(root, f"rank_{r}_op.npy")) for r in range(RING_C)], axis=1)).to(
+                device, torch.bfloat16)
+        live = (torch.arange(RING_OP[1], device=device)[None, :] < lengths[:, None])
+        live = live[:, :, None, None].expand(got.shape)
+        label = f"ring_attention at C = {RING_C} (two ranks, B = {RING_OP[0]}, {RING_OP[1]} frames)"
+        err, rel = _check_pairs(f"{label} against its steps on one device",
+                                [("out", got, steps, live)], OP_TOL[torch.bfloat16], DENSE_REL)
+        err1, rel1 = _check_pairs(f"{label} against the unsharded blockwise kernel",
+                                  [("out", got, single, live)], OP_TOL[torch.bfloat16], RING_REL)
+        fault_rel = _rel(fault, single)
+        if fault_rel <= RING_REL:
+            raise AssertionError(f"{label}: the planted fault (col0 off by one) reads {fault_rel:.3e}, "
+                                 f"within RING_REL {RING_REL}: the limit catches nothing")
+        log(f"{label}, causal, lengths 33-{RING_OP[1]}: against its steps on one device max_abs_err "
+            f"{err:.3e}, relative norm {rel['out']:.3e} (OP_TOL, DENSE_REL {DENSE_REL}); against the "
+            f"unsharded blockwise kernel max_abs_err {err1:.3e}, relative norm {rel1['out']:.3e} "
+            f"(OP_TOL, RING_REL {RING_REL}; with col0 off by one {fault_rel:.3e}); against the f32 "
+            f"plain version the ring {_rel(got, exact):.3e}, the unsharded kernel "
+            f"{_rel(single, exact):.3e}")
+        offsets_launches = 0
+        for frames, (data_cfg, ckpt, batch_size, rows) in cfgs.items():
+            model = _served_model(ckpt, model_kw, rows, device)
+            _, batch = _first_batch(data_cfg, batch_size, device)
+            with torch.inference_mode():
+                single = model(batch)["stlt"].float()
+                single_ms = _host_ms(lambda: model(batch), RING_FORWARDS)
+            per_forward = dict.fromkeys(reports[0]["runs"][str(frames)]["launches"], 0)
+            per_forward.update({"blockwise_attention_offsets": TEMPORAL_LAYERS * RING_C,
+                                "fused_proj_attention": SPATIAL_LAYERS, "fused_layer_tail": layers})
+            for r, report in enumerate(reports):
+                run = report["runs"][str(frames)]
+                want = {k: v * LONG_NUM_BATCHES for k, v in per_forward.items()}
+                if run["launches"] != want:
+                    raise AssertionError(f"ring rank {r}, {frames} frames: launches {run['launches']}, "
+                                         f"expected {want} ({LONG_NUM_BATCHES} forwards)")
+                if run["rows"] != batch_size * LONG_NUM_BATCHES:
+                    raise AssertionError(f"ring rank {r}, {frames} frames: {run['rows']} rows")
+                got = torch.from_numpy(np.load(os.path.join(root, f"rank_{r}_{frames}.npy"))).to(device)
+                _check_logits(f"ring rank {r}, {frames} frames", got, single,
+                              "the single process on the same weights and batch")
+                log(f"ring rank {r}, {frames} frames (B = {batch_size}, {data_cfg.num_total_frames} "
+                    f"frame slots): predict {run['rows']} clips in {run['seconds']:.3f} s; launches per "
+                    f"forward {json.dumps({k: v // LONG_NUM_BATCHES for k, v in run['launches'].items() if v})}; "
+                    f"forward {run['forward_ms']:.3f} ms against {single_ms:.3f} ms in one process "
+                    f"(two ranks share this one card, the ring staged through host memory: no "
+                    f"speed claim)")
+            with open(os.path.join(os.path.dirname(ckpt), "predictions.jsonl")) as f:
+                written = [json.loads(line) for line in f]
+            if len(written) != batch_size * LONG_NUM_BATCHES:
+                raise AssertionError(f"the coordinator wrote {len(written)} rows at {frames} frames")
+            offsets_launches += reports[0]["runs"][str(frames)]["launches"]["blockwise_attention_offsets"]
+            del model, batch
+            torch.cuda.empty_cache()
+    return {"blockwise_attention_offsets": offsets_launches}
+
+
+def main(argv=()) -> int:
+    argv = list(argv)
+    if argv[:1] == ["--ring-rank"]:  # one rank of phase 9, started by run_ring_path
+        return ring_rank(int(argv[1]), int(argv[2]), argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
               file=sys.stderr)
@@ -2774,6 +3397,8 @@ def main() -> int:
     table.update(check_tail_train_kernels(device))
     table.update(check_fusion_kernels(device))
     table.update(check_fusion_train_kernels(device))
+    check_width_kernels(device)  # every kernel at other head dims and widths
+    table.update(check_offsets_kernel(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
@@ -2783,6 +3408,8 @@ def main() -> int:
     launches.update(run_fusion_path(device))  # the fusion models: row 5 and row 8's dense mode
     # Fusion training: the dense-bias mode of the blockwise backward (rows 9, 10).
     launches.update(run_fusion_train_path(device)[0])
+    # Serving under --context_parallel 2: two ranks on this card, the ring's offsets mode.
+    launches.update(run_ring_path(device))
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:
@@ -2807,4 +3434,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """stlt_tpu_torch: the PyTorch/CUDA port of stlt_tpu for NVIDIA Hopper.
 
 A package beside ``stlt_tpu`` (the JAX reference, which it never imports).
-This slice serves the STLT eval path (``python -m stlt_tpu_torch.predict``)
-through hand-written CUDA kernels for the two fused encoder ops
-(``ops/fused_encoder.py``, sources in ``csrc/``).
+It serves, evaluates and trains the six factory models (``predict``,
+``inference``, ``train``) through hand-written CUDA kernels (``ops/``,
+sources in ``csrc/``), and serves STLT frame-sharded over several processes
+(``parallel/``, ``ops/ring.py``).
 """

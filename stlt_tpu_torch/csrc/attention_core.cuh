@@ -1,6 +1,6 @@
-// The attention core of the long-clip path: for projected q [B, T, N, 64] and
-// k, v [B, S, N, 64] (read through their strides, so the q/k/v thirds of one
-// [B, T, 3H] projection need no transpose copy),
+// The attention core of the long-clip path: for projected q [B, T, N, D] and
+// k, v [B, S, N, D], head dim D in {32, 64, 128} (read through their strides,
+// so the q/k/v thirds of one [B, T, 3H] projection need no transpose copy),
 //
 //   out[b, t, n] = sum_s drop(softmax_s(q[b, t, n] . k[b, s, n] * scale + bias[b, n, t, s])) v[b, s, n]
 //
@@ -21,6 +21,20 @@
 //   exists. Key chunks at or past the clip's length, or above the last
 //   query's diagonal, are never loaded; query rows t >= lengths[b] are written
 //   as zeros with lse 0, and a query tile with no live row skips all compute.
+//   Its ring-offset form (the TPU kernel with off_base, one call per ring
+//   step of stlt_tpu/ops/ring.py) places the block in the whole sequence:
+//   local query t is global row0 + t and local key s global col0 + s, so key
+//   s is live iff s < S, col0 + s < lengths[b] (and col0 + s <= row0 + t when
+//   causal), and rows with row0 + t >= lengths[b] are the dead ones. Row0 =
+//   col0 = 0 is the plain lengths mode. The dropout bits keep hashing the
+//   local (t, s), as the TPU kernel does (the ring varies the seed per chunk).
+//
+// A live row can have no live key in the held chunk (rank 0's rows against
+// chunk 1 under causal). The TPU kernel forces its first key block live, so
+// such a row gets a finite output and an lse near -1e30 that the ring's
+// cross-chunk merge wipes out; here such a row is written as zeros with lse
+// -1e30 (the online softmax shifts by 0 while its running max is still
+// -inf, so no inf - inf arises), never NaN and never lse 0.
 //
 // Both modes write lse[b, n, t] = m + log(l) when given an lse pointer (the
 // blockwise entry point always; the short one in training), which the
@@ -39,7 +53,11 @@
 // this one is computed), and keeps an online softmax: per query the running
 // max m, the running sum l (each lane its own part) and the f32 output
 // accumulator in registers; lane j holds keys j and j + 32 of each chunk and
-// output columns j and j + 32. This equals normalising before PV up to
+// output columns j + 32 i (i < D / 32). The head dim is a template
+// argument: the output accumulator is a register array of D / 32 columns.
+// Shared memory (q, two K and two V stages of 64 rows, the per-warp scratch):
+// f32 62,464 / 103,424 / 185,344 bytes and bf16 60,416 / 80,896 / 121,856
+// at D = 32 / 64 / 128, inside the 227 KB a block may take at every D. This equals normalising before PV up to
 // rounding. The TPU kernels' blocking does not carry over: a whole [T, S] f32
 // tile per row (the short TPU kernel) does not fit 227 KB beside K and V at
 // 512 keys.
@@ -68,29 +86,32 @@
 namespace stlt {
 namespace attn {
 
-constexpr int kD = 64;        // head dim the kernels take
 constexpr int kBQ = 64;       // queries of one block
 constexpr int kBK = 64;       // keys of one chunk
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = kBQ / kWarps;  // queries of one warp
 constexpr int kLDP = kBK + 8;        // bf16 probability rows (32 B aligned for WMMA)
+constexpr float kNegInf = -1e30f;    // the lse of a row with no live key (_NEG_INF)
 
 static_assert(kRows == 16 && kBK == 64, "one WMMA row fragment per warp; lanes own keys j, j + 32");
 
-// Shared-memory row length of q/k/v tiles: 68 floats (16-byte rows, float4
-// reads of 8 lanes on 8 rows hit distinct banks) or 72 bf16 (32-byte rows for
-// WMMA).
-template <typename E>
+// Shared-memory row length of q/k/v tiles of head dim D: D + 4 floats
+// (16-byte rows, float4 reads of 8 lanes on 8 rows hit distinct banks) or
+// D + 8 bf16 (rows whose 16-row steps stay 32-byte aligned for WMMA).
+template <typename E, int D>
 struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int LD = kD + 4;
+template <int D>
+struct Tile<float, D> {
+  static constexpr int LD = D + 4;
 };
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int LD = kD + 8;
+template <int D>
+struct Tile<__nv_bfloat16, D> {
+  static constexpr int LD = D + 8;
 };
+
+// The head dims the kernels are instantiated for.
+#define STLT_HEAD_DIMS(F) F(32) F(64) F(128)
 
 struct AttnArgs {
   const void* q;
@@ -101,16 +122,17 @@ struct AttnArgs {
   long long bb, bn, bt;                           // bias strides of b, n, t (0 = broadcast)
   const int* lengths;                             // lengths mode: [B] live keys
   int causal;
-  void* out;   // [B, T, N, kD] contiguous, storage type
+  int row0, col0;  // lengths mode: global index of local query 0 and key 0 (a ring step)
+  void* out;   // [B, T, N, D] contiguous, storage type
   float* lse;  // [B, N, T] or nullptr (bias mode in eval)
   int B, T, S, N;
   float scale;
   Dropout drop;  // probability dropout (kDrop instantiations)
 };
 
-template <typename E>
+template <typename E, int D>
 constexpr size_t smem_bytes() {
-  constexpr int LD = Tile<E>::LD;
+  constexpr int LD = Tile<E, D>::LD;
   size_t bytes = sizeof(E) * (size_t)(kBQ + 4 * kBK) * LD  // q, two K and two V stages
                  + sizeof(float) * (size_t)kWarps * kRows * kBK;  // per-warp scratch
   if (sizeof(E) == 2) bytes += 2 * sizeof(E) * (size_t)kWarps * kRows * kLDP;  // p hi, lo
@@ -134,10 +156,10 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gme
 
 // Rows r0 .. r0 + 63 of one (clip, head) into a [64][LD] tile; rows at or
 // past `limit` are zeros.
-template <typename E>
+template <int D, typename E>
 __device__ __forceinline__ void load_tile(E* dst, const E* base, long long row_stride, int r0,
                                           int limit) {
-  constexpr int kVec = 16 / sizeof(E), kPerRow = kD / kVec, LD = Tile<E>::LD;
+  constexpr int kVec = 16 / sizeof(E), kPerRow = D / kVec, LD = Tile<E, D>::LD;
   for (int c = threadIdx.x; c < kBK * kPerRow; c += kThreads) {
     const int i = c / kPerRow, col = (c % kPerRow) * kVec;
     const bool valid = r0 + i < limit;
@@ -147,13 +169,14 @@ __device__ __forceinline__ void load_tile(E* dst, const E* base, long long row_s
 }
 
 // s[r][j] = q[row r of the warp] . k[key lane + 32 j] over the chunk.
+template <int D>
 __device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const float* qw, const float* kc,
                                              float*, int lane) {
-  constexpr int LD = Tile<float>::LD;
+  constexpr int LD = Tile<float, D>::LD;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
+  for (int d = 0; d < D; d += 4) {
     const float4 ka = *reinterpret_cast<const float4*>(kc + lane * LD + d);
     const float4 kb = *reinterpret_cast<const float4*>(kc + (lane + 32) * LD + d);
 #pragma unroll
@@ -165,19 +188,20 @@ __device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const float* 
   }
 }
 
+template <int D>
 __device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const __nv_bfloat16* qw,
                                              const __nv_bfloat16* kc, float* sc, int lane) {
-  constexpr int LD = Tile<__nv_bfloat16>::LD;
+  constexpr int LD = Tile<__nv_bfloat16, D>::LD;
   using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-  FragA qa[kD / 16];
+  FragA qa[D / 16];
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wmma::load_matrix_sync(qa[kk], qw + kk * 16, LD);
+  for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], qw + kk * 16, LD);
 #pragma unroll
   for (int j = 0; j < kBK / 16; ++j) {
     FragC acc;
     wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       FragKt kt;  // k^T: element (d, key) at kc[key * LD + d]
       wmma::load_matrix_sync(kt, kc + j * 16 * LD + kk * 16, LD);
       wmma::mma_sync(acc, qa[kk], kt, acc);
@@ -193,10 +217,12 @@ __device__ __forceinline__ void chunk_logits(float (&s)[kRows][2], const __nv_bf
   __syncwarp();
 }
 
-// o[r][j] += sum_s p[r][s] v[s][lane + 32 j] over the chunk (p in s).
-__device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[kRows][2],
+// o[r][j] += sum_s p[r][s] v[s][lane + 32 j] over the chunk (p in s), for
+// the D / 32 output columns of the lane.
+template <int D>
+__device__ __forceinline__ void chunk_pv(float (&o)[kRows][D / 32], const float (&p)[kRows][2],
                                          const float* vc, float* sc, __nv_bfloat16*, int lane) {
-  constexpr int LD = Tile<float>::LD;
+  constexpr int LD = Tile<float, D>::LD, kO = D / 32;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     sc[r * kBK + lane] = p[r][0];
@@ -205,26 +231,31 @@ __device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[
   __syncwarp();
 #pragma unroll 2
   for (int s4 = 0; s4 < kBK; s4 += 4) {
-    float va[4], vb[4];
+    float va[kO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      va[i] = vc[(s4 + i) * LD + lane];
-      vb[i] = vc[(s4 + i) * LD + lane + 32];
-    }
+    for (int j = 0; j < kO; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) va[j][i] = vc[(s4 + i) * LD + lane + 32 * j];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const float4 pr = *reinterpret_cast<const float4*>(sc + r * kBK + s4);
-      o[r][0] = fmaf(pr.w, va[3], fmaf(pr.z, va[2], fmaf(pr.y, va[1], fmaf(pr.x, va[0], o[r][0]))));
-      o[r][1] = fmaf(pr.w, vb[3], fmaf(pr.z, vb[2], fmaf(pr.y, vb[1], fmaf(pr.x, vb[0], o[r][1]))));
+#pragma unroll
+      for (int j = 0; j < kO; ++j) {
+        o[r][j] = fmaf(pr.w, va[j][3], fmaf(pr.z, va[j][2], fmaf(pr.y, va[j][1], fmaf(pr.x, va[j][0], o[r][j]))));
+      }
     }
   }
   __syncwarp();
 }
 
-__device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[kRows][2],
+// The bf16 form: the products land in the warp's [kRows][kBK] f32 scratch,
+// 64 output columns (four fragments) at a time.
+template <int D>
+__device__ __forceinline__ void chunk_pv(float (&o)[kRows][D / 32], const float (&p)[kRows][2],
                                          const __nv_bfloat16* vc, float* sc, __nv_bfloat16* ph,
                                          int lane) {
-  constexpr int LD = Tile<__nv_bfloat16>::LD;
+  constexpr int LD = Tile<__nv_bfloat16, D>::LD, kO = D / 32;
+  constexpr int kGroup = D < kBK ? D : kBK;  // output columns per pass through the scratch
   __nv_bfloat16* pl = ph + kRows * kLDP;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -237,33 +268,39 @@ __device__ __forceinline__ void chunk_pv(float (&o)[kRows][2], const float (&p)[
   }
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < kD / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
+  for (int g0 = 0; g0 < D; g0 += kGroup) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      FragA ah, al;
-      FragB vf;
-      wmma::load_matrix_sync(ah, ph + kk * 16, kLDP);
-      wmma::load_matrix_sync(al, pl + kk * 16, kLDP);
-      wmma::load_matrix_sync(vf, vc + kk * 16 * LD + j * 16, LD);
-      wmma::mma_sync(acc, ah, vf, acc);
-      wmma::mma_sync(acc, al, vf, acc);
+    for (int j = 0; j < kGroup / 16; ++j) {
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        FragA ah, al;
+        FragB vf;
+        wmma::load_matrix_sync(ah, ph + kk * 16, kLDP);
+        wmma::load_matrix_sync(al, pl + kk * 16, kLDP);
+        wmma::load_matrix_sync(vf, vc + kk * 16 * LD + g0 + j * 16, LD);
+        wmma::mma_sync(acc, ah, vf, acc);
+        wmma::mma_sync(acc, al, vf, acc);
+      }
+      wmma::store_matrix_sync(sc + j * 16, acc, kBK, wmma::mem_row_major);
     }
-    wmma::store_matrix_sync(sc + j * 16, acc, kBK, wmma::mem_row_major);
-  }
-  __syncwarp();
+    __syncwarp();
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    o[r][0] += sc[r * kBK + lane];
-    o[r][1] += sc[r * kBK + lane + 32];
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < kO; ++j) {
+        // this lane's output column lane + 32 j, in the pass iff 32 j is
+        if (32 * j >= g0 && 32 * j < g0 + kGroup) o[r][j] += sc[r * kBK + lane + 32 * j - g0];
+      }
+    }
+    __syncwarp();
   }
-  __syncwarp();
 }
 
-template <typename E, bool kLengths, bool kDrop>
+template <typename E, int D, bool kLengths, bool kDrop>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
-  constexpr int LD = Tile<E>::LD;
+  constexpr int LD = Tile<E, D>::LD, kO = D / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   E* q_s = reinterpret_cast<E*>(smem_raw);  // [kBQ][LD]
   E* k_s = q_s + kBQ * LD;                  // two stages of [kBK][LD]
@@ -283,14 +320,16 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));
   if (kLengths) {
     len = p.lengths[b];
-    kend = min(S, len);
-    if (p.causal) kend = min(kend, min(q0 + kBQ, T));
-    if (q0 >= len) {  // no live query in the tile
+    kend = min(S, len - p.col0);
+    // causal: global key col0 + s <= row0 + (last query of the tile)
+    if (p.causal) kend = min(kend, p.row0 + min(q0 + kBQ, T) - p.col0);
+    kend = max(kend, 0);
+    if (p.row0 + q0 >= len) {  // no live query in the tile
       const int rows = min(kBQ, T - q0);
-      for (int i = threadIdx.x; i < rows * kD; i += kThreads) {
-        const int t = q0 + i / kD;
-        out[(((long long)b * T + t) * N + n) * kD + i % kD] = from_float<E>(0.f);
-        if (i % kD == 0) p.lse[((long long)b * N + n) * T + t] = 0.f;
+      for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+        const int t = q0 + i / D;
+        out[(((long long)b * T + t) * N + n) * D + i % D] = from_float<E>(0.f);
+        if (i % D == 0) p.lse[((long long)b * N + n) * T + t] = 0.f;
       }
       return;
     }
@@ -302,18 +341,19 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   const float* bias = nullptr;
   if (!kLengths && p.bias != nullptr) bias = p.bias + b * p.bb + n * p.bn;
   const int nchunks = (kend + kBK - 1) / kBK;
-  load_tile(q_s, qg, p.qt, q0, T);
-  load_tile(k_s, kg, p.kt, 0, kend);
-  load_tile(v_s, vg, p.vt, 0, kend);
+  load_tile<D>(q_s, qg, p.qt, q0, T);
+  load_tile<D>(k_s, kg, p.kt, 0, kend);
+  load_tile<D>(v_s, vg, p.vt, 0, kend);
   cp_async_commit();
 
   const int row0 = q0 + warp * kRows;  // this warp's first query
-  float m[kRows], l[kRows], o[kRows][2], s[kRows][2];
+  float m[kRows], l[kRows], o[kRows][kO], s[kRows][2];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m[r] = neg_inf();
     l[r] = 0.f;
-    o[r][0] = o[r][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kO; ++j) o[r][j] = 0.f;
   }
   // Bias mode: this lane's bias values of a chunk, loaded one chunk ahead so
   // that their latency hides behind the chunk before.
@@ -334,8 +374,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {  // the next chunk lands while this one is computed
       const int nxt = ((c + 1) & 1) * kBK * LD;
-      load_tile(k_s + nxt, kg, p.kt, (c + 1) * kBK, kend);
-      load_tile(v_s + nxt, vg, p.vt, (c + 1) * kBK, kend);
+      load_tile<D>(k_s + nxt, kg, p.kt, (c + 1) * kBK, kend);
+      load_tile<D>(v_s + nxt, vg, p.vt, (c + 1) * kBK, kend);
     }
     cp_async_commit();
     cp_async_wait<1>();  // chunk c (and q) has landed
@@ -348,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
       for (int r = 0; r < kRows; ++r) bias_c[r][0] = bias_next[r][0], bias_c[r][1] = bias_next[r][1];
       if (c + 1 < nchunks) load_bias(c + 1);
     }
-    chunk_logits(s, q_s + warp * kRows * LD, kc, sc, lane);
+    chunk_logits<D>(s, q_s + warp * kRows * LD, kc, sc, lane);
 
     const int s0 = c * kBK;
 #pragma unroll
@@ -358,29 +398,30 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
       for (int j = 0; j < 2; ++j) {
         const int key = s0 + lane + 32 * j;
         float x = s[r][j] * p.scale;
-        if (key >= kend || (kLengths && p.causal && key > t)) {
+        if (key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t)) {
           x = neg_inf();  // weight exactly 0, as exp(-1e30 - m) in the TPU kernel
         } else if (!kLengths) {
           x += bias_c[r][j];  // 0 without a bias or past the last query
         }
         s[r][j] = x;
       }
-      // Online softmax: chunk 0 holds key 0, live for every query, so m is
-      // finite from the first chunk on.
+      // Online softmax. A row with no live key so far keeps m = -inf and
+      // shifts by 0 instead, so its terms are exp(-inf) = 0, never NaN.
       const float mx = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      const float corr = expf(m[r] - mx);
-      s[r][0] = expf(s[r][0] - mx);
-      s[r][1] = expf(s[r][1] - mx);
+      const float shift = mx == neg_inf() ? 0.f : mx;
+      const float corr = expf(m[r] - shift);
+      s[r][0] = expf(s[r][0] - shift);
+      s[r][1] = expf(s[r][1] - shift);
       l[r] = l[r] * corr + (s[r][0] + s[r][1]);
-      o[r][0] *= corr;
-      o[r][1] *= corr;
+#pragma unroll
+      for (int j = 0; j < kO; ++j) o[r][j] *= corr;
       m[r] = mx;
       if (kDrop) {  // only PV sees the dropped probabilities
 #pragma unroll
         for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale(b, n, N, t, s0 + lane + 32 * j, S);
       }
     }
-    chunk_pv(o, s, vc, sc, ph, lane);
+    chunk_pv<D>(o, s, vc, sc, ph, lane);
     __syncthreads();  // stage c & 1 is free for chunk c + 2
   }
   cp_async_wait<0>();
@@ -390,18 +431,21 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
     const int t = row0 + r;
     if (t >= T) break;  // uniform over the warp
     const float lt = warp_sum(l[r]);
-    const bool dead = kLengths && t >= len;
-    E* orow = out + (((long long)b * T + t) * N + n) * kD;
-    orow[lane] = from_float<E>(dead ? 0.f : o[r][0] / lt);
-    orow[lane + 32] = from_float<E>(dead ? 0.f : o[r][1] / lt);
-    if (p.lse != nullptr && lane == 0) p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : m[r] + logf(lt);
+    const bool dead = kLengths && p.row0 + t >= len;
+    const bool none = !dead && lt == 0.f;  // a live row with no live key in this block
+    E* orow = out + (((long long)b * T + t) * N + n) * D;
+#pragma unroll
+    for (int j = 0; j < kO; ++j) orow[lane + 32 * j] = from_float<E>(dead || none ? 0.f : o[r][j] / lt);
+    if (p.lse != nullptr && lane == 0) {
+      p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : (none ? kNegInf : m[r] + logf(lt));
+    }
   }
 }
 
-template <typename E, bool kLengths, bool kDrop>
+template <typename E, int D, bool kLengths, bool kDrop>
 int launch(const AttnArgs& a, cudaStream_t stream) {
-  auto kernel = attention_kernel<E, kLengths, kDrop>;
-  const size_t smem = smem_bytes<E>();
+  auto kernel = attention_kernel<E, D, kLengths, kDrop>;
+  const size_t smem = smem_bytes<E, D>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -411,20 +455,32 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
-// take (D != 64, an empty dim, too many query tiles or clips) or -2 for an
-// unknown dtype code (0 = float32, 1 = bfloat16).
-template <bool kLengths>
-int dispatch(const AttnArgs& a, int D, int dtype, void* stream) {
-  if (D != kD || a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;
-  if (kLengths && a.lse == nullptr) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return a.drop.on ? launch<float, kLengths, true>(a, s) : launch<float, kLengths, false>(a, s);
+template <int D, bool kLengths>
+int launch_dtype(const AttnArgs& a, int dtype, cudaStream_t s) {
+  if (dtype == 0) return a.drop.on ? launch<float, D, kLengths, true>(a, s) : launch<float, D, kLengths, false>(a, s);
   if (dtype == 1) {
-    return a.drop.on ? launch<__nv_bfloat16, kLengths, true>(a, s)
-                     : launch<__nv_bfloat16, kLengths, false>(a, s);
+    return a.drop.on ? launch<__nv_bfloat16, D, kLengths, true>(a, s)
+                     : launch<__nv_bfloat16, D, kLengths, false>(a, s);
   }
   return -2;
+}
+
+// Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
+// take (D not in {32, 64, 128}, an empty dim, too many query tiles or clips)
+// or -2 for an unknown dtype code (0 = float32, 1 = bfloat16).
+template <bool kLengths>
+int dispatch(const AttnArgs& a, int D, int dtype, void* stream) {
+  if (a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;
+  if (kLengths && a.lse == nullptr) return -1;
+  if (!kLengths && (a.row0 != 0 || a.col0 != 0)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define STLT_CASE(d) \
+    case d: return launch_dtype<d, kLengths>(a, dtype, s);
+    STLT_HEAD_DIMS(STLT_CASE)
+#undef STLT_CASE
+    default: return -1;
+  }
 }
 
 }  // namespace attn

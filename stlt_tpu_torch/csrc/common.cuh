@@ -7,7 +7,7 @@
 // Two kinds of kernel share these helpers: the f32 ones multiply on the SIMT
 // pipes (tile_fma), so the f32 path stays true f32 with no TF32; the bf16
 // ones multiply on the tensor cores through WMMA (16x16x16 bf16 products
-// accumulated in f32, gemm_streamed), which is what the JAX kernels' bf16
+// accumulated in f32, gemm_streamed / gemm_ring), which is what the JAX kernels' bf16
 // dots with f32 accumulation compute.
 #pragma once
 
@@ -27,6 +27,7 @@ constexpr int kTM = 32;        // token rows of one block's tile
 constexpr int kTK = 64;        // keys of one attention row at most (T <= 64)
 constexpr int kRM = kTM / (kThreads / 64);  // rows each SIMT thread accumulates
 constexpr int kPad = 8;        // bf16 padding of shared tile rows (spreads banks, keeps 32 B alignment)
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may take (227 KB)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -129,20 +130,50 @@ __device__ __forceinline__ float2 row_stats(const E* row, int lane, float eps) {
   return make_float2(mu, rsqrtf(var + eps));
 }
 
-// acc[r][j] += A[(row0 + r) * lda + k] * B[k * ldb + tx + 64 * j] for k < kt:
-// the register-tiled f32 inner product of the SIMT kernels on staged tiles.
+// Rows [0, n) of src (row stride ld_src) into rows of dst (row stride ld),
+// rows [n, rows) zeros, `width` elements a row: one warp a row, 16-byte
+// copies where src, dst and both strides allow (width a multiple of 64 and
+// the row strides of the tiles here always do), else element by element.
+// No division per element, so a runtime width costs nothing.
+template <typename E>
+__device__ __forceinline__ void copy_rows(E* dst, int ld, const E* src, long long ld_src, int n,
+                                          int rows, int width) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kVec = 16 / sizeof(E);
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+                   width % kVec == 0 && ld % kVec == 0 && ld_src % kVec == 0;
+  for (int r = warp; r < rows; r += kWarps) {
+    E* d = dst + (long long)r * ld;
+    const E* s = src + r * ld_src;
+    if (vec) {
+      for (int c = lane; c < width / kVec; c += 32) {
+        reinterpret_cast<uint4*>(d)[c] =
+            r < n ? reinterpret_cast<const uint4*>(s)[c] : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      for (int c = lane; c < width; c += 32) d[c] = r < n ? s[c] : from_float<E>(0.f);
+    }
+  }
+}
+
+// acc[r][j] += A[(row0 + r) * lda + k] * B[k * ldb + tx + 64 * j] for k < kt
+// and j < nj (a runtime width <= NJ: the register array keeps its
+// compile-time size, the segments past nj are skipped): the register-tiled
+// f32 inner product of the SIMT kernels on staged tiles.
 template <int RM, int NJ>
-__device__ __forceinline__ void tile_fma(float (&acc)[RM][NJ], const float* A, int lda,
-                                         int row0, const float* B, int ldb, int tx, int kt) {
+__device__ __forceinline__ void tile_fma(float (&acc)[RM][NJ], const float* A, int lda, int row0,
+                                         const float* B, int ldb, int tx, int kt, int nj = NJ) {
   for (int k = 0; k < kt; ++k) {
     float a[RM];
 #pragma unroll
     for (int r = 0; r < RM; ++r) a[r] = A[(row0 + r) * lda + k];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float b = B[k * ldb + tx + 64 * j];
+      if (j < nj) {
+        const float b = B[k * ldb + tx + 64 * j];
 #pragma unroll
-      for (int r = 0; r < RM; ++r) acc[r][j] = fmaf(a[r], b, acc[r][j]);
+        for (int r = 0; r < RM; ++r) acc[r][j] = fmaf(a[r], b, acc[r][j]);
+      }
     }
   }
 }
@@ -153,17 +184,31 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::ro
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// The block's [kTM, H] f32 output tile, split over its warps: each warp owns
-// kRF row fragments by kCF column fragments of 16 x 16, starting at
-// (row0(warp), col0(warp)) in fragment units.
+// The block's [kTM, H] f32 output tile (H = 64 NC), split over its warps:
+// each warp owns kRF row fragments by kCF column fragments of 16 x 16,
+// starting at (row0(warp), col0(warp)) in fragment units. Even NC: both row
+// fragments and NC / 2 column fragments a warp; odd NC: one row fragment
+// (warp % 2) and the NC column fragments of quarter warp / 2.
 template <int NC>
 struct WarpTile {
   static_assert(kTM == 32 && kWarps == 8, "the split assumes two row fragments and 8 warps");
-  static constexpr int kRF = NC >= 2 ? 2 : 1;
-  static constexpr int kCF = NC >= 2 ? NC / 2 : 1;
-  __device__ static int row0(int warp) { return NC >= 2 ? 0 : warp % 2; }
-  __device__ static int col0(int warp) { return NC >= 2 ? warp * kCF : warp / 2; }
+  static constexpr bool kEven = NC % 2 == 0;
+  static constexpr int kRF = kEven ? 2 : 1;
+  static constexpr int kCF = kEven ? NC / 2 : NC;
+  __device__ static int row0(int warp) { return kEven ? 0 : warp % 2; }
+  __device__ static int col0(int warp) { return kEven ? warp * kCF : (warp / 2) * kCF; }
 };
+
+// The widths the width-templated kernels are instantiated for: H = 64 NC,
+// NC = 1 .. kMaxNC. STLT_NC_CASES(F) expands F(nc) for each.
+constexpr int kMaxNC = 16;
+// The reference width (H = 768, 12 heads of 64): the bf16 fused attention
+// kernels, whose other widths take H at run time, are also instantiated
+// with this H and head dim at compile time, so that at the width every full
+// model of the repo runs their index arithmetic folds to constants.
+constexpr int kRefHidden = 768, kRefHeadDim = 64;
+#define STLT_NC_CASES(F) \
+  F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12) F(13) F(14) F(15) F(16)
 
 template <int RF, int CF>
 __device__ __forceinline__ void zero(FragC (&acc)[RF][CF]) {
@@ -247,6 +292,121 @@ __device__ __forceinline__ void gemm_streamed(FragC (&acc)[RF][CF], const __nv_b
         wmma::load_matrix_sync(bf, B + kk * LDB + (cf0 + j) * 16, LDB);
 #pragma unroll
         for (int r = 0; r < RF; ++r) wmma::mma_sync(acc[r][j], a[r], bf, acc[r][j]);
+      }
+    }
+  }
+  __syncthreads();  // the ring is free for the next GEMM
+}
+
+// The B operand of gemm_ring with a runtime width: one segment of `width`
+// contiguous columns (a multiple of 16), rows ld apart. (BCols is its
+// compile-time counterpart.)
+struct BWide {
+  const __nv_bfloat16* base;
+  int width, ld;
+};
+
+// Issue the 16-byte copies of rows [row0, row0 + KS) of B into a [KS][NB +
+// kPad] slice: the copies of a compile-time width unrolled with constant
+// offsets; those of a runtime width walked as (row, column) pairs from the
+// thread's first copy, with no division per copy.
+template <int KS, int NSEG, int SEGW>
+__device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BCols<NSEG, SEGW>& b,
+                                           int row0) {
+  static_assert(SEGW % 8 == 0, "16-byte copies");
+  constexpr int NB = NSEG * SEGW, LDB = NB + kPad, kCopies = KS * NB / 8;
+#pragma unroll
+  for (int c = threadIdx.x; c < kCopies; c += kThreads) {
+    const int row = c / (NB / 8), col = (c % (NB / 8)) * 8;
+    cp_async16(dst + row * LDB + col, b.seg[col / SEGW] + (long long)(row0 + row) * b.ld + col % SEGW);
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BWide& b, int row0) {
+  const int per_row = b.width / 8, LDB = b.width + kPad, copies = KS * per_row;
+  int row = threadIdx.x / per_row, c8 = threadIdx.x % per_row;
+  const int row_step = kThreads / per_row, col_step = kThreads % per_row;
+  for (int c = threadIdx.x; c < copies; c += kThreads) {
+    cp_async16(dst + row * LDB + c8 * 8, b.base + (long long)(row0 + row) * b.ld + c8 * 8);
+    row += row_step;
+    c8 += col_step;
+    if (c8 >= per_row) {
+      c8 -= per_row;
+      ++row;
+    }
+  }
+}
+
+template <int NSEG, int SEGW>
+__host__ __device__ constexpr int b_width(const BCols<NSEG, SEGW>&) {
+  return NSEG * SEGW;
+}
+__host__ __device__ inline int b_width(const BWide& b) { return b.width; }
+
+// The element type the bf16 fused attention kernels keep one head's q/k/v
+// in: f32 (no conversions in the T x T attention on the SIMT pipes) where
+// shared memory allows it, bf16 at head dim 128 (the values are rounded to
+// bf16 either way, so both hold the same numbers).
+template <int D>
+struct QkvType {
+  using type = float;
+};
+template <>
+struct QkvType<128> {
+  using type = __nv_bfloat16;
+};
+
+// Shared-memory elements of gemm_ring's ring for KS-row slices of `width`
+// columns.
+__host__ __device__ constexpr int ring_elems(int ks, int width, int stages = kStages) {
+  return stages * ks * (width + kPad);
+}
+
+// gemm_streamed for the fused attention kernels, whose widths vary:
+// acc[r][j] += A[r * 16 : +16, :K] @ B[:K, fragment cf0 + j * cf_step] for
+// each j < nj whose fragment lies inside B (the others are left as they
+// are), B a BCols of compile-time width or a BWide of runtime width, so one
+// instantiation serves every width. The same ring of KS-row slices, the same
+// synchronisation. Where the width and a warp's run of fragments are known
+// at compile time, the kernels call gemm_streamed instead: its unguarded
+// fragment loop measured 15 % faster in the tails (PERF.md §6).
+template <int RF, int CF, int KS, int STAGES = kStages, typename BOp>
+__device__ __forceinline__ void gemm_ring(FragC (&acc)[RF][CF], const __nv_bfloat16* A, int lda,
+                                          const BOp& b, int K, __nv_bfloat16* stages, int cf0,
+                                          int cf_step, int nj = CF) {
+  static_assert(STAGES >= 2 && KS % 16 == 0, "a ring of whole-fragment slices");
+  const int NB = b_width(b), LDB = NB + kPad, STAGE = KS * LDB, ncf = NB / 16;
+  const int nslices = K / KS;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nslices) load_slice<KS>(stages + (s % STAGES) * STAGE, b, s * KS);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nslices; ++i) {
+    cp_async_wait<STAGES - 2>();  // slice i has landed
+    __syncthreads();               // for every thread; slice i - 1 is consumed
+    if (i + STAGES - 1 < nslices) {
+      load_slice<KS>(stages + ((i + STAGES - 1) % STAGES) * STAGE, b, (i + STAGES - 1) * KS);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* B = stages + (i % STAGES) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      FragA a[RF];
+#pragma unroll
+      for (int r = 0; r < RF; ++r) {
+        wmma::load_matrix_sync(a[r], A + r * 16 * lda + i * KS + kk, lda);
+      }
+#pragma unroll
+      for (int j = 0; j < CF; ++j) {
+        const int cf = cf0 + j * cf_step;
+        if (j < nj && cf < ncf) {
+          FragB bf;
+          wmma::load_matrix_sync(bf, B + kk * LDB + cf * 16, LDB);
+#pragma unroll
+          for (int r = 0; r < RF; ++r) wmma::mma_sync(acc[r][j], a[r], bf, acc[r][j]);
+        }
       }
     }
   }

@@ -1,6 +1,6 @@
 // The short attention kernel of the long-clip path: softmax(q k^T / sqrt(D) +
-// bias) v over whole rows, q [B, T, N, 64] and k, v [B, S, N, 64] read through
-// their strides, an additive f32 bias broadcastable to [B, N, T, S].
+// bias) v over whole rows, q [B, T, N, D] and k, v [B, S, N, D] (D = 32, 64 or
+// 128) read through their strides, an additive f32 bias broadcastable to [B, N, T, S].
 //
 // Replaces the TPU kernel stlt_tpu/ops/flash.py::_fused_attn_kernel as
 // launched by _flash_forward for 65..512 tokens, with its prng dropout
@@ -20,7 +20,7 @@ extern "C" int stlt_flash_attention(
     float dropout_scale, int dtype, void* stream) {
   stlt::attn::AttnArgs a{q, k, v, qb, qt, qn, kb, kt, kn, vb, vt, vn,
                          static_cast<const float*>(bias), bias_b, bias_n, bias_t,
-                         nullptr, 0, out, static_cast<float*>(lse), B, T, S, N, scale,
+                         nullptr, 0, 0, 0, out, static_cast<float*>(lse), B, T, S, N, scale,
                          stlt::Dropout{dropout, seed, thresh, dropout_scale}};
   return stlt::attn::dispatch<false>(a, D, dtype, stream);
 }

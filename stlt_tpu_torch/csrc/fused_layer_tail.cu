@@ -329,12 +329,10 @@ int launch(const TailArgs& a, cudaStream_t stream) {
 template <bool kTensorCores, bool kTrain>
 int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch<1, kTensorCores, kTrain>(a, s);
-    case 2: return launch<2, kTensorCores, kTrain>(a, s);
-    case 4: return launch<4, kTensorCores, kTrain>(a, s);
-    case 8: return launch<8, kTensorCores, kTrain>(a, s);
-    case 12: return launch<12, kTensorCores, kTrain>(a, s);
-    case 16: return launch<16, kTensorCores, kTrain>(a, s);
+#define STLT_CASE(n) \
+    case n: return launch<n, kTensorCores, kTrain>(a, s);
+    STLT_NC_CASES(STLT_CASE)
+#undef STLT_CASE
     default: return -1;
   }
 }
@@ -342,7 +340,7 @@ int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
 }  // namespace
 
 // Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
-// take (H not in 64 x {1, 2, 4, 8, 12, 16}, FF not a multiple of 128) or -2
+// take (H not a multiple of 64 up to 1024, FF not a multiple of 128) or -2
 // for an unknown dtype code (0 = float32, 1 = bfloat16). act: 0 relu,
 // 1 exact-erf GELU, 2 tanh GELU. A non-null r2 selects the train kernel,
 // which writes r2 and applies the dropout sites when `dropout` is 1 (keep

@@ -18,14 +18,29 @@
 // spatial T=8, one row of 17 at the temporal T=17). For 32 < T <= 64 a block
 // owns the 32 queries of one half of one row and all T keys of that row; it
 // projects the row's keys in two 32-token chunks through the same x tile.
-// Per head the block projects only that head's q/k/v ([tokens, 64] each)
-// from the x tile held in shared memory, runs the attention on chip, and
-// adds o_h @ Wo[hD:(h+1)D, :] into an f32 [32, H] accumulator kept in
-// registers: the same sum as concat-then-project, in another order. Neither
-// qkv nor the attention output reaches device memory. Rows whose rows_live
-// flag is 0 write exact zeros; a block with no live row skips all compute.
-// The bias is read per row as [T, T] or broadcast [1, T] through its strides,
-// never materialised.
+// Per head the block projects only that head's q/k/v ([tokens, D] each)
+// from the x tile, runs the attention on chip, and adds
+// o_h @ Wo[hD:(h+1)D, :] into an f32 [32, H] accumulator kept in registers:
+// the same sum as concat-then-project, in another order. Neither qkv nor
+// the attention output reaches device memory. Rows whose rows_live flag is 0
+// write exact zeros; a block with no live row skips all compute. The bias is
+// read per row as [T, T] or broadcast [1, T] through its strides, never
+// materialised.
+//
+// Widths. The head dim D (32, 64 or 128) is a template argument; H (any
+// multiple of 64 up to 1024, N = H / D heads) is a runtime value: the
+// accumulator is sized for H <= 768 or for H = 1024 and a column past H is
+// skipped, so two instantiations serve every width. The bf16 kernel is also
+// instantiated at the reference width (HC = 768, D = 64) with H a
+// compile-time constant: there its indices fold and both GEMMs run
+// gemm_streamed with no per-fragment guard, as before H became a runtime
+// value (the runtime-width kernel measured slower there, PERF.md §6). Shared memory at the widest shapes
+// (H = 1024): the f32 kernel stages x in 16-column slices beside the weight
+// slices (141,312 bytes at D = 128); the bf16 kernel holds the bf16 x tile,
+// keeps q/k/v in f32 (bf16 at D = 128, common.cuh's QkvType) and lays the
+// probabilities over the weight ring between the GEMMs, with Wqkv slices of
+// 64 rows at D <= 64 and 32 at D = 128 (218,880 bytes at D = 64, 222,976 at
+// D = 128, of the 232,448 a block may take).
 //
 // The bf16 kernel runs both projections on the tensor cores (WMMA, f32 sums)
 // and streams Wqkv and Wo (4.7 MB in bf16 at H = 768, resident in L2)
@@ -48,11 +63,21 @@ namespace {
 using namespace stlt;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;    // head dim the kernel takes
-constexpr int kKT = 16;   // k-slice of Wqkv staged per SIMT step
-constexpr int kKTo = 8;   // k-slice (rows) of Wo staged per SIMT step
-constexpr int kKS1 = 64;  // rows of Wqkv per streamed slice (tensor cores)
-constexpr int kKS2 = 16;  // rows of Wo per streamed slice (tensor cores)
+constexpr int kKT = 16;   // f32: k-slice of x and Wqkv staged per SIMT step
+constexpr int kKTo = 8;   // f32: k-slice (rows) of Wo staged per SIMT step
+constexpr int kKS2 = 16;  // bf16: rows of Wo per streamed slice
+// bf16: the output accumulator's column fragments a warp, sized for H <= 768
+// (the reference width: 6, 96 registers) or for H <= 1024 (8, 128 registers,
+// with a few spilled ones).
+constexpr int kOutCF768 = 4 * 12 / kWarps, kOutCFMax = 4 * kMaxNC / kWarps;
+
+__host__ __device__ constexpr int out_cf(int H) { return H <= 768 ? kOutCF768 : kOutCFMax; }
+
+// bf16: rows of Wqkv per streamed slice.
+template <int D>
+__host__ __device__ constexpr int qkv_slice_rows() {
+  return D > 64 ? 32 : 64;
+}
 
 struct ProjArgs {
   const void* x;
@@ -67,6 +92,7 @@ struct ProjArgs {
   void* out;
   int rows;
   int seq;
+  int hidden;
   int num_heads;
   int rows_per_block;  // T <= 32: rows of one block; T > 32: 1
   float scale;
@@ -107,18 +133,19 @@ __device__ __forceinline__ Tile block_tile(const ProjArgs& p) {
 // Softmax probabilities of head h for the block's nq queries, into
 // p_s [kTM][kTK]: f32 logits q.k * scale + bias over the keys of each
 // query's own row, max-subtracted exp, normalised, then (kDrop) dropped.
-template <bool kDrop>
+// q_s [kTM][D] and k_s [kTK][D] hold f32 (f32 kernel) or bf16 values.
+template <int D, bool kDrop, typename QE>
 __device__ __forceinline__ void head_probs(const ProjArgs& p, const Tile& tl, int h,
-                                           const float* q_s, const float* k_s, float* p_s) {
+                                           const QE* q_s, const QE* k_s, float* p_s) {
   const int tid = threadIdx.x, seq = p.seq;
   for (int idx = tid; idx < tl.nq * seq; idx += kThreads) {
     const int i = idx / seq, s = idx % seq;
     const int tok = tl.q0 + i, lr = tok / seq, t = tok % seq;
-    const float* qi = q_s + i * kD;
-    const float* ks = k_s + (lr * seq + s) * kD;
+    const QE* qi = q_s + i * D;
+    const QE* ks = k_s + (lr * seq + s) * D;
     float dot = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < kD; ++d) dot = fmaf(qi[d], ks[d], dot);
+    for (int d = 0; d < D; ++d) dot = fmaf(to_float(qi[d]), to_float(ks[d]), dot);
     const float b = p.bias[(long long)(tl.row0 + lr) * p.bias_row_stride +
                            (long long)t * p.bias_q_stride + s];
     p_s[i * kTK + s] = dot * p.scale + b;
@@ -147,12 +174,13 @@ __device__ __forceinline__ void head_probs(const ProjArgs& p, const Tile& tl, in
 
 // Attention output o[i][d] of query i (< nq): probabilities times the
 // values of its row.
-__device__ __forceinline__ float head_out(const float* p_s, const float* v_s, const Tile& tl,
-                                          int i, int d, int seq) {
+template <int D, typename QE>
+__device__ __forceinline__ float head_out(const float* p_s, const QE* v_s, const Tile& tl, int i,
+                                          int d, int seq) {
   const float* pr = p_s + i * kTK;
-  const float* vs = v_s + ((tl.q0 + i) / seq) * seq * kD + d;
+  const QE* vs = v_s + ((tl.q0 + i) / seq) * seq * D + d;
   float o = 0.f;
-  for (int s = 0; s < seq; ++s) o = fmaf(pr[s], vs[s * kD], o);
+  for (int s = 0; s < seq; ++s) o = fmaf(pr[s], to_float(vs[s * D]), o);
   return o;
 }
 
@@ -161,29 +189,25 @@ __device__ __forceinline__ float head_out(const float* p_s, const float* v_s, co
 template <typename E>
 __device__ __forceinline__ void load_x_chunk(E* x_s, int ld, const E* x, const Tile& tl, int c,
                                              int H) {
-  const int n = min(kTM, tl.nkv - kTM * c) * H;
-  const E* src = x + (tl.tok0 + kTM * c) * H;
-  for (int i = threadIdx.x; i < kTM * H; i += kThreads) {
-    x_s[(i / H) * ld + i % H] = i < n ? src[i] : from_float<E>(0.f);
-  }
+  copy_rows(x_s, ld, x + (tl.tok0 + kTM * c) * H, H, min(kTM, tl.nkv - kTM * c), kTM, H);
 }
 
 // --- f32: SIMT ----------------------------------------------------------------
 
-template <int NC>
-constexpr size_t proj_smem_bytes() {
-  constexpr int H = NC * 64;
-  constexpr int w = kKT * 3 * kD > kKTo * H ? kKT * 3 * kD : kKTo * H;
-  return sizeof(float) * (size_t)(kTM * H + w + 2 * kTM * kD + 2 * kTK * kD + kTM * kTK);
+template <int D>
+size_t proj_smem_bytes(int H) {
+  const int w = kKT * 3 * D > kKTo * H ? kKT * 3 * D : kKTo * H;
+  return sizeof(float) * (size_t)(kTM * kKT + w + 2 * kTM * D + 2 * kTK * D + kTM * kTK);
 }
 
 // kChunked: T > 32 (a block takes one query half of one row); kDrop: the
 // train forward's probability dropout. Both are template flags so that the
 // eval kernel at T <= 32 carries neither's registers.
-template <int NC, bool kChunked, bool kDrop>
+template <int D, bool kChunked, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p) {
-  constexpr int H = NC * 64;
-  constexpr int W = kKT * 3 * kD > kKTo * H ? kKT * 3 * kD : kKTo * H;
+  constexpr int kQJ = (3 * D + 63) / 64;  // q/k/v columns of a thread, 64 apart
+  const int H = p.hidden, nc = H / 64;
+  const int W = kKT * 3 * D > kKTo * H ? kKT * 3 * D : kKTo * H;
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const float* __restrict__ wqkv = static_cast<const float*>(p.wqkv);
   const float* __restrict__ bqkv = static_cast<const float*>(p.bqkv);
@@ -192,14 +216,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
   float* __restrict__ out = static_cast<float*>(p.out);
 
   extern __shared__ float smem[];
-  float* x_s = smem;              // [kTM][H]
-  float* w_s = x_s + kTM * H;     // [kKT][3 * kD] slices of Wqkv, then
-  float* wo_s = w_s;              // [kKTo][H] slices of Wo
-  float* q_s = w_s + W;           // [kTM][kD]
-  float* o_s = q_s + kTM * kD;    // [kTM][kD]
-  float* k_s = o_s + kTM * kD;    // [kTK][kD]
-  float* v_s = k_s + kTK * kD;    // [kTK][kD]
-  float* p_s = v_s + kTK * kD;    // [kTM][kTK] logits, then probabilities
+  float* x_sl = smem;              // [kTM][kKT] slice of the x chunk
+  float* w_s = x_sl + kTM * kKT;   // [kKT][3 * D] slices of Wqkv, then
+  float* wo_s = w_s;               // [kKTo][H] slices of Wo
+  float* q_s = w_s + W;            // [kTM][D]
+  float* o_s = q_s + kTM * D;      // [kTM][D]
+  float* k_s = o_s + kTM * D;      // [kTK][D]
+  float* v_s = k_s + kTK * D;      // [kTK][D]
+  float* p_s = v_s + kTK * D;      // [kTM][kTK] logits, then probabilities
 
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const int seq = p.seq;
@@ -211,61 +235,62 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
     return;
   }
 
-  if (!kChunked) load_x_chunk(x_s, H, x, tl, 0, H);
-
-  float acc[kRM][NC];
+  float acc[kRM][kMaxNC];
 #pragma unroll
   for (int r = 0; r < kRM; ++r)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
-  __syncthreads();
+    for (int j = 0; j < kMaxNC; ++j) acc[r][j] = 0.f;
 
-  for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64
+  for (int h = 0; h < p.num_heads; ++h) {
 #pragma unroll 1
     for (int c = 0; c < nchunks; ++c) {
-      if (kChunked) {
-        load_x_chunk(x_s, H, x, tl, c, H);
-        __syncthreads();
-      }
-      // q/k/v of head h: thread column tx of block j (0 = q, 1 = k, 2 = v).
-      float pq[kRM][3];
+      const int ntok = min(kTM, tl.nkv - kTM * c);
+      const float* xc = x + (tl.tok0 + kTM * c) * H;
+      // q/k/v of head h: thread column tx + 64 j of the head's [3 D] columns.
+      float pq[kRM][kQJ];
 #pragma unroll
       for (int r = 0; r < kRM; ++r)
 #pragma unroll
-        for (int j = 0; j < 3; ++j) pq[r][j] = 0.f;
+        for (int j = 0; j < kQJ; ++j) pq[r][j] = 0.f;
       for (int k0 = 0; k0 < H; k0 += kKT) {
-        for (int i = tid; i < kKT * 3 * kD; i += kThreads) {
-          const int kk = i / (3 * kD), cc = i % (3 * kD);
-          w_s[i] = wqkv[(long long)(k0 + kk) * 3 * H + (cc / kD) * H + h * kD + cc % kD];
+        for (int i = tid; i < kTM * kKT; i += kThreads) {
+          const int r = i / kKT;
+          x_sl[i] = r < ntok ? xc[(long long)r * H + k0 + i % kKT] : 0.f;
+        }
+        for (int i = tid; i < kKT * 3 * D; i += kThreads) {
+          const int kk = i / (3 * D), cc = i % (3 * D);
+          w_s[i] = wqkv[(long long)(k0 + kk) * 3 * H + (cc / D) * H + h * D + cc % D];
         }
         __syncthreads();
-        tile_fma<kRM, 3>(pq, x_s + k0, H, ty * kRM, w_s, 3 * kD, tx, kKT);
+        // Columns past 3 D (D = 32) read the next slice row and are dropped.
+        tile_fma<kRM, kQJ>(pq, x_sl, kKT, ty * kRM, w_s, 3 * D, tx, kKT);
         __syncthreads();
       }
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j == 0 && c != qchunk) continue;
-        float* dst = j == 0 ? q_s : (j == 1 ? k_s + c * kTM * kD : v_s + c * kTM * kD);
-        const float b = bqkv[j * H + h * kD + tx];
+      for (int j = 0; j < kQJ; ++j) {
+        const int cc = tx + 64 * j, part = cc / D, d = cc % D;
+        if (cc >= 3 * D || (part == 0 && c != qchunk)) continue;
+        float* dst = part == 0 ? q_s : (part == 1 ? k_s + c * kTM * D : v_s + c * kTM * D);
+        const float b = bqkv[part * H + h * D + d];
 #pragma unroll
-        for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * kD + tx] = pq[r][j] + b;
+        for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * D + d] = pq[r][j] + b;
       }
     }
     __syncthreads();
-    head_probs<kDrop>(p, tl, h, q_s, k_s, p_s);
-    for (int idx = tid; idx < kTM * kD; idx += kThreads) {
-      const int i = idx / kD, d = idx % kD;
-      o_s[idx] = i < tl.nq ? head_out(p_s, v_s, tl, i, d, seq) : 0.f;
+    head_probs<D, kDrop>(p, tl, h, q_s, k_s, p_s);
+    for (int idx = tid; idx < kTM * D; idx += kThreads) {
+      const int i = idx / D, d = idx % D;
+      o_s[idx] = i < tl.nq ? head_out<D>(p_s, v_s, tl, i, d, seq) : 0.f;
     }
     __syncthreads();
 
     // acc += o_h @ Wo[h*D:(h+1)*D, :]
-    for (int k0 = 0; k0 < kD; k0 += kKTo) {
+    for (int k0 = 0; k0 < D; k0 += kKTo) {
       for (int i = tid; i < kKTo * H; i += kThreads) {
-        wo_s[i] = wo[(long long)(h * kD + k0) * H + i];
+        wo_s[i] = wo[(long long)(h * D + k0) * H + i];
       }
       __syncthreads();
-      tile_fma<kRM, NC>(acc, o_s + k0, kD, ty * kRM, wo_s, H, tx, kKTo);
+      tile_fma<kRM, kMaxNC>(acc, o_s + k0, D, ty * kRM, wo_s, H, tx, kKTo, nc);
       __syncthreads();
     }
   }
@@ -276,32 +301,41 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
     if (i >= tl.nq) continue;
     const bool live = p.rows_live == nullptr || p.rows_live[tl.row0 + (tl.q0 + i) / seq];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
+    for (int j = 0; j < kMaxNC; ++j) {
       const int c = tx + 64 * j;
-      out[(tl.tok0 + tl.q0 + i) * H + c] = live ? acc[r][j] + bo[c] : 0.f;
+      if (j < nc) out[(tl.tok0 + tl.q0 + i) * H + c] = live ? acc[r][j] + bo[c] : 0.f;
     }
   }
 }
 
 // --- bf16: tensor cores -------------------------------------------------------
 
-template <int NC>
-__host__ __device__ constexpr int proj_stage_elems() {
-  constexpr int s1 = stage_elems<kKS1, 3 * kD>(), s2 = stage_elems<kKS2, NC * 64>();
+template <int D>
+__host__ __device__ int proj_ring_elems(int H) {
+  const int s1 = ring_elems(qkv_slice_rows<D>(), 3 * D), s2 = ring_elems(kKS2, H);
   return s1 > s2 ? s1 : s2;
 }
 
-template <int NC>
-constexpr size_t proj_tc_smem_bytes() {
-  constexpr int H = NC * 64;
-  return sizeof(bf16) * ((size_t)kTM * ((H + kPad) + (kD + kPad)) + proj_stage_elems<NC>()) +
-         sizeof(float) * (size_t)(kTM * kD + 2 * kTK * kD + kTM * kTK + kWarps * 256);
+template <int D>
+size_t proj_tc_smem_bytes(int H) {
+  return sizeof(bf16) * ((size_t)kTM * ((H + kPad) + (D + kPad)) + proj_ring_elems<D>(H)) +
+         sizeof(typename QkvType<D>::type) * (size_t)(kTM + 2 * kTK) * D +
+         sizeof(float) * (size_t)kWarps * 256;
 }
 
-template <int NC, bool kChunked, bool kDrop>
+// HC: H at compile time (kRefHidden), or 0 for H from the arguments.
+template <int D, int HC, int OCF, bool kChunked, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_tc_kernel(ProjArgs p) {
-  using Tile_ = WarpTile<NC>;
-  constexpr int H = NC * 64, LDX = H + kPad, LDO = kD + kPad;
+  constexpr int LDO = D + kPad, kKS1 = qkv_slice_rows<D>();
+  // One head's q/k/v [kTM, 3 D] has kQF column fragments. Where they split
+  // evenly over the four warps of a row fragment (D = 64, 128), a warp owns
+  // a run of kQCF of them, else (D = 32) kQCF fragments 4 apart.
+  constexpr int kQF = 3 * D / 16, kQCF = (kQF + 3) / 4;
+  constexpr bool kQRun = kQF % 4 == 0;
+  static_assert(HC == 0 || HC / 16 == kWarps * OCF, "a compile-time width splits evenly");
+  using QE = typename QkvType<D>::type;
+  const int H = HC > 0 ? HC : p.hidden, LDX = H + kPad;
+  const int num_heads = HC > 0 ? HC / D : p.num_heads;
   const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
   const bf16* __restrict__ wqkv = static_cast<const bf16*>(p.wqkv);
   const bf16* __restrict__ bqkv = static_cast<const bf16*>(p.bqkv);
@@ -313,12 +347,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_tc_kernel(ProjArg
   bf16* x_s = reinterpret_cast<bf16*>(smem_raw);  // [kTM][LDX]
   bf16* o_s = x_s + kTM * LDX;                    // [kTM][LDO]: one head's output, rounded
   bf16* stages = o_s + kTM * LDO;                 // ring of Wqkv / Wo slices
-  float* q_s = reinterpret_cast<float*>(stages + proj_stage_elems<NC>());  // [kTM][kD]
-  float* k_s = q_s + kTM * kD;                    // [kTK][kD]
-  float* v_s = k_s + kTK * kD;                    // [kTK][kD]
-  float* p_s = v_s + kTK * kD;                    // [kTM][kTK]
+  QE* q_s = reinterpret_cast<QE*>(stages + proj_ring_elems<D>(H));  // [kTM][D], rounded
+  QE* k_s = q_s + kTM * D;                                          // [kTK][D]
+  QE* v_s = k_s + kTK * D;                                          // [kTK][D]
+  // [kTM][kTK] probabilities, over the ring: they live between the GEMMs.
+  float* p_s = reinterpret_cast<float*>(stages);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* scratch = p_s + kTM * kTK + warp * 256;
+  float* scratch = reinterpret_cast<float*>(v_s + kTK * D) + warp * 256;
 
   const int seq = p.seq;
   const Tile tl = block_tile<kChunked>(p);
@@ -332,57 +367,72 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_tc_kernel(ProjArg
   }
 
   if (!kChunked) load_x_chunk(x_s, LDX, x, tl, 0, H);
-  const int rf0 = Tile_::row0(warp), cf0 = Tile_::col0(warp);
-  FragC acc[Tile_::kRF][Tile_::kCF];
+  // The output [kTM, H]: both row fragments and the warp's run of column
+  // fragments, ocf0 + j (H / 128 of them, the last warps' runs cut at H).
+  const int per_warp = (H / 16 + kWarps - 1) / kWarps, ocf0 = warp * per_warp;
+  FragC acc[2][OCF];
   zero(acc);
-  // This warp's share of one head's q/k/v [kTM, 3 * kD]: row fragment
-  // warp / 4, column fragments 3 * (warp % 4) + j.
-  const int qrf = warp / 4, qcf0 = 3 * (warp % 4);
+  // This warp's share of one head's q/k/v: row fragment warp / 4, column
+  // fragments qcf0 + qstep j.
+  constexpr int qstep = kQRun ? 1 : 4;
+  const int qrf = warp / 4, qcf0 = (warp % 4) * (kQRun ? kQCF : 1);
   __syncthreads();
 
-  for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64
-    const BCols<3, kD> wqkv_head{{wqkv + h * kD, wqkv + H + h * kD, wqkv + 2 * H + h * kD},
-                                 3 * H};
+  for (int h = 0; h < num_heads; ++h) {
+    const BCols<3, D> wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, 3 * H};
 #pragma unroll 1
     for (int c = 0; c < nchunks; ++c) {
-      // gemm_streamed synchronises the block before it reads x_s and after.
+      // gemm_ring synchronises the block before it reads x_s and after.
       if (kChunked) load_x_chunk(x_s, LDX, x, tl, c, H);
-      FragC qacc[1][3];
+      FragC qacc[1][kQCF];
       zero(qacc);
-      gemm_streamed<1, 3, kKS1>(qacc, x_s + qrf * 16 * LDX, LDX, wqkv_head, H, stages, qcf0);
+      if constexpr (kQRun) {
+        gemm_streamed<1, kQCF, kKS1>(qacc, x_s + qrf * 16 * LDX, LDX, wqkv_head, H, stages, qcf0);
+      } else {
+        gemm_ring<1, kQCF, kKS1>(qacc, x_s + qrf * 16 * LDX, LDX, wqkv_head, H, stages, qcf0, qstep);
+      }
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < kQCF; ++j) {
+        const int cf = qcf0 + qstep * j;
+        if (!kQRun && cf >= kQF) continue;  // uniform over the warp
         for_each_element(qacc[0][j], scratch, lane, [&](int i, int jj, float v) {
-          const int cc = (qcf0 + j) * 16 + jj, part = cc / kD, d = cc % kD;
-          const float val = round_to<bf16>(v + to_float(bqkv[part * H + h * kD + d]));
+          const int cc = cf * 16 + jj, part = cc / D, d = cc % D;
+          const QE val = from_float<QE>(round_to<bf16>(v + to_float(bqkv[part * H + h * D + d])));
           if (part == 0) {
-            if (c == qchunk) q_s[(qrf * 16 + i) * kD + d] = val;
+            if (c == qchunk) q_s[(qrf * 16 + i) * D + d] = val;
           } else {
-            (part == 1 ? k_s : v_s)[(c * kTM + qrf * 16 + i) * kD + d] = val;
+            (part == 1 ? k_s : v_s)[(c * kTM + qrf * 16 + i) * D + d] = val;
           }
         });
       }
     }
     __syncthreads();
-    head_probs<kDrop>(p, tl, h, q_s, k_s, p_s);
-    for (int idx = tid; idx < kTM * kD; idx += kThreads) {
-      const int i = idx / kD, d = idx % kD;
-      o_s[i * LDO + d] = from_float<bf16>(i < tl.nq ? head_out(p_s, v_s, tl, i, d, seq) : 0.f);
+    head_probs<D, kDrop>(p, tl, h, q_s, k_s, p_s);
+    for (int idx = tid; idx < kTM * D; idx += kThreads) {
+      const int i = idx / D, d = idx % D;
+      o_s[i * LDO + d] = from_float<bf16>(i < tl.nq ? head_out<D>(p_s, v_s, tl, i, d, seq) : 0.f);
     }
     __syncthreads();
 
     // acc += o_h @ Wo[h*D:(h+1)*D, :]
-    const BCols<1, H> wo_head{{wo + (long long)h * kD * H}, H};
-    gemm_streamed<Tile_::kRF, Tile_::kCF, kKS2>(acc, o_s + rf0 * 16 * LDO, LDO, wo_head, kD,
-                                                stages, cf0);
+    if constexpr (HC > 0) {
+      const BCols<1, HC> wo_head{{wo + (long long)h * D * H}, H};
+      gemm_streamed<2, OCF, kKS2>(acc, o_s, LDO, wo_head, D, stages, ocf0);
+    } else {
+      const BWide wo_head{wo + (long long)h * D * H, H, H};
+      gemm_ring<2, OCF, kKS2>(acc, o_s, LDO, wo_head, D, stages, ocf0, 1, per_warp);
+    }
   }
 
+  const int ncf = H / 16;
 #pragma unroll
-  for (int r = 0; r < Tile_::kRF; ++r) {
+  for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int j = 0; j < Tile_::kCF; ++j) {
+    for (int j = 0; j < OCF; ++j) {
+      const int cf = ocf0 + j;
+      if (HC == 0 && (j >= per_warp || cf >= ncf)) continue;  // uniform over the warp
       for_each_element(acc[r][j], scratch, lane, [&](int i, int jj, float v) {
-        const int row = (rf0 + r) * 16 + i, c = (cf0 + j) * 16 + jj;
+        const int row = r * 16 + i, c = cf * 16 + jj;
         if (row >= tl.nq) return;
         const bool live = p.rows_live == nullptr || p.rows_live[tl.row0 + (tl.q0 + row) / seq];
         out[(tl.tok0 + tl.q0 + row) * H + c] = from_float<bf16>(live ? v + to_float(bo[c]) : 0.f);
@@ -391,11 +441,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_tc_kernel(ProjArg
   }
 }
 
-template <int NC, bool kTensorCores, bool kChunked, bool kDrop>
+template <int D, int HC, int OCF, bool kTensorCores, bool kChunked, bool kDrop>
 int launch(const ProjArgs& a, cudaStream_t stream) {
-  auto kernel = kTensorCores ? fused_proj_attn_tc_kernel<NC, kChunked, kDrop>
-                             : fused_proj_attn_kernel<NC, kChunked, kDrop>;
-  const size_t smem = kTensorCores ? proj_tc_smem_bytes<NC>() : proj_smem_bytes<NC>();
+  auto kernel = kTensorCores ? fused_proj_attn_tc_kernel<D, HC, OCF, kChunked, kDrop>
+                             : fused_proj_attn_kernel<D, kChunked, kDrop>;
+  const size_t smem = kTensorCores ? proj_tc_smem_bytes<D>(a.hidden) : proj_smem_bytes<D>(a.hidden);
+  if (smem > kMaxSmem) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -405,26 +456,32 @@ int launch(const ProjArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int NC, bool kTensorCores>
-int launch_variant(const ProjArgs& a, cudaStream_t s) {
+template <int D, int HC, int OCF, bool kTensorCores>
+int launch_flags(const ProjArgs& a, cudaStream_t s) {
   const bool chunked = a.seq > kTM, drop = a.drop.on;
   if (chunked) {
-    return drop ? launch<NC, kTensorCores, true, true>(a, s)
-                : launch<NC, kTensorCores, true, false>(a, s);
+    return drop ? launch<D, HC, OCF, kTensorCores, true, true>(a, s)
+                : launch<D, HC, OCF, kTensorCores, true, false>(a, s);
   }
-  return drop ? launch<NC, kTensorCores, false, true>(a, s)
-              : launch<NC, kTensorCores, false, false>(a, s);
+  return drop ? launch<D, HC, OCF, kTensorCores, false, true>(a, s)
+              : launch<D, HC, OCF, kTensorCores, false, false>(a, s);
+}
+
+template <int D, bool kTensorCores>
+int launch_variant(const ProjArgs& a, cudaStream_t s) {
+  if constexpr (kTensorCores && D == kRefHeadDim) {
+    if (a.hidden == kRefHidden) return launch_flags<D, kRefHidden, kOutCF768, true>(a, s);
+  }
+  if (kTensorCores && out_cf(a.hidden) == kOutCF768) return launch_flags<D, 0, kOutCF768, true>(a, s);
+  return launch_flags<D, 0, kOutCFMax, kTensorCores>(a, s);
 }
 
 template <bool kTensorCores>
-int dispatch(int nc, const ProjArgs& a, cudaStream_t s) {
-  switch (nc) {
-    case 1: return launch_variant<1, kTensorCores>(a, s);
-    case 2: return launch_variant<2, kTensorCores>(a, s);
-    case 4: return launch_variant<4, kTensorCores>(a, s);
-    case 8: return launch_variant<8, kTensorCores>(a, s);
-    case 12: return launch_variant<12, kTensorCores>(a, s);
-    case 16: return launch_variant<16, kTensorCores>(a, s);
+int dispatch(int head_dim, const ProjArgs& a, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_variant<32, kTensorCores>(a, s);
+    case 64: return launch_variant<64, kTensorCores>(a, s);
+    case 128: return launch_variant<128, kTensorCores>(a, s);
     default: return -1;
   }
 }
@@ -432,22 +489,26 @@ int dispatch(int nc, const ProjArgs& a, cudaStream_t s) {
 }  // namespace
 
 // Returns 0, a cudaError_t from the launch, or -1 for a shape the kernel does
-// not take (H not in 64 x {1, 2, 4, 8, 12, 16}, D != 64, T > 64) or -2 for an
-// unknown dtype code (0 = float32, 1 = bfloat16). dropout = 0 is the eval
-// kernel; otherwise probabilities are dropped with (seed, thresh) and kept
-// ones scaled by dropout_scale.
+// not take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
+// 128}, T > 64) or -2 for an unknown dtype code (0 = float32, 1 = bfloat16).
+// dropout = 0 is the eval kernel; otherwise probabilities are dropped with
+// (seed, thresh) and kept ones scaled by dropout_scale.
 extern "C" int stlt_fused_proj_attention(
     const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* bias, long long bias_row_stride, long long bias_q_stride,
     const void* rows_live, void* out, int rows, int seq, int hidden, int num_heads,
     float scale, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
     int dtype, void* stream) {
-  if (hidden % 64 != 0 || hidden / num_heads != kD || seq < 1 || seq > kTK) return -1;
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
+      hidden % num_heads != 0 || seq < 1 || seq > kTK) {
+    return -1;
+  }
   ProjArgs a{x, wqkv, bqkv, wo, bo, static_cast<const float*>(bias), bias_row_stride,
-             bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, num_heads,
-             seq > kTM ? 1 : kTM / seq, scale, Dropout{dropout, seed, thresh, dropout_scale}};
+             bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
+             num_heads, seq > kTM ? 1 : kTM / seq, scale,
+             Dropout{dropout, seed, thresh, dropout_scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<false>(hidden / 64, a, s);
-  if (dtype == 1) return dispatch<true>(hidden / 64, a, s);
+  if (dtype == 0) return dispatch<false>(hidden / num_heads, a, s);
+  if (dtype == 1) return dispatch<true>(hidden / num_heads, a, s);
   return -2;
 }

@@ -26,7 +26,10 @@
 //
 // 1. fused_proj_bwd_*: one block per tile of whole rows (floor(32 / T) rows
 //    for T <= 32, one row of up to 64 tokens otherwise), looping over the
-//    heads. Per head it projects q/k/v from the x tile and do from the g tile
+//    heads (head dim D = 32, 64 or 128 a template argument, H any multiple
+//    of 64 up to 1024 a runtime value; at D = 128 and H = 1024 the bf16
+//    kernel takes 226,560 bytes of shared memory, its q/k/v held in bf16 as
+//    they are rounded to it (f32 below D = 128), its weight slices 16 rows). Per head it projects q/k/v from the x tile and do from the g tile
 //    (32-token chunks through one shared A tile: on the tensor cores in bf16,
 //    Wqkv and Wo^T streamed by cp.async; on the SIMT pipes in f32), runs the
 //    T x T softmax backward in f32 on the SIMT pipes, and writes that head's
@@ -57,9 +60,14 @@ namespace {
 using namespace stlt;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;   // head dim the kernel takes
 constexpr int kKT = 16;  // k-slice staged per SIMT step
-constexpr int kKS = 32;  // rows of Wqkv / Wo^T per streamed slice (tensor cores)
+
+// bf16: rows of Wqkv / Wo^T per streamed slice (16 at D = 128 keeps the block
+// inside 227 KB at H = 1024: 226,560 bytes).
+template <int D>
+__host__ __device__ constexpr int bwd_slice_rows() {
+  return D > 64 ? 16 : 32;
+}
 constexpr int kTO = 64;  // dWo output tile edge
 constexpr int kKM = 32;  // tokens per step of the dWo reduction
 
@@ -102,29 +110,30 @@ __device__ __forceinline__ bool row_live(const BwdArgs& p, int row) {
 }
 
 // The T x T backward of head h over the tile's ntok tokens (whole rows), from
-// q_s/k_s/v_s/do_s [kTK][kD] f32 in shared memory, with p_s/dp_s [kTK][kTK]
-// as scratch. Writes dq/dk/dv of the head into dqkv and the rounded, dropped
+// q_s/k_s/v_s [kTK][D] (f32, or bf16 in the bf16 kernel: they are rounded to
+// it) and do_s [kTK][D] f32 in shared memory, with p_s/dp_s [kTK][kTK] as
+// scratch. Writes dq/dk/dv of the head into dqkv and the rounded, dropped
 // attention output into the scratch, zeros for dead rows.
-template <typename E>
-__device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const float* q_s,
-                              const float* k_s, const float* v_s, const float* do_s, float* p_s,
+template <typename E, int D, typename QE>
+__device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const QE* q_s,
+                              const QE* k_s, const QE* v_s, const float* do_s, float* p_s,
                               float* dp_s) {
-  const int tid = threadIdx.x, seq = p.seq, H = p.num_heads * kD;
+  const int tid = threadIdx.x, seq = p.seq, H = p.num_heads * D;
   E* __restrict__ dqkv = static_cast<E*>(p.dqkv);
   E* __restrict__ attn = static_cast<E*>(p.attn);
   const int n = tl.ntok * seq;
   // p = softmax(q k^T * scale + bias); dp = (do v^T) * keep * 1/(1-rate).
   for (int idx = tid; idx < n; idx += kThreads) {
     const int i = idx / seq, s = idx % seq, lr = i / seq, t = i % seq;
-    const float* qi = q_s + i * kD;
-    const float* ks = k_s + (lr * seq + s) * kD;
-    const float* di = do_s + i * kD;
-    const float* vs = v_s + (lr * seq + s) * kD;
+    const QE* qi = q_s + i * D;
+    const QE* ks = k_s + (lr * seq + s) * D;
+    const float* di = do_s + i * D;
+    const QE* vs = v_s + (lr * seq + s) * D;
     float dot = 0.f, dpv = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < kD; ++d) {
-      dot = fmaf(qi[d], ks[d], dot);
-      dpv = fmaf(di[d], vs[d], dpv);
+    for (int d = 0; d < D; ++d) {
+      dot = fmaf(to_float(qi[d]), to_float(ks[d]), dot);
+      dpv = fmaf(di[d], to_float(vs[d]), dpv);
     }
     const float b = p.bias[(long long)(tl.row0 + lr) * p.bias_row_stride +
                            (long long)t * p.bias_q_stride + s];
@@ -159,31 +168,31 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const flo
   }
   __syncthreads();
   // Token j (query or key of its row), feature d.
-  for (int idx = tid; idx < tl.ntok * kD; idx += kThreads) {
-    const int j = idx / kD, d = idx % kD, lr = j / seq, base = lr * seq;
+  for (int idx = tid; idx < tl.ntok * D; idx += kThreads) {
+    const int j = idx / D, d = idx % D, lr = j / seq, base = lr * seq;
     const bool live = row_live(p, tl.row0 + lr);
     float o = 0.f, dq = 0.f, dk = 0.f, dv = 0.f;
     if (live) {
       const float* pj = p_s + j * kTK;   // pv of query j
       const float* zj = dp_s + j * kTK;  // dz of query j
       for (int s = 0; s < seq; ++s) {
-        o = fmaf(pj[s], v_s[(base + s) * kD + d], o);
-        dq = fmaf(zj[s], k_s[(base + s) * kD + d], dq);
+        o = fmaf(pj[s], to_float(v_s[(base + s) * D + d]), o);
+        dq = fmaf(zj[s], to_float(k_s[(base + s) * D + d]), dq);
       }
       const int sj = j - base;  // j as a key: sum over the queries of its row
       for (int t = 0; t < seq; ++t) {
-        dk = fmaf(dp_s[(base + t) * kTK + sj], q_s[(base + t) * kD + d], dk);
-        dv = fmaf(p_s[(base + t) * kTK + sj], do_s[(base + t) * kD + d], dv);
+        dk = fmaf(dp_s[(base + t) * kTK + sj], to_float(q_s[(base + t) * D + d]), dk);
+        dv = fmaf(p_s[(base + t) * kTK + sj], do_s[(base + t) * D + d], dv);
       }
       dq *= p.scale;
       dk *= p.scale;
     }
     const long long tok = tl.tok0 + j;
-    E* row = dqkv + tok * 3 * H + h * kD + d;
+    E* row = dqkv + tok * 3 * H + h * D + d;
     row[0] = from_float<E>(dq);
     row[H] = from_float<E>(dk);
     row[2 * H] = from_float<E>(dv);
-    attn[tok * H + h * kD + d] = from_float<E>(o);
+    attn[tok * H + h * D + d] = from_float<E>(o);
   }
   __syncthreads();
 }
@@ -202,12 +211,17 @@ __device__ __forceinline__ void zero_tile(const BwdArgs& p, const Tile& tl, int 
 
 // acc[r][j] += A[ty * kRM + r][k] * B[k][tx + 64 * j] over k < K: A is kTM rows
 // of a row-major f32 matrix in device memory (row stride K; rows from nrows
-// on read as 0), B is NJ segments of 64 columns (row stride ldb). Slices of
-// both are staged in shared memory.
+// on read as 0); B's ncols columns are the segments of b (column c at
+// b.seg[c / b.segw] + c % b.segw, rows b.ld apart), columns from ncols on
+// read as 0. Slices of both are staged in shared memory.
+struct FSegs {
+  const float* seg[3];
+  int segw, ld, ncols;
+};
+
 template <int NJ>
 __device__ __forceinline__ void simt_gemm(float (&acc)[kRM][NJ], const float* A, int nrows, int K,
-                                          const float* const (&bseg)[NJ], int ldb, float* a_sl,
-                                          float* b_sl) {
+                                          const FSegs& b, float* a_sl, float* b_sl) {
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   for (int k0 = 0; k0 < K; k0 += kKT) {
     for (int i = tid; i < kTM * kKT; i += kThreads) {
@@ -216,7 +230,7 @@ __device__ __forceinline__ void simt_gemm(float (&acc)[kRM][NJ], const float* A,
     }
     for (int i = tid; i < kKT * 64 * NJ; i += kThreads) {
       const int kk = i / (64 * NJ), c = i % (64 * NJ);
-      b_sl[i] = bseg[c / 64][(long long)(k0 + kk) * ldb + c % 64];
+      b_sl[i] = c < b.ncols ? b.seg[c / b.segw][(long long)(k0 + kk) * b.ld + c % b.segw] : 0.f;
     }
     __syncthreads();
     tile_fma<kRM, NJ>(acc, a_sl, kKT, ty * kRM, b_sl, 64 * NJ, tx, kKT);
@@ -224,13 +238,21 @@ __device__ __forceinline__ void simt_gemm(float (&acc)[kRM][NJ], const float* A,
   }
 }
 
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (size_t)(kTM * kKT + kKT * 3 * kD + 4 * kTK * kD + 2 * kTK * kTK);
+template <int D>
+__host__ __device__ constexpr int qkv_cols64() {
+  return (3 * D + 63) / 64;  // 64-column segments of one head's q/k/v
 }
 
-template <int NC>
+template <int D>
+size_t bwd_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(kTM * kKT + kKT * 64 * qkv_cols64<D>() + 4 * kTK * D + 2 * kTK * kTK);
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) {
-  constexpr int H = NC * 64;
+  constexpr int kQJ = qkv_cols64<D>(), kDJ = (D + 63) / 64;
+  const int H = p.num_heads * D;
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const float* __restrict__ wqkv = static_cast<const float*>(p.wqkv);
   const float* __restrict__ bqkv = static_cast<const float*>(p.bqkv);
@@ -238,14 +260,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
   const float* __restrict__ g = static_cast<const float*>(p.g);
 
   extern __shared__ float smem[];
-  float* a_sl = smem;                 // [kTM][kKT]
-  float* b_sl = a_sl + kTM * kKT;     // [kKT][3 * kD]
-  float* q_s = b_sl + kKT * 3 * kD;   // [kTK][kD]
-  float* k_s = q_s + kTK * kD;
-  float* v_s = k_s + kTK * kD;
-  float* do_s = v_s + kTK * kD;
-  float* p_s = do_s + kTK * kD;       // [kTK][kTK]
-  float* dp_s = p_s + kTK * kTK;      // [kTK][kTK]
+  float* a_sl = smem;                     // [kTM][kKT]
+  float* b_sl = a_sl + kTM * kKT;         // [kKT][64 * kQJ]
+  float* q_s = b_sl + kKT * 64 * kQJ;     // [kTK][D]
+  float* k_s = q_s + kTK * D;
+  float* v_s = k_s + kTK * D;
+  float* do_s = v_s + kTK * D;
+  float* p_s = do_s + kTK * D;            // [kTK][kTK]
+  float* dp_s = p_s + kTK * kTK;          // [kTK][kTK]
 
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const Tile tl = block_tile(p);
@@ -255,49 +277,61 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
   }
   const int nchunks = (tl.ntok + kTM - 1) / kTM;
 
-  for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64
+  for (int h = 0; h < p.num_heads; ++h) {
+    const FSegs wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, D, 3 * H, 3 * D};
+    const FSegs wot_head{{wot + h * D, nullptr, nullptr}, D, H, D};
     for (int c = 0; c < nchunks; ++c) {
       const int nrows = min(kTM, tl.ntok - kTM * c);
       const long long t0 = tl.tok0 + kTM * c;
-      float pq[kRM][3];
+      float pq[kRM][kQJ];
 #pragma unroll
       for (int r = 0; r < kRM; ++r)
 #pragma unroll
-        for (int j = 0; j < 3; ++j) pq[r][j] = 0.f;
-      const float* const wseg[3] = {wqkv + h * kD, wqkv + H + h * kD, wqkv + 2 * H + h * kD};
-      simt_gemm<3>(pq, x + t0 * H, nrows, H, wseg, 3 * H, a_sl, b_sl);
+        for (int j = 0; j < kQJ; ++j) pq[r][j] = 0.f;
+      simt_gemm<kQJ>(pq, x + t0 * H, nrows, H, wqkv_head, a_sl, b_sl);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float* dst = (j == 0 ? q_s : (j == 1 ? k_s : v_s)) + c * kTM * kD;
-        const float b = bqkv[j * H + h * kD + tx];
+      for (int j = 0; j < kQJ; ++j) {
+        const int cc = tx + 64 * j, part = cc / D, d = cc % D;
+        if (cc >= 3 * D) continue;
+        float* dst = (part == 0 ? q_s : (part == 1 ? k_s : v_s)) + c * kTM * D;
+        const float b = bqkv[part * H + h * D + d];
 #pragma unroll
-        for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * kD + tx] = pq[r][j] + b;
+        for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * D + d] = pq[r][j] + b;
       }
-      float pd[kRM][1];
+      float pd[kRM][kDJ];
 #pragma unroll
-      for (int r = 0; r < kRM; ++r) pd[r][0] = 0.f;
-      const float* const oseg[1] = {wot + h * kD};
-      simt_gemm<1>(pd, g + t0 * H, nrows, H, oseg, H, a_sl, b_sl);
+      for (int r = 0; r < kRM; ++r)
 #pragma unroll
-      for (int r = 0; r < kRM; ++r) do_s[(c * kTM + ty * kRM + r) * kD + tx] = pd[r][0];
+        for (int j = 0; j < kDJ; ++j) pd[r][j] = 0.f;
+      simt_gemm<kDJ>(pd, g + t0 * H, nrows, H, wot_head, a_sl, b_sl);
+#pragma unroll
+      for (int j = 0; j < kDJ; ++j) {
+        const int d = tx + 64 * j;
+        if (d >= D) continue;
+#pragma unroll
+        for (int r = 0; r < kRM; ++r) do_s[(c * kTM + ty * kRM + r) * D + d] = pd[r][j];
+      }
     }
     __syncthreads();
-    head_backward<float>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
+    head_backward<float, D>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
   }
 }
 
 // --- bf16: tensor cores -------------------------------------------------------
 
-template <int NC>
-constexpr size_t bwd_tc_smem_bytes() {
-  constexpr int H = NC * 64;
-  return sizeof(bf16) * ((size_t)kTM * (H + kPad) + stage_elems<kKS, 3 * kD>()) +
-         sizeof(float) * (size_t)(4 * kTK * kD + 2 * kTK * kTK + kWarps * 256);
+template <int D>
+size_t bwd_tc_smem_bytes(int H) {
+  return sizeof(bf16) * ((size_t)kTM * (H + kPad) + ring_elems(bwd_slice_rows<D>(), 3 * D)) +
+         sizeof(typename QkvType<D>::type) * (size_t)3 * kTK * D +
+         sizeof(float) * (size_t)(kTK * D + 2 * kTK * kTK + kWarps * 256);
 }
 
-template <int NC>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_tc_kernel(BwdArgs p) {
-  constexpr int H = NC * 64, LDA = H + kPad;
+  constexpr int kKS = bwd_slice_rows<D>();
+  constexpr int kQCF = (3 * D / 16 + 3) / 4, kDCF = (D / 16 + 3) / 4;  // fragments of a warp
+  using QE = typename QkvType<D>::type;
+  const int H = p.num_heads * D, LDA = H + kPad;
   const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
   const bf16* __restrict__ wqkv = static_cast<const bf16*>(p.wqkv);
   const bf16* __restrict__ bqkv = static_cast<const bf16*>(p.bqkv);
@@ -307,11 +341,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_tc_kernel(BwdArgs 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // [kTM][LDA]: a chunk of x or g
   bf16* stages = a_s + kTM * LDA;                 // ring of Wqkv / Wo^T slices
-  float* q_s = reinterpret_cast<float*>(stages + stage_elems<kKS, 3 * kD>());  // [kTK][kD]
-  float* k_s = q_s + kTK * kD;
-  float* v_s = k_s + kTK * kD;
-  float* do_s = v_s + kTK * kD;
-  float* p_s = do_s + kTK * kD;   // [kTK][kTK]
+  QE* q_s = reinterpret_cast<QE*>(stages + ring_elems(kKS, 3 * D));  // [kTK][D], rounded
+  QE* k_s = q_s + kTK * D;
+  QE* v_s = k_s + kTK * D;
+  float* do_s = reinterpret_cast<float*>(v_s + kTK * D);  // [kTK][D]
+  float* p_s = do_s + kTK * D;    // [kTK][kTK]
   float* dp_s = p_s + kTK * kTK;  // [kTK][kTK]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* scratch = dp_s + kTK * kTK + warp * 256;
@@ -322,47 +356,49 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_tc_kernel(BwdArgs 
     return;
   }
   const int nchunks = (tl.ntok + kTM - 1) / kTM;
-  // q/k/v: warp covers row fragment warp / 4, column fragments 3 * (warp % 4) + j
-  // of [kTM, 3 * kD]; do: row fragment warp / 4, column fragment warp % 4 of [kTM, kD].
-  const int qrf = warp / 4, qcf0 = 3 * (warp % 4), dcf = warp % 4;
+  // q/k/v: warp covers row fragment warp / 4, column fragments warp % 4 + 4 j
+  // of [kTM, 3 * D]; do: the same of [kTM, D].
+  const int qrf = warp / 4, qcf0 = warp % 4;
 
   auto load_chunk = [&](const bf16* src, int c) {
-    const int n = min(kTM, tl.ntok - kTM * c) * H;
-    const bf16* s = src + (tl.tok0 + kTM * c) * H;
-    for (int i = tid; i < kTM * H; i += kThreads) {
-      a_s[(i / H) * LDA + i % H] = i < n ? s[i] : from_float<bf16>(0.f);
-    }
+    copy_rows(a_s, LDA, src + (tl.tok0 + kTM * c) * H, H, min(kTM, tl.ntok - kTM * c), kTM, H);
   };
 
-  for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64
-    const BCols<3, kD> wqkv_head{{wqkv + h * kD, wqkv + H + h * kD, wqkv + 2 * H + h * kD},
-                                 3 * H};
-    const BCols<1, kD> wot_head{{wot + h * kD}, H};
+  for (int h = 0; h < p.num_heads; ++h) {
+    const BCols<3, D> wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, 3 * H};
+    const BCols<1, D> wot_head{{wot + h * D}, H};
     for (int c = 0; c < nchunks; ++c) {
-      // gemm_streamed synchronises the block before it reads a_s and after.
+      // gemm_ring synchronises the block before it reads a_s and after.
       load_chunk(x, c);
-      FragC qacc[1][3];
+      FragC qacc[1][kQCF];
       zero(qacc);
-      gemm_streamed<1, 3, kKS>(qacc, a_s + qrf * 16 * LDA, LDA, wqkv_head, H, stages, qcf0);
+      gemm_ring<1, kQCF, kKS>(qacc, a_s + qrf * 16 * LDA, LDA, wqkv_head, H, stages, qcf0, 4);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < kQCF; ++j) {
+        const int cf = qcf0 + 4 * j;
+        if (cf >= 3 * D / 16) continue;  // uniform over the warp
         for_each_element(qacc[0][j], scratch, lane, [&](int i, int jj, float v) {
-          const int cc = (qcf0 + j) * 16 + jj, part = cc / kD, d = cc % kD;
-          float* dst = part == 0 ? q_s : (part == 1 ? k_s : v_s);
-          dst[(c * kTM + qrf * 16 + i) * kD + d] =
-              round_to<bf16>(v + to_float(bqkv[part * H + h * kD + d]));
+          const int cc = cf * 16 + jj, part = cc / D, d = cc % D;
+          QE* dst = part == 0 ? q_s : (part == 1 ? k_s : v_s);
+          dst[(c * kTM + qrf * 16 + i) * D + d] =
+              from_float<QE>(round_to<bf16>(v + to_float(bqkv[part * H + h * D + d])));
         });
       }
       load_chunk(g, c);
-      FragC dacc[1][1];
+      FragC dacc[1][kDCF];
       zero(dacc);
-      gemm_streamed<1, 1, kKS>(dacc, a_s + qrf * 16 * LDA, LDA, wot_head, H, stages, dcf);
-      for_each_element(dacc[0][0], scratch, lane, [&](int i, int jj, float v) {
-        do_s[(c * kTM + qrf * 16 + i) * kD + dcf * 16 + jj] = v;
-      });
+      gemm_ring<1, kDCF, kKS>(dacc, a_s + qrf * 16 * LDA, LDA, wot_head, H, stages, qcf0, 4);
+#pragma unroll
+      for (int j = 0; j < kDCF; ++j) {
+        const int cf = qcf0 + 4 * j;
+        if (cf >= D / 16) continue;  // uniform over the warp
+        for_each_element(dacc[0][j], scratch, lane, [&](int i, int jj, float v) {
+          do_s[(c * kTM + qrf * 16 + i) * D + cf * 16 + jj] = v;
+        });
+      }
     }
     __syncthreads();
-    head_backward<bf16>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
+    head_backward<bf16, D>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
   }
 }
 
@@ -505,10 +541,11 @@ __global__ void proj_bwd_finalize_kernel(WoArgs a) {
   }
 }
 
-template <int NC, bool kTensorCores>
-int launch(const BwdArgs& a, cudaStream_t stream) {
-  auto kernel = kTensorCores ? fused_proj_bwd_tc_kernel<NC> : fused_proj_bwd_kernel<NC>;
-  const size_t smem = kTensorCores ? bwd_tc_smem_bytes<NC>() : bwd_smem_bytes();
+template <int D, bool kTensorCores>
+int launch(const BwdArgs& a, int H, cudaStream_t stream) {
+  auto kernel = kTensorCores ? fused_proj_bwd_tc_kernel<D> : fused_proj_bwd_kernel<D>;
+  const size_t smem = kTensorCores ? bwd_tc_smem_bytes<D>(H) : bwd_smem_bytes<D>();
+  if (smem > kMaxSmem) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -518,14 +555,11 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 }
 
 template <bool kTensorCores>
-int dispatch(int nc, const BwdArgs& a, cudaStream_t s) {
-  switch (nc) {
-    case 1: return launch<1, kTensorCores>(a, s);
-    case 2: return launch<2, kTensorCores>(a, s);
-    case 4: return launch<4, kTensorCores>(a, s);
-    case 8: return launch<8, kTensorCores>(a, s);
-    case 12: return launch<12, kTensorCores>(a, s);
-    case 16: return launch<16, kTensorCores>(a, s);
+int dispatch(int head_dim, const BwdArgs& a, int H, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch<32, kTensorCores>(a, H, s);
+    case 64: return launch<64, kTensorCores>(a, H, s);
+    case 128: return launch<128, kTensorCores>(a, H, s);
     default: return -1;
   }
 }
@@ -533,8 +567,8 @@ int dispatch(int nc, const BwdArgs& a, cudaStream_t s) {
 }  // namespace
 
 // Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
-// take (H not in 64 x {1, 2, 4, 8, 12, 16}, D != 64, T > 64, a split chunk
-// that is not a multiple of 32 tokens) or -2 for an unknown dtype code
+// take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
+// 128}, T > 64, a split chunk that is not a multiple of 32 tokens) or -2 for an unknown dtype code
 // (0 = float32, 1 = bfloat16). Launches the backward kernel, the split dWo/dbo
 // reduction and its finalize pass on `stream`. wot is Wo transposed; attn,
 // partial [splits, H, H] and partial_b [splits, H] are scratch.
@@ -545,14 +579,18 @@ extern "C" int stlt_fused_proj_attention_bwd(
     int seq, int hidden, int num_heads, float scale, int dropout, unsigned int seed,
     unsigned int thresh, float dropout_scale, int splits, long long chunk, int dtype,
     void* stream) {
-  if (hidden % 64 != 0 || hidden / num_heads != kD || seq < 1 || seq > kTK) return -1;
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
+      hidden % num_heads != 0 || seq < 1 || seq > kTK) {
+    return -1;
+  }
   if (splits < 1 || chunk % kKM != 0) return -1;
   if (dtype != 0 && dtype != 1) return -2;
   BwdArgs a{x, wqkv, bqkv, wot, static_cast<const float*>(bias), bias_row_stride, bias_q_stride,
             g, static_cast<const uint8_t*>(rows_live), dqkv, attn, rows, seq, num_heads,
             seq > kTM ? 1 : kTM / seq, scale, Dropout{dropout, seed, thresh, dropout_scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = dtype == 1 ? dispatch<true>(hidden / 64, a, s) : dispatch<false>(hidden / 64, a, s);
+  const int head_dim = hidden / num_heads;
+  int err = dtype == 1 ? dispatch<true>(head_dim, a, hidden, s) : dispatch<false>(head_dim, a, hidden, s);
   if (err != 0) return err;
   const long long tokens = (long long)rows * seq;
   WoArgs w{attn, g, static_cast<const uint8_t*>(rows_live), partial, partial_b, dwo, dbo,

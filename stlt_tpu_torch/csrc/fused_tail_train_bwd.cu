@@ -181,12 +181,10 @@ int launch_row(const RowArgs& a, int blocks, cudaStream_t s) {
 template <typename T>
 int dispatch_row(int nc, const RowArgs& a, int blocks, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_row<T, 1>(a, blocks, s);
-    case 2: return launch_row<T, 2>(a, blocks, s);
-    case 4: return launch_row<T, 4>(a, blocks, s);
-    case 8: return launch_row<T, 8>(a, blocks, s);
-    case 12: return launch_row<T, 12>(a, blocks, s);
-    case 16: return launch_row<T, 16>(a, blocks, s);
+#define STLT_CASE(n) \
+    case n: return launch_row<T, n>(a, blocks, s);
+    STLT_NC_CASES(STLT_CASE)
+#undef STLT_CASE
     default: return -1;
   }
 }
@@ -454,11 +452,13 @@ __global__ void __launch_bounds__(kThreads, 1) tail_bwd_input_kernel(InputArgs p
 
 // bf16: tensor cores, kTM tokens a block ----------------------------------------
 
-// The du product streams [kKS2, H] slices of W1^T; at H = 1024 a ring of two
-// keeps the block inside the 227 KB of shared memory.
+// The du product streams [kKS2, H] slices of W1^T; from H = 960 (NC = 15)
+// a ring of two keeps the block inside the 227 KB of shared memory
+// (H = 896: 228,096 bytes with three; H = 960: 242,432 with three, 211,456
+// with two).
 template <int NC>
 __host__ __device__ constexpr int du_stages() {
-  return NC >= 16 ? 2 : kStages;
+  return NC >= 15 ? 2 : kStages;
 }
 
 template <int NC>
@@ -588,12 +588,10 @@ int launch_input(const InputArgs& a, int rows_per_block, cudaStream_t s) {
 template <bool kTensorCores>
 int dispatch_input(int nc, const InputArgs& a, int rows_per_block, cudaStream_t s) {
   switch (nc) {
-    case 1: return launch_input<1, kTensorCores>(a, rows_per_block, s);
-    case 2: return launch_input<2, kTensorCores>(a, rows_per_block, s);
-    case 4: return launch_input<4, kTensorCores>(a, rows_per_block, s);
-    case 8: return launch_input<8, kTensorCores>(a, rows_per_block, s);
-    case 12: return launch_input<12, kTensorCores>(a, rows_per_block, s);
-    case 16: return launch_input<16, kTensorCores>(a, rows_per_block, s);
+#define STLT_CASE(n) \
+    case n: return launch_input<n, kTensorCores>(a, rows_per_block, s);
+    STLT_NC_CASES(STLT_CASE)
+#undef STLT_CASE
     default: return -1;
   }
 }
@@ -765,7 +763,7 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_weight_tc_kernel(WeightArgs
 }  // namespace
 
 // Each entry point returns 0, a cudaError_t from a launch, -1 for a shape it
-// does not take (H not in 64 x {1, 2, 4, 8, 12, 16}, FF not a multiple of
+// does not take (H not a multiple of 64 up to 1024, FF not a multiple of
 // 128, a block or split size it was not built for) or -2 for an unknown
 // dtype code (0 = float32, 1 = bfloat16). Activations are in the compute
 // dtype, vectors and sums in f32; live is one byte per token or null;

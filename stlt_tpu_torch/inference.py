@@ -12,7 +12,10 @@ logged x100 to two decimals and returned.
 
 It runs on the GPU unless ``--platform cpu`` is given; without a GPU it
 raises and never falls back to the CPU. Checkpoints are reference-format
-``.pt`` state_dicts.
+``.pt`` state_dicts. STLT evaluates frame-sharded under ``--context_parallel
+C --num_processes C`` as ``predict`` serves it; the accumulators run on the
+coordinator only, which logs and returns the metrics (the other ranks
+return an empty dict).
 
     python -m stlt_tpu_torch.inference --dataset_name something --dataset_type layout \\
         --model_name stlt --test_dataset_path val.json --labels_path labels.json \\
@@ -28,13 +31,15 @@ from typing import Dict
 from stlt_tpu_torch.configs import live_prefix_caps
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
+from stlt_tpu_torch.parallel import distributed
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.predict import (
     build_data_config,
     build_model_config,
     check_flags,
     load_served_model,
-    resolve_device,
+    start_processes,
+    stop_processes,
 )
 from stlt_tpu_torch.training.evaluation import evaluators_factory
 from stlt_tpu_torch.training.loop import (
@@ -47,8 +52,16 @@ from stlt_tpu_torch.training.loop import (
 
 def inference(args) -> Dict[str, float]:
     check_flags(args)
-    device = resolve_device(getattr(args, "platform", None))
-    logging.basicConfig(level=logging.INFO)
+    device = start_processes(args)
+    try:
+        return evaluate(args, device)
+    finally:
+        stop_processes()
+
+
+def evaluate(args, device) -> Dict[str, float]:
+    """The metrics of ``args``' test set on ``device`` (this rank's, under
+    ``--num_processes``; {} on every rank but the coordinator)."""
     data_cfg = build_data_config(args, train=False, dataset_path=args.test_dataset_path)
     test_dataset = datasets_factory[args.dataset_type](data_cfg)
     logging.info("Inference on %d", len(test_dataset))
@@ -75,8 +88,13 @@ def inference(args) -> Dict[str, float]:
     count_path = hasattr(evaluator, "process_counts")
     eval_step = make_eval_counts_step(model) if count_path else make_eval_probs_step(model)
     acc = EvalCountAccumulator() if count_path else EvalProbsAccumulator()
+    coordinator = distributed.is_coordinator()
     for batch in to_device(loader, device):
-        acc.add(eval_step(batch))
+        out = eval_step(batch)  # every rank runs the forward: the ring needs all of them
+        if coordinator:
+            acc.add(out)
+    if not coordinator:
+        return {}
     acc.flush_into(evaluator)
     metrics = evaluator.evaluate()
     logging.info("The metrics are:")

@@ -32,6 +32,13 @@ are cast to the compute dtype where the JAX code casts.
   core through ``ops/flash.py``'s autograd Function (the short flash kernel
   or the blockwise one in lengths mode, each with in-kernel hashed dropout,
   and their backward kernels), then a plain out-projection;
+- under a context mesh (``--context_parallel``, ``parallel/mesh.py``), a
+  ``seq_shard`` layer (the STLT temporal encoder) runs ring attention
+  (``ops/ring.py``, ``layers.py:206-218, 358-365``): q/k/v and the
+  out-projection as plain products, since JAX turns its fused projection
+  kernels off under the ring and computes them outside Pallas, the
+  attention core one blockwise kernel call per ring step; the layer tail
+  stays fused;
 - train, the tail: JAX's gate (``ops/fused_tail_train.tail_train_wants``)
   on the model's clip length, which the encoders take as ``clip_frames``
   (the spatial stage's frame axis, the temporal stage's frame count). From
@@ -63,6 +70,8 @@ from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.ops.attention import dot_product_attention
 from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
+from stlt_tpu_torch.ops.ring import ring_attention
+from stlt_tpu_torch.parallel.mesh import active_context_mesh
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -127,16 +136,19 @@ class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with torch ``nn.MultiheadAttention``'s
     parameters. ``causal`` declares that the bias it gets is causal (the
     temporal encoders): the lengths mode then masks keys above the diagonal
-    too."""
+    too. ``seq_shard``: its token axis is the frame axis, sharded over the
+    context axis when a context mesh is active (ring attention)."""
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False,
+                 seq_shard: bool = False):
         super().__init__()
         assert hidden_size % num_heads == 0
         self.num_heads = num_heads
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.causal = causal
+        self.seq_shard = seq_shard
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
         self.out_proj = nn.Linear(hidden_size, hidden_size)
@@ -152,8 +164,9 @@ class MultiHeadAttention(nn.Module):
         (queries from x), see :meth:`_cross_attention`."""
         if context is not None:
             return self._cross_attention(x, context, bias, seed)
-        if x.shape[1] > fe._KERNEL_MAX_SEQ:
-            return self._projected_attention(x, bias, seed, kv_lengths)
+        ring = active_context_mesh() if self.seq_shard else None
+        if ring is not None or x.shape[1] > fe._KERNEL_MAX_SEQ:
+            return self._projected_attention(x, bias, seed, kv_lengths, ring)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, bias)
         kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
@@ -161,18 +174,27 @@ class MultiHeadAttention(nn.Module):
             return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate, **kw)
         return fe.fused_proj_attention(*args, **kw)
 
-    def _projected_attention(self, x, bias, seed, kv_lengths) -> torch.Tensor:
-        """T > 64 (``layers.py:315-374``): q/k/v from one plain product,
-        viewed as [B, T, N, D] without a copy, the attention core (in train
-        mode with the layer's dropout seed, its gradients from the backward
-        kernels), then the out-projection. Dead rows are left to the layer
-        tail, as in JAX."""
+    def _projected_attention(self, x, bias, seed, kv_lengths, ring=None) -> torch.Tensor:
+        """T > 64 (``layers.py:315-374``), or any T under the ring: q/k/v
+        from one plain product, viewed as [B, T, N, D] without a copy, the
+        attention core (in train mode with the layer's dropout seed, its
+        gradients from the backward kernels; under the ring ``ring_attention``
+        on this rank's frames, with ``kv_lengths`` when given and the dense
+        bias rows otherwise), then the out-projection. Dead rows are left to
+        the layer tail, as in JAX."""
         B, T, H = x.shape
         N, dt = self.num_heads, self.dtype
         qkv = torch.matmul(x.to(dt), self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)
         q, k, v = (qkv[..., i * H:(i + 1) * H].unflatten(-1, (N, H // N)) for i in range(3))
-        use_lengths = kv_lengths is not None and T >= _BLOCKWISE_MIN_SEQ
         drop = self.training and self.dropout_rate > 0.0
+        if ring is not None:
+            out = ring_attention(
+                q, k, v, None if kv_lengths is not None else bias, ring,
+                kv_lengths=kv_lengths, causal=self.causal,
+                dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
+            )
+            return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
+        use_lengths = kv_lengths is not None and T >= _BLOCKWISE_MIN_SEQ
         out = dot_product_attention(
             q, k, v, None if use_lengths else bias, causal=self.causal,
             kv_lengths=kv_lengths if use_lengths else None,
@@ -214,14 +236,15 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False,
+                 seq_shard: bool = False):
         super().__init__()
         self.activation = activation
         self.layer_norm_eps = layer_norm_eps
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, generator, dropout_rate,
-                                            causal)
+                                            causal, seq_shard)
         self.linear1 = nn.Linear(hidden_size, ff_size)
         self.linear2 = nn.Linear(ff_size, hidden_size)
         self.norm1 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
@@ -294,14 +317,15 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
-                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False):
+                 generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False,
+                 seq_shard: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(
                 hidden_size, num_heads, ff_size, activation=activation,
                 layer_norm_eps=layer_norm_eps, dtype=dtype, generator=generator,
-                dropout_rate=dropout_rate, causal=causal,
+                dropout_rate=dropout_rate, causal=causal, seq_shard=seq_shard,
             )
             for _ in range(num_layers)
         )

@@ -41,6 +41,17 @@ forward order, from the ``torch.Generator`` passed to :meth:`Stlt.forward`:
 the category-box embedding mask, each spatial layer's two seeds, the frame
 embedding mask, each temporal layer's two seeds. ``model.eval()`` runs the
 eval kernels and draws nothing.
+
+Under a context mesh (``--context_parallel C``, ``parallel/mesh.py``) the
+backbone runs frame-sharded, as JAX's GSPMD layout shards it
+(``stlt_tpu/training/loop.py:24-48``): each rank keeps its ``F / C`` frames
+from the embedding to the last temporal layer (the frame positions
+``rank t .. rank t + t - 1``; ``kv_lengths`` and the live tokens from the
+whole clip), the temporal attention is ring attention (``ops/ring.py``),
+and the extract frame ``lengths - 1``, held by one rank, reaches every rank
+by a sum over the ring in which the others add zeros; every rank then runs
+the head. The ragged levers stay off there (``stlt_tpu/models/stlt.py:61-62,
+154``).
 """
 
 from __future__ import annotations
@@ -63,6 +74,9 @@ from stlt_tpu_torch.models.layers import (
 )
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
+from stlt_tpu_torch.ops.ring import context_sum
+from stlt_tpu_torch.parallel.mesh import active_context_mesh
+from stlt_tpu_torch.training.loop import shard_frames
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
 
@@ -110,11 +124,13 @@ def _embedding(num: int, hidden: int, generator: torch.Generator, padding_idx=No
     return emb
 
 
-def _encoder(cfg: StltModelConfig, num_layers: int, generator, causal: bool = False) -> TransformerEncoder:
+def _encoder(cfg: StltModelConfig, num_layers: int, generator, causal: bool = False,
+             seq_shard: bool = False) -> TransformerEncoder:
     return TransformerEncoder(
         num_layers, cfg.hidden_size, cfg.num_attention_heads, cfg.hidden_size * 4,
         activation="gelu", layer_norm_eps=cfg.layer_norm_eps, dtype=_dtype(cfg),
         generator=generator, dropout_rate=cfg.hidden_dropout_prob, causal=causal,
+        seq_shard=seq_shard,
     )
 
 
@@ -199,17 +215,22 @@ class FramesEmbeddings(nn.Module):
             "position_ids", torch.arange(cfg.layout_num_frames).expand((1, -1))
         )
 
-    def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], generator=None,
+                position_offset: int = 0, total_frames: int = 0) -> torch.Tensor:
+        """``position_offset``: the global index of the batch's first frame
+        (a context rank's slice); ``total_frames``: the whole (padded) frame
+        axis the position table must hold (default: the batch's own)."""
         dt = self.dtype
         frames = self.layout_embedding(batch, generator)
         num_frames = frames.shape[1]
-        if num_frames > self.layout_num_frames:
+        total = max(total_frames, position_offset + num_frames)
+        if total > self.layout_num_frames:
             raise ValueError(
-                f"clip has {num_frames} frames but the position table holds "
+                f"clip has {total} frames but the position table holds "
                 f"{self.layout_num_frames}; size the model config with "
                 f"configs.position_table_rows(data_config)"
             )
-        positions = self.position_embeddings.weight[None, :num_frames].to(dt)
+        positions = self.position_embeddings.weight[None, position_offset:position_offset + num_frames].to(dt)
         types = nn.functional.embedding(batch["frame_types"], self.frame_type_embedding.weight.to(dt))
         emb = frames + positions + types
         emb = apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
@@ -221,9 +242,15 @@ class StltBackbone(nn.Module):
         super().__init__()
         self.config = cfg
         self.frames_embeddings = FramesEmbeddings(cfg, generator)
-        self.transformer = _encoder(cfg, cfg.num_temporal_layers, generator, causal=True)
+        # Its token axis is the frame axis: ring attention under a context mesh.
+        self.transformer = _encoder(cfg, cfg.num_temporal_layers, generator, causal=True,
+                                    seq_shard=True)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
+        """[B, F, H]; under a context mesh this rank's [B, F / C, H]."""
+        ring = active_context_mesh()
+        if ring is not None:
+            return self._sharded(batch, generator, ring)
         batch = apply_frame_capacity(self.config, batch)
         emb = self.frames_embeddings(batch, generator)
         num_frames = emb.shape[1]
@@ -236,6 +263,24 @@ class StltBackbone(nn.Module):
             )
         return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator,
                                 kv_lengths=kv_lengths, clip_frames=num_frames)  # [B, F, H]
+
+    def _sharded(self, batch, generator, ring) -> torch.Tensor:
+        """This context rank's frames through the backbone: the live tokens
+        and ``kv_lengths`` from the whole clip, the ring's lengths mode (no
+        dense bias) in every temporal layer."""
+        cfg = self.config
+        if cfg.temporal_frame_capacity is not None or cfg.spatial_live_capacity is not None:
+            raise ValueError("the ragged levers (frame and live-row capacities) stay off under "
+                             "a context mesh: the ring shards the frame axis")
+        num_frames = batch["frame_types"].shape[1]
+        tokens_live = batch["frame_types"] != 0
+        kv_lengths = tokens_live.sum(dim=1, dtype=torch.int32)
+        local, offset = shard_frames(batch, ring.context_size, ring.context_index)
+        emb = self.frames_embeddings(local, generator, position_offset=offset,
+                                     total_frames=num_frames)
+        live = tokens_live[:, offset:offset + emb.shape[1]]
+        return self.transformer(emb, None, tokens_live=live, generator=generator,
+                                kv_lengths=kv_lengths, clip_frames=num_frames)
 
 
 class ClassificationHead(nn.Module):
@@ -261,9 +306,19 @@ class ClassificationHead(nn.Module):
 
 def gather_extract_frame(hidden_states: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """The hidden state at frame ``lengths - 1``, the appended EXTRACT frame.
-    [B, F, H] -> [B, H]."""
+    [B, F, H] -> [B, H]. Under a context mesh ``hidden_states`` are this
+    rank's frames: the rank that holds a clip's extract frame gives its
+    row, the others zeros, summed over the ring."""
     rows = torch.arange(hidden_states.shape[0], device=hidden_states.device)
-    return hidden_states[rows, lengths.long() - 1]
+    ring = active_context_mesh()
+    if ring is None:
+        return hidden_states[rows, lengths.long() - 1]
+    t = hidden_states.shape[1]
+    local = lengths.long() - 1 - ring.context_index * t
+    held = (local >= 0) & (local < t)
+    mine = hidden_states[rows, local.clamp(0, t - 1)]
+    mine = torch.where(held[:, None], mine, torch.zeros((), dtype=mine.dtype, device=mine.device))
+    return context_sum(mine, ring)
 
 
 class Stlt(nn.Module):

@@ -4,7 +4,9 @@ Each kernel has a plain C entry point in a source ``csrc/<source>.cu``
 (``<source>`` is the kernel's name unless :data:`SOURCES` names another; the
 three entry points of the train tail's backward share one). At first use a
 source is compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared`` into ``stlt_tpu_torch/_build/`` (listed in ``.gitignore``) and
+--split-compile=0 -shared`` (its kernels optimised on every core: the
+width-templated sources hold dozens) into ``stlt_tpu_torch/_build/``
+(listed in ``.gitignore``) and
 loaded with ``ctypes``. The library's file name carries a hash of its
 sources, so an edited source is rebuilt and a built one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
@@ -95,10 +97,11 @@ SIGNATURES = {
     "blockwise_attention": (
         "stlt_blockwise_attention",
         # q, k, v, their (b, t, n) strides, bias (or null), its (b, n, t)
-        # strides, lengths (or null), causal, out, lse, B, T, S, N, D, scale,
-        # dropout, seed, thresh, dropout_scale, dtype, stream
-        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _I, _P],
+        # strides, lengths (or null), causal, row0, col0 (ring offsets), out,
+        # lse, B, T, S, N, D, scale, dropout, seed, thresh, dropout_scale,
+        # dtype, stream
+        [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+         _F, _I, _U, _U, _F, _I, _P],
     ),
     "flash_attention_bwd": (
         "stlt_flash_attention_bwd",
@@ -120,9 +123,11 @@ SIGNATURES = {
 
 # Kernels (by their launch-count names) whose entry point lives in another
 # source than csrc/<name>.cu: the train variants share their eval sources, the
-# blockwise forward's and backward's dense-bias modes their lengths modes'.
+# blockwise forward's and backward's dense-bias modes (and the forward's
+# ring-offset mode) their lengths modes'.
 SOURCES = {
     "blockwise_attention_dense": "blockwise_attention",
+    "blockwise_attention_offsets": "blockwise_attention",
     "blockwise_attention_bwd_dense": "blockwise_attention_bwd",
     "fused_proj_attention_train": "fused_proj_attention",
     "fused_proj_attention_train_bwd": "fused_proj_attention_bwd",
@@ -160,6 +165,7 @@ def _library_path(name: str) -> Path:
 def _nvcc_command(name: str, target: Path):
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "--split-compile=0",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
         "-o", str(target), str(CSRC / f"{name}.cu"),
     ]

@@ -25,8 +25,9 @@ Each kernel has three parts, as in ``ops/fused_encoder.py``:
   launches its kernel (a backward call launches its dq and dk/dv kernels
   and counts once) and nowhere else; the blockwise forward and backward
   count their lengths modes as ``blockwise_attention`` and
-  ``blockwise_attention_bwd`` and their dense-bias modes as
-  ``blockwise_attention_dense`` and ``blockwise_attention_bwd_dense``.
+  ``blockwise_attention_bwd``, their dense-bias modes as
+  ``blockwise_attention_dense`` and ``blockwise_attention_bwd_dense``, and
+  the forward's ring-offset mode as ``blockwise_attention_offsets``.
 
 Gradients. When q, k or v needs a gradient, :func:`flash_attention` runs the
 ``torch.autograd.Function`` ``_Attention`` over the short or the blockwise
@@ -74,11 +75,24 @@ computed, lse written, T and S free (33 against 513 and back); with
 diagonal are skipped (forward and dq), and query tiles above it (dk, dv),
 as JAX's ``_causal_live`` skips them.
 
+Ring-offset mode of the blockwise forward (``offsets`` = (row0, col0) with
+``kv_lengths``; one call per step of ``ops/ring.py``, JAX's ``off_base``):
+local query t and key s are the global row0 + t and col0 + s, so key s is
+live iff col0 + s < kv_lengths[b] (and col0 + s <= row0 + t with
+``causal``), and the dead rows are those with row0 + t >= kv_lengths[b]
+(zeros, lse 0). A live row with no live key in the held chunk is zeros with
+lse ``_NEG_INF``: JAX forces its first key block live, so such a row gets a
+finite output and an lse near -1e30, and the ring's cross-chunk merge wipes
+both out. The dropout bits hash the local (t, s).
+
+The head dim D is 32, 64 or 128 on a CUDA tensor (``_KERNEL_HEAD_DIMS``);
+the CPU path takes any.
+
 Not ported yet, and refused on a CUDA tensor with the ``ROADMAP.md`` item
 it waits for: the dropout-mask operand (the models hash their bits from a
-seed; B5 (mask)). The ring ``offsets`` mode (A9) is refused on every
-device. The plain versions compute the mask operand, so the CPU path stays
-whole.
+seed; B5 (mask)). The backward's ring ``offsets`` mode (context training)
+is refused on every device. The plain versions compute the mask operand,
+so the CPU path stays whole.
 """
 
 from __future__ import annotations
@@ -91,13 +105,13 @@ from stlt_tpu_torch.ops import _kernels
 from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 
 LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
-            "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
-            "blockwise_attention_bwd_dense": 0}
+            "blockwise_attention_offsets": 0, "flash_attention_bwd": 0,
+            "blockwise_attention_bwd": 0, "blockwise_attention_bwd_dense": 0}
 
 _BLOCKWISE_MIN_SEQ = 513
 _NEG_INF = -1e30  # finite: exp(-1e30 - m) == 0 without inf - inf NaNs
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIM = 64
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 _LATER = {
     "mask": "the dropout-mask operand is not ported to the CUDA kernels (the models hash "
@@ -133,9 +147,32 @@ def _lengths_dense_bias(kv_lengths, T: int, S: int, causal: bool) -> torch.Tenso
     return torch.where(valid, zero, zero + _NEG_INF)[:, None, None, :]
 
 
-def _live_rows(kv_lengths, T: int, device) -> torch.Tensor:
-    """[B, T] bool: query row t of clip b is live iff t < kv_lengths[b]."""
-    return torch.arange(T, device=device)[None, :] < kv_lengths.to(device)[:, None]
+def _offsets_bias(kv_lengths, T: int, S: int, causal: bool, offsets) -> torch.Tensor:
+    """The ring-offset mode's dense [B, 1, T, S] f32 bias: 0 where local key
+    s is live for local query t at global (row0 + t, col0 + s), ``_NEG_INF``
+    elsewhere."""
+    row0, col0 = offsets
+    lengths = torch.as_tensor(kv_lengths).to(torch.int64)
+    cols = torch.arange(S, device=lengths.device) + col0
+    valid = (cols[None, :] < lengths[:, None])[:, None, :].expand(-1, T, -1)  # [B, T, S]
+    if causal:
+        rows = torch.arange(T, device=lengths.device) + row0
+        valid = valid & (cols[None, None, :] <= rows[None, :, None])
+    zero = torch.zeros((), dtype=torch.float32, device=lengths.device)
+    return torch.where(valid, zero, zero + _NEG_INF)[:, None]
+
+
+def _ring_offsets(offsets) -> Tuple[int, int]:
+    """(row0, col0) as Python ints from a pair or a [2] tensor."""
+    row0, col0 = (int(v) for v in (offsets.tolist() if torch.is_tensor(offsets) else offsets))
+    if row0 < 0 or col0 < 0:
+        raise ValueError(f"ring offsets must be >= 0, got {(row0, col0)}")
+    return row0, col0
+
+
+def _live_rows(kv_lengths, T: int, device, row0: int = 0) -> torch.Tensor:
+    """[B, T] bool: query row t of clip b is live iff row0 + t < kv_lengths[b]."""
+    return torch.arange(T, device=device)[None, :] + row0 < kv_lengths.to(device)[:, None]
 
 
 def _broadcast_bias(bias, B: int, T: int, S: int) -> torch.Tensor:
@@ -206,19 +243,29 @@ def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bo
                               offsets=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`blockwise_attention`: (out [B, T, N, D]
     in v's dtype, lse [B, N, T] f32). In lengths mode the dead query rows
-    ``t >= kv_lengths[b]`` are zeros with lse 0."""
+    ``row0 + t >= kv_lengths[b]`` are zeros with lse 0; with ring offsets a
+    live row with no live key is zeros with lse ``_NEG_INF``."""
     _check_dropout(dropout_mask, dropout_rate, dropout_seed)
-    _refuse_offsets(offsets)
     _check_bias(bias, kv_lengths)
+    if offsets is not None and kv_lengths is None:
+        raise ValueError("ring offsets require kv_lengths")
     T, S = q.shape[1], k.shape[1]
-    if kv_lengths is not None:
+    row0 = 0
+    if offsets is not None:
+        row0, col0 = _ring_offsets(offsets)
+        bias = _offsets_bias(kv_lengths.to(q.device), T, S, causal, (row0, col0))
+    elif kv_lengths is not None:
         bias = _lengths_dense_bias(kv_lengths.to(q.device), T, S, causal)
     probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed)
     out = (probs @ vt).transpose(1, 2)
     lse = m + torch.log(l)
     if kv_lengths is not None:
-        live = _live_rows(kv_lengths, T, q.device)
         zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        if offsets is not None:  # live rows with no live key in this chunk
+            none = (bias[:, 0] == _NEG_INF).all(-1)  # [B, T]
+            out = torch.where(none[:, :, None, None], zero, out)
+            lse = torch.where(none[:, None, :], zero + _NEG_INF, lse)
+        live = _live_rows(kv_lengths, T, q.device, row0)
         out = torch.where(live[:, :, None, None], out, zero)
         lse = torch.where(live[:, None, :], lse, zero)
     return out.to(v.dtype), lse
@@ -275,8 +322,8 @@ def _dsum(dout, out, kv_lengths) -> torch.Tensor:
 def _refuse_offsets(offsets) -> None:
     if offsets is not None:
         raise NotImplementedError(
-            "the ring (sequence-parallel) offsets mode is not ported yet: it waits for "
-            "ROADMAP.md item A9"
+            "the ring (sequence-parallel) offsets mode of the attention backward is not "
+            "ported yet: it waits for ROADMAP.md item A9 (context training)"
         )
 
 
@@ -298,8 +345,8 @@ def _check_heads(op: str, q, k, v, dout=None) -> int:
         raise ValueError(f"{op}: q [B, T, N, D] and k, v [B, S, N, D] expected, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, T, N, D = q.shape
-    if D != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got D={D}")
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{op}: the CUDA kernel takes head dim in {_KERNEL_HEAD_DIMS}, got D={D}")
     if min(B, T, N, k.shape[1]) < 1:
         raise ValueError(f"{op}: empty input {tuple(q.shape)}, {tuple(k.shape)}")
     align = 16 // q.element_size()
@@ -386,18 +433,21 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
     chunks. q: [B, T, N, D]; k, v: [B, S, N, D]. Lengths mode (kv_lengths:
     [B] int): key chunks above the diagonal (``causal``) or at and past the
     clip's length are skipped, dead query rows are zeros with lse 0 and whole
-    dead query tiles skip all compute. Dense-bias mode (``bias`` f32,
-    broadcastable to [B, N, T, S], or None for no bias): every row computed,
-    key chunks above the diagonal skipped with ``causal``. Returns (out [B,
-    T, N, D] in v's dtype, lse [B, N, T] f32)."""
-    _refuse_offsets(offsets)
+    dead query tiles skip all compute; ``offsets`` (row0, col0) place the
+    block in the whole sequence (one ring step; see the module docstring).
+    Dense-bias mode (``bias`` f32, broadcastable to [B, N, T, S], or None for
+    no bias): every row computed, key chunks above the diagonal skipped with
+    ``causal``. Returns (out [B, T, N, D] in v's dtype, lse [B, N, T] f32)."""
     kw = dict(bias=bias, kv_lengths=kv_lengths, causal=causal, dropout_mask=dropout_mask,
-              dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+              dropout_rate=dropout_rate, dropout_seed=dropout_seed, offsets=offsets)
     if _on_cpu(q, "blockwise_attention"):
         return blockwise_attention_plain(q, k, v, **kw)
     op = "blockwise_attention"
     drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     _check_bias(bias, kv_lengths)
+    if offsets is not None and kv_lengths is None:
+        raise ValueError(f"{op}: ring offsets require kv_lengths")
+    row0, col0 = (0, 0) if offsets is None else _ring_offsets(offsets)
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
@@ -410,11 +460,14 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
             op, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v),
             None if b4 is None else b4.data_ptr(), *strides,
-            None if lengths is None else lengths.data_ptr(), int(bool(causal)),
+            None if lengths is None else lengths.data_ptr(), int(bool(causal)), row0, col0,
             out.data_ptr(), lse.data_ptr(), B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code,
             _stream(q.device),
         )
-    LAUNCHES[op if lengths is not None else "blockwise_attention_dense"] += 1
+    if offsets is not None:
+        LAUNCHES["blockwise_attention_offsets"] += 1
+    else:
+        LAUNCHES[op if lengths is not None else "blockwise_attention_dense"] += 1
     return out, lse
 
 

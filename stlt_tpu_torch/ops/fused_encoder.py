@@ -69,9 +69,10 @@ LAUNCHES = {
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Hidden sizes the CUDA kernels are instantiated for (64 x these).
-_KERNEL_WIDTHS = (1, 2, 4, 8, 12, 16)
-_KERNEL_HEAD_DIM = 64
+# Hidden sizes the CUDA kernels take (64 x these) and head dims of the ones
+# that fuse attention.
+_KERNEL_WIDTHS = tuple(range(1, 17))
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 _KERNEL_MAX_SEQ = 64  # FUSED_PROJ_MAX_SEQ of the JAX package
 _KERNEL_FF_CHUNK = 128
 
@@ -140,8 +141,14 @@ def _check_kernel_dtypes(op: str, compute_dtype, *tensors) -> int:
 def _check_kernel_width(op: str, hidden: int) -> None:
     if hidden % 64 or hidden // 64 not in _KERNEL_WIDTHS:
         raise ValueError(
-            f"{op}: the CUDA kernel takes H in 64 x {_KERNEL_WIDTHS}, got H={hidden}"
+            f"{op}: the CUDA kernel takes H in 64 x {{1, ..., {_KERNEL_WIDTHS[-1]}}}, got H={hidden}"
         )
+
+
+def _check_kernel_heads(op: str, hidden: int, num_heads: int) -> None:
+    if num_heads < 1 or hidden % num_heads or hidden // num_heads not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{op}: the CUDA kernel takes head dim in {_KERNEL_HEAD_DIMS}, "
+                         f"got H/N={hidden / num_heads}")
 
 
 def _check_tail_kernel(op: str, compute_dtype, H: int, w1, w2, *activations) -> int:
@@ -254,8 +261,7 @@ def _check_proj_kernel(op: str, x, wqkv, bqkv, wo, num_heads: int, compute_dtype
     B, T, H = x.shape
     code = _check_kernel_dtypes(op, compute_dtype, x)
     _check_kernel_width(op, H)
-    if H // num_heads != _KERNEL_HEAD_DIM or H % num_heads:
-        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got H/N={H / num_heads}")
+    _check_kernel_heads(op, H, num_heads)
     if not 1 <= T <= _KERNEL_MAX_SEQ:
         raise ValueError(f"{op}: the CUDA kernel takes T <= {_KERNEL_MAX_SEQ}, got T={T}")
     if wqkv.shape != (H, 3 * H) or bqkv.shape != (3 * H,) or wo.shape != (H, H):
@@ -699,8 +705,7 @@ def _check_cross_kernel(op: str, x, ctx, wq, bq, wkv, bkv, wo, bo, num_heads: in
     B, T, H = x.shape
     code = _check_kernel_dtypes(op, compute_dtype, x, ctx)
     _check_kernel_width(op, H)
-    if H // num_heads != _KERNEL_HEAD_DIM or H % num_heads:
-        raise ValueError(f"{op}: the CUDA kernel takes head dim {_KERNEL_HEAD_DIM}, got H/N={H / num_heads}")
+    _check_kernel_heads(op, H, num_heads)
     S = ctx.shape[1]
     if ctx.dim() != 3 or ctx.shape[0] != B or ctx.shape[2] != H:
         raise ValueError(f"{op}: ctx [B={B}, S, H={H}] expected, got {tuple(ctx.shape)}")
@@ -732,7 +737,7 @@ def fused_cross_attention(
     output axis), wo: [H, H] (input-major); bq [H], bkv [2H], bo [H]; bias:
     head-invariant, broadcastable to [B, 1, T, S]. Returns [B, T, H] in
     x.dtype. A CUDA tensor launches csrc/fused_cross_attention.cu (T, S <=
-    64, head dim 64, H in 64 x ``_KERNEL_WIDTHS``) or raises; a CPU tensor
+    64, head dim in ``_KERNEL_HEAD_DIMS``, H in 64 x ``_KERNEL_WIDTHS``) or raises; a CPU tensor
     takes :func:`fused_cross_attention_plain`."""
     args = (x, ctx, wq, bq, wkv, bkv, wo, bo, bias)
     kw = dict(num_heads=num_heads, compute_dtype=compute_dtype)

@@ -1,0 +1,157 @@
+"""Ring attention over the ``context`` axis: the forward of
+``stlt_tpu/ops/ring.py`` (``_ring_forward`` :108-183, ``ring_attention``
+:280-386) as a per-rank program.
+
+JAX runs the ring under ``shard_map`` over a global view; here every rank
+runs its own program on its own shards. Rank ``idx`` of a context ring of C
+ranks holds its ``t = T / C`` query frames and the home K/V chunk of the
+same frames. At step j it holds chunk ``(idx - j) mod C`` and calls the
+blockwise kernel (``ops/flash.py``, TPU row 8) once:
+
+- lengths mode (``kv_lengths`` [B], the global live frame counts, with
+  ``causal``): the kernel's ring-offset mode with ``offsets = (idx * t,
+  chunk * s)``, so the causal and padding mask of the whole sequence is
+  generated in place and no O(T^2) array exists;
+- dense mode (``bias`` [b, 1, t, S]: this rank's query rows of a
+  head-invariant bias, every key column): the bias columns of the held
+  chunk, no offsets.
+
+The steps' normalised outputs merge in f32 by ``logaddexp`` of their lse
+(rows with no live key in a chunk come with lse -1e30 and weigh 0). K and V
+move to the next rank of the ring through ``dist.batch_isend_irecv``: on
+NCCL the device tensors go directly, on gloo (ranks that share a device, or
+the CPU) through pinned host buffers, since gloo's point-to-point takes CPU
+tensors only. Unlike JAX, the forward does not rotate after its last step
+(JAX does, to overlap its merge); the result is the same.
+
+Dropout: ``dropout_seed`` hashes keep bits in the kernel from a seed folded
+with the rank's mesh coordinates and the chunk (``_device_seed``,
+``_step_seed`` :79-94, on the port's ``lowbias32``), since the kernel
+hashes local (t, s). ``dropout_mask`` (this rank's rows [b, n|1, t, S])
+runs on the CPU only and raises on the card (ROADMAP.md B5 (mask)).
+Gradients through the ring raise: the ring's backward waits for ROADMAP.md
+item A9 (context training).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from stlt_tpu_torch.ops import flash
+from stlt_tpu_torch.ops.dropout import MASK32, lowbias32
+from stlt_tpu_torch.parallel.mesh import Mesh
+
+_NEG_INF = flash._NEG_INF
+
+
+def _device_seed(mesh: Mesh, seed: int) -> int:
+    """Per-rank base seed: every mesh coordinate folded in, so no two ranks
+    share a hash lane (local (b, n, t) repeat across shards). With one data
+    and one model coordinate the rank's index is its context index."""
+    return int(lowbias32((int(seed) & MASK32) ^ mesh.context_index))
+
+
+def _step_seed(seed_dev: int, chunk: int) -> int:
+    """Per-step seed: each K/V chunk its own bits."""
+    return int(lowbias32(seed_dev ^ chunk))
+
+
+def _rotate(tensors, mesh: Mesh):
+    """Send each tensor to the next rank of the ring and receive the
+    previous rank's in its place (same shapes and dtypes)."""
+    idx, C = mesh.context_index, mesh.context_size
+    nxt, prv = (idx + 1) % C, (idx - 1) % C
+    staged = tensors[0].device.type != "cpu" and mesh.backend != "nccl"
+    if staged:  # gloo: point-to-point on host copies
+        sends = [t.to("cpu").pin_memory() for t in tensors]
+        recvs = [torch.empty(t.shape, dtype=t.dtype).pin_memory() for t in tensors]
+    else:
+        sends = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+    # bf16 travels as its 16-bit words: point-to-point moves bytes.
+    wire = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    ops = [dist.P2POp(dist.isend, wire(t), nxt) for t in sends]
+    ops += [dist.P2POp(dist.irecv, wire(t), prv) for t in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        return [r.to(t.device) for r, t in zip(recvs, tensors)]
+    return recvs
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    mesh: Mesh,
+    *,
+    dropout_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    kv_lengths: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Sequence-parallel self-attention on this rank's shards. q, k, v:
+    [b, t, n, d], the rank's frames of the whole [b, C t, n, d]. The bias
+    comes in one of two forms: ``kv_lengths`` [b] (global live frame counts,
+    with ``causal``), or ``bias`` [b, 1, t, C t] (or None for no bias), this
+    rank's query rows. Returns [b, t, n, d] in v's dtype."""
+    if dropout_mask is not None and dropout_seed is not None:
+        raise ValueError("pass a dropout mask OR a dropout seed, not both")
+    if bias is not None and kv_lengths is not None:
+        raise ValueError("pass a dense bias OR kv_lengths (+ causal), not both")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError("gradients through ring attention are not ported yet: the "
+                                  "ring's backward waits for ROADMAP.md item A9 (context training)")
+    if dropout_mask is not None and q.device.type != "cpu":
+        raise NotImplementedError("ring attention's dropout-mask operand is not ported to the "
+                                  "card: it waits for ROADMAP.md item B5 (mask); pass dropout_seed")
+    b, t, n, d = q.shape
+    s = k.shape[1]
+    C = mesh.context_size
+    idx = mesh.context_index
+    lengths = kv_lengths is not None
+    if not lengths:
+        bias = torch.zeros((b, 1, t, C * s), dtype=torch.float32, device=q.device) if bias is None \
+            else bias.to(torch.float32)
+        if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[2:] != (t, C * s):
+            raise ValueError(f"ring attention takes this rank's head-invariant bias rows "
+                             f"[b, 1, {t}, {C * s}], got {tuple(bias.shape)}")
+    seed_dev = _device_seed(mesh, dropout_seed) if dropout_seed is not None else None
+    o = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, n, t), _NEG_INF, dtype=torch.float32, device=q.device)
+    k_c, v_c = k, v
+    for j in range(C):
+        chunk = (idx - j) % C
+        cols = slice(chunk * s, (chunk + 1) * s)
+        kw = dict(dropout_rate=dropout_rate)
+        if seed_dev is not None:
+            kw["dropout_seed"] = _step_seed(seed_dev, chunk)
+        elif dropout_mask is not None:
+            kw["dropout_mask"] = dropout_mask[..., cols]
+        if lengths:
+            kw.update(kv_lengths=kv_lengths, causal=causal, offsets=(idx * t, chunk * s))
+        else:
+            kw.update(bias=bias[..., cols])
+        o_j, lse_j = flash.blockwise_attention(q, k_c, v_c, **kw)
+        lse_new = torch.logaddexp(lse, lse_j)
+        o = o * torch.exp(lse - lse_new)[..., None] + \
+            o_j.transpose(1, 2).to(torch.float32) * torch.exp(lse_j - lse_new)[..., None]
+        lse = lse_new
+        if j + 1 < C:
+            k_c, v_c = _rotate([k_c, v_c], mesh)
+    return o.transpose(1, 2).to(v.dtype)
+
+
+def context_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of the context ring (every rank gets
+    it), in f32 (exact where one rank adds a value and the others zeros),
+    staged through the host on gloo as :func:`_rotate` is."""
+    staged = x.device.type != "cpu" and mesh.backend != "nccl"
+    buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return buf.to(x.device, x.dtype)

@@ -10,6 +10,13 @@ multimodal`` (HDF5 JPEG frames, ``--videos_path``). It runs on the GPU
 unless ``--platform cpu`` is given; without a GPU it raises and never falls
 back to the CPU. Checkpoints are reference-format ``.pt`` state_dicts.
 
+STLT serves frame-sharded over C processes with ``--context_parallel C
+--num_processes C --process_id r --coordinator_address host:port``
+(``parallel/``): every rank loads the same batches (the frame axis padded to
+a multiple of C), keeps its frames, runs the temporal attention as a ring
+(``ops/ring.py``) and gets the same logits; only the coordinator (rank 0)
+writes the predictions.
+
     python -m stlt_tpu_torch.predict --dataset_name something --dataset_type multimodal \
         --model_name cacnf --test_dataset_path val.json --labels_path labels.json \
         --videoid2size_path sizes.json --videos_path videos.h5 --checkpoint_path best.pt \
@@ -33,6 +40,8 @@ from stlt_tpu_torch.configs import (
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
 from stlt_tpu_torch.models import models_factory
+from stlt_tpu_torch.parallel import distributed
+from stlt_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.utils.convert import load_checkpoint
 
@@ -74,16 +83,22 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
 def check_flags(args) -> None:
     """The serving CLIs' flags: an unknown model or dataset type raises with
     the choices; flags of later slices raise with the ``ROADMAP.md`` item
-    they wait for."""
+    they wait for. Of the parallel flags only the context axis runs: STLT
+    over ``--context_parallel C`` with ``--num_processes C`` (one process a
+    rank of the ring)."""
     for flag, value, choices in (("--model_name", args.model_name, models_factory),
                                  ("--dataset_type", args.dataset_type, datasets_factory)):
         if value not in choices:
             raise ValueError(f"{flag} {value!r} is not one of {sorted(choices)}")
+    context, processes = args.context_parallel, max(args.num_processes, 1)
     later = [
-        (args.model_parallel > 1 or args.context_parallel > 1,
-         "--model_parallel/--context_parallel > 1", "A9"),
-        (args.num_processes > 1 or args.coordinator_address is not None,
-         "--num_processes/--coordinator_address", "A9"),
+        (args.model_parallel > 1, "--model_parallel > 1", "A9 (model axis)"),
+        (context > 1 and args.model_name != "stlt",
+         f"--model_name {args.model_name} under --context_parallel", "A9 (fusion models under the ring)"),
+        (processes != context, f"--num_processes {processes} with --context_parallel {context} "
+         "(a data axis)", "A9 (data axis)"),
+        (processes == 1 and args.coordinator_address is not None,
+         "--coordinator_address without --num_processes", "A9 (data axis)"),
         (getattr(args, "native_decode", False), "--native_decode", "A10"),
     ]
     for hit, flag, item in later:
@@ -141,10 +156,35 @@ def load_served_model(args, model_config, device: torch.device):
     return model.to(device).eval()
 
 
+def start_processes(args) -> torch.device:
+    """This process's device and, under ``--num_processes``, its rank of
+    the process group and the active context mesh (``parallel/``)."""
+    logging.basicConfig(level=logging.INFO)
+    platform = getattr(args, "platform", None)
+    if not distributed.maybe_initialize(args):
+        return resolve_device(platform)
+    device = distributed.process_device(platform, args.process_id)
+    set_active_mesh(make_mesh(args.model_parallel, args.context_parallel, device))
+    return device
+
+
+def stop_processes() -> None:
+    set_active_mesh(None)
+    distributed.shutdown()
+
+
 def predict(args):
     check_flags(args)
-    device = resolve_device(getattr(args, "platform", None))
-    logging.basicConfig(level=logging.INFO)
+    device = start_processes(args)
+    try:
+        return serve(args, device)
+    finally:
+        stop_processes()
+
+
+def serve(args, device):
+    """The predictions of ``args``' dataset on ``device`` (this rank's, under
+    ``--num_processes``); the coordinator writes them to ``--output``."""
     data_cfg = build_data_config(args, train=False, dataset_path=args.test_dataset_path)
     dataset = datasets_factory[args.dataset_type](data_cfg)
     loader = Loader(
@@ -190,11 +230,12 @@ def predict(args):
                     }
                 )
             index += size
-    out_path = args.output or "predictions.jsonl"
-    with open(out_path, "w") as f:
-        for row in rows:
-            f.write(json.dumps(row) + "\n")
-    logging.info("Wrote %d predictions to %s", len(rows), out_path)
+    if distributed.is_coordinator():
+        out_path = args.output or "predictions.jsonl"
+        with open(out_path, "w") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+        logging.info("Wrote %d predictions to %s", len(rows), out_path)
     return rows
 
 

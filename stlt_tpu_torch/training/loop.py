@@ -24,6 +24,33 @@ import torch
 from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
 
 
+# Batch entries whose dim 1 is the layout frame axis, which a context mesh
+# shards (``stlt_tpu/training/loop.py:24-48``).
+FRAME_AXIS_KEYS = ("categories", "boxes", "scores", "frame_types")
+
+
+def shard_frames(batch: Dict[str, torch.Tensor], context: int, index: int):
+    """This context rank's frames of a global batch: (the batch with each
+    FRAME_AXIS_KEYS entry cut to frames [index t, (index + 1) t), the offset
+    index t), t = frames / context. Every rank builds the same global batch
+    (the loader's order is deterministic) and keeps its slice."""
+    frames = batch["frame_types"].shape[1]
+    for key in FRAME_AXIS_KEYS:
+        if key in batch and batch[key].shape[1] % context:
+            raise ValueError(
+                f"context_parallel={context} does not divide the frame axis ({key} has "
+                f"{batch[key].shape[1]} frames). The train/inference CLIs pad via "
+                "DataConfig.frames_multiple; non-CLI callers must pad the frame axis to a "
+                "multiple of the context axis themselves."
+            )
+    t = frames // context
+    out = dict(batch)
+    for key in FRAME_AXIS_KEYS:
+        if key in out:
+            out[key] = out[key][:, index * t:(index + 1) * t]
+    return out, index * t
+
+
 def _model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in batch.items() if k not in ("labels", "valid")}
 

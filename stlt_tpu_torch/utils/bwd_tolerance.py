@@ -139,14 +139,14 @@ MUTATIONS = {
     )]),
     "cross_q_unrounded": (("cross",), [(
         "fused_cross_attention.cu",
-        "q_s[(qrf * 16 + i) * kD + d] = round_to<bf16>(v + to_float(bq[h * kD + d]));",
-        "q_s[(qrf * 16 + i) * kD + d] = v + to_float(bq[h * kD + d]);",
+        "q_s[(qrf * 16 + i) * D + d] = round_to<bf16>(v + to_float(bq[h * D + d]));",
+        "q_s[(qrf * 16 + i) * D + d] = v + to_float(bq[h * D + d]);",
     )]),
     "cross_head_left_out": (("cross",), [(
         "fused_cross_attention.cu",
-        "for (int h = 0; h < NC; ++h) {  // NC == number of heads, since D == 64\n"
-        "    // gemm_streamed synchronises the block before it reads x_s and after.",
-        "for (int h = 0; h < NC - 1; ++h) {",
+        "for (int h = 0; h < num_heads; ++h) {\n"
+        "    // The GEMMs synchronise the block before they read x_s and after.",
+        "for (int h = 0; h < num_heads - 1; ++h) {",
     )]),
     "dense_causal_last_key_dropped": (("dense",), [(
         "attention_core.cuh",

@@ -201,12 +201,16 @@ def test_kernels_refuse_what_they_do_not_take(device):
         fe.fused_proj_attention(x, *proj, num_heads=1, compute_dtype=torch.float32)
     with pytest.raises(TypeError, match="compute dtype"):
         fe.fused_proj_attention(x[:, :8].bfloat16(), *proj, num_heads=1, compute_dtype=torch.float32)
-    ctx = torch.randn(2, 17, 32, device=device)
-    cross = (torch.randn(32, 32, device=device), torch.zeros(32, device=device),
-             torch.randn(32, 64, device=device), torch.zeros(64, device=device),
-             torch.randn(32, 32, device=device), torch.zeros(32, device=device), None)
+    # Outside the kernels' domain (H a multiple of 64 up to 1024, head dim 32,
+    # 64 or 128): H = 1088, and head dim 8.
+    ctx = torch.randn(2, 17, 1088, device=device)
+    cross = (torch.randn(1088, 1088, device=device), torch.zeros(1088, device=device),
+             torch.randn(1088, 2176, device=device), torch.zeros(2176, device=device),
+             torch.randn(1088, 1088, device=device), torch.zeros(1088, device=device), None)
     with pytest.raises(ValueError, match="H in 64"):
-        fe.fused_cross_attention(ctx[:, :8], ctx, *cross, num_heads=4, compute_dtype=torch.float32)
+        fe.fused_cross_attention(ctx[:, :8], ctx, *cross, num_heads=17, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="head dim in"):
+        fe.fused_proj_attention(x[:, :8], *proj, num_heads=8, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="T, S <= 64"):
         fe.fused_cross_attention(x, torch.randn(2, 8, 64, device=device), w["wqkv"][:, :64],
                                  w["bqkv"][:64], w["wqkv"][:, 64:], w["bqkv"][64:], w["wo"],
@@ -326,7 +330,7 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
     flash.reset_launches()
     got = flash.fused_attention(q, k, v, bias)
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
-                              "blockwise_attention_dense": 0,
+                              "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0}
     want = flash.fused_attention_plain(q, k, v, bias)
@@ -347,7 +351,7 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     flash.reset_launches()
     out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1,
-                              "blockwise_attention_dense": 0,
+                              "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
@@ -386,11 +390,11 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
         flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True,
                                       offsets=torch.tensor([0, 0]))
-    q32 = torch.randn(2, 100, 4, 32, device=device)
-    with pytest.raises(ValueError, match="head dim 64"):
-        flash.flash_attention(q32, q32, q32)
-    with pytest.raises(ValueError, match="head dim 64"):
-        flash.flash_attention(*(torch.randn(2, 600, 4, 32, device=device) for _ in range(3)),
+    q8 = torch.randn(2, 100, 4, 8, device=device)  # head dim 8: outside 32, 64, 128
+    with pytest.raises(ValueError, match="head dim in"):
+        flash.flash_attention(q8, q8, q8)
+    with pytest.raises(ValueError, match="head dim in"):
+        flash.flash_attention(*(torch.randn(2, 600, 4, 8, device=device) for _ in range(3)),
                               kv_lengths=lengths, causal=True)
 
 
@@ -550,7 +554,7 @@ def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
     flash.reset_launches()
     mha.train()(x, seed=3).sum().backward()
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
-                              "blockwise_attention_dense": 0,
+                              "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 1, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0}
     assert torch.isfinite(x.grad).all()
@@ -598,7 +602,7 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
     ])
     assert len(rows) == 6 and all(len(json.loads(line)["top_k"]) == 3 for line in open(out))
     assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0,
-                              "blockwise_attention_dense": 0,
+                              "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
@@ -640,7 +644,7 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
     steps, val = 2, 2
     assert result.step == steps and all(np.isfinite(r["train_loss"]) for r in result.epochs)
     assert flash.LAUNCHES == {"flash_attention": 2 * (steps + val), "blockwise_attention": 0,
-                              "blockwise_attention_dense": 0,
+                              "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
@@ -945,3 +949,148 @@ def test_cacnf_train_step_on_the_card_matches_the_plain_step(device, monkeypatch
     assert set(grads) == set(plain_grads)
     for name, g in grads.items():
         assert _rel(g, plain_grads[name]) < 1e-4, name
+
+
+# --- every head dim and width the kernels take (ROADMAP.md §C 1) ---------------
+
+# (H, heads): head dim 32, an odd width (5 heads of 64), head dim 128 at the
+# widest H.
+WIDTHS = [(256, 8), (320, 5), (1024, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,N", WIDTHS)
+@pytest.mark.parametrize("T", [8, 17, 33])
+def test_proj_kernels_match_plain_at_every_width(device, dtype, H, N, T):
+    """Rows 1, 3 and 4 (eval, train forward with dropout, train backward)
+    at head dims 32, 64 and 128 and widths 256, 320 and 1024."""
+    gen = torch.Generator().manual_seed(H + N + T)
+    rows = 23
+    w = _weights(H, gen, device)
+    x = torch.randn(rows, T, H, generator=gen).to(device, dtype)
+    bias = _bias("causal_padding", rows, T, gen).to(device)
+    rows_live = (torch.rand(rows, generator=gen) < 0.7).to(device)
+    live = rows_live[:, None].expand(rows, T)
+    kw = dict(num_heads=N, compute_dtype=dtype, rows_live=rows_live)
+    args = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias)
+    _close(fe.fused_proj_attention(*args, **kw), fe.fused_proj_attention_plain(*args, **kw), dtype, live)
+    kw["dropout_rate"] = 0.1
+    fwd = (*args, 0x5EED)
+    _close(fe.fused_proj_attention_train(*fwd, **kw), fe.fused_proj_attention_train_plain(*fwd, **kw),
+           dtype, live)
+    g = torch.randn(x.shape, generator=gen).to(device, dtype)
+    g[~rows_live] = 0
+    bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, 0x5EED)
+    got, want = fe._launch_proj_bwd(*bwd, **kw), fe.fused_proj_attention_train_bwd_plain(*bwd, **kw)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], dtype, live)
+    assert _rel(got[1], want[1]) < GRAD_REL[dtype] and _rel(got[2], want[2]) < GRAD_REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [320, 576, 960, 1024])
+def test_tail_kernels_match_plain_at_every_width(device, dtype, H):
+    """Row 2 and rows 11-14 at odd widths (5, 9 and 15 column blocks of 64)
+    and the widest."""
+    gen = torch.Generator().manual_seed(H)
+    x, a, g, weights, live = _tail_case(H, 600, "tokens", gen, device, dtype)
+    kw = dict(eps=1e-12, compute_dtype=dtype, activation="gelu", gelu_approximate=dtype == torch.bfloat16)
+    tl = dict(tokens_live=live[None])
+    _close(fe.fused_layer_tail(x[None], a[None], *weights, **kw, **tl),
+           fe.fused_layer_tail_plain(x[None], a[None], *weights, **kw, **tl), dtype,
+           live[None, :, None].expand(1, 600, H))
+    cfg = ftt.TailConfig(1e-12, "gelu", dtype == torch.bfloat16, 0.1, 0x5EED)
+    y, r2 = ftt._launch_tail_train(x, a, weights, cfg, live)
+    want_y, want_r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
+    _close(y, want_y, dtype)
+    got = ftt._launch_tail_train_bwd(x, a, want_r2, g, weights, cfg, live)
+    want = ftt.fused_layer_tail_train_bwd_plain(x, a, want_r2, g, weights, cfg, live)
+    torch.cuda.synchronize()
+    for i, (p, q) in enumerate(zip(got, want)):
+        assert torch.isfinite(p).all() and _rel(p, q) < TAIL_BWD_REL[dtype], (i, _rel(p, q))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,N", WIDTHS)
+def test_cross_attention_kernel_matches_plain_at_every_width(device, dtype, H, N):
+    gen = torch.Generator().manual_seed(H + N)
+    rows = 19
+    w = _cross_weights(H, gen, device)
+    x = torch.randn(rows, 17, H, generator=gen).to(device, dtype)
+    ctx = torch.randn(rows, 33, H, generator=gen).to(device, dtype)
+    pad = torch.rand(rows, 33, generator=gen) < 0.3
+    pad[:, 0] = False
+    bias = masks.key_padding_bias(pad).to(device)
+    kw = dict(num_heads=N, compute_dtype=dtype)
+    got = fe.fused_cross_attention(x, ctx, *w, bias, **kw)
+    want = fe.fused_cross_attention_plain(x, ctx, *w, bias, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert _rel(got, want) < CROSS_REL, _rel(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 128])
+def test_attention_kernels_match_plain_at_every_head_dim(device, dtype, D):
+    """Rows 6-10 at head dims 32 and 128: the short kernel and its backward
+    (T = 257, dropout 0.1), the blockwise lengths mode (T = 513, causal,
+    ragged, dropout 0.1) and its backward."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(D)
+    N = 256 // D
+    drop = dict(dropout_rate=0.1, dropout_seed=0x5EED)
+    for T in (257, 513):
+        B = 3
+        q, k, v = (torch.randn(B, T, N, D, generator=gen).to(device, dtype) for _ in range(3))
+        dout = torch.randn(B, T, N, D, generator=gen).to(device, dtype)
+        if T == 257:
+            bias = _bias("causal_padding", B, T, gen).to(device)
+            out, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **drop)
+            want, want_lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **drop)
+            kw, dead = dict(bias=bias, **drop), None
+            bwd = flash.fused_attention_bwd
+        else:
+            lengths = torch.tensor([1, T, 300], device=device)
+            kw = dict(kv_lengths=lengths, causal=True, **drop)
+            out, lse = flash.blockwise_attention(q, k, v, **kw)
+            want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+            dead = torch.arange(T, device=device)[None, :] >= lengths[:, None]
+            bwd = flash.blockwise_attention_bwd
+        torch.cuda.synchronize()
+        _close(out, want, dtype)
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+        dsum = flash._dsum(dout, want, kw.get("kv_lengths"))
+        got = bwd(q, k, v, dout, want_lse, dsum, **kw)
+        _check_grads(got, flash.attention_bwd_plain(q, k, v, dout, want_lse, dsum, **kw), dtype, dead)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [(0, 0), (0, 257), (257, 0), (257, 257)])
+def test_blockwise_offsets_kernel_matches_plain(device, dtype, offsets):
+    """The ring-offset mode at a 512-frame clip's per-rank shapes (C = 2):
+    out and lse of live rows, dead rows zeros with lse 0, a live row with no
+    live key in the chunk zeros with lse -1e30, never NaN."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(sum(offsets))
+    B, T = 6, 257
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=True)
+    lengths = torch.tensor([33, 513, 257, 258, 100, 400], device=device)
+    kw = dict(kv_lengths=lengths, causal=True, offsets=offsets)
+    flash.reset_launches()
+    out, lse = flash.blockwise_attention(q, k, v, **kw)
+    assert flash.LAUNCHES["blockwise_attention_offsets"] == 1 and flash.LAUNCHES["blockwise_attention"] == 0
+    want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    row0, col0 = offsets
+    t = torch.arange(T, device=device)[None, :] + row0
+    live = t < lengths[:, None]
+    _close(out, want, dtype, live[:, :, None, None].expand(out.shape))
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    none = live & ((col0 >= lengths[:, None]) | (col0 > t))
+    if none.any():
+        assert (lse.transpose(1, 2)[none] == flash._NEG_INF).all()
+        assert out[none].abs().max().item() == 0.0

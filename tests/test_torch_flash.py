@@ -142,7 +142,15 @@ def test_bf16_keeps_f32_softmax_and_rounds_the_output():
 
 
 def test_ring_offsets_are_refused():
+    """The backward's ring-offset mode (rows 9-10) waits for context
+    training and is refused on every device. The forward's runs: at offsets
+    (0, 0) it is the lengths mode."""
     q, k, v = _torch(*_qkv(513, seed=1))
+    lengths = torch.tensor([3, 513])
+    out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True,
+                                         offsets=torch.tensor([0, 0]))
+    want, want_lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        flash.blockwise_attention(q, k, v, kv_lengths=torch.tensor([3, 513]), causal=True,
-                                  offsets=torch.tensor([0, 0]))
+        flash.blockwise_attention_bwd(q, k, v, q, lse, lse, kv_lengths=lengths, causal=True,
+                                      offsets=torch.tensor([0, 0]))

@@ -32,11 +32,14 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tests", "ring_worker.py")  # the ranks of tests/test_torch_ring.py
 
 
 def test_importing_the_port_loads_no_jax_module():
     modules = _port_modules()
     assert "stlt_tpu_torch.predict" in modules and "stlt_tpu_torch.ops._kernels" in modules
+    assert {"stlt_tpu_torch.parallel.mesh", "stlt_tpu_torch.parallel.distributed",
+            "stlt_tpu_torch.ops.ring"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
