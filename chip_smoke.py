@@ -60,7 +60,13 @@ Phases, in order; any failure exits non-zero:
    (257, 0), (257, 257), once with dropout: out and lse of live rows, dead
    rows zeros with lse 0, rows with no live key in the chunk zeros with lse
    -1e30, timed against its plain version, SDPA with the same mask and its
-   bound;
+   bound; and the blockwise backward's ring-offset mode at the same four
+   offsets (B = 16, the 512-frame train batch), from the whole clip's lse
+   and output, dropout 0 and 0.1: dq, dk, dv within BWD_REL, dq of dead
+   rows and of rows with no live key exact zeros, outputs filled with NaN
+   before the launch all written, two launches bit-identical, timed
+   against its plain version, SDPA's autograd backward with the same mask
+   and its bound;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
@@ -143,7 +149,23 @@ Phases, in order; any failure exits non-zero:
    the first batch against the single process's on the same weights are
    asserted, with each rank's forward time beside the single process's (two
    ranks sharing one card: no speed claim);
-10. print the kernel table as one JSON line, then the result line.
+10. train a random full-width bf16 STLT (dropout 0.1) through ``train
+   --context_parallel 2 --num_processes 2``, both ranks on this card
+   (``chip_smoke.py --ring-train-rank R WORKDIR``; gloo), at 512 layout
+   frames (B = 16) and 16 (B = 64), two steps and one validation batch
+   each: each rank's backend line and device, finite losses equal on both
+   ranks, the trained weights equal bit for bit, the checkpoint written by
+   rank 0 alone, and the launch counts per rank (per step 16 ring-offset
+   forwards and 16 ring-offset backwards, 4 + 4 of the train op, from 256
+   frames 12 of each train-tail kernel; per validation batch 16 ring-offset
+   forwards, 4 fused projection+attentions, 12 layer tails; nothing of the
+   unsharded lengths mode); then ``ring_attention``'s gradients on two
+   ranks (514 frames, bf16) against the unsharded blockwise backward, one
+   step at dropout 0 from the same seeded weights, each rank's gradients
+   summed over the ring (equal on both ranks) against the single process's
+   kernel path within the one-step limits below, and each rank's step time
+   and peak memory beside the single process's (no speed claim);
+11. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -212,6 +234,17 @@ points, same keep bits; the two differ only in the order of their sums):
   f32 merge, as in JAX's ring); with every step's col0 off by one key 0.47,
   a fault the script plants and asserts the limit catches on every run
   (H100, PERF.md §6).
+- the blockwise backward's ring-offset mode (rows 9 and 10): BWD_REL and
+  OP_TOL as the lengths mode (sound 1.1e-4 in bf16, H100). ``ring_attention``'s
+  gradients on two ranks against the unsharded blockwise backward (bf16):
+  RING_BWD_REL (5e-3) in relative norm. The sound ring reads 6.9e-4 in dq
+  and 2.1e-3 in dk and dv (a chunk's dk, dv add two steps' bf16-rounded
+  parts, then round again), every step's col0 off by one key 0.25 to 0.42,
+  which the script plants and asserts on every run; against its steps run
+  on one device the ring reads 0 (the transfers lose nothing).
+- one step at dropout 0 on two ranks (gradients summed over the ring)
+  against one process: the one-step limits below (read 4.5e-3 joined, at
+  most 8.0e-3 a tensor, H100).
 - the blockwise backward's dense-bias mode (rows 9 and 10): dq, dk and dv
   each within a relative Frobenius-norm error of DENSE_BWD_REL (1e-3) in
   bf16 and BWD_REL (1e-5) in f32, the same OP_TOL elementwise as a guard.
@@ -315,6 +348,9 @@ REPLACES = {
     "blockwise_attention_bwd_dense": "stlt_tpu/ops/flash.py:655",
     # The ring-offset mode of _blockwise_attn_kernel (off_base, valid_cols).
     "blockwise_attention_offsets": "stlt_tpu/ops/flash.py:397",
+    # The ring-offset mode of _blockwise_dq_kernel (:655) and
+    # _blockwise_dkdv_kernel (:745), one launch for both.
+    "blockwise_attention_bwd_offsets": "stlt_tpu/ops/flash.py:655",
 }
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
@@ -1779,23 +1815,28 @@ RING_OFFSETS = ((0, 0), (0, RING_T), (RING_T, 0), (RING_T, RING_T))
 def offsets_bound(q, lengths, causal, offsets, dtype):
     """(ms, "bytes" | "operations") for one ring step of the blockwise
     kernel, counted at global indices as blockwise_bound counts the lengths
-    mode: the flops of the (query, key) pairs these offsets leave live
-    (global key col0 + s < length, col0 + s <= row0 + t when causal, query
-    row0 + t < length); q read for the live query rows, k and v for the
+    mode (_offsets_counts): the flops of the (query, key) pairs these
+    offsets leave live; q read for the live query rows, k and v for the
     keys that some live query of the clip attends; out and lse written for
     every row, the lengths read once."""
     B, T, N, D = q.shape
-    row0, col0 = offsets
-    rows = torch.arange(T)[None, :, None] + row0
-    cols = torch.arange(T)[None, None, :] + col0
-    L = lengths[:, None, None]
-    live = (cols < L) & (rows < L) & ((cols <= rows) if causal else True)
-    pairs = float(live.sum())
-    q_rows = float((rows < L).sum())
-    kv_rows = float(live.any(dim=1).sum())
+    pairs, q_rows, kv_rows = _offsets_counts(T, lengths, causal, offsets)
     es = q.element_size()
     nbytes = (q_rows + 2 * kv_rows) * N * D * es + B * T * N * D * es + B * N * T * 4 + B * 4
     return _bound(4 * D * N * pairs, nbytes, dtype)
+
+
+def _offsets_counts(T, lengths, causal, offsets):
+    """(live (query, key) pairs, live query rows, keys some live query of the
+    clip attends) of a ring step over T local queries and keys, at global
+    indices (global key col0 + s < length, col0 + s <= row0 + t when causal,
+    query row0 + t < length)."""
+    row0, col0 = offsets
+    rows = torch.arange(T)[None, :, None] + row0
+    cols = torch.arange(T)[None, None, :] + col0
+    L = lengths.cpu()[:, None, None]
+    live = (cols < L) & (rows < L) & ((cols <= rows) if causal else True)
+    return float(live.sum()), float((rows < L).sum()), float(live.any(dim=1).sum())
 
 
 def check_offsets_kernel(device):
@@ -1852,6 +1893,115 @@ def check_offsets_kernel(device):
                 if dtype == torch.bfloat16 and offsets == (RING_T, 0) and seed is None:
                     table["blockwise_attention_offsets"] = row
         del q, k, v
+        torch.cuda.empty_cache()
+    return table
+
+
+# --- phase 2, ring offsets: the blockwise backward's ring-offset mode --------
+
+RING_BWD_CLIPS = 16  # the 512-frame train batch (LONG_TRAIN[512])
+
+
+def offsets_bwd_bound(q, lengths, causal, offsets, dtype):
+    """(ms, "bytes" | "operations") for one step of the ring's backward,
+    counted at global indices as attention_bwd_bound counts the lengths mode:
+    10*D flops per live (query, key, head) pair; q and dO read for the live
+    query rows, k and v for the keys some live query of the clip attends,
+    lse and dsum read and dq, dk, dv written for every row, the lengths read
+    once."""
+    B, T, N, D = q.shape
+    pairs, q_rows, kv_rows = _offsets_counts(T, lengths, causal, offsets)
+    es = q.element_size()
+    nbytes = (2 * q_rows + 2 * kv_rows) * N * D * es + 3 * B * T * N * D * es + 2 * B * N * T * 4 + B * 4
+    return _bound(10 * D * N * pairs, nbytes, dtype)
+
+
+class nan_filled_outputs:
+    """Within the block every new floating tensor from ``torch.empty`` is
+    filled with NaN, so an output a kernel leaves unwritten shows."""
+
+    def __enter__(self):
+        self.empty = torch.empty
+
+        def empty(*args, **kwargs):
+            x = self.empty(*args, **kwargs)
+            return x.fill_(float("nan")) if x.is_floating_point() else x
+
+        torch.empty = empty
+        return self
+
+    def __exit__(self, *exc):
+        torch.empty = self.empty
+        return False
+
+
+def check_offsets_bwd_kernel(device):
+    """The blockwise backward's ring-offset mode against its plain version
+    (``attention_bwd_plain`` with the same offsets), bf16 and f32, dropout 0
+    and 0.1, at RING_OFFSETS on a 514-slot clip's per-rank shapes at C = 2
+    (B = 16, 257 queries against a chunk of 257 keys, causal, lengths
+    33-513), from the whole clip's lse and output as a ring step takes
+    them, with a cotangent of 1e30 on dead rows: dq, dk and dv within
+    BWD_REL in relative norm and OP_TOL elementwise, dq of dead rows and of
+    rows with no live key in the chunk exact zeros, outputs filled with NaN
+    before the launch all written, two launches bit-identical. Timed (bf16)
+    against its plain version, the autograd backward of
+    ``scaled_dot_product_attention`` with the same mask and its bound.
+    Returns the kernel-table row (bf16, dropout 0.1, (257, 0): rank 1's rows
+    against chunk 0, every key a candidate)."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q_all, k_all, v_all = make_heads(RING_BWD_CLIPS, 2 * RING_T, dtype, gen, device)
+        lengths = torch.randint(33, 2 * RING_T, (RING_BWD_CLIPS,), generator=gen)
+        lengths[0], lengths[1] = 33, 2 * RING_T - 1
+        lengths = lengths.to(device)
+        out_all, lse_all = flash.blockwise_attention(q_all, k_all, v_all, kv_lengths=lengths, causal=True)
+        dout_all = torch.randn((RING_BWD_CLIPS, 2 * RING_T, HEADS, H // HEADS), generator=gen).to(device, dtype)
+        for offsets in RING_OFFSETS:
+            row0, col0 = offsets
+            rows, cols = slice(row0, row0 + RING_T), slice(col0, col0 + RING_T)
+            q, k, v = q_all[:, rows], k_all[:, cols], v_all[:, cols]
+            out, lse = out_all[:, rows], lse_all[:, :, rows].contiguous()
+            t = torch.arange(RING_T, device=device)[None, :] + row0
+            live = t < lengths[:, None]
+            no_key = live & ((col0 >= lengths[:, None]) | (col0 > t))
+            dout = dout_all[:, rows].clone()
+            dout[~live] = 1e30  # the backward must not read it
+            dsum = flash._dsum(dout, out, lengths, row0)
+            for rate in (0.0, DROPOUT):
+                kw = dict(kv_lengths=lengths, causal=True, offsets=offsets, dropout_rate=rate,
+                          dropout_seed=0x5EED5EED if rate else None)
+                run = lambda: flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+                plain = lambda: flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+                with nan_filled_outputs():
+                    got = run()
+                again, want = run(), plain()
+                torch.cuda.synchronize()
+                label = f"blockwise_attention_bwd offsets={offsets} {dtype} B={RING_BWD_CLIPS} rate={rate}"
+                err, rel = _check_grads(label, got, want, ~live | no_key, dtype)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: two launches differ")
+                row = {"name": "blockwise_attention_bwd_offsets", "offsets": list(offsets),
+                       "dtype": str(dtype).split(".")[1], "clips": RING_BWD_CLIPS, "T": RING_T,
+                       "rate": rate, "max_abs_err": err, "rel_err": rel, "rel_tol": BWD_REL[dtype],
+                       "live_rows": int(live.sum()), "no_key_rows": int(no_key.sum())}
+                if dtype == torch.bfloat16:
+                    mask = flash._offsets_bias(lengths, RING_T, RING_T, True, offsets) == 0
+                    library = library_attention_bwd(q, k, v, mask, dout.masked_fill(~live[:, :, None, None], 0),
+                                                    rate)
+                    row.update({"ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
+                                "library_ms": cuda_ms(library, 10)})
+                    row["bound_ms"], row["bound_by"] = offsets_bwd_bound(q, lengths, True, offsets, dtype)
+                    del library, mask
+                log("kernel_check " + json.dumps(row) + "; NaN-filled outputs all written, dq of dead "
+                    "and no-key rows zero, two launches bit-identical")
+                if dtype == torch.bfloat16 and offsets == (RING_T, 0) and rate == DROPOUT:
+                    table["blockwise_attention_bwd_offsets"] = row
+                del got, again, want
+        del q_all, k_all, v_all, out_all, lse_all, dout_all
         torch.cuda.empty_cache()
     return table
 
@@ -2058,8 +2208,6 @@ def _step_kernels_vs_plain(label, model, batch, criterion, limits=None) -> None:
     gradient within STEP_TENSOR_REL and all of them joined within
     STEP_GRAD_REL in relative norm. ``limits`` (loss atol, joined, each, each
     in the appearance branch) replaces them (phase 8)."""
-    loss_atol, joined, each, each_appearance = limits or (
-        STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL, STEP_TENSOR_REL)
     # The same cuDNN algorithms in both passes (the R3D convolutions), so the
     # two differ by the kernels alone.
     saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
@@ -2070,6 +2218,17 @@ def _step_kernels_vs_plain(label, model, batch, criterion, limits=None) -> None:
             loss_p, grads_p = _one_step(model, batch, criterion)
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    _compare_steps(label, "kernels vs plain", (loss_k, grads_k), (loss_p, grads_p), limits)
+
+
+def _compare_steps(label, what, got, want, limits=None) -> None:
+    """One step's (loss, gradients) against another's: the loss within
+    STEP_LOSS_ATOL, each gradient within STEP_TENSOR_REL and all of them
+    joined within STEP_GRAD_REL in relative norm; ``limits`` (loss atol,
+    joined, each, each in the appearance branch) replaces them."""
+    loss_atol, joined, each, each_appearance = limits or (
+        STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL, STEP_TENSOR_REL)
+    (loss_k, grads_k), (loss_p, grads_p) = got, want
     flat_k = torch.cat([grads_k[n].float().flatten() for n in grads_p])
     flat_p = torch.cat([grads_p[n].float().flatten() for n in grads_p])
     rel = _rel(flat_k, flat_p)
@@ -2080,16 +2239,16 @@ def _step_kernels_vs_plain(label, model, batch, criterion, limits=None) -> None:
                          ("the rest", [n for n in per_tensor if "appearance_branch." not in n])):
         worst = sorted(names, key=per_tensor.get, reverse=True)[:4]
         if worst:
-            log(f"{label}, kernels vs plain, {group}: worst tensors "
+            log(f"{label}, {what}, {group}: worst tensors "
                 + ", ".join(f"{n} {per_tensor[n]:.3e}" for n in worst)
                 + f" (tolerance {limit[worst[0]]} each)")
-    log(f"{label}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+    log(f"{label}, {what}: loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
         f"(atol {loss_atol}); gradient relative norm error {rel:.3e} "
         f"(tolerance {joined}) over {len(grads_p)} tensors")
-    if set(grads_k) != set(grads_p) or abs(loss_k.item() - loss_p.item()) > loss_atol:
-        raise AssertionError(f"{label}: kernel path disagrees with the plain path (loss)")
+    if set(grads_k) != set(grads_p) or abs(float(loss_k) - float(loss_p)) > loss_atol:
+        raise AssertionError(f"{label}: {what} disagree (loss)")
     if not torch.isfinite(flat_k).all() or rel > joined or over:
-        raise AssertionError(f"{label}: kernel path disagrees with the plain path "
+        raise AssertionError(f"{label}: {what} disagree "
                              f"(grads; joined {rel:.3e}, tensors over their limit: {over})")
 
 
@@ -3094,16 +3253,17 @@ RING_OP = (32, 2 * RING_T, HEADS, H // HEADS)
 RING_REL = 1e-3
 
 
-def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0):
+def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0, with_lse: bool = False):
     """ring_attention's steps for every rank of a ring of RING_C, run on one
     device: the same blockwise calls with offsets and the same f32
     ``logaddexp`` merge, the chunks taken in place of the transfers.
-    ``col_shift`` plants a fault: every step's col0 off by that many keys."""
+    ``col_shift`` plants a fault: every step's col0 off by that many keys.
+    With ``with_lse`` also each rank's merged lse."""
     from stlt_tpu_torch.ops import flash
 
     B, T, N, D = q.shape
     t = T // RING_C
-    outs = []
+    outs, lses = [], []
     for idx in range(RING_C):
         rows = slice(idx * t, (idx + 1) * t)
         o = torch.zeros((B, N, t, D), dtype=torch.float32, device=q.device)
@@ -3119,7 +3279,8 @@ def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0):
                 o_j.transpose(1, 2).float() * torch.exp(lse_j - lse_new)[..., None]
             lse = lse_new
         outs.append(o.transpose(1, 2).to(v.dtype))
-    return torch.cat(outs, dim=1)
+        lses.append(lse)
+    return (torch.cat(outs, dim=1), lses) if with_lse else torch.cat(outs, dim=1)
 
 
 def ring_op_inputs(device):
@@ -3366,10 +3527,370 @@ def run_ring_path(device):
     return {"blockwise_attention_offsets": offsets_launches}
 
 
+# --- phase 10: training under --context_parallel 2, two ranks on one card ---
+
+# --layout_num_frames -> (batch, the clips' frame counts): the 512-frame
+# train batch of phase 6 (B = 16; the train sampler fills every one of the
+# 514 slots but the padding one) with clips of 32-512 frames, so that the
+# validation batch and the one-step comparison's batch span both ranks; the
+# 16-frame batch of phase 4 (B = 64, 18 slots).
+RING_TRAIN = {512: (LONG_TRAIN[512][0], (32, 513)), 16: (BATCH, (3, 25))}
+RING_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
+# ring_attention's gradients on two ranks against the unsharded blockwise
+# backward (bf16, relative norm), set from two readings on the card as
+# RING_REL was: the sound ring reads 6.9e-4 (dq) and 2.1e-3 (dk, dv: each
+# chunk's sum adds two steps' bf16-rounded parts), the planted fault of
+# ring_bwd_steps_on_one_device(col_shift=1) 0.25 to 0.42 (H100; PERF.md
+# §6).
+RING_BWD_REL = 5e-3
+
+
+def ring_op_cotangent(device, lengths):
+    """The op check's cotangent [B, 514, 12, 64] bf16, zero on dead rows, the
+    same on every rank."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    g = torch.randn(RING_OP, generator=gen).to(device, torch.bfloat16)
+    dead = torch.arange(RING_OP[1], device=device)[None, :] >= lengths[:, None]
+    return g.masked_fill(dead[:, :, None, None], 0)
+
+
+def ring_bwd_steps_on_one_device(q, k, v, lengths, g, col_shift: int = 0):
+    """The ring's backward for every rank of a ring of RING_C, run on one
+    device: each rank's merged output and lse from ring_steps_on_one_device,
+    then per step one blockwise backward call with offsets, dq summed per
+    rank and dk, dv per chunk in f32. ``col_shift`` plants a fault: every
+    backward step's col0 off by that many keys."""
+    from stlt_tpu_torch.ops import flash
+
+    B, T, N, D = q.shape
+    t = T // RING_C
+    out, lses = ring_steps_on_one_device(q, k, v, lengths, with_lse=True)
+    grads = [torch.zeros(x.shape, dtype=torch.float32, device=q.device) for x in (q, k, v)]
+    for idx in range(RING_C):
+        rows = slice(idx * t, (idx + 1) * t)
+        dsum = flash._dsum(g[:, rows], out[:, rows], lengths, idx * t)
+        for j in range(RING_C):
+            chunk = (idx - j) % RING_C
+            cols = slice(chunk * t, (chunk + 1) * t)
+            dq, dk, dv = flash.blockwise_attention_bwd(
+                q[:, rows], k[:, cols], v[:, cols], g[:, rows], lses[idx], dsum, kv_lengths=lengths,
+                causal=True, offsets=(idx * t, chunk * t + col_shift))
+            grads[0][:, rows] += dq
+            grads[1][:, cols] += dk
+            grads[2][:, cols] += dv
+    return [x.to(q.dtype) for x in grads]
+
+
+def _ring_train_argv(split, paths, frames, batch_size):
+    return [
+        "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+        "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
+        "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+        "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+        "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+        "--hidden_dropout_prob", str(DROPOUT), "--layout_num_frames", str(frames),
+        "--batch_size", str(batch_size), "--epochs", "1", "--learning_rate", "1e-4",
+        "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
+        "--context_parallel", str(RING_C),
+    ]
+
+
+def _ring_train_model(frames, dropout, device):
+    """The seeded random full-width bf16 STLT of the one-step comparison and
+    the step times, the same in every process, in train mode."""
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.models import models_factory
+
+    cfg = make_model_config("stlt", num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                            num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                            num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16",
+                            hidden_dropout_prob=dropout, layout_num_frames=max(256, frames + RING_C))
+    return models_factory["stlt"](cfg, torch.Generator().manual_seed(SEED + 15)).to(device).train()
+
+
+def _ring_train_batch(paths, frames, batch_size, device, train: bool):
+    """The first batch (labels and valid included) of the train file (the
+    train sampler: every slot live) or of the validation file (ragged
+    clips), the frame axis padded to a multiple of RING_C."""
+    from stlt_tpu_torch.configs import DataConfig
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+
+    data_cfg = DataConfig(dataset_name="something", dataset_path=paths["train" if train else "val"],
+                          labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                          layout_num_frames=frames, train=train, frames_multiple=RING_C)
+    loader = Loader(datasets_factory["layout"](data_cfg), batch_size,
+                    collaters_factory["layout"](data_cfg), prefetch=0, shuffle=train, seed=SEED)
+    return next(iter(to_device(loader, device)))
+
+
+def _digest(tensors) -> str:
+    """A sha256 of the tensors' f32 bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for x in tensors:
+        digest.update(x.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def ring_train_rank(rank: int, workdir: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --ring-train-rank R WORKDIR``):
+    ``train --context_parallel 2`` over each RING_TRAIN set as rank R (its
+    own process group each, at the ports of ``runs.json``), with its launch
+    counts, epoch records and a digest of its trained weights; then, under
+    one more process group, ring_attention's gradients on the op check's
+    input, one step at dropout 0 from the seeded weights with the backbone's
+    gradients summed over the ring, and the step time and peak memory at
+    dropout 0.1. Writes ``train_rank_R.json``, ``train_rank_R_op.pt`` and
+    (rank 0) ``train_rank_0_FRAMES.pt`` (the step's loss and gradients)."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.ops.ring import ring_attention
+    from stlt_tpu_torch.parallel.mesh import active_context_mesh
+    from stlt_tpu_torch.parser import build_parser
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import step_generator, sum_grads_over_ring_
+
+    with open(os.path.join(workdir, "runs.json")) as f:
+        spec = json.load(f)
+    report = {"rank": rank, "runs": {}}
+    process = ["--num_processes", str(RING_C), "--process_id", str(rank)]
+    for run in spec["runs"]:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        result = port_train.main(run["argv"] + process + [
+            "--coordinator_address", f"localhost:{run['port']}",
+            "--save_model_path", os.path.join(run["root"], f"best_{rank}.pt")])
+        torch.cuda.synchronize()
+        report["runs"][str(run["frames"])] = {
+            "seconds": time.perf_counter() - t0, "launches": all_launches(), "steps": result.step,
+            "epochs": result.epochs, "digest": _digest(result.model.parameters()),
+            "device": str(next(result.model.parameters()).device)}
+        del result
+        torch.cuda.empty_cache()
+
+    args = build_parser("chip_smoke ring train rank").parse_args(
+        spec["runs"][0]["argv"] + process + ["--coordinator_address", f"localhost:{spec['port']}"])
+    device = predict.start_processes(args)
+    report["device"] = str(device)
+    criterion = make_criterion("something")
+    try:
+        mesh = active_context_mesh()
+        q, k, v, lengths = ring_op_inputs(device)
+        g = ring_op_cotangent(device, lengths)
+        t = RING_OP[1] // RING_C
+        rows = slice(rank * t, (rank + 1) * t)
+        leaves = [x[:, rows].detach().clone().requires_grad_() for x in (q, k, v)]
+        ring_attention(*leaves, None, mesh, kv_lengths=lengths, causal=True).backward(g[:, rows])
+        torch.save([x.grad.cpu() for x in leaves], os.path.join(workdir, f"train_rank_{rank}_op.pt"))
+        del q, k, v, g, leaves
+        for run in spec["runs"]:
+            frames, batch_size, paths = run["frames"], run["batch_size"], run["paths"]
+            entry = report["runs"][str(frames)]
+            model = _ring_train_model(frames, 0.0, device)
+            batch = _ring_train_batch(paths, frames, batch_size, device, train=False)
+            model.zero_grad(set_to_none=True)
+            inputs = {key: x for key, x in batch.items() if key not in ("labels", "valid")}
+            loss = criterion(model(inputs, step_generator(SEED, 0)), batch["labels"], batch["valid"])
+            loss.backward()
+            sum_grads_over_ring_(model.backbone.parameters(), mesh)
+            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+            entry["step_loss"] = loss.item()
+            entry["grad_digest"] = _digest(grads.values())
+            if rank == 0:
+                torch.save({"loss": loss.item(), "grads": grads},
+                           os.path.join(workdir, f"train_rank_0_{frames}.pt"))
+            del model, grads, batch, inputs, loss
+            model = _ring_train_model(frames, DROPOUT, device)
+            batch = _ring_train_batch(paths, frames, batch_size, device, train=True)
+            torch.cuda.reset_peak_memory_stats()
+            entry["step_ms"] = _step_ms(model, batch, criterion, steps=3)
+            entry["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del model, batch
+            torch.cuda.empty_cache()
+    finally:
+        predict.stop_processes()
+    with open(os.path.join(workdir, f"train_rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def ring_train_launches(frames: int, steps: int) -> dict:
+    """The launch counts of one ``train --context_parallel 2`` run on each
+    rank: per step the train op's 4 + 4 (spatial), the ring-offset forward
+    and backward 8 layers x 2 ring steps, and from 256 frames 12 of each
+    train-tail kernel; per validation batch 4 fused projection+attentions,
+    12 eval tails and the ring-offset forward 16. Nothing else."""
+    want = {"fused_proj_attention_train": SPATIAL_LAYERS * steps,
+            "fused_proj_attention_train_bwd": SPATIAL_LAYERS * steps,
+            "blockwise_attention_offsets": TEMPORAL_LAYERS * RING_C * (steps + 1),
+            "blockwise_attention_bwd_offsets": TEMPORAL_LAYERS * RING_C * steps,
+            "fused_proj_attention": SPATIAL_LAYERS,
+            "fused_layer_tail": SPATIAL_LAYERS + TEMPORAL_LAYERS}
+    if frames >= 256:
+        want.update(dict.fromkeys(TAIL_KERNELS, (SPATIAL_LAYERS + TEMPORAL_LAYERS) * steps))
+    return want
+
+
+def run_ring_train_path(device):
+    """Train a random full-width bf16 STLT (dropout 0.1) through ``train
+    --context_parallel 2 --num_processes 2``: two rank processes on this one
+    card (gloo, as phase 9), at 512 layout frames (B = 16) and 16 (B = 64),
+    one epoch of two steps and one validation batch each. Asserts each
+    rank's backend line and device, finite losses equal on both ranks, both
+    ranks' trained weights equal bit for bit, the checkpoint written by the
+    coordinator alone, and the launch counts per rank (ring_train_launches).
+    Then: ring_attention's gradients on two ranks against the unsharded
+    blockwise backward (RING_BWD_REL, which the planted fault of
+    ring_bwd_steps_on_one_device must exceed) and against its steps on one
+    device; one step at dropout 0 from the same seeded weights, each rank's
+    gradients (summed over the ring, equal on both ranks) against the single
+    process's kernel path within the one-step bf16 limits; the step time and
+    peak memory of a rank beside the single process's (two ranks share one
+    card: no speed claim). Returns the ring-offset backward's launches of
+    rank 0 (both runs)."""
+    import socket
+
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.training.criterion import make_criterion
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_ring_train_") as root:
+        runs = []
+        for frames, (batch_size, frames_range) in RING_TRAIN.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            train_clips = batch_size * RING_TRAIN_STEPS
+            paths = write_something_dataset(sub, train_clips + batch_size, SEED + 17 + frames,
+                                            num_used=TRAIN_LABELS, frames_range=frames_range)
+            split = _split_dataset(paths, sub, train_clips)
+            runs.append({"frames": frames, "batch_size": batch_size, "root": sub, "port": free_port(),
+                         "paths": {**split, "labels": paths["labels"],
+                                   "videoid2size": paths["videoid2size"]},
+                         "argv": _ring_train_argv(split, paths, frames, batch_size)})
+        with open(os.path.join(root, "runs.json"), "w") as f:
+            json.dump({"runs": runs, "port": free_port()}, f)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ring-train-rank",
+                                   str(r), root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(RING_C)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            tail = "\n".join(out.splitlines()[-40:])
+            if proc.returncode != 0:
+                raise AssertionError(f"ring train rank {r} exited {proc.returncode}:\n{tail}")
+            want_line = f"distributed: rank {r} of {RING_C} on cuda:0, backend gloo"
+            if out.count(want_line) != len(runs) + 1:
+                raise AssertionError(f"ring train rank {r}: not {len(runs) + 1} lines '{want_line}' "
+                                     f"in its log:\n{tail}")
+        reports = []
+        for r in range(RING_C):
+            with open(os.path.join(root, f"train_rank_{r}.json")) as f:
+                reports.append(json.load(f))
+            if reports[-1]["device"] != "cuda:0":
+                raise AssertionError(f"ring train rank {r} ran on {reports[-1]['device']}")
+
+        # The op: the two ranks' gradients against their steps on one device
+        # and against the unsharded blockwise backward, whose limit must catch
+        # the planted fault.
+        q, k, v, lengths = ring_op_inputs(device)
+        g = ring_op_cotangent(device, lengths)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        flash.flash_attention(*leaves, kv_lengths=lengths, causal=True).backward(g)
+        single = [x.grad for x in leaves]
+        with torch.no_grad():
+            steps = ring_bwd_steps_on_one_device(q, k, v, lengths, g)
+            fault = ring_bwd_steps_on_one_device(q, k, v, lengths, g, col_shift=1)
+        parts = [torch.load(os.path.join(root, f"train_rank_{r}_op.pt")) for r in range(RING_C)]
+        got = [torch.cat([p[i] for p in parts], dim=1).to(device) for i in range(3)]
+        label = f"ring_attention gradients at C = {RING_C} (two ranks, B = {RING_OP[0]}, {RING_OP[1]} frames)"
+        dead = torch.arange(RING_OP[1], device=device)[None, :] >= lengths[:, None]
+        err, rel = _check_grads(f"{label} against its steps on one device", got, steps, dead,
+                                torch.bfloat16)
+        err1, rel1 = _check_grads(f"{label} against the unsharded blockwise backward", got, single,
+                                  dead, torch.bfloat16, RING_BWD_REL)
+        fault_rel = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), fault, single)}
+        if max(fault_rel.values()) <= RING_BWD_REL:
+            raise AssertionError(f"{label}: the planted fault (col0 off by one) reads {fault_rel}, "
+                                 f"within RING_BWD_REL {RING_BWD_REL}: the limit catches nothing")
+        log(f"{label}, causal, lengths 33-{RING_OP[1]}: against its steps on one device max_abs_err "
+            f"{err:.3e}, relative norm {json.dumps(rel)} (BWD_REL {BWD_REL[torch.bfloat16]}); against "
+            f"the unsharded blockwise backward max_abs_err {err1:.3e}, relative norm {json.dumps(rel1)} "
+            f"(RING_BWD_REL {RING_BWD_REL}; with col0 off by one {json.dumps(fault_rel)})")
+        del q, k, v, g, leaves, single, steps, fault, parts, got
+        torch.cuda.empty_cache()
+
+        criterion = make_criterion("something")
+        bwd_launches = 0
+        for run in runs:
+            frames, batch_size = run["frames"], run["batch_size"]
+            label = f"train --context_parallel {RING_C}, {frames} frames, B = {batch_size}"
+            entries = [report["runs"][str(frames)] for report in reports]
+            want = ring_train_launches(frames, RING_TRAIN_STEPS)
+            for r, entry in enumerate(entries):
+                counts = entry["launches"]
+                if counts != {name: want.get(name, 0) for name in counts}:
+                    raise AssertionError(f"{label}, rank {r}: launches {counts}, expected {want}")
+                if entry["steps"] != RING_TRAIN_STEPS or entry["device"] != "cuda:0" or not all(
+                        math.isfinite(e["train_loss"]) for e in entry["epochs"]):
+                    raise AssertionError(f"{label}, rank {r}: bad run {entry}")
+                log(f"{label}, rank {r}: {entry['steps']} steps in {entry['seconds']:.3f} s (data, "
+                    f"model set-up and validation included); launches {counts}; epochs "
+                    f"{json.dumps(entry['epochs'])}")
+            if [e["train_loss"] for e in entries[0]["epochs"]] != \
+                    [e["train_loss"] for e in entries[1]["epochs"]]:
+                raise AssertionError(f"{label}: the ranks' losses differ")
+            if entries[0]["digest"] != entries[1]["digest"]:
+                raise AssertionError(f"{label}: the ranks' trained weights differ")
+            if os.path.exists(os.path.join(run["root"], "best_1.pt")):
+                raise AssertionError(f"{label}: rank 1 wrote a checkpoint")
+            bwd_launches += entries[0]["launches"]["blockwise_attention_bwd_offsets"]
+
+            # One step at dropout 0 from the same seeded weights: each rank's
+            # ring-summed gradients (equal on both ranks) against one process.
+            if entries[0]["grad_digest"] != entries[1]["grad_digest"]:
+                raise AssertionError(f"{label}: the ranks' summed gradients differ")
+            ring = torch.load(os.path.join(root, f"train_rank_0_{frames}.pt"))
+            model = _ring_train_model(frames, 0.0, device)
+            batch = _ring_train_batch(run["paths"], frames, batch_size, device, train=False)
+            loss, grads = _one_step(model, batch, criterion)
+            _compare_steps(f"train step {frames} frames, B = {batch_size}, dropout 0",
+                           f"{RING_C} ranks (gradients summed over the ring) vs one process",
+                           (ring["loss"], {n: x.to(device) for n, x in ring["grads"].items()}),
+                           (loss, grads))
+            del model, batch, grads, ring
+            model = _ring_train_model(frames, DROPOUT, device)
+            batch = _ring_train_batch(run["paths"], frames, batch_size, device, train=True)
+            torch.cuda.reset_peak_memory_stats()
+            ms = _step_ms(model, batch, criterion, steps=3)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"train step {frames} frames, B = {batch_size} (full width, bf16, dropout {DROPOUT}): "
+                + ", ".join(f"rank {r} {e['step_ms']:.3f} ms, peak {e['peak_bytes'] / 2**30:.3f} GiB"
+                            for r, e in enumerate(entries))
+                + f"; one process {ms:.3f} ms, peak {peak / 2**30:.3f} GiB (two ranks share this "
+                  f"one card, the ring and the gradient sum staged through host memory: no speed "
+                  f"claim)")
+            del model, batch
+            torch.cuda.empty_cache()
+    return {"blockwise_attention_bwd_offsets": bwd_launches}
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     if argv[:1] == ["--ring-rank"]:  # one rank of phase 9, started by run_ring_path
         return ring_rank(int(argv[1]), int(argv[2]), argv[3])
+    if argv[:1] == ["--ring-train-rank"]:  # one rank of phase 10, started by run_ring_train_path
+        return ring_train_rank(int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
               file=sys.stderr)
@@ -3399,6 +3920,7 @@ def main(argv=()) -> int:
     table.update(check_fusion_train_kernels(device))
     check_width_kernels(device)  # every kernel at other head dims and widths
     table.update(check_offsets_kernel(device))
+    table.update(check_offsets_bwd_kernel(device))
     launches = run_main_path(device)  # the predict path: eval kernels
     train_launches, _ = run_train_path(device)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
@@ -3410,6 +3932,8 @@ def main(argv=()) -> int:
     launches.update(run_fusion_train_path(device)[0])
     # Serving under --context_parallel 2: two ranks on this card, the ring's offsets mode.
     launches.update(run_ring_path(device))
+    # Training under --context_parallel 2: the ring-offset mode of the blockwise backward.
+    launches.update(run_ring_train_path(device))
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

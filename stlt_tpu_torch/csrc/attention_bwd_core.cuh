@@ -31,6 +31,20 @@
 // above the diagonal and dead query tiles are skipped. T and S are free in
 // both (33 queries against 513 keys and back in the fusion models).
 //
+// Ring offsets (the lengths mode's row0, col0: the TPU kernels with off_base
+// and valid_cols, one call per step of the ring's backward): local query t
+// and key s are global row0 + t and col0 + s, as in the forward
+// (attention_core.cuh). The skipped ranges move with them: the dq kernel
+// takes keys below kend = clamp(len - col0, 0, S) (and, causal, below
+// row0 + (the tile's last query + 1) - col0, which can be <= 0), the dk/dv
+// kernel query tiles from max(0, (k0 + col0 - row0) / 64) up to qlim =
+// clamp(len - row0, 0, T), which can leave none. A block whose whole work
+// is skipped still writes its zeros: the ring adds every step's dq, dk, dv.
+// p = exp(z - lse) reads the ring's global lse, which is finite on every
+// live row, so a live row with no live key in the held chunk gets p = 0 and
+// no NaN. Row0 = col0 = 0 is the plain lengths mode. The dropout bits hash
+// the local (t, s), as the forward's do.
+//
 // Dead rows. The lengths-mode forward writes query rows t >= lengths[b] as
 // constants (zeros, lse 0). Their p is taken as 0 and their dO as 0 (dO tiles
 // are loaded with those rows zero-filled), so their dq is exactly zero and
@@ -70,6 +84,7 @@ struct BwdArgs {
   long long bb, bn, bt;                                       // bias strides of b, n, t
   const int* lengths;                                         // lengths mode: [B] live keys
   int causal;
+  int row0, col0;     // lengths mode: global index of local query 0 and key 0 (a ring step)
   const float* lse;   // [B, N, T] from the forward
   const float* dsum;  // [B, N, T], rowsum(dO o out); 0 on dead rows
   void* dq;           // [B, T, N, D] contiguous, storage type
@@ -137,9 +152,11 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
   if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));
   if (kLengths) {
     const int len = p.lengths[b];
-    kend = min(S, len);
-    qlim = min(T, len);
-    if (p.causal) kend = min(kend, min(q0 + kBQ, T));
+    kend = min(S, len - p.col0);
+    qlim = max(0, min(T, len - p.row0));
+    // causal: global key col0 + s <= row0 + (last query of the tile)
+    if (p.causal) kend = min(kend, p.row0 + min(q0 + kBQ, T) - p.col0);
+    kend = max(kend, 0);
     if (q0 >= qlim) {  // no live query in the tile: dq is zero
       zero_rows<D>(dq, b, q0, min(kBQ, T - q0), T, N, n);
       return;
@@ -194,7 +211,8 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = s0 + lane + 32 * j;
-        const bool masked = t >= qlim || key >= kend || (kLengths && p.causal && key > t);
+        const bool masked =
+            t >= qlim || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         float d = dp[r][j];
@@ -235,12 +253,13 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
   E* __restrict__ dv = static_cast<E*>(p.dv);
   int kend = S, qlim = T, tile0 = 0;
   // With causal (either mode) query tiles before the chunk's first key lie
-  // wholly above the diagonal: masked, so never loaded (_causal_live).
-  if (p.causal) tile0 = k0 / kBQ;
+  // wholly above the diagonal: masked, so never loaded (_causal_live; at
+  // global indices with ring offsets, _causal_live_off).
+  if (p.causal) tile0 = max(0, (k0 + p.col0 - p.row0) / kBQ);
   if (kLengths) {
     const int len = p.lengths[b];
-    kend = min(S, len);
-    qlim = min(T, len);
+    kend = max(0, min(S, len - p.col0));
+    qlim = max(0, min(T, len - p.row0));
     if (k0 >= kend) {  // no live key in the chunk: dk and dv are zero
       zero_rows<D>(dk, b, k0, min(kBK, S - k0), S, N, n);
       zero_rows<D>(dv, b, k0, min(kBK, S - k0), S, N, n);
@@ -301,7 +320,8 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int t = t0 + lane + 32 * j;
-        const bool masked = t >= qlim || key >= kend || (kLengths && p.causal && key > t);
+        const bool masked =
+            t >= qlim || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         const float pr = masked ? 0.f : expf(x - lse_j[j]);
@@ -367,6 +387,7 @@ template <bool kLengths>
 int dispatch_bwd(const BwdArgs& a, int D, int dtype, void* stream) {
   if (a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;
   if (a.lse == nullptr || a.dsum == nullptr || (kLengths && a.lengths == nullptr)) return -1;
+  if (a.row0 < 0 || a.col0 < 0 || (!kLengths && (a.row0 != 0 || a.col0 != 0))) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
 #define STLT_CASE(d) \

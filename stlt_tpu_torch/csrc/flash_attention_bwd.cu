@@ -19,7 +19,7 @@ extern "C" int stlt_flash_attention_bwd(
     unsigned thresh, float dropout_scale, int dtype, void* stream) {
   stlt::attn::BwdArgs a{q, k, v, dout, qb, qt, qn, kb, kt, kn, vb, vt, vn, ob, ot, on,
                         static_cast<const float*>(bias), bias_b, bias_n, bias_t,
-                        nullptr, 0,
+                        nullptr, 0, 0, 0,
                         static_cast<const float*>(lse), static_cast<const float*>(dsum),
                         dq, dk, dv, B, T, S, N, scale,
                         stlt::Dropout{dropout, seed, thresh, dropout_scale}};

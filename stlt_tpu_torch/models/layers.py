@@ -37,8 +37,9 @@ are cast to the compute dtype where the JAX code casts.
   (``ops/ring.py``, ``layers.py:206-218, 358-365``): q/k/v and the
   out-projection as plain products, since JAX turns its fused projection
   kernels off under the ring and computes them outside Pallas, the
-  attention core one blockwise kernel call per ring step; the layer tail
-  stays fused;
+  attention core one blockwise kernel call per ring step (in training its
+  backward one blockwise backward call per step); the layer tail stays
+  fused;
 - train, the tail: JAX's gate (``ops/fused_tail_train.tail_train_wants``)
   on the model's clip length, which the encoders take as ``clip_frames``
   (the spatial stage's frame axis, the temporal stage's frame count). From
@@ -70,7 +71,7 @@ from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.ops.attention import dot_product_attention
 from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
-from stlt_tpu_torch.ops.ring import ring_attention
+from stlt_tpu_torch.ops.ring import _device_seed, ring_attention
 from stlt_tpu_torch.parallel.mesh import active_context_mesh
 
 
@@ -105,13 +106,24 @@ def draw_seeds(generator: Optional[torch.Generator], n: int):
     return torch.randint(0, 2 ** 32, (n,), generator=generator, dtype=torch.int64).tolist()
 
 
+def off_ring_seed(seed: int) -> int:
+    """The dropout seed of a site off the ring on this rank: the embeddings,
+    the spatial attention and every layer tail hash (or draw) their bits at
+    the rank's local coordinates, so under a context mesh the context index
+    is folded in (``ops/ring._device_seed``) and no two ranks share bits.
+    JAX's GSPMD step hashes these sites at global indices instead (ROADMAP.md
+    section C). Unchanged without a context mesh."""
+    ring = active_context_mesh()
+    return seed if ring is None else _device_seed(ring, seed)
+
+
 def embedding_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """flax ``nn.Dropout``: keep with probability 1-rate, kept values divided
     by 1-rate in x's dtype. The mask is drawn on x's device from a generator
-    seeded by one draw of ``generator``."""
+    seeded by one draw of ``generator`` (:func:`off_ring_seed`)."""
     if rate <= 0.0:
         return x
-    (seed,) = draw_seeds(generator, 1)
+    seed = off_ring_seed(draw_seeds(generator, 1)[0])
     device_gen = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand(x.shape, generator=device_gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
@@ -334,12 +346,17 @@ class TransformerEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None, kv_lengths=None,
                 clip_frames: int = 0) -> torch.Tensor:
         """In train mode with dropout, each layer's (attention, tail) seeds
-        are drawn from ``generator``, layer by layer; ``clip_frames`` goes to
-        every layer (:meth:`TransformerEncoderLayer.forward`)."""
+        are drawn from ``generator``, layer by layer, and folded by
+        :func:`off_ring_seed` (a ring attention's seed is folded by the ring
+        itself); ``clip_frames`` goes to every layer
+        (:meth:`TransformerEncoderLayer.forward`)."""
         for layer in self.layers:
             seeds = None
             if self.training and self.dropout_rate > 0.0:
-                seeds = draw_seeds(generator, 2)
+                attn_seed, tail_seed = draw_seeds(generator, 2)
+                if not layer.self_attn.seq_shard:
+                    attn_seed = off_ring_seed(attn_seed)
+                seeds = (attn_seed, off_ring_seed(tail_seed))
             x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
                       kv_lengths=kv_lengths, clip_frames=clip_frames)
         return x

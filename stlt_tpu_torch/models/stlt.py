@@ -51,7 +51,12 @@ whole clip), the temporal attention is ring attention (``ops/ring.py``),
 and the extract frame ``lengths - 1``, held by one rank, reaches every rank
 by a sum over the ring in which the others add zeros; every rank then runs
 the head. The ragged levers stay off there (``stlt_tpu/models/stlt.py:61-62,
-154``).
+154``). In training the gradients flow back the same way: the sum passes
+its cotangent to the holder only, the ring attention's backward runs the
+ring again, and each rank's backbone gradients are its part of the whole,
+which the train step sums over the ring (``training/loop.py``). The
+dropout sites off the ring fold the context index into their seeds
+(``layers.off_ring_seed``).
 """
 
 from __future__ import annotations

@@ -114,21 +114,23 @@ SIGNATURES = {
     "blockwise_attention_bwd": (
         "stlt_blockwise_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias (or null), its (b, n, t)
-        # strides, lengths (or null), causal, lse, dsum, dq, dk, dv, B, T, S,
-        # N, D, scale, dropout, seed, thresh, dropout_scale, dtype, stream
-        [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _I, _P, _P, _P, _P, _P,
+        # strides, lengths (or null), causal, row0, col0 (ring offsets), lse,
+        # dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
+        [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
     ),
 }
 
 # Kernels (by their launch-count names) whose entry point lives in another
 # source than csrc/<name>.cu: the train variants share their eval sources, the
-# blockwise forward's and backward's dense-bias modes (and the forward's
-# ring-offset mode) their lengths modes'.
+# blockwise forward's and backward's dense-bias and ring-offset modes their
+# lengths modes'.
 SOURCES = {
     "blockwise_attention_dense": "blockwise_attention",
     "blockwise_attention_offsets": "blockwise_attention",
     "blockwise_attention_bwd_dense": "blockwise_attention_bwd",
+    "blockwise_attention_bwd_offsets": "blockwise_attention_bwd",
     "fused_proj_attention_train": "fused_proj_attention",
     "fused_proj_attention_train_bwd": "fused_proj_attention_bwd",
     "fused_layer_tail_train": "fused_layer_tail",

@@ -7,7 +7,8 @@ and the custom VJP ``_flash_custom`` / ``_flash_fwd`` / ``_flash_bwd``
 (:1105-1110, :1288-1337): ``max(T, S) >= _BLOCKWISE_MIN_SEQ = 513`` takes the
 blockwise kernels (``_blockwise_attn_kernel`` :397 forward, in its lengths
 and its dense-bias mode; ``_blockwise_dq_kernel`` :655 and
-``_blockwise_dkdv_kernel`` :745 backward, in the same two modes), anything
+``_blockwise_dkdv_kernel`` :745 backward, in the same two modes; both also
+in the ring-offset mode of ``ops/ring.py``), anything
 shorter the short kernels (``_fused_attn_kernel`` :119 and
 ``_fused_bwd_kernel`` :166). Layout ``[B, T, N, D]`` as in JAX.
 
@@ -27,7 +28,8 @@ Each kernel has three parts, as in ``ops/fused_encoder.py``:
   count their lengths modes as ``blockwise_attention`` and
   ``blockwise_attention_bwd``, their dense-bias modes as
   ``blockwise_attention_dense`` and ``blockwise_attention_bwd_dense``, and
-  the forward's ring-offset mode as ``blockwise_attention_offsets``.
+  their ring-offset modes as ``blockwise_attention_offsets`` and
+  ``blockwise_attention_bwd_offsets``.
 
 Gradients. When q, k or v needs a gradient, :func:`flash_attention` runs the
 ``torch.autograd.Function`` ``_Attention`` over the short or the blockwise
@@ -75,24 +77,28 @@ computed, lse written, T and S free (33 against 513 and back); with
 diagonal are skipped (forward and dq), and query tiles above it (dk, dv),
 as JAX's ``_causal_live`` skips them.
 
-Ring-offset mode of the blockwise forward (``offsets`` = (row0, col0) with
-``kv_lengths``; one call per step of ``ops/ring.py``, JAX's ``off_base``):
+Ring-offset mode of the blockwise kernels (``offsets`` = (row0, col0) with
+``kv_lengths``; one call per step of ``ops/ring.py``'s forward and of its
+backward, JAX's ``off_base``):
 local query t and key s are the global row0 + t and col0 + s, so key s is
 live iff col0 + s < kv_lengths[b] (and col0 + s <= row0 + t with
 ``causal``), and the dead rows are those with row0 + t >= kv_lengths[b]
 (zeros, lse 0). A live row with no live key in the held chunk is zeros with
 lse ``_NEG_INF``: JAX forces its first key block live, so such a row gets a
 finite output and an lse near -1e30, and the ring's cross-chunk merge wipes
-both out. The dropout bits hash the local (t, s).
+both out. The dropout bits hash the local (t, s). The backward reads the
+ring's global lse, finite on every live row, so such a row gets p = 0 in
+the chunk; JAX's ring steps compute the dead rows in full where the port
+takes their p and dO as 0, which agree for a cotangent that is zero on them
+(the model's is).
 
 The head dim D is 32, 64 or 128 on a CUDA tensor (``_KERNEL_HEAD_DIMS``);
 the CPU path takes any.
 
 Not ported yet, and refused on a CUDA tensor with the ``ROADMAP.md`` item
 it waits for: the dropout-mask operand (the models hash their bits from a
-seed; B5 (mask)). The backward's ring ``offsets`` mode (context training)
-is refused on every device. The plain versions compute the mask operand,
-so the CPU path stays whole.
+seed; B5 (mask)). The plain versions compute the mask operand, so the CPU
+path stays whole.
 """
 
 from __future__ import annotations
@@ -106,7 +112,8 @@ from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 
 LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
             "blockwise_attention_offsets": 0, "flash_attention_bwd": 0,
-            "blockwise_attention_bwd": 0, "blockwise_attention_bwd_dense": 0}
+            "blockwise_attention_bwd": 0, "blockwise_attention_bwd_dense": 0,
+            "blockwise_attention_bwd_offsets": 0}
 
 _BLOCKWISE_MIN_SEQ = 513
 _NEG_INF = -1e30  # finite: exp(-1e30 - m) == 0 without inf - inf NaNs
@@ -273,25 +280,33 @@ def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bo
 
 def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
                         causal: bool = False, dropout_mask=None, dropout_rate: float = 0.0,
-                        dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dropout_seed=None, offsets=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of both backward kernels: (dq, dk, dv) in q's,
     k's and v's dtypes, from the forward's lse [B, N, T] and dsum =
     rowsum(dO o out) [B, N, T] (see the module docstring). In lengths mode
-    the dead query rows' p and dO are taken as 0."""
+    the dead query rows' p and dO are taken as 0; ``offsets`` (row0, col0)
+    take the mask and the dead rows at global indices (one ring step, whose
+    lse is the ring's global one)."""
     _check_bias(bias, kv_lengths)
+    if offsets is not None and kv_lengths is None:
+        raise ValueError("ring offsets require kv_lengths")
     B, T, N, D = q.shape
     S = k.shape[1]
     f32 = torch.float32
     scale = 1.0 / D ** 0.5
     qt, kt, vt, dot = (x.to(f32).transpose(1, 2) for x in (q, k, v, dout))
     zero = torch.zeros((), dtype=f32, device=q.device)
-    if kv_lengths is not None:
+    row0 = 0
+    if offsets is not None:
+        row0, col0 = _ring_offsets(offsets)
+        bias = _offsets_bias(kv_lengths.to(q.device), T, S, causal, (row0, col0))
+    elif kv_lengths is not None:
         bias = _lengths_dense_bias(kv_lengths.to(q.device), T, S, causal)
     z = (qt @ kt.transpose(-1, -2)) * scale + _broadcast_bias(bias, B, T, S).to(q.device)
     p = torch.exp(z - lse[..., None])
     ds = dsum[..., None]
     if kv_lengths is not None:
-        live = _live_rows(kv_lengths, T, q.device)[:, None, :, None]  # [B, 1, T, 1]
+        live = _live_rows(kv_lengths, T, q.device, row0)[:, None, :, None]  # [B, 1, T, 1]
         p = torch.where(live, p, zero)
         dot = torch.where(live, dot, zero)
         ds = torch.where(live, ds, zero)
@@ -309,22 +324,15 @@ def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
             dv.transpose(1, 2).to(v.dtype))
 
 
-def _dsum(dout, out, kv_lengths) -> torch.Tensor:
+def _dsum(dout, out, kv_lengths, row0: int = 0) -> torch.Tensor:
     """rowsum(dO o out) [B, N, T] in f32 from the stored output; 0 on the
-    lengths mode's dead rows (whatever dO holds there)."""
+    lengths mode's dead rows ``row0 + t >= kv_lengths[b]`` (whatever dO
+    holds there)."""
     dsum = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1).transpose(1, 2)
     if kv_lengths is None:
         return dsum.contiguous()
-    live = _live_rows(kv_lengths, out.shape[1], out.device)[:, None, :]
+    live = _live_rows(kv_lengths, out.shape[1], out.device, row0)[:, None, :]
     return torch.where(live, dsum, torch.zeros((), dtype=torch.float32, device=out.device))
-
-
-def _refuse_offsets(offsets) -> None:
-    if offsets is not None:
-        raise NotImplementedError(
-            "the ring (sequence-parallel) offsets mode of the attention backward is not "
-            "ported yet: it waits for ROADMAP.md item A9 (context training)"
-        )
 
 
 # --- the kernels' wrappers ------------------------------------------------------
@@ -488,8 +496,7 @@ def _bwd_operands(op, q, k, v, dout, lse, dsum):
     for name, x in (("lse", lse), ("dsum", dsum)):
         if x.dtype != torch.float32 or tuple(x.shape) != (B, N, T) or x.device != q.device:
             raise ValueError(f"{op}: {name} must be f32 [{B}, {N}, {T}] on {q.device}")
-    grads = (torch.empty_like(q, memory_format=torch.contiguous_format),
-             *(torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2)))
+    grads = tuple(torch.empty(x.shape, dtype=q.dtype, device=q.device) for x in (q, k, k))
     return dout, code, lse.contiguous(), dsum.contiguous(), grads
 
 
@@ -525,18 +532,23 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
                             dropout_seed=None, offsets=None):
     """The blockwise kernels' backward (``_blockwise_backward``): (dq, dk,
     dv) of :func:`blockwise_attention` for the cotangent ``dout``, from its
-    lse and ``dsum`` (0 on dead rows), in the forward's two modes. Chunks
-    and tiles the forward skipped are skipped; in lengths mode dead query
-    rows get dq = 0 and add nothing to dk, dv. Returns contiguous tensors
-    in q's dtype."""
-    _refuse_offsets(offsets)
+    lse and ``dsum`` (0 on dead rows), in the forward's modes. Chunks and
+    tiles the forward skipped are skipped; in lengths mode dead query rows
+    get dq = 0 and add nothing to dk, dv. ``offsets`` (row0, col0, with
+    ``kv_lengths``): one step of the ring's backward, the mask and the dead
+    rows at global indices, ``lse`` the ring's global one. Returns
+    contiguous tensors in q's dtype."""
     if _on_cpu(q, "blockwise_attention_bwd"):
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, kv_lengths=kv_lengths,
                                    causal=causal, dropout_mask=dropout_mask,
-                                   dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                                   dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                                   offsets=offsets)
     op = "blockwise_attention_bwd"
     drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     _check_bias(bias, kv_lengths)
+    if offsets is not None and kv_lengths is None:
+        raise ValueError(f"{op}: ring offsets require kv_lengths")
+    row0, col0 = (0, 0) if offsets is None else _ring_offsets(offsets)
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
@@ -547,11 +559,14 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
             op, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(dout),
             None if b4 is None else b4.data_ptr(), *strides,
-            None if lengths is None else lengths.data_ptr(), int(bool(causal)),
+            None if lengths is None else lengths.data_ptr(), int(bool(causal)), row0, col0,
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code, _stream(q.device),
         )
-    LAUNCHES[op if lengths is not None else "blockwise_attention_bwd_dense"] += 1
+    if offsets is not None:
+        LAUNCHES["blockwise_attention_bwd_offsets"] += 1
+    else:
+        LAUNCHES[op if lengths is not None else "blockwise_attention_bwd_dense"] += 1
     return dq, dk, dv
 
 

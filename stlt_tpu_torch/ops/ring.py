@@ -1,6 +1,7 @@
-"""Ring attention over the ``context`` axis: the forward of
-``stlt_tpu/ops/ring.py`` (``_ring_forward`` :108-183, ``ring_attention``
-:280-386) as a per-rank program.
+"""Ring attention over the ``context`` axis: ``stlt_tpu/ops/ring.py``
+(``_ring_forward`` :108-183, the custom VJP ``_ring_attn_fwd`` /
+``_ring_attn_bwd`` :188-277, ``ring_attention`` :280-386) as a per-rank
+program.
 
 JAX runs the ring under ``shard_map`` over a global view; here every rank
 runs its own program on its own shards. Rank ``idx`` of a context ring of C
@@ -29,8 +30,23 @@ with the rank's mesh coordinates and the chunk (``_device_seed``,
 ``_step_seed`` :79-94, on the port's ``lowbias32``), since the kernel
 hashes local (t, s). ``dropout_mask`` (this rank's rows [b, n|1, t, S])
 runs on the CPU only and raises on the card (ROADMAP.md B5 (mask)).
-Gradients through the ring raise: the ring's backward waits for ROADMAP.md
-item A9 (context training).
+
+Gradients (``_RingAttention``, JAX's custom VJP): the forward saves this
+rank's shards only (q, k, v, the output, the merged global lse) and no
+rotated chunk. The backward runs the ring again: at step j, one
+``flash.blockwise_attention_bwd`` call on the held chunk with the global
+lse (so p = exp(z - lse) is the globally normalised probability and the
+chunks' contributions add up) and one dsum = rowsum(dO o out) taken once
+from the global output, with the same offsets, bias columns and step seed
+as the forward's step, so it redraws the forward's keep bits. dq adds up at
+home in f32; the f32 dk and dv accumulators travel with their chunk and
+take C rotations, so each lands home whole (K and V skip the last one).
+
+:func:`context_sum` carries the extract frame of a frame-sharded model to
+every rank. Its backward passes the cotangent through unchanged: every rank
+runs the head on the same sum and computes the same loss, so each rank's
+contribution has the sum's cotangent, and an all-reduce there would count
+the loss C times.
 """
 
 from __future__ import annotations
@@ -82,6 +98,89 @@ def _rotate(tensors, mesh: Mesh):
     return recvs
 
 
+def _ring_forward(q, k, v, bias, mesh: Mesh, lengths, causal, dropout_mask, dropout_rate,
+                  seed_dev):
+    """The ring's steps on this rank: (out [b, t, n, d] in v's dtype, the
+    merged lse [b, n, t] f32)."""
+    b, t, n, d = q.shape
+    C, idx = mesh.context_size, mesh.context_index
+    o = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, n, t), _NEG_INF, dtype=torch.float32, device=q.device)
+    k_c, v_c = k, v
+    for j in range(C):
+        o_j, lse_j = flash.blockwise_attention(
+            q, k_c, v_c, **_step_kwargs(q, k, bias, mesh, j, lengths, causal, dropout_mask,
+                                         dropout_rate, seed_dev))
+        lse_new = torch.logaddexp(lse, lse_j)
+        o = o * torch.exp(lse - lse_new)[..., None] + \
+            o_j.transpose(1, 2).to(torch.float32) * torch.exp(lse_j - lse_new)[..., None]
+        lse = lse_new
+        if j + 1 < C:
+            k_c, v_c = _rotate([k_c, v_c], mesh)
+    return o.transpose(1, 2).to(v.dtype), lse
+
+
+def _step_kwargs(q, k, bias, mesh: Mesh, j: int, lengths, causal, dropout_mask, dropout_rate,
+                 seed_dev) -> dict:
+    """The blockwise keyword arguments of ring step ``j`` on this rank (the
+    held chunk ``(idx - j) mod C``), the same in the forward and the
+    backward: offsets (lengths mode) or the chunk's bias columns, and the
+    step's seed or mask columns."""
+    t, s = q.shape[1], k.shape[1]
+    idx = mesh.context_index
+    chunk = (idx - j) % mesh.context_size
+    cols = slice(chunk * s, (chunk + 1) * s)
+    kw = dict(dropout_rate=dropout_rate)
+    if seed_dev is not None:
+        kw["dropout_seed"] = _step_seed(seed_dev, chunk)
+    elif dropout_mask is not None:
+        kw["dropout_mask"] = dropout_mask[..., cols]
+    if lengths is not None:
+        kw.update(kv_lengths=lengths, causal=causal, offsets=(idx * t, chunk * s))
+    else:
+        kw.update(bias=bias[..., cols])
+    return kw
+
+
+class _RingAttention(torch.autograd.Function):
+    """``_ring_attn``'s VJP (``_ring_attn_fwd`` / ``_ring_attn_bwd``): see the
+    module docstring. ``cfg`` holds (bias, mesh, lengths, causal,
+    dropout_mask, dropout_rate, seed_dev)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg):
+        out, lse = _ring_forward(q, k, v, *cfg)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        bias, mesh, lengths, causal, dropout_mask, dropout_rate, seed_dev = ctx.cfg
+        C, t = mesh.context_size, q.shape[1]
+        dsum = flash._dsum(g, out, lengths, mesh.context_index * t)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        k_c, v_c = k, v
+        for j in range(C):
+            dq_j, dk_j, dv_j = flash.blockwise_attention_bwd(
+                q, k_c, v_c, g, lse, dsum,
+                **_step_kwargs(q, k, bias, mesh, j, lengths, causal, dropout_mask, dropout_rate,
+                               seed_dev))
+            dq += dq_j
+            dk += dk_j
+            dv += dv_j
+            # The accumulators travel with their chunk, C rotations in all, so
+            # each lands home; K and V skip the last one.
+            if j + 1 < C:
+                k_c, v_c, dk, dv = _rotate([k_c, v_c, dk, dv], mesh)
+            elif C > 1:
+                dk, dv = _rotate([dk, dv], mesh)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
 def ring_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -99,59 +198,55 @@ def ring_attention(
     [b, t, n, d], the rank's frames of the whole [b, C t, n, d]. The bias
     comes in one of two forms: ``kv_lengths`` [b] (global live frame counts,
     with ``causal``), or ``bias`` [b, 1, t, C t] (or None for no bias), this
-    rank's query rows. Returns [b, t, n, d] in v's dtype."""
+    rank's query rows. Returns [b, t, n, d] in v's dtype; when q, k or v
+    needs a gradient, through ``_RingAttention``."""
     if dropout_mask is not None and dropout_seed is not None:
         raise ValueError("pass a dropout mask OR a dropout seed, not both")
     if bias is not None and kv_lengths is not None:
         raise ValueError("pass a dense bias OR kv_lengths (+ causal), not both")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError("gradients through ring attention are not ported yet: the "
-                                  "ring's backward waits for ROADMAP.md item A9 (context training)")
     if dropout_mask is not None and q.device.type != "cpu":
         raise NotImplementedError("ring attention's dropout-mask operand is not ported to the "
                                   "card: it waits for ROADMAP.md item B5 (mask); pass dropout_seed")
     b, t, n, d = q.shape
     s = k.shape[1]
     C = mesh.context_size
-    idx = mesh.context_index
-    lengths = kv_lengths is not None
-    if not lengths:
+    if kv_lengths is None:
         bias = torch.zeros((b, 1, t, C * s), dtype=torch.float32, device=q.device) if bias is None \
             else bias.to(torch.float32)
         if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[2:] != (t, C * s):
             raise ValueError(f"ring attention takes this rank's head-invariant bias rows "
                              f"[b, 1, {t}, {C * s}], got {tuple(bias.shape)}")
     seed_dev = _device_seed(mesh, dropout_seed) if dropout_seed is not None else None
-    o = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
-    lse = torch.full((b, n, t), _NEG_INF, dtype=torch.float32, device=q.device)
-    k_c, v_c = k, v
-    for j in range(C):
-        chunk = (idx - j) % C
-        cols = slice(chunk * s, (chunk + 1) * s)
-        kw = dict(dropout_rate=dropout_rate)
-        if seed_dev is not None:
-            kw["dropout_seed"] = _step_seed(seed_dev, chunk)
-        elif dropout_mask is not None:
-            kw["dropout_mask"] = dropout_mask[..., cols]
-        if lengths:
-            kw.update(kv_lengths=kv_lengths, causal=causal, offsets=(idx * t, chunk * s))
-        else:
-            kw.update(bias=bias[..., cols])
-        o_j, lse_j = flash.blockwise_attention(q, k_c, v_c, **kw)
-        lse_new = torch.logaddexp(lse, lse_j)
-        o = o * torch.exp(lse - lse_new)[..., None] + \
-            o_j.transpose(1, 2).to(torch.float32) * torch.exp(lse_j - lse_new)[..., None]
-        lse = lse_new
-        if j + 1 < C:
-            k_c, v_c = _rotate([k_c, v_c], mesh)
-    return o.transpose(1, 2).to(v.dtype)
+    cfg = (bias, mesh, kv_lengths, causal, dropout_mask, dropout_rate, seed_dev)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _RingAttention.apply(q, k, v, cfg)
+    return _ring_forward(q, k, v, *cfg)[0]
 
 
-def context_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def ring_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of ``x`` over the ranks of the context ring (every rank gets
-    it), in f32 (exact where one rank adds a value and the others zeros),
-    staged through the host on gloo as :func:`_rotate` is."""
+    the same bits), taken in f32 and returned in x's dtype, staged through
+    the host on gloo as :func:`_rotate` is. No gradient."""
     staged = x.device.type != "cpu" and mesh.backend != "nccl"
     buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     return buf.to(x.device, x.dtype)
+
+
+class _ContextSum(torch.autograd.Function):
+    """:func:`ring_sum` whose backward passes the cotangent through unchanged
+    (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return ring_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def context_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """:func:`ring_sum` of ``x`` (exact where one rank adds a value and the
+    others zeros) whose backward is the identity."""
+    return _ContextSum.apply(x, mesh)

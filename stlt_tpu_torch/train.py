@@ -34,6 +34,18 @@ None)`` for it), and the model runs uncapped, where JAX's capacities
 (``stlt_tpu/train.py:40-59``) would drop sampled frames (``ROADMAP.md``
 section C).
 
+STLT trains frame-sharded over C processes with ``--context_parallel C
+--num_processes C --process_id r --coordinator_address host:port``, as it
+serves (``predict``, ``parallel/``): every rank builds the same global
+batches (the same loader seed, the frame axis padded to a multiple of C)
+and the same seeded model, keeps its frames, runs the temporal attention as
+a ring forward and backward (``ops/ring.py``) and sums its backbone
+gradients over the ring before the clip (``training/loop.py``), so the
+ranks' weights stay equal; validation runs the ring forward. Only the
+coordinator (rank 0) writes the log file and the checkpoints. The flags
+the serving CLIs refuse under the ring (another model, a data or model
+axis) are refused here too.
+
     python -m stlt_tpu_torch.train --dataset_name something --dataset_type layout \
         --model_name stlt --train_dataset_path train.json --val_dataset_path val.json \
         --labels_path labels.json --videoid2size_path sizes.json \
@@ -53,8 +65,14 @@ import torch
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
 from stlt_tpu_torch.models import models_factory
+from stlt_tpu_torch.parallel import distributed
 from stlt_tpu_torch.parser import build_parser
-from stlt_tpu_torch.predict import build_data_config, build_model_config, resolve_device
+from stlt_tpu_torch.predict import (
+    build_data_config,
+    build_model_config,
+    start_processes,
+    stop_processes,
+)
 from stlt_tpu_torch.predict import check_flags as check_serving_flags
 from stlt_tpu_torch.training.criterion import make_criterion
 from stlt_tpu_torch.training.evaluation import evaluators_factory
@@ -88,12 +106,10 @@ class TrainResult:
 
 def check_flags(args) -> None:
     """The serving CLIs' checks (``predict.check_flags``: an unknown model or
-    dataset type, A9's and A10's flags); a backbone flag for a model without
-    a backbone raises naming those that have one; the train flags of later
-    slices raise with the ``ROADMAP.md`` item they wait for."""
-    if args.context_parallel > 1:
-        raise NotImplementedError("train --context_parallel is not ported yet: the ring's backward "
-                                  "waits for ROADMAP.md item A9 (context training)")
+    dataset type, A9's and A10's flags, which leave STLT over a context axis
+    as the one parallel run); a backbone flag for a model without a backbone
+    raises naming those that have one; the train flags of later slices raise
+    with the ``ROADMAP.md`` item they wait for."""
     check_serving_flags(args)
     for flag in ("load_backbone_path", "save_backbone_path"):
         if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
@@ -117,8 +133,10 @@ def check_flags(args) -> None:
         )
 
 
-def setup_logging(log_filepath) -> None:
-    if log_filepath:
+def setup_logging(log_filepath, *, coordinator: bool = True) -> None:
+    """Log to ``log_filepath`` (refusing to overwrite one) on the
+    coordinator, to stderr elsewhere."""
+    if log_filepath and coordinator:
         if os.path.exists(log_filepath):
             raise ValueError(f"There is a log at {log_filepath}!")
         logging.basicConfig(level=logging.INFO, filename=log_filepath, filemode="w")
@@ -133,8 +151,15 @@ def _save(state_dict, path: str) -> None:
 
 def train(args) -> TrainResult:
     check_flags(args)
-    device = resolve_device(getattr(args, "platform", None))
-    setup_logging(args.log_filepath)
+    setup_logging(args.log_filepath, coordinator=getattr(args, "process_id", 0) == 0)
+    device = start_processes(args)
+    try:
+        return _train(args, device)
+    finally:
+        stop_processes()
+
+
+def _train(args, device) -> TrainResult:
     logging.info("Device: %s", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     train_cfg = build_data_config(args, train=True, dataset_path=args.train_dataset_path)
     val_cfg = build_data_config(args, train=False, dataset_path=args.val_dataset_path)
@@ -216,9 +241,10 @@ def train(args) -> TrainResult:
         is_best = evaluator.is_best()
         if is_best:
             logging.info("Found new best on epoch %d!", epoch + 1)
-            _save(model.state_dict(), args.save_model_path)
-            if args.save_backbone_path:
-                _save(model.backbone.state_dict(), args.save_backbone_path)
+            if distributed.is_coordinator():
+                _save(model.state_dict(), args.save_model_path)
+                if args.save_backbone_path:
+                    _save(model.backbone.state_dict(), args.save_backbone_path)
         for m, v in metrics.items():
             logging.info("%s: %s", m, round(v * 100, 2))
         records.append({

@@ -7,7 +7,15 @@ accumulators (:251-288), which keep an epoch's counts or probabilities on the
 device and fetch them once.
 
 A train step is zero_grad -> forward in train mode -> loss -> backward ->
-global-norm clip -> AdamW -> schedule step. Its random draws (every layer's
+global-norm clip -> AdamW -> schedule step. Under a context mesh (``train
+--context_parallel C``) every rank runs the step on its frames of the same
+global batch, and after the backward each parameter of the frame-sharded
+backbone holds this rank's part of the gradient, summed over the ring in
+f32 in one flat bucket before the clip (JAX's GSPMD step computes the
+whole gradient at once); the head's gradients are already whole and equal
+on every rank and are not summed. The clip and AdamW then see the same
+gradients on every rank, and the ranks' weights stay equal bit for bit.
+Its random draws (every layer's
 dropout seeds, the embedding-dropout masks) come from one explicit
 ``torch.Generator`` built from (seed, step) by :func:`step_generator`; the
 global RNG is never used. Flax's ``make_rng`` stream cannot be reproduced,
@@ -21,6 +29,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from stlt_tpu_torch.ops.ring import ring_sum
+from stlt_tpu_torch.parallel.mesh import Mesh, active_context_mesh
 from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
 
 
@@ -61,9 +71,25 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
+def sum_grads_over_ring_(params, mesh: Mesh) -> None:
+    """Replace each gradient of ``params`` by its sum over the context ring:
+    one all-reduce of a flat f32 bucket. Parameters without a gradient (the
+    same ones on every rank) stay without."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = ring_sum(torch.cat([g.reshape(-1).to(torch.float32) for g in grads]), mesh)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float) -> Callable:
     """Returns ``train_step(batch, generator) -> (loss, grad_norm)``, both
-    device scalars; ``grad_norm`` is the global norm before the clip."""
+    device scalars; ``grad_norm`` is the global norm before the clip. Under
+    a context mesh the backbone's gradients are summed over the ring first
+    (see the module docstring)."""
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator):
@@ -72,6 +98,9 @@ def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: 
         logits = model(_model_inputs(batch), generator)
         loss = criterion(logits, batch["labels"], batch.get("valid"))
         loss.backward()
+        ring = active_context_mesh()
+        if ring is not None:
+            sum_grads_over_ring_(model.backbone.parameters(), ring)
         grad_norm = clip_by_global_norm_(params, clip_val)
         optimizer.step()
         scheduler.step()

@@ -1,5 +1,5 @@
 """One rank of a context-parallel run of the port on the CPU, for
-``tests/test_torch_ring.py``. Imports torch, numpy and the port only.
+``tests/test_torch_ring.py`` and ``tests/test_torch_ring_train*.py``. Imports torch, numpy and the port only.
 
     python tests/ring_worker.py TASK WORKDIR RANK WORLD
 
@@ -14,7 +14,21 @@ Tasks (inputs and outputs under WORKDIR):
   ``batch.npz`` under a context mesh; writes the logits to ``stlt_RANK.npy``;
 - ``predict``: ``stlt_tpu_torch.predict.main`` with the argv of
   ``argv.json`` plus this rank's ``--process_id`` and a ``file://``
-  coordinator under WORKDIR.
+  coordinator under WORKDIR;
+- ``op_grad``: the gradients of ``ring_attention`` on this rank's frames of
+  ``inputs.npz`` (as ``op``, plus the cotangent g [B, T, N, D]) for the
+  cotangent's rows of this rank, in the lengths mode (causal), the dense
+  mode and the seed mode; writes ``op_grad_RANK.npz``;
+- ``train``: ``steps`` train steps (``training.loop.make_train_step``, the
+  hyperparameters of ``hp.json``) of a port STLT (``config.json``,
+  ``state.pt``) on the batch of ``batch.npz`` under a context mesh; writes
+  ``train_RANK.npz``: the losses, the parameters after every step (one flat
+  f32 vector each), the first step's gradients as the clip sees them (after
+  the sum over the ring) and ``off_ring_seed`` of one seed on this rank;
+- ``train_cli``: ``stlt_tpu_torch.train.main`` with the argv of
+  ``argv.json`` plus this rank's ``--process_id``, a ``file://``
+  coordinator, ``--save_model_path best_RANK.pt`` and ``--log_filepath
+  log_RANK.txt`` under WORKDIR.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -88,6 +102,84 @@ def predict(workdir, rank, world):
                               f"file://{os.path.join(workdir, 'predict.store')}"])
 
 
+def op_grad(workdir, rank, world):
+    from stlt_tpu_torch.ops.ring import ring_attention
+
+    mesh = _group(workdir, "op_grad", rank, world)
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    T = data["q"].shape[1]
+    t = T // world
+    rows = slice(rank * t, (rank + 1) * t)
+    lengths = torch.from_numpy(data["lengths"])
+    modes = {
+        "lengths": dict(bias=None, kv_lengths=lengths, causal=True),
+        "dense": dict(bias=torch.from_numpy(data["bias"][:, :, rows])),
+        "seed": dict(bias=None, kv_lengths=lengths, causal=True, dropout_seed=int(data["seed"]),
+                     dropout_rate=float(data["rate"])),
+    }
+    out = {}
+    for mode, kw in modes.items():
+        leaves = [torch.from_numpy(data[name][:, rows].copy()).requires_grad_() for name in "qkv"]
+        bias = kw.pop("bias")
+        ring_attention(*leaves, bias, mesh, **kw).backward(torch.from_numpy(data["g"][:, rows].copy()))
+        for name, leaf in zip(("dq", "dk", "dv"), leaves):
+            out[f"{mode}_{name}"] = leaf.grad.numpy()
+    np.savez(os.path.join(workdir, f"op_grad_{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def train(workdir, rank, world):
+    from stlt_tpu_torch.configs import StltModelConfig
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.models.layers import off_ring_seed
+    from stlt_tpu_torch.training import loop
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.optimizer import make_optimizer
+
+    set_active_mesh(_group(workdir, "train", rank, world))
+    with open(os.path.join(workdir, "config.json")) as f:
+        cfg = StltModelConfig(**json.load(f))
+    with open(os.path.join(workdir, "hp.json")) as f:
+        hp = json.load(f)
+    model = models_factory["stlt"](cfg)
+    model.load_state_dict(torch.load(os.path.join(workdir, "state.pt")), strict=True)
+    optimizer, scheduler = make_optimizer(model, learning_rate=hp["lr"], weight_decay=hp["weight_decay"],
+                                          num_warmup_steps=hp["warmup"], num_training_steps=hp["total"])
+    first = {}
+    clip = loop.clip_by_global_norm_
+
+    def clip_spy(params, clip_val):  # the gradients as the clip sees them, at the first step
+        if not first:
+            first.update({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+        return clip(params, clip_val)
+
+    loop.clip_by_global_norm_ = clip_spy
+    step = loop.make_train_step(model, optimizer, scheduler, make_criterion("something"), hp["clip_val"])
+    batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, "batch.npz")).items()}
+    out = {"losses": [], "seed": off_ring_seed(hp["probe_seed"])}
+    for i in range(hp["steps"]):
+        loss, _ = step(batch, loop.step_generator(0, i))
+        out["losses"].append(float(loss))
+        out[f"params_{i}"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
+    out.update({f"grad_{n}": g.numpy() for n, g in first.items()})
+    out.update({f"final_{n}": v.numpy() for n, v in model.state_dict().items()})
+    np.savez(os.path.join(workdir, f"train_{rank}.npz"), **out)
+    set_active_mesh(None)
+    dist.destroy_process_group()
+
+
+def train_cli(workdir, rank, world):
+    from stlt_tpu_torch import train as port_train
+
+    with open(os.path.join(workdir, "argv.json")) as f:
+        argv = json.load(f)
+    port_train.main(argv + ["--process_id", str(rank), "--coordinator_address",
+                            f"file://{os.path.join(workdir, 'train_cli.store')}",
+                            "--save_model_path", os.path.join(workdir, f"best_{rank}.pt"),
+                            "--log_filepath", os.path.join(workdir, f"log_{rank}.txt")])
+
+
 if __name__ == "__main__":
     task, workdir, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
-    {"op": op, "stlt": stlt, "predict": predict}[task](workdir, rank, world)
+    {"op": op, "stlt": stlt, "predict": predict, "op_grad": op_grad, "train": train,
+     "train_cli": train_cli}[task](workdir, rank, world)

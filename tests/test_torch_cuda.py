@@ -332,7 +332,8 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
-                              "blockwise_attention_bwd_dense": 0}
+                              "blockwise_attention_bwd_dense": 0,
+                              "blockwise_attention_bwd_offsets": 0}
     want = flash.fused_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype)
@@ -353,7 +354,8 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     assert flash.LAUNCHES == {"flash_attention": 0, "blockwise_attention": 1,
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
-                              "blockwise_attention_bwd_dense": 0}
+                              "blockwise_attention_bwd_dense": 0,
+                              "blockwise_attention_bwd_offsets": 0}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     torch.cuda.synchronize()
     live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)  # [B, T]
@@ -387,9 +389,8 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
         flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, bias=torch.zeros(2, 1, 513, 513, device=device),
                                       dropout_mask=torch.ones(2, 12, 513, 513, device=device),
                                       dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True,
-                                      offsets=torch.tensor([0, 0]))
+    with pytest.raises(ValueError, match="ring offsets require kv_lengths"):
+        flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, offsets=torch.tensor([0, 0]))
     q8 = torch.randn(2, 100, 4, 8, device=device)  # head dim 8: outside 32, 64, 128
     with pytest.raises(ValueError, match="head dim in"):
         flash.flash_attention(q8, q8, q8)
@@ -556,7 +557,8 @@ def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
     assert flash.LAUNCHES == {"flash_attention": 1, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 1, "blockwise_attention_bwd": 0,
-                              "blockwise_attention_bwd_dense": 0}
+                              "blockwise_attention_bwd_dense": 0,
+                              "blockwise_attention_bwd_offsets": 0}
     assert torch.isfinite(x.grad).all()
 
 
@@ -604,7 +606,8 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
     assert flash.LAUNCHES == {"flash_attention": 2 * 2, "blockwise_attention": 0,
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
-                              "blockwise_attention_bwd_dense": 0}
+                              "blockwise_attention_bwd_dense": 0,
+                              "blockwise_attention_bwd_offsets": 0}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
 
 
@@ -646,7 +649,8 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
     assert flash.LAUNCHES == {"flash_attention": 2 * (steps + val), "blockwise_attention": 0,
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0,
-                              "blockwise_attention_bwd_dense": 0}
+                              "blockwise_attention_bwd_dense": 0,
+                              "blockwise_attention_bwd_offsets": 0}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
                            "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps,
                            "fused_cross_attention": 0}
@@ -1094,3 +1098,53 @@ def test_blockwise_offsets_kernel_matches_plain(device, dtype, offsets):
     if none.any():
         assert (lse.transpose(1, 2)[none] == flash._NEG_INF).all()
         assert out[none].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [(0, 0), (0, 257), (257, 0), (257, 257)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_blockwise_offsets_bwd_kernel_matches_plain(device, dtype, offsets, rate):
+    """The backward's ring-offset mode at a 512-frame clip's per-rank shapes
+    (C = 2), from the whole clip's lse and output as a ring step takes them:
+    dq, dk, dv against the plain version, a cotangent of 1e30 on dead rows
+    (global indices) that the kernel must not read, dq of dead rows and of
+    rows with no live key in the chunk exact zeros, outputs filled with NaN
+    beforehand fully written, the same bits twice."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(sum(offsets) + 7)
+    B, T = 6, 257
+    q, k, v = _heads(B, 2 * T, 2 * T, dtype, gen, device)
+    lengths = torch.tensor([33, 513, 257, 258, 100, 400], device=device)
+    drop = dict(dropout_rate=rate, dropout_seed=0x5EED if rate else None)
+    out, lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths, causal=True)
+    row0, col0 = offsets
+    rows, cols = slice(row0, row0 + T), slice(col0, col0 + T)
+    q, out, lse = q[:, rows], out[:, rows], lse[:, :, rows].contiguous()
+    k, v = k[:, cols].contiguous(), v[:, cols].contiguous()
+    t = torch.arange(T, device=device)[None, :] + row0
+    live = t < lengths[:, None]
+    dout = torch.randn(B, T, 12, 64, generator=gen).to(device, dtype)
+    dout[~live] = 1e30
+    dsum = flash._dsum(dout, out, lengths, row0)
+    kw = dict(kv_lengths=lengths, causal=True, offsets=offsets, **drop)
+    empty = torch.empty
+
+    def nan_filled(*args, **kwargs):
+        x = empty(*args, **kwargs)
+        return x.fill_(float("nan")) if x.is_floating_point() else x
+
+    flash.reset_launches()
+    try:
+        torch.empty = nan_filled
+        got = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    finally:
+        torch.empty = empty
+    assert flash.LAUNCHES["blockwise_attention_bwd_offsets"] == 1
+    assert flash.LAUNCHES["blockwise_attention_bwd"] == 0
+    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    again = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    no_key = live & ((col0 >= lengths[:, None]) | (col0 > t))
+    _check_grads(got, want, dtype, ~live | no_key)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"

@@ -142,15 +142,17 @@ def test_bf16_keeps_f32_softmax_and_rounds_the_output():
 
 
 def test_ring_offsets_are_refused():
-    """The backward's ring-offset mode (rows 9-10) waits for context
-    training and is refused on every device. The forward's runs: at offsets
-    (0, 0) it is the lengths mode."""
+    """The ring-offset mode of the forward and of the backward (rows 8-10)
+    at offsets (0, 0) is the lengths mode, bit for bit (both are held
+    against JAX at other offsets in test_torch_ring*.py)."""
     q, k, v = _torch(*_qkv(513, seed=1))
     lengths = torch.tensor([3, 513])
     out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True,
                                          offsets=torch.tensor([0, 0]))
     want, want_lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        flash.blockwise_attention_bwd(q, k, v, q, lse, lse, kv_lengths=lengths, causal=True,
-                                      offsets=torch.tensor([0, 0]))
+    dsum = flash._dsum(q, out, lengths)
+    got = flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True,
+                                        offsets=torch.tensor([0, 0]))
+    want = flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, kv_lengths=lengths, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

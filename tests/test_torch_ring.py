@@ -11,7 +11,10 @@
   carried with ``jax_params_to_state_dict``;
 - ``predict --context_parallel 2 --num_processes 2 --platform cpu`` against
   the single-process run;
-- the serving and train CLIs' refusals of what waits (ROADMAP.md A9).
+- the serving and train CLIs' refusals of what waits (ROADMAP.md A9), and
+  what the ring now takes: ring offsets in the backward, ``train
+  --context_parallel``, gradients through ``ring_attention`` (the ring's
+  training is held against JAX in ``tests/test_torch_ring_train*.py``).
 
 The ranks run as subprocesses of ``tests/ring_worker.py``, which imports
 torch and the port only; their process group starts from a ``file://``
@@ -121,22 +124,27 @@ def test_offsets_forward_matches_jax(offsets, seed):
 
 
 def test_offsets_require_lengths_and_backward_offsets_still_wait():
+    """Ring offsets need kv_lengths in the forward and in the backward; the
+    backward takes them (held against JAX in test_torch_ring_train.py)."""
     q = torch.zeros(1, 4, 1, 32)
     with pytest.raises(ValueError, match="ring offsets require kv_lengths"):
         flash.blockwise_attention_plain(q, q, q, offsets=(0, 4))
     lse = dsum = torch.zeros(1, 1, 4)
-    with pytest.raises(NotImplementedError, match="A9 \\(context training\\)"):
-        flash.blockwise_attention_bwd(q, q, q, q, lse, dsum, kv_lengths=torch.tensor([4]),
-                                      causal=True, offsets=(0, 0))
+    with pytest.raises(ValueError, match="ring offsets require kv_lengths"):
+        flash.blockwise_attention_bwd(q, q, q, q, lse, dsum, offsets=(0, 4))
+    grads = flash.blockwise_attention_bwd(q, q, q, q, lse, dsum, kv_lengths=torch.tensor([4]),
+                                          causal=True, offsets=(0, 4))
+    assert all(g.shape == q.shape and not g.any() for g in grads)  # every key past the clip
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_offsets_bound_counts_at_global_indices(causal):
-    """``chip_smoke.offsets_bound`` (a ring step's bound on the card) counts
-    what the step needs at global indices: at offsets (0, 0) over the whole
-    sequence it equals the lengths mode's ``blockwise_bound``, and a step
-    whose query rows are all dead reads no q, k or v (only out, lse and the
-    lengths are written or read)."""
+    """``chip_smoke.offsets_bound`` and ``offsets_bwd_bound`` (a ring step's
+    forward and backward bounds on the card) count what the step needs at
+    global indices: at offsets (0, 0) over the whole sequence they equal the
+    lengths mode's ``blockwise_bound`` and ``attention_bwd_bound``, and a
+    forward step whose query rows are all dead reads no q, k or v (only out,
+    lse and the lengths are written or read)."""
     import chip_smoke
 
     rng = np.random.default_rng(7)
@@ -146,6 +154,8 @@ def test_offsets_bound_counts_at_global_indices(causal):
     for dtype in (torch.bfloat16, torch.float32):
         assert chip_smoke.offsets_bound(q.to(dtype), lengths, causal, (0, 0), dtype) == \
             chip_smoke.blockwise_bound(q.to(dtype), lengths, causal, dtype)
+        assert chip_smoke.offsets_bwd_bound(q.to(dtype), lengths, causal, (0, 0), dtype) == \
+            chip_smoke.attention_bwd_bound(q.to(dtype), dtype, lengths, causal)
     ms, by = chip_smoke.offsets_bound(q, lengths, causal, (T, 0), torch.bfloat16)
     writes = B * T * N * D * q.element_size() + B * N * T * 4 + B * 4
     assert (ms, by) == (writes / chip_smoke.HBM_BYTES_PER_S * 1e3, "bytes")
@@ -291,18 +301,39 @@ def test_serving_check_flags_takes_the_context_axis():
 
 
 def test_train_refuses_context_parallel():
-    args = build_parser("test").parse_args(
-        ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
-         "--context_parallel", "2", "--num_processes", "2"])
-    with pytest.raises(NotImplementedError, match="A9 \\(context training\\)"):
+    """``train`` takes STLT over a context axis of C processes and, as
+    ``predict``, refuses a fusion model under the ring, naming its item (the
+    other refusals: test_torch_ring_train_cli.py)."""
+    common = ["--dataset_name", "something", "--dataset_type", "layout", "--context_parallel", "2",
+              "--num_processes", "2", "--coordinator_address", "localhost:1",
+              "--save_model_path", "best.pt"]
+    port_train.check_flags(build_parser("test").parse_args(common + ["--model_name", "stlt"]))
+    args = build_parser("test").parse_args(common + ["--model_name", "caf"])
+    with pytest.raises(NotImplementedError, match="A9 \\(fusion models under the ring\\)"):
         port_train.check_flags(args)
 
 
 def test_ring_refuses_gradients():
+    """Gradients flow through ``ring_attention``: on a ring of one rank (no
+    transfer) its custom backward gives the one-device attention's
+    gradients, in the lengths and the dense mode."""
     from stlt_tpu_torch.ops.ring import ring_attention
     from stlt_tpu_torch.parallel.mesh import Mesh
 
-    mesh = Mesh((1, 1, 2), 0, "gloo", torch.device("cpu"))
-    q = torch.zeros(1, 4, 1, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A9 \\(context training\\)"):
-        ring_attention(q, q, q, None, mesh, kv_lengths=torch.tensor([8]), causal=True)
+    mesh = Mesh((1, 1, 1), 0, "none", torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (3, 8, 2, 16)).astype(np.float32)) for _ in range(4))
+    lengths = torch.tensor([8, 5, 2])
+    pad = torch.arange(8)[None, :] >= lengths[:, None]
+    bias = masks.causal_bias(8) + masks.key_padding_bias(pad)
+    live = ~pad[:, :, None, None]
+    for ring_kw, kw in ((dict(kv_lengths=lengths, causal=True), dict(kv_lengths=lengths, causal=True)),
+                        (dict(), dict(bias=bias))):
+        grads = []
+        for fn in (lambda *a: ring_attention(*a, bias if not ring_kw else None, mesh, **ring_kw),
+                   lambda *a: flash.flash_attention(*a, **kw)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            (fn(*leaves) * g * live).sum().backward()
+            grads.append([x.grad for x in leaves])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
