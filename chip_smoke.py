@@ -66,13 +66,26 @@ Phases, in order; any failure exits non-zero:
    rows and of rows with no live key exact zeros, outputs filled with NaN
    before the launch all written, two launches bit-identical, timed
    against its plain version, SDPA's autograd backward with the same mask
-   and its bound;
+   and its bound; then the attention kernels' dropout-mask operand (rows
+   6-10 in mask mode, a per-head Bernoulli(0.9) mask made on the card):
+   the short kernel at B = 32, T = 257, the blockwise one in lengths and
+   dense-bias mode at B = 16, T = 513 and in ring-offset mode at (257, 0),
+   B = 32 (the mask the chunk's column view), bf16 and f32, forward and
+   backward against their plain versions, each launch counted as its mask
+   mode, a planted fault (one flipped keep bit of a live row, f32) caught,
+   a ``hash_keep_mask`` mask equal to the seed mode bit for bit (bf16), and
+   the bf16 launches timed against their plain versions, SDPA with the same
+   mask and ``dropout_p`` and their bounds. The layer tails (rows 2 and 11)
+   are checked for two bit-identical launches wherever they are timed, and
+   timed against their library yardstick and bound at every shape,
+   the three widths included;
 3. write a synthetic Something-Else dataset, save a randomly initialised
    full-width bf16 STLT as a reference-format ``.pt`` and serve it with
    ``python -m stlt_tpu_torch.predict``'s entry point (3 batches of 64 clips,
    ragged lengths): the row count, finite scores and the launch counts are
    asserted, and one batch's logits are held against the plain path on the
-   card;
+   card; that batch's forward and, 16 times over, the B = 1024 forward are
+   timed (kernels and plain) and the latter profiled;
 4. train a full-width bf16 STLT (dropout 0.1, learning rate 1e-3) with
    ``python -m stlt_tpu_torch.train``'s entry point: 256 train and 64
    validation clips, batch 64, 2 epochs, so 8 AdamW steps and 2 validation
@@ -142,7 +155,9 @@ Phases, in order; any failure exits non-zero:
    through host memory, since NCCL refuses two ranks on one GPU): the
    17-frame set at B = 64 and a ragged 512-frame set at B = 32 whose clips
    (32-512 frames) span both ranks; before them ``ring_attention`` itself
-   on a 514-frame input against the unsharded blockwise kernel.
+   on a 514-frame input against the unsharded blockwise kernel, and once
+   with a head-broadcast dropout mask against its steps on one device (two
+   mask-mode launches a rank).
    Each rank's backend line and device, its rows, its launch counts per
    forward (the ring-offset mode 8 layers x 2 steps, 4 fused
    projection+attentions, 12 layer tails, nothing else) and its logits of
@@ -476,12 +491,16 @@ def proj_bound(x, bias, live, dtype):
 
 
 def tail_bound(x, live, dtype):
-    tokens = x.shape[0] * x.shape[1]
+    """(ms, "bytes" | "operations") for fused_layer_tail on these inputs (H
+    their width, FF = 4H): two GEMMs of 2*H*FF flops a live token, against x
+    and attn_out of the live tokens read, out written, the weights and the
+    live flags read once."""
+    tokens, width = x.shape[0] * x.shape[1], x.shape[-1]
     live_tokens = int(live.sum())
     es = x.element_size()
-    flops = live_tokens * 4 * H * FF
-    nbytes = 2 * live_tokens * H * es + tokens * H * es  # x and attn_out read, out written
-    nbytes += 2 * H * FF * es + (FF + 5 * H) * 4 + tokens
+    flops = live_tokens * 4 * width * 4 * width
+    nbytes = 2 * live_tokens * width * es + tokens * width * es  # x and attn_out read, out written
+    nbytes += 8 * width * width * es + 9 * width * 4 + tokens
     return _bound(flops, nbytes, dtype)
 
 
@@ -514,11 +533,12 @@ def library_tail(w, dtype, activation: str = "gelu", eps: float = EPS):
     w1, w2 = w["w1"].t().contiguous().to(dtype), w["w2"].t().contiguous().to(dtype)
     approximate = "tanh" if dtype == torch.bfloat16 else "none"
     act = F.relu if activation == "relu" else lambda h: F.gelu(h, approximate=approximate)
+    width = (w["n1s"].shape[0],)
 
     def run(x, a):
-        u = F.layer_norm(x + a, (H,), c["n1s"], c["n1b"], eps)
+        u = F.layer_norm(x + a, width, c["n1s"], c["n1b"], eps)
         h = act(F.linear(u, w1, c["b1"]))
-        return F.layer_norm(u + F.linear(h, w2, c["b2"]), (H,), c["n2s"], c["n2b"], eps)
+        return F.layer_norm(u + F.linear(h, w2, c["b2"]), width, c["n2s"], c["n2b"], eps)
 
     return run
 
@@ -536,14 +556,19 @@ def _check_close(name, got, want, live, tol):
 
 
 def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, tol, rel_tol=None,
-             **extra):
+             twice=False, **extra):
     """Check ``kernel()`` against ``plain()`` (one output, elementwise, and
-    with ``rel_tol`` also in the relative Frobenius norm) and time kernel,
-    plain version and library yardstick; returns the row."""
+    with ``rel_tol`` also in the relative Frobenius norm; with ``twice`` a
+    second launch bit-identical) and time kernel, plain version and library
+    yardstick; returns the row."""
     got, want = kernel(), plain()
+    again = kernel() if twice else got
     torch.cuda.synchronize()
     label = f"{name} {stage} {dtype} B={clips} T={x.shape[1]}"
     err = _check_close(label, got, want, live, tol)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    del again
     if rel_tol is not None:
         extra.update(rel_err=_rel(got, want), rel_tol=rel_tol)
         if extra["rel_err"] > rel_tol:
@@ -604,7 +629,7 @@ def check_kernels(device):
                 "fused_layer_tail", stage, dtype, clips, x,
                 lambda: fe.fused_layer_tail(*tail_args, **tail_kw),
                 lambda: fe.fused_layer_tail_plain(*tail_args, **tail_kw),
-                lambda: lib_t(x, a), tail_bound(x, tail_live, dtype), tail_live, tol,
+                lambda: lib_t(x, a), tail_bound(x, tail_live, dtype), tail_live, tol, twice=True,
             )
             if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16:
                 table["fused_layer_tail"] = row
@@ -1068,7 +1093,7 @@ def _tail_weights(w):
     return [w[k] for k in ("n1s", "n1b", "w1", "b1", "w2", "b2", "n2s", "n2b")]
 
 
-def tail_train_bounds(tokens, live_tokens, dtype):
+def tail_train_bounds(tokens, live_tokens, dtype, H=H):
     """{kernel: (ms, "bytes" | "operations")} for the fused train tail's
     kernels on these shapes: live tokens' flops at the dtype's peak against
     each input read once and each output written once. Forward: two GEMMs of
@@ -1079,6 +1104,7 @@ def tail_train_bounds(tokens, live_tokens, dtype):
     [tokens, H], dh1, h1d [tokens, FF]) out. Weight: two GEMMs (dW1, dW2);
     that scratch in, dW1, dW2 and db1 out in f32."""
     es = 2 if dtype == torch.bfloat16 else 4
+    FF = 4 * H
     act, hid = tokens * H * es, tokens * FF * es
     weights, vecs = 2 * H * FF * es, (FF + 6 * H) * 4
     gemm = 2 * live_tokens * H * FF
@@ -1104,11 +1130,12 @@ def library_tail_train(w, dtype, rate):
     leaves = [t.requires_grad_() for t in leaves]
     n1s, n1b, b1, b2, n2s, n2b, w1, w2 = leaves
     approximate = "tanh" if dtype == torch.bfloat16 else "none"
+    width = (n1s.shape[0],)
 
     def forward(x, a):
-        u = F.layer_norm(x + F.dropout(a, rate), (H,), n1s, n1b, EPS)
+        u = F.layer_norm(x + F.dropout(a, rate), width, n1s, n1b, EPS)
         h = F.dropout(F.gelu(F.linear(u, w1, b1), approximate=approximate), rate)
-        return F.layer_norm(u + F.dropout(F.linear(h, w2, b2), rate), (H,), n2s, n2b, EPS)
+        return F.layer_norm(u + F.dropout(F.linear(h, w2, b2), rate), width, n2s, n2b, EPS)
 
     def backward(y, x, a, g):
         return torch.autograd.grad(y, [x, a, *leaves], g, retain_graph=True)
@@ -1442,7 +1469,7 @@ def check_fusion_kernels(device):
                  lambda: fe.fused_layer_tail_plain(*tail_args, **tail_kw),
                  lambda: library_tail(w, dtype, "relu", 1e-5)(x, a),
                  tail_bound(x, torch.ones(x.shape[:2], dtype=torch.bool), dtype),
-                 torch.ones(x.shape, dtype=torch.bool, device=device), tol)
+                 torch.ones(x.shape, dtype=torch.bool, device=device), tol, twice=True)
     return table
 
 
@@ -1607,11 +1634,15 @@ def check_fusion_train_kernels(device):
 WIDTH_CASES = ((256, 8), (320, 5), (1024, 8))
 
 
-def _width_row(name, label, dtype, kernel, plain, err, rel=None):
+def _width_row(name, label, dtype, kernel, plain, err, rel=None, library=None, bound=None):
     """Time one new shape once (CUDA events, 3 launches after warmup) and
-    print its row."""
+    print its row; the layer tails' rows also with their library yardstick
+    and bound."""
     row = {"name": name, "shape": label, "dtype": str(dtype).split(".")[1], "max_abs_err": err,
            "rel_err": rel, "ms": cuda_ms(kernel, 3), "plain_ms": cuda_ms(plain, 3)}
+    if library is not None:
+        row["library_ms"] = cuda_ms(library, 3)
+        row["bound_ms"], row["bound_by"] = bound
     log("width_check " + json.dumps(row))
     return row
 
@@ -1702,16 +1733,28 @@ def check_width_kernels(device):
                        gelu_approximate=dtype == torch.bfloat16, tokens_live=tokens_live)
             kernel = lambda: fe.fused_layer_tail(*targs, **tkw)
             plain = lambda: fe.fused_layer_tail_plain(*targs, **tkw)
+            got = kernel()
             err, _ = _check_pairs(f"fused_layer_tail {tag}",
-                                  [("out", kernel(), plain(), tokens_live[..., None].expand(x.shape))],
+                                  [("out", got, plain(), tokens_live[..., None].expand(x.shape))],
                                   tol)
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"fused_layer_tail {tag}: two launches differ")
             rows.append(_width_row("fused_layer_tail", f"{tag} tokens={x.shape[0] * NUM_BOXES}",
-                                   dtype, kernel, plain, err))
+                                   dtype, kernel, plain, err,
+                                   library=lambda: library_tail(w, dtype)(x, a),
+                                   bound=tail_bound(x, tokens_live, dtype)))
             # Rows 11-14: the fused train tail (its own rows' limits).
             xt, at, gt, lt = _tail_inputs(8 * 257, dtype, gen, device, True, width)
             cfg = ftt.TailConfig(EPS, "gelu", dtype == torch.bfloat16, DROPOUT, seed)
             errs = _check_tail_case(f"{tag} tokens={8 * 257} gelu rate={DROPOUT} ragged", xt, at, gt,
                                     lt, _tail_weights(w), cfg, dtype)
+            lib_f = library_tail_train(w, dtype, DROPOUT)[0]
+            rows.append(_width_row(
+                "fused_layer_tail_train", f"{tag} tokens={8 * 257}", dtype,
+                lambda: ftt._launch_tail_train(xt, at, _tail_weights(w), cfg, lt),
+                lambda: ftt.fused_layer_tail_train_plain(xt, at, _tail_weights(w), cfg, lt),
+                errs["fused_layer_tail_train"], library=lambda: lib_f(xt, at),
+                bound=tail_train_bounds(8 * 257, int(lt.sum()), dtype, width)["fused_layer_tail_train"]))
             r2 = ftt._launch_tail_train(xt, at, _tail_weights(w), cfg, lt)[1]
             rows.append(_width_row(
                 "fused_tail_train (rows 11-14, forward + backward)", f"{tag} tokens={8 * 257}", dtype,
@@ -1896,6 +1939,178 @@ def check_offsets_kernel(device):
         torch.cuda.empty_cache()
     return table
 
+
+
+# --- phase 2, the dropout-mask operand: rows 6-10 in mask mode ---------------
+
+# (route, clips, T) of the mask-mode checks, at the main paths' train shapes:
+# the short kernel at B = 32, T = 257 (the 256-frame train batch); the
+# blockwise kernel in lengths mode and in dense-bias mode (causal+padding,
+# flag off) at B = 16, T = 513 (the 512-frame train batch); its ring-offset
+# mode at (257, 0), B = 32 (rank 1's rows against chunk 0 of a 514-frame
+# clip, lengths 33-513), whose mask is the chunk's column view of the rank's
+# [B, N, 257, 514] rows.
+MASK_CASES = (("flash", LONG_TRAIN[256][0], 257), ("lengths", LONG_TRAIN[512][0], 513),
+              ("dense", LONG_TRAIN[512][0], 513), ("offsets", RING_CLIPS, RING_T))
+MASK_SEED = 0xC0FFEE
+
+
+def mask_bounds(q, allowed, mask, extra_bytes, dtype):
+    """(forward, backward) bounds of a mask-mode launch: 4*D (forward) or
+    10*D (backward) flops per (query, key, head) pair that the bias or the
+    lengths let through (``allowed``, [B, 1, T, S]); q, k, v (and dO) read
+    once, out and lse (dq, dk, dv) written once, lse and dsum read by the
+    backward, plus the bias or lengths (``extra_bytes``) and the uint8 mask
+    (as passed) read once."""
+    B, T, N, D = q.shape
+    S = allowed.shape[-1]
+    pairs = float(allowed.expand(B, 1, T, S).sum()) * N
+    es, rows, keys = q.element_size(), B * T * N * D, B * S * N * D
+    extra = extra_bytes + mask.numel()
+    fwd = _bound(4 * D * pairs, (2 * rows + 2 * keys) * es + B * N * T * 4 + extra, dtype)
+    bwd = _bound(10 * D * pairs, (3 * rows + 4 * keys) * es + 2 * B * N * T * 4 + extra, dtype)
+    return fwd, bwd
+
+
+def _mask_case(route, clips, T, dtype, gen, cuda_gen, device):
+    """q, k, v, the wrappers' keyword arguments with a Bernoulli(0.9) keep
+    mask (per head, made on the card), the forward and backward wrappers and
+    plain forward, the [B, T] live rows, ``allowed`` and the extra bytes for
+    the bound, and the first clip with a live row 0."""
+    from stlt_tpu_torch.ops import flash
+
+    q, k, v = make_heads(clips, T, dtype, gen, device)
+    shape = (clips, HEADS, T, T)
+    live = torch.ones((clips, T), dtype=torch.bool, device=device)
+    first = 0
+    if route == "flash":
+        bias = _causal_padding_bias(torch.full((clips,), T), T, device)
+        kw = dict(bias=bias)
+        allowed, extra = bias == 0, bias.numel() * 4
+        fwd, bwd, plain = flash.fused_attention, flash.fused_attention_bwd, flash.fused_attention_plain
+    elif route == "offsets":
+        lengths = torch.randint(33, 2 * T, (clips,), generator=gen)
+        lengths[0], lengths[1] = 33, 2 * T - 1
+        lengths = lengths.to(device)
+        kw = dict(kv_lengths=lengths, causal=True, offsets=(T, 0))
+        allowed = flash._offsets_bias(lengths, T, T, True, (T, 0)) == 0
+        extra = clips * 4
+        live = torch.arange(T, device=device)[None, :] + T < lengths[:, None]
+        first = 1
+        shape = (clips, HEADS, T, 2 * T)
+        fwd, bwd, plain = (flash.blockwise_attention, flash.blockwise_attention_bwd,
+                           flash.blockwise_attention_plain)
+    else:
+        fwd, bwd, plain = (flash.blockwise_attention, flash.blockwise_attention_bwd,
+                           flash.blockwise_attention_plain)
+        if route == "lengths":
+            lengths = torch.full((clips,), T, device=device)
+            kw = dict(kv_lengths=lengths, causal=True)
+            allowed, extra = flash._lengths_dense_bias(lengths, T, T, True) == 0, clips * 4
+        else:
+            bias = _causal_padding_bias(torch.randint(33, T + 1, (clips,), generator=gen), T, device)
+            kw = dict(bias=bias)
+            allowed, extra = bias == 0, bias.numel() * 4
+    keep = torch.rand(shape, generator=cuda_gen, device=device) >= DROPOUT
+    kw.update(dropout_mask=keep[..., :T], dropout_rate=DROPOUT)
+    return q, k, v, kw, fwd, bwd, plain, live, allowed, extra, first
+
+
+def _mask_forward(fn, q, k, v, kw):
+    """(out, lse) of a forward wrapper or plain version: the short ones take
+    the bias positionally and give lse on request."""
+    from stlt_tpu_torch.ops import flash
+
+    if fn in (flash.fused_attention, flash.fused_attention_plain):
+        rest = {n: x for n, x in kw.items() if n != "bias"}
+        return fn(q, k, v, kw["bias"], with_lse=True, **rest)
+    return fn(q, k, v, **kw)
+
+
+def check_mask_kernels(device):
+    """Rows 6-10 with the dropout-mask operand, at MASK_CASES, bf16 and f32:
+    the forward (out and lse of live rows; f32 within FWD_DROP_TOL, which
+    needs equal keep bits) and the backward (dq, dk, dv within BWD_REL, the
+    dense mode's bf16 within DENSE_BWD_REL) against their plain versions,
+    and each launch counted as its mask mode; in f32 a planted fault, one
+    flipped keep bit at (t, s) = (0, 0) of a live row, must move the output
+    past FWD_DROP_TOL; in bf16 a mask equal to ``hash_keep_mask(seed, ...)``
+    must give the seed mode's out, lse, dq, dk and dv bit for bit. The bf16
+    forward and backward timed against their plain versions,
+    ``scaled_dot_product_attention`` with the same mask and ``dropout_p``
+    (forward and autograd backward) and their bounds. Returns the bf16 rows."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops.dropout import hash_keep_mask
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    cuda_gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for route, clips, T in MASK_CASES:
+            q, k, v, kw, fwd, bwd, plain, live, allowed, extra, first = _mask_case(
+                route, clips, T, dtype, gen, cuda_gen, device)
+            name = "flash_attention" if fwd is flash.fused_attention else "blockwise_attention"
+            label = f"{name} mask mode {route} {dtype} B={clips} T={T}"
+            flash.reset_launches()
+            out, lse = _mask_forward(fwd, q, k, v, kw)
+            want, want_lse = _mask_forward(plain, q, k, v, kw)
+            dout = torch.randn(out.shape, generator=gen).to(device, dtype)
+            dsum = flash._dsum(dout, want, kw.get("kv_lengths"), kw.get("offsets", (0, 0))[0])
+            got = bwd(q, k, v, dout, want_lse, dsum, **kw)
+            wanted = flash.attention_bwd_plain(q, k, v, dout, want_lse, dsum, **kw)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in flash.LAUNCHES.items() if c}
+            if counts != {name + "_mask": 1, name + "_bwd_mask": 1}:
+                raise AssertionError(f"{label}: launches {counts}")
+            fwd_tol = FWD_DROP_TOL if dtype == torch.float32 else OP_TOL[dtype]
+            err, _ = _check_pairs(label, [
+                ("out", out, want, live[:, :, None, None].expand(out.shape)),
+                ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], fwd_tol)
+            rel_tol = DENSE_BWD_REL if route == "dense" and dtype == torch.bfloat16 else None
+            bwd_err, rel = _check_grads(f"{label} backward", got, wanted, None, dtype, rel_tol)
+            note = ""
+            if dtype == torch.float32:
+                flipped = kw["dropout_mask"].clone()
+                flipped[first, 0, 0, 0] = ~flipped[first, 0, 0, 0]
+                fault = _mask_forward(fwd, q, k, v, {**kw, "dropout_mask": flipped})[0]
+                moved = (fault - want).abs() > fwd_tol["atol"] + fwd_tol["rtol"] * want.abs()
+                if not bool(moved.any()):
+                    raise AssertionError(f"{label}: one flipped keep bit stays within FWD_DROP_TOL")
+                note = f", one flipped keep bit moves {int(moved.sum())} outputs past FWD_DROP_TOL"
+            else:
+                seeded = {n: x for n, x in kw.items() if n != "dropout_mask"}
+                seeded["dropout_seed"] = MASK_SEED
+                hashed = {**kw, "dropout_mask": hash_keep_mask(MASK_SEED, clips, HEADS, T, T, DROPOUT,
+                                                               device)}
+                a, b = _mask_forward(fwd, q, k, v, seeded), _mask_forward(fwd, q, k, v, hashed)
+                ga = bwd(q, k, v, dout, want_lse, dsum, **seeded)
+                gb = bwd(q, k, v, dout, want_lse, dsum, **hashed)
+                if not all(torch.equal(x, y) for x, y in zip((*a, *ga), (*b, *gb))):
+                    raise AssertionError(f"{label}: the hash_keep_mask mask differs from the seed mode")
+                note = ", the hash_keep_mask mask equal to the seed mode bit for bit"
+                del a, b, ga, gb, hashed
+            log(f"kernel_check {label}: max_abs_err out/lse {err:.3e}, backward {bwd_err:.3e}, "
+                f"relative norm errors {json.dumps(rel)}{note}")
+            if dtype == torch.bfloat16:
+                fwd_bound, bwd_bound = mask_bounds(q, allowed, kw["dropout_mask"], extra, dtype)
+                lib_fwd = library_attention(q, k, v, allowed, DROPOUT)
+                lib_bwd = library_attention_bwd(q, k, v, allowed, dout, DROPOUT)
+                for n, kernel, plain_fn, library, bound, e in (
+                        (name + "_mask", lambda: _mask_forward(fwd, q, k, v, kw),
+                         lambda: _mask_forward(plain, q, k, v, kw), lib_fwd, fwd_bound, err),
+                        (name + "_bwd_mask", lambda: bwd(q, k, v, dout, want_lse, dsum, **kw),
+                         lambda: flash.attention_bwd_plain(q, k, v, dout, want_lse, dsum, **kw),
+                         lib_bwd, bwd_bound, bwd_err)):
+                    row = {"name": n, "route": route, "dtype": "bfloat16", "clips": clips, "T": T,
+                           "rate": DROPOUT, "max_abs_err": e, "ms": cuda_ms(kernel, 10),
+                           "plain_ms": cuda_ms(plain_fn, 3), "library_ms": cuda_ms(library, 10),
+                           "bound_ms": bound[0], "bound_by": bound[1]}
+                    log("kernel_check " + json.dumps(row))
+                    rows.append(row)
+                del lib_fwd, lib_bwd
+            del q, k, v, kw, out, lse, want, want_lse, dout, dsum, got, wanted, allowed
+            torch.cuda.empty_cache()
+    return rows
 
 # --- phase 2, ring offsets: the blockwise backward's ring-offset mode --------
 
@@ -2131,6 +2346,18 @@ def run_main_path(device):
             raise AssertionError(f"logits of shape {tuple(got.shape)} or not finite")
         if err > LOGITS_ATOL:
             raise AssertionError(f"logits: kernel path disagrees with the plain path ({err:.3e})")
+        # The throughput batch (bench_stlt_eval's B = 1024): the batch above
+        # 16 times over, its forward timed and profiled, kernels and plain.
+        big = {k: torch.cat([v] * (THROUGHPUT_BATCH // BATCH)) for k, v in batch.items()}
+        with torch.inference_mode():
+            big_ms = cuda_ms(lambda: model(big), 5)
+            _device_profile("forward", lambda: model(big), FORWARD_GROUPS,
+                            name=f"forward 17 frames, B = {THROUGHPUT_BATCH}")
+            with plain_eval_path():
+                big_plain_ms = cuda_ms(lambda: model(big), 2)
+        log(f"forward of {THROUGHPUT_BATCH} clips (that batch {THROUGHPUT_BATCH // BATCH} times): "
+            f"kernels {big_ms:.3f} ms ({THROUGHPUT_BATCH / big_ms * 1e3:.0f} clips/s), plain "
+            f"{big_plain_ms:.3f} ms")
         return launches
 
 
@@ -2279,7 +2506,11 @@ def _step_ms(model, batch, criterion, steps: int = 5) -> float:
 
 # (group, substrings of the device kernel's name); the train tail's group
 # comes before any "fused_tail" one, which would catch its names.
-TRAIN_TAIL_GROUP = ("train tail kernels", ("fused_tail_train", "tail_bwd_", "reduce_parts_kernel"))
+# The bf16 layer tail's kernels (csrc/fused_layer_tail.cu); in a train step
+# they are the train tail's forward, in a forward the eval tail.
+TAIL_FORWARD_KERNELS = ("tail_live_rows_kernel", "tail_ln1_kernel", "tail_gemm_kernel", "tail_ln2_kernel")
+TRAIN_TAIL_GROUP = ("train tail kernels", ("fused_tail_train", "tail_bwd_", "reduce_parts_kernel",
+                                           *TAIL_FORWARD_KERNELS))
 KERNEL_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("attention forward kernel", ("fused_proj_attn",)),
@@ -2289,9 +2520,9 @@ KERNEL_GROUPS = (
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
 FORWARD_GROUPS = (
+    ("layer tail kernel", ("fused_tail", *TAIL_FORWARD_KERNELS)),
     TRAIN_TAIL_GROUP,
     ("fused projection+attention kernel", ("fused_proj_attn",)),
-    ("layer tail kernel", ("fused_tail",)),
     ("fused cross-attention kernels", ("cross_attn", "kv_proj")),
     ("long-clip attention kernels", ("attention_kernel<",)),
     ("cuDNN convolutions", ("fprop", "cudnn", "convolve", "implicit_gemm", "conv2d", "conv3d")),
@@ -3253,12 +3484,15 @@ RING_OP = (32, 2 * RING_T, HEADS, H // HEADS)
 RING_REL = 1e-3
 
 
-def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0, with_lse: bool = False):
+def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0, with_lse: bool = False,
+                             mask=None):
     """ring_attention's steps for every rank of a ring of RING_C, run on one
     device: the same blockwise calls with offsets and the same f32
     ``logaddexp`` merge, the chunks taken in place of the transfers.
     ``col_shift`` plants a fault: every step's col0 off by that many keys.
-    With ``with_lse`` also each rank's merged lse."""
+    With ``with_lse`` also each rank's merged lse. ``mask`` [B, 1|N, T, T]:
+    each step drops with the rank's rows and the held chunk's columns of it
+    (rate DROPOUT)."""
     from stlt_tpu_torch.ops import flash
 
     B, T, N, D = q.shape
@@ -3271,9 +3505,10 @@ def ring_steps_on_one_device(q, k, v, lengths, col_shift: int = 0, with_lse: boo
         for j in range(RING_C):
             chunk = (idx - j) % RING_C
             cols = slice(chunk * t, (chunk + 1) * t)
+            drop = {} if mask is None else dict(dropout_mask=mask[:, :, rows, cols], dropout_rate=DROPOUT)
             o_j, lse_j = flash.blockwise_attention(q[:, rows], k[:, cols], v[:, cols], kv_lengths=lengths,
                                                    causal=True,
-                                                   offsets=(idx * t, chunk * t + col_shift))
+                                                   offsets=(idx * t, chunk * t + col_shift), **drop)
             lse_new = torch.logaddexp(lse, lse_j)
             o = o * torch.exp(lse - lse_new)[..., None] + \
                 o_j.transpose(1, 2).float() * torch.exp(lse_j - lse_new)[..., None]
@@ -3292,6 +3527,15 @@ def ring_op_inputs(device):
     lengths = torch.randint(33, T + 1, (B,), generator=gen)
     lengths[0], lengths[1] = 33, T
     return q, k, v, lengths.to(device)
+
+
+def ring_op_mask(device):
+    """The masked op check's head-broadcast keep mask [B, 1, 514, 514]
+    (Bernoulli(1 - DROPOUT)), the same on every rank (drawn from one seed on
+    the host)."""
+    B, T = RING_OP[:2]
+    gen = torch.Generator().manual_seed(SEED + 14)
+    return (torch.rand((B, 1, T, T), generator=gen) >= DROPOUT).to(device)
 
 
 def _ring_argv(paths, ckpt, frames, batch_size, out):
@@ -3342,6 +3586,7 @@ def ring_rank(rank: int, port: int, workdir: str) -> int:
     device = predict.start_processes(first)
     report["device"] = str(device)
     try:
+        from stlt_tpu_torch.ops import flash
         from stlt_tpu_torch.ops.ring import ring_attention
         from stlt_tpu_torch.parallel.mesh import active_context_mesh
 
@@ -3353,6 +3598,18 @@ def ring_rank(rank: int, port: int, workdir: str) -> int:
                                  kv_lengths=lengths, causal=True)
         torch.cuda.synchronize()
         np.save(os.path.join(workdir, f"rank_{rank}_op.npy"), out.float().cpu().numpy())
+        # The same op with a dropout mask: each step reads the held chunk's
+        # columns of this rank's rows of the mask.
+        keep = ring_op_mask(device)
+        flash.reset_launches()
+        with torch.inference_mode():
+            out = ring_attention(q[:, rows], k[:, rows], v[:, rows], None, active_context_mesh(),
+                                 kv_lengths=lengths, causal=True, dropout_mask=keep[:, :, rows],
+                                 dropout_rate=DROPOUT)
+        torch.cuda.synchronize()
+        report["mask_launches"] = {name: count for name, count in flash.LAUNCHES.items() if count}
+        np.save(os.path.join(workdir, f"rank_{rank}_op_mask.npy"), out.float().cpu().numpy())
+        del keep
         for run in runs:
             args = parser.parse_args(run["argv"] + ["--num_processes", str(RING_C)])
             predict.check_flags(args)
@@ -3464,10 +3721,12 @@ def run_ring_path(device):
         # against the f32 plain version of the whole sequence, to show what
         # the second rounding of the ring costs.
         q, k, v, lengths = ring_op_inputs(device)
+        keep = ring_op_mask(device)
         with torch.inference_mode():
             single, _ = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
             steps = ring_steps_on_one_device(q, k, v, lengths)
             fault = ring_steps_on_one_device(q, k, v, lengths, col_shift=1)
+            masked_steps = ring_steps_on_one_device(q, k, v, lengths, mask=keep)
             exact, _ = flash.blockwise_attention_plain(q.float(), k.float(), v.float(),
                                                        kv_lengths=lengths, causal=True)
         got = torch.from_numpy(np.concatenate(
@@ -3484,6 +3743,20 @@ def run_ring_path(device):
         if fault_rel <= RING_REL:
             raise AssertionError(f"{label}: the planted fault (col0 off by one) reads {fault_rel:.3e}, "
                                  f"within RING_REL {RING_REL}: the limit catches nothing")
+        got_mask = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(root, f"rank_{r}_op_mask.npy")) for r in range(RING_C)], axis=1)).to(
+                device, torch.bfloat16)
+        err2, rel2 = _check_pairs(f"{label} with a dropout mask against its steps on one device",
+                                  [("out", got_mask, masked_steps, live)], OP_TOL[torch.bfloat16],
+                                  DENSE_REL)
+        for r, report in enumerate(reports):
+            if report["mask_launches"] != {"blockwise_attention_mask": RING_C}:
+                raise AssertionError(f"ring rank {r}: the masked op launched {report['mask_launches']}, "
+                                     f"expected {RING_C} of blockwise_attention_mask")
+        log(f"{label} with a head-broadcast dropout mask (rate {DROPOUT}): against its steps on one "
+            f"device max_abs_err {err2:.3e}, relative norm {rel2['out']:.3e}; {RING_C} mask-mode "
+            f"launches a rank; against the unmasked ring {_rel(got_mask, got):.3e}")
+        del keep, masked_steps, got_mask
         log(f"{label}, causal, lengths 33-{RING_OP[1]}: against its steps on one device max_abs_err "
             f"{err:.3e}, relative norm {rel['out']:.3e} (OP_TOL, DENSE_REL {DENSE_REL}); against the "
             f"unsharded blockwise kernel max_abs_err {err1:.3e}, relative norm {rel1['out']:.3e} "
@@ -3911,29 +4184,38 @@ def main(argv=()) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    table = check_kernels(device)
-    table.update(check_train_kernels(device))
-    table.update(check_long_kernels(device))
-    table.update(check_long_train_kernels(device))
-    table.update(check_tail_train_kernels(device))
-    table.update(check_fusion_kernels(device))
-    table.update(check_fusion_train_kernels(device))
-    check_width_kernels(device)  # every kernel at other head dims and widths
-    table.update(check_offsets_kernel(device))
-    table.update(check_offsets_bwd_kernel(device))
-    launches = run_main_path(device)  # the predict path: eval kernels
-    train_launches, _ = run_train_path(device)  # the train path: train kernels
+
+    def timed(fn):
+        """fn(device), with its wall time logged."""
+        t = time.perf_counter()
+        out = fn(device)
+        log(f"phase_time {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    table = timed(check_kernels)
+    table.update(timed(check_train_kernels))
+    table.update(timed(check_long_kernels))
+    table.update(timed(check_long_train_kernels))
+    table.update(timed(check_tail_train_kernels))
+    table.update(timed(check_fusion_kernels))
+    table.update(timed(check_fusion_train_kernels))
+    timed(check_width_kernels)  # every kernel at other head dims and widths
+    table.update(timed(check_offsets_kernel))
+    table.update(timed(check_offsets_bwd_kernel))
+    timed(check_mask_kernels)  # rows 6-10 with the dropout-mask operand (no main path passes one)
+    launches = timed(run_main_path)  # the predict path: eval kernels
+    train_launches, _ = timed(run_train_path)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
-    launches.update(run_long_clip_path(device))  # long clips: the long-clip kernels
+    launches.update(timed(run_long_clip_path))  # long clips: the long-clip kernels
     # Long-clip training: the attention backwards and the fused train tail.
-    launches.update(run_long_train_path(device)[0])
-    launches.update(run_fusion_path(device))  # the fusion models: row 5 and row 8's dense mode
+    launches.update(timed(run_long_train_path)[0])
+    launches.update(timed(run_fusion_path))  # the fusion models: row 5 and row 8's dense mode
     # Fusion training: the dense-bias mode of the blockwise backward (rows 9, 10).
-    launches.update(run_fusion_train_path(device)[0])
+    launches.update(timed(run_fusion_train_path)[0])
     # Serving under --context_parallel 2: two ranks on this card, the ring's offsets mode.
-    launches.update(run_ring_path(device))
+    launches.update(timed(run_ring_path))
     # Training under --context_parallel 2: the ring-offset mode of the blockwise backward.
-    launches.update(run_ring_train_path(device))
+    launches.update(timed(run_ring_train_path))
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

@@ -59,6 +59,9 @@
 // WMMA; chunk_pv splits the f32 probabilities and dz into bf16 hi + lo, so
 // they multiply at f32 grade. In f32 both run on the SIMT pipes.
 //
+// Dropout reads its keep bits as the forward does (attention_core.cuh:
+// hashed from the seed, or in mask mode from the caller's uint8 mask).
+//
 // Bound on this card: 10 D flops per live (query, key, head) pair (five
 // products) against q, k, v, dO, lse, dsum read once and dq, dk, dv written
 // once. At the long-clip shapes (B = 32, T = 257 or B = 16, T = 513) that is
@@ -92,7 +95,7 @@ struct BwdArgs {
   void* dv;           // [B, S, N, D]
   int B, T, S, N;
   float scale;
-  Dropout drop;
+  MaskedDropout drop;
 };
 
 // Two resident [64][LD] tiles and two double-buffered ones, the per-warp f32

@@ -45,7 +45,11 @@
 // online softmax that is: the running sum l takes the undropped exp, only the
 // PV accumulation takes keep * scale, and lse is dropout-free. The keep bit of
 // (b, n, t, s) is common.cuh's Dropout::keep_scale over the unpadded key
-// count S, the bits of stlt_tpu/ops/flash.py::_keep_block.
+// count S, the bits of stlt_tpu/ops/flash.py::_keep_block; in mask mode (the
+// TPU kernels' dropout_mask operand, MaskedDropout below) it is the caller's
+// uint8 mask at mask + b mb + n mn + t mt + s, with mn = 0 for a
+// head-broadcast [B, 1, T, S] mask; a ring step passes the chunk's column
+// view, so s is the chunk-local key there as it is for the hashed bits.
 //
 // Design. One block of four warps owns 64 queries of one (clip, head); each
 // warp owns 16 of them. The block walks the keys in chunks of 64, K and V
@@ -113,6 +117,21 @@ struct Tile<__nv_bfloat16, D> {
 // The head dims the kernels are instantiated for.
 #define STLT_HEAD_DIMS(F) F(32) F(64) F(128)
 
+// The probability dropout of the attention kernels: common.cuh's hashed
+// bits, or in mask mode (mask != nullptr) the caller's keep bits read
+// through their (b, n, t) element strides, s contiguous (stlt_tpu/ops/
+// flash.py:1055-1057, read at :618-620, :966-968, :1001-1003, :1187-1189 and
+// :1258-1260). Either way a kept element weighs `scale` = 1/(1 - rate).
+struct MaskedDropout : Dropout {
+  const uint8_t* mask;
+  long long mb, mn, mt;
+  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads,
+                                              uint32_t t, uint32_t s, uint32_t s_total) const {
+    if (mask != nullptr) return mask[b * mb + n * mn + t * mt + s] ? scale : 0.f;
+    return Dropout::keep_scale(b, n, num_heads, t, s, s_total);
+  }
+};
+
 struct AttnArgs {
   const void* q;
   const void* k;
@@ -127,7 +146,7 @@ struct AttnArgs {
   float* lse;  // [B, N, T] or nullptr (bias mode in eval)
   int B, T, S, N;
   float scale;
-  Dropout drop;  // probability dropout (kDrop instantiations)
+  MaskedDropout drop;  // probability dropout (kDrop instantiations)
 };
 
 template <typename E, int D>

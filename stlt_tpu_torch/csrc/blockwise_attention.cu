@@ -20,7 +20,8 @@
 // launched by _blockwise_forward, in its lengths mode (_block_bias with
 // lengths_bias, the causal block skip _causal_live and the dead-q-block skip)
 // and its dense-bias mode (_block_bias reading bias_arr, with _causal_live),
-// each with its prng dropout variant (_keep_block_heads), and the lengths
+// each with its prng dropout variant (_keep_block_heads) and its
+// dropout_mask operand (a ring step passes the chunk's column view), and the lengths
 // mode's ring-offset variant (off_base / valid_cols, _causal_live_off). The TPU kernel's block sizes (tb = 104, sb = 384
 // at 513 tokens) do not carry over: here 64 queries per block and keys in
 // chunks of 64, with chunks above the diagonal or past the clip's length
@@ -33,14 +34,17 @@ extern "C" int stlt_blockwise_attention(
     long long kb, long long kt, long long kn, long long vb, long long vt, long long vn,
     const void* bias, long long bias_b, long long bias_n, long long bias_t, const void* lengths,
     int causal, int row0, int col0, void* out, void* lse, int B, int T, int S, int N, int D,
-    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, int dtype,
+    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, const void* mask, long long mask_b,
+    long long mask_n, long long mask_t, int dtype,
     void* stream) {
   if (lse == nullptr) return -1;
   stlt::attn::AttnArgs a{q, k, v, qb, qt, qn, kb, kt, kn, vb, vt, vn,
                          static_cast<const float*>(bias), bias_b, bias_n, bias_t,
                          static_cast<const int*>(lengths), causal, row0, col0, out,
                          static_cast<float*>(lse), B, T, S, N, scale,
-                         stlt::Dropout{dropout, seed, thresh, dropout_scale}};
+                         stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale},
+                                                 static_cast<const uint8_t*>(mask), mask_b,
+                                                 mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch<true>(a, D, dtype, stream);
   return stlt::attn::dispatch<false>(a, D, dtype, stream);
 }

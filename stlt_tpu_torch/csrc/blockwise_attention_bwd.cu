@@ -1,6 +1,6 @@
 // The backward of the blockwise attention kernel (blockwise_attention.cu):
-// dq, dk, dv with hashed probability dropout, from the forward's lse and
-// dsum = rowsum(dO o out), in the forward's two modes:
+// dq, dk, dv with hashed probability dropout (or a caller's keep mask), from
+// the forward's lse and dsum = rowsum(dO o out), in the forward's two modes:
 //
 // - lengths (lengths != nullptr): the causal and length mask made in the
 //   kernel; key chunks past the clip's length or above the diagonal and dead
@@ -34,7 +34,8 @@ extern "C" int stlt_blockwise_attention_bwd(
     long long bias_n, long long bias_t, const void* lengths, int causal, int row0, int col0,
     const void* lse,
     const void* dsum, void* dq, void* dk, void* dv, int B, int T, int S, int N, int D,
-    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, int dtype,
+    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, const void* mask, long long mask_b,
+    long long mask_n, long long mask_t, int dtype,
     void* stream) {
   if (bias != nullptr && lengths != nullptr) return -1;
   stlt::attn::BwdArgs a{q, k, v, dout, qb, qt, qn, kb, kt, kn, vb, vt, vn, ob, ot, on,
@@ -42,7 +43,9 @@ extern "C" int stlt_blockwise_attention_bwd(
                         static_cast<const int*>(lengths), causal, row0, col0,
                         static_cast<const float*>(lse), static_cast<const float*>(dsum),
                         dq, dk, dv, B, T, S, N, scale,
-                        stlt::Dropout{dropout, seed, thresh, dropout_scale}};
+                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale},
+                                                 static_cast<const uint8_t*>(mask), mask_b,
+                                                 mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch_bwd<true>(a, D, dtype, stream);
   return stlt::attn::dispatch_bwd<false>(a, D, dtype, stream);
 }

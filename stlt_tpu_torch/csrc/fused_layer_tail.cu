@@ -19,25 +19,37 @@
 // writes r2 = u + h2, the residual its backward starts from, and zeros y and
 // r2 of every dead token (JAX zeroes them after its block-granular kernel).
 //
-// Design. One block owns 32 tokens. It computes u once into shared memory,
-// then loops over FF chunks of 128: h1 for the chunk goes to shared memory
-// and is multiplied straight into an f32 [32, H] accumulator held in
-// registers, so the 4H-wide hidden never reaches device memory. The last
-// step adds b2, the residual and LN2 and writes the outputs. Tokens whose
-// live flag is 0 write exact zeros; a block with no live token skips all
-// compute. The bf16 kernel multiplies on the tensor cores (WMMA, f32 sums)
-// and streams W1 and W2 through a ring of shared-memory slices with cp.async
-// (the whole layer's 9.4 MB of bf16 weights at H = 768 stay in the 50 MB
-// L2); the f32 kernel multiplies on the SIMT pipes, so f32 stays true f32.
+// Design, f32 (fused_tail_body): one block owns 32 tokens. It computes u
+// once into shared memory, then loops over FF chunks of 128: h1 for the chunk
+// goes to shared memory and is multiplied straight into an f32 [32, H]
+// accumulator held in registers, so the 4H-wide hidden never reaches device
+// memory. The last step adds b2, the residual and LN2 and writes the
+// outputs. It multiplies on the SIMT pipes, so f32 stays true f32.
+//
+// Design, bf16 (launch_tc): Hopper's tensor cores are fed by wgmma from
+// TMA-loaded shared memory, and wgmma's 64-row tile makes a [64, H] f32
+// accumulator of 192 KB at H = 768, three quarters of the register file, so
+// the chain is split at its rounding points instead: a scan packs the live
+// tokens in order; LN1 as a row kernel writes their u; two GEMM kernels
+// (tail_gemm_kernel: a [128, 128] tile a block, two blocks an SM, a producer
+// warp keeping TMA loads of u or h1 and of the row-major weight in a 3-stage
+// ring behind mbarriers, two consumer warpgroups of m64n128k16 wgmmas, then
+// the bias, activation, dropout and residual epilogue) write h1 and r2; LN2
+// as a row kernel writes y. u and h1 pass through device memory as bf16 (a
+// scratch from the wrapper): 2 x tokens x FF x 2 bytes of extra traffic,
+// which the weights read once per 128-token tile (not once per 32 tokens)
+// and the tensor-core rate repay. Dead tokens are packed out, so the GEMMs
+// do only live work, and write exact zeros; a tile past the live tokens
+// computes nothing. Every output has one owner and the sums run in a fixed
+// order, so two launches give the same bits.
 //
 // Bound on this card: two GEMMs of 2*tokens*H*4H flops over ~3 x 2*tokens*H
 // bytes of activations (4 with r2), far above the ~295 flop/byte ridge, so
-// the tensor cores bound it. What holds the bf16 kernel back from that bound
-// is the weight traffic from L2: every 32-token block reads all of W1 and W2
-// once.
+// the tensor cores bound it.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "layer_tail.cuh"
 
 namespace {
@@ -45,12 +57,9 @@ namespace {
 using namespace stlt;
 using bf16 = __nv_bfloat16;
 
-constexpr int kFC = 128;  // FF chunk: two 64-column groups per SIMT thread, 8 fragments of 16
+constexpr int kFC = 128;  // FF chunk: two 64-column groups per SIMT thread
 constexpr int kKT1 = 16;  // k-slice of W1 (over H) staged per SIMT step
 constexpr int kKT2 = 8;   // k-slice of W2 (over the chunk) staged per SIMT step
-constexpr int kKS1 = 64;  // rows of W1 per streamed slice (tensor cores)
-constexpr int kKS2 = 16;  // rows of W2 per streamed slice (tensor cores)
-static_assert(kFC / 16 == kWarps, "one h1 column fragment per warp");
 
 struct TailArgs {
   const void* x;
@@ -207,95 +216,402 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
   layer_norm2_out<float, float, H, kTrain>(p, u_s, H, tok0, ntok);
 }
 
-// --- bf16: tensor cores -------------------------------------------------------
+// --- bf16: wgmma on TMA-fed tiles ---------------------------------------------
+//
+// Launches on the stream (launch_tc): with live flags, a scan packing the
+// live tokens in order; a row kernel u = LN1(x + drop(a)) into the scratch;
+// GEMM 1, h1 = drop(act(round(u W1 + b1))) into the scratch; GEMM 2, r2 =
+// round(u + drop(round(h1 W2 + b2))) into r2 (eval: into out); a row kernel
+// y = LN2(r2) into out, dead tokens zeros there and in r2. u, h1 and r2 are
+// rounding points of the contract, so the split loses nothing to the fused
+// form.
 
-template <int NC>
-__host__ __device__ constexpr int tail_stage_elems() {
-  constexpr int s1 = stage_elems<kKS1, kFC>(), s2 = stage_elems<kKS2, NC * 64>();
-  return s1 > s2 ? s1 : s2;
+// A GEMM block: a [128, 128] output tile, two blocks an SM, so that one
+// block's epilogue (the activation and dropout run on the SIMT pipes) hides
+// under the other's products. Measured on the H100 against one block an SM
+// with 256-wide tiles (a 4-stage ring, the producer warpgroup handing its
+// registers to the consumers): 1.06 against 1.49 ms for GEMM 1 of a
+// 65,792-token stage (PERF.md §6).
+constexpr int kBM = 128;         // tokens of a tile: two consumer warpgroups of 64 rows
+constexpr int kBN = 128;         // columns of a tile
+constexpr int kBK = 64;          // k of a stage: one 128-byte swizzle row of bf16
+constexpr int kRingStages = 3;   // stages of the shared-memory ring
+constexpr int kConsumers = 256;  // threads 0..255 multiply, a one-warp producer follows
+constexpr int kGemmThreads = kConsumers + 32;
+constexpr int kRowWarps = 8;     // tokens of a row-kernel block, one a warp
+
+// bar.sync on barrier `id` among `count` threads (the consumer warpgroups;
+// the producer has left).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-template <int NC>
-constexpr size_t tail_tc_smem_bytes() {
-  constexpr int H = NC * 64;
-  return sizeof(bf16) * ((size_t)kTM * ((H + kPad) + (kFC + kPad)) + tail_stage_elems<NC>()) +
-         sizeof(float) * kWarps * 256;
-}
+constexpr int kStageBytes = (kBM + kBN) * kBK * (int)sizeof(bf16);
+constexpr size_t kGemmSmem =
+    (size_t)kRingStages * kStageBytes + 2 * kRingStages * sizeof(uint64_t) + 1024;
+static_assert(kBM * (kBN + 8) * (int)sizeof(bf16) <= kRingStages * kStageBytes,
+              "the epilogue parks its bf16 tile in the ring");
+static_assert(2 * (kGemmSmem + 1024) <= 228 * 1024, "two blocks an SM");
 
-template <int NC, bool kTrain>
-__device__ __forceinline__ void fused_tail_tc_body(const TailArgs& p) {
-  using Tile = WarpTile<NC>;
-  constexpr int H = NC * 64, LDU = H + kPad, LDH = kFC + kPad;
-  const bf16* __restrict__ w1 = static_cast<const bf16*>(p.w1);
-  const bf16* __restrict__ w2 = static_cast<const bf16*>(p.w2);
+// C[M, N] = A[M, K] B[K, N] of one GEMM over the live tokens and its
+// epilogue. Row i of A is token rows[i] (rows null: token i); rows at and
+// past *count (count null: M) carry nothing.
+struct GemmArgs {
+  int M, N, K;
+  int second;         // 0: GEMM 1 (b1, activation, mid dropout); 1: GEMM 2 (b2, out dropout, + u)
+  const float* bias;  // [N] f32
+  const bf16* u;      // GEMM 2: the residual, [M, N] in A's rows
+  bf16* out;          // GEMM 1: h1 in A's rows; GEMM 2: r2 at the tokens' own rows
+  const int* rows;
+  const int* count;
+  int act;
+  TailDropout drop;
+};
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* u_s = reinterpret_cast<bf16*>(smem_raw);  // [kTM][LDU]: u, later the residual r2
-  bf16* h_s = u_s + kTM * LDU;                    // [kTM][LDH]: act(h1) of one FF chunk
-  bf16* stages = h_s + kTM * LDH;                 // ring of W1 / W2 slices
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* scratch = reinterpret_cast<float*>(stages + tail_stage_elems<NC>()) + warp * 256;
+// One output tile [kBM, kBN] per block. The producer warp's first thread
+// keeps TMA loads of A ([kBM, 64]) and B (two boxes of [64 k, 64 n] from the
+// row-major weight) in flight through the ring, each stage with a `full`
+// barrier (the loads' bytes) and an `empty` one (both consumers done with
+// it). Consumer warpgroups 0 and 1 each own 64 rows: per stage four
+// m64n128k16 wgmmas, then they free the stage. A's rows are the live
+// tokens packed in order (tail_live_rows_kernel), so a tile at or past the
+// live count holds no live token and returns at once.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    tail_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, GemmArgs p) {
+  using namespace hopper;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int M = p.count != nullptr ? *p.count : p.M;
+  if (m0 >= M) return;
 
-  const long long tok0 = (long long)blockIdx.x * kTM;
-  const int ntok = (int)min((long long)kTM, p.tokens - tok0);
-  if (!tokens_have_live(p.live, tok0, ntok)) {
-    zero_block<bf16, H, kTrain>(p, tok0, ntok);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* a_s = reinterpret_cast<bf16*>(base);  // stages of [kBM][64]
+  bf16* b_s = a_s + kRingStages * kBM * kBK;  // stages of kBN / 64 boxes of [64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kRingStages * kBN * kBK);
+  uint64_t* empty = full + kRingStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int nk = p.K / kBK;
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const int boxes = min(kBN, p.N - n0) / 64;  // B columns past N are never loaded
+      const uint32_t bytes = (kBM + boxes * 64) * kBK * sizeof(bf16);
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % kRingStages;
+        if (k >= kRingStages) mbar_wait(&empty[s], (k / kRingStages - 1) & 1);
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(a_s + s * kBM * kBK, &map_a, &full[s], k * kBK, m0);
+        for (int j = 0; j < boxes; ++j) {
+          tma_load_2d(b_s + (s * kBN + j * 64) * kBK, &map_b, &full[s], n0 + 64 * j, k * kBK);
+        }
+      }
+    }
     return;
   }
-  const bool drop = kTrain && p.drop.on;
-  layer_norm1<bf16, bf16, H, kTrain>(static_cast<const bf16*>(p.x), static_cast<const bf16*>(p.a),
-                                     p.n1s, p.n1b, p.eps, p.drop, u_s, LDU, tok0, ntok, kTM);
 
-  const int rf0 = Tile::row0(warp), cf0 = Tile::col0(warp);
-  FragC acc[Tile::kRF][Tile::kCF];
-  zero(acc);
-  __syncthreads();
-
-  const uint32_t lane_mid = p.drop.lane(kTagMidDrop);
-  for (int c0 = 0; c0 < p.ff; c0 += kFC) {
-    // h1 of the chunk: this warp's column fragment, both row fragments.
-    FragC hacc[2][1];
-    zero(hacc);
-    const BCols<1, kFC> w1_chunk{{w1 + c0}, p.ff};
-    gemm_streamed<2, 1, kKS1>(hacc, u_s, LDU, w1_chunk, H, stages, warp);
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  float acc[kBN / 2];
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % kRingStages;
+    mbar_wait(&full[s], (k / kRingStages) & 1);
+    const bf16* a = a_s + (s * kBM + w * 64) * kBK;
+    const bf16* b = b_s + s * kBN * kBK;
+    wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      for_each_element(hacc[r][0], scratch, lane, [&](int i, int j, float v) {
-        const int c = warp * 16 + j;
-        const float h1 = round_to<bf16>(v + p.b1[c0 + c]);
-        float a1 = activation<bf16>(h1, p.act);
-        if (drop) {
-          a1 = round_to<bf16>(a1 * p.drop.keep_scale(lane_mid, tok0 + r * 16 + i, p.ff, c0 + c));
-        }
-        h_s[(r * 16 + i) * LDH + c] = from_float<bf16>(a1);
-      });
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      Wgmma<kBN, 1>::mma(acc, desc_sw128(a + kk * 16, 0, 1024),
+                         desc_sw128(b + kk * 16 * 64, 64 * kBK * sizeof(bf16), 1024),
+                         k > 0 || kk > 0);  // the first product overwrites
     }
-    // acc += act(h1) @ W2[c0 : c0 + kFC, :]; gemm_streamed synchronises the
-    // block before it reads h_s and again before the next chunk rewrites it.
-    const BCols<1, H> w2_chunk{{w2 + (long long)c0 * H}, H};
-    gemm_streamed<Tile::kRF, Tile::kCF, kKS2>(acc, h_s + rf0 * 16 * LDH, LDH, w2_chunk, kFC,
-                                              stages, cf0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (t == 0) mbar_arrive(&empty[s]);
   }
 
-  // r2 = u + drop(round(acc + b2)), in place of u (each warp its own fragments).
-  const uint32_t lane_out = p.drop.lane(kTagOutDrop);
+  // Epilogue. Both GEMMs' chains start with round(acc + bias): the
+  // fragment (thread t holds rows r and r + 8, columns c and c + 1 of every
+  // 8-column group) adds the bias and parks that bf16 tile in the ring, now
+  // free, once both consumer warpgroups are done with it. Then a rolled loop
+  // takes 8 columns of a row per thread: the rest of the chain, 16-byte
+  // loads of u and stores of the output, neighbouring threads on
+  // neighbouring columns. (Run on the fragment, unrolled over 128 elements
+  // a thread, the same epilogue measured 2.7 times slower: PERF.md §6.)
+  constexpr int LDS = kBN + 8;  // bf16 row stride of the parked tile: conflict-free fragment writes
+  bf16* tile = reinterpret_cast<bf16*>(base);
+  named_barrier_sync(1, kConsumers);  // both warpgroups' last wgmmas have read the ring
+  {
+    const int rl = w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = 2 * (t % 4);
 #pragma unroll
-  for (int r = 0; r < Tile::kRF; ++r) {
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = n0 + cl + 8 * j;
+      const float2 bias = c < p.N ? *reinterpret_cast<const float2*>(p.bias + c) : make_float2(0.f, 0.f);
 #pragma unroll
-    for (int j = 0; j < Tile::kCF; ++j) {
-      for_each_element(acc[r][j], scratch, lane, [&](int i, int jj, float v) {
-        const int row = (rf0 + r) * 16 + i, c = (cf0 + j) * 16 + jj;
-        float h2 = round_to<bf16>(v + p.b2[c]);
-        if (drop) h2 = round_to<bf16>(h2 * p.drop.keep_scale(lane_out, tok0 + row, H, c));
-        u_s[row * LDU + c] = from_float<bf16>(to_float(u_s[row * LDU + c]) + h2);
-      });
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<__nv_bfloat162*>(tile + (rl + 8 * h) * LDS + cl + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
+      }
     }
   }
-  __syncthreads();
-  layer_norm2_out<bf16, bf16, H, kTrain>(p, u_s, LDU, tok0, ntok);
+  named_barrier_sync(1, kConsumers);
+  const bool drop = p.drop.on;
+  const uint32_t lane = p.drop.lane(p.second ? kTagOutDrop : kTagMidDrop);
+  constexpr int kVecs = kBN / 8;  // 16-byte column groups of a tile row
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kBM * kVecs; i += kConsumers) {
+    const int rl = i / kVecs, cl = (i % kVecs) * 8;
+    const int row = m0 + rl, c = n0 + cl;
+    if (row >= M || c >= p.N) continue;
+    const int tok = p.rows != nullptr ? p.rows[row] : row;  // the dropout bits' global token
+    const uint4 hv = *reinterpret_cast<const uint4*>(tile + rl * LDS + cl);
+    const bf16* he = reinterpret_cast<const bf16*>(&hv);
+    const long long off = (long long)row * p.N + c;
+    uint4 ov;
+    bf16* oe = reinterpret_cast<bf16*>(&ov);
+    if (!p.second) {  // h1 = drop(act(round(acc + b1)))
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float v = activation<bf16>(to_float(he[e]), p.act);
+        if (drop) v = round_to<bf16>(v * p.drop.keep_scale(lane, tok, p.N, c + e));
+        oe[e] = from_float<bf16>(v);
+      }
+      *reinterpret_cast<uint4*>(p.out + off) = ov;
+    } else {  // r2 = u + drop(round(acc + b2))
+      const uint4 uv = *reinterpret_cast<const uint4*>(p.u + off);
+      const bf16* ue = reinterpret_cast<const bf16*>(&uv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float h2 = to_float(he[e]);
+        if (drop) h2 = round_to<bf16>(h2 * p.drop.keep_scale(lane, tok, p.N, c + e));
+        oe[e] = from_float<bf16>(to_float(ue[e]) + h2);
+      }
+      *reinterpret_cast<uint4*>(p.out + (long long)tok * p.N + c) = ov;
+    }
+  }
 }
 
-// The eval and the train kernels, under their own names.
+// A bf16 token row of H (a multiple of 64, at most 1024) as 16-byte vectors,
+// vector i of lane l at column 8 (l + 32 i).
+constexpr int kRowVecs = 1024 / 256;
+
+// The live tokens packed in order: rows[i] = the i-th live token, *count =
+// their number. One block: each thread counts a run of tokens, a block scan
+// places the runs, each thread writes its run's live tokens. The flags are
+// the wrapper's 0/1 bytes.
+constexpr int kScanThreads = 1024;
+__global__ void __launch_bounds__(kScanThreads) tail_live_rows_kernel(const uint8_t* live, int tokens,
+                                                                      int* rows, int* count) {
+  __shared__ int warp_total[kScanThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Runs of whole 16-byte vectors (the flags are 0 or 1 and 16-byte aligned).
+  const int run = (tokens + 16 * kScanThreads - 1) / (16 * kScanThreads) * 16;
+  const int lo = min(tokens, threadIdx.x * run), hi = min(tokens, lo + run);
+  int n = 0;
+  for (int i = lo; i < hi; i += 16) {
+    if (i + 16 <= hi) {
+      const uint4 v = *reinterpret_cast<const uint4*>(live + i);
+      n += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+    } else {
+      for (int j = i; j < hi; ++j) n += live[j];
+    }
+  }
+  int incl = n;  // inclusive scan over the warp, then over the warps' totals
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_total[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_total[lane] = w;  // inclusive over the warps
+  }
+  __syncthreads();
+  int at = incl - n + (warp > 0 ? warp_total[warp - 1] : 0);
+  for (int i = lo; i < hi; i += 16) {
+    if (i + 16 <= hi) {
+      const uint4 v = *reinterpret_cast<const uint4*>(live + i);
+      const uint8_t* f = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (f[j]) rows[at++] = i + j;
+      }
+    } else {
+      for (int j = i; j < hi; ++j) {
+        if (live[j]) rows[at++] = j;
+      }
+    }
+  }
+  if (threadIdx.x == kScanThreads - 1) *count = at;
+}
+
+// u = LN1(x + drop(a)) of the live tokens, packed (row i token rows[i]), one
+// a warp, H at run time (layer_norm1's arithmetic: the residual rounded, flax
+// statistics, u rounded).
+__global__ void __launch_bounds__(32 * kRowWarps)
+    tail_ln1_kernel(TailArgs p, int H, bf16* u, const int* rows, const int* count) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= (count != nullptr ? *count : p.tokens)) return;
+  const long long tok = rows != nullptr ? rows[row] : row;
+  uint4* urow = reinterpret_cast<uint4*>(u + row * H);
+  const bool train = p.r2 != nullptr;
+  const uint32_t lane1 = p.drop.lane(kTagAttnDrop);
+  const uint4* xrow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.x) + tok * H);
+  const uint4* arow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.a) + tok * H);
+  float v[kRowVecs][8];
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
+    const uint4 xv = xrow[vi], av = arow[vi];
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+    const bf16* ae = reinterpret_cast<const bf16*>(&av);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float a = to_float(ae[e]);
+      if (p.drop.on) a = round_to<bf16>(a * p.drop.keep_scale(lane1, tok, H, vi * 8 + e));
+      v[i][e] = round_to<bf16>(to_float(xe[e]) + a);
+      s += v[i][e];
+      s2 = fmaf(v[i][e], v[i][e], s2);
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / H, rstd = rsqrtf(fmaxf(0.f, s2 / H - mu * mu) + p.eps);
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
+    uint4 ov;
+    bf16* oe = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = vi * 8 + e;
+      const float d = v[i][e] - mu;
+      oe[e] = from_float<bf16>(train ? d * rstd * p.n1s[c] + p.n1b[c] : d * (rstd * p.n1s[c]) + p.n1b[c]);
+    }
+    urow[vi] = ov;
+  }
+}
+
+// y = LN2(r2), one token a warp (layer_norm2_out's arithmetic); dead tokens
+// write zeros to y and, in train, to r2. Eval reads r2 from out (GEMM 2
+// wrote it at the token's own row) and overwrites it (each warp holds its
+// whole row first).
+__global__ void __launch_bounds__(32 * kRowWarps) tail_ln2_kernel(TailArgs p, int H) {
+  const int lane = threadIdx.x & 31;
+  const long long tok = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (tok >= p.tokens) return;
+  const bool train = p.r2 != nullptr;
+  uint4* yrow = reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + tok * H);
+  uint4* rrow = reinterpret_cast<uint4*>(static_cast<bf16*>(train ? p.r2 : p.out) + tok * H);
+  if (p.live != nullptr && !p.live[tok]) {
+    for (int i = lane; i < H / 8; i += 32) {
+      yrow[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (train) rrow[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  float v[kRowVecs][8];
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
+    const uint4 rv = rrow[vi];
+    const bf16* re = reinterpret_cast<const bf16*>(&rv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[i][e] = to_float(re[e]);
+      s += v[i][e];
+      s2 = fmaf(v[i][e], v[i][e], s2);
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / H, rstd = rsqrtf(fmaxf(0.f, s2 / H - mu * mu) + p.eps);
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
+    uint4 ov;
+    bf16* oe = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = vi * 8 + e;
+      const float d = v[i][e] - mu;
+      oe[e] = from_float<bf16>(train ? d * rstd * p.n2s[c] + p.n2b[c] : d * (rstd * p.n2s[c]) + p.n2b[c]);
+    }
+    yrow[vi] = ov;
+  }
+}
+
+int launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, const GemmArgs& g,
+                cudaStream_t stream) {
+  static bool attribute_set = false;  // once a process: it costs host time at every small stage
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tail_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM);
+  if (grid.y > 65535) return -1;
+  tail_gemm_kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(map_a, map_b, g);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 tail. `scratch` holds u [tokens, H] and h1 [tokens, FF] in bf16
+// (their live rows packed), then the packed rows' tokens [tokens] and their
+// count (int32); r2 goes to p.r2 (train) or out (eval).
+int launch_tc(const TailArgs& p, int H, void* scratch, cudaStream_t stream) {
+  if (p.tokens == 0) return 0;
+  if (scratch == nullptr || H > 1024) return -1;
+  bf16* u = static_cast<bf16*>(scratch);
+  bf16* h1 = u + (size_t)p.tokens * H;
+  int* rows = reinterpret_cast<int*>(h1 + (size_t)p.tokens * p.ff);
+  int* count = rows + p.tokens;
+  if (p.live == nullptr) {
+    rows = count = nullptr;  // every token live: row i is token i
+  } else {
+    tail_live_rows_kernel<<<1, kScanThreads, 0, stream>>>(p.live, p.tokens, rows, count);
+  }
+  bf16* r2 = static_cast<bf16*>(p.r2 != nullptr ? p.r2 : p.out);
+  CUtensorMap map_u, map_w1, map_h1, map_w2;
+  int err = hopper::make_map(&map_u, u, p.tokens, H, kBM);
+  if (!err) err = hopper::make_map(&map_w1, p.w1, H, p.ff, kBK);
+  if (!err) err = hopper::make_map(&map_h1, h1, p.tokens, p.ff, kBM);
+  if (!err) err = hopper::make_map(&map_w2, p.w2, p.ff, H, kBK);
+  if (err) return err;
+  const int row_blocks = (p.tokens + kRowWarps - 1) / kRowWarps;
+  tail_ln1_kernel<<<row_blocks, 32 * kRowWarps, 0, stream>>>(p, H, u, rows, count);
+  if ((err = (int)cudaGetLastError())) return err;
+  const GemmArgs g1{p.tokens, p.ff, H, 0, p.b1, nullptr, h1, rows, count, p.act, p.drop};
+  if ((err = launch_gemm(map_u, map_w1, g1, stream))) return err;
+  const GemmArgs g2{p.tokens, H, p.ff, 1, p.b2, u, r2, rows, count, p.act, p.drop};
+  if ((err = launch_gemm(map_h1, map_w2, g2, stream))) return err;
+  tail_ln2_kernel<<<row_blocks, 32 * kRowWarps, 0, stream>>>(p, H);
+  return (int)cudaGetLastError();
+}
+
+// The f32 eval and train kernels, under their own names.
 template <int NC>
 __global__ void __launch_bounds__(kThreads, 1) fused_tail_kernel(TailArgs p) {
   fused_tail_body<NC, false>(p);
@@ -304,20 +620,11 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads, 1) fused_tail_train_kernel(TailArgs p) {
   fused_tail_body<NC, true>(p);
 }
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 1) fused_tail_tc_kernel(TailArgs p) {
-  fused_tail_tc_body<NC, false>(p);
-}
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 1) fused_tail_train_tc_kernel(TailArgs p) {
-  fused_tail_tc_body<NC, true>(p);
-}
 
-template <int NC, bool kTensorCores, bool kTrain>
+template <int NC, bool kTrain>
 int launch(const TailArgs& a, cudaStream_t stream) {
-  auto kernel = kTensorCores ? (kTrain ? fused_tail_train_tc_kernel<NC> : fused_tail_tc_kernel<NC>)
-                             : (kTrain ? fused_tail_train_kernel<NC> : fused_tail_kernel<NC>);
-  const size_t smem = kTensorCores ? tail_tc_smem_bytes<NC>() : tail_smem_bytes<NC>();
+  auto kernel = kTrain ? fused_tail_train_kernel<NC> : fused_tail_kernel<NC>;
+  const size_t smem = tail_smem_bytes<NC>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -326,11 +633,11 @@ int launch(const TailArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kTensorCores, bool kTrain>
+template <bool kTrain>
 int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
   switch (nc) {
 #define STLT_CASE(n) \
-    case n: return launch<n, kTensorCores, kTrain>(a, s);
+    case n: return launch<n, kTrain>(a, s);
     STLT_NC_CASES(STLT_CASE)
 #undef STLT_CASE
     default: return -1;
@@ -339,20 +646,25 @@ int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
 
 }  // namespace
 
-// Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
-// take (H not a multiple of 64 up to 1024, FF not a multiple of 128) or -2
-// for an unknown dtype code (0 = float32, 1 = bfloat16). act: 0 relu,
-// 1 exact-erf GELU, 2 tanh GELU. A non-null r2 selects the train kernel,
-// which writes r2 and applies the dropout sites when `dropout` is 1 (keep
-// bits from seed and thresh, survivors scaled by dropout_scale); eval passes
-// a null r2 and dropout 0.
+// Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
+// take (H not a multiple of 64 up to 1024, FF not a multiple of 128, no
+// scratch in bf16), -2 for an unknown dtype code (0 = float32, 1 = bfloat16)
+// or -3 if a TMA map cannot be encoded. act: 0 relu, 1 exact-erf GELU,
+// 2 tanh GELU. A non-null r2 selects the train variant, which writes r2 and
+// applies the dropout sites when `dropout` is 1 (keep bits from seed and
+// thresh, survivors scaled by dropout_scale); eval passes a null r2 and
+// dropout 0. bf16 needs `scratch`, 16-byte aligned: (H + FF) bf16 and one
+// int32 per token and one int32 more (launch_tc); f32 takes none.
 extern "C" int stlt_fused_layer_tail(
     const void* x, const void* a, const void* n1s, const void* n1b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* n2s, const void* n2b,
-    const void* live, void* out, void* r2, int tokens, int hidden, int ff, float eps, int act,
-    int dropout, unsigned int seed, unsigned int thresh, float dropout_scale, int dtype,
-    void* stream) {
-  if (hidden % 64 != 0 || ff % kFC != 0 || act < 0 || act > 2) return -1;
+    const void* live, void* out, void* r2, void* scratch, int tokens, int hidden, int ff,
+    float eps, int act, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
+    int dtype, void* stream) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || act < 0 ||
+      act > 2) {
+    return -1;
+  }
   if (dropout && r2 == nullptr) return -1;
   TailArgs t{x, a, static_cast<const float*>(n1s), static_cast<const float*>(n1b), w1,
              static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
@@ -361,11 +673,7 @@ extern "C" int stlt_fused_layer_tail(
              TailDropout{dropout, seed, thresh, dropout_scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = r2 != nullptr;
-  if (dtype == 0) {
-    return train ? dispatch<false, true>(hidden / 64, t, s) : dispatch<false, false>(hidden / 64, t, s);
-  }
-  if (dtype == 1) {
-    return train ? dispatch<true, true>(hidden / 64, t, s) : dispatch<true, false>(hidden / 64, t, s);
-  }
+  if (dtype == 0) return train ? dispatch<true>(hidden / 64, t, s) : dispatch<false>(hidden / 64, t, s);
+  if (dtype == 1) return launch_tc(t, hidden, scratch, s);
   return -2;
 }

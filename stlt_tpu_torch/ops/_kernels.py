@@ -55,9 +55,9 @@ SIGNATURES = {
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
         # x, a, n1s, n1b, w1, b1, w2, b2, n2s, n2b, live, out, r2 (null in
-        # eval), tokens, hidden, ff, eps, act, dropout, seed, thresh,
-        # dropout_scale, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+        # eval), scratch (bf16: u and h1; null in f32), tokens, hidden, ff,
+        # eps, act, dropout, seed, thresh, dropout_scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
          _I, _U, _U, _F, _I, _P],
     ),
     "fused_tail_train_bwd_row": (
@@ -90,43 +90,47 @@ SIGNATURES = {
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
         # lse (or null), B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, dtype, stream
+        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _I, _P],
+         _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention": (
         "stlt_blockwise_attention",
         # q, k, v, their (b, t, n) strides, bias (or null), its (b, n, t)
         # strides, lengths (or null), causal, row0, col0 (ring offsets), out,
         # lse, B, T, S, N, D, scale, dropout, seed, thresh, dropout_scale,
-        # dtype, stream
+        # mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-         _F, _I, _U, _U, _F, _I, _P],
+         _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
     ),
     "flash_attention_bwd": (
         "stlt_flash_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias, its (b, n, t) strides,
         # lse, dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, dtype, stream
+        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention_bwd": (
         "stlt_blockwise_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias (or null), its (b, n, t)
         # strides, lengths (or null), causal, row0, col0 (ring offsets), lse,
         # dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, dtype, stream
+        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
     ),
 }
 
 # Kernels (by their launch-count names) whose entry point lives in another
 # source than csrc/<name>.cu: the train variants share their eval sources, the
 # blockwise forward's and backward's dense-bias and ring-offset modes their
-# lengths modes'.
+# lengths modes', and the attention kernels' mask modes their own sources.
 SOURCES = {
+    "flash_attention_mask": "flash_attention",
+    "flash_attention_bwd_mask": "flash_attention_bwd",
+    "blockwise_attention_mask": "blockwise_attention",
+    "blockwise_attention_bwd_mask": "blockwise_attention_bwd",
     "blockwise_attention_dense": "blockwise_attention",
     "blockwise_attention_offsets": "blockwise_attention",
     "blockwise_attention_bwd_dense": "blockwise_attention_bwd",

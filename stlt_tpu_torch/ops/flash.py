@@ -29,7 +29,10 @@ Each kernel has three parts, as in ``ops/fused_encoder.py``:
   ``blockwise_attention_bwd``, their dense-bias modes as
   ``blockwise_attention_dense`` and ``blockwise_attention_bwd_dense``, and
   their ring-offset modes as ``blockwise_attention_offsets`` and
-  ``blockwise_attention_bwd_offsets``.
+  ``blockwise_attention_bwd_offsets``; a launch with a dropout mask counts
+  as ``<kernel>_mask`` instead (``flash_attention_mask``,
+  ``blockwise_attention_mask``, ``flash_attention_bwd_mask``,
+  ``blockwise_attention_bwd_mask``), in whatever mode it runs.
 
 Gradients. When q, k or v needs a gradient, :func:`flash_attention` runs the
 ``torch.autograd.Function`` ``_Attention`` over the short or the blockwise
@@ -92,13 +95,22 @@ the chunk; JAX's ring steps compute the dead rows in full where the port
 takes their p and dO as 0, which agree for a cotangent that is zero on them
 (the model's is).
 
+Dropout-mask operand (``dropout_mask``, JAX's :1055-1057; no model passes
+one, the models hash their bits from a seed): the caller's keep bits
+[B, 1|N, T, S] (0/1, any dtype; a [B, 1, T, S] mask is shared by the heads),
+scaled by ``1/(1 - dropout_rate)`` wherever they keep, as JAX scales them
+(:1130-1131). Every kernel takes it in every mode (the short kernels, the
+blockwise lengths, dense-bias and ring-offset modes, forward and backward):
+the wrapper hands the kernel a uint8 view with a contiguous last dim and its
+(b, n, t) strides (n's 0 when the heads share it), reading a bool or uint8
+mask in place, so a ring step's column view ``dropout_mask[..., cols]`` is
+passed as it is, its s the chunk-local key. A mask equal to
+``hash_keep_mask(seed, ...)`` gives the seed's output and gradients: the
+same keep bits through the same arithmetic. A mask whose shape is not [B,
+1 or N, T, S] raises, on the CPU as on the card.
+
 The head dim D is 32, 64 or 128 on a CUDA tensor (``_KERNEL_HEAD_DIMS``);
 the CPU path takes any.
-
-Not ported yet, and refused on a CUDA tensor with the ``ROADMAP.md`` item
-it waits for: the dropout-mask operand (the models hash their bits from a
-seed; B5 (mask)). The plain versions compute the mask operand, so the CPU
-path stays whole.
 """
 
 from __future__ import annotations
@@ -113,18 +125,14 @@ from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
 LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
             "blockwise_attention_offsets": 0, "flash_attention_bwd": 0,
             "blockwise_attention_bwd": 0, "blockwise_attention_bwd_dense": 0,
-            "blockwise_attention_bwd_offsets": 0}
+            "blockwise_attention_bwd_offsets": 0, "flash_attention_mask": 0,
+            "blockwise_attention_mask": 0, "flash_attention_bwd_mask": 0,
+            "blockwise_attention_bwd_mask": 0}
 
 _BLOCKWISE_MIN_SEQ = 513
 _NEG_INF = -1e30  # finite: exp(-1e30 - m) == 0 without inf - inf NaNs
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-
-_LATER = {
-    "mask": "the dropout-mask operand is not ported to the CUDA kernels (the models hash "
-            "their keep bits from a seed; it waits for ROADMAP.md item B5 (mask)): pass "
-            "dropout_seed",
-}
 
 
 def reset_launches() -> None:
@@ -205,10 +213,19 @@ def _check_bias(bias, kv_lengths) -> None:
         raise ValueError("pass a dense bias OR kv_lengths (+ causal), not both")
 
 
+def check_mask(op: str, dropout_mask, B: int, N: int, T: int, S: int) -> None:
+    """Raise unless the dropout mask is [B, 1 or N, T, S]."""
+    shape = tuple(dropout_mask.shape)
+    if len(shape) != 4 or shape[0] != B or shape[1] not in (1, N) or shape[2:] != (T, S):
+        raise ValueError(f"{op}: dropout_mask must be [B, 1 or N, T, S] = [{B}, 1 or {N}, {T}, "
+                         f"{S}], got {list(shape)}")
+
+
 def _keepc(B, N, T, S, device, dropout_mask, dropout_rate, dropout_seed):
     """The scaled keep mask [B, N, T, S] f32 (keep * 1/(1 - rate)), or None
     without dropout."""
     if dropout_mask is not None:
+        check_mask("attention", dropout_mask, B, N, T, S)
         keep = dropout_mask.to(device=device, dtype=torch.float32)
     elif dropout_seed is not None and dropout_rate > 0.0:
         keep = hash_keep_mask(int(dropout_seed), B, N, T, S, dropout_rate, device).to(torch.float32)
@@ -371,13 +388,35 @@ def _strides(x):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def _dropout_args(dropout_mask, dropout_rate: float, dropout_seed, op: str):
-    """(on, seed, thresh, scale) of the kernels' hashed dropout."""
-    if dropout_mask is not None:
-        raise NotImplementedError(f"{op}: " + _LATER["mask"])
-    if dropout_seed is None or dropout_rate <= 0.0:
-        return 0, 0, 0, 0.0
-    return 1, int(dropout_seed) & MASK32, dropout_thresh(dropout_rate), 1.0 / (1.0 - dropout_rate)
+def mask_bytes(dropout_mask) -> torch.Tensor:
+    """The keep bits as a uint8 tensor, read in place where the mask is bool
+    or uint8 (a view, no copy), else converted once."""
+    if dropout_mask.dtype == torch.bool:
+        return dropout_mask.view(torch.uint8)
+    if dropout_mask.dtype == torch.uint8:
+        return dropout_mask
+    return (dropout_mask != 0).to(torch.uint8)
+
+
+def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S: int):
+    """(the kernels' dropout arguments: on, seed, thresh, scale, then the
+    mask's pointer (or None) and its (b, n, t) element strides, n's 0 when
+    the heads share it; the uint8 mask the pointer reads, kept alive by the
+    caller until the launch, or None)."""
+    if dropout_mask is None:
+        if dropout_seed is None or dropout_rate <= 0.0:
+            return (0, 0, 0, 0.0, None, 0, 0, 0), None
+        return (1, int(dropout_seed) & MASK32, dropout_thresh(dropout_rate),
+                1.0 / (1.0 - dropout_rate), None, 0, 0, 0), None
+    B, T, N, _ = q.shape
+    check_mask(op, dropout_mask, B, N, T, S)
+    if dropout_mask.device != q.device:
+        raise ValueError(f"{op}: dropout_mask must be on {q.device}, got {dropout_mask.device}")
+    m = mask_bytes(dropout_mask)
+    if m.stride(3) != 1:
+        m = m.contiguous()
+    mn = 0 if m.shape[1] == 1 else m.stride(1)
+    return (1, 0, 0, 1.0 / (1.0 - dropout_rate), m.data_ptr(), m.stride(0), mn, m.stride(2)), m
 
 
 def _bias_view(op, bias, B, N, T, S, device):
@@ -415,10 +454,10 @@ def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: floa
                                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                                      with_lse=with_lse)
     op = "flash_attention"
-    drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=q.device) if with_lse else None
@@ -430,7 +469,7 @@ def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: floa
             None if lse is None else lse.data_ptr(),
             B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code, _stream(q.device),
         )
-    LAUNCHES[op] += 1
+    LAUNCHES[op if mask is None else op + "_mask"] += 1
     return (out, lse) if with_lse else out
 
 
@@ -451,7 +490,6 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
     if _on_cpu(q, "blockwise_attention"):
         return blockwise_attention_plain(q, k, v, **kw)
     op = "blockwise_attention"
-    drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     _check_bias(bias, kv_lengths)
     if offsets is not None and kv_lengths is None:
         raise ValueError(f"{op}: ring offsets require kv_lengths")
@@ -459,6 +497,7 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
     lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
@@ -472,7 +511,9 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
             out.data_ptr(), lse.data_ptr(), B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code,
             _stream(q.device),
         )
-    if offsets is not None:
+    if mask is not None:
+        LAUNCHES[op + "_mask"] += 1
+    elif offsets is not None:
         LAUNCHES["blockwise_attention_offsets"] += 1
     else:
         LAUNCHES[op if lengths is not None else "blockwise_attention_dense"] += 1
@@ -510,10 +551,10 @@ def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=Non
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, dropout_mask=dropout_mask,
                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     op = "flash_attention_bwd"
-    drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
@@ -523,7 +564,7 @@ def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=Non
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code, _stream(q.device),
         )
-    LAUNCHES[op] += 1
+    LAUNCHES[op if mask is None else op + "_mask"] += 1
     return dq, dk, dv
 
 
@@ -544,7 +585,6 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                                    offsets=offsets)
     op = "blockwise_attention_bwd"
-    drop = _dropout_args(dropout_mask, dropout_rate, dropout_seed, op)
     _check_bias(bias, kv_lengths)
     if offsets is not None and kv_lengths is None:
         raise ValueError(f"{op}: ring offsets require kv_lengths")
@@ -552,6 +592,7 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
     lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
@@ -563,7 +604,9 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, T, S, N, D, float(1.0 / D ** 0.5), *drop, code, _stream(q.device),
         )
-    if offsets is not None:
+    if mask is not None:
+        LAUNCHES[op + "_mask"] += 1
+    elif offsets is not None:
         LAUNCHES["blockwise_attention_bwd_offsets"] += 1
     else:
         LAUNCHES[op if lengths is not None else "blockwise_attention_bwd_dense"] += 1
@@ -612,7 +655,9 @@ def flash_attention(
     S], or ``kv_lengths`` [B] int (+ ``causal``) for the key-padding+causal
     form. ``causal`` declares that the bias is causal; in lengths mode it
     also masks keys above the diagonal. ``dropout_seed`` (a uint32) with
-    ``dropout_rate`` drops probabilities with hashed keep bits. Returns [B,
+    ``dropout_rate`` drops probabilities with hashed keep bits, a
+    ``dropout_mask`` [B, 1|N, T, S] with the caller's (see the module
+    docstring). Returns [B,
     T, N, D] in v's dtype. From 513 tokens on the blockwise kernel runs (in
     lengths mode with ``kv_lengths``, else in dense-bias mode), below it the
     short kernel; when q, k or v
@@ -621,6 +666,8 @@ def flash_attention(
     _check_dropout(dropout_mask, dropout_rate, dropout_seed)
     _check_bias(bias, kv_lengths)
     T, S = q.shape[1], k.shape[1]
+    if dropout_mask is not None:
+        check_mask("flash_attention", dropout_mask, q.shape[0], q.shape[2], T, S)
     blockwise = max(T, S) >= _BLOCKWISE_MIN_SEQ
     kw = dict(dropout_mask=dropout_mask, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     if blockwise:

@@ -558,6 +558,34 @@ def _live_tokens(rows_live, tokens_live, B: int, T: int) -> Optional[torch.Tenso
     return None
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base: the bf16 layer tail
+    reads its rows as 16-byte vectors and its matrices through TMA maps."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def tail_live_bytes(live: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[tokens] live flags as the layer-tail kernels read them: 0/1 bytes,
+    16-byte aligned (a bool tensor is viewed, not copied)."""
+    if live is None:
+        return None
+    live = live.reshape(-1).contiguous()
+    return aligned16(live.view(torch.uint8) if live.dtype == torch.bool else (live != 0).to(torch.uint8))
+
+
+def tail_scratch(tokens: int, H: int, FF: int, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The bf16 layer-tail kernels' scratch (``csrc/fused_layer_tail.cu``
+    ``launch_tc``): u [tokens, H] and h1 [tokens, FF] in bf16, which
+    pass between its row and GEMM kernels with the live tokens packed, then
+    the packed rows' token indices and their count (int32); None for the f32
+    kernel, which keeps u and h1 on the chip."""
+    if x.dtype != torch.bfloat16:
+        return None
+    nbytes = tokens * (H + FF) * 2 + (tokens + 1) * 4
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
 def fused_layer_tail_plain(
     x: torch.Tensor,
     attn_out: torch.Tensor,
@@ -630,23 +658,21 @@ def fused_layer_tail(
     act = _act_code(activation, gelu_approximate)
     cd = compute_dtype
     f32 = torch.float32
-    x = x.contiguous()
-    attn_out = attn_out.contiguous()
-    w1 = w1.to(cd).contiguous()
-    w2 = w2.to(cd).contiguous()
+    x, attn_out = aligned16(x), aligned16(attn_out)
+    w1, w2 = aligned16(w1.to(cd)), aligned16(w2.to(cd))
     vecs = [v.reshape(-1).to(f32).contiguous() for v in (n1_scale, n1_bias, b1, b2, n2_scale, n2_bias)]
     n1s, n1b, b1v, b2v, n2s, n2b = vecs
-    live = _live_tokens(rows_live, tokens_live, B, T)
-    if live is not None:
-        live = live.to(torch.uint8).contiguous()
+    live = tail_live_bytes(_live_tokens(rows_live, tokens_live, B, T))
     out = torch.empty_like(x)
+    scratch = tail_scratch(B * T, H, FF, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _kernels.launch(
             op, x.data_ptr(), attn_out.data_ptr(), n1s.data_ptr(), n1b.data_ptr(),
             w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(), b2v.data_ptr(),
             n2s.data_ptr(), n2b.data_ptr(), None if live is None else live.data_ptr(),
-            out.data_ptr(), None, B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, code, stream,
+            out.data_ptr(), None, None if scratch is None else scratch.data_ptr(),
+            B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, code, stream,
         )
     LAUNCHES[op] += 1
     return out

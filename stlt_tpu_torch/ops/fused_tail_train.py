@@ -285,17 +285,18 @@ def _launch_tail_train(x, attn, weights, cfg: TailConfig, live=None):
     FF = w1.shape[1]
     code = fe._check_tail_kernel(op, x.dtype, H, w1, w2, x, attn)
     cd = x.dtype
-    x, attn = x.contiguous(), attn.contiguous()
-    w1, w2 = w1.to(cd).contiguous(), w2.to(cd).contiguous()
+    x, attn = fe.aligned16(x), fe.aligned16(attn)
+    w1, w2 = fe.aligned16(w1.to(cd)), fe.aligned16(w2.to(cd))
     vecs = [_vec(v) for v in (n1s, n1b, b1, b2, n2s, n2b)]
-    live8 = fe._live_flags(live, tokens)
+    live8 = fe.tail_live_bytes(None if live is None else live.reshape(tokens))
     y, r2 = torch.empty_like(x), torch.empty_like(x)
+    scratch = fe.tail_scratch(tokens, H, FF, x)
     with torch.cuda.device(x.device):
         _kernels.launch(
             "fused_layer_tail", x.data_ptr(), attn.data_ptr(), vecs[0].data_ptr(),
             vecs[1].data_ptr(), w1.data_ptr(), vecs[2].data_ptr(), w2.data_ptr(),
             vecs[3].data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), _ptr(live8),
-            y.data_ptr(), r2.data_ptr(), tokens, H, FF, float(cfg.eps),
+            y.data_ptr(), r2.data_ptr(), _ptr(scratch), tokens, H, FF, float(cfg.eps),
             fe._act_code(cfg.activation, cfg.gelu_approximate),
             *fe._dropout_args(cfg.seed, cfg.dropout_rate), code, _stream(x),
         )

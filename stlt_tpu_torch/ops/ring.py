@@ -28,8 +28,11 @@ tensors only. Unlike JAX, the forward does not rotate after its last step
 Dropout: ``dropout_seed`` hashes keep bits in the kernel from a seed folded
 with the rank's mesh coordinates and the chunk (``_device_seed``,
 ``_step_seed`` :79-94, on the port's ``lowbias32``), since the kernel
-hashes local (t, s). ``dropout_mask`` (this rank's rows [b, n|1, t, S])
-runs on the CPU only and raises on the card (ROADMAP.md B5 (mask)).
+hashes local (t, s). ``dropout_mask`` (this rank's rows [b, n|1, t, C s],
+0/1) is made uint8 once (a bool or uint8 mask is read in place); each step
+hands the kernel the held chunk's column view ``mask[..., cols]`` (JAX's
+per-step slice, :337-364) with its strides, no copy, so the kernel's s is
+the chunk-local key.
 
 Gradients (``_RingAttention``, JAX's custom VJP): the forward saves this
 rank's shards only (q, k, v, the output, the merged global lse) and no
@@ -204,12 +207,12 @@ def ring_attention(
         raise ValueError("pass a dropout mask OR a dropout seed, not both")
     if bias is not None and kv_lengths is not None:
         raise ValueError("pass a dense bias OR kv_lengths (+ causal), not both")
-    if dropout_mask is not None and q.device.type != "cpu":
-        raise NotImplementedError("ring attention's dropout-mask operand is not ported to the "
-                                  "card: it waits for ROADMAP.md item B5 (mask); pass dropout_seed")
     b, t, n, d = q.shape
     s = k.shape[1]
     C = mesh.context_size
+    if dropout_mask is not None:
+        flash.check_mask("ring_attention", dropout_mask, b, n, t, C * s)
+        dropout_mask = flash.mask_bytes(dropout_mask.to(q.device))
     if kv_lengths is None:
         bias = torch.zeros((b, 1, t, C * s), dtype=torch.float32, device=q.device) if bias is None \
             else bias.to(torch.float32)

@@ -18,7 +18,8 @@ Tasks (inputs and outputs under WORKDIR):
 - ``op_grad``: the gradients of ``ring_attention`` on this rank's frames of
   ``inputs.npz`` (as ``op``, plus the cotangent g [B, T, N, D]) for the
   cotangent's rows of this rank, in the lengths mode (causal), the dense
-  mode and the seed mode; writes ``op_grad_RANK.npz``;
+  mode, the seed mode and the mask mode (this rank's rows of ``keep``, in
+  the dense mode and in the lengths mode); writes ``op_grad_RANK.npz``;
 - ``train``: ``steps`` train steps (``training.loop.make_train_step``, the
   hyperparameters of ``hp.json``) of a port STLT (``config.json``,
   ``state.pt``) on the batch of ``batch.npz`` under a context mesh; writes
@@ -117,6 +118,11 @@ def op_grad(workdir, rank, world):
         "seed": dict(bias=None, kv_lengths=lengths, causal=True, dropout_seed=int(data["seed"]),
                      dropout_rate=float(data["rate"])),
     }
+    keep = torch.from_numpy(data["keep"][:, :, rows].copy())
+    modes["mask"] = dict(bias=torch.from_numpy(data["bias"][:, :, rows]), dropout_mask=keep,
+                         dropout_rate=float(data["rate"]))
+    modes["mask_lengths"] = dict(bias=None, kv_lengths=lengths, causal=True, dropout_mask=keep,
+                                 dropout_rate=float(data["rate"]))
     out = {}
     for mode, kw in modes.items():
         leaves = [torch.from_numpy(data[name][:, rows].copy()).requires_grad_() for name in "qkv"]

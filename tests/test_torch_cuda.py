@@ -333,7 +333,8 @@ def test_flash_kernel_matches_plain(device, dtype, T, strided):
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0,
-                              "blockwise_attention_bwd_offsets": 0}
+                              "blockwise_attention_bwd_offsets": 0,
+                              **MASK_MODES_IDLE}
     want = flash.fused_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype)
@@ -355,7 +356,8 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0,
-                              "blockwise_attention_bwd_offsets": 0}
+                              "blockwise_attention_bwd_offsets": 0,
+                              **MASK_MODES_IDLE}
     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths.to(device), causal=causal)
     torch.cuda.synchronize()
     live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)  # [B, T]
@@ -363,6 +365,10 @@ def test_blockwise_kernel_matches_plain(device, dtype, T, causal):
     torch.testing.assert_close(lse.transpose(1, 2)[live], want_lse.transpose(1, 2)[live],
                                **TOL[torch.float32])
     assert lse.transpose(1, 2)[~live].abs().max().item() == 0.0
+
+
+MASK_MODES_IDLE = {"flash_attention_mask": 0, "blockwise_attention_mask": 0,
+                   "flash_attention_bwd_mask": 0, "blockwise_attention_bwd_mask": 0}
 
 
 def test_long_clip_kernels_refuse_what_they_do_not_take(device):
@@ -381,13 +387,27 @@ def test_long_clip_kernels_refuse_what_they_do_not_take(device):
     assert torch.isfinite(out.float()).all() and flash.LAUNCHES["blockwise_attention_dense"] == 1
     assert flash.LAUNCHES["blockwise_attention_bwd_dense"] == 1
     assert all(torch.isfinite(x.grad.float()).all() for x in leaves)
-    mask = torch.ones(2, 12, 100, 100, device=device)
-    with pytest.raises(NotImplementedError, match="dropout-mask operand"):
-        flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask, dropout_rate=0.1)
+    # The dropout-mask operand runs in its mask mode (held against the plain
+    # versions and the seed mode in test_mask_mode_kernels_match_plain and
+    # test_hashed_mask_equals_the_seed_mode); a mask of the wrong shape or
+    # device is refused in the wrappers' words.
+    mask = torch.rand(2, 1, 100, 100, generator=gen).to(device) < 0.9
+    flash.reset_launches()
+    got = flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask, dropout_rate=0.1)
+    want = flash.fused_attention_plain(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask,
+                                       dropout_rate=0.1)
+    _close(got, want, torch.bfloat16)
+    assert flash.LAUNCHES["flash_attention_mask"] == 1 and flash.LAUNCHES["flash_attention"] == 0
+    with pytest.raises(ValueError, match=r"dropout_mask must be \[B, 1 or N, T, S\]"):
+        flash.flash_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask[:, :, :99],
+                              dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_mask must be on"):
+        flash.fused_attention(q[:, :100], k[:, :100], v[:, :100], dropout_mask=mask.cpu(),
+                              dropout_rate=0.1)
     lse = dsum = torch.zeros(2, 12, 513, device=device)
-    with pytest.raises(NotImplementedError, match="dropout-mask operand"):
+    with pytest.raises(ValueError, match=r"blockwise_attention_bwd: dropout_mask must be"):
         flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, bias=torch.zeros(2, 1, 513, 513, device=device),
-                                      dropout_mask=torch.ones(2, 12, 513, 513, device=device),
+                                      dropout_mask=torch.ones(2, 3, 513, 513, device=device),
                                       dropout_rate=0.1)
     with pytest.raises(ValueError, match="ring offsets require kv_lengths"):
         flash.blockwise_attention_bwd(q, k, v, q, lse, dsum, offsets=torch.tensor([0, 0]))
@@ -558,7 +578,8 @@ def test_long_clip_train_layer_runs_the_kernels_on_the_card(device):
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 1, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0,
-                              "blockwise_attention_bwd_offsets": 0}
+                              "blockwise_attention_bwd_offsets": 0,
+                              **MASK_MODES_IDLE}
     assert torch.isfinite(x.grad).all()
 
 
@@ -607,7 +628,8 @@ def test_predict_at_257_frames_runs_the_flash_kernel(device, tmp_path):
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 0, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0,
-                              "blockwise_attention_bwd_offsets": 0}
+                              "blockwise_attention_bwd_offsets": 0,
+                              **MASK_MODES_IDLE}
     assert fe.LAUNCHES["fused_proj_attention"] == 1 * 2 and fe.LAUNCHES["fused_layer_tail"] == 3 * 2
 
 
@@ -650,7 +672,8 @@ def test_train_at_257_frames_runs_the_long_clip_kernels(device, tmp_path):
                               "blockwise_attention_dense": 0, "blockwise_attention_offsets": 0,
                               "flash_attention_bwd": 2 * steps, "blockwise_attention_bwd": 0,
                               "blockwise_attention_bwd_dense": 0,
-                              "blockwise_attention_bwd_offsets": 0}
+                              "blockwise_attention_bwd_offsets": 0,
+                              **MASK_MODES_IDLE}
     assert fe.LAUNCHES == {"fused_proj_attention": val, "fused_layer_tail": 3 * val,
                            "fused_proj_attention_train": steps, "fused_proj_attention_train_bwd": steps,
                            "fused_cross_attention": 0}
@@ -1148,3 +1171,158 @@ def test_blockwise_offsets_bwd_kernel_matches_plain(device, dtype, offsets, rate
     no_key = live & ((col0 >= lengths[:, None]) | (col0 > t))
     _check_grads(got, want, dtype, ~live | no_key)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+# --- the attention kernels' dropout-mask operand (rows 6-10, mask mode) -------------
+
+
+def _mask_case(route, dtype, shared, gen, device):
+    """Inputs of one mask-mode route at its kernel's shapes: (q, k, v, the
+    wrappers' keyword arguments with a Bernoulli(0.9) mask [B, 1|12, T, S],
+    the forward and backward wrappers, the [B, T] live rows or None). The
+    ring-offset route takes rank 1's rows of a 514-frame clip against chunk
+    0, its mask the chunk's column view of the rank's [B, n, 257, 514] rows."""
+    from stlt_tpu_torch.ops import flash
+
+    B, T = 4, 513 if route in ("lengths", "dense") else 257
+    q, k, v = _heads(B, T, T, dtype, gen, device, strided=route != "dense")
+    n = 1 if shared else 12
+    kw, live = dict(dropout_rate=0.1), None
+    if route == "flash":
+        kw["bias"] = _bias("causal_padding", B, T, gen).to(device)
+        kw["dropout_mask"] = (torch.rand(B, n, T, T, generator=gen) < 0.9).to(device)
+        return q, k, v, kw, flash.fused_attention, flash.fused_attention_bwd, live
+    lengths = torch.tensor([1, 300, 64, T], dtype=torch.int32, device=device)
+    if route == "dense":
+        kw.update(bias=flash._lengths_dense_bias(lengths, T, T, True), causal=True)
+    else:
+        kw.update(kv_lengths=lengths, causal=True)
+        live = torch.arange(T, device=device)[None, :] < lengths[:, None]
+    if route == "offsets":
+        lengths = torch.tensor([33, 514, 300, 400], dtype=torch.int32, device=device)
+        kw.update(kv_lengths=lengths, offsets=(T, 0))
+        live = torch.arange(T, device=device)[None, :] + T < lengths[:, None]
+        full = (torch.rand(B, n, T, 2 * T, generator=gen) < 0.9).to(device)
+        kw["dropout_mask"] = full[..., :T]
+    else:
+        kw["dropout_mask"] = (torch.rand(B, n, T, T, generator=gen) < 0.9).to(device)
+    return q, k, v, kw, flash.blockwise_attention, flash.blockwise_attention_bwd, live
+
+
+def _mask_forward(fwd, q, k, v, kw):
+    """(out, lse) of a forward wrapper or plain version: the short ones take
+    the bias positionally and give lse on request."""
+    from stlt_tpu_torch.ops import flash
+
+    if fwd in (flash.fused_attention, flash.fused_attention_plain):
+        rest = {n: x for n, x in kw.items() if n != "bias"}
+        return fwd(q, k, v, kw["bias"], with_lse=True, **rest)
+    return fwd(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["flash", "lengths", "dense", "offsets"])
+@pytest.mark.parametrize("shared", [False, True])
+def test_mask_mode_kernels_match_plain(device, dtype, route, shared):
+    """Rows 6-10 in mask mode, per-head and head-broadcast masks, in every
+    mode the kernels have: out and lse against the plain forward (f32 within
+    1e-5, which one flipped keep bit would break), dq, dk, dv against
+    attention_bwd_plain within BWD_REL (DENSE_BWD_REL in the dense mode's
+    bf16), the mask-mode launch counts, and a planted fault: one flipped
+    keep bit of a live (t, s) moves the output past the tolerance."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(len(route) + 10 * shared)
+    q, k, v, kw, fwd, bwd, live = _mask_case(route, dtype, shared, gen, device)
+    flash.reset_launches()
+    out, lse = _mask_forward(fwd, q, k, v, kw)
+    name = "flash_attention" if fwd is flash.fused_attention else "blockwise_attention"
+    assert flash.LAUNCHES[name + "_mask"] == 1 and sum(flash.LAUNCHES.values()) == 1
+    plain = flash.fused_attention_plain if fwd is flash.fused_attention else flash.blockwise_attention_plain
+    want, want_lse = _mask_forward(plain, q, k, v, kw)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    rows = torch.ones(out.shape[:2], dtype=torch.bool, device=device) if live is None else live
+    torch.testing.assert_close(out.float()[rows], want.float()[rows], **tol)
+    torch.testing.assert_close(lse.transpose(1, 2)[rows], want_lse.transpose(1, 2)[rows],
+                               **TOL[torch.float32])
+
+    dout = torch.randn(out.shape, generator=gen).to(device, dtype)
+    dsum = flash._dsum(dout, want, kw.get("kv_lengths"), kw.get("offsets", (0, 0))[0])
+    got = bwd(q, k, v, dout, want_lse, dsum, **kw)
+    assert flash.LAUNCHES[name + "_bwd_mask"] == 1 and sum(flash.LAUNCHES.values()) == 2
+    wanted = flash.attention_bwd_plain(q, k, v, dout, want_lse, dsum, **kw)
+    torch.cuda.synchronize()
+    limit = DENSE_BWD_REL if route == "dense" and dtype == torch.bfloat16 else BWD_REL[dtype]
+    for what, a, b in zip(("dq", "dk", "dv"), got, wanted):
+        assert torch.isfinite(a).all() and _rel(a, b) < limit, (what, _rel(a, b))
+
+    if dtype == torch.float32:  # the f32 limit is the one a single keep bit must break
+        flipped = kw["dropout_mask"].clone()
+        b = 1 if route == "offsets" else 0  # clip 0's rows are dead in the ring case
+        flipped[b, 0, 0, 0] = ~flipped[b, 0, 0, 0]  # (t, s) = (0, 0): live in every route
+        fault = _mask_forward(fwd, q, k, v, {**kw, "dropout_mask": flipped})[0]
+        err = (fault.float() - want.float()).abs()
+        assert (err > tol["atol"] + tol["rtol"] * want.float().abs()).any(), "flipped bit not seen"
+
+
+@pytest.mark.parametrize("route", ["flash", "lengths", "dense", "offsets"])
+def test_hashed_mask_equals_the_seed_mode(device, route):
+    """A mask equal to hash_keep_mask(seed, ...) gives the seed mode's
+    output, lse and gradients bit for bit: the same keep bits through the
+    same arithmetic (bf16)."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops.dropout import hash_keep_mask
+
+    gen = torch.Generator().manual_seed(len(route))
+    q, k, v, kw, fwd, bwd, _ = _mask_case(route, torch.bfloat16, False, gen, device)
+    B, T, N, _ = q.shape
+    seed = 0xC0FFEE
+    seeded = {**{n: x for n, x in kw.items() if n != "dropout_mask"}, "dropout_seed": seed}
+    masked = {**kw, "dropout_mask": hash_keep_mask(seed, B, N, T, k.shape[1], 0.1, device)}
+    outs = [_mask_forward(fwd, q, k, v, c) for c in (seeded, masked)]
+    dout = torch.randn(q.shape, generator=gen).to(device, q.dtype)
+    dsum = flash._dsum(dout, outs[0][0], kw.get("kv_lengths"), kw.get("offsets", (0, 0))[0])
+    grads = [bwd(q, k, v, dout, outs[0][1], dsum, **c) for c in (seeded, masked)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# --- the bf16 layer tail on wgmma and TMA (rows 2 and 11) --------------------------
+
+
+@pytest.mark.parametrize("tokens,live_kind", [
+    (64 * 17, "temporal"),  # the temporal stage at B = 64: 9 tiles of 128
+    (1000, "ragged"),       # a ragged edge: 1000 = 7 x 128 + 104
+    (640, "dead_tile"),     # tokens 128..255 all dead: one tile computes nothing
+])
+def test_bf16_tail_tiles_and_determinism(device, tokens, live_kind):
+    """The bf16 tail (eval and train, dropout 0.1) at the temporal stage's
+    size, a ragged last tile and an all-dead tile: y and r2 against the plain
+    versions, dead tokens exact zeros, and two launches bit-identical."""
+    dtype, H = torch.bfloat16, 768
+    gen = torch.Generator().manual_seed(tokens)
+    x, a, _, weights, live = _tail_case(H, tokens, "tokens", gen, device, dtype)
+    if live_kind == "temporal":
+        live = (torch.arange(17)[None, :] < torch.randint(4, 18, (64, 1), generator=gen)).reshape(-1)
+    elif live_kind == "dead_tile":
+        live = torch.rand(tokens, generator=gen) < 0.7
+        live[128:256] = False
+    live = live.to(device)
+    kw = dict(eps=1e-12, compute_dtype=dtype, activation="gelu", gelu_approximate=True)
+    tl = dict(tokens_live=live[None])
+    run = lambda: fe.fused_layer_tail(x[None], a[None], *weights, **kw, **tl)
+    got, again = run(), run()
+    want = fe.fused_layer_tail_plain(x[None], a[None], *weights, **kw, **tl)
+    torch.cuda.synchronize()
+    _close(got, want, dtype, live[None, :, None].expand(1, tokens, H))
+    assert torch.equal(got, again), "eval tail not deterministic"
+    cfg = ftt.TailConfig(1e-12, "gelu", True, 0.1, 0x5EED)
+    (y, r2), (y2, r22) = (ftt._launch_tail_train(x, a, weights, cfg, live) for _ in range(2))
+    want_y, want_r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)
+    torch.cuda.synchronize()
+    tok_live = live[:, None].expand(tokens, H)
+    _close(y, want_y, dtype, tok_live)
+    _close(r2, want_r2, dtype, tok_live)
+    assert torch.equal(y, y2) and torch.equal(r2, r22), "train tail not deterministic"

@@ -15,7 +15,9 @@ CPU: the attention backward's ring-offset mode and the gradients of
   (``tests/ring_worker.py op_grad``) against ``jax.grad`` of JAX's
   ``ring_attention`` on a context-2 CPU mesh: the lengths mode (causal), the
   dense mode and the lengths mode with ``dropout_seed`` (both fold the seed
-  with the rank's context index and the chunk). atol 2e-4, rtol 1e-3, the
+  with the rank's context index and the chunk), and with one numpy-made
+  ``dropout_mask`` in the dense and the lengths mode (each step reads the
+  held chunk's columns of the rank's rows). atol 2e-4, rtol 1e-3, the
   limits of JAX's own ring gradient test (``tests/test_ring.py``).
 """
 
@@ -87,8 +89,9 @@ def test_ring_gradients_on_two_ranks_match_jax(tmp_path):
     pad = np.arange(T)[None, :] >= lengths[:, None]
     bias = (masks.causal_bias(T) + masks.key_padding_bias(torch.from_numpy(pad))).numpy()
     g = rng.normal(0, 1, (B, T, N, D)).astype(np.float32)
+    keep = (rng.random((B, N, T, T)) > rate).astype(np.float32)
     np.savez(tmp_path / "inputs.npz", q=q, k=k, v=v, lengths=lengths, bias=bias, g=g, seed=seed,
-             rate=rate)
+             rate=rate, keep=keep)
     _run_ranks("op_grad", tmp_path)
     parts = [np.load(tmp_path / f"op_grad_{r}.npz") for r in range(2)]
     got = {key: np.concatenate([p[key] for p in parts], axis=1) for key in parts[0].files}
@@ -101,6 +104,9 @@ def test_ring_gradients_on_two_ranks_match_jax(tmp_path):
         "dense": ({}, jnp.asarray(bias), g),
         "seed": (dict(kv_lengths=lens, causal=True, dropout_seed=jnp.uint32(seed), dropout_rate=rate),
                  None, g_live),
+        "mask": (dict(dropout_mask=jnp.asarray(keep), dropout_rate=rate), jnp.asarray(bias), g),
+        "mask_lengths": (dict(kv_lengths=lens, causal=True, dropout_mask=jnp.asarray(keep),
+                              dropout_rate=rate), None, g_live),
     }
     for mode, (kw, b, cot) in modes.items():
         def loss(q_, k_, v_):
@@ -112,3 +118,4 @@ def test_ring_gradients_on_two_ranks_match_jax(tmp_path):
             np.testing.assert_allclose(got[f"{mode}_{name}"], np.asarray(w), **RING_GRAD_TOL,
                                        err_msg=f"{mode} {name}")
     assert not np.allclose(got["seed_dk"], got["lengths_dk"], atol=1e-3)  # dropout acted
+    assert not np.allclose(got["mask_dk"], got["dense_dk"], atol=1e-3)
