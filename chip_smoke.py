@@ -28,14 +28,16 @@ Phases, in order; any failure exits non-zero:
    three backward kernels against their plain versions at 2,056 tokens (bf16
    and f32, dropout 0 and 0.1, GELU with full and ragged live tokens, ReLU
    with ragged ones, a 1e30 cotangent on dead tokens; dead outputs zero, no
-   NaN, two launches bit-identical) and at 8,224 ragged tokens (three
+   NaN, two launches bit-identical) and at 8,224 ragged tokens (two
    splits of the weight products), then checked the same way and timed at
    the 256-frame step's shapes (65,792 spatial and 8,224 temporal tokens:
-   264 row blocks, 17 and 3 splits) and at the 17-frame B = 512 spatial
-   shape (69,632 tokens) against its plain version, the
+   264 row blocks, 8 and 2 splits in bf16) and at the 17-frame B = 512
+   spatial shape (69,632 tokens) against its plain version, the
    autograd of ``F.dropout``/``F.layer_norm``/``F.linear``/``F.gelu`` (the
-   backward's once, rows 12-14 jointly) and its bound, with the op-level
-   A/B of the fused op against the layer's plain chain; then the fusion
+   backward's once, rows 12-14 jointly; kernels and yardstick the median of
+   five windows) and its bound, with the op-level A/B of the fused op
+   against the layer's plain chain and a profile of rows 13 and 14's device
+   kernels at 65,792 tokens; then the fusion
    models' kernels: ``fused_cross_attention`` at (T, S) = (17, 33), (33,
    17), (8, 64) and (64, 8), with and without a key-padding bias, at B = 64
    and 1024, against ``F.linear`` + ``scaled_dot_product_attention`` +
@@ -218,14 +220,14 @@ points, same keep bits; the two differ only in the order of their sums):
   dx and dattn each within a relative Frobenius-norm error of TAIL_BWD_REL,
   1e-5 in f32 and 5e-4 in bf16; dr2 and the summed gradients (dn1s, dn1b,
   dW1, db1, dW2, db2, dn2s, dn2b) each within TAIL_SUM_REL, 1e-5 in f32 and
-  5e-4 in bf16. In bf16 sound kernels read at most 8.7e-5 for dx and dattn
-  and 9e-5 for the sums; act' taken on the bf16-rounded z1 instead of the
-  f32 one reads 1.1e-3 and the input kernel's dh2 without its keep bits
-  7.0e-2, both over the limit, which the elementwise OP_TOL would not be.
-  Faults in the weight kernel read over the sums' limit in dW1 and dW2:
-  each split's partial rounded to bf16 1.7e-3, the last split left out
-  6.0e-2 to 6.5e-2, at 4,112 and at 65,792 tokens (``python -m
-  stlt_tpu_torch.utils.bwd_tolerance tail``, H100; PERF.md §6).
+  5e-4 in bf16. In bf16 sound kernels read at most 9.0e-5 for dx and dattn
+  and 8.7e-5 for the sums; act' taken on the bf16-rounded z1 instead of the
+  f32 one reads 1.0e-3 to 1.1e-3 and the input kernel's dh2 without its
+  keep bits 7.0e-2, both over the limit, which the elementwise OP_TOL would
+  not be. Faults in the weight GEMM read over the sums' limit in dW1 and
+  dW2: each split's partial rounded to bf16 1.7e-3, the last split left out
+  0.35 at 65,792 tokens (8 splits) and 1.0 at 4,112 (one split) (``python
+  -m stlt_tpu_torch.utils.bwd_tolerance tail``, H100; PERF.md §6).
 - the fused cross-attention (row 5) and the blockwise forward's dense-bias
   mode (row 8): the same OP_TOL elementwise, and in bf16 the output within
   a relative Frobenius-norm error of CROSS_REL (1.2e-3) and DENSE_REL
@@ -460,6 +462,12 @@ def make_stage(stage: str, clips: int, dtype, gen, device, frames: int = NUM_FRA
     x = torch.randn((rows, T, H), generator=gen).to(device, dtype)
     attn = (0.5 * torch.randn((rows, T, H), generator=gen)).to(device, dtype)
     return x, attn, bias.to(device), live_kw, proj_live.to(device), tail_live.to(device)
+
+
+def median_ms(fn, iters: int, windows: int = 5) -> float:
+    """Median over ``windows`` windows of ``cuda_ms(fn, iters)``: a window
+    that a neighbour on the host or a clock change slows does not move it."""
+    return sorted(cuda_ms(fn, iters) for _ in range(windows))[windows // 2]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1222,13 +1230,15 @@ def check_tail_train_kernels(device):
     (``_check_tail_case``), bf16 and f32: at 2,056 tokens (8 clips of 257
     frames) with dropout 0 and 0.1, GELU (erf in f32, tanh in bf16) with full
     and ragged live tokens, ReLU with ragged ones; at 8,224 ragged tokens
-    with GELU and dropout 0.1 (the weight products in three splits). Then, in
-    bf16 with dropout 0.1 and every token live, at each of TAIL_SHAPES: the
-    same check (264 row blocks, up to 17 splits), each kernel timed against
-    its plain version, the library yardstick (the backward's once, for rows
+    with GELU and dropout 0.1 (the weight products in two splits). Then, in bf16 with dropout 0.1 and every token live, at
+    each of TAIL_SHAPES: the same check (264 row blocks, up to 8 splits),
+    each kernel timed (the median of five windows) against its plain
+    version, the library yardstick (likewise; the backward's once, for rows
     12-14 jointly) and its bound, and the op-level A/B, the fused op's
-    forward and backward against the layer's plain chain. Returns the
-    kernel-table rows (the 256-frame spatial shape)."""
+    forward and backward against the layer's plain chain; at the 256-frame
+    spatial shape a profile of rows 13 and 14's device kernels
+    (TAIL_BWD_GROUPS). Returns the kernel-table rows (the 256-frame spatial
+    shape)."""
     from stlt_tpu_torch.models.layers import TransformerEncoderLayer
     from stlt_tpu_torch.ops import fused_tail_train as ftt
 
@@ -1294,14 +1304,18 @@ def check_tail_train_kernels(device):
         for name, (kernel, plain, library) in runs.items():
             row = {
                 "name": name, "shape": shape, "tokens": tokens, "dtype": "bfloat16", "rate": DROPOUT,
-                "max_abs_err": errs[name], "ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 2),
+                "max_abs_err": errs[name], "ms": median_ms(kernel, 5), "plain_ms": cuda_ms(plain, 2),
                 # The backward's yardstick is one autograd backward: rows 12-14 jointly.
-                "library_ms": None if library is None else cuda_ms(library, 5),
+                "library_ms": None if library is None else median_ms(library, 5),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             }
             log("kernel_check " + json.dumps(row))
             if shape == TAIL_SHAPES[0][0]:
                 table[name] = row
+        if shape == TAIL_SHAPES[0][0]:
+            _device_profile("tail_bwd", lambda: ftt._launch_bwd_weight(
+                ftt._launch_bwd_input(x, a, dr2, weights, cfg)[4]), TAIL_BWD_GROUPS,
+                shape=shape, tokens=tokens, rows="13 + 14")
         del y_lib
         # The op-level A/B: the fused op (four kernels) against the layer's
         # plain chain, forward and backward, on the same inputs and seed.
@@ -2528,6 +2542,13 @@ FORWARD_GROUPS = (
     ("cuDNN convolutions", ("fprop", "cudnn", "convolve", "implicit_gemm", "conv2d", "conv3d")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
+# Rows 13 and 14's device kernels in bf16 (csrc/fused_tail_train_bwd.cu).
+TAIL_BWD_GROUPS = (
+    ("scan", ("tail_live_rows_kernel",)), ("prologue", ("tail_bwd_prologue",)),
+    ("GEMM A: z1, dh1d", ("tail_bwd_hidden",)), ("GEMM B: du", ("tail_bwd_du",)),
+    ("LN1 backward", ("tail_bwd_ln1",)), ("GEMM C: dW1, dW2", ("tail_bwd_weight_gemm",)),
+    ("ordered sums", ("reduce_parts",)),
+)
 OTHER = "other (elementwise, norms, reductions, copies)"
 
 
@@ -2574,6 +2595,34 @@ def _profile_step(model, batch, criterion, clips: int, **extra) -> None:
     step(batch, step_generator(SEED, 0))
     _device_profile("train_step", lambda: step(batch, step_generator(SEED, 1)), KERNEL_GROUPS,
                     clips=clips, **extra)
+
+
+def tail_gate_ab(label, model, batch, criterion, ms: float, steps: int = 5) -> dict:
+    """B1's step-level A/B (ROADMAP.md): the step ``ms`` took with the fused
+    train tail's gate at ``ftt.TAIL_TRAIN_MIN_FRAMES`` (256), timed again
+    with the gate at 0 for this timing only, so that every train tail of the
+    model runs the fused op. The train-tail kernels' launches in the gated-
+    off run (warmup included) show that they ran; logged as one JSON line
+    and returned."""
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+
+    gate = ftt.TAIL_TRAIN_MIN_FRAMES
+    ftt.reset_launches()
+    ftt.TAIL_TRAIN_MIN_FRAMES = 0
+    try:
+        gate0_ms = _step_ms(model, batch, criterion, steps)
+    finally:
+        ftt.TAIL_TRAIN_MIN_FRAMES = gate
+    counts = dict(ftt.LAUNCHES)
+    ftt.reset_launches()
+    ab = {"label": label, "gate_frames": gate, "gate_ms": ms, "gate_0_ms": gate0_ms,
+          "gate_0_over_gate": gate0_ms / ms, "gate_0_launches": counts}
+    log("tail_gate_ab " + json.dumps(ab))
+    runs = 2 + steps  # _step_ms's warmup and timed steps
+    if len(set(counts.values())) != 1 or counts[TAIL_KERNELS[0]] == 0 or counts[TAIL_KERNELS[0]] % runs:
+        raise AssertionError(f"{label}: with the gate at 0 the train-tail kernels launched {counts}, "
+                             f"not the same positive multiple of {runs} steps each")
+    return ab
 
 
 def run_train_path(device):
@@ -2664,6 +2713,9 @@ def run_train_path(device):
             step_ms[clips] = {"ms": ms, "plain_ms": plain_ms}
             log(f"train step of {clips} clips (full width, bf16, dropout {DROPOUT}): kernels "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if clips == TRAIN_BATCH:
+                step_ms[clips]["tail_gate_ab"] = tail_gate_ab(
+                    f"train step of {clips} clips, 17 frames", model, big, criterion, ms)
             _profile_step(model, big, criterion, clips)
             del big
             torch.cuda.empty_cache()
@@ -3414,6 +3466,8 @@ def run_fusion_train_path(device):
             log(f"{name} (full width, bf16, dropout {DROPOUT}): kernels {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms; peak memory kernels {peak / 2**30:.3f} GiB, "
                 f"plain {plain_peak / 2**30:.3f} GiB")
+            if frames < _BLOCKWISE_FRAMES:
+                step_ms[frames]["tail_gate_ab"] = tail_gate_ab(name, model, batch, criterion, ms, steps=3)
             step = _train_step(model, criterion)
             step(batch, step_generator(SEED, 0))
             _device_profile("fusion_train_step", lambda: step(batch, step_generator(SEED, 1)),

@@ -32,7 +32,7 @@
 // the chain is split at its rounding points instead: a scan packs the live
 // tokens in order; LN1 as a row kernel writes their u; two GEMM kernels
 // (tail_gemm_kernel: a [128, 128] tile a block, two blocks an SM, a producer
-// warp keeping TMA loads of u or h1 and of the row-major weight in a 3-stage
+// warp keeping TMA loads of u or h1 and of the weight in a 3-stage
 // ring behind mbarriers, two consumer warpgroups of m64n128k16 wgmmas, then
 // the bias, activation, dropout and residual epilogue) write h1 and r2; LN2
 // as a row kernel writes y. u and h1 pass through device memory as bf16 (a
@@ -43,6 +43,10 @@
 // computes nothing. Every output has one owner and the sums run in a fixed
 // order, so two launches give the same bits.
 //
+// The weights come in the model's storage: W1 as linear1.weight [FF, H], W2
+// as linear2.weight [H, FF] (both [N, K]), read where they lie (K-major), so
+// the wrappers copy none.
+//
 // Bound on this card: two GEMMs of 2*tokens*H*4H flops over ~3 x 2*tokens*H
 // bytes of activations (4 with r2), far above the ~295 flop/byte ridge, so
 // the tensor cores bound it.
@@ -51,24 +55,26 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "layer_tail.cuh"
+#include "tail_gemm.cuh"
 
 namespace {
 
 using namespace stlt;
-using bf16 = __nv_bfloat16;
+using namespace stlt::tail;
 
 constexpr int kFC = 128;  // FF chunk: two 64-column groups per SIMT thread
 constexpr int kKT1 = 16;  // k-slice of W1 (over H) staged per SIMT step
 constexpr int kKT2 = 8;   // k-slice of W2 (over the chunk) staged per SIMT step
+constexpr int kLDW1 = kFC + 1;  // row stride of the staged W1 slice (its columns are written k-wise)
 
 struct TailArgs {
   const void* x;
   const void* a;
   const float* n1s;
   const float* n1b;
-  const void* w1;
+  const void* w1;  // W1 stored [FF, H] (linear1.weight)
   const float* b1;
-  const void* w2;
+  const void* w2;  // W2 stored [H, FF] (linear2.weight)
   const float* b2;
   const float* n2s;
   const float* n2b;
@@ -127,20 +133,20 @@ __device__ __forceinline__ void zero_block(const TailArgs& p, long long tok0, in
 template <int NC>
 constexpr size_t tail_smem_bytes() {
   constexpr int H = NC * 64;
-  return sizeof(float) * (size_t)(kTM * H + kTM * kFC + kKT1 * kFC + kKT2 * H);
+  return sizeof(float) * (size_t)(kTM * H + kTM * kFC + kKT1 * kLDW1 + kKT2 * (H + 1));
 }
 
 template <int NC, bool kTrain>
 __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
-  constexpr int H = NC * 64;
-  const float* __restrict__ w1 = static_cast<const float*>(p.w1);
-  const float* __restrict__ w2 = static_cast<const float*>(p.w2);
+  constexpr int H = NC * 64, LDW2 = H + 1;  // the staged W2 slice's columns are written k-wise too
+  const float* __restrict__ w1 = static_cast<const float*>(p.w1);  // [FF, H]
+  const float* __restrict__ w2 = static_cast<const float*>(p.w2);  // [H, FF]
 
   extern __shared__ float smem[];
-  float* u_s = smem;                // [kTM][H]: u, later the residual r2
-  float* h_s = u_s + kTM * H;       // [kTM][kFC]
-  float* w1_s = h_s + kTM * kFC;    // [kKT1][kFC]
-  float* w2_s = w1_s + kKT1 * kFC;  // [kKT2][H]
+  float* u_s = smem;                 // [kTM][H]: u, later the residual r2
+  float* h_s = u_s + kTM * H;        // [kTM][kFC]
+  float* w1_s = h_s + kTM * kFC;     // [kKT1][kLDW1]
+  float* w2_s = w1_s + kKT1 * kLDW1; // [kKT2][LDW2]
 
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const long long tok0 = (long long)blockIdx.x * kTM;
@@ -170,11 +176,11 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
       for (int j = 0; j < kFC / 64; ++j) hacc[r][j] = 0.f;
     for (int k0 = 0; k0 < H; k0 += kKT1) {
       for (int i = tid; i < kKT1 * kFC; i += kThreads) {
-        const int kk = i / kFC, c = i % kFC;
-        w1_s[i] = w1[(long long)(k0 + kk) * p.ff + c0 + c];
+        const int f = i / kKT1, k = i % kKT1;  // row c0 + f of W1's storage: kKT1 contiguous k
+        w1_s[k * kLDW1 + f] = w1[(long long)(c0 + f) * H + k0 + k];
       }
       __syncthreads();
-      tile_fma<kRM, kFC / 64>(hacc, u_s + k0, H, ty * kRM, w1_s, kFC, tx, kKT1);
+      tile_fma<kRM, kFC / 64>(hacc, u_s + k0, H, ty * kRM, w1_s, kLDW1, tx, kKT1);
       __syncthreads();
     }
 #pragma unroll
@@ -191,10 +197,11 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
     __syncthreads();
     for (int k0 = 0; k0 < kFC; k0 += kKT2) {
       for (int i = tid; i < kKT2 * H; i += kThreads) {
-        w2_s[i] = w2[(long long)(c0 + k0) * H + i];
+        const int c = i / kKT2, k = i % kKT2;  // row c of W2's storage: kKT2 contiguous k
+        w2_s[k * LDW2 + c] = w2[(long long)c * p.ff + c0 + k0 + k];
       }
       __syncthreads();
-      tile_fma<kRM, NC>(acc, h_s + k0, kFC, ty * kRM, w2_s, H, tx, kKT2);
+      tile_fma<kRM, NC>(acc, h_s + k0, kFC, ty * kRM, w2_s, LDW2, tx, kKT2);
       __syncthreads();
     }
   }
@@ -232,24 +239,10 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
 // with 256-wide tiles (a 4-stage ring, the producer warpgroup handing its
 // registers to the consumers): 1.06 against 1.49 ms for GEMM 1 of a
 // 65,792-token stage (PERF.md §6).
-constexpr int kBM = 128;         // tokens of a tile: two consumer warpgroups of 64 rows
-constexpr int kBN = 128;         // columns of a tile
-constexpr int kBK = 64;          // k of a stage: one 128-byte swizzle row of bf16
-constexpr int kRingStages = 3;   // stages of the shared-memory ring
-constexpr int kConsumers = 256;  // threads 0..255 multiply, a one-warp producer follows
-constexpr int kGemmThreads = kConsumers + 32;
-constexpr int kRowWarps = 8;     // tokens of a row-kernel block, one a warp
-
-// bar.sync on barrier `id` among `count` threads (the consumer warpgroups;
-// the producer has left).
-__device__ __forceinline__ void named_barrier_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-constexpr int kStageBytes = (kBM + kBN) * kBK * (int)sizeof(bf16);
-constexpr size_t kGemmSmem =
-    (size_t)kRingStages * kStageBytes + 2 * kRingStages * sizeof(uint64_t) + 1024;
-static_assert(kBM * (kBN + 8) * (int)sizeof(bf16) <= kRingStages * kStageBytes,
+constexpr int kBN = 128;  // columns of a tile
+constexpr int kStageA = kBM * kBK, kStageB = kBN * kBK;
+constexpr size_t kGemmSmem = ring_smem(kStageA, kStageB);
+static_assert(kBM * (kBN + 8) * (int)sizeof(bf16) <= kRingStages * (kStageA + kStageB) * (int)sizeof(bf16),
               "the epilogue parks its bf16 tile in the ring");
 static_assert(2 * (kGemmSmem + 1024) <= 228 * 1024, "two blocks an SM");
 
@@ -269,8 +262,9 @@ struct GemmArgs {
 };
 
 // One output tile [kBM, kBN] per block. The producer warp's first thread
-// keeps TMA loads of A ([kBM, 64]) and B (two boxes of [64 k, 64 n] from the
-// row-major weight) in flight through the ring, each stage with a `full`
+// keeps TMA loads of A ([kBM, 64]) and B (a box of [kBN n, 64 k] from the
+// weight's [N, K] storage; rows past N land as zeros) in flight through the
+// ring, each stage with a `full`
 // barrier (the loads' bytes) and an `empty` one (both consumers done with
 // it). Consumer warpgroups 0 and 1 each own 64 rows: per stage four
 // m64n128k16 wgmmas, then they free the stage. A's rows are the live
@@ -285,58 +279,27 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   if (m0 >= M) return;
 
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  bf16* a_s = reinterpret_cast<bf16*>(base);  // stages of [kBM][64]
-  bf16* b_s = a_s + kRingStages * kBM * kBK;  // stages of kBN / 64 boxes of [64][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kRingStages * kBN * kBK);
-  uint64_t* empty = full + kRingStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kRingStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
+  const Ring ring = make_ring(smem_raw, kStageA, kStageB);
   const int nk = p.K / kBK;
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      const int boxes = min(kBN, p.N - n0) / 64;  // B columns past N are never loaded
-      const uint32_t bytes = (kBM + boxes * 64) * kBK * sizeof(bf16);
-      for (int k = 0; k < nk; ++k) {
-        const int s = k % kRingStages;
-        if (k >= kRingStages) mbar_wait(&empty[s], (k / kRingStages - 1) & 1);
-        mbar_expect_tx(&full[s], bytes);
-        tma_load_2d(a_s + s * kBM * kBK, &map_a, &full[s], k * kBK, m0);
-        for (int j = 0; j < boxes; ++j) {
-          tma_load_2d(b_s + (s * kBN + j * 64) * kBK, &map_b, &full[s], n0 + 64 * j, k * kBK);
-        }
-      }
+      produce(ring, nk, (kBM + kBN) * kBK * sizeof(bf16), [&](int s, int k) {
+        tma_load_2d(ring.a_stage(s), &map_a, &ring.full[s], k * kBK, m0);
+        tma_load_2d(ring.b_stage(s), &map_b, &ring.full[s], k * kBK, n0);
+      });
     }
     return;
   }
 
   const int w = threadIdx.x / 128, t = threadIdx.x % 128;
   float acc[kBN / 2];
-  for (int k = 0; k < nk; ++k) {
-    const int s = k % kRingStages;
-    mbar_wait(&full[s], (k / kRingStages) & 1);
-    const bf16* a = a_s + (s * kBM + w * 64) * kBK;
-    const bf16* b = b_s + s * kBN * kBK;
-    wgmma_fence();
+  consume(ring, nk, [&](int s, int k) {
+    const bf16* a = ring.a_stage(s) + w * 64 * kBK;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      Wgmma<kBN, 1>::mma(acc, desc_sw128(a + kk * 16, 0, 1024),
-                         desc_sw128(b + kk * 16 * 64, 64 * kBK * sizeof(bf16), 1024),
-                         k > 0 || kk > 0);  // the first product overwrites
+    for (int kk = 0; kk < kBK / 16; ++kk) {  // the first product overwrites
+      Wgmma<kBN, 0, 0>::mma(acc, desc_k(a, kk), desc_k(ring.b_stage(s), kk), k > 0 || kk > 0);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc);
-    if (t == 0) mbar_arrive(&empty[s]);
-  }
+  }, acc);
 
   // Epilogue. Both GEMMs' chains start with round(acc + bias): the
   // fragment (thread t holds rows r and r + 8, columns c and c + 1 of every
@@ -347,7 +310,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   // neighbouring columns. (Run on the fragment, unrolled over 128 elements
   // a thread, the same epilogue measured 2.7 times slower: PERF.md §6.)
   constexpr int LDS = kBN + 8;  // bf16 row stride of the parked tile: conflict-free fragment writes
-  bf16* tile = reinterpret_cast<bf16*>(base);
+  bf16* tile = ring.a;
   named_barrier_sync(1, kConsumers);  // both warpgroups' last wgmmas have read the ring
   {
     const int rl = w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = 2 * (t % 4);
@@ -399,116 +362,15 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   }
 }
 
-// A bf16 token row of H (a multiple of 64, at most 1024) as 16-byte vectors,
-// vector i of lane l at column 8 (l + 32 i).
-constexpr int kRowVecs = 1024 / 256;
-
-// The live tokens packed in order: rows[i] = the i-th live token, *count =
-// their number. One block: each thread counts a run of tokens, a block scan
-// places the runs, each thread writes its run's live tokens. The flags are
-// the wrapper's 0/1 bytes.
-constexpr int kScanThreads = 1024;
-__global__ void __launch_bounds__(kScanThreads) tail_live_rows_kernel(const uint8_t* live, int tokens,
-                                                                      int* rows, int* count) {
-  __shared__ int warp_total[kScanThreads / 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // Runs of whole 16-byte vectors (the flags are 0 or 1 and 16-byte aligned).
-  const int run = (tokens + 16 * kScanThreads - 1) / (16 * kScanThreads) * 16;
-  const int lo = min(tokens, threadIdx.x * run), hi = min(tokens, lo + run);
-  int n = 0;
-  for (int i = lo; i < hi; i += 16) {
-    if (i + 16 <= hi) {
-      const uint4 v = *reinterpret_cast<const uint4*>(live + i);
-      n += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
-    } else {
-      for (int j = i; j < hi; ++j) n += live[j];
-    }
-  }
-  int incl = n;  // inclusive scan over the warp, then over the warps' totals
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_total[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_total[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += v;
-    }
-    warp_total[lane] = w;  // inclusive over the warps
-  }
-  __syncthreads();
-  int at = incl - n + (warp > 0 ? warp_total[warp - 1] : 0);
-  for (int i = lo; i < hi; i += 16) {
-    if (i + 16 <= hi) {
-      const uint4 v = *reinterpret_cast<const uint4*>(live + i);
-      const uint8_t* f = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (f[j]) rows[at++] = i + j;
-      }
-    } else {
-      for (int j = i; j < hi; ++j) {
-        if (live[j]) rows[at++] = j;
-      }
-    }
-  }
-  if (threadIdx.x == kScanThreads - 1) *count = at;
-}
-
 // u = LN1(x + drop(a)) of the live tokens, packed (row i token rows[i]), one
-// a warp, H at run time (layer_norm1's arithmetic: the residual rounded, flax
-// statistics, u rounded).
+// a warp (tail_gemm.cuh::ln1_row).
 __global__ void __launch_bounds__(32 * kRowWarps)
     tail_ln1_kernel(TailArgs p, int H, bf16* u, const int* rows, const int* count) {
-  const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= (count != nullptr ? *count : p.tokens)) return;
   const long long tok = rows != nullptr ? rows[row] : row;
-  uint4* urow = reinterpret_cast<uint4*>(u + row * H);
-  const bool train = p.r2 != nullptr;
-  const uint32_t lane1 = p.drop.lane(kTagAttnDrop);
-  const uint4* xrow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.x) + tok * H);
-  const uint4* arow = reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.a) + tok * H);
-  float v[kRowVecs][8];
-  float s = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
-    const int vi = lane + 32 * i;
-    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
-    const uint4 xv = xrow[vi], av = arow[vi];
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-    const bf16* ae = reinterpret_cast<const bf16*>(&av);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float a = to_float(ae[e]);
-      if (p.drop.on) a = round_to<bf16>(a * p.drop.keep_scale(lane1, tok, H, vi * 8 + e));
-      v[i][e] = round_to<bf16>(to_float(xe[e]) + a);
-      s += v[i][e];
-      s2 = fmaf(v[i][e], v[i][e], s2);
-    }
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / H, rstd = rsqrtf(fmaxf(0.f, s2 / H - mu * mu) + p.eps);
-#pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
-    const int vi = lane + 32 * i;
-    if (vi * 8 >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
-    uint4 ov;
-    bf16* oe = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int c = vi * 8 + e;
-      const float d = v[i][e] - mu;
-      oe[e] = from_float<bf16>(train ? d * rstd * p.n1s[c] + p.n1b[c] : d * (rstd * p.n1s[c]) + p.n1b[c]);
-    }
-    urow[vi] = ov;
-  }
+  ln1_row(static_cast<const bf16*>(p.x), static_cast<const bf16*>(p.a), p.n1s, p.n1b, p.drop, p.eps,
+          p.r2 != nullptr, tok, H, u + row * H);
 }
 
 // y = LN2(r2), one token a warp (layer_norm2_out's arithmetic); dead tokens
@@ -596,9 +458,9 @@ int launch_tc(const TailArgs& p, int H, void* scratch, cudaStream_t stream) {
   bf16* r2 = static_cast<bf16*>(p.r2 != nullptr ? p.r2 : p.out);
   CUtensorMap map_u, map_w1, map_h1, map_w2;
   int err = hopper::make_map(&map_u, u, p.tokens, H, kBM);
-  if (!err) err = hopper::make_map(&map_w1, p.w1, H, p.ff, kBK);
+  if (!err) err = hopper::make_map(&map_w1, p.w1, p.ff, H, kBN);  // [FF, H]: K-major B of GEMM 1
   if (!err) err = hopper::make_map(&map_h1, h1, p.tokens, p.ff, kBM);
-  if (!err) err = hopper::make_map(&map_w2, p.w2, p.ff, H, kBK);
+  if (!err) err = hopper::make_map(&map_w2, p.w2, H, p.ff, kBN);  // [H, FF]: K-major B of GEMM 2
   if (err) return err;
   const int row_blocks = (p.tokens + kRowWarps - 1) / kRowWarps;
   tail_ln1_kernel<<<row_blocks, 32 * kRowWarps, 0, stream>>>(p, H, u, rows, count);
@@ -653,8 +515,9 @@ int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
 // 2 tanh GELU. A non-null r2 selects the train variant, which writes r2 and
 // applies the dropout sites when `dropout` is 1 (keep bits from seed and
 // thresh, survivors scaled by dropout_scale); eval passes a null r2 and
-// dropout 0. bf16 needs `scratch`, 16-byte aligned: (H + FF) bf16 and one
-// int32 per token and one int32 more (launch_tc); f32 takes none.
+// dropout 0. w1 is W1 stored [FF, H] and w2 W2 stored [H, FF] (the models'
+// linear.weight). bf16 needs `scratch`, 16-byte aligned: (H + FF) bf16 and
+// one int32 per token and one int32 more (launch_tc); f32 takes none.
 extern "C" int stlt_fused_layer_tail(
     const void* x, const void* a, const void* n1s, const void* n1b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* n2s, const void* n2b,

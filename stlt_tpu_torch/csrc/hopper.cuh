@@ -1,4 +1,5 @@
-// Hopper building blocks of the bf16 layer tail (fused_layer_tail.cu), in
+// Hopper building blocks of the bf16 layer tail (fused_layer_tail.cu) and
+// of its train backward (fused_tail_train_bwd.cu), in
 // inline PTX for sm_90a: 2-D TMA tile loads (cp.async.bulk.tensor) into
 // shared memory that report to mbarriers, and warpgroup matrix products
 // (wgmma.mma_async) that read both operands from those tiles through
@@ -9,10 +10,11 @@
 // 8-row group is a 1,024-byte swizzle atom; the shared-memory buffers are
 // 1,024-byte aligned. A K-major operand (A = [rows, 64 k], or B stored
 // [n, 64 k]) steps 16 k by 32 bytes inside the atom row and 8 rows by
-// SBO = 1,024 bytes. An MN-major B (stored [64 k][n], n contiguous, the
-// layout of a row-major [K, N] weight) is read transposed (imm-trans-b = 1):
-// 8 k rows step by SBO = 1,024 bytes, 64-column groups by LBO (the stride
-// of the 64-column boxes in the stage), and 16 k by 2,048 bytes.
+// SBO = 1,024 bytes. An MN-major operand (stored [64 k][m or n], m or n
+// contiguous: a row-major [K, N] weight as B, or token rows read as A^T) is
+// read transposed (imm-trans-a or imm-trans-b = 1): 8 k rows step by SBO =
+// 1,024 bytes, 64-column groups by LBO (the stride of the 64-column boxes in
+// the stage), and 16 k by 2,048 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -110,13 +112,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 // d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 operands from shared memory, f32
 // sums in registers: the m64nNk16 accumulator fragment of one warpgroup
 // (thread t of it holds rows 16 (t / 32) + (t % 32) / 4 and + 8, columns
-// 8 j + 2 (t % 4) and + 1, as d[4 j .. 4 j + 3]). kTransB = 1 reads B
-// MN-major. accumulate = 0 overwrites d.
-template <int N, int kTransB>
+// 8 j + 2 (t % 4) and + 1, as d[4 j .. 4 j + 3]). kTransA = 1 reads A
+// MN-major (stored [k][m]), kTransB = 1 reads B MN-major (stored [k][n]);
+// 0 reads them K-major. accumulate = 0 overwrites d.
+template <int N, int kTransA, int kTransB>
 struct Wgmma;
 
-template <int kTransB>
-struct Wgmma<128, kTransB> {
+template <int kTransA, int kTransB>
+struct Wgmma<128, kTransA, kTransB> {
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
     asm volatile(
@@ -129,7 +132,7 @@ struct Wgmma<128, kTransB> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, %64, %65, p, 1, 1, 0, %67;\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -139,7 +142,29 @@ struct Wgmma<128, kTransB> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <int kTransA, int kTransB>
+struct Wgmma<64, kTransA, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 

@@ -54,9 +54,10 @@ SIGNATURES = {
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
-        # x, a, n1s, n1b, w1, b1, w2, b2, n2s, n2b, live, out, r2 (null in
-        # eval), scratch (bf16: u and h1; null in f32), tokens, hidden, ff,
-        # eps, act, dropout, seed, thresh, dropout_scale, dtype, stream
+        # x, a, n1s, n1b, w1 (stored [FF, H]), b1, w2 (stored [H, FF]), b2,
+        # n2s, n2b, live, out, r2 (null in eval), scratch (bf16: u and h1;
+        # null in f32), tokens, hidden, ff, eps, act, dropout, seed, thresh,
+        # dropout_scale, dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
          _I, _U, _U, _F, _I, _P],
     ),
@@ -68,16 +69,18 @@ SIGNATURES = {
     ),
     "fused_tail_train_bwd_input": (
         "stlt_tail_train_bwd_input",
-        # x, a, dr2, n1s, n1b, w1, b1, w1t, w2t, live, dx, dattn, u, dh2, dh1,
-        # h1d, partial_ln, partial_b1, out, tokens, hidden, ff, eps, act,
-        # dropout, seed, thresh, dropout_scale, rows_per_block, dtype, stream
-        [*[_P] * 19, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _I, _I, _P],
+        # x, a, dr2, n1s, n1b, w1 (stored [FF, H]), b1, w2 (W2^T stored
+        # [H, FF]), live, dx, dattn, u, dh2, dh1, h1d, du (bf16), rows (bf16),
+        # partial_ln, partial_b1, out, tokens, hidden, ff, eps, act, dropout,
+        # seed, thresh, dropout_scale, blocks, dtype, stream
+        [*[_P] * 20, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _I, _I, _P],
     ),
     "fused_tail_train_bwd_weight": (
         "stlt_tail_train_bwd_weight",
-        # u, dh1, h1d, dh2, partial_b1, b1_parts, partial, out_w, db1, tokens,
-        # chunk, splits, hidden, ff, dtype, stream
-        [_P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+        # u, dh1, h1d, dh2, count (bf16 with live flags), partial_b1,
+        # b1_parts, partial, out_w, db1, tokens, chunk, splits, hidden, ff,
+        # dtype, stream
+        [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
     ),
     "fused_cross_attention": (
         "stlt_fused_cross_attention",

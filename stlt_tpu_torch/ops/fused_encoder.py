@@ -565,6 +565,15 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def weight_storage(w: torch.Tensor, cd) -> torch.Tensor:
+    """``w.t()`` row-major in ``cd``, 16-byte aligned: the layout the
+    layer-tail kernels read a weight in. For the model's ``linear.weight.t()``
+    it is the weight's own storage (no copy in its dtype, the one conversion
+    otherwise); a contiguous [in, out] weight is transposed in that
+    conversion."""
+    return aligned16(w.t().to(cd, memory_format=torch.contiguous_format))
+
+
 def tail_live_bytes(live: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """[tokens] live flags as the layer-tail kernels read them: 0/1 bytes,
     16-byte aligned (a bool tensor is viewed, not copied)."""
@@ -659,7 +668,7 @@ def fused_layer_tail(
     cd = compute_dtype
     f32 = torch.float32
     x, attn_out = aligned16(x), aligned16(attn_out)
-    w1, w2 = aligned16(w1.to(cd)), aligned16(w2.to(cd))
+    w1, w2 = weight_storage(w1, cd), weight_storage(w2, cd)  # [FF, H], [H, FF]
     vecs = [v.reshape(-1).to(f32).contiguous() for v in (n1_scale, n1_bias, b1, b2, n2_scale, n2_bias)]
     n1s, n1b, b1v, b2v, n2s, n2b = vecs
     live = tail_live_bytes(_live_tokens(rows_live, tokens_live, B, T))

@@ -26,8 +26,9 @@ in :data:`LAUNCHES`:
   the FFN's input side and the LN1 backward, ``dx``, ``dattn``, ``dn1s``,
   ``dn1b``;
 - ``fused_tail_train_bwd_weight`` (``_tail_train_bwd_weight_kernel`` :459):
-  ``dW1``, ``db1``, ``dW2``, from scratch the input kernel writes (the
-  hidden-side cotangent and the dropped hidden, ``csrc/fused_tail_train_bwd.cu``).
+  ``dW1``, ``db1``, ``dW2``, from scratch the input kernel writes (u, dh2,
+  the hidden-side cotangent and the dropped hidden, in bf16 with the live
+  tokens packed; ``csrc/fused_tail_train_bwd.cu``).
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions, which follow the JAX kernels step for step (the same rounding
@@ -64,12 +65,16 @@ LAUNCHES = {
     "fused_tail_train_bwd_weight": 0,
 }
 
-# Tokens of one block of the input kernel (csrc/fused_tail_train_bwd.cu: kTM
-# in bf16, kTMF in f32) and of one step of the weight products (kKW).
-_INPUT_BLOCK_TOKENS = {torch.float32: 16, torch.bfloat16: 32}
-_WEIGHT_STEP_TOKENS = 32
-_WEIGHT_SPLIT_TOKENS = 4096  # tokens per split of the weight products
-_ROW_BLOCKS = 264  # two blocks per SM of the H100 for the row kernel
+# csrc/fused_tail_train_bwd.cu: tokens of one f32 input block (kTMF) and of
+# one bf16 GEMM tile (kBM, the db1 partials' count); the weight products' k
+# step (f32 kKW, bf16 kBK), whose splits take about _WEIGHT_SPLIT_TOKENS
+# tokens each, at most _WEIGHT_MAX_SPLITS of them.
+_F32_INPUT_BLOCK_TOKENS = 16
+_GEMM_TILE_TOKENS = 128
+_WEIGHT_STEP_TOKENS = {torch.float32: 32, torch.bfloat16: 64}
+_WEIGHT_SPLIT_TOKENS = 8192
+_WEIGHT_MAX_SPLITS = 8
+_ROW_BLOCKS = 264  # two blocks per SM of the H100 for the row kernels
 
 f32 = torch.float32
 
@@ -277,6 +282,22 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _row_blocks(tokens: int) -> int:
+    """Blocks of the row kernels (LN2 and, in bf16, LN1 backward): 64
+    tokens or more each, at most :data:`_ROW_BLOCKS`."""
+    return max(1, min(_ROW_BLOCKS, -(-tokens // 64)))
+
+
+def _weight_splits(rows: int, step: int):
+    """(chunk, splits) of the weight products over ``rows`` scratch rows:
+    chunks a multiple of ``step``, about :data:`_WEIGHT_SPLIT_TOKENS` tokens
+    each, at most :data:`_WEIGHT_MAX_SPLITS`, covering every row with no
+    empty split. From the row count alone, so the sums' order is fixed."""
+    splits = max(1, min(_WEIGHT_MAX_SPLITS, -(-rows // _WEIGHT_SPLIT_TOKENS)))
+    chunk = max(step, -(-rows // (splits * step)) * step)
+    return chunk, max(1, -(-rows // chunk))
+
+
 def _launch_tail_train(x, attn, weights, cfg: TailConfig, live=None):
     """Launch the train variant of csrc/fused_layer_tail.cu: (y, r2)."""
     op = "fused_layer_tail_train"
@@ -286,7 +307,7 @@ def _launch_tail_train(x, attn, weights, cfg: TailConfig, live=None):
     code = fe._check_tail_kernel(op, x.dtype, H, w1, w2, x, attn)
     cd = x.dtype
     x, attn = fe.aligned16(x), fe.aligned16(attn)
-    w1, w2 = fe.aligned16(w1.to(cd)), fe.aligned16(w2.to(cd))
+    w1, w2 = fe.weight_storage(w1, cd), fe.weight_storage(w2, cd)  # [FF, H], [H, FF]
     vecs = [_vec(v) for v in (n1s, n1b, b1, b2, n2s, n2b)]
     live8 = fe.tail_live_bytes(None if live is None else live.reshape(tokens))
     y, r2 = torch.empty_like(x), torch.empty_like(x)
@@ -313,7 +334,7 @@ def _launch_bwd_row(r2, g, n2s, cfg: TailConfig, live=None):
     r2, g = r2.contiguous(), g.to(r2.dtype).contiguous()
     n2s = _vec(n2s)
     live8 = fe._live_flags(live, tokens)
-    blocks = max(1, min(_ROW_BLOCKS, -(-tokens // 64)))
+    blocks = _row_blocks(tokens)
     chunk = -(-tokens // blocks)
     dr2 = torch.empty_like(r2)
     partial = torch.empty((blocks, 3, H), dtype=f32, device=r2.device)
@@ -330,40 +351,51 @@ def _launch_bwd_row(r2, g, n2s, cfg: TailConfig, live=None):
 
 def _launch_bwd_input(x, attn, dr2, weights, cfg: TailConfig, live=None):
     """Launch the input kernel: (dx, dattn, dn1s, dn1b, scratch), the scratch
-    being what :func:`_launch_bwd_weight` reads."""
+    being what :func:`_launch_bwd_weight` reads. The kernels read W1 and W2^T
+    in the layout of ``linear1.weight`` [FF, H] and ``linear2.weight`` [H,
+    FF] (``fe.weight_storage``). In bf16 the scratch rows are the live
+    tokens packed in order (``count`` their number, on the device), and an
+    f32 scratch of this call holds ``cd(dh1) W1^T``; in f32 they are the
+    tokens' own, padded to a whole weight step with zeros."""
     op = "fused_tail_train_bwd_input"
     n1s, n1b, w1, b1, w2 = weights[:5]
     cd, dev = x.dtype, x.device
     tokens, H = x.shape
     FF = w1.shape[1]
     code = fe._check_tail_kernel(op, cd, H, w1, w2, x, attn, dr2)
-    x, attn, dr2 = x.contiguous(), attn.contiguous(), dr2.contiguous()
-    w1c = w1.to(cd).contiguous()
-    w1t = w1c.t().contiguous()
-    w2t = w2.to(cd).t().contiguous()
+    bf16 = cd == torch.bfloat16
+    x, attn, dr2 = fe.aligned16(x), fe.aligned16(attn), fe.aligned16(dr2)
+    w1s, w2s = fe.weight_storage(w1, cd), fe.weight_storage(w2, cd)
     n1s, n1b, b1 = _vec(n1s), _vec(n1b), _vec(b1)
-    live8 = fe._live_flags(live, tokens)
-    per_block = _INPUT_BLOCK_TOKENS[cd]
-    blocks = -(-tokens // per_block)
-    padded = -(-tokens // _WEIGHT_STEP_TOKENS) * _WEIGHT_STEP_TOKENS
-    scratch = {name: torch.empty((padded, width), dtype=cd, device=dev)
+    if bf16:
+        live8 = fe.tail_live_bytes(None if live is None else live.reshape(tokens))
+        rows, blocks, b1_parts = tokens, _row_blocks(tokens), -(-tokens // _GEMM_TILE_TOKENS)
+    else:
+        live8 = fe._live_flags(live, tokens)
+        step = _WEIGHT_STEP_TOKENS[cd]
+        rows, blocks = -(-tokens // step) * step, -(-tokens // _F32_INPUT_BLOCK_TOKENS)
+        b1_parts = blocks
+    scratch = {name: torch.empty((rows, width), dtype=cd, device=dev)
                for name, width in (("u", H), ("dh2", H), ("dh1", FF), ("h1d", FF))}
-    for t in scratch.values():
-        t[tokens:].zero_()  # the weight products read whole steps of 32 tokens
-    scratch["partial_b1"] = torch.empty((blocks, FF), dtype=f32, device=dev)
+    if not bf16:
+        for t in scratch.values():
+            t[tokens:].zero_()  # the f32 weight products read whole steps of 32 tokens
+    du = torch.empty((tokens, H), dtype=f32, device=dev) if bf16 else None
+    packed = torch.empty(tokens + 1, dtype=torch.int32, device=dev) if bf16 and live8 is not None else None
+    scratch["count"] = None if packed is None else packed[tokens:]
+    scratch["partial_b1"] = torch.empty((b1_parts, FF), dtype=f32, device=dev)
     dx, dattn = torch.empty_like(x), torch.empty_like(x)
     partial_ln = torch.empty((blocks, 2, H), dtype=f32, device=dev)
     out = torch.empty((2, H), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         _kernels.launch(
             op, x.data_ptr(), attn.data_ptr(), dr2.data_ptr(), n1s.data_ptr(), n1b.data_ptr(),
-            w1c.data_ptr(), b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), _ptr(live8),
-            dx.data_ptr(), dattn.data_ptr(), scratch["u"].data_ptr(), scratch["dh2"].data_ptr(),
-            scratch["dh1"].data_ptr(), scratch["h1d"].data_ptr(), partial_ln.data_ptr(),
-            scratch["partial_b1"].data_ptr(), out.data_ptr(), tokens, H, FF, float(cfg.eps),
-            fe._act_code(cfg.activation, cfg.gelu_approximate),
-            *fe._dropout_args(cfg.seed, cfg.dropout_rate), per_block, code,
-            _stream(x),
+            w1s.data_ptr(), b1.data_ptr(), w2s.data_ptr(), _ptr(live8), dx.data_ptr(),
+            dattn.data_ptr(), scratch["u"].data_ptr(), scratch["dh2"].data_ptr(),
+            scratch["dh1"].data_ptr(), scratch["h1d"].data_ptr(), _ptr(du), _ptr(packed),
+            partial_ln.data_ptr(), scratch["partial_b1"].data_ptr(), out.data_ptr(), tokens, H, FF,
+            float(cfg.eps), fe._act_code(cfg.activation, cfg.gelu_approximate),
+            *fe._dropout_args(cfg.seed, cfg.dropout_rate), blocks, code, _stream(x),
         )
     LAUNCHES[op] += 1
     return dx, dattn, out[0], out[1], scratch
@@ -374,12 +406,11 @@ def _launch_bwd_weight(scratch):
     db1, dW2 [FF, H])."""
     op = "fused_tail_train_bwd_weight"
     u, dh1 = scratch["u"], scratch["dh1"]
-    padded, H = u.shape
+    rows, H = u.shape
     FF = dh1.shape[1]
     code = fe._check_kernel_dtypes(op, u.dtype, u, dh1, scratch["h1d"], scratch["dh2"])
     dev = u.device
-    chunk = min(_WEIGHT_SPLIT_TOKENS, padded)
-    splits = -(-padded // chunk)
+    chunk, splits = _weight_splits(rows, _WEIGHT_STEP_TOKENS[u.dtype])
     partial = torch.empty((splits, 2, H * FF), dtype=f32, device=dev)
     out = torch.empty((2, H * FF), dtype=f32, device=dev)
     db1 = torch.empty((FF,), dtype=f32, device=dev)
@@ -387,8 +418,9 @@ def _launch_bwd_weight(scratch):
     with torch.cuda.device(dev):
         _kernels.launch(
             op, u.data_ptr(), dh1.data_ptr(), scratch["h1d"].data_ptr(),
-            scratch["dh2"].data_ptr(), pb1.data_ptr(), pb1.shape[0], partial.data_ptr(),
-            out.data_ptr(), db1.data_ptr(), padded, chunk, splits, H, FF, code, _stream(u),
+            scratch["dh2"].data_ptr(), _ptr(scratch["count"]), pb1.data_ptr(), pb1.shape[0],
+            partial.data_ptr(), out.data_ptr(), db1.data_ptr(), rows, chunk, splits, H, FF, code,
+            _stream(u),
         )
     LAUNCHES[op] += 1
     return out[0].view(H, FF), db1, out[1].view(FF, H)

@@ -21,13 +21,18 @@ prints each variant's relative norm errors in bf16:
 - attention and dense_bwd, ``no_dsum``: dz = p o dp, without the ``- dsum``
   term;
 - tail, ``act_grad_of_cd_z1``: act' taken on z1 rounded to bf16 instead of
-  the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``);
-- tail, ``no_keep2_in_input``: the input kernel's dh2 without the out-site
-  keep bits (``stage_dh2``);
-- tail, ``weight_partials_in_bf16``: the weight kernel rounds each split's
-  partial dW1 and dW2 to bf16 before the ordered sum (``weight_tile_tc``);
-- tail, ``weight_split_left_out``: the weight kernel's last token split adds
-  nothing (``weight_tile``);
+  the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``, which GEMM A's
+  epilogue calls);
+- tail, ``no_keep2_in_input``: the input entry point's dh2 without the
+  out-site keep bits (``tail_bwd_prologue_kernel``);
+- tail, ``weight_partials_in_bf16``: the weight GEMM rounds each split's
+  partial dW1 and dW2 to bf16 before the ordered sum
+  (``tail_bwd_weight_gemm_kernel``);
+- tail, ``weight_split_left_out``: the weight GEMM's last token split adds
+  nothing (``tail_bwd_weight_gemm_kernel``);
+- tail, ``tail_hidden_n128``: no fault but a design variant, GEMM A
+  (``tail_bwd_hidden_kernel``) on [128, 128] tiles at one block an SM
+  instead of [128, 64] at two, timed beside ``sound``;
 - cross, ``cross_no_bo``: the output bias bo left out
   (``fused_cross_attention.cu::cross_attn_tc_kernel``);
 - cross, ``cross_no_bkv``: the context projection's bias bkv left out
@@ -59,8 +64,10 @@ plain forward, so only the backward differs. Tail rows {"tokens", "rate",
 "dx", "dattn", "dn1s", ..., "dn2b"}: H = 768, FF = 3072, GELU (tanh), r2
 from the plain forward; 4,112 tokens (16 clips of 257 frames, the temporal
 stage of a 512-frame batch) with ragged live tokens and dropout 0 and 0.1
-(two splits of the weight products), and 65,792 live tokens with dropout
-0.1 (the spatial stage of a 256-frame batch: 17 splits). Cross rows {"T",
+(one split of the weight products), and 65,792 live tokens with dropout
+0.1 (the spatial stage of a 256-frame batch: 8 splits), where the row also
+holds the input and weight entry points' times ("input_ms", "weight_ms":
+CUDA events, the median of five windows of five launches). Cross rows {"T",
 "S", "padded", "y"}: chip_smoke's row-5 checks at B = 64, H = 768, 12
 heads, (T, S) = (17, 33), (33, 17), (8, 64), (64, 8), with and without a
 key-padding bias, weights drawn as ``chip_smoke.make_weights`` draws them.
@@ -105,28 +112,31 @@ MUTATIONS = {
     ]),
     "act_grad_of_cd_z1": (("tail",), [(
         "fused_tail_train_bwd.cu",
-        "return make_float2(dacc * activation_grad(z, p.act), h1);",
-        "return make_float2(dacc * activation_grad(round_to<T>(z), p.act), h1);",
+        "return make_float2(dacc * activation_grad(z, act), h1);",
+        "return make_float2(dacc * activation_grad(round_to<T>(z), act), h1);",
     )]),
     "no_keep2_in_input": (("tail",), [(
         "fused_tail_train_bwd.cu",
-        "if (p.drop.on) v = round_to<T>(v * p.drop.keep_scale(lane2, tok, H, c));",
-        "if (p.drop.on) v = round_to<T>(v);",
+        "e[j] = from_float<bf16>(to_float(e[j]) * p.drop.keep_scale(lane2, tok, H, vi * 8 + j));",
+        "e[j] = from_float<bf16>(to_float(e[j]));",
     )]),
     "weight_partials_in_bf16": (("tail",), [(
         "fused_tail_train_bwd.cu",
-        "      wmma::store_matrix_sync(t.out + (long long)(wm + r * 16) * ldo + wn + c * 16, acc[r][c], ldo,\n"
-        "                              wmma::mem_row_major);",
-        "      { for (int i = 0; i < acc[r][c].num_elements; ++i) "
-        "acc[r][c].x[i] = __bfloat162float(__float2bfloat16_rn(acc[r][c].x[i]));\n"
-        "        wmma::store_matrix_sync(t.out + (long long)(wm + r * 16) * ldo + wn + c * 16, acc[r][c], "
-        "ldo, wmma::mem_row_major); }",
+        "*reinterpret_cast<float2*>(out + (long long)r * cols_out + c) =\n"
+        "            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);",
+        "*reinterpret_cast<float2*>(out + (long long)r * cols_out + c) =\n"
+        "            make_float2(round_to<bf16>(acc[4 * j + 2 * h]), round_to<bf16>(acc[4 * j + 2 * h + 1]));",
     )]),
     "weight_split_left_out": (("tail",), [(
         "fused_tail_train_bwd.cu",
-        "  t.k_end = min(p.tokens, t.k_begin + p.chunk);",
-        "  t.k_end = blockIdx.y + 1 < gridDim.y ? min(p.tokens, t.k_begin + p.chunk) : t.k_begin;",
+        "const long long k1 = min(k0 + p.chunk, depth);",
+        "const long long k1 = blockIdx.y + 1 < gridDim.y ? min(k0 + p.chunk, depth) : k0;",
     )]),
+    "tail_hidden_n128": (("tail",), [
+        ("fused_tail_train_bwd.cu", "constexpr int kHiddenBN = 64;", "constexpr int kHiddenBN = 128;"),
+        ("fused_tail_train_bwd.cu", "__launch_bounds__(kGemmThreads, 2)\n    tail_bwd_hidden_kernel(",
+         "__launch_bounds__(kGemmThreads, 1)\n    tail_bwd_hidden_kernel("),
+    ]),
     "cross_no_bo": (("cross",), [(
         "fused_cross_attention.cu",
         "out[(tok0 + row) * H + c] = from_float<bf16>(v + to_float(bo[c]));",
@@ -165,6 +175,23 @@ MUTATIONS = {
     )]),
 }
 TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
+
+
+def median_ms(fn, iters: int = 5, windows: int = 5) -> float:
+    """Median over ``windows`` windows of the mean device time of ``iters``
+    launches of ``fn`` (CUDA events), after warmup."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[windows // 2]
 
 
 def _rel(got, want) -> float:
@@ -211,6 +238,12 @@ def _measure_tail() -> list:
         torch.cuda.synchronize()
         rows.append({"tokens": tokens, "rate": rate,
                      **{name: _rel(p, q) for name, p, q in zip(TAIL_GRADS, got, want)}})
+        if not ragged:
+            dr2 = ftt._launch_bwd_row(r2, g, weights[6], cfg)[0]
+            scratch = ftt._launch_bwd_input(x, a, dr2, weights, cfg)[4]
+            rows[-1]["input_ms"] = median_ms(lambda: ftt._launch_bwd_input(x, a, dr2, weights, cfg))
+            rows[-1]["weight_ms"] = median_ms(lambda: ftt._launch_bwd_weight(scratch))
+            del dr2, scratch
         del x, a, g, live, r2, got, want
         torch.cuda.empty_cache()
     return rows
@@ -382,7 +415,11 @@ def main(argv=None) -> int:
                           "dense_bwd": {"dq/dk/dv": ("dq", "dk", "dv")}}[family]
                 worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
                                   for label, keys in groups.items())
-                print(f"{variant} ({family}): worst relative norm error of {worst}", flush=True)
+                times = ", ".join(f"{k} {r[k]:.3f} ms" for r in rows for k in ("input_ms", "weight_ms")
+                                  if k in r)
+                print(f"{variant} ({family}): worst relative norm error of {worst}"
+                      + (f"; at {max(r['tokens'] for r in rows)} tokens {times}" if times else ""),
+                      flush=True)
     print(json.dumps(results))
     return 0
 

@@ -701,9 +701,15 @@ def _tail_case(H, tokens, live_kind, gen, device, dtype):
     a = (0.5 * torch.randn(tokens, H, generator=gen)).to(device, dtype)
     g = torch.randn(tokens, H, generator=gen)
     live = None
-    if live_kind == "tokens":
+    if live_kind.startswith("some:"):  # exactly n live tokens, at random places
+        live = torch.zeros(tokens, dtype=torch.bool)
+        live[torch.randperm(tokens, generator=gen)[:int(live_kind[5:])]] = True
+    elif live_kind != "none":
         live = torch.rand(tokens, generator=gen) < 0.7
         live[:40] = False  # a whole dead block
+        if live_kind == "dead_tile":
+            live[128:256] = False  # a whole dead 128-token tile of the bf16 GEMMs
+    if live is not None:
         g[~live] = 1e30  # a dead token's cotangent is never read
         live = live.to(device)
     return x, a, g.to(device, dtype), weights, live
@@ -715,14 +721,22 @@ def _tail_case(H, tokens, live_kind, gen, device, dtype):
     (128, 96, 0.0, "relu", "none"),
     (768, 1000, 0.1, "gelu", "tokens"),
     (768, 300, 0.0, "gelu", "none"),
-    (768, 17000, 0.1, "gelu", "tokens"),  # 264 row blocks, 5 splits of the weight products
+    (768, 17000, 0.1, "gelu", "tokens"),  # 264 row blocks, 3 splits of the weight products
+    (768, 1000, 0.1, "gelu", "some:333"),  # a live count no multiple of 64 or 128
+    (768, 700, 0.1, "gelu", "some:50"),  # fewer live tokens than one GEMM tile
+    (768, 600, 0.1, "gelu", "dead_tile"),
+    (768, 256, 0.1, "gelu", "some:0"),  # no live token: every output and sum zero
+    (320, 600, 0.1, "gelu", "some:333"),
+    (1024, 600, 0.1, "gelu", "some:333"),
 ])
 def test_tail_train_kernels_match_plain(device, dtype, H, tokens, rate, activation, live_kind):
     """The four kernels of the fused train tail against their plain versions
     on the same inputs: y and r2 elementwise (OP tolerance), dr2 and the
     summed gradients in relative norm (TAIL_SUM_REL), dx and dattn in
     relative norm (TAIL_BWD_REL); dead tokens exact zeros under a 1e30
-    cotangent, no NaN, and a second launch bit-identical."""
+    cotangent, no NaN, and a second launch bit-identical. The live counts
+    cover the bf16 backward's packed rows: ragged, below one 128-token tile,
+    a whole dead tile, none."""
     gen = torch.Generator().manual_seed(H + tokens)
     x, a, g, weights, live = _tail_case(H, tokens, live_kind, gen, device, dtype)
     cfg = ftt.TailConfig(1e-12, activation, dtype == torch.bfloat16, rate, 0x5EED if rate else None)
@@ -753,6 +767,56 @@ def test_tail_train_kernels_match_plain(device, dtype, H, tokens, rate, activati
         assert _rel(p, q) < limit, (name, _rel(p, q))
         if name in ("dx", "dattn") and live is not None:
             assert p[~live].abs().max().item() == 0.0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernels_take_the_models_weight_layout(device, dtype):
+    """The model hands the layer tails ``linear.weight.t()``; the eval tail,
+    the train forward and the train backward read that storage in place (no
+    copy when the dtype matches) and give the same bits as for contiguous
+    [H, FF] / [FF, H] weights."""
+    gen = torch.Generator().manual_seed(5)
+    x, a, g, weights, live = _tail_case(768, 500, "tokens", gen, device, dtype)
+    weights = [w.to(dtype) if w.dim() == 2 else w for w in weights]
+    views = list(weights)
+    views[2], views[4] = (w.t().contiguous().t() for w in (weights[2], weights[4]))
+    for w in (views[2], views[4]):
+        assert fe.weight_storage(w, dtype).data_ptr() == w.data_ptr()
+    kw = dict(eps=1e-12, compute_dtype=dtype, activation="gelu", gelu_approximate=dtype == torch.bfloat16,
+              tokens_live=live[None])
+    cfg = ftt.TailConfig(1e-12, "gelu", dtype == torch.bfloat16, 0.1, 0x5EED)
+    r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)[1]
+    for run in (lambda w: [fe.fused_layer_tail(x[None], a[None], *w, **kw)],
+                lambda w: ftt._launch_tail_train(x, a, w, cfg, live),
+                lambda w: ftt._launch_tail_train_bwd(x, a, r2, g, w, cfg, live)):
+        got, want = run(views), run(weights)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+def test_tail_train_scratch_rows_past_the_count_never_reach_the_weights(device):
+    """The bf16 backward's scratch rows from the live count on are the
+    kernels' to zero: with the memory the scratch gets filled with NaN
+    beforehand (the caching allocator hands freed blocks back), dW1, dW2 and
+    the other gradients stay finite and within their limits."""
+    dtype, H, tokens = torch.bfloat16, 768, 1000
+    gen = torch.Generator().manual_seed(6)
+    x, a, g, weights, live = _tail_case(H, tokens, "some:333", gen, device, dtype)
+    cfg = ftt.TailConfig(1e-12, "gelu", True, 0.1, 0x5EED)
+    r2 = ftt.fused_layer_tail_train_plain(x, a, weights, cfg, live)[1]
+    want = ftt.fused_layer_tail_train_bwd_plain(x, a, r2, g, weights, cfg, live)
+    dr2 = ftt._launch_bwd_row(r2, g, weights[6], cfg, live)[0]
+    torch.cuda.synchronize()
+    poison = [torch.full((tokens, w), float("nan"), dtype=dt, device=device)
+              for w, dt in ((H, dtype), (H, dtype), (4 * H, dtype), (4 * H, dtype), (H, torch.float32))]
+    del poison
+    got_inp = ftt._launch_bwd_input(x, a, dr2, weights, cfg, live)
+    got = (*got_inp[:4], *ftt._launch_bwd_weight(got_inp[4]))
+    torch.cuda.synchronize()
+    names = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2")
+    for name, p, q in zip(names, got, want):
+        limit = TAIL_BWD_REL[dtype] if name in ("dx", "dattn") else TAIL_SUM_REL[dtype]
+        assert torch.isfinite(p).all() and _rel(p, q) < limit, (name, _rel(p, q))
 
 
 def test_tail_train_kernels_refuse_what_they_do_not_take(device):

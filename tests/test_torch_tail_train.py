@@ -180,10 +180,10 @@ def test_jax_fit_predicate_holds_at_every_kernel_width(tokens, itemsize):
                 ftt.tail_train_wants(frames)
 
 
-def test_launchers_pass_what_the_entry_points_declare(monkeypatch):
-    """Each launcher hands its C entry point as many arguments as
-    ``_kernels.SIGNATURES`` declares, each one ctypes converts, and counts one
-    launch. The launch itself is recorded, not run (no GPU here)."""
+def _record_launches(monkeypatch, dtype):
+    """Run every launcher on CPU tensors of ``dtype`` with the launch
+    recorded, not run (no GPU here): the recorded (name, args) and the input
+    launcher's scratch."""
     seen = []
     monkeypatch.setattr(_kernels, "launch", lambda name, *args: seen.append((name, args)))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -191,14 +191,13 @@ def test_launchers_pass_what_the_entry_points_declare(monkeypatch):
     ftt.reset_launches()
     tokens, H, FF = 40, 64, 256
     x, attn, params, g, _, _ = _inputs(5, 8, H, FF, None)
-    x, attn, g = (torch.from_numpy(a).reshape(tokens, H) for a in (x, attn, g))
+    x, attn, g = (torch.from_numpy(a).reshape(tokens, H).to(dtype) for a in (x, attn, g))
     weights = [torch.from_numpy(p) for p in params]
     live = torch.arange(tokens) < 30
     cfg = ftt.TailConfig(EPS, "gelu", False, 0.1, SEED)
     ftt._launch_tail_train(x, attn, weights, cfg, live)
     ftt._launch_bwd_row(x, g, weights[6], cfg, live)
     *_, scratch = ftt._launch_bwd_input(x, attn, x, weights, cfg, live)
-    assert scratch["u"].shape == (64, H) and not scratch["dh1"][tokens:].any()
     ftt._launch_bwd_weight(scratch)
     assert [name for name, _ in seen] == ["fused_layer_tail", "fused_tail_train_bwd_row",
                                            "fused_tail_train_bwd_input",
@@ -210,14 +209,43 @@ def test_launchers_pass_what_the_entry_points_declare(monkeypatch):
             argtype.from_param(arg)
         assert _kernels.source(name) + ".cu" in {p.name for p in _kernels.CSRC.glob("*.cu")}
     assert ftt.LAUNCHES == dict.fromkeys(ftt.LAUNCHES, 1)
+    return seen, scratch, tokens, H, FF
+
+
+def test_launchers_pass_what_the_entry_points_declare(monkeypatch):
+    """Each launcher hands its C entry point as many arguments as
+    ``_kernels.SIGNATURES`` declares, each one ctypes converts, and counts one
+    launch. f32: the scratch rows are the tokens' own, padded with zeros to
+    a whole 32-token step, one db1 partial a 16-token block, no packed rows
+    or du scratch."""
+    seen, scratch, tokens, H, FF = _record_launches(monkeypatch, torch.float32)
+    assert scratch["u"].shape == (64, H) and not scratch["dh1"][tokens:].any()
+    assert scratch["count"] is None and scratch["partial_b1"].shape == (3, FF)
+    inp = dict(seen)["fused_tail_train_bwd_input"]
+    assert inp[15] is None and inp[16] is None and inp[-3] == 3  # du, rows; blocks
+
+
+def test_bf16_launchers_pass_the_packed_scratch(monkeypatch):
+    """In bf16 the input launcher hands over the packed-row scratch: u, dh2,
+    dh1, h1d with one row a token (no padding: the GEMMs' TMA maps fill past
+    the last row), an f32 du, the packed rows and their count, one db1
+    partial a 128-token tile; the weight launcher passes that count."""
+    seen, scratch, tokens, H, FF = _record_launches(monkeypatch, torch.bfloat16)
+    assert scratch["u"].shape == (tokens, H) and scratch["dh1"].shape == (tokens, FF)
+    assert scratch["partial_b1"].shape == (1, FF) and scratch["count"].shape == (1,)
+    calls = dict(seen)
+    inp, wgt = calls["fused_tail_train_bwd_input"], calls["fused_tail_train_bwd_weight"]
+    assert inp[15] is not None and inp[16] == scratch["count"].data_ptr() - 4 * tokens
+    assert inp[-3] == 1 and wgt[4] == scratch["count"].data_ptr()  # LN1 blocks; the live count
 
 
 @pytest.mark.parametrize("tokens", [40, 4096, 4100, 8224, 65792])
 def test_launchers_split_the_tokens_without_gap(monkeypatch, tokens):
     """The row kernel's blocks and the weight kernel's token splits cover
-    every token once, with no empty block or split: at the main path's
-    65,792 tokens 264 row blocks of 250 and 17 splits of 4,096. The launch
-    is recorded, not run."""
+    every token once, with no empty block or split, in chunks of whole k
+    steps (32 tokens in f32, 64 in bf16), chosen from the token count alone:
+    at the main path's 65,792 tokens 264 row blocks of 250 and 8 splits of
+    8,256 (bf16). The launch is recorded, not run."""
     seen = {}
     monkeypatch.setattr(_kernels, "launch", lambda name, *args: seen.setdefault(name, args))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -227,15 +255,18 @@ def test_launchers_split_the_tokens_without_gap(monkeypatch, tokens):
     ftt._launch_bwd_row(r2, r2, torch.ones(H), ftt.TailConfig(EPS))
     blocks, chunk = seen["fused_tail_train_bwd_row"][-4:-2]
     assert blocks <= ftt._ROW_BLOCKS and (blocks - 1) * chunk < tokens <= blocks * chunk
-    padded = -(-tokens // 32) * 32
-    scratch = {name: torch.zeros(padded, width, dtype=torch.bfloat16)
-               for name, width in (("u", H), ("dh2", H), ("dh1", FF), ("h1d", FF))}
-    scratch["partial_b1"] = torch.zeros(1, FF)
-    ftt._launch_bwd_weight(scratch)
-    rows, chunk, splits = seen["fused_tail_train_bwd_weight"][-7:-4]
-    assert rows == padded and chunk % 32 == 0 and (splits - 1) * chunk < padded <= splits * chunk
-    if tokens == 65792:
-        assert (blocks, splits) == (264, 17)
+    for dtype, step in ((torch.float32, 32), (torch.bfloat16, 64)):
+        rows = -(-tokens // 32) * 32 if dtype == torch.float32 else tokens
+        scratch = {name: torch.zeros(rows, width, dtype=dtype)
+                   for name, width in (("u", H), ("dh2", H), ("dh1", FF), ("h1d", FF))}
+        scratch.update(partial_b1=torch.zeros(1, FF), count=None)
+        seen.pop("fused_tail_train_bwd_weight", None)
+        ftt._launch_bwd_weight(scratch)
+        got_rows, chunk, splits = seen["fused_tail_train_bwd_weight"][-7:-4]
+        assert got_rows == rows and chunk % step == 0 and splits <= ftt._WEIGHT_MAX_SPLITS
+        assert (splits - 1) * chunk < rows <= splits * chunk
+        if tokens == 65792 and dtype == torch.bfloat16:
+            assert (blocks, chunk, splits) == (264, 8256, 8)
 
 
 @pytest.mark.parametrize("variant", sorted(bwd_tolerance.MUTATIONS))
