@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --only run_fusion_train_path[,...]`` builds the
+kernels and runs the named phase functions alone, printing no result line:
+to repeat a phase on the card.)
+
 Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit, build every kernel from
@@ -24,7 +28,9 @@ Phases, in order; any failure exits non-zero:
    ``attention_bwd_plain`` (T = 65, 257, 512 and 513, 1025; full and ragged
    lengths; dropout 0 and 0.1; dead rows, NaN and determinism checks), timed
    at B = 32, T = 257 and B = 16, T = 513 against the autograd backward of
-   ``scaled_dot_product_attention``; then the fused train tail's forward and
+   ``scaled_dot_product_attention`` (the backwards, rows 7 and 9-10, and
+   that yardstick in every mode below as the median of five windows of five
+   launches, with the windows' spread); then the fused train tail's forward and
    three backward kernels against their plain versions at 2,056 tokens (bf16
    and f32, dropout 0 and 0.1, GELU with full and ragged live tokens, ReLU
    with ragged ones, a 1e30 cotangent on dead tokens; dead outputs zero, no
@@ -287,12 +293,16 @@ points, same keep bits; the two differ only in the order of their sums):
   the encoder's pre-activations flip a few of them, each flip a whole
   element of dh1: the appearance branch read 3.0e-2 to 3.5e-2 (linear1 of
   the last encoder layers; the R3D layer1 convolutions below them), the
-  rest at most 1.1e-2 (H100; PERF.md §6). The same step in f32, where
-  rounding flips a gate only now and then, holds every tensor: loss atol
-  1e-5, each gradient within 1e-4 (sound 2.1e-6) and in the appearance
-  branch within 1e-3 (sound 1.0e-5 and 1.4e-4 in two runs: a few flipped
-  gates), joined within 3e-4 (sound 1.3e-6 and 2.7e-5), so a kernel fault
-  confined to a few tensors of any branch still shows.
+  rest at most 1.1e-2 (H100; PERF.md §6). The same step in f32 holds every
+  tensor: loss atol 1e-5, each gradient within 1e-4 (sound 2.1e-6) and in
+  the appearance branch within 1e-3 (sound 1.0e-5 and 1.4e-4 in two runs),
+  joined within 3e-4 (sound 1.3e-6 and 2.7e-5), so a kernel fault confined
+  to a few tensors of any branch still shows. In f32 too the two runs' sum
+  orders set a few ReLU gates of the appearance encoder differently (one
+  run in five read 4.8e-3 for a layer's linear1), so the plain run takes the
+  kernel run's gates where they flipped, within GATE_PIN_ABS of 0 and at
+  most GATE_PIN_MAX of them (``pin_flipped_gates``); each run logs the flips
+  per layer.
 """
 
 from __future__ import annotations
@@ -467,7 +477,23 @@ def make_stage(stage: str, clips: int, dtype, gen, device, frames: int = NUM_FRA
 def median_ms(fn, iters: int, windows: int = 5) -> float:
     """Median over ``windows`` windows of ``cuda_ms(fn, iters)``: a window
     that a neighbour on the host or a clock change slows does not move it."""
-    return sorted(cuda_ms(fn, iters) for _ in range(windows))[windows // 2]
+    return median_spread_ms(fn, iters, windows)[0]
+
+
+def median_spread_ms(fn, iters: int, windows: int = 5):
+    """(median, [fastest, slowest]) over ``windows`` windows of
+    ``cuda_ms(fn, iters)``: the median and the windows' spread beside it."""
+    times = sorted(cuda_ms(fn, iters) for _ in range(windows))
+    return times[windows // 2], [times[0], times[-1]]
+
+
+def median_fields(row: dict, **fns) -> dict:
+    """``row`` with, for each ``key=fn``, ``key`` the median over five
+    windows of five launches of ``fn`` and ``key + "_spread"`` the windows'
+    fastest and slowest."""
+    for key, fn in fns.items():
+        row[key], row[key + "_spread"] = median_spread_ms(fn, 5)
+    return row
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1077,12 +1103,13 @@ def check_long_train_kernels(device):
             row = {
                 "name": name, "stage": "temporal", "dtype": str(dtype).split(".")[1], "clips": clips,
                 "T": T, "lengths": kind, "rate": DROPOUT, "max_abs_err": err, "rel_err": rel,
-                "tol": tol, "rel_tol": BWD_REL[dtype], "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
-                "library_ms": cuda_ms(library, 10), "bound_ms": bound[0], "bound_by": bound[1],
+                "tol": tol, "rel_tol": BWD_REL[dtype], "plain_ms": cuda_ms(plain, 3),
+                "bound_ms": bound[0], "bound_by": bound[1],
                 "forward_dropout_ms": cuda_ms(fwd, 10), "forward_dropout_plain_ms": cuda_ms(fwd_plain, 3),
                 "forward_dropout_library_ms": cuda_ms(library_attention(q, k, v, mask, DROPOUT), 10),
                 "forward_dropout_bound_ms": fwd_bound[0], "forward_dropout_bound_by": fwd_bound[1],
             }
+            median_fields(row, ms=run, library_ms=library)
             log("kernel_check " + json.dumps(row))
             if dtype == torch.bfloat16 and kind == "full":
                 table[name] = row
@@ -1624,11 +1651,10 @@ def check_fusion_train_kernels(device):
                 "name": "blockwise_attention_bwd_dense", "stage": "fusion",
                 "dtype": str(dtype).split(".")[1], "clips": clips, "T": T, "S": S, "bias": kind,
                 "causal": causal, "rate": DROPOUT, "max_abs_err": err, "rel_err": rel,
-                "tol": OP_TOL[dtype], "rel_tol": rel_tol, "ms": cuda_ms(run, 10),
-                "plain_ms": cuda_ms(plain, 3),
-                "library_ms": cuda_ms(library_attention_bwd(q, k, v, mask, dout, DROPOUT), 10),
+                "tol": OP_TOL[dtype], "rel_tol": rel_tol, "plain_ms": cuda_ms(plain, 3),
                 "bound_ms": bound[0], "bound_by": bound[1],
             }
+            median_fields(row, ms=run, library_ms=library_attention_bwd(q, k, v, mask, dout, DROPOUT))
             log("kernel_check " + json.dumps(row))
             if (dtype, T, S, kind, causal) == (torch.bfloat16, 513, 513, "causal_padding", False):
                 table["blockwise_attention_bwd_dense"] = row
@@ -2116,9 +2142,12 @@ def check_mask_kernels(device):
                          lambda: flash.attention_bwd_plain(q, k, v, dout, want_lse, dsum, **kw),
                          lib_bwd, bwd_bound, bwd_err)):
                     row = {"name": n, "route": route, "dtype": "bfloat16", "clips": clips, "T": T,
-                           "rate": DROPOUT, "max_abs_err": e, "ms": cuda_ms(kernel, 10),
-                           "plain_ms": cuda_ms(plain_fn, 3), "library_ms": cuda_ms(library, 10),
+                           "rate": DROPOUT, "max_abs_err": e, "plain_ms": cuda_ms(plain_fn, 3),
                            "bound_ms": bound[0], "bound_by": bound[1]}
+                    if n.endswith("_bwd_mask"):  # rows 7, 9-10: medians, as their other modes
+                        median_fields(row, ms=kernel, library_ms=library)
+                    else:
+                        row.update(ms=cuda_ms(kernel, 10), library_ms=cuda_ms(library, 10))
                     log("kernel_check " + json.dumps(row))
                     rows.append(row)
                 del lib_fwd, lib_bwd
@@ -2221,8 +2250,8 @@ def check_offsets_bwd_kernel(device):
                     mask = flash._offsets_bias(lengths, RING_T, RING_T, True, offsets) == 0
                     library = library_attention_bwd(q, k, v, mask, dout.masked_fill(~live[:, :, None, None], 0),
                                                     rate)
-                    row.update({"ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
-                                "library_ms": cuda_ms(library, 10)})
+                    row["plain_ms"] = cuda_ms(plain, 3)
+                    median_fields(row, ms=run, library_ms=library)
                     row["bound_ms"], row["bound_by"] = offsets_bwd_bound(q, lengths, True, offsets, dtype)
                     del library, mask
                 log("kernel_check " + json.dumps(row) + "; NaN-filled outputs all written, dq of dead "
@@ -2443,23 +2472,140 @@ def _one_step(model, batch, criterion):
                            if p.grad is not None}
 
 
-def _step_kernels_vs_plain(label, model, batch, criterion, limits=None) -> None:
+# Phase 8's f32 step, kernels against plain: the appearance encoder's FFN
+# takes ReLU(z) of its pre-activations z, and the two runs' z differ by the
+# attention kernels' sum order upstream, by at most 3.7e-6 to 5.5e-6 a layer
+# in f32 (H100, 1.6M elements a layer; PERF.md §6), so an element of z that
+# close to 0 can take the other gate in each run (one or two a step in the
+# runs measured), which moves a whole element of dh1 and dW1 by far more
+# than FUSION_STEP_F32 allows. The check holds the plain run to the kernel run's gates where they
+# flipped (pin_flipped_gates) and fails if a flipped element lies farther
+# than GATE_PIN_ABS (about four times the largest difference measured) from
+# 0 in either run, or if more than GATE_PIN_MAX flip in one step: what a
+# kernel fault would look like.
+GATE_PIN_ABS = 2e-5
+GATE_PIN_MAX = 16
+
+
+def pin_flipped_gates(z, z_ref):
+    """(z with each ReLU gate that differs from ``z_ref``'s set as
+    ``z_ref``'s, the number of such flips, the largest |z| or |z_ref| among
+    them). A flipped element takes ``z_ref``'s value; the gradient flows to
+    ``z`` through every element as before."""
+    flip = (z > 0) != (z_ref > 0)
+    count = int(flip.sum())
+    largest = float(torch.maximum(z.detach().abs(), z_ref.abs())[flip].max()) if count else 0.0
+    return torch.where(flip, z_ref + (z - z.detach()), z), count, largest
+
+
+def check_gate_flips(label: str, flips: dict) -> None:
+    """Raise if a flipped gate of ``flips`` ({layer: (count, largest |z|,
+    ...)}) lies farther than GATE_PIN_ABS from 0, or if more than
+    GATE_PIN_MAX flipped in all."""
+    total = sum(f[0] for f in flips.values())
+    largest = max((f[1] for f in flips.values()), default=0.0)
+    if total > GATE_PIN_MAX or largest > GATE_PIN_ABS:
+        raise AssertionError(f"{label}: {total} ReLU gates flipped (at most {GATE_PIN_MAX}), the largest "
+                             f"|z| among them {largest:.3e} (at most {GATE_PIN_ABS})")
+
+
+class appearance_gates:
+    """Within the block, each appearance encoder layer's ReLU (the plain
+    train-tail chain, ``layers.activation_fn``) records its pre-activation
+    z into ``self.z`` {layer: z}; given ``reference`` (another run's
+    ``z``), it first pins the flipped gates to the reference's
+    (``pin_flipped_gates``) and records {layer: (flips, the largest |z|
+    among them, max |z - z_ref|, elements)} into ``self.flips``."""
+
+    def __init__(self, model, reference=None):
+        self.layers = next(m for n, m in model.named_modules()
+                           if n.endswith("appearance_branch.transformer")).layers
+        self.reference = reference
+        self.z, self.flips = {}, {}
+
+    def __enter__(self):
+        from stlt_tpu_torch.models import layers
+
+        self.module, self.saved = layers, layers.activation_fn
+        current = []  # the layer whose forward runs
+
+        def enter(i):
+            return lambda module, args: current.append(i)  # (None: the arguments stay)
+
+        def leave(module, args, out):
+            current.pop()  # (returns None: the output stays)
+
+        self.hooks = [h for i, layer in enumerate(self.layers) for h in (
+            layer.register_forward_pre_hook(enter(i)), layer.register_forward_hook(leave))]
+
+        def activation_fn(name, dtype):
+            fn = self.saved(name, dtype)
+            if not current or name != "relu":
+                return fn
+            i = current[-1]
+
+            def gate(z):
+                if self.reference is not None:
+                    ref = self.reference[i]
+                    diff = float((z.detach() - ref).abs().max())
+                    z, count, largest = pin_flipped_gates(z, ref)
+                    self.flips[i] = (count, largest, diff, z.numel())
+                self.z[i] = z.detach().clone()
+                return fn(z)
+
+            return gate
+
+        layers.activation_fn = activation_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.module.activation_fn = self.saved
+        for hook in self.hooks:
+            hook.remove()
+        return False
+
+
+def _step_kernels_vs_plain(label, model, batch, criterion, limits=None, pin_gates=False) -> None:
     """One step from the same weights, batch and seeds through the kernels
     and through the plain path on the card: loss within STEP_LOSS_ATOL, each
     gradient within STEP_TENSOR_REL and all of them joined within
     STEP_GRAD_REL in relative norm. ``limits`` (loss atol, joined, each, each
-    in the appearance branch) replaces them (phase 8)."""
+    in the appearance branch) replaces them (phase 8). ``pin_gates`` (phase
+    8 in f32): the plain run takes the kernel run's appearance-encoder ReLU
+    gates where they flipped (``appearance_gates``; the flips are logged per
+    layer and checked by ``check_gate_flips``), and a plain run without the
+    pins is compared too, logged and not checked."""
     # The same cuDNN algorithms in both passes (the R3D convolutions), so the
     # two differ by the kernels alone.
     saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
     try:
-        loss_k, grads_k = _one_step(model, batch, criterion)
-        with plain_kernels():
-            loss_p, grads_p = _one_step(model, batch, criterion)
+        if not pin_gates:
+            loss_k, grads_k = _one_step(model, batch, criterion)
+            with plain_kernels():
+                loss_p, grads_p = _one_step(model, batch, criterion)
+        else:
+            with appearance_gates(model) as kernel_gates:
+                loss_k, grads_k = _one_step(model, batch, criterion)
+            with plain_kernels():
+                unpinned = _one_step(model, batch, criterion)
+                with appearance_gates(model, kernel_gates.z) as plain_gates:
+                    loss_p, grads_p = _one_step(model, batch, criterion)
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
-    _compare_steps(label, "kernels vs plain", (loss_k, grads_k), (loss_p, grads_p), limits)
+    if pin_gates:
+        for i, (count, largest, diff, numel) in sorted(plain_gates.flips.items()):
+            log(f"{label}: appearance encoder layer {i}: {count} of {numel} ReLU gates flipped, largest "
+                f"|z| among them {largest:.3e} (pinned within {GATE_PIN_ABS}); max |z kernels - z plain| "
+                f"{diff:.3e}")
+        try:
+            _compare_steps(label, "kernels vs plain, gates not pinned (not checked)", (loss_k, grads_k),
+                           unpinned, limits)
+        except AssertionError as e:
+            log(f"{label}: without the pins the check would fail: {e}")
+        check_gate_flips(label, plain_gates.flips)
+    _compare_steps(label, "kernels vs plain" + (", flipped gates pinned" if pin_gates else ""),
+                   (loss_k, grads_k), (loss_p, grads_p), limits)
 
 
 def _compare_steps(label, what, got, want, limits=None) -> None:
@@ -3443,15 +3589,15 @@ def run_fusion_train_path(device):
             _step_kernels_vs_plain(name, model, batch, criterion, FUSION_STEP_BF16)
             if frames == _BLOCKWISE_FRAMES:
                 # The same step in f32 from the same weights: every kernel's
-                # f32 variant, where no rounding flips a ReLU gate of the
-                # appearance branch.
+                # f32 variant, the appearance encoder's flipped ReLU gates
+                # pinned (GATE_PIN_ABS).
                 f32_model = models_factory["cacnf"](
                     dataclasses.replace(model.config, compute_dtype="float32"))
                 f32_model.load_state_dict(model.state_dict())
                 for p32, p in zip(f32_model.parameters(), model.parameters()):
                     p32.requires_grad_(p.requires_grad)  # the frozen BN parameters
                 _step_kernels_vs_plain(f"{name}, f32", f32_model.to(device).train(), batch, criterion,
-                                       FUSION_STEP_F32)
+                                       FUSION_STEP_F32, pin_gates=True)
                 del f32_model
                 torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -4245,6 +4391,11 @@ def main(argv=()) -> int:
         out = fn(device)
         log(f"phase_time {fn.__name__}: {time.perf_counter() - t:.1f} s")
         return out
+
+    if argv[:1] == ["--only"]:  # named phases alone (to repeat one on the card): no result line
+        for name in argv[1].split(","):
+            timed(globals()[name])
+        return 0
 
     table = timed(check_kernels)
     table.update(timed(check_train_kernels))

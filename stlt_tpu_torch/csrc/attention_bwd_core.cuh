@@ -12,14 +12,15 @@
 //   dz = p o (dp - dsum)       dsum[t] = rowsum(dO o out), given by the caller
 //   dq = dz k * scale,  dk = dz^T q * scale,  dv = (p o keepc)^T dO
 //
-// with q, k, v and dO promoted to f32, every product summed in f32 and the
-// results rounded once to the storage type. Two kernels, each output with a
-// single owner, so there are no atomics and two runs give the same bits:
+// with q, k, v and dO taken as they are stored, every product summed in f32
+// and the results rounded once to the storage type. Two kernels, each output
+// with a single owner, so there are no atomics and two runs give the same
+// bits:
 //
-// - attention_dq_kernel: one block per (clip, head, 64-query tile), keys in
-//   chunks of 64 (K and V double-buffered by cp.async);
-// - attention_dkdv_kernel: one block per (clip, head, 64-key chunk), query
-//   tiles of 64 (q and dO double-buffered).
+// - attention_dq_kernel: one block per (clip, head, 64-query tile), the keys
+//   streamed in chunks of 64;
+// - attention_dkdv_kernel: one block per (clip, head, 64-key chunk), the
+//   query tiles streamed.
 //
 // Both take the two modes of the forward (kLengths): the bias mode (the TPU
 // kernel _fused_bwd_kernel, which recomputes the whole softmax where this one
@@ -46,33 +47,70 @@
 // the local (t, s), as the forward's do.
 //
 // Dead rows. The lengths-mode forward writes query rows t >= lengths[b] as
-// constants (zeros, lse 0). Their p is taken as 0 and their dO as 0 (dO tiles
-// are loaded with those rows zero-filled), so their dq is exactly zero and
-// they add nothing to dk and dv: the exact VJP of that forward, whatever the
-// caller sends into dead rows. exp(z - 0) of a dead row is never formed, so a
-// large logit there cannot make inf * 0 = NaN.
-//
-// Products. Each warp owns 16 rows (queries in dq, keys in dk/dv) and runs
-// the forward's two building blocks: chunk_logits (a [16, 64] tile of row .
-// column dots: q k^T, dO v^T, k q^T, v dO^T) and chunk_pv (a [16, 64] f32
-// tile times a [64, D] tile: dz k, (p o keepc) dO, dz q). In bf16 both run on
-// WMMA; chunk_pv splits the f32 probabilities and dz into bf16 hi + lo, so
-// they multiply at f32 grade. In f32 both run on the SIMT pipes.
+// constants (zeros, lse 0). Their p is taken as 0 and their dO as 0 (the
+// rows of a dO tile from the clip's length on are zeros in shared memory
+// before any product reads them), so their dq is exactly zero and they add
+// nothing to dk and dv: the exact VJP of that forward, whatever the caller
+// sends into dead rows. exp(z - 0) of a dead row is never formed, so a large
+// logit there cannot make inf * 0 = NaN.
 //
 // Dropout reads its keep bits as the forward does (attention_core.cuh:
-// hashed from the seed, or in mask mode from the caller's uint8 mask).
+// hashed from the seed, or in mask mode from the caller's uint8 mask; the
+// mode a template argument).
+//
+// Two bodies, chosen by the storage type and the head dim at launch:
+//
+// bf16 at D = 64 and 128 (every model's heads but those of H = 256 with 8
+// heads): Hopper's tensor cores through wgmma on tiles that TMA lands. One
+// consumer warpgroup owns the block's 64 rows (keys in dk/dv, queries in dq)
+// and one producer warp fills a two-stage ring behind mbarriers:
+//
+// - TMA loads q, k, v and dO as 4-D tensors (D, N, rows, B) read through
+//   their strides, in boxes of 64 rows x 64 d (D = 128 is two boxes), so a
+//   ring step's column view (kb != S kt) needs no copy and a clip's last tile
+//   reads zeros past its rows (513 = 8 * 64 + 1), never the next clip's,
+//   whose NaN or inf would survive a masked 0 * inf;
+// - the dk/dv kernel forms S^T = K Q^T and dP^T = V dO^T (keys as M, both
+//   operands K-major over D), the dq kernel S = Q K^T and dP = dO V^T: four
+//   or eight m64n64k16 wgmmas each from shared memory;
+// - the softmax terms are formed on the accumulator fragments, each thread
+//   on its own 32 (row, column) pairs, and rounded in place into the A
+//   fragments of the output products, which the RS wgmma reads from
+//   registers: dV += (P o keepc)^T dO and dK += dZ^T Q (the B operand dO or
+//   q as stored, [queries][D], so MN-major), dQ += dZ K (k MN-major). No
+//   product makes a shared-memory round trip;
+// - P o keepc and dZ are f32; each multiplies as two bf16 parts, hi =
+//   bf16(x) and lo = bf16(x - hi), two RS wgmmas into one accumulator, so
+//   the output products keep f32-grade probabilities (hi alone reads 2.5e-3
+//   to 2.7e-3 against BWD_REL's 1e-3: utils/bwd_tolerance.py, PERF.md §6);
+// - the bias is f32 with arbitrary (b, n, t) strides (a row of 513 keys is
+//   2,052 bytes; a key-padding bias has t stride 0), which TMA cannot take:
+//   the producer copies each [64 query x 64 key] tile with 4-byte cp.async,
+//   lanes along the keys, onto the stage's barrier, and the dk/dv kernel
+//   reads it transposed from shared memory (rows of 68 floats: conflict
+//   free); the dk/dv kernel's lse and dsum of a query tile come the same way.
+//
+// f32, and bf16 at D = 32 (the staged bodies): four warps of 16 rows each
+// run the forward's building blocks: chunk_logits (a [16, 64] tile of row .
+// column dots) and chunk_pv (a [16, 64] f32 tile times a [64, D] tile), on
+// WMMA in bf16 (with the same hi + lo split) through a per-warp shared
+// scratch, on the SIMT pipes in f32, so f32 stays true f32; K and V (or q
+// and dO) double-buffered by cp.async, rows past a limit zero-filled.
 //
 // Bound on this card: 10 D flops per live (query, key, head) pair (five
 // products) against q, k, v, dO, lse, dsum read once and dq, dk, dv written
 // once. At the long-clip shapes (B = 32, T = 257 or B = 16, T = 513) that is
 // ~16-17 GFLOP and ~60-80 MB, ~250 flop/byte: near the bf16 ridge, ~0.02 ms.
-// This simple kernel is far from it: the softmax terms (an expf per pair, a
-// hash per pair with dropout) run on the SIMT pipes, every product goes
-// through a shared-memory round trip, and in the bias mode the dk/dv kernel
-// reads the bias down its columns (from L2).
+// The wgmma body spends what it does on the SIMT side: an exp2 per pair in
+// each kernel, a hash per pair with dropout, the bias tile's copy, the hi/lo
+// split; the warpgroup does not overlap one tile's softmax terms with
+// another's products (the SM's second block does).
 #pragma once
 
+#include <type_traits>
+
 #include "attention_core.cuh"
+#include "hopper.cuh"
 
 namespace stlt {
 namespace attn {
@@ -98,10 +136,10 @@ struct BwdArgs {
   MaskedDropout drop;
 };
 
-// Two resident [64][LD] tiles and two double-buffered ones, the per-warp f32
-// product scratch, the bf16 hi/lo probability tiles, then lse and dsum of
-// the dq kernel's 64 queries. At D = 128: 219,648 bytes in f32, 139,776 in
-// bf16, inside the 227 KB a block may take.
+// The staged bodies' shared memory: two resident [64][LD] tiles and two
+// double-buffered ones, the per-warp f32 product scratch, the bf16 hi/lo
+// probability tiles, then lse and dsum of the dq kernel's 64 queries. At
+// D = 128: 219,648 bytes in f32, inside the 227 KB a block may take.
 template <typename E, int D>
 constexpr size_t bwd_smem_bytes() {
   constexpr int LD = Tile<E, D>::LD;
@@ -126,15 +164,17 @@ struct BwdScratch {
   }
 };
 
+// Zeros into rows r0 .. r0 + rows - 1 of head n of clip B_idx of a
+// contiguous [B, R, N, D] output, by the whole block.
 template <int D, typename E>
 __device__ __forceinline__ void zero_rows(E* base, int B_idx, int r0, int rows, int R, int N, int n) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     base[(((long long)B_idx * R + r0 + i / D) * N + n) * D + i % D] = from_float<E>(0.f);
   }
 }
 
-template <typename E, int D, bool kLengths, bool kDrop>
-__global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
+template <typename E, int D, bool kLengths, int kDrop>
+__global__ void __launch_bounds__(kThreads) attention_dq_staged_kernel(BwdArgs p) {
   constexpr int LD = Tile<E, D>::LD, kO = D / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   E* q_s = reinterpret_cast<E*>(smem_raw);  // [kBQ][LD]
@@ -219,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         float d = dp[r][j];
-        if (kDrop) d *= p.drop.keep_scale(b, n, N, t, key, S);
+        if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
         s[r][j] = masked ? 0.f : expf(x - lse_t) * (d - ds);  // dz
       }
     }
@@ -239,8 +279,8 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(BwdArgs p) {
   }
 }
 
-template <typename E, int D, bool kLengths, bool kDrop>
-__global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
+template <typename E, int D, bool kLengths, int kDrop>
+__global__ void __launch_bounds__(kThreads) attention_dkdv_staged_kernel(BwdArgs p) {
   constexpr int LD = Tile<E, D>::LD, kO = D / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   E* k_s = reinterpret_cast<E*>(smem_raw);  // [kBK][LD]
@@ -328,7 +368,7 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         const float pr = masked ? 0.f : expf(x - lse_j[j]);
-        const float keep = kDrop ? p.drop.keep_scale(b, n, N, t, key, S) : 1.f;
+        const float keep = kDrop != kDropNone ? p.drop.keep_scale<kDrop>(b, n, N, t, key, S) : 1.f;
         s[r][j] = masked ? 0.f : pr * (dp[r][j] * keep - ds_j[j]);  // dz^T
         dp[r][j] = pr * keep;                                         // (p o keepc)^T
       }
@@ -352,40 +392,512 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_kernel(BwdArgs p) {
   }
 }
 
-template <typename E, int D, bool kLengths, bool kDrop>
+
+// --- bf16 at D = 64 and 128: wgmma on TMA-fed tiles ---------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kStages = 2;                 // ring stages of the streamed tiles
+constexpr int kConsumers = 128;            // one consumer warpgroup: the block's 64 rows
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kLdT = 68;  // bias tile row (floats) the dk/dv kernel reads transposed: conflict free
+constexpr int kLdR = 72;  // bias tile row the dq kernel reads in float2 along its rows: conflict free
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+__host__ __device__ constexpr int tile_elems() { return 64 * D; }  // one [64][D] tile: D / 64 boxes of [64][64]
+
+struct Bars {
+  uint64_t full[kStages];   // a stage's TMA bytes landed and its 32 producer lanes' cp.async
+  uint64_t empty[kStages];  // the consumer warpgroup is done with a stage
+  uint64_t once;            // the resident tiles landed
+};
+
+// Shared memory of a kernel whose bias tiles have rows of kLd floats: the
+// barriers (in 1 KB), the two resident [64][D] tiles, the two streamed ones
+// of each stage, each stage's bias tile and (dk/dv) its lse and dsum,
+// 1,024-byte aligned (carve aligns; the first 1 KB is slack). D = 64:
+// 87,040 (dk/dv) and 89,088 (dq) bytes, two blocks an SM; D = 128: 136,192
+// and 138,240.
+template <int D, int kLd>
+constexpr size_t smem_bytes() {
+  return 1024 + 1024 + (size_t)(2 + 2 * kStages) * tile_elems<D>() * sizeof(bf16) +
+         (size_t)kStages * (64 * kLd + 2 * 64) * sizeof(float);
+}
+
+struct Smem {
+  Bars* bars;
+  bf16* res;    // the resident tiles: q and dO (dq), k and v (dk/dv)
+  bf16* str;    // stage s's streamed pair at str + 2 s tile: k and v (dq), q and dO (dk/dv)
+  float* bias;  // stage s's bias tile at bias + s 64 kLd, [query][key]
+  float* rows;  // stage s's lse at rows + 128 s, its dsum 64 after (dk/dv)
+};
+
+template <int D, int kLd>
+__device__ __forceinline__ Smem carve(unsigned char* raw) {
+  // Aligned by an offset from raw (not through an integer), so the compiler
+  // still knows every pointer below is shared memory (LDS, not generic LD).
+  unsigned char* base = raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+  Smem m;
+  m.bars = reinterpret_cast<Bars*>(base);
+  m.res = reinterpret_cast<bf16*>(base + 1024);
+  m.str = m.res + 2 * tile_elems<D>();
+  m.bias = reinterpret_cast<float*>(m.str + 2 * kStages * tile_elems<D>());
+  m.rows = m.bias + kStages * 64 * kLd;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&m.bars->full[s], 1 + 32);  // the TMA's expect_tx and 32 cp.async arrivals
+      hopper::mbar_init(&m.bars->empty[s], 1);
+    }
+    hopper::mbar_init(&m.bars->once, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+// Rows r0 .. r0 + 63 of head n of clip b into a [64][D] tile, onto `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int n, int r0,
+                                          int b) {
+#pragma unroll
+  for (int box = 0; box < D / 64; ++box) hopper::tma_load_4d(dst + box * 64 * 64, map, bar, box * 64, n, r0, b);
+}
+
+// The [64 query x 64 key] bias tile of queries t0 .. and keys s0 .. into a
+// [64][ld] f32 tile by the producer warp, lanes along the keys (4-byte
+// cp.async: the rows need not be 16-byte aligned); entries past tlim or
+// klim are zeros. The element of (t, key) is bias[t st + key sk].
+__device__ __forceinline__ void load_bias_tile(float* dst, int ld, const float* bias, long long st,
+                                               long long sk, int t0, int tlim, int s0, int klim,
+                                               int lane) {
+  for (int r = 0; r < 64; ++r) {
+    const int t = t0 + r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = s0 + lane + 32 * h;
+      const bool valid = t < tlim && key < klim;
+      hopper::cp_async4_zfill(dst + r * ld + lane + 32 * h, valid ? bias + t * st + key * sk : bias, valid);
+    }
+  }
+}
+
+// Zeros into rows r_from .. 63 of a [64][D] tile, by the consumer warpgroup.
+// A box row stays 128 contiguous bytes under the 128-byte swizzle (which
+// permutes the 16-byte chunks within a row), so whole rows are cleared.
+template <int D>
+__device__ __forceinline__ void zero_tile_rows(bf16* tile, int r_from, int tid) {
+#pragma unroll
+  for (int box = 0; box < D / 64; ++box) {
+    uint4* rows = reinterpret_cast<uint4*>(tile + box * 64 * 64 + r_from * 64);
+    for (int i = tid; i < (64 - r_from) * 8; i += kConsumers) rows[i] = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The bf16 hi and lo parts of a m64n64 f32 accumulator fragment x, in the
+// RS wgmma's A-fragment words: hi[4 kk .. 4 kk + 3] (and lo's) are the A
+// fragment of x's columns 16 kk .. 16 kk + 15 (hopper.cuh, WgmmaRS).
+__device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] B[64 x D]: A's hi and lo parts from registers, B
+// a [64][D] tile stored k-row by k-row (MN-major).
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&hi)[16],
+                                           const uint32_t (&lo)[16], const bf16* b) {
+  using hopper::WgmmaRS;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    WgmmaRS<D, 1>::mma(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3],
+                       hopper::desc_mn(b, kk), 1);
+    WgmmaRS<D, 1>::mma(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
+                       hopper::desc_mn(b, kk), 1);
+  }
+}
+
+// s[64 x 64] = A[64 x D] B[64 x D]^T, both [64][D] tiles K-major.
+template <int D>
+__device__ __forceinline__ void ss_logits(float (&s)[32], const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4 * 64 * 64;
+    hopper::Wgmma<64, 0, 0>::mma(s, hopper::desc_k(a + box, kk % 4), hopper::desc_k(b + box, kk % 4), kk > 0);
+  }
+}
+
+// Rows r0 (+ 8) of the consumer fragment, f32 accumulator acc[D / 2], into
+// a contiguous [B, R, N, D] bf16 output at row base `row` (times `mul`), or
+// zeros when !live.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long row, const float (&acc)[D / 2], int h,
+                                           float mul, bool live, int tig) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const __nv_bfloat162 v = live ? __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul)
+                                  : __floats2bfloat162_rn(0.f, 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(out + row * D + 8 * j + 2 * tig) = v;
+  }
+}
+
+template <int D, bool kLengths, int kDrop>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    attention_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                        BwdArgs p) {
+  using namespace hopper;
+  constexpr int kTile = tile_elems<D>();
+  constexpr uint32_t kTileBytes = kTile * sizeof(bf16);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n = blockIdx.x, q0 = blockIdx.y * kBQ, b = blockIdx.z;
+  const int T = p.T, S = p.S, N = p.N;
+  bf16* __restrict__ dq = static_cast<bf16*>(p.dq);
+  int kend = S, qlim = T;  // keys >= kend and queries >= qlim carry nothing
+  // Dense bias declared causal: keys above the tile's last diagonal are
+  // masked by the bias, so their chunks are never loaded (_causal_live).
+  if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S);
+  if (kLengths) {
+    const int len = p.lengths[b];
+    kend = min(S, len - p.col0);
+    qlim = max(0, min(T, len - p.row0));
+    // causal: global key col0 + s <= row0 + (last query of the tile)
+    if (p.causal) kend = min(kend, p.row0 + min(q0 + kBQ, T) - p.col0);
+    kend = max(kend, 0);
+    if (q0 >= qlim) {  // no live query in the tile: dq is zero
+      zero_rows<D>(dq, b, q0, min(kBQ, T - q0), T, N, n);
+      return;
+    }
+  }
+  const int nchunks = (kend + kBK - 1) / kBK;
+  const Smem m = carve<D, kLdR>(smem_raw);
+  const float* bias = !kLengths && p.bias != nullptr ? p.bias + b * p.bb + n * p.bn : nullptr;
+  bf16* q_s = m.res;
+  bf16* do_s = m.res + kTile;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (nchunks == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(&m.bars->once, 2 * kTileBytes);
+      load_tile<D>(q_s, &map_q, &m.bars->once, n, q0, b);
+      load_tile<D>(do_s, &map_do, &m.bars->once, n, q0, b);
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      const int s = c % kStages;
+      if (c >= kStages) mbar_wait(&m.bars->empty[s], (c / kStages - 1) & 1);
+      bf16* k_st = m.str + 2 * s * kTile;
+      if (lane == 0) {
+        mbar_expect_tx(&m.bars->full[s], 2 * kTileBytes);
+        load_tile<D>(k_st, &map_k, &m.bars->full[s], n, c * kBK, b);
+        load_tile<D>(k_st + kTile, &map_v, &m.bars->full[s], n, c * kBK, b);
+      }
+      if (bias != nullptr) {
+        load_bias_tile(m.bias + s * 64 * kLdR, kLdR, bias, p.bt, 1, q0, T, c * kBK, kend, lane);
+      }
+      cp_async_mbar_arrive(&m.bars->full[s]);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, tig = tid & 3;
+  int t_h[2];
+  float lse_h[2], ds_h[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t_h[h] = q0 + 16 * w + g + 8 * h;
+    const long long idx = ((long long)b * N + n) * T + t_h[h];
+    lse_h[h] = t_h[h] < qlim ? p.lse[idx] : 0.f;
+    ds_h[h] = t_h[h] < qlim ? p.dsum[idx] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (nchunks > 0) mbar_wait(&m.bars->once, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % kStages;
+    mbar_wait(&m.bars->full[s], (c / kStages) & 1);
+    const bf16* k_st = m.str + 2 * s * kTile;
+    float st[32], dpt[32];
+    wgmma_fence();
+    ss_logits<D>(st, q_s, k_st);           // q k^T
+    ss_logits<D>(dpt, do_s, k_st + kTile);  // dO v^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+
+    const float* bias_st = m.bias + s * 64 * kLdR;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t_h[h], col = 8 * j + 2 * tig;
+        float2 bb = make_float2(0.f, 0.f);
+        if (bias != nullptr) bb = *reinterpret_cast<const float2*>(bias_st + (16 * w + g + 8 * h) * kLdR + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * h + e, key = c * kBK + col + e;
+          const bool masked =
+              t >= qlim || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
+          const float x = st[idx] * p.scale + (e ? bb.y : bb.x);
+          float d = dpt[idx];
+          if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
+          st[idx] = masked ? 0.f : exp2f((x - lse_h[h]) * kLog2e) * (d - ds_h[h]);  // dz
+        }
+      }
+    }
+    uint32_t zh[16], zl[16];
+    split_hi_lo(st, zh, zl);
+    wgmma_fence();
+    rs_product<D>(acc, zh, zl, k_st);  // dq += dz k
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(zh);
+    fence_operands(zl);
+    if (tid == 0) mbar_arrive(&m.bars->empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t_h[h];
+    if (t < T) store_rows<D>(dq, ((long long)b * T + t) * N + n, acc, h, p.scale, t < qlim, tig);
+  }
+}
+
+template <int D, bool kLengths, int kDrop>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    attention_dkdv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                          BwdArgs p) {
+  using namespace hopper;
+  constexpr int kTile = tile_elems<D>();
+  constexpr uint32_t kTileBytes = kTile * sizeof(bf16);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n = blockIdx.x, k0 = blockIdx.y * kBK, b = blockIdx.z;
+  const int T = p.T, S = p.S, N = p.N;
+  bf16* __restrict__ dk = static_cast<bf16*>(p.dk);
+  bf16* __restrict__ dv = static_cast<bf16*>(p.dv);
+  int kend = S, qlim = T, tile0 = 0;
+  // With causal (either mode) query tiles before the chunk's first key lie
+  // wholly above the diagonal: masked, so never loaded (_causal_live; at
+  // global indices with ring offsets, _causal_live_off).
+  if (p.causal) tile0 = max(0, (k0 + p.col0 - p.row0) / kBQ);
+  if (kLengths) {
+    const int len = p.lengths[b];
+    kend = max(0, min(S, len - p.col0));
+    qlim = max(0, min(T, len - p.row0));
+    if (k0 >= kend) {  // no live key in the chunk: dk and dv are zero
+      zero_rows<D>(dk, b, k0, min(kBK, S - k0), S, N, n);
+      zero_rows<D>(dv, b, k0, min(kBK, S - k0), S, N, n);
+      return;
+    }
+  }
+  const int ntiles = (qlim + kBQ - 1) / kBQ;
+  const Smem m = carve<D, kLdT>(smem_raw);
+  const float* bias = !kLengths && p.bias != nullptr ? p.bias + b * p.bb + n * p.bn : nullptr;
+  bf16* k_s = m.res;
+  bf16* v_s = m.res + kTile;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (tile0 >= ntiles) return;
+    if (lane == 0) {
+      mbar_expect_tx(&m.bars->once, 2 * kTileBytes);
+      load_tile<D>(k_s, &map_k, &m.bars->once, n, k0, b);
+      load_tile<D>(v_s, &map_v, &m.bars->once, n, k0, b);
+    }
+    const float* lse = p.lse + ((long long)b * N + n) * T;
+    const float* dsum = p.dsum + ((long long)b * N + n) * T;
+    for (int i = tile0; i < ntiles; ++i) {
+      const int it = i - tile0, s = it % kStages;
+      if (it >= kStages) mbar_wait(&m.bars->empty[s], (it / kStages - 1) & 1);
+      bf16* q_st = m.str + 2 * s * kTile;
+      if (lane == 0) {
+        mbar_expect_tx(&m.bars->full[s], 2 * kTileBytes);
+        load_tile<D>(q_st, &map_q, &m.bars->full[s], n, i * kBQ, b);
+        load_tile<D>(q_st + kTile, &map_do, &m.bars->full[s], n, i * kBQ, b);
+      }
+      float* rows = m.rows + 128 * s;
+      for (int r = lane; r < kBQ; r += 32) {
+        const int t = i * kBQ + r;
+        cp_async4_zfill(rows + r, t < qlim ? lse + t : lse, t < qlim);
+        cp_async4_zfill(rows + kBQ + r, t < qlim ? dsum + t : dsum, t < qlim);
+      }
+      if (bias != nullptr) {
+        load_bias_tile(m.bias + s * 64 * kLdT, kLdT, bias, p.bt, 1, i * kBQ, qlim, k0, kend, lane);
+      }
+      cp_async_mbar_arrive(&m.bars->full[s]);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, tig = tid & 3;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (tile0 < ntiles) mbar_wait(&m.bars->once, 0);
+  for (int i = tile0; i < ntiles; ++i) {
+    const int it = i - tile0, s = it % kStages;
+    mbar_wait(&m.bars->full[s], (it / kStages) & 1);
+    bf16* q_st = m.str + 2 * s * kTile;
+    bf16* do_st = q_st + kTile;
+    const int t0 = i * kBQ;
+    if (kLengths && t0 + kBQ > qlim) {  // dead rows' dO: zeros, whatever the caller sent
+      zero_tile_rows<D>(do_st, qlim - t0, tid);
+      fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // the warpgroup alone
+    }
+    float st[32], dpt[32];
+    wgmma_fence();
+    ss_logits<D>(st, k_s, q_st);    // k q^T
+    ss_logits<D>(dpt, v_s, do_st);  // v dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+
+    const float* bias_st = m.bias + s * 64 * kLdT;
+    const float* lse_st = m.rows + 128 * s;
+    const float* dsum_st = lse_st + kBQ;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tig + e, t = t0 + col;
+        const float lse_t = lse_st[col], ds_t = dsum_st[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int idx = 4 * j + 2 * h + e, kr = 16 * w + g + 8 * h, key = k0 + kr;
+          const bool masked =
+              t >= qlim || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
+          float x = st[idx] * p.scale;
+          if (bias != nullptr) x += bias_st[col * kLdT + kr];
+          const float pr = masked ? 0.f : exp2f((x - lse_t) * kLog2e);
+          const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
+          st[idx] = masked ? 0.f : pr * (dpt[idx] * keep - ds_t);  // dz^T
+          dpt[idx] = pr * keep;                                     // (p o keepc)^T
+        }
+      }
+    }
+    // One operand's fragments at a time, each product waited for before the
+    // next operand is split, so that at most one operand's fragments are live
+    // beside the two accumulators. (ptxas still serialises these wgmmas at
+    // the register cap of two blocks an SM, C7512; without that cap the
+    // kernel is slower at one block an SM: PERF.md §6.)
+    {
+      uint32_t ph[16], pl[16];
+      split_hi_lo(dpt, ph, pl);
+      wgmma_fence();
+      rs_product<D>(dv_acc, ph, pl, do_st);  // dv += (p o keepc)^T dO
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dv_acc);
+      fence_operands(ph);
+      fence_operands(pl);
+    }
+    {
+      uint32_t zh[16], zl[16];
+      split_hi_lo(st, zh, zl);
+      wgmma_fence();
+      rs_product<D>(dk_acc, zh, zl, q_st);  // dk += dz^T q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dk_acc);
+      fence_operands(zh);
+      fence_operands(zl);
+    }
+    if (tid == 0) mbar_arrive(&m.bars->empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + 16 * w + g + 8 * h;
+    if (key >= S) continue;
+    const long long row = ((long long)b * S + key) * N + n;
+    store_rows<D>(dk, row, dk_acc, h, p.scale, true, tig);
+    store_rows<D>(dv, row, dv_acc, h, 1.f, true, tig);
+  }
+}
+
+template <int D, bool kLengths, int kDrop>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<E, D>();
-  auto dq_kernel = attention_dq_kernel<E, D, kLengths, kDrop>;
-  auto dkdv_kernel = attention_dkdv_kernel<E, D, kLengths, kDrop>;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv, mo;
+  int err = hopper::make_heads_map(&mq, a.q, a.B, a.T, a.N, D, a.qb, a.qt, a.qn);
+  if (!err) err = hopper::make_heads_map(&mk, a.k, a.B, a.S, a.N, D, a.kb, a.kt, a.kn);
+  if (!err) err = hopper::make_heads_map(&mv, a.v, a.B, a.S, a.N, D, a.vb, a.vt, a.vn);
+  if (!err) err = hopper::make_heads_map(&mo, a.dout, a.B, a.T, a.N, D, a.ob, a.ot, a.on);
+  if (err) return err;
+  auto dq_kernel = attention_dq_kernel<D, kLengths, kDrop>;
+  auto dkdv_kernel = attention_dkdv_kernel<D, kLengths, kDrop>;
+  const size_t smem_q = smem_bytes<D, kLdR>(), smem_k = smem_bytes<D, kLdT>();
+  cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid_q(a.N, (a.T + kBQ - 1) / kBQ, a.B), grid_k(a.N, (a.S + kBK - 1) / kBK, a.B);
   if (grid_q.y > 65535 || grid_k.y > 65535 || grid_q.z > 65535) return -1;
-  dq_kernel<<<grid_q, kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<<<grid_k, kThreads, smem, stream>>>(a);
+  dq_kernel<<<grid_q, kThreads, smem_q, stream>>>(mq, mk, mv, mo, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_kernel<<<grid_k, kThreads, smem_k, stream>>>(mq, mk, mv, mo, a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <typename E, int D, bool kLengths, int kDrop>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value && D >= 64) {
+    return tc::launch_bwd<D, kLengths, kDrop>(a, stream);
+  } else {
+    const size_t smem = bwd_smem_bytes<E, D>();
+    auto dq_kernel = attention_dq_staged_kernel<E, D, kLengths, kDrop>;
+    auto dkdv_kernel = attention_dkdv_staged_kernel<E, D, kLengths, kDrop>;
+    cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_q(a.N, (a.T + kBQ - 1) / kBQ, a.B), grid_k(a.N, (a.S + kBK - 1) / kBK, a.B);
+    if (grid_q.y > 65535 || grid_k.y > 65535 || grid_q.z > 65535) return -1;
+    dq_kernel<<<grid_q, kThreads, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dkdv_kernel<<<grid_k, kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename E, int D, bool kLengths>
+int launch_bwd_drop(const BwdArgs& a, cudaStream_t s) {
+  switch (drop_mode(a.drop)) {
+    case kDropHash: return launch_bwd<E, D, kLengths, kDropHash>(a, s);
+    case kDropMask: return launch_bwd<E, D, kLengths, kDropMask>(a, s);
+    default: return launch_bwd<E, D, kLengths, kDropNone>(a, s);
+  }
 }
 
 template <int D, bool kLengths>
 int launch_bwd_dtype(const BwdArgs& a, int dtype, cudaStream_t s) {
-  if (dtype == 0) {
-    return a.drop.on ? launch_bwd<float, D, kLengths, true>(a, s)
-                     : launch_bwd<float, D, kLengths, false>(a, s);
-  }
-  if (dtype == 1) {
-    return a.drop.on ? launch_bwd<__nv_bfloat16, D, kLengths, true>(a, s)
-                     : launch_bwd<__nv_bfloat16, D, kLengths, false>(a, s);
-  }
+  if (dtype == 0) return launch_bwd_drop<float, D, kLengths>(a, s);
+  if (dtype == 1) return launch_bwd_drop<__nv_bfloat16, D, kLengths>(a, s);
   return -2;
 }
 
 // Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
-// take (D not in {32, 64, 128}, an empty dim) or -2 for an unknown dtype code
-// (0 = float32, 1 = bfloat16).
+// take (D not in {32, 64, 128}, an empty dim), -2 for an unknown dtype code
+// (0 = float32, 1 = bfloat16) or -3 for operands TMA cannot map.
 template <bool kLengths>
 int dispatch_bwd(const BwdArgs& a, int D, int dtype, void* stream) {
   if (a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;

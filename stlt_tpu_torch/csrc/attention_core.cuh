@@ -5,7 +5,7 @@
 //   out[b, t, n] = sum_s drop(softmax_s(q[b, t, n] . k[b, s, n] * scale + bias[b, n, t, s])) v[b, s, n]
 //
 // with f32 logits, softmax and PV sums and the output rounded once to the
-// storage type. Two modes share the kernel (attention_kernel<E, kLengths, kDrop>):
+// storage type. Two modes share the kernel (attention_kernel<E, D, kLengths, kDrop>):
 //
 // - bias (flash_attention.cu, the TPU kernel _fused_attn_kernel; and
 //   blockwise_attention.cu without lengths, the dense-bias mode of the TPU
@@ -118,19 +118,29 @@ struct Tile<__nv_bfloat16, D> {
 #define STLT_HEAD_DIMS(F) F(32) F(64) F(128)
 
 // The probability dropout of the attention kernels: common.cuh's hashed
-// bits, or in mask mode (mask != nullptr) the caller's keep bits read
-// through their (b, n, t) element strides, s contiguous (stlt_tpu/ops/
-// flash.py:1055-1057, read at :618-620, :966-968, :1001-1003, :1187-1189 and
-// :1258-1260). Either way a kept element weighs `scale` = 1/(1 - rate).
+// bits, or in mask mode the caller's keep bits read through their (b, n, t)
+// element strides, s contiguous (stlt_tpu/ops/flash.py:1055-1057, read at
+// :618-620, :966-968, :1001-1003, :1187-1189 and :1258-1260). Either way a
+// kept element weighs `scale` = 1/(1 - rate). The mode is the kernels'
+// template argument kDrop, so no element tests which one it is: none (the
+// keep bits are never formed), hashed from the seed, or the mask; launch
+// picks the instantiation from `on` and the mask pointer (drop_mode).
+constexpr int kDropNone = 0, kDropHash = 1, kDropMask = 2;
+
 struct MaskedDropout : Dropout {
   const uint8_t* mask;
   long long mb, mn, mt;
-  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads,
-                                              uint32_t t, uint32_t s, uint32_t s_total) const {
-    if (mask != nullptr) return mask[b * mb + n * mn + t * mt + s] ? scale : 0.f;
+  template <int kDrop>
+  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads, uint32_t t,
+                                              uint32_t s, uint32_t s_total) const {
+    if (kDrop == kDropMask) return mask[b * mb + n * mn + t * mt + s] ? scale : 0.f;
     return Dropout::keep_scale(b, n, num_heads, t, s, s_total);
   }
 };
+
+inline int drop_mode(const MaskedDropout& d) {
+  return !d.on ? kDropNone : (d.mask != nullptr ? kDropMask : kDropHash);
+}
 
 struct AttnArgs {
   const void* q;
@@ -317,7 +327,7 @@ __device__ __forceinline__ void chunk_pv(float (&o)[kRows][D / 32], const float 
   }
 }
 
-template <typename E, int D, bool kLengths, bool kDrop>
+template <typename E, int D, bool kLengths, int kDrop>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   constexpr int LD = Tile<E, D>::LD, kO = D / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -435,9 +445,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
 #pragma unroll
       for (int j = 0; j < kO; ++j) o[r][j] *= corr;
       m[r] = mx;
-      if (kDrop) {  // only PV sees the dropped probabilities
+      if (kDrop != kDropNone) {  // only PV sees the dropped probabilities
 #pragma unroll
-        for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale(b, n, N, t, s0 + lane + 32 * j, S);
+        for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale<kDrop>(b, n, N, t, s0 + lane + 32 * j, S);
       }
     }
     chunk_pv<D>(o, s, vc, sc, ph, lane);
@@ -461,7 +471,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   }
 }
 
-template <typename E, int D, bool kLengths, bool kDrop>
+template <typename E, int D, bool kLengths, int kDrop>
 int launch(const AttnArgs& a, cudaStream_t stream) {
   auto kernel = attention_kernel<E, D, kLengths, kDrop>;
   const size_t smem = smem_bytes<E, D>();
@@ -474,13 +484,19 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename E, int D, bool kLengths>
+int launch_drop(const AttnArgs& a, cudaStream_t s) {
+  switch (drop_mode(a.drop)) {
+    case kDropHash: return launch<E, D, kLengths, kDropHash>(a, s);
+    case kDropMask: return launch<E, D, kLengths, kDropMask>(a, s);
+    default: return launch<E, D, kLengths, kDropNone>(a, s);
+  }
+}
+
 template <int D, bool kLengths>
 int launch_dtype(const AttnArgs& a, int dtype, cudaStream_t s) {
-  if (dtype == 0) return a.drop.on ? launch<float, D, kLengths, true>(a, s) : launch<float, D, kLengths, false>(a, s);
-  if (dtype == 1) {
-    return a.drop.on ? launch<__nv_bfloat16, D, kLengths, true>(a, s)
-                     : launch<__nv_bfloat16, D, kLengths, false>(a, s);
-  }
+  if (dtype == 0) return launch_drop<float, D, kLengths>(a, s);
+  if (dtype == 1) return launch_drop<__nv_bfloat16, D, kLengths>(a, s);
   return -2;
 }
 

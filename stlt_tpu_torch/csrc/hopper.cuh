@@ -1,9 +1,11 @@
-// Hopper building blocks of the bf16 layer tail (fused_layer_tail.cu) and
-// of its train backward (fused_tail_train_bwd.cu), in
-// inline PTX for sm_90a: 2-D TMA tile loads (cp.async.bulk.tensor) into
-// shared memory that report to mbarriers, and warpgroup matrix products
-// (wgmma.mma_async) that read both operands from those tiles through
-// 128-byte-swizzle matrix descriptors.
+// Hopper building blocks of the bf16 layer tail (fused_layer_tail.cu), of
+// its train backward (fused_tail_train_bwd.cu) and of the attention
+// backward (attention_bwd_core.cuh), in inline PTX for sm_90a: 2-D and 4-D
+// TMA tile loads (cp.async.bulk.tensor) into shared memory that report to
+// mbarriers, 4-byte cp.async copies that report to the same mbarriers, and
+// warpgroup matrix products (wgmma.mma_async) that read B, and A too or A
+// from registers, from those tiles through 128-byte-swizzle matrix
+// descriptors.
 //
 // Tiles. Every tile here is bf16 whose contiguous dim is cut into 64-element
 // (128-byte) rows, loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B, so one
@@ -83,6 +85,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box at element coordinates (c0 innermost, c1, c2, c3) of a 4-D `map`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// --- cp.async onto an mbarrier ------------------------------------------------
+
+// 4 bytes from global to shared memory, or 4 zero bytes (reading nothing)
+// when !valid.
+__device__ __forceinline__ void cp_async4_zfill(void* smem_dst, const void* gmem_src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem_dst)),
+               "l"(gmem_src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (.noinc: the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- wgmma --------------------------------------------------------------------
 
 // The shared-memory matrix descriptor of a 128-byte-swizzled tile at p.
@@ -90,6 +127,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// Descriptors of the 128-byte-swizzled bf16 tiles that TMA lands (rows of
+// 64 elements): a K-major tile ([rows][64 k]) at k16 step kk, and an
+// MN-major one ([64 k][64-column boxes], `box_bytes` apart) at k16 step kk.
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile, int kk) {
+  return desc_sw128(tile + kk * 16, 0, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile, int kk,
+                                            uint32_t box_bytes = 64 * 64 * 2) {
+  return desc_sw128(tile + kk * 16 * 64, box_bytes, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -107,6 +155,13 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments held in registers: an RS wgmma reads them after
+// it is issued, so they must stay live (and unchanged) until it is waited for.
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 operands from shared memory, f32
@@ -168,6 +223,66 @@ struct Wgmma<64, kTransA, kTransB> {
   }
 };
 
+// The RS form: d[64 x N] += A[64 x 16] B[16 x N] with A from registers, the
+// m64k16 bf16 fragment of one warpgroup (thread t holds rows 16 (t / 32) +
+// (t % 32) / 4 and + 8, columns 2 (t % 4) + {0, 1} and + 8, as four bf16x2
+// words: (row, c), (row + 8, c), (row, c + 8), (row + 8, c + 8)); so the
+// m64nNk16 accumulator fragment's words 8 kk .. 8 kk + 7, rounded in pairs,
+// are the A fragment of its columns 16 kk .. 16 kk + 15. B as above;
+// accumulate = 0 overwrites d.
+template <int N, int kTransB>
+struct WgmmaRS;
+
+template <int kTransB>
+struct WgmmaRS<64, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+  }
+};
+
+template <int kTransB>
+struct WgmmaRS<128, kTransB> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+  }
+};
+
 // --- tensor maps (host) -------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -206,6 +321,28 @@ inline int make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t 
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The TMA map of a bf16 [B, R, N, D] head tensor read through its element
+// strides (rb, rr, rn; d contiguous, each stride and the base 16-byte
+// aligned) as the 4-D tensor (D, N, R, B), in boxes of 64 d x 1 head x 64
+// rows x 1 clip, 128-byte swizzled: a box at rows past R lands as zeros, so a
+// clip's last tile never reads the next clip's rows. Returns 0, or -3 if it
+// cannot be encoded.
+inline int make_heads_map(CUtensorMap* map, const void* base, uint64_t B, uint64_t R, uint64_t N,
+                          uint64_t D, long long rb, long long rr, long long rn) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -3;
+  const cuuint64_t dims[4] = {D, N, R, B};
+  const cuuint64_t strides[3] = {rn * sizeof(__nv_bfloat16), rr * sizeof(__nv_bfloat16),
+                                 rb * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

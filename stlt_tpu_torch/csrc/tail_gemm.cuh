@@ -233,15 +233,9 @@ __device__ __forceinline__ void consume(const Ring& r, int nk, Mma&& mma, Acc&..
   }
 }
 
-// Descriptors of the 128-byte-swizzled tiles (hopper.cuh): a K-major tile
-// ([rows][64 k]) at k16 step kk, and an MN-major one ([64 k][64-column
-// boxes], `box_bytes` apart) at k16 step kk.
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
-  return hopper::desc_sw128(tile + kk * 16, 0, 1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk, uint32_t box_bytes = 64 * kBK * 2) {
-  return hopper::desc_sw128(tile + kk * 16 * 64, box_bytes, 1024);
-}
+// Descriptors of the 128-byte-swizzled tiles (hopper.cuh).
+using hopper::desc_k;
+using hopper::desc_mn;
 
 }  // namespace tail
 }  // namespace stlt

@@ -16,10 +16,13 @@ prints each variant's relative norm errors in bf16:
 
 - ``sound``: the sources as they are (every family);
 - attention, dense and dense_bwd, ``no_lo_split``: the tensor-core products
-  of the probabilities and of dz (``attention_core.cuh::chunk_pv``) take
-  only the bf16 hi part, not hi + lo;
+  of the probabilities and of dz take only the bf16 hi part, not hi + lo
+  (the forward's and the staged backward's ``attention_core.cuh::chunk_pv``,
+  the wgmma backward's ``attention_bwd_core.cuh::tc::split_hi_lo``);
 - attention and dense_bwd, ``no_dsum``: dz = p o dp, without the ``- dsum``
-  term;
+  term (every backward body);
+- attention and dense_bwd, ``dkdv_keep_ts_swapped``: the dk/dv kernel hashes
+  the keep bit of (query t, key s) at (s, t) on its transposed fragment;
 - tail, ``act_grad_of_cd_z1``: act' taken on z1 rounded to bf16 instead of
   the f32 z1 (``fused_tail_train_bwd.cu::hidden_grads``, which GEMM A's
   epilogue calls);
@@ -48,7 +51,8 @@ prints each variant's relative norm errors in bf16:
 - dense_bwd, ``dense_bwd_causal_last_key_dropped``: the same in the dq
   kernel of the backward's dense-bias mode;
 - dense_bwd, ``dense_bwd_bias_transposed``: the dk/dv kernel reads the
-  bias with its t and s strides swapped (``bias[b, n, s, t]``).
+  bias with its t and s strides swapped (``bias[b, n, s, t]``; in the wgmma
+  body, the producer's copy of each bias tile).
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
@@ -101,15 +105,26 @@ FAMILIES = {
 # variant -> (families it is measured in, source edits)
 MUTATIONS = {
     "sound": (tuple(FAMILIES), []),
-    "no_lo_split": (("attention", "dense", "dense_bwd"), [(
-        "attention_core.cuh",
-        "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
-        "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);",
-    )]),
+    "no_lo_split": (("attention", "dense", "dense_bwd"), [
+        ("attention_core.cuh",
+         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
+         "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);"),
+        ("attention_bwd_core.cuh",
+         "const __nv_bfloat162 l = __floats2bfloat162_rn(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));",
+         "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);"),
+    ]),
     "no_dsum": (("attention", "dense_bwd"), [
         ("attention_bwd_core.cuh", "expf(x - lse_t) * (d - ds);", "expf(x - lse_t) * d;"),
         ("attention_bwd_core.cuh", "pr * (dp[r][j] * keep - ds_j[j]);", "pr * (dp[r][j] * keep);"),
+        ("attention_bwd_core.cuh", "exp2f((x - lse_h[h]) * kLog2e) * (d - ds_h[h]);",
+         "exp2f((x - lse_h[h]) * kLog2e) * d;"),
+        ("attention_bwd_core.cuh", "pr * (dpt[idx] * keep - ds_t);", "pr * (dpt[idx] * keep);"),
     ]),
+    "dkdv_keep_ts_swapped": (("attention", "dense_bwd"), [(
+        "attention_bwd_core.cuh",
+        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, t, key, S);",
+        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, key, t, S);",
+    )]),
     "act_grad_of_cd_z1": (("tail",), [(
         "fused_tail_train_bwd.cu",
         "return make_float2(dacc * activation_grad(z, act), h1);",
@@ -165,14 +180,17 @@ MUTATIONS = {
     )]),
     "dense_bwd_causal_last_key_dropped": (("dense_bwd",), [(
         "attention_bwd_core.cuh",
-        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
-        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T)) - 1;",
+        "if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S);",
+        "if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S) - 1;",
     )]),
-    "dense_bwd_bias_transposed": (("dense_bwd",), [(
-        "attention_bwd_core.cuh",
-        "x += __ldg(bias + (long long)t * p.bt + key);\n        const float pr =",
-        "x += __ldg(bias + (long long)key * p.bt + t);\n        const float pr =",
-    )]),
+    "dense_bwd_bias_transposed": (("dense_bwd",), [
+        ("attention_bwd_core.cuh",
+         "x += __ldg(bias + (long long)t * p.bt + key);\n        const float pr =",
+         "x += __ldg(bias + (long long)key * p.bt + t);\n        const float pr ="),
+        ("attention_bwd_core.cuh",
+         "load_bias_tile(m.bias + s * 64 * kLdT, kLdT, bias, p.bt, 1, i * kBQ, qlim, k0, kend, lane);",
+         "load_bias_tile(m.bias + s * 64 * kLdT, kLdT, bias, 1, p.bt, i * kBQ, qlim, k0, kend, lane);"),
+    ]),
 }
 TAIL_GRADS = ("dx", "dattn", "dn1s", "dn1b", "dw1", "db1", "dw2", "db2", "dn2s", "dn2b")
 

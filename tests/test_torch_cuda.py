@@ -1122,11 +1122,12 @@ def test_cross_attention_kernel_matches_plain_at_every_width(device, dtype, H, N
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_attention_kernels_match_plain_at_every_head_dim(device, dtype, D):
-    """Rows 6-10 at head dims 32 and 128: the short kernel and its backward
-    (T = 257, dropout 0.1), the blockwise lengths mode (T = 513, causal,
-    ragged, dropout 0.1) and its backward."""
+    """Rows 6-10 at head dims 32, 64 and 128 (the bf16 backwards: the staged
+    body at 32, the wgmma body at 64 and 128): the short kernel and its
+    backward (T = 257, dropout 0.1), the blockwise lengths mode (T = 513,
+    causal, ragged, dropout 0.1) and its backward."""
     from stlt_tpu_torch.ops import flash
 
     gen = torch.Generator().manual_seed(D)
@@ -1208,7 +1209,6 @@ def test_blockwise_offsets_bwd_kernel_matches_plain(device, dtype, offsets, rate
     row0, col0 = offsets
     rows, cols = slice(row0, row0 + T), slice(col0, col0 + T)
     q, out, lse = q[:, rows], out[:, rows], lse[:, :, rows].contiguous()
-    k, v = k[:, cols].contiguous(), v[:, cols].contiguous()
     t = torch.arange(T, device=device)[None, :] + row0
     live = t < lengths[:, None]
     dout = torch.randn(B, T, 12, 64, generator=gen).to(device, dtype)
@@ -1221,20 +1221,26 @@ def test_blockwise_offsets_bwd_kernel_matches_plain(device, dtype, offsets, rate
         x = empty(*args, **kwargs)
         return x.fill_(float("nan")) if x.is_floating_point() else x
 
-    flash.reset_launches()
-    try:
-        torch.empty = nan_filled
-        got = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
-    finally:
-        torch.empty = empty
-    assert flash.LAUNCHES["blockwise_attention_bwd_offsets"] == 1
-    assert flash.LAUNCHES["blockwise_attention_bwd"] == 0
-    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
-    again = flash.blockwise_attention_bwd(q, k, v, dout, lse, dsum, **kw)
-    torch.cuda.synchronize()
-    no_key = live & ((col0 >= lengths[:, None]) | (col0 > t))
-    _check_grads(got, want, dtype, ~live | no_key)
-    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+    # The chunk copied, and as the ring passes it: the clip's column view
+    # (a k/v row stride of the whole clip's, kb != S kt).
+    results = []
+    for kc, vc in ((k[:, cols].contiguous(), v[:, cols].contiguous()), (k[:, cols], v[:, cols])):
+        flash.reset_launches()
+        try:
+            torch.empty = nan_filled
+            got = flash.blockwise_attention_bwd(q, kc, vc, dout, lse, dsum, **kw)
+        finally:
+            torch.empty = empty
+        assert flash.LAUNCHES["blockwise_attention_bwd_offsets"] == 1
+        assert flash.LAUNCHES["blockwise_attention_bwd"] == 0
+        want = flash.attention_bwd_plain(q, kc, vc, dout, lse, dsum, **kw)
+        again = flash.blockwise_attention_bwd(q, kc, vc, dout, lse, dsum, **kw)
+        torch.cuda.synchronize()
+        no_key = live & ((col0 >= lengths[:, None]) | (col0 > t))
+        _check_grads(got, want, dtype, ~live | no_key)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+        results.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(*results)), "the column view reads other values"
 
 
 # --- the attention kernels' dropout-mask operand (rows 6-10, mask mode) -------------
@@ -1351,6 +1357,65 @@ def test_hashed_mask_equals_the_seed_mode(device, route):
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("route", ["flash", "lengths", "dense", "offsets"])
+def test_mask_mode_backward_relaunch_is_bit_identical(device, route):
+    """Rows 7 and 9-10 in mask mode (bf16, per-head mask): two launches give
+    the same bits, as the seed mode's tests check for theirs."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(len(route) + 3)
+    q, k, v, kw, fwd, bwd, _ = _mask_case(route, torch.bfloat16, False, gen, device)
+    out, lse = _mask_forward(fwd, q, k, v, kw)
+    dout = torch.randn(out.shape, generator=gen).to(device, q.dtype)
+    dsum = flash._dsum(dout, out, kw.get("kv_lengths"), kw.get("offsets", (0, 0))[0])
+    first = bwd(q, k, v, dout, lse, dsum, **kw)
+    second = bwd(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(a).all() for a in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "not deterministic"
+
+
+# --- the attention backward on wgmma and TMA (rows 7, 9-10) ----------------------
+
+
+@pytest.mark.parametrize("T", [65, 513])
+@pytest.mark.parametrize("fill", ["next_clip_1e4", "inf_past_the_clip"])
+def test_attention_bwd_reads_nothing_past_its_clip(device, T, fill):
+    """The bf16 backwards' TMA maps bound each clip, so a clip's last tile
+    (65 = 64 + 1, 513 = 8 * 64 + 1 rows) reads zeros past its rows: with
+    clip 2's q, k, v and dO 1e4 times larger, clips 0 and 1's dq, dk, dv
+    equal the plain version's; with inf in the rows past every clip (views
+    of [B, T + 64] buffers), every clip's do. T = 65 on the short kernel
+    (causal+padding bias), 513 on the blockwise lengths mode, dropout 0.1."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + len(fill))
+    B, N, D, dtype = 3, 12, 64, torch.bfloat16
+    pad = 64 if fill == "inf_past_the_clip" else 0
+    bufs = [torch.randn(B, T + pad, N, D, generator=gen) for _ in range(4)]
+    for x in bufs:
+        if pad:
+            x[:, T:] = float("inf")
+        else:
+            x[2] *= 1e4
+    q, k, v, dout = (x.to(device, dtype)[:, :T] for x in bufs)
+    drop = dict(dropout_rate=0.1, dropout_seed=0x5EED)
+    if T < 513:
+        kw = dict(bias=_bias("causal_padding", B, T, gen).to(device), **drop)
+        out, lse = flash.fused_attention_plain(q, k, v, kw["bias"], with_lse=True, **drop)
+        dsum, bwd = flash._dsum(dout, out, None), flash.fused_attention_bwd
+    else:
+        lengths = torch.tensor([T, 300, T], dtype=torch.int32, device=device)
+        kw = dict(kv_lengths=lengths, causal=True, **drop)
+        out, lse = flash.blockwise_attention_plain(q, k, v, **kw)
+        dsum, bwd = flash._dsum(dout, out, lengths), flash.blockwise_attention_bwd
+    got = bwd(q, k, v, dout, lse, dsum, **kw)
+    want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
+    torch.cuda.synchronize()
+    clips = slice(None) if pad else slice(0, 2)
+    _check_grads(tuple(g[clips] for g in got), tuple(g[clips] for g in want), dtype)
 
 
 # --- the bf16 layer tail on wgmma and TMA (rows 2 and 11) --------------------------
