@@ -51,7 +51,15 @@ Phases, in order; any failure exits non-zero:
    causal+padding bias, with and without the causal flag), 513 x 33 (no
    bias) and 33 x 513 (key padding) at B = 16 and 32, out and lse, against
    ``scaled_dot_product_attention`` with the same mask; and the layer
-   tail's ReLU / eps 1e-5 variant (the appearance encoder) at T = 33; then
+   tail's ReLU / eps 1e-5 variant (the appearance encoder) at T = 33 (rows
+   1, 2, 3, 5 and 8 dense: kernel, plain version and yardstick each the
+   median of five windows of five launches; rows 1, 3 and 5 with the
+   weights as the model passes them and two launches bit-identical); then
+   rows 1, 3 and 5 stage by stage
+   (the bf16 split of ``csrc/sublayer.cuh``: packed rows, qkv or q and kv,
+   the attention output, y, each against its plain version from the
+   kernel's own inputs), one call of each main-path shape split by CUDA
+   kernel with ``torch.profiler``, and the wrappers' host time; then
    the fusion models' train-path attention: the short kernel's dropout
    forward and its backward at the train cross-attention's (T, S) = (17,
    33) and (33, 17), B = 32, and the blockwise kernels' dense-bias mode at
@@ -234,6 +242,13 @@ points, same keep bits; the two differ only in the order of their sums):
   dW2: each split's partial rounded to bf16 1.7e-3, the last split left out
   0.35 at 65,792 tokens (8 splits) and 1.0 at 4,112 (one split) (``python
   -m stlt_tpu_torch.utils.bwd_tolerance tail``, H100; PERF.md §6).
+- the fused projection+attention (rows 1 and 3) in bf16: the same OP_TOL
+  and the output within a relative Frobenius-norm error of PROJ_REL
+  (1.2e-3). Sound kernels read at
+  most 4.7e-4; q/k/v rounded before their bias add (a rounding point
+  moved) 4.5e-3, which OP_TOL alone passes; the keep bits hashed at the
+  packed row 0.45 and the dead rows computed 0.79, both over OP_TOL too
+  (``python -m stlt_tpu_torch.utils.bwd_tolerance proj``, H100; PERF.md §6).
 - the fused cross-attention (row 5) and the blockwise forward's dense-bias
   mode (row 8): the same OP_TOL elementwise, and in bf16 the output within
   a relative Frobenius-norm error of CROSS_REL (1.2e-3) and DENSE_REL
@@ -243,11 +258,11 @@ points, same keep bits; the two differ only in the order of their sums):
   a neighbouring bf16 value of q, kv or o_h, taken where the two f32 sums
   straddle a rounding boundary, moves a near-uniform softmax's output, an
   average of values several times its size) and 1.0e-4 (row 8 dense).
-  Planted faults read: row 5 with q_h not rounded 1.7e-3 to 2.6e-3, bkv
-  left out 2.5e-2 to 0.11, bo left out 4.3e-2 to 0.19, a head left out
-  0.29; row 8 dense without the hi + lo split 1.8e-3 to 2.2e-3, its causal
-  key range one key short 7.1e-3 (``python -m
-  stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md, PR 6).
+  Planted faults read: row 5 with q and kv rounded before their bias add
+  5.9e-3, bkv left out 0.11, bo left out 0.19, a head left out 0.30 (only
+  the last over OP_TOL too); row 8 dense without the hi + lo split 1.8e-3
+  to 2.2e-3, its causal key range one key short 7.1e-3 (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md §6).
 - the blockwise forward's ring-offset mode (row 8): out and lse within
   OP_TOL elementwise and, in bf16, within DENSE_REL (row 8's limit) in
   relative norm; the merge-wiped rows exactly zeros with lse -1e30.
@@ -404,6 +419,9 @@ TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # bf16 outputs of the fused cross-attention and of the blockwise forward's
 # dense-bias mode, relative norm (f32: OP_TOL alone).
 CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+# bf16 outputs of the fused projection+attention (rows 1 and 3), relative
+# norm: sound 4.7e-4, q/k/v rounded before their bias add 4.5e-3.
+PROJ_REL = 1.2e-3
 # dq, dk, dv of the blockwise backward's dense-bias mode in bf16, relative
 # norm (f32: BWD_REL): sound 1.3e-4, the smallest planted fault 2.5e-3.
 DENSE_BWD_REL = 1e-3
@@ -444,6 +462,19 @@ def make_weights(gen, device, H=H):
         "n2s": 1 + _uniform((H,), 0.1, gen, device),
         "n2b": _uniform((H,), 0.1, gen, device),
     }
+
+
+def model_layout(w):
+    """``w`` with its attention weights as the attention layer hands them to
+    the kernels: transposed views of f32 parameters stored [out, in]
+    (``in_proj_weight.t()``, ``out_proj.weight.t()``; the cross-attention's
+    ``wq`` and ``wkv`` the views of ``in_proj_weight[:H]`` and ``[H:]``), so
+    that rows 1, 3 and 5 read them as on the main path: the bf16 kernels
+    take that storage after one conversion to bf16, no transposing copy."""
+    width = w["wo"].shape[0]
+    in_proj = w["wqkv"].t().contiguous()  # [3H, H]
+    return dict(w, wqkv=in_proj.t(), wo=w["wo"].t().contiguous().t(), wq=in_proj[:width].t(),
+                wkv=in_proj[width:].t(), bq=w["bqkv"][:width], bkv=w["bqkv"][width:])
 
 
 def make_stage(stage: str, clips: int, dtype, gen, device, frames: int = NUM_FRAMES):
@@ -594,7 +625,8 @@ def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, 
     """Check ``kernel()`` against ``plain()`` (one output, elementwise, and
     with ``rel_tol`` also in the relative Frobenius norm; with ``twice`` a
     second launch bit-identical) and time kernel, plain version and library
-    yardstick; returns the row."""
+    yardstick (each the median of five windows of five launches, with the
+    windows' spread); returns the row."""
     got, want = kernel(), plain()
     again = kernel() if twice else got
     torch.cuda.synchronize()
@@ -607,15 +639,14 @@ def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, 
         extra.update(rel_err=_rel(got, want), rel_tol=rel_tol)
         if extra["rel_err"] > rel_tol:
             raise AssertionError(f"{label}: relative norm error {extra['rel_err']:.3e} over {rel_tol}")
-    iters = 20 if clips == BATCH else 5
     bound_ms, bound_by = bound
     row = {
         "name": name, "stage": stage, "dtype": str(dtype).split(".")[1], "clips": clips,
         "rows": x.shape[0], "T": x.shape[1], **extra,
         "live_fraction": round(float(live.float().mean()), 4), "max_abs_err": err, "tol": tol,
-        "ms": cuda_ms(kernel, iters), "plain_ms": cuda_ms(plain, iters),
-        "library_ms": cuda_ms(library, iters), "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    median_fields(row, ms=kernel, plain_ms=plain, library_ms=library)
     log("kernel_check " + json.dumps(row))
     return row
 
@@ -629,6 +660,7 @@ def check_kernels(device):
 
     gen = torch.Generator().manual_seed(SEED)
     w = make_weights(gen, device)
+    wm = model_layout(w)
     table = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol = OP_TOL[dtype]
@@ -642,14 +674,14 @@ def check_kernels(device):
                 continue
             x, a, bias, live_kw, proj_live, tail_live = make_stage(
                 stage, clips, dtype, gen, device, frames)
-            proj_args = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias)
+            proj_args = (x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias)
             proj_kw = dict(num_heads=HEADS, compute_dtype=dtype, rows_live=live_kw.get("rows_live"))
             row = _measure(
                 "fused_proj_attention", stage, dtype, clips, x,
                 lambda: fe.fused_proj_attention(*proj_args, **proj_kw),
                 lambda: fe.fused_proj_attention_plain(*proj_args, **proj_kw),
                 lambda: lib_p(x, bias.to(dtype)), proj_bound(x, bias, proj_live, dtype),
-                proj_live, tol,
+                proj_live, tol, rel_tol=PROJ_REL if dtype == torch.bfloat16 else None, twice=True,
             )
             if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16:
                 table["fused_proj_attention"] = row
@@ -726,6 +758,7 @@ def check_train_kernels(device):
 
     gen = torch.Generator().manual_seed(SEED + 1)
     w = make_weights(gen, device)
+    wm = model_layout(w)
     seed = 0x5EED5EED
     table = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -744,7 +777,7 @@ def check_train_kernels(device):
             if rows_live is not None:
                 g[~rows_live] = 0  # as in the model: dead rows get no cotangent
             kw = dict(num_heads=HEADS, dropout_rate=rate, compute_dtype=dtype, rows_live=rows_live)
-            fwd = (x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias, seed)
+            fwd = (x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias, seed)
             bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed)
             lib_f, lib_b = library_train(w, dtype, rate)
             label = f"{stage} {dtype} B={clips} T={x.shape[1]} rate={rate}"
@@ -754,7 +787,8 @@ def check_train_kernels(device):
                 lambda: fe.fused_proj_attention_train(*fwd, **kw),
                 lambda: fe.fused_proj_attention_train_plain(*fwd, **kw),
                 lambda: lib_f(x, bias.to(dtype)), proj_bound(x, bias, proj_live, dtype),
-                proj_live, tol, rate=rate,
+                proj_live, tol, rel_tol=PROJ_REL if dtype == torch.bfloat16 else None, twice=True,
+                rate=rate,
             )
             # The wrapper on leaves that record the graph: its forward, then
             # its backward through both kernels.
@@ -800,6 +834,142 @@ def check_train_kernels(device):
             del x, g, bias, got, want, again, leaves, y, y_lib, lib_x
             torch.cuda.empty_cache()
     return table
+
+
+# --- phase 2, rows 1, 3 and 5 stage by stage: the bf16 split of sublayer.cuh --
+
+# Rows 1/3 and row 5's CUDA kernels by stage (csrc/sublayer.cuh): the scan and
+# gather packing the live rows, the projection and out GEMMs, the short
+# attention.
+SUBLAYER_GROUPS = (
+    ("pack: scan, gather", ("proj_live_rows", "proj_gather")),
+    ("GEMMs", ("proj_gemm", "cross_gemm")),
+    ("attention", ("proj_attn_kernel", "cross_short_attn")),
+)
+
+
+def _stage_check(label, got, want, live=None):
+    """One stage's output against its plain version from the kernel's own
+    inputs (OP_TOL in bf16, dead rows exact zeros); returns (max abs, rel)."""
+    live = torch.ones(got.shape, dtype=torch.bool, device=got.device) if live is None else live
+    return _check_close(label, got, want, live, OP_TOL[got.dtype]), _rel(got, want)
+
+
+def _enqueue_ms(fn, iters: int = 20) -> float:
+    """Mean host time for ``fn()`` to return, the device idle before each
+    call: what the wrapper's host path costs a call."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / iters
+
+
+def check_sublayer_stages(device):
+    """Rows 1, 3 and 5 stage by stage, so that a fault can be localised: one
+    bf16 launch of the train forward (spatial, B = 64, ragged rows_live,
+    dropout 0.1) and of the cross-attention (17 <- 33, B = 64, key padding)
+    into a scratch of the caller's, then each stage's output held against its
+    plain version (``ops/fused_encoder.py``) from the kernel's own inputs:
+    the packed rows and count exactly, qkv (gather + QKV GEMM), the
+    attention output o (keep bits at the original rows), y (out GEMM,
+    scattered, dead rows exact zeros); q, kv, o and y of row 5. Then the
+    device time of one call split by CUDA kernel (torch.profiler) and the
+    wrappers' host time at the main-path shapes."""
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import masks
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    w = make_weights(gen, device)
+    wm = model_layout(w)
+    bf = torch.bfloat16
+    seed = 0x5EED5EED
+    x, _, bias, live_kw, proj_live, _ = make_stage("spatial", BATCH, bf, gen, device)
+    rows_live = live_kw["rows_live"]
+    B, T, _ = x.shape
+    kw = dict(num_heads=HEADS, compute_dtype=bf, rows_live=rows_live)
+    scratch = fe.proj_scratch(B, T, H, x)
+    y = fe._launch_proj("fused_proj_attention_train", x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias,
+                        seed=seed, dropout_rate=DROPOUT, scratch=scratch, **kw)
+    torch.cuda.synchronize()
+    qkv, o, rows, count = fe.proj_scratch_views(scratch, B, T, H)
+    want_rows, live_rows = fe.live_rows_plain(rows_live, B, device)
+    if count.item() != live_rows or not torch.equal(rows, want_rows):
+        raise AssertionError(f"rows 1/3 pack: count {count.item()} against {live_rows}, or the rows differ")
+    n, live = live_rows * T, rows[:live_rows].long()
+    stages = {"rows": {"count": live_rows, "rows": B}}
+    want_qkv = fe.projection_plain(x[live].reshape(n, H), wm["wqkv"].t(), w["bqkv"], bf).to(bf)
+    stages["qkv"] = _stage_check("rows 1/3 gather + QKV GEMM", qkv[:n], want_qkv)
+    q, k, v = qkv[:n].view(live_rows, T, 3 * H).split(H, dim=-1)
+    want_o = fe.short_attention_plain(q, k, v, fe._bias3(bias, B, T, device), live, num_heads=HEADS,
+                                      seed=seed, dropout_rate=DROPOUT)
+    stages["o"] = _stage_check("rows 1/3 attention", o[:n], want_o.reshape(n, H))
+    want_y = torch.zeros_like(y)
+    want_y[live] = fe.projection_plain(o[:n], wm["wo"].t(), w["bo"], bf).to(bf).view(live_rows, T, H)
+    stages["y"] = _stage_check("rows 1/3 out GEMM", y, want_y, proj_live[..., None].expand(y.shape))
+    log("stage_check " + json.dumps({"name": "fused_proj_attention_train", "shape": f"spatial B={BATCH}",
+                                     "rate": DROPOUT, "stages": stages}))
+    del x, y, scratch, qkv, o, want_qkv, want_o, want_y
+
+    T, S = 17, 33
+    x = torch.randn((BATCH, T, H), generator=gen).to(device, bf)
+    ctx = torch.randn((BATCH, S, H), generator=gen).to(device, bf)
+    lengths = torch.randint(1, S + 1, (BATCH,), generator=gen)
+    cbias = masks.key_padding_bias(torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+    scratch = fe.cross_scratch(BATCH, T, S, H, x)
+    y = fe._launch_cross(x, ctx, wm["wq"], wm["bq"], wm["wkv"], wm["bkv"], wm["wo"], w["bo"], cbias,
+                         num_heads=HEADS, compute_dtype=bf, scratch=scratch)
+    torch.cuda.synchronize()
+    q, kv, o = fe.cross_scratch_views(scratch, BATCH, T, S, H)
+    stages = {
+        "q": _stage_check("row 5 q GEMM", q, fe.projection_plain(x.reshape(-1, H), wm["wq"].t(), wm["bq"], bf).to(bf)),
+        "kv": _stage_check("row 5 kv GEMM", kv,
+                           fe.projection_plain(ctx.reshape(-1, H), wm["wkv"].t(), wm["bkv"], bf).to(bf)),
+    }
+    kv3 = kv.view(BATCH, S, 2 * H)
+    want_o = fe.short_attention_plain(q.view(BATCH, T, H), kv3[..., :H], kv3[..., H:],
+                                      fe._bias3(cbias, BATCH, T, device, S), None, num_heads=HEADS)
+    stages["o"] = _stage_check("row 5 attention", o, want_o.reshape(-1, H))
+    stages["y"] = _stage_check("row 5 out GEMM", y,
+                               fe.projection_plain(o, wm["wo"].t(), w["bo"], bf).to(bf).view(y.shape))
+    log("stage_check " + json.dumps({"name": "fused_cross_attention", "shape": f"{T} <- {S} B={BATCH}",
+                                     "stages": stages}))
+    del x, ctx, y, scratch, q, kv, o, want_o
+
+    # One call of each main-path shape, by CUDA kernel; the wrappers' host time.
+    for stage, clips, frames, op in (("spatial", BATCH, NUM_FRAMES, "eval"),
+                                     ("spatial", THROUGHPUT_BATCH, NUM_FRAMES, "eval"),
+                                     ("temporal", BATCH, NUM_FRAMES, "eval"),
+                                     ("temporal", BATCH, LONG_FRAMES, "eval"),
+                                     ("spatial", BATCH, NUM_FRAMES, "train"),
+                                     ("spatial", TRAIN_BATCH, NUM_FRAMES, "train")):
+        x, _, bias, live_kw, _, _ = make_stage(stage, clips, bf, gen, device, frames)
+        args = (x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias)
+        pkw = dict(num_heads=HEADS, compute_dtype=bf, rows_live=live_kw.get("rows_live"))
+        if op == "train":
+            run = lambda: fe.fused_proj_attention_train(*args, seed, dropout_rate=DROPOUT, **pkw)
+        else:
+            run = lambda: fe.fused_proj_attention(*args, **pkw)
+        label = f"rows 1/3 {op} {stage} B={clips} T={x.shape[1]}"
+        _device_profile("sublayer", run, SUBLAYER_GROUPS, name=label)
+        log("sublayer_host " + json.dumps({"name": label, "host_ms": _host_ms(run, 20),
+                                           "enqueue_ms": _enqueue_ms(run)}))
+        del x, bias, live_kw
+    for clips in (BATCH, THROUGHPUT_BATCH):
+        x = torch.randn((clips, 17, H), generator=gen).to(device, bf)
+        ctx = torch.randn((clips, 33, H), generator=gen).to(device, bf)
+        run = lambda: fe.fused_cross_attention(x, ctx, wm["wq"], wm["bq"], wm["wkv"], wm["bkv"], wm["wo"],
+                                               w["bo"], None, num_heads=HEADS, compute_dtype=bf)
+        label = f"row 5 17 <- 33 B={clips}"
+        _device_profile("sublayer", run, SUBLAYER_GROUPS, name=label)
+        log("sublayer_host " + json.dumps({"name": label, "host_ms": _host_ms(run, 20),
+                                           "enqueue_ms": _enqueue_ms(run)}))
+        del x, ctx
+    torch.cuda.empty_cache()
 
 
 # --- phase 2, long clips: the attention kernels of ops/flash.py ---------------
@@ -1438,6 +1608,7 @@ def check_fusion_kernels(device):
     gen = torch.Generator().manual_seed(SEED + 6)
     w = make_weights(gen, device)
     w.update(wq=w["wqkv"][:, :H], bq=w["bqkv"][:H], wkv=w["wqkv"][:, H:], bkv=w["bqkv"][H:])
+    wm = model_layout(w)
     table = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol = OP_TOL[dtype]
@@ -1452,7 +1623,7 @@ def check_fusion_kernels(device):
                         lengths = torch.randint(1, S + 1, (clips,), generator=gen)
                         pad = torch.arange(S)[None, :] >= lengths[:, None]
                         bias = masks.key_padding_bias(pad).to(device)  # [B, 1, 1, S]
-                    args = (x, ctx, w["wq"], w["bq"], w["wkv"], w["bkv"], w["wo"], w["bo"], bias)
+                    args = (x, ctx, wm["wq"], w["bq"], wm["wkv"], w["bkv"], wm["wo"], w["bo"], bias)
                     kw = dict(num_heads=HEADS, compute_dtype=dtype)
                     row = _measure(
                         "fused_cross_attention", "padded" if padded else "unpadded", dtype, clips, x,
@@ -1460,7 +1631,8 @@ def check_fusion_kernels(device):
                         lambda: fe.fused_cross_attention_plain(*args, **kw),
                         lambda: lib(x, ctx, bias), cross_bound(x, ctx, bias, dtype),
                         torch.ones(x.shape, dtype=torch.bool, device=device), tol,
-                        rel_tol=CROSS_REL if dtype == torch.bfloat16 else None, S=S,
+                        rel_tol=CROSS_REL if dtype == torch.bfloat16 else None, twice=True,
+                        S=S,
                     )
                     if (dtype, clips, T, S, padded) == (torch.bfloat16, BATCH, 17, 33, False):
                         table["fused_cross_attention"] = row
@@ -2393,6 +2565,12 @@ def run_main_path(device):
         # 16 times over, its forward timed and profiled, kernels and plain.
         big = {k: torch.cat([v] * (THROUGHPUT_BATCH // BATCH)) for k, v in batch.items()}
         with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model(big)
+            torch.cuda.synchronize()
+            log(f"peak memory of the {THROUGHPUT_BATCH}-clip forward (the model and batch "
+                f"included): {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
             big_ms = cuda_ms(lambda: model(big), 5)
             _device_profile("forward", lambda: model(big), FORWARD_GROUPS,
                             name=f"forward 17 frames, B = {THROUGHPUT_BATCH}")
@@ -2671,9 +2849,14 @@ def _step_ms(model, batch, criterion, steps: int = 5) -> float:
 TAIL_FORWARD_KERNELS = ("tail_live_rows_kernel", "tail_ln1_kernel", "tail_gemm_kernel", "tail_ln2_kernel")
 TRAIN_TAIL_GROUP = ("train tail kernels", ("fused_tail_train", "tail_bwd_", "reduce_parts_kernel",
                                            *TAIL_FORWARD_KERNELS))
+# Rows 1 and 3 (csrc/fused_proj_attention.cu: the f32 kernel, the bf16
+# split's scan, gather, GEMMs and attention) and row 5
+# (csrc/fused_cross_attention.cu).
+PROJ_KERNELS = ("fused_proj_attn", "proj_live_rows", "proj_gather", "proj_gemm", "proj_attn_kernel")
+CROSS_KERNELS = ("cross_attn", "kv_proj", "cross_gemm", "cross_short_attn")
 KERNEL_GROUPS = (
     TRAIN_TAIL_GROUP,
-    ("attention forward kernel", ("fused_proj_attn",)),
+    ("attention forward kernels (row 3)", PROJ_KERNELS),
     ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
     ("long-clip attention forward kernel", ("attention_kernel<",)),
     ("long-clip attention backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
@@ -2682,8 +2865,8 @@ KERNEL_GROUPS = (
 FORWARD_GROUPS = (
     ("layer tail kernel", ("fused_tail", *TAIL_FORWARD_KERNELS)),
     TRAIN_TAIL_GROUP,
-    ("fused projection+attention kernel", ("fused_proj_attn",)),
-    ("fused cross-attention kernels", ("cross_attn", "kv_proj")),
+    ("fused projection+attention kernels (rows 1/3)", PROJ_KERNELS),
+    ("fused cross-attention kernels (row 5)", CROSS_KERNELS),
     ("long-clip attention kernels", ("attention_kernel<",)),
     ("cuDNN convolutions", ("fprop", "cudnn", "convolve", "implicit_gemm", "conv2d", "conv3d")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -3438,7 +3621,7 @@ FUSION_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
 # one, whose "xmma" would catch its names.
 FUSION_TRAIN_GROUPS = (
     TRAIN_TAIL_GROUP,
-    ("attention forward kernel", ("fused_proj_attn",)),
+    ("attention forward kernels (row 3)", PROJ_KERNELS),
     ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
     ("attention core forward kernel (short and blockwise)", ("attention_kernel<",)),
     ("attention core backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
@@ -4403,6 +4586,7 @@ def main(argv=()) -> int:
     table.update(timed(check_long_train_kernels))
     table.update(timed(check_tail_train_kernels))
     table.update(timed(check_fusion_kernels))
+    timed(check_sublayer_stages)  # rows 1, 3 and 5 stage by stage, by CUDA kernel
     table.update(timed(check_fusion_train_kernels))
     timed(check_width_kernels)  # every kernel at other head dims and widths
     table.update(timed(check_offsets_kernel))

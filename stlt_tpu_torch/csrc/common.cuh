@@ -6,9 +6,9 @@
 //
 // Two kinds of kernel share these helpers: the f32 ones multiply on the SIMT
 // pipes (tile_fma), so the f32 path stays true f32 with no TF32; the bf16
-// ones multiply on the tensor cores through WMMA (16x16x16 bf16 products
-// accumulated in f32, gemm_streamed / gemm_ring), which is what the JAX kernels' bf16
-// dots with f32 accumulation compute.
+// ones multiply on the tensor cores, through WMMA here (16x16x16 bf16
+// products accumulated in f32, gemm_ring) or through wgmma (hopper.cuh),
+// which is what the JAX kernels' bf16 dots with f32 accumulation compute.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -184,29 +184,7 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::ro
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// The block's [kTM, H] f32 output tile (H = 64 NC), split over its warps:
-// each warp owns kRF row fragments by kCF column fragments of 16 x 16,
-// starting at (row0(warp), col0(warp)) in fragment units. Even NC: both row
-// fragments and NC / 2 column fragments a warp; odd NC: one row fragment
-// (warp % 2) and the NC column fragments of quarter warp / 2.
-template <int NC>
-struct WarpTile {
-  static_assert(kTM == 32 && kWarps == 8, "the split assumes two row fragments and 8 warps");
-  static constexpr bool kEven = NC % 2 == 0;
-  static constexpr int kRF = kEven ? 2 : 1;
-  static constexpr int kCF = kEven ? NC / 2 : NC;
-  __device__ static int row0(int warp) { return kEven ? 0 : warp % 2; }
-  __device__ static int col0(int warp) { return kEven ? warp * kCF : (warp / 2) * kCF; }
-};
-
-// The widths the width-templated kernels are instantiated for: H = 64 NC,
-// NC = 1 .. kMaxNC. STLT_NC_CASES(F) expands F(nc) for each.
 constexpr int kMaxNC = 16;
-// The reference width (H = 768, 12 heads of 64): the bf16 fused attention
-// kernels, whose other widths take H at run time, are also instantiated
-// with this H and head dim at compile time, so that at the width every full
-// model of the repo runs their index arithmetic folds to constants.
-constexpr int kRefHidden = 768, kRefHeadDim = 64;
 #define STLT_NC_CASES(F) \
   F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12) F(13) F(14) F(15) F(16)
 
@@ -238,78 +216,8 @@ struct BCols {
 
 constexpr int kStages = 3;  // B slices in flight: one computed on, two landing
 
-// Shared-memory elements of a ring of STAGES KS-row slices of B.
-template <int KS, int NCOLS, int STAGES = kStages>
-__host__ __device__ constexpr int stage_elems() {
-  return STAGES * KS * (NCOLS + kPad);
-}
-
-// acc[r][j] += A[r * 16 : r * 16 + 16, :K] @ B[:K, (cf0 + j) * 16 : +16]:
-// bf16 operands, f32 sums, for all warps of the block at once. A is a bf16
-// tile in shared memory (row stride lda), offset to this warp's first row
-// fragment. B streams from device memory through `stages` in slices of KS
-// rows: cp.async keeps STAGES - 1 slices landing while the warps multiply
-// the one that has arrived, so the weights' L2 latency hides behind the
-// tensor cores. Every warp of the block calls it (it synchronises the block).
-template <int RF, int CF, int KS, int STAGES = kStages, int NSEG, int SEGW>
-__device__ __forceinline__ void gemm_streamed(FragC (&acc)[RF][CF], const __nv_bfloat16* A,
-                                              int lda, const BCols<NSEG, SEGW>& b, int K,
-                                              __nv_bfloat16* stages, int cf0) {
-  static_assert(STAGES >= 2, "a ring needs a slice landing beside the one computed on");
-  constexpr int NB = NSEG * SEGW, LDB = NB + kPad, STAGE = KS * LDB;
-  constexpr int kCopies = KS * NB / 8;  // 16-byte copies of one slice
-  static_assert(KS % 16 == 0 && SEGW % 8 == 0, "slices are whole fragments and 16-byte copies");
-  const int nslices = K / KS;
-  auto load = [&](int slice) {
-    __nv_bfloat16* dst = stages + (slice % STAGES) * STAGE;
-    for (int c = threadIdx.x; c < kCopies; c += kThreads) {
-      const int row = c / (NB / 8), col = (c % (NB / 8)) * 8;
-      cp_async16(dst + row * LDB + col,
-                 b.seg[col / SEGW] + (long long)(slice * KS + row) * b.ld + col % SEGW);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslices) load(s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nslices; ++i) {
-    cp_async_wait<STAGES - 2>();  // slice i has landed
-    __syncthreads();               // for every thread; slice i - 1 is consumed
-    if (i + STAGES - 1 < nslices) load(i + STAGES - 1);
-    cp_async_commit();
-    const __nv_bfloat16* B = stages + (i % STAGES) * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      FragA a[RF];
-#pragma unroll
-      for (int r = 0; r < RF; ++r) {
-        wmma::load_matrix_sync(a[r], A + r * 16 * lda + i * KS + kk, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < CF; ++j) {
-        FragB bf;
-        wmma::load_matrix_sync(bf, B + kk * LDB + (cf0 + j) * 16, LDB);
-#pragma unroll
-        for (int r = 0; r < RF; ++r) wmma::mma_sync(acc[r][j], a[r], bf, acc[r][j]);
-      }
-    }
-  }
-  __syncthreads();  // the ring is free for the next GEMM
-}
-
-// The B operand of gemm_ring with a runtime width: one segment of `width`
-// contiguous columns (a multiple of 16), rows ld apart. (BCols is its
-// compile-time counterpart.)
-struct BWide {
-  const __nv_bfloat16* base;
-  int width, ld;
-};
-
 // Issue the 16-byte copies of rows [row0, row0 + KS) of B into a [KS][NB +
-// kPad] slice: the copies of a compile-time width unrolled with constant
-// offsets; those of a runtime width walked as (row, column) pairs from the
-// thread's first copy, with no division per copy.
+// kPad] slice, unrolled with constant offsets.
 template <int KS, int NSEG, int SEGW>
 __device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BCols<NSEG, SEGW>& b,
                                            int row0) {
@@ -322,30 +230,13 @@ __device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BCols<NSEG,
   }
 }
 
-template <int KS>
-__device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BWide& b, int row0) {
-  const int per_row = b.width / 8, LDB = b.width + kPad, copies = KS * per_row;
-  int row = threadIdx.x / per_row, c8 = threadIdx.x % per_row;
-  const int row_step = kThreads / per_row, col_step = kThreads % per_row;
-  for (int c = threadIdx.x; c < copies; c += kThreads) {
-    cp_async16(dst + row * LDB + c8 * 8, b.base + (long long)(row0 + row) * b.ld + c8 * 8);
-    row += row_step;
-    c8 += col_step;
-    if (c8 >= per_row) {
-      c8 -= per_row;
-      ++row;
-    }
-  }
-}
-
 template <int NSEG, int SEGW>
 __host__ __device__ constexpr int b_width(const BCols<NSEG, SEGW>&) {
   return NSEG * SEGW;
 }
-__host__ __device__ inline int b_width(const BWide& b) { return b.width; }
 
-// The element type the bf16 fused attention kernels keep one head's q/k/v
-// in: f32 (no conversions in the T x T attention on the SIMT pipes) where
+// The element type the bf16 projection+attention backward keeps one head's
+// q/k/v in: f32 (no conversions in the T x T attention on the SIMT pipes) where
 // shared memory allows it, bf16 at head dim 128 (the values are rounded to
 // bf16 either way, so both hold the same numbers).
 template <int D>
@@ -363,14 +254,15 @@ __host__ __device__ constexpr int ring_elems(int ks, int width, int stages = kSt
   return stages * ks * (width + kPad);
 }
 
-// gemm_streamed for the fused attention kernels, whose widths vary:
-// acc[r][j] += A[r * 16 : +16, :K] @ B[:K, fragment cf0 + j * cf_step] for
-// each j < nj whose fragment lies inside B (the others are left as they
-// are), B a BCols of compile-time width or a BWide of runtime width, so one
-// instantiation serves every width. The same ring of KS-row slices, the same
-// synchronisation. Where the width and a warp's run of fragments are known
-// at compile time, the kernels call gemm_streamed instead: its unguarded
-// fragment loop measured 15 % faster in the tails (PERF.md §6).
+// acc[r][j] += A[r * 16 : r * 16 + 16, :K] @ B[:K, fragment cf0 + j *
+// cf_step] for each j < nj whose fragment lies inside B (the others are left
+// as they are): bf16 operands, f32 sums, for all warps of the block at once.
+// A is a bf16 tile in shared memory (row stride lda), offset to this warp's
+// first row fragment. B streams from device memory through `stages` in
+// slices of KS rows: cp.async keeps STAGES - 1 slices landing while the
+// warps multiply the one that has arrived, so the weights' L2 latency hides
+// behind the tensor cores. Every warp of the block calls it (it synchronises
+// the block).
 template <int RF, int CF, int KS, int STAGES = kStages, typename BOp>
 __device__ __forceinline__ void gemm_ring(FragC (&acc)[RF][CF], const __nv_bfloat16* A, int lda,
                                           const BOp& b, int K, __nv_bfloat16* stages, int cf0,

@@ -1,4 +1,4 @@
-// Self-attention sublayer in one kernel: for each row of x [rows, T, H],
+// Self-attention sublayer: for each row of x [rows, T, H],
 //
 //   qkv = x @ Wqkv + bqkv                      (rounded to the compute dtype)
 //   o_h = softmax(q_h k_h^T / sqrt(D) + bias) v_h     (f32 logits and softmax)
@@ -12,51 +12,37 @@
 // backward kernel (fused_proj_attention_bwd.cu) and the plain version
 // regenerate the same bits. The numerics follow the TPU kernel's contract;
 // its TPU blocking (T padded to 8, whole-grid-resident weights) does not
-// carry over.
-//
-// Design. For T <= 32 one block owns floor(32 / T) rows (32 tokens at the
-// spatial T=8, one row of 17 at the temporal T=17). For 32 < T <= 64 a block
-// owns the 32 queries of one half of one row and all T keys of that row; it
-// projects the row's keys in two 32-token chunks through the same x tile.
-// Per head the block projects only that head's q/k/v ([tokens, D] each)
-// from the x tile, runs the attention on chip, and adds
-// o_h @ Wo[hD:(h+1)D, :] into an f32 [32, H] accumulator kept in registers:
-// the same sum as concat-then-project, in another order. Neither qkv nor
-// the attention output reaches device memory. Rows whose rows_live flag is 0
-// write exact zeros; a block with no live row skips all compute. The bias is
+// carry over. Rows whose rows_live flag is 0 write exact zeros. The bias is
 // read per row as [T, T] or broadcast [1, T] through its strides, never
 // materialised.
 //
-// Widths. The head dim D (32, 64 or 128) is a template argument; H (any
-// multiple of 64 up to 1024, N = H / D heads) is a runtime value: the
-// accumulator is sized for H <= 768 or for H = 1024 and a column past H is
-// skipped, so two instantiations serve every width. The bf16 kernel is also
-// instantiated at the reference width (HC = 768, D = 64) with H a
-// compile-time constant: there its indices fold and both GEMMs run
-// gemm_streamed with no per-fragment guard, as before H became a runtime
-// value (the runtime-width kernel measured slower there, PERF.md §6). Shared memory at the widest shapes
-// (H = 1024): the f32 kernel stages x in 16-column slices beside the weight
-// slices (141,312 bytes at D = 128); the bf16 kernel holds the bf16 x tile,
-// keeps q/k/v in f32 (bf16 at D = 128, common.cuh's QkvType) and lays the
-// probabilities over the weight ring between the GEMMs, with Wqkv slices of
-// 64 rows at D <= 64 and 32 at D = 128 (218,880 bytes at D = 64, 222,976 at
-// D = 128, of the 232,448 a block may take).
+// bf16 (launch_tc): split at the contract's rounding points onto Hopper's
+// tensor cores (sublayer.cuh). With rows_live a scan packs the live rows in
+// order (the dead ones after them) and a gather copies their tokens into a
+// dense bf16 A; the QKV GEMM writes round(x Wqkv + bqkv) [tokens, 3H] into
+// the scratch; the short-attention kernel writes each (row, head)'s rounded
+// output [tokens, H] over the packed x, and zeros every dead row's output;
+// the out GEMM writes round(o Wo + bo) at the tokens' own rows. Five launches
+// with rows_live, three without. The weights come in the model's storage
+// (in_proj_weight [3H, H], out_proj.weight [H, H], both [N, K]) and are read
+// where they lie, each once per 128-token tile. Bound on this card: two GEMMs
+// of 2*tokens*H*4H flops against ~2 x 2*tokens*H bytes of activations, far
+// above the H100's ~295 flop/byte ridge, so the tensor cores bound it; the
+// split adds the bf16 round trips of qkv and o (and of the packed x).
 //
-// The bf16 kernel runs both projections on the tensor cores (WMMA, f32 sums)
-// and streams Wqkv and Wo (4.7 MB in bf16 at H = 768, resident in L2)
-// through a ring of shared-memory slices with cp.async; the f32 kernel
-// multiplies on the SIMT pipes, so f32 stays true f32. The T x T attention
-// itself is small (T <= 64) and runs on the SIMT pipes in both.
-//
-// Bound on this card: at the main-path shapes the work is two GEMMs of
-// 2*tokens*H*4H flops against ~2 x 2*tokens*H bytes of activations, far above
-// the H100's ~295 flop/byte ridge, so the tensor cores bound it. What holds
-// the bf16 kernel back from that bound is the weight traffic from L2: every
-// block of 32 tokens reads all of Wqkv and Wo once (twice the Wqkv k/v
-// columns for T > 32, whose keys span two chunks).
+// f32: one kernel on the SIMT pipes, so f32 stays true f32. For T <= 32 one
+// block owns floor(32 / T) rows; for 32 < T <= 64 a block owns the 32
+// queries of one half of one row and all T keys of that row. Per head the
+// block projects that head's q/k/v ([tokens, D] each) from x, runs the
+// attention on chip and adds o_h @ Wo[hD:(h+1)D, :] into an f32 [32, H]
+// accumulator in registers: the same sum as concat-then-project, in another
+// order. A block with no live row skips all compute. It takes the weights
+// input-major (Wqkv [H, 3H], Wo [H, H]).
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "sublayer.cuh"
 
 namespace {
 
@@ -65,19 +51,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kKT = 16;   // f32: k-slice of x and Wqkv staged per SIMT step
 constexpr int kKTo = 8;   // f32: k-slice (rows) of Wo staged per SIMT step
-constexpr int kKS2 = 16;  // bf16: rows of Wo per streamed slice
-// bf16: the output accumulator's column fragments a warp, sized for H <= 768
-// (the reference width: 6, 96 registers) or for H <= 1024 (8, 128 registers,
-// with a few spilled ones).
-constexpr int kOutCF768 = 4 * 12 / kWarps, kOutCFMax = 4 * kMaxNC / kWarps;
-
-__host__ __device__ constexpr int out_cf(int H) { return H <= 768 ? kOutCF768 : kOutCFMax; }
-
-// bf16: rows of Wqkv per streamed slice.
-template <int D>
-__host__ __device__ constexpr int qkv_slice_rows() {
-  return D > 64 ? 32 : 64;
-}
 
 struct ProjArgs {
   const void* x;
@@ -182,14 +155,6 @@ __device__ __forceinline__ float head_out(const float* p_s, const QE* v_s, const
   float o = 0.f;
   for (int s = 0; s < seq; ++s) o = fmaf(pr[s], to_float(vs[s * D]), o);
   return o;
-}
-
-// Key-tile chunk c (kTM tokens from token kTM * c) of x into x_s (row stride
-// ld), zero-padded past the tile.
-template <typename E>
-__device__ __forceinline__ void load_x_chunk(E* x_s, int ld, const E* x, const Tile& tl, int c,
-                                             int H) {
-  copy_rows(x_s, ld, x + (tl.tok0 + kTM * c) * H, H, min(kTM, tl.nkv - kTM * c), kTM, H);
 }
 
 // --- f32: SIMT ----------------------------------------------------------------
@@ -308,144 +273,90 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
   }
 }
 
-// --- bf16: tensor cores -------------------------------------------------------
+// --- bf16: wgmma on TMA-fed tiles, split at the rounding points ----------------
+
+using namespace stlt::sublayer;
+
+__global__ void __launch_bounds__(kScanThreads) proj_live_rows_kernel(const uint8_t* live, int rows,
+                                                                      int* packed, int* count) {
+  tail::live_rows_scan<true>(live, rows, packed, count);
+}
+
+__global__ void __launch_bounds__(32 * kRowWarps)
+    proj_gather_kernel(const bf16* x, bf16* xp, const int* rows, const int* count, int seq, int H) {
+  gather_body(x, xp, rows, count, seq, H);
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    proj_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                     GemmArgs p) {
+  gemm_body(map_a, map_b, p);
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kAttnThreads) proj_attn_kernel(AttnArgs p) {
+  attn_body<D, kDrop>(p);
+}
+
+bool gemm_attribute_set = false;
 
 template <int D>
-__host__ __device__ int proj_ring_elems(int H) {
-  const int s1 = ring_elems(qkv_slice_rows<D>(), 3 * D), s2 = ring_elems(kKS2, H);
-  return s1 > s2 ? s1 : s2;
+int launch_proj_attn(AttnArgs a, cudaStream_t stream) {
+  static bool attribute_set[2] = {false, false};  // without, with dropout
+  a.hb = attn_heads<D>(a.T, a.S, a.N);
+  return a.drop.on ? launch_attn<D>(proj_attn_kernel<D, true>, attribute_set[1], a, stream)
+                   : launch_attn<D>(proj_attn_kernel<D, false>, attribute_set[0], a, stream);
 }
 
-template <int D>
-size_t proj_tc_smem_bytes(int H) {
-  return sizeof(bf16) * ((size_t)kTM * ((H + kPad) + (D + kPad)) + proj_ring_elems<D>(H)) +
-         sizeof(typename QkvType<D>::type) * (size_t)(kTM + 2 * kTK) * D +
-         sizeof(float) * (size_t)kWarps * 256;
+// The bf16 sublayer. `scratch` (16-byte aligned) holds qkv [rows * T, 3H]
+// and the packed x, then o [rows * T, H] in bf16, then (with rows_live) the
+// packed rows [rows] (live in order, then dead) and their live count (int32).
+int launch_tc(const ProjArgs& p, int head_dim, void* scratch, cudaStream_t stream) {
+  const long long M = (long long)p.rows * p.seq;
+  if (M == 0) return 0;
+  if (scratch == nullptr || M > 0x7fffffffLL) return -1;
+  const int H = p.hidden;
+  bf16* qkv = static_cast<bf16*>(scratch);
+  bf16* xo = qkv + M * 3 * H;
+  int* rows = reinterpret_cast<int*>(xo + M * H);
+  int* count = rows + p.rows;
+  const bool packed = p.rows_live != nullptr;
+  if (!packed) rows = count = nullptr;  // every row live: packed row b is row b
+  CUtensorMap map_x, map_wqkv, map_o, map_wo;
+  int err = hopper::make_map(&map_x, packed ? xo : p.x, M, H, kBM);
+  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * H, H, kBN);  // [3H, H]: K-major B
+  if (!err) err = hopper::make_map(&map_o, xo, M, H, kBM);
+  if (!err) err = hopper::make_map(&map_wo, p.wo, H, H, kBN);  // [H, H]: K-major B
+  if (err) return err;
+  if (packed) {
+    proj_live_rows_kernel<<<1, kScanThreads, 0, stream>>>(p.rows_live, p.rows, rows, count);
+    proj_gather_kernel<<<(unsigned)((M + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, stream>>>(
+        static_cast<const bf16*>(p.x), xo, rows, count, p.seq, H);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const GemmArgs g1{(int)M, 3 * H, H, static_cast<const bf16*>(p.bqkv), qkv, rows, count, p.seq, 0};
+  if ((err = launch_gemm(proj_gemm_kernel, gemm_attribute_set, map_x, map_wqkv, g1, stream))) return err;
+  const AttnArgs a{qkv, qkv + H, qkv + 2 * H, 3LL * H, 3LL * H, xo, p.bias, p.bias_row_stride,
+                   p.bias_q_stride, rows, count, static_cast<bf16*>(p.out), p.rows, p.seq, p.seq, H,
+                   p.num_heads, 1, p.scale, p.drop};
+  switch (head_dim) {
+    case 32: err = launch_proj_attn<32>(a, stream); break;
+    case 64: err = launch_proj_attn<64>(a, stream); break;
+    case 128: err = launch_proj_attn<128>(a, stream); break;
+    default: err = -1;
+  }
+  if (err) return err;
+  const GemmArgs g2{(int)M, H, H, static_cast<const bf16*>(p.bo), static_cast<bf16*>(p.out), rows, count,
+                    p.seq, 1};
+  return launch_gemm(proj_gemm_kernel, gemm_attribute_set, map_o, map_wo, g2, stream);
 }
 
-// HC: H at compile time (kRefHidden), or 0 for H from the arguments.
-template <int D, int HC, int OCF, bool kChunked, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_tc_kernel(ProjArgs p) {
-  constexpr int LDO = D + kPad, kKS1 = qkv_slice_rows<D>();
-  // One head's q/k/v [kTM, 3 D] has kQF column fragments. Where they split
-  // evenly over the four warps of a row fragment (D = 64, 128), a warp owns
-  // a run of kQCF of them, else (D = 32) kQCF fragments 4 apart.
-  constexpr int kQF = 3 * D / 16, kQCF = (kQF + 3) / 4;
-  constexpr bool kQRun = kQF % 4 == 0;
-  static_assert(HC == 0 || HC / 16 == kWarps * OCF, "a compile-time width splits evenly");
-  using QE = typename QkvType<D>::type;
-  const int H = HC > 0 ? HC : p.hidden, LDX = H + kPad;
-  const int num_heads = HC > 0 ? HC / D : p.num_heads;
-  const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
-  const bf16* __restrict__ wqkv = static_cast<const bf16*>(p.wqkv);
-  const bf16* __restrict__ bqkv = static_cast<const bf16*>(p.bqkv);
-  const bf16* __restrict__ wo = static_cast<const bf16*>(p.wo);
-  const bf16* __restrict__ bo = static_cast<const bf16*>(p.bo);
-  bf16* __restrict__ out = static_cast<bf16*>(p.out);
+// --- f32 launch -----------------------------------------------------------------
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);  // [kTM][LDX]
-  bf16* o_s = x_s + kTM * LDX;                    // [kTM][LDO]: one head's output, rounded
-  bf16* stages = o_s + kTM * LDO;                 // ring of Wqkv / Wo slices
-  QE* q_s = reinterpret_cast<QE*>(stages + proj_ring_elems<D>(H));  // [kTM][D], rounded
-  QE* k_s = q_s + kTM * D;                                          // [kTK][D]
-  QE* v_s = k_s + kTK * D;                                          // [kTK][D]
-  // [kTM][kTK] probabilities, over the ring: they live between the GEMMs.
-  float* p_s = reinterpret_cast<float*>(stages);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* scratch = reinterpret_cast<float*>(v_s + kTK * D) + warp * 256;
-
-  const int seq = p.seq;
-  const Tile tl = block_tile<kChunked>(p);
-  constexpr int nchunks = kChunked ? kKeyChunks : 1;
-  const int qchunk = kChunked ? tl.q0 / kTM : 0;
-  if (!block_has_live(p.rows_live, tl.row0, tl.nrows)) {
-    for (int i = tid; i < tl.nq * H; i += kThreads) {
-      out[(tl.tok0 + tl.q0) * H + i] = from_float<bf16>(0.f);
-    }
-    return;
-  }
-
-  if (!kChunked) load_x_chunk(x_s, LDX, x, tl, 0, H);
-  // The output [kTM, H]: both row fragments and the warp's run of column
-  // fragments, ocf0 + j (H / 128 of them, the last warps' runs cut at H).
-  const int per_warp = (H / 16 + kWarps - 1) / kWarps, ocf0 = warp * per_warp;
-  FragC acc[2][OCF];
-  zero(acc);
-  // This warp's share of one head's q/k/v: row fragment warp / 4, column
-  // fragments qcf0 + qstep j.
-  constexpr int qstep = kQRun ? 1 : 4;
-  const int qrf = warp / 4, qcf0 = (warp % 4) * (kQRun ? kQCF : 1);
-  __syncthreads();
-
-  for (int h = 0; h < num_heads; ++h) {
-    const BCols<3, D> wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, 3 * H};
-#pragma unroll 1
-    for (int c = 0; c < nchunks; ++c) {
-      // gemm_ring synchronises the block before it reads x_s and after.
-      if (kChunked) load_x_chunk(x_s, LDX, x, tl, c, H);
-      FragC qacc[1][kQCF];
-      zero(qacc);
-      if constexpr (kQRun) {
-        gemm_streamed<1, kQCF, kKS1>(qacc, x_s + qrf * 16 * LDX, LDX, wqkv_head, H, stages, qcf0);
-      } else {
-        gemm_ring<1, kQCF, kKS1>(qacc, x_s + qrf * 16 * LDX, LDX, wqkv_head, H, stages, qcf0, qstep);
-      }
-#pragma unroll
-      for (int j = 0; j < kQCF; ++j) {
-        const int cf = qcf0 + qstep * j;
-        if (!kQRun && cf >= kQF) continue;  // uniform over the warp
-        for_each_element(qacc[0][j], scratch, lane, [&](int i, int jj, float v) {
-          const int cc = cf * 16 + jj, part = cc / D, d = cc % D;
-          const QE val = from_float<QE>(round_to<bf16>(v + to_float(bqkv[part * H + h * D + d])));
-          if (part == 0) {
-            if (c == qchunk) q_s[(qrf * 16 + i) * D + d] = val;
-          } else {
-            (part == 1 ? k_s : v_s)[(c * kTM + qrf * 16 + i) * D + d] = val;
-          }
-        });
-      }
-    }
-    __syncthreads();
-    head_probs<D, kDrop>(p, tl, h, q_s, k_s, p_s);
-    for (int idx = tid; idx < kTM * D; idx += kThreads) {
-      const int i = idx / D, d = idx % D;
-      o_s[i * LDO + d] = from_float<bf16>(i < tl.nq ? head_out<D>(p_s, v_s, tl, i, d, seq) : 0.f);
-    }
-    __syncthreads();
-
-    // acc += o_h @ Wo[h*D:(h+1)*D, :]
-    if constexpr (HC > 0) {
-      const BCols<1, HC> wo_head{{wo + (long long)h * D * H}, H};
-      gemm_streamed<2, OCF, kKS2>(acc, o_s, LDO, wo_head, D, stages, ocf0);
-    } else {
-      const BWide wo_head{wo + (long long)h * D * H, H, H};
-      gemm_ring<2, OCF, kKS2>(acc, o_s, LDO, wo_head, D, stages, ocf0, 1, per_warp);
-    }
-  }
-
-  const int ncf = H / 16;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int j = 0; j < OCF; ++j) {
-      const int cf = ocf0 + j;
-      if (HC == 0 && (j >= per_warp || cf >= ncf)) continue;  // uniform over the warp
-      for_each_element(acc[r][j], scratch, lane, [&](int i, int jj, float v) {
-        const int row = r * 16 + i, c = cf * 16 + jj;
-        if (row >= tl.nq) return;
-        const bool live = p.rows_live == nullptr || p.rows_live[tl.row0 + (tl.q0 + row) / seq];
-        out[(tl.tok0 + tl.q0 + row) * H + c] = from_float<bf16>(live ? v + to_float(bo[c]) : 0.f);
-      });
-    }
-  }
-}
-
-template <int D, int HC, int OCF, bool kTensorCores, bool kChunked, bool kDrop>
+template <int D, bool kChunked, bool kDrop>
 int launch(const ProjArgs& a, cudaStream_t stream) {
-  auto kernel = kTensorCores ? fused_proj_attn_tc_kernel<D, HC, OCF, kChunked, kDrop>
-                             : fused_proj_attn_kernel<D, kChunked, kDrop>;
-  const size_t smem = kTensorCores ? proj_tc_smem_bytes<D>(a.hidden) : proj_smem_bytes<D>(a.hidden);
+  auto kernel = fused_proj_attn_kernel<D, kChunked, kDrop>;
+  const size_t smem = proj_smem_bytes<D>(a.hidden);
   if (smem > kMaxSmem) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -456,51 +367,42 @@ int launch(const ProjArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, int HC, int OCF, bool kTensorCores>
+template <int D>
 int launch_flags(const ProjArgs& a, cudaStream_t s) {
   const bool chunked = a.seq > kTM, drop = a.drop.on;
-  if (chunked) {
-    return drop ? launch<D, HC, OCF, kTensorCores, true, true>(a, s)
-                : launch<D, HC, OCF, kTensorCores, true, false>(a, s);
-  }
-  return drop ? launch<D, HC, OCF, kTensorCores, false, true>(a, s)
-              : launch<D, HC, OCF, kTensorCores, false, false>(a, s);
+  if (chunked) return drop ? launch<D, true, true>(a, s) : launch<D, true, false>(a, s);
+  return drop ? launch<D, false, true>(a, s) : launch<D, false, false>(a, s);
 }
 
-template <int D, bool kTensorCores>
-int launch_variant(const ProjArgs& a, cudaStream_t s) {
-  if constexpr (kTensorCores && D == kRefHeadDim) {
-    if (a.hidden == kRefHidden) return launch_flags<D, kRefHidden, kOutCF768, true>(a, s);
-  }
-  if (kTensorCores && out_cf(a.hidden) == kOutCF768) return launch_flags<D, 0, kOutCF768, true>(a, s);
-  return launch_flags<D, 0, kOutCFMax, kTensorCores>(a, s);
-}
-
-template <bool kTensorCores>
-int dispatch(int head_dim, const ProjArgs& a, cudaStream_t s) {
+int dispatch_f32(int head_dim, const ProjArgs& a, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_variant<32, kTensorCores>(a, s);
-    case 64: return launch_variant<64, kTensorCores>(a, s);
-    case 128: return launch_variant<128, kTensorCores>(a, s);
+    case 32: return launch_flags<32>(a, s);
+    case 64: return launch_flags<64>(a, s);
+    case 128: return launch_flags<128>(a, s);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// Returns 0, a cudaError_t from the launch, or -1 for a shape the kernel does
-// not take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
-// 128}, T > 64) or -2 for an unknown dtype code (0 = float32, 1 = bfloat16).
-// dropout = 0 is the eval kernel; otherwise probabilities are dropped with
-// (seed, thresh) and kept ones scaled by dropout_scale.
+// Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
+// take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
+// 128}, T > 64, no scratch in bf16), -2 for an unknown dtype code (0 =
+// float32, 1 = bfloat16) or -3 if a TMA map cannot be encoded. dropout = 0
+// is the eval function; otherwise probabilities are dropped with (seed,
+// thresh) and kept ones scaled by dropout_scale. f32 takes wqkv [H, 3H] and
+// wo [H, H] input-major and no scratch; bf16 takes them as the model stores
+// them (wqkv [3H, H], wo [H, H] output-major, 16-byte aligned), x and the
+// rows_live bytes 16-byte aligned, and a scratch of (4 H bf16) per token and
+// (rows + 1) int32 (launch_tc).
 extern "C" int stlt_fused_proj_attention(
     const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* bias, long long bias_row_stride, long long bias_q_stride,
-    const void* rows_live, void* out, int rows, int seq, int hidden, int num_heads,
+    const void* rows_live, void* out, void* scratch, int rows, int seq, int hidden, int num_heads,
     float scale, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
     int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
-      hidden % num_heads != 0 || seq < 1 || seq > kTK) {
+      hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0) {
     return -1;
   }
   ProjArgs a{x, wqkv, bqkv, wo, bo, static_cast<const float*>(bias), bias_row_stride,
@@ -508,7 +410,7 @@ extern "C" int stlt_fused_proj_attention(
              num_heads, seq > kTM ? 1 : kTM / seq, scale,
              Dropout{dropout, seed, thresh, dropout_scale}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<false>(hidden / num_heads, a, s);
-  if (dtype == 1) return dispatch<true>(hidden / num_heads, a, s);
+  if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
+  if (dtype == 1) return launch_tc(a, hidden / num_heads, scratch, s);
   return -2;
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks of the bf16 layer tail (fused_layer_tail.cu), of
-// its train backward (fused_tail_train_bwd.cu) and of the attention
-// backward (attention_bwd_core.cuh), in inline PTX for sm_90a: 2-D and 4-D
+// its train backward (fused_tail_train_bwd.cu), of the attention backward
+// (attention_bwd_core.cuh) and of the split attention sublayers
+// (sublayer.cuh), in inline PTX for sm_90a: 2-D and 4-D
 // TMA tile loads (cp.async.bulk.tensor) into shared memory that report to
 // mbarriers, 4-byte cp.async copies that report to the same mbarriers, and
 // warpgroup matrix products (wgmma.mma_async) that read B, and A too or A

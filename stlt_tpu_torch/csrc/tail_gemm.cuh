@@ -1,10 +1,14 @@
 // Shared pieces of the bf16 layer-tail kernels on Hopper: the forward's
 // (fused_layer_tail.cu: rows 2 and 11) and the train backward's
-// (fused_tail_train_bwd.cu: rows 13 and 14). Each .cu builds into a library of
-// its own, so each holds its own copy of these kernels.
+// (fused_tail_train_bwd.cu: rows 13 and 14); the scan and the mainloop also
+// serve the split attention sublayers (sublayer.cuh: rows 1, 3 and 5).
+// Each .cu builds into a library of its own, so each holds its own copy of
+// these kernels.
 //
 // - tail_live_rows_kernel packs the live tokens in order (rows[i] = the i-th
-//   live token, *count their number);
+//   live token, *count their number); live_rows_scan is its body, which
+//   can also place the dead items after the live ones (the split
+//   attention sublayers, sublayer.cuh);
 // - residual_row / ln1_row: one token's r1 = round(x + drop(a)) and its
 //   u = LN1(r1), a warp a token, H at run time in 16-byte vectors;
 // - a warp-specialised GEMM mainloop: a kRingStages ring of TMA-loaded tiles
@@ -40,12 +44,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 
 __host__ __device__ constexpr long long round_up(long long v, long long m) { return (v + m - 1) / m * m; }
 
-// The live tokens packed in order: rows[i] = the i-th live token, *count =
-// their number. One block: each thread counts a run of tokens, a block scan
-// places the runs, each thread writes its run's live tokens. The flags are
-// 0/1 bytes, 16-byte aligned.
-__global__ void __launch_bounds__(kScanThreads) tail_live_rows_kernel(const uint8_t* live, int tokens,
-                                                                      int* rows, int* count) {
+// The live items (tokens, or rows of a sublayer) packed in order: rows[i] =
+// the i-th live item, *count = their number; with kDead, the dead items
+// follow in order (rows[*count + j] = the j-th dead item). One block: each
+// thread counts a run of items, a block scan places the runs, each thread
+// writes its run's items. The flags are 0/1 bytes, 16-byte aligned.
+template <bool kDead>
+__device__ __forceinline__ void live_rows_scan(const uint8_t* live, int tokens, int* rows, int* count) {
   __shared__ int warp_total[kScanThreads / 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Runs of whole 16-byte vectors.
@@ -79,21 +84,30 @@ __global__ void __launch_bounds__(kScanThreads) tail_live_rows_kernel(const uint
   }
   __syncthreads();
   int at = incl - n + (warp > 0 ? warp_total[warp - 1] : 0);
+  int dead_at = warp_total[kScanThreads / 32 - 1] + (lo - at);  // the live total, then the dead before lo
+  auto place = [&](int item, bool is_live) {
+    if (is_live) {
+      rows[at++] = item;
+    } else if (kDead) {
+      rows[dead_at++] = item;
+    }
+  };
   for (int i = lo; i < hi; i += 16) {
     if (i + 16 <= hi) {
       const uint4 v = *reinterpret_cast<const uint4*>(live + i);
       const uint8_t* f = reinterpret_cast<const uint8_t*>(&v);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (f[j]) rows[at++] = i + j;
-      }
+      for (int j = 0; j < 16; ++j) place(i + j, f[j] != 0);
     } else {
-      for (int j = i; j < hi; ++j) {
-        if (live[j]) rows[at++] = j;
-      }
+      for (int j = i; j < hi; ++j) place(j, live[j] != 0);
     }
   }
   if (threadIdx.x == kScanThreads - 1) *count = at;
+}
+
+__global__ void __launch_bounds__(kScanThreads) tail_live_rows_kernel(const uint8_t* live, int tokens,
+                                                                      int* rows, int* count) {
+  live_rows_scan<false>(live, tokens, rows, count);
 }
 
 // r1 = round(x + drop(a)) of token `tok` into v (vector i of the lane holds

@@ -38,10 +38,12 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "fused_proj_attention": (
         "stlt_fused_proj_attention",
-        # x, wqkv, bqkv, wo, bo, bias, bias_row_stride, bias_q_stride,
-        # rows_live, out, rows, seq, hidden, num_heads, scale,
+        # x, wqkv, bqkv, wo, bo (f32: wqkv [H, 3H], wo [H, H]; bf16: as the
+        # model stores them, [3H, H] and [H, H]), bias, bias_row_stride,
+        # bias_q_stride, rows_live, out, scratch (bf16: qkv, o and the
+        # packed rows; null in f32), rows, seq, hidden, num_heads, scale,
         # dropout, seed, thresh, dropout_scale, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
     ),
     "fused_proj_attention_bwd": (
         "stlt_fused_proj_attention_bwd",
@@ -84,9 +86,10 @@ SIGNATURES = {
     ),
     "fused_cross_attention": (
         "stlt_fused_cross_attention",
-        # x, ctx, wq, bq, wkv, bkv, wo, bo, bias, bias_row_stride,
-        # bias_q_stride, kv (scratch), out, rows, T, S, hidden, num_heads,
-        # scale, dtype, stream
+        # x, ctx, wq, bq, wkv, bkv, wo, bo (f32: input-major; bf16: as the
+        # model stores them, [N, K]), bias, bias_row_stride, bias_q_stride,
+        # scratch (f32: kv; bf16: q, kv and o), out, rows, T, S, hidden,
+        # num_heads, scale, dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
     "flash_attention": (

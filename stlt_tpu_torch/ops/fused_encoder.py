@@ -291,20 +291,28 @@ def _live_flags(rows_live, B: int):
 
 
 def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, rows_live,
-                 seed=None, dropout_rate=0.0) -> torch.Tensor:
-    """Launch csrc/fused_proj_attention.cu (eval, or train with dropout)."""
+                 seed=None, dropout_rate=0.0, scratch=None) -> torch.Tensor:
+    """Launch csrc/fused_proj_attention.cu (eval, or train with dropout).
+    bf16 reads ``wqkv`` and ``wo`` in the storage of the model's
+    ``in_proj_weight`` / ``out_proj.weight`` (their ``.t()`` is what the
+    model passes: no copy when the dtype matches) and works in ``scratch``
+    (:func:`proj_scratch`; allocated when None); f32 takes them
+    input-major."""
     B, T, H = x.shape
     code = _check_proj_kernel(op, x, wqkv, bqkv, wo, num_heads, compute_dtype)
     if bo.shape != (H,):
         raise ValueError(f"{op}: bo shape does not match H={H}")
     cd = compute_dtype
-    x = x.contiguous()
-    wqkv = wqkv.to(cd).contiguous()
-    bqkv = bqkv.to(cd).contiguous()
-    wo = wo.to(cd).contiguous()
-    bo = bo.to(cd).contiguous()
+    if code == _DTYPE_CODES[torch.bfloat16]:
+        x = aligned16(x)
+        wqkv, wo = weight_storage(wqkv, cd), weight_storage(wo, cd)  # [3H, H], [H, H]
+        bqkv, bo = aligned16(bqkv.to(cd)), aligned16(bo.to(cd))
+        scratch = proj_scratch(B, T, H, x) if scratch is None else scratch
+    else:
+        x = x.contiguous()
+        wqkv, bqkv, wo, bo = (t.to(cd).contiguous() for t in (wqkv, bqkv, wo, bo))
     b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
-    live = _live_flags(rows_live, B)
+    live = tail_live_bytes(rows_live)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -312,6 +320,7 @@ def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, r
             "fused_proj_attention", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
             None if live is None else live.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
             *_dropout_args(seed, dropout_rate), code, stream,
         )
@@ -595,6 +604,135 @@ def tail_scratch(tokens: int, H: int, FF: int, x: torch.Tensor) -> Optional[torc
     return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
 
 
+def proj_scratch(B: int, T: int, H: int, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 projection+attention kernels' scratch
+    (``csrc/fused_proj_attention.cu`` ``launch_tc``): qkv [B*T, 3H] and the
+    packed x, then o, [B*T, H], in bf16, then the packed rows [B] and their
+    live count (int32): 0.86 GB at the 1024-clip spatial stage."""
+    return torch.empty(B * T * 4 * H * 2 + (B + 1) * 4, dtype=torch.uint8, device=x.device)
+
+
+def proj_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int):
+    """(qkv [B*T, 3H], o [B*T, H], rows [B], count [1]) of a
+    :func:`proj_scratch` after a bf16 launch: the first count*T rows of qkv
+    and o are the packed rows' (all B*T without rows_live, whose rows and
+    count stay unwritten); rows holds the live rows in order, then the dead
+    ones."""
+    M = B * T
+    bf = scratch[:M * 4 * H * 2].view(torch.bfloat16)
+    ints = scratch[M * 4 * H * 2:].view(torch.int32)
+    return bf[:M * 3 * H].view(M, 3 * H), bf[M * 3 * H:].view(M, H), ints[:B], ints[B:B + 1]
+
+
+def cross_scratch(B: int, T: int, S: int, H: int, x: torch.Tensor) -> torch.Tensor:
+    """The cross-attention kernels' scratch: in bf16 (``launch_tc``) q
+    [B*T, H], kv [B*S, 2H] and o [B*T, H]; in f32 kv [B*S, 2H]."""
+    if x.dtype != torch.bfloat16:
+        return torch.empty((B * S, 2 * H), dtype=x.dtype, device=x.device)
+    return torch.empty((2 * B * T * H + 2 * B * S * H) * 2, dtype=torch.uint8, device=x.device)
+
+
+def cross_scratch_views(scratch: torch.Tensor, B: int, T: int, S: int, H: int):
+    """(q [B*T, H], kv [B*S, 2H], o [B*T, H]) of a bf16
+    :func:`cross_scratch` after a launch."""
+    bf = scratch.view(torch.bfloat16)
+    q, kv = bf[:B * T * H], bf[B * T * H:B * T * H + 2 * B * S * H]
+    return q.view(B * T, H), kv.view(B * S, 2 * H), bf[B * T * H + 2 * B * S * H:].view(B * T, H)
+
+
+# --- the bf16 sublayers' stages, plain (csrc/sublayer.cuh) ----------------------
+
+
+def live_rows_plain(rows_live: Optional[torch.Tensor], B: int, device=None):
+    """(rows [B] int32, count): the live rows in order, then the dead ones
+    in order, and the number of live rows, as the bf16 projection+attention
+    packs them (``proj_live_rows_kernel``); rows_live None: every row."""
+    idx = torch.arange(B, dtype=torch.int32, device=device)
+    if rows_live is None:
+        return idx, B
+    live = rows_live.reshape(B).to(device=device, dtype=torch.bool)
+    return torch.cat([idx[live], idx[~live]]), int(live.sum())
+
+
+def projection_plain(a: torch.Tensor, w_stored: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``a W^T + b`` in f32 for a weight stored [N, K] as the model holds it
+    (``in_proj_weight`` or a row slice of it, ``out_proj.weight``): operands
+    and bias rounded to the compute dtype, f32 sums; a projection GEMM of the
+    bf16 kernels before its rounding (``sublayer.cuh::gemm_body``)."""
+    cd = compute_dtype
+    f32 = torch.float32
+    return a.to(cd).to(f32) @ w_stored.to(cd).to(f32).t() + b.to(cd).to(f32)
+
+
+def short_attention_plain(q, k, v, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
+                          dropout_rate: float = 0.0) -> torch.Tensor:
+    """The short-attention stage (``sublayer.cuh::attn_body``) on packed
+    rows. q [R, T, H], k and v [R, S, H] hold compute-dtype values; packed
+    row r is the original row ``rows[r]`` (None: r), by which the bias3
+    ([B or 1, T or 1, S] f32, :func:`_bias3`) and the dropout keep bits are
+    indexed. f32 logits, a normalise-first softmax, each probability times
+    keep * 1/(1-rate) with dropout. Returns o [R, T, H] rounded to q's
+    dtype."""
+    R, T, H = q.shape
+    S = k.shape[1]
+    N = num_heads
+    D = H // N
+    f32 = torch.float32
+    orig = torch.arange(R, device=q.device) if rows is None else rows.to(q.device).long()
+
+    def heads(t, L):
+        return t.to(f32).reshape(R, L, N, D).transpose(1, 2)
+
+    logits = (heads(q, T) @ heads(k, S).transpose(-1, -2)) * (1.0 / D ** 0.5)
+    logits = logits + (bias3[orig] if bias3.shape[0] > 1 else bias3)[:, None]
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    probs = torch.exp(logits)
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    if seed is not None and dropout_rate > 0.0 and R:
+        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, S, dropout_rate, q.device)[orig]
+        probs = probs * (keep.to(f32) * (1.0 / (1.0 - dropout_rate)))
+    return (probs @ heads(v, S)).transpose(1, 2).reshape(R, T, H).to(q.dtype)
+
+
+def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads: int,
+                                      compute_dtype, rows_live=None, seed: Optional[int] = None,
+                                      dropout_rate: float = 0.0) -> torch.Tensor:
+    """The bf16 kernels' split (``csrc/fused_proj_attention.cu``
+    ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows,
+    the QKV GEMM on their tokens (rounded to the compute dtype), the short
+    attention on the packed rows (keep bits at the ORIGINAL rows), the out
+    GEMM scattered back to the rows' own tokens, dead rows exact zeros.
+    The function of :func:`fused_proj_attention_plain` (and, with a seed, of
+    :func:`fused_proj_attention_train_plain`); returns f32."""
+    B, T, H = x.shape
+    cd = compute_dtype
+    rows, count = live_rows_plain(rows_live, B, x.device)
+    live = rows[:count].long()
+    qkv = projection_plain(x[live].reshape(count * T, H), wqkv.t(), bqkv, cd).to(cd)
+    q, k, v = qkv.reshape(count, T, 3 * H).split(H, dim=-1)
+    o = short_attention_plain(q, k, v, _bias3(bias, B, T, x.device), live, num_heads=num_heads,
+                              seed=seed, dropout_rate=dropout_rate)
+    y = torch.zeros((B, T, H), dtype=torch.float32, device=x.device)
+    y[live] = projection_plain(o.reshape(count * T, H), wo.t(), bo, cd).reshape(count, T, H)
+    return y
+
+
+def fused_cross_attention_stages_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, *, num_heads: int,
+                                       compute_dtype) -> torch.Tensor:
+    """The bf16 cross-attention kernels' split (``csrc/fused_cross_attention.cu``
+    ``launch_tc``) in plain PyTorch: the q and kv GEMMs (rounded), the short
+    attention over the real S keys, the out GEMM. The function of
+    :func:`fused_cross_attention_plain`; returns f32."""
+    B, T, H = x.shape
+    S = ctx.shape[1]
+    cd = compute_dtype
+    q = projection_plain(x.reshape(B * T, H), wq.t(), bq, cd).to(cd).reshape(B, T, H)
+    kv = projection_plain(ctx.reshape(B * S, H), wkv.t(), bkv, cd).to(cd).reshape(B, S, 2 * H)
+    o = short_attention_plain(q, kv[..., :H], kv[..., H:], _bias3(bias, B, T, x.device, S), None,
+                              num_heads=num_heads)
+    return projection_plain(o.reshape(B * T, H), wo.t(), bo, cd).reshape(B, T, H)
+
+
 def fused_layer_tail_plain(
     x: torch.Tensor,
     attn_out: torch.Tensor,
@@ -776,24 +914,39 @@ def fused_cross_attention(
     takes :func:`fused_cross_attention_plain`."""
     args = (x, ctx, wq, bq, wkv, bkv, wo, bo, bias)
     kw = dict(num_heads=num_heads, compute_dtype=compute_dtype)
-    op = "fused_cross_attention"
-    if _on_cpu(x, op):
+    if _on_cpu(x, "fused_cross_attention"):
         return fused_cross_attention_plain(*args, **kw)
+    return _launch_cross(*args, **kw)
+
+
+def _launch_cross(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, *, num_heads, compute_dtype,
+                  scratch=None) -> torch.Tensor:
+    """Launch csrc/fused_cross_attention.cu. bf16 reads ``wq``, ``wkv`` and
+    ``wo`` in the storage of the model's ``in_proj_weight[:H]``,
+    ``in_proj_weight[H:]`` and ``out_proj.weight`` (no copy when the dtype
+    matches) and works in ``scratch`` (:func:`cross_scratch`; allocated when
+    None); f32 takes them input-major."""
+    op = "fused_cross_attention"
     B, T, H = x.shape
     S = ctx.shape[1]
     code = _check_cross_kernel(op, x, ctx, wq, bq, wkv, bkv, wo, bo, num_heads, compute_dtype)
     cd = compute_dtype
-    x, ctx = x.contiguous(), ctx.contiguous()
-    wq, bq, wkv, bkv, wo, bo = (t.to(cd).contiguous() for t in (wq, bq, wkv, bkv, wo, bo))
+    if code == _DTYPE_CODES[torch.bfloat16]:
+        x, ctx = aligned16(x), aligned16(ctx)
+        wq, wkv, wo = (weight_storage(w, cd) for w in (wq, wkv, wo))  # [H, H], [2H, H], [H, H]
+        bq, bkv, bo = (aligned16(b.to(cd)) for b in (bq, bkv, bo))
+    else:
+        x, ctx = x.contiguous(), ctx.contiguous()
+        wq, bq, wkv, bkv, wo, bo = (t.to(cd).contiguous() for t in (wq, bq, wkv, bkv, wo, bo))
+    scratch = cross_scratch(B, T, S, H, x) if scratch is None else scratch
     b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device, S)
-    kv = torch.empty((B * S, 2 * H), dtype=cd, device=x.device)  # the context projection
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _kernels.launch(
             op, x.data_ptr(), ctx.data_ptr(), wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(),
             bkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
-            kv.data_ptr(), out.data_ptr(), B, T, S, H, num_heads,
+            scratch.data_ptr(), out.data_ptr(), B, T, S, H, num_heads,
             float(1.0 / (H // num_heads) ** 0.5), code, stream,
         )
     LAUNCHES[op] += 1

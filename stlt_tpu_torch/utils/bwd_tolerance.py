@@ -8,8 +8,9 @@ cross-attention's output against its plain version (``CROSS_REL``), the
 blockwise forward's dense-bias output against its plain version
 (``DENSE_REL``) and the blockwise backward's dense-bias dq, dk and dv
 against ``attention_bwd_plain`` (``DENSE_BWD_REL``), within a relative
-Frobenius-norm error. This script shows
-which faults those limits catch. It copies the package into a temporary
+Frobenius-norm error; the fused projection+attention (rows 1 and 3) and the
+cross-attention also elementwise (``OP_TOL``) with dead rows exact zeros.
+This script shows which faults those limits catch. It copies the package into a temporary
 directory, edits the kernel sources there (the checkout is never touched),
 builds the kernels of the family the variant belongs to from each copy and
 prints each variant's relative norm errors in bf16:
@@ -36,15 +37,23 @@ prints each variant's relative norm errors in bf16:
 - tail, ``tail_hidden_n128``: no fault but a design variant, GEMM A
   (``tail_bwd_hidden_kernel``) on [128, 128] tiles at one block an SM
   instead of [128, 64] at two, timed beside ``sound``;
-- cross, ``cross_no_bo``: the output bias bo left out
-  (``fused_cross_attention.cu::cross_attn_tc_kernel``);
-- cross, ``cross_no_bkv``: the context projection's bias bkv left out
-  (``kv_proj_tc_kernel``; its k half moves no softmax, its v half moves
-  the output by bv @ Wo);
-- cross, ``cross_q_unrounded``: q_h kept in f32 after its bias add instead
-  of rounded to bf16 (a rounding point of the contract moved; o_h feeds the
-  tensor cores from a bf16 tile, so it cannot be left unrounded);
-- cross, ``cross_head_left_out``: the last head adds nothing;
+- cross, ``cross_no_bo``: the output bias bo left out (the out GEMM's
+  epilogue, ``sublayer.cuh::gemm_body``);
+- cross, ``cross_no_bkv``: the context projection's bias bkv left out (the
+  kv GEMM's epilogue; its k half moves no softmax, its v half moves the
+  output by bv @ Wo);
+- proj and cross, ``qkv_rounded_before_bias``: the projection GEMMs round
+  their f32 sums before the bias add, then round again (a rounding point of
+  the contract moved; in the split q/k/v pass through device memory in bf16,
+  so the old variants that kept q or qkv in f32 have no counterpart);
+- cross, ``cross_head_left_out``: the last head adds nothing (its
+  probabilities zero in ``sublayer.cuh::attn_body``);
+- proj, ``proj_keep_at_packed_row``: the train forward's keep bits hashed at
+  the packed row instead of the original one (``attn_body``);
+- proj, ``proj_dead_rows_computed``: no packing, so the dead rows are
+  computed like live ones instead of written as zeros
+  (``fused_proj_attention.cu::launch_tc``); the dead-row check, not a norm,
+  is what sees it;
 - dense, ``dense_causal_last_key_dropped``: with the causal flag, each
   query tile's key range stops one key short, so the last query of every
   tile loses its diagonal key;
@@ -56,7 +65,7 @@ prints each variant's relative norm errors in bf16:
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
-    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | dense | dense_bwd]
+    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | proj | dense | dense_bwd]
 
 (those families' variants only when named). The variants' kernels are built
 in parallel, then measured one variant at a time. The last line is one JSON
@@ -75,7 +84,12 @@ CUDA events, the median of five windows of five launches). Cross rows {"T",
 "S", "padded", "y"}: chip_smoke's row-5 checks at B = 64, H = 768, 12
 heads, (T, S) = (17, 33), (33, 17), (8, 64), (64, 8), with and without a
 key-padding bias, weights drawn as ``chip_smoke.make_weights`` draws them.
-Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
+Proj rows {"stage", "T", "rate", "y", "op_tol", "dead_zero"}: rows 1 (rate
+0) and 3 (rate 0.1) at B = 64, H = 768, 12 heads: spatial (T = 8, 1,088
+rows, about 60 % of them live, key padding), temporal (T = 17, causal plus
+padding) and T = 33 (B = 32); "op_tol" whether every element is within
+OP_TOL, "dead_zero" whether every dead row is exact zeros. Cross rows also
+carry "op_tol". Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
 dense-bias checks at B = 16, 12 heads of 64. Dense_bwd rows {"T", "S",
 "bias", "causal", "rate", "dq", "dk", "dv"}: the same cases with dropout 0
 and 0.1; out and lse from the plain forward, so only the backward differs.
@@ -99,6 +113,7 @@ FAMILIES = {
                   "blockwise_attention_bwd"),
     "tail": ("fused_tail_train_bwd_row",),
     "cross": ("fused_cross_attention",),
+    "proj": ("fused_proj_attention",),
     "dense": ("blockwise_attention",),
     "dense_bwd": ("blockwise_attention_bwd",),
 }
@@ -153,25 +168,29 @@ MUTATIONS = {
          "__launch_bounds__(kGemmThreads, 1)\n    tail_bwd_hidden_kernel("),
     ]),
     "cross_no_bo": (("cross",), [(
-        "fused_cross_attention.cu",
-        "out[(tok0 + row) * H + c] = from_float<bf16>(v + to_float(bo[c]));",
-        "out[(tok0 + row) * H + c] = from_float<bf16>(v);",
+        "sublayer.cuh",
+        "const float2 b = c < p.N ? __bfloat1622float2",
+        "const float2 b = c < p.N && !p.scatter ? __bfloat1622float2",
     )]),
     "cross_no_bkv": (("cross",), [(
-        "fused_cross_attention.cu",
-        "kv[(tok0 + row) * 2 * H + c] = from_float<bf16>(v + to_float(bkv[c]));",
-        "kv[(tok0 + row) * 2 * H + c] = from_float<bf16>(v);",
+        "sublayer.cuh",
+        "const float2 b = c < p.N ? __bfloat1622float2",
+        "const float2 b = c < p.N && p.N != 2 * p.K ? __bfloat1622float2",
     )]),
-    "cross_q_unrounded": (("cross",), [(
-        "fused_cross_attention.cu",
-        "q_s[(qrf * 16 + i) * D + d] = round_to<bf16>(v + to_float(bq[h * D + d]));",
-        "q_s[(qrf * 16 + i) * D + d] = v + to_float(bq[h * D + d]);",
+    "qkv_rounded_before_bias": (("proj", "cross"), [(
+        "sublayer.cuh",
+        "__floats2bfloat162_rn(acc[4 * j + 2 * h] + b.x, acc[4 * j + 2 * h + 1] + b.y);",
+        "__floats2bfloat162_rn((p.scatter ? acc[4 * j + 2 * h] : round_to<bf16>(acc[4 * j + 2 * h])) + b.x,\n"
+        "                                  (p.scatter ? acc[4 * j + 2 * h + 1] : round_to<bf16>(acc[4 * j + 2 * h + 1])) + b.y);",
     )]),
     "cross_head_left_out": (("cross",), [(
-        "fused_cross_attention.cu",
-        "for (int h = 0; h < num_heads; ++h) {\n"
-        "    // The GEMMs synchronise the block before they read x_s and after.",
-        "for (int h = 0; h < num_heads - 1; ++h) {",
+        "sublayer.cuh", "      pr[s] = pv;\n", "      pr[s] = h == p.N - 1 ? 0.f : pv;\n",
+    )]),
+    "proj_keep_at_packed_row": (("proj",), [(
+        "sublayer.cuh", "p.drop.keep_scale(orig, h, p.N, t, s, S)", "p.drop.keep_scale(b, h, p.N, t, s, S)",
+    )]),
+    "proj_dead_rows_computed": (("proj",), [(
+        "fused_proj_attention.cu", "const bool packed = p.rows_live != nullptr;", "const bool packed = false;",
     )]),
     "dense_causal_last_key_dropped": (("dense",), [(
         "attention_core.cuh",
@@ -230,7 +249,7 @@ def measure(family: str) -> list:
     ``stlt_tpu_torch``."""
     build([family])
     return {"attention": _measure_attention, "tail": _measure_tail, "cross": _measure_cross,
-            "dense": _measure_dense, "dense_bwd": _measure_dense_bwd}[family]()
+            "proj": _measure_proj, "dense": _measure_dense, "dense_bwd": _measure_dense_bwd}[family]()
 
 
 def _measure_tail() -> list:
@@ -267,6 +286,51 @@ def _measure_tail() -> list:
     return rows
 
 
+# chip_smoke.OP_TOL in bf16: the elementwise bound every bf16 kernel output is held to.
+OP_TOL_BF16 = dict(atol=6e-2, rtol=2e-2)
+
+
+def _within_op_tol(got, want) -> bool:
+    err = (got.float() - want.float()).abs()
+    return bool((err <= OP_TOL_BF16["atol"] + OP_TOL_BF16["rtol"] * want.float().abs()).all())
+
+
+def _measure_proj() -> list:
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import masks
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    H, heads, bf = 768, 12, torch.bfloat16
+    u = lambda *shape, b: ((torch.rand(shape, generator=gen) * 2 - 1) * b).to(device)
+    # The model's layout: transposed views of in_proj_weight [3H, H] and out_proj.weight.
+    in_proj, out_proj = u(3 * H, H, b=(6 / (4 * H)) ** 0.5), u(H, H, b=H ** -0.5)
+    weights = (in_proj.t(), u(3 * H, b=0.02), out_proj.t(), u(H, b=0.02))
+    rows = []
+    for stage, B, T in (("spatial", 64 * 17, 8), ("temporal", 64, 17), ("temporal", 32, 33)):
+        x = torch.randn((B, T, H), generator=gen).to(device, bf)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen)
+        pad = torch.arange(T)[None, :] >= lengths[:, None]
+        if stage == "spatial":
+            pad[:, 0] = False
+            bias, live = masks.key_padding_bias(pad), torch.rand(B, generator=gen) < 0.6
+        else:
+            bias, live = masks.causal_bias(T) + masks.key_padding_bias(pad), torch.rand(B, generator=gen) < 0.8
+        bias, live = bias.to(device), live.to(device)
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=heads, compute_dtype=bf, rows_live=live)
+            if rate:
+                got = fe.fused_proj_attention_train(x, *weights, bias, 0x5EED, dropout_rate=rate, **kw)
+                want = fe.fused_proj_attention_train_plain(x, *weights, bias, 0x5EED, dropout_rate=rate, **kw)
+            else:
+                got = fe.fused_proj_attention(x, *weights, bias, **kw)
+                want = fe.fused_proj_attention_plain(x, *weights, bias, **kw)
+            torch.cuda.synchronize()
+            rows.append({"stage": stage, "T": T, "rate": rate, "y": _rel(got, want),
+                         "op_tol": _within_op_tol(got, want), "dead_zero": not bool(got[~live].any())})
+    return rows
+
+
 def _measure_cross() -> list:
     from stlt_tpu_torch.ops import fused_encoder as fe
     from stlt_tpu_torch.ops import masks
@@ -290,7 +354,8 @@ def _measure_cross() -> list:
             got = fe.fused_cross_attention(x, ctx, *weights, bias, **kw)
             want = fe.fused_cross_attention_plain(x, ctx, *weights, bias, **kw)
             torch.cuda.synchronize()
-            rows.append({"T": T, "S": S, "padded": padded, "y": _rel(got, want)})
+            rows.append({"T": T, "S": S, "padded": padded, "y": _rel(got, want),
+                         "op_tol": _within_op_tol(got, want)})
     return rows
 
 
@@ -429,15 +494,18 @@ def main(argv=None) -> int:
                 groups = {"attention": {"dq/dk/dv": ("dq", "dk", "dv")},
                           "tail": {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]},
                           "cross": {"y": ("y",)},
+                          "proj": {"y": ("y",)},
                           "dense": {"out": ("out",), "lse": ("lse",)},
                           "dense_bwd": {"dq/dk/dv": ("dq", "dk", "dv")}}[family]
                 worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
                                   for label, keys in groups.items())
                 times = ", ".join(f"{k} {r[k]:.3f} ms" for r in rows for k in ("input_ms", "weight_ms")
                                   if k in r)
+                flags = ", ".join(f"{k} {'held' if all(r[k] for r in rows) else 'FAILED'}"
+                                  for k in ("op_tol", "dead_zero") if k in rows[0])
                 print(f"{variant} ({family}): worst relative norm error of {worst}"
-                      + (f"; at {max(r['tokens'] for r in rows)} tokens {times}" if times else ""),
-                      flush=True)
+                      + (f"; at {max(r['tokens'] for r in rows)} tokens {times}" if times else "")
+                      + (f"; {flags}" if flags else ""), flush=True)
     print(json.dumps(results))
     return 0
 

@@ -224,6 +224,51 @@ def test_kernels_refuse_what_they_do_not_take(device):
         )
 
 
+@pytest.mark.parametrize("T", [8, 17, 33])
+def test_bf16_sublayers_read_the_model_weights_in_place_and_repeat_their_bits(device, T):
+    """Rows 1, 3 and 5 in bf16 (``csrc/sublayer.cuh``) read the parameters'
+    storage in place: ``weight_storage`` of the views the attention layer
+    passes (``in_proj_weight.t()``, its row slices, ``out_proj.weight.t()``)
+    is that storage, and they give the same bits as contiguous input-major
+    weights. A second launch repeats the bits, and so does a launch into a
+    scratch filled with NaN beforehand: no row past the live count reaches
+    an output."""
+    bf, H, N = torch.bfloat16, 768, 12
+    gen = torch.Generator().manual_seed(T)
+    w = _weights(H, gen, device)
+    in_proj = w["wqkv"].t().contiguous().to(bf)  # [3H, H], as the model stores it
+    out_proj = w["wo"].t().contiguous().to(bf)
+    views = dict(wqkv=in_proj.t(), wo=out_proj.t(), wq=in_proj[:H].t(), wkv=in_proj[H:].t())
+    for name, base in (("wqkv", in_proj), ("wo", out_proj), ("wq", in_proj[:H]), ("wkv", in_proj[H:])):
+        assert fe.weight_storage(views[name], bf).data_ptr() == base.data_ptr(), name
+    dense = {name: v.contiguous() for name, v in views.items()}
+    rows = 41
+    x = torch.randn(rows, T, H, generator=gen).to(device, bf)
+    bias = _bias("causal_padding", rows, T, gen).to(device)
+    rows_live = (torch.rand(rows, generator=gen) < 0.6).to(device)
+    kw = dict(num_heads=N, compute_dtype=bf, rows_live=rows_live)
+    for seed, rate in ((None, 0.0), (0x5EED, 0.1)):
+        op = "fused_proj_attention" if seed is None else "fused_proj_attention_train"
+
+        def run(wts, scratch=None):
+            return fe._launch_proj(op, x, wts["wqkv"], w["bqkv"], wts["wo"], w["bo"], bias, seed=seed,
+                                   dropout_rate=rate, scratch=scratch, **kw)
+
+        got = run(views)
+        poisoned = fe.proj_scratch(rows, T, H, x).fill_(0xFF)  # every bf16 a NaN
+        for again in (run(dense), run(views), run(views, poisoned)):
+            assert torch.equal(got, again), op
+        assert not got[~rows_live].any()
+    ctx = torch.randn(rows, 33, H, generator=gen).to(device, bf)
+    cw = lambda wts: (wts["wq"], w["bqkv"][:H], wts["wkv"], w["bqkv"][H:], wts["wo"], w["bo"])  # noqa: E731
+    got = fe.fused_cross_attention(x, ctx, *cw(views), None, num_heads=N, compute_dtype=bf)
+    poisoned = fe.cross_scratch(rows, T, 33, H, x).fill_(0xFF)
+    for again in (fe.fused_cross_attention(x, ctx, *cw(dense), None, num_heads=N, compute_dtype=bf),
+                  fe._launch_cross(x, ctx, *cw(views), None, num_heads=N, compute_dtype=bf,
+                                   scratch=poisoned)):
+        assert torch.equal(got, again)
+
+
 def test_model_on_the_card_matches_the_plain_model(device):
     from stlt_tpu_torch.configs import StltModelConfig
     from stlt_tpu_torch.models import models_factory
