@@ -58,8 +58,10 @@ Phases, in order; any failure exits non-zero:
    rows 1, 3 and 5 stage by stage
    (the bf16 split of ``csrc/sublayer.cuh``: packed rows, qkv or q and kv,
    the attention output, y, each against its plain version from the
-   kernel's own inputs), one call of each main-path shape split by CUDA
-   kernel with ``torch.profiler``, and the wrappers' host time; then
+   kernel's own inputs) and row 4's bf16 backward (packed rows, the packed
+   g, qkv, do in f32, attn, dqkv, dWo and dbo), one call of each main-path
+   shape split by CUDA kernel with ``torch.profiler``, and the wrappers'
+   host time; then
    the fusion models' train-path attention: the short kernel's dropout
    forward and its backward at the train cross-attention's (T, S) = (17,
    33) and (33, 17), B = 32, and the blockwise kernels' dense-bias mode at
@@ -249,6 +251,17 @@ points, same keep bits; the two differ only in the order of their sums):
   moved) 4.5e-3, which OP_TOL alone passes; the keep bits hashed at the
   packed row 0.45 and the dead rows computed 0.79, both over OP_TOL too
   (``python -m stlt_tpu_torch.utils.bwd_tolerance proj``, H100; PERF.md §6).
+- the projection+attention backward (row 4) in bf16: dqkv within the same
+  OP_TOL with dead rows exact zeros, and dqkv, dWo and dbo each within a
+  relative Frobenius-norm error of PROJ_BWD_REL (1e-3); the op's five
+  gradients within GRAD_REL as before. Sound kernels read at most 2.5e-4
+  (dqkv; dWo 1.7e-4, dbo 1.2e-7). Planted faults: do rounded to bf16 (a
+  rounding point the contract does not have) 2.6e-3 in dqkv, which OP_TOL
+  alone passes; bqkv left out of the recompute 9.0e-3 (dqkv) and 4.0e-2
+  (dWo), within OP_TOL too; the dWo GEMM's first row split left out 0.80
+  (dWo) and 0.75 (dbo); the keep bits at the packed row 0.45; dead rows'
+  dqkv left unwritten NaN (``python -m stlt_tpu_torch.utils.bwd_tolerance
+  proj_bwd``, H100; PERF.md §6).
 - the fused cross-attention (row 5) and the blockwise forward's dense-bias
   mode (row 8): the same OP_TOL elementwise, and in bf16 the output within
   a relative Frobenius-norm error of CROSS_REL (1.2e-3) and DENSE_REL
@@ -394,6 +407,10 @@ REPLACES = {
     # _blockwise_dkdv_kernel (:745), one launch for both.
     "blockwise_attention_bwd_offsets": "stlt_tpu/ops/flash.py:655",
 }
+# The CUDA kernels of a row's bf16 path, named in the kernels line.
+CUDA_KERNELS = {"fused_proj_attention_train_bwd": ("proj_bwd_scan_kernel", "proj_bwd_gather_kernel",
+                                                   "proj_bwd_gemm_kernel", "proj_bwd_attn_kernel",
+                                                   "proj_bwd_weight_gemm_kernel", "proj_bwd_finalize_kernel")}
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
 TAIL_KERNELS = ("fused_layer_tail_train", "fused_tail_train_bwd_row", "fused_tail_train_bwd_input",
@@ -422,6 +439,10 @@ CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
 # bf16 outputs of the fused projection+attention (rows 1 and 3), relative
 # norm: sound 4.7e-4, q/k/v rounded before their bias add 4.5e-3.
 PROJ_REL = 1.2e-3
+# dqkv, dWo and dbo of the projection+attention backward (row 4) in bf16,
+# relative norm (f32: GRAD_REL on dWo and dbo): sound 2.5e-4 at most, the
+# smallest planted fault (do rounded to bf16) 2.6e-3.
+PROJ_BWD_REL = 1e-3
 # dq, dk, dv of the blockwise backward's dense-bias mode in bf16, relative
 # norm (f32: BWD_REL): sound 1.3e-4, the smallest planted fault 2.5e-3.
 DENSE_BWD_REL = 1e-3
@@ -752,8 +773,11 @@ def check_train_kernels(device):
     """Compare the train forward and backward kernels with their plain
     versions (dropout 0.1 and 0, the same seed), and the five gradients of
     the whole autograd op with the plain backward plus the wrapper's GEMMs;
-    time both kernels at B = 64 and, in bf16, 512. Returns the kernel-table
-    rows (spatial, bf16, B = 64, dropout 0.1)."""
+    in bf16 the backward reads the model's weight layout and its dqkv, dWo
+    and dbo are held to PROJ_BWD_REL too. Time both kernels at B = 64 and,
+    in bf16, 512 (the backward, its library call and the wrapper's GEMMs as
+    medians of five windows, with the backward's host time). Returns the
+    kernel-table rows (spatial, bf16, B = 64, dropout 0.1)."""
     from stlt_tpu_torch.ops import fused_encoder as fe
 
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -778,7 +802,9 @@ def check_train_kernels(device):
                 g[~rows_live] = 0  # as in the model: dead rows get no cotangent
             kw = dict(num_heads=HEADS, dropout_rate=rate, compute_dtype=dtype, rows_live=rows_live)
             fwd = (x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias, seed)
-            bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed)
+            # bf16 reads the weights in the model's storage, as on the main path.
+            wb = wm if dtype == torch.bfloat16 else w
+            bwd = (x, wb["wqkv"], w["bqkv"], wb["wo"], bias, g, seed)
             lib_f, lib_b = library_train(w, dtype, rate)
             label = f"{stage} {dtype} B={clips} T={x.shape[1]} rate={rate}"
 
@@ -805,6 +831,11 @@ def check_train_kernels(device):
             rel = {"dwo": _rel(got[1], want[1]), "dbo": _rel(got[2], want[2])}
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"backward {label}: two runs differ")
+            if dtype == torch.bfloat16:
+                rel["dqkv"] = _rel(got[0], want[0])
+                if max(rel.values()) > PROJ_BWD_REL:
+                    raise AssertionError(f"backward {label}: dqkv, dWo or dbo over PROJ_BWD_REL "
+                                         f"{PROJ_BWD_REL}: {rel}")
             plain = (*fe.proj_input_grads(x, w["wqkv"], want[0], dtype), want[1], want[2])
             for name, leaf, ref in zip(("dx", "dwqkv", "dbqkv", "dwo_op", "dbo_op"), leaves, plain):
                 rel[name] = _rel(leaf.grad, ref)
@@ -817,21 +848,24 @@ def check_train_kernels(device):
             iters = 20 if clips == BATCH else 5
             lib_x = x.detach().requires_grad_()
             y_lib = lib_f(lib_x, bias.to(dtype))
+            kernel = lambda: fe._launch_proj_bwd(*bwd, **kw)  # noqa: E731
+            wq_cd = wb["wqkv"].to(dtype)  # as the op's backward converts it, once
             row_b = {
                 "name": "fused_proj_attention_train_bwd", "stage": stage,
                 "dtype": str(dtype).split(".")[1], "clips": clips, "rows": x.shape[0],
                 "T": x.shape[1], "rate": rate, "max_abs_err": err, "rel_err": rel,
-                "ms": cuda_ms(lambda: fe._launch_proj_bwd(*bwd, **kw), iters),
                 "plain_ms": cuda_ms(lambda: fe.fused_proj_attention_train_bwd_plain(*bwd, **kw), iters),
-                "library_ms": cuda_ms(lambda: lib_b(y_lib, lib_x, g), iters),
-                "wrapper_gemms_ms": cuda_ms(lambda: fe.proj_input_grads(x, w["wqkv"], got[0], dtype), iters),
+                "host_ms": _host_ms(kernel, iters), "enqueue_ms": _enqueue_ms(kernel),
             }
+            median_fields(row_b, ms=kernel, library_ms=lambda: lib_b(y_lib, lib_x, g),
+                          wrapper_gemms_ms=lambda: fe.proj_input_grads(x, wq_cd, got[0], dtype))
+            row_b["kernel_and_gemms_over_library"] = (row_b["ms"] + row_b["wrapper_gemms_ms"]) / row_b["library_ms"]
             row_b["bound_ms"], row_b["bound_by"] = train_bwd_bound(x, bias, proj_live, dtype)
             log("kernel_check " + json.dumps(row_b))
             if stage == "spatial" and clips == BATCH and dtype == torch.bfloat16 and rate == DROPOUT:
                 table["fused_proj_attention_train"] = row_f
                 table["fused_proj_attention_train_bwd"] = row_b
-            del x, g, bias, got, want, again, leaves, y, y_lib, lib_x
+            del x, g, bias, got, want, again, leaves, y, y_lib, lib_x, kernel, wq_cd
             torch.cuda.empty_cache()
     return table
 
@@ -877,9 +911,11 @@ def check_sublayer_stages(device):
     plain version (``ops/fused_encoder.py``) from the kernel's own inputs:
     the packed rows and count exactly, qkv (gather + QKV GEMM), the
     attention output o (keep bits at the original rows), y (out GEMM,
-    scattered, dead rows exact zeros); q, kv, o and y of row 5. Then the
-    device time of one call split by CUDA kernel (torch.profiler) and the
-    wrappers' host time at the main-path shapes."""
+    scattered, dead rows exact zeros); q, kv, o and y of row 5; row 4's
+    backward (``check_proj_bwd_stages``). Then the device time of one call
+    split by CUDA kernel (torch.profiler: ``sublayer_profile``, row 4's
+    ``proj_bwd_profile``) and the wrappers' host time at the main-path
+    shapes (``sublayer_host``, ``proj_bwd_host``)."""
     from stlt_tpu_torch.ops import fused_encoder as fe
     from stlt_tpu_torch.ops import masks
 
@@ -914,6 +950,7 @@ def check_sublayer_stages(device):
     log("stage_check " + json.dumps({"name": "fused_proj_attention_train", "shape": f"spatial B={BATCH}",
                                      "rate": DROPOUT, "stages": stages}))
     del x, y, scratch, qkv, o, want_qkv, want_o, want_y
+    check_proj_bwd_stages(gen, w, wm, device)
 
     T, S = 17, 33
     x = torch.randn((BATCH, T, H), generator=gen).to(device, bf)
@@ -940,6 +977,29 @@ def check_sublayer_stages(device):
                                      "stages": stages}))
     del x, ctx, y, scratch, q, kv, o, want_o
 
+    # One call of each main-path shape, by CUDA kernel; the wrappers' host time
+    # (row 4's backward with the wrapper's three GEMMs, as the op runs it).
+    for stage, clips in (("spatial", BATCH), ("spatial", TRAIN_BATCH), ("temporal", BATCH),
+                         ("temporal", TRAIN_BATCH)):
+        x, _, bias, live_kw, _, _ = make_stage(stage, clips, bf, gen, device)
+        g = torch.randn(x.shape, generator=gen).to(device, bf)
+        wq_cd = wm["wqkv"].to(bf)
+        bwd = (x, wq_cd, w["bqkv"], wm["wo"], bias, g, seed)
+        bkw = dict(num_heads=HEADS, compute_dtype=bf, rows_live=live_kw.get("rows_live"), dropout_rate=DROPOUT)
+        run = lambda: fe.proj_input_grads(x, wq_cd, fe._launch_proj_bwd(*bwd, **bkw)[0], bf)  # noqa: E731
+        label = f"row 4 {stage} B={clips} T={x.shape[1]}"
+        _device_profile("proj_bwd", run, PROJ_BWD_GROUPS, name=label)
+        kernel = lambda: fe._launch_proj_bwd(*bwd, **bkw)  # noqa: E731
+        # The attention backward's bytes' time: qkv (bf16) and do (f32) read
+        # and attn (bf16) written at the live tokens, dqkv (bf16) at all.
+        live_rows = live_kw.get("rows_live")
+        live_tok = x.shape[0] * x.shape[1] if live_rows is None else int(live_rows.sum()) * x.shape[1]
+        attn_bytes = (live_tok * 12 + x.shape[0] * x.shape[1] * 6) * H
+        log("proj_bwd_host " + json.dumps({"name": label, "host_ms": _host_ms(kernel, 20),
+                                           "enqueue_ms": _enqueue_ms(kernel), "live_tokens": live_tok,
+                                           "attn_bwd_bytes_ms": attn_bytes / HBM_BYTES_PER_S * 1e3}))
+        del x, g, bias, live_kw, bwd, run, kernel
+    torch.cuda.empty_cache()
     # One call of each main-path shape, by CUDA kernel; the wrappers' host time.
     for stage, clips, frames, op in (("spatial", BATCH, NUM_FRAMES, "eval"),
                                      ("spatial", THROUGHPUT_BATCH, NUM_FRAMES, "eval"),
@@ -969,6 +1029,78 @@ def check_sublayer_stages(device):
         log("sublayer_host " + json.dumps({"name": label, "host_ms": _host_ms(run, 20),
                                            "enqueue_ms": _enqueue_ms(run)}))
         del x, ctx
+    torch.cuda.empty_cache()
+
+
+# do = g Wo^T of row 4's bf16 backward, relative norm: f32 sums of the same
+# bf16 products in another order (the contract keeps do in f32).
+DO_REL = 1e-5
+
+
+def check_proj_bwd_stages(gen, w, wm, device):
+    """Row 4 stage by stage: one bf16 backward launch (spatial, B = 64,
+    ragged rows_live, dropout 0.1, the model's weight layout) into a scratch
+    of ours, then each stage held against its plain version from the
+    kernel's own inputs: the packed rows and count exactly; the gathered g
+    exactly, the rows up to the next 64-row step zeros; qkv (gather + GEMM)
+    within OP_TOL; do (f32) within DO_REL; attn and dqkv (the attention
+    backward, keep bits at the original rows, from the kernel's qkv and do)
+    within OP_TOL, dead rows exact zeros, dqkv within PROJ_BWD_REL; dWo and
+    dbo (from the kernel's attn and g) within PROJ_BWD_REL, each exactly its
+    split partials summed in order."""
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    bf, seed = torch.bfloat16, 0x5EED5EED
+    x, _, bias, live_kw, proj_live, _ = make_stage("spatial", BATCH, bf, gen, device)
+    rows_live = live_kw["rows_live"]
+    B, T, _ = x.shape
+    g = torch.randn(x.shape, generator=gen).to(device, bf)
+    g[~rows_live] = 0
+    scratch = fe.proj_bwd_scratch(B, T, H, x)
+    dqkv, dwo, dbo = fe._launch_proj_bwd(x, wm["wqkv"], w["bqkv"], wm["wo"], bias, g, seed, num_heads=HEADS,
+                                         dropout_rate=DROPOUT, compute_dtype=bf, rows_live=rows_live,
+                                         scratch=scratch)
+    torch.cuda.synchronize()
+    v = fe.proj_bwd_scratch_views(scratch, B, T, H)
+    want_rows, live_rows = fe.live_rows_plain(rows_live, B, device)
+    if v["count"].item() != live_rows or not torch.equal(v["rows"], want_rows):
+        raise AssertionError(f"row 4 pack: count {v['count'].item()} against {live_rows}, or the rows differ")
+    n, live = live_rows * T, want_rows[:live_rows].long()
+    pad = slice(n, min(-(-n // 64) * 64, B * T))
+    gp = g[live].reshape(n, H)
+    if not torch.equal(v["g"][:n], gp) or v["g"][pad].any() or v["attn"][pad].any():
+        raise AssertionError("row 4 gather: the packed g differs, or its pad rows are not zeros")
+    stages = {"rows": {"count": live_rows, "rows": B}}
+    want_qkv = fe.projection_plain(x[live].reshape(n, H), wm["wqkv"].t(), w["bqkv"], bf).to(bf)
+    stages["qkv"] = _stage_check("row 4 gather + qkv GEMM", v["qkv"][:n], want_qkv)
+    want_do = gp.float() @ wm["wo"].to(bf).float().t()
+    stages["do"] = {"max_abs": (v["do"][:n] - want_do).abs().max().item(), "rel": _rel(v["do"][:n], want_do)}
+    if stages["do"]["rel"] > DO_REL:
+        raise AssertionError(f"row 4 do GEMM: relative norm {stages['do']['rel']:.3e} over {DO_REL}")
+    q, k, vv = v["qkv"][:n].view(live_rows, T, 3 * H).split(H, dim=-1)
+    dqkv_p, want_attn = fe.short_attention_bwd_plain(
+        q, k, vv, v["do"][:n].view(live_rows, T, H), fe._bias3(bias, B, T, device), live, num_heads=HEADS,
+        seed=seed, dropout_rate=DROPOUT)
+    stages["attn"] = _stage_check("row 4 attention backward: attn", v["attn"][:n], want_attn.reshape(n, H))
+    want_dqkv = torch.zeros_like(dqkv)
+    want_dqkv[live] = dqkv_p.to(bf)
+    stages["dqkv"] = _stage_check("row 4 attention backward: dqkv", dqkv, want_dqkv,
+                                  proj_live[..., None].expand(dqkv.shape))
+    sum_w, sum_b = torch.zeros_like(dwo), torch.zeros_like(dbo)
+    for k in range(v["partial"].shape[0]):
+        sum_w += v["partial"][k]
+        sum_b += v["partial_b"][k]
+    if not (torch.equal(dwo, sum_w) and torch.equal(dbo, sum_b)):
+        raise AssertionError("row 4 ordered sums: dWo or dbo is not its split partials summed in order")
+    attn_p = v["attn"][:n].float()
+    stages["dwo"] = {"rel": _rel(dwo, attn_p.t() @ gp.float())}
+    stages["dbo"] = {"rel": _rel(dbo, gp.float().sum(dim=0))}
+    rel = {name: stages[name][1] if name == "dqkv" else stages[name]["rel"] for name in ("dqkv", "dwo", "dbo")}
+    if max(rel.values()) > PROJ_BWD_REL:
+        raise AssertionError(f"row 4 stages: relative norm errors {rel} over PROJ_BWD_REL {PROJ_BWD_REL}")
+    log("stage_check " + json.dumps({"name": "fused_proj_attention_train_bwd", "shape": f"spatial B={BATCH}",
+                                     "rate": DROPOUT, "stages": stages}))
+    del x, g, scratch, v, dqkv, dwo, dbo, want_qkv, want_do, dqkv_p, want_attn, want_dqkv
     torch.cuda.empty_cache()
 
 
@@ -1931,8 +2063,11 @@ def check_width_kernels(device):
                 err, _ = _check_pairs(f"fused_proj_attention_train_bwd {tag} T={T}",
                                       [("dqkv", got[0], want[0], mask.repeat(1, 1, 3))], tol)
                 rel = {"dwo": _rel(got[1], want[1]), "dbo": _rel(got[2], want[2])}
-                if max(rel.values()) > GRAD_REL[dtype]:
-                    raise AssertionError(f"fused_proj_attention_train_bwd {tag} T={T}: {rel}")
+                if dtype == torch.bfloat16:
+                    rel["dqkv"] = _rel(got[0], want[0])
+                limit = PROJ_BWD_REL if dtype == torch.bfloat16 else GRAD_REL[dtype]
+                if not max(rel.values()) <= limit:
+                    raise AssertionError(f"fused_proj_attention_train_bwd {tag} T={T}: {rel} over {limit}")
                 rows.append(_width_row("fused_proj_attention_train_bwd", f"{tag} T={T} rows={clips}",
                                        dtype, kernel, plain, err, rel))
                 del x, g, got, want
@@ -2854,10 +2989,22 @@ TRAIN_TAIL_GROUP = ("train tail kernels", ("fused_tail_train", "tail_bwd_", "red
 # (csrc/fused_cross_attention.cu).
 PROJ_KERNELS = ("fused_proj_attn", "proj_live_rows", "proj_gather", "proj_gemm", "proj_attn_kernel")
 CROSS_KERNELS = ("cross_attn", "kv_proj", "cross_gemm", "cross_short_attn")
+# Row 4 (csrc/fused_proj_attention_bwd.cu): the f32 kernels and the bf16
+# split's scan, gather, GEMMs, attention backward, dWo GEMM and ordered sums,
+# every name from "proj_bwd_" on (by name in CUDA_KERNELS).
+PROJ_BWD_KERNELS = ("fused_proj_bwd", "proj_bwd_")
+PROJ_BWD_GROUPS = (
+    ("pack: scan, gather", ("proj_bwd_scan", "proj_bwd_gather")),
+    ("GEMMs: qkv, do", ("proj_bwd_gemm",)),
+    ("attention backward", ("proj_bwd_attn",)),
+    ("GEMM: dWo, dbo", ("proj_bwd_weight_gemm",)),
+    ("ordered sums", ("proj_bwd_finalize",)),
+    ("wrapper GEMMs: dx, dWqkv, dbqkv", ("gemm", "nvjet", "cutlass", "xmma")),
+)
 KERNEL_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("attention forward kernels (row 3)", PROJ_KERNELS),
-    ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
+    ("attention backward kernels", PROJ_BWD_KERNELS),
     ("long-clip attention forward kernel", ("attention_kernel<",)),
     ("long-clip attention backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -3036,12 +3183,15 @@ def run_train_path(device):
         step_ms = {}
         for clips in (BATCH, TRAIN_BATCH):
             big = {k: v.repeat(clips // BATCH, *([1] * (v.dim() - 1))) for k, v in batch.items()}
+            torch.cuda.reset_peak_memory_stats()
             ms = _step_ms(model, big, criterion)
+            peak = torch.cuda.max_memory_allocated()
             with plain_kernels():
                 plain_ms = _step_ms(model, big, criterion)
-            step_ms[clips] = {"ms": ms, "plain_ms": plain_ms}
+            step_ms[clips] = {"ms": ms, "plain_ms": plain_ms, "peak_bytes": peak}
             log(f"train step of {clips} clips (full width, bf16, dropout {DROPOUT}): kernels "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms; peak memory kernels {peak / 2**30:.3f} GiB "
+                f"(the model, its optimizer state and the batch included)")
             if clips == TRAIN_BATCH:
                 step_ms[clips]["tail_gate_ab"] = tail_gate_ab(
                     f"train step of {clips} clips, 17 frames", model, big, criterion, ms)
@@ -3622,7 +3772,7 @@ FUSION_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
 FUSION_TRAIN_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("attention forward kernels (row 3)", PROJ_KERNELS),
-    ("attention backward kernels", ("fused_proj_bwd", "proj_bwd_dwo", "proj_bwd_finalize")),
+    ("attention backward kernels", PROJ_BWD_KERNELS),
     ("attention core forward kernel (short and blockwise)", ("attention_kernel<",)),
     ("attention core backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
     ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "implicit_gemm",
@@ -4620,6 +4770,8 @@ def main(argv=()) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+        if name in CUDA_KERNELS:
+            kernels[-1]["cuda_kernels"] = list(CUDA_KERNELS[name])
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

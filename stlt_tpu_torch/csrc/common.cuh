@@ -6,8 +6,8 @@
 //
 // Two kinds of kernel share these helpers: the f32 ones multiply on the SIMT
 // pipes (tile_fma), so the f32 path stays true f32 with no TF32; the bf16
-// ones multiply on the tensor cores, through WMMA here (16x16x16 bf16
-// products accumulated in f32, gemm_ring) or through wgmma (hopper.cuh),
+// ones multiply on the tensor cores, through WMMA (16x16x16 bf16 products
+// accumulated in f32: attention_core.cuh) or through wgmma (hopper.cuh),
 // which is what the JAX kernels' bf16 dots with f32 accumulation compute.
 #pragma once
 
@@ -26,7 +26,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 32;        // token rows of one block's tile
 constexpr int kTK = 64;        // keys of one attention row at most (T <= 64)
 constexpr int kRM = kTM / (kThreads / 64);  // rows each SIMT thread accumulates
-constexpr int kPad = 8;        // bf16 padding of shared tile rows (spreads banks, keeps 32 B alignment)
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may take (227 KB)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -188,14 +187,6 @@ constexpr int kMaxNC = 16;
 #define STLT_NC_CASES(F) \
   F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12) F(13) F(14) F(15) F(16)
 
-template <int RF, int CF>
-__device__ __forceinline__ void zero(FragC (&acc)[RF][CF]) {
-#pragma unroll
-  for (int r = 0; r < RF; ++r)
-#pragma unroll
-    for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[r][j], 0.f);
-}
-
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
@@ -204,120 +195,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The B operand of a block GEMM: NSEG segments of SEGW contiguous columns of
-// a row-major bf16 matrix in device memory (row stride ld), side by side.
-template <int NSEG, int SEGW>
-struct BCols {
-  const __nv_bfloat16* seg[NSEG];
-  int ld;
-};
-
-constexpr int kStages = 3;  // B slices in flight: one computed on, two landing
-
-// Issue the 16-byte copies of rows [row0, row0 + KS) of B into a [KS][NB +
-// kPad] slice, unrolled with constant offsets.
-template <int KS, int NSEG, int SEGW>
-__device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const BCols<NSEG, SEGW>& b,
-                                           int row0) {
-  static_assert(SEGW % 8 == 0, "16-byte copies");
-  constexpr int NB = NSEG * SEGW, LDB = NB + kPad, kCopies = KS * NB / 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < kCopies; c += kThreads) {
-    const int row = c / (NB / 8), col = (c % (NB / 8)) * 8;
-    cp_async16(dst + row * LDB + col, b.seg[col / SEGW] + (long long)(row0 + row) * b.ld + col % SEGW);
-  }
-}
-
-template <int NSEG, int SEGW>
-__host__ __device__ constexpr int b_width(const BCols<NSEG, SEGW>&) {
-  return NSEG * SEGW;
-}
-
-// The element type the bf16 projection+attention backward keeps one head's
-// q/k/v in: f32 (no conversions in the T x T attention on the SIMT pipes) where
-// shared memory allows it, bf16 at head dim 128 (the values are rounded to
-// bf16 either way, so both hold the same numbers).
-template <int D>
-struct QkvType {
-  using type = float;
-};
-template <>
-struct QkvType<128> {
-  using type = __nv_bfloat16;
-};
-
-// Shared-memory elements of gemm_ring's ring for KS-row slices of `width`
-// columns.
-__host__ __device__ constexpr int ring_elems(int ks, int width, int stages = kStages) {
-  return stages * ks * (width + kPad);
-}
-
-// acc[r][j] += A[r * 16 : r * 16 + 16, :K] @ B[:K, fragment cf0 + j *
-// cf_step] for each j < nj whose fragment lies inside B (the others are left
-// as they are): bf16 operands, f32 sums, for all warps of the block at once.
-// A is a bf16 tile in shared memory (row stride lda), offset to this warp's
-// first row fragment. B streams from device memory through `stages` in
-// slices of KS rows: cp.async keeps STAGES - 1 slices landing while the
-// warps multiply the one that has arrived, so the weights' L2 latency hides
-// behind the tensor cores. Every warp of the block calls it (it synchronises
-// the block).
-template <int RF, int CF, int KS, int STAGES = kStages, typename BOp>
-__device__ __forceinline__ void gemm_ring(FragC (&acc)[RF][CF], const __nv_bfloat16* A, int lda,
-                                          const BOp& b, int K, __nv_bfloat16* stages, int cf0,
-                                          int cf_step, int nj = CF) {
-  static_assert(STAGES >= 2 && KS % 16 == 0, "a ring of whole-fragment slices");
-  const int NB = b_width(b), LDB = NB + kPad, STAGE = KS * LDB, ncf = NB / 16;
-  const int nslices = K / KS;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslices) load_slice<KS>(stages + (s % STAGES) * STAGE, b, s * KS);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nslices; ++i) {
-    cp_async_wait<STAGES - 2>();  // slice i has landed
-    __syncthreads();               // for every thread; slice i - 1 is consumed
-    if (i + STAGES - 1 < nslices) {
-      load_slice<KS>(stages + ((i + STAGES - 1) % STAGES) * STAGE, b, (i + STAGES - 1) * KS);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* B = stages + (i % STAGES) * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      FragA a[RF];
-#pragma unroll
-      for (int r = 0; r < RF; ++r) {
-        wmma::load_matrix_sync(a[r], A + r * 16 * lda + i * KS + kk, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < CF; ++j) {
-        const int cf = cf0 + j * cf_step;
-        if (j < nj && cf < ncf) {
-          FragB bf;
-          wmma::load_matrix_sync(bf, B + kk * LDB + cf * 16, LDB);
-#pragma unroll
-          for (int r = 0; r < RF; ++r) wmma::mma_sync(acc[r][j], a[r], bf, acc[r][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // the ring is free for the next GEMM
-}
-
-// Calls f(i, j, value) for every element (i, j) of a 16 x 16 accumulator,
-// through the warp's own 256-float shared scratch tile.
-template <typename F>
-__device__ __forceinline__ void for_each_element(const FragC& frag, float* scratch, int lane,
-                                                 F&& f) {
-  wmma::store_matrix_sync(scratch, frag, 16, wmma::mem_row_major);
-  __syncwarp();
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int idx = lane + 32 * e;
-    f(idx / 16, idx % 16, scratch[idx]);
-  }
-  __syncwarp();
 }
 
 }  // namespace stlt

@@ -15,59 +15,90 @@
 //   attn = pv v                      (rounded; the input of dWo below)
 //
 // and dWo = attn(cd)^T g(cd), dbo = sum g, both f32. The keep bits are hashed
-// in place as in the forward kernel. The three remaining products (dx, dWqkv,
-// dbqkv) are plain GEMMs the wrapper leaves to torch.matmul, as the JAX
-// package leaves them to XLA.
+// in place as in the forward kernel, at each row's ORIGINAL index. The three
+// remaining products (dx, dWqkv, dbqkv) are plain GEMMs the wrapper leaves to
+// torch.matmul, as the JAX package leaves them to XLA.
 //
-// Design. The TPU kernel keeps a row block's whole f32 qkv in VMEM and
-// carries dWo/dbo across its sequential grid. On this card a block has 227 KB
-// of shared memory and blocks run in no order, so the work is split in two
-// kernels:
+// Dead rows (rows_live 0) write exact zeros into dqkv and add nothing to dWo
+// or dbo: the exact gradient of the forward, whose dead rows are constant
+// zeros. Every output has one owner and every sum a fixed order, with no
+// atomics, so two launches give the same bits.
 //
-// 1. fused_proj_bwd_*: one block per tile of whole rows (floor(32 / T) rows
-//    for T <= 32, one row of up to 64 tokens otherwise), looping over the
-//    heads (head dim D = 32, 64 or 128 a template argument, H any multiple
-//    of 64 up to 1024 a runtime value; at D = 128 and H = 1024 the bf16
-//    kernel takes 226,560 bytes of shared memory, its q/k/v held in bf16 as
-//    they are rounded to it (f32 below D = 128), its weight slices 16 rows). Per head it projects q/k/v from the x tile and do from the g tile
-//    (32-token chunks through one shared A tile: on the tensor cores in bf16,
-//    Wqkv and Wo^T streamed by cp.async; on the SIMT pipes in f32), runs the
-//    T x T softmax backward in f32 on the SIMT pipes, and writes that head's
-//    dq/dk/dv slices of dqkv and its slice of the rounded, dropped attention
-//    output to a scratch buffer the wrapper allocates.
-// 2. proj_bwd_dwo_*: dWo = attn^T g and dbo = sum g as a split reduction:
-//    one block per 64 x 64 output tile and token chunk writes its partial sum
-//    (WMMA in bf16, SIMT in f32), and proj_bwd_finalize adds the partials in
-//    split order. No atomics: two runs give the same bits.
+// bf16 (launch_tc): split at the contract's rounding points onto Hopper's
+// tensor cores (sublayer.cuh, tail_gemm.cuh). The TPU kernel keeps a row
+// block's qkv in VMEM and carries dWo/dbo across its sequential grid; on this
+// card a 64-row wgmma tile and blocks in no order call for the split that
+// rows 1 and 3 already take. qkv is rounded after its f32 bias add and attn
+// before dWo, so both pass through device memory in bf16 and lose nothing;
+// do = g Wo^T is NOT a rounding point of the contract (the f32 sums feed dp
+// and dv), so it passes in f32, which is exact. Six launches with rows_live,
+// four without, over the live rows packed in order:
 //
-// Dead rows (rows_live 0) write exact zeros into dqkv and the attention
-// scratch, so they add nothing to dWo; dbo sums live rows only. A block with
-// no live row skips all compute. This is the exact gradient of the forward,
-// whose dead rows are constant zeros.
+//   proj_bwd_scan_kernel         the live rows in order, then the dead, and
+//                                their count (tail_gemm.cuh's scan);
+//   proj_bwd_gather_kernel       the live rows' tokens of x and of g into two
+//                                dense bf16 scratches, zeros up to the next
+//                                64-row step (the dWo GEMM's depth);
+//   proj_bwd_gemm_kernel         two problems in one grid: qkv = round(x_p
+//                                Wqkv^T + bqkv) (gemm_tile, Wqkv read in place
+//                                from in_proj_weight [3H, H], K-major) and
+//                                do = g_p Wo^T in f32 (gemm_f32_tile, Wo read
+//                                in place from out_proj.weight [H_out, H_in],
+//                                MN-major);
+//   proj_bwd_attn_kernel<D, drop> the short-attention backward, SIMT f32: a
+//                                block takes one packed row and a group of
+//                                heads; a thread owns a (head, query), then a
+//                                (head, key): logits, softmax, dp, dz and pv
+//                                into shared tiles, dq and attn = round(pv v)
+//                                from its query's row, dk and dv from its
+//                                key's column; dqkv written at the row's
+//                                original tokens, attn over the packed x. A
+//                                block past the live count writes its dead
+//                                row's dqkv as zeros (no memset);
+//   proj_bwd_weight_gemm_kernel  dWo = attn_p^T g_p with the packed rows as
+//                                depth (both operands MN-major), [128, 128]
+//                                output tiles over a few row splits chosen
+//                                from the token count alone; the first tile
+//                                row's blocks also sum g's columns for dbo;
+//   proj_bwd_finalize_kernel     the splits' partials of dWo and dbo summed in
+//                                split order (the f32 path's pass).
 //
-// Bound on this card: per live row 10*T*H^2 + 12*T^2*H flops (q/k/v and do
-// recompute, dWo, the T x T products) against x, g read and dqkv written, far
-// above the H100's ~295 flop/byte ridge at the main-path shapes, so the
-// tensor cores bound it. The design recomputes rather than store qkv, as the
-// TPU kernel does; what holds it back is its WMMA tiles on 32-token chunks,
-// with Wqkv and Wo^T re-read from L2 by every block.
+// Bound on this card: the GEMMs are 2 * tokens * H * (3H + H + H) flops (qkv,
+// do, dWo) against ~14 H bytes a token of scratch traffic, far above the
+// H100's ~295 flop/byte ridge, so the tensor cores bound them. The attention
+// backward reads qkv and do and writes attn at the live tokens and dqkv at
+// all, ~18 H bytes a live token, against ~16 T H flops a token on the SIMT
+// pipes (exact f32 as the contract): at T = 8 and 17 its bytes' time is the
+// larger, but the kernel reaches only 0.16-0.55 of that rate on the card
+// (PERF.md, row 4), so neither bound holds it yet.
+//
+// f32: SIMT on the f32 pipes, so f32 stays true f32.
+//
+// 1. fused_proj_bwd_kernel: one block per tile of whole rows (floor(32 / T)
+//    rows for T <= 32, one row of up to 64 tokens otherwise), looping over
+//    the heads (head dim D = 32, 64 or 128 a template argument, H any
+//    multiple of 64 up to 1024 a runtime value). Per head it projects q/k/v
+//    from the x tile and do from the g tile (32-token chunks), runs the T x T
+//    softmax backward, and writes that head's dq/dk/dv slices of dqkv and its
+//    slice of the rounded, dropped attention output to a scratch buffer the
+//    wrapper allocates. A block with no live row skips all compute.
+// 2. proj_bwd_dwo_kernel: dWo = attn^T g and dbo = sum g as a split
+//    reduction: one block per 64 x 64 output tile and token chunk writes its
+//    partial sum, and proj_bwd_finalize adds the partials in split order.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "sublayer.cuh"
 
 namespace {
 
 using namespace stlt;
 using bf16 = __nv_bfloat16;
 
-constexpr int kKT = 16;  // k-slice staged per SIMT step
+// --- f32: SIMT ----------------------------------------------------------------
 
-// bf16: rows of Wqkv / Wo^T per streamed slice (16 at D = 128 keeps the block
-// inside 227 KB at H = 1024: 226,560 bytes).
-template <int D>
-__host__ __device__ constexpr int bwd_slice_rows() {
-  return D > 64 ? 16 : 32;
-}
+constexpr int kKT = 16;  // k-slice staged per SIMT step
 constexpr int kTO = 64;  // dWo output tile edge
 constexpr int kKM = 32;  // tokens per step of the dWo reduction
 
@@ -110,30 +141,29 @@ __device__ __forceinline__ bool row_live(const BwdArgs& p, int row) {
 }
 
 // The T x T backward of head h over the tile's ntok tokens (whole rows), from
-// q_s/k_s/v_s [kTK][D] (f32, or bf16 in the bf16 kernel: they are rounded to
-// it) and do_s [kTK][D] f32 in shared memory, with p_s/dp_s [kTK][kTK] as
-// scratch. Writes dq/dk/dv of the head into dqkv and the rounded, dropped
-// attention output into the scratch, zeros for dead rows.
-template <typename E, int D, typename QE>
-__device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const QE* q_s,
-                              const QE* k_s, const QE* v_s, const float* do_s, float* p_s,
+// q_s/k_s/v_s [kTK][D] and do_s [kTK][D] in shared memory, with p_s/dp_s
+// [kTK][kTK] as scratch. Writes dq/dk/dv of the head into dqkv and the
+// dropped attention output into the scratch, zeros for dead rows.
+template <int D>
+__device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const float* q_s,
+                              const float* k_s, const float* v_s, const float* do_s, float* p_s,
                               float* dp_s) {
   const int tid = threadIdx.x, seq = p.seq, H = p.num_heads * D;
-  E* __restrict__ dqkv = static_cast<E*>(p.dqkv);
-  E* __restrict__ attn = static_cast<E*>(p.attn);
+  float* __restrict__ dqkv = static_cast<float*>(p.dqkv);
+  float* __restrict__ attn = static_cast<float*>(p.attn);
   const int n = tl.ntok * seq;
   // p = softmax(q k^T * scale + bias); dp = (do v^T) * keep * 1/(1-rate).
   for (int idx = tid; idx < n; idx += kThreads) {
     const int i = idx / seq, s = idx % seq, lr = i / seq, t = i % seq;
-    const QE* qi = q_s + i * D;
-    const QE* ks = k_s + (lr * seq + s) * D;
+    const float* qi = q_s + i * D;
+    const float* ks = k_s + (lr * seq + s) * D;
     const float* di = do_s + i * D;
-    const QE* vs = v_s + (lr * seq + s) * D;
+    const float* vs = v_s + (lr * seq + s) * D;
     float dot = 0.f, dpv = 0.f;
 #pragma unroll 16
     for (int d = 0; d < D; ++d) {
-      dot = fmaf(to_float(qi[d]), to_float(ks[d]), dot);
-      dpv = fmaf(di[d], to_float(vs[d]), dpv);
+      dot = fmaf(qi[d], ks[d], dot);
+      dpv = fmaf(di[d], vs[d], dpv);
     }
     const float b = p.bias[(long long)(tl.row0 + lr) * p.bias_row_stride +
                            (long long)t * p.bias_q_stride + s];
@@ -176,38 +206,35 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const QE*
       const float* pj = p_s + j * kTK;   // pv of query j
       const float* zj = dp_s + j * kTK;  // dz of query j
       for (int s = 0; s < seq; ++s) {
-        o = fmaf(pj[s], to_float(v_s[(base + s) * D + d]), o);
-        dq = fmaf(zj[s], to_float(k_s[(base + s) * D + d]), dq);
+        o = fmaf(pj[s], v_s[(base + s) * D + d], o);
+        dq = fmaf(zj[s], k_s[(base + s) * D + d], dq);
       }
       const int sj = j - base;  // j as a key: sum over the queries of its row
       for (int t = 0; t < seq; ++t) {
-        dk = fmaf(dp_s[(base + t) * kTK + sj], to_float(q_s[(base + t) * D + d]), dk);
+        dk = fmaf(dp_s[(base + t) * kTK + sj], q_s[(base + t) * D + d], dk);
         dv = fmaf(p_s[(base + t) * kTK + sj], do_s[(base + t) * D + d], dv);
       }
       dq *= p.scale;
       dk *= p.scale;
     }
     const long long tok = tl.tok0 + j;
-    E* row = dqkv + tok * 3 * H + h * D + d;
-    row[0] = from_float<E>(dq);
-    row[H] = from_float<E>(dk);
-    row[2 * H] = from_float<E>(dv);
-    attn[tok * H + h * D + d] = from_float<E>(o);
+    float* row = dqkv + tok * 3 * H + h * D + d;
+    row[0] = dq;
+    row[H] = dk;
+    row[2 * H] = dv;
+    attn[tok * H + h * D + d] = o;
   }
   __syncthreads();
 }
 
 // A tile with no live row: zeros for its dqkv and attention-scratch rows.
-template <typename E>
 __device__ __forceinline__ void zero_tile(const BwdArgs& p, const Tile& tl, int H) {
   const long long n3 = (long long)tl.ntok * 3 * H, n1 = (long long)tl.ntok * H;
-  E* dq = static_cast<E*>(p.dqkv) + tl.tok0 * 3 * H;
-  E* at = static_cast<E*>(p.attn) + tl.tok0 * H;
-  for (long long i = threadIdx.x; i < n3; i += kThreads) dq[i] = from_float<E>(0.f);
-  for (long long i = threadIdx.x; i < n1; i += kThreads) at[i] = from_float<E>(0.f);
+  float* dq = static_cast<float*>(p.dqkv) + tl.tok0 * 3 * H;
+  float* at = static_cast<float*>(p.attn) + tl.tok0 * H;
+  for (long long i = threadIdx.x; i < n3; i += kThreads) dq[i] = 0.f;
+  for (long long i = threadIdx.x; i < n1; i += kThreads) at[i] = 0.f;
 }
-
-// --- f32: SIMT ----------------------------------------------------------------
 
 // acc[r][j] += A[ty * kRM + r][k] * B[k][tx + 64 * j] over k < K: A is kTM rows
 // of a row-major f32 matrix in device memory (row stride K; rows from nrows
@@ -272,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const Tile tl = block_tile(p);
   if (!block_has_live(p.rows_live, tl.row0, tl.nrows)) {
-    zero_tile<float>(p, tl, H);
+    zero_tile(p, tl, H);
     return;
   }
   const int nchunks = (tl.ntok + kTM - 1) / kTM;
@@ -313,92 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
       }
     }
     __syncthreads();
-    head_backward<float, D>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
-  }
-}
-
-// --- bf16: tensor cores -------------------------------------------------------
-
-template <int D>
-size_t bwd_tc_smem_bytes(int H) {
-  return sizeof(bf16) * ((size_t)kTM * (H + kPad) + ring_elems(bwd_slice_rows<D>(), 3 * D)) +
-         sizeof(typename QkvType<D>::type) * (size_t)3 * kTK * D +
-         sizeof(float) * (size_t)(kTK * D + 2 * kTK * kTK + kWarps * 256);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_tc_kernel(BwdArgs p) {
-  constexpr int kKS = bwd_slice_rows<D>();
-  constexpr int kQCF = (3 * D / 16 + 3) / 4, kDCF = (D / 16 + 3) / 4;  // fragments of a warp
-  using QE = typename QkvType<D>::type;
-  const int H = p.num_heads * D, LDA = H + kPad;
-  const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
-  const bf16* __restrict__ wqkv = static_cast<const bf16*>(p.wqkv);
-  const bf16* __restrict__ bqkv = static_cast<const bf16*>(p.bqkv);
-  const bf16* __restrict__ wot = static_cast<const bf16*>(p.wot);
-  const bf16* __restrict__ g = static_cast<const bf16*>(p.g);
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // [kTM][LDA]: a chunk of x or g
-  bf16* stages = a_s + kTM * LDA;                 // ring of Wqkv / Wo^T slices
-  QE* q_s = reinterpret_cast<QE*>(stages + ring_elems(kKS, 3 * D));  // [kTK][D], rounded
-  QE* k_s = q_s + kTK * D;
-  QE* v_s = k_s + kTK * D;
-  float* do_s = reinterpret_cast<float*>(v_s + kTK * D);  // [kTK][D]
-  float* p_s = do_s + kTK * D;    // [kTK][kTK]
-  float* dp_s = p_s + kTK * kTK;  // [kTK][kTK]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* scratch = dp_s + kTK * kTK + warp * 256;
-
-  const Tile tl = block_tile(p);
-  if (!block_has_live(p.rows_live, tl.row0, tl.nrows)) {
-    zero_tile<bf16>(p, tl, H);
-    return;
-  }
-  const int nchunks = (tl.ntok + kTM - 1) / kTM;
-  // q/k/v: warp covers row fragment warp / 4, column fragments warp % 4 + 4 j
-  // of [kTM, 3 * D]; do: the same of [kTM, D].
-  const int qrf = warp / 4, qcf0 = warp % 4;
-
-  auto load_chunk = [&](const bf16* src, int c) {
-    copy_rows(a_s, LDA, src + (tl.tok0 + kTM * c) * H, H, min(kTM, tl.ntok - kTM * c), kTM, H);
-  };
-
-  for (int h = 0; h < p.num_heads; ++h) {
-    const BCols<3, D> wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, 3 * H};
-    const BCols<1, D> wot_head{{wot + h * D}, H};
-    for (int c = 0; c < nchunks; ++c) {
-      // gemm_ring synchronises the block before it reads a_s and after.
-      load_chunk(x, c);
-      FragC qacc[1][kQCF];
-      zero(qacc);
-      gemm_ring<1, kQCF, kKS>(qacc, a_s + qrf * 16 * LDA, LDA, wqkv_head, H, stages, qcf0, 4);
-#pragma unroll
-      for (int j = 0; j < kQCF; ++j) {
-        const int cf = qcf0 + 4 * j;
-        if (cf >= 3 * D / 16) continue;  // uniform over the warp
-        for_each_element(qacc[0][j], scratch, lane, [&](int i, int jj, float v) {
-          const int cc = cf * 16 + jj, part = cc / D, d = cc % D;
-          QE* dst = part == 0 ? q_s : (part == 1 ? k_s : v_s);
-          dst[(c * kTM + qrf * 16 + i) * D + d] =
-              from_float<QE>(round_to<bf16>(v + to_float(bqkv[part * H + h * D + d])));
-        });
-      }
-      load_chunk(g, c);
-      FragC dacc[1][kDCF];
-      zero(dacc);
-      gemm_ring<1, kDCF, kKS>(dacc, a_s + qrf * 16 * LDA, LDA, wot_head, H, stages, qcf0, 4);
-#pragma unroll
-      for (int j = 0; j < kDCF; ++j) {
-        const int cf = qcf0 + 4 * j;
-        if (cf >= D / 16) continue;  // uniform over the warp
-        for_each_element(dacc[0][j], scratch, lane, [&](int i, int jj, float v) {
-          do_s[(c * kTM + qrf * 16 + i) * D + cf * 16 + jj] = v;
-        });
-      }
-    }
-    __syncthreads();
-    head_backward<bf16, D>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
+    head_backward<D>(p, tl, h, q_s, k_s, v_s, do_s, p_s, dp_s);
   }
 }
 
@@ -425,25 +367,23 @@ __device__ __forceinline__ bool token_live(const WoArgs& a, long long m) {
 
 // Column sums of g over the live tokens of the staged step, for the blocks
 // of the first row of tiles: thread k < kTO owns output column k0 + k.
-template <typename E>
-__device__ __forceinline__ void add_bias_sums(const WoArgs& a, const E* g_t, int ld, long long m0,
+__device__ __forceinline__ void add_bias_sums(const WoArgs& a, const float* g_t, int ld, long long m0,
                                               int nm, float& sum) {
   if (threadIdx.x >= kTO) return;
   for (int m = 0; m < nm; ++m) {
-    if (token_live(a, m0 + m)) sum += to_float(g_t[m * ld + threadIdx.x]);
+    if (token_live(a, m0 + m)) sum += g_t[m * ld + threadIdx.x];
   }
 }
 
-template <typename E>
-__device__ __forceinline__ void stage_tokens(const WoArgs& a, E* a_t, E* g_t, int ld, int j0,
+__device__ __forceinline__ void stage_tokens(const WoArgs& a, float* a_t, float* g_t, int ld, int j0,
                                              int k0, long long m0, int nm) {
-  const E* attn = static_cast<const E*>(a.attn);
-  const E* g = static_cast<const E*>(a.g);
+  const float* attn = static_cast<const float*>(a.attn);
+  const float* g = static_cast<const float*>(a.g);
   for (int i = threadIdx.x; i < kKM * kTO; i += kThreads) {
     const int m = i / kTO, c = i % kTO;
     const bool in = m < nm;
-    a_t[m * ld + c] = in ? attn[(m0 + m) * a.hidden + j0 + c] : from_float<E>(0.f);
-    g_t[m * ld + c] = in ? g[(m0 + m) * a.hidden + k0 + c] : from_float<E>(0.f);
+    a_t[m * ld + c] = in ? attn[(m0 + m) * a.hidden + j0 + c] : 0.f;
+    g_t[m * ld + c] = in ? g[(m0 + m) * a.hidden + k0 + c] : 0.f;
   }
 }
 
@@ -459,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
   float bsum = 0.f;
   for (long long m0 = m_begin; m0 < m_end; m0 += kKM) {
     const int nm = (int)min((long long)kKM, m_end - m0);
-    stage_tokens<float>(a, a_t, g_t, kTO, j0, k0, m0, nm);
+    stage_tokens(a, a_t, g_t, kTO, j0, k0, m0, nm);
     __syncthreads();
     for (int m = 0; m < nm; ++m) {
 #pragma unroll
@@ -469,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
         for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av, g_t[m * kTO + tx * 4 + c], acc[r][c]);
       }
     }
-    if (j0 == 0) add_bias_sums<float>(a, g_t, kTO, m0, nm, bsum);
+    if (j0 == 0) add_bias_sums(a, g_t, kTO, m0, nm, bsum);
     __syncthreads();
   }
   float* out = a.partial + (long long)blockIdx.y * a.hidden * a.hidden;
@@ -480,52 +420,8 @@ __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
   if (j0 == 0 && tid < kTO) a.partial_b[(long long)blockIdx.y * a.hidden + k0 + tid] = bsum;
 }
 
-// bf16: WMMA, attn^T as a col-major A operand; warp w owns row fragment w / 2
-// and column fragments 2 * (w % 2) + {0, 1} of the tile.
-__global__ void __launch_bounds__(kThreads) proj_bwd_dwo_tc_kernel(WoArgs a) {
-  constexpr int LD = kTO + kPad;
-  __shared__ __align__(128) bf16 a_t[kKM * LD];
-  __shared__ __align__(128) bf16 g_t[kKM * LD];
-  __shared__ __align__(128) float scratch[kWarps * 256];
-  using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-  const int tiles = a.hidden / kTO;
-  const int j0 = (blockIdx.x / tiles) * kTO, k0 = (blockIdx.x % tiles) * kTO;
-  const long long m_begin = blockIdx.y * a.chunk;
-  const long long m_end = min(a.tokens, m_begin + a.chunk);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rf = warp / 2, cf0 = 2 * (warp % 2);
-  FragC acc[1][2];
-  zero(acc);
-  float bsum = 0.f;
-  for (long long m0 = m_begin; m0 < m_end; m0 += kKM) {
-    const int nm = (int)min((long long)kKM, m_end - m0);
-    stage_tokens<bf16>(a, a_t, g_t, LD, j0, k0, m0, nm);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKM; kk += 16) {
-      FragAT fa;
-      wmma::load_matrix_sync(fa, a_t + kk * LD + rf * 16, LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, g_t + kk * LD + (cf0 + j) * 16, LD);
-        wmma::mma_sync(acc[0][j], fa, fb, acc[0][j]);
-      }
-    }
-    if (j0 == 0) add_bias_sums<bf16>(a, g_t, LD, m0, nm, bsum);
-    __syncthreads();
-  }
-  float* out = a.partial + (long long)blockIdx.y * a.hidden * a.hidden;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    for_each_element(acc[0][j], scratch + warp * 256, lane, [&](int i, int jj, float v) {
-      out[(long long)(j0 + rf * 16 + i) * a.hidden + k0 + (cf0 + j) * 16 + jj] = v;
-    });
-  }
-  if (j0 == 0 && tid < kTO) a.partial_b[(long long)blockIdx.y * a.hidden + k0 + tid] = bsum;
-}
 
-// dWo and dbo: the partials summed in split order.
+// dWo and dbo: the partials summed in split order (f32 and bf16 alike).
 __global__ void proj_bwd_finalize_kernel(WoArgs a) {
   const long long hh = (long long)a.hidden * a.hidden;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -541,10 +437,514 @@ __global__ void proj_bwd_finalize_kernel(WoArgs a) {
   }
 }
 
-template <int D, bool kTensorCores>
-int launch(const BwdArgs& a, int H, cudaStream_t stream) {
-  auto kernel = kTensorCores ? fused_proj_bwd_tc_kernel<D> : fused_proj_bwd_kernel<D>;
-  const size_t smem = kTensorCores ? bwd_tc_smem_bytes<D>(H) : bwd_smem_bytes<D>();
+// --- bf16: wgmma on TMA-fed tiles, split at the rounding points ----------------
+
+using namespace stlt::sublayer;
+
+__global__ void __launch_bounds__(kScanThreads) proj_bwd_scan_kernel(const uint8_t* live, int rows,
+                                                                     int* packed, int* count) {
+  tail::live_rows_scan<true>(live, rows, packed, count);
+}
+
+// Packed token i (< *count * seq) of x and g [rows * seq, H] into xp and gp:
+// token rows[i / seq] * seq + i % seq, one a warp in 16-byte vectors; the
+// packed tokens from there up to the next 64-row step (and M) zeros, so the
+// dWo GEMM's last k step reads no stale row.
+__global__ void __launch_bounds__(32 * kRowWarps)
+    proj_bwd_gather_kernel(const bf16* x, const bf16* g, bf16* xp, bf16* gp, const int* rows,
+                           const int* count, int seq, int H, long long M) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  const long long n = (long long)*count * seq;
+  uint4* xd = reinterpret_cast<uint4*>(xp + i * H);
+  uint4* gd = reinterpret_cast<uint4*>(gp + i * H);
+  if (i < n) {
+    const long long tok = (long long)rows[i / seq] * seq + i % seq;
+    const uint4* xs = reinterpret_cast<const uint4*>(x + tok * H);
+    const uint4* gs = reinterpret_cast<const uint4*>(g + tok * H);
+    for (int c = lane; c < H / 8; c += 32) {
+      xd[c] = xs[c];
+      gd[c] = gs[c];
+    }
+  } else if (i < min(tail::round_up(n, kBK), M)) {
+    for (int c = lane; c < H / 8; c += 32) xd[c] = gd[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The two input-side GEMMs in one grid: blocks x < ceil(3H / kBN) take qkv's
+// tiles, the others do's.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    proj_bwd_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_wqkv,
+                         const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_wo,
+                         GemmArgs qkv, GemmF32Args dout) {
+  const int n1 = (qkv.N + kBN - 1) / kBN;
+  if ((int)blockIdx.x < n1) {
+    gemm_tile(map_x, map_wqkv, qkv, blockIdx.x * kBN, blockIdx.y * kBM);
+  } else {
+    gemm_f32_tile(map_g, map_wo, dout, (blockIdx.x - n1) * kBN, blockIdx.y * kBM);
+  }
+}
+
+// --- the short-attention backward ---------------------------------------------
+
+constexpr int kBwdThreads = 128;
+constexpr size_t kBwdSmemTwo = 113 * 1024;  // two blocks an SM
+constexpr int kBwdCols = 32;                // output columns a thread sums at once
+
+// Packed row b: tokens b * T + t of qkv [M, 3H] (q, k, v at columns 0, H,
+// 2H, head h at h * D of each), of do [M, H] (f32) and of attn [M, H]; rows[b]
+// (rows null: b) is its original row, by which the bias, the keep bits and
+// dqkv's rows are indexed. With rows, the blocks from *count on own the dead
+// rows rows[b] and write their T x 3H dqkv rows as zeros.
+struct AttnBwdArgs {
+  const bf16* qkv;
+  const float* dout;
+  bf16* attn;
+  bf16* dqkv;
+  const float* bias;
+  long long bias_row_stride;
+  long long bias_q_stride;
+  const int* rows;
+  const int* count;
+  int B, T, H, N;
+  int hb;  // heads a block
+  float scale;
+  Dropout drop;
+};
+
+// q, k, v (bf16, rows padded by 16 bytes), do (f32, rows padded by 16 bytes)
+// of hb heads, then pv and dz [hb * T][attn_ldp(T)] f32.
+template <int D>
+__host__ __device__ inline size_t attn_bwd_smem_bytes(int hb, int T) {
+  return (size_t)3 * hb * T * (D + 8) * sizeof(bf16) + (size_t)hb * T * (D + 4) * sizeof(float) +
+         (size_t)2 * hb * T * attn_ldp(T) * sizeof(float);
+}
+
+// Heads a block: (head, query) pairs to fill its threads once, within the
+// shared memory of two blocks an SM where one head allows it.
+template <int D>
+inline int attn_bwd_heads(int T, int N) {
+  int hb = kBwdThreads / T;
+  hb = hb < 1 ? 1 : (hb > N ? N : hb);
+  while (hb > 1 && attn_bwd_smem_bytes<D>(hb, T) > kBwdSmemTwo) --hb;
+  return hb;
+}
+
+__device__ __forceinline__ void store_bf16(bf16* dst, const float (&v)[kBwdCols], float scale) {
+#pragma unroll
+  for (int c = 0; c < kBwdCols; c += 8) {
+    uint4 u;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h2[j] = __floats2bfloat162_rn(v[c + 2 * j] * scale, v[c + 2 * j + 1] * scale);
+    *reinterpret_cast<uint4*>(dst + c) = u;
+  }
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads) proj_bwd_attn_kernel(AttnBwdArgs p) {
+  constexpr int LDK = D + 8, LDD = D + 4, kVecs = D / 8;
+  const int tid = threadIdx.x, b = blockIdx.x, T = p.T, H = p.H;
+  const int live_rows = p.count != nullptr ? *p.count : p.B;
+  if (b >= live_rows) {
+    if (blockIdx.y == 0) {
+      uint4* d = reinterpret_cast<uint4*>(p.dqkv + (long long)p.rows[b] * T * 3 * H);
+      for (int i = tid; i < T * 3 * H / 8; i += kBwdThreads) d[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const int orig = p.rows != nullptr ? p.rows[b] : b;
+  const int h0 = blockIdx.y * p.hb, nh = min(p.hb, p.N - h0);
+  const long long tok0 = (long long)b * T;
+  const int LDP = attn_ldp(T);
+
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(bwd_smem);  // [nh][T][LDK]
+  bf16* k_s = q_s + p.hb * T * LDK;
+  bf16* v_s = k_s + p.hb * T * LDK;
+  float* do_s = reinterpret_cast<float*>(v_s + p.hb * T * LDK);  // [nh][T][LDD]
+  float* pv_s = do_s + p.hb * T * LDD;  // [nh * T][LDP]: p, then pv
+  float* dz_s = pv_s + p.hb * T * LDP;  // [nh * T][LDP]: dp, then dz
+
+  // q, k, v and do of the group's heads (a token's heads are contiguous
+  // columns), every 16-byte copy in flight at once.
+  const int per_tok = nh * kVecs;
+  for (int i = tid; i < 3 * T * per_tok; i += kBwdThreads) {
+    const int part = i / (T * per_tok), rest = i % (T * per_tok);
+    const int t = rest / per_tok, hl = (rest % per_tok) / kVecs, c = rest % kVecs;
+    const bf16* src = p.qkv + (tok0 + t) * 3 * H + part * H + (long long)(h0 + hl) * D + c * 8;
+    cp_async16((part == 0 ? q_s : (part == 1 ? k_s : v_s)) + (hl * T + t) * LDK + c * 8, src);
+  }
+  const int per_tok_f = nh * D / 4;
+  for (int i = tid; i < T * per_tok_f; i += kBwdThreads) {
+    const int t = i / per_tok_f, hl = (i % per_tok_f) / (D / 4), c = i % (D / 4);
+    cp_async16(do_s + (hl * T + t) * LDD + c * 4, p.dout + (tok0 + t) * H + (long long)(h0 + hl) * D + c * 4);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // A thread a (head hl, query t): its row of the probabilities and of dz.
+  for (int i = tid; i < nh * T; i += kBwdThreads) {
+    const int hl = i / T, t = i % T, h = h0 + hl;
+    const bf16* qrow = q_s + i * LDK;
+    const float* drow = do_s + i * LDD;
+    const bf16* kh = k_s + hl * T * LDK;
+    const bf16* vh = v_s + hl * T * LDK;
+    float* pr = pv_s + i * LDP;
+    float* zr = dz_s + i * LDP;
+    // Logits q . k and dp = do . v, summed over d in order, kBwdCols at a time.
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += kBwdCols) {
+      float qv[kBwdCols], dv[kBwdCols];
+#pragma unroll
+      for (int c = 0; c < kBwdCols; c += 8) unpack8(*reinterpret_cast<const uint4*>(qrow + d0 + c), qv + c);
+#pragma unroll
+      for (int c = 0; c < kBwdCols; c += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(drow + d0 + c);
+        dv[c] = f.x, dv[c + 1] = f.y, dv[c + 2] = f.z, dv[c + 3] = f.w;
+      }
+#pragma unroll 1
+      for (int s = 0; s < T; ++s) {
+        float l = d0 == 0 ? 0.f : pr[s], dp = d0 == 0 ? 0.f : zr[s];
+        const bf16* ks = kh + s * LDK + d0;
+        const bf16* vs = vh + s * LDK + d0;
+#pragma unroll
+        for (int c = 0; c < kBwdCols; c += 8) {
+          float kf[8], vf[8];
+          unpack8(*reinterpret_cast<const uint4*>(ks + c), kf);
+          unpack8(*reinterpret_cast<const uint4*>(vs + c), vf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            l = fmaf(qv[c + e], kf[e], l);
+            dp = fmaf(dv[c + e], vf[e], dp);
+          }
+        }
+        pr[s] = l;
+        zr[s] = dp;
+      }
+    }
+    // p = softmax(logits * scale + bias), max-subtracted and normalised
+    // first; dp and pv times keep * 1/(1-rate); dz = p (dp - sum_s p dp).
+    const float* brow = p.bias + (long long)orig * p.bias_row_stride + (long long)t * p.bias_q_stride;
+    float m = -INFINITY;
+    for (int s = 0; s < T; ++s) {
+      const float l = pr[s] * p.scale + brow[s];
+      pr[s] = l;
+      m = fmaxf(m, l);
+    }
+    float sum = 0.f;
+    for (int s = 0; s < T; ++s) {
+      const float e = expf(pr[s] - m);
+      pr[s] = e;
+      sum += e;
+    }
+    float r = 0.f;
+    for (int s = 0; s < T; ++s) {
+      const float ps = pr[s] / sum;
+      float dp = zr[s];
+      if (kDrop) dp *= p.drop.keep_scale(orig, h, p.N, t, s, T);
+      pr[s] = ps;
+      zr[s] = dp;
+      r = fmaf(ps, dp, r);
+    }
+    for (int s = 0; s < T; ++s) {
+      const float ps = pr[s];
+      zr[s] = ps * (zr[s] - r);
+      if (kDrop) pr[s] = ps * p.drop.keep_scale(orig, h, p.N, t, s, T);
+    }
+    // attn = round(pv v) at the packed token, dq = dz k * scale at the
+    // original one, kBwdCols columns at a time, sums over s in order.
+    bf16* arow = p.attn + (tok0 + t) * H + (long long)h * D;
+    bf16* qout = p.dqkv + ((long long)orig * T + t) * 3 * H + (long long)h * D;
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += kBwdCols) {
+      float ao[kBwdCols], aq[kBwdCols];
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) ao[e] = aq[e] = 0.f;
+#pragma unroll 1
+      for (int s = 0; s < T; ++s) {
+        const float ps = pr[s], zs = zr[s];
+        const bf16* vs = vh + s * LDK + d0;
+        const bf16* ks = kh + s * LDK + d0;
+#pragma unroll
+        for (int c = 0; c < kBwdCols; c += 8) {
+          float vf[8], kf[8];
+          unpack8(*reinterpret_cast<const uint4*>(vs + c), vf);
+          unpack8(*reinterpret_cast<const uint4*>(ks + c), kf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ao[c + e] = fmaf(ps, vf[e], ao[c + e]);
+            aq[c + e] = fmaf(zs, kf[e], aq[c + e]);
+          }
+        }
+      }
+      store_bf16(arow + d0, ao, 1.f);
+      store_bf16(qout + d0, aq, p.scale);
+    }
+  }
+  __syncthreads();
+
+  // A thread a (head hl, key s): dk = dz^T q * scale and dv = pv^T do, sums
+  // over the queries t in order, at the original token.
+  for (int i = tid; i < nh * T; i += kBwdThreads) {
+    const int hl = i / T, s = i % T, h = h0 + hl;
+    const float* pcol = pv_s + hl * T * LDP + s;
+    const float* zcol = dz_s + hl * T * LDP + s;
+    bf16* kout = p.dqkv + ((long long)orig * T + s) * 3 * H + H + (long long)h * D;
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += kBwdCols) {
+      float ak[kBwdCols], av[kBwdCols];
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) ak[e] = av[e] = 0.f;
+#pragma unroll 1
+      for (int t = 0; t < T; ++t) {
+        const float zt = zcol[t * LDP], pt = pcol[t * LDP];
+        const bf16* qs = q_s + (hl * T + t) * LDK + d0;
+        const float* ds = do_s + (hl * T + t) * LDD + d0;
+#pragma unroll
+        for (int c = 0; c < kBwdCols; c += 8) {
+          float qf[8];
+          unpack8(*reinterpret_cast<const uint4*>(qs + c), qf);
+          const float4 d_lo = *reinterpret_cast<const float4*>(ds + c);
+          const float4 d_hi = *reinterpret_cast<const float4*>(ds + c + 4);
+          const float df[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w, d_hi.x, d_hi.y, d_hi.z, d_hi.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ak[c + e] = fmaf(zt, qf[e], ak[c + e]);
+            av[c + e] = fmaf(pt, df[e], av[c + e]);
+          }
+        }
+      }
+      store_bf16(kout + d0, ak, p.scale);
+      store_bf16(kout + H + d0, av, 1.f);
+    }
+  }
+}
+
+// --- dWo = attn_p^T g_p and dbo = sum g_p over the packed rows ------------------
+
+constexpr int kWeightBT = 128;  // rows and columns of an output tile
+constexpr size_t kWeightSmem = tail::ring_smem(kWeightBT * kBK, kWeightBT * kBK);
+
+struct WeightArgs {
+  int M, H, seq;
+  long long chunk;  // packed rows a split, a multiple of kBK
+  const int* count;
+  float* partial;    // [splits, H, H]: each split's dWo
+  float* partial_b;  // [splits, H]: each split's dbo
+};
+
+// Block (x, y): output tile x of dWo [H, H] over packed rows [y chunk, (y +
+// 1) chunk) up to the live rows rounded up to kBK (the gather zeroed the rows
+// between), into split y's partials; a split past them writes zeros. Both
+// operands are token rows, read MN-major: A^T from [64 k, 64 m] boxes of attn
+// (imm-trans-a), B from [64 k, 64 n] boxes of g; no box past H is loaded.
+// The blocks of the first tile row also add up g's columns of each stage
+// from the swizzled B tile: their split's dbo. Each warpgroup sums its own
+// 32 rows of the stage and meets at a named barrier before consume() frees
+// the stage, so no TMA load of a later step lands under a read.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    proj_bwd_weight_gemm_kernel(const __grid_constant__ CUtensorMap map_attn,
+                                const __grid_constant__ CUtensorMap map_g, WeightArgs p) {
+  using namespace hopper;
+  using namespace tail;
+  constexpr int BT = kWeightBT;
+  const int H = p.H, tiles = (H + BT - 1) / BT;
+  const int m0 = (blockIdx.x / tiles) * BT, n0 = (blockIdx.x % tiles) * BT;
+  float* out = p.partial + (long long)blockIdx.y * H * H;
+  const long long live = p.count != nullptr ? (long long)*p.count * p.seq : p.M;
+  const long long k0 = blockIdx.y * p.chunk;
+  const long long k1 = min(k0 + p.chunk, round_up(live, kBK));
+  const int nk = k1 > k0 ? (int)((k1 - k0) / kBK) : 0;
+  const bool bias_row = m0 == 0;
+
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float bias_half[kConsumers];
+  const Ring ring = make_ring(smem_raw, BT * kBK, BT * kBK);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const int abox = min(BT, H - m0) / 64, bbox = min(BT, H - n0) / 64;
+      produce(ring, nk, (abox + bbox) * 64 * kBK * sizeof(bf16), [&](int s, int k) {
+        const int kr = (int)(k0 + k * kBK);
+        for (int j = 0; j < abox; ++j) {
+          tma_load_2d(ring.a_stage(s) + j * 64 * kBK, &map_attn, &ring.full[s], m0 + 64 * j, kr);
+        }
+        for (int j = 0; j < bbox; ++j) {
+          tma_load_2d(ring.b_stage(s) + j * 64 * kBK, &map_g, &ring.full[s], n0 + 64 * j, kr);
+        }
+      });
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  // dbo: consumer thread (column bc of the tile, rows 32 bh .. 32 bh + 31 of
+  // each stage); element (r, c) of a [64 k, 64 n] box lies in 16-byte chunk
+  // (c / 8) ^ (r % 8) of its 128-byte row (the 128-byte swizzle).
+  const int bc = threadIdx.x % BT, bh = threadIdx.x / BT;
+  float bsum = 0.f;
+  float acc[BT / 2];
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+  consume(ring, nk, [&](int s, int) {
+    const bf16* a = ring.a_stage(s) + w * 64 * kBK;  // this warpgroup's 64 rows: one [64 k, 64 m] box
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      Wgmma<BT, 1, 1>::mma(acc, desc_mn(a, kk), desc_mn(ring.b_stage(s), kk), 1);
+    }
+    if (bias_row) {
+      const bf16* box = ring.b_stage(s) + (bc / 64) * 64 * kBK;
+      const int c = bc % 64;
+#pragma unroll 8
+      for (int r = 32 * bh; r < 32 * bh + 32; ++r) {
+        bsum += __bfloat162float(box[r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)]);
+      }
+      if (w == 0) {  // constant ids: ptxas then reserves 4 barriers, not all 16
+        named_barrier_sync(2, 128);
+      } else {
+        named_barrier_sync(3, 128);
+      }
+    }
+  }, acc);
+  const int rl = m0 + w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = n0 + 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h, c = cl + 8 * j;
+      if (r < H && c < H) {
+        *reinterpret_cast<float2*>(out + (long long)r * H + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  if (bias_row) {
+    bias_half[threadIdx.x] = bsum;
+    named_barrier_sync(1, kConsumers);
+    if (threadIdx.x < BT && n0 + threadIdx.x < H) {
+      p.partial_b[(long long)blockIdx.y * H + n0 + threadIdx.x] =
+          bias_half[threadIdx.x] + bias_half[threadIdx.x + BT];
+    }
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return (int)err;
+}
+
+template <int D>
+int launch_attn_bwd(AttnBwdArgs a, cudaStream_t stream) {
+  static bool smem_set[2] = {false, false};  // without, with dropout
+  a.hb = attn_bwd_heads<D>(a.T, a.N);
+  const size_t smem = attn_bwd_smem_bytes<D>(a.hb, a.T);
+  if (smem > kMaxSmem) return -1;
+  auto kernel = a.drop.on ? proj_bwd_attn_kernel<D, true> : proj_bwd_attn_kernel<D, false>;
+  const int err = set_smem(kernel, kMaxSmem, smem_set[a.drop.on ? 1 : 0]);
+  if (err) return err;
+  kernel<<<dim3(a.B, (a.N + a.hb - 1) / a.hb), kBwdThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+struct TcArgs {
+  const bf16* x;
+  const bf16* wqkv;  // in_proj_weight [3H, H]
+  const bf16* bqkv;
+  const bf16* wo;    // out_proj.weight [H_out, H_in]
+  const float* bias;
+  long long bias_row_stride, bias_q_stride;
+  const bf16* g;
+  const uint8_t* rows_live;
+  bf16* dqkv;
+  float* partial;    // [splits, H, H]
+  float* partial_b;  // [splits, H]
+  float* dwo;
+  float* dbo;
+  int rows, seq, H, N;
+  float scale;
+  Dropout drop;
+  int splits;
+  long long chunk;
+};
+
+// The bf16 backward (the launches of the note at the top). `scratch`
+// (16-byte aligned) holds, for M = rows * seq tokens: the packed x, then
+// attn, and the packed g [M, H] in bf16 each, qkv [M, 3H] in bf16, do [M, H]
+// in f32, then the packed rows [rows] and their count (int32).
+int launch_tc(const TcArgs& p, void* scratch, cudaStream_t stream) {
+  const long long M = (long long)p.rows * p.seq;
+  const int H = p.H;
+  if (M == 0) {
+    cudaMemsetAsync(p.dwo, 0, sizeof(float) * H * H, stream);
+    cudaMemsetAsync(p.dbo, 0, sizeof(float) * H, stream);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr || p.partial == nullptr || p.partial_b == nullptr || M > 0x7fffffffLL ||
+      (M + kBM - 1) / kBM > 65535 || p.chunk % kBK != 0 || p.chunk * p.splits < M) {
+    return -1;
+  }
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  bf16* xa = reinterpret_cast<bf16*>(base);
+  bf16* gp = xa + M * H;
+  bf16* qkv = gp + M * H;
+  float* dout = reinterpret_cast<float*>(qkv + M * 3 * H);
+  int* rows = reinterpret_cast<int*>(base + M * H * 14);
+  int* count = rows + p.rows;
+  const bool packed = p.rows_live != nullptr;
+  const bf16* xs = packed ? xa : p.x;
+  const bf16* gs = packed ? gp : p.g;
+  if (!packed) rows = count = nullptr;  // every row live: packed row b is row b
+  CUtensorMap map_x, map_wqkv, map_g, map_wo, map_attn, map_gw;
+  int err = hopper::make_map(&map_x, xs, M, H, kBM);
+  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * H, H, kBN);  // [3H, H]: K-major B
+  if (!err) err = hopper::make_map(&map_g, gs, M, H, kBM);
+  if (!err) err = hopper::make_map(&map_wo, p.wo, H, H, kBK);  // [H_out = k, H_in = n]: MN-major B
+  if (!err) err = hopper::make_map(&map_attn, xa, M, H, kBK);
+  if (!err) err = hopper::make_map(&map_gw, gs, M, H, kBK);
+  if (err) return err;
+  static bool gemm_set = false, weight_set = false;
+  if ((err = set_smem(proj_bwd_gemm_kernel, kGemmSmem, gemm_set))) return err;
+  if ((err = set_smem(proj_bwd_weight_gemm_kernel, kWeightSmem, weight_set))) return err;
+  if (packed) {
+    proj_bwd_scan_kernel<<<1, kScanThreads, 0, stream>>>(p.rows_live, p.rows, rows, count);
+    proj_bwd_gather_kernel<<<(unsigned)((M + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, stream>>>(
+        p.x, p.g, xa, gp, rows, count, p.seq, H, M);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const GemmArgs g1{(int)M, 3 * H, H, p.bqkv, qkv, nullptr, count, p.seq, 0};
+  const GemmF32Args g2{(int)M, H, H, dout, count, p.seq};
+  const dim3 ggrid((3 * H + kBN - 1) / kBN + (H + kBN - 1) / kBN, (unsigned)((M + kBM - 1) / kBM));
+  proj_bwd_gemm_kernel<<<ggrid, kGemmThreads, kGemmSmem, stream>>>(map_x, map_wqkv, map_g, map_wo, g1, g2);
+  if ((err = (int)cudaGetLastError())) return err;
+  const AttnBwdArgs a{qkv, dout, xa, p.dqkv, p.bias, p.bias_row_stride, p.bias_q_stride, rows, count,
+                      p.rows, p.seq, H, p.N, 1, p.scale, p.drop};
+  switch (H / p.N) {
+    case 32: err = launch_attn_bwd<32>(a, stream); break;
+    case 64: err = launch_attn_bwd<64>(a, stream); break;
+    case 128: err = launch_attn_bwd<128>(a, stream); break;
+    default: err = -1;
+  }
+  if (err) return err;
+  const int tiles = (H + kWeightBT - 1) / kWeightBT;
+  const WeightArgs w{(int)M, H, p.seq, p.chunk, count, p.partial, p.partial_b};
+  proj_bwd_weight_gemm_kernel<<<dim3(tiles * tiles, p.splits), kGemmThreads, kWeightSmem, stream>>>(
+      map_attn, map_gw, w);
+  if ((err = (int)cudaGetLastError())) return err;
+  const WoArgs f{nullptr, nullptr, nullptr, p.partial, p.partial_b, p.dwo, p.dbo, 0, 0, 0, H, p.splits};
+  proj_bwd_finalize_kernel<<<(unsigned)(((long long)H * H + H + 255) / 256), 256, 0, stream>>>(f);
+  return (int)cudaGetLastError();
+}
+
+// --- f32 launch -----------------------------------------------------------------
+
+template <int D>
+int launch_f32(const BwdArgs& a, cudaStream_t stream) {
+  auto kernel = fused_proj_bwd_kernel<D>;
+  const size_t smem = bwd_smem_bytes<D>();
   if (smem > kMaxSmem) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -554,12 +954,11 @@ int launch(const BwdArgs& a, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kTensorCores>
-int dispatch(int head_dim, const BwdArgs& a, int H, cudaStream_t s) {
+int dispatch_f32(int head_dim, const BwdArgs& a, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch<32, kTensorCores>(a, H, s);
-    case 64: return launch<64, kTensorCores>(a, H, s);
-    case 128: return launch<128, kTensorCores>(a, H, s);
+    case 32: return launch_f32<32>(a, s);
+    case 64: return launch_f32<64>(a, s);
+    case 128: return launch_f32<128>(a, s);
     default: return -1;
   }
 }
@@ -568,40 +967,53 @@ int dispatch(int head_dim, const BwdArgs& a, int H, cudaStream_t s) {
 
 // Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
 // take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
-// 128}, T > 64, a split chunk that is not a multiple of 32 tokens) or -2 for an unknown dtype code
-// (0 = float32, 1 = bfloat16). Launches the backward kernel, the split dWo/dbo
-// reduction and its finalize pass on `stream`. wot is Wo transposed; attn,
-// partial [splits, H, H] and partial_b [splits, H] are scratch.
+// 128}, T > 64, a split chunk that is not a multiple of 32 tokens in f32 or
+// 64 in bf16, no scratch in bf16), -2 for an unknown dtype code (0 = float32,
+// 1 = bfloat16) or -3 if a TMA map cannot be encoded. wo is the model's
+// out_proj.weight [H_out, H_in] (Wo transposed) in both, and partial [splits,
+// H, H] and partial_b [splits, H] (f32) each split's dWo and dbo, summed by
+// proj_bwd_finalize_kernel. f32: wqkv [H, 3H] input-major; scratch the
+// attention output [rows * seq, H]; the backward kernel, the split dWo/dbo
+// reduction and the finalize pass. bf16: wqkv as the model stores it [3H, H];
+// x, g, the weights and the rows_live bytes 16-byte aligned; scratch as
+// launch_tc lays it out (14 H bytes a token, the packed rows and count); the
+// launches of launch_tc. All on `stream`.
 extern "C" int stlt_fused_proj_attention_bwd(
-    const void* x, const void* wqkv, const void* bqkv, const void* wot, const void* bias,
+    const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
     long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
-    void* dqkv, void* attn, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
+    void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
     int seq, int hidden, int num_heads, float scale, int dropout, unsigned int seed,
     unsigned int thresh, float dropout_scale, int splits, long long chunk, int dtype,
     void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
-      hidden % num_heads != 0 || seq < 1 || seq > kTK) {
+      hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 || splits < 1) {
     return -1;
   }
-  if (splits < 1 || chunk % kKM != 0) return -1;
-  if (dtype != 0 && dtype != 1) return -2;
-  BwdArgs a{x, wqkv, bqkv, wot, static_cast<const float*>(bias), bias_row_stride, bias_q_stride,
-            g, static_cast<const uint8_t*>(rows_live), dqkv, attn, rows, seq, num_heads,
-            seq > kTM ? 1 : kTM / seq, scale, Dropout{dropout, seed, thresh, dropout_scale}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int head_dim = hidden / num_heads;
-  int err = dtype == 1 ? dispatch<true>(head_dim, a, hidden, s) : dispatch<false>(head_dim, a, hidden, s);
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
+  const Dropout drop{dropout, seed, thresh, dropout_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const TcArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
+                   static_cast<const bf16*>(wo), static_cast<const float*>(bias), bias_row_stride,
+                   bias_q_stride, static_cast<const bf16*>(g), static_cast<const uint8_t*>(rows_live),
+                   static_cast<bf16*>(dqkv), partial, partial_b, dwo, dbo, rows, seq, hidden, num_heads,
+                   scale, drop, splits, chunk};
+    return launch_tc(p, scratch, s);
+  }
+  if (dtype != 0) return -2;
+  if (chunk % kKM != 0) return -1;
+  BwdArgs a{x, wqkv, bqkv, wo, static_cast<const float*>(bias), bias_row_stride, bias_q_stride,
+            g, static_cast<const uint8_t*>(rows_live), dqkv, scratch, rows, seq, num_heads,
+            seq > kTM ? 1 : kTM / seq, scale, drop};
+  int err = dispatch_f32(head_dim, a, s);
   if (err != 0) return err;
   const long long tokens = (long long)rows * seq;
-  WoArgs w{attn, g, static_cast<const uint8_t*>(rows_live), partial, partial_b, dwo, dbo,
+  WoArgs w{scratch, g, static_cast<const uint8_t*>(rows_live), partial, partial_b, dwo, dbo,
            tokens, chunk, seq, hidden, splits};
   const int tiles = hidden / kTO;
   const dim3 grid(tiles * tiles, splits);  // a split past the last token writes zeros
-  if (dtype == 1) {
-    proj_bwd_dwo_tc_kernel<<<grid, kThreads, 0, s>>>(w);
-  } else {
-    proj_bwd_dwo_kernel<<<grid, kThreads, 0, s>>>(w);
-  }
+  proj_bwd_dwo_kernel<<<grid, kThreads, 0, s>>>(w);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long n = (long long)hidden * hidden + hidden;

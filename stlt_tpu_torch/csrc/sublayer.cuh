@@ -1,6 +1,9 @@
 // The bf16 short-attention sublayers on Hopper, split at their contract's
 // rounding points: the self-attention of fused_proj_attention.cu (rows 1
-// and 3) and the cross-attention of fused_cross_attention.cu (row 5).
+// and 3) and the cross-attention of fused_cross_attention.cu (row 5); the
+// scan, the projection GEMM (gemm_tile) and its f32-output sibling
+// (gemm_f32_tile) also serve the self-attention's train backward
+// (fused_proj_attention_bwd.cu, row 4).
 //
 //   qkv (or q, kv) = round(A W^T + b)    projection GEMMs (gemm_body)
 //   o_h = round(softmax(q_h k_h^T * scale + bias) v_h)   short attention (attn_body)
@@ -83,11 +86,11 @@ struct GemmArgs {
   int scatter;
 };
 
-__device__ __forceinline__ void gemm_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                                          const GemmArgs& p) {
+// The output tile at columns n0 and rows m0 (gemm_body: the block's own).
+__device__ __forceinline__ void gemm_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                          const GemmArgs& p, int n0, int m0) {
   using namespace hopper;
   using namespace tail;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int M = p.count != nullptr ? *p.count * p.seq : p.M;
   if (m0 >= M) return;
 
@@ -144,6 +147,70 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& map_a, const CUtens
     long long dst = row;
     if (p.scatter && p.rows != nullptr) dst = (long long)p.rows[row / p.seq] * p.seq + row % p.seq;
     *reinterpret_cast<uint4*>(p.out + dst * p.N + c) = *reinterpret_cast<const uint4*>(tile + rl * kLDS + cl);
+  }
+}
+
+__device__ __forceinline__ void gemm_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                          const GemmArgs& p) {
+  gemm_tile(map_a, map_b, p, blockIdx.x * kBN, blockIdx.y * kBM);
+}
+
+// C[M, N] = A[M, K] B[K, N] in f32, no bias and no rounding: the f32-output
+// GEMM beside gemm_body's bf16 one (the train backward's do = g Wo^T, which
+// the contract keeps in f32). A as in gemm_body; B a weight stored [K, N]
+// (the model's out_proj.weight [H_out, H_in] read as Wo^T, in place), read
+// MN-major (imm-trans-b) from [64 k, 64 n] boxes, none loaded past N (a
+// multiple of 64). Rows from M (*count * seq with count) on are not written.
+struct GemmF32Args {
+  int M, N, K;
+  float* out;
+  const int* count;
+  int seq;
+};
+
+__device__ __forceinline__ void gemm_f32_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                              const GemmF32Args& p, int n0, int m0) {
+  using namespace hopper;
+  using namespace tail;
+  const int M = p.count != nullptr ? *p.count * p.seq : p.M;
+  if (m0 >= M) return;
+
+  extern __shared__ unsigned char gemm_smem[];
+  const Ring ring = make_ring(gemm_smem, kStageA, kStageB);
+  const int nk = p.K / kBK;
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      const int boxes = min(kBN, p.N - n0) / 64;
+      produce(ring, nk, (kBM + boxes * 64) * kBK * sizeof(bf16), [&](int s, int k) {
+        tma_load_2d(ring.a_stage(s), &map_a, &ring.full[s], k * kBK, m0);
+        for (int j = 0; j < boxes; ++j) {
+          tma_load_2d(ring.b_stage(s) + j * 64 * kBK, &map_b, &ring.full[s], n0 + 64 * j, k * kBK);
+        }
+      });
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  float acc[kBN / 2];
+  consume(ring, nk, [&](int s, int k) {
+    const bf16* a = ring.a_stage(s) + w * 64 * kBK;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {  // the first product overwrites
+      Wgmma<kBN, 0, 1>::mma(acc, desc_k(a, kk), desc_mn(ring.b_stage(s), kk), k > 0 || kk > 0);
+    }
+  }, acc);
+  const int rl = m0 + w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = n0 + 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h, c = cl + 8 * j;
+      if (r < M && c < p.N) {
+        *reinterpret_cast<float2*>(p.out + (long long)r * p.N + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
   }
 }
 

@@ -47,10 +47,14 @@ SIGNATURES = {
     ),
     "fused_proj_attention_bwd": (
         "stlt_fused_proj_attention_bwd",
-        # x, wqkv, bqkv, wot, bias, bias_row_stride, bias_q_stride, g,
-        # rows_live, dqkv, attn, partial, partial_b, dwo, dbo, rows, seq,
-        # hidden, num_heads, scale, dropout, seed, thresh, dropout_scale,
-        # splits, chunk, dtype, stream
+        # x, wqkv (f32: [H, 3H]; bf16: as the model stores it, [3H, H]),
+        # bqkv, wo (out_proj.weight [H_out, H_in] in both), bias,
+        # bias_row_stride, bias_q_stride, g, rows_live, dqkv, scratch (f32:
+        # the attention output; bf16: the packed x/attn, g, qkv, do and
+        # rows), partial [splits, H, H], partial_b [splits, H] (f32; in bf16
+        # views of the scratch), dwo, dbo,
+        # rows, seq, hidden, num_heads, scale, dropout, seed, thresh,
+        # dropout_scale, splits, chunk, dtype, stream
         [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
          _I, _U, _U, _F, _I, _LL, _I, _P],
     ),

@@ -404,42 +404,134 @@ def fused_proj_attention_train_bwd_plain(
     return dqkv.to(cd), dwo, dbo
 
 
+def proj_bwd_weights(wqkv, wo, compute_dtype):
+    """(Wqkv stored [3H, H], Wo stored [H_out, H_in]) in the compute dtype:
+    the operands the bf16 backward (``csrc/fused_proj_attention_bwd.cu``
+    ``launch_tc``) reads, Wqkv as a K-major and Wo as an MN-major B. For the
+    views the model passes (``in_proj_weight.t()``, ``out_proj.weight.t()``)
+    they are the parameters' own storage: no copy in the compute dtype, the
+    one conversion otherwise."""
+    return weight_storage(wqkv, compute_dtype), weight_storage(wo, compute_dtype)
+
+
+# csrc/fused_proj_attention_bwd.cu launch_tc: the dWo/dbo GEMM's k step (the
+# packed rows of a TMA box) and its splits over the packed rows, about
+# _PROJ_BWD_SPLIT_TOKENS rows each, at most _PROJ_BWD_MAX_SPLITS of them.
+_PROJ_BWD_STEP = 64
+_PROJ_BWD_SPLIT_TOKENS = 1024
+_PROJ_BWD_MAX_SPLITS = 8
+
+
+def proj_bwd_splits(tokens: int):
+    """(chunk, splits) of the bf16 backward's dWo/dbo products over
+    ``tokens`` packed rows: chunks a multiple of 64 rows covering them all.
+    From the token count alone, so the order of the ordered sums is fixed
+    whatever rows are live."""
+    splits = max(1, min(_PROJ_BWD_MAX_SPLITS, -(-tokens // _PROJ_BWD_SPLIT_TOKENS)))
+    chunk = max(_PROJ_BWD_STEP, -(-tokens // (splits * _PROJ_BWD_STEP)) * _PROJ_BWD_STEP)
+    return chunk, max(1, -(-tokens // chunk))
+
+
+def _proj_bwd_layout(B: int, T: int, H: int):
+    """Byte offsets of the bf16 backward's scratch regions (the rows, the dWo
+    and the dbo partials) and its size."""
+    M = B * T
+    _, splits = proj_bwd_splits(M)
+    ints = M * H * 14
+    partial = ints + -(-(B + 1) * 4 // 16) * 16
+    partial_b = partial + splits * H * H * 4
+    return ints, partial, partial_b, partial_b + splits * H * 4
+
+
+def proj_bwd_scratch(B: int, T: int, H: int, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 projection+attention backward's scratch
+    (``csrc/fused_proj_attention_bwd.cu`` ``launch_tc``): the packed x,
+    overwritten by the packed attention output attn, and the packed g in
+    bf16 [B*T, H] each, qkv [B*T, 3H] in bf16, do [B*T, H] in f32, then the
+    packed rows [B] and their live count (int32), then the dWo partials
+    [splits, H, H] and the dbo partials [splits, H] in f32: 0.77 GB at the
+    512-clip spatial stage."""
+    return torch.empty(_proj_bwd_layout(B, T, H)[3], dtype=torch.uint8, device=x.device)
+
+
+def proj_bwd_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int) -> dict:
+    """The regions of a :func:`proj_bwd_scratch` after a bf16 launch, by
+    name: ``attn``, ``g``, ``qkv``, ``do`` (rows up to count*T are the packed
+    rows', all B*T without rows_live, whose ``g`` region, ``rows`` and
+    ``count`` stay unwritten: the kernels read g in place), ``rows`` (the
+    live rows in order, then the dead), ``count``, ``partial`` [splits, H,
+    H] (each split's dWo) and ``partial_b`` [splits, H] (each split's dbo)."""
+    M = B * T
+    ints, partial, partial_b, end = _proj_bwd_layout(B, T, H)
+    bf = scratch[:M * H * 10].view(torch.bfloat16)
+    iv = scratch[ints:ints + (B + 1) * 4].view(torch.int32)
+    return {
+        "attn": bf[:M * H].view(M, H), "g": bf[M * H:2 * M * H].view(M, H),
+        "qkv": bf[2 * M * H:].view(M, 3 * H),
+        "do": scratch[M * H * 10:ints].view(torch.float32).view(M, H),
+        "rows": iv[:B], "count": iv[B:],
+        "partial": scratch[partial:partial_b].view(torch.float32).view(-1, H, H),
+        "partial_b": scratch[partial_b:end].view(torch.float32).view(-1, H),
+    }
+
+
 def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rate,
-                     compute_dtype, rows_live):
-    """Launch csrc/fused_proj_attention_bwd.cu: the backward kernel, then the
-    split dWo/dbo reduction over the attention scratch it writes."""
+                     compute_dtype, rows_live, scratch=None):
+    """Launch csrc/fused_proj_attention_bwd.cu. bf16 (``launch_tc``) reads
+    Wqkv and Wo in place (:func:`proj_bwd_weights`) and works in ``scratch``
+    (:func:`proj_bwd_scratch`; allocated when None): the row scan and the
+    gather, the qkv and do GEMMs, the short-attention backward, the dWo/dbo
+    GEMM into the scratch's split partials and the ordered sums. f32: the
+    SIMT backward kernel, then the split dWo/dbo reduction over the
+    attention scratch it writes into partials of their own, and the same
+    ordered sums."""
     op = "fused_proj_attention_train_bwd"
     B, T, H = x.shape
     code = _check_proj_kernel(op, x, wqkv, bqkv, wo, num_heads, compute_dtype)
     cd = compute_dtype
     f32 = torch.float32
-    x = x.contiguous()
-    g = g.to(cd).contiguous()
-    wqkv = wqkv.to(cd).contiguous()
-    bqkv = bqkv.to(cd).contiguous()
-    wot = wo.to(cd).t().contiguous()
-    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
-    live = _live_flags(rows_live, B)
     tokens = B * T
-    # Split the dWo reduction over token chunks until about two waves of
-    # 64 x 64 tiles fill the card's 132 SMs, each chunk >= 256 tokens.
-    tiles = (H // 64) ** 2
-    splits = max(1, min(-(-264 // tiles), -(-tokens // 256)))
-    per_split = -(-tokens // splits)
-    chunk = -(-per_split // 32) * 32
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
     dqkv = torch.empty((B, T, 3 * H), dtype=cd, device=x.device)
-    attn = torch.empty((tokens, H), dtype=cd, device=x.device)
-    partial = torch.empty((splits, H, H), dtype=f32, device=x.device)
-    partial_b = torch.empty((splits, H), dtype=f32, device=x.device)
     dwo = torch.empty((H, H), dtype=f32, device=x.device)
     dbo = torch.empty((H,), dtype=f32, device=x.device)
+    if code == _DTYPE_CODES[torch.bfloat16]:
+        x, g = aligned16(x), aligned16(g.to(cd))
+        wqkv, wo = proj_bwd_weights(wqkv, wo, cd)  # [3H, H], [H_out, H_in]
+        bqkv = aligned16(bqkv.to(cd))
+        live = tail_live_bytes(rows_live)
+        chunk, splits = proj_bwd_splits(tokens)
+        _, at_w, at_b, size = _proj_bwd_layout(B, T, H)
+        if scratch is None:
+            scratch = proj_bwd_scratch(B, T, H, x)
+        elif scratch.nbytes < size or scratch.data_ptr() % 16:
+            raise ValueError(f"{op}: the bf16 kernels take a 16-byte aligned scratch of "
+                             f"{size} bytes (proj_bwd_scratch), got {scratch.nbytes}")
+        partial_ptr, partial_b_ptr = scratch.data_ptr() + at_w, scratch.data_ptr() + at_b
+    else:
+        x = x.contiguous()
+        g = g.to(cd).contiguous()
+        wqkv = wqkv.to(cd).contiguous()
+        bqkv = bqkv.to(cd).contiguous()
+        wo = wo.to(cd).t().contiguous()  # Wo^T: out_proj.weight's layout
+        live = _live_flags(rows_live, B)
+        # Split the dWo reduction over token chunks until about two waves of
+        # 64 x 64 tiles fill the card's 132 SMs, each chunk >= 256 tokens.
+        tiles = (H // 64) ** 2
+        splits = max(1, min(-(-264 // tiles), -(-tokens // 256)))
+        per_split = -(-tokens // splits)
+        chunk = -(-per_split // 32) * 32
+        scratch = torch.empty((tokens, H), dtype=cd, device=x.device)  # the attention output
+        partial = torch.empty((splits, H, H), dtype=f32, device=x.device)
+        partial_b = torch.empty((splits, H), dtype=f32, device=x.device)
+        partial_ptr, partial_b_ptr = partial.data_ptr(), partial_b.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _kernels.launch(
             "fused_proj_attention_bwd", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wot.data_ptr(), b3.data_ptr(), row_stride, q_stride, g.data_ptr(),
-            None if live is None else live.data_ptr(), dqkv.data_ptr(), attn.data_ptr(),
-            partial.data_ptr(), partial_b.data_ptr(), dwo.data_ptr(), dbo.data_ptr(),
+            wo.data_ptr(), b3.data_ptr(), row_stride, q_stride, g.data_ptr(),
+            None if live is None else live.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(),
+            partial_ptr, partial_b_ptr, dwo.data_ptr(), dbo.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
             *_dropout_args(seed, dropout_rate), splits, chunk, code, stream,
         )
@@ -466,7 +558,7 @@ def proj_input_grads(x, wqkv, dqkv, compute_dtype):
     d2 = dqkv.reshape(B * T, 3 * H)
     dx = _mm_f32(d2, wqkv.to(cd).t()).reshape(B, T, H).to(x.dtype)
     dwqkv = _mm_f32(x.reshape(B * T, H).to(cd).t(), d2)
-    return dx, dwqkv, d2.to(torch.float32).sum(dim=0)
+    return dx, dwqkv, d2.sum(dim=0, dtype=torch.float32)  # f32 sums, no f32 copy of dqkv
 
 
 class _ProjAttentionTrain(torch.autograd.Function):
@@ -487,6 +579,10 @@ class _ProjAttentionTrain(torch.autograd.Function):
     def backward(ctx, g):
         x, wqkv, bqkv, wo, bias, rows_live = ctx.saved_tensors
         kw = dict(ctx.config, rows_live=rows_live)
+        # Converted once for the backward and proj_input_grads (the model's
+        # in_proj_weight.t() keeps its transposed strides: the bf16 kernels
+        # read that storage in place).
+        wqkv = wqkv.to(ctx.config["compute_dtype"])
         if _on_cpu(g, "fused_proj_attention_train_bwd"):
             dqkv, dwo, dbo = fused_proj_attention_train_bwd_plain(
                 x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
@@ -715,6 +811,83 @@ def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads:
     y = torch.zeros((B, T, H), dtype=torch.float32, device=x.device)
     y[live] = projection_plain(o.reshape(count * T, H), wo.t(), bo, cd).reshape(count, T, H)
     return y
+
+
+def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
+                              dropout_rate: float = 0.0):
+    """The short-attention backward stage of the bf16 backward
+    (``csrc/fused_proj_attention_bwd.cu`` ``proj_bwd_attn_kernel``) on
+    packed rows, step for step as ``_fused_proj_bwd_body``. q, k, v [R, T,
+    H] hold compute-dtype values, do [R, T, H] is f32; packed row r is the
+    original row ``rows[r]`` (None: r), by which the bias3 and the keep bits
+    are indexed. Recomputes the f32 probabilities p (normalise-first), then
+    dp = (do v^T) keep, pv = p keep (keep = keep bit * 1/(1-rate)), dz = p
+    (dp - sum p dp), dq = dz k scale, dk = dz^T q scale, dv = pv^T do.
+    Returns (dqkv [R, T, 3H] f32, attn [R, T, H] = pv v rounded to q's
+    dtype)."""
+    R, T, H = q.shape
+    N = num_heads
+    D = H // N
+    f32 = torch.float32
+    cd = q.dtype
+    orig = torch.arange(R, device=q.device) if rows is None else rows.to(q.device).long()
+
+    def heads(t):
+        return t.to(f32).reshape(R, T, N, D).transpose(1, 2)
+
+    q, k, v, do = heads(q), heads(k), heads(v), heads(do)
+    scale = 1.0 / D ** 0.5
+    logits = (q @ k.transpose(-1, -2)) * scale
+    logits = logits + (bias3[orig] if bias3.shape[0] > 1 else bias3)[:, None]
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits)
+    p = p / p.sum(dim=-1, keepdim=True)
+    dp = do @ v.transpose(-1, -2)
+    pv = p
+    if seed is not None and dropout_rate > 0.0 and R:
+        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, T, dropout_rate, q.device)[orig]
+        keep = keep.to(f32) * (1.0 / (1.0 - dropout_rate))
+        pv = p * keep
+        dp = dp * keep
+    attn = (pv @ v).transpose(1, 2).reshape(R, T, H).to(cd)
+    dz = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = (dz @ k) * scale
+    dk = (dz.transpose(-1, -2) @ q) * scale
+    dv = pv.transpose(-1, -2) @ do
+    dqkv = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(R, T, 3 * H)
+    return dqkv, attn
+
+
+def fused_proj_attention_train_bwd_stages_plain(x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *,
+                                                num_heads: int, dropout_rate: float, compute_dtype,
+                                                rows_live=None):
+    """The bf16 backward's split (``csrc/fused_proj_attention_bwd.cu``
+    ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows of x
+    and g (g rounded to the compute dtype); qkv = round(x_p Wqkv + bqkv) on
+    the packed tokens; do = g_p Wo^T in f32, no rounding (the contract keeps
+    it f32); the short-attention backward on the packed rows with the keep
+    bits at the ORIGINAL rows (:func:`short_attention_bwd_plain`); dqkv
+    scattered back to the rows' own tokens in the compute dtype, dead rows
+    zero; dWo = attn_p(cd)^T g_p and dbo = sum g_p over the packed tokens
+    in f32. The function of :func:`fused_proj_attention_train_bwd_plain`;
+    returns (dqkv, dWo, dbo)."""
+    B, T, H = x.shape
+    cd = compute_dtype
+    f32 = torch.float32
+    rows, count = live_rows_plain(rows_live, B, x.device)
+    live = rows[:count].long()
+    n = count * T
+    gp = g[live].reshape(n, H).to(cd).to(f32)
+    qkv = projection_plain(x[live].reshape(n, H), wqkv.t(), bqkv, cd).to(cd)
+    do = gp @ wo.to(cd).to(f32).t()
+    q, k, v = qkv.reshape(count, T, 3 * H).split(H, dim=-1)
+    dqkv_p, attn = short_attention_bwd_plain(q, k, v, do.reshape(count, T, H), _bias3(bias, B, T, x.device),
+                                             live, num_heads=num_heads, seed=seed,
+                                             dropout_rate=dropout_rate)
+    dqkv = torch.zeros((B, T, 3 * H), dtype=cd, device=x.device)
+    dqkv[live] = dqkv_p.to(cd)
+    dwo = attn.reshape(n, H).to(f32).t() @ gp
+    return dqkv, dwo, gp.sum(dim=0)
 
 
 def fused_cross_attention_stages_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, *, num_heads: int,

@@ -54,6 +54,20 @@ prints each variant's relative norm errors in bf16:
   computed like live ones instead of written as zeros
   (``fused_proj_attention.cu::launch_tc``); the dead-row check, not a norm,
   is what sees it;
+- proj_bwd, ``proj_bwd_do_rounded``: the backward's do = g Wo^T rounded to
+  bf16 in the f32 GEMM's epilogue (``sublayer.cuh::gemm_f32_tile``), a
+  rounding point the contract does not have;
+- proj_bwd, ``proj_bwd_keep_at_packed_row``: the attention backward's keep
+  bits hashed at the packed row instead of the original one
+  (``fused_proj_attention_bwd.cu::proj_bwd_attn_kernel``);
+- proj_bwd, ``proj_bwd_split_left_out``: the dWo/dbo GEMM's first row split
+  adds nothing (``proj_bwd_weight_gemm_kernel``);
+- proj_bwd, ``proj_bwd_no_bqkv``: the qkv recompute without its bias
+  (``gemm_tile``'s epilogue);
+- proj_bwd, ``proj_bwd_dead_rows_unwritten``: the attention backward's
+  blocks past the live count leave their dead rows' dqkv as they find them;
+  each case first frees a NaN-filled block of dqkv's size, which dqkv's
+  allocation takes ("poisoned"), so the dead-row check sees it;
 - dense, ``dense_causal_last_key_dropped``: with the causal flag, each
   query tile's key range stops one key short, so the last query of every
   tile loses its diagonal key;
@@ -65,7 +79,7 @@ prints each variant's relative norm errors in bf16:
 
 Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
-    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | proj | dense | dense_bwd]
+    python -m stlt_tpu_torch.utils.bwd_tolerance [attention | tail | cross | proj | proj_bwd | dense | dense_bwd]
 
 (those families' variants only when named). The variants' kernels are built
 in parallel, then measured one variant at a time. The last line is one JSON
@@ -89,7 +103,12 @@ Proj rows {"stage", "T", "rate", "y", "op_tol", "dead_zero"}: rows 1 (rate
 rows, about 60 % of them live, key padding), temporal (T = 17, causal plus
 padding) and T = 33 (B = 32); "op_tol" whether every element is within
 OP_TOL, "dead_zero" whether every dead row is exact zeros. Cross rows also
-carry "op_tol". Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
+carry "op_tol". Proj_bwd rows {"stage", "T", "rate", "dqkv", "dwo", "dbo",
+"op_tol", "dead_zero", "poisoned"}: row 4's bf16 backward on the same
+shapes and weights in the model's layout (the temporal stage without
+rows_live, as on the main path; T = 33 with 80 % of the rows live), dropout
+0 and 0.1, the cotangent zero on dead rows; a non-finite output reads as an
+infinite error; "op_tol" for dqkv. Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
 dense-bias checks at B = 16, 12 heads of 64. Dense_bwd rows {"T", "S",
 "bias", "causal", "rate", "dq", "dk", "dv"}: the same cases with dropout 0
 and 0.1; out and lse from the plain forward, so only the backward differs.
@@ -114,6 +133,7 @@ FAMILIES = {
     "tail": ("fused_tail_train_bwd_row",),
     "cross": ("fused_cross_attention",),
     "proj": ("fused_proj_attention",),
+    "proj_bwd": ("fused_proj_attention_train_bwd",),
     "dense": ("blockwise_attention",),
     "dense_bwd": ("blockwise_attention_bwd",),
 }
@@ -192,6 +212,32 @@ MUTATIONS = {
     "proj_dead_rows_computed": (("proj",), [(
         "fused_proj_attention.cu", "const bool packed = p.rows_live != nullptr;", "const bool packed = false;",
     )]),
+    "proj_bwd_do_rounded": (("proj_bwd",), [(
+        "sublayer.cuh",
+        "*reinterpret_cast<float2*>(p.out + (long long)r * p.N + c) =\n"
+        "            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);",
+        "*reinterpret_cast<float2*>(p.out + (long long)r * p.N + c) =\n"
+        "            make_float2(round_to<bf16>(acc[4 * j + 2 * h]), round_to<bf16>(acc[4 * j + 2 * h + 1]));",
+    )]),
+    "proj_bwd_keep_at_packed_row": (("proj_bwd",), [
+        ("fused_proj_attention_bwd.cu", "if (kDrop) dp *= p.drop.keep_scale(orig, h, p.N, t, s, T);",
+         "if (kDrop) dp *= p.drop.keep_scale(b, h, p.N, t, s, T);"),
+        ("fused_proj_attention_bwd.cu", "if (kDrop) pr[s] = ps * p.drop.keep_scale(orig, h, p.N, t, s, T);",
+         "if (kDrop) pr[s] = ps * p.drop.keep_scale(b, h, p.N, t, s, T);"),
+    ]),
+    "proj_bwd_split_left_out": (("proj_bwd",), [(
+        "fused_proj_attention_bwd.cu",
+        "const long long k1 = min(k0 + p.chunk, round_up(live, kBK));",
+        "const long long k1 = blockIdx.y == 0 ? k0 : min(k0 + p.chunk, round_up(live, kBK));",
+    )]),
+    "proj_bwd_no_bqkv": (("proj_bwd",), [(
+        "sublayer.cuh", "const float2 b = c < p.N ? __bfloat1622float2", "const float2 b = false ? __bfloat1622float2",
+    )]),
+    "proj_bwd_dead_rows_unwritten": (("proj_bwd",), [(
+        "fused_proj_attention_bwd.cu",
+        "for (int i = tid; i < T * 3 * H / 8; i += kBwdThreads) d[i] = make_uint4(0u, 0u, 0u, 0u);",
+        "(void)d;",
+    )]),
     "dense_causal_last_key_dropped": (("dense",), [(
         "attention_core.cuh",
         "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
@@ -249,7 +295,8 @@ def measure(family: str) -> list:
     ``stlt_tpu_torch``."""
     build([family])
     return {"attention": _measure_attention, "tail": _measure_tail, "cross": _measure_cross,
-            "proj": _measure_proj, "dense": _measure_dense, "dense_bwd": _measure_dense_bwd}[family]()
+            "proj": _measure_proj, "proj_bwd": _measure_proj_bwd, "dense": _measure_dense,
+            "dense_bwd": _measure_dense_bwd}[family]()
 
 
 def _measure_tail() -> list:
@@ -328,6 +375,58 @@ def _measure_proj() -> list:
             torch.cuda.synchronize()
             rows.append({"stage": stage, "T": T, "rate": rate, "y": _rel(got, want),
                          "op_tol": _within_op_tol(got, want), "dead_zero": not bool(got[~live].any())})
+    return rows
+
+
+def _rel_or_inf(got, want) -> float:
+    return _rel(got, want) if bool(torch.isfinite(got.float()).all()) else float("inf")
+
+
+def _measure_proj_bwd() -> list:
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import masks
+
+    device = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    H, heads, bf = 768, 12, torch.bfloat16
+    u = lambda *shape, b: ((torch.rand(shape, generator=gen) * 2 - 1) * b).to(device)
+    # The model's layout in bf16 (no conversion allocates): transposed views
+    # of in_proj_weight [3H, H] and out_proj.weight.
+    in_proj, out_proj = u(3 * H, H, b=(6 / (4 * H)) ** 0.5).to(bf), u(H, H, b=H ** -0.5).to(bf)
+    bqkv = u(3 * H, b=0.02).to(bf)
+    rows = []
+    for stage, B, T in (("spatial", 64 * 17, 8), ("temporal", 64, 17), ("temporal", 32, 33)):
+        x = torch.randn((B, T, H), generator=gen).to(device, bf)
+        g = torch.randn((B, T, H), generator=gen).to(device, bf)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen)
+        pad = torch.arange(T)[None, :] >= lengths[:, None]
+        if stage == "spatial":
+            pad[:, 0] = False
+            bias, live = masks.key_padding_bias(pad), torch.rand(B, generator=gen) < 0.6
+        else:
+            bias, live = masks.causal_bias(T) + masks.key_padding_bias(pad), torch.rand(B, generator=gen) < 0.8
+        rows_live = None if T == 17 else live.to(device)
+        if rows_live is not None:
+            g[~rows_live] = 0
+        bias = bias.to(device)
+        for rate in (0.0, 0.1):
+            args = (x, in_proj.t(), bqkv, out_proj.t(), bias, g, 0x5EED)
+            kw = dict(num_heads=heads, dropout_rate=rate, compute_dtype=bf, rows_live=rows_live)
+            want = fe.fused_proj_attention_train_bwd_plain(*args, **kw)
+            poison = torch.full((B, T, 3 * H), float("nan"), dtype=bf, device=device)
+            poison_ptr = poison.data_ptr()
+            del poison  # its block goes back to the allocator, and dqkv's allocation takes it
+            got = fe._launch_proj_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            dead = ~rows_live if rows_live is not None else torch.zeros(B, dtype=torch.bool, device=device)
+            rows.append({"stage": stage, "T": T, "rate": rate,
+                         **{name: _rel_or_inf(a, b) for name, a, b in zip(("dqkv", "dwo", "dbo"), got, want)},
+                         "op_tol": _within_op_tol(got[0], want[0]),
+                         "dead_zero": bool(torch.isfinite(got[0][dead].float()).all()) and not bool(got[0][dead].any()),
+                         "poisoned": got[0].data_ptr() == poison_ptr})
+            del got, want
+        del x, g
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -495,6 +594,7 @@ def main(argv=None) -> int:
                           "tail": {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]},
                           "cross": {"y": ("y",)},
                           "proj": {"y": ("y",)},
+                          "proj_bwd": {"dqkv": ("dqkv",), "dWo": ("dwo",), "dbo": ("dbo",)},
                           "dense": {"out": ("out",), "lse": ("lse",)},
                           "dense_bwd": {"dq/dk/dv": ("dq", "dk", "dv")}}[family]
                 worst = ", ".join(f"{label} {max(r[k] for r in rows for k in keys):.3e}"
@@ -502,7 +602,7 @@ def main(argv=None) -> int:
                 times = ", ".join(f"{k} {r[k]:.3f} ms" for r in rows for k in ("input_ms", "weight_ms")
                                   if k in r)
                 flags = ", ".join(f"{k} {'held' if all(r[k] for r in rows) else 'FAILED'}"
-                                  for k in ("op_tol", "dead_zero") if k in rows[0])
+                                  for k in ("op_tol", "dead_zero", "poisoned") if k in rows[0])
                 print(f"{variant} ({family}): worst relative norm error of {worst}"
                       + (f"; at {max(r['tokens'] for r in rows)} tokens {times}" if times else "")
                       + (f"; {flags}" if flags else ""), flush=True)

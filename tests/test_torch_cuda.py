@@ -141,6 +141,21 @@ def _rel(got, want):
 # sum over every token, so a reordered f32 sum or a neighbouring bf16 value of
 # one dqkv or attention element moves it by its own rounding, not the sum's.
 GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Row 4's bf16 dqkv, dWo and dbo against the plain backward, relative norm
+# (chip_smoke.py's PROJ_BWD_REL, set between the sound kernels' error and the
+# smallest planted fault: python -m stlt_tpu_torch.utils.bwd_tolerance proj_bwd).
+PROJ_BWD_REL = 1e-3
+
+
+def _proj_bwd_close(got, want, dtype, live=None):
+    """Row 4's (dqkv, dWo, dbo) against the plain backward: dqkv elementwise
+    with dead rows exact zeros; dWo and dbo within GRAD_REL; in bf16 all
+    three within PROJ_BWD_REL too."""
+    _close(got[0], want[0], dtype, live)
+    rel = [_rel(a, b) for a, b in zip(got, want)]
+    assert rel[1] < GRAD_REL[dtype] and rel[2] < GRAD_REL[dtype], rel
+    if dtype == torch.bfloat16:
+        assert max(rel) < PROJ_BWD_REL, rel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -178,8 +193,7 @@ def test_train_kernels_match_plain(device, dtype, H, T, bias_kind, ragged, rate)
     assert fe.LAUNCHES["fused_proj_attention_train_bwd"] == 1
     want = fe.fused_proj_attention_train_bwd_plain(*bwd, **kw)
     torch.cuda.synchronize()
-    _close(dqkv, want[0], dtype, live)
-    assert _rel(dwo, want[1]) < GRAD_REL[dtype] and _rel(dbo, want[2]) < GRAD_REL[dtype]
+    _proj_bwd_close((dqkv, dwo, dbo), want, dtype, live)
     again = fe._launch_proj_bwd(*bwd, **kw)
     assert all(torch.equal(a, b) for a, b in zip(again, (dqkv, dwo, dbo))), "not deterministic"
 
@@ -267,6 +281,100 @@ def test_bf16_sublayers_read_the_model_weights_in_place_and_repeat_their_bits(de
                   fe._launch_cross(x, ctx, *cw(views), None, num_heads=N, compute_dtype=bf,
                                    scratch=poisoned)):
         assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("T,ragged", [(8, True), (17, False), (33, True)])
+def test_bf16_proj_bwd_reads_the_model_weights_in_place_and_repeats_its_bits(device, T, ragged):
+    """Row 4 in bf16 (``csrc/fused_proj_attention_bwd.cu`` ``launch_tc``)
+    reads the parameters' storage in place: ``proj_bwd_weights`` of the
+    views the attention layer passes is that storage, and the backward gives
+    the same bits as from contiguous input-major weights. A second launch
+    repeats the bits, and so does a launch into a scratch filled with NaN
+    beforehand: no row past the live count reaches an output, and dead rows'
+    dqkv is exact zeros."""
+    bf, H, N = torch.bfloat16, 768, 12
+    gen = torch.Generator().manual_seed(100 + T)
+    w = _weights(H, gen, device)
+    in_proj = w["wqkv"].t().contiguous().to(bf)  # [3H, H], as the model stores it
+    out_proj = w["wo"].t().contiguous().to(bf)
+    stored = fe.proj_bwd_weights(in_proj.t(), out_proj.t(), bf)
+    assert stored[0].data_ptr() == in_proj.data_ptr() and stored[1].data_ptr() == out_proj.data_ptr()
+    rows = 45
+    x = torch.randn(rows, T, H, generator=gen).to(device, bf)
+    g = torch.randn(rows, T, H, generator=gen).to(device, bf)
+    bias = _bias("causal_padding", rows, T, gen).to(device)
+    rows_live = (torch.rand(rows, generator=gen) < 0.6).to(device) if ragged else None
+    if ragged:
+        g[~rows_live] = 0
+    kw = dict(num_heads=N, dropout_rate=0.1, compute_dtype=bf, rows_live=rows_live)
+
+    def run(wqkv, wo, scratch=None):
+        return fe._launch_proj_bwd(x, wqkv, w["bqkv"], wo, bias, g, 0x5EED, scratch=scratch, **kw)
+
+    got = run(in_proj.t(), out_proj.t())
+    poisoned = fe.proj_bwd_scratch(rows, T, H, x).fill_(0xFF)  # every bf16 and f32 a NaN
+    for again in (run(in_proj.t().contiguous(), out_proj.t().contiguous()), run(in_proj.t(), out_proj.t()),
+                  run(in_proj.t(), out_proj.t(), poisoned)):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.isfinite(t.float()).all() for t in got)
+    if ragged:
+        assert not got[0][~rows_live].any()
+    want = fe.fused_proj_attention_train_bwd_plain(x, in_proj.t(), w["bqkv"], out_proj.t(), bias, g, 0x5EED, **kw)
+    _proj_bwd_close(got, want, bf, None if rows_live is None else rows_live[:, None].expand(rows, T))
+
+
+def test_bf16_proj_bwd_sums_its_partials_in_order_and_repeats_its_bits_under_load(device):
+    """Row 4's bf16 dWo and dbo are the split partials in the scratch summed
+    in split order (``proj_bwd_finalize_kernel``, the f32 path's pass too),
+    and sixteen launches at a spatial shape of eight splits give the same
+    bits: the weight GEMM's dbo column sums finish reading a ring stage
+    before the stage is freed for a later step's TMA load."""
+    bf, H, N, T, rows = torch.bfloat16, 768, 12, 17, 512
+    gen = torch.Generator().manual_seed(417)
+    w = _weights(H, gen, device)
+    in_proj = w["wqkv"].t().contiguous().to(bf)
+    out_proj = w["wo"].t().contiguous().to(bf)
+    x = torch.randn(rows, T, H, generator=gen).to(device, bf)
+    g = torch.randn(rows, T, H, generator=gen).to(device, bf)
+    rows_live = (torch.rand(rows, generator=gen) < 0.9).to(device)
+    g[~rows_live] = 0
+    scratch = fe.proj_bwd_scratch(rows, T, H, x)
+
+    def run():
+        return fe._launch_proj_bwd(x, in_proj.t(), w["bqkv"], out_proj.t(), None, g, 0x5EED, num_heads=N,
+                                   dropout_rate=0.1, compute_dtype=bf, rows_live=rows_live, scratch=scratch)
+
+    got = run()
+    v = fe.proj_bwd_scratch_views(scratch, rows, T, H)
+    assert v["partial"].shape[0] == 8
+    sum_w, sum_b = torch.zeros_like(got[1]), torch.zeros_like(got[2])
+    for k in range(v["partial"].shape[0]):
+        sum_w += v["partial"][k]
+        sum_b += v["partial_b"][k]
+    assert torch.equal(got[1], sum_w) and torch.equal(got[2], sum_b)
+    for _ in range(16):
+        assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+def test_bf16_proj_bwd_refuses_what_it_does_not_take(device):
+    """Row 4's bf16 wrapper refuses, in its own words, a scratch too small
+    for the shape, a clip over 64 tokens and a width off the kernels' grid."""
+    bf, H = torch.bfloat16, 128
+    gen = torch.Generator().manual_seed(7)
+    w = _weights(H, gen, device)
+    x = torch.randn(4, 8, H, generator=gen).to(device, bf)
+    args = (x, w["wqkv"], w["bqkv"], w["wo"], None, x.clone(), 1)
+    kw = dict(num_heads=2, dropout_rate=0.1, compute_dtype=bf, rows_live=None)
+    short = fe.proj_bwd_scratch(3, 8, H, x)
+    with pytest.raises(ValueError, match="scratch of"):
+        fe._launch_proj_bwd(*args, scratch=short, **kw)
+    x65 = torch.randn(2, 65, H, generator=gen).to(device, bf)
+    with pytest.raises(ValueError, match="T <= 64"):
+        fe._launch_proj_bwd(x65, *args[1:5], x65, 1, **kw)
+    w96 = _weights(96, gen, device)
+    x96 = torch.randn(2, 8, 96, generator=gen).to(device, bf)
+    with pytest.raises(ValueError, match="H in 64"):
+        fe._launch_proj_bwd(x96, w96["wqkv"], w96["bqkv"], w96["wo"], None, x96, 1, **kw)
 
 
 def test_model_on_the_card_matches_the_plain_model(device):
@@ -1119,8 +1227,7 @@ def test_proj_kernels_match_plain_at_every_width(device, dtype, H, N, T):
     bwd = (x, w["wqkv"], w["bqkv"], w["wo"], bias, g, 0x5EED)
     got, want = fe._launch_proj_bwd(*bwd, **kw), fe.fused_proj_attention_train_bwd_plain(*bwd, **kw)
     torch.cuda.synchronize()
-    _close(got[0], want[0], dtype, live)
-    assert _rel(got[1], want[1]) < GRAD_REL[dtype] and _rel(got[2], want[2]) < GRAD_REL[dtype]
+    _proj_bwd_close(got, want, dtype, live)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
