@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero:
    long-clip attention kernels: the short one at T = 65, 257 and 512 (causal
    plus padding bias), the blockwise one at T = 513 and 1025 (ragged
    kv_lengths with 1 and T among them), timed at B = 64, T = 257 and
-   B = 32, T = 513 against ``scaled_dot_product_attention``; then the
+   B = 32, T = 513 against ``scaled_dot_product_attention`` (rows 6 and 8
+   in every mode below timed as medians of five windows, two launches
+   bit-identical, and the device kernel of each case and mode read from its
+   library's launch record: the wgmma body in bf16 at head dims 64 and
+   128); then the
    long-clip train kernels: both forwards' dropout variants (rate 0.1 and
    0.5, the short one with its lse) and both backwards against
    ``attention_bwd_plain`` (T = 65, 257, 512 and 513, 1025; full and ragged
@@ -262,23 +266,30 @@ points, same keep bits; the two differ only in the order of their sums):
   (dWo) and 0.75 (dbo); the keep bits at the packed row 0.45; dead rows'
   dqkv left unwritten NaN (``python -m stlt_tpu_torch.utils.bwd_tolerance
   proj_bwd``, H100; PERF.md §6).
-- the fused cross-attention (row 5) and the blockwise forward's dense-bias
-  mode (row 8): the same OP_TOL elementwise, and in bf16 the output within
-  a relative Frobenius-norm error of CROSS_REL (1.2e-3) and DENSE_REL
-  (5e-4). A typical cross-attention output is about as large as the bf16
-  atol, so the elementwise bound alone would pass a kernel that drops bo
-  or bkv; the norm can see it. Sound kernels read at most 8.9e-4 (row 5:
-  a neighbouring bf16 value of q, kv or o_h, taken where the two f32 sums
+- the fused cross-attention (row 5): the same OP_TOL elementwise, and in
+  bf16 the output within a relative Frobenius-norm error of CROSS_REL
+  (1.2e-3). A typical cross-attention output is about as large as the
+  bf16 atol, so the elementwise bound alone would pass a kernel that drops
+  bo or bkv; the norm can see it. Sound kernels read at most 8.9e-4 (a
+  neighbouring bf16 value of q, kv or o_h, taken where the two f32 sums
   straddle a rounding boundary, moves a near-uniform softmax's output, an
-  average of values several times its size) and 1.0e-4 (row 8 dense).
-  Planted faults read: row 5 with q and kv rounded before their bias add
-  5.9e-3, bkv left out 0.11, bo left out 0.19, a head left out 0.30 (only
-  the last over OP_TOL too); row 8 dense without the hi + lo split 1.8e-3
-  to 2.2e-3, its causal key range one key short 7.1e-3 (``python -m
-  stlt_tpu_torch.utils.bwd_tolerance cross dense``, H100; PERF.md §6).
-- the blockwise forward's ring-offset mode (row 8): out and lse within
-  OP_TOL elementwise and, in bf16, within DENSE_REL (row 8's limit) in
-  relative norm; the merge-wiped rows exactly zeros with lse -1e30.
+  average of values several times its size). Planted faults read: q and kv
+  rounded before their bias add 5.9e-3, bkv left out 0.11, bo left out
+  0.19, a head left out 0.30 (only the last over OP_TOL too) (``python -m
+  stlt_tpu_torch.utils.bwd_tolerance cross``, H100; PERF.md §6).
+- the long-clip attention forwards (rows 6 and 8) in every mode (bias,
+  lengths, ring offsets, dense bias; dropout hashed or from a mask): out
+  within the same OP_TOL (dead rows exact zeros) and lse of live rows
+  within the f32 OP_TOL (dead rows 0), in bf16 the output within a
+  relative Frobenius-norm error of ATTN_FWD_REL (5e-4), two launches
+  bit-identical; and the device kernel each case launched, from its
+  library's launch record (``check_fwd_case``, ``check_fwd_bodies``: the
+  wgmma body in bf16 at head dims 64 and 128, the staged one otherwise). Sound kernels read at most 1.3e-4; planted faults in the
+  wgmma body: P V with P's hi part only 2.7e-3, the causal key range one
+  key short 7.2e-3, O not rescaled when a row's max grows 0.31, the keep
+  bits at (s, t) 0.41 (``python -m stlt_tpu_torch.utils.bwd_tolerance
+  attention dense``, H100; PERF.md §6, PR 15). The ring-offset mode's
+  merge-wiped rows are exactly zeros with lse -1e30.
 - ``ring_attention`` on two ranks against the unsharded blockwise kernel
   (bf16): OP_TOL elementwise and RING_REL (1e-3) in relative norm. The
   sound ring reads 5.4e-4 (each step's output is rounded to bf16 before the
@@ -410,7 +421,10 @@ REPLACES = {
 # The CUDA kernels of a row's bf16 path, named in the kernels line.
 CUDA_KERNELS = {"fused_proj_attention_train_bwd": ("proj_bwd_scan_kernel", "proj_bwd_gather_kernel",
                                                    "proj_bwd_gemm_kernel", "proj_bwd_attn_kernel",
-                                                   "proj_bwd_weight_gemm_kernel", "proj_bwd_finalize_kernel")}
+                                                   "proj_bwd_weight_gemm_kernel", "proj_bwd_finalize_kernel"),
+                **{name: ("tc::attention_fwd_kernel",) for name in (
+                    "flash_attention", "blockwise_attention", "blockwise_attention_dense",
+                    "blockwise_attention_offsets")}}
 EVAL_KERNELS = ("fused_proj_attention", "fused_layer_tail")
 TRAIN_KERNELS = ("fused_proj_attention_train", "fused_proj_attention_train_bwd")
 TAIL_KERNELS = ("fused_layer_tail_train", "fused_tail_train_bwd_row", "fused_tail_train_bwd_input",
@@ -433,9 +447,14 @@ BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # long-clip backwards, re
 TAIL_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}  # the train tail's dx, dattn, relative norm
 # The train tail's dr2 and its eight summed gradients, relative norm.
 TAIL_SUM_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
-# bf16 outputs of the fused cross-attention and of the blockwise forward's
-# dense-bias mode, relative norm (f32: OP_TOL alone).
-CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+# bf16 outputs of the fused cross-attention, relative norm (f32: OP_TOL
+# alone).
+CROSS_REL = 1.2e-3
+# bf16 outputs of the long-clip attention forwards, rows 6 and 8 in every
+# mode (bias, lengths, ring offsets, dense bias; hashed or masked dropout),
+# relative norm (f32: OP_TOL alone): from planted faults (python -m
+# stlt_tpu_torch.utils.bwd_tolerance attention dense; PERF.md).
+ATTN_FWD_REL = 5e-4
 # bf16 outputs of the fused projection+attention (rows 1 and 3), relative
 # norm: sound 4.7e-4, q/k/v rounded before their bias add 4.5e-3.
 PROJ_REL = 1.2e-3
@@ -670,6 +689,124 @@ def _measure(name, stage, dtype, clips, x, kernel, plain, library, bound, live, 
     median_fields(row, ms=kernel, plain_ms=plain, library_ms=library)
     log("kernel_check " + json.dumps(row))
     return row
+
+
+def last_fwd_launch(op: str) -> tuple:
+    """(wgmma body, D, lengths mode, bias stage, drop mode) of the last
+    forward launch that the library of ``op`` ("flash_attention" or
+    "blockwise_attention") made: its host-side record of the device kernel
+    it launched (``attention_core.cuh::last_fwd_launch``)."""
+    import ctypes
+
+    from stlt_tpu_torch.ops import _kernels
+
+    fn = getattr(_kernels.library(op), f"stlt_{_kernels.source(op)}_last_launch")
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    out = (ctypes.c_int * 5)()
+    fn(out)
+    return tuple(out)
+
+
+def fwd_kernel_name(rec, dtype) -> str:
+    """The device kernel of a last_fwd_launch record."""
+    wgmma, D, lengths, bias, drop = rec
+    b = lambda x: "true" if x else "false"
+    if wgmma:
+        return f"tc::attention_fwd_kernel<{D}, {b(lengths)}, {b(bias)}, {drop}>"
+    e = "__nv_bfloat16" if dtype == torch.bfloat16 else "float"
+    return f"attention_kernel<{e}, {D}, {b(lengths)}, {drop}>"
+
+
+def check_fwd_body(label, op, q) -> str:
+    """That the last launch of ``op`` (a row 6 or row 8 forward of ``q``) ran
+    the wgmma body in bf16 at head dims 64 and 128 and the staged one
+    otherwise, at q's head dim; returns its device kernel's name."""
+    rec = last_fwd_launch(op)
+    D = q.shape[-1]
+    if rec[0] != int(q.dtype == torch.bfloat16 and D >= 64) or rec[1] != D:
+        raise AssertionError(f"{label}: the forward launched {fwd_kernel_name(rec, q.dtype)} "
+                             f"(record {rec}) at {q.dtype}, D = {D}")
+    return fwd_kernel_name(rec, q.dtype)
+
+
+def check_fwd_case(label, op, kernel, got, want, q) -> dict:
+    """A row 6 or row 8 case beyond OP_TOL: a second ``kernel()`` bit-identical
+    to ``got`` (out, or (out, lse)), the body it ran (check_fwd_body) and, in
+    bf16, out within ATTN_FWD_REL of ``want`` in relative norm. Returns
+    {"body", and in bf16 "rel_err", "rel_tol"}."""
+    again = kernel()
+    torch.cuda.synchronize()
+    row = {"body": check_fwd_body(label, op, q)}
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    if not all(torch.equal(a, b) for a, b in zip(as_tuple(got), as_tuple(again))):
+        raise AssertionError(f"{label}: two launches differ")
+    if q.dtype == torch.bfloat16:
+        row.update(rel_err=_rel(as_tuple(got)[0], want), rel_tol=ATTN_FWD_REL)
+        if row["rel_err"] > ATTN_FWD_REL:
+            raise AssertionError(f"{label}: relative norm error {row['rel_err']:.3e} over ATTN_FWD_REL "
+                                 f"{ATTN_FWD_REL}")
+    return row
+
+
+def check_fwd_bodies(device):
+    """Rows 6 and 8 launch the body their mode names, at head dims 32, 64 and
+    128, bf16 and f32: one launch of each mode at a small shape, each held to
+    its library's record of the device kernel it launched: the wgmma body
+    in bf16 at head dims 64 and 128, with a bias stage only when there is a
+    bias, the staged body otherwise."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    seen = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (32, 64, 128):
+            B, N = 2, 256 // D
+            q, k, v = (torch.randn(B, 513, N, D, generator=gen).to(device, dtype) for _ in range(3))
+            short = [x[:, :65] for x in (q, k, v)]
+            bias = _causal_padding_bias(torch.tensor([65, 40]), 65, device)
+            dense = _causal_padding_bias(torch.tensor([513, 300]), 513, device)
+            lengths = torch.tensor([513, 300], device=device)
+            keep = torch.rand(B, N, 513, 513, generator=gen).to(device) >= DROPOUT
+            drop = dict(dropout_rate=DROPOUT, dropout_seed=7)
+            mask = dict(dropout_rate=DROPOUT, dropout_mask=keep)
+            short_mask = dict(dropout_rate=DROPOUT, dropout_mask=keep[:, :, :65, :65])
+            # (mode, lengths mode, bias, drop mode, call)
+            modes = (
+                ("row 6 bias", False, True, 0, lambda: flash.fused_attention(*short, bias)),
+                ("row 6 no bias", False, False, 0, lambda: flash.fused_attention(*short)),
+                ("row 6 dropout, lse", False, True, 1,
+                 lambda: flash.fused_attention(*short, bias, with_lse=True, **drop)),
+                ("row 6 mask", False, True, 2, lambda: flash.fused_attention(*short, bias, **short_mask)),
+                ("row 8 lengths", True, False, 0,
+                 lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)),
+                ("row 8 lengths dropout", True, False, 1,
+                 lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True, **drop)),
+                ("row 8 lengths mask", True, False, 2,
+                 lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True, **mask)),
+                ("row 8 offsets", True, False, 0,
+                 lambda: flash.blockwise_attention(*short, kv_lengths=lengths, causal=True, offsets=(65, 0))),
+                ("row 8 dense", False, True, 0, lambda: flash.blockwise_attention(q, k, v, bias=dense)),
+                ("row 8 dense causal flag", False, True, 0,
+                 lambda: flash.blockwise_attention(q, k, v, bias=dense, causal=True)),
+                ("row 8 dense no bias", False, False, 0,
+                 lambda: flash.blockwise_attention(q, k[:, :33], v[:, :33])),
+                ("row 8 dense dropout", False, True, 1,
+                 lambda: flash.blockwise_attention(q, k, v, bias=dense, **drop)),
+                ("row 8 dense mask", False, True, 2, lambda: flash.blockwise_attention(q, k, v, bias=dense, **mask)),
+            )
+            for mode, lengths_mode, has_bias, drop_mode, fn in modes:
+                fn()
+                op = "flash_attention" if mode.startswith("row 6") else "blockwise_attention"
+                rec = last_fwd_launch(op)
+                wgmma = dtype == torch.bfloat16 and D >= 64
+                want = (int(wgmma), D, int(lengths_mode), int(has_bias and not lengths_mode), drop_mode)
+                label = f"{mode} {str(dtype).split('.')[1]} D={D}"
+                if rec != want:
+                    raise AssertionError(f"{label}: launched {fwd_kernel_name(rec, dtype)} (record {rec}), "
+                                         f"expected {fwd_kernel_name(want, dtype)}")
+                seen[label] = fwd_kernel_name(rec, dtype)
+    torch.cuda.synchronize()
+    log("fwd_bodies " + json.dumps(seen))
 
 
 def check_kernels(device):
@@ -1180,37 +1317,45 @@ def check_long_kernels(device):
             q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
             lengths = ragged_lengths(CHECK_CLIPS, T, gen)
             bias = _causal_padding_bias(lengths, T, device)
-            got, want = flash.fused_attention(q, k, v, bias), flash.fused_attention_plain(q, k, v, bias)
+            kernel = lambda: flash.fused_attention(q, k, v, bias)
+            got, want = kernel(), flash.fused_attention_plain(q, k, v, bias)
             torch.cuda.synchronize()
-            err = _check_close(f"flash_attention {dtype} T={T}", got, want,
-                               torch.ones_like(got, dtype=torch.bool), tol)
+            label = f"flash_attention {dtype} T={T}"
+            err = _check_close(label, got, want, torch.ones_like(got, dtype=torch.bool), tol)
+            rel = check_fwd_case(label, "flash_attention", kernel, got, want, q)
             log(f"kernel_check flash_attention {dtype} B={CHECK_CLIPS} T={T} lengths "
-                f"{lengths.tolist()}: max_abs_err {err:.3e}")
+                f"{lengths.tolist()}: max_abs_err {err:.3e}, {rel}, two launches bit-identical")
         for T in (513, 1025):
             q, k, v = make_heads(CHECK_CLIPS, T, dtype, gen, device)
             lengths = ragged_lengths(CHECK_CLIPS, T, gen).to(device)
-            out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+            kernel = lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+            out, lse = kernel()
             want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths, causal=True)
             torch.cuda.synchronize()
             live = torch.arange(T, device=device)[None, :] < lengths[:, None]  # [B, T]
-            err = _check_close(f"blockwise_attention {dtype} T={T}", out, want,
-                               live[:, :, None, None].expand(out.shape), tol)
+            label = f"blockwise_attention {dtype} T={T}"
+            err = _check_close(label, out, want, live[:, :, None, None].expand(out.shape), tol)
             lse_err = _check_close(f"blockwise_attention lse {dtype} T={T}", lse, want_lse,
-                                   live[:, None, :].expand(lse.shape), tol)
+                                   live[:, None, :].expand(lse.shape), OP_TOL[torch.float32])
+            rel = check_fwd_case(label, "blockwise_attention", kernel, (out, lse), want, q)
             log(f"kernel_check blockwise_attention {dtype} B={CHECK_CLIPS} T={T} lengths "
-                f"{lengths.tolist()}: max_abs_err out {err:.3e}, lse {lse_err:.3e}")
+                f"{lengths.tolist()}: max_abs_err out {err:.3e}, lse {lse_err:.3e}, {rel}, dead rows "
+                f"zeros with lse 0, two launches bit-identical")
             del q, k, v, out, lse, want, want_lse
 
         # Timing at the main path's shapes (every clip full length).
         q, k, v = make_heads(BATCH, 257, dtype, gen, device)
         full = torch.full((BATCH,), 257)
         bias = _causal_padding_bias(full, 257, device)
+        flash.fused_attention(q, k, v, bias)
+        body = check_fwd_body(f"flash_attention {dtype} B={BATCH}", "flash_attention", q)
         row = _measure(
             "flash_attention", "temporal", dtype, BATCH, q,
             lambda: flash.fused_attention(q, k, v, bias),
             lambda: flash.fused_attention_plain(q, k, v, bias),
             library_attention(q, k, v, bias.to(dtype)), flash_bound(q, bias, dtype),
             torch.ones((BATCH, 257, HEADS, H // HEADS), dtype=torch.bool, device=device), tol,
+            rel_tol=ATTN_FWD_REL if dtype == torch.bfloat16 else None, twice=True, body=body,
         )
         if dtype == torch.bfloat16:
             table["flash_attention"] = row
@@ -1222,12 +1367,16 @@ def check_long_kernels(device):
             lengths = lengths.to(device)
             allowed = flash._lengths_dense_bias(lengths, 513, 513, True) == 0  # [B, 1, T, S]
             live = torch.arange(513, device=device)[None, :] < lengths[:, None]
+            flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)
+            body = check_fwd_body(f"blockwise_attention {dtype} B={clips} {name}", "blockwise_attention", q)
             row = _measure(
                 "blockwise_attention", "temporal", dtype, clips, q,
                 lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True)[0],
                 lambda: flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths, causal=True)[0],
                 library_attention(q, k, v, allowed), blockwise_bound(q, lengths, True, dtype),
-                live[:, :, None, None].expand(q.shape), tol, lengths=name,
+                live[:, :, None, None].expand(q.shape), tol,
+                rel_tol=ATTN_FWD_REL if dtype == torch.bfloat16 else None, twice=True, lengths=name,
+                body=body,
             )
             if dtype == torch.bfloat16 and name == "full":
                 table["blockwise_attention"] = row
@@ -1314,22 +1463,25 @@ def check_long_train_kernels(device):
                 kw = dict(dropout_rate=rate, dropout_seed=seed)
                 if T < 513:
                     bias = _causal_padding_bias(lengths.cpu(), T, device)
-                    out, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+                    kernel = lambda: flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
                     want, want_lse = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
                     live = torch.ones((CHECK_CLIPS, T), dtype=torch.bool, device=device)
                 else:
-                    out, lse = flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True, **kw)
+                    kernel = lambda: flash.blockwise_attention(q, k, v, kv_lengths=lengths, causal=True, **kw)
                     want, want_lse = flash.blockwise_attention_plain(q, k, v, kv_lengths=lengths,
                                                                      causal=True, **kw)
                     live = torch.arange(T, device=device)[None, :] < lengths[:, None]
+                out, lse = kernel()
                 torch.cuda.synchronize()
                 name = "flash_attention" if T < 513 else "blockwise_attention"
-                err = _check_close(f"{name} dropout {rate} {dtype} T={T}", out, want,
-                                   live[:, :, None, None].expand(out.shape), fwd_tol)
+                label = f"{name} dropout {rate} {dtype} T={T}"
+                err = _check_close(label, out, want, live[:, :, None, None].expand(out.shape), fwd_tol)
                 lse_err = _check_close(f"{name} lse dropout {rate} {dtype} T={T}", lse, want_lse,
                                        live[:, None, :].expand(lse.shape), OP_TOL[torch.float32])
+                rel = check_fwd_case(label, name, kernel, (out, lse), want, q)
                 log(f"kernel_check {name} dropout {rate} {dtype} B={CHECK_CLIPS} T={T}: "
-                    f"max_abs_err out {err:.3e} (atol {fwd_tol['atol']}), lse {lse_err:.3e}")
+                    f"max_abs_err out {err:.3e} (atol {fwd_tol['atol']}), lse {lse_err:.3e}, {rel}, "
+                    f"two launches bit-identical")
         for T in (65, 257, 512, 513, 1025):
             for kind in (("ragged",) if T < 513 else ("full", "ragged")):
                 for rate in (0.0, DROPOUT):
@@ -1407,11 +1559,11 @@ def check_long_train_kernels(device):
                 "T": T, "lengths": kind, "rate": DROPOUT, "max_abs_err": err, "rel_err": rel,
                 "tol": tol, "rel_tol": BWD_REL[dtype], "plain_ms": cuda_ms(plain, 3),
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "forward_dropout_ms": cuda_ms(fwd, 10), "forward_dropout_plain_ms": cuda_ms(fwd_plain, 3),
-                "forward_dropout_library_ms": cuda_ms(library_attention(q, k, v, mask, DROPOUT), 10),
+                "forward_dropout_plain_ms": cuda_ms(fwd_plain, 3),
                 "forward_dropout_bound_ms": fwd_bound[0], "forward_dropout_bound_by": fwd_bound[1],
             }
-            median_fields(row, ms=run, library_ms=library)
+            median_fields(row, ms=run, library_ms=library, forward_dropout_ms=fwd,
+                          forward_dropout_library_ms=library_attention(q, k, v, mask, DROPOUT))
             log("kernel_check " + json.dumps(row))
             if dtype == torch.bfloat16 and kind == "full":
                 table[name] = row
@@ -1789,6 +1941,8 @@ def check_fusion_kernels(device):
                 lse_err = _check_close(f"blockwise_attention_dense lse {dtype} B={clips} {T}x{S}",
                                        lse, want_lse, everything, OP_TOL[torch.float32])
                 library = library_attention(q, k, v, None if bias is None else bias.to(dtype))
+                body = check_fwd_body(f"blockwise_attention_dense {dtype} B={clips} {T}x{S}",
+                                      "blockwise_attention", q)
                 row = _measure(
                     "blockwise_attention_dense", f"{T}x{S} {kind}{' causal' if causal else ''}",
                     dtype, clips, q,
@@ -1796,8 +1950,8 @@ def check_fusion_kernels(device):
                     lambda: flash.blockwise_attention_plain(q, k, v, **kw)[0],
                     library, dense_bound(q, k, bias, dtype),
                     torch.ones(q.shape, dtype=torch.bool, device=device), tol,
-                    rel_tol=DENSE_REL if dtype == torch.bfloat16 else None, S=S,
-                    lse_max_abs_err=lse_err,
+                    rel_tol=ATTN_FWD_REL if dtype == torch.bfloat16 else None, twice=True, S=S,
+                    lse_max_abs_err=lse_err, body=body,
                 )
                 if (dtype, clips, T, S, kind, causal) == (torch.bfloat16, 16, 513, 513,
                                                           "causal_padding", False):
@@ -2135,10 +2289,12 @@ def check_width_kernels(device):
             kernel = lambda: flash.fused_attention(q, k, v, bias, with_lse=True, **drop)
             plain = lambda: flash.fused_attention_plain(q, k, v, bias, with_lse=True, **drop)
             (out, lse), (want, want_lse) = kernel(), plain()
-            err, _ = _check_pairs(f"flash_attention {tag}", [("out", out, want, None),
-                                                             ("lse", lse, want_lse, None)], tol)
+            err, rel = _check_pairs(f"flash_attention {tag}", [("out", out, want, None),
+                                                               ("lse", lse, want_lse, None)], tol,
+                                    None if dtype == torch.float32 else ATTN_FWD_REL)
+            check_fwd_case(f"flash_attention {tag}", "flash_attention", kernel, (out, lse), want, q)
             rows.append(_width_row("flash_attention", f"{tag} B={B} T={T} rate={DROPOUT}", dtype,
-                                   kernel, plain, err))
+                                   kernel, plain, err, rel))
             dout = torch.randn(q.shape, generator=gen).to(device, dtype)
             dsum = flash._dsum(dout, want, None)
             bargs = (q, k, v, dout, want_lse, dsum)
@@ -2157,11 +2313,13 @@ def check_width_kernels(device):
             plain = lambda: flash.blockwise_attention_plain(q, k, v, **lkw)
             (out, lse), (want, want_lse) = kernel(), plain()
             live = (torch.arange(T)[None, :] < lengths[:, None]).to(device)
-            err, _ = _check_pairs(f"blockwise_attention {tag}", [
+            err, rel = _check_pairs(f"blockwise_attention {tag}", [
                 ("out", out, want, live[:, :, None, None].expand(out.shape)),
-                ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], tol)
+                ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], tol,
+                None if dtype == torch.float32 else ATTN_FWD_REL)
+            check_fwd_case(f"blockwise_attention {tag}", "blockwise_attention", kernel, (out, lse), want, q)
             rows.append(_width_row("blockwise_attention", f"{tag} B={B} T={T} causal ragged "
-                                   f"rate={DROPOUT}", dtype, kernel, plain, err))
+                                   f"rate={DROPOUT}", dtype, kernel, plain, err, rel))
             dout = torch.randn(q.shape, generator=gen).to(device, dtype)
             dsum = flash._dsum(dout, want, lengths.to(device))
             bargs = (q, k, v, dout, want_lse, dsum)
@@ -2177,7 +2335,9 @@ def check_width_kernels(device):
             (out, lse), (want, want_lse) = kernel(), plain()
             err, rel = _check_pairs(f"blockwise_attention_dense {tag}", [
                 ("out", out, want, None), ("lse", lse, want_lse, None)], tol,
-                None if dtype == torch.float32 else DENSE_REL)
+                None if dtype == torch.float32 else ATTN_FWD_REL)
+            check_fwd_case(f"blockwise_attention_dense {tag}", "blockwise_attention", kernel, (out, lse),
+                           want, q)
             rows.append(_width_row("blockwise_attention_dense", f"{tag} B={B} {T}x{T}", dtype,
                                    kernel, plain, err, rel))
             dsum = flash._dsum(dout, want, None)
@@ -2233,7 +2393,7 @@ def check_offsets_kernel(device):
     """The blockwise forward's ring-offset mode against its plain version
     (``blockwise_attention_plain`` with the same offsets), bf16 and f32, at
     RING_OFFSETS with causal ragged lengths 33-513, out and lse on live rows
-    within OP_TOL (DENSE_REL in relative norm in bf16, row 8's limit), dead
+    within OP_TOL (ATTN_FWD_REL in relative norm in bf16), dead
     rows exact zeros with lse 0, the rows with no live key in the chunk
     (merge-wiped) zeros with lse -1e30, and once with a dropout seed. Timed
     against its plain version, ``scaled_dot_product_attention`` with the same
@@ -2266,7 +2426,8 @@ def check_offsets_kernel(device):
                 err, rel = _check_pairs(label, [
                     ("out", out, want, live[:, :, None, None].expand(out.shape)),
                     ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], tol,
-                    DENSE_REL if dtype == torch.bfloat16 else None)
+                    ATTN_FWD_REL if dtype == torch.bfloat16 else None)
+                body = check_fwd_case(label, "blockwise_attention", kernel, (out, lse), want, q)["body"]
                 wiped = lse.transpose(1, 2)[none]
                 if none.any() and not (bool((wiped == flash._NEG_INF).all()) and
                                        out[none].abs().max().item() == 0.0):
@@ -2275,9 +2436,9 @@ def check_offsets_kernel(device):
                 row = {"name": "blockwise_attention_offsets", "offsets": list(offsets),
                        "dtype": str(dtype).split(".")[1], "clips": RING_CLIPS, "T": RING_T,
                        "rate": kw["dropout_rate"], "max_abs_err": err, "rel_err": rel,
-                       "live_rows": int(live.sum()), "wiped_rows": int(none.sum()),
-                       "ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 3),
-                       "library_ms": cuda_ms(library_attention(q, k, v, mask), 10)}
+                       "live_rows": int(live.sum()), "wiped_rows": int(none.sum()), "body": body,
+                       "plain_ms": cuda_ms(plain, 3)}
+                median_fields(row, ms=kernel, library_ms=library_attention(q, k, v, mask))
                 row["bound_ms"], row["bound_by"] = offsets_bound(q, lengths, True, offsets, dtype)
                 log("kernel_check " + json.dumps(row))
                 if dtype == torch.bfloat16 and offsets == (RING_T, 0) and seed is None:
@@ -2413,6 +2574,8 @@ def check_mask_kernels(device):
             err, _ = _check_pairs(label, [
                 ("out", out, want, live[:, :, None, None].expand(out.shape)),
                 ("lse", lse, want_lse, live[:, None, :].expand(lse.shape))], fwd_tol)
+            fwd_kernel = lambda: _mask_forward(fwd, q, k, v, kw)
+            fwd_rel = check_fwd_case(label, name, fwd_kernel, (out, lse), want, q)
             rel_tol = DENSE_BWD_REL if route == "dense" and dtype == torch.bfloat16 else None
             bwd_err, rel = _check_grads(f"{label} backward", got, wanted, None, dtype, rel_tol)
             note = ""
@@ -2437,6 +2600,7 @@ def check_mask_kernels(device):
                 note = ", the hash_keep_mask mask equal to the seed mode bit for bit"
                 del a, b, ga, gb, hashed
             log(f"kernel_check {label}: max_abs_err out/lse {err:.3e}, backward {bwd_err:.3e}, "
+                f"forward {fwd_rel}, two launches bit-identical, "
                 f"relative norm errors {json.dumps(rel)}{note}")
             if dtype == torch.bfloat16:
                 fwd_bound, bwd_bound = mask_bounds(q, allowed, kw["dropout_mask"], extra, dtype)
@@ -2451,10 +2615,7 @@ def check_mask_kernels(device):
                     row = {"name": n, "route": route, "dtype": "bfloat16", "clips": clips, "T": T,
                            "rate": DROPOUT, "max_abs_err": e, "plain_ms": cuda_ms(plain_fn, 3),
                            "bound_ms": bound[0], "bound_by": bound[1]}
-                    if n.endswith("_bwd_mask"):  # rows 7, 9-10: medians, as their other modes
-                        median_fields(row, ms=kernel, library_ms=library)
-                    else:
-                        row.update(ms=cuda_ms(kernel, 10), library_ms=cuda_ms(library, 10))
+                    median_fields(row, ms=kernel, library_ms=library)
                     log("kernel_check " + json.dumps(row))
                     rows.append(row)
                 del lib_fwd, lib_bwd
@@ -3001,11 +3162,21 @@ PROJ_BWD_GROUPS = (
     ("ordered sums", ("proj_bwd_finalize",)),
     ("wrapper GEMMs: dx, dWqkv, dbqkv", ("gemm", "nvjet", "cutlass", "xmma")),
 )
+# Rows 6 and 8's forward by mode, from the device kernel's template
+# arguments (lengths mode: kLengths true); the bias modes are row 6 below
+# 513 tokens and row 8's dense-bias mode from 513 on.
+ATTN_FWD_GROUPS = (
+    ("attention forward, lengths and ring modes (row 8)",
+     tuple(f"attention_fwd_kernel<{d}, true" for d in (64, 128))
+     + tuple(f"attention_kernel<{e}, {d}, true" for e, d in (
+         ("float", 32), ("float", 64), ("float", 128), ("__nv_bfloat16", 32)))),
+    ("attention forward, bias modes (row 6; row 8 dense)", ("attention_fwd_kernel<", "attention_kernel<")),
+)
 KERNEL_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("attention forward kernels (row 3)", PROJ_KERNELS),
     ("attention backward kernels", PROJ_BWD_KERNELS),
-    ("long-clip attention forward kernel", ("attention_kernel<",)),
+    *ATTN_FWD_GROUPS,
     ("long-clip attention backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -3014,7 +3185,7 @@ FORWARD_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("fused projection+attention kernels (rows 1/3)", PROJ_KERNELS),
     ("fused cross-attention kernels (row 5)", CROSS_KERNELS),
-    ("long-clip attention kernels", ("attention_kernel<",)),
+    *ATTN_FWD_GROUPS,
     ("cuDNN convolutions", ("fprop", "cudnn", "convolve", "implicit_gemm", "conv2d", "conv3d")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -3773,7 +3944,7 @@ FUSION_TRAIN_GROUPS = (
     TRAIN_TAIL_GROUP,
     ("attention forward kernels (row 3)", PROJ_KERNELS),
     ("attention backward kernels", PROJ_BWD_KERNELS),
-    ("attention core forward kernel (short and blockwise)", ("attention_kernel<",)),
+    *ATTN_FWD_GROUPS,
     ("attention core backward kernels", ("attention_dq_kernel", "attention_dkdv_kernel")),
     ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "implicit_gemm",
                             "conv2d", "conv3d")),
@@ -4269,7 +4440,7 @@ def run_ring_path(device):
         live = live[:, :, None, None].expand(got.shape)
         label = f"ring_attention at C = {RING_C} (two ranks, B = {RING_OP[0]}, {RING_OP[1]} frames)"
         err, rel = _check_pairs(f"{label} against its steps on one device",
-                                [("out", got, steps, live)], OP_TOL[torch.bfloat16], DENSE_REL)
+                                [("out", got, steps, live)], OP_TOL[torch.bfloat16], ATTN_FWD_REL)
         err1, rel1 = _check_pairs(f"{label} against the unsharded blockwise kernel",
                                   [("out", got, single, live)], OP_TOL[torch.bfloat16], RING_REL)
         fault_rel = _rel(fault, single)
@@ -4281,7 +4452,7 @@ def run_ring_path(device):
                 device, torch.bfloat16)
         err2, rel2 = _check_pairs(f"{label} with a dropout mask against its steps on one device",
                                   [("out", got_mask, masked_steps, live)], OP_TOL[torch.bfloat16],
-                                  DENSE_REL)
+                                  ATTN_FWD_REL)
         for r, report in enumerate(reports):
             if report["mask_launches"] != {"blockwise_attention_mask": RING_C}:
                 raise AssertionError(f"ring rank {r}: the masked op launched {report['mask_launches']}, "
@@ -4291,7 +4462,7 @@ def run_ring_path(device):
             f"launches a rank; against the unmasked ring {_rel(got_mask, got):.3e}")
         del keep, masked_steps, got_mask
         log(f"{label}, causal, lengths 33-{RING_OP[1]}: against its steps on one device max_abs_err "
-            f"{err:.3e}, relative norm {rel['out']:.3e} (OP_TOL, DENSE_REL {DENSE_REL}); against the "
+            f"{err:.3e}, relative norm {rel['out']:.3e} (OP_TOL, ATTN_FWD_REL {ATTN_FWD_REL}); against the "
             f"unsharded blockwise kernel max_abs_err {err1:.3e}, relative norm {rel1['out']:.3e} "
             f"(OP_TOL, RING_REL {RING_REL}; with col0 off by one {fault_rel:.3e}); against the f32 "
             f"plain version the ring {_rel(got, exact):.3e}, the unsharded kernel "
@@ -4733,6 +4904,7 @@ def main(argv=()) -> int:
     table = timed(check_kernels)
     table.update(timed(check_train_kernels))
     table.update(timed(check_long_kernels))
+    timed(check_fwd_bodies)  # rows 6 and 8: the device kernel each mode launches
     table.update(timed(check_long_train_kernels))
     table.update(timed(check_tail_train_kernels))
     table.update(timed(check_fusion_kernels))

@@ -61,9 +61,10 @@
 // Two bodies, chosen by the storage type and the head dim at launch:
 //
 // bf16 at D = 64 and 128 (every model's heads but those of H = 256 with 8
-// heads): Hopper's tensor cores through wgmma on tiles that TMA lands. One
-// consumer warpgroup owns the block's 64 rows (keys in dk/dv, queries in dq)
-// and one producer warp fills a two-stage ring behind mbarriers:
+// heads): Hopper's tensor cores through wgmma on tiles that TMA lands, on the
+// building blocks the forward shares (attention_tc.cuh). One consumer
+// warpgroup owns the block's 64 rows (keys in dk/dv, queries in dq) and one
+// producer warp fills a two-stage ring behind mbarriers:
 //
 // - TMA loads q, k, v and dO as 4-D tensors (D, N, rows, B) read through
 //   their strides, in boxes of 64 rows x 64 d (D = 128 is two boxes), so a
@@ -110,7 +111,6 @@
 #include <type_traits>
 
 #include "attention_core.cuh"
-#include "hopper.cuh"
 
 namespace stlt {
 namespace attn {
@@ -163,15 +163,6 @@ struct BwdScratch {
     rows = reinterpret_cast<float*>(ph_all + (sizeof(E) == 2 ? kWarps * 2 * kRows * kLDP : 0));
   }
 };
-
-// Zeros into rows r0 .. r0 + rows - 1 of head n of clip B_idx of a
-// contiguous [B, R, N, D] output, by the whole block.
-template <int D, typename E>
-__device__ __forceinline__ void zero_rows(E* base, int B_idx, int r0, int rows, int R, int N, int n) {
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    base[(((long long)B_idx * R + r0 + i / D) * N + n) * D + i % D] = from_float<E>(0.f);
-  }
-}
 
 template <typename E, int D, bool kLengths, int kDrop>
 __global__ void __launch_bounds__(kThreads) attention_dq_staged_kernel(BwdArgs p) {
@@ -397,92 +388,6 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_staged_kernel(BwdArgs
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-constexpr int kStages = 2;                 // ring stages of the streamed tiles
-constexpr int kConsumers = 128;            // one consumer warpgroup: the block's 64 rows
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr int kLdT = 68;  // bias tile row (floats) the dk/dv kernel reads transposed: conflict free
-constexpr int kLdR = 72;  // bias tile row the dq kernel reads in float2 along its rows: conflict free
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-__host__ __device__ constexpr int tile_elems() { return 64 * D; }  // one [64][D] tile: D / 64 boxes of [64][64]
-
-struct Bars {
-  uint64_t full[kStages];   // a stage's TMA bytes landed and its 32 producer lanes' cp.async
-  uint64_t empty[kStages];  // the consumer warpgroup is done with a stage
-  uint64_t once;            // the resident tiles landed
-};
-
-// Shared memory of a kernel whose bias tiles have rows of kLd floats: the
-// barriers (in 1 KB), the two resident [64][D] tiles, the two streamed ones
-// of each stage, each stage's bias tile and (dk/dv) its lse and dsum,
-// 1,024-byte aligned (carve aligns; the first 1 KB is slack). D = 64:
-// 87,040 (dk/dv) and 89,088 (dq) bytes, two blocks an SM; D = 128: 136,192
-// and 138,240.
-template <int D, int kLd>
-constexpr size_t smem_bytes() {
-  return 1024 + 1024 + (size_t)(2 + 2 * kStages) * tile_elems<D>() * sizeof(bf16) +
-         (size_t)kStages * (64 * kLd + 2 * 64) * sizeof(float);
-}
-
-struct Smem {
-  Bars* bars;
-  bf16* res;    // the resident tiles: q and dO (dq), k and v (dk/dv)
-  bf16* str;    // stage s's streamed pair at str + 2 s tile: k and v (dq), q and dO (dk/dv)
-  float* bias;  // stage s's bias tile at bias + s 64 kLd, [query][key]
-  float* rows;  // stage s's lse at rows + 128 s, its dsum 64 after (dk/dv)
-};
-
-template <int D, int kLd>
-__device__ __forceinline__ Smem carve(unsigned char* raw) {
-  // Aligned by an offset from raw (not through an integer), so the compiler
-  // still knows every pointer below is shared memory (LDS, not generic LD).
-  unsigned char* base = raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
-  Smem m;
-  m.bars = reinterpret_cast<Bars*>(base);
-  m.res = reinterpret_cast<bf16*>(base + 1024);
-  m.str = m.res + 2 * tile_elems<D>();
-  m.bias = reinterpret_cast<float*>(m.str + 2 * kStages * tile_elems<D>());
-  m.rows = m.bias + kStages * 64 * kLd;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      hopper::mbar_init(&m.bars->full[s], 1 + 32);  // the TMA's expect_tx and 32 cp.async arrivals
-      hopper::mbar_init(&m.bars->empty[s], 1);
-    }
-    hopper::mbar_init(&m.bars->once, 1);
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-  return m;
-}
-
-// Rows r0 .. r0 + 63 of head n of clip b into a [64][D] tile, onto `bar`.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int n, int r0,
-                                          int b) {
-#pragma unroll
-  for (int box = 0; box < D / 64; ++box) hopper::tma_load_4d(dst + box * 64 * 64, map, bar, box * 64, n, r0, b);
-}
-
-// The [64 query x 64 key] bias tile of queries t0 .. and keys s0 .. into a
-// [64][ld] f32 tile by the producer warp, lanes along the keys (4-byte
-// cp.async: the rows need not be 16-byte aligned); entries past tlim or
-// klim are zeros. The element of (t, key) is bias[t st + key sk].
-__device__ __forceinline__ void load_bias_tile(float* dst, int ld, const float* bias, long long st,
-                                               long long sk, int t0, int tlim, int s0, int klim,
-                                               int lane) {
-  for (int r = 0; r < 64; ++r) {
-    const int t = t0 + r;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = s0 + lane + 32 * h;
-      const bool valid = t < tlim && key < klim;
-      hopper::cp_async4_zfill(dst + r * ld + lane + 32 * h, valid ? bias + t * st + key * sk : bias, valid);
-    }
-  }
-}
-
 // Zeros into rows r_from .. 63 of a [64][D] tile, by the consumer warpgroup.
 // A box row stays 128 contiguous bytes under the 128-byte swizzle (which
 // permutes the 16-byte chunks within a row), so whole rows are cleared.
@@ -492,58 +397,6 @@ __device__ __forceinline__ void zero_tile_rows(bf16* tile, int r_from, int tid) 
   for (int box = 0; box < D / 64; ++box) {
     uint4* rows = reinterpret_cast<uint4*>(tile + box * 64 * 64 + r_from * 64);
     for (int i = tid; i < (64 - r_from) * 8; i += kConsumers) rows[i] = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// The bf16 hi and lo parts of a m64n64 f32 accumulator fragment x, in the
-// RS wgmma's A-fragment words: hi[4 kk .. 4 kk + 3] (and lo's) are the A
-// fragment of x's columns 16 kk .. 16 kk + 15 (hopper.cuh, WgmmaRS).
-__device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
-  }
-}
-
-// acc[64 x D] += A[64 x 64] B[64 x D]: A's hi and lo parts from registers, B
-// a [64][D] tile stored k-row by k-row (MN-major).
-template <int D>
-__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&hi)[16],
-                                           const uint32_t (&lo)[16], const bf16* b) {
-  using hopper::WgmmaRS;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    WgmmaRS<D, 1>::mma(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3],
-                       hopper::desc_mn(b, kk), 1);
-    WgmmaRS<D, 1>::mma(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
-                       hopper::desc_mn(b, kk), 1);
-  }
-}
-
-// s[64 x 64] = A[64 x D] B[64 x D]^T, both [64][D] tiles K-major.
-template <int D>
-__device__ __forceinline__ void ss_logits(float (&s)[32], const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int box = kk / 4 * 64 * 64;
-    hopper::Wgmma<64, 0, 0>::mma(s, hopper::desc_k(a + box, kk % 4), hopper::desc_k(b + box, kk % 4), kk > 0);
-  }
-}
-
-// Rows r0 (+ 8) of the consumer fragment, f32 accumulator acc[D / 2], into
-// a contiguous [B, R, N, D] bf16 output at row base `row` (times `mul`), or
-// zeros when !live.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long row, const float (&acc)[D / 2], int h,
-                                           float mul, bool live, int tig) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const __nv_bfloat162 v = live ? __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul)
-                                  : __floats2bfloat162_rn(0.f, 0.f);
-    *reinterpret_cast<__nv_bfloat162*>(out + row * D + 8 * j + 2 * tig) = v;
   }
 }
 
@@ -576,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     }
   }
   const int nchunks = (kend + kBK - 1) / kBK;
-  const Smem m = carve<D, kLdR>(smem_raw);
+  const Smem m = carve<D, 2, kLdR>(smem_raw);
   const float* bias = !kLengths && p.bias != nullptr ? p.bias + b * p.bb + n * p.bn : nullptr;
   bf16* q_s = m.res;
   bf16* do_s = m.res + kTile;
@@ -703,7 +556,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     }
   }
   const int ntiles = (qlim + kBQ - 1) / kBQ;
-  const Smem m = carve<D, kLdT>(smem_raw);
+  const Smem m = carve<D, 2, kLdT>(smem_raw);
   const float* bias = !kLengths && p.bias != nullptr ? p.bias + b * p.bb + n * p.bn : nullptr;
   bf16* k_s = m.res;
   bf16* v_s = m.res + kTile;
@@ -841,7 +694,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (err) return err;
   auto dq_kernel = attention_dq_kernel<D, kLengths, kDrop>;
   auto dkdv_kernel = attention_dkdv_kernel<D, kLengths, kDrop>;
-  const size_t smem_q = smem_bytes<D, kLdR>(), smem_k = smem_bytes<D, kLdT>();
+  const size_t smem_q = smem_bytes<D, 2, kLdR, 128>(), smem_k = smem_bytes<D, 2, kLdT, 128>();
   cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k);

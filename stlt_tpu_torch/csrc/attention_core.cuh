@@ -51,40 +51,88 @@
 // head-broadcast [B, 1, T, S] mask; a ring step passes the chunk's column
 // view, so s is the chunk-local key there as it is for the hashed bits.
 //
-// Design. One block of four warps owns 64 queries of one (clip, head); each
-// warp owns 16 of them. The block walks the keys in chunks of 64, K and V
-// double-buffered in shared memory by cp.async (the next chunk lands while
-// this one is computed), and keeps an online softmax: per query the running
-// max m, the running sum l (each lane its own part) and the f32 output
-// accumulator in registers; lane j holds keys j and j + 32 of each chunk and
-// output columns j + 32 i (i < D / 32). The head dim is a template
-// argument: the output accumulator is a register array of D / 32 columns.
-// Shared memory (q, two K and two V stages of 64 rows, the per-warp scratch):
-// f32 62,464 / 103,424 / 185,344 bytes and bf16 60,416 / 80,896 / 121,856
-// at D = 32 / 64 / 128, inside the 227 KB a block may take at every D. This equals normalising before PV up to
-// rounding. The TPU kernels' blocking does not carry over: a whole [T, S] f32
-// tile per row (the short TPU kernel) does not fit 227 KB beside K and V at
-// 512 keys.
+// Both bodies take the online softmax over key chunks of 64, which equals
+// normalising before PV up to rounding. The TPU kernels' blocking does not
+// carry over: a whole [T, S] f32 tile per row (the short TPU kernel) does not
+// fit 227 KB beside K and V at 512 keys. The body is chosen by the storage
+// type and the head dim at launch, as the backward's are
+// (attention_bwd_core.cuh):
 //
-// The bf16 instantiation multiplies on the tensor cores (WMMA, f32 sums):
+// bf16 at D = 64 and 128 (tc::attention_fwd_kernel<D, kLengths, kBias,
+// kDrop>, every model's heads but those of H = 256 with 8 heads): Hopper's
+// tensor cores through wgmma on tiles that TMA lands, on the building blocks
+// it shares with the backward (attention_tc.cuh). One block per (head,
+// 64-query tile, clip); one consumer warpgroup owns the 64 queries and one
+// producer warp feeds it:
+//
+// - TMA loads q once and K and V in chunks of 64 keys through a two-stage
+//   ring behind full and empty mbarriers, as 4-D tensors (D, N, rows, B) read
+//   through their strides: a ring step's column view needs no copy, and a
+//   clip's last tile (257 = 4 * 64 + 1, 513 = 8 * 64 + 1) reads zeros past
+//   its rows, never the next clip's, whose NaN or inf would survive a masked
+//   0 * inf. Chunks past the key range are never loaded;
+// - with a bias (kBias, a template argument) the producer copies each [64
+//   query x 64 key] f32 bias tile with 4-byte cp.async onto the stage's
+//   barrier: rows of 1,028 or 2,052 bytes and stride-0 broadcast dims, which
+//   TMA cannot map. The lengths mode and a call without a bias take no bias
+//   stage, so more blocks fit an SM;
+// - S = Q K^T by D / 16 m64n64k16 wgmmas from shared memory. On the
+//   accumulator fragment each thread holds 16 logits of each of two rows:
+//   x = s * scale + bias, the kernel's own masks at -inf (a key the bias
+//   pads stays finite, -1e9: such rows stay uniform over their keys, as in
+//   JAX), the row max over its 16 values and then across the fragment's
+//   four threads of the row (two shuffles), the rescale of l and of the O
+//   accumulator by exp2((m_old - m) log2 e), p = exp2((x - m) log2 e). The
+//   max stays in the logits' scale: lse = m + log(l) must match the
+//   backward's own z = s * scale + bias (p = exp(z - lse)), which a max
+//   taken in the exp2 domain and scaled back would miss by ~1e2 at -1e9;
+// - l takes the undropped p; P times its keep scale is split into bf16 hi
+//   and lo parts in the A-fragment words of an RS wgmma, O += P V by two RS
+//   wgmmas a 16-key step into one accumulator, V read MN-major. No product
+//   makes a shared-memory round trip;
+// - the epilogue sums l across the quad, writes O / l and lse = m + log(l).
+//
+// Shared memory: the barriers, q, two stages of K and V and, with a bias,
+// two [64][64] f32 tiles whose columns are swizzled by row (the fragment's
+// float2 reads are conflict free without padded rows). D = 64: 75,776 bytes
+// with a bias, 43,008 without, three blocks an SM either way (the launch
+// bound caps the registers at 136 a thread); D = 128: 116,736 (one block)
+// and 83,968 (two).
+//
+// f32, and bf16 at D = 32 (attention_kernel<E, D, kLengths, kDrop>, the
+// staged body): one block of four warps owns 64 queries of one (clip, head);
+// each warp owns 16 of them. K and V double-buffered in shared memory by
+// cp.async; per query the running max m, the running sum l (each lane its
+// own part) and the f32 output accumulator in registers; lane j holds keys j
+// and j + 32 of each chunk and output columns j + 32 i (i < D / 32). Shared
+// memory (q, two K and two V stages of 64 rows, the per-warp scratch): f32
+// 62,464 / 103,424 / 185,344 bytes at D = 32 / 64 / 128, bf16 60,416 at
+// D = 32. In bf16 it multiplies on the tensor cores (WMMA, f32 sums) through a
+// per-warp shared scratch, the probabilities split hi + lo as above; in f32
+// both products run on the SIMT pipes in true f32.
+//
 // q k^T from bf16 operands is exact products summed in f32, as the TPU
-// kernel's f32 dot of bf16 values; for p v, each f32 probability is split
-// into two bf16 parts (hi + lo, 16 significant bits together) and both are
-// multiplied with v, so the PV product keeps f32-grade probabilities. The f32
-// instantiation runs both products on the SIMT pipes in true f32.
+// kernel's f32 dot of bf16 values; the hi + lo split keeps 16 significant
+// bits of each f32 probability, so the PV product keeps f32-grade
+// probabilities.
 //
 // Bound on this card: at the long-clip shapes (B = 64, T = 257; B = 32,
-// T = 513 causal) the work is ~13 GFLOP against ~100-120 MB of q, k, v, out
-// (and the bias), ~110 flop/byte, below the H100's ~295 flop/byte ridge in
-// bf16: device memory bounds it (~0.03-0.035 ms). This simple kernel is far
-// from that: its softmax runs on the SIMT pipes (an expf per probability and
-// a warp max per row and chunk), T = 257 pads to 5 tiles and 5 chunks, and
-// the bias is read once per head (from L2: the 12 heads of one query tile are
-// neighbouring blocks).
+// T = 513 causal; 513 x 513 dense at B = 16) the work is ~4-13 GFLOP
+// against ~50-120 MB of q, k, v, out, lse and the bias, below the H100's
+// ~295 flop/byte ridge in bf16: device memory bounds it (~0.02-0.035 ms).
+// The wgmma body spends what it does beside the products on the SIMT side:
+// an exp2 per (query, key) pair, a hash per pair with dropout, the bias
+// tile's copy by one warp (the 12 heads of one query tile are neighbouring
+// blocks, so a head-invariant bias comes from L2), the hi + lo split that
+// doubles the PV products; and the warpgroup does not overlap one chunk's
+// softmax with another's products (the SM's other blocks do). T = 257 pads to
+// 5 query tiles and 5 key chunks.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace stlt {
@@ -158,6 +206,23 @@ struct AttnArgs {
   float scale;
   MaskedDropout drop;  // probability dropout (kDrop instantiations)
 };
+
+// The body and template arguments of this library's last forward launch that
+// the runtime accepted (host side): {wgmma body, D, kLengths, bias stage,
+// kDrop}. A harness reads it to check which device kernel a call ran.
+inline int* last_fwd_launch() {
+  static int rec[5] = {-1, 0, 0, 0, 0};
+  return rec;
+}
+
+inline int record_fwd_launch(int wgmma, int D, bool lengths, bool bias, int drop) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    int* rec = last_fwd_launch();
+    rec[0] = wgmma, rec[1] = D, rec[2] = lengths, rec[3] = bias, rec[4] = drop;
+  }
+  return (int)err;
+}
 
 template <typename E, int D>
 constexpr size_t smem_bytes() {
@@ -471,17 +536,227 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
   }
 }
 
-template <typename E, int D, bool kLengths, int kDrop>
-int launch(const AttnArgs& a, cudaStream_t stream) {
-  auto kernel = attention_kernel<E, D, kLengths, kDrop>;
-  const size_t smem = smem_bytes<E, D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// --- bf16 at D = 64 and 128: wgmma on TMA-fed tiles ---------------------------
+
+namespace tc {
+
+template <int D, bool kLengths, bool kBias, int kDrop>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+    attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, AttnArgs p) {
+  static_assert(!(kLengths && kBias), "the lengths mode takes no bias");
+  using namespace hopper;
+  constexpr int kTile = tile_elems<D>();
+  constexpr uint32_t kTileBytes = kTile * sizeof(bf16);
+  constexpr int kLd = kBias ? 64 : 0;  // bias tile row (floats, swizzled); no bias stage without a bias
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // Heads vary fastest over the grid, so the blocks of one query tile that
+  // read the same head-invariant bias tile run side by side.
+  const int n = blockIdx.x, q0 = blockIdx.y * kBQ, b = blockIdx.z;
+  const int T = p.T, S = p.S, N = p.N;
+  bf16* __restrict__ out = static_cast<bf16*>(p.out);
+  int len = S, kend = S;  // keys >= kend carry no weight for any query of the tile
+  // Dense bias declared causal: keys above the tile's last diagonal are
+  // masked by the bias, so their chunks are never loaded (_causal_live).
+  if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S);
+  if (kLengths) {
+    len = p.lengths[b];
+    kend = min(S, len - p.col0);
+    // causal: global key col0 + s <= row0 + (last query of the tile)
+    if (p.causal) kend = min(kend, p.row0 + min(q0 + kBQ, T) - p.col0);
+    kend = max(kend, 0);
+    if (p.row0 + q0 >= len) {  // no live query in the tile: zeros, lse 0
+      const int rows = min(kBQ, T - q0);
+      zero_rows<D>(out, b, q0, rows, T, N, n);
+      for (int i = threadIdx.x; i < rows; i += blockDim.x) p.lse[((long long)b * N + n) * T + q0 + i] = 0.f;
+      return;
+    }
+  }
+  const int nchunks = (kend + kBK - 1) / kBK;
+  const Smem m = carve<D, 1, kLd>(smem_raw);
+  bf16* q_s = m.res;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (nchunks == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(&m.bars->once, kTileBytes);
+      load_tile<D>(q_s, &map_q, &m.bars->once, n, q0, b);
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      const int s = c % kStages;
+      if (c >= kStages) mbar_wait(&m.bars->empty[s], (c / kStages - 1) & 1);
+      bf16* k_st = m.str + 2 * s * kTile;
+      if (lane == 0) {
+        mbar_expect_tx(&m.bars->full[s], 2 * kTileBytes);
+        load_tile<D>(k_st, &map_k, &m.bars->full[s], n, c * kBK, b);
+        load_tile<D>(k_st + kTile, &map_v, &m.bars->full[s], n, c * kBK, b);
+      }
+      if constexpr (kBias) {
+        load_bias_tile<true>(m.bias + s * 64 * kLd, kLd, p.bias + b * p.bb + n * p.bn, p.bt, 1, q0, T,
+                             c * kBK, kend, lane);
+      }
+      cp_async_mbar_arrive(&m.bars->full[s]);
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, tig = tid & 3;
+  // Rows 16 w + g and + 8 of the tile: their running max and this thread's
+  // part of their running sum (its 16 columns of each chunk).
+  int t_h[2];
+  float m_h[2], l_h[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t_h[h] = q0 + 16 * w + g + 8 * h;
+    m_h[h] = neg_inf();
+    l_h[h] = 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (nchunks > 0) mbar_wait(&m.bars->once, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % kStages;
+    mbar_wait(&m.bars->full[s], (c / kStages) & 1);
+    const bf16* k_st = m.str + 2 * s * kTile;
+    float st[32];
+    wgmma_fence();
+    ss_logits<D>(st, q_s, k_st);  // q k^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+
+    const float* bias_st = m.bias + s * 64 * kLd;
+    float mx[2] = {m_h[0], m_h[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t_h[h], col = 8 * j + 2 * tig, r = 16 * w + g + 8 * h;
+        float2 bb = make_float2(0.f, 0.f);
+        if constexpr (kBias) bb = *reinterpret_cast<const float2*>(bias_st + r * kLd + (col ^ bias_swizzle(r)));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * h + e, key = c * kBK + col + e;
+          // The kernel's own masks (and rows past T, never stored): weight
+          // exactly 0, as exp(-1e30 - m) in the TPU kernel. A key the bias
+          // masks stays finite.
+          const bool masked = t >= T || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
+          st[idx] = masked ? neg_inf() : st[idx] * p.scale + (e ? bb.y : bb.x);
+          mx[h] = fmaxf(mx[h], st[idx]);
+        }
+      }
+    }
+    // The row max across the four threads of the row; a row with no live
+    // key so far keeps m = -inf and shifts by 0 instead, so its terms are
+    // exp2(-inf) = 0, never NaN. The max stays in the logits' own scale: a
+    // bias of -1e9 taken to the exp2 domain first would move lse by ~1e2
+    // against the backward's z (p = exp(z - lse)).
+    float shift[2], corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      shift[h] = mx[h] == neg_inf() ? 0.f : mx[h];
+      corr[h] = exp2f((m_h[h] - shift[h]) * kLog2e);
+      m_h[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * h + e;
+          float pr = exp2f((st[idx] - shift[h]) * kLog2e);
+          rsum[h] += pr;  // l takes the undropped probability; only PV sees the keep bits
+          if (kDrop != kDropNone && pr != 0.f) {
+            pr *= p.drop.keep_scale<kDrop>(b, n, N, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);
+          }
+          st[idx] = pr;
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_h[h] = l_h[h] * corr[h] + rsum[h];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];  // O's rows rescaled to the new max
+    uint32_t ph[16], pl[16];
+    split_hi_lo(st, ph, pl);
+    wgmma_fence();
+    rs_product<D>(acc, ph, pl, k_st + kTile);  // o += p v
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(ph);
+    fence_operands(pl);
+    if (tid == 0) mbar_arrive(&m.bars->empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_h[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int t = t_h[h];
+    if (t >= T) continue;
+    const bool dead = kLengths && p.row0 + t >= len;
+    const bool none = !dead && l == 0.f;  // a live row with no live key in this block
+    store_rows<D>(out, ((long long)b * T + t) * N + n, acc, h, dead || none ? 0.f : 1.f / l, !dead && !none, tig);
+    if (p.lse != nullptr && tig == 0) {
+      p.lse[((long long)b * N + n) * T + t] = dead ? 0.f : (none ? kNegInf : m_h[h] + logf(l));
+    }
+  }
+}
+
+template <int D, bool kLengths, bool kBias, int kDrop>
+int launch_fwd(const AttnArgs& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = hopper::make_heads_map(&mq, a.q, a.B, a.T, a.N, D, a.qb, a.qt, a.qn);
+  if (!err) err = hopper::make_heads_map(&mk, a.k, a.B, a.S, a.N, D, a.kb, a.kt, a.kn);
+  if (!err) err = hopper::make_heads_map(&mv, a.v, a.B, a.S, a.N, D, a.vb, a.vt, a.vn);
+  if (err) return err;
+  auto kernel = attention_fwd_kernel<D, kLengths, kBias, kDrop>;
+  const size_t smem = smem_bytes<D, 1, kBias ? 64 : 0, 0>();
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // All of the SM's unified memory as shared memory: three D = 64 blocks
+  // with a bias stage fit only so.
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.N, (a.T + kBQ - 1) / kBQ, a.B);
   if (grid.y > 65535 || grid.z > 65535) return -1;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, a);
+  return record_fwd_launch(1, D, kLengths, kBias, kDrop);
+}
+
+}  // namespace tc
+
+// bf16 at D = 64 and 128 takes the wgmma body (with a bias stage only when
+// there is a bias), everything else the staged one; no runtime fallback.
+template <typename E, int D, bool kLengths, int kDrop>
+int launch(const AttnArgs& a, cudaStream_t stream) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value && D >= 64) {
+    if constexpr (kLengths) {
+      return tc::launch_fwd<D, true, false, kDrop>(a, stream);
+    } else {
+      if (a.bias == nullptr) return tc::launch_fwd<D, false, false, kDrop>(a, stream);
+      return tc::launch_fwd<D, false, true, kDrop>(a, stream);
+    }
+  } else {
+    auto kernel = attention_kernel<E, D, kLengths, kDrop>;
+    const size_t smem = smem_bytes<E, D>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(a.N, (a.T + kBQ - 1) / kBQ, a.B);
+    if (grid.y > 65535 || grid.z > 65535) return -1;
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+    return record_fwd_launch(0, D, kLengths, !kLengths && a.bias != nullptr, kDrop);
+  }
 }
 
 template <typename E, int D, bool kLengths>
@@ -501,8 +776,9 @@ int launch_dtype(const AttnArgs& a, int dtype, cudaStream_t s) {
 }
 
 // Returns 0, a cudaError_t from the launch, -1 for a shape the kernel does not
-// take (D not in {32, 64, 128}, an empty dim, too many query tiles or clips)
-// or -2 for an unknown dtype code (0 = float32, 1 = bfloat16).
+// take (D not in {32, 64, 128}, an empty dim, too many query tiles or clips),
+// -2 for an unknown dtype code (0 = float32, 1 = bfloat16) or -3 for bf16
+// operands at D = 64 or 128 that TMA cannot map (nothing is launched).
 template <bool kLengths>
 int dispatch(const AttnArgs& a, int D, int dtype, void* stream) {
   if (a.B < 1 || a.T < 1 || a.S < 1 || a.N < 1) return -1;

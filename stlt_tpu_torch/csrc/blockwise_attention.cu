@@ -25,8 +25,9 @@
 // mode's ring-offset variant (off_base / valid_cols, _causal_live_off). The TPU kernel's block sizes (tb = 104, sb = 384
 // at 513 tokens) do not carry over: here 64 queries per block and keys in
 // chunks of 64, with chunks above the diagonal or past the clip's length
-// never loaded (attention_core.cuh, which also states the design and the
-// bound).
+// never loaded; in bf16 at head dims 64 and 128 on wgmma and TMA
+// (tc::attention_fwd_kernel), else the staged attention_kernel
+// (attention_core.cuh, which also states the design and the bound).
 #include "attention_core.cuh"
 
 extern "C" int stlt_blockwise_attention(
@@ -47,4 +48,10 @@ extern "C" int stlt_blockwise_attention(
                                                  mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch<true>(a, D, dtype, stream);
   return stlt::attn::dispatch<false>(a, D, dtype, stream);
+}
+
+// The last accepted forward launch of this library: {wgmma body, D,
+// lengths mode, bias stage, drop mode} (attention_core.cuh).
+extern "C" void stlt_blockwise_attention_last_launch(int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = stlt::attn::last_fwd_launch()[i];
 }

@@ -9,8 +9,9 @@
 // lse [B, N, T] (pass nullptr in eval), which the backward
 // (flash_attention_bwd.cu) reads. The TPU kernel holds each row's whole
 // [T, S] f32 tile in VMEM; here the keys stream in chunks of 64 through an
-// online softmax (attention_core.cuh, which also states the design and the
-// bound).
+// online softmax: in bf16 at head dims 64 and 128 on wgmma and TMA
+// (tc::attention_fwd_kernel), else the staged attention_kernel
+// (attention_core.cuh, which also states the design and the bound).
 #include "attention_core.cuh"
 
 extern "C" int stlt_flash_attention(
@@ -27,4 +28,10 @@ extern "C" int stlt_flash_attention(
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   return stlt::attn::dispatch<false>(a, D, dtype, stream);
+}
+
+// The last accepted forward launch of this library: {wgmma body, D,
+// lengths mode, bias stage, drop mode} (attention_core.cuh).
+extern "C" void stlt_flash_attention_last_launch(int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = stlt::attn::last_fwd_launch()[i];
 }

@@ -245,5 +245,7 @@ def launch(name: str, *args) -> None:
     err = getattr(library(name), symbol)(*args)
     if err == -1:
         raise ValueError(f"{name}: shape not supported by the CUDA kernel")
+    if err == -3:
+        raise RuntimeError(f"{name}: the TMA cannot map an operand (its base or strides); nothing launched")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

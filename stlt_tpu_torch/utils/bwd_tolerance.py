@@ -1,8 +1,10 @@
 """Mutation check of the bf16 tolerances that ``chip_smoke.py`` states as
 relative norms.
 
-``chip_smoke.py`` holds the long-clip attention backwards' dq, dk and dv
-against ``attention_bwd_plain`` (``BWD_REL``), the fused train tail's dx
+``chip_smoke.py`` holds the long-clip attention forwards' output (rows 6
+and 8 in every mode, ``ATTN_FWD_REL``), the long-clip attention backwards'
+dq, dk and dv against ``attention_bwd_plain`` (``BWD_REL``), the fused train
+tail's dx
 and dattn against its plain backward (``TAIL_BWD_REL``), the fused
 cross-attention's output against its plain version (``CROSS_REL``), the
 blockwise forward's dense-bias output against its plain version
@@ -18,8 +20,16 @@ prints each variant's relative norm errors in bf16:
 - ``sound``: the sources as they are (every family);
 - attention, dense and dense_bwd, ``no_lo_split``: the tensor-core products
   of the probabilities and of dz take only the bf16 hi part, not hi + lo
-  (the forward's and the staged backward's ``attention_core.cuh::chunk_pv``,
-  the wgmma backward's ``attention_bwd_core.cuh::tc::split_hi_lo``);
+  (the staged forward's and backward's ``attention_core.cuh::chunk_pv``, the
+  wgmma forward's and backward's ``attention_tc.cuh::tc::split_hi_lo``);
+- attention and dense, ``fwd_pv_hi_only``: the wgmma forward's P V takes
+  only P's bf16 hi part (``attention_core.cuh::tc::attention_fwd_kernel``;
+  its backward keeps hi + lo);
+- attention and dense, ``fwd_no_rescale``: the wgmma forward does not
+  rescale the O accumulator by exp(m_old - m) when a row's running max
+  grows (l still is);
+- attention and dense, ``fwd_keep_ts_swapped``: the wgmma forward hashes
+  the keep bit of (query t, key s) at (s, t);
 - attention and dense_bwd, ``no_dsum``: dz = p o dp, without the ``- dsum``
   term (every backward body);
 - attention and dense_bwd, ``dkdv_keep_ts_swapped``: the dk/dv kernel hashes
@@ -83,11 +93,13 @@ Run on a machine with one H100, ``nvcc`` and PyTorch for CUDA::
 
 (those families' variants only when named). The variants' kernels are built
 in parallel, then measured one variant at a time. The last line is one JSON
-object {variant: {family: [rows]}}. Attention rows {"T", "rate", "dq",
-"dk", "dv"}: 6 clips, 12 heads of 64, T = 257 on the short kernel with a
-causal padding bias, T = 513 on the blockwise kernel in lengths mode,
-dropout 0 and 0.1 (chip_smoke's check shapes); out and lse come from the
-plain forward, so only the backward differs. Tail rows {"tokens", "rate",
+object {variant: {family: [rows]}}. Attention rows {"T", "rate", "out",
+"lse", "dq", "dk", "dv"}: 6 clips, 12 heads of 64, T = 257 on the short
+kernels with a causal padding bias, T = 513 on the blockwise kernels in
+lengths mode, dropout 0 and 0.1 (chip_smoke's check shapes); "out" and
+"lse" are the forward kernel's against the plain forward's, and the
+backward takes out and lse from the plain forward, so that only the
+backward differs in dq, dk and dv. Tail rows {"tokens", "rate",
 "dx", "dattn", "dn1s", ..., "dn2b"}: H = 768, FF = 3072, GELU (tanh), r2
 from the plain forward; 4,112 tokens (16 clips of 257 frames, the temporal
 stage of a 512-frame batch) with ragged live tokens and dropout 0 and 0.1
@@ -108,8 +120,9 @@ carry "op_tol". Proj_bwd rows {"stage", "T", "rate", "dqkv", "dwo", "dbo",
 shapes and weights in the model's layout (the temporal stage without
 rows_live, as on the main path; T = 33 with 80 % of the rows live), dropout
 0 and 0.1, the cotangent zero on dead rows; a non-finite output reads as an
-infinite error; "op_tol" for dqkv. Dense rows {"T", "S", "bias", "causal", "out", "lse"}: chip_smoke's row-8
-dense-bias checks at B = 16, 12 heads of 64. Dense_bwd rows {"T", "S",
+infinite error; "op_tol" for dqkv. Dense rows {"T", "S", "bias", "causal",
+"rate", "out", "lse"}: chip_smoke's row-8 dense-bias checks at B = 16, 12
+heads of 64, dropout 0 and 0.1. Dense_bwd rows {"T", "S",
 "bias", "causal", "rate", "dq", "dk", "dv"}: the same cases with dropout 0
 and 0.1; out and lse from the plain forward, so only the backward differs.
 """
@@ -144,10 +157,22 @@ MUTATIONS = {
         ("attention_core.cuh",
          "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(p[r][j] - __bfloat162float(hi));",
          "pl[r * kLDP + lane + 32 * j] = __float2bfloat16_rn(0.f);"),
-        ("attention_bwd_core.cuh",
+        ("attention_tc.cuh",
          "const __nv_bfloat162 l = __floats2bfloat162_rn(x[2 * i] - __low2float(h), x[2 * i + 1] - __high2float(h));",
          "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);"),
     ]),
+    "fwd_pv_hi_only": (("attention", "dense"), [(
+        "attention_core.cuh", "split_hi_lo(st, ph, pl);",
+        "split_hi_lo(st, ph, pl);\n    for (int i = 0; i < 16; ++i) pl[i] = 0u;",
+    )]),
+    "fwd_no_rescale": (("attention", "dense"), [(
+        "attention_core.cuh", "acc[i] *= corr[(i >> 1) & 1];", "acc[i] *= 1.f;",
+    )]),
+    "fwd_keep_ts_swapped": (("attention", "dense"), [(
+        "attention_core.cuh",
+        "pr *= p.drop.keep_scale<kDrop>(b, n, N, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);",
+        "pr *= p.drop.keep_scale<kDrop>(b, n, N, c * kBK + 8 * j + 2 * tig + e, t_h[h], S);",
+    )]),
     "no_dsum": (("attention", "dense_bwd"), [
         ("attention_bwd_core.cuh", "expf(x - lse_t) * (d - ds);", "expf(x - lse_t) * d;"),
         ("attention_bwd_core.cuh", "pr * (dp[r][j] * keep - ds_j[j]);", "pr * (dp[r][j] * keep);"),
@@ -240,8 +265,8 @@ MUTATIONS = {
     )]),
     "dense_causal_last_key_dropped": (("dense",), [(
         "attention_core.cuh",
-        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T));",
-        "if (!kLengths && p.causal) kend = min(S, min(q0 + kBQ, T)) - 1;",
+        "if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S);",
+        "if (!kLengths && p.causal) kend = min(min(q0 + kBQ, T), S) - 1;",
     )]),
     "dense_bwd_causal_last_key_dropped": (("dense_bwd",), [(
         "attention_bwd_core.cuh",
@@ -290,7 +315,7 @@ def build(families) -> None:
 
 
 def measure(family: str) -> list:
-    """Relative norm errors of the bf16 backward kernels of ``family``
+    """Relative norm errors of the bf16 kernels of ``family``
     against their plain versions, with this interpreter's
     ``stlt_tpu_torch``."""
     build([family])
@@ -475,11 +500,13 @@ def _measure_dense() -> list:
         bias = {"causal_padding": lambda: masks.causal_bias(T) + masks.key_padding_bias(pad),
                 "key_padding": lambda: masks.key_padding_bias(pad), "none": lambda: None}[kind]()
         bias = None if bias is None else bias.to(device)
-        out, lse = flash.blockwise_attention(q, k, v, bias=bias, causal=causal)
-        want, want_lse = flash.blockwise_attention_plain(q, k, v, bias=bias, causal=causal)
-        torch.cuda.synchronize()
-        rows.append({"T": T, "S": S, "bias": kind, "causal": causal, "out": _rel(out, want),
-                     "lse": _rel(lse, want_lse)})
+        for rate in (0.0, 0.1):
+            kw = dict(bias=bias, causal=causal, dropout_rate=rate, dropout_seed=0x5EED if rate else None)
+            out, lse = flash.blockwise_attention(q, k, v, **kw)
+            want, want_lse = flash.blockwise_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            rows.append({"T": T, "S": S, "bias": kind, "causal": causal, "rate": rate,
+                         "out": _rel(out, want), "lse": _rel(lse, want_lse)})
     return rows
 
 
@@ -529,15 +556,17 @@ def _measure_attention() -> list:
             if T < 513:
                 kw["bias"] = flash._lengths_dense_bias(lengths, T, T, True)
                 out, lse = flash.fused_attention_plain(q, k, v, with_lse=True, **kw)
+                got_out, got_lse = flash.fused_attention(q, k, v, with_lse=True, **kw)
                 dsum, bwd = flash._dsum(dout, out, None), flash.fused_attention_bwd
             else:
                 kw.update(kv_lengths=lengths, causal=True)
                 out, lse = flash.blockwise_attention_plain(q, k, v, **kw)
+                got_out, got_lse = flash.blockwise_attention(q, k, v, **kw)
                 dsum, bwd = flash._dsum(dout, out, lengths), flash.blockwise_attention_bwd
             got = bwd(q, k, v, dout, lse, dsum, **kw)
             want = flash.attention_bwd_plain(q, k, v, dout, lse, dsum, **kw)
             torch.cuda.synchronize()
-            rows.append({"T": T, "rate": rate,
+            rows.append({"T": T, "rate": rate, "out": _rel(got_out, out), "lse": _rel(got_lse, lse),
                          **{name: _rel(a, b) for name, a, b in zip(("dq", "dk", "dv"), got, want)}})
     return rows
 
@@ -590,7 +619,7 @@ def main(argv=None) -> int:
                                                         f"{f!r}}}))"))
             results[variant] = json.loads(out.strip().splitlines()[-1])
             for family, rows in results[variant].items():
-                groups = {"attention": {"dq/dk/dv": ("dq", "dk", "dv")},
+                groups = {"attention": {"out": ("out",), "lse": ("lse",), "dq/dk/dv": ("dq", "dk", "dv")},
                           "tail": {"dx/dattn": TAIL_GRADS[:2], "summed gradients": TAIL_GRADS[2:]},
                           "cross": {"y": ("y",)},
                           "proj": {"y": ("y",)},

@@ -990,8 +990,15 @@ def test_tail_train_kernels_refuse_what_they_do_not_take(device):
 # elementwise bf16 bound is about as large as a typical cross-attention
 # output, so it cannot see a dropped bias; the limits sit between the sound
 # kernels' readings and planted faults' (``python -m
-# stlt_tpu_torch.utils.bwd_tolerance cross dense``; PERF.md, PR 6).
-CROSS_REL, DENSE_REL = 1.2e-3, 5e-4
+# stlt_tpu_torch.utils.bwd_tolerance cross dense``; PERF.md, PRs 6 and
+# 15). Row 8's dense-bias mode takes the forwards' ATTN_FWD_REL.
+CROSS_REL = 1.2e-3
+# The forwards' bf16 output, rows 6 and 8 in every mode: sound kernels read
+# at most 1.3e-4, P V with P's hi part only 2.7e-3, the causal key range one
+# key short 7.2e-3, O not rescaled 0.31, the keep bits at (s, t) 0.41
+# (H100; PERF.md, PR 15; python -m stlt_tpu_torch.utils.bwd_tolerance
+# attention dense).
+ATTN_FWD_REL = 5e-4
 # dq, dk, dv of the blockwise backward's dense-bias mode in bf16, relative
 # Frobenius norm: sound kernels read at most 1.3e-4, no hi + lo split
 # 2.5e-3, the causal key range one key short 6.1e-3, dsum left out 0.14
@@ -1072,7 +1079,7 @@ def test_blockwise_dense_bias_kernel_matches_plain(device, dtype, T, S, bias_kin
     torch.cuda.synchronize()
     _close(out, want, dtype)
     if dtype == torch.bfloat16:
-        assert _rel(out, want) < DENSE_REL, _rel(out, want)
+        assert _rel(out, want) < ATTN_FWD_REL, _rel(out, want)
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
 
 
@@ -1568,6 +1575,191 @@ def test_attention_bwd_reads_nothing_past_its_clip(device, T, fill):
     torch.cuda.synchronize()
     clips = slice(None) if pad else slice(0, 2)
     _check_grads(tuple(g[clips] for g in got), tuple(g[clips] for g in want), dtype)
+
+
+# --- the attention forward on wgmma and TMA (rows 6 and 8) ------------------------
+
+# (route, T, S, extra keyword arguments) of the forward cases: row 6's bias
+# mode at T = 65 and 257 (eval, and with lse, dropout or a mask), row 8's
+# lengths mode at 513 and 1025 (causal or not, dropout), its ring-offset
+# mode and its dense-bias mode (flag on and off, no bias, T != S).
+FWD_CASES = [
+    ("flash", 65, 65, {}),
+    ("flash", 257, 257, {}),
+    ("flash", 257, 257, {"with_lse": True}),
+    ("flash", 257, 257, {"with_lse": True, "dropout_rate": 0.1}),
+    ("flash", 257, 257, {"with_lse": True, "mask": True}),
+    ("lengths", 513, 513, {"causal": True}),
+    ("lengths", 513, 513, {"causal": False}),
+    ("lengths", 1025, 1025, {"causal": True, "dropout_rate": 0.1}),
+    ("lengths", 513, 513, {"causal": True, "mask": True}),
+    ("offsets", 257, 257, {"offsets": (0, 257)}),
+    ("offsets", 257, 257, {"offsets": (257, 0), "dropout_rate": 0.1}),
+    ("dense", 513, 513, {"causal": True}),
+    ("dense", 513, 513, {"causal": False, "dropout_rate": 0.1}),
+    ("dense", 513, 33, {"bias": None}),
+    ("dense", 33, 513, {"bias": "key_padding"}),
+    ("dense", 513, 513, {"causal": True, "mask": True}),
+]
+
+
+def _fwd_case(route, T, S, extra, D, gen, device, B=3):
+    """q, k, v [B, T|S, N, D] bf16 (the q/k/v thirds of one projection where
+    T = S), the forward wrapper and its plain version as (out, lse)
+    callables, and the [B, T] live rows (None: every row) and the rows with
+    no live key in the held chunk (None: none)."""
+    from stlt_tpu_torch.ops import flash
+
+    N = 768 // D
+    if T == S:
+        qkv = torch.randn(B, T, 3, N, D, generator=gen).to(device, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(B, L, N, D, generator=gen).to(device, torch.bfloat16) for L in (T, S, S))
+    kw = {}
+    if extra.get("dropout_rate"):
+        kw.update(dropout_rate=extra["dropout_rate"], dropout_seed=0x5EED)
+    if extra.get("mask"):
+        kw.update(dropout_rate=0.1, dropout_mask=(torch.rand(B, N, T, S, generator=gen) < 0.9).to(device))
+    live = none = None
+    if route == "flash":
+        bias = _bias("causal_padding", B, T, gen).to(device)
+        with_lse = extra.get("with_lse", False)
+
+        def call(fn):
+            res = fn(q, k, v, bias, with_lse=with_lse, **kw)
+            return res if with_lse else (res, None)
+
+        return q, k, v, lambda: call(flash.fused_attention), lambda: call(flash.fused_attention_plain), live, none
+    if route == "dense":
+        kind = extra.get("bias", "causal_padding")
+        if kind == "causal_padding":
+            kw["bias"] = _bias("causal_padding", B, T, gen).to(device)
+        elif kind == "key_padding":
+            pad = torch.rand(B, S, generator=gen) < 0.3
+            pad[:, 0] = False
+            kw["bias"] = masks.key_padding_bias(pad).to(device)
+        kw["causal"] = extra.get("causal", False)
+    else:
+        row0, col0 = extra.get("offsets", (0, 0))
+        clip_lengths = [2 * T, 33, T + 100] if route == "offsets" else [T, 1, T // 2 + 3]
+        lengths = torch.tensor(clip_lengths * B, dtype=torch.int32, device=device)[:B]
+        kw.update(kv_lengths=lengths, causal=extra.get("causal", True))
+        if route == "offsets":
+            kw["offsets"] = (row0, col0)
+        t = torch.arange(T, device=device)[None, :] + row0
+        live = t < lengths[:, None]
+        none = live & ((col0 >= lengths[:, None]) | ((col0 > t) if kw["causal"] else False))
+    return (q, k, v, lambda: flash.blockwise_attention(q, k, v, **kw),
+            lambda: flash.blockwise_attention_plain(q, k, v, **kw), live, none)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("route,T,S,extra", FWD_CASES)
+def test_attention_fwd_wgmma_body_matches_plain(device, D, route, T, S, extra):
+    """Rows 6 and 8 in bf16 at head dims 64 and 128, on the wgmma body, in
+    every mode: out within the bf16 tolerance and ATTN_FWD_REL, lse within
+    the f32 tolerance on live rows, dead rows zeros with lse 0, a live row
+    with no live key in the chunk zeros with lse -1e30, two launches
+    bit-identical."""
+    gen = torch.Generator().manual_seed(D + T + S + len(extra))
+    q, k, v, kernel, plain, live, none = _fwd_case(route, T, S, extra, D, gen, device)
+    (out, lse), (want, want_lse) = kernel(), plain()
+    again = kernel()
+    torch.cuda.synchronize()
+    assert out.is_contiguous() and torch.isfinite(out.float()).all()
+    rows = torch.ones(out.shape[:2], dtype=torch.bool, device=device) if live is None else live
+    torch.testing.assert_close(out.float()[rows], want.float()[rows], **TOL[torch.bfloat16])
+    assert _rel(out, want) < ATTN_FWD_REL, _rel(out, want)
+    assert torch.equal(out, again[0])
+    if lse is not None:
+        torch.testing.assert_close(lse.transpose(1, 2)[rows], want_lse.transpose(1, 2)[rows],
+                                   **TOL[torch.float32])
+        assert torch.equal(lse, again[1])
+    if live is not None and (~live).any():
+        assert out[~live].abs().max().item() == 0.0 and lse.transpose(1, 2)[~live].abs().max().item() == 0.0
+    if none is not None and none.any():
+        assert out[none].abs().max().item() == 0.0
+        assert (lse.transpose(1, 2)[none] == -1e30).all()
+
+
+@pytest.mark.parametrize("route,T", [("flash", 65), ("lengths", 513), ("dense", 513)])
+@pytest.mark.parametrize("fill", ["next_clip_1e4", "inf_past_the_clip"])
+def test_attention_fwd_reads_nothing_past_its_clip(device, route, T, fill):
+    """The bf16 forward's TMA maps bound each clip, so a clip's last tile
+    (65 = 64 + 1, 513 = 8 * 64 + 1 rows) reads zeros past its rows: with
+    clip 2's q, k and v 1e4 times larger, clips 0 and 1's out and lse equal
+    the plain version's; with inf in the rows past every clip (views of
+    [B, T + 64] buffers), every clip's do. Dropout 0.1."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(T + len(fill) + len(route))
+    B, N, D = 3, 12, 64
+    pad = 64 if fill == "inf_past_the_clip" else 0
+    bufs = [torch.randn(B, T + pad, N, D, generator=gen) for _ in range(3)]
+    for x in bufs:
+        if pad:
+            x[:, T:] = float("inf")
+        else:
+            x[2] *= 1e4
+    q, k, v = (x.to(device, torch.bfloat16)[:, :T] for x in bufs)
+    kw = dict(dropout_rate=0.1, dropout_seed=0x5EED)
+    if route == "flash":
+        bias = _bias("causal_padding", B, T, gen).to(device)
+        got = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+        want = flash.fused_attention_plain(q, k, v, bias, with_lse=True, **kw)
+    else:
+        if route == "lengths":
+            kw.update(kv_lengths=torch.tensor([T, 300, T], dtype=torch.int32, device=device), causal=True)
+        else:
+            kw.update(bias=_bias("causal_padding", B, T, gen).to(device))
+        got = flash.blockwise_attention(q, k, v, **kw)
+        want = flash.blockwise_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    clips = slice(None) if pad else slice(0, 2)
+    (out, lse), (want_out, want_lse) = ((x[clips] for x in pair) for pair in (got, want))
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[torch.bfloat16])
+    assert _rel(out, want_out) < ATTN_FWD_REL
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("route,T,S,extra", [FWD_CASES[3], FWD_CASES[7], FWD_CASES[10], FWD_CASES[12]])
+def test_attention_fwd_repeats_its_bits_under_load_into_a_nan_buffer(device, route, T, S, extra):
+    """Sixteen launches of the bf16 forward at B = 32 give the same bits as
+    the first, each into an output block that was filled with NaN and freed
+    just before (the allocator hands it to the wrapper's torch.empty): every
+    element of out and lse is written, none read."""
+    gen = torch.Generator().manual_seed(T + S)
+    q, k, v, kernel, _, _, _ = _fwd_case(route, T, S, extra, 64, gen, device, B=32)
+    first = kernel()
+    torch.cuda.synchronize()
+    for _ in range(16):
+        poison = [torch.full_like(x, float("nan")) for x in first]
+        ptrs = [x.data_ptr() for x in poison]
+        del poison
+        got = kernel()
+        assert [x.data_ptr() for x in got] == ptrs, "the output did not take the NaN-filled blocks"
+        assert all(torch.equal(a, b) for a, b in zip(first, got))
+
+
+def test_attention_fwd_refuses_an_operand_tma_cannot_map(device):
+    """A bf16 D = 64 operand that passes the wrappers' checks but that TMA
+    cannot map (a clip stride of 2**41 bytes: the map's strides stop below
+    2**40) raises, launches nothing and leaves the card usable."""
+    from stlt_tpu_torch.ops import flash
+
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(1, 257, 12, 64, generator=gen).to(device, torch.bfloat16) for _ in range(3))
+    far = q.as_strided(q.shape, (2 ** 40, *q.stride()[1:]))
+    flash.reset_launches()
+    with pytest.raises(RuntimeError, match="cannot map"):
+        flash.fused_attention(far, k, v)
+    with pytest.raises(RuntimeError, match="cannot map"):
+        flash.blockwise_attention(far, k, v, kv_lengths=torch.tensor([200], device=device), causal=True)
+    torch.cuda.synchronize()
+    assert not any(flash.LAUNCHES.values())
+    _close(flash.fused_attention(q, k, v), flash.fused_attention_plain(q, k, v), torch.bfloat16)
 
 
 # --- the bf16 layer tail on wgmma and TMA (rows 2 and 11) --------------------------
