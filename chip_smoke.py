@@ -202,7 +202,37 @@ Phases, in order; any failure exits non-zero:
    summed over the ring (equal on both ranks) against the single process's
    kernel path within the one-step limits below, and each rank's step time
    and peak memory beside the single process's (no speed claim);
-11. print the kernel table as one JSON line, then the result line.
+11. (run right after phase 4) the train CLI's levers at phase 4's full width (17 frames, B = 64, two
+   epochs, dropout 0.1): ``train`` with ``--grad_accum_steps 2 --remat
+   --resume_dir --save_model_path best.msgpack --save_backbone_path
+   backbone.msgpack --profile_dir --profile_window 1,3`` run whole, and run
+   again cut after epoch 1's step checkpoint (``stop_after_save`` makes the
+   checkpoint writer raise once, after its file is on disk) and resumed by
+   the same argv: the resumed run's final weights, AdamW state, learning
+   rates and epoch-2 loss equal the whole run's bit for bit; each run's
+   launches (per layer and step 2 x 2 of the train op's forward, its two
+   microbatches each run forward and again in the backward's recompute,
+   and 2 of its backward; per layer and validation batch the eval
+   kernels), the resumed run only its own epoch's; the trace holds steps 1
+   and 2 (its device events logged, not checked). ``best.msgpack`` and
+   ``backbone.msgpack`` hold, bit for bit, the weights the CLI wrote them
+   from (``saved_weights`` keeps a copy at each write), but for the keys
+   without a JAX leaf; ``best.msgpack`` loads with ``strict=True`` and
+   gives the logits of those weights through a ``.pt`` bit for bit;
+   ``predict --checkpoint_path best.msgpack`` serves it. The category and
+   frame-type tables' gradient (``models/stlt.embed``) repeats its bits at
+   the batch's ids, f32 and bf16 (``check_embedding_backward``, which logs
+   how often the CUDA ``nn.functional.embedding`` backward does not). One
+   17-frame B = 512 step from those weights: remat against none at
+   dropout 0.1 bit for bit, k = 2 against k = 1 at dropout 0 within the
+   one-step limits below, kernels against plain with both levers. One
+   256-frame step (B = 8, random weights): remat against none bit for bit,
+   and the launches under remat (each forward of rows 3, 6 and 11 twice, each
+   backward, rows 4, 7 and 12-14, once). Step times and peak memory
+   (``torch.cuda.max_memory_allocated``) at 17 frames, B = 512, with no
+   lever, remat, k = 2 and both, and at 256 frames, B = 32, with and without
+   remat, each beside the card line;
+12. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -319,6 +349,12 @@ points, same keep bits; the two differ only in the order of their sums):
   atol = 5e-2. The whole bf16 path differs
   from the f32 path by 2.5e-2 at most at this config (randomly initialised
   STLT, 4 clips, CPU); kernel and plain differ by less than bf16 itself.
+- phase 11: a step with ``--remat`` against one without, and a resumed
+  run against an uninterrupted one, bit for bit (the recompute hashes the
+  keep bits of the seeds drawn before it; every kernel and library call of
+  the step repeats its bits); k = 2 microbatches against one at dropout 0
+  within the one-step limits below (the two sum the gradients in another
+  order, and every bf16 rounding of the forward sees other batch shapes).
 - one full-width bf16 train step, kernels against plain: loss atol 5e-2
   (the logits' tolerance); each parameter's gradient within a relative norm
   of 3e-2, and all of them joined within 5e-2: twelve layers of bf16
@@ -2934,16 +2970,14 @@ def _split_dataset(paths, root, train_clips: int = TRAIN_CLIPS):
     return out
 
 
-def _one_step(model, batch, criterion):
-    """Loss and gradients of one train step from the model's weights."""
-    from stlt_tpu_torch.training.loop import step_generator
+def _one_step(model, batch, criterion, grad_accum: int = 1):
+    """Loss and gradients of one train step from the model's weights
+    (``training/loop.loss_and_grads``: ``grad_accum`` microbatches)."""
+    from stlt_tpu_torch.training.loop import loss_and_grads, step_generator
 
-    model.zero_grad(set_to_none=True)
-    inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
-    loss = criterion(model(inputs, step_generator(SEED, 0)), batch["labels"], batch["valid"])
-    loss.backward()
-    return loss.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
-                           if p.grad is not None}
+    loss = loss_and_grads(model, criterion, batch, step_generator(SEED, 0), grad_accum)
+    return loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                  if p.grad is not None}
 
 
 # Phase 8's f32 step, kernels against plain: the appearance encoder's FFN
@@ -3039,7 +3073,8 @@ class appearance_gates:
         return False
 
 
-def _step_kernels_vs_plain(label, model, batch, criterion, limits=None, pin_gates=False) -> None:
+def _step_kernels_vs_plain(label, model, batch, criterion, limits=None, pin_gates=False,
+                           grad_accum: int = 1) -> None:
     """One step from the same weights, batch and seeds through the kernels
     and through the plain path on the card: loss within STEP_LOSS_ATOL, each
     gradient within STEP_TENSOR_REL and all of them joined within
@@ -3048,16 +3083,17 @@ def _step_kernels_vs_plain(label, model, batch, criterion, limits=None, pin_gate
     8 in f32): the plain run takes the kernel run's appearance-encoder ReLU
     gates where they flipped (``appearance_gates``; the flips are logged per
     layer and checked by ``check_gate_flips``), and a plain run without the
-    pins is compared too, logged and not checked."""
+    pins is compared too, logged and not checked. ``grad_accum``:
+    microbatches of each step (phase 11)."""
     # The same cuDNN algorithms in both passes (the R3D convolutions), so the
     # two differ by the kernels alone.
     saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
     try:
         if not pin_gates:
-            loss_k, grads_k = _one_step(model, batch, criterion)
+            loss_k, grads_k = _one_step(model, batch, criterion, grad_accum)
             with plain_kernels():
-                loss_p, grads_p = _one_step(model, batch, criterion)
+                loss_p, grads_p = _one_step(model, batch, criterion, grad_accum)
         else:
             with appearance_gates(model) as kernel_gates:
                 loss_k, grads_k = _one_step(model, batch, criterion)
@@ -3113,21 +3149,21 @@ def _compare_steps(label, what, got, want, limits=None) -> None:
                              f"(grads; joined {rel:.3e}, tensors over their limit: {over})")
 
 
-def _train_step(model, criterion):
+def _train_step(model, criterion, grad_accum: int = 1):
     from stlt_tpu_torch.training.loop import make_train_step
     from stlt_tpu_torch.training.optimizer import make_optimizer
 
     optimizer, scheduler = make_optimizer(model, learning_rate=1e-5, weight_decay=1e-3,
                                           num_warmup_steps=1, num_training_steps=100)
-    return make_train_step(model, optimizer, scheduler, criterion, 5.0)
+    return make_train_step(model, optimizer, scheduler, criterion, 5.0, grad_accum=grad_accum)
 
 
-def _step_ms(model, batch, criterion, steps: int = 5) -> float:
-    """Mean wall time of a whole train step (forward, backward, clip, AdamW),
-    synchronised, after two warmup steps."""
+def _step_ms(model, batch, criterion, steps: int = 5, grad_accum: int = 1) -> float:
+    """Mean wall time of a whole train step (forward, backward, clip, AdamW;
+    ``grad_accum`` microbatches), synchronised, after two warmup steps."""
     from stlt_tpu_torch.training.loop import step_generator
 
-    step = _train_step(model, criterion)
+    step = _train_step(model, criterion, grad_accum)
     for i in range(2):
         step(batch, step_generator(SEED, i))
     torch.cuda.synchronize()
@@ -3272,11 +3308,53 @@ def tail_gate_ab(label, model, batch, criterion, ms: float, steps: int = 5) -> d
     return ab
 
 
-def run_train_path(device):
-    from stlt_tpu_torch import train as port_train
-    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+def train_argv(split, paths, save_model_path):
+    """Phase 4's ``train`` argv: a full-width bf16 STLT (dropout 0.1,
+    learning rate 1e-3), batch 64, TRAIN_EPOCHS epochs."""
+    return [
+        "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+        "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
+        "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
+        "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+        "--num_spatial_layers", str(SPATIAL_LAYERS),
+        "--num_temporal_layers", str(TEMPORAL_LAYERS), "--hidden_dropout_prob", str(DROPOUT),
+        "--batch_size", str(BATCH), "--epochs", str(TRAIN_EPOCHS), "--warmup_epochs", "1",
+        "--learning_rate", "1e-3",
+        "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
+        "--save_model_path", save_model_path,
+    ]
+
+
+def train_model_kw(split, paths, frames: int = 16):
+    """(the train data config, the model config's keywords) of ``train_argv``'s
+    model at ``frames`` layout frames."""
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+
+    data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
+                          labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                          layout_num_frames=frames, train=True)
+    model_kw = dict(
+        num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+        num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+        num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16",
+        hidden_dropout_prob=DROPOUT, layout_num_frames=position_table_rows(data_cfg),
+    )
+    return data_cfg, model_kw
+
+
+def _train_batch(data_cfg, clips, device):
+    """The first train batch of ``clips`` clips of ``data_cfg``'s set, on the card."""
     from stlt_tpu_torch.data import collaters_factory, datasets_factory
     from stlt_tpu_torch.data.loader import Loader, to_device
+
+    loader = Loader(datasets_factory["layout"](data_cfg), clips,
+                    collaters_factory["layout"](data_cfg), prefetch=0)
+    return next(iter(to_device(loader, device)))
+
+
+def run_train_path(device):
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import make_model_config
     from stlt_tpu_torch.models import models_factory
     from stlt_tpu_torch.training.criterion import make_criterion
     from stlt_tpu_torch.utils.convert import read_state_dict
@@ -3289,18 +3367,7 @@ def run_train_path(device):
         paths = write_something_dataset(root, TRAIN_CLIPS + VAL_CLIPS, SEED + 2, num_used=TRAIN_LABELS)
         split = _split_dataset(paths, root)
         best = os.path.join(root, "best.pt")
-        argv = [
-            "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
-            "--train_dataset_path", split["train"], "--val_dataset_path", split["val"],
-            "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
-            "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
-            "--num_spatial_layers", str(SPATIAL_LAYERS),
-            "--num_temporal_layers", str(TEMPORAL_LAYERS), "--hidden_dropout_prob", str(DROPOUT),
-            "--batch_size", str(BATCH), "--epochs", str(TRAIN_EPOCHS), "--warmup_epochs", "1",
-            "--learning_rate", "1e-3",
-            "--compute_dtype", "bfloat16", "--use_pallas", "--seed", str(SEED),
-            "--save_model_path", best,
-        ]
+        argv = train_argv(split, paths, best)
         reset_all_launches()
         t0 = time.perf_counter()
         result = port_train.main(argv)
@@ -3330,24 +3397,14 @@ def run_train_path(device):
                                  f"train step for each train kernel, per validation batch for "
                                  f"each eval kernel, none of the long-clip or train-tail kernels)")
 
-        data_cfg = DataConfig(dataset_name="something", dataset_path=split["train"],
-                              labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
-                              train=True)
-        model_kw = dict(
-            num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
-            num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
-            num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16",
-            hidden_dropout_prob=DROPOUT, layout_num_frames=position_table_rows(data_cfg),
-        )
+        data_cfg, model_kw = train_model_kw(split, paths)
         model = models_factory["stlt"](make_model_config("stlt", **model_kw))
         model.load_state_dict(read_state_dict(best), strict=True)
         model = model.to(device).train()
         log(f"train: best checkpoint {os.path.getsize(best)} bytes loads with strict=True")
 
         # One step from the same weights, batch and seeds: kernels against plain.
-        dataset = datasets_factory["layout"](data_cfg)
-        loader = Loader(dataset, BATCH, collaters_factory["layout"](data_cfg), prefetch=0)
-        batch = next(iter(to_device(loader, device)))
+        batch = _train_batch(data_cfg, BATCH, device)
         criterion = make_criterion("something")
         _step_kernels_vs_plain("train step", model, batch, criterion)
 
@@ -3370,6 +3427,419 @@ def run_train_path(device):
             del big
             torch.cuda.empty_cache()
         return launches, step_ms
+
+
+# --- phase 11: the train CLI's levers ------------------------------------------
+
+# --grad_accum_steps, --remat, --resume_dir and --profile_dir on phase 4's
+# run (17 frames, B = 64, two epochs of four steps); (d) and (e) at 256
+# frames on LONG_TRAIN[256]'s clips.
+LEVER_ACCUM = 2
+LEVER_ARGV = ["--grad_accum_steps", str(LEVER_ACCUM), "--remat"]
+LEVER_PROFILE_WINDOW = (1, 3)
+LEVER_LONG_FRAMES = 256
+LEVER_LONG_CLIPS, LEVER_LONG_STEP_CLIPS = LONG_TRAIN[256][0], 8  # (e)'s batch, (d)'s
+
+
+class Interrupted(Exception):
+    """The planned stop of phase 11's interrupted run."""
+
+
+class stop_after_save:
+    """Within the block (with ``stop``), the step-checkpoint writer
+    (``training/checkpoint.save_train_state``) raises Interrupted once,
+    after its first checkpoint is on disk: a run cut after epoch 1's
+    validation. The block swallows that one exception."""
+
+    def __init__(self, stop: bool):
+        self.stop = stop
+
+    def __enter__(self):
+        from stlt_tpu_torch.training import checkpoint as ckpt
+
+        self.module, self.save = ckpt, ckpt.save_train_state
+        if self.stop:
+            def save_then_stop(*args, **kw):
+                ckpt.save_train_state = self.save
+                raise Interrupted(self.save(*args, **kw))
+
+            ckpt.save_train_state = save_then_stop
+        return self
+
+    def __exit__(self, kind, value, tb):
+        self.module.save_train_state = self.save
+        return kind is Interrupted
+
+
+class saved_weights:
+    """Within the block, each file the train CLI writes through
+    ``save_checkpoint`` (the best model, its backbone) also leaves a CPU
+    copy of the weights it was given in ``self.states[path]``: what the
+    file must hold."""
+
+    def __enter__(self):
+        from stlt_tpu_torch import train as port_train
+
+        self.module, self.save, self.states = port_train, port_train.save_checkpoint, {}
+
+        def save_and_keep(path, module, **kw):
+            self.states[path] = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+            return self.save(path, module, **kw)
+
+        port_train.save_checkpoint = save_and_keep
+        return self
+
+    def __exit__(self, *exc):
+        self.module.save_checkpoint = self.save
+        return False
+
+
+def _holds_the_weights(label, loaded, want) -> None:
+    """``loaded`` (a module read from a written file) holds ``want`` (the
+    weights the file was written from) bit for bit, but for the keys
+    without a JAX leaf (``jax_free_keys``: the file has none)."""
+    from stlt_tpu_torch.utils.convert import jax_free_keys
+
+    state, free = loaded.state_dict(), jax_free_keys(loaded)
+    keys = sorted(set(want) - free)
+    differ = [k for k in keys if not torch.equal(state[k].cpu(), want[k])]
+    log(f"{label}: {len(keys)} tensors against the weights it was written from "
+        f"({len(free)} without a JAX leaf left out); differ: {differ[:6]}")
+    if differ or set(state) != set(want):
+        raise AssertionError(f"{label}: not the weights it was written from: {differ[:6]} differ, "
+                             f"keys {sorted(set(state) ^ set(want))[:6]} on one side only")
+
+
+def set_remat(model, on: bool) -> None:
+    """Turn ``--remat`` on or off in every encoder of ``model``."""
+    from stlt_tpu_torch.models.layers import TransformerEncoder
+
+    for module in model.modules():
+        if isinstance(module, TransformerEncoder):
+            module.remat = on
+
+
+def lever_launches(counts: dict, steps: int, val_batches: int, layers: int,
+                   train: dict, val: dict) -> dict:
+    """``counts``' keys with the launches expected of ``steps`` train steps
+    (``train``: launches a layer and step) and ``val_batches`` validation
+    batches (``val``: a layer and batch), the rest 0."""
+    want = dict.fromkeys(counts, 0)
+    for name, per in train.items():
+        want[name] = want.get(name, 0) + per * layers * steps
+    for name, per in val.items():
+        want[name] = want.get(name, 0) + per * layers * val_batches
+    return want
+
+
+def _hold_to_bits(label, pairs) -> None:
+    """``pairs`` {name: (got, want)} equal bit for bit; raise naming the
+    worst of those that differ otherwise."""
+    differ = {n: _rel(a, b) if a.device == b.device else math.inf for n, (a, b) in pairs.items()
+              if a.device != b.device or not torch.equal(a, b)}
+    log(f"{label}: {len(pairs)} tensors bit for bit: {not differ}")
+    if differ:
+        worst = sorted(differ.items(), key=lambda kv: -kv[1])[:6]
+        raise AssertionError(f"{label}: not bit for bit: {len(differ)} tensors differ, the worst "
+                             f"(relative norm) {worst}")
+
+
+def check_embedding_backward(label, ids, rows: int, repeats: int = 8) -> None:
+    """The gradient of a ``rows``-row table at ``ids`` (a train batch's
+    categories or frame types) under a seeded gradient, in f32 and in bf16,
+    ``repeats`` times through ``models/stlt.embed`` (the model's one-hot
+    product) and through the CUDA ``embedding_dense_backward`` that
+    ``nn.functional.embedding`` takes: embed's calls must repeat the first's
+    bits (raises otherwise); how many of the library's do not, and in how
+    many entries at most, is logged, with each path's largest error against
+    an f64 sum relative to the sum's largest entry."""
+    from stlt_tpu_torch.models.stlt import embed
+
+    gen = torch.Generator(device=ids.device).manual_seed(SEED)
+    g64 = torch.randn((*ids.shape, H), generator=gen, device=ids.device, dtype=torch.float64)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = g64.to(dtype)
+        table = torch.zeros(rows, H, dtype=dtype, device=ids.device, requires_grad=True)
+        truth = torch.zeros(rows, H, dtype=torch.float64, device=ids.device).index_add_(
+            0, ids.reshape(-1), g.reshape(-1, H).double())
+        paths = {"embed": lambda: torch.autograd.grad(embed(ids, table), table, g)[0],
+                 "embedding_dense_backward": lambda: torch.ops.aten.embedding_dense_backward(
+                     g, ids, rows, -1, False)}
+        other = {}
+        for name, fn in paths.items():
+            outs = [fn() for _ in range(repeats)]
+            other[name] = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+            entries = max(int((o != outs[0]).sum()) for o in outs)
+            err = float((outs[0].double() - truth).abs().max() / truth.abs().max())
+            log(f"{label} ({ids.numel()} ids, {rows} rows, {str(dtype)[6:]}): {name}: "
+                f"{other[name]} of {repeats - 1} repeats differ from the first, in up to "
+                f"{entries} of {rows * H} entries; error against f64 {err:.3e} of the largest sum")
+        if other["embed"]:
+            raise AssertionError(f"{label}: models/stlt.embed's {dtype} table gradient did not "
+                                 f"repeat its bits")
+
+
+def _bit_for_bit(label, got, want) -> None:
+    """Two steps' (loss, gradients) bit for bit."""
+    (loss_a, grads_a), (loss_b, grads_b) = got, want
+    log(f"{label}: loss {float(loss_a):.6f} vs {float(loss_b):.6f}")
+    if not torch.equal(loss_a, loss_b) or set(grads_a) != set(grads_b):
+        raise AssertionError(f"{label}: loss {float(loss_a)!r} vs {float(loss_b)!r}, or other "
+                             f"gradients, not bit for bit")
+    _hold_to_bits(label, {n: (grads_a[n], grads_b[n]) for n in grads_b})
+
+
+def _states_bit_for_bit(label, got, want) -> None:
+    """Two runs' final weights, AdamW states (``TrainResult``) and learning
+    rates bit for bit."""
+    model_a, model_b = got.model.state_dict(), want.model.state_dict()
+    opt_a, opt_b = got.optimizer.state_dict(), want.optimizer.state_dict()
+    names = {id(p): n for n, p in want.model.named_parameters()}
+    order = [names[id(p)] for group in want.optimizer.param_groups for p in group["params"]]
+    lrs = ([g["lr"] for g in opt_a["param_groups"]], [g["lr"] for g in opt_b["param_groups"]])
+    log(f"{label}: learning rates {lrs[0]} vs {lrs[1]}")
+    if lrs[0] != lrs[1] or set(opt_a["state"]) != set(opt_b["state"]):
+        raise AssertionError(f"{label}: learning rates {lrs} or AdamW's states differ")
+    pairs = {k: (model_a[k], model_b[k]) for k in model_b}
+    pairs.update({f"adamw {order[i]} {slot}": (opt_a["state"][i][slot], value)
+                  for i, state in opt_b["state"].items() for slot, value in state.items()})
+    _hold_to_bits(label, pairs)
+
+
+def _trace_summary(directory: str) -> dict:
+    """The one Chrome trace under ``directory``: its train_step ranges (CPU
+    annotations) and its count of device events."""
+    files = os.listdir(directory)
+    if len(files) != 1:
+        raise AssertionError(f"--profile_dir {directory} holds {files}, not one trace")
+    with open(os.path.join(directory, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("name") == "train_step" and e.get("cat") == "user_annotation"]
+    device = sum(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events)
+    return {"file": files[0], "events": len(events), "train_steps": len(steps),
+            "device_events": device}
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def _lever_timings(model, batch, criterion, shape: str, ways, card: str) -> list:
+    """For each (name, remat, k) of ``ways``: the mean train step ms
+    (``_step_ms``, three steps after two of warmup) and the peak memory
+    (``torch.cuda.max_memory_allocated``: the model, its AdamW state and the
+    batch included), each logged beside the card's name and power limit."""
+    rows = []
+    for way, remat, k in ways:
+        set_remat(model, remat)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _step_ms(model, batch, criterion, steps=3, grad_accum=k)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append({"shape": shape, "levers": way, "ms": ms, "peak_bytes": peak})
+        log(f"lever_step {json.dumps(rows[-1])} ({card}; peak {peak / 2 ** 30:.3f} GiB)")
+    set_remat(model, False)
+    model.zero_grad(set_to_none=True)
+    return rows
+
+
+def run_train_levers_path(device):
+    """Phase 11: the train CLI's levers at full width (see the module
+    docstring). Returns the train kernels' launches of the uninterrupted
+    CLI run and the step times and peak memory of (e)."""
+    from stlt_tpu_torch import predict as port_predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.models import models_factory, stlt
+    from stlt_tpu_torch.training import checkpoint as ckpt
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.utils.convert import read_state_dict, save_checkpoint
+
+    layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
+    steps_per_epoch = TRAIN_CLIPS // BATCH
+    val_batches = -(-VAL_CLIPS // BATCH)
+    # Per layer and step: each microbatch's forward and its recompute; one
+    # backward a microbatch. Per layer and validation batch: the eval kernels.
+    train_per = {"fused_proj_attention_train": 2 * LEVER_ACCUM,
+                 "fused_proj_attention_train_bwd": LEVER_ACCUM}
+    val_per = dict.fromkeys(EVAL_KERNELS, 1)
+    criterion = make_criterion("something")
+    card = card_line()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_levers_") as root:
+        paths = write_something_dataset(root, TRAIN_CLIPS + VAL_CLIPS, SEED + 2, num_used=TRAIN_LABELS)
+        split = _split_dataset(paths, root)
+
+        def argv(tag):
+            return train_argv(split, paths, os.path.join(root, f"{tag}_best.msgpack")) + LEVER_ARGV + [
+                "--resume_dir", os.path.join(root, f"{tag}_steps"),
+                "--save_backbone_path", os.path.join(root, f"{tag}_backbone.msgpack"),
+                "--profile_dir", os.path.join(root, f"{tag}_trace"),
+                "--profile_window", ",".join(map(str, LEVER_PROFILE_WINDOW)),
+            ]
+
+        # (a) uninterrupted; cut after epoch 1's step checkpoint; resumed.
+        runs = {}
+        for label, tag, stop, steps, epochs in (
+                ("uninterrupted", "whole", False, 2 * steps_per_epoch, [1, 2]),
+                ("interrupted", "cut", True, steps_per_epoch, [1]),
+                ("resumed", "cut", False, steps_per_epoch, [2])):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            result = None
+            with stop_after_save(stop), saved_weights() as written:
+                result = port_train.main(argv(tag))
+            torch.cuda.synchronize()
+            counts = all_launches()
+            log(f"train levers, {label}: {time.perf_counter() - t0:.3f} s; launches {counts}")
+            want = lever_launches(counts, steps, len(epochs) * val_batches, layers, train_per, val_per)
+            if counts != want:
+                raise AssertionError(f"train levers, {label}: launches {counts}, expected {want} "
+                                     f"({2 * LEVER_ACCUM} forwards of the train op a layer and step: "
+                                     f"{LEVER_ACCUM} microbatches, each forward and recompute)")
+            if stop:
+                if result is not None or ckpt.steps(os.path.join(root, "cut_steps")) != [steps]:
+                    raise AssertionError(f"train levers: the interrupted run was not cut after its "
+                                         f"epoch 1 checkpoint ({ckpt.steps(os.path.join(root, 'cut_steps'))})")
+                continue
+            for record in result.epochs:
+                log("train_epoch " + json.dumps(record))
+            if ([r["epoch"] for r in result.epochs] != epochs or result.step != 2 * steps_per_epoch
+                    or not all(math.isfinite(r["train_loss"]) for r in result.epochs)):
+                raise AssertionError(f"train levers, {label}: bad epoch records {result.epochs}")
+            runs[label] = result
+            if label == "uninterrupted":
+                out["launches"] = {name: counts[name] for name in TRAIN_KERNELS}
+                trained = written.states  # what whole_best.msgpack and its backbone must hold
+        whole, resumed = runs["uninterrupted"], runs["resumed"]
+        if resumed.epochs[0]["train_loss"] != whole.epochs[1]["train_loss"]:
+            raise AssertionError(f"train levers: epoch 2's loss resumed {resumed.epochs[0]['train_loss']!r}, "
+                                 f"uninterrupted {whole.epochs[1]['train_loss']!r}")
+        _states_bit_for_bit("train levers, resumed vs uninterrupted", resumed, whole)
+        trace = _trace_summary(os.path.join(root, "whole_trace"))
+        log(f"train levers: profiler trace {json.dumps(trace)} (device events logged, not checked)")
+        if trace["train_steps"] != LEVER_PROFILE_WINDOW[1] - LEVER_PROFILE_WINDOW[0]:
+            raise AssertionError(f"train levers: the trace holds {trace['train_steps']} train_step "
+                                 f"ranges, not steps {LEVER_PROFILE_WINDOW[0]}..{LEVER_PROFILE_WINDOW[1] - 1}")
+        del runs, whole, resumed, result  # their models and AdamW states
+
+        # (b) the .msgpack checkpoints: strict, the trained weights bit for bit, the
+        # logits those of the same weights through a .pt, served.
+        data_cfg, model_kw = train_model_kw(split, paths)
+        best = os.path.join(root, "whole_best.msgpack")
+        backbone_file = os.path.join(root, "whole_backbone.msgpack")
+        if sorted(trained) != sorted([best, backbone_file]):
+            raise AssertionError(f"train levers: the uninterrupted run wrote {sorted(trained)}")
+        model = models_factory["stlt"](make_model_config("stlt", **model_kw))
+        model.load_state_dict(read_state_dict(best, model), strict=True)
+        _holds_the_weights("train levers: best.msgpack", model, trained[best])
+        backbone = models_factory["stlt"](make_model_config("stlt", **model_kw)).backbone
+        backbone.load_state_dict(read_state_dict(backbone_file, backbone), strict=True)
+        _holds_the_weights("train levers: backbone.msgpack", backbone, trained[backbone_file])
+        del backbone
+        twin = models_factory["stlt"](make_model_config("stlt", **model_kw))
+        twin.load_state_dict(trained[best], strict=True)
+        pt = os.path.join(root, "whole_best.pt")
+        save_checkpoint(pt, twin)
+        twin.load_state_dict(read_state_dict(pt), strict=True)
+        del trained
+        model, twin = model.to(device).eval(), twin.to(device).eval()
+        batch = _train_batch(data_cfg, BATCH, device)
+        inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+        with torch.inference_mode():
+            logits, logits_pt = model(inputs)["stlt"], twin(inputs)["stlt"]
+        log(f"train levers: best.msgpack ({os.path.getsize(best)} bytes) loads with strict=True; "
+            f"its logits equal those of the trained weights through a .pt bit for bit: "
+            f"{torch.equal(logits, logits_pt)}")
+        if not torch.equal(logits, logits_pt) or not torch.isfinite(logits).all():
+            raise AssertionError("train levers: the .msgpack model's logits differ from the .pt's")
+        del twin
+        predictions = os.path.join(root, "predictions.jsonl")
+        rows = port_predict.main([
+            "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+            "--test_dataset_path", split["val"], "--labels_path", paths["labels"],
+            "--videoid2size_path", paths["videoid2size"], "--checkpoint_path", best,
+            "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+            "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+            "--batch_size", str(BATCH), "--compute_dtype", "bfloat16", "--use_pallas",
+            "--output", predictions,
+        ])
+        if len(rows) != VAL_CLIPS:
+            raise AssertionError(f"train levers: predict served {len(rows)} of {VAL_CLIPS} clips "
+                                 f"from best.msgpack")
+        log(f"train levers: predict --checkpoint_path best.msgpack served {len(rows)} clips")
+
+        # (c) one 17-frame B = 512 step from the same weights, batch and generator.
+        model.train()
+        big = {k: v.repeat(TRAIN_BATCH // BATCH, *([1] * (v.dim() - 1))) for k, v in batch.items()}
+        check_embedding_backward("category table", batch["categories"], model_kw["unique_categories"])
+        check_embedding_backward("category table", big["categories"], model_kw["unique_categories"])
+        check_embedding_backward("frame-type table", big["frame_types"], stlt.NUM_FRAME_TYPES)
+        label = f"train step of {TRAIN_BATCH} clips, 17 frames"
+        set_remat(model, True)
+        remat = _one_step(model, big, criterion)
+        set_remat(model, False)
+        _bit_for_bit(f"{label}, remat vs none (dropout {DROPOUT})", remat, _one_step(model, big, criterion))
+        del remat
+        still = models_factory["stlt"](make_model_config("stlt", **dict(model_kw, hidden_dropout_prob=0.0)))
+        still.load_state_dict(model.state_dict(), strict=True)
+        still = still.to(device)
+        _compare_steps(label, f"k = {LEVER_ACCUM} vs k = 1 (dropout 0)",
+                       _one_step(still, big, criterion, LEVER_ACCUM), _one_step(still, big, criterion))
+        del still
+        set_remat(model, True)
+        _step_kernels_vs_plain(f"{label}, remat and k = {LEVER_ACCUM}", model, big, criterion,
+                               grad_accum=LEVER_ACCUM)
+        # (e) at 17 frames, B = 512: each lever on and off.
+        out["steps"] = _lever_timings(model, big, criterion, f"17 frames, B = {TRAIN_BATCH}", (
+            ("no lever", False, 1), ("remat", True, 1), (f"k = {LEVER_ACCUM}", False, LEVER_ACCUM),
+            (f"remat and k = {LEVER_ACCUM}", True, LEVER_ACCUM)), card)
+        del model, big, batch, inputs, logits, logits_pt
+        torch.cuda.empty_cache()
+
+        # (d) one 256-frame step: remat against none, and the launches under remat.
+        long_root = os.path.join(root, "long")
+        os.makedirs(long_root)
+        long_paths = write_something_dataset(long_root, LEVER_LONG_CLIPS, SEED + 11,
+                                             num_used=TRAIN_LABELS, frames_range=LONG_TRAIN[256][1])
+        long_split = {"train": long_paths["dataset"], "val": long_paths["dataset"]}
+        long_cfg, long_kw = train_model_kw(long_split, long_paths, LEVER_LONG_FRAMES)
+        long_model = models_factory["stlt"](make_model_config("stlt", **long_kw),
+                                            torch.Generator().manual_seed(SEED + 11)).to(device)
+        long_batch = _train_batch(long_cfg, LEVER_LONG_CLIPS, device)
+        small = {k: v[:LEVER_LONG_STEP_CLIPS] for k, v in long_batch.items()}
+        label = f"train step of {LEVER_LONG_STEP_CLIPS} clips, {LEVER_LONG_FRAMES} frames"
+        set_remat(long_model, True)
+        reset_all_launches()
+        remat = _one_step(long_model, small, criterion)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        set_remat(long_model, False)
+        _bit_for_bit(f"{label}, remat vs none (dropout {DROPOUT})", remat,
+                     _one_step(long_model, small, criterion))
+        del remat
+        want = dict.fromkeys(counts, 0)
+        want.update({"fused_proj_attention_train": 2 * SPATIAL_LAYERS,
+                     "fused_proj_attention_train_bwd": SPATIAL_LAYERS,
+                     "flash_attention": 2 * TEMPORAL_LAYERS, "flash_attention_bwd": TEMPORAL_LAYERS,
+                     "fused_layer_tail_train": 2 * layers})
+        want.update({name: layers for name in TAIL_KERNELS[1:]})
+        log(f"{label} under remat: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"{label} under remat: launches {counts}, expected {want} (each "
+                                 f"forward twice, each backward once)")
+
+        # (e) at 256 frames (B = 32), with and without remat.
+        out["steps"] += _lever_timings(long_model, long_batch, criterion,
+                                       f"{LEVER_LONG_FRAMES} frames, B = {LEVER_LONG_CLIPS}",
+                                       (("no lever", False, 1), ("remat", True, 1)), card)
+        del long_model, long_batch, small
+        torch.cuda.empty_cache()
+    return out
 
 
 # --- phase 5: long clips through the prediction and evaluation entry points ---
@@ -4875,10 +5345,7 @@ def main(argv=()) -> int:
     from stlt_tpu_torch.ops import _kernels
 
     device = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4917,6 +5384,9 @@ def main(argv=()) -> int:
     launches = timed(run_main_path)  # the predict path: eval kernels
     train_launches, _ = timed(run_train_path)  # the train path: train kernels
     launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
+    # The train CLI's levers (--grad_accum_steps, --remat, --resume_dir, --profile_dir).
+    for name, count in timed(run_train_levers_path)["launches"].items():
+        launches[name] += count
     launches.update(timed(run_long_clip_path))  # long clips: the long-clip kernels
     # Long-clip training: the attention backwards and the fused train tail.
     launches.update(timed(run_long_train_path)[0])

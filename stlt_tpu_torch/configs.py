@@ -165,6 +165,8 @@ class GeneralModelConfig:
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     # Parsed for flag parity; the port dispatches on the tensor's device.
     use_pallas: bool = False
+    # Per-layer activation checkpointing of the encoders in training
+    # (models/layers.TransformerEncoder).
     remat: bool = False
     # Ragged levers (models/stlt.py): the static row count the spatial
     # encoder runs at after the live rows are folded to a prefix, and the

@@ -115,6 +115,7 @@ class TransformerResnet(nn.Module):
             config.num_appearance_layers, H, config.num_attention_heads, 4 * H,
             activation=TORCH_ENCODER_ACTIVATION, layer_norm_eps=TORCH_ENCODER_LN_EPS,
             dtype=self.dtype, generator=generator, dropout_rate=TORCH_ENCODER_DROPOUT,
+            remat=config.remat,
         )
         self.classifier = nn.Linear(H, config.num_classes)
         init_linear_(self.classifier, generator)

@@ -65,6 +65,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from stlt_tpu_torch.ops import fused_encoder as fe
 from stlt_tpu_torch.ops import fused_tail_train as ftt
@@ -325,14 +326,24 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of post-LN encoder layers (torch ``nn.TransformerEncoder``)."""
+    """Stack of post-LN encoder layers (torch ``nn.TransformerEncoder``).
+
+    With ``remat`` (``--remat``, JAX's ``nn.remat`` of each layer,
+    ``layers.py:563-606``), each layer of a train-mode forward that records
+    gradients runs under ``torch.utils.checkpoint.checkpoint`` (non-reentrant):
+    the layer keeps only its inputs, and the backward recomputes its forward
+    (its kernels launch again) before taking its gradients. The layer's
+    dropout seeds are drawn before the checkpointed call, so the recompute
+    hashes the same keep bits; no RNG state is saved or restored
+    (``preserve_rng_state=False``), since no layer draws from a global RNG."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int, ff_size: int, *,
                  activation: str, layer_norm_eps: float, dtype: torch.dtype,
                  generator: torch.Generator, dropout_rate: float = 0.0, causal: bool = False,
-                 seq_shard: bool = False):
+                 seq_shard: bool = False, remat: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(
                 hidden_size, num_heads, ff_size, activation=activation,
@@ -350,6 +361,7 @@ class TransformerEncoder(nn.Module):
         :func:`off_ring_seed` (a ring attention's seed is folded by the ring
         itself); ``clip_frames`` goes to every layer
         (:meth:`TransformerEncoderLayer.forward`)."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             seeds = None
             if self.training and self.dropout_rate > 0.0:
@@ -357,6 +369,10 @@ class TransformerEncoder(nn.Module):
                 if not layer.self_attn.seq_shard:
                     attn_seed = off_ring_seed(attn_seed)
                 seeds = (attn_seed, off_ring_seed(tail_seed))
-            x = layer(x, bias, rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
+            kw = dict(rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
                       kv_lengths=kv_lengths, clip_frames=clip_frames)
+            if remat:
+                x = checkpoint(layer, x, bias, use_reentrant=False, preserve_rng_state=False, **kw)
+            else:
+                x = layer(x, bias, **kw)
         return x

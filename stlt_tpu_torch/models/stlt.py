@@ -129,13 +129,26 @@ def _embedding(num: int, hidden: int, generator: torch.Generator, padding_idx=No
     return emb
 
 
+def embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of a small ``table`` (the category and frame-type
+    tables: 4 and 5 rows) as a one-hot product. Each output sums one
+    product, 1 x the row, so the values are the gather's bit for bit; the
+    table's gradient is one matmul over the ids, which repeats its bits on
+    the card. The CUDA backward of ``nn.functional.embedding`` does not for
+    tables this small: on the same gradient and ids, repeated calls give
+    other bits in f32, and now and then in bf16
+    (``chip_smoke.py::check_embedding_backward``)."""
+    one_hot = ids[..., None] == torch.arange(table.shape[0], device=ids.device)
+    return one_hot.to(table.dtype) @ table
+
+
 def _encoder(cfg: StltModelConfig, num_layers: int, generator, causal: bool = False,
              seq_shard: bool = False) -> TransformerEncoder:
     return TransformerEncoder(
         num_layers, cfg.hidden_size, cfg.num_attention_heads, cfg.hidden_size * 4,
         activation="gelu", layer_norm_eps=cfg.layer_norm_eps, dtype=_dtype(cfg),
         generator=generator, dropout_rate=cfg.hidden_dropout_prob, causal=causal,
-        seq_shard=seq_shard,
+        seq_shard=seq_shard, remat=cfg.remat,
     )
 
 
@@ -154,7 +167,7 @@ class CategoryBoxEmbeddings(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> torch.Tensor:
         dt = self.dtype
-        emb = nn.functional.embedding(batch["categories"], self.category_embeddings.weight.to(dt))
+        emb = embed(batch["categories"], self.category_embeddings.weight.to(dt))
         emb = emb + apply_dense(batch["boxes"], self.box_embedding, dt)
         if "scores" in batch:
             # Only Action Genome batches carry detector scores.
@@ -236,7 +249,7 @@ class FramesEmbeddings(nn.Module):
                 f"configs.position_table_rows(data_config)"
             )
         positions = self.position_embeddings.weight[None, position_offset:position_offset + num_frames].to(dt)
-        types = nn.functional.embedding(batch["frame_types"], self.frame_type_embedding.weight.to(dt))
+        types = embed(batch["frame_types"], self.frame_type_embedding.weight.to(dt))
         emb = frames + positions + types
         emb = apply_layer_norm(emb, self.layer_norm.weight, self.layer_norm.bias, self.eps, dt)
         return embedding_dropout(emb, self.dropout_rate, generator) if self.training else emb

@@ -8,8 +8,27 @@ len(val_dataset.labels)``, the criterion, AdamW over two groups with the
 global-norm clip, the per-step linear warmup and decay over ``epochs x
 (len(train) // batch_size)`` steps, a validation pass per epoch with
 on-device counts (Something) or probabilities (Action Genome), and the best
-checkpoint saved as a reference-format ``.pt`` state_dict, which the port's
-``predict`` loads with ``strict=True``.
+checkpoint (and with ``--save_backbone_path`` the backbone's) saved as
+flax's ``.msgpack``, the JAX package's format, when the path ends in
+``.msgpack`` (the parser's default), else as a reference-format ``.pt``
+state_dict (``utils/convert.save_checkpoint``); the port's ``predict`` loads
+either with ``strict=True``, as ``--load_backbone_path`` reads either.
+
+The JAX train CLI's levers: ``--grad_accum_steps k`` splits every step into
+``k`` strided microbatches whose valid-row-weighted gradients are summed
+before one update (``training/loop.py``; ``k`` must divide
+``--batch_size``); ``--remat`` checkpoints every encoder layer, whose
+forward the backward recomputes (``models/layers.TransformerEncoder``);
+``--resume_dir D`` writes a step checkpoint (model, AdamW, schedule, step,
+epoch) after each epoch's validation, keeps the newest three and resumes
+from the newest at start (``training/checkpoint.py``; the loader's shuffle
+and every step's dropout generator are keyed on the epoch and the global
+step, so a resumed run takes the steps an uninterrupted one takes; the
+evaluator's best score is not restored, as in JAX); ``--profile_dir P
+--profile_window START,STOP`` records a ``torch.profiler`` session (CPU
+activity, and CUDA on the card) from before step START to after step
+STOP - 1 into a Chrome trace under ``P``, every step inside a
+``train_step`` range (``stlt_tpu/train.py:157-167, 338-347``).
 
 Every factory model trains: ``stlt`` on ``--dataset_type layout``,
 ``resnet3d`` and ``resnet3d-transformer`` on ``appearance``, ``lcf``,
@@ -54,6 +73,7 @@ axis) are refused here too.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -74,6 +94,7 @@ from stlt_tpu_torch.predict import (
     stop_processes,
 )
 from stlt_tpu_torch.predict import check_flags as check_serving_flags
+from stlt_tpu_torch.training import checkpoint as ckpt
 from stlt_tpu_torch.training.criterion import make_criterion
 from stlt_tpu_torch.training.evaluation import evaluators_factory
 from stlt_tpu_torch.training.loop import (
@@ -85,7 +106,7 @@ from stlt_tpu_torch.training.loop import (
     step_generator,
 )
 from stlt_tpu_torch.training.optimizer import make_optimizer, model_no_decay_names
-from stlt_tpu_torch.utils.convert import load_kinetics_r3d, read_state_dict
+from stlt_tpu_torch.utils.convert import load_kinetics_r3d, read_state_dict, save_checkpoint
 
 # The factory models with a ``backbone`` (the subtree --load_backbone_path,
 # --freeze_backbone and --save_backbone_path act on).
@@ -108,29 +129,60 @@ def check_flags(args) -> None:
     """The serving CLIs' checks (``predict.check_flags``: an unknown model or
     dataset type, A9's and A10's flags, which leave STLT over a context axis
     as the one parallel run); a backbone flag for a model without a backbone
-    raises naming those that have one; the train flags of later slices raise
-    with the ``ROADMAP.md`` item they wait for."""
+    raises naming those that have one; ``--grad_accum_steps`` must divide
+    ``--batch_size`` and ``--profile_window`` be START,STOP with 0 <= START
+    < STOP, each raised in JAX's words (``stlt_tpu/train.py:159-167,
+    291-296``)."""
     check_serving_flags(args)
     for flag in ("load_backbone_path", "save_backbone_path"):
         if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
             raise ValueError(f"--{flag} acts on a model's backbone: --model_name is one of "
                              f"{BACKBONE_MODELS}, got {args.model_name!r}")
-    later = [
-        (args.grad_accum_steps > 1, "--grad_accum_steps > 1", "A4 (rest) / A6"),
-        (args.remat, "--remat", "A4 (rest) / A6"),
-        (args.resume_dir is not None, "--resume_dir", "A4 (rest) / A9"),
-        (args.profile_dir is not None, "--profile_dir", "A2"),
-    ]
-    for hit, flag, item in later:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it waits for ROADMAP.md item {item}"
-            )
-    if args.save_model_path.endswith(".msgpack"):
-        raise ValueError(
-            f"--save_model_path {args.save_model_path}: the port saves reference-format "
-            ".pt state_dicts; give a path ending in .pt"
-        )
+    grad_accum = max(args.grad_accum_steps, 1)
+    if args.batch_size % grad_accum:
+        raise ValueError(f"--grad_accum_steps {grad_accum} must divide --batch_size "
+                         f"{args.batch_size}")
+    profile_window(args)
+
+
+def profile_window(args):
+    """(START, STOP) of ``--profile_dir``'s trace, or None without it."""
+    if not args.profile_dir:
+        return None
+    start, stop = (int(x) for x in args.profile_window.split(","))
+    if not 0 <= start < stop:
+        raise ValueError(f"--profile_window must be START,STOP with 0 <= START < STOP, "
+                         f"got {args.profile_window!r}")
+    return start, stop
+
+
+def step_profiler(args, device: torch.device, first_step: int):
+    """``--profile_dir``: a ``torch.profiler`` session over global steps
+    [START, STOP) of a run whose first step is ``first_step`` (CPU activity,
+    and CUDA on the card), advanced by ``step()`` after each train step and
+    written as the Chrome trace ``train_steps_START_STOP.json`` under the
+    directory (a rank's own ``..._rankR.json`` under ``--num_processes``)
+    when the window or the run ends. A resumed run past START traces
+    nothing, as in JAX. Without the flag, a null context."""
+    window = profile_window(args)
+    if window is None or window[0] < first_step:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    start, stop = window
+    suffix = f"_rank{args.process_id}" if args.num_processes > 1 else ""
+    path = os.path.join(args.profile_dir, f"train_steps_{start}_{stop}{suffix}.json")
+
+    def write(session):
+        os.makedirs(args.profile_dir, exist_ok=True)
+        session.export_chrome_trace(path)
+        logging.info("Wrote profiler trace to %s", path)
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    warmup = min(start - first_step, 1)  # the step before the window readies the tracer
+    return profile(activities=activities, on_trace_ready=write,
+                   schedule=schedule(wait=start - first_step - warmup, warmup=warmup,
+                                     active=stop - start, repeat=1))
 
 
 def setup_logging(log_filepath, *, coordinator: bool = True) -> None:
@@ -142,11 +194,6 @@ def setup_logging(log_filepath, *, coordinator: bool = True) -> None:
         logging.basicConfig(level=logging.INFO, filename=log_filepath, filemode="w")
     else:
         logging.basicConfig(level=logging.INFO)
-
-
-def _save(state_dict, path: str) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
 
 
 def train(args) -> TrainResult:
@@ -184,7 +231,8 @@ def _train(args, device) -> TrainResult:
         load_kinetics_r3d(model, args.resnet_model_path)
         logging.info("Loaded Kinetics R3D from %s", args.resnet_model_path)
     if args.load_backbone_path:
-        model.backbone.load_state_dict(read_state_dict(args.load_backbone_path), strict=True)
+        model.backbone.load_state_dict(read_state_dict(args.load_backbone_path, model.backbone),
+                                       strict=True)
         logging.info("Loaded backbone from %s", args.load_backbone_path)
     if device.type == "cuda":
         # cuDNN picks its convolution algorithms for the appearance branch's
@@ -204,59 +252,79 @@ def _train(args, device) -> TrainResult:
         no_decay_names=model_no_decay_names(model),
         freeze_backbone=bool(args.freeze_backbone and args.load_backbone_path),
     )
-    train_step = make_train_step(model, optimizer, scheduler, criterion, args.clip_val)
+    train_step = make_train_step(model, optimizer, scheduler, criterion, args.clip_val,
+                                 grad_accum=max(args.grad_accum_steps, 1))
     evaluator = evaluators_factory[args.dataset_name](len(val_dataset), num_classes, model.logit_names)
     # Something counts top-1/top-5 hits; Action Genome keeps probabilities.
     count_path = hasattr(evaluator, "process_counts")
     eval_counts_step = make_eval_counts_step(model)
     eval_probs_step = make_eval_probs_step(model)
 
-    logging.info("Starting training...")
-    global_step = 0
-    records = []
-    for epoch in range(args.epochs):
-        epoch_start = time.time()
-        # Losses stay on the device through the epoch; one fetch at its end.
-        losses = []
-        for batch in to_device(train_loader, device):
-            loss, _ = train_step(batch, step_generator(args.seed, global_step))
-            losses.append(loss)
-            global_step += 1
-        epoch_loss = float(torch.stack(losses).mean()) if losses else 0.0
-        train_seconds = time.time() - epoch_start
-        logging.info("Epoch %d: train loss %.6f (%d steps, %.3fs)",
-                     epoch + 1, epoch_loss, len(losses), train_seconds)
+    global_step, start_epoch = 0, 0
+    if args.resume_dir:
+        restored = ckpt.restore_train_state(args.resume_dir, model, optimizer, scheduler)
+        if restored is not None:
+            global_step = restored
+            start_epoch = restored // max(1, len(train_loader))
+            # The loader's shuffle and augmentation are keyed on (seed, epoch).
+            train_loader.epoch = start_epoch
+            logging.info("Resumed at step %d (epoch %d)", global_step, start_epoch)
+    # Only the coordinator writes the best model and the step checkpoints.
+    coordinator = distributed.is_coordinator()
+    scores = args.dataset_name == "action_genome"  # flax builds score_embeddings for them only
 
-        eval_start = time.time()
-        evaluator.reset()
-        counts, probs = EvalCountAccumulator(), EvalProbsAccumulator()
-        for batch in to_device(val_loader, device):
-            if count_path:
-                counts.add(eval_counts_step(batch))
-            else:
-                probs.add(eval_probs_step(batch))
-        counts.flush_into(evaluator)
-        probs.flush_into(evaluator)
-        metrics = evaluator.evaluate()
-        is_best = evaluator.is_best()
-        if is_best:
-            logging.info("Found new best on epoch %d!", epoch + 1)
-            if distributed.is_coordinator():
-                _save(model.state_dict(), args.save_model_path)
-                if args.save_backbone_path:
-                    _save(model.backbone.state_dict(), args.save_backbone_path)
-        for m, v in metrics.items():
-            logging.info("%s: %s", m, round(v * 100, 2))
-        records.append({
-            "epoch": epoch + 1,
-            "global_step": global_step,
-            "steps": len(losses),
-            "train_seconds": round(train_seconds, 6),
-            "train_loss": epoch_loss,
-            "eval_seconds": round(time.time() - eval_start, 6),
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "is_best": is_best,
-        })
+    logging.info("Starting training...")
+    records = []
+    with step_profiler(args, device, global_step) as profiler:
+        for epoch in range(start_epoch, args.epochs):
+            epoch_start = time.time()
+            # Losses stay on the device through the epoch; one fetch at its end.
+            losses = []
+            for batch in to_device(train_loader, device):
+                with torch.profiler.record_function("train_step"):
+                    loss, _ = train_step(batch, step_generator(args.seed, global_step))
+                losses.append(loss)
+                global_step += 1
+                if profiler is not None:
+                    profiler.step()
+            epoch_loss = float(torch.stack(losses).mean()) if losses else 0.0
+            train_seconds = time.time() - epoch_start
+            logging.info("Epoch %d: train loss %.6f (%d steps, %.3fs)",
+                         epoch + 1, epoch_loss, len(losses), train_seconds)
+
+            eval_start = time.time()
+            evaluator.reset()
+            counts, probs = EvalCountAccumulator(), EvalProbsAccumulator()
+            for batch in to_device(val_loader, device):
+                if count_path:
+                    counts.add(eval_counts_step(batch))
+                else:
+                    probs.add(eval_probs_step(batch))
+            counts.flush_into(evaluator)
+            probs.flush_into(evaluator)
+            metrics = evaluator.evaluate()
+            is_best = evaluator.is_best()
+            if is_best:
+                logging.info("Found new best on epoch %d!", epoch + 1)
+                if coordinator:
+                    save_checkpoint(args.save_model_path, model, scores=scores)
+                    if args.save_backbone_path:
+                        save_checkpoint(args.save_backbone_path, model.backbone, scores=scores)
+            if args.resume_dir and coordinator:
+                ckpt.save_train_state(args.resume_dir, global_step, epoch + 1, model, optimizer,
+                                      scheduler)
+            for m, v in metrics.items():
+                logging.info("%s: %s", m, round(v * 100, 2))
+            records.append({
+                "epoch": epoch + 1,
+                "global_step": global_step,
+                "steps": len(losses),
+                "train_seconds": round(train_seconds, 6),
+                "train_loss": epoch_loss,
+                "eval_seconds": round(time.time() - eval_start, 6),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "is_best": is_best,
+            })
     return TrainResult(model=model, optimizer=optimizer, step=global_step, epochs=records)
 
 

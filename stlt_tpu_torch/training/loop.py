@@ -1,13 +1,21 @@
 """The train step and the on-device eval steps.
 
-Own copy of ``stlt_tpu/training/loop.py`` for one device and
-``grad_accum = 1``: ``make_train_step`` (:65), ``make_eval_step`` (:181),
+Own copy of ``stlt_tpu/training/loop.py`` for one device:
+``make_train_step`` (:65, with its ``grad_accum``), ``make_eval_step`` (:181),
 ``make_eval_counts_step`` (:191), ``make_eval_probs_step`` (:226) and the two
 accumulators (:251-288), which keep an epoch's counts or probabilities on the
 device and fetch them once.
 
 A train step is zero_grad -> forward in train mode -> loss -> backward ->
-global-norm clip -> AdamW -> schedule step. Under a context mesh (``train
+global-norm clip -> AdamW -> schedule step. With ``grad_accum = k > 1``
+(``train --grad_accum_steps``) the forward and backward run once per
+microbatch, as JAX's ``lax.scan`` does (:125-178): sample ``i`` goes to
+microbatch ``i % k``; each microbatch's loss is its criterion times ``n``,
+its count of valid rows, so that losses and gradients accumulate as sums;
+both are divided by ``max(n_total, 1)`` before the one clip, AdamW and
+schedule step, and the returned loss is the weighted mean. The
+microbatches draw their dropout seeds from the step's generator in
+microbatch order. Under a context mesh (``train
 --context_parallel C``) every rank runs the step on its frames of the same
 global batch, and after the backward each parameter of the frame-sharded
 backbone holds this rank's part of the gradient, summed over the ring in
@@ -85,26 +93,65 @@ def sum_grads_over_ring_(params, mesh: Mesh) -> None:
         offset += g.numel()
 
 
-def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float) -> Callable:
-    """Returns ``train_step(batch, generator) -> (loss, grad_norm)``, both
-    device scalars; ``grad_norm`` is the global norm before the clip. Under
-    a context mesh the backbone's gradients are summed over the ring first
-    (see the module docstring)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+def microbatches(batch: Dict[str, torch.Tensor], grad_accum: int):
+    """The ``grad_accum`` strided microbatches of a batch: sample ``i`` in
+    microbatch ``i % grad_accum`` (``stlt_tpu/training/loop.py:141-147``),
+    each entry contiguous."""
+    batch_size = batch["labels"].shape[0]
+    if batch_size % grad_accum:
+        raise ValueError(f"grad_accum={grad_accum} does not divide batch {batch_size}")
+    return [{k: v[j::grad_accum].contiguous() for k, v in batch.items()}
+            for j in range(grad_accum)]
 
-    def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
+
+def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator, grad_accum: int = 1) -> torch.Tensor:
+    """The train step up to the clip: the model in train mode, its gradients
+    set to None, the forward and backward of ``batch`` (``grad_accum``
+    microbatches: see the module docstring), under a context mesh the
+    backbone's gradients summed over the ring after the last microbatch,
+    then the division by the valid rows. Returns the loss, a device scalar;
+    the gradients are in the parameters' ``.grad``."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    n = None
+    if grad_accum == 1:
         logits = model(_model_inputs(batch), generator)
         loss = criterion(logits, batch["labels"], batch.get("valid"))
         loss.backward()
-        ring = active_context_mesh()
-        if ring is not None:
-            sum_grads_over_ring_(model.backbone.parameters(), ring)
+        loss = loss.detach()
+    else:
+        loss, n = 0.0, 0.0
+        for micro in microbatches(batch, grad_accum):
+            valid, labels = micro.get("valid"), micro["labels"]
+            rows = (valid.sum(dtype=torch.float32) if valid is not None
+                    else torch.tensor(float(labels.shape[0]), device=labels.device))
+            part = criterion(model(_model_inputs(micro), generator), labels, valid) * rows
+            part.backward()
+            loss, n = loss + part.detach(), n + rows
+    ring = active_context_mesh()
+    if ring is not None:
+        sum_grads_over_ring_(model.backbone.parameters(), ring)
+    if n is not None:
+        n = torch.clamp(n, min=1.0)
+        torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], n)
+        loss = loss / n
+    return loss
+
+
+def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float,
+                    grad_accum: int = 1) -> Callable:
+    """Returns ``train_step(batch, generator) -> (loss, grad_norm)``, both
+    device scalars: :func:`loss_and_grads`, the clip (``grad_norm`` is the
+    global norm before it), AdamW and the schedule's step."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        loss = loss_and_grads(model, criterion, batch, generator, grad_accum)
         grad_norm = clip_by_global_norm_(params, clip_val)
         optimizer.step()
         scheduler.step()
-        return loss.detach(), grad_norm
+        return loss, grad_norm
 
     return train_step
 

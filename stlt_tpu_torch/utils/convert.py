@@ -15,9 +15,16 @@
   ``layout_embedding.encoder_layer.*`` copies ``layers.0``, and the unused
   ``score_embeddings`` and the appearance branch's dead classifiers are
   zeros.
-- :func:`load_checkpoint` loads a reference-format ``.pt`` state_dict into a
-  model: ``strict=True``, then ``strict=False`` with a warning, as
-  ``stlt_tpu/inference.py:123-131`` does.
+- :func:`state_dict_to_jax_params` is its inverse: a port model's
+  parameters as the JAX package's tree (the names from the modules' types,
+  the parameters JAX never builds left out), which :func:`save_checkpoint`
+  writes as flax's ``.msgpack`` (``utils/msgpack.py``), the JAX package's
+  format, when the path ends in ``.msgpack`` and as a reference-format
+  ``.pt`` otherwise.
+- :func:`read_state_dict` reads either format (a ``.msgpack`` tree through
+  :func:`jax_params_to_state_dict`); :func:`load_checkpoint` loads a file of
+  either into a model: ``strict=True``, then ``strict=False`` with a
+  warning, as ``stlt_tpu/inference.py:123-131`` does.
 - :func:`load_kinetics_r3d` loads a Kinetics-format R3D state_dict
   (``conv1``, ``bn1``, ``layer1.0...``; ``fc`` ignored) into every R3D trunk
   of a model (own copy of ``stlt_tpu/utils/convert.py::load_kinetics_r3d``
@@ -27,12 +34,16 @@
 from __future__ import annotations
 
 import logging
+import os
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from stlt_tpu_torch.models.appearance import TransformerResnet
+from stlt_tpu_torch.utils import msgpack
 
 _QKV = {"q_proj": 0, "k_proj": 1, "v_proj": 2}
 
@@ -104,13 +115,23 @@ _LEAVES = {"embedding": "weight", "scale": "weight", "kernel": "weight", "mean":
            "var": "running_var"}
 
 
+def _numpy(value) -> np.ndarray:
+    """A leaf as a numpy array; a bf16 tensor (``utils/msgpack.py`` reads a
+    bf16 leaf as one) widened to f32, exactly: the port's parameters are
+    f32."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    return np.asarray(value)
+
+
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a JAX parameter tree of any factory
-    model."""
+    model (array or tensor leaves)."""
     out: Dict[str, np.ndarray] = {}
     inproj: Dict[str, list] = {}
     for path, value in _flatten(params).items():
-        v = np.asarray(value)
+        v = _numpy(value)
         module, leaf = _module_name(path[:-1]), path[-1]
         if len(path) >= 2 and path[-2] in _QKV:
             slot = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
@@ -155,6 +176,114 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+# The R3D trunk's nn.Sequential index -> its flax name (the inverse of
+# _SEQUENTIAL_RESNET).
+_TRUNK_NAMES = {index: name for name, index in _SEQUENTIAL_RESNET.items()}
+_NO_JAX_LEAF = re.compile(r"(^|\.)(layout_embedding\.encoder_layer\.|position_ids$|num_batches_tracked$)")
+_SCORES = re.compile(r"(^|\.)score_embeddings\.")
+
+
+def _flax_parts(module_name: str) -> Tuple[str, ...]:
+    """torch module path -> flax scope names, the inverse of
+    :func:`_module_name` and :func:`_rewrap_sequential_resnet`: an R3D
+    trunk's index is its layer's name (``resnet.4`` -> ``resnet/layer1``),
+    an encoder's or a block's index joins with ``_`` (``layers_3``,
+    ``downsample_0``), any other container's with ``.`` (``layer1.0``,
+    ``mm_fusion.0``: one flax scope each)."""
+    out = []
+    for token in module_name.split(".") if module_name else ():
+        if token.isdigit() and out:
+            prev = out[-1]
+            if prev == "resnet":
+                out.append(_TRUNK_NAMES[token])
+            else:
+                out[-1] = f"{prev}_{token}" if prev in ("layers", "downsample") else f"{prev}.{token}"
+            continue
+        out.append(token)
+    return tuple(out)
+
+
+def jax_free_keys(model: nn.Module, *, scores: bool = False) -> Set[str]:
+    """The ``state_dict`` keys of ``model`` without a leaf in the JAX
+    package's tree: the ``position_ids`` and ``num_batches_tracked``
+    buffers, the spatial encoder's dead prototype
+    ``layout_embedding.encoder_layer``, ``score_embeddings`` unless
+    ``scores`` (flax builds it only for batches with detector scores,
+    Action Genome's), and the classifiers a ``TransformerResnet`` never
+    runs: its trunk's ``resnet.classifier`` always, its own ``classifier``
+    inside another model (a fusion model's appearance branch)."""
+    state = model.state_dict()
+    free = {k for k in state if _NO_JAX_LEAF.search(k) or (not scores and _SCORES.search(k))}
+    for name, module in model.named_modules():
+        if isinstance(module, TransformerResnet):
+            base = f"{name}." if name else ""
+            dead = (f"{base}resnet.classifier.",) + ((f"{base}classifier.",) if name else ())
+            free.update(k for k in state if k.startswith(dead))
+    return free
+
+
+def state_dict_to_jax_params(model: nn.Module, *, scores: bool = False) -> Dict[str, Any]:
+    """``model``'s parameters and BN statistics as the JAX package's tree
+    (nested dicts of CPU tensors), the inverse of
+    :func:`jax_params_to_state_dict`, named from the modules' types:
+    ``LayerNorm`` -> ``scale``/``bias``; ``Embedding`` -> ``embedding``
+    (the frame-position table a raw ``position_embeddings`` leaf);
+    ``Linear``/``Conv3d`` -> ``kernel`` transposed back (``[O, I, kT, kH,
+    kW]`` -> ``[kT, kH, kW, I, O]``) and ``bias``; BN -> ``scale``,
+    ``bias``, ``mean``, ``var``; ``in_proj_weight``/``in_proj_bias`` split
+    into ``q_proj``/``k_proj``/``v_proj``; other parameters (``cls_token``,
+    ``pos_embed``) by their name. :func:`jax_free_keys` (``scores``: see
+    there) are left out."""
+    free = jax_free_keys(model, scores=scores)
+    tree: Dict[str, Any] = {}
+
+    def put(parts, value):
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    for name, module in model.named_modules():
+        own = list(module.named_parameters(recurse=False)) + list(module.named_buffers(recurse=False))
+        parts = _flax_parts(name) if own else ()
+        for leaf, value in own:
+            if (f"{name}.{leaf}" if name else leaf) in free:
+                continue
+            v = value.detach().cpu()
+            if leaf in ("in_proj_weight", "in_proj_bias"):
+                for proj, third in zip(_QKV, v.chunk(3, dim=0)):
+                    put(parts + (proj, "kernel" if leaf == "in_proj_weight" else "bias"),
+                        third.t() if leaf == "in_proj_weight" else third)
+            elif isinstance(module, nn.Embedding):
+                put(parts if parts[-1] == "position_embeddings" else parts + ("embedding",), v)
+            elif isinstance(module, (nn.Linear, nn.Conv3d)) and leaf == "weight":
+                put(parts + ("kernel",), v.t() if v.dim() == 2 else v.permute(2, 3, 4, 1, 0))
+            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm3d)) and leaf == "weight":
+                put(parts + ("scale",), v)
+            elif leaf in ("running_mean", "running_var"):
+                put(parts + (leaf[len("running_"):],), v)
+            elif leaf != "weight":
+                put(parts + (leaf,), v)
+            else:
+                raise ValueError(f"no JAX name for {type(module).__name__}.{leaf} at {name!r}")
+    return tree
+
+
+def save_checkpoint(path: str, module: nn.Module, *, scores: bool = False) -> None:
+    """Write ``module``'s weights to ``path``: flax's ``.msgpack``
+    (:func:`state_dict_to_jax_params`, which the JAX package's
+    ``load_params`` takes) when it ends in ``.msgpack``, else a
+    reference-format ``.pt`` state_dict. Either goes through a temporary
+    file and ``os.replace``."""
+    if path.endswith(".msgpack"):
+        msgpack.write(path, state_dict_to_jax_params(module, scores=scores))
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, tmp)
+    os.replace(tmp, path)
+
+
 def resize_position_table(table: torch.Tensor, rows: int) -> torch.Tensor:
     """Resample a learned ``[rows_old, H]`` position table to ``rows`` by
     align-corners linear interpolation over the frame index (own copy of
@@ -173,14 +302,22 @@ def resize_position_table(table: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.from_numpy((t[lo] * (1.0 - frac) + t[hi] * frac).astype(np.float32))
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-format ``.pt``/``.pth`` state_dict, on the CPU."""
+def read_state_dict(path: str, module: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """The state_dict in the file at ``path``, on the CPU: a flax
+    ``.msgpack`` tree (the JAX package's checkpoint, or a backbone's subtree)
+    through :func:`jax_params_to_state_dict`, else a reference-format
+    ``.pt``/``.pth``. Given the ``module`` it goes into, a ``.msgpack``
+    file's missing entries that JAX never builds (:func:`jax_free_keys`:
+    the dead classifiers of a backbone-only file, which the file cannot
+    size) are taken from the module, which never runs them."""
     if path.endswith(".msgpack"):
-        raise ValueError(
-            f"{path}: the port reads reference-format .pt state_dicts; export a "
-            "JAX .msgpack checkpoint with stlt_tpu.utils.convert.save_torch_checkpoint "
-            "(or tools/export_torch_checkpoint.py) first"
-        )
+        state = jax_params_to_state_dict(msgpack.read(path))
+        if module is not None:
+            own = module.state_dict()
+            for key in jax_free_keys(module, scores=True):
+                if key not in state:
+                    state[key] = own[key].detach().cpu().clone()
+        return state
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
@@ -188,10 +325,10 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str, model: nn.Module) -> nn.Module:
-    """Load the checkpoint at ``path`` into ``model``: ``strict=True``, then
-    ``strict=False`` with a warning. A position table of another row count
-    is resampled to the model's."""
-    state = read_state_dict(path)
+    """Load the checkpoint at ``path`` (``.msgpack`` or ``.pt``) into
+    ``model``: ``strict=True``, then ``strict=False`` with a warning. A
+    position table of another row count is resampled to the model's."""
+    state = read_state_dict(path, model)
     own = model.state_dict()
     for key, value in list(state.items()):
         if (key.endswith("position_embeddings.weight") and key in own

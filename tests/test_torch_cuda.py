@@ -1799,3 +1799,138 @@ def test_bf16_tail_tiles_and_determinism(device, tokens, live_kind):
     _close(y, want_y, dtype, tok_live)
     _close(r2, want_r2, dtype, tok_live)
     assert torch.equal(y, y2) and torch.equal(r2, r22), "train tail not deterministic"
+
+
+# --- the train CLI's levers on the card: --remat, --grad_accum_steps, .msgpack -----
+
+
+def _lever_batch(clips, frames, device, seed=0):
+    """A ragged STLT train batch of ``clips`` clips (frames + 1 slots, 8 boxes)."""
+    gen = torch.Generator().manual_seed(seed)
+    F, O = frames + 1, 8
+    lengths = torch.randint(3, F + 1, (clips,), generator=gen)
+    pad = torch.arange(F)[None, :] >= lengths[:, None]
+    frame_types = torch.where(pad, 0, 2)
+    frame_types[torch.arange(clips), lengths - 1] = 4
+    categories = torch.randint(1, 3, (clips, F, O), generator=gen)
+    categories[:, :, 0] = 3
+    categories[pad] = torch.where(torch.arange(O) == 0, 3, 0)
+    x1y1 = torch.rand(clips, F, O, 2, generator=gen) * 0.5
+    boxes = torch.cat([x1y1, x1y1 + 0.05 + torch.rand(clips, F, O, 2, generator=gen) * 0.45], -1)
+    boxes[:, :, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    batch = {"categories": categories, "boxes": boxes, "frame_types": frame_types,
+             "lengths": lengths, "labels": torch.randint(0, 7, (clips,), generator=gen),
+             "valid": torch.ones(clips, dtype=torch.bool)}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _lever_model(frames, dropout, dtype, device, remat=False):
+    from stlt_tpu_torch.configs import StltModelConfig
+    from stlt_tpu_torch.models import models_factory
+
+    cfg = StltModelConfig(num_classes=7, unique_categories=4, hidden_size=128, num_attention_heads=2,
+                          num_spatial_layers=1, num_temporal_layers=2, layout_num_frames=frames + 1,
+                          hidden_dropout_prob=dropout, compute_dtype=dtype, remat=remat)
+    return models_factory["stlt"](cfg, torch.Generator().manual_seed(0)).to(device)
+
+
+def _loss_and_grads(model, batch, grad_accum=1):
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import loss_and_grads, step_generator
+
+    loss = loss_and_grads(model, make_criterion("something"), batch, step_generator(0, 1), grad_accum)
+    return loss, {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("frames", [16, 256])
+def test_remat_step_is_bit_identical_on_the_card(device, frames):
+    """One bf16 step at dropout 0.1 (head dim 64: the wgmma bodies) with and
+    without remat: loss and every gradient bit for bit; under remat every
+    forward kernel of a layer launches twice, every backward kernel once.
+    8,704 and 8,224 category ids (64 x 17 x 8, 4 x 257 x 8)."""
+    from stlt_tpu_torch.ops import flash
+
+    batch = _lever_batch(64 if frames == 16 else 4, frames, device)
+    model = _lever_model(frames, 0.1, "bfloat16", device)
+    fe.reset_launches(), flash.reset_launches(), ftt.reset_launches()
+    loss, grads = _loss_and_grads(model, batch)
+    plain_counts = {**fe.LAUNCHES, **flash.LAUNCHES, **ftt.LAUNCHES}
+    for module in model.modules():
+        if hasattr(module, "remat"):
+            module.remat = True
+    fe.reset_launches(), flash.reset_launches(), ftt.reset_launches()
+    loss_r, grads_r = _loss_and_grads(model, batch)
+    counts = {**fe.LAUNCHES, **flash.LAUNCHES, **ftt.LAUNCHES}
+    assert torch.equal(loss, loss_r) and set(grads) == set(grads_r)
+    for name in grads:
+        assert torch.equal(grads[name], grads_r[name]), name
+    forwards = ("fused_proj_attention_train", "flash_attention", "fused_layer_tail_train")
+    # The train op: every layer at 16 frames, the spatial one at 256.
+    assert plain_counts["fused_proj_attention_train"] == (3 if frames == 16 else 1)
+    for name, count in plain_counts.items():
+        assert counts[name] == (2 * count if name in forwards else count), (name, counts)
+    assert (counts["fused_layer_tail_train"] > 0) == (frames == 256)
+
+
+@pytest.mark.parametrize("rows, shape", [(4, (512, 17, 8)), (5, (512, 17))])
+def test_small_table_gradient_repeats_its_bits_on_the_card(device, rows, shape):
+    """``models/stlt.embed``'s table gradient (the category and frame-type
+    tables at a B = 512 step's ids) repeats its bits over ten calls and is
+    the f64 sum within bf16 rounding."""
+    from stlt_tpu_torch.models.stlt import embed
+
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, rows, shape, generator=gen).to(device)
+    g = torch.randn((*shape, 64), generator=gen).to(device, torch.bfloat16)
+    table = torch.zeros(rows, 64, dtype=torch.bfloat16, device=device, requires_grad=True)
+    grads = [torch.autograd.grad(embed(ids, table), table, g)[0] for _ in range(10)]
+    assert all(torch.equal(x, grads[0]) for x in grads[1:])
+    truth = torch.zeros(rows, 64, dtype=torch.float64, device=device).index_add_(
+        0, ids.reshape(-1), g.reshape(-1, 64).double())
+    assert float((grads[0].double() - truth).abs().max() / truth.abs().max()) <= 2 ** -8
+
+
+def test_grad_accum_matches_one_microbatch_on_the_card(device):
+    """f32, dropout 0: two strided microbatches against the whole batch, the
+    loss within 1e-5 and each gradient within 1e-4 in relative norm (f32
+    sums over other batch shapes, in another order)."""
+    batch = _lever_batch(8, 16, device, seed=1)
+    batch["valid"][-1] = False
+    model = _lever_model(16, 0.0, "float32", device)
+    loss_1, grads_1 = _loss_and_grads(model, batch)
+    loss_2, grads_2 = _loss_and_grads(model, batch, grad_accum=2)
+    assert abs(float(loss_1) - float(loss_2)) <= 1e-5
+    assert set(grads_1) == set(grads_2)
+    for name, g in grads_1.items():
+        rel = float((grads_2[name] - g).norm() / g.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_msgpack_round_trip_of_a_card_trained_model(device, tmp_path):
+    """A bf16 model trained two steps on the card, written as ``.msgpack``,
+    reads back bit for bit (every entry with a JAX leaf: the file holds no
+    other), and a model loaded from it gives the same logits on the card bit
+    for bit."""
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import make_train_step, step_generator
+    from stlt_tpu_torch.training.optimizer import make_optimizer
+    from stlt_tpu_torch.utils.convert import jax_free_keys, read_state_dict, save_checkpoint
+
+    batch = _lever_batch(4, 16, device)
+    model = _lever_model(16, 0.1, "bfloat16", device)
+    optimizer, scheduler = make_optimizer(model, learning_rate=1e-3, weight_decay=1e-3,
+                                          num_warmup_steps=0, num_training_steps=10)
+    step = make_train_step(model, optimizer, scheduler, make_criterion("something"), 5.0)
+    for i in range(2):
+        step(batch, step_generator(0, i))
+    path = str(tmp_path / "best.msgpack")
+    save_checkpoint(path, model)
+    twin = _lever_model(16, 0.1, "bfloat16", device)
+    state = read_state_dict(path, twin)
+    free = jax_free_keys(model)
+    for key, value in model.state_dict().items():
+        assert key in free or torch.equal(state[key], value.cpu()), key
+    twin.load_state_dict(state, strict=True)
+    inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+    with torch.inference_mode():
+        assert torch.equal(model.eval()(inputs)["stlt"], twin.eval()(inputs)["stlt"])

@@ -1,6 +1,7 @@
 """The port stands alone: ``stlt_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``stlt_tpu``; h5py and Pillow load
-only where the appearance data modules read frames."""
+neither JAX nor anything of the JAX package ``stlt_tpu`` (nor flax's
+``msgpack``: the port reads and writes the format itself); h5py and Pillow
+load only where the appearance data modules read frames."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "stlt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "stlt_tpu")
 
 
 def _forbidden(module: str) -> bool:

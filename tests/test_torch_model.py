@@ -156,11 +156,15 @@ def test_load_checkpoint_falls_back_to_non_strict_with_a_warning(tmp_path, caplo
     np.testing.assert_array_equal(model.state_dict()[key].numpy(), state[key].numpy())
 
 
-def test_load_checkpoint_refuses_msgpack_and_names_the_export(tmp_path):
-    cfg, _, _, _ = _golden()
-    model = models_factory["stlt"](_port_config(cfg))
-    with pytest.raises(ValueError, match="stlt_tpu.utils.convert.save_torch_checkpoint"):
-        load_checkpoint(str(tmp_path / "best.msgpack"), model)
+def test_load_checkpoint_reads_the_golden_msgpack(caplog):
+    """The flax-written golden ``.msgpack`` loads with ``strict=True`` (no
+    fallback warning) and reproduces the golden logits."""
+    cfg, _, inputs, expected = _golden()
+    model = models_factory["stlt"](_port_config(cfg)).eval()
+    with caplog.at_level(logging.WARNING):
+        load_checkpoint(os.path.join(DATA, "golden_stlt_params.msgpack"), model)
+    assert "strict=False" not in caplog.text
+    np.testing.assert_allclose(_port_logits(model, inputs), expected, atol=2e-5, rtol=1e-5)
 
 
 def test_load_checkpoint_resamples_the_position_table(tmp_path):
@@ -236,3 +240,24 @@ def test_eval_only():
     assert np.isfinite(_port_logits(model, _inputs(False))).all()
     with pytest.raises(ValueError, match="needs a torch.Generator"):
         _port_logits(model.train(), _inputs(False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_is_the_gather_and_its_gradient_the_scatter_sum(dtype):
+    """``models/stlt.embed`` (the category and frame-type tables' one-hot
+    product) gives ``nn.functional.embedding``'s rows bit for bit, int32
+    ids too, and the table's gradient is the per-row sum of the output
+    gradient (f32 within 1e-5; bf16 within a bf16 step)."""
+    from stlt_tpu_torch.models.stlt import embed
+
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn(5, 24, generator=gen).to(dtype).requires_grad_()
+    ids = torch.randint(0, 5, (6, 17, 8), generator=gen)
+    out = embed(ids.to(torch.int32), table)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, table))
+    g = torch.randn(out.shape, generator=gen).to(dtype)
+    (grad,) = torch.autograd.grad(out, table, g)
+    want = torch.zeros(5, 24, dtype=torch.float64).index_add_(0, ids.reshape(-1),
+                                                              g.reshape(-1, 24).double())
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    assert float((grad.double() - want).abs().max() / want.abs().max()) <= tol

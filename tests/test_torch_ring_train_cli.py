@@ -42,11 +42,25 @@ def _argv(paths):
 
 
 def test_train_on_two_ranks_writes_the_single_process_checkpoint(tmp_path):
+    _check_two_ranks(tmp_path, [])
+
+
+def test_train_with_remat_and_grad_accum_on_two_ranks_writes_the_single_process_checkpoint(
+        tmp_path):
+    """``--remat --grad_accum_steps 2`` under the ring: each rank's backward
+    recomputes its layers (the ring forward's exchanges again, in the same
+    order on both ranks), the two microbatches' gradients are summed over
+    the ring once, after the second; the coordinator's checkpoint equals
+    the one process's with the same levers."""
+    _check_two_ranks(tmp_path, ["--remat", "--grad_accum_steps", "2"])
+
+
+def _check_two_ranks(tmp_path, levers):
     paths, *_ = make_something_fixture(str(tmp_path), num_videos=8)
-    single = port_train.main(_argv(paths) + ["--save_model_path", str(tmp_path / "one.pt")])
+    single = port_train.main(_argv(paths) + levers + ["--save_model_path", str(tmp_path / "one.pt")])
     assert single.step == 2 and single.epochs[0]["is_best"]
     with open(tmp_path / "argv.json", "w") as f:
-        json.dump(_argv(paths) + ["--context_parallel", "2", "--num_processes", "2"], f)
+        json.dump(_argv(paths) + levers + ["--context_parallel", "2", "--num_processes", "2"], f)
     outs = _run_ranks("train_cli", tmp_path)
     with open(tmp_path / "log_0.txt") as f:
         logged = {0: f.read(), 1: outs[1]}
