@@ -232,7 +232,25 @@ Phases, in order; any failure exits non-zero:
    (``torch.cuda.max_memory_allocated``) at 17 frames, B = 512, with no
    lever, remat, k = 2 and both, and at 256 frames, B = 32, with and without
    remat, each beside the card line;
-12. print the kernel table as one JSON line, then the result line.
+12. the data axis (``--num_processes 2``, both ranks on this card over
+   gloo): every dropout kernel at a global-row base (rows 3-4 at the
+   spatial and temporal stages, 6-7, 8-10 in the lengths and dense-bias
+   modes, 11-14; bf16 and f32; the launch on rows [b:] at base b against
+   rows [b:] of the launch at base 0 and against its plain version at base
+   b: ``check_base_kernels``, ``base_check`` lines); then ``train
+   --num_processes 2`` at phase 4's width (17 frames, B = 64, two steps,
+   one validation batch: each rank's backend line, equal losses and
+   weights bit for bit, rank 0 alone writing, phase 4's launch counts per
+   step and validation batch), one step at dropout 0.1 of STLT (B = 64) and
+   CACNF (16 layout frames, B = 32) whose all-reduced loss and gradients
+   are held against one process on the same rows (``DATA_HALVES_LIMITS``)
+   and on the global batch (the one-step limits; the fusion step's for
+   CACNF, whose R3D trunk is held to the former only: see
+   ``run_data_axis_path``), ``predict --num_processes 2`` (the one
+   process's clips in its order, the first batch's logits within
+   LOGITS_ATOL), and the ``data_axis_times`` line (each rank's step, the
+   all-reduce and the one process's step; no speed claim);
+13. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -1668,6 +1686,24 @@ def library_tail_train(w, dtype, rate):
     return forward, backward
 
 
+def library_tail_row(w, dtype, rate):
+    """Row 12's own yardstick: the autograd backward of ``F.layer_norm(u +
+    F.dropout(h + b2))`` (LN2 and the out-dropout, torch's own dropout
+    bits) to u, h, n2s, n2b and b2, the work of the row kernel from
+    PyTorch's library calls (a yardstick only)."""
+    leaves = [w[k].to(dtype).detach().clone().requires_grad_() for k in ("n2s", "n2b", "b2")]
+    n2s, n2b, b2 = leaves
+    width = (n2s.shape[0],)
+
+    def forward(u, h):
+        return F.layer_norm(u + F.dropout(h + b2, rate), width, n2s, n2b, EPS)
+
+    def backward(y, u, h, g):
+        return torch.autograd.grad(y, [u, h, *leaves], g, retain_graph=True)
+
+    return forward, backward
+
+
 def _tail_inputs(tokens, dtype, gen, device, ragged, H=H):
     """x, attn, a cotangent (1e30 on dead tokens, which the backward must not
     read) and the live flags (None, or ~70 % live with a dead first block)."""
@@ -1750,8 +1786,9 @@ def check_tail_train_kernels(device):
     with GELU and dropout 0.1 (the weight products in two splits). Then, in bf16 with dropout 0.1 and every token live, at
     each of TAIL_SHAPES: the same check (264 row blocks, up to 8 splits),
     each kernel timed (the median of five windows) against its plain
-    version, the library yardstick (likewise; the backward's once, for rows
-    12-14 jointly) and its bound, and the op-level A/B, the fused op's
+    version, the library yardstick (likewise; row 12's its own, LN2 and the
+    out-dropout's autograd backward, ``library_tail_row``, beside the whole
+    backward's autograd for rows 12-14 jointly) and its bound, and the op-level A/B, the fused op's
     forward and backward against the layer's plain chain; at the 256-frame
     spatial shape a profile of rows 13 and 14's device kernels
     (TAIL_BWD_GROUPS). Returns the kernel-table rows (the 256-frame spatial
@@ -1790,6 +1827,7 @@ def check_tail_train_kernels(device):
             mod.bias.copy_(w[bk])
     cfg = ftt.TailConfig(EPS, "gelu", True, DROPOUT, seed)
     lib_f, lib_b = library_tail_train(w, dtype, DROPOUT)
+    row_f, row_b = library_tail_row(w, dtype, DROPOUT)
     table = {}
     for shape, tokens in TAIL_SHAPES:
         x, a, g, _ = _tail_inputs(tokens, dtype, gen, device, False)
@@ -1802,13 +1840,15 @@ def check_tail_train_kernels(device):
         scratch = ftt._launch_bwd_input(x, a, dr2, weights, cfg)[4]
         xl, al = x.detach().requires_grad_(), a.detach().requires_grad_()
         y_lib = lib_f(xl, al)
+        ul, hl = x.detach().requires_grad_(), a.detach().requires_grad_()
+        y_row = row_f(ul, hl)
         runs = {
             "fused_layer_tail_train": (lambda: ftt._launch_tail_train(x, a, weights, cfg),
                                        lambda: ftt.fused_layer_tail_train_plain(x, a, weights, cfg),
                                        lambda: lib_f(x, a)),
             "fused_tail_train_bwd_row": (lambda: ftt._launch_bwd_row(r2, g, weights[6], cfg),
                                          lambda: ftt.tail_train_bwd_row_plain(r2, g, weights[6], cfg),
-                                         lambda: lib_b(y_lib, xl, al, g)),
+                                         lambda: row_b(y_row, ul, hl, g)),
             "fused_tail_train_bwd_input": (lambda: ftt._launch_bwd_input(x, a, dr2, weights, cfg),
                                            lambda: ftt.tail_train_bwd_input_plain(x, a, dr2, weights,
                                                                                   cfg),
@@ -1819,13 +1859,17 @@ def check_tail_train_kernels(device):
                                             None),
         }
         for name, (kernel, plain, library) in runs.items():
+            ms, spread = median_spread_ms(kernel, 5)
             row = {
                 "name": name, "shape": shape, "tokens": tokens, "dtype": "bfloat16", "rate": DROPOUT,
-                "max_abs_err": errs[name], "ms": median_ms(kernel, 5), "plain_ms": cuda_ms(plain, 2),
-                # The backward's yardstick is one autograd backward: rows 12-14 jointly.
+                "max_abs_err": errs[name], "ms": ms, "ms_spread": spread, "plain_ms": cuda_ms(plain, 2),
+                # Row 12's yardstick is its own (LN2 and the out-dropout's
+                # autograd backward); rows 13 and 14 have none of their own.
                 "library_ms": None if library is None else median_ms(library, 5),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             }
+            if name == "fused_tail_train_bwd_row":  # the whole backward's autograd: rows 12-14 jointly
+                row["library_rows_12_14_ms"] = median_ms(lambda: lib_b(y_lib, xl, al, g), 5)
             log("kernel_check " + json.dumps(row))
             if shape == TAIL_SHAPES[0][0]:
                 table[name] = row
@@ -1833,7 +1877,7 @@ def check_tail_train_kernels(device):
             _device_profile("tail_bwd", lambda: ftt._launch_bwd_weight(
                 ftt._launch_bwd_input(x, a, dr2, weights, cfg)[4]), TAIL_BWD_GROUPS,
                 shape=shape, tokens=tokens, rows="13 + 14")
-        del y_lib
+        del y_lib, y_row
         # The op-level A/B: the fused op (four kernels) against the layer's
         # plain chain, forward and backward, on the same inputs and seed.
         x3, a3, g3 = xl[None], al[None], g[None]
@@ -1843,7 +1887,7 @@ def check_tail_train_kernels(device):
               "chain_ms": cuda_ms(chain, 5)}
         ab["chain_over_fused"] = ab["chain_ms"] / ab["fused_ms"]
         log("tail_ab " + json.dumps(ab))
-        del x, a, g, r2, dr2, scratch, xl, al, runs, x3, a3, g3
+        del x, a, g, r2, dr2, scratch, xl, al, ul, hl, runs, x3, a3, g3
         torch.cuda.empty_cache()
     return table
 
@@ -5332,12 +5376,590 @@ def run_ring_train_path(device):
     return {"blockwise_attention_bwd_offsets": bwd_launches}
 
 
+# --- phase 12: the data axis ----------------------------------------------------
+
+DATA_N = 2  # data ranks, both on this one card (gloo)
+DATA_TRAIN_STEPS = 2  # one epoch of two AdamW steps and one validation batch
+DATA_PREDICT_CLIPS = 2 * BATCH + BATCH // 4  # the last batch's rank 1 holds padding alone
+DATA_STEP_REPEATS = 3  # timed steps of each rank and of the one process
+# (b)'s steps: (model, layout frames, global batch, the clips' frame counts).
+DATA_STEPS = (("stlt", 16, BATCH, (3, 25)), ("cacnf", 16, 32, (3, 25)))
+# (b)'s ranks against one process on the same rows (loss atol, joined, each,
+# each in the appearance branch): the same function with the parts summed
+# in the same f32 order, bit for bit where the card repeats its bits. In
+# another process cuDNN may take another algorithm for the R3D's first
+# convolution's bf16 weight gradient: one bf16 rounding, 2**-8, for the
+# appearance branch's tensors (2.1e-3 measured, all else bit for bit;
+# H100; PERF.md §6).
+DATA_HALVES_LIMITS = (1e-6, 1e-4, 1e-5, 2.0 ** -8)
+
+
+def _data_step_inputs(case, device, rows=None):
+    """(b)'s seeded full-width bf16 model (dropout 0.1, FrozenBatchNorm
+    frozen as ``make_optimizer`` freezes it) in train mode and the first
+    train batch of its set (``rows``: a data rank's rows of it)."""
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.optimizer import frozen_stats_mask
+
+    name, frames, clips = case["name"], case["frames"], case["batch"]
+    multimodal = name == "cacnf"
+    data_cfg = DataConfig(dataset_name="something", dataset_path=case["train"],
+                          labels_path=case["labels"], videoid2size_path=case["videoid2size"],
+                          videos_path=case.get("videos"), layout_num_frames=frames,
+                          appearance_num_frames=APPEARANCE_FRAMES, device_normalize=multimodal,
+                          train=True)
+    kw = dict(FUSION_MODEL) if multimodal else dict(
+        num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H, num_attention_heads=HEADS,
+        num_spatial_layers=SPATIAL_LAYERS, num_temporal_layers=TEMPORAL_LAYERS,
+        compute_dtype="bfloat16")
+    cfg = make_model_config(name, **kw, hidden_dropout_prob=DROPOUT,
+                            layout_num_frames=position_table_rows(data_cfg))
+    model = models_factory[name](cfg, torch.Generator().manual_seed(SEED + 31))
+    trainable = frozen_stats_mask(model)
+    for n, p in model.named_parameters():
+        p.requires_grad_(trainable[n])
+    kind = "multimodal" if multimodal else "layout"
+    loader = Loader(datasets_factory[kind](data_cfg), clips, collaters_factory[kind](data_cfg),
+                    prefetch=0, workers=8, rows=rows)
+    return model.to(device).train(), next(iter(to_device(loader, device)))
+
+
+def _halves_step(model, batch, criterion, device):
+    """The data ranks' step computed in one process: each rank's rows of
+    ``batch`` through ``loss_and_grads`` under that rank's view of the data
+    mesh (its dropout bases, the global valid count) with the all-reduce
+    left out, the ranks' parts then summed in f32 as the all-reduce sums
+    them. (loss, gradients)."""
+    from stlt_tpu_torch.data.loader import VALID_TOTAL
+    from stlt_tpu_torch.parallel.distributed import process_row_span
+    from stlt_tpu_torch.parallel.mesh import Mesh, set_active_mesh
+    from stlt_tpu_torch.training import loop
+
+    saved = loop.all_sum
+    loop.all_sum = lambda x, mesh: x  # this rank's part alone
+    loss, grads = 0.0, {}
+    try:
+        for r in range(DATA_N):
+            mesh = Mesh((DATA_N, 1, 1), r, "none", device)
+            set_active_mesh(mesh)
+            lo, hi = process_row_span(mesh, batch["valid"].shape[0])
+            part = {k: v[lo:hi] for k, v in batch.items()}
+            part[VALID_TOTAL] = batch["valid"].sum()
+            loss = loss + loop.loss_and_grads(model, criterion, part, loop.step_generator(SEED, 0))
+            for n, p in model.named_parameters():
+                if p.grad is not None:
+                    grads[n] = grads[n] + p.grad if n in grads else p.grad.detach().clone()
+    finally:
+        loop.all_sum = saved
+        set_active_mesh(None)
+    return loss, grads
+
+
+def _deterministic_convolutions():
+    """The same cuDNN algorithms in every process (the R3D convolutions)."""
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+
+
+def data_rank(rank: int, workdir: str) -> int:
+    """One rank of phase 12 (``chip_smoke.py --data-rank R WORKDIR``), each
+    part under its own process group at the ports of ``spec.json``: (a)
+    ``train --num_processes 2`` (launch counts, epoch records, a digest of
+    the trained weights); (c) ``predict --num_processes 2`` (rows, launch
+    counts); then (b) one step of each DATA_STEPS model on this rank's rows
+    at dropout 0.1, its all-reduced loss and gradients (saved by rank 0, a
+    digest on both) and its step time, the all-reduce's time on the STLT
+    step's bucket, and (c) this rank's rows of the first served batch's
+    logits. Writes ``data_rank_R.json`` (and ``data_step_NAME.pt``,
+    ``data_logits_R.npy``)."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import VALID_TOTAL, Loader, to_device
+    from stlt_tpu_torch.parallel.distributed import process_row_span
+    from stlt_tpu_torch.parallel.mesh import active_data_mesh, all_sum
+    from stlt_tpu_torch.parser import build_parser
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import loss_and_grads, step_generator
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    process = ["--num_processes", str(DATA_N), "--process_id", str(rank), "--coordinator_address"]
+    report = {"rank": rank}
+    reset_all_launches()
+    t0 = time.perf_counter()
+    result = port_train.main(spec["train_argv"] + process + [
+        f"localhost:{spec['ports'][0]}", "--save_model_path", os.path.join(workdir, f"best_{rank}.pt"),
+        "--resume_dir", os.path.join(workdir, f"steps_{rank}")])
+    torch.cuda.synchronize()
+    report["train"] = {"seconds": time.perf_counter() - t0, "launches": all_launches(),
+                       "steps": result.step, "epochs": result.epochs,
+                       "digest": _digest(result.model.parameters()),
+                       "device": str(next(result.model.parameters()).device)}
+    del result
+    torch.cuda.empty_cache()
+
+    reset_all_launches()
+    rows = predict.main(spec["predict_argv"] + process + [
+        f"localhost:{spec['ports'][1]}", "--output", os.path.join(workdir, f"predictions_{rank}.jsonl")])
+    torch.cuda.synchronize()
+    report["predict"] = {"rows": len(rows), "launches": all_launches()}
+
+    args = build_parser("chip_smoke data rank").parse_args(
+        spec["train_argv"] + process + [f"localhost:{spec['ports'][2]}"])
+    device = predict.start_processes(args)
+    report["device"] = str(device)
+    criterion = make_criterion("something")
+    _deterministic_convolutions()
+    try:
+        mesh = active_data_mesh()
+        with frames_directory_videos():
+            for case in spec["steps"]:
+                span = process_row_span(mesh, case["batch"])
+                model, batch = _data_step_inputs(case, device, rows=span)
+                model.zero_grad(set_to_none=True)
+                loss = loss_and_grads(model, criterion, batch, step_generator(SEED, 0))
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
+                entry = {"rows": list(span), "loss": loss.item(), "grad_digest": _digest(grads.values()),
+                         "params": sum(p.numel() for p in model.parameters() if p.requires_grad)}
+                if rank == 0:
+                    torch.save({"loss": loss.item(), "grads": grads},
+                               os.path.join(workdir, f"data_step_{case['name']}.pt"))
+                del grads
+                torch.cuda.reset_peak_memory_stats()
+                entry["step_ms"] = _step_ms(model, batch, criterion, steps=DATA_STEP_REPEATS)
+                entry["peak_bytes"] = torch.cuda.max_memory_allocated()
+                report[case["name"]] = entry
+                del model, batch
+                torch.cuda.empty_cache()
+        bucket = torch.ones(report["stlt"]["params"] + 1, dtype=torch.float32, device=device)
+        times = []
+        for _ in range(DATA_STEP_REPEATS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            all_sum(bucket, mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        report["allreduce_ms"] = sorted(times[1:])[len(times[1:]) // 2]
+        report["allreduce_bytes"] = bucket.numel() * 4
+        del bucket
+
+        pargs = build_parser("chip_smoke data rank").parse_args(spec["predict_argv"])
+        data_cfg = DataConfig(dataset_name="something", dataset_path=pargs.test_dataset_path,
+                              labels_path=pargs.labels_path, videoid2size_path=pargs.videoid2size_path)
+        model_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                        num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                        num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+        model = _served_model(pargs.checkpoint_path, model_kw, position_table_rows(data_cfg), device)
+        loader = Loader(datasets_factory["layout"](data_cfg), BATCH,
+                        collaters_factory["layout"](data_cfg), prefetch=0,
+                        rows=process_row_span(mesh, BATCH))
+        batch = next(iter(to_device(loader, device)))
+        with torch.inference_mode():
+            logits = model({k: v for k, v in batch.items()
+                            if k not in ("labels", "valid", VALID_TOTAL)})
+        np.save(os.path.join(workdir, f"data_logits_{rank}.npy"), logits["stlt"].float().cpu().numpy())
+    finally:
+        predict.stop_processes()
+    with open(os.path.join(workdir, f"data_rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_data_axis_path(device):
+    """Phase 12, the data axis (``--num_processes 2``): two rank processes
+    on this one card (gloo; host-staged collectives, as phases 9 and 10).
+    (a) ``train --num_processes 2``: phase 4's full-width bf16 STLT (17
+    frames, B = 64, 32 a rank, dropout 0.1), two steps and one validation
+    batch; each rank's backend line and device, finite losses equal on both
+    ranks, the trained weights equal bit for bit, the checkpoint written by
+    rank 0 alone, each rank's launch counts phase 4's per step and per
+    validation batch. (b) one step from the same seeded weights, batch and
+    seeds at dropout 0.1, STLT (B = 64) and CACNF (16 layout frames, B =
+    32): the two ranks' all-reduced loss and gradients (equal on both)
+    against one process on the same rows (``_halves_step``, within
+    DATA_HALVES_LIMITS, bit-identity logged) and against the one process's
+    kernel path on the global batch within the one-step limits (the fusion
+    step's for CACNF, but for its R3D trunk: cuDNN runs other bf16
+    convolution algorithms at B / 2, so the trunk's gradients move by
+    rounding through its ReLU gates; logged beside the one process's own
+    halves against its whole batch). (c) ``predict
+    --num_processes 2`` (17 frames, 144 clips in batches of 64): the one
+    process's clips in its order, each rank's launch counts, and the ranks'
+    rows of the first batch's logits against the one process's within
+    LOGITS_ATOL. (e) each rank's step time, the all-reduce's time on the
+    STLT step's bucket and the one process's step time (two ranks share
+    one card: no speed claim)."""
+    import socket
+
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.criterion import make_criterion
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    criterion = make_criterion("something")
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_data_") as root, frames_directory_videos():
+        train_clips = BATCH * DATA_TRAIN_STEPS
+        paths = write_something_dataset(root, train_clips + BATCH, SEED + 30, num_used=TRAIN_LABELS)
+        split = _split_dataset(paths, root, train_clips)
+        train_argv_ = train_argv(split, paths, os.path.join(root, "unused.pt")) + ["--epochs", "1"]
+        serve_root = os.path.join(root, "serve")
+        os.makedirs(serve_root)
+        serve_paths = write_something_dataset(serve_root, DATA_PREDICT_CLIPS, SEED + 32)
+        serve_cfg = DataConfig(dataset_name="something", dataset_path=serve_paths["dataset"],
+                               labels_path=serve_paths["labels"],
+                               videoid2size_path=serve_paths["videoid2size"])
+        ckpt = os.path.join(serve_root, "random.pt")
+        served_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                         num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                         num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+        torch.save(models_factory["stlt"](make_model_config(
+            "stlt", **served_kw, layout_num_frames=position_table_rows(serve_cfg)),
+            torch.Generator().manual_seed(SEED + 33)).state_dict(), ckpt)
+        predict_argv = [
+            "--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+            "--test_dataset_path", serve_paths["dataset"], "--labels_path", serve_paths["labels"],
+            "--videoid2size_path", serve_paths["videoid2size"], "--checkpoint_path", ckpt,
+            "--hidden_size", str(H), "--num_attention_heads", str(HEADS),
+            "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+            "--batch_size", str(BATCH), "--compute_dtype", "bfloat16", "--use_pallas",
+        ]
+        steps = []
+        for name, frames, clips, frames_range in DATA_STEPS:
+            sub = os.path.join(root, f"step_{name}")
+            os.makedirs(sub)
+            step_paths = write_something_dataset(sub, clips, SEED + 34, num_used=TRAIN_LABELS,
+                                                 frames_range=frames_range)
+            case = {"name": name, "frames": frames, "batch": clips, "train": step_paths["dataset"],
+                    "labels": step_paths["labels"], "videoid2size": step_paths["videoid2size"]}
+            if name == "cacnf":
+                with open(step_paths["dataset"]) as f:
+                    case["videos"] = write_video_frames(os.path.join(sub, "frames"),
+                                                        [c["id"] for c in json.load(f)], SEED + 34)
+            steps.append(case)
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"train_argv": train_argv_, "predict_argv": predict_argv, "steps": steps,
+                       "ports": [free_port() for _ in range(3)]}, f)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--data-rank", str(r),
+                                   root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DATA_N)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        reports = []
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            tail = "\n".join(out.splitlines()[-40:])
+            if proc.returncode != 0:
+                raise AssertionError(f"data rank {r} exited {proc.returncode}:\n{tail}")
+            want_line = f"distributed: rank {r} of {DATA_N} on cuda:0, backend gloo"
+            if out.count(want_line) != 3:
+                raise AssertionError(f"data rank {r}: not 3 lines '{want_line}' in its log:\n{tail}")
+            with open(os.path.join(root, f"data_rank_{r}.json")) as f:
+                reports.append(json.load(f))
+            if reports[-1]["device"] != "cuda:0" or reports[-1]["train"]["device"] != "cuda:0":
+                raise AssertionError(f"data rank {r} ran on {reports[-1]['device']}")
+
+        # (a) the train CLI.
+        label = f"train --num_processes {DATA_N}, 17 frames, B = {BATCH}"
+        layers = SPATIAL_LAYERS + TEMPORAL_LAYERS
+        entries = [report["train"] for report in reports]
+        for r, entry in enumerate(entries):
+            counts = entry["launches"]
+            want = dict.fromkeys(counts, 0)
+            want.update({name: layers * DATA_TRAIN_STEPS for name in TRAIN_KERNELS})
+            want.update({name: layers for name in EVAL_KERNELS})  # one validation batch
+            if counts != want:
+                raise AssertionError(f"{label}, rank {r}: launches {counts}, expected {want} (phase "
+                                     f"4's per step and per validation batch)")
+            if entry["steps"] != DATA_TRAIN_STEPS or not all(
+                    math.isfinite(e["train_loss"]) for e in entry["epochs"]):
+                raise AssertionError(f"{label}, rank {r}: bad run {entry}")
+            log(f"{label}, rank {r}: {entry['steps']} steps in {entry['seconds']:.3f} s (data, model "
+                f"set-up and validation included); launches {counts}; epochs "
+                f"{json.dumps(entry['epochs'])}")
+        if [e["train_loss"] for e in entries[0]["epochs"]] != \
+                [e["train_loss"] for e in entries[1]["epochs"]]:
+            raise AssertionError(f"{label}: the ranks' losses differ")
+        if entries[0]["digest"] != entries[1]["digest"]:
+            raise AssertionError(f"{label}: the ranks' trained weights differ")
+        # Each rank is given its own paths: only rank 0 writes the step
+        # checkpoint, and the best model when an epoch is the best.
+        best = any(e["is_best"] for e in entries[0]["epochs"])
+        if best != os.path.exists(os.path.join(root, "best_0.pt")) or \
+                os.path.exists(os.path.join(root, "best_1.pt")) or \
+                len(os.listdir(os.path.join(root, "steps_0"))) != 1 or \
+                os.path.exists(os.path.join(root, "steps_1")):
+            raise AssertionError(f"{label}: the checkpoints were not written by rank 0 alone")
+        log(f"{label}: both ranks' losses and trained weights equal bit for bit; the step "
+            f"checkpoint{' and the best model' if best else ''} written by rank 0 alone")
+
+        # (b) one step, two ranks against one process.
+        saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+        _deterministic_convolutions()
+        times = {}
+        for case in steps:
+            name = case["name"]
+            label = f"train step {name}, {case['frames']} frames, B = {case['batch']}, dropout {DROPOUT}"
+            if reports[0][name]["grad_digest"] != reports[1][name]["grad_digest"] or \
+                    reports[0][name]["loss"] != reports[1][name]["loss"]:
+                raise AssertionError(f"{label}: the ranks' all-reduced loss or gradients differ")
+            ranks = torch.load(os.path.join(root, f"data_step_{name}.pt"))
+            ranks = (ranks["loss"], {n: x.to(device) for n, x in ranks["grads"].items()})
+            model, batch = _data_step_inputs(case, device)
+            whole = _one_step(model, batch, criterion)
+            halves = _halves_step(model, batch, criterion, device)
+            # The ranks against one process on the same rows: the same
+            # function, the parts summed in the same f32 order.
+            same = float(ranks[0]) == float(halves[0]) and all(
+                torch.equal(ranks[1][n], halves[1][n]) for n in halves[1])
+            _compare_steps(label, f"{DATA_N} data ranks (all-reduced) vs one process on the same "
+                           f"rows (bit for bit: {same})", ranks, halves, DATA_HALVES_LIMITS)
+            # ... and against one process on the global batch.
+            limits = FUSION_STEP_BF16 if name == "cacnf" else None
+            trunk = {n for n in whole[1] if "appearance_branch.resnet." in n}
+            if trunk:
+                # R3D's bf16 convolutions run other cuDNN algorithms at B / 2
+                # than at B (its features differ by rounding), and the
+                # trunk's ReLU gates make its gradients follow: one process
+                # on the two halves differs from itself on the whole batch.
+                with torch.no_grad():
+                    trunk_fwd = model.backbone.appearance_branch.resnet.forward_features
+                    h = batch["valid"].shape[0] // DATA_N
+                    feats = trunk_fwd(batch)
+                    parts = torch.cat([trunk_fwd({k: v[i * h:(i + 1) * h] for k, v in batch.items()})
+                                       for i in range(DATA_N)])
+                own = {n: _rel(halves[1][n], whole[1][n]) for n in trunk}
+                log(f"{label}: one process on the two halves vs on the global batch: the R3D "
+                    f"features' max_abs_err {(feats.float() - parts.float()).abs().max().item():.3e}, "
+                    f"the trunk's gradients relative norm up to {max(own.values()):.3e} (its worst "
+                    + ", ".join(f"{n} {own[n]:.3e}" for n in sorted(own, key=own.get)[-3:])
+                    + "); the trunk is held to one process on the same rows above")
+                del feats, parts
+            _compare_steps(label, f"{DATA_N} data ranks (all-reduced) vs one process on the global batch"
+                           + (" (R3D trunk left out)" if trunk else ""),
+                           (ranks[0], {n: g for n, g in ranks[1].items() if n not in trunk}),
+                           (whole[0], {n: g for n, g in whole[1].items() if n not in trunk}), limits)
+            del whole, halves, ranks
+            torch.cuda.reset_peak_memory_stats()
+            times[name] = {"ranks_ms": [report[name]["step_ms"] for report in reports],
+                           "ranks_peak_bytes": [report[name]["peak_bytes"] for report in reports],
+                           "one_process_ms": _step_ms(model, batch, criterion, steps=DATA_STEP_REPEATS),
+                           "one_process_peak_bytes": torch.cuda.max_memory_allocated()}
+            del model, batch
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+        # (c) serving.
+        label = f"predict --num_processes {DATA_N}, 17 frames, {DATA_PREDICT_CLIPS} clips, B = {BATCH}"
+        reset_all_launches()
+        single = predict.main(predict_argv + ["--output", os.path.join(root, "predictions_one.jsonl")])
+        batches = -(-DATA_PREDICT_CLIPS // BATCH)
+        want = dict.fromkeys(all_launches(), 0)
+        want.update({name: layers * batches for name in EVAL_KERNELS})
+        for r, report in enumerate(reports):
+            if report["predict"]["launches"] != want or report["predict"]["rows"] != len(single):
+                raise AssertionError(f"{label}, rank {r}: {report['predict']}, expected {len(single)} "
+                                     f"rows and launches {want}")
+        with open(os.path.join(root, "predictions_0.jsonl")) as f:
+            two = [json.loads(line) for line in f]
+        if [row["video_id"] for row in two] != [row["video_id"] for row in single] or \
+                len(single) != DATA_PREDICT_CLIPS or \
+                os.path.exists(os.path.join(root, "predictions_1.jsonl")):
+            raise AssertionError(f"{label}: the ranks' predictions are not the one process's clips "
+                                 f"in its order, written by rank 0 alone")
+        model = _served_model(ckpt, served_kw, position_table_rows(serve_cfg), device)
+        loader = Loader(datasets_factory["layout"](serve_cfg), BATCH,
+                        collaters_factory["layout"](serve_cfg), prefetch=0)
+        batch = next(iter(to_device(loader, device)))
+        with torch.inference_mode():
+            want_logits = model({k: v for k, v in batch.items() if k not in ("labels", "valid")})["stlt"]
+        got = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(root, f"data_logits_{r}.npy")) for r in range(DATA_N)])).to(device)
+        _check_logits(f"{label}, the first batch's rows of both ranks", got, want_logits.float(),
+                      "one process")
+        same_top1 = sum(a["top_k"][0]["label_id"] == b["top_k"][0]["label_id"]
+                        for a, b in zip(two, single))
+        log(f"{label}: {len(two)} rows in the one process's order; top-1 label equal in "
+            f"{same_top1} of {len(two)}")
+        del model, batch
+
+        # (e) times.
+        log("data_axis_times " + json.dumps({
+            "card": card_line(), "steps": times,
+            "allreduce_ms": [report["allreduce_ms"] for report in reports],
+            "allreduce_bytes": reports[0]["allreduce_bytes"],
+            "note": "two ranks share one card, the all-reduce staged through host memory (gloo): "
+                    "no speed claim"}))
+    return None
+
+
+# --- phase 12 (d): each dropout kernel at a global-row base --------------------
+
+
+def _base_run(make, call, sl, base, cot):
+    """``call(rows, weights, sl, base)`` on fresh leaves ``make(sl)`` (the
+    row-indexed inputs cut to ``sl`` and the weights), then its backward
+    from ``cot``: (output, the row inputs' gradients, the weights'
+    gradients)."""
+    rows, weights = make(sl)
+    out = call(rows, weights, sl, base)
+    out.backward(cot)
+    return out.detach(), [t.grad for t in rows], [t.grad for t in weights]
+
+
+def _base_case(label, make, call, b, cot, dtype, row_rel, sum_rel):
+    """One kernel family at base ``b`` (phase 12 (d)): the launch on rows
+    [b:] at base b against rows [b:] of the launch at base 0 on the whole
+    input, whose cotangent is zero on rows [:b] (so its weight gradients
+    sum rows [b:] alone): the output within OP_TOL, each row input's
+    gradient within ``row_rel`` and each weight gradient within ``sum_rel``
+    in relative norm, bit-identity logged; then the launch at base b
+    against its plain version at base b, the same limits. Returns a log
+    row."""
+    whole = cot.clone()
+    whole[:b] = 0
+    out0, rows0, weights0 = _base_run(make, call, slice(None), 0, whole)
+    out1, rows1, weights1 = _base_run(make, call, slice(b, None), b, cot[b:])
+    with plain_kernels():
+        outp, rowsp, weightsp = _base_run(make, call, slice(b, None), b, cot[b:])
+    row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "base": b}
+    for against, (o, rg, wg) in (("base 0 sliced", (out0[b:], [g[b:] for g in rows0], weights0)),
+                                 ("plain at base b", (outp, rowsp, weightsp))):
+        tol = OP_TOL[dtype]
+        err = (out1.float() - o.float()).abs()
+        if not torch.isfinite(out1).all() or (err > tol["atol"] + tol["rtol"] * o.float().abs()).any():
+            raise AssertionError(f"{label} {dtype} at base {b}: output off by {err.max().item():.3e} "
+                                 f"against {against}")
+        rels = [_rel(x, y) for x, y in zip(rows1, rg)]
+        sums = [_rel(x, y) for x, y in zip(weights1, wg)]
+        if max(rels, default=0.0) > row_rel or max(sums, default=0.0) > sum_rel:
+            raise AssertionError(f"{label} {dtype} at base {b} against {against}: row gradients "
+                                 f"{rels} (limit {row_rel}), summed gradients {sums} (limit {sum_rel})")
+        key = "sliced" if against.startswith("base 0") else "plain"
+        row[key] = {"max_abs_err": err.max().item(), "row_grad_rel": max(rels, default=0.0),
+                    "sum_grad_rel": max(sums, default=0.0)}
+        if key == "sliced":
+            row[key]["bit_identical"] = bool(torch.equal(out1, o)) and all(
+                torch.equal(x, y) for x, y in zip(rows1, rg))
+    log("base_check " + json.dumps(row))
+    return row
+
+
+def check_base_kernels(device):
+    """Phase 12 (d): every dropout kernel at a global-row base, bf16 and f32,
+    dropout 0.1, at the main paths' shapes with a data rank's base (rank 1
+    of 2): rows 3 and 4 (the train sublayer) at the spatial stage of 64
+    clips (rows 1,088, T = 8, ragged ``rows_live``, base 544 rows) and the
+    temporal one (64 rows of 17 frames, base 32); rows 6 and 7 at 32 clips
+    of 257 frames (base 16); rows 8 and 9-10 at 16 clips of 513 frames in
+    the lengths mode and the dense-bias mode (base 8); rows 11-14 (the fused
+    train tail) at 32 clips of 257 temporal tokens (base 16 clips: token
+    4,112). Row 5 is the eval cross-attention: no dropout, no base (the
+    train cross-attention runs on rows 6-10). ``_base_case`` per family."""
+    from stlt_tpu_torch.ops import flash
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    w = make_weights(gen, device)
+    seed = 0x5EED5EED
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        proj_rel = PROJ_BWD_REL if dtype == torch.bfloat16 else GRAD_REL[torch.float32]
+        for stage, clips in (("spatial", BATCH), ("temporal", BATCH)):
+            x, _, bias, live_kw, _, _ = make_stage(stage, clips, dtype, gen, device)
+            rows_live = live_kw.get("rows_live")
+            per_clip = x.shape[0] // clips
+            b = clips // 2 * per_clip
+            g = torch.randn(x.shape, generator=gen).to(device, dtype)
+            if rows_live is not None:
+                g[~rows_live] = 0
+
+            def make(sl, x=x):
+                in_proj = w["wqkv"].t().contiguous().requires_grad_()
+                wo = w["wo"].t().contiguous().requires_grad_()
+                return [x[sl].detach().clone().requires_grad_()], [
+                    in_proj, w["bqkv"].clone().requires_grad_(), wo, w["bo"].clone().requires_grad_()]
+
+            def call(r, ws, sl, base, bias=bias, rows_live=rows_live, dtype=dtype):
+                return fe.fused_proj_attention_train(
+                    r[0], ws[0].t(), ws[1], ws[2].t(), ws[3], bias[sl], seed, num_heads=HEADS,
+                    dropout_rate=DROPOUT, compute_dtype=dtype,
+                    rows_live=None if rows_live is None else rows_live[sl], row0=base)
+
+            rows.append(_base_case(f"rows 3-4 {stage} rows={x.shape[0]} T={x.shape[1]}", make, call, b,
+                                   g, dtype, proj_rel, proj_rel))
+        attn_rel = BWD_REL[dtype]
+        for clips, T, mode in ((LONG_TRAIN[256][0], 257, "short"), (LONG_TRAIN[512][0], 513, "lengths"),
+                               (LONG_TRAIN[512][0], 513, "dense")):
+            q, k, v = make_heads(clips, T, dtype, gen, device)
+            lengths = ragged_lengths(clips, T, gen)
+            bias = _causal_padding_bias(lengths, T, device) if mode == "dense" else None
+            lengths = lengths.to(device)
+            g = torch.randn(q.shape, generator=gen).to(device, dtype)
+            g[torch.arange(T, device=device)[None, :] >= lengths[:, None]] = 0
+
+            def make(sl, q=q, k=k, v=v):
+                return [t[sl].detach().clone().requires_grad_() for t in (q, k, v)], []
+
+            def call(r, ws, sl, base, lengths=lengths, bias=bias, mode=mode):
+                kw = (dict(bias=bias[sl]) if mode == "dense"
+                      else dict(kv_lengths=lengths[sl], causal=True))
+                return flash.flash_attention(*r, dropout_seed=seed, dropout_rate=DROPOUT,
+                                             dropout_row0=base, **kw)
+
+            rows.append(_base_case(f"rows {'6-7' if T < 513 else '8-10'} {mode} B={clips} T={T}", make,
+                                   call, clips // 2, g, dtype, attn_rel, attn_rel))
+        clips, T = LONG_TRAIN[256][0], 257
+        x = torch.randn((clips, T, H), generator=gen).to(device, dtype)
+        a = (0.5 * torch.randn((clips, T, H), generator=gen)).to(device, dtype)
+        live = torch.arange(T)[None, :] < ragged_lengths(clips, T, gen)[:, None]
+        live = live.to(device)
+        g = torch.randn((clips, T, H), generator=gen).to(device, dtype)
+
+        def make(sl, x=x, a=a):
+            return ([t[sl].detach().clone().requires_grad_() for t in (x, a)],
+                    [t.clone().requires_grad_() for t in _tail_weights(w)])
+
+        def call(r, ws, sl, base, live=live, dtype=dtype):
+            return ftt.fused_layer_tail_train(
+                *r, *ws, eps=EPS, compute_dtype=dtype, activation="gelu",
+                gelu_approximate=dtype == torch.bfloat16, dropout_rate=DROPOUT, seed=seed,
+                tokens_live=live[sl], token0=base * T)
+
+        rows.append(_base_case(f"rows 11-14 B={clips} T={T}", make, call, clips // 2, g, dtype,
+                               TAIL_BWD_REL[dtype], TAIL_SUM_REL[dtype]))
+        del x, a, g, q, k, v
+        torch.cuda.empty_cache()
+    log(f"base_checks: {len(rows)} cases, every kernel at its base equal to the slice of its launch "
+        f"at base 0 and to its plain version at that base; bit-identical to the slice: "
+        f"{sum(r['sliced']['bit_identical'] for r in rows)} of {len(rows)}")
+    return rows
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     if argv[:1] == ["--ring-rank"]:  # one rank of phase 9, started by run_ring_path
         return ring_rank(int(argv[1]), int(argv[2]), argv[3])
     if argv[:1] == ["--ring-train-rank"]:  # one rank of phase 10, started by run_ring_train_path
         return ring_train_rank(int(argv[1]), argv[2])
+    if argv[:1] == ["--data-rank"]:  # one rank of phase 12, started by run_data_axis_path
+        return data_rank(int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
               file=sys.stderr)
@@ -5397,6 +6019,10 @@ def main(argv=()) -> int:
     launches.update(timed(run_ring_path))
     # Training under --context_parallel 2: the ring-offset mode of the blockwise backward.
     launches.update(timed(run_ring_train_path))
+    # The data axis (--num_processes 2): every dropout kernel at a global-row
+    # base, then train, one step and predict on two ranks against one process.
+    timed(check_base_kernels)
+    timed(run_data_axis_path)
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

@@ -35,7 +35,8 @@ extern "C" int stlt_blockwise_attention(
     long long kb, long long kt, long long kn, long long vb, long long vt, long long vn,
     const void* bias, long long bias_b, long long bias_n, long long bias_t, const void* lengths,
     int causal, int row0, int col0, void* out, void* lse, int B, int T, int S, int N, int D,
-    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, const void* mask, long long mask_b,
+    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, unsigned row_base,
+    const void* mask, long long mask_b,
     long long mask_n, long long mask_t, int dtype,
     void* stream) {
   if (lse == nullptr) return -1;
@@ -43,7 +44,7 @@ extern "C" int stlt_blockwise_attention(
                          static_cast<const float*>(bias), bias_b, bias_n, bias_t,
                          static_cast<const int*>(lengths), causal, row0, col0, out,
                          static_cast<float*>(lse), B, T, S, N, scale,
-                         stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale},
+                         stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base},
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch<true>(a, D, dtype, stream);

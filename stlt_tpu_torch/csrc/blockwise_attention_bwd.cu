@@ -34,7 +34,8 @@ extern "C" int stlt_blockwise_attention_bwd(
     long long bias_n, long long bias_t, const void* lengths, int causal, int row0, int col0,
     const void* lse,
     const void* dsum, void* dq, void* dk, void* dv, int B, int T, int S, int N, int D,
-    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, const void* mask, long long mask_b,
+    float scale, int dropout, unsigned seed, unsigned thresh, float dropout_scale, unsigned row_base,
+    const void* mask, long long mask_b,
     long long mask_n, long long mask_t, int dtype,
     void* stream) {
   if (bias != nullptr && lengths != nullptr) return -1;
@@ -43,7 +44,7 @@ extern "C" int stlt_blockwise_attention_bwd(
                         static_cast<const int*>(lengths), causal, row0, col0,
                         static_cast<const float*>(lse), static_cast<const float*>(dsum),
                         dq, dk, dv, B, T, S, N, scale,
-                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale},
+                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base},
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch_bwd<true>(a, D, dtype, stream);

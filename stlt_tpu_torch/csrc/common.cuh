@@ -62,17 +62,21 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
 }
 
 // Attention-probability dropout of the train kernels: the scale 1/(1-rate)
-// for a kept (global row b, head n, query t, key s), else 0. The bit is
-// stlt_tpu/ops/flash.py::_keep_block's: lane lowbias32((b*N + n) ^ seed),
-// counter t*S + s over the unpadded key count S, kept when
-// lowbias32(counter ^ lane) >= thresh.
+// for a kept (row b, head n, query t, key s), else 0. The bit is
+// stlt_tpu/ops/flash.py::_keep_block's at the global row row_base + b: lane
+// lowbias32(((row_base + b)*N + n) ^ seed), counter t*S + s over the
+// unpadded key count S, kept when lowbias32(counter ^ lane) >= thresh. A
+// launch on rows [r0, r0 + B) of a batch passes row_base = r0 (mod 2**32,
+// the lane's own wrap) and hashes the bits of those rows of the whole
+// batch; row_base 0 is the launch's own rows.
 struct Dropout {
   int on;
   uint32_t seed, thresh;
   float scale;
+  uint32_t row_base;
   __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads,
                                               uint32_t t, uint32_t s, uint32_t s_total) const {
-    const uint32_t lane = lowbias32((b * num_heads + n) ^ seed);
+    const uint32_t lane = lowbias32(((row_base + b) * num_heads + n) ^ seed);
     return lowbias32((t * s_total + s) ^ lane) >= thresh ? scale : 0.f;
   }
 };
@@ -83,7 +87,11 @@ struct Dropout {
 // features has the counter token * width + feature (mod 2**32, token the
 // global index over the flattened tokens) and is kept when
 // lowbias32(counter ^ lane) >= thresh. keep_scale gives 1/(1-rate) for a kept
-// element, else 0, so v * keep_scale is JAX's v * keep * drop_scale.
+// element, else 0, so v * keep_scale is JAX's v * keep * drop_scale. A
+// launch on tokens [t0, t0 + n) of a batch passes token_base = t0 mod 2**32
+// (the counter keeps the low 32 bits of token * width, so the low 32 bits of
+// t0 are all it needs), added to the local token as a global token index
+// enters it; token_base 0 is the launch's own tokens.
 constexpr uint32_t kTagAttnDrop = 0x9E3779B9u;
 constexpr uint32_t kTagMidDrop = 0x85EBCA6Bu;
 constexpr uint32_t kTagOutDrop = 0xC2B2AE35u;
@@ -92,10 +100,11 @@ struct TailDropout {
   int on;
   uint32_t seed, thresh;
   float scale;
+  uint32_t token_base;
   __device__ __forceinline__ uint32_t lane(uint32_t tag) const { return lowbias32(seed ^ tag); }
   __device__ __forceinline__ float keep_scale(uint32_t lane, long long token, uint32_t width,
                                               uint32_t feature) const {
-    const uint32_t counter = static_cast<uint32_t>(token) * width + feature;
+    const uint32_t counter = (static_cast<uint32_t>(token) + token_base) * width + feature;
     return lowbias32(counter ^ lane) >= thresh ? scale : 0.f;
   }
 };

@@ -514,7 +514,8 @@ int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
 // or -3 if a TMA map cannot be encoded. act: 0 relu, 1 exact-erf GELU,
 // 2 tanh GELU. A non-null r2 selects the train variant, which writes r2 and
 // applies the dropout sites when `dropout` is 1 (keep bits from seed and
-// thresh, survivors scaled by dropout_scale); eval passes a null r2 and
+// thresh at the global tokens token_base + i, survivors scaled by
+// dropout_scale); eval passes a null r2 and
 // dropout 0. w1 is W1 stored [FF, H] and w2 W2 stored [H, FF] (the models'
 // linear.weight). bf16 needs `scratch`, 16-byte aligned: (H + FF) bf16 and
 // one int32 per token and one int32 more (launch_tc); f32 takes none.
@@ -523,7 +524,7 @@ extern "C" int stlt_fused_layer_tail(
     const void* b1, const void* w2, const void* b2, const void* n2s, const void* n2b,
     const void* live, void* out, void* r2, void* scratch, int tokens, int hidden, int ff,
     float eps, int act, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
-    int dtype, void* stream) {
+    long long token_base, int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || act < 0 ||
       act > 2) {
     return -1;
@@ -533,7 +534,7 @@ extern "C" int stlt_fused_layer_tail(
              static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
              static_cast<const float*>(n2s), static_cast<const float*>(n2b),
              static_cast<const uint8_t*>(live), out, r2, tokens, ff, eps, act,
-             TailDropout{dropout, seed, thresh, dropout_scale}};
+             TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = r2 != nullptr;
   if (dtype == 0) return train ? dispatch<true>(hidden / 64, t, s) : dispatch<false>(hidden / 64, t, s);

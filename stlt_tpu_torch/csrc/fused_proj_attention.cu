@@ -390,7 +390,8 @@ int dispatch_f32(int head_dim, const ProjArgs& a, cudaStream_t s) {
 // 128}, T > 64, no scratch in bf16), -2 for an unknown dtype code (0 =
 // float32, 1 = bfloat16) or -3 if a TMA map cannot be encoded. dropout = 0
 // is the eval function; otherwise probabilities are dropped with (seed,
-// thresh) and kept ones scaled by dropout_scale. f32 takes wqkv [H, 3H] and
+// thresh) at the global rows row_base + b and kept ones scaled by
+// dropout_scale. f32 takes wqkv [H, 3H] and
 // wo [H, H] input-major and no scratch; bf16 takes them as the model stores
 // them (wqkv [3H, H], wo [H, H] output-major, 16-byte aligned), x and the
 // rows_live bytes 16-byte aligned, and a scratch of (4 H bf16) per token and
@@ -400,7 +401,7 @@ extern "C" int stlt_fused_proj_attention(
     const void* bias, long long bias_row_stride, long long bias_q_stride,
     const void* rows_live, void* out, void* scratch, int rows, int seq, int hidden, int num_heads,
     float scale, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
-    int dtype, void* stream) {
+    unsigned int row_base, int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
       hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0) {
     return -1;
@@ -408,7 +409,7 @@ extern "C" int stlt_fused_proj_attention(
   ProjArgs a{x, wqkv, bqkv, wo, bo, static_cast<const float*>(bias), bias_row_stride,
              bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
              num_heads, seq > kTM ? 1 : kTM / seq, scale,
-             Dropout{dropout, seed, thresh, dropout_scale}};
+             Dropout{dropout, seed, thresh, dropout_scale, row_base}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
   if (dtype == 1) return launch_tc(a, hidden / num_heads, scratch, s);

@@ -983,15 +983,15 @@ extern "C" int stlt_fused_proj_attention_bwd(
     long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
     void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
     int seq, int hidden, int num_heads, float scale, int dropout, unsigned int seed,
-    unsigned int thresh, float dropout_scale, int splits, long long chunk, int dtype,
-    void* stream) {
+    unsigned int thresh, float dropout_scale, unsigned int row_base, int splits, long long chunk,
+    int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
       hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 || splits < 1) {
     return -1;
   }
   const int head_dim = hidden / num_heads;
   if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
-  const Dropout drop{dropout, seed, thresh, dropout_scale};
+  const Dropout drop{dropout, seed, thresh, dropout_scale, row_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const TcArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),

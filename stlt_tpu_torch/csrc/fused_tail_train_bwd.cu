@@ -1132,18 +1132,20 @@ int launch_weight_tc(const WeightArgs& p, const int* count, int splits, cudaStre
 // dtype code (0 = float32, 1 = bfloat16) or -3 if a TMA map cannot be
 // encoded. Activations are in the compute dtype, vectors and sums in f32;
 // live is one byte per token (16-byte aligned in bf16) or null;
-// dropout/seed/thresh/dropout_scale as in stlt_fused_layer_tail.
+// dropout/seed/thresh/dropout_scale/token_base as in stlt_fused_layer_tail.
 
 // Row: dr2 and the partials of dn2s, dn2b, db2 ([blocks][3][H], block b
 // owning tokens [b * chunk, (b + 1) * chunk)), then their sums into out [3][H].
 extern "C" int stlt_tail_train_bwd_row(
     const void* r2, const void* g, const void* n2s, const void* live, void* dr2, float* partial,
     float* out, long long tokens, int hidden, float eps, int dropout, unsigned int seed,
-    unsigned int thresh, float dropout_scale, int blocks, long long chunk, int dtype,
+    unsigned int thresh, float dropout_scale, long long token_base, int blocks, long long chunk,
+    int dtype,
     void* stream) {
   if (hidden % 64 != 0 || blocks < 1 || chunk * blocks < tokens) return -1;
   RowArgs a{r2, g, static_cast<const float*>(n2s), static_cast<const uint8_t*>(live), dr2,
-            partial, tokens, chunk, eps, TailDropout{dropout, seed, thresh, dropout_scale}};
+            partial, tokens, chunk, eps,
+            TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
@@ -1171,8 +1173,8 @@ extern "C" int stlt_tail_train_bwd_input(
     const void* w1, const void* b1, const void* w2, const void* live, void* dx, void* dattn,
     void* u, void* dh2, void* dh1, void* h1d, float* du, int* rows, float* partial_ln,
     float* partial_b1, float* out, long long tokens, int hidden, int ff, float eps, int act,
-    int dropout, unsigned int seed, unsigned int thresh, float dropout_scale, int blocks,
-    int dtype, void* stream) {
+    int dropout, unsigned int seed, unsigned int thresh, float dropout_scale, long long token_base,
+    int blocks, int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || act < 0 ||
       act > 2) {
     return -1;
@@ -1180,7 +1182,7 @@ extern "C" int stlt_tail_train_bwd_input(
   InputArgs p{x, a, dr2, static_cast<const float*>(n1s), static_cast<const float*>(n1b), w1,
               static_cast<const float*>(b1), w2, static_cast<const uint8_t*>(live), dx, dattn, u,
               dh2, dh1, h1d, du, rows, partial_ln, partial_b1, tokens, ff, eps, act,
-              TailDropout{dropout, seed, thresh, dropout_scale}};
+              TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {

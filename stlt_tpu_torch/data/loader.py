@@ -1,10 +1,21 @@
 """Host-side batching loader with background prefetch.
 
-Own copy of ``stlt_tpu/data/loader.py::Loader`` (single process): per-epoch
+Own copy of ``stlt_tpu/data/loader.py::Loader`` (:71-150): per-epoch
 shuffling, collation to static shapes, and a background thread that builds
 the next batches while the device computes. Every batch has exactly
 ``batch_size`` rows; the last partial batch repeats row 0 and carries a
 boolean ``valid`` mask.
+
+Under a data axis (``rows=(start, stop)``, from
+``parallel/distributed.process_row_span``) a loader materialises only rows
+[start, stop) of each global batch. Every rank computes the epoch order and
+the per-sample augmentation seeds of the WHOLE global batch, so the global
+data stream is the one process's whatever the number of ranks. Pad rows
+repeat a real sample and carry ``valid = False``; a rank whose whole slice
+is padding borrows the batch's first global sample. Such a batch also
+carries :data:`VALID_TOTAL`, the number of real rows in the whole global
+batch, known on the host: the train step divides by it without a
+collective.
 
 :func:`to_device` is the port's counterpart of the JAX ``device_prefetch``:
 it turns each numpy batch into pinned host tensors and copies them with
@@ -19,6 +30,9 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+# The key of a sharded batch's count of real rows in the whole global batch.
+VALID_TOTAL = "valid_total"
 
 
 def to_device(iterator, device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
@@ -60,6 +74,7 @@ class Loader:
         drop_last: bool = False,
         prefetch: int = 2,
         workers: int = 1,
+        rows: Optional[tuple] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -68,6 +83,10 @@ class Loader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.sharded = rows is not None
+        self.rows = tuple(rows) if rows is not None else (0, batch_size)
+        if not 0 <= self.rows[0] < self.rows[1] <= batch_size:
+            raise ValueError(f"rows {rows} out of range for batch_size {batch_size}")
         self.workers = max(1, workers)
         self._pool = None
         self.epoch = 0
@@ -92,26 +111,36 @@ class Loader:
         return order
 
     def _make_batch(self, idxs: np.ndarray, rng: Optional[np.random.Generator]):
+        lo, hi = self.rows
         if rng is not None:
-            # One child generator per sample, seeded up front: deterministic
-            # whatever the thread scheduling.
+            # One child generator per GLOBAL sample, seeded up front:
+            # deterministic whatever the thread scheduling or the number of
+            # ranks (every rank draws the whole batch's seeds).
             seeds = rng.integers(0, 2**63 - 1, size=len(idxs))
-            work = list(zip(idxs, seeds))
+            work = [(idxs[p], seeds[p]) for p in range(lo, min(hi, len(idxs)))]
+            template = (idxs[0], seeds[0])
             fetch = lambda pair: self.dataset.__getitem__(
                 int(pair[0]), rng=np.random.default_rng(int(pair[1]))
             )
         else:
-            work = list(idxs)
+            work = [idxs[p] for p in range(lo, min(hi, len(idxs)))]
+            template = idxs[0]
             fetch = lambda i: self.dataset[int(i)]
         if self.workers > 1 and work:
             samples = list(self._executor().map(fetch, work))
         else:
             samples = [fetch(w) for w in work]
-        valid = np.zeros((self.batch_size,), dtype=bool)
+        valid = np.zeros((hi - lo,), dtype=bool)
         valid[: len(samples)] = True
-        samples = samples + [samples[0]] * (self.batch_size - len(samples))
+        if len(samples) < hi - lo:
+            # Pad rows repeat a real sample; a rank whose whole slice is
+            # padding borrows the batch's first global sample.
+            filler = samples[0] if samples else fetch(template)
+            samples = samples + [filler] * (hi - lo - len(samples))
         batch = self.collate(samples)
         batch["valid"] = valid
+        if self.sharded:
+            batch[VALID_TOTAL] = np.asarray(len(idxs), dtype=np.int64)
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -12,10 +12,14 @@ logged x100 to two decimals and returned.
 
 It runs on the GPU unless ``--platform cpu`` is given; without a GPU it
 raises and never falls back to the CPU. Checkpoints are reference-format
-``.pt`` state_dicts. STLT evaluates frame-sharded under ``--context_parallel
-C --num_processes C`` as ``predict`` serves it; the accumulators run on the
-coordinator only, which logs and returns the metrics (the other ranks
-return an empty dict).
+``.pt`` state_dicts. Under ``--num_processes N`` (the data axis) each rank
+evaluates its rows of every global batch and the accumulators sum the
+counts, or gather the probabilities in global order, over the ranks, so
+the metrics cover every rank's rows. STLT evaluates frame-sharded under
+``--context_parallel C --num_processes C`` as ``predict`` serves it, the
+accumulators on the coordinator only (every rank has the same logits).
+The coordinator logs and returns the metrics; the other ranks return an
+empty dict.
 
     python -m stlt_tpu_torch.inference --dataset_name something --dataset_type layout \\
         --model_name stlt --test_dataset_path val.json --labels_path labels.json \\
@@ -32,12 +36,14 @@ from stlt_tpu_torch.configs import live_prefix_caps
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
 from stlt_tpu_torch.parallel import distributed
+from stlt_tpu_torch.parallel.mesh import active_data_mesh
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.predict import (
     build_data_config,
     build_model_config,
     check_flags,
     load_served_model,
+    loader_rows,
     start_processes,
     stop_processes,
 )
@@ -71,6 +77,7 @@ def evaluate(args, device) -> Dict[str, float]:
         collaters_factory[args.dataset_type](data_cfg),
         prefetch=max(args.num_workers, 2),
         workers=max(args.num_workers, 1),
+        rows=loader_rows(args.batch_size),
     )
     num_classes = len(test_dataset.labels)
     # --live_prefix: frame-axis truncation and the spatial live-prefix fold,
@@ -89,13 +96,17 @@ def evaluate(args, device) -> Dict[str, float]:
     eval_step = make_eval_counts_step(model) if count_path else make_eval_probs_step(model)
     acc = EvalCountAccumulator() if count_path else EvalProbsAccumulator()
     coordinator = distributed.is_coordinator()
+    # Data ranks each hold their rows (the flush sums or gathers them on
+    # every rank); ring ranks hold the same logits (the coordinator's count).
+    accumulate = coordinator or active_data_mesh() is not None
     for batch in to_device(loader, device):
         out = eval_step(batch)  # every rank runs the forward: the ring needs all of them
-        if coordinator:
+        if accumulate:
             acc.add(out)
+    if accumulate:
+        acc.flush_into(evaluator)
     if not coordinator:
         return {}
-    acc.flush_into(evaluator)
     metrics = evaluator.evaluate()
     logging.info("The metrics are:")
     for m, v in metrics.items():

@@ -29,7 +29,8 @@ with the ReLU activation (code 0); in train (``model.train()``, JAX's
 train tail with hashed dropout, since JAX passes this encoder no
 ``clip_frames`` (``stlt_tpu/models/appearance.py:115-126``). Each layer's
 two dropout seeds come from the ``torch.Generator`` given to ``forward``,
-in forward order, as the STLT layers draw theirs. The R3D trunk has no
+in forward order, as the STLT layers draw theirs, and hash at the global
+clips under a data axis (``parallel/mesh.clip_span``). The R3D trunk has no
 dropout and its ``FrozenBatchNorm`` stays an affine map of frozen
 statistics in train mode; its convolutions and their backwards run on
 cuDNN, as JAX leaves them to XLA. ``TransformerResnet.no_weight_decay``
@@ -49,6 +50,7 @@ from stlt_tpu_torch.configs import AppearanceModelConfig
 from stlt_tpu_torch.data.transforms import NORM_DIVISOR, NORM_OFFSET
 from stlt_tpu_torch.models import resnet3d
 from stlt_tpu_torch.models.layers import TransformerEncoder, apply_dense, init_linear_, uniform_
+from stlt_tpu_torch.parallel.mesh import clip_span
 
 # torch.nn.TransformerEncoderLayer defaults (the reference passes none of
 # them for the appearance encoder).
@@ -144,7 +146,7 @@ class TransformerResnet(nn.Module):
             )
         tokens = torch.cat([self.cls_token.to(dt).expand(B, 1, H), tokens], dim=1)
         tokens = tokens + self.pos_embed[:, 0, :][None].to(dt)
-        return self.transformer(tokens, generator=generator)
+        return self.transformer(tokens, generator=generator, row0=clip_span(B)[0])
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
         cls_state = self.forward_features(batch, generator)[:, 0, :]

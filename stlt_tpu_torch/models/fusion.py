@@ -34,10 +34,11 @@ each sublayer's output (after each attention and each FFN, ``fusion.py:68,
 reproduce; the port hashes its own keep bits on the device
 (``ops/dropout.hashed_dropout``) from a seed drawn from the step's
 ``torch.Generator``: deterministic for a given (``--seed``, step), the same
-distribution as JAX's. Every random draw comes from that generator in
-forward order: the layout branch's (as ``Stlt`` draws them), the appearance
-encoder's, then per fusion layer and sublayer the attention's seed and the
-output dropout's. A loaded and frozen CACNF backbone (``load_backbone_path``
+distribution as JAX's, hashed at the global clips under a data axis
+(``parallel/mesh.clip_span``), as every site of the layout branch. Every
+random draw comes from that generator in forward order: the layout
+branch's (as ``Stlt`` draws them), the appearance encoder's, then per
+fusion layer and sublayer the attention's seed and the output dropout's. A loaded and frozen CACNF backbone (``load_backbone_path``
 with ``freeze_backbone``) runs deterministically, as JAX runs it
 (``fusion.py:286-294``): ``model.train()`` leaves it in eval mode, so it
 takes the eval kernels under ``torch.no_grad`` and only the three heads
@@ -72,6 +73,7 @@ from stlt_tpu_torch.models.stlt import (
 )
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.dropout import TAG_OUT_DROP, hashed_dropout
+from stlt_tpu_torch.parallel.mesh import clip_span
 
 
 def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> ClassificationHead:
@@ -82,12 +84,13 @@ def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> Classi
 
 def _output_dropout(module: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
     """A sublayer's output dropout in train mode (flax ``nn.Dropout`` in
-    JAX): hashed keep bits from one seed of ``generator``."""
+    JAX): hashed keep bits from one seed of ``generator``, at the global
+    tokens of h's clips (``parallel/mesh.clip_span``)."""
     rate = module.dropout_rate
     if not module.training or rate <= 0.0:
         return h
     (seed,) = draw_seeds(generator, 1)
-    return hashed_dropout(h, seed, TAG_OUT_DROP, rate)
+    return hashed_dropout(h, seed, TAG_OUT_DROP, rate, clip_span(h.shape[0])[0] * h.shape[1])
 
 
 class FeedforwardModule(nn.Module):
@@ -127,7 +130,8 @@ class _AttentionLayer(nn.Module):
         seed = None
         if self.training and self.dropout_rate > 0.0:
             (seed,) = draw_seeds(generator, 1)
-        h = _output_dropout(self, self.attn(x, bias, seed=seed, context=context), generator)
+        h = self.attn(x, bias, seed=seed, context=context, row0=clip_span(x.shape[0])[0])
+        h = _output_dropout(self, h, generator)
         return apply_layer_norm(h + x, self.ln.weight, self.ln.bias, self.eps, self.dtype)
 
 

@@ -55,6 +55,13 @@ The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
 (attention, tail), where JAX draws two from its ``dropout`` stream; the
 encoder draws them from a ``torch.Generator`` it is given.
+
+Every dropout site hashes (or draws) its bits at GLOBAL coordinates, as
+JAX's GSPMD step does: a layer takes ``row0``, the global index of its
+first row, and its attention hashes at rows ``row0 + b`` and its tail at
+tokens ``row0 * T + i``. Under a data axis (``parallel/mesh.clip_span``) a
+rank's rows are a slice of the global batch, so N data ranks drop exactly
+what one process drops on the whole batch; without one ``row0`` is 0.
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ from stlt_tpu_torch.ops.attention import dot_product_attention
 from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import _device_seed, ring_attention
-from stlt_tpu_torch.parallel.mesh import active_context_mesh
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -121,12 +128,17 @@ def off_ring_seed(seed: int) -> int:
 def embedding_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """flax ``nn.Dropout``: keep with probability 1-rate, kept values divided
     by 1-rate in x's dtype. The mask is drawn on x's device from a generator
-    seeded by one draw of ``generator`` (:func:`off_ring_seed`)."""
+    seeded by one draw of ``generator`` (:func:`off_ring_seed`), over the
+    global batch's shape (x's clips are rows [first, first + n) of it,
+    :func:`parallel.mesh.clip_span`), and x takes its rows: a data rank
+    drops what one process drops on those clips."""
     if rate <= 0.0:
         return x
     seed = off_ring_seed(draw_seeds(generator, 1)[0])
+    first, total = clip_span(x.shape[0])
     device_gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=device_gen, device=x.device) >= rate
+    keep = torch.rand((total, *x.shape[1:]), generator=device_gen, device=x.device)
+    keep = keep[first:first + x.shape[0]] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -170,24 +182,27 @@ class MultiHeadAttention(nn.Module):
         init_linear_(self.out_proj, generator, zero_bias=True)
 
     def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None,
-                kv_lengths=None, context=None) -> torch.Tensor:
+                kv_lengths=None, context=None, row0: int = 0) -> torch.Tensor:
         """``kv_lengths`` [B]: per-row live key counts (pads tail-contiguous),
         used in place of ``bias`` from ``_BLOCKWISE_MIN_SEQ`` tokens on;
         ``context`` [B, S, H]: the keys and values of a cross-attention
-        (queries from x), see :meth:`_cross_attention`."""
+        (queries from x), see :meth:`_cross_attention`; ``row0``: the global
+        index of x's first row, at which the dropout bits are hashed."""
         if context is not None:
-            return self._cross_attention(x, context, bias, seed)
+            return self._cross_attention(x, context, bias, seed, row0)
         ring = active_context_mesh() if self.seq_shard else None
         if ring is not None or x.shape[1] > fe._KERNEL_MAX_SEQ:
-            return self._projected_attention(x, bias, seed, kv_lengths, ring)
+            return self._projected_attention(x, bias, seed, kv_lengths, ring, row0)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, bias)
         kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
         if self.training:
-            return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate, **kw)
+            return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate,
+                                                 row0=row0, **kw)
         return fe.fused_proj_attention(*args, **kw)
 
-    def _projected_attention(self, x, bias, seed, kv_lengths, ring=None) -> torch.Tensor:
+    def _projected_attention(self, x, bias, seed, kv_lengths, ring=None,
+                             row0: int = 0) -> torch.Tensor:
         """T > 64 (``layers.py:315-374``), or any T under the ring: q/k/v
         from one plain product, viewed as [B, T, N, D] without a copy, the
         attention core (in train mode with the layer's dropout seed, its
@@ -212,10 +227,11 @@ class MultiHeadAttention(nn.Module):
             q, k, v, None if use_lengths else bias, causal=self.causal,
             kv_lengths=kv_lengths if use_lengths else None,
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
+            dropout_row0=row0,
         )
         return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
 
-    def _cross_attention(self, x, ctx, bias, seed) -> torch.Tensor:
+    def _cross_attention(self, x, ctx, bias, seed, row0: int = 0) -> torch.Tensor:
         """Cross-attention, JAX's dispatch (``layers.py:263-285, 315-374``):
         one parameter set, Wq the rows [0, H) of ``in_proj_weight`` and
         Wk, Wv the rows [H, 3H). In eval with T, S <= 64 it is one fused op
@@ -239,6 +255,7 @@ class MultiHeadAttention(nn.Module):
             q.unflatten(-1, (N, H // N)), kv[..., :H].unflatten(-1, (N, H // N)),
             kv[..., H:].unflatten(-1, (N, H // N)), bias, causal=self.causal,
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
+            dropout_row0=row0,
         )
         return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
 
@@ -266,20 +283,24 @@ class TransformerEncoderLayer(nn.Module):
         init_linear_(self.linear2, generator)
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None,
-                kv_lengths=None, clip_frames: int = 0) -> torch.Tensor:
+                kv_lengths=None, clip_frames: int = 0, row0: int = 0) -> torch.Tensor:
         """``seeds``: (attention, tail) uint32 dropout seeds, used in train
         mode with a nonzero dropout rate; ``kv_lengths``: see
         :meth:`MultiHeadAttention.forward`; ``clip_frames``: the clip length
-        of the model, which picks the train tail (0: short or unknown)."""
+        of the model, which picks the train tail (0: short or unknown);
+        ``row0``: the global index of x's first row (the tail's first token
+        is ``row0 * T``)."""
         if self.training:
             if self.dropout_rate > 0.0 and seeds is None:
                 raise ValueError("train mode with dropout needs the layer's two dropout seeds")
             attn_seed, tail_seed = seeds if seeds is not None else (None, None)
             attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed,
-                                      kv_lengths=kv_lengths)
+                                      kv_lengths=kv_lengths, row0=row0)
+            token0 = row0 * x.shape[1]
             if ftt.tail_train_wants(clip_frames):
-                return self._fused_train_tail(x, attn_out, tail_seed, rows_live, tokens_live)
-            return self._train_tail(x, attn_out, tail_seed)
+                return self._fused_train_tail(x, attn_out, tail_seed, rows_live, tokens_live,
+                                              token0)
+            return self._train_tail(x, attn_out, tail_seed, token0)
         attn_out = self.self_attn(x, bias, rows_live=rows_live, kv_lengths=kv_lengths)
         return fe.fused_layer_tail(
             x, attn_out, self.norm1.weight, self.norm1.bias,
@@ -293,7 +314,7 @@ class TransformerEncoderLayer(nn.Module):
         )
 
     def _fused_train_tail(self, x, attn_out, seed: Optional[int], rows_live,
-                          tokens_live) -> torch.Tensor:
+                          tokens_live, token0: int = 0) -> torch.Tensor:
         """The fused train tail (``layers.py:480-510``): one op, forward and
         backward, dead tokens zeroed."""
         return ftt.fused_layer_tail_train(
@@ -304,24 +325,25 @@ class TransformerEncoderLayer(nn.Module):
             eps=self.layer_norm_eps, compute_dtype=self.dtype, activation=self.activation,
             gelu_approximate=self.dtype == torch.bfloat16,
             dropout_rate=self.dropout_rate, seed=seed if self.dropout_rate > 0.0 else None,
-            rows_live=rows_live, tokens_live=tokens_live,
+            rows_live=rows_live, tokens_live=tokens_live, token0=token0,
         )
 
-    def _train_tail(self, x, attn_out, seed: Optional[int]) -> torch.Tensor:
+    def _train_tail(self, x, attn_out, seed: Optional[int], token0: int = 0) -> torch.Tensor:
         """The plain train tail (``layers.py:512-561``): hashed dropout on the
         attention output, on the activation and on the FFN output, each its
-        own stream of one seed; no dead-token zeroing, as in JAX."""
+        own stream of one seed at the global tokens from ``token0``; no
+        dead-token zeroing, as in JAX."""
         dt, rate = self.dtype, self.dropout_rate
         drop = rate > 0.0
         if drop:
-            attn_out = hashed_dropout(attn_out, seed, TAG_ATTN_DROP, rate)
+            attn_out = hashed_dropout(attn_out, seed, TAG_ATTN_DROP, rate, token0)
         u = apply_layer_norm(x + attn_out, self.norm1.weight, self.norm1.bias, self.layer_norm_eps, dt)
         h = activation_fn(self.activation, dt)(apply_dense(u, self.linear1, dt))
         if drop:
-            h = hashed_dropout(h, seed, TAG_MID_DROP, rate)
+            h = hashed_dropout(h, seed, TAG_MID_DROP, rate, token0)
         h = apply_dense(h, self.linear2, dt)
         if drop:
-            h = hashed_dropout(h, seed, TAG_OUT_DROP, rate)
+            h = hashed_dropout(h, seed, TAG_OUT_DROP, rate, token0)
         return apply_layer_norm(u + h, self.norm2.weight, self.norm2.bias, self.layer_norm_eps, dt)
 
 
@@ -355,12 +377,12 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None,
                 generator: Optional[torch.Generator] = None, kv_lengths=None,
-                clip_frames: int = 0) -> torch.Tensor:
+                clip_frames: int = 0, row0: int = 0) -> torch.Tensor:
         """In train mode with dropout, each layer's (attention, tail) seeds
         are drawn from ``generator``, layer by layer, and folded by
         :func:`off_ring_seed` (a ring attention's seed is folded by the ring
-        itself); ``clip_frames`` goes to every layer
-        (:meth:`TransformerEncoderLayer.forward`)."""
+        itself); ``clip_frames`` and ``row0`` (x's first global row) go to
+        every layer (:meth:`TransformerEncoderLayer.forward`)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             seeds = None
@@ -370,7 +392,7 @@ class TransformerEncoder(nn.Module):
                     attn_seed = off_ring_seed(attn_seed)
                 seeds = (attn_seed, off_ring_seed(tail_seed))
             kw = dict(rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
-                      kv_lengths=kv_lengths, clip_frames=clip_frames)
+                      kv_lengths=kv_lengths, clip_frames=clip_frames, row0=row0)
             if remat:
                 x = checkpoint(layer, x, bias, use_reentrant=False, preserve_rng_state=False, **kw)
             else:

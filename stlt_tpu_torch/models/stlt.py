@@ -57,6 +57,13 @@ ring again, and each rank's backbone gradients are its part of the whole,
 which the train step sums over the ring (``training/loop.py``). The
 dropout sites off the ring fold the context index into their seeds
 (``layers.off_ring_seed``).
+
+Under a data axis (``--num_processes N``, ``parallel/mesh.py``) each rank
+runs the whole model on its clips of the global batch; every dropout site
+hashes or draws its bits at the global clips (``parallel/mesh.clip_span``:
+the spatial encoder's rows from ``clip0 * F``, the temporal encoder's from
+``clip0``, the embedding masks as the rank's rows of the global batch's),
+so the ranks drop what one process drops on the whole batch.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from stlt_tpu_torch.models.layers import (
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import context_sum
-from stlt_tpu_torch.parallel.mesh import active_context_mesh
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
 from stlt_tpu_torch.training.loop import shard_frames
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
@@ -214,7 +221,7 @@ class SpatialTransformer(nn.Module):
             cls = torch.zeros((B * F, H), dtype=compact.dtype, device=compact.device)
             return cls.index_copy(0, idx, compact[:, 0, :]).reshape(B, F, H)
         tokens = self.transformer(tokens, pad_bias, rows_live=rows_live, generator=generator,
-                                  clip_frames=F)
+                                  clip_frames=F, row0=clip_span(B)[0] * F)
         return tokens[:, 0, :].reshape(B, F, H)  # the frame-CLS token
 
 
@@ -280,7 +287,8 @@ class StltBackbone(nn.Module):
                 masks.frames_padding_mask(batch["frame_types"])
             )
         return self.transformer(emb, bias, tokens_live=tokens_live, generator=generator,
-                                kv_lengths=kv_lengths, clip_frames=num_frames)  # [B, F, H]
+                                kv_lengths=kv_lengths, clip_frames=num_frames,
+                                row0=clip_span(emb.shape[0])[0])  # [B, F, H]
 
     def _sharded(self, batch, generator, ring) -> torch.Tensor:
         """This context rank's frames through the backbone: the live tokens

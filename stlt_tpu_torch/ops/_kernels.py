@@ -42,8 +42,9 @@ SIGNATURES = {
         # model stores them, [3H, H] and [H, H]), bias, bias_row_stride,
         # bias_q_stride, rows_live, out, scratch (bf16: qkv, o and the
         # packed rows; null in f32), rows, seq, hidden, num_heads, scale,
-        # dropout, seed, thresh, dropout_scale, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _P],
+        # dropout, seed, thresh, dropout_scale, row_base, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _I,
+         _P],
     ),
     "fused_proj_attention_bwd": (
         "stlt_fused_proj_attention_bwd",
@@ -54,32 +55,32 @@ SIGNATURES = {
         # rows), partial [splits, H, H], partial_b [splits, H] (f32; in bf16
         # views of the scratch), dwo, dbo,
         # rows, seq, hidden, num_heads, scale, dropout, seed, thresh,
-        # dropout_scale, splits, chunk, dtype, stream
+        # dropout_scale, row_base, splits, chunk, dtype, stream
         [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _I, _LL, _I, _P],
+         _I, _U, _U, _F, _U, _I, _LL, _I, _P],
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
         # x, a, n1s, n1b, w1 (stored [FF, H]), b1, w2 (stored [H, FF]), b2,
         # n2s, n2b, live, out, r2 (null in eval), scratch (bf16: u and h1;
         # null in f32), tokens, hidden, ff, eps, act, dropout, seed, thresh,
-        # dropout_scale, dtype, stream
+        # dropout_scale, token_base, dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-         _I, _U, _U, _F, _I, _P],
+         _I, _U, _U, _F, _LL, _I, _P],
     ),
     "fused_tail_train_bwd_row": (
         "stlt_tail_train_bwd_row",
         # r2, g, n2s, live, dr2, partial, out, tokens, hidden, eps, dropout,
-        # seed, thresh, dropout_scale, blocks, chunk, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _U, _U, _F, _I, _LL, _I, _P],
+        # seed, thresh, dropout_scale, token_base, blocks, chunk, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _U, _U, _F, _LL, _I, _LL, _I, _P],
     ),
     "fused_tail_train_bwd_input": (
         "stlt_tail_train_bwd_input",
         # x, a, dr2, n1s, n1b, w1 (stored [FF, H]), b1, w2 (W2^T stored
         # [H, FF]), live, dx, dattn, u, dh2, dh1, h1d, du (bf16), rows (bf16),
         # partial_ln, partial_b1, out, tokens, hidden, ff, eps, act, dropout,
-        # seed, thresh, dropout_scale, blocks, dtype, stream
-        [*[_P] * 20, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _I, _I, _P],
+        # seed, thresh, dropout_scale, token_base, blocks, dtype, stream
+        [*[_P] * 20, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _LL, _I, _I, _P],
     ),
     "fused_tail_train_bwd_weight": (
         "stlt_tail_train_bwd_weight",
@@ -100,35 +101,38 @@ SIGNATURES = {
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
         # lse (or null), B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
+        # dropout_scale, row_base, mask (or null), its (b, n, t) strides,
+        # dtype, stream
         [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
+         _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention": (
         "stlt_blockwise_attention",
         # q, k, v, their (b, t, n) strides, bias (or null), its (b, n, t)
         # strides, lengths (or null), causal, row0, col0 (ring offsets), out,
         # lse, B, T, S, N, D, scale, dropout, seed, thresh, dropout_scale,
-        # mask (or null), its (b, n, t) strides, dtype, stream
+        # row_base, mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-         _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
+         _F, _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
     "flash_attention_bwd": (
         "stlt_flash_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias, its (b, n, t) strides,
         # lse, dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
+        # dropout_scale, row_base, mask (or null), its (b, n, t) strides,
+        # dtype, stream
         [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention_bwd": (
         "stlt_blockwise_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias (or null), its (b, n, t)
         # strides, lengths (or null), causal, row0, col0 (ring offsets), lse,
         # dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, mask (or null), its (b, n, t) strides, dtype, stream
+        # dropout_scale, row_base, mask (or null), its (b, n, t) strides,
+        # dtype, stream
         [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P, _LL, _LL, _LL, _I, _P],
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
 }
 

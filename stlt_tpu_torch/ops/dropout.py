@@ -64,12 +64,13 @@ def keep_block(seed: int, b0: int, n: int, t0: int, s0: int, shape, num_heads: i
 
 
 def hash_keep_mask(seed: int, B: int, N: int, T: int, S: int, rate: float,
-                   device=None) -> torch.Tensor:
+                   device=None, b0: int = 0) -> torch.Tensor:
     """Keep bits [B, N, T, S] (bool) of the attention-probability dropout:
-    ``hash_keep_mask``."""
+    ``hash_keep_mask``; with ``b0`` the rows [b0, b0 + B) of a batch's
+    bits (``hash_keep_mask(seed, b0 + B, ...)[b0:]``)."""
     thresh = dropout_thresh(rate)
     return torch.stack(
-        [keep_block(seed, 0, n, 0, 0, (B, T, S), N, S, thresh, device) for n in range(N)], dim=1
+        [keep_block(seed, b0, n, 0, 0, (B, T, S), N, S, thresh, device) for n in range(N)], dim=1
     )
 
 
@@ -86,15 +87,18 @@ def keep_rows(seed: int, tag: int, r0: int, f0: int, shape, width: int, thresh: 
 
 
 def hash_keep_rows(seed: int, tag: int, rows: int, width: int, rate: float,
-                   device=None) -> torch.Tensor:
-    """Keep bits [rows, width] (bool) of one tail stream: ``hash_keep_rows``."""
-    return keep_rows(seed, tag, 0, 0, (rows, width), width, dropout_thresh(rate), device)
+                   device=None, r0: int = 0) -> torch.Tensor:
+    """Keep bits [rows, width] (bool) of one tail stream: ``hash_keep_rows``;
+    with ``r0`` the token rows [r0, r0 + rows) of a batch's bits."""
+    return keep_rows(seed, tag, r0, 0, (rows, width), width, dropout_thresh(rate), device)
 
 
-def hashed_dropout(v: torch.Tensor, seed: int, tag: int, rate: float) -> torch.Tensor:
+def hashed_dropout(v: torch.Tensor, seed: int, tag: int, rate: float,
+                   token0: int = 0) -> torch.Tensor:
     """One tail dropout site: ``(v.f32 * keep * 1/(1-rate)).to(v.dtype)`` with
-    the stream of ``tag`` over ``v``'s tokens (all but the last dim)."""
+    the stream of ``tag`` over ``v``'s tokens (all but the last dim), the
+    first of them the global token ``token0``."""
     width = v.shape[-1]
-    keep = hash_keep_rows(seed, tag, v.numel() // width, width, rate, v.device)
+    keep = hash_keep_rows(seed, tag, v.numel() // width, width, rate, v.device, token0)
     keep = keep.reshape(v.shape).to(torch.float32)
     return (v.to(torch.float32) * keep * (1.0 / (1.0 - rate))).to(v.dtype)

@@ -221,20 +221,22 @@ def check_mask(op: str, dropout_mask, B: int, N: int, T: int, S: int) -> None:
                          f"{S}], got {list(shape)}")
 
 
-def _keepc(B, N, T, S, device, dropout_mask, dropout_rate, dropout_seed):
+def _keepc(B, N, T, S, device, dropout_mask, dropout_rate, dropout_seed, dropout_row0: int = 0):
     """The scaled keep mask [B, N, T, S] f32 (keep * 1/(1 - rate)), or None
-    without dropout."""
+    without dropout; a seed's bits hashed at the global rows from
+    ``dropout_row0``."""
     if dropout_mask is not None:
         check_mask("attention", dropout_mask, B, N, T, S)
         keep = dropout_mask.to(device=device, dtype=torch.float32)
     elif dropout_seed is not None and dropout_rate > 0.0:
-        keep = hash_keep_mask(int(dropout_seed), B, N, T, S, dropout_rate, device).to(torch.float32)
+        keep = hash_keep_mask(int(dropout_seed), B, N, T, S, dropout_rate, device,
+                              dropout_row0).to(torch.float32)
     else:
         return None
     return keep * (1.0 / (1.0 - dropout_rate))
 
 
-def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed):
+def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed, dropout_row0=0):
     """f32 (probabilities [B, N, T, S], after dropout; values [B, N, S, D];
     the row max and the row sum of exp, each [B, N, T])."""
     B, T, N, D = q.shape
@@ -247,24 +249,25 @@ def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed):
     probs = torch.exp(logits - m)
     l = probs.sum(dim=-1, keepdim=True)
     probs = probs / l
-    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed)
+    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0)
     if keepc is not None:
         probs = probs * keepc
     return probs, vt, m[..., 0], l[..., 0]
 
 
 def fused_attention_plain(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: float = 0.0,
-                          dropout_seed=None, with_lse: bool = False):
+                          dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0):
     """Plain PyTorch version of :func:`fused_attention`."""
     _check_dropout(dropout_mask, dropout_rate, dropout_seed)
-    probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed)
+    probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed,
+                                     dropout_row0)
     out = (probs @ vt).transpose(1, 2).to(v.dtype)
     return (out, m + torch.log(l)) if with_lse else out
 
 
 def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bool = False,
                               dropout_mask=None, dropout_rate: float = 0.0, dropout_seed=None,
-                              offsets=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                              offsets=None, dropout_row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`blockwise_attention`: (out [B, T, N, D]
     in v's dtype, lse [B, N, T] f32). In lengths mode the dead query rows
     ``row0 + t >= kv_lengths[b]`` are zeros with lse 0; with ring offsets a
@@ -280,7 +283,8 @@ def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bo
         bias = _offsets_bias(kv_lengths.to(q.device), T, S, causal, (row0, col0))
     elif kv_lengths is not None:
         bias = _lengths_dense_bias(kv_lengths.to(q.device), T, S, causal)
-    probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed)
+    probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed,
+                                     dropout_row0)
     out = (probs @ vt).transpose(1, 2)
     lse = m + torch.log(l)
     if kv_lengths is not None:
@@ -297,7 +301,8 @@ def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bo
 
 def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
                         causal: bool = False, dropout_mask=None, dropout_rate: float = 0.0,
-                        dropout_seed=None, offsets=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dropout_seed=None, offsets=None,
+                        dropout_row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of both backward kernels: (dq, dk, dv) in q's,
     k's and v's dtypes, from the forward's lse [B, N, T] and dsum =
     rowsum(dO o out) [B, N, T] (see the module docstring). In lengths mode
@@ -329,7 +334,7 @@ def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
         ds = torch.where(live, ds, zero)
     dp = dot @ vt.transpose(-1, -2)
     pk = p
-    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed)
+    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0)
     if keepc is not None:
         pk = p * keepc
         dp = dp * keepc
@@ -398,16 +403,19 @@ def mask_bytes(dropout_mask) -> torch.Tensor:
     return (dropout_mask != 0).to(torch.uint8)
 
 
-def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S: int):
-    """(the kernels' dropout arguments: on, seed, thresh, scale, then the
-    mask's pointer (or None) and its (b, n, t) element strides, n's 0 when
-    the heads share it; the uint8 mask the pointer reads, kept alive by the
-    caller until the launch, or None)."""
+def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S: int,
+                  dropout_row0: int = 0):
+    """(the kernels' dropout arguments: on, seed, thresh, scale, the row
+    base (the global index of q's first row, mod 2**32; 0 in mask mode,
+    whose mask holds the rows' own bits), then the mask's pointer (or None)
+    and its (b, n, t) element strides, n's 0 when the heads share it; the
+    uint8 mask the pointer reads, kept alive by the caller until the launch,
+    or None)."""
     if dropout_mask is None:
         if dropout_seed is None or dropout_rate <= 0.0:
-            return (0, 0, 0, 0.0, None, 0, 0, 0), None
+            return (0, 0, 0, 0.0, 0, None, 0, 0, 0), None
         return (1, int(dropout_seed) & MASK32, dropout_thresh(dropout_rate),
-                1.0 / (1.0 - dropout_rate), None, 0, 0, 0), None
+                1.0 / (1.0 - dropout_rate), int(dropout_row0) & MASK32, None, 0, 0, 0), None
     B, T, N, _ = q.shape
     check_mask(op, dropout_mask, B, N, T, S)
     if dropout_mask.device != q.device:
@@ -416,7 +424,7 @@ def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S
     if m.stride(3) != 1:
         m = m.contiguous()
     mn = 0 if m.shape[1] == 1 else m.stride(1)
-    return (1, 0, 0, 1.0 / (1.0 - dropout_rate), m.data_ptr(), m.stride(0), mn, m.stride(2)), m
+    return (1, 0, 0, 1.0 / (1.0 - dropout_rate), 0, m.data_ptr(), m.stride(0), mn, m.stride(2)), m
 
 
 def _bias_view(op, bias, B, N, T, S, device):
@@ -443,7 +451,7 @@ def _stream(device) -> int:
 
 
 def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: float = 0.0,
-                    dropout_seed=None, with_lse: bool = False):
+                    dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0):
     """``drop(softmax(q k^T / sqrt(D) + bias)) v`` over whole rows (the short
     kernel, 65-512 tokens in the models). q: [B, T, N, D]; k, v: [B, S, N,
     D], read through their strides; bias: f32, broadcastable to [B, N, T,
@@ -452,12 +460,12 @@ def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: floa
     if _on_cpu(q, "flash_attention"):
         return fused_attention_plain(q, k, v, bias, dropout_mask=dropout_mask,
                                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                                     with_lse=with_lse)
+                                     with_lse=with_lse, dropout_row0=dropout_row0)
     op = "flash_attention"
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
-    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=q.device) if with_lse else None
@@ -475,7 +483,7 @@ def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: floa
 
 def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = False,
                         dropout_mask=None, dropout_rate: float = 0.0, dropout_seed=None,
-                        offsets=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        offsets=None, dropout_row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blockwise kernel (``_blockwise_forward``): online softmax over key
     chunks. q: [B, T, N, D]; k, v: [B, S, N, D]. Lengths mode (kv_lengths:
     [B] int): key chunks above the diagonal (``causal``) or at and past the
@@ -486,7 +494,8 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
     no bias): every row computed, key chunks above the diagonal skipped with
     ``causal``. Returns (out [B, T, N, D] in v's dtype, lse [B, N, T] f32)."""
     kw = dict(bias=bias, kv_lengths=kv_lengths, causal=causal, dropout_mask=dropout_mask,
-              dropout_rate=dropout_rate, dropout_seed=dropout_seed, offsets=offsets)
+              dropout_rate=dropout_rate, dropout_seed=dropout_seed, offsets=offsets,
+              dropout_row0=dropout_row0)
     if _on_cpu(q, "blockwise_attention"):
         return blockwise_attention_plain(q, k, v, **kw)
     op = "blockwise_attention"
@@ -497,7 +506,7 @@ def blockwise_attention(q, k, v, *, bias=None, kv_lengths=None, causal: bool = F
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
-    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
     lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
@@ -542,19 +551,20 @@ def _bwd_operands(op, q, k, v, dout, lse, dsum):
 
 
 def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=None,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None, dropout_row0: int = 0):
     """The short kernel's backward (``_fused_backward``): (dq, dk, dv) of
     :func:`fused_attention` for the cotangent ``dout`` [B, T, N, D], from its
     lse and ``dsum = rowsum(dout o out)`` (both [B, N, T] f32). Returns
     contiguous tensors in q's dtype."""
     if _on_cpu(q, "flash_attention_bwd"):
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, dropout_mask=dropout_mask,
-                                   dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                                   dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                                   dropout_row0=dropout_row0)
     op = "flash_attention_bwd"
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
-    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
@@ -570,7 +580,7 @@ def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=Non
 
 def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
                             causal: bool = False, dropout_mask=None, dropout_rate: float = 0.0,
-                            dropout_seed=None, offsets=None):
+                            dropout_seed=None, offsets=None, dropout_row0: int = 0):
     """The blockwise kernels' backward (``_blockwise_backward``): (dq, dk,
     dv) of :func:`blockwise_attention` for the cotangent ``dout``, from its
     lse and ``dsum`` (0 on dead rows), in the forward's modes. Chunks and
@@ -583,7 +593,7 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, kv_lengths=kv_lengths,
                                    causal=causal, dropout_mask=dropout_mask,
                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                                   offsets=offsets)
+                                   offsets=offsets, dropout_row0=dropout_row0)
     op = "blockwise_attention_bwd"
     _check_bias(bias, kv_lengths)
     if offsets is not None and kv_lengths is None:
@@ -592,7 +602,7 @@ def blockwise_attention_bwd(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=N
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
-    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S)
+    drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
     lengths = None if kv_lengths is None else _lengths_arg(op, kv_lengths, B, q.device)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
@@ -650,12 +660,14 @@ def flash_attention(
     dropout_seed: Optional[int] = None,
     causal: bool = False,
     kv_lengths: Optional[torch.Tensor] = None,
+    dropout_row0: int = 0,
 ) -> torch.Tensor:
     """q: [B, T, N, D]; k, v: [B, S, N, D]; bias broadcastable to [B, N, T,
     S], or ``kv_lengths`` [B] int (+ ``causal``) for the key-padding+causal
     form. ``causal`` declares that the bias is causal; in lengths mode it
     also masks keys above the diagonal. ``dropout_seed`` (a uint32) with
-    ``dropout_rate`` drops probabilities with hashed keep bits, a
+    ``dropout_rate`` drops probabilities with hashed keep bits (at the
+    global rows from ``dropout_row0``: a slice of a batch), a
     ``dropout_mask`` [B, 1|N, T, S] with the caller's (see the module
     docstring). Returns [B,
     T, N, D] in v's dtype. From 513 tokens on the blockwise kernel runs (in
@@ -669,7 +681,8 @@ def flash_attention(
     if dropout_mask is not None:
         check_mask("flash_attention", dropout_mask, q.shape[0], q.shape[2], T, S)
     blockwise = max(T, S) >= _BLOCKWISE_MIN_SEQ
-    kw = dict(dropout_mask=dropout_mask, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    kw = dict(dropout_mask=dropout_mask, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+              dropout_row0=dropout_row0)
     if blockwise:
         kw.update(bias=bias, kv_lengths=kv_lengths, causal=causal)
     elif kv_lengths is not None:

@@ -195,12 +195,14 @@ def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device,
 # --- projection + attention ---------------------------------------------------
 
 
-def _keep_scale(seed: Optional[int], dropout_rate: float, B: int, N: int, T: int, device):
-    """keep * 1/(1-rate) [B, N, T, T] f32 of the probability dropout, or None
-    when it is off (no seed or rate 0), as in ``_fused_proj_train_fwd``."""
+def _keep_scale(seed: Optional[int], dropout_rate: float, B: int, N: int, T: int, device,
+                row0: int = 0):
+    """keep * 1/(1-rate) [B, N, T, T] f32 of the probability dropout at the
+    global rows [row0, row0 + B), or None when it is off (no seed or rate
+    0), as in ``_fused_proj_train_fwd``."""
     if seed is None or dropout_rate <= 0.0:
         return None
-    keep = hash_keep_mask(seed, B, N, T, T, dropout_rate, device).to(torch.float32)
+    keep = hash_keep_mask(seed, B, N, T, T, dropout_rate, device, row0).to(torch.float32)
     return keep * (1.0 / (1.0 - dropout_rate))
 
 
@@ -279,11 +281,14 @@ def _bias_operand(bias, B: int, T: int, device, keys: Optional[int] = None):
     return b3, row_stride, q_stride
 
 
-def _dropout_args(seed: Optional[int], dropout_rate: float):
-    """(on, seed, thresh, 1/(1-rate)) of the kernels' probability dropout."""
+def _dropout_args(seed: Optional[int], dropout_rate: float, base: int = 0):
+    """(on, seed, thresh, 1/(1-rate), base) of the kernels' dropout: ``base``
+    the global index of the launch's first row (the attention kernels take
+    it mod 2**32, the lane's wrap) or token (the tails)."""
     if seed is None or dropout_rate <= 0.0:
-        return 0, 0, 0, 0.0
-    return 1, int(seed) & MASK32, dropout_thresh(dropout_rate), 1.0 / (1.0 - dropout_rate)
+        return 0, 0, 0, 0.0, 0
+    return (1, int(seed) & MASK32, dropout_thresh(dropout_rate), 1.0 / (1.0 - dropout_rate),
+            int(base))
 
 
 def _live_flags(rows_live, B: int):
@@ -291,7 +296,7 @@ def _live_flags(rows_live, B: int):
 
 
 def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, rows_live,
-                 seed=None, dropout_rate=0.0, scratch=None) -> torch.Tensor:
+                 seed=None, dropout_rate=0.0, scratch=None, row0: int = 0) -> torch.Tensor:
     """Launch csrc/fused_proj_attention.cu (eval, or train with dropout).
     bf16 reads ``wqkv`` and ``wo`` in the storage of the model's
     ``in_proj_weight`` / ``out_proj.weight`` (their ``.t()`` is what the
@@ -322,7 +327,7 @@ def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, r
             None if live is None else live.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
-            *_dropout_args(seed, dropout_rate), code, stream,
+            *_dropout_args(seed, dropout_rate, row0 & MASK32), code, stream,
         )
     LAUNCHES[op] += 1
     return out
@@ -356,13 +361,14 @@ def fused_proj_attention(
 
 def fused_proj_attention_train_plain(
     x, wqkv, bqkv, wo, bo, bias, seed: Optional[int], *, num_heads: int,
-    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the train forward: the eval function with
     each probability multiplied by keep * 1/(1-rate) before the product with
-    v. Returns [B, T, H] in the compute dtype."""
+    v, the keep bits those of the global rows [row0, row0 + B). Returns [B,
+    T, H] in the compute dtype."""
     B, T, _ = x.shape
-    keep = _keep_scale(seed, dropout_rate, B, num_heads, T, x.device)
+    keep = _keep_scale(seed, dropout_rate, B, num_heads, T, x.device, row0)
     return _proj_attention_plain(
         x, wqkv, bqkv, wo, bo, bias, keep, num_heads, compute_dtype, rows_live
     ).to(compute_dtype)
@@ -370,7 +376,7 @@ def fused_proj_attention_train_plain(
 
 def fused_proj_attention_train_bwd_plain(
     x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *, num_heads: int,
-    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: int = 0,
 ):
     """Plain PyTorch version of the backward kernel, step for step as
     ``_fused_proj_bwd_body``: (dqkv [B, T, 3H] in the compute dtype, dWo
@@ -387,7 +393,7 @@ def fused_proj_attention_train_bwd_plain(
     do = dattn.reshape(B, T, N, D).transpose(1, 2)
     dp = do @ v.transpose(-1, -2)
     pv = p
-    keep = _keep_scale(seed, dropout_rate, B, N, T, x.device)
+    keep = _keep_scale(seed, dropout_rate, B, N, T, x.device, row0)
     if keep is not None:
         pv = p * keep
         dp = dp * keep
@@ -476,7 +482,7 @@ def proj_bwd_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int) -> dic
 
 
 def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rate,
-                     compute_dtype, rows_live, scratch=None):
+                     compute_dtype, rows_live, scratch=None, row0: int = 0):
     """Launch csrc/fused_proj_attention_bwd.cu. bf16 (``launch_tc``) reads
     Wqkv and Wo in place (:func:`proj_bwd_weights`) and works in ``scratch``
     (:func:`proj_bwd_scratch`; allocated when None): the row scan and the
@@ -533,7 +539,7 @@ def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rat
             None if live is None else live.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(),
             partial_ptr, partial_b_ptr, dwo.data_ptr(), dbo.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
-            *_dropout_args(seed, dropout_rate), splits, chunk, code, stream,
+            *_dropout_args(seed, dropout_rate, row0 & MASK32), splits, chunk, code, stream,
         )
     LAUNCHES[op] += 1
     return dqkv, dwo, dbo
@@ -564,10 +570,10 @@ def proj_input_grads(x, wqkv, dqkv, compute_dtype):
 class _ProjAttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wo, bo, bias, rows_live, seed, num_heads, dropout_rate,
-                compute_dtype):
+                compute_dtype, row0=0):
         ctx.save_for_backward(x, wqkv, bqkv, wo, bias, rows_live)
         ctx.config = dict(num_heads=num_heads, dropout_rate=dropout_rate,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, row0=row0)
         ctx.seed = seed
         kw = dict(ctx.config, rows_live=rows_live)
         if _on_cpu(x, "fused_proj_attention_train"):
@@ -589,7 +595,7 @@ class _ProjAttentionTrain(torch.autograd.Function):
         else:
             dqkv, dwo, dbo = _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
         dx, dwqkv, dbqkv = proj_input_grads(x, wqkv, dqkv, ctx.config["compute_dtype"])
-        return dx, dwqkv, dbqkv, dwo, dbo, None, None, None, None, None, None
+        return dx, dwqkv, dbqkv, dwo, dbo, None, None, None, None, None, None, None
 
 
 def fused_proj_attention_train(
@@ -605,9 +611,11 @@ def fused_proj_attention_train(
     dropout_rate: float,
     compute_dtype: torch.dtype,
     rows_live: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Differentiable train-mode :func:`fused_proj_attention` with hashed
-    probability dropout (``seed``: a uint32 or None for none). x in the
+    probability dropout (``seed``: a uint32 or None for none; ``row0`` the
+    global index of x's first row, at which the keep bits are hashed). x in the
     compute dtype; returns [B, T, H] in it. Forward and backward launch
     ``csrc/fused_proj_attention.cu`` (with dropout) and
     ``csrc/fused_proj_attention_bwd.cu`` on a CUDA tensor and take their
@@ -615,7 +623,7 @@ def fused_proj_attention_train(
     :func:`proj_input_grads`. The bias gets no gradient."""
     return _ProjAttentionTrain.apply(
         x, wqkv, bqkv, wo, bo, bias, rows_live, seed, num_heads, float(dropout_rate),
-        compute_dtype,
+        compute_dtype, int(row0),
     )
 
 
@@ -761,7 +769,7 @@ def projection_plain(a: torch.Tensor, w_stored: torch.Tensor, b: torch.Tensor, c
 
 
 def short_attention_plain(q, k, v, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
-                          dropout_rate: float = 0.0) -> torch.Tensor:
+                          dropout_rate: float = 0.0, row0: int = 0) -> torch.Tensor:
     """The short-attention stage (``sublayer.cuh::attn_body``) on packed
     rows. q [R, T, H], k and v [R, S, H] hold compute-dtype values; packed
     row r is the original row ``rows[r]`` (None: r), by which the bias3
@@ -785,14 +793,15 @@ def short_attention_plain(q, k, v, bias3, rows, *, num_heads: int, seed: Optiona
     probs = torch.exp(logits)
     probs = probs / probs.sum(dim=-1, keepdim=True)
     if seed is not None and dropout_rate > 0.0 and R:
-        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, S, dropout_rate, q.device)[orig]
+        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, S, dropout_rate, q.device,
+                              row0)[orig]
         probs = probs * (keep.to(f32) * (1.0 / (1.0 - dropout_rate)))
     return (probs @ heads(v, S)).transpose(1, 2).reshape(R, T, H).to(q.dtype)
 
 
 def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads: int,
                                       compute_dtype, rows_live=None, seed: Optional[int] = None,
-                                      dropout_rate: float = 0.0) -> torch.Tensor:
+                                      dropout_rate: float = 0.0, row0: int = 0) -> torch.Tensor:
     """The bf16 kernels' split (``csrc/fused_proj_attention.cu``
     ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows,
     the QKV GEMM on their tokens (rounded to the compute dtype), the short
@@ -807,14 +816,14 @@ def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads:
     qkv = projection_plain(x[live].reshape(count * T, H), wqkv.t(), bqkv, cd).to(cd)
     q, k, v = qkv.reshape(count, T, 3 * H).split(H, dim=-1)
     o = short_attention_plain(q, k, v, _bias3(bias, B, T, x.device), live, num_heads=num_heads,
-                              seed=seed, dropout_rate=dropout_rate)
+                              seed=seed, dropout_rate=dropout_rate, row0=row0)
     y = torch.zeros((B, T, H), dtype=torch.float32, device=x.device)
     y[live] = projection_plain(o.reshape(count * T, H), wo.t(), bo, cd).reshape(count, T, H)
     return y
 
 
 def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0, row0: int = 0):
     """The short-attention backward stage of the bf16 backward
     (``csrc/fused_proj_attention_bwd.cu`` ``proj_bwd_attn_kernel``) on
     packed rows, step for step as ``_fused_proj_bwd_body``. q, k, v [R, T,
@@ -845,7 +854,8 @@ def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed:
     dp = do @ v.transpose(-1, -2)
     pv = p
     if seed is not None and dropout_rate > 0.0 and R:
-        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, T, dropout_rate, q.device)[orig]
+        keep = hash_keep_mask(seed, int(orig.max()) + 1, N, T, T, dropout_rate, q.device,
+                              row0)[orig]
         keep = keep.to(f32) * (1.0 / (1.0 - dropout_rate))
         pv = p * keep
         dp = dp * keep
@@ -860,7 +870,7 @@ def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed:
 
 def fused_proj_attention_train_bwd_stages_plain(x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *,
                                                 num_heads: int, dropout_rate: float, compute_dtype,
-                                                rows_live=None):
+                                                rows_live=None, row0: int = 0):
     """The bf16 backward's split (``csrc/fused_proj_attention_bwd.cu``
     ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows of x
     and g (g rounded to the compute dtype); qkv = round(x_p Wqkv + bqkv) on
@@ -883,7 +893,7 @@ def fused_proj_attention_train_bwd_stages_plain(x, wqkv, bqkv, wo, bias, g, seed
     q, k, v = qkv.reshape(count, T, 3 * H).split(H, dim=-1)
     dqkv_p, attn = short_attention_bwd_plain(q, k, v, do.reshape(count, T, H), _bias3(bias, B, T, x.device),
                                              live, num_heads=num_heads, seed=seed,
-                                             dropout_rate=dropout_rate)
+                                             dropout_rate=dropout_rate, row0=row0)
     dqkv = torch.zeros((B, T, 3 * H), dtype=cd, device=x.device)
     dqkv[live] = dqkv_p.to(cd)
     dwo = attn.reshape(n, H).to(f32).t() @ gp
@@ -992,7 +1002,7 @@ def fused_layer_tail(
             w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(), b2v.data_ptr(),
             n2s.data_ptr(), n2b.data_ptr(), None if live is None else live.data_ptr(),
             out.data_ptr(), None, None if scratch is None else scratch.data_ptr(),
-            B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, code, stream,
+            B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, 0, code, stream,
         )
     LAUNCHES[op] += 1
     return out

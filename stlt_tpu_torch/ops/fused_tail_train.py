@@ -94,13 +94,16 @@ def tail_train_wants(clip_frames: int) -> bool:
 @dataclass(frozen=True)
 class TailConfig:
     """The op's static arguments. ``seed`` is a uint32 or None; dropout is on
-    when there is a seed and a positive rate, as in ``_prep`` (:791)."""
+    when there is a seed and a positive rate, as in ``_prep`` (:791).
+    ``token0``: the global index of the op's first token, at which its keep
+    bits are hashed (``ops/dropout.py::keep_rows``' ``r0``)."""
 
     eps: float
     activation: str = "gelu"
     gelu_approximate: bool = False
     dropout_rate: float = 0.0
     seed: Optional[int] = None
+    token0: int = 0
 
     @property
     def drop(self) -> bool:
@@ -111,7 +114,7 @@ class TailConfig:
         or None when dropout is off."""
         if not self.drop:
             return None
-        keep = keep_rows(self.seed, tag, 0, 0, tuple(like.shape), like.shape[1],
+        keep = keep_rows(self.seed, tag, self.token0, 0, tuple(like.shape), like.shape[1],
                          dropout_thresh(self.dropout_rate), like.device)
         return keep.to(f32) * (1.0 / (1.0 - self.dropout_rate))
 
@@ -319,7 +322,7 @@ def _launch_tail_train(x, attn, weights, cfg: TailConfig, live=None):
             vecs[3].data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), _ptr(live8),
             y.data_ptr(), r2.data_ptr(), _ptr(scratch), tokens, H, FF, float(cfg.eps),
             fe._act_code(cfg.activation, cfg.gelu_approximate),
-            *fe._dropout_args(cfg.seed, cfg.dropout_rate), code, _stream(x),
+            *fe._dropout_args(cfg.seed, cfg.dropout_rate, cfg.token0), code, _stream(x),
         )
     LAUNCHES[op] += 1
     return y, r2
@@ -343,7 +346,7 @@ def _launch_bwd_row(r2, g, n2s, cfg: TailConfig, live=None):
         _kernels.launch(
             op, r2.data_ptr(), g.data_ptr(), n2s.data_ptr(), _ptr(live8), dr2.data_ptr(),
             partial.data_ptr(), out.data_ptr(), tokens, H, float(cfg.eps),
-            *fe._dropout_args(cfg.seed, cfg.dropout_rate), blocks, chunk, code, _stream(r2),
+            *fe._dropout_args(cfg.seed, cfg.dropout_rate, cfg.token0), blocks, chunk, code, _stream(r2),
         )
     LAUNCHES[op] += 1
     return dr2, out[0], out[1], out[2]
@@ -395,7 +398,7 @@ def _launch_bwd_input(x, attn, dr2, weights, cfg: TailConfig, live=None):
             scratch["dh1"].data_ptr(), scratch["h1d"].data_ptr(), _ptr(du), _ptr(packed),
             partial_ln.data_ptr(), scratch["partial_b1"].data_ptr(), out.data_ptr(), tokens, H, FF,
             float(cfg.eps), fe._act_code(cfg.activation, cfg.gelu_approximate),
-            *fe._dropout_args(cfg.seed, cfg.dropout_rate), blocks, code, _stream(x),
+            *fe._dropout_args(cfg.seed, cfg.dropout_rate, cfg.token0), blocks, code, _stream(x),
         )
     LAUNCHES[op] += 1
     return dx, dattn, out[0], out[1], scratch
@@ -477,9 +480,11 @@ def fused_layer_tail_train(
     seed: Optional[int] = None,
     rows_live: Optional[torch.Tensor] = None,
     tokens_live: Optional[torch.Tensor] = None,
+    token0: int = 0,
 ) -> torch.Tensor:
     """Differentiable fused train tail. x/attn_out: [B, T, H]; w1 [H, FF],
-    w2 [FF, H] (input-major); ``seed``: a uint32 or None for no dropout;
+    w2 [FF, H] (input-major); ``seed``: a uint32 or None for no dropout,
+    its bits hashed at the global tokens from ``token0``;
     rows_live [B] or tokens_live [B, T] bool, dead tokens -> zeros with zero
     gradients. Returns [B, T, H] in the compute dtype; gradients flow to x,
     attn_out and the ten parameters (f32 sums for the parameters)."""
@@ -489,7 +494,7 @@ def fused_layer_tail_train(
     if live is not None:
         live = live.to(x.device)
     cfg = TailConfig(float(eps), activation, bool(gelu_approximate), float(dropout_rate),
-                     None if seed is None else int(seed) & MASK32)
+                     None if seed is None else int(seed) & MASK32, int(token0))
     y = _TailTrain.apply(
         x.to(cd).reshape(B * T, H), attn_out.to(cd).reshape(B * T, H), n1_scale, n1_bias,
         w1, b1, w2, b2, n2_scale, n2_bias, live, cfg,

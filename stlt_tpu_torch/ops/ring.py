@@ -61,7 +61,7 @@ import torch.distributed as dist
 
 from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.ops.dropout import MASK32, lowbias32
-from stlt_tpu_torch.parallel.mesh import Mesh
+from stlt_tpu_torch.parallel.mesh import Mesh, all_sum
 
 _NEG_INF = flash._NEG_INF
 
@@ -226,23 +226,14 @@ def ring_attention(
     return _ring_forward(q, k, v, *cfg)[0]
 
 
-def ring_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of the context ring (every rank gets
-    the same bits), taken in f32 and returned in x's dtype, staged through
-    the host on gloo as :func:`_rotate` is. No gradient."""
-    staged = x.device.type != "cpu" and mesh.backend != "nccl"
-    buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-    return buf.to(x.device, x.dtype)
-
-
 class _ContextSum(torch.autograd.Function):
-    """:func:`ring_sum` whose backward passes the cotangent through unchanged
-    (see the module docstring)."""
+    """The sum over the ring (``parallel/mesh.all_sum``: every rank of the
+    run, the same bits on each) whose backward passes the cotangent through
+    unchanged (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
-        return ring_sum(x, mesh)
+        return all_sum(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
@@ -250,6 +241,6 @@ class _ContextSum(torch.autograd.Function):
 
 
 def context_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """:func:`ring_sum` of ``x`` (exact where one rank adds a value and the
+    """The sum of ``x`` over the ring (exact where one rank adds a value and the
     others zeros) whose backward is the identity."""
     return _ContextSum.apply(x, mesh)

@@ -4,10 +4,12 @@
   from the CLIs' ``--num_processes``, ``--process_id`` and
   ``--coordinator_address`` flags, one device per rank;
 - :mod:`stlt_tpu_torch.parallel.mesh`: the (data, model, context) grid of
-  ranks, its process groups and the active-mesh registry the attention
-  layers read.
+  ranks, its collectives and the active-mesh registry the attention layers,
+  the dropout sites and the train step read.
 
-Only the ``context`` axis runs (serving under ``--context_parallel``, the
-ring of ``ops/ring.py``); a ``data`` or ``model`` axis above 1 raises with
-the ``ROADMAP.md`` item it waits for.
+The ``data`` axis runs (``--num_processes N``: each rank its contiguous
+rows of every global batch, the gradients summed over the ranks) and the
+``context`` axis runs (``--context_parallel``, the ring of
+``ops/ring.py``), one at a time; a ``model`` axis above 1, or both at once,
+raises with the ``ROADMAP.md`` item it waits for.
 """

@@ -1,6 +1,7 @@
 """Several processes, one device each: own copy of
 ``stlt_tpu/parallel/distributed.py`` (``maybe_initialize`` :28-53,
-``is_coordinator`` :129) on ``torch.distributed``.
+``process_row_span`` :54-82, ``is_coordinator`` :129) on
+``torch.distributed``.
 
 ``--num_processes N --process_id r --coordinator_address host:port``
 starts ``torch.distributed`` over a TCP store at that address (a
@@ -19,6 +20,8 @@ from typing import Tuple
 
 import torch
 import torch.distributed as dist
+
+from stlt_tpu_torch.parallel.mesh import Mesh, check_batch
 
 _TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -71,6 +74,22 @@ def maybe_initialize(args) -> bool:
     logging.getLogger(__name__).info(
         "distributed: rank %d of %d on %s, backend %s (%s)", rank, num_processes, device, backend, why)
     return True
+
+
+def process_row_span(mesh: Mesh, global_batch_size: int) -> Tuple[int, int]:
+    """[start, stop) of the global batch rows this rank holds: the data
+    axis is outermost over the ranks, so data rank d holds the contiguous
+    rows [d B / D, (d + 1) B / D); every context rank of a ring holds the
+    whole batch. Raises for a batch the data axis does not divide."""
+    check_batch(mesh.data_size, global_batch_size)
+    per_rank = global_batch_size // mesh.data_size
+    return mesh.data_index * per_rank, (mesh.data_index + 1) * per_rank
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op without a process group)."""
+    if is_initialized():
+        dist.barrier()
 
 
 def is_initialized() -> bool:

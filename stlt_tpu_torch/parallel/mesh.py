@@ -5,9 +5,12 @@ JAX's mesh is a device array of shape (data, model, context) that GSPMD
 shards over. Here each rank is one process on one device and runs its own
 program, so a :class:`Mesh` is this rank's place in the same grid (data
 outermost, context innermost, as ``make_mesh`` reshapes the device list)
-and the process group of its ``context`` ring. :func:`set_active_mesh` /
-:func:`active_context_mesh` are the registry the sequence-sharded attention
-layers consult (``stlt_tpu/parallel/mesh.py:96-106``).
+and the process group of its ``data`` replicas or its ``context`` ring.
+:func:`set_active_mesh` / :func:`active_context_mesh` are the registry the
+sequence-sharded attention layers consult (``stlt_tpu/parallel/mesh.py:96-106``);
+:func:`active_data_mesh` / :func:`clip_span` the one the dropout sites and
+the train step consult under a data axis. :func:`all_sum` and
+:func:`all_gather` are the collectives of both.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ CONTEXT_AXIS = "context"  # sequence parallelism over the frame axis
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (data, model, context) grid. Only the context
-    axis runs, so the ring is every rank of the default process group, in
-    rank order: this rank's context index is its rank."""
+    """This rank's place in the (data, model, context) grid: rank g sits at
+    (g // (M C), g // C % M, g % C). A run has a data axis or a context axis
+    (never both yet), so the ring, or the data group, is every rank of the
+    default process group, in rank order."""
 
     shape: Tuple[int, int, int]
     rank: int
@@ -35,20 +39,45 @@ class Mesh:
     device: torch.device
 
     @property
+    def data_size(self) -> int:
+        return self.shape[0]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // (self.shape[1] * self.shape[2])
+
+    @property
     def context_size(self) -> int:
         return self.shape[2]
 
     @property
     def context_index(self) -> int:
-        return self.rank
+        return self.rank % self.shape[2]
+
+    def first_clip(self, clips: int) -> int:
+        """The global index of this rank's first clip in a forward of
+        ``clips`` local clips (every data rank holds as many): its rows of
+        the global batch, or of a global microbatch, are contiguous."""
+        return self.data_index * clips
+
+
+def check_batch(data: int, batch_size: int) -> None:
+    """Every data rank takes an equal share of each global batch: refuse a
+    ``batch_size`` the data axis does not divide, in the words of
+    ``stlt_tpu/parallel/mesh.py:70-77`` (multi-process)."""
+    if batch_size % data:
+        raise ValueError(f"batch_size={batch_size} does not divide the data axis ({data}); in "
+                         "multi-process mode every device must be used — raise batch_size or "
+                         "change the mesh")
 
 
 def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
-              device: Optional[torch.device] = None) -> Mesh:
+              device: Optional[torch.device] = None, batch_size: Optional[int] = None) -> Mesh:
     """The grid over every rank of the initialised process group (one rank
-    without one): data = world // (model_parallel * context_parallel), rank
-    g at (g // (M C), g // C % M, g % C). A data or model axis above 1
-    raises with the ROADMAP.md item it waits for."""
+    without one): data = world // (model_parallel * context_parallel). A
+    model axis above 1, or a data axis above 1 under a context axis above 1,
+    raises with the ROADMAP.md item it waits for; a ``batch_size`` the data
+    axis does not divide raises (:func:`check_batch`)."""
     initialised = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialised else 1
     rank = dist.get_rank() if initialised else 0
@@ -60,13 +89,37 @@ def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
     if model_parallel > 1:
         raise NotImplementedError("the model axis (--model_parallel > 1) is not ported yet: it "
                                   "waits for ROADMAP.md item A9 (model axis)")
-    if data > 1:
+    if data > 1 and context_parallel > 1:
         raise NotImplementedError(f"{world} processes over a context axis of {context_parallel} "
-                                  f"leave a data axis of {data}: the data axis is not ported yet, "
-                                  f"it waits for ROADMAP.md item A9 (data axis)")
+                                  f"leave a data axis of {data}: a data axis under the ring is not "
+                                  f"ported yet, it waits for ROADMAP.md item A9 (data axis under "
+                                  f"the ring)")
+    if batch_size is not None:
+        check_batch(data, batch_size)
     backend = dist.get_backend() if initialised else "none"
     return Mesh((data, model_parallel, context_parallel), rank, backend,
                 torch.device("cpu") if device is None else device)
+
+
+def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over every rank (each rank gets the same bits), taken
+    in f32 and returned in x's dtype; on gloo a device tensor is staged
+    through host memory (gloo's collectives take CPU tensors). No
+    gradient."""
+    staged = x.device.type != "cpu" and mesh.backend != "nccl"
+    buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return buf.to(x.device, x.dtype)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each), stacked in rank order
+    on a new leading axis; staged through host memory on gloo."""
+    staged = x.device.type != "cpu" and mesh.backend != "nccl"
+    buf = x.to("cpu" if staged else x.device).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, buf)
+    return torch.stack(parts).to(x.device)
 
 
 # --- active-mesh registry ----------------------------------------------------
@@ -85,3 +138,23 @@ def active_context_mesh() -> Optional[Mesh]:
     if mesh is not None and mesh.context_size > 1:
         return mesh
     return None
+
+
+def active_data_mesh() -> Optional[Mesh]:
+    """The active mesh iff it has a data axis above 1 (else None)."""
+    mesh = _ACTIVE_MESH
+    if mesh is not None and mesh.data_size > 1:
+        return mesh
+    return None
+
+
+def clip_span(clips: int) -> Tuple[int, int]:
+    """(first, total) of a forward of ``clips`` local clips: the global
+    index of this rank's first clip and the clips of the global batch (or
+    microbatch) that all data ranks hold together; (0, clips) without a
+    data axis. The dropout sites hash (or draw) their bits at these global
+    clips, so N data ranks drop what one process drops."""
+    mesh = active_data_mesh()
+    if mesh is None:
+        return 0, clips
+    return mesh.first_clip(clips), mesh.data_size * clips

@@ -10,12 +10,17 @@ multimodal`` (HDF5 JPEG frames, ``--videos_path``). It runs on the GPU
 unless ``--platform cpu`` is given; without a GPU it raises and never falls
 back to the CPU. Checkpoints are reference-format ``.pt`` state_dicts.
 
-STLT serves frame-sharded over C processes with ``--context_parallel C
---num_processes C --process_id r --coordinator_address host:port``
-(``parallel/``): every rank loads the same batches (the frame axis padded to
-a multiple of C), keeps its frames, runs the temporal attention as a ring
-(``ops/ring.py``) and gets the same logits; only the coordinator (rank 0)
-writes the predictions.
+Every model serves over N processes with ``--num_processes N --process_id
+r --coordinator_address host:port`` (``parallel/``, the data axis): each
+rank loads and serves its rows [r B / N, (r + 1) B / N) of every global
+batch (``--batch_size`` B, which N must divide), and the coordinator (rank
+0) gathers the ranks' rows and writes the predictions in global order.
+STLT also serves frame-sharded over C processes with ``--context_parallel C
+--num_processes C``: every rank loads the same batches (the frame axis
+padded to a multiple of C), keeps its frames, runs the temporal attention
+as a ring (``ops/ring.py``) and gets the same logits; only the coordinator
+writes the predictions. Both axes at once wait for ``ROADMAP.md``'s A9
+(data axis under the ring).
 
     python -m stlt_tpu_torch.predict --dataset_name something --dataset_type multimodal \
         --model_name cacnf --test_dataset_path val.json --labels_path labels.json \
@@ -30,6 +35,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stlt_tpu_torch.configs import (
     DataConfig,
@@ -38,10 +44,10 @@ from stlt_tpu_torch.configs import (
     position_table_rows,
 )
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
-from stlt_tpu_torch.data.loader import Loader, to_device
+from stlt_tpu_torch.data.loader import VALID_TOTAL, Loader, to_device
 from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.parallel import distributed
-from stlt_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+from stlt_tpu_torch.parallel.mesh import active_data_mesh, check_batch, make_mesh, set_active_mesh
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.utils.convert import load_checkpoint
 
@@ -83,9 +89,10 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
 def check_flags(args) -> None:
     """The serving CLIs' flags: an unknown model or dataset type raises with
     the choices; flags of later slices raise with the ``ROADMAP.md`` item
-    they wait for. Of the parallel flags only the context axis runs: STLT
-    over ``--context_parallel C`` with ``--num_processes C`` (one process a
-    rank of the ring)."""
+    they wait for. Two parallel axes run, one at a time, one process a
+    rank: the data axis of every model (``--num_processes N``, N dividing
+    ``--batch_size``) and STLT's context axis (``--context_parallel C`` with
+    ``--num_processes C``)."""
     for flag, value, choices in (("--model_name", args.model_name, models_factory),
                                  ("--dataset_type", args.dataset_type, datasets_factory)):
         if value not in choices:
@@ -95,15 +102,22 @@ def check_flags(args) -> None:
         (args.model_parallel > 1, "--model_parallel > 1", "A9 (model axis)"),
         (context > 1 and args.model_name != "stlt",
          f"--model_name {args.model_name} under --context_parallel", "A9 (fusion models under the ring)"),
-        (processes != context, f"--num_processes {processes} with --context_parallel {context} "
-         "(a data axis)", "A9 (data axis)"),
-        (processes == 1 and args.coordinator_address is not None,
-         "--coordinator_address without --num_processes", "A9 (data axis)"),
+        (processes < context, f"--context_parallel {context} over {processes} process(es) (the "
+         "port runs one rank a process)", "A9 (ranks per process)"),
+        (context > 1 and processes > context and processes % context == 0,
+         f"--num_processes {processes} over --context_parallel {context} (a data axis of "
+         f"{processes // context} under the ring)", "A9 (data axis under the ring)"),
         (getattr(args, "native_decode", False), "--native_decode", "A10"),
     ]
     for hit, flag, item in later:
         if hit:
             raise NotImplementedError(f"{flag} is not ported yet: it waits for ROADMAP.md item {item}")
+    if processes % context:
+        raise ValueError(f"--context_parallel {context} does not divide --num_processes {processes}")
+    if processes == 1 and args.coordinator_address is not None:
+        raise ValueError("--coordinator_address joins the ranks of a multi-process run: pass "
+                         "--num_processes N > 1 with it")
+    check_batch(processes // context, args.batch_size)
 
 
 def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
@@ -158,14 +172,23 @@ def load_served_model(args, model_config, device: torch.device):
 
 def start_processes(args) -> torch.device:
     """This process's device and, under ``--num_processes``, its rank of
-    the process group and the active context mesh (``parallel/``)."""
+    the process group and the active mesh (``parallel/``: a data or a
+    context axis)."""
     logging.basicConfig(level=logging.INFO)
     platform = getattr(args, "platform", None)
     if not distributed.maybe_initialize(args):
         return resolve_device(platform)
     device = distributed.process_device(platform, args.process_id)
-    set_active_mesh(make_mesh(args.model_parallel, args.context_parallel, device))
+    set_active_mesh(make_mesh(args.model_parallel, args.context_parallel, device,
+                              batch_size=args.batch_size))
     return device
+
+
+def loader_rows(batch_size: int):
+    """This rank's rows of every global batch under a data axis (the
+    loaders' ``rows``), else None (the whole batch)."""
+    mesh = active_data_mesh()
+    return None if mesh is None else distributed.process_row_span(mesh, batch_size)
 
 
 def stop_processes() -> None:
@@ -187,12 +210,14 @@ def serve(args, device):
     ``--num_processes``); the coordinator writes them to ``--output``."""
     data_cfg = build_data_config(args, train=False, dataset_path=args.test_dataset_path)
     dataset = datasets_factory[args.dataset_type](data_cfg)
+    span = loader_rows(args.batch_size)
     loader = Loader(
         dataset,
         args.batch_size,
         collaters_factory[args.dataset_type](data_cfg),
         prefetch=max(args.num_workers, 2),
         workers=max(args.num_workers, 1),
+        rows=span,
     )
     id2label = {int(v): k for k, v in dataset.labels.items()}
     ids = clip_ids(dataset)
@@ -200,15 +225,16 @@ def serve(args, device):
 
     head = model.logit_names[-1]
     multilabel = args.dataset_name == "action_genome"
+    first = 0 if span is None else span[0]  # this rank's first row of each global batch
     rows = []
-    index = 0
     with torch.inference_mode():
-        for batch in to_device(loader, device):
+        for b, batch in enumerate(to_device(loader, device)):
             valid = batch.pop("valid")
             batch.pop("labels")
+            batch.pop(VALID_TOTAL, None)
             logits = model(batch)[head].to(torch.float64).cpu().numpy()
-            size = int(valid.sum())
-            for row in range(size):
+            index = b * args.batch_size + first
+            for row in range(int(valid.sum())):
                 scores = logits[row]
                 if multilabel:
                     probs = 1.0 / (1.0 + np.exp(-scores))
@@ -218,6 +244,7 @@ def serve(args, device):
                 top = np.argsort(-probs)[: args.top_k]
                 rows.append(
                     {
+                        "index": index + row,
                         "video_id": ids[index + row],
                         "top_k": [
                             {
@@ -229,7 +256,10 @@ def serve(args, device):
                         ],
                     }
                 )
-            index += size
+    if span is not None:
+        rows = gather_rows(rows)
+    for row in rows:
+        del row["index"]
     if distributed.is_coordinator():
         out_path = args.output or "predictions.jsonl"
         with open(out_path, "w") as f:
@@ -237,6 +267,14 @@ def serve(args, device):
                 f.write(json.dumps(row) + "\n")
         logging.info("Wrote %d predictions to %s", len(rows), out_path)
     return rows
+
+
+def gather_rows(rows):
+    """Every data rank's prediction rows (each with its global ``index``),
+    on every rank, in global order: one ``all_gather_object``."""
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, rows)
+    return sorted((row for part in gathered for row in part), key=lambda row: row["index"])
 
 
 def main(argv=None):

@@ -53,6 +53,18 @@ None)`` for it), and the model runs uncapped, where JAX's capacities
 (``stlt_tpu/train.py:40-59``) would drop sampled frames (``ROADMAP.md``
 section C).
 
+Every model trains over N processes with ``--num_processes N --process_id
+r --coordinator_address host:port`` (the data axis, ``parallel/``): each
+rank loads its rows [r B / N, (r + 1) B / N) of every global batch (the
+epoch order and the augmentation seeds of the whole batch, so the data
+stream is the one process's), hashes every dropout site at the global
+clips, and sums its gradients and loss with the other ranks' in one flat
+f32 all-reduce before the clip (``training/loop.py``): N ranks take the one
+process's step on the global batch, dropout included, and their weights
+stay equal bit for bit. ``--grad_accum_steps k`` must divide each rank's
+B / N rows. Validation sums the counts (gathers the probabilities) over the
+ranks; every rank restores ``--resume_dir`` after a barrier.
+
 STLT trains frame-sharded over C processes with ``--context_parallel C
 --num_processes C --process_id r --coordinator_address host:port``, as it
 serves (``predict``, ``parallel/``): every rank builds the same global
@@ -90,6 +102,7 @@ from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.predict import (
     build_data_config,
     build_model_config,
+    loader_rows,
     start_processes,
     stop_processes,
 )
@@ -127,21 +140,24 @@ class TrainResult:
 
 def check_flags(args) -> None:
     """The serving CLIs' checks (``predict.check_flags``: an unknown model or
-    dataset type, A9's and A10's flags, which leave STLT over a context axis
-    as the one parallel run); a backbone flag for a model without a backbone
-    raises naming those that have one; ``--grad_accum_steps`` must divide
-    ``--batch_size`` and ``--profile_window`` be START,STOP with 0 <= START
-    < STOP, each raised in JAX's words (``stlt_tpu/train.py:159-167,
-    291-296``)."""
+    dataset type, A9's and A10's flags, a batch the data axis does not
+    divide); a backbone flag for a model without a backbone raises naming
+    those that have one; ``--grad_accum_steps`` must divide ``--batch_size``
+    (each data rank's share of it) and ``--profile_window`` be START,STOP
+    with 0 <= START < STOP, each raised in JAX's words
+    (``stlt_tpu/train.py:159-167, 291-296``)."""
     check_serving_flags(args)
     for flag in ("load_backbone_path", "save_backbone_path"):
         if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
             raise ValueError(f"--{flag} acts on a model's backbone: --model_name is one of "
                              f"{BACKBONE_MODELS}, got {args.model_name!r}")
     grad_accum = max(args.grad_accum_steps, 1)
-    if args.batch_size % grad_accum:
+    data = max(args.num_processes, 1) // args.context_parallel
+    rows = args.batch_size // data
+    if rows % grad_accum:
+        per_rank = "" if data == 1 else f" / {data} data ranks = {rows} rows a rank"
         raise ValueError(f"--grad_accum_steps {grad_accum} must divide --batch_size "
-                         f"{args.batch_size}")
+                         f"{args.batch_size}{per_rank}")
     profile_window(args)
 
 
@@ -214,7 +230,8 @@ def _train(args, device) -> TrainResult:
     val_dataset = datasets_factory[args.dataset_type](val_cfg)
     num_classes = len(val_dataset.labels)
     logging.info("Training on %d, validating on %d", len(train_dataset), len(val_dataset))
-    loader_kw = dict(prefetch=max(args.num_workers, 2), workers=max(args.num_workers, 1))
+    loader_kw = dict(prefetch=max(args.num_workers, 2), workers=max(args.num_workers, 1),
+                     rows=loader_rows(args.batch_size))
     train_loader = Loader(train_dataset, args.batch_size, collaters_factory[args.dataset_type](train_cfg),
                           shuffle=True, seed=args.seed, **loader_kw)
     val_loader = Loader(val_dataset, args.batch_size, collaters_factory[args.dataset_type](val_cfg),
@@ -262,6 +279,7 @@ def _train(args, device) -> TrainResult:
 
     global_step, start_epoch = 0, 0
     if args.resume_dir:
+        distributed.barrier()  # every rank reads the step checkpoints as they stand
         restored = ckpt.restore_train_state(args.resume_dir, model, optimizer, scheduler)
         if restored is not None:
             global_step = restored

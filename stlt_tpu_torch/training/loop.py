@@ -28,17 +28,32 @@ dropout seeds, the embedding-dropout masks) come from one explicit
 ``torch.Generator`` built from (seed, step) by :func:`step_generator`; the
 global RNG is never used. Flax's ``make_rng`` stream cannot be reproduced,
 so the bits differ from the JAX package's while the distribution is the same.
+
+Under a data mesh (``train --num_processes N``) every rank holds its
+contiguous rows of each global batch (``Loader(rows=...)``) and draws the
+same seeds; the models hash every dropout site at the global clips
+(``parallel/mesh.clip_span``), so with ``grad_accum = k`` (k dividing the
+rank's B / N rows: the strided microbatch j of the global batch is then
+rank-invariant, rank r holding its rows from ``r B / (N k)``) each rank
+computes its part of the one process's step. Its loss is the sum over its
+valid rows divided by the global batch's count of valid rows (the batch's
+``VALID_TOTAL``, known on the host), every gradient and the loss are
+summed over the ranks in one flat f32 bucket before the clip, and the
+clip and AdamW then see the same gradients on every rank: the ranks'
+weights stay equal bit for bit and differ from one process's only in the
+order of sums. The accumulators sum Something's counts over the ranks and
+gather Action Genome's probabilities in global order once per pass.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from stlt_tpu_torch.ops.ring import ring_sum
-from stlt_tpu_torch.parallel.mesh import Mesh, active_context_mesh
+from stlt_tpu_torch.data.loader import VALID_TOTAL
+from stlt_tpu_torch.parallel.mesh import Mesh, active_context_mesh, active_data_mesh, all_gather, all_sum
 from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
 
 
@@ -70,7 +85,7 @@ def shard_frames(batch: Dict[str, torch.Tensor], context: int, index: int):
 
 
 def _model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+    return {k: v for k, v in batch.items() if k not in ("labels", "valid", VALID_TOTAL)}
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -79,18 +94,24 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-def sum_grads_over_ring_(params, mesh: Mesh) -> None:
-    """Replace each gradient of ``params`` by its sum over the context ring:
-    one all-reduce of a flat f32 bucket. Parameters without a gradient (the
-    same ones on every rank) stay without."""
+def sum_grads_over_ring_(params, mesh: Mesh, loss: Optional[torch.Tensor] = None):
+    """Replace each gradient of ``params`` by its sum over the ranks (the
+    context ring, or the data axis): one all-reduce of a flat f32 bucket,
+    ``loss`` (a device scalar) at its end when given, whose sum is
+    returned. Parameters without a gradient (the same ones on every rank)
+    stay without."""
     grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = ring_sum(torch.cat([g.reshape(-1).to(torch.float32) for g in grads]), mesh)
+    parts = [g.reshape(-1).to(torch.float32) for g in grads]
+    if loss is not None:
+        parts.append(loss.reshape(1).to(torch.float32))
+    if not parts:
+        return None
+    flat = all_sum(torch.cat(parts), mesh)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+    return None if loss is None else flat[-1]
 
 
 def microbatches(batch: Dict[str, torch.Tensor], grad_accum: int):
@@ -110,10 +131,14 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
     set to None, the forward and backward of ``batch`` (``grad_accum``
     microbatches: see the module docstring), under a context mesh the
     backbone's gradients summed over the ring after the last microbatch,
-    then the division by the valid rows. Returns the loss, a device scalar;
+    then the division by the valid rows; under a data mesh
+    :func:`_data_rank_loss_and_grads`. Returns the loss, a device scalar;
     the gradients are in the parameters' ``.grad``."""
     model.train()
     model.zero_grad(set_to_none=True)
+    data = active_data_mesh()
+    if data is not None:
+        return _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum, data)
     n = None
     if grad_accum == 1:
         logits = model(_model_inputs(batch), generator)
@@ -137,6 +162,25 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
         torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], n)
         loss = loss / n
     return loss
+
+
+def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: int, mesh: Mesh):
+    """A data rank's part of the step: each microbatch's criterion over the
+    rank's valid rows divided by the global batch's valid count
+    (``VALID_TOTAL``), its backward, then the gradients and the loss summed
+    over the ranks in one bucket (see the module docstring)."""
+    if VALID_TOTAL not in batch:
+        raise ValueError(f"a data rank's batch carries {VALID_TOTAL!r}, the valid rows of the "
+                         "global batch (Loader(rows=...))")
+    count = batch[VALID_TOTAL].to(torch.float32)
+    batch = {k: v for k, v in batch.items() if k != VALID_TOTAL}
+    loss = torch.zeros((), dtype=torch.float32, device=count.device)
+    for micro in microbatches(batch, grad_accum) if grad_accum > 1 else [batch]:
+        part = criterion(model(_model_inputs(micro), generator), micro["labels"],
+                         micro.get("valid"), count)
+        part.backward()
+        loss = loss + part.detach()
+    return sum_grads_over_ring_(model.parameters(), mesh, loss)
 
 
 def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float,
@@ -219,9 +263,16 @@ class EvalCountAccumulator:
                            for k in counts}
 
     def flush_into(self, evaluator) -> None:
+        """Under a data mesh the counts are first summed over the ranks (one
+        all-reduce), so every rank feeds the evaluator the global counts."""
         if self.totals is not None:
-            evaluator.process_counts({k: tuple(int(v) for v in pair)
-                                      for k, pair in self.totals.items()})
+            names = list(self.totals)
+            counts = torch.stack([torch.stack(self.totals[k]) for k in names])
+            data = active_data_mesh()
+            if data is not None:
+                counts = all_sum(counts, data)  # exact: counts below 2**24
+            counts = counts.tolist()
+            evaluator.process_counts({k: tuple(pair) for k, pair in zip(names, counts)})
         self.totals = None
 
 
@@ -236,7 +287,24 @@ class EvalProbsAccumulator:
         self.items.append(triple)
 
     def flush_into(self, evaluator) -> None:
+        """Under a data mesh every rank's rows are gathered first (one
+        all-gather each of probs, labels and valid) and put in global order:
+        batch by batch, rank by rank."""
         if self.items:
-            probs, labels, valid = (torch.cat(parts).cpu().numpy() for parts in zip(*self.items))
+            parts = [torch.cat(parts) for parts in zip(*self.items)]
+            data = active_data_mesh()
+            if data is not None:
+                batches = len(self.items)
+                parts = [_global_order(all_gather(x.to(torch.uint8) if x.dtype == torch.bool else x,
+                                                  data).to(x.dtype), batches) for x in parts]
+            probs, labels, valid = (x.cpu().numpy() for x in parts)
             evaluator.process_probs(probs, labels, valid=valid)
         self.items = []
+
+
+def _global_order(gathered: torch.Tensor, batches: int) -> torch.Tensor:
+    """[ranks, batches * b, ...] (each rank's rows of every batch, in batch
+    order) -> [batches * ranks * b, ...] in the global batches' row order."""
+    ranks, rows = gathered.shape[:2]
+    x = gathered.reshape(ranks, batches, rows // batches, *gathered.shape[2:])
+    return x.transpose(0, 1).reshape(ranks * rows, *gathered.shape[2:])

@@ -15,6 +15,10 @@ Tasks (inputs and outputs under WORKDIR):
 - ``predict``: ``stlt_tpu_torch.predict.main`` with the argv of
   ``argv.json`` plus this rank's ``--process_id`` and a ``file://``
   coordinator under WORKDIR;
+- ``inference``: ``stlt_tpu_torch.inference.main`` likewise; writes the
+  metrics this rank returns to ``inference_RANK.json``;
+- ``predict_models``: under one process group, ``predict.serve`` for each
+  argv of ``models.json`` (each with its own ``--output``);
 - ``op_grad``: the gradients of ``ring_attention`` on this rank's frames of
   ``inputs.npz`` (as ``op``, plus the cotangent g [B, T, N, D]) for the
   cotangent's rows of this rank, in the lengths mode (causal), the dense
@@ -28,8 +32,13 @@ Tasks (inputs and outputs under WORKDIR):
   the sum over the ring) and ``off_ring_seed`` of one seed on this rank;
 - ``train_cli``: ``stlt_tpu_torch.train.main`` with the argv of
   ``argv.json`` plus this rank's ``--process_id``, a ``file://``
-  coordinator, ``--save_model_path best_RANK.pt`` and ``--log_filepath
-  log_RANK.txt`` under WORKDIR.
+  coordinator, ``--save_model_path best_RANK.pt`` (unless the argv names
+  one; ``{rank}`` in the argv is replaced by the rank) and ``--log_filepath
+  log_RANK.txt`` under WORKDIR;
+- ``data_train``: as ``train``, under a DATA mesh of WORLD ranks: this
+  rank's contiguous rows of ``batch.npz`` (with the global batch's count of
+  valid rows, ``loader.VALID_TOTAL``), every gradient and the loss summed
+  over the ranks; writes ``data_train_RANK.npz``.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -103,6 +112,38 @@ def predict(workdir, rank, world):
                               f"file://{os.path.join(workdir, 'predict.store')}"])
 
 
+def predict_models(workdir, rank, world):
+    from stlt_tpu_torch import predict as port_predict
+    from stlt_tpu_torch.parser import build_parser
+
+    with open(os.path.join(workdir, "models.json")) as f:
+        runs = json.load(f)
+    parser = build_parser("ring worker")
+    parser.add_argument("--top_k", type=int, default=5)
+    parser.add_argument("--output", type=str)
+    process = ["--num_processes", str(world), "--process_id", str(rank), "--coordinator_address",
+               f"file://{os.path.join(workdir, 'predict_models.store')}"]
+    device = port_predict.start_processes(parser.parse_args(runs[0] + process))
+    try:
+        for argv in runs:
+            args = parser.parse_args(argv + process)
+            port_predict.check_flags(args)
+            port_predict.serve(args, device)
+    finally:
+        port_predict.stop_processes()
+
+
+def inference(workdir, rank, world):
+    from stlt_tpu_torch import inference as port_inference
+
+    with open(os.path.join(workdir, "argv.json")) as f:
+        argv = json.load(f)
+    metrics = port_inference.main(argv + ["--process_id", str(rank), "--coordinator_address",
+                                          f"file://{os.path.join(workdir, 'inference.store')}"])
+    with open(os.path.join(workdir, f"inference_{rank}.json"), "w") as f:
+        json.dump({k: float(v) for k, v in metrics.items()}, f)
+
+
 def op_grad(workdir, rank, world):
     from stlt_tpu_torch.ops.ring import ring_attention
 
@@ -135,14 +176,28 @@ def op_grad(workdir, rank, world):
 
 
 def train(workdir, rank, world):
+    _train(workdir, rank, world, "train")
+
+
+def data_train(workdir, rank, world):
+    _train(workdir, rank, world, "data_train")
+
+
+def _train(workdir, rank, world, task):
     from stlt_tpu_torch.configs import StltModelConfig
+    from stlt_tpu_torch.data.loader import VALID_TOTAL
     from stlt_tpu_torch.models import models_factory
     from stlt_tpu_torch.models.layers import off_ring_seed
     from stlt_tpu_torch.training import loop
     from stlt_tpu_torch.training.criterion import make_criterion
     from stlt_tpu_torch.training.optimizer import make_optimizer
 
-    set_active_mesh(_group(workdir, "train", rank, world))
+    if task == "train":
+        set_active_mesh(_group(workdir, task, rank, world))
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, task + '.store')}",
+                                world_size=world, rank=rank)
+        set_active_mesh(make_mesh(1, 1))
     with open(os.path.join(workdir, "config.json")) as f:
         cfg = StltModelConfig(**json.load(f))
     with open(os.path.join(workdir, "hp.json")) as f:
@@ -162,6 +217,10 @@ def train(workdir, rank, world):
     loop.clip_by_global_norm_ = clip_spy
     step = loop.make_train_step(model, optimizer, scheduler, make_criterion("something"), hp["clip_val"])
     batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, "batch.npz")).items()}
+    if task == "data_train":
+        rows = batch["labels"].shape[0] // world
+        batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()} | {
+            VALID_TOTAL: batch["valid"].sum()}
     out = {"losses": [], "seed": off_ring_seed(hp["probe_seed"])}
     for i in range(hp["steps"]):
         loss, _ = step(batch, loop.step_generator(0, i))
@@ -169,7 +228,7 @@ def train(workdir, rank, world):
         out[f"params_{i}"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
     out.update({f"grad_{n}": g.numpy() for n, g in first.items()})
     out.update({f"final_{n}": v.numpy() for n, v in model.state_dict().items()})
-    np.savez(os.path.join(workdir, f"train_{rank}.npz"), **out)
+    np.savez(os.path.join(workdir, f"{task}_{rank}.npz"), **out)
     set_active_mesh(None)
     dist.destroy_process_group()
 
@@ -178,14 +237,16 @@ def train_cli(workdir, rank, world):
     from stlt_tpu_torch import train as port_train
 
     with open(os.path.join(workdir, "argv.json")) as f:
-        argv = json.load(f)
+        argv = [a.replace("{rank}", str(rank)) for a in json.load(f)]
+    if "--save_model_path" not in argv:
+        argv += ["--save_model_path", os.path.join(workdir, f"best_{rank}.pt")]
     port_train.main(argv + ["--process_id", str(rank), "--coordinator_address",
                             f"file://{os.path.join(workdir, 'train_cli.store')}",
-                            "--save_model_path", os.path.join(workdir, f"best_{rank}.pt"),
                             "--log_filepath", os.path.join(workdir, f"log_{rank}.txt")])
 
 
 if __name__ == "__main__":
     task, workdir, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     {"op": op, "stlt": stlt, "predict": predict, "op_grad": op_grad, "train": train,
-     "train_cli": train_cli}[task](workdir, rank, world)
+     "train_cli": train_cli, "data_train": data_train, "inference": inference,
+     "predict_models": predict_models}[task](workdir, rank, world)

@@ -141,8 +141,8 @@ def _serving_args(*extra):
 @pytest.mark.parametrize("extra,item", [
     (["--model_parallel", "2"], "A9"),
     (["--context_parallel", "2"], "A9"),
-    (["--num_processes", "2"], "A9"),
-    (["--coordinator_address", "localhost:1234"], "A9"),
+    (["--model_parallel", "2", "--num_processes", "2"], "A9"),
+    (["--context_parallel", "2", "--num_processes", "4"], "A9"),
     (["--native_decode"], "A10"),
 ])
 def test_predict_check_flags_refuses_later_slices(extra, item):

@@ -282,8 +282,8 @@ def test_predict_on_two_ranks_writes_the_single_process_output(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--model_parallel", "2"], "A9 \\(model axis\\)"),
-    (["--context_parallel", "2", "--num_processes", "4"], "A9 \\(data axis\\)"),
-    (["--num_processes", "2"], "A9 \\(data axis\\)"),
+    (["--context_parallel", "2", "--num_processes", "4"], "A9 \\(data axis under the ring\\)"),
+    (["--context_parallel", "2", "--num_processes", "6"], "A9 \\(data axis under the ring\\)"),
     (["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
       "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
 ])
@@ -298,6 +298,14 @@ def test_serving_check_flags_takes_the_context_axis():
     port_predict.check_flags(build_parser("test").parse_args(
         ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
          "--context_parallel", "2", "--num_processes", "2", "--coordinator_address", "localhost:1"]))
+
+
+def test_serving_check_flags_takes_the_data_axis():
+    """``--num_processes 2`` alone is the data axis, which every model now
+    takes (it refused, naming A9 (data axis), before the axis was ported)."""
+    port_predict.check_flags(build_parser("test").parse_args(
+        ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
+         "--num_processes", "2", "--coordinator_address", "localhost:1"]))
 
 
 def test_train_refuses_context_parallel():
