@@ -5949,7 +5949,430 @@ def check_base_kernels(device):
     log(f"base_checks: {len(rows)} cases, every kernel at its base equal to the slice of its launch "
         f"at base 0 and to its plain version at that base; bit-identical to the slice: "
         f"{sum(r['sliced']['bit_identical'] for r in rows)} of {len(rows)}")
+    return rows + check_map_kernels(device)
+
+
+# The strided map of phase 12 (d): rank (data 1, context 1) of a grid of
+# rings of C = 2 at 514 frame slots, 3 clips a data rank: the rank's
+# (clip, frame) rows are frames [257, 514) of clips [3, 6), the global row
+# of its local row i (i // 257) * 514 + 514 * 3 + 257 + i % 257.
+MAP_CLIPS, MAP_FRAMES, MAP_PERIOD = 6, 514, 257
+MAP_OFFSET = MAP_FRAMES * 3 + MAP_PERIOD
+
+
+def _map_rows(device):
+    """The rank's rows of the whole batch's MAP_CLIPS * MAP_FRAMES rows,
+    in its local order."""
+    clips = torch.arange(3, MAP_CLIPS, device=device)[:, None]
+    return (clips * MAP_FRAMES + MAP_PERIOD + torch.arange(MAP_PERIOD, device=device)[None, :]).reshape(-1)
+
+
+def _map_case(label, run, whole, idx, rank_map, dtype):
+    """``run(inputs, map)`` -> the kernels' outputs, each indexed by row;
+    the rank's launch (rows ``idx`` of the inputs ``whole`` at
+    ``rank_map``) against rows ``idx`` of the launch on ``whole`` at the
+    affine map 0, bit for bit, then against its plain version at the map
+    (OP_TOL). Returns a log row."""
+    from stlt_tpu_torch.ops.dropout import RowMap
+
+    outs0 = run(whole, RowMap())
+    part = [x[idx] for x in whole]
+    outs1 = run(part, rank_map)
+    with plain_kernels():
+        outsp = run(part, rank_map)
+    equal = [bool(torch.equal(a, b[idx])) for a, b in zip(outs1, outs0)]
+    tol = OP_TOL[dtype]
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs1, outsp)]
+    ok = all((a.float() - b.float()).abs().le(tol["atol"] + tol["rtol"] * b.float().abs()).all()
+             for a, b in zip(outs1, outsp))
+    row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "map": list(rank_map),
+           "bit_identical": equal, "plain_max_abs_err": errs}
+    log("map_check " + json.dumps(row))
+    if not all(equal):
+        raise AssertionError(f"{label} {dtype} at the map {tuple(rank_map)}: not bit-identical to the "
+                             f"whole launch's rows ({equal})")
+    if not ok:
+        raise AssertionError(f"{label} {dtype} at the map {tuple(rank_map)}: off its plain version "
+                             f"by {errs}")
+    return row
+
+
+def check_map_kernels(device):
+    """Phase 12 (d), the strided map (a ring rank's frame rows under a
+    data axis): rows 3 and 4 at the spatial stage (rows of 8 tokens) and
+    rows 11-13 at the spatial tail's tokens (the map times 8) and the
+    temporal tail's (the map itself: rows of one token), bf16 and f32,
+    dropout 0.1: the rank's launch on its rows of MAP_CLIPS clips of
+    MAP_FRAMES slots against the matching rows of one launch over the whole
+    batch, bit for bit (rows 3 and 4: the output and the backward kernel's
+    dqkv; the tail: its output and the input gradients dx and dattn, which
+    rows 12 and 13 write), and against its plain version at the map.
+    ``map_check`` lines."""
+    from stlt_tpu_torch.ops import fused_encoder as fe
+    from stlt_tpu_torch.ops import fused_tail_train as ftt
+    from stlt_tpu_torch.ops.dropout import RowMap
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    w = make_weights(gen, device)
+    seed = 0x5EED5EED
+    rank_map = RowMap(MAP_OFFSET, MAP_PERIOD, MAP_FRAMES)
+    idx = _map_rows(device)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x, attn, bias, live_kw, _, _ = make_stage("spatial", MAP_CLIPS, dtype, gen, device,
+                                                  frames=MAP_FRAMES)
+        rows_live = live_kw["rows_live"]
+        g = torch.randn(x.shape, generator=gen).to(device, dtype)
+        # The weights as the model passes them: in_proj_weight.t(), out_proj.weight.t().
+        wqkv, wo = (w[k].t().contiguous().to(dtype).t() for k in ("wqkv", "wo"))
+        kw = dict(num_heads=HEADS, compute_dtype=dtype, dropout_rate=DROPOUT)
+
+        def run_proj(inp, m, kw=kw, wqkv=wqkv, wo=wo):
+            x_, bias_, live_, g_ = inp
+            out = fe._launch_proj("fused_proj_attention_train", x_, wqkv, w["bqkv"], wo, w["bo"],
+                                  bias_, seed=seed, rows_live=live_, row0=m, **kw)
+            dqkv = fe._launch_proj_bwd(x_, wqkv, w["bqkv"], wo, bias_, g_, seed, rows_live=live_,
+                                       row0=m, **kw)[0]
+            return [out, dqkv]
+
+        rows.append(_map_case(f"rows 3-4 spatial rows={x.shape[0]} T={x.shape[1]}", run_proj,
+                              [x, bias, rows_live, g], idx, rank_map, dtype))
+        tail_live = rows_live[:, None].expand(x.shape[0], x.shape[1])
+        for stage, inputs, per in (
+                ("spatial", [x, attn, tail_live, g], NUM_BOXES),
+                ("temporal", [x[:, :1], attn[:, :1], rows_live[:, None], g[:, :1]], 1)):
+
+            def run_tail(inp, m, per=per, dtype=dtype):
+                x_, a_, l_, g_ = (t.detach().clone() for t in inp)
+                x_.requires_grad_()
+                a_.requires_grad_()
+                y = ftt.fused_layer_tail_train(
+                    x_, a_, *_tail_weights(w), eps=EPS, compute_dtype=dtype, activation="gelu",
+                    gelu_approximate=dtype == torch.bfloat16, dropout_rate=DROPOUT, seed=seed,
+                    tokens_live=l_, token0=m.scaled(per))
+                y.backward(g_)
+                return [y.detach(), x_.grad, a_.grad]
+
+            label = f"rows 11-13 {stage} tail tokens={inputs[0].shape[0] * per}"
+            rows.append(_map_case(label, run_tail, inputs, idx, rank_map, dtype))
+        del x, attn, g
+        torch.cuda.empty_cache()
+    log(f"map_checks: {len(rows)} cases at the map {tuple(rank_map)}, every launch bit-identical to "
+        f"the whole launch's rows and within its plain version's limits")
     return rows
+
+
+# --- phase 13: the data axis under the ring ------------------------------------
+
+
+GRID_D, GRID_C = 2, RING_C  # two rings of two ranks, all four on this one card (gloo)
+GRID_WORLD = GRID_D * GRID_C
+GRID_FRAMES = 512  # 514 slots: 257 frames a rank
+GRID_TRAIN_BATCH = LONG_TRAIN[512][0]  # 16 global clips: 8 a ring
+GRID_PREDICT_BATCH = LONG_CLIPS[512][0]  # 32 global clips
+GRID_STEP_REPEATS = 3  # timed steps of each rank
+GRID_PORTS = ("train", "predict")  # the two process groups of each rank, in order
+
+
+def _grid_part(batch, mesh):
+    """The rows of ``batch`` (a global batch) of this rank's data index,
+    with the global valid count (``loader.VALID_TOTAL``) where the batch has
+    ``valid``."""
+    from stlt_tpu_torch.data.loader import VALID_TOTAL
+    from stlt_tpu_torch.parallel.distributed import process_row_span
+
+    lo, hi = process_row_span(mesh, batch["lengths"].shape[0])
+    part = {k: v[lo:hi] for k, v in batch.items()}
+    if "valid" in batch:
+        part[VALID_TOTAL] = batch["valid"].sum()
+    return part
+
+
+def _timed_sum(params, mesh, group, loss=None) -> float:
+    """Mean wall ms of ``sum_grads_over_ring_`` over ``group`` on the
+    gradients as they stand (repeated, the sums not kept)."""
+    from stlt_tpu_torch.training.loop import sum_grads_over_ring_
+
+    params = list(params)
+    saved = [p.grad.clone() for p in params if p.grad is not None]
+    times = []
+    for _ in range(GRID_STEP_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sum_grads_over_ring_(params, mesh, loss, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for p, g in zip((p for p in params if p.grad is not None), saved):
+            p.grad.copy_(g)
+    return float(np.median(times))
+
+
+def grid_rank(rank: int, workdir: str) -> int:
+    """One rank of phase 13 (``chip_smoke.py --grid-rank R WORKDIR``), rank R
+    of a grid of GRID_D rings of GRID_C ranks: (a) ``train --num_processes 4
+    --context_parallel 2`` (launch counts, epoch records, a digest of the
+    trained weights); then under one more process group (c) ``predict`` on
+    the grid (rows, launch counts) and the first batch's logits of this
+    rank's rows, (b) one step at dropout 0 from the seeded weights on this
+    rank's rows of the global batch, its gradients summed over the ring and
+    then over the data group (``training/loop.loss_and_grads``), and (d) the
+    step time at dropout 0.1, the two all-reduces' times and the peak
+    memory. Writes ``grid_rank_R.json``, ``grid_rank_R_logits.npy`` and
+    (rank 0) ``grid_rank_0_step.pt``."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+    from stlt_tpu_torch.parallel.mesh import active_data_mesh
+    from stlt_tpu_torch.parser import build_parser
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import loss_and_grads, step_generator
+
+    with open(os.path.join(workdir, "grid.json")) as f:
+        spec = json.load(f)
+    process = ["--num_processes", str(GRID_WORLD), "--process_id", str(rank)]
+    report = {"rank": rank}
+    reset_all_launches()
+    t0 = time.perf_counter()
+    result = port_train.main(spec["train_argv"] + process + [
+        "--coordinator_address", f"localhost:{spec['ports']['train']}",
+        "--save_model_path", os.path.join(workdir, f"best_{rank}.pt")])
+    torch.cuda.synchronize()
+    report["train"] = {"seconds": time.perf_counter() - t0, "launches": all_launches(),
+                       "steps": result.step, "epochs": result.epochs,
+                       "digest": _digest(result.model.parameters())}
+    del result
+    torch.cuda.empty_cache()
+
+    parser = build_parser("chip_smoke grid rank")
+    parser.add_argument("--top_k", type=int, default=5)
+    parser.add_argument("--output", type=str)
+    args = parser.parse_args(spec["predict_argv"] + process + [
+        "--coordinator_address", f"localhost:{spec['ports']['predict']}"])
+    predict.check_flags(args)
+    device = predict.start_processes(args)
+    report["device"] = str(device)
+    criterion = make_criterion("something")
+    try:
+        mesh = active_data_mesh()
+        reset_all_launches()
+        rows = predict.serve(args, device)
+        torch.cuda.synchronize()
+        report["predict"] = {"rows": len(rows), "launches": all_launches()}
+        data_cfg = DataConfig(dataset_name="something", dataset_path=args.test_dataset_path,
+                              labels_path=args.labels_path, videoid2size_path=args.videoid2size_path,
+                              layout_num_frames=GRID_FRAMES, frames_multiple=GRID_C)
+        model = _served_model(args.checkpoint_path, spec["model_kw"], position_table_rows(data_cfg),
+                              device)
+        _, batch = _first_batch(data_cfg, GRID_PREDICT_BATCH, device)
+        with torch.inference_mode():
+            logits = model(_grid_part(batch, mesh))["stlt"]
+        np.save(os.path.join(workdir, f"grid_rank_{rank}_logits.npy"), logits.float().cpu().numpy())
+        del model, batch
+
+        paths = spec["train_paths"]
+        model = _ring_train_model(GRID_FRAMES, 0.0, device)
+        batch = _ring_train_batch(paths, GRID_FRAMES, GRID_TRAIN_BATCH, device, train=False)
+        model.zero_grad(set_to_none=True)
+        loss = loss_and_grads(model, criterion, _grid_part(batch, mesh), step_generator(SEED, 0))
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        report["step_loss"] = loss.item()
+        report["grad_digest"] = _digest(grads.values())
+        if rank == 0:
+            torch.save({"loss": loss.item(), "grads": grads},
+                       os.path.join(workdir, "grid_rank_0_step.pt"))
+        del model, batch, grads
+
+        model = _ring_train_model(GRID_FRAMES, DROPOUT, device)
+        batch = _grid_part(_ring_train_batch(paths, GRID_FRAMES, GRID_TRAIN_BATCH, device,
+                                             train=True), mesh)
+        torch.cuda.reset_peak_memory_stats()
+        report["step_ms"] = _step_ms(model, batch, criterion, steps=GRID_STEP_REPEATS)
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # The two all-reduces of a step, on its last gradients: the
+        # backbone's over the ring, then every gradient and the loss over
+        # the data group.
+        loss = torch.zeros((), device=device)
+        report["ring_sum_ms"] = _timed_sum(model.backbone.parameters(), mesh, mesh.ring_group)
+        report["data_sum_ms"] = _timed_sum(model.parameters(), mesh, mesh.data_group, loss)
+        report["ring_sum_bytes"] = 4 * sum(p.numel() for p in model.backbone.parameters())
+        report["data_sum_bytes"] = 4 * (sum(p.numel() for p in model.parameters()) + 1)
+        del model, batch
+        torch.cuda.empty_cache()
+    finally:
+        predict.stop_processes()
+    with open(os.path.join(workdir, f"grid_rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_grid_path(device):
+    """Phase 13: STLT on a grid of GRID_D rings of GRID_C ranks (``--num_processes
+    4 --context_parallel 2``), the four rank processes on this one card
+    (gloo), at full width (H = 768, 12 heads, 4 + 8 layers, bf16) and 512
+    layout frames (514 slots):
+
+    (a) ``train``, one epoch of two AdamW steps (global B = 16) and one
+        validation batch: each rank's backend line and device, the four
+        ranks' losses and trained weights equal bit for bit, the checkpoint
+        written by rank 0 alone, each rank's launches (``ring_train_launches``:
+        rows 3, 4, 8 and 9-10 in ring-offset mode and 11-14);
+    (b) one step at dropout 0 from the seeded weights: the four ranks'
+        gradients (the backbone's summed over the ring, then every one over
+        the data group) equal bit for bit and within phase 10's one-step
+        limits of one process's on the global batch;
+    (c) ``predict`` on the grid (B = 32, clips of 32-513 frames): rank 0's
+        predictions of every clip, each rank's launches per forward (phase
+        9's), each ring's two ranks' logits of their rows equal, and the
+        rings' rows joined within LOGITS_ATOL of one process's;
+    (d) the ``grid_times`` line: each rank's step ms at dropout 0.1, its two
+        all-reduces' ms and its peak memory, beside the card line (four
+        ranks share one card: no speed claim)."""
+    import socket
+
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.criterion import make_criterion
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    model_kw = dict(num_classes=NUM_CLASSES, unique_categories=4, hidden_size=H,
+                    num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                    num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_grid_") as root:
+        train_root, predict_root = os.path.join(root, "train"), os.path.join(root, "predict")
+        os.makedirs(train_root)
+        os.makedirs(predict_root)
+        train_clips = GRID_TRAIN_BATCH * RING_TRAIN_STEPS
+        paths = write_something_dataset(train_root, train_clips + GRID_TRAIN_BATCH, SEED + 51,
+                                        num_used=TRAIN_LABELS, frames_range=(32, 513))
+        split = _split_dataset(paths, train_root, train_clips)
+        train_paths = {**split, "labels": paths["labels"], "videoid2size": paths["videoid2size"]}
+        served = write_something_dataset(predict_root, GRID_PREDICT_BATCH, SEED + 52,
+                                         frames_range=(32, 513))
+        data_cfg = DataConfig(dataset_name="something", dataset_path=served["dataset"],
+                              labels_path=served["labels"], videoid2size_path=served["videoid2size"],
+                              layout_num_frames=GRID_FRAMES, frames_multiple=GRID_C)
+        table_rows = position_table_rows(data_cfg)
+        model = models_factory["stlt"](make_model_config("stlt", **model_kw, layout_num_frames=table_rows),
+                                       torch.Generator().manual_seed(SEED + 53))
+        ckpt = os.path.join(predict_root, "stlt_random.pt")
+        torch.save(model.state_dict(), ckpt)
+        del model
+        out_path = os.path.join(predict_root, "predictions.jsonl")
+        spec = {"ports": {name: free_port() for name in GRID_PORTS}, "model_kw": model_kw,
+                "train_paths": train_paths,
+                "train_argv": _ring_train_argv(split, paths, GRID_FRAMES, GRID_TRAIN_BATCH),
+                "predict_argv": _ring_argv(served, ckpt, GRID_FRAMES, GRID_PREDICT_BATCH, out_path)}
+        with open(os.path.join(root, "grid.json"), "w") as f:
+            json.dump(spec, f)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--grid-rank", str(r),
+                                   root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(GRID_WORLD)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            tail = "\n".join(out.splitlines()[-40:])
+            if proc.returncode != 0:
+                raise AssertionError(f"grid rank {r} exited {proc.returncode}:\n{tail}")
+            want_line = f"distributed: rank {r} of {GRID_WORLD} on cuda:0, backend gloo"
+            if out.count(want_line) != len(GRID_PORTS):
+                raise AssertionError(f"grid rank {r}: not {len(GRID_PORTS)} lines '{want_line}' in "
+                                     f"its log:\n{tail}")
+        reports = []
+        for r in range(GRID_WORLD):
+            with open(os.path.join(root, f"grid_rank_{r}.json")) as f:
+                reports.append(json.load(f))
+            if reports[-1]["device"] != "cuda:0":
+                raise AssertionError(f"grid rank {r} ran on {reports[-1]['device']}")
+
+        # (a) train on the grid.
+        label = (f"train --num_processes {GRID_WORLD} --context_parallel {GRID_C}, {GRID_FRAMES} "
+                 f"frames, B = {GRID_TRAIN_BATCH}")
+        want = ring_train_launches(GRID_FRAMES, RING_TRAIN_STEPS)
+        for r, report in enumerate(reports):
+            entry = report["train"]
+            counts = entry["launches"]
+            if counts != {name: want.get(name, 0) for name in counts}:
+                raise AssertionError(f"{label}, rank {r}: launches {counts}, expected {want}")
+            if entry["steps"] != RING_TRAIN_STEPS or not all(
+                    math.isfinite(e["train_loss"]) for e in entry["epochs"]):
+                raise AssertionError(f"{label}, rank {r}: bad run {entry}")
+            log(f"{label}, rank {r} (data {r // GRID_C}, context {r % GRID_C}): {entry['steps']} steps "
+                f"in {entry['seconds']:.3f} s (data, model set-up and validation included); launches "
+                f"{counts}; epochs {json.dumps(entry['epochs'])}")
+        losses = [[e["train_loss"] for e in report["train"]["epochs"]] for report in reports]
+        if any(x != losses[0] for x in losses):
+            raise AssertionError(f"{label}: the ranks' losses differ: {losses}")
+        digests = {report["train"]["digest"] for report in reports}
+        if len(digests) != 1:
+            raise AssertionError(f"{label}: the ranks' trained weights differ ({len(digests)} digests)")
+        written = [r for r in range(GRID_WORLD) if os.path.exists(os.path.join(root, f"best_{r}.pt"))]
+        if written != [0]:
+            raise AssertionError(f"{label}: checkpoints written by ranks {written}, not by rank 0 alone")
+        log(f"{label}: the {GRID_WORLD} ranks' losses {losses[0]} and trained weights equal bit for "
+            f"bit; rank 0 alone wrote the checkpoint")
+
+        # (b) one step at dropout 0 against one process on the global batch.
+        criterion = make_criterion("something")
+        step_label = f"train step {GRID_FRAMES} frames, B = {GRID_TRAIN_BATCH}, dropout 0"
+        if len({report["grad_digest"] for report in reports}) != 1:
+            raise AssertionError(f"{step_label}: the {GRID_WORLD} ranks' summed gradients differ")
+        grid = torch.load(os.path.join(root, "grid_rank_0_step.pt"))
+        model = _ring_train_model(GRID_FRAMES, 0.0, device)
+        batch = _ring_train_batch(train_paths, GRID_FRAMES, GRID_TRAIN_BATCH, device, train=False)
+        loss, grads = _one_step(model, batch, criterion)
+        _compare_steps(step_label, f"{GRID_D} x {GRID_C} grid (summed over the ring, then the data "
+                                   f"group; equal on all {GRID_WORLD} ranks) vs one process",
+                       (grid["loss"], {n: x.to(device) for n, x in grid["grads"].items()}), (loss, grads))
+        del model, batch, grads, grid
+
+        # (c) predict on the grid.
+        plabel = f"predict on the grid, {GRID_FRAMES} frames, B = {GRID_PREDICT_BATCH}"
+        with open(out_path) as f:
+            written_rows = sum(1 for _ in f)
+        if written_rows != GRID_PREDICT_BATCH:
+            raise AssertionError(f"{plabel}: {written_rows} predictions written, not {GRID_PREDICT_BATCH}")
+        per_forward = {"blockwise_attention_offsets": TEMPORAL_LAYERS * GRID_C,
+                       "fused_proj_attention": SPATIAL_LAYERS,
+                       "fused_layer_tail": SPATIAL_LAYERS + TEMPORAL_LAYERS}
+        for r, report in enumerate(reports):
+            run = report["predict"]
+            counts = run["launches"]
+            if counts != {name: per_forward.get(name, 0) for name in counts} or \
+                    run["rows"] != GRID_PREDICT_BATCH:
+                raise AssertionError(f"{plabel}, rank {r}: {run['rows']} rows, launches {counts}, "
+                                     f"expected {per_forward} (one forward)")
+        logits = [np.load(os.path.join(root, f"grid_rank_{r}_logits.npy")) for r in range(GRID_WORLD)]
+        for d in range(GRID_D):
+            ring = logits[d * GRID_C:(d + 1) * GRID_C]
+            if any(not np.array_equal(x, ring[0]) for x in ring):
+                raise AssertionError(f"{plabel}: ring {d}'s ranks' logits differ")
+        got = torch.from_numpy(np.concatenate(logits[::GRID_C])).to(device)
+        model = _served_model(ckpt, model_kw, table_rows, device)
+        _, batch = _first_batch(data_cfg, GRID_PREDICT_BATCH, device)
+        with torch.inference_mode():
+            single = model(batch)["stlt"].float()
+        _check_logits(f"{plabel}, the rings' rows joined", got, single, "one process")
+        del model, batch
+
+        # (d) times.
+        log("grid_times " + json.dumps({
+            "card": card_line(),
+            "ranks": [{k: report[k] for k in ("rank", "step_ms", "ring_sum_ms", "data_sum_ms",
+                                              "peak_bytes")} for report in reports],
+            "ring_sum_bytes": reports[0]["ring_sum_bytes"],
+            "data_sum_bytes": reports[0]["data_sum_bytes"],
+            "note": "four ranks share one card, the ring and both sums staged through host memory "
+                    "(gloo): no speed claim"}))
+    return None
 
 
 def main(argv=()) -> int:
@@ -5960,6 +6383,8 @@ def main(argv=()) -> int:
         return ring_train_rank(int(argv[1]), argv[2])
     if argv[:1] == ["--data-rank"]:  # one rank of phase 12, started by run_data_axis_path
         return data_rank(int(argv[1]), argv[2])
+    if argv[:1] == ["--grid-rank"]:  # one rank of phase 13, started by run_grid_path
+        return grid_rank(int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
               file=sys.stderr)
@@ -6023,6 +6448,8 @@ def main(argv=()) -> int:
     # base, then train, one step and predict on two ranks against one process.
     timed(check_base_kernels)
     timed(run_data_axis_path)
+    # The data axis under the ring (--num_processes 4 --context_parallel 2): four ranks on this card.
+    timed(run_grid_path)
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

@@ -67,8 +67,9 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
 // lowbias32(((row_base + b)*N + n) ^ seed), counter t*S + s over the
 // unpadded key count S, kept when lowbias32(counter ^ lane) >= thresh. A
 // launch on rows [r0, r0 + B) of a batch passes row_base = r0 (mod 2**32,
-// the lane's own wrap) and hashes the bits of those rows of the whole
-// batch; row_base 0 is the launch's own rows.
+// the lane's wrap) and hashes the bits of those rows of the whole
+// batch; row_base 0 is the launch's own rows. The long-clip attention
+// kernels (rows 6-10) take it; rows 3 and 4 take a RowMap (RowDropout).
 struct Dropout {
   int on;
   uint32_t seed, thresh;
@@ -81,17 +82,50 @@ struct Dropout {
   }
 };
 
+// The global row (or token) of a launch's local index i, at which the
+// dropout bits are hashed: g(i) = (i / period) * stride + base + i % period,
+// mod 2**32 (the 64-bit index truncated where JAX's uint32 counter wraps:
+// truncation commutes with + and *, so 32-bit arithmetic gives its low
+// bits). A ring rank's frame rows (t of each clip's F frames) take period
+// t, stride F; the affine map base + i (a launch on rows [base, base + n)
+// of a batch) takes period = stride = 2**31, past any local index. The
+// quotient is a multiply-high by magic = ceil(2**(31 + l) / period), l =
+// ceil(log2 period), exact for i < 2**31 (ops/dropout.py::RowMap
+// .kernel_args): no division and no branch, taken once per row
+// (attention) or per token row (tails).
+struct RowMap {
+  uint32_t base, period, stride, magic;
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    const uint32_t shift = 63 - __clz(period - 1);  // 31 + l; period 1: __clz(0) = 32
+    const uint32_t q = static_cast<uint32_t>((static_cast<unsigned long long>(i) * magic) >> shift);
+    return q * stride + base + (i - q * period);
+  }
+};
+
+// Rows 3 and 4's dropout: Dropout's bits at the global row rows(b): the
+// lane of (b, n) once per row and head (row_lane), then keep_at per key.
+struct RowDropout {
+  int on;
+  uint32_t seed, thresh;
+  float scale;
+  RowMap rows;
+  __device__ __forceinline__ uint32_t row_lane(uint32_t b, uint32_t n, uint32_t num_heads) const {
+    return lowbias32((rows(b) * num_heads + n) ^ seed);
+  }
+  __device__ __forceinline__ float keep_at(uint32_t lane, uint32_t t, uint32_t s,
+                                           uint32_t s_total) const {
+    return lowbias32((t * s_total + s) ^ lane) >= thresh ? scale : 0.f;
+  }
+};
+
 // The train layer tail's three dropout sites (stlt_tpu/ops/fused_tail_train.py
 // TAG_* :90-92 and _keep_rows :97): the stream of a site has the lane
 // lowbias32(seed ^ tag); the element (token, feature) of a stream of `width`
-// features has the counter token * width + feature (mod 2**32, token the
-// global index over the flattened tokens) and is kept when
-// lowbias32(counter ^ lane) >= thresh. keep_scale gives 1/(1-rate) for a kept
-// element, else 0, so v * keep_scale is JAX's v * keep * drop_scale. A
-// launch on tokens [t0, t0 + n) of a batch passes token_base = t0 mod 2**32
-// (the counter keeps the low 32 bits of token * width, so the low 32 bits of
-// t0 are all it needs), added to the local token as a global token index
-// enters it; token_base 0 is the launch's own tokens.
+// features has the counter g(token) * width + feature (mod 2**32, g = tokens
+// the global index over the flattened tokens) and is kept when
+// lowbias32(counter ^ lane) >= thresh. row_counter gives g(token) * width,
+// once per token row; keep_at gives 1/(1-rate) for a kept element, else 0,
+// so v * keep_at is JAX's v * keep * drop_scale.
 constexpr uint32_t kTagAttnDrop = 0x9E3779B9u;
 constexpr uint32_t kTagMidDrop = 0x85EBCA6Bu;
 constexpr uint32_t kTagOutDrop = 0xC2B2AE35u;
@@ -100,12 +134,14 @@ struct TailDropout {
   int on;
   uint32_t seed, thresh;
   float scale;
-  uint32_t token_base;
+  RowMap tokens;
   __device__ __forceinline__ uint32_t lane(uint32_t tag) const { return lowbias32(seed ^ tag); }
-  __device__ __forceinline__ float keep_scale(uint32_t lane, long long token, uint32_t width,
-                                              uint32_t feature) const {
-    const uint32_t counter = (static_cast<uint32_t>(token) + token_base) * width + feature;
-    return lowbias32(counter ^ lane) >= thresh ? scale : 0.f;
+  __device__ __forceinline__ uint32_t row_counter(long long token, uint32_t width) const {
+    return tokens(static_cast<uint32_t>(token)) * width;
+  }
+  __device__ __forceinline__ float keep_at(uint32_t lane, uint32_t row_counter,
+                                           uint32_t feature) const {
+    return lowbias32((row_counter + feature) ^ lane) >= thresh ? scale : 0.f;
   }
 };
 

@@ -332,7 +332,7 @@ int launch_tc(const CrossArgs& p, int head_dim, cudaStream_t stream) {
   if ((err = launch_gemm(cross_gemm_kernel, gemm_attribute_set, map_ctx, map_wkv, gkv, stream))) return err;
   const AttnArgs a{q, kv, kv + H, (long long)H, 2LL * H, o, p.bias, p.bias_row_stride, p.bias_q_stride,
                    nullptr, nullptr, nullptr, p.rows, p.tq, p.skv, H, p.num_heads, 1, p.scale,
-                   Dropout{0, 0u, 0u, 0.f, 0u}};
+                   RowDropout{}};
   switch (head_dim) {
     case 32: err = launch_cross_attn<32>(a, stream); break;
     case 64: err = launch_cross_attn<64>(a, stream); break;

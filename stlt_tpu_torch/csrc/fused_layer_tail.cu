@@ -168,6 +168,13 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
   __syncthreads();
 
   const uint32_t lane_mid = p.drop.lane(kTagMidDrop);
+  uint32_t rc_mid[kRM];  // the row counters of this thread's tokens, FF and H features wide
+  uint32_t rc_out[kRM];
+#pragma unroll
+  for (int r = 0; r < kRM; ++r) {
+    rc_mid[r] = drop ? p.drop.row_counter(tok0 + ty * kRM + r, p.ff) : 0u;
+    rc_out[r] = drop ? p.drop.row_counter(tok0 + ty * kRM + r, H) : 0u;
+  }
   for (int c0 = 0; c0 < p.ff; c0 += kFC) {
     float hacc[kRM][kFC / 64];
 #pragma unroll
@@ -190,7 +197,7 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
 #pragma unroll
       for (int r = 0; r < kRM; ++r) {
         float h = activation<float>(hacc[r][j] + b, p.act);
-        if (drop) h *= p.drop.keep_scale(lane_mid, tok0 + ty * kRM + r, p.ff, c0 + c);
+        if (drop) h *= p.drop.keep_at(lane_mid, rc_mid[r], c0 + c);
         h_s[(ty * kRM + r) * kFC + c] = h;
       }
     }
@@ -215,7 +222,7 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
     for (int j = 0; j < NC; ++j) {
       const int c = tx + 64 * j;
       float h2 = acc[r][j] + p.b2[c];
-      if (drop) h2 *= p.drop.keep_scale(lane_out, tok0 + i, H, c);
+      if (drop) h2 *= p.drop.keep_at(lane_out, rc_out[r], c);
       u_s[i * H + c] += h2;
     }
   }
@@ -334,7 +341,8 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
     const int rl = i / kVecs, cl = (i % kVecs) * 8;
     const int row = m0 + rl, c = n0 + cl;
     if (row >= M || c >= p.N) continue;
-    const int tok = p.rows != nullptr ? p.rows[row] : row;  // the dropout bits' global token
+    const int tok = p.rows != nullptr ? p.rows[row] : row;  // the dropout bits' token
+    const uint32_t rc = drop ? p.drop.row_counter(tok, p.N) : 0u;
     const uint4 hv = *reinterpret_cast<const uint4*>(tile + rl * LDS + cl);
     const bf16* he = reinterpret_cast<const bf16*>(&hv);
     const long long off = (long long)row * p.N + c;
@@ -344,7 +352,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         float v = activation<bf16>(to_float(he[e]), p.act);
-        if (drop) v = round_to<bf16>(v * p.drop.keep_scale(lane, tok, p.N, c + e));
+        if (drop) v = round_to<bf16>(v * p.drop.keep_at(lane, rc, c + e));
         oe[e] = from_float<bf16>(v);
       }
       *reinterpret_cast<uint4*>(p.out + off) = ov;
@@ -354,7 +362,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         float h2 = to_float(he[e]);
-        if (drop) h2 = round_to<bf16>(h2 * p.drop.keep_scale(lane, tok, p.N, c + e));
+        if (drop) h2 = round_to<bf16>(h2 * p.drop.keep_at(lane, rc, c + e));
         oe[e] = from_float<bf16>(to_float(ue[e]) + h2);
       }
       *reinterpret_cast<uint4*>(p.out + (long long)tok * p.N + c) = ov;
@@ -514,7 +522,8 @@ int dispatch(int nc, const TailArgs& a, cudaStream_t s) {
 // or -3 if a TMA map cannot be encoded. act: 0 relu, 1 exact-erf GELU,
 // 2 tanh GELU. A non-null r2 selects the train variant, which writes r2 and
 // applies the dropout sites when `dropout` is 1 (keep bits from seed and
-// thresh at the global tokens token_base + i, survivors scaled by
+// thresh at the global tokens of the map (token_base, token_period,
+// token_stride, token_magic: common.cuh RowMap); survivors scaled by
 // dropout_scale); eval passes a null r2 and
 // dropout 0. w1 is W1 stored [FF, H] and w2 W2 stored [H, FF] (the models'
 // linear.weight). bf16 needs `scratch`, 16-byte aligned: (H + FF) bf16 and
@@ -524,7 +533,8 @@ extern "C" int stlt_fused_layer_tail(
     const void* b1, const void* w2, const void* b2, const void* n2s, const void* n2b,
     const void* live, void* out, void* r2, void* scratch, int tokens, int hidden, int ff,
     float eps, int act, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
-    long long token_base, int dtype, void* stream) {
+    long long token_base, unsigned int token_period, unsigned int token_stride,
+    unsigned int token_magic, int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || act < 0 ||
       act > 2) {
     return -1;
@@ -534,7 +544,9 @@ extern "C" int stlt_fused_layer_tail(
              static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
              static_cast<const float*>(n2s), static_cast<const float*>(n2b),
              static_cast<const uint8_t*>(live), out, r2, tokens, ff, eps, act,
-             TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
+             TailDropout{dropout, seed, thresh, dropout_scale,
+                         RowMap{static_cast<uint32_t>(token_base), token_period, token_stride,
+                                token_magic}}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = r2 != nullptr;
   if (dtype == 0) return train ? dispatch<true>(hidden / 64, t, s) : dispatch<false>(hidden / 64, t, s);

@@ -69,7 +69,7 @@ struct ProjArgs {
   int num_heads;
   int rows_per_block;  // T <= 32: rows of one block; T > 32: 1
   float scale;
-  Dropout drop;
+  RowDropout drop;
 };
 
 // T > 32: kKeyChunks blocks (query halves) per row, each projecting the
@@ -137,9 +137,8 @@ __device__ __forceinline__ void head_probs(const ProjArgs& p, const Tile& tl, in
     }
     for (int s = 0; s < seq; ++s) pr[s] = pr[s] / sum;
     if (kDrop) {
-      for (int s = 0; s < seq; ++s) {
-        pr[s] *= p.drop.keep_scale(tl.row0 + lr, h, p.num_heads, t, s, seq);
-      }
+      const uint32_t dl = p.drop.row_lane(tl.row0 + lr, h, p.num_heads);
+      for (int s = 0; s < seq; ++s) pr[s] *= p.drop.keep_at(dl, t, s, seq);
     }
   }
   __syncthreads();
@@ -390,7 +389,8 @@ int dispatch_f32(int head_dim, const ProjArgs& a, cudaStream_t s) {
 // 128}, T > 64, no scratch in bf16), -2 for an unknown dtype code (0 =
 // float32, 1 = bfloat16) or -3 if a TMA map cannot be encoded. dropout = 0
 // is the eval function; otherwise probabilities are dropped with (seed,
-// thresh) at the global rows row_base + b and kept ones scaled by
+// thresh) at the global rows of the map (row_base, row_period,
+// row_stride, row_magic: common.cuh RowMap) and kept ones scaled by
 // dropout_scale. f32 takes wqkv [H, 3H] and
 // wo [H, H] input-major and no scratch; bf16 takes them as the model stores
 // them (wqkv [3H, H], wo [H, H] output-major, 16-byte aligned), x and the
@@ -401,7 +401,8 @@ extern "C" int stlt_fused_proj_attention(
     const void* bias, long long bias_row_stride, long long bias_q_stride,
     const void* rows_live, void* out, void* scratch, int rows, int seq, int hidden, int num_heads,
     float scale, int dropout, unsigned int seed, unsigned int thresh, float dropout_scale,
-    unsigned int row_base, int dtype, void* stream) {
+    unsigned int row_base, unsigned int row_period, unsigned int row_stride, unsigned int row_magic,
+    int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
       hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0) {
     return -1;
@@ -409,7 +410,8 @@ extern "C" int stlt_fused_proj_attention(
   ProjArgs a{x, wqkv, bqkv, wo, bo, static_cast<const float*>(bias), bias_row_stride,
              bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
              num_heads, seq > kTM ? 1 : kTM / seq, scale,
-             Dropout{dropout, seed, thresh, dropout_scale, row_base}};
+             RowDropout{dropout, seed, thresh, dropout_scale,
+                        RowMap{row_base, row_period, row_stride, row_magic}}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
   if (dtype == 1) return launch_tc(a, hidden / num_heads, scratch, s);

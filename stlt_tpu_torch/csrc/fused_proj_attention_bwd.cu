@@ -119,7 +119,7 @@ struct BwdArgs {
   int num_heads;
   int rows_per_block;
   float scale;
-  Dropout drop;
+  RowDropout drop;
 };
 
 struct Tile {
@@ -168,7 +168,7 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const flo
     const float b = p.bias[(long long)(tl.row0 + lr) * p.bias_row_stride +
                            (long long)t * p.bias_q_stride + s];
     p_s[i * kTK + s] = dot * p.scale + b;
-    if (p.drop.on) dpv *= p.drop.keep_scale(tl.row0 + lr, h, p.num_heads, t, s, seq);
+    if (p.drop.on) dpv *= p.drop.keep_at(p.drop.row_lane(tl.row0 + lr, h, p.num_heads), t, s, seq);
     dp_s[i * kTK + s] = dpv;
   }
   __syncthreads();
@@ -191,9 +191,10 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const flo
       pr[s] = pr[s] / sum;
       r += pr[s] * dr[s];
     }
+    const uint32_t dl = p.drop.on ? p.drop.row_lane(tl.row0 + lr, h, p.num_heads) : 0u;
     for (int s = 0; s < seq; ++s) {
       dr[s] = pr[s] * (dr[s] - r);
-      if (p.drop.on) pr[s] *= p.drop.keep_scale(tl.row0 + lr, h, p.num_heads, t, s, seq);
+      if (p.drop.on) pr[s] *= p.drop.keep_at(dl, t, s, seq);
     }
   }
   __syncthreads();
@@ -509,7 +510,7 @@ struct AttnBwdArgs {
   int B, T, H, N;
   int hb;  // heads a block
   float scale;
-  Dropout drop;
+  RowDropout drop;
 };
 
 // q, k, v (bf16, rows padded by 16 bytes), do (f32, rows padded by 16 bytes)
@@ -640,10 +641,11 @@ __global__ void __launch_bounds__(kBwdThreads) proj_bwd_attn_kernel(AttnBwdArgs 
       sum += e;
     }
     float r = 0.f;
+    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h, p.N) : 0u;
     for (int s = 0; s < T; ++s) {
       const float ps = pr[s] / sum;
       float dp = zr[s];
-      if (kDrop) dp *= p.drop.keep_scale(orig, h, p.N, t, s, T);
+      if (kDrop) dp *= p.drop.keep_at(dl, t, s, T);
       pr[s] = ps;
       zr[s] = dp;
       r = fmaf(ps, dp, r);
@@ -651,7 +653,7 @@ __global__ void __launch_bounds__(kBwdThreads) proj_bwd_attn_kernel(AttnBwdArgs 
     for (int s = 0; s < T; ++s) {
       const float ps = pr[s];
       zr[s] = ps * (zr[s] - r);
-      if (kDrop) pr[s] = ps * p.drop.keep_scale(orig, h, p.N, t, s, T);
+      if (kDrop) pr[s] = ps * p.drop.keep_at(dl, t, s, T);
     }
     // attn = round(pv v) at the packed token, dq = dz k * scale at the
     // original one, kBwdCols columns at a time, sums over s in order.
@@ -866,7 +868,7 @@ struct TcArgs {
   float* dbo;
   int rows, seq, H, N;
   float scale;
-  Dropout drop;
+  RowDropout drop;
   int splits;
   long long chunk;
 };
@@ -983,15 +985,17 @@ extern "C" int stlt_fused_proj_attention_bwd(
     long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
     void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
     int seq, int hidden, int num_heads, float scale, int dropout, unsigned int seed,
-    unsigned int thresh, float dropout_scale, unsigned int row_base, int splits, long long chunk,
-    int dtype, void* stream) {
+    unsigned int thresh, float dropout_scale, unsigned int row_base, unsigned int row_period,
+    unsigned int row_stride, unsigned int row_magic, int splits, long long chunk, int dtype,
+    void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
       hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 || splits < 1) {
     return -1;
   }
   const int head_dim = hidden / num_heads;
   if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
-  const Dropout drop{dropout, seed, thresh, dropout_scale, row_base};
+  const RowDropout drop{dropout, seed, thresh, dropout_scale,
+                        RowMap{row_base, row_period, row_stride, row_magic}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const TcArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),

@@ -158,6 +158,7 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_row_kernel(RowArgs p) {
     s = warp_sum(s);
     s2 = warp_sum(s2);
     const float mu = s / H, rstd = rsqrtf(fmaxf(0.f, s2 / H - mu * mu) + p.eps);
+    const uint32_t rc2 = p.drop.on ? p.drop.row_counter(tok, H) : 0u;
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -174,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_row_kernel(RowArgs p) {
       const float d = rstd * (gv[j] * p.n2s[c] - m1 - xv[j] * m2);
       mine[c] += gv[j] * xv[j];
       mine[H + c] += gv[j];
-      mine[2 * H + c] += p.drop.on ? d * p.drop.keep_scale(lane2, tok, H, c) : d;
+      mine[2 * H + c] += p.drop.on ? d * p.drop.keep_at(lane2, rc2, c) : d;
       drow[c] = from_float<T>(d);
     }
   }
@@ -239,13 +240,13 @@ struct InputArgs {
 
 // dh1 and the dropped hidden of one (token, FF column f) from z = z1 (f32,
 // b1 added) and dacc = dh2 W2^T (f32): dh1 = dacc keepm act'(z1), h1d =
-// cd(act_cd(cd(z1)) keepm).
+// cd(act_cd(cd(z1)) keepm). rc_mid: the token's row_counter over FF features.
 template <typename T>
 __device__ __forceinline__ float2 hidden_grads(float z, float dacc, int act, const TailDropout& drop,
-                                               uint32_t lane_mid, long long tok, int ff, int f) {
+                                               uint32_t lane_mid, uint32_t rc_mid, int f) {
   float h1 = activation<T>(round_to<T>(z), act);
   if (drop.on) {
-    const float k = drop.keep_scale(lane_mid, tok, ff, f);
+    const float k = drop.keep_at(lane_mid, rc_mid, f);
     dacc *= k;
     h1 = round_to<T>(h1 * k);
   }
@@ -293,6 +294,7 @@ __device__ void ln1_backward(const InputArgs& p, const float* du_s, float* red_s
   const uint32_t lane1 = p.drop.lane(kTagAttnDrop);
   for (int i = warp; i < ntok; i += kWarps) {
     const long long tok = tok0 + i;
+    const uint32_t rc1 = p.drop.on ? p.drop.row_counter(tok, H) : 0u;
     if (!is_live(p.live, tok)) {
       for (int c = lane; c < H; c += 32) {
         dx[tok * H + c] = from_float<T>(0.f);
@@ -304,7 +306,7 @@ __device__ void ln1_backward(const InputArgs& p, const float* du_s, float* red_s
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int c = lane + 32 * j;
-      xv[j] = residual1<T>(x, a, tok * H + c, p.drop, lane1, tok, H, c);
+      xv[j] = residual1<T>(x, a, tok * H + c, p.drop, lane1, rc1, c);
       s += xv[j];
       s2 = fmaf(xv[j], xv[j], s2);
     }
@@ -329,7 +331,7 @@ __device__ void ln1_backward(const InputArgs& p, const float* du_s, float* red_s
       const float d = rstd * (dv[j] * p.n1s[c] - m1 - xv[j] * m2);
       dx[tok * H + c] = from_float<T>(d);
       dattn[tok * H + c] =
-          from_float<T>(p.drop.on ? d * p.drop.keep_scale(lane1, tok, H, c) : d);
+          from_float<T>(p.drop.on ? d * p.drop.keep_at(lane1, rc1, c) : d);
       mine[c] += dv[j] * xv[j];
       mine[H + c] += dv[j];
     }
@@ -358,7 +360,7 @@ __device__ void stage_dh2(const InputArgs& p, const E* u_s, E* dh2_s, int ld, lo
     float v = 0.f;
     if (i < ntok && is_live(p.live, tok)) {
       v = to_float(dr2[tok * H + c]);
-      if (p.drop.on) v = round_to<T>(v * p.drop.keep_scale(lane2, tok, H, c));
+      if (p.drop.on) v = round_to<T>(v * p.drop.keep_at(lane2, p.drop.row_counter(tok, H), c));
     }
     dh2_s[i * ld + c] = from_float<E>(v);
     if (i < ntok) {
@@ -412,6 +414,9 @@ __global__ void __launch_bounds__(kThreads, 1) tail_bwd_input_kernel(InputArgs p
   __syncthreads();
 
   const uint32_t lane_mid = p.drop.lane(kTagMidDrop);
+  uint32_t rc_mid[RM];  // the row counters of this thread's tokens, FF features wide
+#pragma unroll
+  for (int r = 0; r < RM; ++r) rc_mid[r] = p.drop.on ? p.drop.row_counter(tok0 + ty * RM + r, p.ff) : 0u;
   for (int c0 = 0; c0 < p.ff; c0 += kFC) {
     float zacc[RM][kFC / 64], dacc[RM][kFC / 64];
 #pragma unroll
@@ -438,7 +443,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_bwd_input_kernel(InputArgs p
         const int i = ty * RM + r;
         const long long tok = tok0 + i;
         float2 hg = hidden_grads<float>(zacc[r][j] + p.b1[c0 + c], dacc[r][j], p.act, p.drop, lane_mid,
-                                        tok, p.ff, c0 + c);
+                                        rc_mid[r], c0 + c);
         if (i >= ntok || !is_live(p.live, tok)) hg = make_float2(0.f, 0.f);
         h_s[i * kFC + c] = hg.x;
         if (i < ntok) {
@@ -539,13 +544,14 @@ __global__ void __launch_bounds__(32 * kRowWarps) tail_bwd_prologue_kernel(Prolo
     ln1_row(p.x, p.a, p.n1s, p.n1b, p.drop, p.eps, true, tok, H, p.u + i * H);
     const uint4* drow = reinterpret_cast<const uint4*>(p.dr2 + tok * H);
     const uint32_t lane2 = p.drop.lane(kTagOutDrop);
+    const uint32_t rc2 = p.drop.on ? p.drop.row_counter(tok, H) : 0u;
     for (int vi = lane; vi < H / 8; vi += 32) {
       uint4 v = drow[vi];
       if (p.drop.on) {
         bf16* e = reinterpret_cast<bf16*>(&v);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          e[j] = from_float<bf16>(to_float(e[j]) * p.drop.keep_scale(lane2, tok, H, vi * 8 + j));
+          e[j] = from_float<bf16>(to_float(e[j]) * p.drop.keep_at(lane2, rc2, vi * 8 + j));
         }
       }
       hrow[vi] = v;
@@ -670,7 +676,8 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
     uint4 gv = make_uint4(0u, 0u, 0u, 0u), hv = gv;
     float zv[8] = {};
     if (row < M) {
-      const int tok = p.rows != nullptr ? p.rows[row] : row;  // the dropout bits' global token
+      const int tok = p.rows != nullptr ? p.rows[row] : row;  // the dropout bits' token
+      const uint32_t rc_mid = p.drop.on ? p.drop.row_counter(tok, p.FF) : 0u;
       const float4* dr = reinterpret_cast<const float4*>(ds + rl * LDS + cl);
       const float4 z0 = zr[0], z1 = zr[1], d0 = dr[0], d1 = dr[1];
       const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
@@ -680,7 +687,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
       bf16* he = reinterpret_cast<bf16*>(&hv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float2 hg = hidden_grads<bf16>(zv[e], dv[e], p.act, p.drop, lane_mid, tok, p.FF, n0 + cl + e);
+        const float2 hg = hidden_grads<bf16>(zv[e], dv[e], p.act, p.drop, lane_mid, rc_mid, n0 + cl + e);
         zv[e] = hg.x;
         ge[e] = from_float<bf16>(hg.x);
         he[e] = from_float<bf16>(hg.y);
@@ -804,6 +811,7 @@ __global__ void __launch_bounds__(kThreads, 2) tail_bwd_ln1_kernel(Ln1BwdArgs p)
   __syncwarp();  // the lanes add into words other lanes zeroed
   for (long long i = r0 + warp; i < r1; i += kWarps) {
     const long long tok = p.rows != nullptr ? p.rows[i] : i;
+    const uint32_t rc1 = p.drop.on ? p.drop.row_counter(tok, H) : 0u;
     float v[kRowVecs][8], dv[kRowVecs][8];
     const float2 st = residual_row(p.x, p.a, p.drop, p.eps, tok, H, v);
     float m1 = 0.f, m2 = 0.f;
@@ -840,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, 2) tail_bwd_ln1_kernel(Ln1BwdArgs p)
         const int c = vi * 8 + e;
         const float d = st.y * (dv[q][e] * p.n1s[c] - m1 - v[q][e] * m2);
         xe[e] = from_float<bf16>(d);
-        ae[e] = from_float<bf16>(p.drop.on ? d * p.drop.keep_scale(lane1, tok, H, c) : d);
+        ae[e] = from_float<bf16>(p.drop.on ? d * p.drop.keep_at(lane1, rc1, c) : d);
         mine[e * (H / 8) + vi] += dv[q][e] * v[q][e];  // column c at e H / 8 + c / 8: lanes on
         mine[H + e * (H / 8) + vi] += dv[q][e];        // neighbouring words, no bank conflict
       }
@@ -1132,20 +1140,23 @@ int launch_weight_tc(const WeightArgs& p, const int* count, int splits, cudaStre
 // dtype code (0 = float32, 1 = bfloat16) or -3 if a TMA map cannot be
 // encoded. Activations are in the compute dtype, vectors and sums in f32;
 // live is one byte per token (16-byte aligned in bf16) or null;
-// dropout/seed/thresh/dropout_scale/token_base as in stlt_fused_layer_tail.
+// dropout/seed/thresh/dropout_scale and the token map (token_base,
+// token_period, token_stride, token_magic) as in stlt_fused_layer_tail.
 
 // Row: dr2 and the partials of dn2s, dn2b, db2 ([blocks][3][H], block b
 // owning tokens [b * chunk, (b + 1) * chunk)), then their sums into out [3][H].
 extern "C" int stlt_tail_train_bwd_row(
     const void* r2, const void* g, const void* n2s, const void* live, void* dr2, float* partial,
     float* out, long long tokens, int hidden, float eps, int dropout, unsigned int seed,
-    unsigned int thresh, float dropout_scale, long long token_base, int blocks, long long chunk,
-    int dtype,
+    unsigned int thresh, float dropout_scale, long long token_base, unsigned int token_period,
+    unsigned int token_stride, unsigned int token_magic, int blocks, long long chunk, int dtype,
     void* stream) {
   if (hidden % 64 != 0 || blocks < 1 || chunk * blocks < tokens) return -1;
   RowArgs a{r2, g, static_cast<const float*>(n2s), static_cast<const uint8_t*>(live), dr2,
             partial, tokens, chunk, eps,
-            TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
+            TailDropout{dropout, seed, thresh, dropout_scale,
+                        RowMap{static_cast<uint32_t>(token_base), token_period, token_stride,
+                               token_magic}}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
@@ -1174,7 +1185,8 @@ extern "C" int stlt_tail_train_bwd_input(
     void* u, void* dh2, void* dh1, void* h1d, float* du, int* rows, float* partial_ln,
     float* partial_b1, float* out, long long tokens, int hidden, int ff, float eps, int act,
     int dropout, unsigned int seed, unsigned int thresh, float dropout_scale, long long token_base,
-    int blocks, int dtype, void* stream) {
+    unsigned int token_period, unsigned int token_stride, unsigned int token_magic, int blocks,
+    int dtype, void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || act < 0 ||
       act > 2) {
     return -1;
@@ -1182,7 +1194,9 @@ extern "C" int stlt_tail_train_bwd_input(
   InputArgs p{x, a, dr2, static_cast<const float*>(n1s), static_cast<const float*>(n1b), w1,
               static_cast<const float*>(b1), w2, static_cast<const uint8_t*>(live), dx, dattn, u,
               dh2, dh1, h1d, du, rows, partial_ln, partial_b1, tokens, ff, eps, act,
-              TailDropout{dropout, seed, thresh, dropout_scale, static_cast<uint32_t>(token_base)}};
+              TailDropout{dropout, seed, thresh, dropout_scale,
+                          RowMap{static_cast<uint32_t>(token_base), token_period, token_stride,
+                                 token_magic}}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {

@@ -60,12 +60,12 @@ __device__ __forceinline__ int tokens_have_live(const uint8_t* live, long long t
 
 // The residual r1 = x + drop(a) of one token's column c, as a T value:
 // _recompute_u32 (fused_tail_train.py:165-185) drops a, rounds it to T, and
-// rounds the sum to T.
+// rounds the sum to T. rc1: the token's row_counter over H features.
 template <typename T>
 __device__ __forceinline__ float residual1(const T* x, const T* a, long long g, const TailDropout& drop,
-                                           uint32_t lane1, long long tok, int H, int c) {
+                                           uint32_t lane1, uint32_t rc1, int c) {
   float av = to_float(a[g]);
-  if (drop.on) av = round_to<T>(av * drop.keep_scale(lane1, tok, H, c));
+  if (drop.on) av = round_to<T>(av * drop.keep_at(lane1, rc1, c));
   return round_to<T>(to_float(x[g]) + av);
 }
 
@@ -87,9 +87,10 @@ __device__ __forceinline__ void layer_norm1(const T* __restrict__ x, const T* __
       continue;
     }
     const long long tok = tok0 + i;
+    const uint32_t rc1 = kTrain && drop.on ? drop.row_counter(tok, H) : 0u;
     for (int c = lane; c < H; c += 32) {
       const long long g = tok * H + c;
-      row[c] = from_float<E>(kTrain ? residual1<T>(x, a, g, drop, lane1, tok, H, c)
+      row[c] = from_float<E>(kTrain ? residual1<T>(x, a, g, drop, lane1, rc1, c)
                                     : round_to<T>(to_float(x[g]) + to_float(a[g])));
     }
     __syncwarp();

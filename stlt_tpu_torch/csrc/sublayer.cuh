@@ -272,7 +272,7 @@ struct AttnArgs {
   int B, T, S, H, N;
   int hb;  // heads a block
   float scale;
-  Dropout drop;
+  RowDropout drop;
 };
 
 // Row stride (floats) of the logits tile: odd, so a warp's rows spread over
@@ -379,9 +379,10 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
       pr[s] = e;
       sum += e;
     }
+    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h, p.N) : 0u;
     for (int s = 0; s < S; ++s) {
       float pv = pr[s] / sum;
-      if (kDrop) pv *= p.drop.keep_scale(orig, h, p.N, t, s, S);
+      if (kDrop) pv *= p.drop.keep_at(dl, t, s, S);
       pr[s] = pv;
     }
     // o = P V in 32-column chunks, rounded to bf16.

@@ -117,6 +117,7 @@ __device__ __forceinline__ float2 residual_row(const bf16* x, const bf16* a, con
                                                float eps, long long tok, int H, float (&v)[kRowVecs][8]) {
   const int lane = threadIdx.x & 31;
   const uint32_t lane1 = drop.lane(kTagAttnDrop);
+  const uint32_t rc1 = drop.on ? drop.row_counter(tok, H) : 0u;
   const uint4* xrow = reinterpret_cast<const uint4*>(x + tok * H);
   const uint4* arow = reinterpret_cast<const uint4*>(a + tok * H);
   float s = 0.f, s2 = 0.f;
@@ -130,7 +131,7 @@ __device__ __forceinline__ float2 residual_row(const bf16* x, const bf16* a, con
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       float ai = to_float(ae[e]);
-      if (drop.on) ai = round_to<bf16>(ai * drop.keep_scale(lane1, tok, H, vi * 8 + e));
+      if (drop.on) ai = round_to<bf16>(ai * drop.keep_at(lane1, rc1, vi * 8 + e));
       v[i][e] = round_to<bf16>(to_float(xe[e]) + ai);
       s += v[i][e];
       s2 = fmaf(v[i][e], v[i][e], s2);

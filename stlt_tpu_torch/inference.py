@@ -17,7 +17,9 @@ evaluates its rows of every global batch and the accumulators sum the
 counts, or gather the probabilities in global order, over the ranks, so
 the metrics cover every rank's rows. STLT evaluates frame-sharded under
 ``--context_parallel C --num_processes C`` as ``predict`` serves it, the
-accumulators on the coordinator only (every rank has the same logits).
+accumulators on the coordinator only (every rank has the same logits), and
+on a grid (``--num_processes D C``) over each rank's data group, so every
+row counts once.
 The coordinator logs and returns the metrics; the other ranks return an
 empty dict.
 

@@ -58,10 +58,16 @@ encoder draws them from a ``torch.Generator`` it is given.
 
 Every dropout site hashes (or draws) its bits at GLOBAL coordinates, as
 JAX's GSPMD step does: a layer takes ``row0``, the global index of its
-first row, and its attention hashes at rows ``row0 + b`` and its tail at
-tokens ``row0 * T + i``. Under a data axis (``parallel/mesh.clip_span``) a
-rank's rows are a slice of the global batch, so N data ranks drop exactly
-what one process drops on the whole batch; without one ``row0`` is 0.
+first row or the map of its rows (``ops/dropout.RowMap``), and its
+attention hashes at rows g(b) and its tail at the tokens of ``token0``
+(by default each row's T tokens, ``g(b) T + i``). Under a data axis
+(``parallel/mesh.clip_span``) a rank's rows are a slice of the global
+batch; under a context axis a ring rank holds t of each clip's F frames,
+and its (clip, frame) rows map to the global ones by period t and stride F
+(``parallel/mesh.frame_rows``). So D x C ranks drop exactly what one
+process drops on the whole batch at every site off the ring; without
+either axis ``row0`` is 0. The ring attention hashes with seeds of its
+own (``ops/ring.py``), as JAX's does.
 """
 
 from __future__ import annotations
@@ -77,10 +83,11 @@ from torch.utils.checkpoint import checkpoint
 from stlt_tpu_torch.ops import fused_encoder as fe
 from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.ops.attention import dot_product_attention
-from stlt_tpu_torch.ops.dropout import TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, hashed_dropout
+from stlt_tpu_torch.ops.dropout import (TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, RowMap, Rows,
+                                        hashed_dropout)
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
-from stlt_tpu_torch.ops.ring import _device_seed, ring_attention
-from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
+from stlt_tpu_torch.ops.ring import ring_attention
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span, frame_span
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -114,31 +121,23 @@ def draw_seeds(generator: Optional[torch.Generator], n: int):
     return torch.randint(0, 2 ** 32, (n,), generator=generator, dtype=torch.int64).tolist()
 
 
-def off_ring_seed(seed: int) -> int:
-    """The dropout seed of a site off the ring on this rank: the embeddings,
-    the spatial attention and every layer tail hash (or draw) their bits at
-    the rank's local coordinates, so under a context mesh the context index
-    is folded in (``ops/ring._device_seed``) and no two ranks share bits.
-    JAX's GSPMD step hashes these sites at global indices instead (ROADMAP.md
-    section C). Unchanged without a context mesh."""
-    ring = active_context_mesh()
-    return seed if ring is None else _device_seed(ring, seed)
-
-
 def embedding_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """flax ``nn.Dropout``: keep with probability 1-rate, kept values divided
     by 1-rate in x's dtype. The mask is drawn on x's device from a generator
-    seeded by one draw of ``generator`` (:func:`off_ring_seed`), over the
-    global batch's shape (x's clips are rows [first, first + n) of it,
-    :func:`parallel.mesh.clip_span`), and x takes its rows: a data rank
-    drops what one process drops on those clips."""
+    seeded by one draw of ``generator``, over the global batch's shape (x's
+    clips are rows [first, first + n) of it, :func:`parallel.mesh.clip_span`;
+    under a context mesh x's dim 1 is this ring rank's frames [f0, f0 + t)
+    of the clips' F, :func:`parallel.mesh.frame_span`), and x takes its
+    rows and frames: a data or ring rank drops what one process drops
+    there."""
     if rate <= 0.0:
         return x
-    seed = off_ring_seed(draw_seeds(generator, 1)[0])
+    seed = draw_seeds(generator, 1)[0]
     first, total = clip_span(x.shape[0])
+    f0, frames = frame_span(x.shape[1])
     device_gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand((total, *x.shape[1:]), generator=device_gen, device=x.device)
-    keep = keep[first:first + x.shape[0]] >= rate
+    keep = torch.rand((total, frames, *x.shape[2:]), generator=device_gen, device=x.device)
+    keep = keep[first:first + x.shape[0], f0:f0 + x.shape[1]] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -182,12 +181,14 @@ class MultiHeadAttention(nn.Module):
         init_linear_(self.out_proj, generator, zero_bias=True)
 
     def forward(self, x, bias=None, rows_live=None, seed: Optional[int] = None,
-                kv_lengths=None, context=None, row0: int = 0) -> torch.Tensor:
+                kv_lengths=None, context=None, row0: Rows = 0) -> torch.Tensor:
         """``kv_lengths`` [B]: per-row live key counts (pads tail-contiguous),
         used in place of ``bias`` from ``_BLOCKWISE_MIN_SEQ`` tokens on;
         ``context`` [B, S, H]: the keys and values of a cross-attention
         (queries from x), see :meth:`_cross_attention`; ``row0``: the global
-        index of x's first row, at which the dropout bits are hashed."""
+        index of x's first row, or the rows' map, at which the dropout bits
+        are hashed (the long-clip and cross-attention kernels, rows 6-10,
+        take an offset only)."""
         if context is not None:
             return self._cross_attention(x, context, bias, seed, row0)
         ring = active_context_mesh() if self.seq_shard else None
@@ -283,20 +284,23 @@ class TransformerEncoderLayer(nn.Module):
         init_linear_(self.linear2, generator)
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None, seeds=None,
-                kv_lengths=None, clip_frames: int = 0, row0: int = 0) -> torch.Tensor:
+                kv_lengths=None, clip_frames: int = 0, row0: Rows = 0,
+                token0: Optional[Rows] = None) -> torch.Tensor:
         """``seeds``: (attention, tail) uint32 dropout seeds, used in train
         mode with a nonzero dropout rate; ``kv_lengths``: see
         :meth:`MultiHeadAttention.forward`; ``clip_frames``: the clip length
         of the model, which picks the train tail (0: short or unknown);
-        ``row0``: the global index of x's first row (the tail's first token
-        is ``row0 * T``)."""
+        ``row0``: the global index of x's first row or the rows' map (the
+        attention's); ``token0``: the tail's token map (default: each row's
+        T tokens, ``RowMap.of(row0).scaled(T)``)."""
         if self.training:
             if self.dropout_rate > 0.0 and seeds is None:
                 raise ValueError("train mode with dropout needs the layer's two dropout seeds")
             attn_seed, tail_seed = seeds if seeds is not None else (None, None)
             attn_out = self.self_attn(x, bias, rows_live=rows_live, seed=attn_seed,
                                       kv_lengths=kv_lengths, row0=row0)
-            token0 = row0 * x.shape[1]
+            if token0 is None:
+                token0 = RowMap.of(row0).scaled(x.shape[1])
             if ftt.tail_train_wants(clip_frames):
                 return self._fused_train_tail(x, attn_out, tail_seed, rows_live, tokens_live,
                                               token0)
@@ -314,7 +318,7 @@ class TransformerEncoderLayer(nn.Module):
         )
 
     def _fused_train_tail(self, x, attn_out, seed: Optional[int], rows_live,
-                          tokens_live, token0: int = 0) -> torch.Tensor:
+                          tokens_live, token0: Rows = 0) -> torch.Tensor:
         """The fused train tail (``layers.py:480-510``): one op, forward and
         backward, dead tokens zeroed."""
         return ftt.fused_layer_tail_train(
@@ -328,7 +332,7 @@ class TransformerEncoderLayer(nn.Module):
             rows_live=rows_live, tokens_live=tokens_live, token0=token0,
         )
 
-    def _train_tail(self, x, attn_out, seed: Optional[int], token0: int = 0) -> torch.Tensor:
+    def _train_tail(self, x, attn_out, seed: Optional[int], token0: Rows = 0) -> torch.Tensor:
         """The plain train tail (``layers.py:512-561``): hashed dropout on the
         attention output, on the activation and on the FFN output, each its
         own stream of one seed at the global tokens from ``token0``; no
@@ -377,22 +381,21 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x, bias=None, rows_live=None, tokens_live=None,
                 generator: Optional[torch.Generator] = None, kv_lengths=None,
-                clip_frames: int = 0, row0: int = 0) -> torch.Tensor:
+                clip_frames: int = 0, row0: Rows = 0,
+                token0: Optional[Rows] = None) -> torch.Tensor:
         """In train mode with dropout, each layer's (attention, tail) seeds
-        are drawn from ``generator``, layer by layer, and folded by
-        :func:`off_ring_seed` (a ring attention's seed is folded by the ring
-        itself); ``clip_frames`` and ``row0`` (x's first global row) go to
-        every layer (:meth:`TransformerEncoderLayer.forward`)."""
+        are drawn from ``generator``, layer by layer (a ring attention
+        folds its seed with the rank's coordinates itself);
+        ``clip_frames``, ``row0`` and ``token0`` (the rows' and the tail
+        tokens' global indices) go to every layer
+        (:meth:`TransformerEncoderLayer.forward`)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             seeds = None
             if self.training and self.dropout_rate > 0.0:
-                attn_seed, tail_seed = draw_seeds(generator, 2)
-                if not layer.self_attn.seq_shard:
-                    attn_seed = off_ring_seed(attn_seed)
-                seeds = (attn_seed, off_ring_seed(tail_seed))
+                seeds = tuple(draw_seeds(generator, 2))
             kw = dict(rows_live=rows_live, tokens_live=tokens_live, seeds=seeds,
-                      kv_lengths=kv_lengths, clip_frames=clip_frames, row0=row0)
+                      kv_lengths=kv_lengths, clip_frames=clip_frames, row0=row0, token0=token0)
             if remat:
                 x = checkpoint(layer, x, bias, use_reentrant=False, preserve_rng_state=False, **kw)
             else:

@@ -54,16 +54,20 @@ the head. The ragged levers stay off there (``stlt_tpu/models/stlt.py:61-62,
 154``). In training the gradients flow back the same way: the sum passes
 its cotangent to the holder only, the ring attention's backward runs the
 ring again, and each rank's backbone gradients are its part of the whole,
-which the train step sums over the ring (``training/loop.py``). The
-dropout sites off the ring fold the context index into their seeds
-(``layers.off_ring_seed``).
+which the train step sums over the ring (``training/loop.py``).
 
 Under a data axis (``--num_processes N``, ``parallel/mesh.py``) each rank
-runs the whole model on its clips of the global batch; every dropout site
-hashes or draws its bits at the global clips (``parallel/mesh.clip_span``:
-the spatial encoder's rows from ``clip0 * F``, the temporal encoder's from
-``clip0``, the embedding masks as the rank's rows of the global batch's),
-so the ranks drop what one process drops on the whole batch.
+runs the whole model on its clips of the global batch, and under both (a
+grid of D rings of C ranks) each ring its clips. Every dropout site off the
+ring hashes or draws its bits at the global coordinates, as JAX's GSPMD
+step does on the global arrays: the spatial encoder's (clip, frame) rows
+and the temporal encoder's tail tokens at ``parallel/mesh.frame_rows``
+((clip0 + b) F + f0 + j: the affine ``clip0 F + i`` without a ring, period
+t and stride F on a ring rank), the temporal attention off the ring at the
+clips from ``clip0``, the embedding masks as the rank's clips and frames
+of the global batch's (``clip_span``, ``frame_span``). So the ranks drop
+what one process drops on the whole batch; the ring attention hashes with
+the ring's own seeds (``ops/ring.py``).
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ from stlt_tpu_torch.models.layers import (
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import context_sum
-from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span, frame_rows, frame_span
 from stlt_tpu_torch.training.loop import shard_frames
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
@@ -220,8 +224,10 @@ class SpatialTransformer(nn.Module):
                                        clip_frames=F)
             cls = torch.zeros((B * F, H), dtype=compact.dtype, device=compact.device)
             return cls.index_copy(0, idx, compact[:, 0, :]).reshape(B, F, H)
+        # The tail's gate takes the whole frame axis under a ring, as JAX's
+        # sees the global array.
         tokens = self.transformer(tokens, pad_bias, rows_live=rows_live, generator=generator,
-                                  clip_frames=F, row0=clip_span(B)[0] * F)
+                                  clip_frames=frame_span(F)[1], row0=frame_rows(B, F))
         return tokens[:, 0, :].reshape(B, F, H)  # the frame-CLS token
 
 
@@ -306,7 +312,8 @@ class StltBackbone(nn.Module):
                                      total_frames=num_frames)
         live = tokens_live[:, offset:offset + emb.shape[1]]
         return self.transformer(emb, None, tokens_live=live, generator=generator,
-                                kv_lengths=kv_lengths, clip_frames=num_frames)
+                                kv_lengths=kv_lengths, clip_frames=num_frames,
+                                token0=frame_rows(emb.shape[0], emb.shape[1]))
 
 
 class ClassificationHead(nn.Module):
@@ -334,7 +341,7 @@ def gather_extract_frame(hidden_states: torch.Tensor, lengths: torch.Tensor) -> 
     """The hidden state at frame ``lengths - 1``, the appended EXTRACT frame.
     [B, F, H] -> [B, H]. Under a context mesh ``hidden_states`` are this
     rank's frames: the rank that holds a clip's extract frame gives its
-    row, the others zeros, summed over the ring."""
+    row, the others zeros, summed over the ring (its group)."""
     rows = torch.arange(hidden_states.shape[0], device=hidden_states.device)
     ring = active_context_mesh()
     if ring is None:

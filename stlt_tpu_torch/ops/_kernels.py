@@ -42,9 +42,10 @@ SIGNATURES = {
         # model stores them, [3H, H] and [H, H]), bias, bias_row_stride,
         # bias_q_stride, rows_live, out, scratch (bf16: qkv, o and the
         # packed rows; null in f32), rows, seq, hidden, num_heads, scale,
-        # dropout, seed, thresh, dropout_scale, row_base, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _I,
-         _P],
+        # dropout, seed, thresh, dropout_scale, the rows' map (row_base,
+        # row_period, row_stride, row_magic: common.cuh RowMap), dtype, stream
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U,
+         _U, _U, _I, _P],
     ),
     "fused_proj_attention_bwd": (
         "stlt_fused_proj_attention_bwd",
@@ -55,32 +56,35 @@ SIGNATURES = {
         # rows), partial [splits, H, H], partial_b [splits, H] (f32; in bf16
         # views of the scratch), dwo, dbo,
         # rows, seq, hidden, num_heads, scale, dropout, seed, thresh,
-        # dropout_scale, row_base, splits, chunk, dtype, stream
+        # dropout_scale, the rows' map (row_base, row_period, row_stride,
+        # row_magic), splits, chunk, dtype, stream
         [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _U, _I, _LL, _I, _P],
+         _I, _U, _U, _F, _U, _U, _U, _U, _I, _LL, _I, _P],
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
         # x, a, n1s, n1b, w1 (stored [FF, H]), b1, w2 (stored [H, FF]), b2,
         # n2s, n2b, live, out, r2 (null in eval), scratch (bf16: u and h1;
         # null in f32), tokens, hidden, ff, eps, act, dropout, seed, thresh,
-        # dropout_scale, token_base, dtype, stream
+        # dropout_scale, the tokens' map (token_base, token_period,
+        # token_stride, token_magic), dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-         _I, _U, _U, _F, _LL, _I, _P],
+         _I, _U, _U, _F, _LL, _U, _U, _U, _I, _P],
     ),
     "fused_tail_train_bwd_row": (
         "stlt_tail_train_bwd_row",
         # r2, g, n2s, live, dr2, partial, out, tokens, hidden, eps, dropout,
-        # seed, thresh, dropout_scale, token_base, blocks, chunk, dtype, stream
-        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _U, _U, _F, _LL, _I, _LL, _I, _P],
+        # seed, thresh, dropout_scale, the tokens' map, blocks, chunk,
+        # dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _U, _U, _F, _LL, _U, _U, _U, _I, _LL, _I, _P],
     ),
     "fused_tail_train_bwd_input": (
         "stlt_tail_train_bwd_input",
         # x, a, dr2, n1s, n1b, w1 (stored [FF, H]), b1, w2 (W2^T stored
         # [H, FF]), live, dx, dattn, u, dh2, dh1, h1d, du (bf16), rows (bf16),
         # partial_ln, partial_b1, out, tokens, hidden, ff, eps, act, dropout,
-        # seed, thresh, dropout_scale, token_base, blocks, dtype, stream
-        [*[_P] * 20, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _LL, _I, _I, _P],
+        # seed, thresh, dropout_scale, the tokens' map, blocks, dtype, stream
+        [*[_P] * 20, _LL, _I, _I, _F, _I, _I, _U, _U, _F, _LL, _U, _U, _U, _I, _I, _P],
     ),
     "fused_tail_train_bwd_weight": (
         "stlt_tail_train_bwd_weight",
@@ -244,8 +248,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point; raise if it did not launch."""
-    symbol, _ = SIGNATURES[name]
+    """Call kernel ``name``'s C entry point; raise if it did not launch (or
+    was given another count of arguments than its signature's: ctypes would
+    pass them unchecked)."""
+    symbol, argtypes = SIGNATURES[name]
+    if len(args) != len(argtypes):
+        raise TypeError(f"{name}: {len(args)} arguments for the {len(argtypes)} of {symbol}")
     err = getattr(library(name), symbol)(*args)
     if err == -1:
         raise ValueError(f"{name}: shape not supported by the CUDA kernel")

@@ -120,7 +120,7 @@ from typing import Optional, Tuple
 import torch
 
 from stlt_tpu_torch.ops import _kernels
-from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
+from stlt_tpu_torch.ops.dropout import MASK32, RowMap, dropout_thresh, hash_keep_mask
 
 LAUNCHES = {"flash_attention": 0, "blockwise_attention": 0, "blockwise_attention_dense": 0,
             "blockwise_attention_offsets": 0, "flash_attention_bwd": 0,
@@ -414,8 +414,12 @@ def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S
     if dropout_mask is None:
         if dropout_seed is None or dropout_rate <= 0.0:
             return (0, 0, 0, 0.0, 0, None, 0, 0, 0), None
+        base = RowMap.of(dropout_row0)
+        if not base.affine:
+            raise ValueError(f"{op}: the long-clip attention kernels hash at contiguous rows "
+                             f"(an affine row map), got {base}")
         return (1, int(dropout_seed) & MASK32, dropout_thresh(dropout_rate),
-                1.0 / (1.0 - dropout_rate), int(dropout_row0) & MASK32, None, 0, 0, 0), None
+                1.0 / (1.0 - dropout_rate), base.offset & MASK32, None, 0, 0, 0), None
     B, T, N, _ = q.shape
     check_mask(op, dropout_mask, B, N, T, S)
     if dropout_mask.device != q.device:

@@ -58,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from stlt_tpu_torch.ops import _kernels
-from stlt_tpu_torch.ops.dropout import MASK32, dropout_thresh, hash_keep_mask
+from stlt_tpu_torch.ops.dropout import MASK32, RowMap, Rows, dropout_thresh, hash_keep_mask
 
 LAUNCHES = {
     "fused_proj_attention": 0,
@@ -196,7 +196,7 @@ def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device,
 
 
 def _keep_scale(seed: Optional[int], dropout_rate: float, B: int, N: int, T: int, device,
-                row0: int = 0):
+                row0: Rows = 0):
     """keep * 1/(1-rate) [B, N, T, T] f32 of the probability dropout at the
     global rows [row0, row0 + B), or None when it is off (no seed or rate
     0), as in ``_fused_proj_train_fwd``."""
@@ -281,14 +281,16 @@ def _bias_operand(bias, B: int, T: int, device, keys: Optional[int] = None):
     return b3, row_stride, q_stride
 
 
-def _dropout_args(seed: Optional[int], dropout_rate: float, base: int = 0):
-    """(on, seed, thresh, 1/(1-rate), base) of the kernels' dropout: ``base``
-    the global index of the launch's first row (the attention kernels take
-    it mod 2**32, the lane's wrap) or token (the tails)."""
+def _dropout_args(seed: Optional[int], dropout_rate: float, base: Rows = 0):
+    """(on, seed, thresh, 1/(1-rate), and the map's base, period, stride and
+    magic) of the kernels' dropout: ``base`` the global index of the
+    launch's first row (the attention kernels) or token (the tails), or the
+    rows' or tokens' :class:`~stlt_tpu_torch.ops.dropout.RowMap`
+    (``RowMap.kernel_args``)."""
     if seed is None or dropout_rate <= 0.0:
-        return 0, 0, 0, 0.0, 0
+        return (0, 0, 0, 0.0, *RowMap().kernel_args())
     return (1, int(seed) & MASK32, dropout_thresh(dropout_rate), 1.0 / (1.0 - dropout_rate),
-            int(base))
+            *RowMap.of(base).kernel_args())
 
 
 def _live_flags(rows_live, B: int):
@@ -296,7 +298,7 @@ def _live_flags(rows_live, B: int):
 
 
 def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, rows_live,
-                 seed=None, dropout_rate=0.0, scratch=None, row0: int = 0) -> torch.Tensor:
+                 seed=None, dropout_rate=0.0, scratch=None, row0: Rows = 0) -> torch.Tensor:
     """Launch csrc/fused_proj_attention.cu (eval, or train with dropout).
     bf16 reads ``wqkv`` and ``wo`` in the storage of the model's
     ``in_proj_weight`` / ``out_proj.weight`` (their ``.t()`` is what the
@@ -327,7 +329,7 @@ def _launch_proj(op, x, wqkv, bqkv, wo, bo, bias, *, num_heads, compute_dtype, r
             None if live is None else live.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
-            *_dropout_args(seed, dropout_rate, row0 & MASK32), code, stream,
+            *_dropout_args(seed, dropout_rate, row0), code, stream,
         )
     LAUNCHES[op] += 1
     return out
@@ -361,7 +363,7 @@ def fused_proj_attention(
 
 def fused_proj_attention_train_plain(
     x, wqkv, bqkv, wo, bo, bias, seed: Optional[int], *, num_heads: int,
-    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: int = 0,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: Rows = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the train forward: the eval function with
     each probability multiplied by keep * 1/(1-rate) before the product with
@@ -376,7 +378,7 @@ def fused_proj_attention_train_plain(
 
 def fused_proj_attention_train_bwd_plain(
     x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *, num_heads: int,
-    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: int = 0,
+    dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: Rows = 0,
 ):
     """Plain PyTorch version of the backward kernel, step for step as
     ``_fused_proj_bwd_body``: (dqkv [B, T, 3H] in the compute dtype, dWo
@@ -482,7 +484,7 @@ def proj_bwd_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int) -> dic
 
 
 def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rate,
-                     compute_dtype, rows_live, scratch=None, row0: int = 0):
+                     compute_dtype, rows_live, scratch=None, row0: Rows = 0):
     """Launch csrc/fused_proj_attention_bwd.cu. bf16 (``launch_tc``) reads
     Wqkv and Wo in place (:func:`proj_bwd_weights`) and works in ``scratch``
     (:func:`proj_bwd_scratch`; allocated when None): the row scan and the
@@ -539,7 +541,7 @@ def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rat
             None if live is None else live.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(),
             partial_ptr, partial_b_ptr, dwo.data_ptr(), dbo.data_ptr(),
             B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
-            *_dropout_args(seed, dropout_rate, row0 & MASK32), splits, chunk, code, stream,
+            *_dropout_args(seed, dropout_rate, row0), splits, chunk, code, stream,
         )
     LAUNCHES[op] += 1
     return dqkv, dwo, dbo
@@ -611,7 +613,7 @@ def fused_proj_attention_train(
     dropout_rate: float,
     compute_dtype: torch.dtype,
     rows_live: Optional[torch.Tensor] = None,
-    row0: int = 0,
+    row0: Rows = 0,
 ) -> torch.Tensor:
     """Differentiable train-mode :func:`fused_proj_attention` with hashed
     probability dropout (``seed``: a uint32 or None for none; ``row0`` the
@@ -623,7 +625,7 @@ def fused_proj_attention_train(
     :func:`proj_input_grads`. The bias gets no gradient."""
     return _ProjAttentionTrain.apply(
         x, wqkv, bqkv, wo, bo, bias, rows_live, seed, num_heads, float(dropout_rate),
-        compute_dtype, int(row0),
+        compute_dtype, RowMap.of(row0),
     )
 
 
@@ -769,7 +771,7 @@ def projection_plain(a: torch.Tensor, w_stored: torch.Tensor, b: torch.Tensor, c
 
 
 def short_attention_plain(q, k, v, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
-                          dropout_rate: float = 0.0, row0: int = 0) -> torch.Tensor:
+                          dropout_rate: float = 0.0, row0: Rows = 0) -> torch.Tensor:
     """The short-attention stage (``sublayer.cuh::attn_body``) on packed
     rows. q [R, T, H], k and v [R, S, H] hold compute-dtype values; packed
     row r is the original row ``rows[r]`` (None: r), by which the bias3
@@ -801,7 +803,7 @@ def short_attention_plain(q, k, v, bias3, rows, *, num_heads: int, seed: Optiona
 
 def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads: int,
                                       compute_dtype, rows_live=None, seed: Optional[int] = None,
-                                      dropout_rate: float = 0.0, row0: int = 0) -> torch.Tensor:
+                                      dropout_rate: float = 0.0, row0: Rows = 0) -> torch.Tensor:
     """The bf16 kernels' split (``csrc/fused_proj_attention.cu``
     ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows,
     the QKV GEMM on their tokens (rounded to the compute dtype), the short
@@ -823,7 +825,7 @@ def fused_proj_attention_stages_plain(x, wqkv, bqkv, wo, bo, bias, *, num_heads:
 
 
 def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed: Optional[int] = None,
-                              dropout_rate: float = 0.0, row0: int = 0):
+                              dropout_rate: float = 0.0, row0: Rows = 0):
     """The short-attention backward stage of the bf16 backward
     (``csrc/fused_proj_attention_bwd.cu`` ``proj_bwd_attn_kernel``) on
     packed rows, step for step as ``_fused_proj_bwd_body``. q, k, v [R, T,
@@ -870,7 +872,7 @@ def short_attention_bwd_plain(q, k, v, do, bias3, rows, *, num_heads: int, seed:
 
 def fused_proj_attention_train_bwd_stages_plain(x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *,
                                                 num_heads: int, dropout_rate: float, compute_dtype,
-                                                rows_live=None, row0: int = 0):
+                                                rows_live=None, row0: Rows = 0):
     """The bf16 backward's split (``csrc/fused_proj_attention_bwd.cu``
     ``launch_tc``) in plain PyTorch, stage by stage: pack the live rows of x
     and g (g rounded to the compute dtype); qkv = round(x_p Wqkv + bqkv) on
@@ -1002,7 +1004,7 @@ def fused_layer_tail(
             w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(), b2v.data_ptr(),
             n2s.data_ptr(), n2b.data_ptr(), None if live is None else live.data_ptr(),
             out.data_ptr(), None, None if scratch is None else scratch.data_ptr(),
-            B * T, H, FF, float(eps), act, 0, 0, 0, 0.0, 0, code, stream,
+            B * T, H, FF, float(eps), act, *_dropout_args(None, 0.0), code, stream,
         )
     LAUNCHES[op] += 1
     return out

@@ -53,8 +53,8 @@ import torch
 
 from stlt_tpu_torch.ops import _kernels
 from stlt_tpu_torch.ops import fused_encoder as fe
-from stlt_tpu_torch.ops.dropout import (MASK32, TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP,
-                                        dropout_thresh, keep_rows)
+from stlt_tpu_torch.ops.dropout import (MASK32, TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DROP, RowMap,
+                                        Rows, dropout_thresh, keep_rows)
 
 TAIL_TRAIN_MIN_FRAMES = 256
 
@@ -95,15 +95,16 @@ def tail_train_wants(clip_frames: int) -> bool:
 class TailConfig:
     """The op's static arguments. ``seed`` is a uint32 or None; dropout is on
     when there is a seed and a positive rate, as in ``_prep`` (:791).
-    ``token0``: the global index of the op's first token, at which its keep
-    bits are hashed (``ops/dropout.py::keep_rows``' ``r0``)."""
+    ``token0``: the global index of the op's first token, or the tokens'
+    map, at which its keep bits are hashed (``ops/dropout.py::keep_rows``'
+    ``r0``)."""
 
     eps: float
     activation: str = "gelu"
     gelu_approximate: bool = False
     dropout_rate: float = 0.0
     seed: Optional[int] = None
-    token0: int = 0
+    token0: RowMap = RowMap()
 
     @property
     def drop(self) -> bool:
@@ -480,11 +481,11 @@ def fused_layer_tail_train(
     seed: Optional[int] = None,
     rows_live: Optional[torch.Tensor] = None,
     tokens_live: Optional[torch.Tensor] = None,
-    token0: int = 0,
+    token0: Rows = 0,
 ) -> torch.Tensor:
     """Differentiable fused train tail. x/attn_out: [B, T, H]; w1 [H, FF],
     w2 [FF, H] (input-major); ``seed``: a uint32 or None for no dropout,
-    its bits hashed at the global tokens from ``token0``;
+    its bits hashed at the global tokens from ``token0`` (or at its map's);
     rows_live [B] or tokens_live [B, T] bool, dead tokens -> zeros with zero
     gradients. Returns [B, T, H] in the compute dtype; gradients flow to x,
     attn_out and the ten parameters (f32 sums for the parameters)."""
@@ -494,7 +495,7 @@ def fused_layer_tail_train(
     if live is not None:
         live = live.to(x.device)
     cfg = TailConfig(float(eps), activation, bool(gelu_approximate), float(dropout_rate),
-                     None if seed is None else int(seed) & MASK32, int(token0))
+                     None if seed is None else int(seed) & MASK32, RowMap.of(token0))
     y = _TailTrain.apply(
         x.to(cd).reshape(B * T, H), attn_out.to(cd).reshape(B * T, H), n1_scale, n1_bias,
         w1, b1, w2, b2, n2_scale, n2_bias, live, cfg,

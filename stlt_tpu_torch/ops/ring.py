@@ -7,7 +7,10 @@ JAX runs the ring under ``shard_map`` over a global view; here every rank
 runs its own program on its own shards. Rank ``idx`` of a context ring of C
 ranks holds its ``t = T / C`` query frames and the home K/V chunk of the
 same frames. At step j it holds chunk ``(idx - j) mod C`` and calls the
-blockwise kernel (``ops/flash.py``, TPU row 8) once:
+blockwise kernel (``ops/flash.py``, TPU row 8) once. Under a data axis
+too (a grid of D rings of C ranks, ``parallel/mesh.py``) each ring is one
+data index's C ranks: K and V move between the ring's global ranks, over
+its own process group.
 
 - lengths mode (``kv_lengths`` [B], the global live frame counts, with
   ``causal``): the kernel's ring-offset mode with ``offsets = (idx * t,
@@ -19,7 +22,8 @@ blockwise kernel (``ops/flash.py``, TPU row 8) once:
 
 The steps' normalised outputs merge in f32 by ``logaddexp`` of their lse
 (rows with no live key in a chunk come with lse -1e30 and weigh 0). K and V
-move to the next rank of the ring through ``dist.batch_isend_irecv``: on
+move to the next rank of the ring through ``dist.batch_isend_irecv`` on
+the ring's group: on
 NCCL the device tensors go directly, on gloo (ranks that share a device, or
 the CPU) through pinned host buffers, since gloo's point-to-point takes CPU
 tensors only. Unlike JAX, the forward does not rotate after its last step
@@ -28,7 +32,9 @@ tensors only. Unlike JAX, the forward does not rotate after its last step
 Dropout: ``dropout_seed`` hashes keep bits in the kernel from a seed folded
 with the rank's mesh coordinates and the chunk (``_device_seed``,
 ``_step_seed`` :79-94, on the port's ``lowbias32``), since the kernel
-hashes local (t, s). ``dropout_mask`` (this rank's rows [b, n|1, t, C s],
+hashes local (t, s): every (data, model, context) coordinate, as JAX
+folds them, so the bits are JAX's on the same grid. ``dropout_mask``
+(this rank's rows [b, n|1, t, C s],
 0/1) is made uint8 once (a bool or uint8 mask is read in place); each step
 hands the kernel the held chunk's column view ``mask[..., cols]`` (JAX's
 per-step slice, :337-364) with its strides, no copy, so the kernel's s is
@@ -68,9 +74,10 @@ _NEG_INF = flash._NEG_INF
 
 def _device_seed(mesh: Mesh, seed: int) -> int:
     """Per-rank base seed: every mesh coordinate folded in, so no two ranks
-    share a hash lane (local (b, n, t) repeat across shards). With one data
-    and one model coordinate the rank's index is its context index."""
-    return int(lowbias32((int(seed) & MASK32) ^ mesh.context_index))
+    share a hash lane (local (b, n, t) repeat across shards): ``dev = (data
+    M + model) C + context`` (``stlt_tpu/ops/ring.py:79-87``), which is the
+    rank itself (``Mesh``: data outermost, context innermost)."""
+    return int(lowbias32((int(seed) & MASK32) ^ mesh.rank))
 
 
 def _step_seed(seed_dev: int, chunk: int) -> int:
@@ -80,9 +87,10 @@ def _step_seed(seed_dev: int, chunk: int) -> int:
 
 def _rotate(tensors, mesh: Mesh):
     """Send each tensor to the next rank of the ring and receive the
-    previous rank's in its place (same shapes and dtypes)."""
-    idx, C = mesh.context_index, mesh.context_size
-    nxt, prv = (idx + 1) % C, (idx - 1) % C
+    previous rank's in its place (same shapes and dtypes): the ring's
+    global ranks, over its group."""
+    idx = mesh.context_index
+    nxt, prv = mesh.ring_rank(idx + 1), mesh.ring_rank(idx - 1)
     staged = tensors[0].device.type != "cpu" and mesh.backend != "nccl"
     if staged:  # gloo: point-to-point on host copies
         sends = [t.to("cpu").pin_memory() for t in tensors]
@@ -92,8 +100,8 @@ def _rotate(tensors, mesh: Mesh):
         recvs = [torch.empty_like(t) for t in sends]
     # bf16 travels as its 16-bit words: point-to-point moves bytes.
     wire = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
-    ops = [dist.P2POp(dist.isend, wire(t), nxt) for t in sends]
-    ops += [dist.P2POp(dist.irecv, wire(t), prv) for t in recvs]
+    ops = [dist.P2POp(dist.isend, wire(t), nxt, mesh.ring_group) for t in sends]
+    ops += [dist.P2POp(dist.irecv, wire(t), prv, mesh.ring_group) for t in recvs]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     if staged:
@@ -227,13 +235,13 @@ def ring_attention(
 
 
 class _ContextSum(torch.autograd.Function):
-    """The sum over the ring (``parallel/mesh.all_sum``: every rank of the
-    run, the same bits on each) whose backward passes the cotangent through
-    unchanged (see the module docstring)."""
+    """The sum over the ring (``parallel/mesh.all_sum`` over the ring's
+    group, the same bits on each rank) whose backward passes the cotangent
+    through unchanged (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
-        return all_sum(x, mesh)
+        return all_sum(x, mesh, mesh.ring_group)
 
     @staticmethod
     def backward(ctx, g):

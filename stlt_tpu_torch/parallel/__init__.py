@@ -10,6 +10,7 @@
 The ``data`` axis runs (``--num_processes N``: each rank its contiguous
 rows of every global batch, the gradients summed over the ranks) and the
 ``context`` axis runs (``--context_parallel``, the ring of
-``ops/ring.py``), one at a time; a ``model`` axis above 1, or both at once,
+``ops/ring.py``), alone or both at once (a grid of D rings of C ranks,
+each with its ring group and its data group); a ``model`` axis above 1
 raises with the ``ROADMAP.md`` item it waits for.
 """

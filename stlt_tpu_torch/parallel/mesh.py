@@ -5,21 +5,26 @@ JAX's mesh is a device array of shape (data, model, context) that GSPMD
 shards over. Here each rank is one process on one device and runs its own
 program, so a :class:`Mesh` is this rank's place in the same grid (data
 outermost, context innermost, as ``make_mesh`` reshapes the device list)
-and the process group of its ``data`` replicas or its ``context`` ring.
+and the process groups of its ``context`` ring (the ranks of its data
+index) and of its ``data`` replicas (the ranks of its context index).
 :func:`set_active_mesh` / :func:`active_context_mesh` are the registry the
 sequence-sharded attention layers consult (``stlt_tpu/parallel/mesh.py:96-106``);
 :func:`active_data_mesh` / :func:`clip_span` the one the dropout sites and
-the train step consult under a data axis. :func:`all_sum` and
-:func:`all_gather` are the collectives of both.
+the train step consult under a data axis, and :func:`frame_span` /
+:func:`frame_rows` the global frame rows of a ring rank's dropout sites.
+:func:`all_sum` and :func:`all_gather` are the collectives of both, over
+one of the two groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from stlt_tpu_torch.ops.dropout import RowMap
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -29,14 +34,18 @@ CONTEXT_AXIS = "context"  # sequence parallelism over the frame axis
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place in the (data, model, context) grid: rank g sits at
-    (g // (M C), g // C % M, g % C). A run has a data axis or a context axis
-    (never both yet), so the ring, or the data group, is every rank of the
-    default process group, in rank order."""
+    (g // (M C), g // C % M, g % C). ``ring_group`` holds the C ranks of its
+    data index (d C .. d C + C - 1) and ``data_group`` the D ranks of its
+    context index (c, C + c, ...), each in rank order; None is the default
+    process group, which is the ring when D = 1 and the data group when
+    C = 1."""
 
     shape: Tuple[int, int, int]
     rank: int
     backend: str
     device: torch.device
+    ring_group: Any = dataclasses.field(default=None, compare=False)
+    data_group: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def data_size(self) -> int:
@@ -53,6 +62,10 @@ class Mesh:
     @property
     def context_index(self) -> int:
         return self.rank % self.shape[2]
+
+    def ring_rank(self, index: int) -> int:
+        """The global rank of context index ``index`` of this rank's ring."""
+        return self.rank - self.context_index + index % self.context_size
 
     def first_clip(self, clips: int) -> int:
         """The global index of this rank's first clip in a forward of
@@ -75,9 +88,11 @@ def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
               device: Optional[torch.device] = None, batch_size: Optional[int] = None) -> Mesh:
     """The grid over every rank of the initialised process group (one rank
     without one): data = world // (model_parallel * context_parallel). A
-    model axis above 1, or a data axis above 1 under a context axis above 1,
-    raises with the ROADMAP.md item it waits for; a ``batch_size`` the data
-    axis does not divide raises (:func:`check_batch`)."""
+    model axis above 1 raises with the ROADMAP.md item it waits for; a
+    ``batch_size`` the data axis does not divide raises
+    (:func:`check_batch`). Under both a data and a context axis every rank
+    makes every ring group, then every data group, in that order
+    (``dist.new_group`` is collective), and keeps its own two."""
     initialised = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialised else 1
     rank = dist.get_rank() if initialised else 0
@@ -89,36 +104,39 @@ def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
     if model_parallel > 1:
         raise NotImplementedError("the model axis (--model_parallel > 1) is not ported yet: it "
                                   "waits for ROADMAP.md item A9 (model axis)")
-    if data > 1 and context_parallel > 1:
-        raise NotImplementedError(f"{world} processes over a context axis of {context_parallel} "
-                                  f"leave a data axis of {data}: a data axis under the ring is not "
-                                  f"ported yet, it waits for ROADMAP.md item A9 (data axis under "
-                                  f"the ring)")
     if batch_size is not None:
         check_batch(data, batch_size)
+    C = context_parallel
+    ring_group = data_group = None
+    if data > 1 and C > 1:
+        rings = [dist.new_group(list(range(d * C, (d + 1) * C))) for d in range(data)]
+        replicas = [dist.new_group(list(range(c, world, C))) for c in range(C)]
+        ring_group, data_group = rings[rank // C], replicas[rank % C]
     backend = dist.get_backend() if initialised else "none"
-    return Mesh((data, model_parallel, context_parallel), rank, backend,
-                torch.device("cpu") if device is None else device)
+    return Mesh((data, model_parallel, C), rank, backend,
+                torch.device("cpu") if device is None else device, ring_group, data_group)
 
 
-def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over every rank (each rank gets the same bits), taken
-    in f32 and returned in x's dtype; on gloo a device tensor is staged
-    through host memory (gloo's collectives take CPU tensors). No
+def all_sum(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (``mesh.ring_group`` or
+    ``mesh.data_group``; None: every rank), each rank getting the same bits,
+    taken in f32 and returned in x's dtype; on gloo a device tensor is
+    staged through host memory (gloo's collectives take CPU tensors). No
     gradient."""
     staged = x.device.type != "cpu" and mesh.backend != "nccl"
     buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(x.device, x.dtype)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each), stacked in rank order
-    on a new leading axis; staged through host memory on gloo."""
+def all_gather(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """The ``x`` of every rank of ``group`` (the same shape on each; None:
+    every rank), stacked in rank order on a new leading axis; staged
+    through host memory on gloo."""
     staged = x.device.type != "cpu" and mesh.backend != "nccl"
     buf = x.to("cpu" if staged else x.device).contiguous()
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, buf)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
     return torch.stack(parts).to(x.device)
 
 
@@ -158,3 +176,27 @@ def clip_span(clips: int) -> Tuple[int, int]:
     if mesh is None:
         return 0, clips
     return mesh.first_clip(clips), mesh.data_size * clips
+
+
+def frame_span(frames: int) -> Tuple[int, int]:
+    """(first, total) of a forward of ``frames`` local frames: under a
+    context mesh this ring rank's first frame of the clips and their whole
+    frame axis (c t, C t), else (0, frames)."""
+    mesh = active_context_mesh()
+    if mesh is None:
+        return 0, frames
+    return mesh.context_index * frames, mesh.context_size * frames
+
+
+def frame_rows(clips: int, frames: int) -> RowMap:
+    """The global (clip, frame) row of local row ``b frames + j`` of a
+    forward of ``clips`` clips of ``frames`` local frames, at which the
+    dropout sites off the ring hash their bits: ``(clip0 + b) F + f0 + j``
+    with ``(clip0, ...)`` = :func:`clip_span` and ``(f0, F)`` =
+    :func:`frame_span`, the map of period ``frames`` and stride F (affine
+    without a ring). The spatial encoder's rows and the temporal encoder's
+    tokens are such rows; JAX's GSPMD step runs those sites on the global
+    arrays and hashes them there."""
+    clip0, _ = clip_span(clips)
+    f0, total = frame_span(frames)
+    return RowMap(clip0 * total + f0, frames, total)

@@ -19,8 +19,11 @@ STLT also serves frame-sharded over C processes with ``--context_parallel C
 --num_processes C``: every rank loads the same batches (the frame axis
 padded to a multiple of C), keeps its frames, runs the temporal attention
 as a ring (``ops/ring.py``) and gets the same logits; only the coordinator
-writes the predictions. Both axes at once wait for ``ROADMAP.md``'s A9
-(data axis under the ring).
+writes the predictions. Both at once, ``--num_processes D C
+--context_parallel C``, serve STLT on a grid of D rings of C ranks: ring d
+loads the rows [d B / D, (d + 1) B / D) and its ranks their frames of them,
+and the rows are gathered over the data group (the ranks of one context
+index).
 
     python -m stlt_tpu_torch.predict --dataset_name something --dataset_type multimodal \
         --model_name cacnf --test_dataset_path val.json --labels_path labels.json \
@@ -89,10 +92,10 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
 def check_flags(args) -> None:
     """The serving CLIs' flags: an unknown model or dataset type raises with
     the choices; flags of later slices raise with the ``ROADMAP.md`` item
-    they wait for. Two parallel axes run, one at a time, one process a
-    rank: the data axis of every model (``--num_processes N``, N dividing
-    ``--batch_size``) and STLT's context axis (``--context_parallel C`` with
-    ``--num_processes C``)."""
+    they wait for. Two parallel axes run, one process a rank: the data axis
+    of every model (``--num_processes N``, N dividing ``--batch_size``) and
+    STLT's context axis (``--context_parallel C`` with ``--num_processes
+    D C``: D rings of C ranks, D dividing ``--batch_size``)."""
     for flag, value, choices in (("--model_name", args.model_name, models_factory),
                                  ("--dataset_type", args.dataset_type, datasets_factory)):
         if value not in choices:
@@ -104,9 +107,6 @@ def check_flags(args) -> None:
          f"--model_name {args.model_name} under --context_parallel", "A9 (fusion models under the ring)"),
         (processes < context, f"--context_parallel {context} over {processes} process(es) (the "
          "port runs one rank a process)", "A9 (ranks per process)"),
-        (context > 1 and processes > context and processes % context == 0,
-         f"--num_processes {processes} over --context_parallel {context} (a data axis of "
-         f"{processes // context} under the ring)", "A9 (data axis under the ring)"),
         (getattr(args, "native_decode", False), "--native_decode", "A10"),
     ]
     for hit, flag, item in later:
@@ -271,9 +271,11 @@ def serve(args, device):
 
 def gather_rows(rows):
     """Every data rank's prediction rows (each with its global ``index``),
-    on every rank, in global order: one ``all_gather_object``."""
-    gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, rows)
+    on every rank, in global order: one ``all_gather_object`` over the data
+    group (a grid's rings hold their rows once each)."""
+    group = active_data_mesh().data_group
+    gathered = [None] * dist.get_world_size(group)
+    dist.all_gather_object(gathered, rows, group=group)
     return sorted((row for part in gathered for row in part), key=lambda row: row["index"])
 
 

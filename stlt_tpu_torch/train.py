@@ -72,10 +72,15 @@ batches (the same loader seed, the frame axis padded to a multiple of C)
 and the same seeded model, keeps its frames, runs the temporal attention as
 a ring forward and backward (``ops/ring.py``) and sums its backbone
 gradients over the ring before the clip (``training/loop.py``), so the
-ranks' weights stay equal; validation runs the ring forward. Only the
-coordinator (rank 0) writes the log file and the checkpoints. The flags
-the serving CLIs refuse under the ring (another model, a data or model
-axis) are refused here too.
+ranks' weights stay equal; validation runs the ring forward. With
+``--num_processes D C --context_parallel C`` it trains on a grid of D
+such rings: ring d takes the rows [d B / D, (d + 1) B / D), and after the
+ring's sum every gradient and the loss are summed over the data group (the
+ranks of one context index), so all D C ranks take the one process's step
+and keep equal weights. Only the coordinator (rank 0) writes the log file
+and the checkpoints. The flags the serving CLIs refuse under the ring
+(another model, a model axis, fewer processes than C) are refused here
+too.
 
     python -m stlt_tpu_torch.train --dataset_name something --dataset_type layout \
         --model_name stlt --train_dataset_path train.json --val_dataset_path val.json \

@@ -43,6 +43,19 @@ clip and AdamW then see the same gradients on every rank: the ranks'
 weights stay equal bit for bit and differ from one process's only in the
 order of sums. The accumulators sum Something's counts over the ranks and
 gather Action Genome's probabilities in global order once per pass.
+
+Under both (``train --num_processes D C --context_parallel C``: D rings of
+C ranks, ``parallel/mesh.py``) each ring takes its data index's rows and
+every rank its frames of them. After the backward the backbone's
+gradients are summed over the ring (its group), then every gradient and
+the loss over the data group (the D ranks of the rank's context index):
+the backbone is summed over the whole grid, the head over the data group
+only (each ring's ranks hold the same head gradients), and the loss is
+divided by the global batch's valid count. The two sums run in this one
+order on every rank, the ring sum gives each of a ring's ranks the same
+bits, so every data group sums the same values: all D C ranks' weights
+stay equal bit for bit. Every collective of the eval accumulators runs
+over the data group, so each data row counts once.
 """
 
 from __future__ import annotations
@@ -94,19 +107,19 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-def sum_grads_over_ring_(params, mesh: Mesh, loss: Optional[torch.Tensor] = None):
-    """Replace each gradient of ``params`` by its sum over the ranks (the
-    context ring, or the data axis): one all-reduce of a flat f32 bucket,
-    ``loss`` (a device scalar) at its end when given, whose sum is
-    returned. Parameters without a gradient (the same ones on every rank)
-    stay without."""
+def sum_grads_over_ring_(params, mesh: Mesh, loss: Optional[torch.Tensor] = None, group=None):
+    """Replace each gradient of ``params`` by its sum over the ranks of
+    ``group`` (``mesh.ring_group`` or ``mesh.data_group``; None: every
+    rank): one all-reduce of a flat f32 bucket, ``loss`` (a device scalar)
+    at its end when given, whose sum is returned. Parameters without a
+    gradient (the same ones on every rank) stay without."""
     grads = [p.grad for p in params if p.grad is not None]
     parts = [g.reshape(-1).to(torch.float32) for g in grads]
     if loss is not None:
         parts.append(loss.reshape(1).to(torch.float32))
     if not parts:
         return None
-    flat = all_sum(torch.cat(parts), mesh)
+    flat = all_sum(torch.cat(parts), *((mesh,) if group is None else (mesh, group)))
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -132,8 +145,9 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
     microbatches: see the module docstring), under a context mesh the
     backbone's gradients summed over the ring after the last microbatch,
     then the division by the valid rows; under a data mesh
-    :func:`_data_rank_loss_and_grads`. Returns the loss, a device scalar;
-    the gradients are in the parameters' ``.grad``."""
+    :func:`_data_rank_loss_and_grads` (after the ring's sum, when there is
+    a ring). Returns the loss, a device scalar; the gradients are in the
+    parameters' ``.grad``."""
     model.train()
     model.zero_grad(set_to_none=True)
     data = active_data_mesh()
@@ -156,7 +170,7 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
             loss, n = loss + part.detach(), n + rows
     ring = active_context_mesh()
     if ring is not None:
-        sum_grads_over_ring_(model.backbone.parameters(), ring)
+        sum_grads_over_ring_(model.backbone.parameters(), ring, group=ring.ring_group)
     if n is not None:
         n = torch.clamp(n, min=1.0)
         torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], n)
@@ -167,8 +181,9 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
 def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: int, mesh: Mesh):
     """A data rank's part of the step: each microbatch's criterion over the
     rank's valid rows divided by the global batch's valid count
-    (``VALID_TOTAL``), its backward, then the gradients and the loss summed
-    over the ranks in one bucket (see the module docstring)."""
+    (``VALID_TOTAL``), its backward, under a ring the backbone's gradients
+    summed over the ring, then the gradients and the loss summed over the
+    data group in one bucket (see the module docstring)."""
     if VALID_TOTAL not in batch:
         raise ValueError(f"a data rank's batch carries {VALID_TOTAL!r}, the valid rows of the "
                          "global batch (Loader(rows=...))")
@@ -180,7 +195,10 @@ def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: in
                          micro.get("valid"), count)
         part.backward()
         loss = loss + part.detach()
-    return sum_grads_over_ring_(model.parameters(), mesh, loss)
+    ring = active_context_mesh()
+    if ring is not None:
+        sum_grads_over_ring_(model.backbone.parameters(), ring, group=ring.ring_group)
+    return sum_grads_over_ring_(model.parameters(), mesh, loss, group=mesh.data_group)
 
 
 def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float,
@@ -263,14 +281,15 @@ class EvalCountAccumulator:
                            for k in counts}
 
     def flush_into(self, evaluator) -> None:
-        """Under a data mesh the counts are first summed over the ranks (one
-        all-reduce), so every rank feeds the evaluator the global counts."""
+        """Under a data mesh the counts are first summed over the data group
+        (one all-reduce), so every rank feeds the evaluator the global
+        counts."""
         if self.totals is not None:
             names = list(self.totals)
             counts = torch.stack([torch.stack(self.totals[k]) for k in names])
             data = active_data_mesh()
             if data is not None:
-                counts = all_sum(counts, data)  # exact: counts below 2**24
+                counts = all_sum(counts, data, data.data_group)  # exact: counts below 2**24
             counts = counts.tolist()
             evaluator.process_counts({k: tuple(pair) for k, pair in zip(names, counts)})
         self.totals = None
@@ -287,16 +306,17 @@ class EvalProbsAccumulator:
         self.items.append(triple)
 
     def flush_into(self, evaluator) -> None:
-        """Under a data mesh every rank's rows are gathered first (one
-        all-gather each of probs, labels and valid) and put in global order:
-        batch by batch, rank by rank."""
+        """Under a data mesh every data rank's rows are gathered first (one
+        all-gather each of probs, labels and valid over the data group) and
+        put in global order: batch by batch, rank by rank."""
         if self.items:
             parts = [torch.cat(parts) for parts in zip(*self.items)]
             data = active_data_mesh()
             if data is not None:
                 batches = len(self.items)
                 parts = [_global_order(all_gather(x.to(torch.uint8) if x.dtype == torch.bool else x,
-                                                  data).to(x.dtype), batches) for x in parts]
+                                                  data, data.data_group).to(x.dtype), batches)
+                         for x in parts]
             probs, labels, valid = (x.cpu().numpy() for x in parts)
             evaluator.process_probs(probs, labels, valid=valid)
         self.items = []

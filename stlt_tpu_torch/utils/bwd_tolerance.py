@@ -192,7 +192,7 @@ MUTATIONS = {
     )]),
     "no_keep2_in_input": (("tail",), [(
         "fused_tail_train_bwd.cu",
-        "e[j] = from_float<bf16>(to_float(e[j]) * p.drop.keep_scale(lane2, tok, H, vi * 8 + j));",
+        "e[j] = from_float<bf16>(to_float(e[j]) * p.drop.keep_at(lane2, rc2, vi * 8 + j));",
         "e[j] = from_float<bf16>(to_float(e[j]));",
     )]),
     "weight_partials_in_bf16": (("tail",), [(
@@ -232,7 +232,7 @@ MUTATIONS = {
         "sublayer.cuh", "      pr[s] = pv;\n", "      pr[s] = h == p.N - 1 ? 0.f : pv;\n",
     )]),
     "proj_keep_at_packed_row": (("proj",), [(
-        "sublayer.cuh", "p.drop.keep_scale(orig, h, p.N, t, s, S)", "p.drop.keep_scale(b, h, p.N, t, s, S)",
+        "sublayer.cuh", "p.drop.row_lane(orig, h, p.N)", "p.drop.row_lane(b, h, p.N)",
     )]),
     "proj_dead_rows_computed": (("proj",), [(
         "fused_proj_attention.cu", "const bool packed = p.rows_live != nullptr;", "const bool packed = false;",
@@ -245,10 +245,7 @@ MUTATIONS = {
         "            make_float2(round_to<bf16>(acc[4 * j + 2 * h]), round_to<bf16>(acc[4 * j + 2 * h + 1]));",
     )]),
     "proj_bwd_keep_at_packed_row": (("proj_bwd",), [
-        ("fused_proj_attention_bwd.cu", "if (kDrop) dp *= p.drop.keep_scale(orig, h, p.N, t, s, T);",
-         "if (kDrop) dp *= p.drop.keep_scale(b, h, p.N, t, s, T);"),
-        ("fused_proj_attention_bwd.cu", "if (kDrop) pr[s] = ps * p.drop.keep_scale(orig, h, p.N, t, s, T);",
-         "if (kDrop) pr[s] = ps * p.drop.keep_scale(b, h, p.N, t, s, T);"),
+        ("fused_proj_attention_bwd.cu", "p.drop.row_lane(orig, h, p.N)", "p.drop.row_lane(b, h, p.N)"),
     ]),
     "proj_bwd_split_left_out": (("proj_bwd",), [(
         "fused_proj_attention_bwd.cu",

@@ -29,7 +29,10 @@ Tasks (inputs and outputs under WORKDIR):
   ``state.pt``) on the batch of ``batch.npz`` under a context mesh; writes
   ``train_RANK.npz``: the losses, the parameters after every step (one flat
   f32 vector each), the first step's gradients as the clip sees them (after
-  the sum over the ring) and ``off_ring_seed`` of one seed on this rank;
+  the sum over the ring) and ``probe``: the frames embeddings of this
+  rank's frames in train mode (the embedding dropouts and the spatial
+  encoder's dropout sites at the global coordinates) from a generator
+  seeded ``probe_seed``, before the first step (with dropout; else empty);
 - ``train_cli``: ``stlt_tpu_torch.train.main`` with the argv of
   ``argv.json`` plus this rank's ``--process_id``, a ``file://``
   coordinator, ``--save_model_path best_RANK.pt`` (unless the argv names
@@ -38,7 +41,14 @@ Tasks (inputs and outputs under WORKDIR):
 - ``data_train``: as ``train``, under a DATA mesh of WORLD ranks: this
   rank's contiguous rows of ``batch.npz`` (with the global batch's count of
   valid rows, ``loader.VALID_TOTAL``), every gradient and the loss summed
-  over the ranks; writes ``data_train_RANK.npz``.
+  over the ranks; writes ``data_train_RANK.npz``;
+- ``grid_train``: as ``train``, on a grid of WORLD / 2 rings of 2 ranks
+  (``make_mesh(1, 2)``): the rows of this rank's data index, its frames of
+  them, the backbone's gradients summed over its ring and then every
+  gradient and the loss over its data group; writes ``grid_train_RANK.npz``;
+- ``grid_op``: ``ring_attention`` in the seed mode (lengths, causal,
+  dropout) on the grid, forward and gradients, on this rank's rows and
+  frames of ``inputs.npz`` (as ``op_grad``); writes ``grid_op_RANK.npz``.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -175,8 +185,32 @@ def op_grad(workdir, rank, world):
     dist.destroy_process_group()
 
 
+def grid_op(workdir, rank, world):
+    from stlt_tpu_torch.ops.ring import ring_attention
+
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'grid_op.store')}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh(1, 2)
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    B, T = data["q"].shape[:2]
+    b, t = B // mesh.data_size, T // 2
+    rows, frames = slice(mesh.data_index * b, (mesh.data_index + 1) * b), \
+        slice(mesh.context_index * t, (mesh.context_index + 1) * t)
+    leaves = [torch.from_numpy(data[name][rows, frames].copy()).requires_grad_() for name in "qkv"]
+    out = ring_attention(*leaves, None, mesh, kv_lengths=torch.from_numpy(data["lengths"][rows]),
+                         causal=True, dropout_seed=int(data["seed"]), dropout_rate=float(data["rate"]))
+    out.backward(torch.from_numpy(data["g"][rows, frames].copy()))
+    np.savez(os.path.join(workdir, f"grid_op_{rank}.npz"), out=out.detach().numpy(),
+             **{name: leaf.grad.numpy() for name, leaf in zip(("dq", "dk", "dv"), leaves)})
+    dist.destroy_process_group()
+
+
 def train(workdir, rank, world):
     _train(workdir, rank, world, "train")
+
+
+def grid_train(workdir, rank, world):
+    _train(workdir, rank, world, "grid_train")
 
 
 def data_train(workdir, rank, world):
@@ -187,17 +221,17 @@ def _train(workdir, rank, world, task):
     from stlt_tpu_torch.configs import StltModelConfig
     from stlt_tpu_torch.data.loader import VALID_TOTAL
     from stlt_tpu_torch.models import models_factory
-    from stlt_tpu_torch.models.layers import off_ring_seed
     from stlt_tpu_torch.training import loop
     from stlt_tpu_torch.training.criterion import make_criterion
     from stlt_tpu_torch.training.optimizer import make_optimizer
 
     if task == "train":
-        set_active_mesh(_group(workdir, task, rank, world))
+        mesh = _group(workdir, task, rank, world)
     else:
         dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, task + '.store')}",
                                 world_size=world, rank=rank)
-        set_active_mesh(make_mesh(1, 1))
+        mesh = make_mesh(1, 2 if task == "grid_train" else 1)
+    set_active_mesh(mesh)
     with open(os.path.join(workdir, "config.json")) as f:
         cfg = StltModelConfig(**json.load(f))
     with open(os.path.join(workdir, "hp.json")) as f:
@@ -217,11 +251,13 @@ def _train(workdir, rank, world, task):
     loop.clip_by_global_norm_ = clip_spy
     step = loop.make_train_step(model, optimizer, scheduler, make_criterion("something"), hp["clip_val"])
     batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, "batch.npz")).items()}
-    if task == "data_train":
-        rows = batch["labels"].shape[0] // world
-        batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()} | {
+    if mesh.data_size > 1:
+        rows = batch["labels"].shape[0] // mesh.data_size
+        d = mesh.data_index
+        batch = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()} | {
             VALID_TOTAL: batch["valid"].sum()}
-    out = {"losses": [], "seed": off_ring_seed(hp["probe_seed"])}
+    probe = _probe(model, batch, hp["probe_seed"], mesh) if cfg.hidden_dropout_prob > 0 else np.zeros(0)
+    out = {"losses": [], "probe": probe}
     for i in range(hp["steps"]):
         loss, _ = step(batch, loop.step_generator(0, i))
         out["losses"].append(float(loss))
@@ -231,6 +267,19 @@ def _train(workdir, rank, world, task):
     np.savez(os.path.join(workdir, f"{task}_{rank}.npz"), **out)
     set_active_mesh(None)
     dist.destroy_process_group()
+
+
+def _probe(model, batch, seed, mesh):
+    """This rank's frames embeddings in train mode (see ``train``)."""
+    from stlt_tpu_torch.training.loop import shard_frames
+
+    local, offset = shard_frames(batch, mesh.context_size, mesh.context_index)
+    model.train()
+    with torch.no_grad():
+        emb = model.backbone.frames_embeddings(local, torch.Generator().manual_seed(seed),
+                                               position_offset=offset,
+                                               total_frames=batch["frame_types"].shape[1])
+    return emb.numpy()
 
 
 def train_cli(workdir, rank, world):
@@ -249,4 +298,5 @@ if __name__ == "__main__":
     task, workdir, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     {"op": op, "stlt": stlt, "predict": predict, "op_grad": op_grad, "train": train,
      "train_cli": train_cli, "data_train": data_train, "inference": inference,
-     "predict_models": predict_models}[task](workdir, rank, world)
+     "predict_models": predict_models, "grid_train": grid_train, "grid_op": grid_op}[task](
+        workdir, rank, world)

@@ -25,6 +25,7 @@ from stlt_tpu.ops import flash as jax_flash
 from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.parallel.mesh import make_mesh
 from stlt_tpu_torch.ops.ring import ring_attention
+from tests.jax_reference import jit_vjp
 
 Y_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -59,8 +60,7 @@ def test_mask_forward_and_gradients_match_jax(route, shared):
         return jax_flash.flash_attention(q, k, v, dropout_mask=jnp.asarray(keep), dropout_rate=RATE,
                                          **kw)
 
-    out_j, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
-    grads_j = vjp(jnp.asarray(g))
+    out_j, grads_j = jit_vjp(jax_fn, [jnp.asarray(a) for a in (q, k, v)], jnp.asarray(g))
 
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     tkw = {key: torch.from_numpy(val) if isinstance(val, np.ndarray) else val for key, val in kw.items()}

@@ -25,6 +25,7 @@ from stlt_tpu.ops import flash as jax_flash
 from stlt_tpu_torch.models.layers import TransformerEncoderLayer
 from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.utils.convert import jax_params_to_state_dict
+from tests.jax_reference import jit_vjp
 
 Y_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -58,8 +59,7 @@ def test_attention_gradients_match_jax(T, rate):
     def jax_fn(q, k, v):
         return jax_flash.flash_attention(q, k, v, dropout_seed=jnp.uint32(SEED) if rate else None, **kw)
 
-    out_j, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
-    grads_j = vjp(jnp.asarray(g))
+    out_j, grads_j = jit_vjp(jax_fn, [jnp.asarray(a) for a in (q, k, v)], jnp.asarray(g))
 
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     tkw = {key: torch.from_numpy(val) if isinstance(val, np.ndarray) else val for key, val in kw.items()}
@@ -168,8 +168,7 @@ def test_train_layer_at_long_clips_matches_jax(monkeypatch, T):
     apply(params, jnp.asarray(x))
     monkeypatch.setattr(jax.random, "bits", bits)
     assert len(drawn) == 2, drawn  # attention seed, tail seed
-    y_j, vjp = jax.vjp(apply, params, jnp.asarray(x))
-    grads_j, dx_j = vjp(jnp.asarray(g))
+    y_j, (grads_j, dx_j) = jit_vjp(apply, (params, jnp.asarray(x)), jnp.asarray(g))
 
     layer = TransformerEncoderLayer(H, heads, 4 * H, activation="gelu", layer_norm_eps=eps,
                                     dtype=torch.float32, generator=torch.Generator(),

@@ -41,6 +41,7 @@ from stlt_tpu_torch.training.criterion import make_criterion
 from stlt_tpu_torch.training.loop import step_generator
 from stlt_tpu_torch.utils.convert import jax_params_to_state_dict, read_state_dict
 from tests.fixtures import make_something_fixture, make_video_hdf5
+from tests.jax_reference import jit_vjp
 from tests.test_torch_appearance_train import (  # noqa: F401 (no_encoder_dropout: a fixture)
     MODEL_KW,
     TRAIN_KW,
@@ -101,8 +102,7 @@ def test_dense_bias_backward_matches_jax(T, S, kind, causal, rate):
             q, k, v, None if bias is None else jnp.asarray(bias), dropout_rate=rate,
             dropout_seed=None if seed is None else jnp.uint32(seed), causal=causal)
 
-    want_out, vjp = jax.vjp(jax_attention, *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(dout))
+    want_out, want = jit_vjp(jax_attention, list(map(jnp.asarray, (q, k, v))), jnp.asarray(dout))
 
     t = {name: torch.from_numpy(a) for name, a in zip("qkvd", (q, k, v, dout))}
     tb = None if bias is None else torch.from_numpy(bias)
@@ -181,9 +181,9 @@ def test_cacnf_loss_and_gradients_match_jax_at_513_frames(monkeypatch, no_encode
     assert sorted(c for c in calls if c[2]) == sorted([(513, 513, True), (513, 2, True),
                                                       (2, 513, True)])
     assert sum(not c[2] for c in calls) == TRAIN_KW["num_temporal_layers"]
-    checked = 0
+    checked, twins = 0, _twins(params)
     for name, p in port.named_parameters():
-        if name in _twins(params) and p.requires_grad:
+        if name in twins and p.requires_grad:
             np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), err_msg=name, **GRAD_TOL)
             checked += 1
     assert checked > 50

@@ -65,7 +65,7 @@ def params():
     """JAX STLT parameters with a 513-row position table, initialised on a
     3-frame batch and shared by every model of this file."""
     cfg = jax_configs.StltModelConfig(layout_num_frames=513, **MODEL_KW)
-    return jax_models["stlt"](cfg).init(jax.random.PRNGKey(0), _inputs(3, None, 0)[0])["params"]
+    return jax.jit(jax_models["stlt"](cfg).init)(jax.random.PRNGKey(0), _inputs(3, None, 0)[0])["params"]
 
 
 def _jax_loss_and_grads(params, inputs, labels):
@@ -75,7 +75,7 @@ def _jax_loss_and_grads(params, inputs, labels):
     def loss_fn(p):
         return criterion(model.apply({"params": p}, inputs, deterministic=False), labels)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(loss), jax_params_to_state_dict(grads)
 
 

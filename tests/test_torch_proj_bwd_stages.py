@@ -38,6 +38,7 @@ import torch
 from stlt_tpu.ops import fused_encoder as jfe
 from stlt_tpu_torch.models.layers import MultiHeadAttention
 from stlt_tpu_torch.ops import fused_encoder as tfe
+from tests.jax_reference import jit_vjp
 
 SEED = 0x5EED
 SUM_REL = 1e-6
@@ -114,8 +115,8 @@ def _jax_grads(x, bias, g, w, rate, rows_live=ROWS_LIVE):
         return jfe.fused_proj_attention_train(N, rate, x, wqkv, bqkv, wo, bo, jnp.asarray(bias),
                                               jnp.uint32(SEED), jnp.asarray(rows_live))
 
-    _, vjp = jax.vjp(op, *(jnp.asarray(a) for a in (x, *w[:3], bo)))
-    return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    _, grads = jit_vjp(op, [jnp.asarray(a) for a in (x, *w[:3], bo)], jnp.asarray(g))
+    return [np.asarray(t) for t in grads]
 
 
 def _stages_grads(x, bias, g, w, rate, rows_live=ROWS_LIVE):

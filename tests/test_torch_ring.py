@@ -282,8 +282,9 @@ def test_predict_on_two_ranks_writes_the_single_process_output(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--model_parallel", "2"], "A9 \\(model axis\\)"),
-    (["--context_parallel", "2", "--num_processes", "4"], "A9 \\(data axis under the ring\\)"),
-    (["--context_parallel", "2", "--num_processes", "6"], "A9 \\(data axis under the ring\\)"),
+    (["--context_parallel", "2", "--num_processes", "4", "--model_name", "lcf",
+      "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
+    (["--context_parallel", "4", "--num_processes", "2"], "A9 \\(ranks per process\\)"),
     (["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
       "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
 ])

@@ -112,7 +112,7 @@ def test_ring_gradients_on_two_ranks_match_jax(tmp_path):
         def loss(q_, k_, v_):
             return (jax_ring_attention(q_, k_, v_, b, mesh, **kw) * jnp.asarray(cot)).sum()
 
-        want = jax.grad(loss, (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+        want = jax.jit(jax.grad(loss, (0, 1, 2)))(*(jnp.asarray(a) for a in (q, k, v)))
         for name, w in zip(("dq", "dk", "dv"), want):
             assert np.isfinite(got[f"{mode}_{name}"]).all()
             np.testing.assert_allclose(got[f"{mode}_{name}"], np.asarray(w), **RING_GRAD_TOL,

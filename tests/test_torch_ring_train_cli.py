@@ -85,7 +85,7 @@ def _check_two_ranks(tmp_path, levers):
 @pytest.mark.parametrize("extra,item", [
     (["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
       "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
-    (["--context_parallel", "2", "--num_processes", "4"], "A9 \\(data axis under the ring\\)"),
+    (["--context_parallel", "2", "--num_processes", "1"], "A9 \\(ranks per process\\)"),
     (["--model_parallel", "2"], "A9 \\(model axis\\)"),
 ])
 def test_train_check_flags_refuses_what_waits_under_the_ring(extra, item):

@@ -19,8 +19,11 @@ engages). The port's one-process step is held to JAX the same way.
   over the ring they would be doubled).
 
 At dropout 0.1 two ranks take two steps: finite losses, parameters equal
-bit for bit, and the seeds of the dropout sites off the ring differ between
-the ranks (``layers.off_ring_seed`` folds the context index in).
+bit for bit, and each rank's frames embeddings in train mode (the two
+embedding dropouts and the spatial encoder's attention and tail dropout,
+the sites off the ring) equal one process's on its frames within 1e-6:
+the sites hash (or draw) at the global coordinates, as JAX's GSPMD step
+does (``parallel/mesh.frame_rows``).
 """
 
 import dataclasses
@@ -184,5 +187,16 @@ def test_context_2_dropout_steps_stay_equal_and_fold_the_rank(tmp_path):
         np.testing.assert_array_equal(ranks[0][f"params_{i}"], ranks[1][f"params_{i}"])
     assert np.isfinite(ranks[0]["losses"]).all()
     np.testing.assert_array_equal(ranks[0]["losses"], ranks[1]["losses"])
-    seeds = [int(rank["seed"]) for rank in ranks]
-    assert seeds[0] != seeds[1] and 12345 not in seeds
+    model = models_factory["stlt"](_port_config(slots, 0.1))
+    model.load_state_dict(state, strict=True)
+    model.train()
+    batch = {k: torch.from_numpy(v) for k, v in _batch(slots).items()}
+    with torch.no_grad():
+        whole = model.backbone.frames_embeddings(batch, torch.Generator().manual_seed(12345)).numpy()
+        model.eval()
+        undropped = model.backbone.frames_embeddings(batch).numpy()
+    t = slots // 2
+    for r, rank in enumerate(ranks):
+        np.testing.assert_allclose(rank["probe"], whole[:, r * t:(r + 1) * t], atol=1e-6, rtol=0,
+                                   err_msg=f"rank {r}'s frames embeddings at dropout 0.1")
+    assert not np.allclose(whole, undropped)  # the sites dropped something

@@ -34,6 +34,7 @@ from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.ops import fused_encoder as fe
 from stlt_tpu_torch.ops import fused_tail_train as ftt
 from stlt_tpu_torch.utils import bwd_tolerance
+from tests.jax_reference import jit_vjp
 
 SEED = 0x1234ABCD
 EPS = 1e-12
@@ -82,8 +83,7 @@ def _jax(x, attn, params, g, live, dtype, activation, approximate, rate, fwd_blo
     def op(*args):
         return jftt.fused_layer_tail_train(*args, **kw)
 
-    y, vjp = jax.vjp(op, *(jnp.asarray(a) for a in (x, attn, *params)))
-    grads = vjp(jnp.asarray(g).astype(y.dtype))
+    y, grads = jit_vjp(op, [jnp.asarray(a) for a in (x, attn, *params)], jnp.asarray(g))
     return np.asarray(y.astype(jnp.float32)), [np.asarray(d.astype(jnp.float32)) for d in grads]
 
 

@@ -189,7 +189,7 @@ def test_train_cli_writes_a_strict_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--context_parallel", "2"], ["--model_parallel", "2"],
-    ["--context_parallel", "2", "--num_processes", "4"], ["--native_decode"],
+    ["--context_parallel", "4", "--num_processes", "2"], ["--native_decode"],
 ])
 def test_train_cli_refuses_later_slices(tmp_path, flag):
     root = str(tmp_path)

@@ -21,6 +21,7 @@ from stlt_tpu.ops import fused_encoder as jfe
 from stlt_tpu_torch.models.layers import TransformerEncoderLayer
 from stlt_tpu_torch.ops import fused_encoder as tfe
 from stlt_tpu_torch.utils.convert import jax_params_to_state_dict
+from tests.jax_reference import jit_vjp
 
 SEED = 1234
 Y_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -71,8 +72,8 @@ def test_train_op_matches_jax(T, rate, ragged):
         return jfe.fused_proj_attention_train(
             N, rate, x, wqkv, bqkv, wo, bo, jnp.asarray(bias), jnp.uint32(SEED), rows_live)
 
-    y_j, vjp = jax.vjp(jax_op, *(jnp.asarray(a) for a in (x, wqkv, bqkv, wo, bo)))
-    grads_j = vjp(jnp.asarray(g))
+    y_j, grads_j = jit_vjp(jax_op, [jnp.asarray(a) for a in (x, wqkv, bqkv, wo, bo)],
+                           jnp.asarray(g))
 
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, wqkv, bqkv, wo, bo)]
     y_t = tfe.fused_proj_attention_train(
@@ -148,8 +149,7 @@ def test_train_layer_matches_jax(monkeypatch, T, ragged):
     apply(params, jnp.asarray(x))
     monkeypatch.setattr(jax.random, "bits", bits)
     assert len(drawn) == 2, drawn  # attention seed, tail seed
-    y_j, vjp = jax.vjp(apply, params, jnp.asarray(x))
-    grads_j, dx_j = vjp(jnp.asarray(g))
+    y_j, (grads_j, dx_j) = jit_vjp(apply, (params, jnp.asarray(x)), jnp.asarray(g))
 
     layer = TransformerEncoderLayer(H, N, 4 * H, activation="gelu", layer_norm_eps=eps,
                                     dtype=torch.float32, generator=torch.Generator(),
