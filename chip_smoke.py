@@ -250,7 +250,26 @@ Phases, in order; any failure exits non-zero:
    process's clips in its order, the first batch's logits within
    LOGITS_ATOL), and the ``data_axis_times`` line (each rank's step, the
    all-reduce and the one process's step; no speed claim);
-13. print the kernel table as one JSON line, then the result line.
+13. the grid, STLT on two rings of two ranks (``--num_processes 4
+   --context_parallel 2``, all four on this card over gloo) at 512 frames:
+   ``train`` (the four ranks' losses and weights bit for bit), one step at
+   dropout 0 against one process, ``predict`` (each ring's ranks'
+   logits bit-identical, the rings' rows against one process), the
+   ``grid_times`` line;
+14. the fusion models under the ring (``run_fusion_ring_path``), at
+   FUSION_MODEL's full width: ``predict --context_parallel 2
+   --num_processes 2`` of CACNF at 512 layout frames and of LCF and CAF at
+   16 (launches per forward, the ranks' logits bit-identical and against
+   one process); ``train`` of CACNF at 512 on the ring (the ranks' losses
+   and weights bit for bit); whether the ranks' replicated gradients are
+   bit-identical with no repair (per tensor, the convolutions timed and
+   fixed); one step at dropout 0 and 0.1 against one process; the
+   ``fusion_ring_times`` line (each rank's step, ring sum, broadcast and
+   gather beside one process's step, peak and replicated work); and
+   ``train`` and ``predict`` of CACNF on two rings of two ranks at 16
+   layout frames (the four ranks' weights bit for bit, the logits against
+   one process);
+15. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -354,7 +373,11 @@ points, same keep bits; the two differ only in the order of their sums):
   on one device the ring reads 0 (the transfers lose nothing).
 - one step at dropout 0 on two ranks (gradients summed over the ring)
   against one process: the one-step limits below (read 4.5e-3 joined, at
-  most 8.0e-3 a tensor, H100).
+  most 8.0e-3 a tensor, H100). CACNF's step on the ring (phase 14, the
+  layout branch summed over the ring, the rest rank 0's) against one
+  process: the fusion step's bf16 limits below (read 4.6e-3 and 4.9e-3
+  joined at dropout 0 and 0.1, at most 2.3e-2 a tensor, in the R3D trunk;
+  H100, PERF.md §6).
 - the blockwise backward's dense-bias mode (rows 9 and 10): dq, dk and dv
   each within a relative Frobenius-norm error of DENSE_BWD_REL (1e-3) in
   bf16 and BWD_REL (1e-5) in f32, the same OP_TOL elementwise as a guard.
@@ -4384,23 +4407,8 @@ def run_fusion_path(device):
                                   appearance_num_frames=APPEARANCE_FRAMES)
             _, batch = _first_batch(data_cfg, batch_size, device, "multimodal")
             for name, num_batches in models.items():
-                common = [
-                    "--dataset_name", "something", "--dataset_type", "multimodal",
-                    "--model_name", name, "--test_dataset_path", test_sets[num_batches],
-                    "--labels_path", paths["labels"], "--videoid2size_path", paths["videoid2size"],
-                    "--videos_path", videos, "--checkpoint_path", ckpts[name],
-                    "--hidden_size", str(FUSION_MODEL["hidden_size"]),
-                    "--num_attention_heads", str(FUSION_MODEL["num_attention_heads"]),
-                    "--num_spatial_layers", str(SPATIAL_LAYERS),
-                    "--num_temporal_layers", str(TEMPORAL_LAYERS),
-                    "--num_appearance_layers", str(APPEARANCE_LAYERS),
-                    "--num_fusion_layers", str(FUSION_LAYERS),
-                    "--resnet_depth", str(FUSION_MODEL["resnet_depth"]),
-                    "--appearance_num_frames", str(APPEARANCE_FRAMES),
-                    "--layout_num_frames", str(frames), "--batch_size", str(batch_size),
-                    "--compute_dtype", FUSION_MODEL["compute_dtype"], "--use_pallas",
-                    "--num_workers", "8",
-                ]
+                common = _fusion_predict_argv(name, test_sets[num_batches], paths, videos, ckpts[name],
+                                              frames, batch_size)
                 per_forward = fusion_launches(name, frames)
                 want = {k: v * num_batches for k, v in per_forward.items()}
                 label = f"predict {name} {frames} frames"
@@ -6375,6 +6383,712 @@ def run_grid_path(device):
     return None
 
 
+# --- phase 14: the fusion models under the ring ---------------------------------
+
+
+# (a)'s runs: (label, model, layout frames, batch), one batch each: CACNF at
+# 512 layout frames (FUSION_RUNS[512]: B = 16, the frame axis 513 -> 514),
+# LCF and CAF at 16 (B = 32, 17 -> 18 frames, 9 a rank).
+FUSION_RING_SERVE = (("cacnf 512", "cacnf", 512, 16), ("lcf 16", "lcf", 16, 32),
+                     ("caf 16", "caf", 16, 32))
+FUSION_RING_FRAMES = 512  # (b)-(d): CACNF at FUSION_TRAIN[512], B = 16
+FUSION_GRID_FRAMES = 16  # (e): CACNF on GRID_D rings of RING_C ranks, B = 32
+FUSION_RING_STEP_REPEATS = 2  # timed steps of each rank and of the one process
+FUSION_RING_PORTS = ("train", "serve")
+
+
+def _on_the_ring(counts: dict, frames: int, train: bool = False) -> dict:
+    """``counts`` (the launches of one forward, or train step, of a fusion
+    model in one process) with the layout branch's temporal encoder on the
+    ring: each of its TEMPORAL_LAYERS attentions RING_C ring-offset launches
+    (and in training as many of the ring-offset backward) in place of its
+    one-process kernel."""
+    out = dict(counts)
+    if frames >= _BLOCKWISE_FRAMES:
+        out["blockwise_attention"] -= TEMPORAL_LAYERS
+        if train:
+            out["blockwise_attention_bwd"] -= TEMPORAL_LAYERS
+    else:
+        out["fused_proj_attention_train" if train else "fused_proj_attention"] -= TEMPORAL_LAYERS
+        if train:
+            out["fused_proj_attention_train_bwd"] -= TEMPORAL_LAYERS
+    out["blockwise_attention_offsets"] = out.get("blockwise_attention_offsets", 0) + \
+        TEMPORAL_LAYERS * RING_C
+    if train:
+        out["blockwise_attention_bwd_offsets"] = out.get("blockwise_attention_bwd_offsets", 0) + \
+            TEMPORAL_LAYERS * RING_C
+    return out
+
+
+def fusion_ring_train_launches(frames: int, steps: int) -> dict:
+    """The launches of one ``train --context_parallel 2`` run of CACNF on each
+    rank: ``steps`` train steps and one validation batch, the layout
+    branch's temporal encoder on the ring (``_on_the_ring``), the fusion
+    blocks, the appearance branch and the heads as in one process."""
+    return _added(_scaled(_on_the_ring(fusion_train_launches("cacnf", frames), frames, True), steps),
+                  _on_the_ring(fusion_launches("cacnf", frames), frames))
+
+
+def _fusion_predict_argv(name, test_path, paths, videos, ckpt, frames, batch_size):
+    return [
+        "--dataset_name", "something", "--dataset_type", "multimodal", "--model_name", name,
+        "--test_dataset_path", test_path, "--labels_path", paths["labels"],
+        "--videoid2size_path", paths["videoid2size"], "--videos_path", videos,
+        "--checkpoint_path", ckpt, "--hidden_size", str(FUSION_MODEL["hidden_size"]),
+        "--num_attention_heads", str(FUSION_MODEL["num_attention_heads"]),
+        "--num_spatial_layers", str(SPATIAL_LAYERS), "--num_temporal_layers", str(TEMPORAL_LAYERS),
+        "--num_appearance_layers", str(APPEARANCE_LAYERS), "--num_fusion_layers", str(FUSION_LAYERS),
+        "--resnet_depth", str(FUSION_MODEL["resnet_depth"]),
+        "--appearance_num_frames", str(APPEARANCE_FRAMES), "--layout_num_frames", str(frames),
+        "--batch_size", str(batch_size), "--compute_dtype", FUSION_MODEL["compute_dtype"],
+        "--use_pallas", "--num_workers", "8",
+    ]
+
+
+def _fusion_data_cfg(run: dict, train: bool = False):
+    """The data config of a phase 14 run (``run``: its paths, videos and
+    layout frames), the frame axis padded to a multiple of RING_C as the
+    ring's CLIs pad it."""
+    from stlt_tpu_torch.configs import DataConfig
+
+    return DataConfig(dataset_name="something", dataset_path=run["train" if train else "test"],
+                      labels_path=run["labels"], videoid2size_path=run["videoid2size"],
+                      videos_path=run["videos"], layout_num_frames=run["frames"],
+                      appearance_num_frames=APPEARANCE_FRAMES, device_normalize=train, train=train,
+                      frames_multiple=RING_C)
+
+
+def _fusion_ring_step_inputs(run: dict, dropout: float, device, batch=None):
+    """(c)'s seeded full-width bf16 CACNF in train mode (FrozenBatchNorm
+    frozen as ``make_optimizer`` freezes it) and ``batch``, by default the
+    first train batch of ``run``. At a nonzero dropout the layout branch's temporal attention
+    drops nothing: it is the one site on the ring, whose bits are the
+    ring's own (``ops/ring.py``), so one process cannot draw them; every
+    other site drops at ``dropout``."""
+    from stlt_tpu_torch.configs import make_model_config, position_table_rows
+    from stlt_tpu_torch.data import collaters_factory, datasets_factory
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.optimizer import frozen_stats_mask
+
+    data_cfg = _fusion_data_cfg(run, train=True)
+    cfg = make_model_config("cacnf", **FUSION_MODEL, hidden_dropout_prob=dropout,
+                            layout_num_frames=position_table_rows(data_cfg))
+    model = models_factory["cacnf"](cfg, torch.Generator().manual_seed(SEED + 61))
+    trainable = frozen_stats_mask(model)
+    for n, p in model.named_parameters():
+        p.requires_grad_(trainable[n])
+    for layer in model.backbone.layout_branch.transformer.layers:
+        layer.self_attn.dropout_rate = 0.0
+    if batch is None:
+        loader = Loader(datasets_factory["multimodal"](data_cfg), run["batch"],
+                        collaters_factory["multimodal"](data_cfg), prefetch=0, workers=8)
+        batch = next(iter(to_device(loader, device)))
+    return model.to(device).train(), batch
+
+
+def fusion_ring_rank(rank: int, workdir: str) -> int:
+    """One rank of phase 14 (``chip_smoke.py --fusion-ring-rank R WORKDIR``),
+    rank R of a ring of RING_C on this card: (b) ``train --num_processes 2
+    --context_parallel 2`` of CACNF at FUSION_RING_FRAMES (launch counts,
+    epoch records, a digest of the trained weights); then under one more
+    process group (a) ``predict.serve`` of each FUSION_RING_SERVE run (rows,
+    launch counts) and its first batch's logits; (c) one step of the seeded
+    CACNF at dropout 0, first with the convolutions' algorithms timed as
+    before the ring fixed them (``cudnn.benchmark``: the replicated
+    gradients' digest), then as ``predict.set_conv_algorithms`` sets them
+    under a ring, and one at dropout 0.1, each step's loss and gradients
+    (saved by rank 0, a digest on both); (d) the step's wall ms under both
+    settings, the ring sum's and the gather's ms and bytes and the peak
+    memory. Writes ``fusion_ring_R.json`` and ``fusion_ring_R_*.npz`` /
+    ``fusion_ring_0_step*.pt`` to WORKDIR."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.ops.ring import gather_frames
+    from stlt_tpu_torch.parallel.mesh import active_context_mesh, broadcast
+    from stlt_tpu_torch.parser import build_parser
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import ring_sharded_parameters, step_generator
+
+    with open(os.path.join(workdir, "fusion_ring.json")) as f:
+        spec = json.load(f)
+    process = ["--num_processes", str(RING_C), "--process_id", str(rank), "--coordinator_address"]
+    report, seconds = {"rank": rank}, {}
+    with frames_directory_videos():
+        reset_all_launches()
+        t0 = time.perf_counter()
+        result = port_train.main(spec["train_argv"] + process + [
+            f"localhost:{spec['ports']['train']}",
+            "--save_model_path", os.path.join(workdir, f"best_{rank}.pt")])
+        torch.cuda.synchronize()
+        report["train"] = {"seconds": time.perf_counter() - t0, "launches": all_launches(),
+                           "steps": result.step, "epochs": result.epochs,
+                           "digest": _digest(result.model.parameters()),
+                           "device": str(next(result.model.parameters()).device)}
+        del result
+        torch.cuda.empty_cache()
+        seconds["train"] = time.perf_counter() - t0
+
+        t_serve = time.perf_counter()
+        parser = build_parser("chip_smoke fusion ring rank")
+        parser.add_argument("--top_k", type=int, default=5)
+        parser.add_argument("--output", type=str)
+        serve = process + [f"localhost:{spec['ports']['serve']}"]
+        device = predict.start_processes(parser.parse_args(spec["serve"][0]["argv"] + serve))
+        report["device"] = str(device)
+        criterion = make_criterion("something")
+        try:
+            mesh = active_context_mesh()
+            report["serve"] = {}
+            for run in spec["serve"]:
+                args = parser.parse_args(run["argv"] + serve)
+                predict.check_flags(args)
+                reset_all_launches()
+                t0 = time.perf_counter()
+                with served_model_of() as served:
+                    rows = predict.serve(args, device)
+                torch.cuda.synchronize()
+                report["serve"][run["label"]] = {"rows": len(rows), "launches": all_launches(),
+                                                 "seconds": time.perf_counter() - t0}
+                model = served.model
+                _, batch = _first_batch(_fusion_data_cfg(run), run["batch"], device, "multimodal")
+                with torch.inference_mode():
+                    logits = model(batch)
+                np.savez(os.path.join(workdir, f"fusion_ring_{rank}_{run['name']}.npz"),
+                         **{head: x.float().cpu().numpy() for head, x in logits.items()})
+                del model, batch, logits
+                torch.cuda.empty_cache()
+            seconds["serve"] = time.perf_counter() - t_serve
+
+            step_run = spec["step"]
+            t0 = time.perf_counter()
+            model, batch = _fusion_ring_step_inputs(step_run, 0.0, device)
+            sharded = {id(p) for p in ring_sharded_parameters(model)}
+            replicated = [n for n, p in model.named_parameters()
+                          if id(p) not in sharded and p.requires_grad]
+            # No repair: the replicated gradients as each rank computes them,
+            # with the convolutions' algorithms timed per process (as before
+            # the ring fixed them), then fixed; neither synchronised.
+            for convs, settings in (("benchmark", (True, False)), ("deterministic", (False, True))):
+                torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = settings
+                model.zero_grad(set_to_none=True)
+                inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+                criterion(model(inputs, step_generator(SEED, 0)), batch["labels"],
+                          batch["valid"]).backward()
+                report[f"unsynced_{convs}"] = {n: _digest([model.get_parameter(n).grad])
+                                               for n in replicated
+                                               if model.get_parameter(n).grad is not None}
+            predict.set_conv_algorithms(device)
+            for dropout in (0.0, DROPOUT):
+                if dropout:
+                    del model
+                    model, batch = _fusion_ring_step_inputs(step_run, dropout, device, batch)
+                loss, grads = _one_step(model, batch, criterion)
+                report[f"step_{dropout}"] = {"loss": loss.item(), "digest": _digest(grads.values())}
+                if rank == 0:
+                    torch.save({"loss": loss.item(), "grads": {n: g.cpu() for n, g in grads.items()}},
+                               os.path.join(workdir, f"fusion_ring_0_step_{dropout}.pt"))
+                del grads
+            seconds["steps"] = time.perf_counter() - t0
+            # (d): the step (AdamW included), then its collectives alone.
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            report["step_ms"] = _step_ms(model, batch, criterion, steps=1)
+            report["peak_bytes"] = torch.cuda.max_memory_allocated()
+            params = ring_sharded_parameters(model)
+            report["ring_sum_ms"] = _timed_sum(params, mesh, mesh.ring_group)
+            report["ring_sum_bytes"] = 4 * sum(p.numel() for p in params if p.grad is not None)
+            flat = torch.cat([model.get_parameter(n).grad.reshape(-1).float() for n in replicated
+                              if model.get_parameter(n).grad is not None])
+            report["broadcast_ms"] = _host_ms(lambda: broadcast(flat, mesh, mesh.ring_rank(0),
+                                                                group=mesh.ring_group), 2)
+            report["broadcast_bytes"] = flat.numel() * 4
+            with torch.no_grad():
+                inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+                local = model.eval().backbone.layout_branch(inputs)
+            report["gather_ms"] = _host_ms(lambda: gather_frames(local, mesh), 2)
+            report["gather_bytes"] = local.numel() * local.element_size() * RING_C
+            seconds["times"] = time.perf_counter() - t0
+            report["seconds"] = seconds
+            del model, batch, local, flat
+            torch.cuda.empty_cache()
+        finally:
+            predict.stop_processes()
+    with open(os.path.join(workdir, f"fusion_ring_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def fusion_grid_rank(rank: int, workdir: str) -> int:
+    """One rank of phase 14 (e) (``chip_smoke.py --fusion-grid-rank R
+    WORKDIR``), rank R of GRID_D rings of RING_C ranks on this card:
+    ``train`` of CACNF at FUSION_GRID_FRAMES (launch counts, epoch records,
+    a digest of the trained weights), then under one more process group
+    ``predict.serve`` (rows, launch counts) and the logits of this rank's
+    rows of the first batch. Writes ``fusion_grid_R.json`` and
+    ``fusion_grid_R.npz``."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.parallel.mesh import active_data_mesh
+    from stlt_tpu_torch.parser import build_parser
+
+    with open(os.path.join(workdir, "fusion_grid.json")) as f:
+        spec = json.load(f)
+    process = ["--num_processes", str(GRID_WORLD), "--process_id", str(rank), "--coordinator_address"]
+    report = {"rank": rank}
+    with frames_directory_videos():
+        reset_all_launches()
+        t0 = time.perf_counter()
+        result = port_train.main(spec["train_argv"] + process + [
+            f"localhost:{spec['ports']['train']}",
+            "--save_model_path", os.path.join(workdir, f"best_{rank}.pt")])
+        torch.cuda.synchronize()
+        report["train"] = {"seconds": time.perf_counter() - t0, "launches": all_launches(),
+                           "steps": result.step, "epochs": result.epochs,
+                           "digest": _digest(result.model.parameters())}
+        del result
+        torch.cuda.empty_cache()
+
+        parser = build_parser("chip_smoke fusion grid rank")
+        parser.add_argument("--top_k", type=int, default=5)
+        parser.add_argument("--output", type=str)
+        run = spec["serve"]
+        args = parser.parse_args(run["argv"] + process + [f"localhost:{spec['ports']['predict']}"])
+        predict.check_flags(args)
+        device = predict.start_processes(args)
+        report["device"] = str(device)
+        try:
+            reset_all_launches()
+            with served_model_of() as served:
+                rows = predict.serve(args, device)
+            torch.cuda.synchronize()
+            report["predict"] = {"rows": len(rows), "launches": all_launches()}
+            _, batch = _first_batch(_fusion_data_cfg(run), run["batch"], device, "multimodal")
+            model = served.model
+            with torch.inference_mode():
+                logits = model(_grid_part(batch, active_data_mesh()))
+            np.savez(os.path.join(workdir, f"fusion_grid_{rank}.npz"),
+                     **{head: x.float().cpu().numpy() for head, x in logits.items()})
+        finally:
+            predict.stop_processes()
+    with open(os.path.join(workdir, f"fusion_grid_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _start_ranks(flag: str, world: int, workdir: str) -> list:
+    """Start ``world`` processes ``chip_smoke.py FLAG R WORKDIR``; returns
+    them (``_wait_ranks`` waits for them)."""
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), workdir],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def _wait_ranks(procs: list, label: str, groups: int, device) -> list:
+    """Wait for the rank processes of ``_start_ranks`` (killing any left at
+    the end): any rank's failure, or a rank without ``groups`` backend
+    lines (``distributed: rank R of WORLD on DEVICE, backend gloo``: every
+    rank on this process's ``device``), fails the phase. Returns each
+    rank's output."""
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=900)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.splitlines()[-40:])
+        if proc.returncode != 0:
+            raise AssertionError(f"{label} rank {r} exited {proc.returncode}:\n{tail}")
+        want_line = f"distributed: rank {r} of {len(procs)} on {device}, backend gloo"
+        if out.count(want_line) != groups:
+            raise AssertionError(f"{label} rank {r}: not {groups} lines '{want_line}' in its log:\n{tail}")
+    return outs
+
+
+class served_model_of:
+    """Within the block, ``predict.load_served_model`` keeps the last model it
+    returned in ``.model``: the served model's logits without a second load."""
+
+    def __enter__(self):
+        from stlt_tpu_torch import predict
+
+        self.predict, self.load, self.model = predict, predict.load_served_model, None
+
+        def load(*args):
+            self.model = self.load(*args)
+            return self.model
+
+        predict.load_served_model = load
+        return self
+
+    def __exit__(self, *exc):
+        self.predict.load_served_model = self.load
+        return False
+
+
+def _replicated_ms(model, batch) -> dict:
+    """Wall ms of one forward and backward (``_host_ms``) of the work every
+    ring rank repeats whole in a CACNF train step: the appearance branch on
+    the batch's clips, and the fusion blocks on the whole layout axis (the
+    layout branch's output, taken once, as their input)."""
+    from stlt_tpu_torch.ops import masks
+    from stlt_tpu_torch.training.loop import step_generator
+
+    inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+    backbone = model.train().backbone
+    with torch.no_grad():
+        layout = backbone.layout_branch(inputs, step_generator(SEED, 0))
+        appearance = backbone.appearance_branch.forward_features(inputs, step_generator(SEED, 0))
+    pad = masks.key_padding_bias(masks.frames_padding_mask(inputs["frame_types"]))
+    causal = masks.causal_bias(layout.shape[1], layout.device) + pad
+
+    def appearance_step():
+        out = backbone.appearance_branch.forward_features(inputs, step_generator(SEED, 0))
+        out.float().sum().backward()
+
+    def fusion_step():
+        lay, app = (x.detach().requires_grad_() for x in (layout, appearance))
+        gen = step_generator(SEED, 0)
+        for block in backbone.mm_fusion:
+            lay, app = block(lay, app, causal, pad, gen)
+        (lay.float().sum() + app.float().sum()).backward()
+
+    out = {"appearance_branch_ms": _host_ms(appearance_step, 2),
+           "fusion_blocks_ms": _host_ms(fusion_step, 2)}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def run_fusion_ring_path(device):
+    """Phase 14: the fusion models under the ring (``--context_parallel 2``),
+    the rank processes on this one card (gloo), at the full width of
+    FUSION_MODEL (bench_cacnf's config: H = 768, 12 heads, 4 + 8 layout
+    layers, R3D-50 and 4 appearance layers over 32 frames of 112 px, 4
+    fusion layers, bf16, random seeded weights), fabricated JPEG frames read
+    through ``frames_directory_videos``:
+
+    (a) ``predict --num_processes 2 --context_parallel 2`` of CACNF at 512
+        layout frames (B = 16, clips of 32-257 frames, 514 slots) and of LCF
+        and CAF at 16 (B = 32, 18 slots), one batch each: each rank's rows
+        and launches per forward (``_on_the_ring``), the two ranks' logits of
+        every head bit-identical and within LOGITS_ATOL of one process's on
+        the same weights and batch;
+    (b) ``train --num_processes 2 --context_parallel 2`` of CACNF at 512
+        layout frames (FUSION_TRAIN[512]: two AdamW steps, one validation
+        batch, dropout 0.1): each rank's launches
+        (``fusion_ring_train_launches``), its losses and trained weights
+        equal bit for bit, rank 0 alone writing the checkpoint;
+    (c) whether the ranks' replicated gradients (everything but the layout
+        branch) are bit-identical with no repair, logged per tensor with the
+        convolutions' algorithms timed per process (``cudnn.benchmark``)
+        and fixed and deterministic; then one step of a seeded CACNF at 512
+        frames (B = 16) at dropout 0 and at 0.1 (the layout branch's
+        temporal attention, the one site on the ring, at 0 in both runs:
+        ``_fusion_ring_step_inputs``), the two ranks' gradients (the layout
+        branch summed over the ring, the rest rank 0's) bit for bit and
+        within FUSION_STEP_BF16 of one process's on the same batch;
+    (d) the ``fusion_ring_times`` line: each rank's step ms, the ring sum's,
+        the broadcast's and the layout stream's gather's ms and bytes, its
+        peak memory, beside one process's step (its convolutions fixed and
+        timed), peak and replicated work (``_replicated_ms``), timed
+        after every rank has ended (two ranks share one card: no speed
+        claim);
+    (e) ``train`` and ``predict --num_processes 4 --context_parallel 2`` of
+        CACNF at 16 layout frames (B = 32: two rings of two ranks): the four
+        ranks' launches, losses and trained weights equal bit for bit after
+        two steps, and the rings' rows of the first batch's logits (each
+        ring's two ranks bit-identical) within LOGITS_ATOL of one process's.
+        Its ranks run while this process takes (c)'s one-process steps and
+        checks (a)-(c).
+
+    Returns rank 0's launches over its runs of (a), (b) and (e)."""
+    import socket
+
+    from stlt_tpu_torch.training.criterion import make_criterion
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    launches = {}
+
+    def count(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    criterion = make_criterion("something")
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_fusion_ring_") as root, \
+            frames_directory_videos():
+        ckpts = _fusion_checkpoints(root)  # CACNF's weights, and CAF's and LCF's from them
+        sets = {}
+        for frames, (clips, frames_range) in FUSION_TRAIN.items():
+            sub = os.path.join(root, str(frames))
+            os.makedirs(sub)
+            train_clips = clips * FUSION_TRAIN_STEPS
+            paths = write_something_dataset(sub, train_clips + clips, SEED + 60 + frames,
+                                            num_used=TRAIN_LABELS, frames_range=frames_range)
+            split = _split_dataset(paths, sub, train_clips)
+            with open(paths["dataset"]) as f:
+                videos = write_video_frames(os.path.join(sub, "frames"), [c["id"] for c in json.load(f)],
+                                            SEED + 60 + frames)
+            sets[frames] = dict(split=split, paths=paths, videos=videos,
+                                run=dict(test=split["val"], train=split["train"], labels=paths["labels"],
+                                         videoid2size=paths["videoid2size"], videos=videos,
+                                         frames=frames, batch=clips))
+
+        def serve_run(label, name, frames, batch_size, out_dir):
+            s = sets[frames]
+            return dict(s["run"], label=label, name=name, batch=batch_size, argv=_fusion_predict_argv(
+                name, s["split"]["val"], s["paths"], s["videos"], ckpts[name], frames, batch_size)
+                + ["--context_parallel", str(RING_C), "--output",
+                   os.path.join(out_dir, f"predictions_{name}_{frames}.jsonl")])
+
+        big = sets[FUSION_RING_FRAMES]
+        ring_dir = os.path.join(root, "ring")
+        os.makedirs(ring_dir)
+        spec = {"ports": {name: free_port() for name in FUSION_RING_PORTS},
+                "train_argv": _fusion_train_argv(
+                    "cacnf", big["split"], big["paths"], big["videos"], FUSION_RING_FRAMES,
+                    big["run"]["batch"], ring_dir, "--context_parallel", str(RING_C)),
+                "serve": [serve_run(*run, ring_dir) for run in FUSION_RING_SERVE], "step": big["run"]}
+        with open(os.path.join(ring_dir, "fusion_ring.json"), "w") as f:
+            json.dump(spec, f)
+        _wait_ranks(_start_ranks("--fusion-ring-rank", RING_C, ring_dir), "phase 14 ring",
+                    len(FUSION_RING_PORTS), device)
+        reports = []
+        for r in range(RING_C):
+            with open(os.path.join(ring_dir, f"fusion_ring_{r}.json")) as f:
+                reports.append(json.load(f))
+            if {reports[-1]["device"], reports[-1]["train"]["device"]} != {str(device)}:
+                raise AssertionError(f"phase 14 ring rank {r} ran on {reports[-1]['device']}")
+
+        # (e)'s ranks run while this process checks (a)-(d).
+        grid_dir = os.path.join(root, "grid")
+        os.makedirs(grid_dir)
+        small = sets[FUSION_GRID_FRAMES]
+        grid_serve = serve_run("cacnf grid", "cacnf", FUSION_GRID_FRAMES, small["run"]["batch"], grid_dir)
+        with open(os.path.join(grid_dir, "fusion_grid.json"), "w") as f:
+            json.dump({"ports": {name: free_port() for name in GRID_PORTS},
+                       "train_argv": _fusion_train_argv(
+                           "cacnf", small["split"], small["paths"], small["videos"], FUSION_GRID_FRAMES,
+                           small["run"]["batch"], grid_dir, "--context_parallel", str(RING_C)),
+                       "serve": grid_serve}, f)
+        grid_procs = _start_ranks("--fusion-grid-rank", GRID_WORLD, grid_dir)
+        try:
+            one, model, batch = _one_process_steps(big["run"], criterion, device)
+            _check_ring_reports(reports, spec, ring_dir, ckpts, one, device, count)
+            del one
+        finally:
+            _wait_ranks(grid_procs, "phase 14 grid", len(GRID_PORTS), device)
+        _check_grid_reports(grid_dir, grid_serve, ckpts, device, count)
+        times = _one_process_times(model, batch, criterion)  # the card to this process alone
+        del model, batch
+        torch.cuda.empty_cache()
+        log("fusion_ring_times " + json.dumps({
+                "card": card_line(), "config": f"cacnf, {FUSION_RING_FRAMES} layout frames, B = "
+                                               f"{big['run']['batch']}, dropout {DROPOUT}",
+                "ranks": [{k: rep[k] for k in ("rank", "step_ms", "ring_sum_ms", "broadcast_ms",
+                                               "gather_ms", "peak_bytes", "seconds")} for rep in reports],
+                "ring_sum_bytes": reports[0]["ring_sum_bytes"],
+                "broadcast_bytes": reports[0]["broadcast_bytes"],
+                "gather_bytes": reports[0]["gather_bytes"], **times,
+                "note": "two ranks share one card, the ring, the sum, the broadcast and the gather "
+                        "staged through host memory (gloo): no speed claim; the ranks' convolutions "
+                        "fixed and deterministic, the one process's both ways, timed alone on the card"}))
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    return launches
+
+
+def _one_process_steps(run, criterion, device):
+    """(c)'s one-process references: {dropout: (loss, gradients on the
+    host)} of ``_fusion_ring_step_inputs``' seeded CACNF, the convolutions
+    fixed and deterministic as on the ring; returns them with the
+    dropout-0.1 model and the batch, for ``_one_process_times``."""
+    one, batch = {}, None
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    _deterministic_convolutions()
+    for dropout in (0.0, DROPOUT):
+        if dropout:
+            del model
+            torch.cuda.empty_cache()
+        model, batch = _fusion_ring_step_inputs(run, dropout, device, batch)
+        loss, grads = _one_step(model, batch, criterion)
+        one[dropout] = (loss.item(), {n: g.cpu() for n, g in grads.items()})
+        del grads
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    return one, model, batch
+
+
+def _one_process_times(model, batch, criterion) -> dict:
+    """(d)'s one process: its step ms with the convolutions fixed and
+    deterministic and with them timed (``cudnn.benchmark``), its peak
+    memory and its replicated work (``_replicated_ms``)."""
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    _deterministic_convolutions()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"one_process_ms": _step_ms(model, batch, criterion, steps=FUSION_RING_STEP_REPEATS),
+             "one_process_peak_bytes": torch.cuda.max_memory_allocated()}
+    times.update(_replicated_ms(model, batch))
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+    times["one_process_ms_benchmark_convs"] = _step_ms(model, batch, criterion,
+                                                       steps=FUSION_RING_STEP_REPEATS)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    return times
+
+
+def _check_ring_reports(reports, spec, ring_dir, ckpts, one, device, count) -> None:
+    """Phase 14 (a)-(c) from the two ring ranks' reports (see
+    ``run_fusion_ring_path``); ``one``: the one process's (loss,
+    gradients) by dropout; ``count`` takes rank 0's launches. The one
+    process's logits take the ranks' fixed convolution algorithms."""
+    from stlt_tpu_torch.configs import position_table_rows
+
+    _deterministic_convolutions()
+
+    # (a) serving on the ring.
+    for run in spec["serve"]:
+        frames, batch_size, name = run["frames"], run["batch"], run["name"]
+        label = (f"predict {name} --num_processes {RING_C} --context_parallel {RING_C}, {frames} "
+                 f"layout frames, B = {batch_size}")
+        want = _on_the_ring(fusion_launches(name, frames), frames)
+        for r, report in enumerate(reports):
+            entry = report["serve"][run["label"]]
+            counts = entry["launches"]
+            if counts != {k: want.get(k, 0) for k in counts} or entry["rows"] != batch_size:
+                raise AssertionError(f"{label}, rank {r}: {entry['rows']} rows, launches {counts}, "
+                                     f"expected {want} (one forward)")
+            log(f"{label}, rank {r}: {entry['rows']} rows in {entry['seconds']:.3f} s; launches {counts}")
+        count(reports[0]["serve"][run["label"]]["launches"])
+        logits = [np.load(os.path.join(ring_dir, f"fusion_ring_{r}_{name}.npz")) for r in range(RING_C)]
+        for head in logits[0].files:
+            if not all(np.array_equal(x[head], logits[0][head]) for x in logits):
+                raise AssertionError(f"{label}: the ranks' {head} logits differ")
+        data_cfg = _fusion_data_cfg(run)
+        model = _served_model(ckpts[name], FUSION_MODEL, position_table_rows(data_cfg), device, name=name)
+        _, batch = _first_batch(data_cfg, batch_size, device, "multimodal")
+        with torch.inference_mode():
+            single = model(batch)
+        for head in model.logit_names:
+            _check_logits(f"{label} {head} (both ranks bit-identical)",
+                          torch.from_numpy(logits[0][head]).to(device), single[head].float(),
+                          "one process")
+        del model, batch, single
+        torch.cuda.empty_cache()
+
+    # (c) the replicated gradients with no repair, then one step against one process.
+    step_label = (f"train step cacnf on the ring, {FUSION_RING_FRAMES} layout frames, "
+                  f"B = {spec['step']['batch']}")
+    for convs in ("benchmark", "deterministic"):
+        mine, other = (rep[f"unsynced_{convs}"] for rep in reports)
+        differ = [n for n in mine if mine[n] != other[n]]
+        log(f"{step_label}, dropout 0, no repair (the replicated gradients as each rank computes "
+            f"them, not synchronised; the convolutions' algorithms "
+            + ("timed per process, cudnn.benchmark" if convs == "benchmark"
+               else "fixed and deterministic") + f"): {len(mine) - len(differ)} of {len(mine)} "
+            f"tensors bit-identical on both ranks; differing: {differ[:8]}"
+            + (f" and {len(differ) - 8} more" if len(differ) > 8 else ""))
+    for dropout in (0.0, DROPOUT):
+        what = f"{step_label}, dropout {dropout}"
+        if len({json.dumps(rep[f"step_{dropout}"]) for rep in reports}) != 1:
+            raise AssertionError(f"{what}: the ranks' losses or gradients differ")
+        ranks = torch.load(os.path.join(ring_dir, f"fusion_ring_0_step_{dropout}.pt"))
+        loss, grads = one[dropout]
+        _compare_steps(what, f"{RING_C} ranks (the layout branch summed over the ring, the rest "
+                       "rank 0's; bit for bit on both) vs one process",
+                       (ranks["loss"], {n: g.to(device) for n, g in ranks["grads"].items()}),
+                       (loss, {n: g.to(device) for n, g in grads.items()}), FUSION_STEP_BF16)
+        del ranks
+
+    # (b) training on the ring.
+    label = (f"train cacnf --num_processes {RING_C} --context_parallel {RING_C}, "
+             f"{FUSION_RING_FRAMES} layout frames, B = {spec['step']['batch']}")
+    want = fusion_ring_train_launches(FUSION_RING_FRAMES, FUSION_TRAIN_STEPS)
+    for r, report in enumerate(reports):
+        entry = report["train"]
+        counts = entry["launches"]
+        if counts != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError(f"{label}, rank {r}: launches {counts}, expected {want}")
+        if entry["steps"] != FUSION_TRAIN_STEPS or not all(
+                math.isfinite(e["train_loss"]) for e in entry["epochs"]):
+            raise AssertionError(f"{label}, rank {r}: bad run {entry}")
+        log(f"{label}, rank {r}: {entry['steps']} steps in {entry['seconds']:.3f} s (data, model "
+            f"set-up and validation included); launches {counts}; epochs {json.dumps(entry['epochs'])}")
+    count(reports[0]["train"]["launches"])
+    losses = [[e["train_loss"] for e in report["train"]["epochs"]] for report in reports]
+    if any(x != losses[0] for x in losses) or len({rep["train"]["digest"] for rep in reports}) != 1:
+        raise AssertionError(f"{label}: the ranks' losses {losses} or trained weights differ")
+    # Only rank 0 writes the best model, when an epoch is the best.
+    best = any(e["is_best"] for e in reports[0]["train"]["epochs"])
+    written = [r for r in range(RING_C) if os.path.exists(os.path.join(ring_dir, f"best_{r}.pt"))]
+    if written != ([0] if best else []):
+        raise AssertionError(f"{label}: checkpoints written by ranks {written} (best epoch: {best})")
+    log(f"{label}: both ranks' losses {losses[0]} and trained weights equal bit for bit (the "
+        f"replicated gradients rank 0's); "
+        + ("rank 0 alone wrote the checkpoint" if best else "no best epoch, no checkpoint written"))
+
+
+def _check_grid_reports(grid_dir, run, ckpts, device, count) -> None:
+    """Phase 14 (e) from the four grid ranks' reports (see
+    ``run_fusion_ring_path``); ``count`` takes rank 0's launches. The one
+    process's logits take the ranks' fixed convolution algorithms."""
+    from stlt_tpu_torch.configs import position_table_rows
+
+    _deterministic_convolutions()
+
+    reports = []
+    for r in range(GRID_WORLD):
+        with open(os.path.join(grid_dir, f"fusion_grid_{r}.json")) as f:
+            reports.append(json.load(f))
+        if reports[-1]["device"] != str(device):
+            raise AssertionError(f"phase 14 grid rank {r} ran on {reports[-1]['device']}")
+    label = (f"train cacnf --num_processes {GRID_WORLD} --context_parallel {RING_C}, "
+             f"{FUSION_GRID_FRAMES} layout frames, B = {run['batch']}")
+    want = fusion_ring_train_launches(FUSION_GRID_FRAMES, FUSION_TRAIN_STEPS)
+    for r, report in enumerate(reports):
+        entry = report["train"]
+        counts = entry["launches"]
+        if counts != {k: want.get(k, 0) for k in counts} or entry["steps"] != FUSION_TRAIN_STEPS \
+                or not all(math.isfinite(e["train_loss"]) for e in entry["epochs"]):
+            raise AssertionError(f"{label}, rank {r}: launches {counts}, expected {want}; {entry}")
+        log(f"{label}, rank {r} (data {r // RING_C}, context {r % RING_C}): {entry['steps']} steps "
+            f"in {entry['seconds']:.3f} s; launches {counts}; epochs {json.dumps(entry['epochs'])}")
+    count(reports[0]["train"]["launches"])
+    losses = [[e["train_loss"] for e in report["train"]["epochs"]] for report in reports]
+    if any(x != losses[0] for x in losses) or len({rep["train"]["digest"] for rep in reports}) != 1:
+        raise AssertionError(f"{label}: the ranks' losses {losses} or trained weights differ")
+    log(f"{label}: the {GRID_WORLD} ranks' losses {losses[0]} and trained weights equal bit for bit")
+    plabel = (f"predict cacnf --num_processes {GRID_WORLD} --context_parallel {RING_C}, "
+              f"{FUSION_GRID_FRAMES} layout frames, B = {run['batch']}")
+    want = _on_the_ring(fusion_launches("cacnf", FUSION_GRID_FRAMES), FUSION_GRID_FRAMES)
+    for r, report in enumerate(reports):
+        entry = report["predict"]
+        if entry["launches"] != {k: want.get(k, 0) for k in entry["launches"]} or \
+                entry["rows"] != run["batch"]:
+            raise AssertionError(f"{plabel}, rank {r}: {entry}, expected launches {want}")
+    count(reports[0]["predict"]["launches"])
+    logits = [np.load(os.path.join(grid_dir, f"fusion_grid_{r}.npz")) for r in range(GRID_WORLD)]
+    data_cfg = _fusion_data_cfg(run)
+    model = _served_model(ckpts["cacnf"], FUSION_MODEL, position_table_rows(data_cfg), device,
+                          name="cacnf")
+    _, batch = _first_batch(data_cfg, run["batch"], device, "multimodal")
+    with torch.inference_mode():
+        single = model(batch)
+    for head in model.logit_names:
+        for d in range(GRID_D):
+            ring = logits[d * RING_C:(d + 1) * RING_C]
+            if any(not np.array_equal(x[head], ring[0][head]) for x in ring):
+                raise AssertionError(f"{plabel}: ring {d}'s ranks' {head} logits differ")
+        got = torch.from_numpy(np.concatenate([logits[d * RING_C][head] for d in range(GRID_D)]))
+        _check_logits(f"{plabel} {head}, the rings' rows joined", got.to(device), single[head].float(),
+                      "one process")
+    del model, batch, single
+    torch.cuda.empty_cache()
+    log(f"{plabel}: each rank's launches per forward {want}")
+
 def main(argv=()) -> int:
     argv = list(argv)
     if argv[:1] == ["--ring-rank"]:  # one rank of phase 9, started by run_ring_path
@@ -6385,6 +7099,10 @@ def main(argv=()) -> int:
         return data_rank(int(argv[1]), argv[2])
     if argv[:1] == ["--grid-rank"]:  # one rank of phase 13, started by run_grid_path
         return grid_rank(int(argv[1]), argv[2])
+    if argv[:1] == ["--fusion-ring-rank"]:  # one rank of phase 14, started by run_fusion_ring_path
+        return fusion_ring_rank(int(argv[1]), argv[2])
+    if argv[:1] == ["--fusion-grid-rank"]:  # one rank of phase 14 (e)
+        return fusion_grid_rank(int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
               file=sys.stderr)
@@ -6450,6 +7168,9 @@ def main(argv=()) -> int:
     timed(run_data_axis_path)
     # The data axis under the ring (--num_processes 4 --context_parallel 2): four ranks on this card.
     timed(run_grid_path)
+    # The fusion models under the ring and on the grid: rank 0's launches.
+    for name, count in timed(run_fusion_ring_path).items():
+        launches[name] = launches.get(name, 0) + count
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

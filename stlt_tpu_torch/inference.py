@@ -15,11 +15,12 @@ raises and never falls back to the CPU. Checkpoints are reference-format
 ``.pt`` state_dicts. Under ``--num_processes N`` (the data axis) each rank
 evaluates its rows of every global batch and the accumulators sum the
 counts, or gather the probabilities in global order, over the ranks, so
-the metrics cover every rank's rows. STLT evaluates frame-sharded under
-``--context_parallel C --num_processes C`` as ``predict`` serves it, the
-accumulators on the coordinator only (every rank has the same logits), and
-on a grid (``--num_processes D C``) over each rank's data group, so every
-row counts once.
+the metrics cover every rank's rows. Every model evaluates under
+``--context_parallel C --num_processes C`` as ``predict`` serves it (STLT's
+backbone and the fusion models' layout branch frame-sharded, the rest
+replicated), the accumulators on the coordinator only (every rank has the
+same logits), and on a grid (``--num_processes D C``) over each rank's
+data group, so every row counts once.
 The coordinator logs and returns the metrics; the other ranks return an
 empty dict.
 

@@ -43,6 +43,24 @@ with ``freeze_backbone``) runs deterministically, as JAX runs it
 (``fusion.py:286-294``): ``model.train()`` leaves it in eval mode, so it
 takes the eval kernels under ``torch.no_grad`` and only the three heads
 train. Module and logit names are the reference's.
+
+Under a context mesh (``--context_parallel C``, ``parallel/mesh.py``) the
+layout branch (a ``StltBackbone``) runs frame-sharded on the ring, as
+STLT's backbone does: each rank its ``F / C`` frames, the temporal
+attention a ring. LCF reads its extract frame as STLT's head does, by a sum
+over the ring. CAF and CACNF gather the branch's frames over the ring
+(``ops/ring.gather_frames``) into the whole ``[B, F, H]`` axis, and every
+ring rank runs the appearance branch, the fusion blocks and the heads on
+the same whole tensors, as JAX's GSPMD gathers the frame axis for the
+fusion attentions (``video_frames`` replicated over ``context``). The
+fusion blocks are not sharded: ``CrossModalModule``'s one ``cross_attn``
+serves both directions, so with sharded layout queries its weights would
+take part of their gradient from one direction and all of it from the
+other, which no one sum over the ring puts right. Everything after the
+gather is replicated, so its dropout sites hash at the global clips as one
+process's do, and the train step sums over the ring the layout branch's
+gradients alone (``training/loop.ring_sharded_parameters``) and takes the
+ring's rank 0's for the rest (``training/loop.sync_over_ring_``).
 """
 
 from __future__ import annotations
@@ -73,7 +91,8 @@ from stlt_tpu_torch.models.stlt import (
 )
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.dropout import TAG_OUT_DROP, hashed_dropout
-from stlt_tpu_torch.parallel.mesh import clip_span
+from stlt_tpu_torch.ops.ring import gather_frames
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
 
 
 def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> ClassificationHead:
@@ -188,7 +207,8 @@ class LateConcatenationFusion(nn.Module):
         self.classifier = FusionHead(config, generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], generator=None) -> Dict[str, torch.Tensor]:
-        layout = gather_extract_frame(self.layout_branch(batch, generator), batch["lengths"])
+        layout = gather_extract_frame(self.layout_branch(batch, generator), batch["lengths"],
+                                      active_context_mesh())
         appearance = self.appearance_branch.forward_features(batch, generator)[:, 0, :]
         fused = torch.cat([layout, appearance], dim=-1)
         return {"lcf": self.classifier(fused).to(torch.float32)}
@@ -214,14 +234,18 @@ class CrossAttentionFusionBackbone(nn.Module):
                                   + layout_pad_bias)
 
         layout_hidden = self.layout_branch(batch, generator)
+        ring = active_context_mesh()
+        if ring is not None:  # this rank's frames -> the whole axis, on every ring rank
+            layout_hidden = gather_frames(layout_hidden, ring)
         appearance_hidden = self.appearance_branch.forward_features(batch, generator)
-        layout_state = gather_extract_frame(layout_hidden, batch["lengths"])
+        # From here on every tensor holds the whole frame axis.
+        layout_state = gather_extract_frame(layout_hidden, batch["lengths"], None)
         appearance_state = appearance_hidden[:, 0, :]
         for layer in self.mm_fusion:
             layout_hidden, appearance_hidden = layer(
                 layout_hidden, appearance_hidden, layout_causal_pad_bias, layout_pad_bias, generator)
         last_fused_state = torch.cat(
-            [gather_extract_frame(layout_hidden, batch["lengths"]), appearance_hidden[:, 0, :]],
+            [gather_extract_frame(layout_hidden, batch["lengths"], None), appearance_hidden[:, 0, :]],
             dim=-1,
         )
         return {

@@ -91,7 +91,8 @@ from stlt_tpu_torch.models.layers import (
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import context_sum
-from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span, frame_rows, frame_span
+from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, clip_span, frame_rows,
+                                          frame_span)
 from stlt_tpu_torch.training.loop import shard_frames
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
@@ -337,13 +338,16 @@ class ClassificationHead(nn.Module):
         return apply_dense(h, self.fc2, self.dtype)
 
 
-def gather_extract_frame(hidden_states: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def gather_extract_frame(hidden_states: torch.Tensor, lengths: torch.Tensor,
+                         ring: Optional[Mesh]) -> torch.Tensor:
     """The hidden state at frame ``lengths - 1``, the appended EXTRACT frame.
-    [B, F, H] -> [B, H]. Under a context mesh ``hidden_states`` are this
-    rank's frames: the rank that holds a clip's extract frame gives its
-    row, the others zeros, summed over the ring (its group)."""
+    [B, F, H] -> [B, H]. ``ring``: the context mesh whose ranks each hold
+    their frames of ``hidden_states`` (a frame-sharded backbone's output):
+    the rank that holds a clip's extract frame gives its row, the others
+    zeros, summed over the ring (its group); None: ``hidden_states`` holds
+    the whole frame axis (no ring, or a stream gathered from it, as the
+    fusion blocks' layout stream), read at the frame itself."""
     rows = torch.arange(hidden_states.shape[0], device=hidden_states.device)
-    ring = active_context_mesh()
     if ring is None:
         return hidden_states[rows, lengths.long() - 1]
     t = hidden_states.shape[1]
@@ -383,5 +387,5 @@ class Stlt(nn.Module):
         frozen = self.training and backbone_frozen(self.config)
         with torch.no_grad() if frozen else contextlib.nullcontext():
             hidden = self.backbone(batch, generator)
-        pooled = gather_extract_frame(hidden, batch["lengths"])
+        pooled = gather_extract_frame(hidden, batch["lengths"], active_context_mesh())
         return {"stlt": self.prediction_head(pooled).to(torch.float32)}

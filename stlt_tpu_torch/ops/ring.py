@@ -56,6 +56,14 @@ every rank. Its backward passes the cotangent through unchanged: every rank
 runs the head on the same sum and computes the same loss, so each rank's
 contribution has the sum's cotangent, and an all-reduce there would count
 the loss C times.
+
+:func:`gather_frames` joins the ring's frame slices [b, t, ...] into the
+whole frame axis [b, C t, ...] on every rank, in ring order: the fusion
+models' layout stream, which their fusion blocks read whole (JAX's GSPMD
+gathers the frame axis there). Everything after it runs replicated on the
+ring's ranks, so each rank holds the same cotangent of the whole axis; the
+backward hands back this rank's slice of it, with no sum (a sum would
+count it C times).
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ import torch.distributed as dist
 
 from stlt_tpu_torch.ops import flash
 from stlt_tpu_torch.ops.dropout import MASK32, lowbias32
-from stlt_tpu_torch.parallel.mesh import Mesh, all_sum
+from stlt_tpu_torch.parallel.mesh import Mesh, all_gather, all_sum
 
 _NEG_INF = flash._NEG_INF
 
@@ -252,3 +260,28 @@ def context_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of ``x`` over the ring (exact where one rank adds a value and the
     others zeros) whose backward is the identity."""
     return _ContextSum.apply(x, mesh)
+
+
+class _GatherFrames(torch.autograd.Function):
+    """The ring's frame slices joined in ring order (see the module
+    docstring); the backward is this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.t = mesh, x.shape[1]
+        # Any dtype travels as its bytes, which every backend gathers.
+        wire = x.contiguous().view(torch.uint8)
+        parts = all_gather(wire, mesh, mesh.ring_group).view(x.dtype)  # [C, b, t, ...]
+        return parts.transpose(0, 1).flatten(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.context_index * ctx.t
+        return g[:, lo:lo + ctx.t], None
+
+
+def gather_frames(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This ring rank's frames ``x`` [b, t, ...] and the other ranks' joined
+    into the whole frame axis [b, C t, ...], the same on every rank of the
+    ring; its backward is the rank's slice of the cotangent."""
+    return _GatherFrames.apply(x, mesh)

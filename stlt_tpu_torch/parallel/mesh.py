@@ -12,8 +12,8 @@ sequence-sharded attention layers consult (``stlt_tpu/parallel/mesh.py:96-106``)
 :func:`active_data_mesh` / :func:`clip_span` the one the dropout sites and
 the train step consult under a data axis, and :func:`frame_span` /
 :func:`frame_rows` the global frame rows of a ring rank's dropout sites.
-:func:`all_sum` and :func:`all_gather` are the collectives of both, over
-one of the two groups.
+:func:`all_sum`, :func:`broadcast` and :func:`all_gather` are the
+collectives of both, over one of the two groups.
 """
 
 from __future__ import annotations
@@ -127,6 +127,16 @@ def all_sum(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
     buf = x.to("cpu" if staged else x.device, torch.float32, copy=True)  # f32: every backend sums it
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(x.device, x.dtype)
+
+
+def broadcast(x: torch.Tensor, mesh: Mesh, src: int, group=None) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group`` (None: every
+    rank), the same shape and dtype on each; staged through host memory on
+    gloo. No gradient."""
+    staged = x.device.type != "cpu" and mesh.backend != "nccl"
+    buf = x.to("cpu" if staged else x.device, copy=True).contiguous()
+    dist.broadcast(buf, src=src, group=group)
+    return buf.to(x.device)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:

@@ -15,15 +15,21 @@ r --coordinator_address host:port`` (``parallel/``, the data axis): each
 rank loads and serves its rows [r B / N, (r + 1) B / N) of every global
 batch (``--batch_size`` B, which N must divide), and the coordinator (rank
 0) gathers the ranks' rows and writes the predictions in global order.
-STLT also serves frame-sharded over C processes with ``--context_parallel C
---num_processes C``: every rank loads the same batches (the frame axis
-padded to a multiple of C), keeps its frames, runs the temporal attention
-as a ring (``ops/ring.py``) and gets the same logits; only the coordinator
-writes the predictions. Both at once, ``--num_processes D C
---context_parallel C``, serve STLT on a grid of D rings of C ranks: ring d
-loads the rows [d B / D, (d + 1) B / D) and its ranks their frames of them,
-and the rows are gathered over the data group (the ranks of one context
-index).
+Every model also serves over a context ring of C processes with
+``--context_parallel C --num_processes C``: every rank loads the same
+batches (the layout frame axis padded to a multiple of C) and gets the same
+logits; only the coordinator writes the predictions. STLT's backbone and
+the fusion models' layout branch keep the rank's frames and run the
+temporal attention as a ring (``ops/ring.py``); CAF and CACNF gather the
+layout stream's frames over the ring and run the appearance branch, the
+fusion blocks and the heads replicated on every rank (``models/fusion.py``);
+``resnet3d`` and ``resnet3d-transformer``, with no frame axis, run whole on
+every rank. Under a ring the R3D convolutions take fixed, deterministic
+cuDNN algorithms (:func:`set_conv_algorithms`), so the ranks' forwards
+give the same bits. Both axes at once, ``--num_processes D C --context_parallel C``,
+serve on a grid of D rings of C ranks: ring d loads the rows [d B / D,
+(d + 1) B / D) and its ranks their frames of them, and the rows are
+gathered over the data group (the ranks of one context index).
 
     python -m stlt_tpu_torch.predict --dataset_name something --dataset_type multimodal \
         --model_name cacnf --test_dataset_path val.json --labels_path labels.json \
@@ -50,7 +56,8 @@ from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import VALID_TOTAL, Loader, to_device
 from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.parallel import distributed
-from stlt_tpu_torch.parallel.mesh import active_data_mesh, check_batch, make_mesh, set_active_mesh
+from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_data_mesh, check_batch, make_mesh,
+                                          set_active_mesh)
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.utils.convert import load_checkpoint
 
@@ -92,10 +99,11 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
 def check_flags(args) -> None:
     """The serving CLIs' flags: an unknown model or dataset type raises with
     the choices; flags of later slices raise with the ``ROADMAP.md`` item
-    they wait for. Two parallel axes run, one process a rank: the data axis
-    of every model (``--num_processes N``, N dividing ``--batch_size``) and
-    STLT's context axis (``--context_parallel C`` with ``--num_processes
-    D C``: D rings of C ranks, D dividing ``--batch_size``)."""
+    they wait for. Two parallel axes run for every model, one process a
+    rank: the data axis (``--num_processes N``, N dividing
+    ``--batch_size``) and the context axis (``--context_parallel C`` with
+    ``--num_processes D C``: D rings of C ranks, D dividing
+    ``--batch_size``)."""
     for flag, value, choices in (("--model_name", args.model_name, models_factory),
                                  ("--dataset_type", args.dataset_type, datasets_factory)):
         if value not in choices:
@@ -103,8 +111,6 @@ def check_flags(args) -> None:
     context, processes = args.context_parallel, max(args.num_processes, 1)
     later = [
         (args.model_parallel > 1, "--model_parallel > 1", "A9 (model axis)"),
-        (context > 1 and args.model_name != "stlt",
-         f"--model_name {args.model_name} under --context_parallel", "A9 (fusion models under the ring)"),
         (processes < context, f"--context_parallel {context} over {processes} process(es) (the "
          "port runs one rank a process)", "A9 (ranks per process)"),
         (getattr(args, "native_decode", False), "--native_decode", "A10"),
@@ -158,13 +164,27 @@ def clip_ids(dataset):
     return [clip["id"] for clip in json_file]
 
 
+def set_conv_algorithms(device: torch.device) -> None:
+    """On the card, how cuDNN picks the R3D convolutions' algorithms, and
+    f32 convolutions stay f32 (no TF32). Alone or on a data axis it times
+    them for the appearance branch's shapes (``cudnn.benchmark``). On a
+    context ring every rank runs the appearance branch replicated on the
+    same clips: there the algorithms are fixed and deterministic, so every
+    rank computes the same forward (two processes timing them on one card
+    can pick different ones, other sums, other bits) and no weight gradient
+    sums in an order of its own."""
+    if device.type != "cuda":
+        return
+    ring = active_context_mesh() is not None
+    torch.backends.cudnn.benchmark = not ring
+    torch.backends.cudnn.deterministic = ring
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def load_served_model(args, model_config, device: torch.device):
     """The factory model with the checkpoint loaded, on ``device`` in eval
-    mode. On the card cuDNN picks its convolution algorithms for the
-    appearance branch's shapes and f32 convolutions stay f32 (no TF32)."""
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
-        torch.backends.cudnn.allow_tf32 = False
+    mode, the convolutions' algorithms set (:func:`set_conv_algorithms`)."""
+    set_conv_algorithms(device)
     model = models_factory[args.model_name](model_config)
     load_checkpoint(args.checkpoint_path, model)
     return model.to(device).eval()

@@ -65,22 +65,27 @@ stay equal bit for bit. ``--grad_accum_steps k`` must divide each rank's
 B / N rows. Validation sums the counts (gathers the probabilities) over the
 ranks; every rank restores ``--resume_dir`` after a barrier.
 
-STLT trains frame-sharded over C processes with ``--context_parallel C
---num_processes C --process_id r --coordinator_address host:port``, as it
-serves (``predict``, ``parallel/``): every rank builds the same global
-batches (the same loader seed, the frame axis padded to a multiple of C)
-and the same seeded model, keeps its frames, runs the temporal attention as
-a ring forward and backward (``ops/ring.py``) and sums its backbone
-gradients over the ring before the clip (``training/loop.py``), so the
-ranks' weights stay equal; validation runs the ring forward. With
+Every model trains over a context ring of C processes with
+``--context_parallel C --num_processes C --process_id r
+--coordinator_address host:port``, as it serves (``predict``,
+``parallel/``): every rank builds the same global batches (the same loader
+seed, the layout frame axis padded to a multiple of C) and the same seeded
+model. STLT's backbone and the fusion models' layout branch keep the
+rank's frames and run the temporal attention as a ring forward and
+backward (``ops/ring.py``); CAF and CACNF gather the layout stream over the
+ring and run the rest replicated (``models/fusion.py``); the R3D models run
+whole on every rank. Before the clip each rank sums the frame-sharded
+modules' gradients over the ring and takes the ring's rank 0's for the
+replicated rest (``training/loop.py``), so the ranks' weights stay equal
+bit for bit; the convolutions take fixed, deterministic algorithms
+(``predict.set_conv_algorithms``); validation runs the same forward. With
 ``--num_processes D C --context_parallel C`` it trains on a grid of D
 such rings: ring d takes the rows [d B / D, (d + 1) B / D), and after the
 ring's sum every gradient and the loss are summed over the data group (the
 ranks of one context index), so all D C ranks take the one process's step
 and keep equal weights. Only the coordinator (rank 0) writes the log file
-and the checkpoints. The flags the serving CLIs refuse under the ring
-(another model, a model axis, fewer processes than C) are refused here
-too.
+and the checkpoints. The flags the serving CLIs refuse (a model axis, fewer
+processes than C) are refused here too.
 
     python -m stlt_tpu_torch.train --dataset_name something --dataset_type layout \
         --model_name stlt --train_dataset_path train.json --val_dataset_path val.json \
@@ -108,6 +113,7 @@ from stlt_tpu_torch.predict import (
     build_data_config,
     build_model_config,
     loader_rows,
+    set_conv_algorithms,
     start_processes,
     stop_processes,
 )
@@ -256,11 +262,7 @@ def _train(args, device) -> TrainResult:
         model.backbone.load_state_dict(read_state_dict(args.load_backbone_path, model.backbone),
                                        strict=True)
         logging.info("Loaded backbone from %s", args.load_backbone_path)
-    if device.type == "cuda":
-        # cuDNN picks its convolution algorithms for the appearance branch's
-        # shapes; f32 convolutions stay f32 (no TF32), as in predict.
-        torch.backends.cudnn.benchmark = True
-        torch.backends.cudnn.allow_tf32 = False
+    set_conv_algorithms(device)  # as predict: timed, or fixed and deterministic on a ring
     model = model.to(device)
 
     criterion = make_criterion(args.dataset_name)

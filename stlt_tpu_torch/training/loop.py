@@ -18,11 +18,20 @@ microbatches draw their dropout seeds from the step's generator in
 microbatch order. Under a context mesh (``train
 --context_parallel C``) every rank runs the step on its frames of the same
 global batch, and after the backward each parameter of the frame-sharded
-backbone holds this rank's part of the gradient, summed over the ring in
-f32 in one flat bucket before the clip (JAX's GSPMD step computes the
-whole gradient at once); the head's gradients are already whole and equal
-on every rank and are not summed. The clip and AdamW then see the same
-gradients on every rank, and the ranks' weights stay equal bit for bit.
+modules (every ``StltBackbone``: STLT's backbone, the fusion models' layout
+branch; :func:`ring_sharded_parameters`) holds this rank's part of the
+gradient, summed over the ring in f32 in one flat bucket before the clip
+(JAX's GSPMD step computes the whole gradient at once). Every other
+parameter (STLT's head; the fusion models' appearance branch, fusion
+blocks and heads, which run replicated on the ring after the layout
+stream's gather; the R3D models whole) already holds its whole gradient,
+which every rank computes from the same inputs, and is not summed: a sum
+would count it C times. The ranks do not always compute it to the same
+bits: on the card the R3D stem's max-pool backward adds
+with atomics, in no fixed order. So they are replaced by the ring's rank
+0's, in one flat f32 broadcast over the ring (:func:`sync_over_ring_`).
+The clip and AdamW then see the same gradients on every rank, and the
+ranks' weights stay equal bit for bit.
 Its random draws (every layer's
 dropout seeds, the embedding-dropout masks) come from one explicit
 ``torch.Generator`` built from (seed, step) by :func:`step_generator`; the
@@ -46,14 +55,14 @@ gather Action Genome's probabilities in global order once per pass.
 
 Under both (``train --num_processes D C --context_parallel C``: D rings of
 C ranks, ``parallel/mesh.py``) each ring takes its data index's rows and
-every rank its frames of them. After the backward the backbone's
-gradients are summed over the ring (its group), then every gradient and
-the loss over the data group (the D ranks of the rank's context index):
-the backbone is summed over the whole grid, the head over the data group
-only (each ring's ranks hold the same head gradients), and the loss is
-divided by the global batch's valid count. The two sums run in this one
-order on every rank, the ring sum gives each of a ring's ranks the same
-bits, so every data group sums the same values: all D C ranks' weights
+every rank its frames of them. After the backward the gradients are made
+the ring's (the frame-sharded modules' summed over the ring, the rest its
+rank 0's), then every gradient and the loss summed over the data group (the D ranks of the rank's
+context index): those modules are summed over the whole grid, the rest
+over the data group only (each ring's ranks hold the same replicated
+gradients), and the loss is divided by the global batch's valid count. The two sums run in this one
+order on every rank, the ring's sum and broadcast give each of a ring's
+ranks the same bits, so every data group sums the same values: all D C ranks' weights
 stay equal bit for bit. Every collective of the eval accumulators runs
 over the data group, so each data row counts once.
 """
@@ -66,7 +75,8 @@ import numpy as np
 import torch
 
 from stlt_tpu_torch.data.loader import VALID_TOTAL
-from stlt_tpu_torch.parallel.mesh import Mesh, active_context_mesh, active_data_mesh, all_gather, all_sum
+from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, active_data_mesh, all_gather,
+                                          all_sum, broadcast)
 from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
 
 
@@ -127,6 +137,33 @@ def sum_grads_over_ring_(params, mesh: Mesh, loss: Optional[torch.Tensor] = None
     return None if loss is None else flat[-1]
 
 
+def ring_sharded_parameters(model):
+    """The parameters whose gradient a context ring's ranks each hold in
+    part: those of every ``StltBackbone`` in ``model`` (the modules that run
+    frame-sharded under a context mesh), in module order. The train step
+    sums these alone over the ring."""
+    from stlt_tpu_torch.models.stlt import StltBackbone  # the models import this module
+
+    return [p for module in model.modules() if isinstance(module, StltBackbone)
+            for p in module.parameters()]
+
+
+def sync_over_ring_(model, ring: Mesh) -> None:
+    """A ring rank's gradients made the whole ring's: those of
+    :func:`ring_sharded_parameters` summed over the ring, every other one
+    replaced by the ring's rank 0's (one flat f32 broadcast over its
+    group): see the module docstring."""
+    sharded = ring_sharded_parameters(model)
+    sum_grads_over_ring_(sharded, ring, group=ring.ring_group)
+    ids = {id(p) for p in sharded}
+    grads = [p.grad for p in model.parameters() if id(p) not in ids and p.grad is not None]
+    if grads:
+        flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+        flat = broadcast(flat, ring, ring.ring_rank(0), group=ring.ring_group)
+        torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]),
+                                                                   grads)])
+
+
 def microbatches(batch: Dict[str, torch.Tensor], grad_accum: int):
     """The ``grad_accum`` strided microbatches of a batch: sample ``i`` in
     microbatch ``i % grad_accum`` (``stlt_tpu/training/loop.py:141-147``),
@@ -143,7 +180,8 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
     """The train step up to the clip: the model in train mode, its gradients
     set to None, the forward and backward of ``batch`` (``grad_accum``
     microbatches: see the module docstring), under a context mesh the
-    backbone's gradients summed over the ring after the last microbatch,
+    gradients made the ring's after the last microbatch
+    (:func:`sync_over_ring_`),
     then the division by the valid rows; under a data mesh
     :func:`_data_rank_loss_and_grads` (after the ring's sum, when there is
     a ring). Returns the loss, a device scalar; the gradients are in the
@@ -170,7 +208,7 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
             loss, n = loss + part.detach(), n + rows
     ring = active_context_mesh()
     if ring is not None:
-        sum_grads_over_ring_(model.backbone.parameters(), ring, group=ring.ring_group)
+        sync_over_ring_(model, ring)
     if n is not None:
         n = torch.clamp(n, min=1.0)
         torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], n)
@@ -181,8 +219,8 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
 def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: int, mesh: Mesh):
     """A data rank's part of the step: each microbatch's criterion over the
     rank's valid rows divided by the global batch's valid count
-    (``VALID_TOTAL``), its backward, under a ring the backbone's gradients
-    summed over the ring, then the gradients and the loss summed over the
+    (``VALID_TOTAL``), its backward, under a ring the gradients made the
+    ring's (:func:`sync_over_ring_`), then the gradients and the loss summed over the
     data group in one bucket (see the module docstring)."""
     if VALID_TOTAL not in batch:
         raise ValueError(f"a data rank's batch carries {VALID_TOTAL!r}, the valid rows of the "
@@ -197,7 +235,7 @@ def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: in
         loss = loss + part.detach()
     ring = active_context_mesh()
     if ring is not None:
-        sum_grads_over_ring_(model.backbone.parameters(), ring, group=ring.ring_group)
+        sync_over_ring_(model, ring)
     return sum_grads_over_ring_(model.parameters(), mesh, loss, group=mesh.data_group)
 
 

@@ -48,7 +48,12 @@ Tasks (inputs and outputs under WORKDIR):
   gradient and the loss over its data group; writes ``grid_train_RANK.npz``;
 - ``grid_op``: ``ring_attention`` in the seed mode (lengths, causal,
   dropout) on the grid, forward and gradients, on this rank's rows and
-  frames of ``inputs.npz`` (as ``op_grad``); writes ``grid_op_RANK.npz``.
+  frames of ``inputs.npz`` (as ``op_grad``); writes ``grid_op_RANK.npz``;
+- ``fusion``: every case of ``fusion.json`` (:func:`run_fusion_case`: a
+  factory model's eval logits, one train step's loss and gradients, or
+  AdamW steps) under one process group of WORLD ranks, a ring of 2 or a
+  grid of WORLD / 2 rings (``make_mesh(1, 2)``), each rank on its data
+  index's rows; writes ``CASE_RANK.npz`` for each case.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -294,9 +299,116 @@ def train_cli(workdir, rank, world):
                             "--log_filepath", os.path.join(workdir, f"log_{rank}.txt")])
 
 
+def run_fusion_case(workdir, case, mesh=None):
+    """One case of ``fusion.json`` on this rank (``mesh``: the active mesh,
+    None in one process): the factory model ``case["model"]`` built from
+    ``case["config"]`` (its config class's fields), ``case["state"]``
+    loaded, the appearance encoder's dropout set to
+    ``case["encoder_dropout"]`` while it is built and, with
+    ``quiet_ring_attention``, the layout branch's temporal attention
+    dropout off (the one site on the ring, whose bits are the ring's own:
+    ``ops/ring.py``); the batch ``case["batch"]`` (``.npz``), this rank's
+    data rows of it under a data axis. Kinds:
+
+    - ``eval``: the logits of every head in eval mode;
+    - ``step``: ``training.loop.loss_and_grads`` at (seed 0, step 0), the
+      FrozenBatchNorm parameters frozen as ``make_optimizer`` freezes them:
+      the loss, every gradient as the clip would see it, and the logits of
+      a train-mode forward drawing from the same generator;
+    - ``train``: ``case["steps"]`` AdamW steps (``make_train_step``,
+      ``case["hp"]``, ``freeze_backbone`` as the config says): the losses
+      and every parameter after each step;
+    - ``sync``: (under a ring) every parameter's gradient set to (rank + 1)
+      (i + 1) for the i-th parameter, then ``training.loop.sync_over_ring_``:
+      the gradients it leaves.
+
+    Returns the arrays (``logits_HEAD``, ``loss``, ``grad_NAME``,
+    ``losses``, ``params_I``)."""
+    from stlt_tpu_torch.configs import make_model_config
+    from stlt_tpu_torch.data.loader import VALID_TOTAL
+    from stlt_tpu_torch.models import appearance, models_factory
+    from stlt_tpu_torch.models.stlt import StltBackbone, backbone_frozen
+    from stlt_tpu_torch.training import loop
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.optimizer import frozen_stats_mask, make_optimizer
+
+    name = case["model"]
+    cfg = make_model_config(name, **case["config"])
+    saved = appearance.TORCH_ENCODER_DROPOUT
+    appearance.TORCH_ENCODER_DROPOUT = case.get("encoder_dropout", saved)
+    try:
+        model = models_factory[name](cfg)
+    finally:
+        appearance.TORCH_ENCODER_DROPOUT = saved
+    model.load_state_dict(torch.load(os.path.join(workdir, case["state"])), strict=True)
+    if case.get("quiet_ring_attention"):
+        for module in model.modules():
+            if isinstance(module, StltBackbone):
+                for layer in module.transformer.layers:
+                    layer.self_attn.dropout_rate = 0.0
+    batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, case["batch"])).items()}
+    if mesh is not None and mesh.data_size > 1:
+        rows = batch["labels"].shape[0] // mesh.data_size
+        d = mesh.data_index
+        batch = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()} | {
+            VALID_TOTAL: batch["valid"].sum()}
+    inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid", VALID_TOTAL)}
+    criterion = make_criterion("something")
+    out = {}
+    if case["kind"] == "eval":
+        with torch.inference_mode():
+            logits = model.eval()(inputs)
+        out.update({f"logits_{head}": v.numpy() for head, v in logits.items()})
+    elif case["kind"] == "step":
+        trainable = frozen_stats_mask(model)
+        for n, p in model.named_parameters():
+            p.requires_grad_(trainable[n])
+        loss = loop.loss_and_grads(model, criterion, batch, loop.step_generator(0, 0))
+        out["loss"] = loss.numpy()
+        out.update({f"grad_{n}": p.grad.numpy() for n, p in model.named_parameters()
+                    if p.grad is not None})
+        with torch.no_grad():
+            logits = model.train()(inputs, loop.step_generator(0, 0))
+        out.update({f"logits_{head}": v.numpy() for head, v in logits.items()})
+    elif case["kind"] == "sync":
+        rank = 0 if mesh is None else mesh.rank
+        for i, p in enumerate(model.parameters()):
+            p.grad = torch.full_like(p, float((rank + 1) * (i + 1)))
+        loop.sync_over_ring_(model, mesh)
+        out.update({f"grad_{n}": p.grad.numpy() for n, p in model.named_parameters()})
+    else:
+        hp = case["hp"]
+        optimizer, scheduler = make_optimizer(
+            model, learning_rate=hp["lr"], weight_decay=hp["weight_decay"],
+            num_warmup_steps=hp["warmup"], num_training_steps=hp["total"],
+            freeze_backbone=backbone_frozen(cfg))
+        step = loop.make_train_step(model, optimizer, scheduler, criterion, hp["clip_val"])
+        losses = []
+        for i in range(case["steps"]):
+            losses.append(float(step(batch, loop.step_generator(0, i))[0]))
+            out[f"params_{i}"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
+        out["losses"] = np.array(losses)
+    return out
+
+
+def fusion(workdir, rank, world):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the cores
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'fusion.store')}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh(1, 2)
+    set_active_mesh(mesh)
+    with open(os.path.join(workdir, "fusion.json")) as f:
+        cases = json.load(f)
+    for label, case in cases.items():
+        np.savez(os.path.join(workdir, f"{label}_{rank}.npz"), **run_fusion_case(workdir, case, mesh))
+    set_active_mesh(None)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     task, workdir, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     {"op": op, "stlt": stlt, "predict": predict, "op_grad": op_grad, "train": train,
      "train_cli": train_cli, "data_train": data_train, "inference": inference,
-     "predict_models": predict_models, "grid_train": grid_train, "grid_op": grid_op}[task](
+     "predict_models": predict_models, "grid_train": grid_train, "grid_op": grid_op,
+     "fusion": fusion}[task](
         workdir, rank, world)

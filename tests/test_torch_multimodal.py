@@ -142,12 +142,18 @@ def _serving_args(*extra):
     (["--model_parallel", "2"], "A9"),
     (["--context_parallel", "2"], "A9"),
     (["--model_parallel", "2", "--num_processes", "2"], "A9"),
-    (["--context_parallel", "2", "--num_processes", "4"], "A9"),
+    pytest.param(["--context_parallel", "2", "--num_processes", "4"], None, id="extra3-A9"),
     (["--native_decode"], "A10"),
 ])
 def test_predict_check_flags_refuses_later_slices(extra, item):
     """The serving CLIs refuse the flags of later slices, naming the ROADMAP
-    item, instead of running them silently on one device (ROADMAP.md C 2)."""
+    item, instead of running them silently on one device (ROADMAP.md C 2).
+    The case whose item is None (CACNF on a grid of two rings of two ranks)
+    waited for A9 (fusion models under the ring), which has landed, and
+    keeps its id: the check now takes it."""
+    if item is None:
+        port_predict.check_flags(_serving_args(*extra))
+        return
     with pytest.raises(NotImplementedError, match=f"waits for ROADMAP.md item {item}"):
         port_predict.check_flags(_serving_args(*extra))
 

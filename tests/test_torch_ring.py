@@ -13,8 +13,10 @@
   the single-process run;
 - the serving and train CLIs' refusals of what waits (ROADMAP.md A9), and
   what the ring now takes: ring offsets in the backward, ``train
-  --context_parallel``, gradients through ``ring_attention`` (the ring's
-  training is held against JAX in ``tests/test_torch_ring_train*.py``).
+  --context_parallel``, the fusion models under the ring, gradients
+  through ``ring_attention`` (the ring's training is held against JAX in
+  ``tests/test_torch_ring_train*.py``, the fusion models' in
+  ``tests/test_torch_ring_fusion.py``).
 
 The ranks run as subprocesses of ``tests/ring_worker.py``, which imports
 torch and the port only; their process group starts from a ``file://``
@@ -282,15 +284,24 @@ def test_predict_on_two_ranks_writes_the_single_process_output(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--model_parallel", "2"], "A9 \\(model axis\\)"),
-    (["--context_parallel", "2", "--num_processes", "4", "--model_name", "lcf",
-      "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
+    pytest.param(["--context_parallel", "2", "--num_processes", "4", "--model_name", "lcf",
+                  "--dataset_type", "multimodal"], None,
+                 id="extra1-A9 \\(fusion models under the ring\\)"),
     (["--context_parallel", "4", "--num_processes", "2"], "A9 \\(ranks per process\\)"),
-    (["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
-      "--dataset_type", "multimodal"], "A9 \\(fusion models under the ring\\)"),
+    pytest.param(["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
+                  "--dataset_type", "multimodal"], None,
+                 id="extra3-A9 \\(fusion models under the ring\\)"),
 ])
 def test_serving_check_flags_refuses_what_waits(extra, item):
+    """What waits raises naming its item; a case whose item is None waited
+    for A9 (fusion models under the ring), which has landed, and keeps its
+    id: the check now takes it (the fusion models on a ring and on a
+    grid)."""
     args = build_parser("test").parse_args(
         ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt", *extra])
+    if item is None:
+        port_predict.check_flags(args)
+        return
     with pytest.raises(NotImplementedError, match=f"waits for ROADMAP.md item {item}"):
         port_predict.check_flags(args)
 
@@ -311,15 +322,15 @@ def test_serving_check_flags_takes_the_data_axis():
 
 def test_train_refuses_context_parallel():
     """``train`` takes STLT over a context axis of C processes and, as
-    ``predict``, refuses a fusion model under the ring, naming its item (the
-    other refusals: test_torch_ring_train_cli.py)."""
+    ``predict``, a fusion model under the ring, which it refused naming A9
+    (fusion models under the ring) until that item landed (the refusals
+    left: test_torch_ring_train_cli.py)."""
     common = ["--dataset_name", "something", "--dataset_type", "layout", "--context_parallel", "2",
               "--num_processes", "2", "--coordinator_address", "localhost:1",
               "--save_model_path", "best.pt"]
     port_train.check_flags(build_parser("test").parse_args(common + ["--model_name", "stlt"]))
-    args = build_parser("test").parse_args(common + ["--model_name", "caf"])
-    with pytest.raises(NotImplementedError, match="A9 \\(fusion models under the ring\\)"):
-        port_train.check_flags(args)
+    port_train.check_flags(build_parser("test").parse_args(
+        common + ["--model_name", "caf", "--dataset_type", "multimodal"]))
 
 
 def test_ring_refuses_gradients():
