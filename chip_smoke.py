@@ -7,6 +7,12 @@
 kernels and runs the named phase functions alone, printing no result line:
 to repeat a phase on the card.)
 
+Phases 5-14 run as three streams at once (``MAIN_STREAM``,
+``SIDE_STREAMS``; the side streams as ``--phases`` processes): they wait
+mostly on the host and gloo, the card mostly idle under them, so their
+step, forward and collective times are logged with no speed claim. The
+kernel checks and phases 3, 4 and 15 run alone.
+
 Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit, build every kernel from
@@ -107,7 +113,9 @@ Phases, in order; any failure exits non-zero:
    ragged lengths): the row count, finite scores and the launch counts are
    asserted, and one batch's logits are held against the plain path on the
    card; that batch's forward and, 16 times over, the B = 1024 forward are
-   timed (kernels and plain) and the latter profiled;
+   timed (kernels and plain) and the latter profiled. The layout dataset is
+   the C++ tokenizer (``data/native.py``), and every clip predict serves is
+   counted through it;
 4. train a full-width bf16 STLT (dropout 0.1, learning rate 1e-3) with
    ``python -m stlt_tpu_torch.train``'s entry point: 256 train and 64
    validation clips, batch 64, 2 epochs, so 8 AdamW steps and 2 validation
@@ -262,14 +270,28 @@ Phases, in order; any failure exits non-zero:
    16 (launches per forward, the ranks' logits bit-identical and against
    one process); ``train`` of CACNF at 512 on the ring (the ranks' losses
    and weights bit for bit); whether the ranks' replicated gradients are
-   bit-identical with no repair (per tensor, the convolutions timed and
-   fixed); one step at dropout 0 and 0.1 against one process; the
+   bit-identical with no repair (per tensor, the convolutions fixed); one step at dropout 0 and 0.1 against one process; the
    ``fusion_ring_times`` line (each rank's step, ring sum, broadcast and
    gather beside one process's step, peak and replicated work); and
    ``train`` and ``predict`` of CACNF on two rings of two ranks at 16
    layout frames (the four ranks' weights bit for bit, the logits against
    one process);
-15. print the kernel table as one JSON line, then the result line.
+15. the native host stages and the tools (``run_host_path``): (a) the
+   layout tokenizer alone, clips/s of the native and the Python dataset's
+   ``__getitem__`` plus ``collate_layout`` at B = 1024 over 4,096 clips,
+   eval and train sampling, the two bit for bit, where a native eval clip's
+   time goes, and the serving loader's clips/s delivered through
+   ``to_device`` (1 and 8 threads), beside phase 3's forward clips/s; (b)
+   ``--native_decode``: where the C++ JPEG stage does not build, the
+   refusal in the compiler's words with no frame read through PIL; where it
+   does, CACNF ``predict`` at 16 layout frames (B = 32) with and without
+   it, the frames' differing pixels, one batch's logits within LOGITS_ATOL
+   and both routes' clips/s; (c) the dump tools' compute at R3D-50 and 112
+   px on the card (f32 and bf16) against the CPU's f32 within FEATURE_REL;
+   (d) ``tools/verify_checkpoints.py`` on a fabricated manifest through
+   ``inference`` (a random full-width STLT), measured, then asserted at its
+   metrics; with the host's CPU and thread count;
+16. print the kernel table as one JSON line, then the result line.
 
 Tolerances (kernel against plain version, same inputs, same rounding
 points, same keep bits; the two differ only in the order of their sums):
@@ -442,6 +464,7 @@ SPATIAL_LAYERS, TEMPORAL_LAYERS = 4, 8
 NUM_CLASSES = 174
 BATCH, NUM_BATCHES = 64, 3
 THROUGHPUT_BATCH = 1024
+MEASURED = {}  # numbers of earlier phases that a later phase logs beside its own
 TRAIN_BATCH = 512  # bench.py::bench_stlt_train's batch
 LONG_FRAMES = 33  # the 32-frame configuration's temporal T
 TRAIN_CLIPS, VAL_CLIPS, TRAIN_EPOCHS, TRAIN_LABELS = 256, 64, 2, 5
@@ -2912,12 +2935,18 @@ def run_main_path(device):
 
         reset_all_launches()
         t0 = time.perf_counter()
-        rows = predict.main(argv)
+        with count_clips(datasets_factory["layout"]) as tokenized:
+            rows = predict.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = all_launches()
         log(f"predict: {len(rows)} clips in {seconds:.3f} s (checkpoint load included); "
-            f"launches {launches}")
+            f"launches {launches}; layout dataset {datasets_factory['layout'].__name__}, "
+            f"{tokenized[0]} clips tokenized by it")
+        if datasets_factory["layout"].__name__ != "NativeLayoutDataset" or (
+                tokenized[0] != BATCH * NUM_BATCHES):
+            raise AssertionError(f"predict tokenized {tokenized[0]} clips through "
+                                 f"{datasets_factory['layout'].__name__}, not the native tokenizer")
 
         with open(out) as f:
             written = [json.loads(line) for line in f]
@@ -2978,7 +3007,30 @@ def run_main_path(device):
         log(f"forward of {THROUGHPUT_BATCH} clips (that batch {THROUGHPUT_BATCH // BATCH} times): "
             f"kernels {big_ms:.3f} ms ({THROUGHPUT_BATCH / big_ms * 1e3:.0f} clips/s), plain "
             f"{big_plain_ms:.3f} ms")
+        MEASURED["forward_clips_per_s"] = THROUGHPUT_BATCH / big_ms * 1e3
         return launches
+
+
+class count_clips:
+    """Within the block, the clips ``cls.__getitem__`` returns are counted
+    (the count at ``[0]`` of the list the block binds)."""
+
+    def __init__(self, cls):
+        self.cls, self.count = cls, [0]
+
+    def __enter__(self):
+        self.saved = self.cls.__getitem__
+
+        def counted(ds, *args, **kw):
+            self.count[0] += 1
+            return self.saved(ds, *args, **kw)
+
+        self.cls.__getitem__ = counted
+        return self.count
+
+    def __exit__(self, *exc):
+        self.cls.__getitem__ = self.saved
+        return False
 
 
 # --- phase 4: the train path through the train entry point -------------------
@@ -5811,8 +5863,8 @@ def run_data_axis_path(device):
             "card": card_line(), "steps": times,
             "allreduce_ms": [report["allreduce_ms"] for report in reports],
             "allreduce_bytes": reports[0]["allreduce_bytes"],
-            "note": "two ranks share one card, the all-reduce staged through host memory (gloo): "
-                    "no speed claim"}))
+            "note": "two ranks share one card, the all-reduce staged through host memory (gloo), "
+                    "other phases beside them: no speed claim"}))
     return None
 
 
@@ -6379,7 +6431,7 @@ def run_grid_path(device):
             "ring_sum_bytes": reports[0]["ring_sum_bytes"],
             "data_sum_bytes": reports[0]["data_sum_bytes"],
             "note": "four ranks share one card, the ring and both sums staged through host memory "
-                    "(gloo): no speed claim"}))
+                    "(gloo), other phases beside them: no speed claim"}))
     return None
 
 
@@ -6494,13 +6546,11 @@ def fusion_ring_rank(rank: int, workdir: str) -> int:
     epoch records, a digest of the trained weights); then under one more
     process group (a) ``predict.serve`` of each FUSION_RING_SERVE run (rows,
     launch counts) and its first batch's logits; (c) one step of the seeded
-    CACNF at dropout 0, first with the convolutions' algorithms timed as
-    before the ring fixed them (``cudnn.benchmark``: the replicated
-    gradients' digest), then as ``predict.set_conv_algorithms`` sets them
-    under a ring, and one at dropout 0.1, each step's loss and gradients
-    (saved by rank 0, a digest on both); (d) the step's wall ms under both
-    settings, the ring sum's and the gather's ms and bytes and the peak
-    memory. Writes ``fusion_ring_R.json`` and ``fusion_ring_R_*.npz`` /
+    CACNF at dropout 0 with no repair (the replicated gradients' digest),
+    the convolutions as ``predict.set_conv_algorithms`` sets them under a
+    ring, then with the repair at dropout 0 and at 0.1, each step's loss
+    and gradients (saved by rank 0, a digest on both); (d) the step's wall
+    ms, the ring sum's and the gather's ms and bytes and the peak memory. Writes ``fusion_ring_R.json`` and ``fusion_ring_R_*.npz`` /
     ``fusion_ring_0_step*.pt`` to WORKDIR."""
     from stlt_tpu_torch import predict
     from stlt_tpu_torch import train as port_train
@@ -6567,18 +6617,15 @@ def fusion_ring_rank(rank: int, workdir: str) -> int:
             replicated = [n for n, p in model.named_parameters()
                           if id(p) not in sharded and p.requires_grad]
             # No repair: the replicated gradients as each rank computes them,
-            # with the convolutions' algorithms timed per process (as before
-            # the ring fixed them), then fixed; neither synchronised.
-            for convs, settings in (("benchmark", (True, False)), ("deterministic", (False, True))):
-                torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = settings
-                model.zero_grad(set_to_none=True)
-                inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
-                criterion(model(inputs, step_generator(SEED, 0)), batch["labels"],
-                          batch["valid"]).backward()
-                report[f"unsynced_{convs}"] = {n: _digest([model.get_parameter(n).grad])
-                                               for n in replicated
-                                               if model.get_parameter(n).grad is not None}
+            # the convolutions' algorithms fixed and deterministic, not
+            # synchronised.
             predict.set_conv_algorithms(device)
+            model.zero_grad(set_to_none=True)
+            inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
+            criterion(model(inputs, step_generator(SEED, 0)), batch["labels"],
+                      batch["valid"]).backward()
+            report["unsynced"] = {n: _digest([model.get_parameter(n).grad]) for n in replicated
+                                  if model.get_parameter(n).grad is not None}
             for dropout in (0.0, DROPOUT):
                 if dropout:
                     del model
@@ -6782,8 +6829,7 @@ def run_fusion_ring_path(device):
         equal bit for bit, rank 0 alone writing the checkpoint;
     (c) whether the ranks' replicated gradients (everything but the layout
         branch) are bit-identical with no repair, logged per tensor with the
-        convolutions' algorithms timed per process (``cudnn.benchmark``)
-        and fixed and deterministic; then one step of a seeded CACNF at 512
+        convolutions' algorithms fixed and deterministic; then one step of a seeded CACNF at 512
         frames (B = 16) at dropout 0 and at 0.1 (the layout branch's
         temporal attention, the one site on the ring, at 0 in both runs:
         ``_fusion_ring_step_inputs``), the two ranks' gradients (the layout
@@ -6791,10 +6837,11 @@ def run_fusion_ring_path(device):
         within FUSION_STEP_BF16 of one process's on the same batch;
     (d) the ``fusion_ring_times`` line: each rank's step ms, the ring sum's,
         the broadcast's and the layout stream's gather's ms and bytes, its
-        peak memory, beside one process's step (its convolutions fixed and
-        timed), peak and replicated work (``_replicated_ms``), timed
-        after every rank has ended (two ranks share one card: no speed
-        claim);
+        peak memory, beside one process's step (its convolutions fixed
+        and deterministic, and as cuDNN's heuristics pick them), peak and
+        replicated work (``_replicated_ms``), timed after every rank of
+        this phase has ended (two ranks share one card, and phases 5-13
+        run beside this one: no speed claim);
     (e) ``train`` and ``predict --num_processes 4 --context_parallel 2`` of
         CACNF at 16 layout frames (B = 32: two rings of two ranks): the four
         ranks' launches, losses and trained weights equal bit for bit after
@@ -6885,7 +6932,7 @@ def run_fusion_ring_path(device):
         finally:
             _wait_ranks(grid_procs, "phase 14 grid", len(GRID_PORTS), device)
         _check_grid_reports(grid_dir, grid_serve, ckpts, device, count)
-        times = _one_process_times(model, batch, criterion)  # the card to this process alone
+        times = _one_process_times(model, batch, criterion)  # after this phase's ranks
         del model, batch
         torch.cuda.empty_cache()
         log("fusion_ring_times " + json.dumps({
@@ -6898,7 +6945,8 @@ def run_fusion_ring_path(device):
                 "gather_bytes": reports[0]["gather_bytes"], **times,
                 "note": "two ranks share one card, the ring, the sum, the broadcast and the gather "
                         "staged through host memory (gloo): no speed claim; the ranks' convolutions "
-                        "fixed and deterministic, the one process's both ways, timed alone on the card"}))
+                        "fixed and deterministic, the one process's both ways; phases 5-13 ran "
+                        "beside this phase on the same card"}))
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
     return launches
 
@@ -6925,16 +6973,17 @@ def _one_process_steps(run, criterion, device):
 
 def _one_process_times(model, batch, criterion) -> dict:
     """(d)'s one process: its step ms with the convolutions fixed and
-    deterministic and with them timed (``cudnn.benchmark``), its peak
-    memory and its replicated work (``_replicated_ms``)."""
+    deterministic (as on the ring) and as cuDNN's heuristics pick them (as
+    one process runs them), its peak memory and its replicated work
+    (``_replicated_ms``)."""
     saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     _deterministic_convolutions()
     torch.cuda.reset_peak_memory_stats()
     times = {"one_process_ms": _step_ms(model, batch, criterion, steps=FUSION_RING_STEP_REPEATS),
              "one_process_peak_bytes": torch.cuda.max_memory_allocated()}
     times.update(_replicated_ms(model, batch))
-    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
-    times["one_process_ms_benchmark_convs"] = _step_ms(model, batch, criterion,
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, False
+    times["one_process_ms_heuristic_convs"] = _step_ms(model, batch, criterion,
                                                        steps=FUSION_RING_STEP_REPEATS)
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
     return times
@@ -6982,15 +7031,12 @@ def _check_ring_reports(reports, spec, ring_dir, ckpts, one, device, count) -> N
     # (c) the replicated gradients with no repair, then one step against one process.
     step_label = (f"train step cacnf on the ring, {FUSION_RING_FRAMES} layout frames, "
                   f"B = {spec['step']['batch']}")
-    for convs in ("benchmark", "deterministic"):
-        mine, other = (rep[f"unsynced_{convs}"] for rep in reports)
-        differ = [n for n in mine if mine[n] != other[n]]
-        log(f"{step_label}, dropout 0, no repair (the replicated gradients as each rank computes "
-            f"them, not synchronised; the convolutions' algorithms "
-            + ("timed per process, cudnn.benchmark" if convs == "benchmark"
-               else "fixed and deterministic") + f"): {len(mine) - len(differ)} of {len(mine)} "
-            f"tensors bit-identical on both ranks; differing: {differ[:8]}"
-            + (f" and {len(differ) - 8} more" if len(differ) > 8 else ""))
+    mine, other = (rep["unsynced"] for rep in reports)
+    differ = [n for n in mine if mine[n] != other[n]]
+    log(f"{step_label}, dropout 0, no repair (the replicated gradients as each rank computes them, "
+        f"not synchronised; the convolutions' algorithms fixed and deterministic): "
+        f"{len(mine) - len(differ)} of {len(mine)} tensors bit-identical on both ranks; differing: "
+        f"{differ[:8]}" + (f" and {len(differ) - 8} more" if len(differ) > 8 else ""))
     for dropout in (0.0, DROPOUT):
         what = f"{step_label}, dropout {dropout}"
         if len({json.dumps(rep[f"step_{dropout}"]) for rep in reports}) != 1:
@@ -7089,6 +7135,485 @@ def _check_grid_reports(grid_dir, run, ckpts, device, count) -> None:
     torch.cuda.empty_cache()
     log(f"{plabel}: each rank's launches per forward {want}")
 
+# --- phase 15: the host stages and the tools ---------------------------------
+
+
+HOST_CLIPS = 4 * THROUGHPUT_BATCH  # the tokenizer's timing set: four B = 1024 batches
+HOST_LOADER_WORKERS = (1, 8)  # the serving loader's threads (predict --num_workers)
+BREAKDOWN_CLIPS = 1024
+DECODE_CLIPS = 32  # phase 7's CACNF batch at 16 layout frames
+# The dump tools' compute on the card against the CPU's f32, relative norm:
+# f32 (TF32 off) sums the same products in another order; bf16 rounds every
+# convolution's output to 8 bits through R3D-50's 53 layers.
+FEATURE_REL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+FEATURE_DEPTH, FEATURE_SIZE = 50, 112  # R3D-50 over 112 px frames, the appearance models'
+FEATURE_FRAMES, PERBOX_WINDOW, PERBOX_BOXES = 32, 16, 8
+VERIFY_CLIPS = 4 * BATCH
+# The fabricated zoo entry's STLT: its flags (``extra_args``) and its config.
+VERIFY_MODEL = dict(hidden_size=H, num_attention_heads=HEADS, num_spatial_layers=SPATIAL_LAYERS,
+                    num_temporal_layers=TEMPORAL_LAYERS, compute_dtype="bfloat16")
+
+
+def _clips_per_s(fn, clips: int) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return clips / (time.perf_counter() - t0)
+
+
+def _tokenizer_batches(dataset, collate) -> list:
+    """``dataset``'s clips collated into B = 1024 batches through the
+    loader's own batching, no thread (train: one generator a clip, seeded
+    as the loader seeds them)."""
+    from stlt_tpu_torch.data.loader import Loader
+
+    return list(Loader(dataset, THROUGHPUT_BATCH, collate, prefetch=0))
+
+
+def native_clip_breakdown(dataset, clips: int) -> dict:
+    """Where a native eval clip's host time goes, in microseconds a clip:
+    the sampler, the four output buffers, the tokenizer's call through
+    ctypes (of which ``pointer_arguments`` builds its five array pointers),
+    the label, the whole ``__getitem__`` (the rest its dict and index
+    array) and ``collate_layout``'s share."""
+    from stlt_tpu_torch.data.layout import collate_layout
+    from stlt_tpu_torch.data.native import _F32P, _I32P
+    from stlt_tpu_torch.data.samplers import get_test_layout_indices
+
+    cfg, lib = dataset.config, dataset._lib
+    F_total, O, f2t = cfg.num_total_frames, cfg.num_total_boxes, cfg.frame2type
+    idx = range(clips)
+
+    def us(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) / clips * 1e6
+
+    def buffers():
+        return (np.empty((F_total, O), np.int32), np.empty((F_total, O, 4), np.float32),
+                np.empty((F_total, O), np.float32), np.empty((F_total,), np.int32))
+
+    cat, box, score, types = buffers()
+    picked = [np.asarray(get_test_layout_indices(cfg.layout_num_frames, dataset._num_frames[i]),
+                         np.int32) for i in idx]
+
+    def tokenize():
+        for i in idx:
+            lib.lt_tokenize(dataset._handle, i, picked[i].ctypes.data_as(_I32P), len(picked[i]),
+                            cfg.score_threshold, cfg.category2id["cls"], f2t["pad"],
+                            f2t["regular"], f2t["empty"], f2t["extract"], F_total, O,
+                            cat.ctypes.data_as(_I32P), box.ctypes.data_as(_F32P),
+                            score.ctypes.data_as(_F32P), types.ctypes.data_as(_I32P))
+
+    def arguments():
+        for i in idx:
+            (picked[i].ctypes.data_as(_I32P), cat.ctypes.data_as(_I32P), box.ctypes.data_as(_F32P),
+             score.ctypes.data_as(_F32P), types.ctypes.data_as(_I32P))
+
+    samples = [dataset[i] for i in idx]
+    parts = {
+        "sampler": us(lambda: [get_test_layout_indices(cfg.layout_num_frames, dataset._num_frames[i])
+                               for i in idx]),
+        "buffers": us(lambda: [buffers() for _ in idx]),
+        "lt_tokenize": us(tokenize),
+        "pointer_arguments": us(arguments),
+        "label": us(lambda: [dataset.get_actions(i) for i in idx]),
+        "getitem": us(lambda: [dataset[i] for i in idx]),
+        "collate": us(lambda: collate_layout(samples, cfg.dataset_name)),
+    }
+    parts["getitem_rest"] = parts["getitem"] - sum(
+        parts[k] for k in ("sampler", "buffers", "lt_tokenize", "label"))
+    return {k: round(v, 2) for k, v in parts.items()}
+
+
+def host_tokenizer_path(root, device) -> None:
+    """Phase 15 (a): the layout tokenizer alone. Clips/s of the native and
+    the Python dataset's ``__getitem__`` plus ``collate_layout`` at B =
+    1024 over HOST_CLIPS clips, eval and train sampling, the two bit for
+    bit; where a native eval clip's time goes; the serving loader's clips/s
+    delivered through ``to_device`` (1 and 8 threads); beside phase 3's
+    forward clips/s."""
+    from stlt_tpu_torch.configs import DataConfig
+    from stlt_tpu_torch.data import collaters_factory
+    from stlt_tpu_torch.data.layout import LayoutDataset
+    from stlt_tpu_torch.data.loader import Loader, to_device
+    from stlt_tpu_torch.data.native import NativeLayoutDataset
+
+    paths = write_something_dataset(root, HOST_CLIPS, SEED + 15)
+    forward = MEASURED.get("forward_clips_per_s")
+    forward_text = f"{forward:.0f} clips/s" if forward else "not measured in this run"
+    datasets = {}
+    for train in (False, True):
+        sampling = "train" if train else "eval"
+        cfg = dict(dataset_name="something", dataset_path=paths["dataset"],
+                   labels_path=paths["labels"], videoid2size_path=paths["videoid2size"], train=train)
+        made, rates, batches = {}, {}, {}
+        for name, cls in (("native", NativeLayoutDataset), ("python", LayoutDataset)):
+            t0 = time.perf_counter()
+            made[name] = cls(DataConfig(**cfg))
+            load_s = time.perf_counter() - t0
+            collate = collaters_factory["layout"](made[name].config)
+            t0 = time.perf_counter()
+            batches[name] = _tokenizer_batches(made[name], collate)
+            rates[name] = HOST_CLIPS / (time.perf_counter() - t0)
+            log(f"host_tokenizer {sampling} {name}: {rates[name]:.0f} clips/s (__getitem__ + "
+                f"collate_layout, B = {THROUGHPUT_BATCH}, {HOST_CLIPS} clips, one thread); "
+                f"dataset load {load_s:.3f} s")
+        if made["native"].config.max_num_objects != made["python"].config.max_num_objects:
+            raise AssertionError("host_tokenizer: the two scans disagree on max_num_objects")
+        for b, (got, want) in enumerate(zip(batches["native"], batches["python"], strict=True)):
+            if set(got) != set(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"host_tokenizer {sampling}: batch {b} differs, native "
+                                     f"against Python")
+        log(f"host_tokenizer {sampling}: native {rates['native'] / rates['python']:.2f}x the "
+            f"Python dataset, bit for bit over {len(batches['native'])} batches; the B = "
+            f"{THROUGHPUT_BATCH} forward (phase 3): {forward_text}")
+        datasets[sampling] = made
+    log(f"host_breakdown native eval clip (us a clip, {BREAKDOWN_CLIPS} clips): "
+        f"{json.dumps(native_clip_breakdown(datasets['eval']['native'], BREAKDOWN_CLIPS))}")
+    for name, dataset in datasets["eval"].items():
+        collate = collaters_factory["layout"](dataset.config)
+        for workers in HOST_LOADER_WORKERS:
+            loader = Loader(dataset, THROUGHPUT_BATCH, collate, prefetch=max(workers, 2),
+                            workers=workers)
+
+            def drain():
+                for _ in to_device(loader, device):
+                    pass
+                torch.cuda.synchronize()
+
+            log(f"host_loader eval {name}, {workers} thread(s): "
+                f"{_clips_per_s(drain, HOST_CLIPS):.0f} clips/s delivered through to_device "
+                f"(B = {THROUGHPUT_BATCH}, predict's prefetch); the forward: {forward_text}")
+
+
+class no_pil_route:
+    """Within the block, the appearance dataset's PIL route raises if it is
+    taken."""
+
+    def __enter__(self):
+        from stlt_tpu_torch.data import appearance
+
+        def refuse(*args):
+            raise AssertionError("--native_decode read a frame through PIL")
+
+        self.cls, self.saved = appearance.AppearanceDataset, appearance.AppearanceDataset._load_frame
+        self.cls._load_frame = refuse
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._load_frame = self.saved
+        return False
+
+
+def _appearance_rates(cfg_kw, clips: int) -> dict:
+    """Clips/s of the appearance dataset's PIL and native routes (eval
+    and train, one thread), over ``clips`` clips."""
+    from stlt_tpu_torch.configs import DataConfig
+    from stlt_tpu_torch.data.appearance import AppearanceDataset
+
+    rates = {}
+    for train in (False, True):
+        for native in (False, True):
+            ds = AppearanceDataset(DataConfig(**cfg_kw, train=train, native_decode=native))
+            rates[f"{'train' if train else 'eval'} {'native' if native else 'pil'}"] = _clips_per_s(
+                lambda: [ds.__getitem__(i, rng=np.random.default_rng(i)) for i in range(clips)],
+                clips)
+    return {k: round(v, 1) for k, v in rates.items()}
+
+
+def host_native_decode(root, device) -> dict:
+    """Phase 15 (b): ``--native_decode``. Where the C++ JPEG stage does not
+    build (no ``jpeglib.h`` or libjpeg), the port's refusal: the compiler's
+    words, and no frame read through PIL. Where it builds: CACNF ``predict``
+    at 16 layout frames, B = 32, full width, bf16, through ``--dataset_type
+    multimodal --native_decode`` and without; the frames' differing pixels
+    and largest difference, native against PIL; one batch's logits within
+    LOGITS_ATOL of the PIL route's; the appearance pipeline's clips/s of both
+    routes. Returns the kernels' launches of the two predict runs."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.configs import DataConfig, position_table_rows
+    from stlt_tpu_torch.data import native_jpeg
+    from stlt_tpu_torch.data.appearance import AppearanceDataset
+
+    clips = DECODE_CLIPS
+    paths = write_something_dataset(root, clips, SEED + 151)
+    with open(paths["dataset"]) as f:
+        ids = [c["id"] for c in json.load(f)]
+    videos = write_video_frames(os.path.join(root, "frames"), ids, SEED + 151)
+    cfg_kw = dict(dataset_name="something", dataset_path=paths["dataset"],
+                  labels_path=paths["labels"], videoid2size_path=paths["videoid2size"],
+                  videos_path=videos, appearance_num_frames=APPEARANCE_FRAMES)
+    try:
+        native_jpeg.load_library()
+    except RuntimeError as e:
+        words = str(e)
+        if "jpeglib.h" not in words and "-ljpeg" not in words:
+            raise AssertionError(f"native_decode: the stage failed for another reason: {words}")
+        with frames_directory_videos(), no_pil_route():
+            dataset = AppearanceDataset(DataConfig(**cfg_kw, native_decode=True))
+            try:
+                dataset[0]
+            except RuntimeError as refusal:
+                if str(refusal) != words:
+                    raise AssertionError(f"native_decode: the dataset refused in other words: "
+                                         f"{refusal}")
+            else:
+                raise AssertionError("native_decode: the dataset read a clip with no JPEG stage")
+        cause = [line for line in words.splitlines() if "jpeglib.h" in line or "-ljpeg" in line]
+        log(f"native_decode: refused on this machine, no PIL route; the compiler's words: "
+            f"{cause[0].strip()}")
+        return {}
+
+    launches = {}
+    with frames_directory_videos():
+        diffs = []
+        pil, native = (AppearanceDataset(DataConfig(**cfg_kw, native_decode=nd)) for nd in (0, 1))
+        for i in range(min(clips, 8)):
+            group = pil.videos[ids[i]]
+            for index in range(0, len(group), 4):
+                got = native._native_frames(ids[i], group, [index])[0]
+                want = np.asarray(pil._load_frame(group, index))
+                diffs.append((int((got != want).any(-1).sum()), got.shape[0] * got.shape[1],
+                              int(np.abs(got.astype(int) - want).max())))
+        log(f"native_decode frames: {sum(d[0] for d in diffs)} of {sum(d[1] for d in diffs)} "
+            f"pixels differ from PIL's over {len(diffs)} frames, largest difference "
+            f"{max(d[2] for d in diffs)}")
+        log(f"native_decode appearance clips/s (one thread, {clips} clips of {APPEARANCE_FRAMES} "
+            f"frames): {json.dumps(_appearance_rates(cfg_kw, clips))}")
+        ckpt = _fusion_checkpoints(root)["cacnf"]
+        logits = {}
+        for native_decode in (False, True):
+            data_cfg = DataConfig(**dict(cfg_kw, layout_num_frames=16), native_decode=native_decode)
+            extra = ["--native_decode"] if native_decode else []
+            label = f"predict cacnf 16 frames{' --native_decode' if native_decode else ''}"
+            reset_all_launches()
+            t0 = time.perf_counter()
+            rows = predict.main(_fusion_predict_argv("cacnf", paths["dataset"], paths, videos, ckpt,
+                                                     16, clips) + extra + [
+                "--output", os.path.join(root, f"rows{len(extra)}.jsonl")])
+            torch.cuda.synchronize()
+            counts = all_launches()
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+            log(f"{label}: {len(rows)} clips in {time.perf_counter() - t0:.3f} s; launches {counts}")
+            if len(rows) != clips:
+                raise AssertionError(f"{label}: {len(rows)} rows for {clips} clips")
+            _, batch = _first_batch(data_cfg, clips, device, "multimodal")
+            model = _served_model(ckpt, FUSION_MODEL, position_table_rows(data_cfg), device,
+                                  name="cacnf")
+            with torch.inference_mode():
+                logits[native_decode] = model(batch)
+            want = fusion_launches("cacnf", 16)
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        for head in logits[True]:
+            _check_logits(f"native_decode cacnf {head}", logits[True][head], logits[False][head],
+                          "the PIL route")
+    return launches
+
+
+def _seeded_frames(shape, seed: int) -> torch.Tensor:
+    """Normalised frames in [-1, 1] from a seed."""
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+
+
+def host_dump_tools(device) -> None:
+    """Phase 15 (c): the dump tools' compute (``tools/dump_features.py::
+    clip_features``, ``tools/dump_perbox_features.py::perbox_features``) at
+    R3D-50 over 112 px frames, on the card in f32 (TF32 off) and in the
+    tools' bf16, against the same function on the CPU in f32 (the same
+    seeded weights and fabricated frames and boxes), within FEATURE_REL."""
+    from stlt_tpu_torch.tools.dump_features import build_extractor, clip_features
+    from stlt_tpu_torch.tools.dump_perbox_features import perbox_features
+
+    depth, size = FEATURE_DEPTH, FEATURE_SIZE
+    frames = _seeded_frames((1, FEATURE_FRAMES, size, size, 3), SEED + 152)
+    corner = torch.rand((PERBOX_WINDOW, PERBOX_BOXES, 2),
+                        generator=torch.Generator().manual_seed(SEED + 153)) * (size * 0.8)
+    boxes = torch.cat([corner - size * 0.1, corner + size * 0.3], -1)  # some partly outside
+    cpu = torch.device("cpu")
+    runs = {
+        "clip_features": (FEATURE_FRAMES, lambda m, dev: clip_features(m, frames.to(dev))),
+        "perbox_features": (PERBOX_WINDOW, lambda m, dev: perbox_features(
+            m, frames[0, :PERBOX_WINDOW].to(dev), boxes.to(dev))),
+    }
+    for name, (num_frames, run) in runs.items():
+        want = run(build_extractor(depth, num_frames, "float32", None, cpu), cpu)
+        for dtype, flag in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+            model = build_extractor(depth, num_frames, flag, None, device)
+            got = run(model, device)
+            ms = cuda_ms(lambda: run(model, device), 5)
+            rel = _rel(got.cpu(), want)
+            log(f"dump_tools {name} {flag} on the card against the CPU's f32: shape "
+                f"{tuple(got.shape)}, rel_err {rel:.3e} (limit {FEATURE_REL[dtype]}), "
+                f"max|feature| {want.abs().max().item():.4f}, {ms:.3f} ms a call")
+            if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all() or (
+                    rel > FEATURE_REL[dtype]):
+                raise AssertionError(f"dump_tools {name} {flag}: off the CPU by {rel:.3e}")
+            del model
+    torch.cuda.empty_cache()
+
+
+def host_verify_checkpoints(root, device) -> dict:
+    """Phase 15 (d): ``tools/verify_checkpoints.py`` on a fabricated
+    manifest (a random full-width bf16 STLT as a reference-format ``.pt``
+    over VERIFY_CLIPS Something-Else clips) through ``inference`` on the
+    card: measured, then asserted at the measured metrics. Returns the
+    kernels' launches of the two runs."""
+    import contextlib
+    import io
+
+    from stlt_tpu_torch.configs import DataConfig, make_model_config, position_table_rows
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.tools import verify_checkpoints
+
+    paths = write_something_dataset(root, VERIFY_CLIPS, SEED + 154)
+    rows = position_table_rows(DataConfig(dataset_name="something"))
+    model = models_factory["stlt"](make_model_config("stlt", **VERIFY_MODEL, num_classes=NUM_CLASSES,
+                                                     unique_categories=4, layout_num_frames=rows),
+                                   torch.Generator().manual_seed(SEED + 154))
+    torch.save(model.state_dict(), os.path.join(root, "stlt.pt"))
+    del model
+    entry = {"name": "stlt-fabricated", "model_name": "stlt", "dataset_name": "something",
+             "dataset_type": "layout", "checkpoint_path": "stlt.pt",
+             "test_dataset_path": os.path.basename(paths["dataset"]),
+             "labels_path": os.path.basename(paths["labels"]),
+             "videoid2size_path": os.path.basename(paths["videoid2size"]),
+             "extra_args": dict(VERIFY_MODEL, batch_size=BATCH),
+             "expected": {}, "tolerance": 0.2}
+
+    def manifest(name, entries):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            json.dump({"entries": entries}, f)
+        return path
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    record = verify_checkpoints.verify_manifest(manifest("measured.json", [entry]))[0]
+    log(f"verify_checkpoints measured: {json.dumps(record)} in {time.perf_counter() - t0:.3f} s")
+    metrics = record["metrics"]
+    if record["pass"] is not None or set(metrics) != {"stlt_top1_accuracy", "stlt_top5_accuracy"} or (
+            not all(math.isfinite(v) and 0 <= v <= 100 for v in metrics.values())):
+        raise AssertionError(f"verify_checkpoints: bad record {record}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = verify_checkpoints.main(["--manifest", manifest("asserted.json",
+                                                              [dict(entry, expected=metrics)])])
+    asserted = json.loads(out.getvalue().strip())
+    log(f"verify_checkpoints asserted at those metrics: exit {code}, {json.dumps(asserted)}")
+    if code != 0 or asserted["pass"] is not True:
+        raise AssertionError(f"verify_checkpoints: the asserted entry failed: {asserted}")
+    counts = all_launches()
+    layers = VERIFY_MODEL["num_spatial_layers"] + VERIFY_MODEL["num_temporal_layers"]
+    want = {name: 2 * layers * VERIFY_CLIPS // BATCH if name in EVAL_KERNELS else 0 for name in counts}
+    log(f"verify_checkpoints: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"verify_checkpoints: launches {counts}, expected {want}")
+    return counts
+
+
+def run_host_path(device) -> dict:
+    """Phase 15: the native host stages and the tools on the card's
+    machine. (a) the layout tokenizer's clips/s, native and Python, eval and
+    train, beside the forward's; (b) ``--native_decode`` or its refusal; (c)
+    the dump tools' compute against the CPU; (d) ``verify_checkpoints``
+    through ``inference``. Returns the kernels' launches of (b) and (d)."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_host_") as root:
+        parts = [("a", host_tokenizer_path), ("b", host_native_decode), ("c", host_dump_tools),
+                 ("d", host_verify_checkpoints)]
+        for key, part in parts:
+            sub = os.path.join(root, key)
+            os.makedirs(sub)
+            t0 = time.perf_counter()
+            counts = part(device) if part is host_dump_tools else part(sub, device)
+            for name, count in (counts or {}).items():
+                launches[name] = launches.get(name, 0) + count
+            log(f"host_path ({key}) {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    cpu = subprocess.run(["grep", "-m1", "model name", "/proc/cpuinfo"], capture_output=True,
+                         text=True).stdout.strip()
+    log(f"host: {cpu or 'model name not reported'}, {os.cpu_count()} threads; {card_line()}")
+    return launches
+
+
+# Phases 5-14 run as three streams, each phase in the order of its stream:
+# this process takes the one-process phases, and two processes of their own
+# (``--phases``) take the phases that put rank processes on the card. All
+# three wait mostly on the host and gloo, with the card mostly idle under
+# them; their step, forward and collective times are logged with no speed
+# claim. The kernel checks (phases 1-2), phases 3, 4 and 15 run alone.
+MAIN_STREAM = ("run_long_clip_path", "run_long_train_path", "run_train_levers_path",
+               "run_fusion_path", "run_fusion_train_path")
+SIDE_STREAMS = (("run_ring_path", "run_ring_train_path", "check_base_kernels", "run_data_axis_path",
+                 "run_grid_path"),
+                ("run_fusion_ring_path",))
+
+
+def start_phases(names, root: str):
+    """Start the phase functions ``names``, in order, in a process of its own
+    (``chip_smoke.py --phases NAME,... OUT``, in a session of its own so
+    that ``finish_phases`` can stop it with every rank it started), its
+    output to a file under ``root``."""
+    tag = names[0]
+    out = open(os.path.join(root, f"{tag}.log"), "w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phases", ",".join(names),
+                             os.path.join(root, f"{tag}.json")],
+                            stdout=out, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    return tag, proc, out, root
+
+
+def finish_phases(started, wait: bool = True) -> dict:
+    """Wait for a ``start_phases`` process (or, with ``wait`` false, stop it),
+    stop whatever of its session is left, log its output and return
+    {phase: what it returned}; its failure fails this run."""
+    import signal
+
+    tag, proc, out, root = started
+    try:
+        if wait:
+            proc.wait(timeout=1100)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        out.seek(0)
+        sys.stdout.write(out.read())
+        sys.stdout.flush()
+        out.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"the stream from {tag} (a process of its own) exited {proc.returncode}")
+    with open(os.path.join(root, f"{tag}.json")) as f:
+        return json.load(f)
+
+
+class free_memory_watch:
+    """Within the block, the card's free memory (every process's use, from
+    ``torch.cuda.mem_get_info``) sampled twice a second; ``least`` is the
+    lowest reading, ``total`` the card's memory."""
+
+    def __enter__(self):
+        import threading
+
+        self.least, self.total = torch.cuda.mem_get_info(0)
+        self.done = threading.Event()
+
+        def sample():
+            while not self.done.wait(0.5):
+                self.least = min(self.least, torch.cuda.mem_get_info(0)[0])
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+        return False
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     if argv[:1] == ["--ring-rank"]:  # one rank of phase 9, started by run_ring_path
@@ -7132,6 +7657,11 @@ def main(argv=()) -> int:
         for name in argv[1].split(","):
             timed(globals()[name])
         return 0
+    if argv[:1] == ["--phases"]:  # phases in a process of its own, started by start_phases
+        results = {name: timed(globals()[name]) for name in argv[1].split(",")}
+        with open(argv[2], "w") as f:
+            json.dump(results, f, default=str)
+        return 0
 
     table = timed(check_kernels)
     table.update(timed(check_train_kernels))
@@ -7146,31 +7676,49 @@ def main(argv=()) -> int:
     table.update(timed(check_offsets_kernel))
     table.update(timed(check_offsets_bwd_kernel))
     timed(check_mask_kernels)  # rows 6-10 with the dropout-mask operand (no main path passes one)
-    launches = timed(run_main_path)  # the predict path: eval kernels
-    train_launches, _ = timed(run_train_path)  # the train path: train kernels
-    launches.update({name: train_launches[name] for name in TRAIN_KERNELS})
+    results = {name: timed(globals()[name]) for name in ("run_main_path", "run_train_path")}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_phases_") as phase_dir, \
+            free_memory_watch() as watch:
+        started = [start_phases(names, phase_dir) for names in SIDE_STREAMS]
+        t0 = time.perf_counter()
+        try:
+            for name in MAIN_STREAM:
+                results[name] = timed(globals()[name])
+        except BaseException:
+            for stream in started:
+                finish_phases(stream, wait=False)
+            raise
+        log(f"phase_time the main stream ({', '.join(MAIN_STREAM)}): {time.perf_counter() - t0:.1f} s")
+        for stream in started:
+            results.update(finish_phases(stream))
+            log(f"phase_time the stream ({stream[0]}) ended {time.perf_counter() - t0:.1f} s "
+                f"after the streams started")
+    log(f"the card's least free memory while the streams ran: {watch.least / 2**30:.2f} GiB of "
+        f"{watch.total / 2**30:.2f}")
+    # The native host stages and the tools, alone on the card's machine.
+    results["run_host_path"] = timed(run_host_path)
+
+    launches = dict(results["run_main_path"])  # the predict path: eval kernels
+    # The train path: train kernels.
+    launches.update({name: results["run_train_path"][0][name] for name in TRAIN_KERNELS})
     # The train CLI's levers (--grad_accum_steps, --remat, --resume_dir, --profile_dir).
-    for name, count in timed(run_train_levers_path)["launches"].items():
+    for name, count in results["run_train_levers_path"]["launches"].items():
         launches[name] += count
-    launches.update(timed(run_long_clip_path))  # long clips: the long-clip kernels
+    launches.update(results["run_long_clip_path"])  # long clips: the long-clip kernels
     # Long-clip training: the attention backwards and the fused train tail.
-    launches.update(timed(run_long_train_path)[0])
-    launches.update(timed(run_fusion_path))  # the fusion models: row 5 and row 8's dense mode
+    launches.update(results["run_long_train_path"][0])
+    launches.update(results["run_fusion_path"])  # the fusion models: row 5 and row 8's dense mode
     # Fusion training: the dense-bias mode of the blockwise backward (rows 9, 10).
-    launches.update(timed(run_fusion_train_path)[0])
+    launches.update(results["run_fusion_train_path"][0])
     # Serving under --context_parallel 2: two ranks on this card, the ring's offsets mode.
-    launches.update(timed(run_ring_path))
+    launches.update(results["run_ring_path"])
     # Training under --context_parallel 2: the ring-offset mode of the blockwise backward.
-    launches.update(timed(run_ring_train_path))
-    # The data axis (--num_processes 2): every dropout kernel at a global-row
-    # base, then train, one step and predict on two ranks against one process.
-    timed(check_base_kernels)
-    timed(run_data_axis_path)
-    # The data axis under the ring (--num_processes 4 --context_parallel 2): four ranks on this card.
-    timed(run_grid_path)
-    # The fusion models under the ring and on the grid: rank 0's launches.
-    for name, count in timed(run_fusion_ring_path).items():
-        launches[name] = launches.get(name, 0) + count
+    launches.update(results["run_ring_train_path"])
+    # The fusion models under the ring and on the grid (rank 0's launches), and
+    # phase 15's inference and predict runs.
+    for name in ("run_fusion_ring_path", "run_host_path"):
+        for kernel, count in results[name].items():
+            launches[kernel] = launches.get(kernel, 0) + count
 
     idle = [name for name in REPLACES if not launches[name]]
     if idle:

@@ -1,13 +1,16 @@
 """Dataset/collate factories of the port (``stlt_tpu/data/__init__.py``):
-``"layout"``, ``"appearance"`` and ``"multimodal"``. The appearance modules
-(and with them h5py and Pillow) are imported when a factory entry is called.
-The native C++ tokenizer is not ported (``ROADMAP.md`` item A10)."""
+``"layout"``, ``"appearance"`` and ``"multimodal"``. ``"layout"`` is the C++
+tokenizer (``data/native.py``), as JAX's factory prefers it; there is no
+switch and no fallback to the Python ``LayoutDataset``, its plain version,
+which ``MultimodalDataset`` uses. The appearance modules (and with them h5py
+and Pillow) are imported when a factory entry is called."""
 
 from __future__ import annotations
 
 import functools
 
-from stlt_tpu_torch.data.layout import LayoutDataset, collate_layout
+from stlt_tpu_torch.data.layout import collate_layout
+from stlt_tpu_torch.data.native import NativeLayoutDataset
 
 
 def _appearance_dataset(config):
@@ -35,7 +38,7 @@ def _multimodal_collate(config):
 
 
 datasets_factory = {
-    "layout": LayoutDataset,
+    "layout": NativeLayoutDataset,
     "appearance": _appearance_dataset,
     "multimodal": _multimodal_dataset,
 }

@@ -49,8 +49,9 @@ def resize_shorter_side(img, target: int):
 
 
 def random_crop_params(img, size: int, rng: np.random.Generator) -> Tuple[int, int, int, int]:
-    """(top, left, height, width) of one random crop shared by a clip."""
-    w, h = img.size
+    """(top, left, height, width) of one random crop shared by a clip, of a
+    PIL image or a uint8 ``[H, W, 3]`` array (``--native_decode``)."""
+    h, w = img.shape[:2] if isinstance(img, np.ndarray) else img.size[::-1]
     if w == size and h == size:
         return 0, 0, size, size
     top = int(rng.integers(0, h - size + 1))

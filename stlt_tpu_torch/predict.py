@@ -113,7 +113,6 @@ def check_flags(args) -> None:
         (args.model_parallel > 1, "--model_parallel > 1", "A9 (model axis)"),
         (processes < context, f"--context_parallel {context} over {processes} process(es) (the "
          "port runs one rank a process)", "A9 (ranks per process)"),
-        (getattr(args, "native_decode", False), "--native_decode", "A10"),
     ]
     for hit, flag, item in later:
         if hit:
@@ -157,26 +156,28 @@ def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
 
 def clip_ids(dataset):
     """The clip ids in dataset order (the loader keeps it when not
-    shuffling); a multimodal dataset's come from its layout dataset."""
-    json_file = getattr(dataset, "json_file", None)
-    if json_file is None:
-        json_file = dataset.layout_dataset.json_file
-    return [clip["id"] for clip in json_file]
+    shuffling): the native tokenizer's ``video_ids``, else the clips of the
+    dataset's JSON; a multimodal dataset's come from its layout dataset."""
+    dataset = getattr(dataset, "layout_dataset", dataset)
+    ids = getattr(dataset, "video_ids", None)
+    if ids is None:
+        ids = [clip["id"] for clip in dataset.json_file]
+    return list(ids)
 
 
 def set_conv_algorithms(device: torch.device) -> None:
     """On the card, how cuDNN picks the R3D convolutions' algorithms, and
-    f32 convolutions stay f32 (no TF32). Alone or on a data axis it times
-    them for the appearance branch's shapes (``cudnn.benchmark``). On a
-    context ring every rank runs the appearance branch replicated on the
-    same clips: there the algorithms are fixed and deterministic, so every
-    rank computes the same forward (two processes timing them on one card
-    can pick different ones, other sums, other bits) and no weight gradient
-    sums in an order of its own."""
+    f32 convolutions stay f32 (no TF32). They are never timed
+    (``cudnn.benchmark`` off): timing them costs seconds for each new batch
+    shape and gave the CACNF step no gain (PERF.md). Alone or on a data
+    axis cuDNN's heuristics pick them. On a context ring
+    every rank runs the appearance branch replicated on the same clips:
+    there they are also deterministic, so every rank computes the same
+    forward and no weight gradient sums in an order of its own."""
     if device.type != "cuda":
         return
     ring = active_context_mesh() is not None
-    torch.backends.cudnn.benchmark = not ring
+    torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = ring
     torch.backends.cudnn.allow_tf32 = False
 

@@ -151,7 +151,7 @@ class TrainResult:
 
 def check_flags(args) -> None:
     """The serving CLIs' checks (``predict.check_flags``: an unknown model or
-    dataset type, A9's and A10's flags, a batch the data axis does not
+    dataset type, A9's flags, a batch the data axis does not
     divide); a backbone flag for a model without a backbone raises naming
     those that have one; ``--grad_accum_steps`` must divide ``--batch_size``
     (each data rank's share of it) and ``--profile_window`` be START,STOP
@@ -262,7 +262,7 @@ def _train(args, device) -> TrainResult:
         model.backbone.load_state_dict(read_state_dict(args.load_backbone_path, model.backbone),
                                        strict=True)
         logging.info("Loaded backbone from %s", args.load_backbone_path)
-    set_conv_algorithms(device)  # as predict: timed, or fixed and deterministic on a ring
+    set_conv_algorithms(device)  # as predict: untimed, and deterministic on a ring
     model = model.to(device)
 
     criterion = make_criterion(args.dataset_name)

@@ -181,7 +181,27 @@ def test_frames_directory_reads_the_frames_the_archive_holds(archive, tmp_path):
     np.testing.assert_array_equal(again[0]["appearance"]["video_frames"], want[0])
 
 
-def test_native_decode_raises_and_does_not_fall_back(archive):
-    cfg = DataConfig(dataset_name="something", native_decode=True, **archive)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A10"):
-        datasets_factory["appearance"](cfg)
+def test_native_decode_raises_and_does_not_fall_back(archive, tmp_path, monkeypatch):
+    """``--native_decode`` decodes every frame in the C++ stage, never
+    through PIL; a frame the stage cannot decode raises naming the clip and
+    the frame (JAX's dataset routes it through PIL with a warning)."""
+    import shutil
+
+    import h5py
+
+    from stlt_tpu_torch.data.appearance import AppearanceDataset
+
+    videos = str(tmp_path / "videos.h5")
+    shutil.copy(archive["videos_path"], videos)
+    with h5py.File(videos, "a") as f:
+        vid = sorted(f.keys())[0]
+        del f[vid]["4"]
+        f[vid].create_dataset("4", data=np.frombuffer(b"not a jpeg", dtype=np.uint8))
+    monkeypatch.setattr(AppearanceDataset, "_load_frame", lambda *a: pytest.fail("PIL route"))
+    cfg = DataConfig(dataset_name="something", native_decode=True, appearance_num_frames=4,
+                     spatial_size=64, **dict(archive, videos_path=videos))
+    dataset = datasets_factory["appearance"](cfg)
+    clip = [c["id"] for c in dataset.json_file].index(vid)
+    with pytest.raises(ValueError, match=f"cannot decode frame 4 of clip {vid}"):
+        dataset[clip]
+    assert dataset[(clip + 1) % len(dataset)]["video_frames"].shape == (4, 64, 64, 3)

@@ -153,13 +153,14 @@ def test_cli_checks_take_the_grid_for_stlt(check):
     pytest.param(["--model_name", "cacnf", "--dataset_type", "multimodal"], None,
                  id="extra0-A9 \\(fusion models under the ring\\)"),
     (["--model_name", "stlt", "--model_parallel", "2"], "A9 \\(model axis\\)"),
-    (["--model_name", "stlt", "--native_decode"], "A10"),
+    pytest.param(["--model_name", "stlt", "--native_decode"], None, id="extra2-A10"),
 ])
 @pytest.mark.parametrize("check", [port_predict.check_flags, port_train.check_flags])
 def test_cli_checks_on_the_grid_refuse_what_waits(check, extra, item):
-    """What waits raises naming its item; the case whose item is None (CACNF
-    on the grid) waited for A9 (fusion models under the ring), which has
-    landed, and keeps its id: both checks now take it."""
+    """What waits raises naming its item; the cases whose item is None
+    waited for items that have landed and keep their ids: CACNF on the grid
+    (A9, fusion models under the ring) and ``--native_decode`` (A10). Both
+    checks now take them."""
     args = build_parser("test").parse_args(COMMON + ["--context_parallel", "2", "--num_processes", "4",
                                                      "--batch_size", "4", *extra])
     if item is None:

@@ -143,14 +143,15 @@ def _serving_args(*extra):
     (["--context_parallel", "2"], "A9"),
     (["--model_parallel", "2", "--num_processes", "2"], "A9"),
     pytest.param(["--context_parallel", "2", "--num_processes", "4"], None, id="extra3-A9"),
-    (["--native_decode"], "A10"),
+    pytest.param(["--native_decode"], None, id="extra4-A10"),
 ])
 def test_predict_check_flags_refuses_later_slices(extra, item):
     """The serving CLIs refuse the flags of later slices, naming the ROADMAP
     item, instead of running them silently on one device (ROADMAP.md C 2).
-    The case whose item is None (CACNF on a grid of two rings of two ranks)
-    waited for A9 (fusion models under the ring), which has landed, and
-    keeps its id: the check now takes it."""
+    The cases whose item is None waited for items that have landed and keep
+    their ids: CACNF on a grid of two rings of two ranks (A9, fusion models
+    under the ring) and ``--native_decode`` (A10); the check now takes
+    them."""
     if item is None:
         port_predict.check_flags(_serving_args(*extra))
         return
