@@ -962,6 +962,181 @@ def check_kernels(device):
     return table
 
 
+# --- phase 2, the model axis: rows 1, 2 and 5 split at the row-parallel sum ----
+
+MODEL_AXIS_SIZES = (2, 4)  # --model_parallel M of the partial-mode checks
+
+
+def _model_shards(w, M: int, m: int) -> dict:
+    """Model rank m's shards (``parallel/sharding.shard_tensor``) of the
+    full-width weights ``w`` (``make_weights``), cut in the model's storage
+    ([out, in]) and handed to the kernels as the layers hand them: the
+    transposed views of the stored shards."""
+    from stlt_tpu_torch.parallel.sharding import shard_tensor
+
+    def cut(name, stored):
+        return shard_tensor(name, stored, M, m)
+
+    in_proj = cut("a.in_proj_weight", w["wqkv"].t().contiguous())  # [3Hq, H]
+    Hq = in_proj.shape[0] // 3
+    bqkv = cut("a.in_proj_bias", w["bqkv"])
+    return {
+        "wqkv": in_proj.t(), "bqkv": bqkv, "wq": in_proj[:Hq].t(), "bq": bqkv[:Hq],
+        "wkv": in_proj[Hq:].t(), "bkv": bqkv[Hq:],
+        "wo": cut("a.out_proj.weight", w["wo"].t().contiguous()).t(),  # [Hq, H] view of [H, Hq]
+        "w1": cut("l.linear1.weight", w["w1"].t().contiguous()).t(), "b1": cut("l.linear1.bias", w["b1"]),
+        "w2": cut("l.linear2.weight", w["w2"].t().contiguous()).t(),
+    }
+
+
+def _model_axis_bounds(kind, x, dtype, M, live_tokens, S=0):
+    """((ms, bound_by) of one rank's partial launch, of the sum epilogue)
+    at model axis M on these inputs (H, Hq = H / M, FF / M = 4 H / M): the
+    partial's flops at the dtype's peak against x (and ctx) read, the
+    rank's weights read and the f32 partial written; the epilogue's bytes
+    (the f32 sums, u for row 2, the output). Row 1 counts the live tokens'
+    work, row 2 every token's (its partial runs the dead ones too)."""
+    rows, T, width = x.shape
+    tokens, es, Hq = rows * T, x.element_size(), width // M
+    out32 = tokens * width * 4
+    if kind == "proj":
+        flops = live_tokens * (8 * width * Hq) + live_tokens * 4 * T * Hq
+        nbytes = live_tokens * width * es + (4 * Hq * width + 3 * Hq) * es + out32
+        epilogue = out32 + tokens * width * es
+    elif kind == "tail":
+        flops = tokens * 4 * width * (4 * width // M)
+        nbytes = 2 * tokens * width * es + 2 * width * (4 * width // M) * es + out32
+        epilogue = out32 + 2 * tokens * width * es  # s and u read, y written
+    else:  # cross: T queries and S keys a row
+        flops = rows * (4 * T * width * Hq + 4 * S * width * Hq + 4 * T * S * Hq)
+        nbytes = rows * (T + S) * width * es + 4 * Hq * width * es + out32
+        epilogue = out32 + tokens * width * es
+    return _bound(flops, nbytes, dtype), _bound(0, epilogue, dtype)
+
+
+def _model_axis_case(label, partial, partial_plain, finish, finish_plain, full, live, tol, rel_tol, M,
+                     bounds):
+    """One row's partial mode at M model ranks: the M partial launches
+    (``partial(m)``), their f32 sum in rank order and the sum epilogue
+    (``finish``), against the same through the plain versions and against
+    the one-process kernel (``full``); a second run bit-identical, dead rows
+    exact zeros. Logs a ``model_axis_check`` line: the errors, the ms of one
+    rank's partial launch and of its plain version, of the epilogue and of
+    the one-process kernel (medians of five windows), and ``bounds`` (the
+    partial's and the epilogue's (ms, bound_by): ``_bound`` of their flops
+    and bytes). Returns the line's dict."""
+
+    def run(part, fin):
+        outs = [part(m) for m in range(M)]
+        s = outs[0][0].clone()
+        for out in outs[1:]:
+            s += out[0]
+        return fin(s, outs[0][1])
+
+    got, again = run(partial, finish), run(partial, finish)
+    want, one = run(partial_plain, finish_plain), full()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs differ")
+    err = _check_close(f"{label} against the plain partial mode", got, want, live, tol)
+    err_full = _check_close(f"{label} against the one-process kernel", got, one, live, tol)
+    row = {"case": label, "M": M, "max_abs_err": err, "max_abs_err_one_process": err_full, "tol": tol}
+    if rel_tol is not None:
+        row.update(rel_err=_rel(got, want), rel_err_one_process=_rel(got, one), rel_tol=rel_tol)
+        if max(row["rel_err"], row["rel_err_one_process"]) > rel_tol:
+            raise AssertionError(f"{label}: relative norm error over {rel_tol}: {row}")
+    (s0, u0), (plain_s0, plain_u0) = partial(0), partial_plain(0)
+    row["partial_ms"] = median_ms(lambda: partial(0), 5)
+    row["partial_plain_ms"] = median_ms(lambda: partial_plain(0), 5)
+    row["sum_ms"] = median_ms(lambda: finish(s0, u0), 5)
+    row["sum_plain_ms"] = median_ms(lambda: finish_plain(plain_s0, plain_u0), 5)
+    row["one_process_ms"] = median_ms(full, 5)
+    (row["partial_bound_ms"], row["partial_bound_by"]), (row["sum_bound_ms"], row["sum_bound_by"]) = bounds
+    log("model_axis_check " + json.dumps(row))
+    return row
+
+
+def check_model_axis_kernels(device):
+    """Rows 1, 2 and 5's partial modes and sum epilogues (the model axis,
+    ``--model_parallel M`` at M = 2 and 4) at full width, bf16 and f32: row 1
+    at the spatial stage (B = 64, rows_live) and the temporal one, row 2 at
+    the spatial stage (dead tokens), row 5 at (T, S) = (17, 33), each
+    against its plain version and the one-process kernel
+    (``_model_axis_case``) under the one-process checks' limits (PROJ_REL,
+    CROSS_REL, OP_TOL). Returns the ``model_axis_check`` rows."""
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    w = make_weights(gen, device)
+    wm = model_layout(w)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        bf16 = dtype == torch.bfloat16
+        for M in MODEL_AXIS_SIZES:
+            shards = [_model_shards(w, M, m) for m in range(M)]
+            for stage in ("spatial", "temporal"):
+                x, a, bias, live_kw, proj_live, tail_live = make_stage(stage, BATCH, dtype, gen, device)
+                rl = live_kw.get("rows_live")
+                kw = dict(num_heads=HEADS // M, compute_dtype=dtype, rows_live=rl)
+
+                def proj(m, fn=fe.fused_proj_attention_partial):
+                    sh = shards[m]
+                    return fn(x, sh["wqkv"], sh["bqkv"], sh["wo"], bias, **kw), None
+
+                rows.append(_model_axis_case(
+                    f"fused_proj_attention {stage} {dtype} B={BATCH}",
+                    proj, lambda m: proj(m, fe.fused_proj_attention_partial_plain),
+                    lambda s, _: fe.sublayer_sum(s, w["bo"], compute_dtype=dtype, rows_live=rl),
+                    lambda s, _: fe.sublayer_sum_plain(s, w["bo"], compute_dtype=dtype, rows_live=rl),
+                    lambda: fe.fused_proj_attention(x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias,
+                                                    num_heads=HEADS, compute_dtype=dtype, rows_live=rl),
+                    proj_live[..., None].expand(x.shape), tol, PROJ_REL if bf16 else None, M,
+                    _model_axis_bounds("proj", x, dtype, M, int(proj_live.sum()))))
+                if stage == "temporal":
+                    continue
+                tkw = dict(eps=EPS, compute_dtype=dtype, activation="gelu", gelu_approximate=bf16)
+
+                def tail(m, fn=fe.fused_layer_tail_partial):
+                    sh = shards[m]
+                    return fn(x, a, w["n1s"], w["n1b"], sh["w1"], sh["b1"], sh["w2"], **tkw)
+
+                def tail_sum(s, u, fn=fe.fused_layer_tail_sum):
+                    return fn(s, u, w["b2"], w["n2s"], w["n2b"], **tkw_sum, **live_kw)
+
+                tkw_sum = dict(eps=EPS, compute_dtype=dtype)
+                rows.append(_model_axis_case(
+                    f"fused_layer_tail {stage} {dtype} B={BATCH}",
+                    tail, lambda m: tail(m, fe.fused_layer_tail_partial_plain),
+                    tail_sum, lambda s, u: tail_sum(s, u, fe.fused_layer_tail_sum_plain),
+                    lambda: fe.fused_layer_tail(x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"],
+                                                w["b2"], w["n2s"], w["n2b"], **tkw, **live_kw),
+                    tail_live[..., None].expand(x.shape), tol, None, M,
+                    _model_axis_bounds("tail", x, dtype, M, int(tail_live.sum()))))
+                del x, a, bias
+            T, S = CROSS_SHAPES[0]
+            x = torch.randn((BATCH, T, H), generator=gen).to(device, dtype)
+            ctx = torch.randn((BATCH, S, H), generator=gen).to(device, dtype)
+            ckw = dict(num_heads=HEADS // M, compute_dtype=dtype)
+
+            def cross(m, fn=fe.fused_cross_attention_partial):
+                sh = shards[m]
+                return fn(x, ctx, sh["wq"], sh["bq"], sh["wkv"], sh["bkv"], sh["wo"], None, **ckw), None
+
+            rows.append(_model_axis_case(
+                f"fused_cross_attention {T}x{S} {dtype} B={BATCH}",
+                cross, lambda m: cross(m, fe.fused_cross_attention_partial_plain),
+                lambda s, _: fe.sublayer_sum(s, w["bo"], compute_dtype=dtype, op="fused_cross_attention"),
+                lambda s, _: fe.sublayer_sum_plain(s, w["bo"], compute_dtype=dtype),
+                lambda: fe.fused_cross_attention(x, ctx, wm["wq"], wm["bq"], wm["wkv"], wm["bkv"], wm["wo"],
+                                                 w["bo"], None, num_heads=HEADS, compute_dtype=dtype),
+                torch.ones(x.shape, dtype=torch.bool, device=device), tol, CROSS_REL if bf16 else None, M,
+                _model_axis_bounds("cross", x, dtype, M, BATCH * T, S)))
+            del x, ctx, shards
+            torch.cuda.empty_cache()
+    return rows
+
+
 # --- phase 2, train: the train op's forward and backward kernels --------------
 
 
@@ -3979,7 +4154,7 @@ def all_launches() -> dict:
     from stlt_tpu_torch.ops import fused_encoder as fe
     from stlt_tpu_torch.ops import fused_tail_train as ftt
 
-    return {**fe.LAUNCHES, **flash.LAUNCHES, **ftt.LAUNCHES}
+    return {**fe.LAUNCHES, **fe.SUM_LAUNCHES, **flash.LAUNCHES, **ftt.LAUNCHES}
 
 
 class plain_eval_path:
@@ -7537,6 +7712,166 @@ def run_host_path(device) -> dict:
     return launches
 
 
+# --- phase 16: the model axis (--model_parallel) through predict ------------------
+
+MODEL_AXIS_M = 2
+# (label, model, --layout_num_frames, clips (one batch), the clips' frame
+# counts, --context_parallel): (a) STLT at 17 frames, (b) at 256 frames
+# (row 6 on 6 heads a rank), (c) CACNF at 17 layout frames (row 5, the
+# appearance encoder's ReLU tails, the R3D trunk replicated), (d) STLT at
+# 512 frames on a model 2 x context 2 grid (row 8's ring-offset mode on
+# each model rank's heads).
+MODEL_AXIS_RUNS = (("a", "stlt", 16, BATCH, (3, 25), 1), ("b", "stlt", 256, 16, (32, 257), 1),
+                   ("c", "cacnf", 16, 32, (3, 25), 1), ("d", "stlt", 512, 8, (32, 513), 2))
+# Kernels each run must launch on every rank (the partial modes count
+# under their rows' names, the epilogues under ``*_sum``).
+MODEL_AXIS_KERNELS = {
+    "a": ("fused_proj_attention", "fused_proj_attention_sum", "fused_layer_tail", "fused_layer_tail_sum"),
+    "b": ("fused_proj_attention", "fused_layer_tail_sum", "flash_attention"),
+    "c": ("fused_proj_attention_sum", "fused_layer_tail_sum", "fused_cross_attention",
+          "fused_cross_attention_sum"),
+    "d": ("fused_proj_attention_sum", "fused_layer_tail_sum", "blockwise_attention_offsets"),
+}
+
+
+def model_axis_rank(args):
+    """One rank of phase 16, as ``predict``'s own rank function
+    (``predict._predict_rank``) runs it, spawned by ``predict.main``'s
+    launcher (``parallel/distributed.run_ranks``): beside the predictions it
+    records the served model's logits, each forward's ms, each all-reduce's
+    ms and bytes (the layers' sums over the model group, synchronised on
+    both sides) and the kernels' launches, into ``OUTPUT.rankR.pt``. Reads
+    the frames through ``frames_directory_videos``."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.models import layers
+
+    rank_fn, load, all_sum = predict._predict_rank, predict.load_served_model, layers.all_sum
+    record = {"logits": [], "forward_ms": [], "sum_ms": [], "sum_bytes": []}
+    starts = []
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed_sum(x, mesh, group=None):
+        sync()
+        t0 = time.perf_counter()
+        out = all_sum(x, mesh, group)
+        sync()
+        record["sum_ms"].append((time.perf_counter() - t0) * 1e3)
+        record["sum_bytes"].append(x.numel() * 4)
+        return out
+
+    def pre(module, inputs):
+        sync()
+        starts.append(time.perf_counter())
+
+    def post(module, inputs, out):
+        sync()
+        record["forward_ms"].append((time.perf_counter() - starts[-1]) * 1e3)
+        record["logits"].append(out[module.logit_names[-1]].float().cpu())
+
+    def capture(*a, **kw):
+        model = load(*a, **kw)
+        model.register_forward_pre_hook(pre)
+        model.register_forward_hook(post)
+        return model
+
+    predict.load_served_model, layers.all_sum = capture, timed_sum
+    reset_all_launches()
+    try:
+        with frames_directory_videos():
+            rows = rank_fn(args)
+    finally:
+        predict.load_served_model, layers.all_sum = load, all_sum
+    record.update(rows=len(rows), launches=all_launches(), logits=torch.cat(record["logits"]))
+    torch.save(record, f"{args.output}.rank{args.process_id}.pt")
+    return rows
+
+
+def run_model_axis_path(device):
+    """Phase 16: ``predict --model_parallel 2`` from one process, which
+    starts the model ranks itself (``parallel/distributed.run_ranks``), all
+    on this one card (gloo, the partials staged through host memory), at
+    full width (H = 768, 12 heads, 4 + 8 layers, bf16, random seeded
+    weights): MODEL_AXIS_RUNS (a)-(d), one batch each. For each run: the
+    ranks' logits equal bit for bit and within LOGITS_ATOL of one process's
+    on the same weights and batch, every clip's prediction written, each
+    rank's launches of its run's kernels (MODEL_AXIS_KERNELS, the same on
+    every rank); the ``model_axis_times`` line: each rank's forward ms and
+    its all-reduces' count, ms and bytes, beside the card line (the ranks
+    share one card: no speed claim). Returns rank 0's launches."""
+    from stlt_tpu_torch import predict
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.parser import build_parser
+
+    parser = build_parser("chip_smoke model axis")
+    parser.add_argument("--top_k", type=int, default=5)
+    parser.add_argument("--output", type=str)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_model_axis_") as root, \
+            frames_directory_videos():
+        for label, name, frames, clips, frames_range, context in MODEL_AXIS_RUNS:
+            sub = os.path.join(root, label)
+            os.makedirs(sub)
+            paths = write_something_dataset(sub, clips, SEED + 160 + frames, frames_range=frames_range)
+            out = os.path.join(sub, "predictions.jsonl")
+            # One random seeded model a name, written at its first run (its
+            # position table resampled to each later run's on load).
+            ckpt = os.path.join(root, f"{name}_random.pt")
+            if name == "stlt":
+                argv = _ring_argv(paths, ckpt, frames, clips, out)
+                argv[argv.index("--context_parallel") + 1] = str(context)
+            else:
+                with open(paths["dataset"]) as f:
+                    videos = write_video_frames(os.path.join(sub, "frames"), [c["id"] for c in json.load(f)],
+                                                SEED + 160)
+                argv = _fusion_predict_argv(name, paths["dataset"], paths, videos, ckpt, frames,
+                                            clips) + ["--output", out, "--context_parallel", str(context)]
+            args = parser.parse_args(argv)
+            data_cfg = predict.build_data_config(args, train=False, dataset_path=args.test_dataset_path)
+            dataset, batch = _first_batch(data_cfg, clips, device, args.dataset_type)
+            config = predict.build_model_config(args, dataset, data_cfg)
+            if not os.path.exists(ckpt):
+                torch.save(models_factory[name](config, torch.Generator().manual_seed(SEED + 161)).state_dict(),
+                           ckpt)
+            model = predict.load_served_model(args, config, device)  # one process, the whole model
+            with torch.inference_mode():
+                one = model(batch)[model.logit_names[-1]].float().cpu()
+            del model, batch
+            torch.cuda.empty_cache()
+
+            world = MODEL_AXIS_M * context
+            saved = predict._predict_rank
+            predict._predict_rank = model_axis_rank  # the ranks record what they serve
+            t0 = time.perf_counter()
+            try:
+                rows = predict.main(argv + ["--model_parallel", str(MODEL_AXIS_M)])
+            finally:
+                predict._predict_rank = saved
+            seconds = time.perf_counter() - t0
+            what = (f"phase 16 ({label}) predict --model_parallel {MODEL_AXIS_M} --context_parallel "
+                    f"{context} ({world} ranks from one process), {name}, {frames} layout frames, B = {clips}")
+            records = [torch.load(f"{out}.rank{r}.pt") for r in range(world)]
+            if len(rows) != clips or any(rec["rows"] != clips for rec in records):
+                raise AssertionError(f"{what}: {len(rows)} predictions, not {clips}")
+            for r, rec in enumerate(records):
+                if not torch.equal(rec["logits"], records[0]["logits"]):
+                    raise AssertionError(f"{what}: rank {r}'s logits differ from rank 0's")
+                idle = [k for k in MODEL_AXIS_KERNELS[label] if not rec["launches"].get(k)]
+                if idle or rec["launches"] != records[0]["launches"]:
+                    raise AssertionError(f"{what}: rank {r} launched {rec['launches']} (idle: {idle})")
+            _check_logits(f"{what}: rank 0", records[0]["logits"], one, "one process")
+            for kernel, count in records[0]["launches"].items():
+                launches[kernel] = launches.get(kernel, 0) + count
+            log("model_axis_times " + json.dumps({
+                "run": label, "model": name, "layout_frames": frames, "clips": clips,
+                "model_parallel": MODEL_AXIS_M, "context_parallel": context, "seconds": seconds,
+                "launches": {k: n for k, n in records[0]["launches"].items() if n},
+                "ranks": [{"rank": r, "forward_ms": rec["forward_ms"], "all_reduces": len(rec["sum_ms"]),
+                           "all_reduce_ms": sum(rec["sum_ms"]), "all_reduce_bytes": sum(rec["sum_bytes"])}
+                          for r, rec in enumerate(records)],
+                "card": card_line()}))
+    return launches
+
+
 # Phases 5-14 run as three streams, each phase in the order of its stream:
 # this process takes the one-process phases, and two processes of their own
 # (``--phases``) take the phases that put rank processes on the card. All
@@ -7547,7 +7882,7 @@ MAIN_STREAM = ("run_long_clip_path", "run_long_train_path", "run_train_levers_pa
                "run_fusion_path", "run_fusion_train_path")
 SIDE_STREAMS = (("run_ring_path", "run_ring_train_path", "check_base_kernels", "run_data_axis_path",
                  "run_grid_path"),
-                ("run_fusion_ring_path",))
+                ("run_fusion_ring_path", "run_model_axis_path"))
 
 
 def start_phases(names, root: str):
@@ -7670,6 +8005,7 @@ def main(argv=()) -> int:
     table.update(timed(check_long_train_kernels))
     table.update(timed(check_tail_train_kernels))
     table.update(timed(check_fusion_kernels))
+    timed(check_model_axis_kernels)  # rows 1, 2 and 5's partial modes (the model axis)
     timed(check_sublayer_stages)  # rows 1, 3 and 5 stage by stage, by CUDA kernel
     table.update(timed(check_fusion_train_kernels))
     timed(check_width_kernels)  # every kernel at other head dims and widths
@@ -7716,7 +8052,9 @@ def main(argv=()) -> int:
     launches.update(results["run_ring_train_path"])
     # The fusion models under the ring and on the grid (rank 0's launches), and
     # phase 15's inference and predict runs.
-    for name in ("run_fusion_ring_path", "run_host_path"):
+    # Serving under --model_parallel 2 (rank 0's launches: the partial modes
+    # and their sum epilogues).
+    for name in ("run_fusion_ring_path", "run_model_axis_path", "run_host_path"):
         for kernel, count in results[name].items():
             launches[kernel] = launches.get(kernel, 0) + count
 

@@ -29,6 +29,13 @@
 // cores bound it (a few microseconds); at these small stages the launches
 // and the host weigh more.
 //
+// The model axis (stlt_fused_cross_attention_partial): a model rank's N / M
+// heads, q/k/v width Hq = H / M (wq [H, Hq], wkv [H, 2Hq], wo [Hq, H]), as
+// fused_proj_attention.cu's partial mode: the out-projection's f32 partial
+// [rows * T, H] with no bias, then after the model ranks' f32 sum a row
+// kernel (cross_sum_kernel, stlt_fused_cross_attention_sum) writes round(s +
+// bo).
+//
 // f32: two kernels on the SIMT pipes, so f32 stays true f32: kv_proj writes
 // kv = ctx @ Wkv + bkv into a [rows * S, 2H] scratch (a block owns 32
 // context tokens and one slab of 128 kv columns); cross_attn takes the 32
@@ -72,6 +79,7 @@ struct CrossArgs {
   int hidden;
   int num_heads;
   float scale;
+  int inner;  // Hq: the q/k/v width N D (H, or a model rank's H / M); bo null: the partial
 };
 
 // n (<= kTM) tokens from `src` (row stride H) into a [kTM][ld] tile, zeros
@@ -148,7 +156,7 @@ size_t kv_smem_bytes(int H) {
 }
 
 __global__ void __launch_bounds__(kThreads, 1) kv_proj_kernel(CrossArgs p) {
-  const int H = p.hidden;
+  const int H = p.hidden, Hq = p.inner;
   const float* __restrict__ ctx = static_cast<const float*>(p.ctx);
   const float* __restrict__ wkv = static_cast<const float*>(p.wkv);
   const float* __restrict__ bkv = static_cast<const float*>(p.bkv);
@@ -167,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 1) kv_proj_kernel(CrossArgs p) {
   __syncthreads();
   for (int k0 = 0; k0 < H; k0 += kKT) {
     for (int i = tid; i < kKT * kSlab; i += kThreads) {
-      w_s[i] = wkv[(long long)(k0 + i / kSlab) * 2 * H + col0 + i % kSlab];
+      w_s[i] = wkv[(long long)(k0 + i / kSlab) * 2 * Hq + col0 + i % kSlab];
     }
     __syncthreads();
     tile_fma<kRM, 2>(acc, a_s + k0, H, ty * kRM, w_s, kSlab, tx, kKT);
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(kThreads, 1) kv_proj_kernel(CrossArgs p) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = col0 + tx + 64 * j;
-      kv[(tok0 + i) * 2 * H + c] = acc[r][j] + bkv[c];
+      kv[(tok0 + i) * 2 * Hq + c] = acc[r][j] + bkv[c];
     }
   }
 }
@@ -202,7 +210,7 @@ size_t cross_smem_bytes(int H) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) cross_attn_kernel(CrossArgs p) {
   constexpr int kQJ = (D + 63) / 64;  // q columns of a thread, 64 apart
-  const int H = p.hidden, nc = H / 64;
+  const int H = p.hidden, nc = H / 64, Hq = p.inner;
   const int W = cross_w_elems<D>(H);
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const float* __restrict__ wq = static_cast<const float*>(p.wq);
@@ -246,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1) cross_attn_kernel(CrossArgs p) {
       }
       for (int i = tid; i < kKT * 64 * kQJ; i += kThreads) {
         const int kk = i / (64 * kQJ), c = i % (64 * kQJ);
-        w_s[i] = c < D ? wq[(long long)(k0 + kk) * H + h * D + c] : 0.f;
+        w_s[i] = c < D ? wq[(long long)(k0 + kk) * Hq + h * D + c] : 0.f;
       }
       __syncthreads();
       tile_fma<kRM, kQJ>(pq, x_sl, kKT, ty * kRM, w_s, 64 * kQJ, tx, kKT);
@@ -259,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 1) cross_attn_kernel(CrossArgs p) {
 #pragma unroll
       for (int r = 0; r < kRM; ++r) q_s[(ty * kRM + r) * D + d] = pq[r][j] + bq[h * D + d];
     }
-    load_kv_head<D>(k_s, v_s, kv, b, h, p.skv, H);
+    load_kv_head<D>(k_s, v_s, kv, b, h, p.skv, Hq);
     __syncthreads();
     head_attention<D>(p, b, q0, nq, q_s, k_s, v_s, p_s, o_s, D);
 
@@ -279,7 +287,7 @@ __global__ void __launch_bounds__(kThreads, 1) cross_attn_kernel(CrossArgs p) {
 #pragma unroll
     for (int j = 0; j < kMaxNC; ++j) {
       const int c = tx + 64 * j;
-      if (j < nc) out[(tok0 + i) * H + c] = acc[r][j] + bo[c];
+      if (j < nc) out[(tok0 + i) * H + c] = acc[r][j] + (bo ? bo[c] : 0.f);
     }
   }
 }
@@ -299,6 +307,12 @@ __global__ void __launch_bounds__(kAttnThreads) cross_short_attn_kernel(AttnArgs
   attn_body<D, false>(p);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+    cross_sum_kernel(const float* s, const T* bo, const uint8_t* rows_live, T* out, long long n, int seq, int H) {
+  sum_bias_body(s, bo, rows_live, out, n, seq, H);
+}
+
 bool gemm_attribute_set = false;
 
 template <int D>
@@ -308,30 +322,31 @@ int launch_cross_attn(AttnArgs a, cudaStream_t stream) {
   return launch_attn<D>(cross_short_attn_kernel<D>, attribute_set, a, stream);
 }
 
-// The bf16 sublayer. p.kv is the scratch (16-byte aligned): q [rows * T, H],
-// kv [rows * S, 2H], o [rows * T, H], bf16.
+// The bf16 sublayer. p.kv is the scratch (16-byte aligned): q [rows * T, Hq],
+// kv [rows * S, 2Hq], o [rows * T, Hq], bf16. Hq = H but in the partial mode
+// (p.bo null), whose out GEMM writes the f32 partial into p.out.
 int launch_tc(const CrossArgs& p, int head_dim, cudaStream_t stream) {
   const long long Mq = (long long)p.rows * p.tq, Mk = (long long)p.rows * p.skv;
   if (p.rows == 0) return 0;
   if (p.kv == nullptr || Mq > 0x7fffffffLL || Mk > 0x7fffffffLL) return -1;
-  const int H = p.hidden;
+  const int H = p.hidden, Hq = p.inner;
   bf16* q = static_cast<bf16*>(p.kv);
-  bf16* kv = q + Mq * H;
-  bf16* o = kv + Mk * 2 * H;
+  bf16* kv = q + Mq * Hq;
+  bf16* o = kv + Mk * 2 * Hq;
   CUtensorMap map_x, map_wq, map_ctx, map_wkv, map_o, map_wo;
   int err = hopper::make_map(&map_x, p.x, Mq, H, kBM);
-  if (!err) err = hopper::make_map(&map_wq, p.wq, H, H, kBN);  // each weight [N, K]: K-major B
+  if (!err) err = hopper::make_map(&map_wq, p.wq, Hq, H, kBN);  // each weight [N, K]: K-major B
   if (!err) err = hopper::make_map(&map_ctx, p.ctx, Mk, H, kBM);
-  if (!err) err = hopper::make_map(&map_wkv, p.wkv, 2 * H, H, kBN);
-  if (!err) err = hopper::make_map(&map_o, o, Mq, H, kBM);
-  if (!err) err = hopper::make_map(&map_wo, p.wo, H, H, kBN);
+  if (!err) err = hopper::make_map(&map_wkv, p.wkv, 2 * Hq, H, kBN);
+  if (!err) err = hopper::make_map(&map_o, o, Mq, Hq, kBM);
+  if (!err) err = hopper::make_map(&map_wo, p.wo, H, Hq, kBN);
   if (err) return err;
-  const GemmArgs gq{(int)Mq, H, H, static_cast<const bf16*>(p.bq), q, nullptr, nullptr, 1, 0};
+  const GemmArgs gq{(int)Mq, Hq, H, static_cast<const bf16*>(p.bq), q, nullptr, nullptr, 1, 0, nullptr};
   if ((err = launch_gemm(cross_gemm_kernel, gemm_attribute_set, map_x, map_wq, gq, stream))) return err;
-  const GemmArgs gkv{(int)Mk, 2 * H, H, static_cast<const bf16*>(p.bkv), kv, nullptr, nullptr, 1, 0};
+  const GemmArgs gkv{(int)Mk, 2 * Hq, H, static_cast<const bf16*>(p.bkv), kv, nullptr, nullptr, 1, 0, nullptr};
   if ((err = launch_gemm(cross_gemm_kernel, gemm_attribute_set, map_ctx, map_wkv, gkv, stream))) return err;
-  const AttnArgs a{q, kv, kv + H, (long long)H, 2LL * H, o, p.bias, p.bias_row_stride, p.bias_q_stride,
-                   nullptr, nullptr, nullptr, p.rows, p.tq, p.skv, H, p.num_heads, 1, p.scale,
+  const AttnArgs a{q, kv, kv + Hq, (long long)Hq, 2LL * Hq, o, p.bias, p.bias_row_stride, p.bias_q_stride,
+                   nullptr, nullptr, nullptr, p.rows, p.tq, p.skv, Hq, p.num_heads, 1, p.scale,
                    RowDropout{}};
   switch (head_dim) {
     case 32: err = launch_cross_attn<32>(a, stream); break;
@@ -340,8 +355,11 @@ int launch_tc(const CrossArgs& p, int head_dim, cudaStream_t stream) {
     default: err = -1;
   }
   if (err) return err;
-  const GemmArgs go{(int)Mq, H, H, static_cast<const bf16*>(p.bo), static_cast<bf16*>(p.out), nullptr,
-                    nullptr, 1, 1};  // an out GEMM: each row to its own token
+  // An out GEMM: each row to its own token.
+  const GemmArgs go = p.bo == nullptr
+      ? GemmArgs{(int)Mq, H, Hq, nullptr, nullptr, nullptr, nullptr, 1, 1, static_cast<float*>(p.out)}
+      : GemmArgs{(int)Mq, H, H, static_cast<const bf16*>(p.bo), static_cast<bf16*>(p.out), nullptr,
+                 nullptr, 1, 1, nullptr};
   return launch_gemm(cross_gemm_kernel, gemm_attribute_set, map_o, map_wo, go, stream);
 }
 
@@ -363,7 +381,7 @@ int launch(const CrossArgs& a, cudaStream_t stream) {
   const long long attn_blocks = (long long)a.rows * ((a.tq + kTM - 1) / kTM);
   if (kv_tiles > 0x7fffffffLL || attn_blocks > 0x7fffffffLL) return -1;
   if (a.rows > 0) {
-    kv_proj_kernel<<<dim3((unsigned)kv_tiles, 2 * a.hidden / kSlab), kThreads, kv_smem, stream>>>(a);
+    kv_proj_kernel<<<dim3((unsigned)kv_tiles, 2 * a.inner / kSlab), kThreads, kv_smem, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     cross_attn_kernel<D><<<(unsigned)attn_blocks, kThreads, attn_smem, stream>>>(a);
@@ -400,9 +418,40 @@ extern "C" int stlt_fused_cross_attention(
     return -1;
   }
   CrossArgs a{x, ctx, wq, bq, wkv, bkv, wo, bo, static_cast<const float*>(bias), bias_row_stride,
-              bias_q_stride, kv, out, rows, tq, skv, hidden, num_heads, scale};
+              bias_q_stride, kv, out, rows, tq, skv, hidden, num_heads, scale, hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
   if (dtype == 1) return launch_tc(a, hidden / num_heads, s);
   return -2;
+}
+
+// The model axis's partial mode: a model rank's num_heads heads of inner
+// width Hq = `inner` (a multiple of 64): wq [H, Hq], wkv [H, 2Hq], wo [Hq, H]
+// input-major in f32, as stored ([Hq, H], [2Hq, H], [H, Hq]) in bf16; the
+// f32 partial [rows * T, hidden] into `out`; kv the scratch of the full mode
+// at width Hq. Returns as stlt_fused_cross_attention.
+extern "C" int stlt_fused_cross_attention_partial(
+    const void* x, const void* ctx, const void* wq, const void* bq, const void* wkv, const void* bkv,
+    const void* wo, const void* bias, long long bias_row_stride, long long bias_q_stride, void* kv,
+    void* out, int rows, int tq, int skv, int hidden, int inner, int num_heads, float scale, int dtype,
+    void* stream) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || inner % 64 != 0 || inner < 64 ||
+      inner > hidden || num_heads < 1 || inner % num_heads != 0 || tq < 1 || tq > kTK || skv < 1 ||
+      skv > kTK || rows < 0) {
+    return -1;
+  }
+  CrossArgs a{x, ctx, wq, bq, wkv, bkv, wo, nullptr, static_cast<const float*>(bias), bias_row_stride,
+              bias_q_stride, kv, out, rows, tq, skv, hidden, num_heads, scale, inner};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_f32(inner / num_heads, a, s);
+  if (dtype == 1) return launch_tc(a, inner / num_heads, s);
+  return -2;
+}
+
+// The sum epilogue: out = round(s + bo) [rows * seq, hidden] from the summed
+// f32 partials s (rows_live null here: the cross-attention has no dead rows).
+extern "C" int stlt_fused_cross_attention_sum(const void* s, const void* bo, const void* rows_live, void* out,
+                                              int rows, int seq, int hidden, int dtype, void* stream) {
+  return launch_sum(cross_sum_kernel<float>, cross_sum_kernel<bf16>, s, bo, rows_live, out, rows, seq, hidden,
+                    dtype, static_cast<cudaStream_t>(stream));
 }

@@ -43,6 +43,19 @@
 // computes nothing. Every output has one owner and the sums run in a fixed
 // order, so two launches give the same bits.
 //
+// The model axis (--model_parallel M, stlt_fused_layer_tail_partial): a
+// model rank holds FF / M hidden units (W1 [FF/M, H], W2 [H, FF/M] as
+// stored). u and GEMM 1 run over the whole K = H, so h1 is one process's
+// bits for those units; GEMM 2 runs K = FF / M and writes the f32 partial
+// h1 W2 [tokens, H] with no b2 and no u (tail_gemm_kernel's out32), LN2
+// not run. Every token is computed (no scan: u stays at the tokens' own
+// rows, where the epilogue reads it), the dead ones too. f32's
+// fused_tail_kernel writes its accumulator and u (held in shared memory
+// only) out instead of LN2. The model ranks sum the partials in f32, then
+// tail_sum_kernel (stlt_fused_layer_tail_sum), a row kernel, takes s, b2
+// and u: h2 = round(s + b2), r2 = round(u + h2), y = LN2(r2), dead tokens
+// zeros.
+//
 // The weights come in the model's storage: W1 as linear1.weight [FF, H], W2
 // as linear2.weight [H, FF] (both [N, K]), read where they lie (K-major), so
 // the wrappers copy none.
@@ -86,6 +99,7 @@ struct TailArgs {
   float eps;
   int act;
   TailDropout drop;  // train: the three dropout sites; off in eval
+  void* u_out;  // the partial mode: u [tokens, H] (f32: here; bf16: the scratch's head); else null
 };
 
 // y = LN2(r2) of the block's residual tile r_s, one warp per token, and in
@@ -213,6 +227,20 @@ __device__ __forceinline__ void fused_tail_body(const TailArgs& p) {
     }
   }
 
+  if (!kTrain && p.u_out != nullptr) {  // the partial: acc (no b2) and u, no LN2
+    float* s = static_cast<float*>(p.out);
+#pragma unroll
+    for (int r = 0; r < kRM; ++r) {
+      const int i = ty * kRM + r;
+      if (i >= ntok) continue;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) s[(tok0 + i) * H + tx + 64 * j] = acc[r][j];
+    }
+    float* uo = static_cast<float*>(p.u_out) + tok0 * H;
+    for (int i = tid; i < ntok * H; i += kThreads) uo[i] = u_s[i];
+    return;
+  }
+
   // r2 = u + drop(acc + b2), in place of u (each thread its own elements).
   const uint32_t lane_out = p.drop.lane(kTagOutDrop);
 #pragma unroll
@@ -266,6 +294,7 @@ struct GemmArgs {
   const int* count;
   int act;
   TailDropout drop;
+  float* out32;  // GEMM 2 of the partial mode: the f32 sums at row (no b2, no u), in place of out
 };
 
 // One output tile [kBM, kBN] per block. The producer warp's first thread
@@ -307,6 +336,22 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
       Wgmma<kBN, 0, 0>::mma(acc, desc_k(a, kk), desc_k(ring.b_stage(s), kk), k > 0 || kk > 0);
     }
   }, acc);
+
+  if (p.out32 != nullptr) {  // the model axis's f32 partial, from the fragment
+    const int rl = m0 + w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = n0 + 2 * (t % 4);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rl + 8 * h, c = cl + 8 * j;
+        if (r < M && c < p.N) {
+          *reinterpret_cast<float2*>(p.out32 + (long long)r * p.N + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
 
   // Epilogue. Both GEMMs' chains start with round(acc + bias): the
   // fragment (thread t holds rows r and r + 8, columns c and c + 1 of every
@@ -433,6 +478,45 @@ __global__ void __launch_bounds__(32 * kRowWarps) tail_ln2_kernel(TailArgs p, in
   }
 }
 
+// The partial mode's epilogue, one token a warp: h2 = round(s + b2),
+// r2 = round(u + h2), y = LN2(r2) (tail_ln2_kernel's eval arithmetic) in T;
+// dead tokens write zeros.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    tail_sum_kernel(const float* s, const T* u, const float* b2, const float* n2s, const float* n2b,
+                    const uint8_t* live, T* out, long long tokens, int H, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long tok = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (tok >= tokens) return;
+  T* yrow = out + tok * H;
+  if (live != nullptr && !live[tok]) {
+    for (int c = lane; c < H; c += 32) yrow[c] = from_float<T>(0.f);
+    return;
+  }
+  const float* srow = s + tok * H;
+  const T* urow = u + tok * H;
+  float v[kRowVecs * 8];
+  float sum = 0.f, sum2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowVecs * 8; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= H) continue;  // (no break: the loop unrolls, v takes constant indices)
+    const float h2 = round_to<T>(srow[c] + b2[c]);
+    v[i] = round_to<T>(to_float(urow[c]) + h2);
+    sum += v[i];
+    sum2 = fmaf(v[i], v[i], sum2);
+  }
+  sum = warp_sum(sum);
+  sum2 = warp_sum(sum2);
+  const float mu = sum / H, rstd = rsqrtf(fmaxf(0.f, sum2 / H - mu * mu) + eps);
+#pragma unroll
+  for (int i = 0; i < kRowVecs * 8; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= H) continue;
+    yrow[c] = from_float<T>((v[i] - mu) * (rstd * n2s[c]) + n2b[c]);
+  }
+}
+
 int launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, const GemmArgs& g,
                 cudaStream_t stream) {
   static bool attribute_set = false;  // once a process: it costs host time at every small stage
@@ -454,12 +538,13 @@ int launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, const GemmAr
 int launch_tc(const TailArgs& p, int H, void* scratch, cudaStream_t stream) {
   if (p.tokens == 0) return 0;
   if (scratch == nullptr || H > 1024) return -1;
+  const bool partial = p.u_out != nullptr;
   bf16* u = static_cast<bf16*>(scratch);
   bf16* h1 = u + (size_t)p.tokens * H;
   int* rows = reinterpret_cast<int*>(h1 + (size_t)p.tokens * p.ff);
   int* count = rows + p.tokens;
-  if (p.live == nullptr) {
-    rows = count = nullptr;  // every token live: row i is token i
+  if (p.live == nullptr || partial) {
+    rows = count = nullptr;  // every token live (or, partial, computed): row i is token i
   } else {
     tail_live_rows_kernel<<<1, kScanThreads, 0, stream>>>(p.live, p.tokens, rows, count);
   }
@@ -473,10 +558,12 @@ int launch_tc(const TailArgs& p, int H, void* scratch, cudaStream_t stream) {
   const int row_blocks = (p.tokens + kRowWarps - 1) / kRowWarps;
   tail_ln1_kernel<<<row_blocks, 32 * kRowWarps, 0, stream>>>(p, H, u, rows, count);
   if ((err = (int)cudaGetLastError())) return err;
-  const GemmArgs g1{p.tokens, p.ff, H, 0, p.b1, nullptr, h1, rows, count, p.act, p.drop};
+  const GemmArgs g1{p.tokens, p.ff, H, 0, p.b1, nullptr, h1, rows, count, p.act, p.drop, nullptr};
   if ((err = launch_gemm(map_u, map_w1, g1, stream))) return err;
-  const GemmArgs g2{p.tokens, H, p.ff, 1, p.b2, u, r2, rows, count, p.act, p.drop};
+  const GemmArgs g2{p.tokens, H, p.ff, 1, p.b2, u, r2, rows, count, p.act, p.drop,
+                    partial ? static_cast<float*>(p.out) : nullptr};
   if ((err = launch_gemm(map_h1, map_w2, g2, stream))) return err;
+  if (partial) return 0;
   tail_ln2_kernel<<<row_blocks, 32 * kRowWarps, 0, stream>>>(p, H);
   return (int)cudaGetLastError();
 }
@@ -546,10 +633,60 @@ extern "C" int stlt_fused_layer_tail(
              static_cast<const uint8_t*>(live), out, r2, tokens, ff, eps, act,
              TailDropout{dropout, seed, thresh, dropout_scale,
                          RowMap{static_cast<uint32_t>(token_base), token_period, token_stride,
-                                token_magic}}};
+                                token_magic}},
+             nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = r2 != nullptr;
   if (dtype == 0) return train ? dispatch<true>(hidden / 64, t, s) : dispatch<false>(hidden / 64, t, s);
   if (dtype == 1) return launch_tc(t, hidden, scratch, s);
   return -2;
+}
+
+// The model axis's partial mode (eval): w1 [FF/M, H] and w2 [H, FF/M] as
+// stored (ff = FF / M, a multiple of 128), b1 [ff]; writes the f32 partial
+// h1 W2 [tokens, hidden] (no b2, no u) into `out` and leaves u for
+// stlt_fused_layer_tail_sum in `scratch`: bf16, the full mode's scratch
+// (u at its head, every token at its own row); f32, a [tokens, hidden] f32
+// buffer. Returns as stlt_fused_layer_tail.
+extern "C" int stlt_fused_layer_tail_partial(
+    const void* x, const void* a, const void* n1s, const void* n1b, const void* w1, const void* b1,
+    const void* w2, const void* live, void* out, void* scratch, int tokens, int hidden, int ff, float eps,
+    int act, int dtype, void* stream) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || ff % kFC != 0 || ff < kFC || act < 0 ||
+      act > 2 || scratch == nullptr) {
+    return -1;
+  }
+  TailArgs t{x, a, static_cast<const float*>(n1s), static_cast<const float*>(n1b), w1,
+             static_cast<const float*>(b1), w2, nullptr, nullptr, nullptr,
+             static_cast<const uint8_t*>(live), out, nullptr, tokens, ff, eps, act, TailDropout{}, scratch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<false>(hidden / 64, t, s);
+  if (dtype == 1) return launch_tc(t, hidden, scratch, s);
+  return -2;
+}
+
+// The partial mode's sum epilogue: y [tokens, hidden] in the dtype's type
+// from the summed f32 partials s, u (the partial launch's scratch), b2 and
+// LN2's f32 parameters; dead tokens (live flags, when given) zeros.
+extern "C" int stlt_fused_layer_tail_sum(const void* s, const void* u, const void* b2, const void* n2s,
+                                         const void* n2b, const void* live, void* out, int tokens, int hidden,
+                                         float eps, int dtype, void* stream) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 1024 || tokens < 0) return -1;
+  if (tokens == 0) return 0;
+  const unsigned blocks = (unsigned)((tokens + kRowWarps - 1) / kRowWarps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sf = static_cast<const float*>(s);
+  const float *b2f = static_cast<const float*>(b2), *n2sf = static_cast<const float*>(n2s),
+              *n2bf = static_cast<const float*>(n2b);
+  const uint8_t* lv = static_cast<const uint8_t*>(live);
+  if (dtype == 0) {
+    tail_sum_kernel<float><<<blocks, 32 * kRowWarps, 0, st>>>(sf, static_cast<const float*>(u), b2f, n2sf, n2bf,
+                                                              lv, static_cast<float*>(out), tokens, hidden, eps);
+  } else if (dtype == 1) {
+    tail_sum_kernel<bf16><<<blocks, 32 * kRowWarps, 0, st>>>(sf, static_cast<const bf16*>(u), b2f, n2sf, n2bf,
+                                                             lv, static_cast<bf16*>(out), tokens, hidden, eps);
+  } else {
+    return -2;
+  }
+  return (int)cudaGetLastError();
 }

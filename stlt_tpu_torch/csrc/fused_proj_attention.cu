@@ -30,6 +30,17 @@
 // above the H100's ~295 flop/byte ridge, so the tensor cores bound it; the
 // split adds the bf16 round trips of qkv and o (and of the packed x).
 //
+// The model axis (--model_parallel M, stlt_fused_proj_attention_partial): a
+// model rank's N / M heads, inner width Hq = H / M. Both routes stop before
+// the row-parallel sum and write the f32 partial o_m Wo_m [tokens, H] with
+// no bias (dead rows: f32 zeros; bf16 leaves them to the caller's zeroed
+// buffer); bf16's QKV GEMM writes [tokens, 3Hq] over the whole K = H, its
+// out GEMM runs K = Hq (sublayer.cuh's out32). The model ranks sum the
+// partials in f32, then a small row kernel (proj_sum_kernel,
+// stlt_fused_proj_attention_sum) writes round(s + bo), dead rows exact
+// zeros: the epilogue is a kernel of its own, not folded into the tail's
+// LN1, so the sublayer's output keeps its one rounding point.
+//
 // f32: one kernel on the SIMT pipes, so f32 stays true f32. For T <= 32 one
 // block owns floor(32 / T) rows; for 32 < T <= 64 a block owns the 32
 // queries of one half of one row and all T keys of that row. Per head the
@@ -70,6 +81,7 @@ struct ProjArgs {
   int rows_per_block;  // T <= 32: rows of one block; T > 32: 1
   float scale;
   RowDropout drop;
+  int inner;  // Hq: the q/k/v width N D (H, or a model rank's H / M); bo null: the partial
 };
 
 // T > 32: kKeyChunks blocks (query halves) per row, each projecting the
@@ -170,7 +182,7 @@ size_t proj_smem_bytes(int H) {
 template <int D, bool kChunked, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p) {
   constexpr int kQJ = (3 * D + 63) / 64;  // q/k/v columns of a thread, 64 apart
-  const int H = p.hidden, nc = H / 64;
+  const int H = p.hidden, nc = H / 64, Hq = p.inner;
   const int W = kKT * 3 * D > kKTo * H ? kKT * 3 * D : kKTo * H;
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const float* __restrict__ wqkv = static_cast<const float*>(p.wqkv);
@@ -223,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
         }
         for (int i = tid; i < kKT * 3 * D; i += kThreads) {
           const int kk = i / (3 * D), cc = i % (3 * D);
-          w_s[i] = wqkv[(long long)(k0 + kk) * 3 * H + (cc / D) * H + h * D + cc % D];
+          w_s[i] = wqkv[(long long)(k0 + kk) * 3 * Hq + (cc / D) * Hq + h * D + cc % D];
         }
         __syncthreads();
         // Columns past 3 D (D = 32) read the next slice row and are dropped.
@@ -235,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
         const int cc = tx + 64 * j, part = cc / D, d = cc % D;
         if (cc >= 3 * D || (part == 0 && c != qchunk)) continue;
         float* dst = part == 0 ? q_s : (part == 1 ? k_s + c * kTM * D : v_s + c * kTM * D);
-        const float b = bqkv[part * H + h * D + d];
+        const float b = bqkv[part * Hq + h * D + d];
 #pragma unroll
         for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * D + d] = pq[r][j] + b;
       }
@@ -267,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_attn_kernel(ProjArgs p
 #pragma unroll
     for (int j = 0; j < kMaxNC; ++j) {
       const int c = tx + 64 * j;
-      if (j < nc) out[(tl.tok0 + tl.q0 + i) * H + c] = live ? acc[r][j] + bo[c] : 0.f;
+      if (j < nc) out[(tl.tok0 + tl.q0 + i) * H + c] = live ? acc[r][j] + (bo ? bo[c] : 0.f) : 0.f;
     }
   }
 }
@@ -297,6 +309,12 @@ __global__ void __launch_bounds__(kAttnThreads) proj_attn_kernel(AttnArgs p) {
   attn_body<D, kDrop>(p);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+    proj_sum_kernel(const float* s, const T* bo, const uint8_t* rows_live, T* out, long long n, int seq, int H) {
+  sum_bias_body(s, bo, rows_live, out, n, seq, H);
+}
+
 bool gemm_attribute_set = false;
 
 template <int D>
@@ -307,25 +325,28 @@ int launch_proj_attn(AttnArgs a, cudaStream_t stream) {
                    : launch_attn<D>(proj_attn_kernel<D, false>, attribute_set[0], a, stream);
 }
 
-// The bf16 sublayer. `scratch` (16-byte aligned) holds qkv [rows * T, 3H]
-// and the packed x, then o [rows * T, H] in bf16, then (with rows_live) the
-// packed rows [rows] (live in order, then dead) and their live count (int32).
+// The bf16 sublayer. `scratch` (16-byte aligned) holds qkv [rows * T, 3Hq]
+// and the packed x [rows * T, H], overwritten by o [rows * T, Hq], in bf16,
+// then (with rows_live) the packed rows [rows] (live in order, then dead)
+// and their live count (int32). Hq = H but in the partial mode (p.bo null),
+// whose out GEMM writes the f32 partial into p.out.
 int launch_tc(const ProjArgs& p, int head_dim, void* scratch, cudaStream_t stream) {
   const long long M = (long long)p.rows * p.seq;
   if (M == 0) return 0;
   if (scratch == nullptr || M > 0x7fffffffLL) return -1;
-  const int H = p.hidden;
+  const int H = p.hidden, Hq = p.inner;
+  const bool partial = p.bo == nullptr;
   bf16* qkv = static_cast<bf16*>(scratch);
-  bf16* xo = qkv + M * 3 * H;
+  bf16* xo = qkv + M * 3 * Hq;
   int* rows = reinterpret_cast<int*>(xo + M * H);
   int* count = rows + p.rows;
   const bool packed = p.rows_live != nullptr;
   if (!packed) rows = count = nullptr;  // every row live: packed row b is row b
   CUtensorMap map_x, map_wqkv, map_o, map_wo;
   int err = hopper::make_map(&map_x, packed ? xo : p.x, M, H, kBM);
-  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * H, H, kBN);  // [3H, H]: K-major B
-  if (!err) err = hopper::make_map(&map_o, xo, M, H, kBM);
-  if (!err) err = hopper::make_map(&map_wo, p.wo, H, H, kBN);  // [H, H]: K-major B
+  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * Hq, H, kBN);  // [3Hq, H]: K-major B
+  if (!err) err = hopper::make_map(&map_o, xo, M, Hq, kBM);
+  if (!err) err = hopper::make_map(&map_wo, p.wo, H, Hq, kBN);  // [H, Hq]: K-major B
   if (err) return err;
   if (packed) {
     proj_live_rows_kernel<<<1, kScanThreads, 0, stream>>>(p.rows_live, p.rows, rows, count);
@@ -333,11 +354,11 @@ int launch_tc(const ProjArgs& p, int head_dim, void* scratch, cudaStream_t strea
         static_cast<const bf16*>(p.x), xo, rows, count, p.seq, H);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  const GemmArgs g1{(int)M, 3 * H, H, static_cast<const bf16*>(p.bqkv), qkv, rows, count, p.seq, 0};
+  const GemmArgs g1{(int)M, 3 * Hq, H, static_cast<const bf16*>(p.bqkv), qkv, rows, count, p.seq, 0};
   if ((err = launch_gemm(proj_gemm_kernel, gemm_attribute_set, map_x, map_wqkv, g1, stream))) return err;
-  const AttnArgs a{qkv, qkv + H, qkv + 2 * H, 3LL * H, 3LL * H, xo, p.bias, p.bias_row_stride,
-                   p.bias_q_stride, rows, count, static_cast<bf16*>(p.out), p.rows, p.seq, p.seq, H,
-                   p.num_heads, 1, p.scale, p.drop};
+  const AttnArgs a{qkv, qkv + Hq, qkv + 2 * Hq, 3LL * Hq, 3LL * Hq, xo, p.bias, p.bias_row_stride,
+                   p.bias_q_stride, rows, count, partial ? nullptr : static_cast<bf16*>(p.out), p.rows,
+                   p.seq, p.seq, Hq, p.num_heads, 1, p.scale, p.drop};
   switch (head_dim) {
     case 32: err = launch_proj_attn<32>(a, stream); break;
     case 64: err = launch_proj_attn<64>(a, stream); break;
@@ -345,8 +366,10 @@ int launch_tc(const ProjArgs& p, int head_dim, void* scratch, cudaStream_t strea
     default: err = -1;
   }
   if (err) return err;
-  const GemmArgs g2{(int)M, H, H, static_cast<const bf16*>(p.bo), static_cast<bf16*>(p.out), rows, count,
-                    p.seq, 1};
+  const GemmArgs g2 = partial
+      ? GemmArgs{(int)M, H, Hq, nullptr, nullptr, rows, count, p.seq, 1, static_cast<float*>(p.out)}
+      : GemmArgs{(int)M, H, H, static_cast<const bf16*>(p.bo), static_cast<bf16*>(p.out), rows, count,
+                 p.seq, 1, nullptr};
   return launch_gemm(proj_gemm_kernel, gemm_attribute_set, map_o, map_wo, g2, stream);
 }
 
@@ -411,9 +434,42 @@ extern "C" int stlt_fused_proj_attention(
              bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
              num_heads, seq > kTM ? 1 : kTM / seq, scale,
              RowDropout{dropout, seed, thresh, dropout_scale,
-                        RowMap{row_base, row_period, row_stride, row_magic}}};
+                        RowMap{row_base, row_period, row_stride, row_magic}},
+             hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
   if (dtype == 1) return launch_tc(a, hidden / num_heads, scratch, s);
   return -2;
+}
+
+// The model axis's partial mode (eval): a model rank's num_heads heads of
+// inner width Hq = `inner` (a multiple of 64; wqkv [H, 3Hq] input-major in
+// f32, [3Hq, H] as stored in bf16; wo [Hq, H] input-major in f32, [H, Hq]
+// as stored in bf16), writing the f32 partial [rows * seq, hidden] into
+// `out` (bf16: dead rows unwritten). bf16's scratch: (3Hq + H) bf16 a
+// token and (rows + 1) int32. Returns as stlt_fused_proj_attention.
+extern "C" int stlt_fused_proj_attention_partial(
+    const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
+    long long bias_row_stride, long long bias_q_stride, const void* rows_live, void* out, void* scratch,
+    int rows, int seq, int hidden, int inner, int num_heads, float scale, int dtype, void* stream) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || inner % 64 != 0 || inner < 64 ||
+      inner > hidden || num_heads < 1 || inner % num_heads != 0 || seq < 1 || seq > kTK || rows < 0) {
+    return -1;
+  }
+  ProjArgs a{x, wqkv, bqkv, wo, nullptr, static_cast<const float*>(bias), bias_row_stride,
+             bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
+             num_heads, seq > kTM ? 1 : kTM / seq, scale, RowDropout{}, inner};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_f32(inner / num_heads, a, s);
+  if (dtype == 1) return launch_tc(a, inner / num_heads, scratch, s);
+  return -2;
+}
+
+// The sum epilogue: out = round(s + bo) [rows * seq, hidden] in the dtype's
+// type from the summed f32 partials s; rows whose rows_live flag is 0 (when
+// given) write zeros.
+extern "C" int stlt_fused_proj_attention_sum(const void* s, const void* bo, const void* rows_live, void* out,
+                                             int rows, int seq, int hidden, int dtype, void* stream) {
+  return launch_sum(proj_sum_kernel<float>, proj_sum_kernel<bf16>, s, bo, rows_live, out, rows, seq, hidden,
+                    dtype, static_cast<cudaStream_t>(stream));
 }

@@ -40,6 +40,16 @@
 // - The live rows are packed in order by tail_gemm.cuh's scan (dead rows
 //   after them) and gathered (gather_body) into a dense bf16 A for TMA.
 //
+// - The model axis (--model_parallel M, rows 1 and 5): a model rank holds
+//   N / M heads, q/k/v widths Hq = H / M. Its projection GEMMs write [tokens,
+//   3Hq] (or q [tokens, Hq], kv [tokens, 2Hq]) over the whole K = H, so their
+//   bits are one process's for those columns; the attention runs on its
+//   heads; the out GEMM runs K = Hq and writes the f32 partial o_m Wo_m
+//   (GemmArgs::out32: no bias, no rounding, at the tokens' own rows). The
+//   model ranks sum the partials in f32 outside the kernels, then a row
+//   kernel of each .cu on sum_bias_body writes round(s + bo), dead rows
+//   exact zeros.
+//
 // Every output has one owner and every sum a fixed order, so two launches
 // give the same bits.
 #pragma once
@@ -84,6 +94,7 @@ struct GemmArgs {
   const int* count;
   int seq;
   int scatter;
+  float* out32;  // non-null: write the f32 sums there instead (no bias, no rounding)
 };
 
 // The output tile at columns n0 and rows m0 (gemm_body: the block's own).
@@ -116,6 +127,23 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap& map_a, const CUtens
       Wgmma<kBN, 0, 0>::mma(acc, desc_k(a, kk), desc_k(ring.b_stage(s), kk), k > 0 || kk > 0);
     }
   }, acc);
+
+  if (p.out32 != nullptr) {  // the model axis's f32 partial, from the fragment
+    const int rl = m0 + w * 64 + (t / 32) * 16 + (t % 32) / 4, cl = n0 + 2 * (t % 4);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rl + 8 * h, c = cl + 8 * j;
+        if (r >= M || c >= p.N) continue;
+        long long dst = r;
+        if (p.scatter && p.rows != nullptr) dst = (long long)p.rows[r / p.seq] * p.seq + r % p.seq;
+        *reinterpret_cast<float2*>(p.out32 + dst * p.N + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    return;
+  }
 
   // round(acc + bias) from the fragment (thread t holds rows r and r + 8,
   // columns c and c + 1 of every 8-column group) into the ring, free once
@@ -256,7 +284,8 @@ constexpr size_t kAttnSmemMax = 110 * 1024;  // two blocks an SM at the widest s
 // + t) * H + h * D. b is a packed row; rows[b] is its original row (rows
 // null: b), which the bias and the keep bits are indexed by. With rows, the
 // blocks from *count on own the dead rows rows[b] and write their T x H
-// output rows of `out` as zeros.
+// output rows of `out` as zeros (out null: nothing, the partial mode's
+// caller zeroes them). H is the heads' width N D, o's row stride.
 struct AttnArgs {
   const bf16* q;
   const bf16* k;
@@ -312,7 +341,7 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
   const int tid = threadIdx.x, b = blockIdx.x;
   const int live_rows = p.count != nullptr ? *p.count : p.B;
   if (b >= live_rows) {
-    if (blockIdx.y == 0) {
+    if (blockIdx.y == 0 && p.out != nullptr) {
       uint4* o = reinterpret_cast<uint4*>(p.out + (long long)p.rows[b] * p.T * p.H);
       for (int i = tid; i < p.T * p.H / 8; i += kAttnThreads) o[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -431,6 +460,47 @@ int launch_attn(Kernel kernel, bool& attribute_set, const AttnArgs& a, cudaStrea
   if (smem > kAttnSmemMax) return -1;
   const dim3 grid(a.B, (a.N + a.hb - 1) / a.hb);
   if (a.B > 0) kernel<<<grid, kAttnThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// --- the model axis's sum epilogue -------------------------------------------
+
+// out = round(s + bo) over [rows * seq, H] (s the model ranks' summed f32
+// partials, bo [H] in the compute dtype T, widened as the out GEMM widens
+// it), one element a thread; a row whose rows_live flag is 0 writes zeros.
+template <typename T>
+__device__ __forceinline__ void sum_bias_body(const float* s, const T* bo, const uint8_t* rows_live, T* out,
+                                              long long n, int seq, int H) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long tok = i / H;
+  const bool live = rows_live == nullptr || rows_live[tok / seq];
+  out[i] = from_float<T>(live ? s[i] + to_float(bo[i % H]) : 0.f);
+}
+
+constexpr int kSumThreads = 256;
+
+// Launch of a row's sum kernel (rows 1 and 5, each .cu its own under its
+// own name): dtype 0 float32, 1 bfloat16.
+template <typename KF, typename KB>
+int launch_sum(KF kernel_f32, KB kernel_bf16, const void* s, const void* bo, const void* rows_live,
+               void* out, int rows, int seq, int H, int dtype, cudaStream_t stream) {
+  if (rows < 0 || seq < 1 || H < 1) return -1;
+  const long long n = (long long)rows * seq * H;
+  if (n == 0) return 0;
+  const long long blocks = (n + kSumThreads - 1) / kSumThreads;
+  if (blocks > 0x7fffffffLL) return -1;
+  const float* sf = static_cast<const float*>(s);
+  const uint8_t* live = static_cast<const uint8_t*>(rows_live);
+  if (dtype == 0) {
+    kernel_f32<<<(unsigned)blocks, kSumThreads, 0, stream>>>(sf, static_cast<const float*>(bo), live,
+                                                            static_cast<float*>(out), n, seq, H);
+  } else if (dtype == 1) {
+    kernel_bf16<<<(unsigned)blocks, kSumThreads, 0, stream>>>(sf, static_cast<const bf16*>(bo), live,
+                                                             static_cast<bf16*>(out), n, seq, H);
+  } else {
+    return -2;
+  }
   return (int)cudaGetLastError();
 }
 

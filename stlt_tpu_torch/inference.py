@@ -61,6 +61,11 @@ from stlt_tpu_torch.training.loop import (
 
 def inference(args) -> Dict[str, float]:
     check_flags(args)
+    return distributed.run_ranks(args, _inference_rank)
+
+
+def _inference_rank(args) -> Dict[str, float]:
+    """One rank of :func:`inference` (``parallel/distributed.run_ranks``)."""
     device = start_processes(args)
     try:
         return evaluate(args, device)

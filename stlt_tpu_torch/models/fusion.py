@@ -80,6 +80,7 @@ from stlt_tpu_torch.models.layers import (
     apply_layer_norm,
     draw_seeds,
     init_linear_,
+    row_parallel_dense,
 )
 from stlt_tpu_torch.models.stlt import (
     ClassificationHead,
@@ -92,7 +93,7 @@ from stlt_tpu_torch.models.stlt import (
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.dropout import TAG_OUT_DROP, hashed_dropout
 from stlt_tpu_torch.ops.ring import gather_frames
-from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span
+from stlt_tpu_torch.parallel.mesh import active_context_mesh, active_model_mesh, clip_span
 
 
 def FusionHead(cfg: MultimodalModelConfig, generator: torch.Generator) -> ClassificationHead:
@@ -128,7 +129,8 @@ class FeedforwardModule(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         dt = self.dtype
         h = activation_fn("gelu", dt)(apply_dense(x, self.linear1, dt))
-        h = _output_dropout(self, apply_dense(h, self.linear2, dt), generator)
+        h = row_parallel_dense(h, self.linear2, dt, active_model_mesh())  # linear1/2 sharded there
+        h = _output_dropout(self, h, generator)
         return apply_layer_norm(h + x, self.ln.weight, self.ln.bias, self.eps, dt)
 
 

@@ -87,7 +87,8 @@ from stlt_tpu_torch.ops.dropout import (TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DRO
                                         hashed_dropout)
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import ring_attention
-from stlt_tpu_torch.parallel.mesh import active_context_mesh, clip_span, frame_span
+from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_model_mesh, all_gather, all_sum,
+                                          clip_span, frame_span)
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -105,6 +106,30 @@ def apply_dense(x, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     and bias in the compute dtype, the product rounded before the bias add."""
     y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
     return y + linear.bias.to(dtype)
+
+
+def row_parallel_dense(x, linear: nn.Linear, dtype: torch.dtype, mesh=None) -> torch.Tensor:
+    """:func:`apply_dense` of a row-sharded layer (``out_proj``,
+    ``linear2``): under a model mesh this rank's partial ``x W_m^T`` in f32
+    (the operands in the compute dtype), summed over the model group in
+    f32, rounded to the compute dtype, then the replicated bias added in it,
+    as apply_dense rounds the product and adds the bias. Without a mesh
+    :func:`apply_dense`."""
+    if mesh is None:
+        return apply_dense(x, linear, dtype)
+    f32 = torch.float32
+    partial = torch.matmul(x.to(dtype).to(f32), linear.weight.to(dtype).to(f32).t())
+    return all_sum(partial, mesh, mesh.model_group).to(dtype) + linear.bias.to(dtype)
+
+
+def gather_columns(h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A column-sharded layer's output (``fc1``) with every model rank's
+    columns, in rank order (whole columns, so one process's bits), the
+    exchange in f32; ``h`` itself without a mesh."""
+    if mesh is None:
+        return h
+    parts = all_gather(h.to(torch.float32), mesh, mesh.model_group)
+    return torch.cat(list(parts), dim=-1).to(h.dtype)
 
 
 def activation_fn(name: str, dtype: torch.dtype):
@@ -189,11 +214,21 @@ class MultiHeadAttention(nn.Module):
         index of x's first row, or the rows' map, at which the dropout bits
         are hashed (the long-clip and cross-attention kernels, rows 6-10,
         take an offset only)."""
+        model = active_model_mesh()
+        if model is not None and self.training:
+            raise NotImplementedError("training under --model_parallel is not ported yet: it "
+                                      "waits for ROADMAP.md item A9 (model axis, training)")
         if context is not None:
-            return self._cross_attention(x, context, bias, seed, row0)
+            return self._cross_attention(x, context, bias, seed, row0, model)
         ring = active_context_mesh() if self.seq_shard else None
         if ring is not None or x.shape[1] > fe._KERNEL_MAX_SEQ:
-            return self._projected_attention(x, bias, seed, kv_lengths, ring, row0)
+            return self._projected_attention(x, bias, seed, kv_lengths, ring, row0, model)
+        if model is not None:  # this rank's heads, its partial summed over the model group
+            partial = fe.fused_proj_attention_partial(
+                x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias, self.out_proj.weight.t(),
+                bias, num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
+            return fe.sublayer_sum(all_sum(partial, model, model.model_group), self.out_proj.bias,
+                                   compute_dtype=self.dtype, rows_live=rows_live)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, bias)
         kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
@@ -203,16 +238,19 @@ class MultiHeadAttention(nn.Module):
         return fe.fused_proj_attention(*args, **kw)
 
     def _projected_attention(self, x, bias, seed, kv_lengths, ring=None,
-                             row0: int = 0) -> torch.Tensor:
+                             row0: int = 0, model=None) -> torch.Tensor:
         """T > 64 (``layers.py:315-374``), or any T under the ring: q/k/v
         from one plain product, viewed as [B, T, N, D] without a copy, the
         attention core (in train mode with the layer's dropout seed, its
         gradients from the backward kernels; under the ring ``ring_attention``
         on this rank's frames, with ``kv_lengths`` when given and the dense
-        bias rows otherwise), then the out-projection. Dead rows are left to
-        the layer tail, as in JAX."""
-        B, T, H = x.shape
+        bias rows otherwise), then the out-projection (under a ``model`` mesh
+        this rank's heads, the out-projection's partial summed over the
+        model group: :func:`row_parallel_dense`). Dead rows are left to the
+        layer tail, as in JAX."""
+        B, T, _ = x.shape
         N, dt = self.num_heads, self.dtype
+        H = self.in_proj_weight.shape[0] // 3  # this rank's q/k/v width
         qkv = torch.matmul(x.to(dt), self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)
         q, k, v = (qkv[..., i * H:(i + 1) * H].unflatten(-1, (N, H // N)) for i in range(3))
         drop = self.training and self.dropout_rate > 0.0
@@ -222,7 +260,7 @@ class MultiHeadAttention(nn.Module):
                 kv_lengths=kv_lengths, causal=self.causal,
                 dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
             )
-            return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
+            return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
         use_lengths = kv_lengths is not None and T >= _BLOCKWISE_MIN_SEQ
         out = dot_product_attention(
             q, k, v, None if use_lengths else bias, causal=self.causal,
@@ -230,21 +268,32 @@ class MultiHeadAttention(nn.Module):
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
             dropout_row0=row0,
         )
-        return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
+        return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
 
-    def _cross_attention(self, x, ctx, bias, seed, row0: int = 0) -> torch.Tensor:
+    def _cross_attention(self, x, ctx, bias, seed, row0: int = 0, model=None) -> torch.Tensor:
         """Cross-attention, JAX's dispatch (``layers.py:263-285, 315-374``):
         one parameter set, Wq the rows [0, H) of ``in_proj_weight`` and
         Wk, Wv the rows [H, 3H). In eval with T, S <= 64 it is one fused op
         (``fe.fused_cross_attention``); otherwise q and kv come from plain
         products and the attention core from ``dot_product_attention`` with
         the dense bias (the short flash kernel to 512 tokens, the blockwise
-        kernel in dense-bias mode from 513), then the out-projection."""
-        B, T, H = x.shape
+        kernel in dense-bias mode from 513), then the out-projection. Under a
+        ``model`` mesh both take this rank's heads and sum the
+        out-projection's partial over the model group (the fused op's
+        partial mode and :func:`fe.sublayer_sum`, or
+        :func:`row_parallel_dense`)."""
+        B, T, _ = x.shape
         S = ctx.shape[1]
         N, dt = self.num_heads, self.dtype
         w, b = self.in_proj_weight, self.in_proj_bias
+        H = w.shape[0] // 3  # this rank's q/k/v width
         if not self.training and max(T, S) <= fe._KERNEL_MAX_SEQ:
+            if model is not None:
+                partial = fe.fused_cross_attention_partial(
+                    x.to(dt), ctx.to(dt), w[:H].t(), b[:H], w[H:].t(), b[H:],
+                    self.out_proj.weight.t(), bias, num_heads=N, compute_dtype=dt)
+                return fe.sublayer_sum(all_sum(partial, model, model.model_group), self.out_proj.bias,
+                                       compute_dtype=dt, op="fused_cross_attention")
             return fe.fused_cross_attention(
                 x.to(dt), ctx.to(dt), w[:H].t(), b[:H], w[H:].t(), b[H:],
                 self.out_proj.weight.t(), self.out_proj.bias, bias, num_heads=N, compute_dtype=dt,
@@ -258,7 +307,7 @@ class MultiHeadAttention(nn.Module):
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
             dropout_row0=row0,
         )
-        return apply_dense(out.reshape(B, T, H), self.out_proj, dt)
+        return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -306,6 +355,18 @@ class TransformerEncoderLayer(nn.Module):
                                               token0)
             return self._train_tail(x, attn_out, tail_seed, token0)
         attn_out = self.self_attn(x, bias, rows_live=rows_live, kv_lengths=kv_lengths)
+        model = active_model_mesh()
+        if model is not None:  # this rank's FF / M units, linear2's partial summed over the group
+            partial, u = fe.fused_layer_tail_partial(
+                x, attn_out, self.norm1.weight, self.norm1.bias, self.linear1.weight.t(),
+                self.linear1.bias, self.linear2.weight.t(), eps=self.layer_norm_eps,
+                compute_dtype=self.dtype, activation=self.activation,
+                gelu_approximate=self.dtype == torch.bfloat16, rows_live=rows_live,
+                tokens_live=tokens_live)
+            return fe.fused_layer_tail_sum(
+                all_sum(partial, model, model.model_group), u, self.linear2.bias, self.norm2.weight,
+                self.norm2.bias, eps=self.layer_norm_eps, compute_dtype=self.dtype,
+                rows_live=rows_live, tokens_live=tokens_live)
         return fe.fused_layer_tail(
             x, attn_out, self.norm1.weight, self.norm1.bias,
             self.linear1.weight.t(), self.linear1.bias,

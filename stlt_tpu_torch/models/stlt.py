@@ -86,13 +86,14 @@ from stlt_tpu_torch.models.layers import (
     apply_dense,
     apply_layer_norm,
     embedding_dropout,
+    gather_columns,
     init_linear_,
 )
 from stlt_tpu_torch.ops import masks
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import context_sum
-from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, clip_span, frame_rows,
-                                          frame_span)
+from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, active_model_mesh, clip_span,
+                                          frame_rows, frame_span)
 from stlt_tpu_torch.training.loop import shard_frames
 
 NUM_FRAME_TYPES = 5  # reference models.py:91
@@ -333,7 +334,11 @@ class ClassificationHead(nn.Module):
         init_linear_(self.fc2, generator)
 
     def forward(self, hidden_state: torch.Tensor) -> torch.Tensor:
-        h = activation_fn("gelu", self.dtype)(apply_dense(hidden_state, self.fc1, self.dtype))
+        """Under a model mesh ``fc1`` is column-sharded: its columns are
+        gathered from the model ranks before the GELU and the LayerNorm, and
+        ``fc2`` runs replicated."""
+        h = gather_columns(apply_dense(hidden_state, self.fc1, self.dtype), active_model_mesh())
+        h = activation_fn("gelu", self.dtype)(h)
         h = apply_layer_norm(h, self.layer_norm.weight, self.layer_norm.bias, self.eps, self.dtype)
         return apply_dense(h, self.fc2, self.dtype)
 

@@ -101,6 +101,45 @@ SIGNATURES = {
         # num_heads, scale, dtype, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
+    # The model axis's partial modes (rows 1, 2 and 5) and their sum
+    # epilogues, in the rows' own sources.
+    "fused_proj_attention_partial": (
+        "stlt_fused_proj_attention_partial",
+        # x, wqkv, bqkv, wo (f32: [H, 3Hq], [Hq, H]; bf16: as stored, [3Hq, H],
+        # [H, Hq]), bias, bias_row_stride, bias_q_stride, rows_live, out (f32
+        # partial), scratch, rows, seq, hidden, inner (Hq), num_heads, scale,
+        # dtype, stream
+        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "fused_proj_attention_sum": (
+        "stlt_fused_proj_attention_sum",
+        # s (f32 sums), bo, rows_live, out, rows, seq, hidden, dtype, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "fused_cross_attention_partial": (
+        "stlt_fused_cross_attention_partial",
+        # x, ctx, wq, bq, wkv, bkv, wo, bias, bias_row_stride, bias_q_stride,
+        # scratch, out (f32 partial), rows, T, S, hidden, inner (Hq),
+        # num_heads, scale, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "fused_cross_attention_sum": (
+        "stlt_fused_cross_attention_sum",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "fused_layer_tail_partial": (
+        "stlt_fused_layer_tail_partial",
+        # x, a, n1s, n1b, w1 (stored [FF/M, H]), b1, w2 (stored [H, FF/M]),
+        # live, out (f32 partial), scratch (u's home), tokens, hidden, ff,
+        # eps, act, dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "fused_layer_tail_sum": (
+        "stlt_fused_layer_tail_sum",
+        # s (f32 sums), u, b2, n2s, n2b, live, out, tokens, hidden, eps,
+        # dtype, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    ),
     "flash_attention": (
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
@@ -141,7 +180,8 @@ SIGNATURES = {
 }
 
 # Kernels (by their launch-count names) whose entry point lives in another
-# source than csrc/<name>.cu: the train variants share their eval sources, the
+# source than csrc/<name>.cu: the train variants and the model axis's partial
+# modes and sum epilogues share their eval sources, the
 # blockwise forward's and backward's dense-bias and ring-offset modes their
 # lengths modes', and the attention kernels' mask modes their own sources.
 SOURCES = {
@@ -156,6 +196,12 @@ SOURCES = {
     "fused_proj_attention_train": "fused_proj_attention",
     "fused_proj_attention_train_bwd": "fused_proj_attention_bwd",
     "fused_layer_tail_train": "fused_layer_tail",
+    "fused_proj_attention_partial": "fused_proj_attention",
+    "fused_proj_attention_sum": "fused_proj_attention",
+    "fused_cross_attention_partial": "fused_cross_attention",
+    "fused_cross_attention_sum": "fused_cross_attention",
+    "fused_layer_tail_partial": "fused_layer_tail",
+    "fused_layer_tail_sum": "fused_layer_tail",
     "fused_tail_train_bwd_row": "fused_tail_train_bwd",
     "fused_tail_train_bwd_input": "fused_tail_train_bwd",
     "fused_tail_train_bwd_weight": "fused_tail_train_bwd",

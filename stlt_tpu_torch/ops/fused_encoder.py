@@ -17,7 +17,8 @@ Each op has three parts:
   rounding points;
 - a launch count in :data:`LAUNCHES`, raised by one where the wrapper
   launches its kernel and nowhere else (``fused_proj_attention_train`` for
-  the train forward, ``fused_proj_attention_train_bwd`` for its backward).
+  the train forward, ``fused_proj_attention_train_bwd`` for its backward;
+  the model axis's sum epilogues in :data:`SUM_LAUNCHES`).
 
 Numerics are the kernel contract of the JAX package's ``use_pallas=True``
 path, not its TPU blocking:
@@ -45,6 +46,13 @@ path, not its TPU blocking:
   dead row blocks only; either way dead rows reach later attention only as
   -1e9-masked keys, so their cotangents are exactly zero.
 
+Under the model axis (``--model_parallel M``) rows 1, 2 and 5 run partial
+modes that stop before the row-parallel sum and return its f32 partial, and
+sum epilogues that finish the row after the model ranks' sum
+(:func:`fused_proj_attention_partial`, :func:`fused_layer_tail_partial`,
+:func:`fused_cross_attention_partial`; :func:`sublayer_sum`,
+:func:`fused_layer_tail_sum`), each with its plain version beside it.
+
 The TPU artefacts (T padded to a multiple of 8, tokens flattened into rows of
 8, row-block pickers, VMEM budgets) do not carry over.
 """
@@ -67,6 +75,9 @@ LAUNCHES = {
     "fused_proj_attention_train_bwd": 0,
     "fused_cross_attention": 0,
 }
+# The model axis's sum epilogues of rows 1, 2 and 5 (their partial launches
+# count in LAUNCHES under the rows' own names).
+SUM_LAUNCHES = {"fused_proj_attention_sum": 0, "fused_layer_tail_sum": 0, "fused_cross_attention_sum": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Hidden sizes the CUDA kernels take (64 x these) and head dims of the ones
@@ -78,8 +89,9 @@ _KERNEL_FF_CHUNK = 128
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SUM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # --- host-side capacity buckets of the ragged levers ----------------------------
@@ -211,7 +223,7 @@ def _qkv_probs(x, wqkv, bqkv, bias, num_heads: int, cd: torch.dtype):
     softmax probabilities [B, N, T, T] of the kernels' contract."""
     B, T, H = x.shape
     N = num_heads
-    D = H // N
+    D = wqkv.shape[1] // (3 * N)  # H / N; a model rank's shard holds N / M heads of it
     f32 = torch.float32
     qkv = x.to(cd).to(f32) @ wqkv.to(cd).to(f32) + bqkv.to(cd).to(f32)
     qkv = qkv.to(cd).to(f32).reshape(B, T, 3, N, D).permute(2, 0, 3, 1, 4)
@@ -710,12 +722,15 @@ def tail_scratch(tokens: int, H: int, FF: int, x: torch.Tensor) -> Optional[torc
     return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
 
 
-def proj_scratch(B: int, T: int, H: int, x: torch.Tensor) -> torch.Tensor:
+def proj_scratch(B: int, T: int, H: int, x: torch.Tensor, inner: Optional[int] = None) -> torch.Tensor:
     """The bf16 projection+attention kernels' scratch
-    (``csrc/fused_proj_attention.cu`` ``launch_tc``): qkv [B*T, 3H] and the
-    packed x, then o, [B*T, H], in bf16, then the packed rows [B] and their
-    live count (int32): 0.86 GB at the 1024-clip spatial stage."""
-    return torch.empty(B * T * 4 * H * 2 + (B + 1) * 4, dtype=torch.uint8, device=x.device)
+    (``csrc/fused_proj_attention.cu`` ``launch_tc``): qkv [B*T, 3Hq] (Hq =
+    ``inner``, H by default; a model rank's H / M in the partial mode), then
+    the packed x [B*T, H], overwritten by o [B*T, Hq], in bf16, then the
+    packed rows [B] and their live count (int32): 0.86 GB at the 1024-clip
+    spatial stage."""
+    Hq = H if inner is None else inner
+    return torch.empty(B * T * (3 * Hq + H) * 2 + (B + 1) * 4, dtype=torch.uint8, device=x.device)
 
 
 def proj_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int):
@@ -1032,11 +1047,19 @@ def fused_cross_attention_plain(
     the compute dtype, ``q`` and ``kv`` rounded after the f32 bias add,
     f32 logits and a normalise-first softmax, the heads' outputs rounded
     before ``Wo``."""
+    return _cross_attention_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, num_heads,
+                                  compute_dtype).to(x.dtype)
+
+
+def _cross_attention_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, num_heads: int, cd):
+    """The cross-attention's f32 output with its rounding points; the q/k/v
+    width Hq = wq.shape[1] (H, or a model rank's H / M) and no ``bo`` when
+    it is None (a partial)."""
     B, T, H = x.shape
     S = ctx.shape[1]
     N = num_heads
-    D = H // N
-    cd = compute_dtype
+    Hq = wq.shape[1]
+    D = Hq // N
     f32 = torch.float32
 
     def project(a, w, b):
@@ -1044,16 +1067,16 @@ def fused_cross_attention_plain(
 
     q = project(x, wq, bq).reshape(B, T, N, D).transpose(1, 2)
     kv = project(ctx, wkv, bkv)
-    k = kv[..., :H].reshape(B, S, N, D).transpose(1, 2)
-    v = kv[..., H:].reshape(B, S, N, D).transpose(1, 2)
+    k = kv[..., :Hq].reshape(B, S, N, D).transpose(1, 2)
+    v = kv[..., Hq:].reshape(B, S, N, D).transpose(1, 2)
     logits = (q @ k.transpose(-1, -2)) * (1.0 / D ** 0.5)
     logits = logits + _bias3(bias, B, T, x.device, S)[:, None]
     logits = logits - logits.amax(dim=-1, keepdim=True)
     probs = torch.exp(logits)
     probs = probs / probs.sum(dim=-1, keepdim=True)
-    attn = (probs @ v).transpose(1, 2).reshape(B, T, H)
-    y = attn.to(cd).to(f32) @ wo.to(cd).to(f32) + bo.to(cd).to(f32)
-    return y.to(x.dtype)
+    attn = (probs @ v).transpose(1, 2).reshape(B, T, Hq)
+    y = attn.to(cd).to(f32) @ wo.to(cd).to(f32)
+    return y if bo is None else y + bo.to(cd).to(f32)
 
 
 def _check_cross_kernel(op: str, x, ctx, wq, bq, wkv, bkv, wo, bo, num_heads: int,
@@ -1135,4 +1158,292 @@ def _launch_cross(x, ctx, wq, bq, wkv, bkv, wo, bo, bias, *, num_heads, compute_
             float(1.0 / (H // num_heads) ** 0.5), code, stream,
         )
     LAUNCHES[op] += 1
+    return out
+
+
+# --- the model axis: partial modes and their sum epilogues (rows 1, 2, 5) ------
+#
+# Under --model_parallel M a model rank holds N / M heads (q/k/v widths
+# Hq = H / M) and FF / M hidden units, and the out-projection and linear2
+# are row-parallel (``parallel/sharding.py``). Each row's partial mode stops
+# before that product's sum: it returns the f32 partial o_m Wo_m (rows 1
+# and 5) or h1_m W2_m (row 2), no bias, dead rows zeros. The caller sums
+# the partials over the model group in f32 (``parallel/mesh.all_sum``: a
+# bf16 sum would add a rounding point the contract lacks), then the sum
+# epilogue adds the bias and rounds: a = round(s + bo) for rows 1 and 5
+# (:func:`sublayer_sum`, dead rows exact zeros, not bo), and for row 2
+# h2 = round(s + b2), r2 = round(u + h2), y = LN2(r2)
+# (:func:`fused_layer_tail_sum`, dead tokens zeros). The column products
+# still run over the whole K = H, so every shard computes one process's
+# bits for its columns; only the row-parallel products sum in another
+# order. Serving only: no dropout.
+
+
+def _check_partial_widths(op: str, H: int, Hq: int, num_heads: int) -> None:
+    """A model rank's widths the kernels take: H and Hq in 64 x
+    ``_KERNEL_WIDTHS``, Hq / num_heads in ``_KERNEL_HEAD_DIMS``."""
+    _check_kernel_width(op, H)
+    _check_kernel_width(op, Hq)
+    _check_kernel_heads(op, Hq, num_heads)
+
+
+def fused_proj_attention_partial_plain(x, wqkv, bqkv, wo, bias, *, num_heads: int,
+                                       compute_dtype: torch.dtype,
+                                       rows_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_proj_attention_partial`."""
+    B, T, _ = x.shape
+    cd = compute_dtype
+    f32 = torch.float32
+    _, _, v, probs = _qkv_probs(x, wqkv, bqkv, bias, num_heads, cd)
+    attn = (probs @ v).transpose(1, 2).reshape(B, T, wo.shape[0])
+    return _zero_dead_rows(attn.to(cd).to(f32) @ wo.to(cd).to(f32), rows_live)
+
+
+def fused_proj_attention_partial(x, wqkv, bqkv, wo, bias, *, num_heads: int,
+                                 compute_dtype: torch.dtype,
+                                 rows_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 1's partial mode: a model rank's self-attention sublayer up to
+    its out-projection's partial. x [B, T, H]; wqkv [H, 3Hq] (the rank's q,
+    k and v columns, each Hq = N Hd / M wide), bqkv [3Hq], wo [Hq, H]
+    (input-major: the rank's rows of Wo); num_heads the rank's N / M.
+    Returns the f32 partial o_m Wo_m [B, T, H], dead rows zeros; the sum of
+    the model ranks' partials goes to :func:`sublayer_sum`. A CUDA tensor
+    launches csrc/fused_proj_attention.cu's partial mode or raises."""
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype, rows_live=rows_live)
+    if _on_cpu(x, "fused_proj_attention"):
+        return fused_proj_attention_partial_plain(x, wqkv, bqkv, wo, bias, **kw)
+    return _launch_proj_partial(x, wqkv, bqkv, wo, bias, **kw)
+
+
+def _launch_proj_partial(x, wqkv, bqkv, wo, bias, *, num_heads, compute_dtype, rows_live,
+                         scratch=None) -> torch.Tensor:
+    op = "fused_proj_attention"
+    B, T, H = x.shape
+    Hq = wo.shape[0]
+    code = _check_kernel_dtypes(op, compute_dtype, x)
+    _check_partial_widths(op, H, Hq, num_heads)
+    if not 1 <= T <= _KERNEL_MAX_SEQ:
+        raise ValueError(f"{op}: the CUDA kernel takes T <= {_KERNEL_MAX_SEQ}, got T={T}")
+    if wqkv.shape != (H, 3 * Hq) or bqkv.shape != (3 * Hq,) or wo.shape != (Hq, H):
+        raise ValueError(f"{op}: partial weight shapes do not match H={H}, Hq={Hq}")
+    cd = compute_dtype
+    bf16 = code == _DTYPE_CODES[torch.bfloat16]
+    if bf16:
+        x = aligned16(x)
+        wqkv, wo = weight_storage(wqkv, cd), weight_storage(wo, cd)  # [3Hq, H], [H, Hq]
+        bqkv = aligned16(bqkv.to(cd))
+        scratch = proj_scratch(B, T, H, x, Hq) if scratch is None else scratch
+    else:
+        x = x.contiguous()
+        wqkv, bqkv, wo = (t.to(cd).contiguous() for t in (wqkv, bqkv, wo))
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
+    live = tail_live_bytes(rows_live)
+    # bf16 scatters the live rows only: the dead ones start as zeros.
+    alloc = torch.zeros if bf16 and live is not None else torch.empty
+    out = alloc((B, T, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _kernels.launch(
+            "fused_proj_attention_partial", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
+            None if live is None else live.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, T, H, Hq, num_heads, float(1.0 / (Hq // num_heads) ** 0.5), code, stream,
+        )
+    LAUNCHES[op] += 1
+    return out
+
+
+def sublayer_sum_plain(s, bo, *, compute_dtype: torch.dtype,
+                       rows_live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sublayer_sum`."""
+    f32 = torch.float32
+    y = (s.to(f32) + bo.to(compute_dtype).to(f32)).to(compute_dtype)
+    return _zero_dead_rows(y, rows_live)
+
+
+def sublayer_sum(s, bo, *, compute_dtype: torch.dtype, rows_live: Optional[torch.Tensor] = None,
+                 op: str = "fused_proj_attention") -> torch.Tensor:
+    """The sum epilogue of rows 1 and 5 (``op``): a = round(s + bo) in the
+    compute dtype from the model ranks' summed f32 partials s [B, T, H]
+    (bo [H] rounded to the compute dtype first, as the one-process out GEMM
+    takes it); rows whose ``rows_live`` flag is 0 are exact zeros. A CUDA
+    tensor launches the row's ``*_sum`` kernel (``csrc/<op>.cu``)."""
+    name = f"{op}_sum"
+    if _on_cpu(s, name):
+        return sublayer_sum_plain(s, bo, compute_dtype=compute_dtype, rows_live=rows_live)
+    B, T, H = s.shape
+    code = _check_kernel_dtypes(name, compute_dtype)
+    if s.dtype != torch.float32 or bo.shape != (H,):
+        raise ValueError(f"{name}: f32 sums [B, T, H] and bo [H] expected")
+    s = s.contiguous()
+    bo = bo.to(compute_dtype).contiguous()
+    live = tail_live_bytes(rows_live)
+    out = torch.empty((B, T, H), dtype=compute_dtype, device=s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        _kernels.launch(name, s.data_ptr(), bo.data_ptr(), None if live is None else live.data_ptr(),
+                        out.data_ptr(), B, T, H, code, stream)
+    SUM_LAUNCHES[name] += 1
+    return out
+
+
+def fused_cross_attention_partial_plain(x, ctx, wq, bq, wkv, bkv, wo, bias, *, num_heads: int,
+                                        compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_cross_attention_partial`."""
+    return _cross_attention_plain(x, ctx, wq, bq, wkv, bkv, wo, None, bias, num_heads, compute_dtype)
+
+
+def fused_cross_attention_partial(x, ctx, wq, bq, wkv, bkv, wo, bias, *, num_heads: int,
+                                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """Row 5's partial mode: a model rank's cross-attention up to its
+    out-projection's partial. wq [H, Hq], bq [Hq], wkv [H, 2Hq] (the rank's
+    k and v columns), bkv [2Hq], wo [Hq, H] input-major; num_heads the
+    rank's N / M. Returns the f32 partial [B, T, H] for
+    :func:`sublayer_sum` (``op="fused_cross_attention"``). A CUDA tensor
+    launches csrc/fused_cross_attention.cu's partial mode or raises."""
+    args = (x, ctx, wq, bq, wkv, bkv, wo, bias)
+    kw = dict(num_heads=num_heads, compute_dtype=compute_dtype)
+    if _on_cpu(x, "fused_cross_attention"):
+        return fused_cross_attention_partial_plain(*args, **kw)
+    return _launch_cross_partial(*args, **kw)
+
+
+def _launch_cross_partial(x, ctx, wq, bq, wkv, bkv, wo, bias, *, num_heads, compute_dtype,
+                          scratch=None) -> torch.Tensor:
+    op = "fused_cross_attention"
+    B, T, H = x.shape
+    S = ctx.shape[1]
+    Hq = wq.shape[1]
+    code = _check_kernel_dtypes(op, compute_dtype, x, ctx)
+    _check_partial_widths(op, H, Hq, num_heads)
+    if ctx.dim() != 3 or ctx.shape[0] != B or ctx.shape[2] != H:
+        raise ValueError(f"{op}: ctx [B={B}, S, H={H}] expected, got {tuple(ctx.shape)}")
+    if not (1 <= T <= _KERNEL_MAX_SEQ and 1 <= S <= _KERNEL_MAX_SEQ):
+        raise ValueError(f"{op}: the CUDA kernel takes T, S <= {_KERNEL_MAX_SEQ}, got T={T}, S={S}")
+    if (wq.shape != (H, Hq) or bq.shape != (Hq,) or wkv.shape != (H, 2 * Hq)
+            or bkv.shape != (2 * Hq,) or wo.shape != (Hq, H)):
+        raise ValueError(f"{op}: partial weight shapes do not match H={H}, Hq={Hq}")
+    cd = compute_dtype
+    if code == _DTYPE_CODES[torch.bfloat16]:
+        x, ctx = aligned16(x), aligned16(ctx)
+        wq, wkv, wo = (weight_storage(w, cd) for w in (wq, wkv, wo))  # [Hq, H], [2Hq, H], [H, Hq]
+        bq, bkv = (aligned16(b.to(cd)) for b in (bq, bkv))
+    else:
+        x, ctx = x.contiguous(), ctx.contiguous()
+        wq, bq, wkv, bkv, wo = (t.to(cd).contiguous() for t in (wq, bq, wkv, bkv, wo))
+    scratch = cross_scratch(B, T, S, Hq, x) if scratch is None else scratch
+    b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device, S)
+    out = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _kernels.launch(
+            "fused_cross_attention_partial", x.data_ptr(), ctx.data_ptr(), wq.data_ptr(),
+            bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(), b3.data_ptr(),
+            row_stride, q_stride, scratch.data_ptr(), out.data_ptr(), B, T, S, H, Hq, num_heads,
+            float(1.0 / (Hq // num_heads) ** 0.5), code, stream,
+        )
+    LAUNCHES[op] += 1
+    return out
+
+
+def fused_layer_tail_partial_plain(x, attn_out, n1_scale, n1_bias, w1, b1, w2, *, eps: float,
+                                   compute_dtype: torch.dtype, activation: str = "gelu",
+                                   gelu_approximate: bool = False):
+    """Plain PyTorch version of :func:`fused_layer_tail_partial`: (the f32
+    partial [B, T, H], u [B, T, H] in the compute dtype)."""
+    cd = compute_dtype
+    f32 = torch.float32
+    u = _layer_norm((x.to(cd) + attn_out.to(cd)).to(f32), n1_scale, n1_bias, eps).to(cd)
+    h1 = activation_fn((u.to(f32) @ w1.to(cd).to(f32) + b1.to(f32)).to(cd), activation,
+                       gelu_approximate)
+    return h1.to(f32) @ w2.to(cd).to(f32), u
+
+
+def fused_layer_tail_partial(x, attn_out, n1_scale, n1_bias, w1, b1, w2, *, eps: float,
+                             compute_dtype: torch.dtype, activation: str = "gelu",
+                             gelu_approximate: bool = False, rows_live=None, tokens_live=None):
+    """Row 2's partial mode: a model rank's layer tail up to linear2's
+    partial. w1 [H, FF/M] and b1 [FF/M] (the rank's hidden units), w2
+    [FF/M, H] input-major. u = LN1(x + attn_out) and h1 = act(round(u W1 +
+    b1)) are one process's bits for these units (K = H). Returns (the f32
+    partial h1 W2 [B, T, H], no b2; u, what :func:`fused_layer_tail_sum`
+    reads: u itself on the CPU, on the card the kernels' scratch, which
+    holds it). Every token is computed, dead ones too (the epilogue zeroes
+    them). A CUDA tensor launches csrc/fused_layer_tail.cu's partial mode
+    or raises."""
+    kw = dict(eps=eps, compute_dtype=compute_dtype, activation=activation,
+              gelu_approximate=gelu_approximate)
+    args = (x, attn_out, n1_scale, n1_bias, w1, b1, w2)
+    if _on_cpu(x, "fused_layer_tail"):
+        return fused_layer_tail_partial_plain(*args, **kw)
+    op = "fused_layer_tail"
+    B, T, H = x.shape
+    FF = w1.shape[1]
+    code = _check_tail_kernel(op, compute_dtype, H, w1, w2, x, attn_out)
+    act = _act_code(activation, gelu_approximate)
+    cd = compute_dtype
+    f32 = torch.float32
+    x, attn_out = aligned16(x), aligned16(attn_out)
+    w1, w2 = weight_storage(w1, cd), weight_storage(w2, cd)  # [FF/M, H], [H, FF/M]
+    n1s, n1b, b1v = (v.reshape(-1).to(f32).contiguous() for v in (n1_scale, n1_bias, b1))
+    live = tail_live_bytes(_live_tokens(rows_live, tokens_live, B, T))
+    out = torch.empty((B, T, H), dtype=f32, device=x.device)
+    # bf16: u and h1 in the scratch (u at its head); f32: u alone, in f32.
+    scratch = tail_scratch(B * T, H, FF, x)
+    if scratch is None:
+        scratch = torch.empty((B * T, H), dtype=f32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _kernels.launch(
+            "fused_layer_tail_partial", x.data_ptr(), attn_out.data_ptr(), n1s.data_ptr(),
+            n1b.data_ptr(), w1.data_ptr(), b1v.data_ptr(), w2.data_ptr(),
+            None if live is None else live.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            B * T, H, FF, float(eps), act, code, stream,
+        )
+    LAUNCHES[op] += 1
+    return out, scratch
+
+
+def fused_layer_tail_sum_plain(s, u, b2, n2_scale, n2_bias, *, eps: float, compute_dtype: torch.dtype,
+                               rows_live=None, tokens_live=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_layer_tail_sum`."""
+    B, T, H = s.shape
+    cd = compute_dtype
+    f32 = torch.float32
+    h2 = (s.to(f32) + b2.to(f32)).to(cd)
+    y = _layer_norm((u.to(cd) + h2).to(f32), n2_scale, n2_bias, eps)
+    live = _live_tokens(rows_live, tokens_live, B, T)
+    if live is not None:
+        y = torch.where(live.reshape(B, T, 1), y, torch.zeros((), dtype=f32, device=y.device))
+    return y.to(cd)
+
+
+def fused_layer_tail_sum(s, u, b2, n2_scale, n2_bias, *, eps: float, compute_dtype: torch.dtype,
+                         rows_live=None, tokens_live=None) -> torch.Tensor:
+    """Row 2's sum epilogue: from the model ranks' summed f32 partials s
+    [B, T, H] and the u of :func:`fused_layer_tail_partial`, h2 = round(s +
+    b2), r2 = round(u + h2), y = LN2(r2) in the compute dtype; dead tokens
+    exact zeros. A CUDA tensor launches ``fused_layer_tail_sum``
+    (csrc/fused_layer_tail.cu), a row kernel."""
+    kw = dict(eps=eps, compute_dtype=compute_dtype, rows_live=rows_live, tokens_live=tokens_live)
+    if _on_cpu(s, "fused_layer_tail_sum"):
+        return fused_layer_tail_sum_plain(s, u, b2, n2_scale, n2_bias, **kw)
+    name = "fused_layer_tail_sum"
+    B, T, H = s.shape
+    code = _check_kernel_dtypes(name, compute_dtype)
+    _check_kernel_width(name, H)
+    f32 = torch.float32
+    if s.dtype != f32:
+        raise ValueError(f"{name}: f32 sums expected, got {s.dtype}")
+    s = s.contiguous()
+    b2v, n2s, n2b = (v.reshape(-1).to(f32).contiguous() for v in (b2, n2_scale, n2_bias))
+    live = tail_live_bytes(_live_tokens(rows_live, tokens_live, B, T))
+    out = torch.empty((B, T, H), dtype=compute_dtype, device=s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        _kernels.launch(name, s.data_ptr(), u.data_ptr(), b2v.data_ptr(), n2s.data_ptr(),
+                        n2b.data_ptr(), None if live is None else live.data_ptr(), out.data_ptr(),
+                        B * T, H, float(eps), code, stream)
+    SUM_LAUNCHES[name] += 1
     return out

@@ -5,12 +5,17 @@
   ``--coordinator_address`` flags, one device per rank;
 - :mod:`stlt_tpu_torch.parallel.mesh`: the (data, model, context) grid of
   ranks, its collectives and the active-mesh registry the attention layers,
-  the dropout sites and the train step read.
+  the dropout sites and the train step read;
+- :mod:`stlt_tpu_torch.parallel.sharding`: JAX's Megatron rules on the
+  port's parameter names, and the cut of a model to a rank's shards.
 
 The ``data`` axis runs (``--num_processes N``: each rank its contiguous
 rows of every global batch, the gradients summed over the ranks) and the
 ``context`` axis runs (``--context_parallel``, the ring of
 ``ops/ring.py``), alone or both at once (a grid of D rings of C ranks,
-each with its ring group and its data group); a ``model`` axis above 1
-raises with the ``ROADMAP.md`` item it waits for.
+each with its ring group and its data group). The ``model`` axis
+(``--model_parallel M``) serves: each rank holds its shards, and the
+row-parallel products' partials are summed over its model group; training
+under it raises with the ``ROADMAP.md`` item it waits for. A process may
+start several ranks (``distributed.run_ranks``).
 """

@@ -5,15 +5,18 @@ JAX's mesh is a device array of shape (data, model, context) that GSPMD
 shards over. Here each rank is one process on one device and runs its own
 program, so a :class:`Mesh` is this rank's place in the same grid (data
 outermost, context innermost, as ``make_mesh`` reshapes the device list)
-and the process groups of its ``context`` ring (the ranks of its data
-index) and of its ``data`` replicas (the ranks of its context index).
+and the process groups of its ``context`` ring (the ranks of its data and
+model index), of its ``data`` replicas (the ranks of its model and context
+index) and of its ``model`` group (the ranks of its data and context
+index, over which the Megatron shards of ``parallel/sharding.py`` sum).
 :func:`set_active_mesh` / :func:`active_context_mesh` are the registry the
 sequence-sharded attention layers consult (``stlt_tpu/parallel/mesh.py:96-106``);
 :func:`active_data_mesh` / :func:`clip_span` the one the dropout sites and
 the train step consult under a data axis, and :func:`frame_span` /
-:func:`frame_rows` the global frame rows of a ring rank's dropout sites.
+:func:`frame_rows` the global frame rows of a ring rank's dropout sites;
+:func:`active_model_mesh` the one the sharded layers consult.
 :func:`all_sum`, :func:`broadcast` and :func:`all_gather` are the
-collectives of both, over one of the two groups.
+collectives of all three, over one of the groups.
 """
 
 from __future__ import annotations
@@ -34,11 +37,11 @@ CONTEXT_AXIS = "context"  # sequence parallelism over the frame axis
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place in the (data, model, context) grid: rank g sits at
-    (g // (M C), g // C % M, g % C). ``ring_group`` holds the C ranks of its
-    data index (d C .. d C + C - 1) and ``data_group`` the D ranks of its
-    context index (c, C + c, ...), each in rank order; None is the default
-    process group, which is the ring when D = 1 and the data group when
-    C = 1."""
+    (g // (M C), g // C % M, g % C), g = (d M + m) C + c. ``ring_group``
+    holds the C ranks of its (d, m), ``data_group`` the D ranks of its
+    (m, c) and ``model_group`` the M ranks of its (d, c), each in rank
+    order; None is the default process group, which a group is when it
+    holds every rank (or its axis is 1 and it is never used)."""
 
     shape: Tuple[int, int, int]
     rank: int
@@ -46,6 +49,7 @@ class Mesh:
     device: torch.device
     ring_group: Any = dataclasses.field(default=None, compare=False)
     data_group: Any = dataclasses.field(default=None, compare=False)
+    model_group: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def data_size(self) -> int:
@@ -54,6 +58,14 @@ class Mesh:
     @property
     def data_index(self) -> int:
         return self.rank // (self.shape[1] * self.shape[2])
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[1]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank // self.shape[2] % self.shape[1]
 
     @property
     def context_size(self) -> int:
@@ -84,15 +96,29 @@ def check_batch(data: int, batch_size: int) -> None:
                          "change the mesh")
 
 
+def grid_groups(data: int, model: int, context: int):
+    """The rank lists of every ring (one per (d, m)), every data group (one
+    per (m, c)) and every model group (one per (d, c)) of the grid, in
+    that order, each list in rank order."""
+    def rank(d, m, c):
+        return (d * model + m) * context + c
+
+    rings = [[rank(d, m, c) for c in range(context)] for d in range(data) for m in range(model)]
+    replicas = [[rank(d, m, c) for d in range(data)] for m in range(model) for c in range(context)]
+    models = [[rank(d, m, c) for m in range(model)] for d in range(data) for c in range(context)]
+    return rings, replicas, models
+
+
 def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
               device: Optional[torch.device] = None, batch_size: Optional[int] = None) -> Mesh:
     """The grid over every rank of the initialised process group (one rank
     without one): data = world // (model_parallel * context_parallel). A
-    model axis above 1 raises with the ROADMAP.md item it waits for; a
     ``batch_size`` the data axis does not divide raises
-    (:func:`check_batch`). Under both a data and a context axis every rank
-    makes every ring group, then every data group, in that order
-    (``dist.new_group`` is collective), and keeps its own two."""
+    (:func:`check_batch`). A family of groups (the rings, the data groups,
+    the model groups) is made only when its groups have more than one rank
+    and fewer than all: every rank then makes every group of the family, in
+    :func:`grid_groups`' order (``dist.new_group`` is collective), and
+    keeps its own."""
     initialised = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialised else 1
     rank = dist.get_rank() if initialised else 0
@@ -101,25 +127,23 @@ def make_mesh(model_parallel: int = 1, context_parallel: int = 1,
         raise ValueError(f"model_parallel={model_parallel} x context_parallel={context_parallel} "
                          f"does not divide {world} processes")
     data = world // per_replica
-    if model_parallel > 1:
-        raise NotImplementedError("the model axis (--model_parallel > 1) is not ported yet: it "
-                                  "waits for ROADMAP.md item A9 (model axis)")
     if batch_size is not None:
         check_batch(data, batch_size)
-    C = context_parallel
-    ring_group = data_group = None
-    if data > 1 and C > 1:
-        rings = [dist.new_group(list(range(d * C, (d + 1) * C))) for d in range(data)]
-        replicas = [dist.new_group(list(range(c, world, C))) for c in range(C)]
-        ring_group, data_group = rings[rank // C], replicas[rank % C]
+    own = []
+    for family in grid_groups(data, model_parallel, context_parallel):
+        mine = None
+        if 1 < len(family[0]) < world:
+            groups = [dist.new_group(ranks) for ranks in family]
+            mine = next(g for g, ranks in zip(groups, family) if rank in ranks)
+        own.append(mine)
     backend = dist.get_backend() if initialised else "none"
-    return Mesh((data, model_parallel, C), rank, backend,
-                torch.device("cpu") if device is None else device, ring_group, data_group)
+    return Mesh((data, model_parallel, context_parallel), rank, backend,
+                torch.device("cpu") if device is None else device, *own)
 
 
 def all_sum(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``group`` (``mesh.ring_group`` or
-    ``mesh.data_group``; None: every rank), each rank getting the same bits,
+    """The sum of ``x`` over the ranks of ``group`` (``mesh.ring_group``,
+    ``mesh.data_group`` or ``mesh.model_group``; None: every rank), each rank getting the same bits,
     taken in f32 and returned in x's dtype; on gloo a device tensor is
     staged through host memory (gloo's collectives take CPU tensors). No
     gradient."""
@@ -164,6 +188,16 @@ def active_context_mesh() -> Optional[Mesh]:
     """The active mesh iff it has a context axis above 1 (else None)."""
     mesh = _ACTIVE_MESH
     if mesh is not None and mesh.context_size > 1:
+        return mesh
+    return None
+
+
+def active_model_mesh() -> Optional[Mesh]:
+    """The active mesh iff it has a model axis above 1 (else None): the
+    sharded layers then sum their row-parallel products over its
+    ``model_group`` and gather their column-parallel heads."""
+    mesh = _ACTIVE_MESH
+    if mesh is not None and mesh.model_size > 1:
         return mesh
     return None
 

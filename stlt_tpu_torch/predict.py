@@ -24,7 +24,13 @@ temporal attention as a ring (``ops/ring.py``); CAF and CACNF gather the
 layout stream's frames over the ring and run the appearance branch, the
 fusion blocks and the heads replicated on every rank (``models/fusion.py``);
 ``resnet3d`` and ``resnet3d-transformer``, with no frame axis, run whole on
-every rank. Under a ring the R3D convolutions take fixed, deterministic
+every rank. Every model also serves over a model axis of M ranks
+(``--model_parallel M``, M dividing the heads, H and FF): each rank reads
+the full checkpoint, keeps its Megatron shards (``parallel/sharding.py``)
+and sums the row-parallel products over its model group; with
+``--num_processes`` below the replica's M C ranks each process starts its
+share of them (``parallel/distributed.run_ranks``: ``--model_parallel 2``
+alone runs both ranks from one command). Under a ring the R3D convolutions take fixed, deterministic
 cuDNN algorithms (:func:`set_conv_algorithms`), so the ranks' forwards
 give the same bits. Both axes at once, ``--num_processes D C --context_parallel C``,
 serve on a grid of D rings of C ranks: ring d loads the rows [d B / D,
@@ -56,8 +62,9 @@ from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import VALID_TOTAL, Loader, to_device
 from stlt_tpu_torch.models import models_factory
 from stlt_tpu_torch.parallel import distributed
-from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_data_mesh, check_batch, make_mesh,
-                                          set_active_mesh)
+from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_data_mesh, active_model_mesh,
+                                          check_batch, make_mesh, set_active_mesh)
+from stlt_tpu_torch.parallel.sharding import check_model_axis, shard_model_
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.utils.convert import load_checkpoint
 
@@ -98,31 +105,34 @@ def build_data_config(args, *, train: bool, dataset_path: str) -> DataConfig:
 
 def check_flags(args) -> None:
     """The serving CLIs' flags: an unknown model or dataset type raises with
-    the choices; flags of later slices raise with the ``ROADMAP.md`` item
-    they wait for. Two parallel axes run for every model, one process a
-    rank: the data axis (``--num_processes N``, N dividing
-    ``--batch_size``) and the context axis (``--context_parallel C`` with
-    ``--num_processes D C``: D rings of C ranks, D dividing
-    ``--batch_size``)."""
+    the choices. Three parallel axes run for every model: the data axis
+    (``--num_processes N``, N dividing ``--batch_size``), the context axis
+    (``--context_parallel C``) and the model axis (``--model_parallel M``,
+    which must divide the heads, H and FF: ``parallel/sharding.py``), a
+    replica of M C ranks. ``--num_processes P`` at or above M C runs one
+    rank a process (D = P / (M C) replicas, D dividing ``--batch_size``);
+    below it each process starts M C / P ranks (one replica,
+    ``parallel/distributed.run_ranks``). All of it is checked before
+    anything is read."""
     for flag, value, choices in (("--model_name", args.model_name, models_factory),
                                  ("--dataset_type", args.dataset_type, datasets_factory)):
         if value not in choices:
             raise ValueError(f"{flag} {value!r} is not one of {sorted(choices)}")
-    context, processes = args.context_parallel, max(args.num_processes, 1)
-    later = [
-        (args.model_parallel > 1, "--model_parallel > 1", "A9 (model axis)"),
-        (processes < context, f"--context_parallel {context} over {processes} process(es) (the "
-         "port runs one rank a process)", "A9 (ranks per process)"),
-    ]
-    for hit, flag, item in later:
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet: it waits for ROADMAP.md item {item}")
-    if processes % context:
-        raise ValueError(f"--context_parallel {context} does not divide --num_processes {processes}")
-    if processes == 1 and args.coordinator_address is not None:
+    model, context = args.model_parallel, args.context_parallel
+    processes = max(args.num_processes, 1)
+    per_replica = distributed.replica_ranks(args)
+    if model < 1 or context < 1:
+        raise ValueError(f"--model_parallel {model} and --context_parallel {context} must be >= 1")
+    if processes >= per_replica and processes % per_replica:
+        what = f"--context_parallel {context}" if model == 1 else (
+            f"--model_parallel {model} x --context_parallel {context} = {per_replica}")
+        raise ValueError(f"{what} does not divide --num_processes {processes}")
+    ranks = processes * distributed.ranks_per_process(args)  # P below M C must divide it
+    if ranks == 1 and args.coordinator_address is not None:
         raise ValueError("--coordinator_address joins the ranks of a multi-process run: pass "
                          "--num_processes N > 1 with it")
-    check_batch(processes // context, args.batch_size)
+    check_model_axis(model, args.hidden_size, args.num_attention_heads)
+    check_batch(distributed.data_size(args), args.batch_size)
 
 
 def build_model_config(args, dataset, data_cfg: DataConfig, **capacities):
@@ -184,17 +194,22 @@ def set_conv_algorithms(device: torch.device) -> None:
 
 def load_served_model(args, model_config, device: torch.device):
     """The factory model with the checkpoint loaded, on ``device`` in eval
-    mode, the convolutions' algorithms set (:func:`set_conv_algorithms`)."""
+    mode, the convolutions' algorithms set (:func:`set_conv_algorithms`).
+    Under a model axis the full checkpoint is read as without one, then
+    the model keeps this rank's shards (``parallel/sharding.shard_model_``)."""
     set_conv_algorithms(device)
     model = models_factory[args.model_name](model_config)
     load_checkpoint(args.checkpoint_path, model)
+    mesh = active_model_mesh()
+    if mesh is not None:
+        shard_model_(model, mesh)
     return model.to(device).eval()
 
 
 def start_processes(args) -> torch.device:
     """This process's device and, under ``--num_processes``, its rank of
-    the process group and the active mesh (``parallel/``: a data or a
-    context axis)."""
+    the process group and the active mesh (``parallel/``: a data, a model
+    or a context axis)."""
     logging.basicConfig(level=logging.INFO)
     platform = getattr(args, "platform", None)
     if not distributed.maybe_initialize(args):
@@ -219,6 +234,12 @@ def stop_processes() -> None:
 
 def predict(args):
     check_flags(args)
+    return distributed.run_ranks(args, _predict_rank)
+
+
+def _predict_rank(args):
+    """One rank of :func:`predict` (every rank, when a process starts
+    several: ``parallel/distributed.run_ranks``)."""
     device = start_processes(args)
     try:
         return serve(args, device)

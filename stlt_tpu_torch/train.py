@@ -156,14 +156,19 @@ def check_flags(args) -> None:
     those that have one; ``--grad_accum_steps`` must divide ``--batch_size``
     (each data rank's share of it) and ``--profile_window`` be START,STOP
     with 0 <= START < STOP, each raised in JAX's words
-    (``stlt_tpu/train.py:159-167, 291-296``)."""
+    (``stlt_tpu/train.py:159-167, 291-296``). ``--model_parallel`` above 1
+    raises first, naming the ROADMAP.md item its training half waits for."""
+    if args.model_parallel > 1:
+        raise NotImplementedError("train --model_parallel > 1 is not ported yet: it waits for "
+                                  "ROADMAP.md item A9 (model axis), its training half "
+                                  "(A9 (model axis, training))")
     check_serving_flags(args)
     for flag in ("load_backbone_path", "save_backbone_path"):
         if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
             raise ValueError(f"--{flag} acts on a model's backbone: --model_name is one of "
                              f"{BACKBONE_MODELS}, got {args.model_name!r}")
     grad_accum = max(args.grad_accum_steps, 1)
-    data = max(args.num_processes, 1) // args.context_parallel
+    data = distributed.data_size(args)
     rows = args.batch_size // data
     if rows % grad_accum:
         per_rank = "" if data == 1 else f" / {data} data ranks = {rows} rows a rank"
@@ -224,13 +229,27 @@ def setup_logging(log_filepath, *, coordinator: bool = True) -> None:
 
 
 def train(args) -> TrainResult:
+    """Train as the flags say. Where this process starts several ranks
+    (``parallel/distributed.run_ranks``) it returns the first one's
+    :class:`TrainResult` without its model and optimizer (they stay in the
+    rank's process; the coordinator's checkpoint holds the weights)."""
     check_flags(args)
+    if distributed.ranks_per_process(args) == 1:
+        return _train_rank(args)
+    return distributed.run_ranks(args, _spawned_train_rank)
+
+
+def _train_rank(args) -> TrainResult:
     setup_logging(args.log_filepath, coordinator=getattr(args, "process_id", 0) == 0)
     device = start_processes(args)
     try:
         return _train(args, device)
     finally:
         stop_processes()
+
+
+def _spawned_train_rank(args) -> TrainResult:
+    return dataclasses.replace(_train_rank(args), model=None, optimizer=None)
 
 
 def _train(args, device) -> TrainResult:

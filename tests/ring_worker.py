@@ -53,7 +53,12 @@ Tasks (inputs and outputs under WORKDIR):
   factory model's eval logits, one train step's loss and gradients, or
   AdamW steps) under one process group of WORLD ranks, a ring of 2 or a
   grid of WORLD / 2 rings (``make_mesh(1, 2)``), each rank on its data
-  index's rows; writes ``CASE_RANK.npz`` for each case.
+  index's rows; writes ``CASE_RANK.npz`` for each case;
+- ``model_axis``: every case of ``model_axis.json``'s ``cases`` (as
+  ``fusion``'s) under one process group of WORLD ranks on the grid
+  ``make_mesh(model_parallel, context_parallel)`` of that file, each model
+  cut to this rank's shards (``parallel/sharding.shard_model_``); writes
+  ``CASE_RANK.npz`` for each case.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -341,6 +346,10 @@ def run_fusion_case(workdir, case, mesh=None):
     finally:
         appearance.TORCH_ENCODER_DROPOUT = saved
     model.load_state_dict(torch.load(os.path.join(workdir, case["state"])), strict=True)
+    if mesh is not None and mesh.model_size > 1:
+        from stlt_tpu_torch.parallel.sharding import shard_model_
+
+        shard_model_(model, mesh)
     if case.get("quiet_ring_attention"):
         for module in model.modules():
             if isinstance(module, StltBackbone):
@@ -405,10 +414,35 @@ def fusion(workdir, rank, world):
     dist.destroy_process_group()
 
 
+def exit_on_rank(args):
+    """A rank function for ``parallel/distributed.run_ranks``: rank 1 exits
+    with code 3 at once, the others wait for a minute (the launcher must
+    stop them)."""
+    import time
+
+    if args.process_id == 1:
+        sys.exit(3)
+    time.sleep(60)
+
+
+def model_axis(workdir, rank, world):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the cores
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'model_axis.store')}",
+                            world_size=world, rank=rank)
+    with open(os.path.join(workdir, "model_axis.json")) as f:
+        spec = json.load(f)
+    mesh = make_mesh(spec["model_parallel"], spec["context_parallel"])
+    set_active_mesh(mesh)
+    for label, case in spec["cases"].items():
+        np.savez(os.path.join(workdir, f"{label}_{rank}.npz"), **run_fusion_case(workdir, case, mesh))
+    set_active_mesh(None)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     task, workdir, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     {"op": op, "stlt": stlt, "predict": predict, "op_grad": op_grad, "train": train,
      "train_cli": train_cli, "data_train": data_train, "inference": inference,
      "predict_models": predict_models, "grid_train": grid_train, "grid_op": grid_op,
-     "fusion": fusion}[task](
+     "fusion": fusion, "model_axis": model_axis}[task](
         workdir, rank, world)

@@ -1934,3 +1934,98 @@ def test_msgpack_round_trip_of_a_card_trained_model(device, tmp_path):
     inputs = {k: v for k, v in batch.items() if k not in ("labels", "valid")}
     with torch.inference_mode():
         assert torch.equal(model.eval()(inputs)["stlt"], twin.eval()(inputs)["stlt"])
+
+
+# --- the model axis: rows 1, 2 and 5's partial modes and sum epilogues ----------
+
+
+def _model_rank_shards(w, M, m):
+    """Model rank m's shards of ``_weights`` (``parallel/sharding.shard_tensor``
+    on the stored [out, in] layouts), as the layers hand them to the
+    kernels (transposed views)."""
+    from stlt_tpu_torch.parallel.sharding import shard_tensor
+
+    in_proj = shard_tensor("a.in_proj_weight", w["wqkv"].t().contiguous(), M, m)
+    Hq = in_proj.shape[0] // 3
+    bqkv = shard_tensor("a.in_proj_bias", w["bqkv"], M, m)
+    return {"wqkv": in_proj.t(), "bqkv": bqkv, "wq": in_proj[:Hq].t(), "bq": bqkv[:Hq],
+            "wkv": in_proj[Hq:].t(), "bkv": bqkv[Hq:],
+            "wo": shard_tensor("a.out_proj.weight", w["wo"].t().contiguous(), M, m).t(),
+            "w1": shard_tensor("l.linear1.weight", w["w1"].t().contiguous(), M, m).t(),
+            "b1": shard_tensor("l.linear1.bias", w["b1"], M, m),
+            "w2": shard_tensor("l.linear2.weight", w["w2"].t().contiguous(), M, m).t()}
+
+
+def _summed(parts):
+    s = parts[0].clone()
+    for p in parts[1:]:
+        s += p
+    return s
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_axis_partial_modes_match_plain(device, dtype, M):
+    """Each rank's partial of rows 1, 2 and 5 against its plain version (f32
+    partials, dead rows zeros), and the sum epilogues on the summed
+    partials against theirs; every output finite, the epilogues' dead rows
+    exact zeros."""
+    H, N, B, T, S = 256, 8, 24, 17, 33
+    gen = torch.Generator().manual_seed(21)
+    w = _weights(H, gen, device)
+    shards = [_model_rank_shards(w, M, m) for m in range(M)]
+    x = torch.randn((B, T, H), generator=gen).to(device, dtype)
+    a = (0.5 * torch.randn((B, T, H), generator=gen)).to(device, dtype)
+    ctx = torch.randn((B, S, H), generator=gen).to(device, dtype)
+    rows_live = (torch.rand(B, generator=gen) < 0.7).to(device)
+    bias = _bias("key_padding", B, T, gen).to(device)
+    kw = dict(num_heads=N // M, compute_dtype=dtype)
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=6e-2, rtol=2e-2)
+    dead = ~rows_live
+
+    parts, plains = [], []
+    for sh in shards:
+        args = (x, sh["wqkv"], sh["bqkv"], sh["wo"], bias)
+        parts.append(fe.fused_proj_attention_partial(*args, rows_live=rows_live, **kw))
+        plains.append(fe.fused_proj_attention_partial_plain(*args, rows_live=rows_live, **kw))
+        assert parts[-1].dtype == torch.float32 and parts[-1][dead].abs().max() == 0
+        torch.testing.assert_close(parts[-1], plains[-1], **tol)
+    y = fe.sublayer_sum(_summed(parts), w["bo"], compute_dtype=dtype, rows_live=rows_live)
+    want = fe.sublayer_sum_plain(_summed(parts), w["bo"], compute_dtype=dtype, rows_live=rows_live)
+    assert torch.equal(y, want) and y[dead].abs().max() == 0
+
+    tkw = dict(eps=1e-12, compute_dtype=dtype, activation="gelu", gelu_approximate=dtype == torch.bfloat16)
+    parts, us = [], []
+    for sh in shards:
+        args = (x, a, w["n1s"], w["n1b"], sh["w1"], sh["b1"], sh["w2"])
+        part, u = fe.fused_layer_tail_partial(*args, rows_live=rows_live, **tkw)
+        plain, u_plain = fe.fused_layer_tail_partial_plain(*args, **tkw)
+        live = rows_live[:, None, None].expand_as(part)
+        torch.testing.assert_close(part[live], plain[live], **tol)
+        parts.append(part)
+        us.append(u)
+    y = fe.fused_layer_tail_sum(_summed(parts), us[0], w["b2"], w["n2s"], w["n2b"], rows_live=rows_live,
+                                eps=1e-12, compute_dtype=dtype)
+    u_view = (us[0][:B * T * H * 2].view(dtype) if dtype == torch.bfloat16 else us[0]).reshape(B, T, H)
+    want = fe.fused_layer_tail_sum_plain(_summed(parts), u_view, w["b2"], w["n2s"], w["n2b"],
+                                         rows_live=rows_live, eps=1e-12, compute_dtype=dtype)
+    torch.testing.assert_close(y.float(), want.float(), **tol)
+    assert y[dead].abs().max() == 0
+
+    parts = []
+    for sh in shards:
+        args = (x, ctx, sh["wq"], sh["bq"], sh["wkv"], sh["bkv"], sh["wo"], None)
+        parts.append(fe.fused_cross_attention_partial(*args, **kw))
+        torch.testing.assert_close(parts[-1], fe.fused_cross_attention_partial_plain(*args, **kw), **tol)
+    y = fe.sublayer_sum(_summed(parts), w["bo"], compute_dtype=dtype, op="fused_cross_attention")
+    assert torch.equal(y, fe.sublayer_sum_plain(_summed(parts), w["bo"], compute_dtype=dtype))
+    assert torch.isfinite(y.float()).all()
+
+
+def test_model_axis_kernels_refuse_what_they_do_not_take(device):
+    """Hq not a multiple of 64 raises before any launch: no fallback."""
+    x = torch.zeros((2, 8, 256), device=device, dtype=torch.bfloat16)
+    wqkv, bqkv = torch.zeros((256, 3 * 96), device=device), torch.zeros(3 * 96, device=device)
+    wo = torch.zeros((96, 256), device=device)
+    with pytest.raises(ValueError, match="takes H in 64"):
+        fe.fused_proj_attention_partial(x, wqkv, bqkv, wo, None, num_heads=3, compute_dtype=torch.bfloat16)

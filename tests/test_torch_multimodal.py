@@ -139,9 +139,9 @@ def _serving_args(*extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model_parallel", "2"], "A9"),
-    (["--context_parallel", "2"], "A9"),
-    (["--model_parallel", "2", "--num_processes", "2"], "A9"),
+    pytest.param(["--model_parallel", "2"], None, id="extra0-A9"),
+    pytest.param(["--context_parallel", "2"], None, id="extra1-A9"),
+    pytest.param(["--model_parallel", "2", "--num_processes", "2"], None, id="extra2-A9"),
     pytest.param(["--context_parallel", "2", "--num_processes", "4"], None, id="extra3-A9"),
     pytest.param(["--native_decode"], None, id="extra4-A10"),
 ])
@@ -150,8 +150,9 @@ def test_predict_check_flags_refuses_later_slices(extra, item):
     item, instead of running them silently on one device (ROADMAP.md C 2).
     The cases whose item is None waited for items that have landed and keep
     their ids: CACNF on a grid of two rings of two ranks (A9, fusion models
-    under the ring) and ``--native_decode`` (A10); the check now takes
-    them."""
+    under the ring), ``--native_decode`` (A10), and ``--model_parallel 2``
+    and ``--context_parallel 2`` from one process (A9 (model axis) and A9
+    (ranks per process)); the check now takes them."""
     if item is None:
         port_predict.check_flags(_serving_args(*extra))
         return
@@ -174,7 +175,7 @@ def test_predict_check_flags_names_the_choices():
 def test_predict_refuses_before_it_reads_anything(served):
     root, paths, videos, checkpoints = served
     argv = _argv(root, paths, videos, "cacnf", checkpoints["cacnf"], "--platform", "cpu",
-                 "--model_parallel", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
+                 "--model_parallel", "3")  # the model axis runs; 3 does not divide the heads
+    with pytest.raises(ValueError, match="--model_parallel 3 does not divide --num_attention_heads"):
         port_predict.main(argv + ["--output", os.path.join(root, "never.jsonl")])
     assert not os.path.exists(os.path.join(root, "never.jsonl"))

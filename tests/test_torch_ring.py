@@ -283,20 +283,22 @@ def test_predict_on_two_ranks_writes_the_single_process_output(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model_parallel", "2"], "A9 \\(model axis\\)"),
+    pytest.param(["--model_parallel", "2"], None, id="extra0-A9 \\(model axis\\)"),
     pytest.param(["--context_parallel", "2", "--num_processes", "4", "--model_name", "lcf",
                   "--dataset_type", "multimodal"], None,
                  id="extra1-A9 \\(fusion models under the ring\\)"),
-    (["--context_parallel", "4", "--num_processes", "2"], "A9 \\(ranks per process\\)"),
+    pytest.param(["--context_parallel", "4", "--num_processes", "2"], None,
+                 id="extra2-A9 \\(ranks per process\\)"),
     pytest.param(["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
                   "--dataset_type", "multimodal"], None,
                  id="extra3-A9 \\(fusion models under the ring\\)"),
 ])
 def test_serving_check_flags_refuses_what_waits(extra, item):
     """What waits raises naming its item; a case whose item is None waited
-    for A9 (fusion models under the ring), which has landed, and keeps its
-    id: the check now takes it (the fusion models on a ring and on a
-    grid)."""
+    for an item that has landed and keeps its id: the check now takes it
+    (the fusion models on a ring and on a grid: A9 (fusion models under
+    the ring); ``--model_parallel 2``: A9 (model axis); a ring of 4 over 2
+    processes, each starting two ranks: A9 (ranks per process))."""
     args = build_parser("test").parse_args(
         ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt", *extra])
     if item is None:

@@ -86,13 +86,16 @@ def _check_two_ranks(tmp_path, levers):
     pytest.param(["--context_parallel", "2", "--num_processes", "2", "--model_name", "cacnf",
                   "--dataset_type", "multimodal"], None,
                  id="extra0-A9 \\(fusion models under the ring\\)"),
-    (["--context_parallel", "2", "--num_processes", "1"], "A9 \\(ranks per process\\)"),
+    pytest.param(["--context_parallel", "2", "--num_processes", "1"], None,
+                 id="extra1-A9 \\(ranks per process\\)"),
     (["--model_parallel", "2"], "A9 \\(model axis\\)"),
 ])
 def test_train_check_flags_refuses_what_waits_under_the_ring(extra, item):
-    """What waits raises naming its item; the case whose item is None (CACNF
-    under the ring) waited for A9 (fusion models under the ring), which has
-    landed, and keeps its id: the check now takes it."""
+    """What waits raises naming its item; the cases whose item is None
+    waited for items that have landed and keep their ids: CACNF under the
+    ring (A9, fusion models under the ring) and a ring of two from one
+    process (A9, ranks per process); the check now takes them.
+    ``--model_parallel`` keeps refusing: its training half waits."""
     args = build_parser("test").parse_args(
         ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
          "--save_model_path", "best.pt", *extra])
