@@ -1014,17 +1014,65 @@ def _model_axis_bounds(kind, x, dtype, M, live_tokens, S=0):
     return _bound(flops, nbytes, dtype), _bound(0, epilogue, dtype)
 
 
+def library_partial(kind, sh, w, dtype, M, rate: float = 0.0, grad: bool = False):
+    """One model rank's partial mode from PyTorch's library calls, a
+    yardstick only: ``kind`` "proj" (rows 1 and 3: the shard's ``F.linear``
+    + ``scaled_dot_product_attention`` (``dropout_p`` ``rate``) +
+    ``F.linear`` without its bias, the product in f32), "tail" (row 2:
+    ``F.layer_norm`` / ``F.linear`` / ``F.gelu`` / ``F.linear`` without b2)
+    or "cross" (row 5). ``sh``: the rank's shards (``_model_shards``).
+    With ``grad`` the proj weights record gradients (``.leaves``: row 4's
+    yardstick is their autograd backward)."""
+    n, D = HEADS // M, H // HEADS
+    c = lambda t: t.t().contiguous().to(dtype)  # noqa: E731  [out, in] for F.linear
+    if kind == "tail":
+        w1, b1, w2 = c(sh["w1"]), sh["b1"].to(dtype), c(sh["w2"])
+        n1s, n1b = w["n1s"].to(dtype), w["n1b"].to(dtype)
+        approximate = "tanh" if dtype == torch.bfloat16 else "none"
+
+        def tail(x, a):
+            u = F.layer_norm(x + a, (H,), n1s, n1b, EPS)
+            return F.linear(F.gelu(F.linear(u, w1, b1), approximate=approximate), w2).float()
+
+        return tail
+    wo = c(sh["wo"])  # [H, Hq]
+    if kind == "cross":
+        wq, bq, wkv, bkv = c(sh["wq"]), sh["bq"].to(dtype), c(sh["wkv"]), sh["bkv"].to(dtype)
+
+        def cross(x, ctx):
+            B, T, S = x.shape[0], x.shape[1], ctx.shape[1]
+            q = F.linear(x, wq, bq).view(B, T, n, D).transpose(1, 2)
+            k, v = F.linear(ctx, wkv, bkv).view(B, S, 2, n, D).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v)
+            return F.linear(o.transpose(1, 2).reshape(B, T, n * D), wo).float()
+
+        return cross
+    wqkv, bqkv = c(sh["wqkv"]), sh["bqkv"].to(dtype)
+    leaves = [t.requires_grad_(grad) for t in (wqkv, bqkv, wo)]
+
+    def proj(x, bias):
+        rows, T, _ = x.shape
+        q, k, v = F.linear(x, wqkv, bqkv).view(rows, T, 3, n, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=rate)
+        return F.linear(o.transpose(1, 2).reshape(rows, T, n * D), wo).float()
+
+    proj.leaves = leaves
+    return proj
+
+
 def _model_axis_case(label, partial, partial_plain, finish, finish_plain, full, live, tol, rel_tol, M,
-                     bounds):
+                     bounds, library=None):
     """One row's partial mode at M model ranks: the M partial launches
     (``partial(m)``), their f32 sum in rank order and the sum epilogue
     (``finish``), against the same through the plain versions and against
     the one-process kernel (``full``); a second run bit-identical, dead rows
     exact zeros. Logs a ``model_axis_check`` line: the errors, the ms of one
     rank's partial launch and of its plain version, of the epilogue and of
-    the one-process kernel (medians of five windows), and ``bounds`` (the
+    the one-process kernel (medians of five windows), ``bounds`` (the
     partial's and the epilogue's (ms, bound_by): ``_bound`` of their flops
-    and bytes). Returns the line's dict."""
+    and bytes) and ``library_ms``, the ms of ``library`` (rank 0's partial
+    from PyTorch's library calls, ``library_partial``; None without one).
+    Returns the line's dict."""
 
     def run(part, fin):
         outs = [part(m) for m in range(M)]
@@ -1051,6 +1099,7 @@ def _model_axis_case(label, partial, partial_plain, finish, finish_plain, full, 
     row["sum_ms"] = median_ms(lambda: finish(s0, u0), 5)
     row["sum_plain_ms"] = median_ms(lambda: finish_plain(plain_s0, plain_u0), 5)
     row["one_process_ms"] = median_ms(full, 5)
+    row["library_ms"] = median_ms(library, 5) if library is not None else None
     (row["partial_bound_ms"], row["partial_bound_by"]), (row["sum_bound_ms"], row["sum_bound_by"]) = bounds
     log("model_axis_check " + json.dumps(row))
     return row
@@ -1092,7 +1141,9 @@ def check_model_axis_kernels(device):
                     lambda: fe.fused_proj_attention(x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias,
                                                     num_heads=HEADS, compute_dtype=dtype, rows_live=rl),
                     proj_live[..., None].expand(x.shape), tol, PROJ_REL if bf16 else None, M,
-                    _model_axis_bounds("proj", x, dtype, M, int(proj_live.sum()))))
+                    _model_axis_bounds("proj", x, dtype, M, int(proj_live.sum())),
+                    library=lambda lib=library_partial("proj", shards[0], w, dtype, M), b=bias.to(dtype):
+                    lib(x, b)))
                 if stage == "temporal":
                     continue
                 tkw = dict(eps=EPS, compute_dtype=dtype, activation="gelu", gelu_approximate=bf16)
@@ -1112,7 +1163,8 @@ def check_model_axis_kernels(device):
                     lambda: fe.fused_layer_tail(x, a, w["n1s"], w["n1b"], w["w1"], w["b1"], w["w2"],
                                                 w["b2"], w["n2s"], w["n2b"], **tkw, **live_kw),
                     tail_live[..., None].expand(x.shape), tol, None, M,
-                    _model_axis_bounds("tail", x, dtype, M, int(tail_live.sum()))))
+                    _model_axis_bounds("tail", x, dtype, M, int(tail_live.sum())),
+                    library=lambda lib=library_partial("tail", shards[0], w, dtype, M): lib(x, a)))
                 del x, a, bias
             T, S = CROSS_SHAPES[0]
             x = torch.randn((BATCH, T, H), generator=gen).to(device, dtype)
@@ -1131,10 +1183,187 @@ def check_model_axis_kernels(device):
                 lambda: fe.fused_cross_attention(x, ctx, wm["wq"], wm["bq"], wm["wkv"], wm["bkv"], wm["wo"],
                                                  w["bo"], None, num_heads=HEADS, compute_dtype=dtype),
                 torch.ones(x.shape, dtype=torch.bool, device=device), tol, CROSS_REL if bf16 else None, M,
-                _model_axis_bounds("cross", x, dtype, M, BATCH * T, S)))
+                _model_axis_bounds("cross", x, dtype, M, BATCH * T, S),
+                library=lambda lib=library_partial("cross", shards[0], w, dtype, M): lib(x, ctx)))
             del x, ctx, shards
             torch.cuda.empty_cache()
     return rows
+
+
+# --- phase 2, the model axis in training: rows 3 and 4's partial modes, rows 6
+# and 7 at a head base ------------------------------------------------------------
+
+# (T, S) of the short attention kernels' head-base checks: the fusion models'
+# train cross-attention at 17 layout frames (phase 17 (b)).
+MODEL_AXIS_ATTENTION = ((17, 33), (33, 17))
+
+
+def _model_axis_train_bwd_bound(x, bias, live, dtype, M):
+    """(ms, bound_by) of one rank's row-4 partial backward on these inputs:
+    per live row 10 T H Hq + 12 T^2 Hq flops (qkv and do recomputed, dWo
+    and the attention's recompute and backward on the rank's heads), against
+    x and g read (live rows), dqkv written (every row), the rank's Wqkv,
+    bqkv and Wo read and dWo, dbo written."""
+    rows, T, width = x.shape
+    Hq = width // M
+    live_rows = int(live[:, 0].sum())
+    es = x.element_size()
+    flops = live_rows * (10 * T * width * Hq + 12 * T * T * Hq)
+    nbytes = 2 * live_rows * T * width * es + rows * T * 3 * Hq * es
+    nbytes += (4 * Hq * width + 3 * Hq) * es + (Hq * width + width) * 4 + bias.numel() * 4 + rows
+    return _bound(flops, nbytes, dtype)
+
+
+def check_model_axis_train_kernels(device):
+    """Row 3's train partial mode and its sum, and row 4's partial backward,
+    at the head base (``--model_parallel M``, M = 2 and 4; dropout 0.1; the
+    spatial stage at B = 64 with rows_live), bf16 and f32: row 3 through
+    ``_model_axis_case`` against its plain version and the one-process
+    train kernel (PROJ_REL in bf16), row 4 each rank's dqkv, dWo and dbo
+    against its plain version and the one-process backward's head slice,
+    rows and whole bias gradient (PROJ_BWD_REL in bf16, OP_TOL in f32), a
+    second run bit-identical; and rows 6 and 7 on each rank's heads (strided
+    views of the whole q, k, v, MODEL_AXIS_ATTENTION) against the one-process
+    launch's head slice, bit for bit (else held to ATTN_FWD_REL and BWD_REL,
+    and the line says so). Logs ``model_axis_check`` lines. Returns rows 3
+    and 4's lines at M = 2 in bf16 (the kernels line's ``model_axis``)."""
+    from stlt_tpu_torch.ops import flash, masks
+    from stlt_tpu_torch.ops import fused_encoder as fe
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    w = make_weights(gen, device)
+    wm = model_layout(w)
+    seed = 0x5EED5EED
+    table = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = OP_TOL[dtype]
+        bf16 = dtype == torch.bfloat16
+        for M in MODEL_AXIS_SIZES:
+            shards = [_model_shards(w, M, m) for m in range(M)]
+            n, Hq = HEADS // M, H // M
+            x, _, bias, live_kw, proj_live, _ = make_stage("spatial", BATCH, dtype, gen, device)
+            rl = live_kw["rows_live"]
+            g = torch.randn(x.shape, generator=gen).to(device, dtype)
+            g[~rl] = 0  # as in the model: dead rows get no cotangent
+            kw = dict(num_heads=n, dropout_rate=DROPOUT, compute_dtype=dtype, rows_live=rl)
+            one_kw = dict(kw, num_heads=HEADS)
+            base = lambda m: dict(head0=m * n, heads=HEADS)  # noqa: E731
+
+            def proj(m, plain=False):
+                sh = shards[m]
+                if plain:
+                    return fe.fused_proj_attention_partial_plain(x, sh["wqkv"], sh["bqkv"], sh["wo"], bias,
+                                                                 seed=seed, **kw, **base(m)), None
+                return fe._launch_proj_partial(x, sh["wqkv"], sh["bqkv"], sh["wo"], bias, train=True, seed=seed,
+                                               **kw, **base(m)), None
+
+            label = f"spatial {dtype} B={BATCH} rate={DROPOUT}"
+            row3 = _model_axis_case(
+                f"fused_proj_attention_train {label}", proj, lambda m: proj(m, True),
+                lambda s, _: fe.sublayer_sum(s, w["bo"], compute_dtype=dtype, rows_live=rl),
+                lambda s, _: fe.sublayer_sum_plain(s, w["bo"], compute_dtype=dtype, rows_live=rl),
+                lambda: fe.fused_proj_attention_train(x, wm["wqkv"], w["bqkv"], wm["wo"], w["bo"], bias, seed,
+                                                      **one_kw),
+                proj_live[..., None].expand(x.shape), tol, PROJ_REL if bf16 else None, M,
+                _model_axis_bounds("proj", x, dtype, M, int(proj_live.sum())),
+                library=lambda lib=library_partial("proj", shards[0], w, dtype, M, DROPOUT), b=bias.to(dtype):
+                lib(x, b))
+
+            # Row 4: each rank's backward at its head base.
+            wb = wm if bf16 else w
+            one = fe._launch_proj_bwd(x, wb["wqkv"], w["bqkv"], wb["wo"], bias, g, seed, **one_kw)
+            rel, rel_one, errs = {}, {}, []
+            for m, sh in enumerate(shards):
+                args = (x, sh["wqkv"], sh["bqkv"], sh["wo"], bias, g, seed)
+                got = fe._launch_proj_bwd(*args, **kw, **base(m))
+                want = fe.fused_proj_attention_train_bwd_plain(*args, **kw, **base(m))
+                again = fe._launch_proj_bwd(*args, **kw, **base(m))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"fused_proj_attention_train_bwd partial {label} M={M}: two runs differ")
+                cols = torch.cat([torch.arange(i * H + m * Hq, i * H + (m + 1) * Hq) for i in range(3)])
+                ref = (one[0].index_select(-1, cols.to(device)), one[1][m * Hq:(m + 1) * Hq], one[2])
+                errs.append(_check_close(f"fused_proj_attention_train_bwd partial dqkv {label} M={M}",
+                                         got[0], want[0], proj_live[..., None].expand(got[0].shape), tol))
+                for name, a, b, c in zip(("dqkv", "dwo", "dbo"), got, want, ref):
+                    rel[name] = max(rel.get(name, 0.0), _rel(a, b))
+                    rel_one[name] = max(rel_one.get(name, 0.0), _rel(a, c))
+                if not bf16:  # dWo and dbo sum over the tokens in other splits: their relative norm below
+                    _check_close(f"fused_proj_attention_train_bwd partial dqkv {label} M={M} against the "
+                                 f"one-process kernel", got[0], ref[0], proj_live[..., None].expand(got[0].shape), tol)
+                del got, want, again
+            limit = PROJ_BWD_REL if bf16 else GRAD_REL[dtype]
+            if max(rel.values()) > limit or max(rel_one.values()) > limit:
+                raise AssertionError(f"fused_proj_attention_train_bwd partial {label} M={M}: relative norm "
+                                     f"errors {rel} (plain), {rel_one} (one process) over {limit}")
+            sh0 = shards[0]
+            bwd0 = (x, sh0["wqkv"], sh0["bqkv"], sh0["wo"], bias, g, seed)
+            lib_f = library_partial("proj", sh0, w, dtype, M, DROPOUT, grad=True)
+            leaves = [x.detach().clone().requires_grad_(), *lib_f.leaves]
+            y_lib = lib_f(leaves[0], bias.to(dtype))
+            row4 = {"case": f"fused_proj_attention_train_bwd {label}", "M": M, "max_abs_err": max(errs),
+                    "rel_err": rel, "rel_err_one_process": rel_one, "rel_tol": limit,
+                    "partial_ms": median_ms(lambda: fe._launch_proj_bwd(*bwd0, **kw, **base(0)), 5),
+                    "partial_plain_ms": median_ms(
+                        lambda: fe.fused_proj_attention_train_bwd_plain(*bwd0, **kw, **base(0)), 5),
+                    "one_process_ms": median_ms(
+                        lambda: fe._launch_proj_bwd(x, wb["wqkv"], w["bqkv"], wb["wo"], bias, g, seed, **one_kw), 5),
+                    "library_ms": median_ms(
+                        lambda: torch.autograd.grad(y_lib, leaves, g.float(), retain_graph=True), 5)}
+            row4["partial_bound_ms"], row4["partial_bound_by"] = _model_axis_train_bwd_bound(
+                x, bias, proj_live, dtype, M)
+            log("model_axis_check " + json.dumps(row4))
+            if bf16 and M == MODEL_AXIS_SIZES[0]:
+                table["fused_proj_attention_train"], table["fused_proj_attention_train_bwd"] = row3, row4
+            del x, g, bias, one, shards, y_lib, leaves
+            torch.cuda.empty_cache()
+
+            # Rows 6 and 7 on each rank's heads.
+            for T, S in MODEL_AXIS_ATTENTION:
+                q = torch.randn((32, T, HEADS, H // HEADS), generator=gen).to(device, dtype)
+                k, v = (torch.randn((32, S, HEADS, H // HEADS), generator=gen).to(device, dtype) for _ in range(2))
+                dout = torch.randn(q.shape, generator=gen).to(device, dtype)
+                pad = torch.rand(32, S, generator=gen) < 0.3
+                pad[:, 0] = False
+                kb = masks.key_padding_bias(pad).to(device)
+                akw = dict(dropout_seed=seed, dropout_rate=DROPOUT)
+                out, lse = flash.fused_attention(q, k, v, kb, with_lse=True, **akw)
+                dsum = flash._dsum(dout, out, None)
+                grads = flash.fused_attention_bwd(q, k, v, dout, lse, dsum, kb, **akw)
+                exact, rel_fwd, rel_bwd = True, 0.0, 0.0
+                for m in range(M):
+                    sl = slice(m * n, (m + 1) * n)
+                    hkw = dict(akw, dropout_head0=m * n, dropout_heads=HEADS)
+                    o_m, lse_m = flash.fused_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], kb, with_lse=True,
+                                                       **hkw)
+                    g_m = flash.fused_attention_bwd(q[:, :, sl], k[:, :, sl], v[:, :, sl], dout[:, :, sl], lse_m,
+                                                    dsum[:, sl].contiguous(), kb, **hkw)
+                    pairs = [(o_m, out[:, :, sl]), (lse_m, lse[:, sl])] + [(a, b[:, :, sl]) for a, b in
+                                                                           zip(g_m, grads)]
+                    exact &= all(torch.equal(a, b) for a, b in pairs)
+                    rel_fwd = max(rel_fwd, _rel(o_m, out[:, :, sl]))
+                    rel_bwd = max(rel_bwd, max(_rel(a, b[:, :, sl]) for a, b in zip(g_m, grads)))
+                if not exact and (rel_fwd > ATTN_FWD_REL or rel_bwd > BWD_REL[dtype]):
+                    raise AssertionError(f"flash_attention at a head base {T}x{S} {dtype} M={M}: not the "
+                                         f"whole launch's head slice ({rel_fwd}, {rel_bwd})")
+                sl0 = slice(0, n)
+                hkw0 = dict(akw, dropout_head0=0, dropout_heads=HEADS)
+                lse0 = flash.fused_attention(q[:, :, sl0], k[:, :, sl0], v[:, :, sl0], kb, with_lse=True, **hkw0)[1]
+                row = {"case": f"flash_attention + flash_attention_bwd at the head base {T}x{S} {dtype} B=32",
+                       "M": M, "bit_for_bit": exact, "rel_err_fwd": rel_fwd, "rel_err_bwd": rel_bwd,
+                       "partial_ms": median_ms(lambda: flash.fused_attention(
+                           q[:, :, sl0], k[:, :, sl0], v[:, :, sl0], kb, with_lse=True, **hkw0), 5),
+                       "partial_bwd_ms": median_ms(lambda: flash.fused_attention_bwd(
+                           q[:, :, sl0], k[:, :, sl0], v[:, :, sl0], dout[:, :, sl0], lse0,
+                           dsum[:, sl0].contiguous(), kb, **hkw0), 5),
+                       "one_process_ms": median_ms(lambda: flash.fused_attention(q, k, v, kb, with_lse=True,
+                                                                                 **akw), 5),
+                       "one_process_bwd_ms": median_ms(lambda: flash.fused_attention_bwd(
+                           q, k, v, dout, lse, dsum, kb, **akw), 5)}
+                log("model_axis_check " + json.dumps(row))
+                del q, k, v, dout, out, lse, dsum, grads
+            torch.cuda.empty_cache()
+    return table
 
 
 # --- phase 2, train: the train op's forward and backward kernels --------------
@@ -7743,9 +7972,9 @@ def model_axis_rank(args):
     both sides) and the kernels' launches, into ``OUTPUT.rankR.pt``. Reads
     the frames through ``frames_directory_videos``."""
     from stlt_tpu_torch import predict
-    from stlt_tpu_torch.models import layers
+    from stlt_tpu_torch.parallel import mesh as pmesh
 
-    rank_fn, load, all_sum = predict._predict_rank, predict.load_served_model, layers.all_sum
+    rank_fn, load, all_sum = predict._predict_rank, predict.load_served_model, pmesh.all_sum
     record = {"logits": [], "forward_ms": [], "sum_ms": [], "sum_bytes": []}
     starts = []
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
@@ -7774,13 +8003,13 @@ def model_axis_rank(args):
         model.register_forward_hook(post)
         return model
 
-    predict.load_served_model, layers.all_sum = capture, timed_sum
+    predict.load_served_model, pmesh.all_sum = capture, timed_sum
     reset_all_launches()
     try:
         with frames_directory_videos():
             rows = rank_fn(args)
     finally:
-        predict.load_served_model, layers.all_sum = load, all_sum
+        predict.load_served_model, pmesh.all_sum = load, all_sum
     record.update(rows=len(rows), launches=all_launches(), logits=torch.cat(record["logits"]))
     torch.save(record, f"{args.output}.rank{args.process_id}.pt")
     return rows
@@ -7872,6 +8101,271 @@ def run_model_axis_path(device):
     return launches
 
 
+# --- phase 17: training under the model axis ----------------------------------
+
+MODEL_AXIS_TRAIN_STEPS = 3
+# (label, model, --layout_num_frames, clips (one batch), the clips' frame
+# counts): (a) STLT at 17 frames, B = 64 (rows 3 and 4 in every layer); (b)
+# CACNF at 17 layout frames, B = 32 (rows 3 and 4 in its encoders and
+# fusion self-attentions, rows 6 and 7 in its train cross-attentions, the
+# R3D trunk replicated).
+MODEL_AXIS_TRAIN_RUNS = (("a", "stlt", 16, BATCH, (3, 25)), ("b", "cacnf", 16, 32, (3, 25)))
+# The torch.distributed calls of parallel/mesh that phase 17 counts in a step.
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather")
+# Kernels each run must launch on every rank (the partial modes count under
+# their rows' names).
+MODEL_AXIS_TRAIN_KERNELS = {
+    "a": ("fused_proj_attention_train", "fused_proj_attention_train_bwd"),
+    "b": ("fused_proj_attention_train", "fused_proj_attention_train_bwd", "flash_attention",
+          "flash_attention_bwd"),
+}
+
+
+def model_axis_train_rank(args):
+    """One rank of phase 17, spawned by ``train.main``'s launcher
+    (``parallel/distributed.run_ranks``) in the place of
+    ``train._spawned_train_rank``: ``train._train_rank`` with, recorded into
+    ``SAVE_MODEL_PATH.rankR.pt``, the first step's full initial weights,
+    batch, loss and gathered gradients, the replicated gradients' digests
+    before ``training/loop.sync_over_model_`` broadcasts them, each step's
+    ms, the kernels' launches and the replicated parameters after the run.
+    Every collective a step issues is counted where ``parallel/mesh`` calls
+    ``torch.distributed`` (``COLLECTIVES``: the model group's sums of the
+    forward and the backward, the clip norm's sum, ``sync_over_model_``'s
+    broadcast, ``fc1``'s gather; not the record's own gathers, which the
+    first step's ms carry), with its host ms and the bytes of the buffer
+    this rank sends; on gloo those buffers are host tensors and the
+    call blocks, so the ms need no device sync: they are the exchange and
+    the wait for the other rank, without the staging copies to and from
+    the card. Reads the frames through ``frames_directory_videos``."""
+    import torch.distributed as dist
+
+    from stlt_tpu_torch import train
+    from stlt_tpu_torch.parallel.mesh import active_model_mesh
+    from stlt_tpu_torch.parallel.sharding import gather_state_dict
+    from stlt_tpu_torch.training import loop
+
+    record = {"step_ms": [], "step_collective_ms": [],
+              "collectives": {k: {"count": 0, "ms": 0.0, "bytes": 0} for k in COLLECTIVES}}
+    saved = loop.loss_and_grads, loop.sync_over_model_, train.make_train_step
+    saved_dist = {k: getattr(dist, k) for k in COLLECTIVES}
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    replicated = lambda model: [(n, p) for n, p in model.named_parameters()  # noqa: E731
+                                if getattr(p, "model_shard_dim", None) is None]
+    in_step = []  # this step's collective ms, while a step runs
+
+    def counted(kind):
+        call = saved_dist[kind]
+
+        def collective(*a, **kw):
+            if not in_step:
+                return call(*a, **kw)
+            t0 = time.perf_counter()
+            out = call(*a, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            sent = a[1] if kind == "all_gather" else a[0]  # all_gather(parts, buf)
+            entry = record["collectives"][kind]
+            entry["count"] += 1
+            entry["ms"] += ms
+            entry["bytes"] += sent.numel() * sent.element_size()
+            in_step[0] += ms
+            return out
+
+        return collective
+
+    def first_step(model, criterion, batch, generator, grad_accum=1):
+        if "loss" in record:
+            return saved[0](model, criterion, batch, generator, grad_accum)
+        mesh = active_model_mesh()
+
+        def full(named):  # the record's gathers, not counted among the step's collectives
+            if mesh is None:
+                return dict(named)
+            held = in_step[:]
+            in_step.clear()
+            try:
+                return gather_state_dict(named, mesh)
+            finally:
+                in_step.extend(held)
+        # Copies: the step updates the weights and clips the gradients in place.
+        record["initial"] = {k: v.detach().cpu().clone() for k, v in full(model.state_dict()).items()}
+        record["batch"] = {k: v.cpu().clone() for k, v in batch.items()}
+        record["config"] = (type(model.config).__name__, dataclasses.asdict(model.config))
+        loss = saved[0](model, criterion, batch, generator, grad_accum)
+        record["loss"] = float(loss)
+        grads = full({n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+        record["grads"] = {k: v.float().cpu().clone() for k, v in grads.items()}
+        return loss
+
+    def digests_then_sync(model, mesh):
+        if "replicated_grads" not in record:
+            record["replicated_grads"] = {n: _digest([p.grad]) for n, p in replicated(model) if p.grad is not None}
+        return saved[1](model, mesh)
+
+    def timed_make(*a, **kw):
+        step = saved[2](*a, **kw)
+
+        def timed_step(batch, generator):
+            sync()
+            in_step.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = step(batch, generator)
+                sync()
+            finally:
+                record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                record["step_collective_ms"].append(in_step.pop())
+            return out
+
+        return timed_step
+
+    loop.loss_and_grads, loop.sync_over_model_, train.make_train_step = first_step, digests_then_sync, timed_make
+    for kind in COLLECTIVES:
+        setattr(dist, kind, counted(kind))
+    reset_all_launches()
+    try:
+        with frames_directory_videos():
+            result = train._train_rank(args)
+    finally:
+        loop.loss_and_grads, loop.sync_over_model_, train.make_train_step = saved
+        for kind, call in saved_dist.items():
+            setattr(dist, kind, call)
+    record.update(launches=all_launches(), steps=result.step,
+                  replicated_after={n: p.detach().float().cpu() for n, p in replicated(result.model)})
+    torch.save(record, f"{args.save_model_path}.rank{args.process_id}.pt")
+    return dataclasses.replace(result, model=None, optimizer=None)
+
+
+def run_model_axis_train_path(device):
+    """Phase 17: ``train --model_parallel 2`` from one process, which starts
+    the model ranks itself, both on this one card (gloo, the partials
+    staged through host memory), at full width (H = 768, 12 heads, 4 + 8
+    layers, bf16, dropout 0.1, random seeded weights):
+    MODEL_AXIS_TRAIN_RUNS (a) and (b), one epoch of MODEL_AXIS_TRAIN_STEPS
+    steps and one validation batch each, ranks recorded through
+    ``model_axis_train_rank``. For each run: the ranks' replicated
+    parameters bit for bit after the run; the replicated gradients that two
+    ranks computed to other bits before ``sync_over_model_``'s broadcast,
+    logged by name; the first step's loss and gathered gradients within the
+    bf16 one-step limits of one process on the same weights, batch and
+    seeds (loss STEP_LOSS_ATOL, each gradient STEP_TENSOR_REL,
+    APPEARANCE_STEP_TENSOR_REL in the appearance branch); the best
+    checkpoint, gathered to full tensors, loading strict into one process;
+    each rank's launches of its run's kernels (MODEL_AXIS_TRAIN_KERNELS, the
+    same on every rank); the ``model_axis_train_times`` line (each rank's
+    step ms, and each step's collectives by kind (COLLECTIVES: count, host
+    ms and bytes sent) and their ms a step, beside the card line: the ranks
+    share one card, no speed claim). Returns rank 0's launches."""
+    from stlt_tpu_torch import configs
+    from stlt_tpu_torch import train as port_train
+    from stlt_tpu_torch.models import models_factory
+    from stlt_tpu_torch.training.criterion import make_criterion
+    from stlt_tpu_torch.training.loop import loss_and_grads, step_generator
+    from stlt_tpu_torch.training.optimizer import frozen_stats_mask, model_no_decay_names, weight_decay_mask
+    from stlt_tpu_torch.utils.convert import read_state_dict
+
+    launches = {}
+    criterion = make_criterion("something")
+    limits = (STEP_LOSS_ATOL, STEP_GRAD_REL, STEP_TENSOR_REL, APPEARANCE_STEP_TENSOR_REL)
+    with tempfile.TemporaryDirectory(prefix="stlt_chip_smoke_model_axis_train_") as root, \
+            frames_directory_videos():
+        for label, name, frames, clips, frames_range in MODEL_AXIS_TRAIN_RUNS:
+            sub = os.path.join(root, label)
+            os.makedirs(sub)
+            train_clips = clips * MODEL_AXIS_TRAIN_STEPS
+            paths = write_something_dataset(sub, train_clips + clips, SEED + 170, num_used=TRAIN_LABELS,
+                                            frames_range=frames_range)
+            split = _split_dataset(paths, sub, train_clips)
+            best = os.path.join(sub, f"{name}_best.pt")
+            if name == "stlt":
+                argv = train_argv(split, paths, best)
+                argv[argv.index("--epochs") + 1] = "1"
+                argv[argv.index("--batch_size") + 1] = str(clips)
+            else:
+                with open(paths["dataset"]) as f:
+                    videos = write_video_frames(os.path.join(sub, "frames"), [c["id"] for c in json.load(f)],
+                                                SEED + 170)
+                argv = _fusion_train_argv(name, split, paths, videos, frames, clips, sub,
+                                          "--save_model_path", best)
+            what = (f"phase 17 ({label}) train --model_parallel {MODEL_AXIS_M} ({MODEL_AXIS_M} ranks from one "
+                    f"process), {name}, {frames} layout frames, B = {clips}")
+            steps_dir = os.path.join(sub, "steps")
+            saved = port_train._spawned_train_rank
+            port_train._spawned_train_rank = model_axis_train_rank  # the ranks record what they train
+            t0 = time.perf_counter()
+            try:
+                result = port_train.main(argv + ["--model_parallel", str(MODEL_AXIS_M), "--resume_dir", steps_dir])
+            finally:
+                port_train._spawned_train_rank = saved
+            seconds = time.perf_counter() - t0
+            records = [torch.load(f"{best}.rank{r}.pt", weights_only=False) for r in range(MODEL_AXIS_M)]
+            if result.step != MODEL_AXIS_TRAIN_STEPS or any(rec["steps"] != result.step for rec in records):
+                raise AssertionError(f"{what}: {result.step} steps, not {MODEL_AXIS_TRAIN_STEPS}")
+            for r, rec in enumerate(records):
+                for n, value in records[0]["replicated_after"].items():
+                    if not torch.equal(rec["replicated_after"][n], value):
+                        raise AssertionError(f"{what}: rank {r}'s replicated {n} differs from rank 0's")
+                idle = [k for k in MODEL_AXIS_TRAIN_KERNELS[label] if not rec["launches"].get(k)]
+                if idle or rec["launches"] != records[0]["launches"]:
+                    raise AssertionError(f"{what}: rank {r} launched {rec['launches']} (idle: {idle})")
+            differed = sorted(n for n, d in records[0]["replicated_grads"].items()
+                              if any(rec["replicated_grads"][n] != d for rec in records[1:]))
+            log(f"{what}: {len(differed)} of {len(records[0]['replicated_grads'])} replicated gradients "
+                f"differed between the ranks before sync_over_model_'s broadcast: {differed}")
+
+            # The first step against one process on the same weights, batch and seeds.
+            cls_name, cfg = records[0]["config"]
+            model = models_factory[name](getattr(configs, cls_name)(**cfg))
+            model.load_state_dict(records[0]["initial"], strict=True)
+            trainable = frozen_stats_mask(model)
+            for n, p in model.named_parameters():
+                p.requires_grad_(trainable[n])
+            model = model.to(device)
+            batch = {k: v.to(device) for k, v in records[0]["batch"].items()}
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True  # as the ranks' convolutions under the model axis
+            try:
+                loss = loss_and_grads(model, criterion, batch, step_generator(SEED, 0))
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            want = (loss, {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                           if p.grad is not None})
+            _compare_steps(what, "the model axis's first step vs one process",
+                           (torch.tensor(records[0]["loss"]), records[0]["grads"]), want, limits)
+            step_file = os.path.join(steps_dir, f"step_{result.step:09d}.pt")
+            state = torch.load(step_file, map_location="cpu", weights_only=True)
+            model.load_state_dict(state["model"], strict=True)
+            # AdamW's parameter order (make_optimizer: the decayed group, then the rest).
+            decay = weight_decay_mask(model, model_no_decay_names(model))
+            trained = [n for n, p in model.named_parameters() if p.requires_grad]
+            order = [n for n in trained if decay[n]] + [n for n in trained if not decay[n]]
+            shapes = dict(model.named_parameters())
+            for idx, entry in state["optimizer"]["state"].items():
+                for key in ("exp_avg", "exp_avg_sq"):
+                    if entry[key].shape != shapes[order[idx]].shape:
+                        raise AssertionError(f"{what}: the step checkpoint's {key} of {order[idx]} is "
+                                             f"{tuple(entry[key].shape)}, not the full parameter's")
+            best_note = "no epoch was the best"
+            if os.path.exists(best):
+                model.load_state_dict(read_state_dict(best), strict=True)
+                best_note = f"the best checkpoint ({os.path.getsize(best)} bytes) too"
+            log(f"{what}: the gathered step checkpoint ({os.path.getsize(step_file)} bytes, AdamW's moments "
+                f"full) loads strict into one process; {best_note}")
+            del model, batch, want
+            torch.cuda.empty_cache()
+            for kernel, count in records[0]["launches"].items():
+                launches[kernel] = launches.get(kernel, 0) + count
+            log("model_axis_train_times " + json.dumps({
+                "run": label, "model": name, "layout_frames": frames, "clips": clips,
+                "model_parallel": MODEL_AXIS_M, "steps": result.step, "seconds": seconds,
+                "launches": {k: n for k, n in records[0]["launches"].items() if n},
+                "replicated_grads_differing_before_broadcast": differed,
+                "ranks": [{"rank": r, "step_ms": rec["step_ms"], "step_collective_ms": rec["step_collective_ms"],
+                           "collectives": rec["collectives"]} for r, rec in enumerate(records)],
+                "card": card_line()}))
+    return launches
+
+
 # Phases 5-14 run as three streams, each phase in the order of its stream:
 # this process takes the one-process phases, and two processes of their own
 # (``--phases``) take the phases that put rank processes on the card. All
@@ -7882,7 +8376,7 @@ MAIN_STREAM = ("run_long_clip_path", "run_long_train_path", "run_train_levers_pa
                "run_fusion_path", "run_fusion_train_path")
 SIDE_STREAMS = (("run_ring_path", "run_ring_train_path", "check_base_kernels", "run_data_axis_path",
                  "run_grid_path"),
-                ("run_fusion_ring_path", "run_model_axis_path"))
+                ("run_fusion_ring_path", "run_model_axis_path", "run_model_axis_train_path"))
 
 
 def start_phases(names, root: str):
@@ -8006,6 +8500,8 @@ def main(argv=()) -> int:
     table.update(timed(check_tail_train_kernels))
     table.update(timed(check_fusion_kernels))
     timed(check_model_axis_kernels)  # rows 1, 2 and 5's partial modes (the model axis)
+    # Rows 3 and 4's partial modes and rows 6 and 7 at a head base (the model axis in training).
+    model_axis_table = timed(check_model_axis_train_kernels)
     timed(check_sublayer_stages)  # rows 1, 3 and 5 stage by stage, by CUDA kernel
     table.update(timed(check_fusion_train_kernels))
     timed(check_width_kernels)  # every kernel at other head dims and widths
@@ -8054,7 +8550,9 @@ def main(argv=()) -> int:
     # phase 15's inference and predict runs.
     # Serving under --model_parallel 2 (rank 0's launches: the partial modes
     # and their sum epilogues).
-    for name in ("run_fusion_ring_path", "run_model_axis_path", "run_host_path"):
+    # Training under --model_parallel 2 (rank 0's launches: rows 3 and 4's
+    # partial modes, rows 6 and 7 at the head base).
+    for name in ("run_fusion_ring_path", "run_model_axis_path", "run_model_axis_train_path", "run_host_path"):
         for kernel, count in results[name].items():
             launches[kernel] = launches.get(kernel, 0) + count
 
@@ -8074,6 +8572,14 @@ def main(argv=()) -> int:
         })
         if name in CUDA_KERNELS:
             kernels[-1]["cuda_kernels"] = list(CUDA_KERNELS[name])
+        if name in model_axis_table:  # rows 3 and 4's partial modes at M = 2 (phase 2, phase 17)
+            ma = model_axis_table[name]
+            kernels[-1]["model_axis"] = {
+                "M": ma["M"], "launches": results["run_model_axis_train_path"].get(name, 0),
+                "max_abs_err": ma["max_abs_err"], "rel_err_one_process": ma["rel_err_one_process"],
+                "ms": ma["partial_ms"], "plain_ms": ma["partial_plain_ms"], "bound_ms": ma["partial_bound_ms"],
+                "bound_by": ma["partial_bound_by"], "library_ms": ma["library_ms"],
+                "one_process_ms": ma["one_process_ms"]}
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -250,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) attention_dq_staged_kernel(BwdArgs p
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         float d = dp[r][j];
-        if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
+        if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, t, key, S);
         s[r][j] = masked ? 0.f : expf(x - lse_t) * (d - ds);  // dz
       }
     }
@@ -359,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) attention_dkdv_staged_kernel(BwdArgs
         float x = s[r][j] * p.scale;
         if (!kLengths && bias != nullptr && !masked) x += __ldg(bias + (long long)t * p.bt + key);
         const float pr = masked ? 0.f : expf(x - lse_j[j]);
-        const float keep = kDrop != kDropNone ? p.drop.keep_scale<kDrop>(b, n, N, t, key, S) : 1.f;
+        const float keep = kDrop != kDropNone ? p.drop.keep_scale<kDrop>(b, n, t, key, S) : 1.f;
         s[r][j] = masked ? 0.f : pr * (dp[r][j] * keep - ds_j[j]);  // dz^T
         dp[r][j] = pr * keep;                                         // (p o keepc)^T
       }
@@ -503,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
               t >= qlim || key >= kend || (kLengths && p.causal && p.col0 + key > p.row0 + t);
           const float x = st[idx] * p.scale + (e ? bb.y : bb.x);
           float d = dpt[idx];
-          if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
+          if (kDrop != kDropNone) d *= p.drop.keep_scale<kDrop>(b, n, t, key, S);
           st[idx] = masked ? 0.f : exp2f((x - lse_h[h]) * kLog2e) * (d - ds_h[h]);  // dz
         }
       }
@@ -638,7 +638,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
           float x = st[idx] * p.scale;
           if (bias != nullptr) x += bias_st[col * kLdT + kr];
           const float pr = masked ? 0.f : exp2f((x - lse_t) * kLog2e);
-          const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, t, key, S);
+          const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, t, key, S);
           st[idx] = masked ? 0.f : pr * (dpt[idx] * keep - ds_t);  // dz^T
           dpt[idx] = pr * keep;                                     // (p o keepc)^T
         }

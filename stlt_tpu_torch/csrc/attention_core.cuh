@@ -179,10 +179,10 @@ struct MaskedDropout : Dropout {
   const uint8_t* mask;
   long long mb, mn, mt;
   template <int kDrop>
-  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads, uint32_t t,
-                                              uint32_t s, uint32_t s_total) const {
+  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t t, uint32_t s,
+                                              uint32_t s_total) const {
     if (kDrop == kDropMask) return mask[b * mb + n * mn + t * mt + s] ? scale : 0.f;
-    return Dropout::keep_scale(b, n, num_heads, t, s, s_total);
+    return Dropout::keep_scale(b, n, t, s, s_total);
   }
 };
 
@@ -512,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs p) {
       m[r] = mx;
       if (kDrop != kDropNone) {  // only PV sees the dropped probabilities
 #pragma unroll
-        for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale<kDrop>(b, n, N, t, s0 + lane + 32 * j, S);
+        for (int j = 0; j < 2; ++j) s[r][j] *= p.drop.keep_scale<kDrop>(b, n, t, s0 + lane + 32 * j, S);
       }
     }
     chunk_pv<D>(o, s, vc, sc, ph, lane);
@@ -674,7 +674,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
           float pr = exp2f((st[idx] - shift[h]) * kLog2e);
           rsum[h] += pr;  // l takes the undropped probability; only PV sees the keep bits
           if (kDrop != kDropNone && pr != 0.f) {
-            pr *= p.drop.keep_scale<kDrop>(b, n, N, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);
+            pr *= p.drop.keep_scale<kDrop>(b, n, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);
           }
           st[idx] = pr;
         }

@@ -44,7 +44,7 @@ extern "C" int stlt_blockwise_attention_bwd(
                         static_cast<const int*>(lengths), causal, row0, col0,
                         static_cast<const float*>(lse), static_cast<const float*>(dsum),
                         dq, dk, dv, B, T, S, N, scale,
-                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base},
+                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base, 0u, static_cast<unsigned>(N)},
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   if (lengths != nullptr) return stlt::attn::dispatch_bwd<true>(a, D, dtype, stream);

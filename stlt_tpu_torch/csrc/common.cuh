@@ -63,21 +63,25 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
 
 // Attention-probability dropout of the train kernels: the scale 1/(1-rate)
 // for a kept (row b, head n, query t, key s), else 0. The bit is
-// stlt_tpu/ops/flash.py::_keep_block's at the global row row_base + b: lane
-// lowbias32(((row_base + b)*N + n) ^ seed), counter t*S + s over the
-// unpadded key count S, kept when lowbias32(counter ^ lane) >= thresh. A
-// launch on rows [r0, r0 + B) of a batch passes row_base = r0 (mod 2**32,
-// the lane's wrap) and hashes the bits of those rows of the whole
-// batch; row_base 0 is the launch's own rows. The long-clip attention
-// kernels (rows 6-10) take it; rows 3 and 4 take a RowMap (RowDropout).
+// stlt_tpu/ops/flash.py::_keep_block_heads's at the global row row_base + b
+// and the global head head0 + n of `heads`: lane lowbias32(((row_base +
+// b)*heads + head0 + n) ^ seed), counter t*S + s over the unpadded key count
+// S, kept when lowbias32(counter ^ lane) >= thresh. A launch on rows [r0,
+// r0 + B) of a batch passes row_base = r0 (mod 2**32, the lane's wrap) and
+// hashes the bits of those rows of the whole batch; a model rank's launch on
+// heads [head0, head0 + N/M) of the N passes head0 and heads = N and hashes
+// those heads' bits; a one-process launch passes 0 and its own N. The
+// long-clip attention kernels (rows 6-10) take it; rows 3 and 4 take a
+// RowMap (RowDropout).
 struct Dropout {
   int on;
   uint32_t seed, thresh;
   float scale;
   uint32_t row_base;
-  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t num_heads,
-                                              uint32_t t, uint32_t s, uint32_t s_total) const {
-    const uint32_t lane = lowbias32(((row_base + b) * num_heads + n) ^ seed);
+  uint32_t head0, heads;
+  __device__ __forceinline__ float keep_scale(uint32_t b, uint32_t n, uint32_t t, uint32_t s,
+                                              uint32_t s_total) const {
+    const uint32_t lane = lowbias32(((row_base + b) * heads + head0 + n) ^ seed);
     return lowbias32((t * s_total + s) ^ lane) >= thresh ? scale : 0.f;
   }
 };
@@ -102,15 +106,17 @@ struct RowMap {
   }
 };
 
-// Rows 3 and 4's dropout: Dropout's bits at the global row rows(b): the
-// lane of (b, n) once per row and head (row_lane), then keep_at per key.
+// Rows 3 and 4's dropout: Dropout's bits at the global row rows(b) and the
+// global head head0 + n of `heads`: the lane of (b, n) once per row and head
+// (row_lane), then keep_at per key.
 struct RowDropout {
   int on;
   uint32_t seed, thresh;
   float scale;
   RowMap rows;
-  __device__ __forceinline__ uint32_t row_lane(uint32_t b, uint32_t n, uint32_t num_heads) const {
-    return lowbias32((rows(b) * num_heads + n) ^ seed);
+  uint32_t head0, heads;
+  __device__ __forceinline__ uint32_t row_lane(uint32_t b, uint32_t n) const {
+    return lowbias32((rows(b) * heads + head0 + n) ^ seed);
   }
   __device__ __forceinline__ float keep_at(uint32_t lane, uint32_t t, uint32_t s,
                                            uint32_t s_total) const {

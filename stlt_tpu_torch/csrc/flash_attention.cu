@@ -4,8 +4,10 @@
 //
 // Replaces the TPU kernel stlt_tpu/ops/flash.py::_fused_attn_kernel as
 // launched by _flash_forward for 65..512 tokens, with its prng dropout
-// variant (in-kernel hashed keep bits) and its dropout_mask operand (mask
-// mode: the caller's uint8 keep bits and their strides). In training it also writes
+// variant (in-kernel hashed keep bits at the global rows from row_base and
+// the global heads from head0 of `heads`: a model rank's N / M heads hash
+// their bits among the N) and its dropout_mask operand (mask mode: the
+// caller's uint8 keep bits and their strides). In training it also writes
 // lse [B, N, T] (pass nullptr in eval), which the backward
 // (flash_attention_bwd.cu) reads. The TPU kernel holds each row's whole
 // [T, S] f32 tile in VMEM; here the keys stream in chunks of 64 through an
@@ -19,12 +21,12 @@ extern "C" int stlt_flash_attention(
     long long kb, long long kt, long long kn, long long vb, long long vt, long long vn,
     const void* bias, long long bias_b, long long bias_n, long long bias_t, void* out, void* lse,
     int B, int T, int S, int N, int D, float scale, int dropout, unsigned seed, unsigned thresh,
-    float dropout_scale, unsigned row_base, const void* mask, long long mask_b,
-    long long mask_n, long long mask_t, int dtype, void* stream) {
+    float dropout_scale, unsigned row_base, unsigned head0, unsigned heads, const void* mask,
+    long long mask_b, long long mask_n, long long mask_t, int dtype, void* stream) {
   stlt::attn::AttnArgs a{q, k, v, qb, qt, qn, kb, kt, kn, vb, vt, vn,
                          static_cast<const float*>(bias), bias_b, bias_n, bias_t,
                          nullptr, 0, 0, 0, out, static_cast<float*>(lse), B, T, S, N, scale,
-                         stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base},
+                         stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base, head0, heads},
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   return stlt::attn::dispatch<false>(a, D, dtype, stream);

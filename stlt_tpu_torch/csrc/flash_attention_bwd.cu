@@ -17,14 +17,14 @@ extern "C" int stlt_flash_attention_bwd(
     long long vn, long long ob, long long ot, long long on, const void* bias, long long bias_b,
     long long bias_n, long long bias_t, const void* lse, const void* dsum, void* dq, void* dk,
     void* dv, int B, int T, int S, int N, int D, float scale, int dropout, unsigned seed,
-    unsigned thresh, float dropout_scale, unsigned row_base, const void* mask, long long mask_b,
-    long long mask_n, long long mask_t, int dtype, void* stream) {
+    unsigned thresh, float dropout_scale, unsigned row_base, unsigned head0, unsigned heads,
+    const void* mask, long long mask_b, long long mask_n, long long mask_t, int dtype, void* stream) {
   stlt::attn::BwdArgs a{q, k, v, dout, qb, qt, qn, kb, kt, kn, vb, vt, vn, ob, ot, on,
                         static_cast<const float*>(bias), bias_b, bias_n, bias_t,
                         nullptr, 0, 0, 0,
                         static_cast<const float*>(lse), static_cast<const float*>(dsum),
                         dq, dk, dv, B, T, S, N, scale,
-                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base},
+                        stlt::attn::MaskedDropout{{dropout, seed, thresh, dropout_scale, row_base, head0, heads},
                                                  static_cast<const uint8_t*>(mask), mask_b,
                                                  mask_n, mask_t}};
   return stlt::attn::dispatch_bwd<false>(a, D, dtype, stream);

@@ -39,7 +39,11 @@
 // partials in f32, then a small row kernel (proj_sum_kernel,
 // stlt_fused_proj_attention_sum) writes round(s + bo), dead rows exact
 // zeros: the epilogue is a kernel of its own, not folded into the tail's
-// LN1, so the sublayer's output keeps its one rounding point.
+// LN1, so the sublayer's output keeps its one rounding point. In training
+// (row 3's partial mode) the same launch drops the probabilities of its
+// heads, each hashed as its global head m N / M + n among the N, so M ranks
+// drop the one process's bits (fused_proj_attention_bwd.cu takes the
+// backward).
 //
 // f32: one kernel on the SIMT pipes, so f32 stays true f32. For T <= 32 one
 // block owns floor(32 / T) rows; for 32 < T <= 64 a block owns the 32
@@ -149,7 +153,7 @@ __device__ __forceinline__ void head_probs(const ProjArgs& p, const Tile& tl, in
     }
     for (int s = 0; s < seq; ++s) pr[s] = pr[s] / sum;
     if (kDrop) {
-      const uint32_t dl = p.drop.row_lane(tl.row0 + lr, h, p.num_heads);
+      const uint32_t dl = p.drop.row_lane(tl.row0 + lr, h);
       for (int s = 0; s < seq; ++s) pr[s] *= p.drop.keep_at(dl, t, s, seq);
     }
   }
@@ -434,7 +438,8 @@ extern "C" int stlt_fused_proj_attention(
              bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
              num_heads, seq > kTM ? 1 : kTM / seq, scale,
              RowDropout{dropout, seed, thresh, dropout_scale,
-                        RowMap{row_base, row_period, row_stride, row_magic}},
+                        RowMap{row_base, row_period, row_stride, row_magic}, 0u,
+                        static_cast<uint32_t>(num_heads)},
              hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(hidden / num_heads, a, s);
@@ -442,23 +447,34 @@ extern "C" int stlt_fused_proj_attention(
   return -2;
 }
 
-// The model axis's partial mode (eval): a model rank's num_heads heads of
-// inner width Hq = `inner` (a multiple of 64; wqkv [H, 3Hq] input-major in
-// f32, [3Hq, H] as stored in bf16; wo [Hq, H] input-major in f32, [H, Hq]
-// as stored in bf16), writing the f32 partial [rows * seq, hidden] into
-// `out` (bf16: dead rows unwritten). bf16's scratch: (3Hq + H) bf16 a
-// token and (rows + 1) int32. Returns as stlt_fused_proj_attention.
+// The model axis's partial mode, eval or train: a model rank's num_heads
+// heads of inner width Hq = `inner` (a multiple of 64; wqkv [H, 3Hq]
+// input-major in f32, [3Hq, H] as stored in bf16; wo [Hq, H] input-major in
+// f32, [H, Hq] as stored in bf16), writing the f32 partial [rows * seq,
+// hidden] into `out` (bf16: dead rows unwritten). dropout = 0 is the eval
+// function; otherwise the probabilities are dropped as
+// stlt_fused_proj_attention drops them, the rank's heads hashed as the
+// global heads head0, ..., head0 + num_heads - 1 of `heads` (common.cuh
+// RowDropout). bf16's scratch: (3Hq + H) bf16 a token and (rows + 1)
+// int32. Returns as stlt_fused_proj_attention.
 extern "C" int stlt_fused_proj_attention_partial(
     const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
     long long bias_row_stride, long long bias_q_stride, const void* rows_live, void* out, void* scratch,
-    int rows, int seq, int hidden, int inner, int num_heads, float scale, int dtype, void* stream) {
+    int rows, int seq, int hidden, int inner, int num_heads, float scale, int dropout, unsigned int seed,
+    unsigned int thresh, float dropout_scale, unsigned int row_base, unsigned int row_period,
+    unsigned int row_stride, unsigned int row_magic, unsigned int head0, unsigned int heads, int dtype,
+    void* stream) {
   if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || inner % 64 != 0 || inner < 64 ||
-      inner > hidden || num_heads < 1 || inner % num_heads != 0 || seq < 1 || seq > kTK || rows < 0) {
+      inner > hidden || num_heads < 1 || inner % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 ||
+      head0 + num_heads > heads) {
     return -1;
   }
   ProjArgs a{x, wqkv, bqkv, wo, nullptr, static_cast<const float*>(bias), bias_row_stride,
              bias_q_stride, static_cast<const uint8_t*>(rows_live), out, rows, seq, hidden,
-             num_heads, seq > kTM ? 1 : kTM / seq, scale, RowDropout{}, inner};
+             num_heads, seq > kTM ? 1 : kTM / seq, scale,
+             RowDropout{dropout, seed, thresh, dropout_scale,
+                        RowMap{row_base, row_period, row_stride, row_magic}, head0, heads},
+             inner};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(inner / num_heads, a, s);
   if (dtype == 1) return launch_tc(a, inner / num_heads, scratch, s);

@@ -19,6 +19,15 @@
 // remaining products (dx, dWqkv, dbqkv) are plain GEMMs the wrapper leaves to
 // torch.matmul, as the JAX package leaves them to XLA.
 //
+// Under the model axis (inner = Hq, a head base) the same
+// launches run on a model rank's N / M heads, q/k/v width Hq = H / M: qkv
+// [tokens, 3Hq] over the whole K = H, do = g Wo_m^T [tokens, Hq] from its
+// out_proj.weight shard [H, Hq], dWo_m = attn_m^T g [Hq, H], the keep bits
+// at the global heads m N / M + n. g is the cotangent of the ranks' summed
+// output, the same on every rank, so dbo = sum g is the replicated bias's
+// whole gradient on each; dx = dqkv_m Wqkv_m^T (the wrapper's GEMM) is the
+// rank's part, summed over the model group by the caller.
+//
 // Dead rows (rows_live 0) write exact zeros into dqkv and add nothing to dWo
 // or dbo: the exact gradient of the forward, whose dead rows are constant
 // zeros. Every output has one owner and every sum a fixed order, with no
@@ -106,20 +115,21 @@ struct BwdArgs {
   const void* x;
   const void* wqkv;
   const void* bqkv;
-  const void* wot;  // Wo^T [H, H]: row j holds Wo[:, j]
+  const void* wot;  // Wo^T [H, Hq]: row j holds Wo[:, j]
   const float* bias;
   long long bias_row_stride;
   long long bias_q_stride;
   const void* g;
   const uint8_t* rows_live;
   void* dqkv;
-  void* attn;  // scratch [rows * T, H]
+  void* attn;  // scratch [rows * T, Hq]
   int rows;
   int seq;
   int num_heads;
   int rows_per_block;
   float scale;
   RowDropout drop;
+  int hidden;  // H: x's and g's width; the q/k/v width is Hq = num_heads * D (H, or H / M)
 };
 
 struct Tile {
@@ -168,7 +178,7 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const flo
     const float b = p.bias[(long long)(tl.row0 + lr) * p.bias_row_stride +
                            (long long)t * p.bias_q_stride + s];
     p_s[i * kTK + s] = dot * p.scale + b;
-    if (p.drop.on) dpv *= p.drop.keep_at(p.drop.row_lane(tl.row0 + lr, h, p.num_heads), t, s, seq);
+    if (p.drop.on) dpv *= p.drop.keep_at(p.drop.row_lane(tl.row0 + lr, h), t, s, seq);
     dp_s[i * kTK + s] = dpv;
   }
   __syncthreads();
@@ -191,7 +201,7 @@ __device__ void head_backward(const BwdArgs& p, const Tile& tl, int h, const flo
       pr[s] = pr[s] / sum;
       r += pr[s] * dr[s];
     }
-    const uint32_t dl = p.drop.on ? p.drop.row_lane(tl.row0 + lr, h, p.num_heads) : 0u;
+    const uint32_t dl = p.drop.on ? p.drop.row_lane(tl.row0 + lr, h) : 0u;
     for (int s = 0; s < seq; ++s) {
       dr[s] = pr[s] * (dr[s] - r);
       if (p.drop.on) pr[s] *= p.drop.keep_at(dl, t, s, seq);
@@ -280,7 +290,7 @@ size_t bwd_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) {
   constexpr int kQJ = qkv_cols64<D>(), kDJ = (D + 63) / 64;
-  const int H = p.num_heads * D;
+  const int H = p.hidden, Hq = p.num_heads * D;
   const float* __restrict__ x = static_cast<const float*>(p.x);
   const float* __restrict__ wqkv = static_cast<const float*>(p.wqkv);
   const float* __restrict__ bqkv = static_cast<const float*>(p.bqkv);
@@ -300,14 +310,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
   const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
   const Tile tl = block_tile(p);
   if (!block_has_live(p.rows_live, tl.row0, tl.nrows)) {
-    zero_tile(p, tl, H);
+    zero_tile(p, tl, Hq);
     return;
   }
   const int nchunks = (tl.ntok + kTM - 1) / kTM;
 
   for (int h = 0; h < p.num_heads; ++h) {
-    const FSegs wqkv_head{{wqkv + h * D, wqkv + H + h * D, wqkv + 2 * H + h * D}, D, 3 * H, 3 * D};
-    const FSegs wot_head{{wot + h * D, nullptr, nullptr}, D, H, D};
+    const FSegs wqkv_head{{wqkv + h * D, wqkv + Hq + h * D, wqkv + 2 * Hq + h * D}, D, 3 * Hq, 3 * D};
+    const FSegs wot_head{{wot + h * D, nullptr, nullptr}, D, Hq, D};
     for (int c = 0; c < nchunks; ++c) {
       const int nrows = min(kTM, tl.ntok - kTM * c);
       const long long t0 = tl.tok0 + kTM * c;
@@ -322,7 +332,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_proj_bwd_kernel(BwdArgs p) 
         const int cc = tx + 64 * j, part = cc / D, d = cc % D;
         if (cc >= 3 * D) continue;
         float* dst = (part == 0 ? q_s : (part == 1 ? k_s : v_s)) + c * kTM * D;
-        const float b = bqkv[part * H + h * D + d];
+        const float b = bqkv[part * Hq + h * D + d];
 #pragma unroll
         for (int r = 0; r < kRM; ++r) dst[(ty * kRM + r) * D + d] = pq[r][j] + b;
       }
@@ -351,15 +361,16 @@ struct WoArgs {
   const void* attn;
   const void* g;
   const uint8_t* rows_live;
-  float* partial;    // [splits, H, H]
+  float* partial;    // [splits, Hq, H]
   float* partial_b;  // [splits, H]
-  float* dwo;
+  float* dwo;        // [Hq, H]
   float* dbo;
   long long tokens;
   long long chunk;  // tokens per split, a multiple of kKM
   int seq;
-  int hidden;
+  int hidden;  // H: g's width and dWo's columns
   int splits;
+  int inner;   // Hq: attn's width and dWo's rows
 };
 
 __device__ __forceinline__ bool token_live(const WoArgs& a, long long m) {
@@ -383,7 +394,7 @@ __device__ __forceinline__ void stage_tokens(const WoArgs& a, float* a_t, float*
   for (int i = threadIdx.x; i < kKM * kTO; i += kThreads) {
     const int m = i / kTO, c = i % kTO;
     const bool in = m < nm;
-    a_t[m * ld + c] = in ? attn[(m0 + m) * a.hidden + j0 + c] : 0.f;
+    a_t[m * ld + c] = in ? attn[(m0 + m) * a.inner + j0 + c] : 0.f;
     g_t[m * ld + c] = in ? g[(m0 + m) * a.hidden + k0 + c] : 0.f;
   }
 }
@@ -391,7 +402,7 @@ __device__ __forceinline__ void stage_tokens(const WoArgs& a, float* a_t, float*
 // f32: each thread owns a 4 x 4 patch of the 64 x 64 tile.
 __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
   __shared__ float a_t[kKM * kTO], g_t[kKM * kTO];
-  const int tiles = a.hidden / kTO;
+  const int tiles = a.hidden / kTO;  // output tiles of a row of dWo
   const int j0 = (blockIdx.x / tiles) * kTO, k0 = (blockIdx.x % tiles) * kTO;
   const long long m_begin = blockIdx.y * a.chunk;
   const long long m_end = min(a.tokens, m_begin + a.chunk);
@@ -413,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
     if (j0 == 0) add_bias_sums(a, g_t, kTO, m0, nm, bsum);
     __syncthreads();
   }
-  float* out = a.partial + (long long)blockIdx.y * a.hidden * a.hidden;
+  float* out = a.partial + (long long)blockIdx.y * a.inner * a.hidden;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -424,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) proj_bwd_dwo_kernel(WoArgs a) {
 
 // dWo and dbo: the partials summed in split order (f32 and bf16 alike).
 __global__ void proj_bwd_finalize_kernel(WoArgs a) {
-  const long long hh = (long long)a.hidden * a.hidden;
+  const long long hh = (long long)a.inner * a.hidden;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < hh) {
     float s = 0.f;
@@ -641,7 +652,7 @@ __global__ void __launch_bounds__(kBwdThreads) proj_bwd_attn_kernel(AttnBwdArgs 
       sum += e;
     }
     float r = 0.f;
-    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h, p.N) : 0u;
+    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h) : 0u;
     for (int s = 0; s < T; ++s) {
       const float ps = pr[s] / sum;
       float dp = zr[s];
@@ -733,11 +744,12 @@ struct WeightArgs {
   int M, H, seq;
   long long chunk;  // packed rows a split, a multiple of kBK
   const int* count;
-  float* partial;    // [splits, H, H]: each split's dWo
+  float* partial;    // [splits, Hq, H]: each split's dWo
   float* partial_b;  // [splits, H]: each split's dbo
+  int Hq;            // attn's width: dWo's rows (H, or a model rank's H / M)
 };
 
-// Block (x, y): output tile x of dWo [H, H] over packed rows [y chunk, (y +
+// Block (x, y): output tile x of dWo [Hq, H] over packed rows [y chunk, (y +
 // 1) chunk) up to the live rows rounded up to kBK (the gather zeroed the rows
 // between), into split y's partials; a split past them writes zeros. Both
 // operands are token rows, read MN-major: A^T from [64 k, 64 m] boxes of attn
@@ -752,9 +764,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   using namespace hopper;
   using namespace tail;
   constexpr int BT = kWeightBT;
-  const int H = p.H, tiles = (H + BT - 1) / BT;
+  const int H = p.H, Hq = p.Hq, tiles = (H + BT - 1) / BT;
   const int m0 = (blockIdx.x / tiles) * BT, n0 = (blockIdx.x % tiles) * BT;
-  float* out = p.partial + (long long)blockIdx.y * H * H;
+  float* out = p.partial + (long long)blockIdx.y * Hq * H;
   const long long live = p.count != nullptr ? (long long)*p.count * p.seq : p.M;
   const long long k0 = blockIdx.y * p.chunk;
   const long long k1 = min(k0 + p.chunk, round_up(live, kBK));
@@ -766,7 +778,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   const Ring ring = make_ring(smem_raw, BT * kBK, BT * kBK);
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      const int abox = min(BT, H - m0) / 64, bbox = min(BT, H - n0) / 64;
+      const int abox = min(BT, Hq - m0) / 64, bbox = min(BT, H - n0) / 64;
       produce(ring, nk, (abox + bbox) * 64 * kBK * sizeof(bf16), [&](int s, int k) {
         const int kr = (int)(k0 + k * kBK);
         for (int j = 0; j < abox; ++j) {
@@ -815,7 +827,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = rl + 8 * h, c = cl + 8 * j;
-      if (r < H && c < H) {
+      if (r < Hq && c < H) {
         *reinterpret_cast<float2*>(out + (long long)r * H + c) =
             make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
@@ -854,15 +866,15 @@ int launch_attn_bwd(AttnBwdArgs a, cudaStream_t stream) {
 
 struct TcArgs {
   const bf16* x;
-  const bf16* wqkv;  // in_proj_weight [3H, H]
+  const bf16* wqkv;  // in_proj_weight [3Hq, H]
   const bf16* bqkv;
-  const bf16* wo;    // out_proj.weight [H_out, H_in]
+  const bf16* wo;    // out_proj.weight [H_out, H_in = Hq]
   const float* bias;
   long long bias_row_stride, bias_q_stride;
   const bf16* g;
   const uint8_t* rows_live;
   bf16* dqkv;
-  float* partial;    // [splits, H, H]
+  float* partial;    // [splits, Hq, H]
   float* partial_b;  // [splits, H]
   float* dwo;
   float* dbo;
@@ -871,17 +883,18 @@ struct TcArgs {
   RowDropout drop;
   int splits;
   long long chunk;
+  int Hq;  // the q/k/v width N D: H, or a model rank's H / M
 };
 
 // The bf16 backward (the launches of the note at the top). `scratch`
-// (16-byte aligned) holds, for M = rows * seq tokens: the packed x, then
-// attn, and the packed g [M, H] in bf16 each, qkv [M, 3H] in bf16, do [M, H]
-// in f32, then the packed rows [rows] and their count (int32).
+// (16-byte aligned) holds, for M = rows * seq tokens: the packed x [M, H],
+// then attn [M, Hq], and the packed g [M, H] in bf16, qkv [M, 3Hq] in bf16,
+// do [M, Hq] in f32, then the packed rows [rows] and their count (int32).
 int launch_tc(const TcArgs& p, void* scratch, cudaStream_t stream) {
   const long long M = (long long)p.rows * p.seq;
-  const int H = p.H;
+  const int H = p.H, Hq = p.Hq;
   if (M == 0) {
-    cudaMemsetAsync(p.dwo, 0, sizeof(float) * H * H, stream);
+    cudaMemsetAsync(p.dwo, 0, sizeof(float) * Hq * H, stream);
     cudaMemsetAsync(p.dbo, 0, sizeof(float) * H, stream);
     return (int)cudaGetLastError();
   }
@@ -893,8 +906,8 @@ int launch_tc(const TcArgs& p, void* scratch, cudaStream_t stream) {
   bf16* xa = reinterpret_cast<bf16*>(base);
   bf16* gp = xa + M * H;
   bf16* qkv = gp + M * H;
-  float* dout = reinterpret_cast<float*>(qkv + M * 3 * H);
-  int* rows = reinterpret_cast<int*>(base + M * H * 14);
+  float* dout = reinterpret_cast<float*>(qkv + M * 3 * Hq);
+  int* rows = reinterpret_cast<int*>(base + M * (4LL * H + 10LL * Hq));
   int* count = rows + p.rows;
   const bool packed = p.rows_live != nullptr;
   const bf16* xs = packed ? xa : p.x;
@@ -902,10 +915,10 @@ int launch_tc(const TcArgs& p, void* scratch, cudaStream_t stream) {
   if (!packed) rows = count = nullptr;  // every row live: packed row b is row b
   CUtensorMap map_x, map_wqkv, map_g, map_wo, map_attn, map_gw;
   int err = hopper::make_map(&map_x, xs, M, H, kBM);
-  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * H, H, kBN);  // [3H, H]: K-major B
+  if (!err) err = hopper::make_map(&map_wqkv, p.wqkv, 3 * Hq, H, kBN);  // [3Hq, H]: K-major B
   if (!err) err = hopper::make_map(&map_g, gs, M, H, kBM);
-  if (!err) err = hopper::make_map(&map_wo, p.wo, H, H, kBK);  // [H_out = k, H_in = n]: MN-major B
-  if (!err) err = hopper::make_map(&map_attn, xa, M, H, kBK);
+  if (!err) err = hopper::make_map(&map_wo, p.wo, H, Hq, kBK);  // [H_out = k, Hq = n]: MN-major B
+  if (!err) err = hopper::make_map(&map_attn, xa, M, Hq, kBK);
   if (!err) err = hopper::make_map(&map_gw, gs, M, H, kBK);
   if (err) return err;
   static bool gemm_set = false, weight_set = false;
@@ -917,27 +930,27 @@ int launch_tc(const TcArgs& p, void* scratch, cudaStream_t stream) {
         p.x, p.g, xa, gp, rows, count, p.seq, H, M);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  const GemmArgs g1{(int)M, 3 * H, H, p.bqkv, qkv, nullptr, count, p.seq, 0};
-  const GemmF32Args g2{(int)M, H, H, dout, count, p.seq};
-  const dim3 ggrid((3 * H + kBN - 1) / kBN + (H + kBN - 1) / kBN, (unsigned)((M + kBM - 1) / kBM));
+  const GemmArgs g1{(int)M, 3 * Hq, H, p.bqkv, qkv, nullptr, count, p.seq, 0};
+  const GemmF32Args g2{(int)M, Hq, H, dout, count, p.seq};
+  const dim3 ggrid((3 * Hq + kBN - 1) / kBN + (Hq + kBN - 1) / kBN, (unsigned)((M + kBM - 1) / kBM));
   proj_bwd_gemm_kernel<<<ggrid, kGemmThreads, kGemmSmem, stream>>>(map_x, map_wqkv, map_g, map_wo, g1, g2);
   if ((err = (int)cudaGetLastError())) return err;
   const AttnBwdArgs a{qkv, dout, xa, p.dqkv, p.bias, p.bias_row_stride, p.bias_q_stride, rows, count,
-                      p.rows, p.seq, H, p.N, 1, p.scale, p.drop};
-  switch (H / p.N) {
+                      p.rows, p.seq, Hq, p.N, 1, p.scale, p.drop};
+  switch (Hq / p.N) {
     case 32: err = launch_attn_bwd<32>(a, stream); break;
     case 64: err = launch_attn_bwd<64>(a, stream); break;
     case 128: err = launch_attn_bwd<128>(a, stream); break;
     default: err = -1;
   }
   if (err) return err;
-  const int tiles = (H + kWeightBT - 1) / kWeightBT;
-  const WeightArgs w{(int)M, H, p.seq, p.chunk, count, p.partial, p.partial_b};
-  proj_bwd_weight_gemm_kernel<<<dim3(tiles * tiles, p.splits), kGemmThreads, kWeightSmem, stream>>>(
+  const int tiles_m = (Hq + kWeightBT - 1) / kWeightBT, tiles_n = (H + kWeightBT - 1) / kWeightBT;
+  const WeightArgs w{(int)M, H, p.seq, p.chunk, count, p.partial, p.partial_b, Hq};
+  proj_bwd_weight_gemm_kernel<<<dim3(tiles_m * tiles_n, p.splits), kGemmThreads, kWeightSmem, stream>>>(
       map_attn, map_gw, w);
   if ((err = (int)cudaGetLastError())) return err;
-  const WoArgs f{nullptr, nullptr, nullptr, p.partial, p.partial_b, p.dwo, p.dbo, 0, 0, 0, H, p.splits};
-  proj_bwd_finalize_kernel<<<(unsigned)(((long long)H * H + H + 255) / 256), 256, 0, stream>>>(f);
+  const WoArgs f{nullptr, nullptr, nullptr, p.partial, p.partial_b, p.dwo, p.dbo, 0, 0, 0, H, p.splits, Hq};
+  proj_bwd_finalize_kernel<<<(unsigned)(((long long)Hq * H + H + 255) / 256), 256, 0, stream>>>(f);
   return (int)cudaGetLastError();
 }
 
@@ -965,62 +978,81 @@ int dispatch_f32(int head_dim, const BwdArgs& a, cudaStream_t s) {
   }
 }
 
-}  // namespace
-
-// Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
-// take (H not a multiple of 64 up to 1024, H / num_heads not in {32, 64,
-// 128}, T > 64, a split chunk that is not a multiple of 32 tokens in f32 or
-// 64 in bf16, no scratch in bf16), -2 for an unknown dtype code (0 = float32,
-// 1 = bfloat16) or -3 if a TMA map cannot be encoded. wo is the model's
-// out_proj.weight [H_out, H_in] (Wo transposed) in both, and partial [splits,
-// H, H] and partial_b [splits, H] (f32) each split's dWo and dbo, summed by
-// proj_bwd_finalize_kernel. f32: wqkv [H, 3H] input-major; scratch the
-// attention output [rows * seq, H]; the backward kernel, the split dWo/dbo
-// reduction and the finalize pass. bf16: wqkv as the model stores it [3H, H];
-// x, g, the weights and the rows_live bytes 16-byte aligned; scratch as
-// launch_tc lays it out (14 H bytes a token, the packed rows and count); the
-// launches of launch_tc. All on `stream`.
-extern "C" int stlt_fused_proj_attention_bwd(
-    const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
-    long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
-    void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
-    int seq, int hidden, int num_heads, float scale, int dropout, unsigned int seed,
-    unsigned int thresh, float dropout_scale, unsigned int row_base, unsigned int row_period,
-    unsigned int row_stride, unsigned int row_magic, int splits, long long chunk, int dtype,
-    void* stream) {
-  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || num_heads < 1 ||
-      hidden % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 || splits < 1) {
+// `inner` (Hq) the q/k/v width of the launch's num_heads heads (H in one
+// process), the model width `hidden` for x, g and dWo's columns.
+int launch_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
+               long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
+               void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo,
+               int rows, int seq, int hidden, int inner, int num_heads, float scale, const RowDropout& drop,
+               int splits, long long chunk, int dtype, cudaStream_t s) {
+  if (hidden % 64 != 0 || hidden < 64 || hidden > 64 * kMaxNC || inner % 64 != 0 || inner < 64 ||
+      inner > hidden || num_heads < 1 || inner % num_heads != 0 || seq < 1 || seq > kTK || rows < 0 ||
+      splits < 1) {
     return -1;
   }
-  const int head_dim = hidden / num_heads;
+  const int head_dim = inner / num_heads;
   if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
-  const RowDropout drop{dropout, seed, thresh, dropout_scale,
-                        RowMap{row_base, row_period, row_stride, row_magic}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const TcArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
                    static_cast<const bf16*>(wo), static_cast<const float*>(bias), bias_row_stride,
                    bias_q_stride, static_cast<const bf16*>(g), static_cast<const uint8_t*>(rows_live),
                    static_cast<bf16*>(dqkv), partial, partial_b, dwo, dbo, rows, seq, hidden, num_heads,
-                   scale, drop, splits, chunk};
+                   scale, drop, splits, chunk, inner};
     return launch_tc(p, scratch, s);
   }
   if (dtype != 0) return -2;
   if (chunk % kKM != 0) return -1;
   BwdArgs a{x, wqkv, bqkv, wo, static_cast<const float*>(bias), bias_row_stride, bias_q_stride,
             g, static_cast<const uint8_t*>(rows_live), dqkv, scratch, rows, seq, num_heads,
-            seq > kTM ? 1 : kTM / seq, scale, drop};
+            seq > kTM ? 1 : kTM / seq, scale, drop, hidden};
   int err = dispatch_f32(head_dim, a, s);
   if (err != 0) return err;
   const long long tokens = (long long)rows * seq;
   WoArgs w{scratch, g, static_cast<const uint8_t*>(rows_live), partial, partial_b, dwo, dbo,
-           tokens, chunk, seq, hidden, splits};
-  const int tiles = hidden / kTO;
-  const dim3 grid(tiles * tiles, splits);  // a split past the last token writes zeros
+           tokens, chunk, seq, hidden, splits, inner};
+  const dim3 grid((inner / kTO) * (hidden / kTO), splits);  // a split past the last token writes zeros
   proj_bwd_dwo_kernel<<<grid, kThreads, 0, s>>>(w);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const long long n = (long long)hidden * hidden + hidden;
+  const long long n = (long long)inner * hidden + hidden;
   proj_bwd_finalize_kernel<<<(int)((n + 255) / 256), 256, 0, s>>>(w);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns 0, a cudaError_t from a launch, -1 for a shape the kernels do not
+// take (H or the q/k/v width `inner` not a multiple of 64 up to 1024,
+// inner / num_heads not in {32, 64, 128}, T > 64, heads [head0, head0 +
+// num_heads) not within `heads`, a split chunk that is not a multiple of 32
+// tokens in f32 or 64 in bf16, no scratch in bf16), -2 for an unknown dtype
+// code (0 = float32, 1 = bfloat16) or -3 if a TMA map cannot be encoded.
+// One process passes inner = H, head0 = 0 and heads = num_heads; a model
+// rank its num_heads heads of width Hq = inner, hashed as the global heads
+// head0, ..., head0 + num_heads - 1 of `heads`, with g [rows, seq, H] the
+// cotangent of the ranks' summed output (the same on every rank). wo is the
+// model's out_proj.weight [H_out, inner] (Wo transposed, a rank's shard) in
+// both dtypes; dqkv [rows, seq, 3 inner], dWo [inner, H] (input-major),
+// dbo [H] (the whole bias's gradient), partial [splits, inner, H] and
+// partial_b [splits, H] (f32) each split's dWo and dbo, summed by
+// proj_bwd_finalize_kernel. f32: wqkv [H, 3 inner] input-major; scratch the
+// attention output [rows * seq, inner]; the backward kernel, the split
+// dWo/dbo reduction and the finalize pass. bf16: wqkv as the model stores it
+// [3 inner, H]; x, g, the weights and the rows_live bytes 16-byte aligned;
+// scratch as launch_tc lays it out ((4 H + 10 inner) bytes a token, the
+// packed rows and count); the launches of launch_tc. All on `stream`.
+extern "C" int stlt_fused_proj_attention_bwd(
+    const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bias,
+    long long bias_row_stride, long long bias_q_stride, const void* g, const void* rows_live,
+    void* dqkv, void* scratch, float* partial, float* partial_b, float* dwo, float* dbo, int rows,
+    int seq, int hidden, int inner, int num_heads, float scale, int dropout, unsigned int seed,
+    unsigned int thresh, float dropout_scale, unsigned int row_base, unsigned int row_period,
+    unsigned int row_stride, unsigned int row_magic, unsigned int head0, unsigned int heads, int splits,
+    long long chunk, int dtype, void* stream) {
+  if (num_heads < 1 || head0 + num_heads > heads) return -1;
+  const RowDropout drop{dropout, seed, thresh, dropout_scale,
+                        RowMap{row_base, row_period, row_stride, row_magic}, head0, heads};
+  return launch_bwd(x, wqkv, bqkv, wo, bias, bias_row_stride, bias_q_stride, g, rows_live, dqkv, scratch,
+                    partial, partial_b, dwo, dbo, rows, seq, hidden, inner, num_heads, scale, drop, splits,
+                    chunk, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -408,7 +408,7 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
       pr[s] = e;
       sum += e;
     }
-    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h, p.N) : 0u;
+    const uint32_t dl = kDrop ? p.drop.row_lane(orig, h) : 0u;
     for (int s = 0; s < S; ++s) {
       float pv = pr[s] / sum;
       if (kDrop) pv *= p.drop.keep_at(dl, t, s, S);

@@ -78,6 +78,7 @@ from stlt_tpu_torch.models.layers import (
     activation_fn,
     apply_dense,
     apply_layer_norm,
+    column_input,
     draw_seeds,
     init_linear_,
     row_parallel_dense,
@@ -127,9 +128,9 @@ class FeedforwardModule(nn.Module):
         init_linear_(self.linear2, generator)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        dt = self.dtype
-        h = activation_fn("gelu", dt)(apply_dense(x, self.linear1, dt))
-        h = row_parallel_dense(h, self.linear2, dt, active_model_mesh())  # linear1/2 sharded there
+        dt, model = self.dtype, active_model_mesh()  # linear1 / linear2 column / row-sharded there
+        h = activation_fn("gelu", dt)(apply_dense(column_input(x, model), self.linear1, dt))
+        h = row_parallel_dense(h, self.linear2, dt, model)
         h = _output_dropout(self, h, generator)
         return apply_layer_norm(h + x, self.ln.weight, self.ln.bias, self.eps, dt)
 

@@ -51,6 +51,21 @@ are cast to the compute dtype where the JAX code casts.
   are one function in f32; in bf16 the fused op adds ``b1`` and ``b2`` in
   f32 before rounding, the chain after.
 
+Under a model mesh (``--model_parallel M``, ``parallel/sharding.py``) each
+rank holds N / M heads and FF / M hidden units (Megatron's split): a
+replicated activation enters the column-sharded layers (q/k/v,
+``linear1``) through ``parallel/mesh.model_copy`` (backward: the sum of
+the ranks' parts of its gradient) and the row-sharded products
+(``out_proj``, ``linear2``) leave as f32 partials summed by
+``parallel/mesh.model_sum`` (backward: the identity), before the
+replicated bias; the fused rows run their partial modes (rows 1, 2 and 5
+in eval, rows 3 and 4 in training) and their sum epilogues. The dropout
+bits of a rank's heads and hidden units are hashed at their global
+indices (m N / M + n, m FF / M + c), so M ranks drop the one process's
+bits. Training there takes clips below the fused train tail's gate and
+no ring (the rest waits for ``ROADMAP.md`` A9 (model axis, long-clip
+training)).
+
 The fused ops run the CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. In train mode each layer takes two explicit uint32 seeds,
 (attention, tail), where JAX draws two from its ``dropout`` stream; the
@@ -87,8 +102,8 @@ from stlt_tpu_torch.ops.dropout import (TAG_ATTN_DROP, TAG_MID_DROP, TAG_OUT_DRO
                                         hashed_dropout)
 from stlt_tpu_torch.ops.flash import _BLOCKWISE_MIN_SEQ
 from stlt_tpu_torch.ops.ring import ring_attention
-from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_model_mesh, all_gather, all_sum,
-                                          clip_span, frame_span)
+from stlt_tpu_torch.parallel.mesh import (active_context_mesh, active_model_mesh, all_gather, clip_span,
+                                          frame_span, model_copy, model_sum)
 
 
 def apply_layer_norm(x, scale, bias, eps: float, dtype: torch.dtype) -> torch.Tensor:
@@ -112,24 +127,47 @@ def row_parallel_dense(x, linear: nn.Linear, dtype: torch.dtype, mesh=None) -> t
     """:func:`apply_dense` of a row-sharded layer (``out_proj``,
     ``linear2``): under a model mesh this rank's partial ``x W_m^T`` in f32
     (the operands in the compute dtype), summed over the model group in
-    f32, rounded to the compute dtype, then the replicated bias added in it,
-    as apply_dense rounds the product and adds the bias. Without a mesh
-    :func:`apply_dense`."""
+    f32 (``parallel/mesh.model_sum``: its backward the identity, so x and
+    W_m get the rank's own gradients), rounded to the compute dtype, then
+    the replicated bias added in it, as apply_dense rounds the product and
+    adds the bias (the bias's gradient is then its whole one on every rank,
+    never summed over the group). Without a mesh :func:`apply_dense`."""
     if mesh is None:
         return apply_dense(x, linear, dtype)
     f32 = torch.float32
     partial = torch.matmul(x.to(dtype).to(f32), linear.weight.to(dtype).to(f32).t())
-    return all_sum(partial, mesh, mesh.model_group).to(dtype) + linear.bias.to(dtype)
+    return model_sum(partial, mesh).to(dtype) + linear.bias.to(dtype)
+
+
+def column_input(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A replicated activation entering a column-sharded layer (q/k/v,
+    ``linear1``, ``fc1``) under a model mesh: ``parallel/mesh.model_copy``,
+    whose backward sums the ranks' parts of its gradient; x itself
+    without a mesh."""
+    return x if mesh is None else model_copy(x, mesh)
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, mesh):
+        ctx.mesh, ctx.width = mesh, h.shape[-1]
+        parts = all_gather(h.to(torch.float32), mesh, mesh.model_group)
+        return torch.cat(list(parts), dim=-1).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.model_index * ctx.width
+        return g[..., lo:lo + ctx.width], None
 
 
 def gather_columns(h: torch.Tensor, mesh=None) -> torch.Tensor:
     """A column-sharded layer's output (``fc1``) with every model rank's
     columns, in rank order (whole columns, so one process's bits), the
-    exchange in f32; ``h`` itself without a mesh."""
+    exchange in f32; its backward is this rank's columns of the cotangent.
+    ``h`` itself without a mesh."""
     if mesh is None:
         return h
-    parts = all_gather(h.to(torch.float32), mesh, mesh.model_group)
-    return torch.cat(list(parts), dim=-1).to(h.dtype)
+    return _GatherColumns.apply(h, mesh)
 
 
 def activation_fn(name: str, dtype: torch.dtype):
@@ -215,19 +253,26 @@ class MultiHeadAttention(nn.Module):
         are hashed (the long-clip and cross-attention kernels, rows 6-10,
         take an offset only)."""
         model = active_model_mesh()
-        if model is not None and self.training:
-            raise NotImplementedError("training under --model_parallel is not ported yet: it "
-                                      "waits for ROADMAP.md item A9 (model axis, training)")
         if context is not None:
             return self._cross_attention(x, context, bias, seed, row0, model)
         ring = active_context_mesh() if self.seq_shard else None
+        if model is not None and ring is not None and self.training:
+            raise NotImplementedError("training under --model_parallel with --context_parallel is not "
+                                      "ported yet: it waits for ROADMAP.md item A9 (model axis, "
+                                      "long-clip training)")
         if ring is not None or x.shape[1] > fe._KERNEL_MAX_SEQ:
             return self._projected_attention(x, bias, seed, kv_lengths, ring, row0, model)
         if model is not None:  # this rank's heads, its partial summed over the model group
-            partial = fe.fused_proj_attention_partial(
-                x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias, self.out_proj.weight.t(),
-                bias, num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
-            return fe.sublayer_sum(all_sum(partial, model, model.model_group), self.out_proj.bias,
+            args = (column_input(x.to(self.dtype), model), self.in_proj_weight.t(), self.in_proj_bias,
+                    self.out_proj.weight.t(), bias)
+            kw = dict(num_heads=self.num_heads, compute_dtype=self.dtype, rows_live=rows_live)
+            if self.training:
+                head0, heads = self._head_base(model)
+                partial = fe.fused_proj_attention_train_partial(
+                    *args, seed, dropout_rate=self.dropout_rate, row0=row0, head0=head0, heads=heads, **kw)
+            else:
+                partial = fe.fused_proj_attention_partial(*args, **kw)
+            return fe.sublayer_sum(model_sum(partial, model), self.out_proj.bias,
                                    compute_dtype=self.dtype, rows_live=rows_live)
         args = (x.to(self.dtype), self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, bias)
@@ -236,6 +281,14 @@ class MultiHeadAttention(nn.Module):
             return fe.fused_proj_attention_train(*args, seed, dropout_rate=self.dropout_rate,
                                                  row0=row0, **kw)
         return fe.fused_proj_attention(*args, **kw)
+
+    def _head_base(self, model):
+        """(head0, heads): this rank's first head and the model's N, at which
+        its dropout bits are hashed. Under a model mesh rank m holds heads
+        [m N / M, (m + 1) N / M) of the N; without one, its own N."""
+        if model is None:
+            return 0, self.num_heads
+        return model.model_index * self.num_heads, model.model_size * self.num_heads
 
     def _projected_attention(self, x, bias, seed, kv_lengths, ring=None,
                              row0: int = 0, model=None) -> torch.Tensor:
@@ -251,7 +304,8 @@ class MultiHeadAttention(nn.Module):
         B, T, _ = x.shape
         N, dt = self.num_heads, self.dtype
         H = self.in_proj_weight.shape[0] // 3  # this rank's q/k/v width
-        qkv = torch.matmul(x.to(dt), self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)
+        x = column_input(x.to(dt), model)
+        qkv = torch.matmul(x, self.in_proj_weight.to(dt).t()) + self.in_proj_bias.to(dt)
         q, k, v = (qkv[..., i * H:(i + 1) * H].unflatten(-1, (N, H // N)) for i in range(3))
         drop = self.training and self.dropout_rate > 0.0
         if ring is not None:
@@ -262,11 +316,12 @@ class MultiHeadAttention(nn.Module):
             )
             return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
         use_lengths = kv_lengths is not None and T >= _BLOCKWISE_MIN_SEQ
+        head0, heads = self._head_base(model) if drop else (0, None)
         out = dot_product_attention(
             q, k, v, None if use_lengths else bias, causal=self.causal,
             kv_lengths=kv_lengths if use_lengths else None,
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
-            dropout_row0=row0,
+            dropout_row0=row0, dropout_head0=head0, dropout_heads=heads,
         )
         return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
 
@@ -292,20 +347,21 @@ class MultiHeadAttention(nn.Module):
                 partial = fe.fused_cross_attention_partial(
                     x.to(dt), ctx.to(dt), w[:H].t(), b[:H], w[H:].t(), b[H:],
                     self.out_proj.weight.t(), bias, num_heads=N, compute_dtype=dt)
-                return fe.sublayer_sum(all_sum(partial, model, model.model_group), self.out_proj.bias,
+                return fe.sublayer_sum(model_sum(partial, model), self.out_proj.bias,
                                        compute_dtype=dt, op="fused_cross_attention")
             return fe.fused_cross_attention(
                 x.to(dt), ctx.to(dt), w[:H].t(), b[:H], w[H:].t(), b[H:],
                 self.out_proj.weight.t(), self.out_proj.bias, bias, num_heads=N, compute_dtype=dt,
             )
-        q = torch.matmul(x.to(dt), w[:H].to(dt).t()) + b[:H].to(dt)
-        kv = torch.matmul(ctx.to(dt), w[H:].to(dt).t()) + b[H:].to(dt)
+        q = torch.matmul(column_input(x.to(dt), model), w[:H].to(dt).t()) + b[:H].to(dt)
+        kv = torch.matmul(column_input(ctx.to(dt), model), w[H:].to(dt).t()) + b[H:].to(dt)
         drop = self.training and self.dropout_rate > 0.0
+        head0, heads = self._head_base(model) if drop else (0, None)
         out = dot_product_attention(
             q.unflatten(-1, (N, H // N)), kv[..., :H].unflatten(-1, (N, H // N)),
             kv[..., H:].unflatten(-1, (N, H // N)), bias, causal=self.causal,
             dropout_seed=seed if drop else None, dropout_rate=self.dropout_rate if drop else 0.0,
-            dropout_row0=row0,
+            dropout_row0=row0, dropout_head0=head0, dropout_heads=heads,
         )
         return row_parallel_dense(out.reshape(B, T, H), self.out_proj, dt, model)
 
@@ -364,7 +420,7 @@ class TransformerEncoderLayer(nn.Module):
                 gelu_approximate=self.dtype == torch.bfloat16, rows_live=rows_live,
                 tokens_live=tokens_live)
             return fe.fused_layer_tail_sum(
-                all_sum(partial, model, model.model_group), u, self.linear2.bias, self.norm2.weight,
+                model_sum(partial, model), u, self.linear2.bias, self.norm2.weight,
                 self.norm2.bias, eps=self.layer_norm_eps, compute_dtype=self.dtype,
                 rows_live=rows_live, tokens_live=tokens_live)
         return fe.fused_layer_tail(
@@ -381,7 +437,11 @@ class TransformerEncoderLayer(nn.Module):
     def _fused_train_tail(self, x, attn_out, seed: Optional[int], rows_live,
                           tokens_live, token0: Rows = 0) -> torch.Tensor:
         """The fused train tail (``layers.py:480-510``): one op, forward and
-        backward, dead tokens zeroed."""
+        backward, dead tokens zeroed. Not under a model mesh: its partial
+        modes wait (``train.check_flags`` refuses such a clip)."""
+        if active_model_mesh() is not None:
+            raise NotImplementedError("the fused train tail under --model_parallel is not ported yet: "
+                                      "it waits for ROADMAP.md item A9 (model axis, long-clip training)")
         return ftt.fused_layer_tail_train(
             x, attn_out, self.norm1.weight, self.norm1.bias,
             self.linear1.weight.t(), self.linear1.bias,
@@ -397,16 +457,24 @@ class TransformerEncoderLayer(nn.Module):
         """The plain train tail (``layers.py:512-561``): hashed dropout on the
         attention output, on the activation and on the FFN output, each its
         own stream of one seed at the global tokens from ``token0``; no
-        dead-token zeroing, as in JAX."""
+        dead-token zeroing, as in JAX. Under a model mesh (Megatron's FFN)
+        u enters ``linear1``'s FF / M columns through
+        :func:`column_input`, the activation's site hashes those columns at
+        their global features m FF / M + c of the FF, and ``linear2`` is
+        :func:`row_parallel_dense`; the attention and out sites act on the
+        summed H-wide values, the same on every rank."""
         dt, rate = self.dtype, self.dropout_rate
         drop = rate > 0.0
+        model = active_model_mesh()
         if drop:
             attn_out = hashed_dropout(attn_out, seed, TAG_ATTN_DROP, rate, token0)
         u = apply_layer_norm(x + attn_out, self.norm1.weight, self.norm1.bias, self.layer_norm_eps, dt)
-        h = activation_fn(self.activation, dt)(apply_dense(u, self.linear1, dt))
+        h = activation_fn(self.activation, dt)(apply_dense(column_input(u, model), self.linear1, dt))
         if drop:
-            h = hashed_dropout(h, seed, TAG_MID_DROP, rate, token0)
-        h = apply_dense(h, self.linear2, dt)
+            cols = h.shape[-1]
+            m, M = (0, 1) if model is None else (model.model_index, model.model_size)
+            h = hashed_dropout(h, seed, TAG_MID_DROP, rate, token0, f0=m * cols, width=M * cols)
+        h = row_parallel_dense(h, self.linear2, dt, model)
         if drop:
             h = hashed_dropout(h, seed, TAG_OUT_DROP, rate, token0)
         return apply_layer_norm(u + h, self.norm2.weight, self.norm2.bias, self.layer_norm_eps, dt)

@@ -85,6 +85,7 @@ from stlt_tpu_torch.models.layers import (
     activation_fn,
     apply_dense,
     apply_layer_norm,
+    column_input,
     embedding_dropout,
     gather_columns,
     init_linear_,
@@ -334,10 +335,12 @@ class ClassificationHead(nn.Module):
         init_linear_(self.fc2, generator)
 
     def forward(self, hidden_state: torch.Tensor) -> torch.Tensor:
-        """Under a model mesh ``fc1`` is column-sharded: its columns are
-        gathered from the model ranks before the GELU and the LayerNorm, and
-        ``fc2`` runs replicated."""
-        h = gather_columns(apply_dense(hidden_state, self.fc1, self.dtype), active_model_mesh())
+        """Under a model mesh ``fc1`` is column-sharded: its input enters
+        through ``layers.column_input``, its columns are gathered from the
+        model ranks before the GELU and the LayerNorm (the backward takes
+        the rank's columns), and ``fc2`` runs replicated."""
+        model = active_model_mesh()
+        h = gather_columns(apply_dense(column_input(hidden_state, model), self.fc1, self.dtype), model)
         h = activation_fn("gelu", self.dtype)(h)
         h = apply_layer_norm(h, self.layer_norm.weight, self.layer_norm.bias, self.eps, self.dtype)
         return apply_dense(h, self.fc2, self.dtype)

@@ -49,17 +49,19 @@ SIGNATURES = {
     ),
     "fused_proj_attention_bwd": (
         "stlt_fused_proj_attention_bwd",
-        # x, wqkv (f32: [H, 3H]; bf16: as the model stores it, [3H, H]),
-        # bqkv, wo (out_proj.weight [H_out, H_in] in both), bias,
+        # x, wqkv (f32: [H, 3Hq]; bf16: as the model stores it, [3Hq, H]),
+        # bqkv, wo (out_proj.weight [H_out, Hq] in both), bias,
         # bias_row_stride, bias_q_stride, g, rows_live, dqkv, scratch (f32:
         # the attention output; bf16: the packed x/attn, g, qkv, do and
-        # rows), partial [splits, H, H], partial_b [splits, H] (f32; in bf16
-        # views of the scratch), dwo, dbo,
-        # rows, seq, hidden, num_heads, scale, dropout, seed, thresh,
-        # dropout_scale, the rows' map (row_base, row_period, row_stride,
-        # row_magic), splits, chunk, dtype, stream
-        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _U, _U, _U, _U, _I, _LL, _I, _P],
+        # rows), partial [splits, Hq, H], partial_b [splits, H] (f32; in bf16
+        # views of the scratch), dwo, dbo, rows, seq, hidden, inner (Hq: H in
+        # one process, a model rank's q/k/v width), num_heads, scale,
+        # dropout, seed, thresh, dropout_scale, the rows' map (row_base,
+        # row_period, row_stride, row_magic), head0, heads (the launch's
+        # first head and the whole N: 0 and num_heads in one process),
+        # splits, chunk, dtype, stream
+        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+         _I, _U, _U, _F, _U, _U, _U, _U, _U, _U, _I, _LL, _I, _P],
     ),
     "fused_layer_tail": (
         "stlt_fused_layer_tail",
@@ -108,8 +110,10 @@ SIGNATURES = {
         # x, wqkv, bqkv, wo (f32: [H, 3Hq], [Hq, H]; bf16: as stored, [3Hq, H],
         # [H, Hq]), bias, bias_row_stride, bias_q_stride, rows_live, out (f32
         # partial), scratch, rows, seq, hidden, inner (Hq), num_heads, scale,
-        # dtype, stream
-        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        # dropout, seed, thresh, dropout_scale, the rows' map (4 words),
+        # head0, heads (the rank's first head and the whole N), dtype, stream
+        [_P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _U,
+         _U, _U, _U, _I, _P],
     ),
     "fused_proj_attention_sum": (
         "stlt_fused_proj_attention_sum",
@@ -144,10 +148,10 @@ SIGNATURES = {
         "stlt_flash_attention",
         # q, k, v, their (b, t, n) strides, bias, its (b, n, t) strides, out,
         # lse (or null), B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, row_base, mask (or null), its (b, n, t) strides,
-        # dtype, stream
+        # dropout_scale, row_base, head0, heads (the launch's first head and
+        # the whole N), mask (or null), its (b, n, t) strides, dtype, stream
         [_P, _P, _P, *[_LL] * 9, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _F,
-         _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
+         _I, _U, _U, _F, _U, _U, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention": (
         "stlt_blockwise_attention",
@@ -162,10 +166,10 @@ SIGNATURES = {
         "stlt_flash_attention_bwd",
         # q, k, v, dO, their (b, t, n) strides, bias, its (b, n, t) strides,
         # lse, dsum, dq, dk, dv, B, T, S, N, D, scale, dropout, seed, thresh,
-        # dropout_scale, row_base, mask (or null), its (b, n, t) strides,
-        # dtype, stream
+        # dropout_scale, row_base, head0, heads, mask (or null), its (b, n, t)
+        # strides, dtype, stream
         [_P, _P, _P, _P, *[_LL] * 12, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _P, _LL, _LL, _LL, _I, _P],
+         _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _U, _P, _LL, _LL, _LL, _I, _P],
     ),
     "blockwise_attention_bwd": (
         "stlt_blockwise_attention_bwd",

@@ -30,12 +30,16 @@ def dot_product_attention(
     causal: bool = False,
     kv_lengths: Optional[torch.Tensor] = None,
     dropout_row0: int = 0,
+    dropout_head0: int = 0,
+    dropout_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """q: [B, T, N, D]; k, v: [B, S, N, D]; returns [B, T, N, D] in v's
     dtype (see ``flash_attention``; ``dropout_row0`` the global index of
-    q's first row, at which a seed's keep bits are hashed)."""
+    q's first row and ``dropout_head0`` that of its first head among
+    ``dropout_heads``, at which a seed's keep bits are hashed)."""
     del use_pallas  # the device decides
     return flash_attention(
         q, k, v, bias=bias, dropout_mask=dropout_mask, dropout_rate=dropout_rate,
         dropout_seed=dropout_seed, causal=causal, kv_lengths=kv_lengths, dropout_row0=dropout_row0,
+        dropout_head0=dropout_head0, dropout_heads=dropout_heads,
     )

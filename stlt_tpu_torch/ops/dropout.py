@@ -9,10 +9,12 @@ A keep bit is ``lowbias32(counter ^ lane) >= thresh`` with
 ``thresh = min(round(rate * 2**32), 2**32 - 1)``, all arithmetic mod 2**32:
 
 - attention probabilities: lane ``lowbias32((b * N + n) ^ seed)`` for the
-  global row ``b`` and head ``n``, counter ``t * S + s`` with the unpadded
-  key count ``S``;
+  global row ``b`` and the global head ``n`` of the N, counter ``t * S +
+  s`` with the unpadded key count ``S`` (a model rank's N / M heads are
+  heads ``n0 + n`` of the N, ``n0 = m N / M``: JAX's ``_keep_block_heads``);
 - the layer tail's three sites: lane ``lowbias32(seed ^ tag)``, counter
-  ``token * width + feature``.
+  ``token * width + feature`` over the whole width (a model rank's FF / M
+  hidden units are features ``f0 + c`` of the FF, ``f0 = m FF / M``).
 
 The CUDA kernels hash the same bits in place (``csrc/common.cuh``). Here the
 arithmetic runs in int64 masked to 32 bits after every multiply and xor
@@ -35,7 +37,7 @@ a map.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -127,14 +129,20 @@ def keep_block(seed: int, b0: Rows, n: int, t0: int, s0: int, shape,
 
 
 def hash_keep_mask(seed: int, B: int, N: int, T: int, S: int, rate: float,
-                   device=None, b0: Rows = 0) -> torch.Tensor:
+                   device=None, b0: Rows = 0, n0: int = 0,
+                   heads: Optional[int] = None) -> torch.Tensor:
     """Keep bits [B, N, T, S] (bool) of the attention-probability dropout:
     ``hash_keep_mask``; with ``b0`` the rows [b0, b0 + B) of a batch's
     bits (``hash_keep_mask(seed, b0 + B, ...)[b0:]``), with a map the rows
-    g(0), ..., g(B - 1)."""
+    g(0), ..., g(B - 1); with ``n0`` and ``heads`` (the whole N, default N)
+    the heads [n0, n0 + N) of the ``heads`` (``hash_keep_mask(seed, B,
+    heads, ...)[:, n0:n0 + N]``): a model rank's heads."""
+    heads = N if heads is None else heads
+    if not 0 <= n0 <= heads - N:
+        raise ValueError(f"heads [{n0}, {n0 + N}) do not lie in the {heads}")
     thresh = dropout_thresh(rate)
     return torch.stack(
-        [keep_block(seed, b0, n, 0, 0, (B, T, S), N, S, thresh, device) for n in range(N)], dim=1
+        [keep_block(seed, b0, n0 + n, 0, 0, (B, T, S), heads, S, thresh, device) for n in range(N)], dim=1
     )
 
 
@@ -160,11 +168,16 @@ def hash_keep_rows(seed: int, tag: int, rows: int, width: int, rate: float,
 
 
 def hashed_dropout(v: torch.Tensor, seed: int, tag: int, rate: float,
-                   token0: Rows = 0) -> torch.Tensor:
+                   token0: Rows = 0, f0: int = 0, width: Optional[int] = None) -> torch.Tensor:
     """One tail dropout site: ``(v.f32 * keep * 1/(1-rate)).to(v.dtype)`` with
     the stream of ``tag`` over ``v``'s tokens (all but the last dim), the
-    first of them the global token ``token0`` (or their map)."""
-    width = v.shape[-1]
-    keep = hash_keep_rows(seed, tag, v.numel() // width, width, rate, v.device, token0)
+    first of them the global token ``token0`` (or their map); ``v``'s
+    features are ``f0, ..., f0 + v.shape[-1] - 1`` of a stream ``width``
+    wide (default: v's own; a model rank's columns of the mid site)."""
+    fw = v.shape[-1]
+    width = fw if width is None else width
+    if not 0 <= f0 <= width - fw:
+        raise ValueError(f"features [{f0}, {f0 + fw}) do not lie in the {width}")
+    keep = keep_rows(seed, tag, token0, f0, (v.numel() // fw, fw), width, dropout_thresh(rate), v.device)
     keep = keep.reshape(v.shape).to(torch.float32)
     return (v.to(torch.float32) * keep * (1.0 / (1.0 - rate))).to(v.dtype)

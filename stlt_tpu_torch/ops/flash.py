@@ -221,22 +221,25 @@ def check_mask(op: str, dropout_mask, B: int, N: int, T: int, S: int) -> None:
                          f"{S}], got {list(shape)}")
 
 
-def _keepc(B, N, T, S, device, dropout_mask, dropout_rate, dropout_seed, dropout_row0: int = 0):
+def _keepc(B, N, T, S, device, dropout_mask, dropout_rate, dropout_seed, dropout_row0: int = 0,
+           dropout_head0: int = 0, dropout_heads: Optional[int] = None):
     """The scaled keep mask [B, N, T, S] f32 (keep * 1/(1 - rate)), or None
     without dropout; a seed's bits hashed at the global rows from
-    ``dropout_row0``."""
+    ``dropout_row0`` and the global heads from ``dropout_head0`` of
+    ``dropout_heads`` (default N)."""
     if dropout_mask is not None:
         check_mask("attention", dropout_mask, B, N, T, S)
         keep = dropout_mask.to(device=device, dtype=torch.float32)
     elif dropout_seed is not None and dropout_rate > 0.0:
         keep = hash_keep_mask(int(dropout_seed), B, N, T, S, dropout_rate, device,
-                              dropout_row0).to(torch.float32)
+                              dropout_row0, dropout_head0, dropout_heads).to(torch.float32)
     else:
         return None
     return keep * (1.0 / (1.0 - dropout_rate))
 
 
-def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed, dropout_row0=0):
+def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed, dropout_row0=0,
+                   dropout_head0=0, dropout_heads=None):
     """f32 (probabilities [B, N, T, S], after dropout; values [B, N, S, D];
     the row max and the row sum of exp, each [B, N, T])."""
     B, T, N, D = q.shape
@@ -249,18 +252,20 @@ def _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed, drop
     probs = torch.exp(logits - m)
     l = probs.sum(dim=-1, keepdim=True)
     probs = probs / l
-    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0)
+    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0,
+                   dropout_head0, dropout_heads)
     if keepc is not None:
         probs = probs * keepc
     return probs, vt, m[..., 0], l[..., 0]
 
 
 def fused_attention_plain(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: float = 0.0,
-                          dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0):
+                          dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0,
+                          dropout_head0: int = 0, dropout_heads: Optional[int] = None):
     """Plain PyTorch version of :func:`fused_attention`."""
     _check_dropout(dropout_mask, dropout_rate, dropout_seed)
     probs, vt, m, l = _softmax_parts(q, k, v, bias, dropout_mask, dropout_rate, dropout_seed,
-                                     dropout_row0)
+                                     dropout_row0, dropout_head0, dropout_heads)
     out = (probs @ vt).transpose(1, 2).to(v.dtype)
     return (out, m + torch.log(l)) if with_lse else out
 
@@ -301,8 +306,8 @@ def blockwise_attention_plain(q, k, v, *, bias=None, kv_lengths=None, causal: bo
 
 def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
                         causal: bool = False, dropout_mask=None, dropout_rate: float = 0.0,
-                        dropout_seed=None, offsets=None,
-                        dropout_row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dropout_seed=None, offsets=None, dropout_row0: int = 0, dropout_head0: int = 0,
+                        dropout_heads: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of both backward kernels: (dq, dk, dv) in q's,
     k's and v's dtypes, from the forward's lse [B, N, T] and dsum =
     rowsum(dO o out) [B, N, T] (see the module docstring). In lengths mode
@@ -334,7 +339,8 @@ def attention_bwd_plain(q, k, v, dout, lse, dsum, *, bias=None, kv_lengths=None,
         ds = torch.where(live, ds, zero)
     dp = dot @ vt.transpose(-1, -2)
     pk = p
-    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0)
+    keepc = _keepc(B, N, T, S, q.device, dropout_mask, dropout_rate, dropout_seed, dropout_row0,
+                   dropout_head0, dropout_heads)
     if keepc is not None:
         pk = p * keepc
         dp = dp * keepc
@@ -431,6 +437,16 @@ def _dropout_args(op: str, dropout_mask, dropout_rate: float, dropout_seed, q, S
     return (1, 0, 0, 1.0 / (1.0 - dropout_rate), 0, m.data_ptr(), m.stride(0), mn, m.stride(2)), m
 
 
+def _with_heads(drop, N: int, head0: int, heads: Optional[int]):
+    """The short kernels' dropout words: :func:`_dropout_args`' with the
+    head base and the whole head count after the row base (the launch's
+    heads are [head0, head0 + N) of ``heads``, default N)."""
+    heads = N if heads is None else heads
+    if not 0 <= head0 <= heads - N:
+        raise ValueError(f"dropout heads [{head0}, {head0 + N}) do not lie in the {heads}")
+    return (*drop[:5], head0, heads, *drop[5:])
+
+
 def _bias_view(op, bias, B, N, T, S, device):
     """(the f32 bias as a [B, bn, T, S] view with a contiguous last dim or
     None, its (b, n, t) strides with 0 for broadcast dims)."""
@@ -455,21 +471,27 @@ def _stream(device) -> int:
 
 
 def fused_attention(q, k, v, bias=None, *, dropout_mask=None, dropout_rate: float = 0.0,
-                    dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0):
+                    dropout_seed=None, with_lse: bool = False, dropout_row0: int = 0,
+                    dropout_head0: int = 0, dropout_heads: Optional[int] = None):
     """``drop(softmax(q k^T / sqrt(D) + bias)) v`` over whole rows (the short
     kernel, 65-512 tokens in the models). q: [B, T, N, D]; k, v: [B, S, N,
     D], read through their strides; bias: f32, broadcastable to [B, N, T,
-    S]. Returns [B, T, N, D] contiguous in v's dtype, and with ``with_lse``
-    also lse [B, N, T] f32 (for the backward)."""
+    S]. A seed's keep bits are hashed at the global rows from
+    ``dropout_row0`` and the global heads [dropout_head0, dropout_head0 +
+    N) of ``dropout_heads`` (default N: a model rank's heads of the
+    model's). Returns [B, T, N, D] contiguous in v's dtype, and with
+    ``with_lse`` also lse [B, N, T] f32 (for the backward)."""
     if _on_cpu(q, "flash_attention"):
         return fused_attention_plain(q, k, v, bias, dropout_mask=dropout_mask,
                                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                                     with_lse=with_lse, dropout_row0=dropout_row0)
+                                     with_lse=with_lse, dropout_row0=dropout_row0,
+                                     dropout_head0=dropout_head0, dropout_heads=dropout_heads)
     op = "flash_attention"
     code = _check_heads(op, q, k, v)
     B, T, N, D = q.shape
     S = k.shape[1]
     drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
+    drop = _with_heads(drop, N, dropout_head0, dropout_heads)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     out = torch.empty((B, T, N, D), dtype=v.dtype, device=q.device)
     lse = torch.empty((B, N, T), dtype=torch.float32, device=q.device) if with_lse else None
@@ -555,20 +577,24 @@ def _bwd_operands(op, q, k, v, dout, lse, dsum):
 
 
 def fused_attention_bwd(q, k, v, dout, lse, dsum, bias=None, *, dropout_mask=None,
-                        dropout_rate: float = 0.0, dropout_seed=None, dropout_row0: int = 0):
+                        dropout_rate: float = 0.0, dropout_seed=None, dropout_row0: int = 0,
+                        dropout_head0: int = 0, dropout_heads: Optional[int] = None):
     """The short kernel's backward (``_fused_backward``): (dq, dk, dv) of
     :func:`fused_attention` for the cotangent ``dout`` [B, T, N, D], from its
-    lse and ``dsum = rowsum(dout o out)`` (both [B, N, T] f32). Returns
-    contiguous tensors in q's dtype."""
+    lse and ``dsum = rowsum(dout o out)`` (both [B, N, T] f32), the keep
+    bits at the forward's global rows and heads. Returns contiguous tensors
+    in q's dtype."""
     if _on_cpu(q, "flash_attention_bwd"):
         return attention_bwd_plain(q, k, v, dout, lse, dsum, bias=bias, dropout_mask=dropout_mask,
                                    dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                                   dropout_row0=dropout_row0)
+                                   dropout_row0=dropout_row0, dropout_head0=dropout_head0,
+                                   dropout_heads=dropout_heads)
     op = "flash_attention_bwd"
     dout, code, lse, dsum, (dq, dk, dv) = _bwd_operands(op, q, k, v, dout, lse, dsum)
     B, T, N, D = q.shape
     S = k.shape[1]
     drop, mask = _dropout_args(op, dropout_mask, dropout_rate, dropout_seed, q, S, dropout_row0)
+    drop = _with_heads(drop, N, dropout_head0, dropout_heads)
     b4, strides = _bias_view(op, bias, B, N, T, S, q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
@@ -665,6 +691,8 @@ def flash_attention(
     causal: bool = False,
     kv_lengths: Optional[torch.Tensor] = None,
     dropout_row0: int = 0,
+    dropout_head0: int = 0,
+    dropout_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """q: [B, T, N, D]; k, v: [B, S, N, D]; bias broadcastable to [B, N, T,
     S], or ``kv_lengths`` [B] int (+ ``causal``) for the key-padding+causal
@@ -673,7 +701,10 @@ def flash_attention(
     ``dropout_rate`` drops probabilities with hashed keep bits (at the
     global rows from ``dropout_row0``: a slice of a batch), a
     ``dropout_mask`` [B, 1|N, T, S] with the caller's (see the module
-    docstring). Returns [B,
+    docstring); below 513 tokens ``dropout_head0`` and ``dropout_heads``
+    place q's N heads among the model's (a model rank's: the keep bits of
+    those heads; the blockwise kernels hash at their own heads, and refuse
+    a head base with a seed and a rate above 0). Returns [B,
     T, N, D] in v's dtype. From 513 tokens on the blockwise kernel runs (in
     lengths mode with ``kv_lengths``, else in dense-bias mode), below it the
     short kernel; when q, k or v
@@ -688,11 +719,16 @@ def flash_attention(
     kw = dict(dropout_mask=dropout_mask, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
               dropout_row0=dropout_row0)
     if blockwise:
+        hashed = dropout_seed is not None and dropout_rate > 0.0
+        if hashed and (dropout_head0 or dropout_heads not in (None, q.shape[2])):
+            raise NotImplementedError("the blockwise attention kernels hash their dropout at the "
+                                      "launch's own heads: a head base waits for ROADMAP.md item "
+                                      "A9 (model axis, long-clip training)")
         kw.update(bias=bias, kv_lengths=kv_lengths, causal=causal)
-    elif kv_lengths is not None:
-        kw["bias"] = _lengths_dense_bias(kv_lengths.to(q.device), T, S, causal)
     else:
-        kw["bias"] = bias
+        kw.update(dropout_head0=dropout_head0, dropout_heads=dropout_heads,
+                  bias=bias if kv_lengths is None else _lengths_dense_bias(kv_lengths.to(q.device), T, S,
+                                                                           causal))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _Attention.apply(q, k, v, blockwise, kw)
     return blockwise_attention(q, k, v, **kw)[0] if blockwise else fused_attention(q, k, v, **kw)

@@ -208,13 +208,14 @@ def _bias3(bias: Optional[torch.Tensor], rows: int, seq: int, device,
 
 
 def _keep_scale(seed: Optional[int], dropout_rate: float, B: int, N: int, T: int, device,
-                row0: Rows = 0):
+                row0: Rows = 0, head0: int = 0, heads: Optional[int] = None):
     """keep * 1/(1-rate) [B, N, T, T] f32 of the probability dropout at the
-    global rows [row0, row0 + B), or None when it is off (no seed or rate
-    0), as in ``_fused_proj_train_fwd``."""
+    global rows [row0, row0 + B) and the global heads [head0, head0 + N) of
+    ``heads`` (default N), or None when it is off (no seed or rate 0), as
+    in ``_fused_proj_train_fwd``."""
     if seed is None or dropout_rate <= 0.0:
         return None
-    keep = hash_keep_mask(seed, B, N, T, T, dropout_rate, device, row0).to(torch.float32)
+    keep = hash_keep_mask(seed, B, N, T, T, dropout_rate, device, row0, head0, heads).to(torch.float32)
     return keep * (1.0 / (1.0 - dropout_rate))
 
 
@@ -391,14 +392,18 @@ def fused_proj_attention_train_plain(
 def fused_proj_attention_train_bwd_plain(
     x, wqkv, bqkv, wo, bias, g, seed: Optional[int], *, num_heads: int,
     dropout_rate: float, compute_dtype: torch.dtype, rows_live=None, row0: Rows = 0,
+    head0: int = 0, heads: Optional[int] = None,
 ):
     """Plain PyTorch version of the backward kernel, step for step as
-    ``_fused_proj_bwd_body``: (dqkv [B, T, 3H] in the compute dtype, dWo
-    [H, H] f32, dbo [H] f32). Dead rows get zero dqkv and add nothing to
-    dWo and dbo: the forward's dead rows are constant zeros."""
+    ``_fused_proj_bwd_body``: (dqkv [B, T, 3Hq] in the compute dtype, dWo
+    [Hq, H] f32, dbo [H] f32) with Hq = wo.shape[0]: H, or a model rank's
+    H / M, whose heads are the global [head0, head0 + num_heads) of
+    ``heads`` (row 4's partial mode). Dead rows get zero dqkv and add
+    nothing to dWo and dbo: the forward's dead rows are constant zeros."""
     B, T, H = x.shape
     N = num_heads
-    D = H // N
+    Hq = wo.shape[0]
+    D = Hq // N
     cd = compute_dtype
     f32 = torch.float32
     q, k, v, p = _qkv_probs(x, wqkv, bqkv, bias, N, cd)
@@ -407,17 +412,17 @@ def fused_proj_attention_train_bwd_plain(
     do = dattn.reshape(B, T, N, D).transpose(1, 2)
     dp = do @ v.transpose(-1, -2)
     pv = p
-    keep = _keep_scale(seed, dropout_rate, B, N, T, x.device, row0)
+    keep = _keep_scale(seed, dropout_rate, B, N, T, x.device, row0, head0, heads)
     if keep is not None:
         pv = p * keep
         dp = dp * keep
-    attn = (pv @ v).transpose(1, 2).reshape(B * T, H)
+    attn = (pv @ v).transpose(1, 2).reshape(B * T, Hq)
     dz = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     scale = 1.0 / D ** 0.5
     dq = (dz @ k) * scale
     dk = (dz.transpose(-1, -2) @ q) * scale
     dv = pv.transpose(-1, -2) @ do
-    dqkv = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H)
+    dqkv = torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(B, T, 3 * Hq)
     g2 = g32.reshape(B * T, H)
     dwo = attn.to(cd).to(f32).t() @ g2.to(cd).to(f32)
     dbo = g2.sum(dim=0)
@@ -452,51 +457,61 @@ def proj_bwd_splits(tokens: int):
     return chunk, max(1, -(-tokens // chunk))
 
 
-def _proj_bwd_layout(B: int, T: int, H: int):
+def _proj_bwd_layout(B: int, T: int, H: int, inner: Optional[int] = None):
     """Byte offsets of the bf16 backward's scratch regions (the rows, the dWo
-    and the dbo partials) and its size."""
+    and the dbo partials) and its size; ``inner`` the q/k/v width Hq
+    (default H; a model rank's H / M)."""
+    Hq = H if inner is None else inner
     M = B * T
     _, splits = proj_bwd_splits(M)
-    ints = M * H * 14
+    ints = M * (4 * H + 10 * Hq)
     partial = ints + -(-(B + 1) * 4 // 16) * 16
-    partial_b = partial + splits * H * H * 4
+    partial_b = partial + splits * Hq * H * 4
     return ints, partial, partial_b, partial_b + splits * H * 4
 
 
-def proj_bwd_scratch(B: int, T: int, H: int, x: torch.Tensor) -> torch.Tensor:
+def proj_bwd_scratch(B: int, T: int, H: int, x: torch.Tensor, inner: Optional[int] = None) -> torch.Tensor:
     """The bf16 projection+attention backward's scratch
     (``csrc/fused_proj_attention_bwd.cu`` ``launch_tc``): the packed x,
     overwritten by the packed attention output attn, and the packed g in
     bf16 [B*T, H] each, qkv [B*T, 3H] in bf16, do [B*T, H] in f32, then the
     packed rows [B] and their live count (int32), then the dWo partials
     [splits, H, H] and the dbo partials [splits, H] in f32: 0.77 GB at the
-    512-clip spatial stage."""
-    return torch.empty(_proj_bwd_layout(B, T, H)[3], dtype=torch.uint8, device=x.device)
+    512-clip spatial stage. Under the model axis (``inner`` = Hq = H / M)
+    attn, qkv and do are Hq, 3Hq and Hq wide and the dWo partials [splits,
+    Hq, H]."""
+    return torch.empty(_proj_bwd_layout(B, T, H, inner)[3], dtype=torch.uint8, device=x.device)
 
 
-def proj_bwd_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int) -> dict:
+def proj_bwd_scratch_views(scratch: torch.Tensor, B: int, T: int, H: int,
+                           inner: Optional[int] = None) -> dict:
     """The regions of a :func:`proj_bwd_scratch` after a bf16 launch, by
     name: ``attn``, ``g``, ``qkv``, ``do`` (rows up to count*T are the packed
     rows', all B*T without rows_live, whose ``g`` region, ``rows`` and
     ``count`` stay unwritten: the kernels read g in place), ``rows`` (the
     live rows in order, then the dead), ``count``, ``partial`` [splits, H,
-    H] (each split's dWo) and ``partial_b`` [splits, H] (each split's dbo)."""
+    H] (each split's dWo) and ``partial_b`` [splits, H] (each split's dbo);
+    with ``inner`` = Hq those of the partial mode (attn, qkv and do Hq, 3Hq
+    and Hq wide, ``partial`` [splits, Hq, H])."""
+    Hq = H if inner is None else inner
     M = B * T
-    ints, partial, partial_b, end = _proj_bwd_layout(B, T, H)
-    bf = scratch[:M * H * 10].view(torch.bfloat16)
+    ints, partial, partial_b, end = _proj_bwd_layout(B, T, H, Hq)
+    bf_end = M * (4 * H + 6 * Hq)  # bytes of x / attn, g and qkv
+    bf = scratch[:bf_end].view(torch.bfloat16)
     iv = scratch[ints:ints + (B + 1) * 4].view(torch.int32)
     return {
-        "attn": bf[:M * H].view(M, H), "g": bf[M * H:2 * M * H].view(M, H),
-        "qkv": bf[2 * M * H:].view(M, 3 * H),
-        "do": scratch[M * H * 10:ints].view(torch.float32).view(M, H),
+        "attn": bf[:M * Hq].view(M, Hq), "g": bf[M * H:2 * M * H].view(M, H),
+        "qkv": bf[2 * M * H:].view(M, 3 * Hq),
+        "do": scratch[bf_end:ints].view(torch.float32).view(M, Hq),
         "rows": iv[:B], "count": iv[B:],
-        "partial": scratch[partial:partial_b].view(torch.float32).view(-1, H, H),
+        "partial": scratch[partial:partial_b].view(torch.float32).view(-1, Hq, H),
         "partial_b": scratch[partial_b:end].view(torch.float32).view(-1, H),
     }
 
 
 def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rate,
-                     compute_dtype, rows_live, scratch=None, row0: Rows = 0):
+                     compute_dtype, rows_live, scratch=None, row0: Rows = 0, head0: int = 0,
+                     heads: Optional[int] = None):
     """Launch csrc/fused_proj_attention_bwd.cu. bf16 (``launch_tc``) reads
     Wqkv and Wo in place (:func:`proj_bwd_weights`) and works in ``scratch``
     (:func:`proj_bwd_scratch`; allocated when None): the row scan and the
@@ -504,16 +519,25 @@ def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rat
     GEMM into the scratch's split partials and the ordered sums. f32: the
     SIMT backward kernel, then the split dWo/dbo reduction over the
     attention scratch it writes into partials of their own, and the same
-    ordered sums."""
+    ordered sums. wqkv [H, 3Hq], wo [Hq, H], dWo [Hq, H]: Hq = H in one
+    process; under the model axis a rank's q/k/v width, its ``num_heads``
+    heads hashed as the global heads from ``head0`` of ``heads`` (the whole
+    N; default num_heads)."""
     op = "fused_proj_attention_train_bwd"
     B, T, H = x.shape
-    code = _check_proj_kernel(op, x, wqkv, bqkv, wo, num_heads, compute_dtype)
+    Hq = wo.shape[0]
+    code = _check_kernel_dtypes(op, compute_dtype, x)
+    _check_partial_widths(op, H, Hq, num_heads)
+    if not 1 <= T <= _KERNEL_MAX_SEQ:
+        raise ValueError(f"{op}: the CUDA kernel takes T <= {_KERNEL_MAX_SEQ}, got T={T}")
+    if wqkv.shape != (H, 3 * Hq) or bqkv.shape != (3 * Hq,) or wo.shape != (Hq, H):
+        raise ValueError(f"{op}: weight shapes do not match H={H}, Hq={Hq}")
     cd = compute_dtype
     f32 = torch.float32
     tokens = B * T
     b3, row_stride, q_stride = _bias_operand(bias, B, T, x.device)
-    dqkv = torch.empty((B, T, 3 * H), dtype=cd, device=x.device)
-    dwo = torch.empty((H, H), dtype=f32, device=x.device)
+    dqkv = torch.empty((B, T, 3 * Hq), dtype=cd, device=x.device)
+    dwo = torch.empty((Hq, H), dtype=f32, device=x.device)
     dbo = torch.empty((H,), dtype=f32, device=x.device)
     if code == _DTYPE_CODES[torch.bfloat16]:
         x, g = aligned16(x), aligned16(g.to(cd))
@@ -521,9 +545,9 @@ def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rat
         bqkv = aligned16(bqkv.to(cd))
         live = tail_live_bytes(rows_live)
         chunk, splits = proj_bwd_splits(tokens)
-        _, at_w, at_b, size = _proj_bwd_layout(B, T, H)
+        _, at_w, at_b, size = _proj_bwd_layout(B, T, H, Hq)
         if scratch is None:
-            scratch = proj_bwd_scratch(B, T, H, x)
+            scratch = proj_bwd_scratch(B, T, H, x, Hq)
         elif scratch.nbytes < size or scratch.data_ptr() % 16:
             raise ValueError(f"{op}: the bf16 kernels take a 16-byte aligned scratch of "
                              f"{size} bytes (proj_bwd_scratch), got {scratch.nbytes}")
@@ -537,24 +561,23 @@ def _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, seed, *, num_heads, dropout_rat
         live = _live_flags(rows_live, B)
         # Split the dWo reduction over token chunks until about two waves of
         # 64 x 64 tiles fill the card's 132 SMs, each chunk >= 256 tokens.
-        tiles = (H // 64) ** 2
+        tiles = (Hq // 64) * (H // 64)
         splits = max(1, min(-(-264 // tiles), -(-tokens // 256)))
         per_split = -(-tokens // splits)
         chunk = -(-per_split // 32) * 32
-        scratch = torch.empty((tokens, H), dtype=cd, device=x.device)  # the attention output
-        partial = torch.empty((splits, H, H), dtype=f32, device=x.device)
+        scratch = torch.empty((tokens, Hq), dtype=cd, device=x.device)  # the attention output
+        partial = torch.empty((splits, Hq, H), dtype=f32, device=x.device)
         partial_b = torch.empty((splits, H), dtype=f32, device=x.device)
         partial_ptr, partial_b_ptr = partial.data_ptr(), partial_b.data_ptr()
+    ptrs = (x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), b3.data_ptr(), row_stride,
+            q_stride, g.data_ptr(), None if live is None else live.data_ptr(), dqkv.data_ptr(),
+            scratch.data_ptr(), partial_ptr, partial_b_ptr, dwo.data_ptr(), dbo.data_ptr(), B, T, H)
+    scale = float(1.0 / (Hq // num_heads) ** 0.5)
+    drop = _dropout_args(seed, dropout_rate, row0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _kernels.launch(
-            "fused_proj_attention_bwd", x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wo.data_ptr(), b3.data_ptr(), row_stride, q_stride, g.data_ptr(),
-            None if live is None else live.data_ptr(), dqkv.data_ptr(), scratch.data_ptr(),
-            partial_ptr, partial_b_ptr, dwo.data_ptr(), dbo.data_ptr(),
-            B, T, H, num_heads, float(1.0 / (H // num_heads) ** 0.5),
-            *_dropout_args(seed, dropout_rate, row0), splits, chunk, code, stream,
-        )
+        _kernels.launch("fused_proj_attention_bwd", *ptrs, Hq, num_heads, scale, *drop, head0,
+                        num_heads if heads is None else heads, splits, chunk, code, stream)
     LAUNCHES[op] += 1
     return dqkv, dwo, dbo
 
@@ -575,7 +598,7 @@ def proj_input_grads(x, wqkv, dqkv, compute_dtype):
     dtype, dWqkv = x^T dqkv and dbqkv = sum dqkv, both f32."""
     B, T, H = x.shape
     cd = compute_dtype
-    d2 = dqkv.reshape(B * T, 3 * H)
+    d2 = dqkv.reshape(B * T, -1)
     dx = _mm_f32(d2, wqkv.to(cd).t()).reshape(B, T, H).to(x.dtype)
     dwqkv = _mm_f32(x.reshape(B * T, H).to(cd).t(), d2)
     return dx, dwqkv, d2.sum(dim=0, dtype=torch.float32)  # f32 sums, no f32 copy of dqkv
@@ -1189,12 +1212,21 @@ def _check_partial_widths(op: str, H: int, Hq: int, num_heads: int) -> None:
 
 def fused_proj_attention_partial_plain(x, wqkv, bqkv, wo, bias, *, num_heads: int,
                                        compute_dtype: torch.dtype,
-                                       rows_live: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_proj_attention_partial`."""
+                                       rows_live: Optional[torch.Tensor] = None,
+                                       seed: Optional[int] = None, dropout_rate: float = 0.0,
+                                       row0: Rows = 0, head0: int = 0,
+                                       heads: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_proj_attention_partial` (with
+    ``seed`` and ``dropout_rate``: of the train forward's partial mode, the
+    keep bits at the global rows from ``row0`` and the global heads
+    [head0, head0 + num_heads) of ``heads``)."""
     B, T, _ = x.shape
     cd = compute_dtype
     f32 = torch.float32
     _, _, v, probs = _qkv_probs(x, wqkv, bqkv, bias, num_heads, cd)
+    keep = _keep_scale(seed, dropout_rate, B, num_heads, T, x.device, row0, head0, heads)
+    if keep is not None:
+        probs = probs * keep
     attn = (probs @ v).transpose(1, 2).reshape(B, T, wo.shape[0])
     return _zero_dead_rows(attn.to(cd).to(f32) @ wo.to(cd).to(f32), rows_live)
 
@@ -1216,8 +1248,15 @@ def fused_proj_attention_partial(x, wqkv, bqkv, wo, bias, *, num_heads: int,
 
 
 def _launch_proj_partial(x, wqkv, bqkv, wo, bias, *, num_heads, compute_dtype, rows_live,
-                         scratch=None) -> torch.Tensor:
-    op = "fused_proj_attention"
+                         scratch=None, train: bool = False, seed: Optional[int] = None,
+                         dropout_rate: float = 0.0, row0: Rows = 0, head0: int = 0,
+                         heads: Optional[int] = None) -> torch.Tensor:
+    """Launch ``stlt_fused_proj_attention_partial``: row 1's partial mode, or
+    with ``train`` row 3's (counted as ``fused_proj_attention_train``), the
+    probabilities dropped with ``seed`` and ``dropout_rate``, the heads
+    hashed as the global heads from ``head0`` of ``heads`` (default
+    num_heads)."""
+    op = "fused_proj_attention_train" if train else "fused_proj_attention"
     B, T, H = x.shape
     Hq = wo.shape[0]
     code = _check_kernel_dtypes(op, compute_dtype, x)
@@ -1248,10 +1287,62 @@ def _launch_proj_partial(x, wqkv, bqkv, wo, bias, *, num_heads, compute_dtype, r
             wo.data_ptr(), b3.data_ptr(), row_stride, q_stride,
             None if live is None else live.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            B, T, H, Hq, num_heads, float(1.0 / (Hq // num_heads) ** 0.5), code, stream,
+            B, T, H, Hq, num_heads, float(1.0 / (Hq // num_heads) ** 0.5),
+            *_dropout_args(seed, dropout_rate, row0), head0,
+            num_heads if heads is None else heads, code, stream,
         )
     LAUNCHES[op] += 1
     return out
+
+
+class _ProjAttentionTrainPartial(torch.autograd.Function):
+    """Row 3's partial mode and row 4's: a model rank's heads of the train
+    sublayer up to the f32 partial o_m Wo_m, and its backward for the
+    cotangent of the ranks' summed partials (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bias, rows_live, seed, num_heads, dropout_rate,
+                compute_dtype, row0, head0, heads):
+        ctx.save_for_backward(x, wqkv, bqkv, wo, bias, rows_live)
+        ctx.config = dict(num_heads=num_heads, dropout_rate=dropout_rate,
+                          compute_dtype=compute_dtype, row0=row0, head0=head0, heads=heads)
+        ctx.seed = seed
+        kw = dict(ctx.config, rows_live=rows_live, seed=seed)
+        if _on_cpu(x, "fused_proj_attention_train"):
+            return fused_proj_attention_partial_plain(x, wqkv, bqkv, wo, bias, **kw)
+        return _launch_proj_partial(x, wqkv, bqkv, wo, bias, train=True, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, wo, bias, rows_live = ctx.saved_tensors
+        kw = dict(ctx.config, rows_live=rows_live)
+        wqkv = wqkv.to(ctx.config["compute_dtype"])
+        g = g.to(ctx.config["compute_dtype"])  # the out GEMM's operand, as row 4 takes it
+        if _on_cpu(g, "fused_proj_attention_train_bwd"):
+            dqkv, dwo, _ = fused_proj_attention_train_bwd_plain(x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
+        else:
+            dqkv, dwo, _ = _launch_proj_bwd(x, wqkv, bqkv, wo, bias, g, ctx.seed, **kw)
+        dx, dwqkv, dbqkv = proj_input_grads(x, wqkv, dqkv, ctx.config["compute_dtype"])
+        return dx, dwqkv, dbqkv, dwo, None, None, None, None, None, None, None, None, None
+
+
+def fused_proj_attention_train_partial(x, wqkv, bqkv, wo, bias, seed: Optional[int], *, num_heads: int,
+                                       dropout_rate: float, compute_dtype: torch.dtype,
+                                       rows_live: Optional[torch.Tensor] = None, row0: Rows = 0,
+                                       head0: int = 0, heads: Optional[int] = None) -> torch.Tensor:
+    """Differentiable row 3 partial mode: :func:`fused_proj_attention_partial`
+    with the train forward's hashed probability dropout, the rank's
+    ``num_heads`` heads hashed as the global heads [head0, head0 +
+    num_heads) of ``heads`` (the model's N; default num_heads) at the
+    global rows from ``row0``. Returns the f32 partial [B, T, H] (no bo)
+    for the model group's sum and :func:`sublayer_sum`. Its backward takes
+    the cotangent of that sum and launches row 4 at the rank's width and
+    head base on a CUDA tensor, the plain backward on a CPU one: dWqkv_m,
+    dbqkv_m and dWo_m are the rank's whole shard gradients; dx is the
+    rank's part, which the caller sums over the model group (``parallel/mesh.model_copy``)."""
+    return _ProjAttentionTrainPartial.apply(
+        x, wqkv, bqkv, wo, bias, rows_live, seed, num_heads, float(dropout_rate), compute_dtype,
+        RowMap.of(row0), int(head0), num_heads if heads is None else int(heads))
 
 
 def sublayer_sum_plain(s, bo, *, compute_dtype: torch.dtype,
@@ -1262,13 +1353,7 @@ def sublayer_sum_plain(s, bo, *, compute_dtype: torch.dtype,
     return _zero_dead_rows(y, rows_live)
 
 
-def sublayer_sum(s, bo, *, compute_dtype: torch.dtype, rows_live: Optional[torch.Tensor] = None,
-                 op: str = "fused_proj_attention") -> torch.Tensor:
-    """The sum epilogue of rows 1 and 5 (``op``): a = round(s + bo) in the
-    compute dtype from the model ranks' summed f32 partials s [B, T, H]
-    (bo [H] rounded to the compute dtype first, as the one-process out GEMM
-    takes it); rows whose ``rows_live`` flag is 0 are exact zeros. A CUDA
-    tensor launches the row's ``*_sum`` kernel (``csrc/<op>.cu``)."""
+def _sublayer_sum(s, bo, compute_dtype, rows_live, op) -> torch.Tensor:
     name = f"{op}_sum"
     if _on_cpu(s, name):
         return sublayer_sum_plain(s, bo, compute_dtype=compute_dtype, rows_live=rows_live)
@@ -1286,6 +1371,32 @@ def sublayer_sum(s, bo, *, compute_dtype: torch.dtype, rows_live: Optional[torch
                         out.data_ptr(), B, T, H, code, stream)
     SUM_LAUNCHES[name] += 1
     return out
+
+
+class _SublayerSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, bo, compute_dtype, rows_live, op):
+        ctx.save_for_backward(rows_live)
+        return _sublayer_sum(s, bo, compute_dtype, rows_live, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows_live,) = ctx.saved_tensors
+        ds = _zero_dead_rows(g.to(torch.float32), rows_live)
+        return ds, ds.sum(dim=(0, 1)), None, None, None
+
+
+def sublayer_sum(s, bo, *, compute_dtype: torch.dtype, rows_live: Optional[torch.Tensor] = None,
+                 op: str = "fused_proj_attention") -> torch.Tensor:
+    """The sum epilogue of rows 1 and 5 (``op``): a = round(s + bo) in the
+    compute dtype from the model ranks' summed f32 partials s [B, T, H]
+    (bo [H] rounded to the compute dtype first, as the one-process out GEMM
+    takes it); rows whose ``rows_live`` flag is 0 are exact zeros. A CUDA
+    tensor launches the row's ``*_sum`` kernel (``csrc/<op>.cu``). Its
+    gradient (training, row 3's partial mode) passes straight through the
+    rounding: ds = g and dbo = sum g over the live rows, both f32; dead rows
+    get zeros."""
+    return _SublayerSum.apply(s, bo, compute_dtype, rows_live, op)
 
 
 def fused_cross_attention_partial_plain(x, ctx, wq, bq, wkv, bkv, wo, bias, *, num_heads: int,

@@ -14,8 +14,11 @@ rows of every global batch, the gradients summed over the ranks) and the
 ``context`` axis runs (``--context_parallel``, the ring of
 ``ops/ring.py``), alone or both at once (a grid of D rings of C ranks,
 each with its ring group and its data group). The ``model`` axis
-(``--model_parallel M``) serves: each rank holds its shards, and the
-row-parallel products' partials are summed over its model group; training
-under it raises with the ``ROADMAP.md`` item it waits for. A process may
-start several ranks (``distributed.run_ranks``).
+(``--model_parallel M``) serves and trains: each rank holds its shards,
+the row-parallel products' partials are summed over its model group and
+the column-parallel inputs' gradients too (``mesh.model_sum``,
+``mesh.model_copy``); checkpoints are gathered to full tensors
+(``sharding.py``). Training takes clips below the fused train tail's gate
+and no ring; the rest raises with the ``ROADMAP.md`` item it waits for. A
+process may start several ranks (``distributed.run_ranks``).
 """

@@ -16,7 +16,11 @@ the train step consult under a data axis, and :func:`frame_span` /
 :func:`frame_rows` the global frame rows of a ring rank's dropout sites;
 :func:`active_model_mesh` the one the sharded layers consult.
 :func:`all_sum`, :func:`broadcast` and :func:`all_gather` are the
-collectives of all three, over one of the groups.
+collectives of all three, over one of the groups (no gradient);
+:func:`model_sum` and :func:`model_copy` are Megatron's two operators of
+the model group, with gradients: the row-parallel products' sum (backward
+the identity) and the copy into the column-parallel layers (backward the
+sum of the input's partial gradients).
 """
 
 from __future__ import annotations
@@ -78,6 +82,11 @@ class Mesh:
     def ring_rank(self, index: int) -> int:
         """The global rank of context index ``index`` of this rank's ring."""
         return self.rank - self.context_index + index % self.context_size
+
+    def model_rank(self, index: int) -> int:
+        """The global rank of model index ``index`` of this rank's model
+        group."""
+        return self.rank + (index % self.model_size - self.model_index) * self.context_size
 
     def first_clip(self, clips: int) -> int:
         """The global index of this rank's first clip in a forward of
@@ -172,6 +181,44 @@ def all_gather(x: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
     return torch.stack(parts).to(x.device)
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_sum(x, mesh, mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g, ctx.mesh, ctx.mesh.model_group), None
+
+
+def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of a row-parallel product's partials ``x`` over the model
+    group (:func:`all_sum`: in f32, the same bits on every rank). The
+    cotangent of the sum is the same on every rank and is each partial's
+    own: the backward passes it through unchanged."""
+    return _ModelSum.apply(x, mesh)
+
+
+def model_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x``, a replicated activation, as the input of a column-parallel
+    layer (q/k/v, ``linear1``, ``fc1``). Each rank's cotangent of it is the
+    part that the rank's columns give; the backward sums the parts over the
+    model group (in f32), so x's gradient is the whole one on every rank
+    and a replicated parameter upstream is not counted M times."""
+    return _ModelCopy.apply(x, mesh)
 
 
 # --- active-mesh registry ----------------------------------------------------

@@ -23,14 +23,28 @@ Two traps of the port's names:
 
 M must divide what it shards: the heads, FF and H. JAX's GSPMD pads an
 uneven shard; the port refuses one (:func:`check_model_axis`).
+
+Training keeps every rank's state at its shards: :func:`shard_model_` cuts
+the model before AdamW is built (so its moments are shards from birth) and
+marks each sharded parameter (``model_shard_dim``, which the clip's norm
+reads). What a checkpoint holds is always full: :func:`gather_state_dict`
+(the inverse of :func:`shard_state_dict`) and :func:`full_widths` give
+every rank the full tensors, and AdamW's state is cut and gathered by its
+parameter's spec (:func:`shard_optimizer_state`,
+:func:`gather_optimizer_state`), as JAX's ``tree_shardings_like`` gives the
+moments their parameter's sharding. Gathering is collective: every rank of
+a model group calls it, in the same order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import contextlib
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
+
+from stlt_tpu_torch.parallel.mesh import all_gather
 
 _COLUMN_PARALLEL = {"linear1", "fc1"}
 _ROW_PARALLEL = {"out_proj", "linear2"}
@@ -77,6 +91,87 @@ def shard_state_dict(full: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.
     return {k: shard_tensor(k, v, mesh.model_size, mesh.model_index) for k, v in full.items()}
 
 
+def gather_tensor(name: str, local: torch.Tensor, mesh) -> torch.Tensor:
+    """The full parameter ``name`` from every model rank's shard ``local``
+    (the inverse of :func:`shard_tensor`; collective over
+    ``mesh.model_group`` when it is sharded, the bits exchanged as they
+    are); ``local`` itself when it is replicated."""
+    dim = param_spec(name)
+    if dim is None or mesh.model_size == 1:
+        return local
+    parts = list(all_gather(local.detach(), mesh, mesh.model_group))
+    if name.split(".")[-1] in _STACKED_QKV:  # each shard holds a third of q, of k and of v
+        thirds = [p.chunk(3, dim=dim) for p in parts]
+        return torch.cat([t[i] for i in range(3) for t in thirds], dim=dim)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_state_dict(local: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The full state dict from this rank's local one (every rank calls it,
+    with the same keys; every rank gets the full tensors)."""
+    return {k: gather_tensor(k, v, mesh) for k, v in local.items()}
+
+
+def _attention_modules(model: nn.Module):
+    return [m for m in model.modules()
+            if getattr(m, "num_heads", None) is not None and hasattr(m, "in_proj_weight")]
+
+
+@contextlib.contextmanager
+def full_widths(model: nn.Module, mesh):
+    """Within the block ``model`` holds its full parameters and heads, a
+    one-process model (its ``state_dict``, ``utils/convert.save_checkpoint``
+    read it as such), then its shards again. Collective: every rank of the
+    model group enters it. A no-op without a model axis."""
+    if mesh is None or mesh.model_size == 1:
+        yield model
+        return
+    params = dict(model.named_parameters())
+    local = {n: p.data for n, p in params.items()}
+    full = gather_state_dict(local, mesh)
+    attention = _attention_modules(model)
+    try:
+        for n, p in params.items():
+            p.data = full[n]
+        for module in attention:
+            module.num_heads *= mesh.model_size
+        yield model
+    finally:
+        for n, p in params.items():
+            p.data = local[n]
+        for module in attention:
+            module.num_heads //= mesh.model_size
+
+
+def optimizer_param_names(optimizer: torch.optim.Optimizer, model: nn.Module) -> List[str]:
+    """The parameter name of each index of ``optimizer.state_dict()``'s
+    state (its groups' parameters in order)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
+
+
+def _map_optimizer_state(state: Mapping[str, Any], names: List[str], fn) -> Dict[str, Any]:
+    out = dict(state)
+    out["state"] = {idx: {k: fn(names[idx], v) if torch.is_tensor(v) and v.dim() > 0 else v
+                          for k, v in sorted(entry.items())}
+                    for idx, entry in sorted(state["state"].items())}
+    return out
+
+
+def shard_optimizer_state(full: Mapping[str, Any], names: List[str], mesh) -> Dict[str, Any]:
+    """This rank's cut of a full AdamW state dict (``exp_avg`` and
+    ``exp_avg_sq`` cut as their parameter ``names[idx]``, the step counts
+    as they are)."""
+    return _map_optimizer_state(full, names,
+                                lambda n, v: shard_tensor(n, v, mesh.model_size, mesh.model_index))
+
+
+def gather_optimizer_state(local: Mapping[str, Any], names: List[str], mesh) -> Dict[str, Any]:
+    """The full AdamW state dict from this rank's (collective, every rank
+    gets it): the inverse of :func:`shard_optimizer_state`."""
+    return _map_optimizer_state(local, names, lambda n, v: gather_tensor(n, v, mesh))
+
+
 def check_model_axis(model_parallel: int, hidden_size: int, num_heads: int) -> None:
     """Refuse a model axis that does not divide the heads, H or FF = 4H (a
     documented difference from JAX, whose GSPMD pads uneven shards)."""
@@ -91,21 +186,22 @@ def check_model_axis(model_parallel: int, hidden_size: int, num_heads: int) -> N
 
 def shard_model_(model: nn.Module, mesh) -> nn.Module:
     """Cut ``model``'s parameters to this rank's shards in place
-    (:func:`shard_state_dict`) and every attention module's ``num_heads``
-    to its N / M local heads; a no-op without a model axis. The model is
-    then at its local widths."""
+    (:func:`shard_state_dict`), each sharded one marked with its
+    ``model_shard_dim``, and every attention module's ``num_heads`` to its
+    N / M local heads; a no-op without a model axis. The model is then at
+    its local widths."""
     M = mesh.model_size
     if M == 1:
         return model
     local = shard_state_dict({n: p.detach() for n, p in model.named_parameters()}, mesh)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            if param_spec(name) is not None:
+            dim = param_spec(name)
+            if dim is not None:
                 param.data = local[name].to(param.device)
-    for module in model.modules():
-        heads = getattr(module, "num_heads", None)
-        if heads is not None and hasattr(module, "in_proj_weight"):
-            if heads % M:
-                raise ValueError(f"--model_parallel {M} does not divide the {heads} heads")
-            module.num_heads = heads // M
+                param.model_shard_dim = dim
+    for module in _attention_modules(model):
+        if module.num_heads % M:
+            raise ValueError(f"--model_parallel {M} does not divide the {module.num_heads} heads")
+        module.num_heads //= M
     return model

@@ -180,15 +180,15 @@ def set_conv_algorithms(device: torch.device) -> None:
     f32 convolutions stay f32 (no TF32). They are never timed
     (``cudnn.benchmark`` off): timing them costs seconds for each new batch
     shape and gave the CACNF step no gain (PERF.md). Alone or on a data
-    axis cuDNN's heuristics pick them. On a context ring
+    axis cuDNN's heuristics pick them. On a context ring or a model axis
     every rank runs the appearance branch replicated on the same clips:
     there they are also deterministic, so every rank computes the same
     forward and no weight gradient sums in an order of its own."""
     if device.type != "cuda":
         return
-    ring = active_context_mesh() is not None
+    replicated = active_context_mesh() is not None or active_model_mesh() is not None
     torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = ring
+    torch.backends.cudnn.deterministic = replicated
     torch.backends.cudnn.allow_tf32 = False
 
 

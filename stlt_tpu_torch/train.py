@@ -84,8 +84,20 @@ such rings: ring d takes the rows [d B / D, (d + 1) B / D), and after the
 ring's sum every gradient and the loss are summed over the data group (the
 ranks of one context index), so all D C ranks take the one process's step
 and keep equal weights. Only the coordinator (rank 0) writes the log file
-and the checkpoints. The flags the serving CLIs refuse (a model axis, fewer
-processes than C) are refused here too.
+and the checkpoints. The flags the serving CLIs refuse are refused here
+too.
+
+Every model trains under a model axis with ``--model_parallel M`` (one
+command starts the M ranks itself, ``parallel/distributed.run_ranks``;
+with ``--num_processes``, D replicas of M ranks): the model is built and
+loaded whole, then cut to the rank's Megatron shards before AdamW is made
+(``parallel/sharding.py``); the M ranks take one process's step, dropout
+hashed at the global heads and hidden units; the clip's norm is the whole
+model's; the best model and the step checkpoints are gathered to full
+tensors on every rank and written by the coordinator, and ``--resume_dir``
+cuts them again. Clips from the fused train tail's 256 frames on and
+``--context_parallel`` with it raise, naming ``ROADMAP.md`` item A9 (model
+axis, long-clip training).
 
     python -m stlt_tpu_torch.train --dataset_name something --dataset_type layout \
         --model_name stlt --train_dataset_path train.json --val_dataset_path val.json \
@@ -107,7 +119,10 @@ import torch
 from stlt_tpu_torch.data import collaters_factory, datasets_factory
 from stlt_tpu_torch.data.loader import Loader, to_device
 from stlt_tpu_torch.models import models_factory
+from stlt_tpu_torch.ops.fused_tail_train import tail_train_wants
 from stlt_tpu_torch.parallel import distributed
+from stlt_tpu_torch.parallel.mesh import active_model_mesh
+from stlt_tpu_torch.parallel.sharding import full_widths, shard_model_
 from stlt_tpu_torch.parser import build_parser
 from stlt_tpu_torch.predict import (
     build_data_config,
@@ -135,6 +150,8 @@ from stlt_tpu_torch.utils.convert import load_kinetics_r3d, read_state_dict, sav
 # The factory models with a ``backbone`` (the subtree --load_backbone_path,
 # --freeze_backbone and --save_backbone_path act on).
 BACKBONE_MODELS = ("stlt", "cacnf")
+# The factory models with a layout branch (its clip length picks the train tail).
+LAYOUT_MODELS = ("stlt", "lcf", "caf", "cacnf")
 
 
 @dataclasses.dataclass
@@ -157,12 +174,10 @@ def check_flags(args) -> None:
     (each data rank's share of it) and ``--profile_window`` be START,STOP
     with 0 <= START < STOP, each raised in JAX's words
     (``stlt_tpu/train.py:159-167, 291-296``). ``--model_parallel`` above 1
-    raises first, naming the ROADMAP.md item its training half waits for."""
-    if args.model_parallel > 1:
-        raise NotImplementedError("train --model_parallel > 1 is not ported yet: it waits for "
-                                  "ROADMAP.md item A9 (model axis), its training half "
-                                  "(A9 (model axis, training))")
+    trains clips below the fused train tail's gate with no ring
+    (:func:`check_model_axis_training`)."""
     check_serving_flags(args)
+    check_model_axis_training(args)
     for flag in ("load_backbone_path", "save_backbone_path"):
         if getattr(args, flag) and args.model_name not in BACKBONE_MODELS:
             raise ValueError(f"--{flag} acts on a model's backbone: --model_name is one of "
@@ -175,6 +190,27 @@ def check_flags(args) -> None:
         raise ValueError(f"--grad_accum_steps {grad_accum} must divide --batch_size "
                          f"{args.batch_size}{per_rank}")
     profile_window(args)
+
+
+def check_model_axis_training(args) -> None:
+    """``--model_parallel M`` trains every model (the sharded kernels are
+    rows 3, 4, 6 and 7) on a clip whose layout frame axis (with the extract
+    slot) stays below the fused train tail's gate
+    (``ops/fused_tail_train.tail_train_wants``: 256 frames, below the
+    blockwise kernels' 513 too), and without ``--context_parallel``: the
+    rest raises naming the ROADMAP.md item it waits for."""
+    if args.model_parallel <= 1:
+        return
+    frames = args.layout_num_frames + 1
+    what = None
+    if args.context_parallel > 1:
+        what = f"--context_parallel {args.context_parallel}"
+    elif args.model_name in LAYOUT_MODELS and tail_train_wants(frames):
+        what = f"--layout_num_frames {args.layout_num_frames} (the fused train tail from 256 frames)"
+    if what is not None:
+        raise NotImplementedError(f"train --model_parallel {args.model_parallel} with {what} is not "
+                                  "ported yet: it waits for ROADMAP.md item A9 (model axis, long-clip "
+                                  "training)")
 
 
 def profile_window(args):
@@ -281,8 +317,11 @@ def _train(args, device) -> TrainResult:
         model.backbone.load_state_dict(read_state_dict(args.load_backbone_path, model.backbone),
                                        strict=True)
         logging.info("Loaded backbone from %s", args.load_backbone_path)
-    set_conv_algorithms(device)  # as predict: untimed, and deterministic on a ring
+    set_conv_algorithms(device)  # as predict: untimed, and deterministic on a ring or a model axis
     model = model.to(device)
+    model_mesh = active_model_mesh()
+    if model_mesh is not None:  # this rank's shards, before AdamW's moments are made
+        shard_model_(model, model_mesh)
 
     criterion = make_criterion(args.dataset_name)
     num_batches = len(train_dataset) // args.batch_size
@@ -350,13 +389,14 @@ def _train(args, device) -> TrainResult:
             is_best = evaluator.is_best()
             if is_best:
                 logging.info("Found new best on epoch %d!", epoch + 1)
-                if coordinator:
-                    save_checkpoint(args.save_model_path, model, scores=scores)
-                    if args.save_backbone_path:
-                        save_checkpoint(args.save_backbone_path, model.backbone, scores=scores)
-            if args.resume_dir and coordinator:
+                with full_widths(model, model_mesh):  # every rank gathers, the coordinator writes
+                    if coordinator:
+                        save_checkpoint(args.save_model_path, model, scores=scores)
+                        if args.save_backbone_path:
+                            save_checkpoint(args.save_backbone_path, model.backbone, scores=scores)
+            if args.resume_dir:
                 ckpt.save_train_state(args.resume_dir, global_step, epoch + 1, model, optimizer,
-                                      scheduler)
+                                      scheduler, write=coordinator)
             for m, v in metrics.items():
                 logging.info("%s: %s", m, round(v * 100, 2))
             records.append({

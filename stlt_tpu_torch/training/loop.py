@@ -53,6 +53,22 @@ weights stay equal bit for bit and differ from one process's only in the
 order of sums. The accumulators sum Something's counts over the ranks and
 gather Action Genome's probabilities in global order once per pass.
 
+Under a model mesh (``train --model_parallel M``: ``parallel/sharding.py``)
+the M ranks of a model group take one process's step together: each runs
+the forward and backward on the same rows with its shards (the layers'
+``model_sum`` and ``model_copy`` sum the row-parallel partials and the
+column-parallel inputs' gradients over the group), so a sharded
+parameter's gradient is the rank's shard of the whole one and a
+replicated parameter's is the whole one on every rank, and neither is
+summed over the group (a sum would count the replicated ones M times).
+The ranks do not always compute a replicated gradient to the same bits on
+the card (the R3D stem's atomics, as under a ring), so
+:func:`sync_over_model_` replaces them by the group's rank 0's in one flat
+broadcast after the backward; the clip's norm then adds the shards'
+squares over the group (``training/optimizer.py``). Under a data axis as
+well, the data group (the ranks of one model index) then sums every
+gradient as above: each model index sums its own shards.
+
 Under both (``train --num_processes D C --context_parallel C``: D rings of
 C ranks, ``parallel/mesh.py``) each ring takes its data index's rows and
 every rank its frames of them. After the backward the gradients are made
@@ -75,8 +91,8 @@ import numpy as np
 import torch
 
 from stlt_tpu_torch.data.loader import VALID_TOTAL
-from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, active_data_mesh, all_gather,
-                                          all_sum, broadcast)
+from stlt_tpu_torch.parallel.mesh import (Mesh, active_context_mesh, active_data_mesh, active_model_mesh,
+                                          all_gather, all_sum, broadcast)
 from stlt_tpu_torch.training.optimizer import clip_by_global_norm_
 
 
@@ -156,12 +172,28 @@ def sync_over_ring_(model, ring: Mesh) -> None:
     sharded = ring_sharded_parameters(model)
     sum_grads_over_ring_(sharded, ring, group=ring.ring_group)
     ids = {id(p) for p in sharded}
-    grads = [p.grad for p in model.parameters() if id(p) not in ids and p.grad is not None]
+    _broadcast_grads_([p.grad for p in model.parameters() if id(p) not in ids and p.grad is not None],
+                      ring, ring.ring_rank(0), ring.ring_group)
+
+
+def _broadcast_grads_(grads, mesh: Mesh, src: int, group) -> None:
+    """Replace ``grads`` by global rank ``src``'s, in one flat f32
+    broadcast over ``group``."""
     if grads:
         flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-        flat = broadcast(flat, ring, ring.ring_rank(0), group=ring.ring_group)
+        flat = broadcast(flat, mesh, src, group=group)
         torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]),
                                                                    grads)])
+
+
+def sync_over_model_(model, mesh: Mesh) -> None:
+    """A model rank's replicated gradients (every parameter that
+    ``parallel/sharding.shard_model_`` left whole) replaced by its model
+    group's rank 0's, in one flat f32 broadcast: see the module
+    docstring. The sharded ones are the rank's own and stay."""
+    _broadcast_grads_([p.grad for p in model.parameters()
+                       if getattr(p, "model_shard_dim", None) is None and p.grad is not None],
+                      mesh, mesh.model_rank(0), mesh.model_group)
 
 
 def microbatches(batch: Dict[str, torch.Tensor], grad_accum: int):
@@ -209,6 +241,7 @@ def loss_and_grads(model, criterion: Callable, batch: Dict[str, torch.Tensor],
     ring = active_context_mesh()
     if ring is not None:
         sync_over_ring_(model, ring)
+    _sync_model_axis_(model)
     if n is not None:
         n = torch.clamp(n, min=1.0)
         torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], n)
@@ -236,7 +269,14 @@ def _data_rank_loss_and_grads(model, criterion, batch, generator, grad_accum: in
     ring = active_context_mesh()
     if ring is not None:
         sync_over_ring_(model, ring)
+    _sync_model_axis_(model)
     return sum_grads_over_ring_(model.parameters(), mesh, loss, group=mesh.data_group)
+
+
+def _sync_model_axis_(model) -> None:
+    model_mesh = active_model_mesh()
+    if model_mesh is not None:
+        sync_over_model_(model, model_mesh)
 
 
 def make_train_step(model, optimizer, scheduler, criterion: Callable, clip_val: float,

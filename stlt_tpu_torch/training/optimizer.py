@@ -20,6 +20,13 @@ Own copy of the semantics of ``stlt_tpu/training/optimizer.py``
   parameter: it gets no gradient, stays out of the clip's norm and is
   neither updated nor decayed.
 
+Under a model mesh (``train --model_parallel M``) a rank holds the shards
+of the sharded parameters (``parallel/sharding.shard_model_`` marks them
+``model_shard_dim``) and the whole of the replicated ones: the clip's
+global norm sums the sharded ones' squares over the model group once and
+counts the replicated ones once, so every rank clips by one process's
+norm.
+
 Parameters that get no gradient (the dead ``encoder_layer`` prototype,
 ``score_embeddings`` without scores in the batch, the appearance branch's
 dead classifiers) stay out of the norm and are neither updated nor
@@ -32,6 +39,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 from torch import nn
+
+from stlt_tpu_torch.parallel.mesh import active_model_mesh, all_sum
 
 
 def model_no_decay_names(model: nn.Module) -> Tuple[str, ...]:
@@ -117,9 +126,21 @@ def make_optimizer(
 def clip_by_global_norm_(params: Iterable[torch.Tensor], clip: float) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by ``clip / norm`` when
     their global norm reaches ``clip``; returns the norm before clipping, on
-    the gradients' device (no host sync)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    the gradients' device (no host sync). Under a model mesh the norm is
+    the whole model's (see the module docstring), the same bits on every
+    rank."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    mesh = active_model_mesh()
+    if mesh is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        sharded = [getattr(p, "model_shard_dim", None) is not None for p in params]
+        squares = torch.stack(torch._foreach_norm(grads)).square()
+        mask = torch.tensor(sharded, device=squares.device)
+        zero = torch.zeros((), dtype=squares.dtype, device=squares.device)
+        shards = all_sum(torch.where(mask, squares, zero).sum(), mesh, mesh.model_group)
+        norm = torch.sqrt(torch.where(mask, zero, squares).sum() + shards)
     factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
     torch._foreach_mul_(grads, factor)
     return norm

@@ -170,8 +170,8 @@ MUTATIONS = {
     )]),
     "fwd_keep_ts_swapped": (("attention", "dense"), [(
         "attention_core.cuh",
-        "pr *= p.drop.keep_scale<kDrop>(b, n, N, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);",
-        "pr *= p.drop.keep_scale<kDrop>(b, n, N, c * kBK + 8 * j + 2 * tig + e, t_h[h], S);",
+        "pr *= p.drop.keep_scale<kDrop>(b, n, t_h[h], c * kBK + 8 * j + 2 * tig + e, S);",
+        "pr *= p.drop.keep_scale<kDrop>(b, n, c * kBK + 8 * j + 2 * tig + e, t_h[h], S);",
     )]),
     "no_dsum": (("attention", "dense_bwd"), [
         ("attention_bwd_core.cuh", "expf(x - lse_t) * (d - ds);", "expf(x - lse_t) * d;"),
@@ -182,8 +182,8 @@ MUTATIONS = {
     ]),
     "dkdv_keep_ts_swapped": (("attention", "dense_bwd"), [(
         "attention_bwd_core.cuh",
-        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, t, key, S);",
-        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, N, key, t, S);",
+        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, t, key, S);",
+        "const float keep = kDrop == kDropNone ? 1.f : p.drop.keep_scale<kDrop>(b, n, key, t, S);",
     )]),
     "act_grad_of_cd_z1": (("tail",), [(
         "fused_tail_train_bwd.cu",
@@ -232,7 +232,7 @@ MUTATIONS = {
         "sublayer.cuh", "      pr[s] = pv;\n", "      pr[s] = h == p.N - 1 ? 0.f : pv;\n",
     )]),
     "proj_keep_at_packed_row": (("proj",), [(
-        "sublayer.cuh", "p.drop.row_lane(orig, h, p.N)", "p.drop.row_lane(b, h, p.N)",
+        "sublayer.cuh", "p.drop.row_lane(orig, h)", "p.drop.row_lane(b, h)",
     )]),
     "proj_dead_rows_computed": (("proj",), [(
         "fused_proj_attention.cu", "const bool packed = p.rows_live != nullptr;", "const bool packed = false;",
@@ -245,7 +245,7 @@ MUTATIONS = {
         "            make_float2(round_to<bf16>(acc[4 * j + 2 * h]), round_to<bf16>(acc[4 * j + 2 * h + 1]));",
     )]),
     "proj_bwd_keep_at_packed_row": (("proj_bwd",), [
-        ("fused_proj_attention_bwd.cu", "p.drop.row_lane(orig, h, p.N)", "p.drop.row_lane(b, h, p.N)"),
+        ("fused_proj_attention_bwd.cu", "p.drop.row_lane(orig, h)", "p.drop.row_lane(b, h)"),
     ]),
     "proj_bwd_split_left_out": (("proj_bwd",), [(
         "fused_proj_attention_bwd.cu",

@@ -57,8 +57,9 @@ Tasks (inputs and outputs under WORKDIR):
 - ``model_axis``: every case of ``model_axis.json``'s ``cases`` (as
   ``fusion``'s) under one process group of WORLD ranks on the grid
   ``make_mesh(model_parallel, context_parallel)`` of that file, each model
-  cut to this rank's shards (``parallel/sharding.shard_model_``); writes
-  ``CASE_RANK.npz`` for each case.
+  cut to this rank's shards (``parallel/sharding.shard_model_``), its
+  gradients and parameters gathered to full tensors before they are
+  written; writes ``CASE_RANK.npz`` for each case.
 
 The process group starts from a ``file://`` store in WORKDIR, so parallel
 test workers never share a port.
@@ -321,11 +322,16 @@ def run_fusion_case(workdir, case, mesh=None):
       the loss, every gradient as the clip would see it, and the logits of
       a train-mode forward drawing from the same generator;
     - ``train``: ``case["steps"]`` AdamW steps (``make_train_step``,
-      ``case["hp"]``, ``freeze_backbone`` as the config says): the losses
-      and every parameter after each step;
+      ``case["hp"]``, ``freeze_backbone`` as the config says, ``grad_accum``
+      microbatches, default 1): the losses and every parameter after each
+      step;
     - ``sync``: (under a ring) every parameter's gradient set to (rank + 1)
       (i + 1) for the i-th parameter, then ``training.loop.sync_over_ring_``:
       the gradients it leaves.
+
+    Under a model axis the gradients and the parameters are gathered to
+    full tensors (``parallel/sharding.gather_state_dict``) before they are
+    returned, so a rank's arrays have one process's shapes.
 
     Returns the arrays (``logits_HEAD``, ``loss``, ``grad_NAME``,
     ``losses``, ``params_I``)."""
@@ -333,6 +339,7 @@ def run_fusion_case(workdir, case, mesh=None):
     from stlt_tpu_torch.data.loader import VALID_TOTAL
     from stlt_tpu_torch.models import appearance, models_factory
     from stlt_tpu_torch.models.stlt import StltBackbone, backbone_frozen
+    from stlt_tpu_torch.parallel.sharding import gather_state_dict
     from stlt_tpu_torch.training import loop
     from stlt_tpu_torch.training.criterion import make_criterion
     from stlt_tpu_torch.training.optimizer import frozen_stats_mask, make_optimizer
@@ -346,10 +353,15 @@ def run_fusion_case(workdir, case, mesh=None):
     finally:
         appearance.TORCH_ENCODER_DROPOUT = saved
     model.load_state_dict(torch.load(os.path.join(workdir, case["state"])), strict=True)
-    if mesh is not None and mesh.model_size > 1:
+    model_axis = mesh is not None and mesh.model_size > 1
+    if model_axis:
         from stlt_tpu_torch.parallel.sharding import shard_model_
 
         shard_model_(model, mesh)
+
+    def full(named):  # every rank of the model group calls it, in one order
+        named = dict(named)
+        return gather_state_dict(named, mesh) if model_axis else named
     if case.get("quiet_ring_attention"):
         for module in model.modules():
             if isinstance(module, StltBackbone):
@@ -372,10 +384,11 @@ def run_fusion_case(workdir, case, mesh=None):
         trainable = frozen_stats_mask(model)
         for n, p in model.named_parameters():
             p.requires_grad_(trainable[n])
-        loss = loop.loss_and_grads(model, criterion, batch, loop.step_generator(0, 0))
+        loss = loop.loss_and_grads(model, criterion, batch, loop.step_generator(0, 0),
+                                   case.get("grad_accum", 1))
         out["loss"] = loss.numpy()
-        out.update({f"grad_{n}": p.grad.numpy() for n, p in model.named_parameters()
-                    if p.grad is not None})
+        out.update({f"grad_{n}": g.numpy() for n, g in full(
+            (n, p.grad) for n, p in model.named_parameters() if p.grad is not None).items()})
         with torch.no_grad():
             logits = model.train()(inputs, loop.step_generator(0, 0))
         out.update({f"logits_{head}": v.numpy() for head, v in logits.items()})
@@ -391,11 +404,13 @@ def run_fusion_case(workdir, case, mesh=None):
             model, learning_rate=hp["lr"], weight_decay=hp["weight_decay"],
             num_warmup_steps=hp["warmup"], num_training_steps=hp["total"],
             freeze_backbone=backbone_frozen(cfg))
-        step = loop.make_train_step(model, optimizer, scheduler, criterion, hp["clip_val"])
+        step = loop.make_train_step(model, optimizer, scheduler, criterion, hp["clip_val"],
+                                    grad_accum=case.get("grad_accum", 1))
         losses = []
         for i in range(case["steps"]):
             losses.append(float(step(batch, loop.step_generator(0, i))[0]))
-            out[f"params_{i}"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
+            params = full((n, p.detach()) for n, p in model.named_parameters())
+            out[f"params_{i}"] = torch.cat([v.reshape(-1) for v in params.values()]).numpy()
         out["losses"] = np.array(losses)
     return out
 

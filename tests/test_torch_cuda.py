@@ -2029,3 +2029,105 @@ def test_model_axis_kernels_refuse_what_they_do_not_take(device):
     wo = torch.zeros((96, 256), device=device)
     with pytest.raises(ValueError, match="takes H in 64"):
         fe.fused_proj_attention_partial(x, wqkv, bqkv, wo, None, num_heads=3, compute_dtype=torch.bfloat16)
+
+
+# --- the model axis in training: rows 3 and 4's partial modes, rows 6 and 7 at a head base ----
+
+
+def _rel_norm(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_axis_train_partials_match_plain_and_one_process(device, dtype, M):
+    """Row 3's train partial (dropout 0.1, each rank's heads hashed at the
+    global head m N / M + n) and row 4's partial backward against their
+    plain versions, and against the one-process kernels: the summed partials
+    through ``sublayer_sum`` against the one-process forward, each rank's
+    dqkv, dWo and dbo against the one-process backward's head slice, rows
+    and whole bias gradient. Dead rows zeros; bf16 held to relative norm
+    errors of 1.2e-3 (forward) and 1e-3 (backward), as PROJ_REL and
+    PROJ_BWD_REL hold the one-process kernels."""
+    H, N, B, T, rate, seed = 256, 4, 24, 17, 0.1, 0x5EED5EED
+    gen = torch.Generator().manual_seed(23)
+    w = _weights(H, gen, device)
+    shards = [_model_rank_shards(w, M, m) for m in range(M)]
+    x = torch.randn((B, T, H), generator=gen).to(device, dtype)
+    rows_live = (torch.rand(B, generator=gen) < 0.7).to(device)
+    g = torch.randn((B, T, H), generator=gen).to(device, dtype)
+    g[~rows_live] = 0
+    bias = _bias("key_padding", B, T, gen).to(device)
+    n, Hq = N // M, H // M
+    kw = dict(num_heads=n, dropout_rate=rate, compute_dtype=dtype, rows_live=rows_live)
+    one_kw = dict(kw, num_heads=N)
+    bf16 = dtype == torch.bfloat16
+    tol = TOL[dtype]
+    dead = ~rows_live
+    one = fe.fused_proj_attention_train(x, w["wqkv"], w["bqkv"], w["wo"], w["bo"], bias, seed, **one_kw)
+    oq, owo, obo = fe._launch_proj_bwd(x, w["wqkv"], w["bqkv"], w["wo"], bias, g, seed, **one_kw)
+    parts = []
+    for m, sh in enumerate(shards):
+        base = dict(head0=m * n, heads=N)
+        args = (x, sh["wqkv"], sh["bqkv"], sh["wo"], bias)
+        part = fe._launch_proj_partial(*args, train=True, seed=seed, **kw, **base)
+        plain = fe.fused_proj_attention_partial_plain(*args, seed=seed, **kw, **base)
+        assert part.dtype == torch.float32 and part[dead].abs().max() == 0
+        torch.testing.assert_close(part, plain, **tol)
+        parts.append(part)
+        got = fe._launch_proj_bwd(*args, g, seed, **kw, **base)
+        want = fe.fused_proj_attention_train_bwd_plain(*args, g, seed, **kw, **base)
+        again = fe._launch_proj_bwd(*args, g, seed, **kw, **base)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        cols = torch.cat([torch.arange(i * H + m * Hq, i * H + (m + 1) * Hq) for i in range(3)]).to(device)
+        ones = (oq.index_select(-1, cols), owo[m * Hq:(m + 1) * Hq], obo)
+        assert got[0].shape == (B, T, 3 * Hq) and got[1].shape == (Hq, H) and got[2].shape == (H,)
+        assert got[0][dead].abs().max() == 0
+        for name, a, b, c in zip(("dqkv", "dwo", "dbo"), got, want, ones):
+            if bf16:
+                assert _rel_norm(a, b) < 1e-3 and _rel_norm(a, c) < 1e-3, (name, _rel_norm(a, b), _rel_norm(a, c))
+            else:
+                torch.testing.assert_close(a, b, **tol)
+                torch.testing.assert_close(a, c, **tol)
+    y = fe.sublayer_sum(_summed(parts), w["bo"], compute_dtype=dtype, rows_live=rows_live)
+    assert y[dead].abs().max() == 0
+    if bf16:
+        assert _rel_norm(y, one) < 1.2e-3
+    else:
+        torch.testing.assert_close(y, one, **tol)
+
+
+@pytest.mark.parametrize("T,S", [(17, 33), (70, 70)])
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_attention_at_a_head_base_is_the_whole_launchs_head_slice(device, dtype, M, T, S):
+    """Rows 6 and 7 on a model rank's heads (a strided view of the whole
+    q, k, v; dropout 0.1 hashed at the global heads): the output, lse and
+    dq, dk, dv equal the one-process launch's head slice bit for bit; each
+    head's work is its own."""
+    from stlt_tpu_torch.ops import flash
+
+    B, N, D, rate, seed = 6, 8, 64, 0.1, 0x12345
+    gen = torch.Generator().manual_seed(24)
+    q = torch.randn((B, T, N, D), generator=gen).to(device, dtype)
+    k, v = (torch.randn((B, S, N, D), generator=gen).to(device, dtype) for _ in range(2))
+    dout = torch.randn((B, T, N, D), generator=gen).to(device, dtype)
+    pad = torch.rand(B, S, generator=gen) < 0.3
+    pad[:, 0] = False
+    bias = masks.key_padding_bias(pad).to(device)
+    kw = dict(dropout_seed=seed, dropout_rate=rate)
+    out, lse = flash.fused_attention(q, k, v, bias, with_lse=True, **kw)
+    dsum = flash._dsum(dout, out, None)
+    dq, dk, dv = flash.fused_attention_bwd(q, k, v, dout, lse, dsum, bias, **kw)
+    n = N // M
+    for m in range(M):
+        sl = slice(m * n, (m + 1) * n)
+        base = dict(kw, dropout_head0=m * n, dropout_heads=N)
+        o_m, lse_m = flash.fused_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], bias, with_lse=True, **base)
+        assert torch.equal(o_m, out[:, :, sl]) and torch.equal(lse_m, lse[:, sl])
+        grads = flash.fused_attention_bwd(q[:, :, sl], k[:, :, sl], v[:, :, sl], dout[:, :, sl], lse_m,
+                                          dsum[:, sl].contiguous(), bias, **base)
+        for a, b in zip(grads, (dq, dk, dv)):
+            assert torch.equal(a, b[:, :, sl])
+        local = flash.fused_attention(q[:, :, sl], k[:, :, sl], v[:, :, sl], bias, **kw)
+        assert m == 0 or not torch.equal(local, o_m)  # hashed at the local head: another rank's bits

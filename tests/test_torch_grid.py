@@ -152,7 +152,7 @@ def test_cli_checks_take_the_grid_for_stlt(check):
 @pytest.mark.parametrize("extra,item", [
     pytest.param(["--model_name", "cacnf", "--dataset_type", "multimodal"], None,
                  id="extra0-A9 \\(fusion models under the ring\\)"),
-    pytest.param(["--model_name", "stlt", "--model_parallel", "2"], "A9 \\(model axis\\)",
+    pytest.param(["--model_name", "stlt", "--model_parallel", "2"], "A9 \\(model axis, long-clip training\\)",
                  id="extra1-A9 \\(model axis\\)"),
     pytest.param(["--model_name", "stlt", "--native_decode"], None, id="extra2-A10"),
 ])
@@ -162,8 +162,9 @@ def test_cli_checks_on_the_grid_refuse_what_waits(check, extra, item):
     waited for items that have landed and keep their ids: CACNF on the grid
     (A9, fusion models under the ring) and ``--native_decode`` (A10). Both
     checks now take them. ``--model_parallel 2`` on the grid (a model 2 x
-    context 2 replica over the four processes) is A9 (model axis): serving
-    takes it, training still refuses it, naming that item."""
+    context 2 replica over the four processes): serving takes it (A9, model
+    axis); training refuses a model axis beside a ring, naming A9 (model
+    axis, long-clip training)."""
     args = build_parser("test").parse_args(COMMON + ["--context_parallel", "2", "--num_processes", "4",
                                                      "--batch_size", "4", *extra])
     if item is None or (check is port_predict.check_flags and "--model_parallel" in extra):

@@ -280,10 +280,15 @@ def test_model_axis_refuses_an_uneven_feed_forward():
 
 
 def test_serving_takes_the_model_axis_and_training_refuses_it():
+    """Serving takes the model axis beside a ring; training takes it at 17
+    frames and refuses what waits for A9 (model axis, long-clip training):
+    the fused train tail's 256 frames and a ring beside it."""
     args = _args("--model_parallel", "2", "--context_parallel", "3")
     port_predict.check_flags(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9 \\(model axis\\)"):
-        port_train.check_flags(_args("--model_parallel", "2", "--save_model_path", "x.pt"))
+    port_train.check_flags(_args("--model_parallel", "2", "--save_model_path", "x.pt"))
+    for extra in (["--layout_num_frames", "256"], ["--context_parallel", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9 \\(model axis, long-clip training\\)"):
+            port_train.check_flags(_args("--model_parallel", "2", "--save_model_path", "x.pt", *extra))
 
 
 @pytest.mark.parametrize("H", [768, 1024])

@@ -12,10 +12,15 @@ several ranks (``parallel/distributed.run_ranks``), on the CPU.
   ring's two ranks) equal ``--num_processes 2`` (two processes started one
   by one, ``tests/ring_worker.py``), bit for bit: the same JSON bytes, the
   same checkpoint tensors; a rank's non-zero exit fails the run with its
-  code.
+  code;
+- (f) ``train --model_parallel 2`` from one process: full checkpoints (the
+  best ``.msgpack``, the step checkpoints with AdamW's moments) equal to
+  one process's, loading strict into one process, and a resumed run's
+  checkpoint bit for bit.
 """
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -31,6 +36,8 @@ from stlt_tpu_torch.parser import build_parser
 from tests.fixtures import make_something_fixture
 from tests.ring_worker import exit_on_rank
 from tests.test_torch_ring import _run_ranks
+from stlt_tpu_torch.utils.convert import read_state_dict
+from tests.test_torch_ring_train_cli import KEY_BIAS_ATOL
 from tests.test_torch_ring_train_cli import _argv as train_argv
 
 
@@ -165,3 +172,61 @@ def test_ranks_per_process_follow_the_flags():
     assert distributed.data_size(parse("--model_parallel", "4", "--num_processes", "2")) == 1
     with pytest.raises(ValueError, match="--num_processes 3 does not divide the replica's 4 ranks"):
         distributed.ranks_per_process(parse("--model_parallel", "4", "--num_processes", "3"))
+
+
+def _state_close(got, want, label):
+    """Two state dicts of one f32 STLT trained the same way, up to the order
+    of sums (the key third of ``in_proj_bias``: ``KEY_BIAS_ATOL``)."""
+    assert set(got) == set(want), label
+    for name, value in got.items():
+        ref = want[name]
+        if name.endswith("self_attn.in_proj_bias"):
+            H = value.shape[0] // 3
+            torch.testing.assert_close(value[H:2 * H], ref[H:2 * H], atol=KEY_BIAS_ATOL, rtol=0,
+                                       msg=f"{label} {name}")
+            value, ref = value[[*range(H), *range(2 * H, 3 * H)]], ref[[*range(H), *range(2 * H, 3 * H)]]
+        torch.testing.assert_close(value, ref, atol=1e-5, rtol=1e-5, msg=f"{label} {name}")
+
+
+def test_train_model_parallel_writes_full_checkpoints_and_resumes_bit_for_bit(tmp_path):
+    """(f) ``train --model_parallel 2`` from one process (dropout 0.1, two
+    epochs, ``--resume_dir``): the best ``.msgpack`` and each step
+    checkpoint hold full tensors that load strict into one process and
+    equal one process's run (its AdamW moments too); a run resumed from the
+    first step checkpoint writes the second one bit for bit."""
+    paths, *_ = make_something_fixture(str(tmp_path), num_videos=8)
+    argv = train_argv(paths) + ["--epochs", "2", "--hidden_dropout_prob", "0.1"]
+    runs = {}
+    for label, extra in (("one", []), ("model", ["--model_parallel", "2"])):
+        port_train.main(argv + extra + ["--save_model_path", str(tmp_path / f"{label}.msgpack"),
+                                        "--resume_dir", str(tmp_path / label)])
+        runs[label] = [torch.load(tmp_path / label / f"step_{s:09d}.pt", weights_only=True) for s in (2, 4)]
+    one, two = runs["one"], runs["model"]
+    args = build_parser("test").parse_args(argv)
+    data_cfg = port_predict.build_data_config(args, train=False, dataset_path=paths["dataset_path"])
+    model = models_factory["stlt"](port_predict.build_model_config(args, datasets_factory["layout"](data_cfg),
+                                                                   data_cfg))  # one process's
+    for s, (a, b) in enumerate(zip(one, two)):
+        model.load_state_dict(b["model"], strict=True)
+        _state_close(b["model"], a["model"], f"step checkpoint {s}")
+        assert b["step"] == a["step"] and b["epoch"] == a["epoch"]
+        for idx, entry in a["optimizer"]["state"].items():
+            for key, value in entry.items():
+                got = b["optimizer"]["state"][idx][key]
+                assert got.shape == value.shape, (idx, key)
+                torch.testing.assert_close(got, value, atol=1e-8, rtol=1e-5, msg=f"{s} {idx} {key}")
+    best = {label: read_state_dict(str(tmp_path / f"{label}.msgpack"), model) for label in runs}
+    model.load_state_dict(best["model"], strict=True)
+    _state_close(best["model"], best["one"], "best .msgpack")
+
+    resumed = tmp_path / "resumed"
+    resumed.mkdir()
+    shutil.copy(tmp_path / "model" / "step_000000002.pt", resumed / "step_000000002.pt")
+    port_train.main(argv + ["--model_parallel", "2", "--save_model_path", str(tmp_path / "resumed.msgpack"),
+                            "--resume_dir", str(resumed)])
+    again = torch.load(resumed / "step_000000004.pt", weights_only=True)
+    for name, value in two[1]["model"].items():
+        assert torch.equal(again["model"][name], value), name
+    for idx, entry in two[1]["optimizer"]["state"].items():
+        for key, value in entry.items():
+            assert torch.equal(again["optimizer"]["state"][idx][key], value), (idx, key)

@@ -18,7 +18,10 @@ tiny sizes (H 32, 4 heads, R3D depth 10, 8 layout frames), f32:
   context_parallel=2)`` eval step and the port's one process;
 - STLT on M = 4 ranks (one head a rank) against JAX, and at 72 layout
   frames (the temporal attention past the fused kernels' 64 tokens)
-  against one process.
+  against one process;
+- STLT and CACNF at 512 layout frames on M = 2 ranks with no ring (the
+  temporal attention and CACNF's cross-attention at 513 tokens, on the
+  blockwise kernels) against one process.
 
 The CLIs (``predict`` / ``inference --model_parallel 2`` from one process,
 and a process that starts several ranks) are held in
@@ -147,3 +150,36 @@ def test_stlt_on_four_model_ranks_matches_one_process(tmp_path, M):
     for r in range(1, M):
         np.testing.assert_array_equal(ranks[r], ranks[0])
     np.testing.assert_allclose(ranks[0], one["logits_stlt"], **ONE_PROCESS_TOL)
+
+
+def test_models_at_512_frames_on_two_model_ranks_match_one_process(tmp_path):
+    """Serving at 512 layout frames without a ring: STLT's temporal
+    attention and CACNF's layout self- and cross-attentions see 513 tokens
+    and take the blockwise route, each rank on its heads with no dropout
+    (so no head base); every head's logits equal across the ranks and
+    within 1e-6 of one process. ``--layout_num_frames 512`` gives the
+    model 513 frames, the extract slot included
+    (``configs.position_table_rows``)."""
+    frames = 513
+    batch = dict(_synthetic_layout_batch(3, frames, 4, 4, seed=16, length_range=(300, frames)),
+                 valid=np.ones(3, bool))
+    batch["video_frames"] = np.random.default_rng(17).standard_normal((3, 4, 64, 64, 3)).astype(np.float32)
+    np.savez(tmp_path / "long_batch.npz", **batch)
+    cases = {}
+    for seed, (name, cfg) in enumerate((("stlt", dict(STLT_KW, layout_num_frames=frames)),
+                                        ("cacnf", dict(KW, layout_num_frames=frames))), start=18):
+        _save_state(tmp_path / f"{name}.pt", models_factory[name](make_model_config(name, **cfg),
+                                                                  torch.Generator().manual_seed(seed)).state_dict())
+        cases[name] = {"model": name, "config": cfg, "state": f"{name}.pt", "batch": "long_batch.npz",
+                       "kind": "eval"}
+    with open(tmp_path / "model_axis.json", "w") as f:
+        json.dump({"model_parallel": 2, "context_parallel": 1, "cases": cases}, f)
+    _run_ranks("model_axis", tmp_path, world=2)
+    for label, case in cases.items():
+        one = run_fusion_case(str(tmp_path), case)
+        heads = [k for k in one if k.startswith("logits_")]
+        assert heads, label
+        ranks = [np.load(tmp_path / f"{label}_{r}.npz") for r in range(2)]
+        for head in heads:
+            np.testing.assert_array_equal(ranks[1][head], ranks[0][head], err_msg=f"{label} {head}")
+            np.testing.assert_allclose(ranks[0][head], one[head], **ONE_PROCESS_TOL, err_msg=f"{label} {head}")

@@ -88,14 +88,19 @@ def _check_two_ranks(tmp_path, levers):
                  id="extra0-A9 \\(fusion models under the ring\\)"),
     pytest.param(["--context_parallel", "2", "--num_processes", "1"], None,
                  id="extra1-A9 \\(ranks per process\\)"),
-    (["--model_parallel", "2"], "A9 \\(model axis\\)"),
+    pytest.param(["--model_parallel", "2"], None, id="extra2-A9 \\(model axis\\)"),
+    (["--model_parallel", "2", "--layout_num_frames", "256"], "A9 \\(model axis, long-clip training\\)"),
+    (["--model_parallel", "2", "--context_parallel", "2"], "A9 \\(model axis, long-clip training\\)"),
 ])
 def test_train_check_flags_refuses_what_waits_under_the_ring(extra, item):
     """What waits raises naming its item; the cases whose item is None
     waited for items that have landed and keep their ids: CACNF under the
-    ring (A9, fusion models under the ring) and a ring of two from one
-    process (A9, ranks per process); the check now takes them.
-    ``--model_parallel`` keeps refusing: its training half waits."""
+    ring (A9, fusion models under the ring), a ring of two from one
+    process (A9, ranks per process) and ``--model_parallel 2`` at 17
+    frames (A9, model axis: its training half); the check now takes them.
+    The model axis refuses the fused train tail's clips (256 frames on)
+    and a ring beside it, which wait for A9 (model axis, long-clip
+    training)."""
     args = build_parser("test").parse_args(
         ["--dataset_name", "something", "--dataset_type", "layout", "--model_name", "stlt",
          "--save_model_path", "best.pt", *extra])

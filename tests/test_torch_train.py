@@ -192,16 +192,16 @@ def test_train_cli_writes_a_strict_checkpoint(tmp_path):
     ["--context_parallel", "4", "--num_processes", "2"], ["--native_decode"],
 ])
 def test_train_cli_refuses_later_slices(tmp_path, flag):
-    """What waits raises naming its ROADMAP item (``--model_parallel``: A9
-    (model axis), its training half). ``--native_decode`` (A10) and the
-    context ring from fewer processes than ranks (A9, ranks per process:
-    each process starts its share of the ring's ranks) have landed and keep
-    their cases: the CLI's checks now take them (the run itself is held in
-    ``tests/test_torch_model_axis_cli.py``)."""
+    """What waits raises naming its ROADMAP item. ``--native_decode``
+    (A10), the context ring from fewer processes than ranks (A9, ranks per
+    process: each process starts its share of the ring's ranks) and
+    ``--model_parallel 2`` at 17 frames (A9, model axis: its training half)
+    have landed and keep their cases: the CLI's checks now take them (the
+    runs themselves are held in ``tests/test_torch_model_axis_cli.py``)."""
     root = str(tmp_path)
     paths, *_ = make_something_fixture(root, num_videos=4)
     argv = _cli_argv(paths, root, "--platform", "cpu", *flag)
-    if flag == ["--native_decode"] or "--context_parallel" in flag:
+    if flag == ["--native_decode"] or "--context_parallel" in flag or "--model_parallel" in flag:
         port_train.check_flags(port_train.build_parser("test").parse_args(argv))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
